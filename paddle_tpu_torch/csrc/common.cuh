@@ -4,7 +4,39 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
+#include <mutex>
+
 namespace ptt {
+
+// One kernel's dynamic shared-memory limit per device, raised only when a
+// launch needs more than every earlier one, so cudaFuncSetAttribute runs
+// once per (kernel, size) and not on every launch.  Keep one static
+// instance per kernel instantiation.
+struct SmemLimit {
+  static constexpr int kMaxDevices = 64;
+  std::atomic<size_t> allowed[kMaxDevices];
+  std::mutex mu;
+
+  template <typename Kernel>
+  cudaError_t reserve(Kernel kernel, size_t bytes) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev >= kMaxDevices)
+      return cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (allowed[dev].load(std::memory_order_acquire) >= bytes)
+      return cudaSuccess;
+    std::lock_guard<std::mutex> lock(mu);  // the limit only grows
+    if (allowed[dev].load(std::memory_order_relaxed) >= bytes)
+      return cudaSuccess;
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err == cudaSuccess) allowed[dev].store(bytes, std::memory_order_release);
+    return err;
+  }
+};
 
 // The reference kernels mask with a large finite negative, not -inf, so a
 // row whose tile is fully masked stays NaN-free (flash_attention.py:36).

@@ -190,8 +190,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
       sizeof(float) * ((size_t)kBQ * (d + 1) + (size_t)kBK * (d + 1) +
                        (size_t)kBK * d + (size_t)kBQ * (kBK + 1));
   auto kernel = flash_fwd_kernel<T, NJ>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static ptt::SmemLimit limit;
+  cudaError_t err = limit.reserve(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((s + kBQ - 1) / kBQ, h, b);
   kernel<<<grid, kThreads, smem, stream>>>(
@@ -418,8 +418,8 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out,
                    reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(v) % 16 == 0;
   auto kernel = flash_fwd_mma_kernel<D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static ptt::SmemLimit limit;
+  cudaError_t err = limit.reserve(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((s + kMmaRows - 1) / kMmaRows, h, b);
   kernel<<<grid, kMmaThreads, smem, stream>>>(

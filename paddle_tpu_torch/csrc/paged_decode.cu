@@ -16,8 +16,9 @@
 //    memory once per group, never once per q head;
 //  - pages past the newest visible position (pos + sq - 1) are skipped, so
 //    only the live rows are read, not max_len rows per slot;
-//  - a slot's page walk is split across blocks of at most kSplitKeys keys
-//    (the TPU walks pages in one sequential grid; here one block per long
+//  - a slot's page walk is split across `splits` blocks of ceil(P / splits)
+//    pages each (the caller picks splits so a block walks about 512 keys;
+//    the TPU walks pages in one sequential grid, and here one block per long
 //    sequence would leave the card idle), each keeping its online softmax
 //    (m, l, acc) in shared memory; a combine kernel merges the splits'
 //    partials -- the same merge the reference's context-parallel decode
@@ -44,11 +45,6 @@ using ptt::to_f32;
 constexpr int kThreads = 128;
 constexpr int kTK = 32;          // page rows per chunk (one score per lane)
 constexpr int kMaxRows = 64;     // R = rep * sq
-constexpr int kSplitKeys = 512;  // keys one block walks at most
-
-__host__ __device__ inline int pages_per_split(int ps) {
-  return ps >= kSplitKeys ? 1 : kSplitKeys / ps;
-}
 
 // Shared-memory layout, in floats:
 //   q_s [R][d], acc_s [R][d], k_s [kTK][dp], v_s [kTK][d], s_s [R][kTK],
@@ -141,7 +137,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ ak,
   const int warp = tid / 32;
   const int p0 = pos[slot];
   const int last = p0 + sq - 1;  // newest visible position of the window
-  const int pps = pages_per_split(ps);
+  const int pps = (P + nsplit - 1) / nsplit;  // pages per split
   const int j0 = split * pps;
   const int j1 = min(P, j0 + pps);
 
@@ -282,20 +278,19 @@ combine_kernel(const float* __restrict__ ws, T* __restrict__ out, int nsplit,
 template <typename T>
 cudaError_t launch(const void* q, const void* ak, const void* av,
                    const void* tables, const void* pos, void* out, void* ws,
-                   int b, int sq, int h, int hk, int d, int ps, int P,
-                   int max_len, float scale, cudaStream_t stream) {
+                   int nsplit, int b, int sq, int h, int hk, int d, int ps,
+                   int P, int max_len, float scale, cudaStream_t stream) {
   const int R = (h / hk) * sq;
   int G = 32;  // largest power of two with G * pairs <= threads (>= 1)
   while (G > 1 && G * R * kTK > kThreads) G >>= 1;
   const bool vec = (d * sizeof(T)) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(ak) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(av) % 16 == 0;
-  const int nsplit = (P + pages_per_split(ps) - 1) / pages_per_split(ps);
   if (nsplit > 1 && ws == nullptr) return cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * smem_floats(R, d, G);
   auto kernel = paged_decode_kernel<T>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static ptt::SmemLimit limit;
+  cudaError_t err = limit.reserve(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(b, hk, nsplit), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(ak),
@@ -312,31 +307,26 @@ cudaError_t launch(const void* q, const void* ak, const void* av,
 
 }  // namespace
 
-// Number of blocks one slot's page walk splits into, for a table of P
-// pages of ps rows.  With more than one, ptt_paged_decode needs a float32
-// workspace of b * hk * splits * rep * sq * (d + 2) elements.
-extern "C" int ptt_paged_decode_splits(int ps, int P) {
-  if (ps < 1 || P < 1) return 0;
-  return (P + pages_per_split(ps) - 1) / pages_per_split(ps);
-}
-
 // q: [b, sq, h, d]; arenas: [pages, ps, hk, d]; tables: [b, P] int32;
-// pos: [b] int32; out: [b, sq, h, d]; ws: the split workspace (may be null
-// with one split).  All contiguous.
+// pos: [b] int32; out: [b, sq, h, d].  Each slot's page walk splits into
+// `splits` blocks (1 <= splits <= P); with more than one, ws is a float32
+// workspace of b * hk * splits * rep * sq * (d + 2) elements, else it may
+// be null.  All contiguous.
 extern "C" int ptt_paged_decode(const void* q, const void* ak, const void* av,
                                 const void* tables, const void* pos, void* out,
-                                void* ws, int b, int sq, int h, int hk, int d,
-                                int ps, int P, int max_len, float scale,
-                                int dtype, void* stream) {
+                                void* ws, int splits, int b, int sq, int h,
+                                int hk, int d, int ps, int P, int max_len,
+                                float scale, int dtype, void* stream) {
   if (b < 1 || sq < 1 || h < 1 || hk < 1 || h % hk != 0 || d < 1 || d > 256 ||
-      ps < 1 || P < 1 || (h / hk) * sq > kMaxRows)
+      ps < 1 || P < 1 || splits < 1 || splits > P || (h / hk) * sq > kMaxRows)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == ptt::kBFloat16)
-    return (int)launch<__nv_bfloat16>(q, ak, av, tables, pos, out, ws, b, sq,
-                                      h, hk, d, ps, P, max_len, scale, st);
+    return (int)launch<__nv_bfloat16>(q, ak, av, tables, pos, out, ws, splits,
+                                      b, sq, h, hk, d, ps, P, max_len, scale,
+                                      st);
   if (dtype == ptt::kFloat32)
-    return (int)launch<float>(q, ak, av, tables, pos, out, ws, b, sq, h, hk,
-                              d, ps, P, max_len, scale, st);
+    return (int)launch<float>(q, ak, av, tables, pos, out, ws, splits, b, sq,
+                              h, hk, d, ps, P, max_len, scale, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -158,7 +158,10 @@ class ContinuousBatchingEngine:
                  if decode_kernel is None else decode_kernel)
         if dk not in ("auto", "fused", "gather"):
             raise ValueError(f"decode_kernel must be auto|fused|gather, got {dk!r}")
-        if dk != "gather" and (head_dim > MAX_HEAD_DIM or rep > MAX_PAGED_ROWS):
+        # "auto" is the reference flag's default; with no silent fallback in
+        # the port it is an alias of "fused"
+        dk = "fused" if dk == "auto" else dk
+        if dk == "fused" and (head_dim > MAX_HEAD_DIM or rep > MAX_PAGED_ROWS):
             raise ValueError(
                 f"decode_kernel={dk!r} runs the fused kernel, which needs "
                 f"head_dim <= {MAX_HEAD_DIM} and a GQA group <= "
@@ -243,11 +246,7 @@ class ContinuousBatchingEngine:
         """Fresh paged prefill of one bucket-padded prompt: writes its K/V
         into the pages of `row_table` and returns (first token [1], logits
         [1, V] float32) read at row true_len - 1, not at the bucket end."""
-        views = [
-            PagedPrefillView(a, row_table, true_len, self.max_len,
-                             kernel=self.decode_kernel)
-            for a in self._arenas
-        ]
+        views = [PagedPrefillView(a, row_table, true_len) for a in self._arenas]
         hidden = self.model.llama(toks, caches=views)
         logits = self.model.lm_head(hidden[:, true_len - 1]).float()
         return self._sample(logits, np.full(1, temp, np.float32)), logits
@@ -273,10 +272,22 @@ class ContinuousBatchingEngine:
         """Enqueue one request (1-D token ids); returns an EngineRequest at
         once.  Raises ContextOverflow when the prompt does not fit max_len
         and QueueFull when the queue is at capacity or the request's page
-        need exceeds the whole pool."""
-        ids = np.asarray(input_ids, np.int32).reshape(-1)
-        if ids.size == 0:
+        need exceeds the whole pool.  Ids outside [0, vocab_size) raise
+        ValueError: on the card an out-of-range embedding row is a
+        device-side assert that poisons the CUDA context for every later
+        step, where the reference's JAX gather clamps."""
+        raw = np.asarray(input_ids).reshape(-1)
+        if raw.size == 0:
             raise ValueError("empty prompt")
+        if raw.dtype.kind not in "iu":  # floats, bools, ints past int64
+            raise ValueError(f"input_ids must be integers, got {raw.dtype}")
+        vocab = self.model.config.vocab_size
+        bad = (raw < 0) | (raw >= vocab)
+        if bad.any():
+            raise ValueError(
+                f"token id {raw[bad][0]} outside the vocabulary [0, {vocab})"
+            )
+        ids = raw.astype(np.int32)
         if ids.size >= self.max_len:
             raise ContextOverflow(
                 f"prompt length {ids.size} exceeds engine capacity: "

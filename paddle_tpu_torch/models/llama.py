@@ -136,12 +136,10 @@ class PagedPrefillView:
     padding) and rows whose page index overruns the table land on scratch
     page 0."""
 
-    def __init__(self, arena, table, true_len, max_len, kernel="auto"):
+    def __init__(self, arena, table, true_len):
         self.arena = arena
         self.table = table
         self.true_len = int(true_len)
-        self.max_len = int(max_len)
-        self.kernel = kernel
 
 
 class PagedDecodeView:

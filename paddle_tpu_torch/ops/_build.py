@@ -42,11 +42,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     # q, k, v, out, lse, b, s, h, hk, d, causal, scale, dtype, stream
     "ptt_flash_fwd": ([_P] * 5 + [_I] * 6 + [_F, _I, _P], _I),
-    # q, ak, av, tables, pos, out, ws, b, sq, h, hk, d, ps, P, max_len,
-    # scale, dtype, stream
-    "ptt_paged_decode": ([_P] * 7 + [_I] * 8 + [_F, _I, _P], _I),
-    # ps, P -> blocks one slot's page walk splits into
-    "ptt_paged_decode_splits": ([_I, _I], _I),
+    # q, ak, av, tables, pos, out, ws, splits, b, sq, h, hk, d, ps, P,
+    # max_len, scale, dtype, stream
+    "ptt_paged_decode": ([_P] * 7 + [_I] * 9 + [_F, _I, _P], _I),
     "ptt_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -127,6 +125,8 @@ build.ptxas_report = ""
 def lib():
     """The loaded kernel library (built on first call)."""
     global _lib
+    if _lib is not None:  # every launch after the first: no lock
+        return _lib
     with _lock:
         if _lib is None:
             handle = ctypes.CDLL(str(build()))

@@ -31,6 +31,8 @@ launch_counts = {"flash_fwd": 0, "paged_decode_fused": 0}
 # the fused kernel holds one kv head's GQA group x window in one block
 MAX_PAGED_ROWS = 64
 MAX_HEAD_DIM = 256
+# keys one block of the fused kernel walks, about: longer page walks split
+PAGED_SPLIT_KEYS = 512
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -249,16 +251,16 @@ def paged_decode_fused(q, arena_k, arena_v, tables, pos, max_len, scale=None):
     b, sq, h, d = q.shape
     hk, ps, P = arena_k.shape[2], arena_k.shape[1], tables.shape[1]
     out = torch.empty_like(q)
-    # a long page walk splits across blocks; their partials merge in a
-    # float32 workspace [b, hk, splits, rows, d + 2]
-    splits = lib().ptt_paged_decode_splits(ps, P)
+    # a long page walk splits across blocks of ~PAGED_SPLIT_KEYS keys; their
+    # partials merge in a float32 workspace [b, hk, splits, rows, d + 2]
+    splits = -(-P // max(1, PAGED_SPLIT_KEYS // ps))
     ws = torch.empty(b * hk * splits * (h // hk) * sq * (d + 2) if splits > 1 else 0,
                      dtype=torch.float32, device=q.device)
     code = lib().ptt_paged_decode(
         q.data_ptr(), arena_k.data_ptr(), arena_v.data_ptr(),
         tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
-        ws.data_ptr() if splits > 1 else None, b, sq, h, hk, d, ps, P,
-        int(max_len), float(scale), _dtype_code(q, "paged_decode_fused"),
+        ws.data_ptr() if splits > 1 else None, splits, b, sq, h, hk, d, ps,
+        P, int(max_len), float(scale), _dtype_code(q, "paged_decode_fused"),
         _stream(q),
     )
     check(code, "paged_decode_fused")
@@ -269,9 +271,10 @@ def paged_decode_fused(q, arena_k, arena_v, tables, pos, max_len, scale=None):
 def paged_decode_attention(q, arena_k, arena_v, tables, pos, max_len,
                            scale=None, kernel="auto"):
     """Paged-decode attention dispatcher (the reference's
-    `paged_decode_attention_array`, flash_attention.py:1553).  "auto" and
-    "fused" run `paged_decode_fused` (which raises on a shape it does not
-    take -- the port has no silent fallback); "gather" runs the explicit
+    `paged_decode_attention_array`, flash_attention.py:1553).  "fused" runs
+    `paged_decode_fused` (which raises on a shape it does not take); "auto",
+    the reference flag's default, is an alias of "fused" because the port
+    has no silent fallback to the oracle; "gather" runs the explicit
     oracle: `paged_gather_kv` then the dense `decode_attention`."""
     if kernel not in ("auto", "fused", "gather"):
         raise ValueError(

@@ -271,6 +271,35 @@ def test_serve_generate_healthz_and_queue_full(models, reference_tokens):
     assert eng._thread is None
 
 
+@pytest.mark.parametrize(
+    "bad_ids",
+    [[5, 256, 7], [-1, 3], [2**31 + 5], [1.5, 2.0], [2**70]],
+    ids=["past_vocab", "negative", "past_int32", "float", "past_int64"],
+)
+def test_serve_rejects_token_ids_outside_the_vocab_and_keeps_serving(
+        models, reference_tokens, bad_ids):
+    """An id outside [0, vocab_size) answers 400 before it reaches the
+    embedding (on the card it would be a device-side assert that poisons
+    the context); the next valid request is served with the greedy
+    tokens."""
+    _, tm = models
+    prompts, news, ref = reference_tokens
+    eng = _engine(tm)
+    server = serve(eng, port=0, block=False)
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        with pytest.raises(urllib.error.HTTPError) as ei:
+            _post(base + "/generate", {"input_ids": bad_ids, "max_new_tokens": 2})
+        assert ei.value.code == 400
+        assert json.loads(ei.value.read())["type"] == "ValueError"
+        status, body = _post(base + "/generate", {
+            "input_ids": prompts[0].tolist(), "max_new_tokens": news[0]})
+        assert status == 200 and body["tokens"] == ref[0]
+    finally:
+        server.stop()
+    assert eng.pending == 0 and eng.active_slots == 0
+
+
 def test_engine_rejects_a_model_on_another_device(models):
     _, tm = models
     with pytest.raises(ValueError, match="lives on"):

@@ -78,6 +78,37 @@ def test_kernel_build_targets_hopper_and_needs_nvcc(monkeypatch):
         _build.nvcc_path()
 
 
+def _c_exports():
+    """{name: (return type, [parameter types])} of every `extern "C"`
+    function in csrc/*.cu, read from the source."""
+    import re
+
+    found = {}
+    for src in _build.sources():
+        text = re.sub(r"//[^\n]*", "", src.read_text())
+        for ret, name, params in re.findall(
+                r'extern "C"\s+([\w\s\*]+?)\s*(\w+)\s*\(([^)]*)\)', text):
+            types = [re.sub(r"\s*\b\w+$", "", p.strip()).replace("const ", "")
+                     for p in params.split(",") if p.strip()]
+            found[name] = (ret.replace("const ", "").strip(), types)
+    return found
+
+
+def test_ctypes_signatures_match_the_c_exports():
+    """Python's argtypes and the C prototypes agree parameter by parameter:
+    a mismatch would pass garbage to a kernel on the card."""
+    import ctypes
+
+    c_to_ctypes = {"void*": ctypes.c_void_p, "int": ctypes.c_int,
+                   "float": ctypes.c_float, "char*": ctypes.c_char_p}
+    exports = _c_exports()
+    assert sorted(exports) == sorted(_build.SIGNATURES)
+    for name, (argtypes, restype) in _build.SIGNATURES.items():
+        ret, params = exports[name]
+        assert [c_to_ctypes[p.replace(" ", "")] for p in params] == argtypes, name
+        assert c_to_ctypes[ret.replace(" ", "")] == restype, name
+
+
 def _run_chip_smoke(script, cwd):
     return subprocess.run([sys.executable, str(script)], cwd=cwd,
                           capture_output=True, text=True, timeout=120)

@@ -130,7 +130,7 @@ def test_paged_prefill_then_decode_logits_match_reference(models, kernel):
                                       max_len) for a in j_arenas]
         jh, _ = jm.llama(to_tensor(toks), caches=jv)
         ref = jm.lm_head(jh).numpy()[0, L - 1]
-        tv = [tllama.PagedPrefillView(a, torch.from_numpy(tables[s]), L, max_len)
+        tv = [tllama.PagedPrefillView(a, torch.from_numpy(tables[s]), L)
               for a in t_arenas]
         with torch.no_grad():
             out = tm.lm_head(tm.llama(torch.from_numpy(toks), caches=tv))[0, L - 1]
