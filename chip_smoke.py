@@ -3,20 +3,31 @@
 
     python3 chip_smoke.py
 
-Four phases; a failure in any of them exits non-zero and prints no result.
+Six phases; a failure in any of them exits non-zero and prints no result.
 
 1. device  -- requires CUDA; prints the card's name and power limit.
 2. build   -- builds every kernel of `paddle_tpu_torch/csrc` with nvcc.
 3. kernels -- holds each kernel against its plain PyTorch version on the
-              card, in bf16, at the serving path's shapes, and times kernel,
-              plain version and (where one exists) the PyTorch library call
-              with CUDA events.
+              card, in bf16, at the serving and training paths' shapes, and
+              times kernel, plain version and (where one exists) the PyTorch
+              library call with CUDA events; then every other variant the
+              wrappers launch, untimed.
 4. slice   -- serves a full-width, full-depth Llama-2-7B (bf16, random
               weights from a seeded generator) through the paged engine
               behind `POST /generate`, checks the token counts and that every
               prefill and decode step launched the two kernels, then
               teacher-forces the generated sequences through the full-sequence
               forward and compares logits.
+5. train   -- trains Llama-2-7B's widths at 8 layers (bf16 AMP O2, AdamW with
+              float32 master weights) for 6 steps on one repeated batch of
+              4 x 2048 tokens: finite and falling losses, K1 and K3 launched
+              once per layer per step, every weight moved; step time,
+              tokens/s, peak memory and a profiled step.
+              Then 2 steps of 2 layers with activation recompute (K1 twice
+              per layer per step).
+6. grads   -- one step's gradients of a 2-layer model at the same widths
+              with the kernels against the same step with attention through
+              the plain forward under autograd.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -66,6 +77,13 @@ REL_NORM_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
 LOGIT_REL_TOL = 0.1
 
 SLICE_PROMPTS = [(20, 64), (77, 48), (200, 32), (333, 40), (500, 32), (45, 64)]
+
+# the training slice: Llama-2-7B widths at 8 layers (AdamW's float32 state
+# for all 32 would not fit one card), batch 4 x 2048 tokens, bf16 O2
+TRAIN_LAYERS = 8
+TRAIN_BATCH = 4
+TRAIN_SEQ = 2048
+TRAIN_STEPS = 6
 
 
 def log(phase, msg):
@@ -249,12 +267,66 @@ def _k2_case(b, sq, h, hk, pos, d=128, ps=128, max_len=2048, seed=1,
                     bound_by=by, library_ms=None)
 
 
+def _k3_case(b, s, h, hk, d=128, seed=6, dtype="bfloat16", causal=True,
+             timed=True):
+    """K3 against its plain version on K1's out and lse, dq, dk and dv each
+    within the dtype's tolerance; with `timed`, also kernel, plain and
+    library times (the backward of PyTorch's SDPA alone, through
+    torch.autograd.grad) and the bound."""
+    import torch
+    from torch.nn import functional as F
+
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    mk = lambda heads: torch.randn(b, s, heads, d, generator=gen, device="cuda",
+                                   dtype=getattr(torch, dtype))
+    q, k, v, g = mk(h), mk(hk), mk(hk), mk(h)
+    scale = 1.0 / d ** 0.5
+    out, lse = fa.flash_forward(q, k, v, causal=causal)
+    args = (q, k, v, out, lse, g, causal, scale)
+    got = fa.flash_backward(*args)
+    torch.cuda.synchronize()
+    ref = fa.flash_backward_plain(*args)
+    errs = [(x.float() - r.float()).abs().max().item() for x, r in zip(got, ref)]
+    rels = [rel_norm_err(x, r) for x, r in zip(got, ref)]
+    ok = all(close(x, r) for x, r in zip(got, ref))
+    shape = (f"flash_bwd {dtype} b={b} s={s} h={h} hk={hk} d={d} causal={causal}: "
+             f"max_abs_err dq/dk/dv {errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e}, "
+             f"rel_norm_err {rels[0]:.3e}/{rels[1]:.3e}/{rels[2]:.3e}")
+    del ref
+    if not timed:
+        log("kernels", f"{shape} -> {'ok' if ok else 'FAIL'}")
+        return ok, dict(max_abs_err=max(errs))
+    ms = time_ms(lambda: fa.flash_backward(*args))
+    plain_ms = time_ms(lambda: fa.flash_backward_plain(*args), iters=5, warmup=1)
+    rep = h // hk
+    qt = q.transpose(1, 2).detach().requires_grad_()
+    kt = k.transpose(1, 2).repeat_interleave(rep, 1).detach().requires_grad_()
+    vt = v.transpose(1, 2).repeat_interleave(rep, 1).detach().requires_grad_()
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+    gt = g.transpose(1, 2)
+    lib_ms = time_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), gt,
+                                                 retain_graph=True))
+    # each input read once (q, k, v, out, g, lse), each output written once
+    # (dq, dk, dv); five products of 2*d FLOP per visible (q, k) pair
+    nbytes = 2 * 4 * (q.numel() + k.numel()) + 4 * lse.numel()
+    pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+    bms, by = bound(nbytes, 10 * d * pairs)
+    log("kernels", f"{shape}, kernel_ms {ms:.4f}, plain_ms {plain_ms:.4f}, "
+                   f"library_ms {lib_ms:.4f}, bound_ms {bms:.5f} ({by}) -> "
+                   f"{'ok' if ok else 'FAIL'}")
+    return ok, dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                    bound_ms=bms, bound_by=by, library_ms=lib_ms)
+
+
 def phase_kernels():
-    """Each kernel against its plain version: timed at the main path's bf16
+    """Each kernel against its plain version: timed at the main paths' bf16
     shapes, then untimed over every other variant the wrappers launch on
-    the card (float32, head_dim 64 and 256, non-causal, the largest shared
-    memory).  Returns ({name: record at the headline shape}, all_ok); the
-    record's max_abs_err is the worst over the bf16 cases."""
+    the card (float32, head_dim 64 and 256, non-causal, GQA, ragged, the
+    largest shared memory).  Returns ({name: record at the headline
+    shape}, all_ok); the record's max_abs_err is the worst over the bf16
+    cases."""
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions in f32
@@ -297,10 +369,34 @@ def phase_kernels():
     ):
         ok, _ = _k2_case(seed=5, timed=False, **kw)
         ok_all &= ok
+    # the training path: K1 and K3 at the slice's shape, timed
+    ok, k1_train = _k1_case(TRAIN_BATCH, TRAIN_SEQ, 32, 32, seed=7)
+    ok_all &= ok
+    errs1.append(k1_train["max_abs_err"])
+    ok, k3 = _k3_case(TRAIN_BATCH, TRAIN_SEQ, 32, 32)
+    ok_all &= ok
+    errs3 = [k3["max_abs_err"]]
+    for kw in (
+        dict(b=1, s=128, h=32, hk=32, dtype="float32"),    # f32 FMA, d 128
+        dict(b=2, s=256, h=32, hk=8),                      # GQA
+        dict(b=1, s=300, h=16, hk=4),                      # ragged, GQA
+        dict(b=2, s=200, h=8, hk=8, causal=False),         # non-causal
+        dict(b=2, s=130, h=8, hk=2, d=64),                 # d 64
+        dict(b=1, s=100, h=8, hk=2, d=256),                # bf16 FMA, d 256
+        dict(b=1, s=100, h=8, hk=2, d=256, dtype="float32"),
+        dict(b=1, s=70, h=4, hk=2, d=36),                  # d not a power of 2
+        dict(b=1, s=150, h=8, hk=8, d=64, causal=False, dtype="float32"),
+    ):
+        ok, rec = _k3_case(seed=8, timed=False, **kw)
+        ok_all &= ok
+        if kw.get("dtype", "bfloat16") == "bfloat16":
+            errs3.append(rec["max_abs_err"])
     torch.cuda.empty_cache()
     head1 = dict(k1[512], max_abs_err=max(errs1))
     head2 = dict(k2, max_abs_err=max(k2["max_abs_err"], rec2["max_abs_err"]))
-    return {"flash_fwd": head1, "paged_decode_fused": head2}, ok_all
+    head3 = dict(k3, max_abs_err=max(errs3))
+    return {"flash_fwd": head1, "paged_decode_fused": head2,
+            "flash_bwd": head3}, ok_all
 
 
 def _post(url, body):
@@ -431,42 +527,261 @@ def phase_slice(smi, cfg, device="cuda", dtype="bfloat16",
     return ok, counts
 
 
-def profile_decode(engine, cfg, rng, prompt_len=256, steps=8):
-    """Where a decode step's time goes: every slot busy at ~prompt_len
-    tokens, `steps` steps under torch.profiler.  Prints the step's wall
-    time, the device's busy and idle shares, and the kernels by device
-    time.  Reports "not measured" when the profiler sees no device time."""
+def _device_profile(run, steps):
+    """Run `run()` `steps` times under torch.profiler.  Returns (wall us,
+    {kernel name: device us}, {annotated range: device us}); the kernel
+    dict is empty when the profiler saw no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels, spans = {}, {}
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        # a user annotation (the optimizer's step range) spans kernels that
+        # are counted on their own: keep it apart
+        if getattr(ev, "is_user_annotation", False):
+            spans[ev.key] = spans.get(ev.key, 0.0) + ev.device_time_total
+        else:
+            us = getattr(ev, "self_device_time_total", 0.0)
+            kernels[ev.key] = kernels.get(ev.key, 0.0) + us
+    return wall_us, kernels, spans
+
+
+# device time by kind of kernel, matched on the kernel's name
+KERNEL_GROUPS = (
+    ("GEMMs (cuBLAS)", ("nvjet", "gemm", "cutlass", "splitKreduce")),
+    ("K1 flash_fwd", ("flash_fwd",)),
+    ("K3 flash_bwd", ("flash_bwd", "delta_kernel")),
+    ("K2 paged_decode", ("paged_decode",)),
+)
+
+
+def _log_profile(what, wall_us, kernels, spans, steps, top=8):
+    """Print the step's wall time, the device's busy time and idle share,
+    the device time by kind of kernel, annotated ranges, and the top
+    kernels ("not measured" when the profiler saw no device time)."""
+    busy = sum(kernels.values())
+    if busy <= 0:
+        log("profile", "device time not measured (the profiler saw no kernels)")
+        return
+    log("profile", f"{what}: wall {wall_us / steps / 1e3:.3f} ms/step, device "
+                   f"busy {busy / steps / 1e3:.3f} ms/step, idle share "
+                   f"{1 - busy / wall_us:.3f}")
+    groups = {label: 0.0 for label, _ in KERNEL_GROUPS}
+    other = 0.0
+    for name, us in kernels.items():
+        label = next((lb for lb, keys in KERNEL_GROUPS
+                      if any(k in name for k in keys)), None)
+        if label is None:
+            other += us
+        else:
+            groups[label] += us
+    parts = [f"{lb} {us / steps / 1e3:.3f}" for lb, us in groups.items() if us]
+    log("profile", "  device ms/step by kind: " + ", ".join(parts)
+                   + f", other (elementwise, reductions, copies) "
+                   f"{other / steps / 1e3:.3f}")
+    for name, us in spans.items():
+        log("profile", f"  span of {name}: {us / steps / 1e3:.3f} ms/step on the device")
+    for name, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:top]:
+        log("profile", f"  {us / busy:6.3f} of device time, "
+                       f"{us / steps / 1e3:.4f} ms/step: {name[:90]}")
+
+
+def profile_decode(engine, cfg, rng, prompt_len=256, steps=8):
+    """Where a decode step's time goes: every slot busy at ~prompt_len
+    tokens, `steps` steps under torch.profiler."""
     for _ in range(engine.slots):
         engine.submit(rng.integers(1, cfg.vocab_size, size=prompt_len),
                       max_new_tokens=steps + 4)
     engine.step()  # admits every slot (prefills) and decodes once
     engine.step()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            engine.step()  # ends in the host fetch of the step's tokens
-        wall_us = (time.perf_counter() - t0) * 1e6
+    # each step ends in the host fetch of the step's tokens
+    wall_us, kernels, spans = _device_profile(engine.step, steps)
     engine.run_until_idle()
-    kernels = {}
-    for ev in prof.key_averages():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            us = getattr(ev, "self_device_time_total", 0.0)
-            kernels[ev.key] = kernels.get(ev.key, 0.0) + us
-    busy = sum(kernels.values())
-    if busy <= 0:
-        log("profile", "device time not measured (the profiler saw no kernels)")
-        return
-    log("profile", f"decode step, {engine.slots} slots at ~{prompt_len} tokens: "
-                   f"wall {wall_us / steps / 1e3:.3f} ms/step, device busy "
-                   f"{busy / steps / 1e3:.3f} ms/step, idle share "
-                   f"{1 - busy / wall_us:.3f}")
-    for name, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:8]:
-        log("profile", f"  {us / busy:6.3f} of device time, "
-                       f"{us / steps / 1e3:.4f} ms/step: {name[:90]}")
+    _log_profile(f"decode step, {engine.slots} slots at ~{prompt_len} tokens",
+                 wall_us, kernels, spans, steps)
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+# 2-layer gradient check: per parameter ||g_kernel - g_plain|| / ||g_plain||.
+# Both runs are bf16 O2 and differ only in attention.  The kernel path
+# rounds p and ds to bf16 as the reference's backward does (a 2^-9 relative
+# rounding of each entry) and K1/K3 agree with their plain versions within
+# a relative norm of 1e-2; the plain path's autograd keeps p and ds in
+# float32.  A rehearsal on the CPU at tiny size (both sides plain, so only
+# the rounding differs) gave 7.4e-3 on the worst parameter; 5e-2 leaves
+# room for the longer sums at full width while a wrong gradient gives ~1.
+GRAD_REL_TOL = 5e-2
+
+
+def _train_model(cfg, device, seed=0, lr=1e-4, weight_decay=0.01):
+    """The user's set-up (reference bench.py:189-202): a float32 Llama on
+    the card, train mode, AdamW, then bf16 O2 with float32 master weights."""
+    from paddle_tpu_torch import amp, optimizer
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+
+    model = LlamaForCausalLM(cfg, device=device, dtype="float32", seed=seed).train()
+    opt = optimizer.AdamW(learning_rate=lr, parameters=model.named_parameters(),
+                          weight_decay=weight_decay)
+    return amp.decorate(model, opt, level="O2", dtype="bfloat16")
+
+
+def _train_step(model, opt, ids):
+    loss, _ = model(ids, labels=ids)
+    loss.backward()
+    opt.step()
+    opt.clear_grad()
+    return loss
+
+
+def phase_train(smi, cfg, device="cuda", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                steps=TRAIN_STEPS, seed=0, profile=True):
+    """Train `cfg` for `steps` AdamW steps (bf16 O2) on one repeated batch
+    drawn from `seed`, then check losses, launch counts and that every
+    weight moved; with `profile`, profile one more step.  Returns (all
+    checks passed, kernel launch counts of the training run)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import profiler
+
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, opt = _train_model(cfg, device, seed=seed)
+    layers = cfg.num_hidden_layers
+    n_params = sum(p.numel() for p in model.parameters())
+    log("train", f"Llama {cfg.hidden_size} hidden x {layers} layers "
+                 f"({n_params} params), bf16 O2 + AdamW masters, recompute "
+                 f"{cfg.use_recompute}, batch {batch} x {seq} tokens, built in "
+                 f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(seed)
+    ids = torch.from_numpy(
+        rng.integers(1, cfg.vocab_size, size=(batch, seq)).astype(np.int32)
+    ).to(device)
+    before = {name: opt.state[p].get("master_weight", p).detach().to("cpu", copy=True)
+              for name, p in model.named_parameters()}
+
+    # -- the main path: model(ids, labels=ids) -> backward -> AdamW ---------
+    profiler.reset_kernel_launch_counts()
+    losses, secs = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(_train_step(model, opt, ids).item())
+        if on_card:
+            torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    counts = profiler.kernel_launch_counts()
+
+    finite = all(np.isfinite(losses))
+    falls = losses[-1] < losses[0]
+    fwd_per_step = 2 if cfg.use_recompute else 1
+    want_fwd, want_bwd = fwd_per_step * layers * steps, layers * steps
+    counts_ok = (counts["flash_fwd"] == want_fwd and counts["flash_bwd"] == want_bwd)
+    moved = [name for name, p in model.named_parameters()
+             if not torch.equal(opt.state[p].get("master_weight", p).detach().cpu(),
+                                before[name])]
+    moved_ok = len(moved) == len(before)
+    step_s = statistics.median(secs[1:])
+    peak = (f"{torch.cuda.max_memory_allocated() / 2**30:.2f}" if on_card
+            else "not measured")
+    log("train", "losses " + " ".join(f"{x:.4f}" for x in losses)
+                 + f": finite {finite}, last < first {falls}")
+    log("train", f"launches {counts} (expected flash_fwd {want_fwd} = "
+                 f"{fwd_per_step} x {layers} layers x {steps} steps, flash_bwd "
+                 f"{want_bwd}) -> {'ok' if counts_ok else 'FAIL'}; weights moved "
+                 f"{len(moved)}/{len(before)} -> {'ok' if moved_ok else 'FAIL'}")
+    log("train", f"step_ms median of steps 2-{steps} {step_s * 1e3:.1f} (all: "
+                 + " ".join(f"{x * 1e3:.1f}" for x in secs)
+                 + f"), tokens_per_s {batch * seq / step_s:.1f}, peak_mem_gib "
+                 f"{peak} | {smi}")
+    if on_card and profile:
+        # the step's matmuls: 2 FLOP per weight per token forward, 4 backward
+        gemm_params = sum(m.weight.numel() for m in model.modules()
+                          if isinstance(m, torch.nn.Linear))
+        gemm_ms, _ = bound(0, 6 * gemm_params * batch * seq)
+        log("profile", f"training step GEMMs: {6 * gemm_params * batch * seq:.3e} "
+                       f"FLOP, bound {gemm_ms:.2f} ms at {PEAK_BF16_FLOP_S:.3g} FLOP/s")
+        wall_us, kernels, spans = _device_profile(
+            lambda: _train_step(model, opt, ids), 1)
+        _log_profile(f"training step, batch {batch} x {seq}, {layers} layers",
+                     wall_us, kernels, spans, 1, top=12)
+    return finite and falls and counts_ok and moved_ok, counts
+
+
+def grad_check(cfg, device="cuda", batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=1):
+    """One step's parameter gradients with K1/K3, and again with attention
+    through `flash_forward_plain` under autograd (a check, not the main
+    path): per parameter ||g_kernel - g_plain|| / ||g_plain|| <=
+    GRAD_REL_TOL.  Returns (ok, worst ratio)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.models import llama
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    model, _ = _train_model(cfg, device, seed=seed)
+    rng = np.random.default_rng(seed)
+    ids = torch.from_numpy(
+        rng.integers(1, cfg.vocab_size, size=(batch, seq)).astype(np.int32)
+    ).to(device)
+
+    def grads():
+        loss, _ = model(ids, labels=ids)
+        loss.backward()
+        out = {n: p.grad.detach().float() for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        return out
+
+    fa.reset_launch_counts()
+    kernel = grads()
+    k3_kernel = fa.launch_counts["flash_bwd"]
+    sdpa = llama.sdpa
+    llama.sdpa = lambda q, k, v, causal=False, scale=None: fa.flash_forward_plain(
+        q, k, v, causal, 1.0 / q.shape[-1] ** 0.5)[0]
+    try:
+        plain = grads()
+    finally:
+        llama.sdpa = sdpa
+    k3_plain = fa.launch_counts["flash_bwd"] - k3_kernel
+    ratios = {n: ((kernel[n] - plain[n]).norm() / plain[n].norm()).item()
+              for n in kernel}
+    worst = max(ratios, key=ratios.get)
+    on_card = torch.device(device).type == "cuda"
+    paths_ok = k3_plain == 0 and k3_kernel == (cfg.num_hidden_layers if on_card else 0)
+    ok = (all(np.isfinite(list(ratios.values()))) and ratios[worst] <= GRAD_REL_TOL
+          and paths_ok)
+    log("train", f"grad check, {cfg.num_hidden_layers} layers, batch {batch} x "
+                 f"{seq}: worst ||g_kernel - g_plain|| / ||g_plain|| "
+                 f"{ratios[worst]:.3e} ({worst}), median "
+                 f"{statistics.median(ratios.values()):.3e} (tol {GRAD_REL_TOL}); "
+                 f"flash_bwd launches kernel pass {k3_kernel}, plain pass "
+                 f"{k3_plain} -> {'ok' if ok else 'FAIL'}")
+    return ok, ratios[worst]
+
+
+def _free():
+    """Release the previous phase's model before the next one builds."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main():
@@ -490,22 +805,39 @@ def main():
             smi, LlamaConfig.llama2_7b(), slots=8, max_len=2048,
             page_size=128, prefill_buckets=[32, 64, 128, 256, 512],
         )
+        _free()
+        train_ok, train_counts = phase_train(
+            smi, LlamaConfig.llama2_7b(num_hidden_layers=TRAIN_LAYERS))
+        _free()
+        # activation recompute: K1 runs twice per layer per step
+        recompute_ok, _ = phase_train(
+            smi, LlamaConfig.llama2_7b(num_hidden_layers=2, use_recompute=True),
+            steps=2, profile=False)
+        _free()
+        grad_ok, _ = grad_check(LlamaConfig.llama2_7b(num_hidden_layers=2))
     except Exception:
         traceback.print_exc()
         return 1
-    if not (kernels_ok and slice_ok):
+    if not (kernels_ok and slice_ok and train_ok and recompute_ok and grad_ok):
         print("chip_smoke: a phase failed (see the lines above)", file=sys.stderr)
         return 1
+    # launches: the serving run's and the training run's counts, each read
+    # just after its path ran
     record = {"kernels": [
         {"name": "flash_fwd", "route": "cuda",
          "source": "paddle_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "paddle_tpu/ops/flash_attention.py:186",
-         "launches": counts["flash_fwd"], **kernels["flash_fwd"]},
+         "launches": counts["flash_fwd"] + train_counts["flash_fwd"],
+         **kernels["flash_fwd"]},
         {"name": "paged_decode_fused", "route": "cuda",
          "source": "paddle_tpu_torch/csrc/paged_decode.cu",
          "replaces": "paddle_tpu/ops/flash_attention.py:813",
          "launches": counts["paged_decode_fused"],
          **kernels["paged_decode_fused"]},
+        {"name": "flash_bwd", "route": "cuda",
+         "source": "paddle_tpu_torch/csrc/flash_bwd.cu",
+         "replaces": "paddle_tpu/ops/flash_attention.py:415",
+         "launches": train_counts["flash_bwd"], **kernels["flash_bwd"]},
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

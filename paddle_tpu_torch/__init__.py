@@ -1,8 +1,13 @@
 """paddle_tpu_torch: the PyTorch/CUDA port of paddle_tpu.
 
 The JAX package `paddle_tpu` stays the reference; this package serves a
-paged Llama with hand-written Hopper kernels (`csrc/`).  Entry points run on
-the CUDA card unless the caller passes device="cpu".
+paged Llama and trains it (bf16 AMP O2, AdamW) with hand-written Hopper
+kernels (`csrc/`).  Entry points run on the CUDA card unless the caller
+passes device="cpu".
 """
 
+from . import amp, nn, optimizer
+
 __version__ = "0.1.0"
+
+__all__ = ["amp", "nn", "optimizer"]

@@ -3,6 +3,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include <atomic>
 #include <mutex>
@@ -68,6 +69,81 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 template <typename T>
 __device__ __forceinline__ float round_to(float x) {
   return to_f32(from_f32<T>(x));
+}
+
+// ---------------------------------------------------------------------------
+// Tensor-core helpers (bf16 `mma.sync` m16n8k16, f32 accumulation).
+// ---------------------------------------------------------------------------
+
+// Threads of a tensor-core block: 4 warps, each owning 16 rows of a 64-row
+// tile.
+constexpr int kMmaThreads = 128;
+
+// d[16x8] += a[16x16] . b[16x8], bf16 inputs, f32 accumulators.  Fragment
+// layouts (PTX ISA, mma.m16n8k16): with g = lane / 4 and t = lane % 4,
+// a = {A[g][2t..], A[g+8][2t..], A[g][2t+8..], A[g+8][2t+8..]},
+// b = {B[2t..][g], B[2t+8..][g]}, c = {C[g][2t], C[g][2t+1], C[g+8][2t],
+// C[g+8][2t+1]}; each 32-bit register holds two bf16, the lower index low.
+// So the accumulators of two neighbouring 8-column score tiles, packed to
+// bf16, are the A fragment of one 16-deep step of the next product.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// Rows [row0, row0 + 64) of head `hh` of x ([b, s, nh, d]) into dst
+// ([64][D + 8] bf16, the padding keeps fragment loads conflict-free), zero
+// past s and past d; the block's kMmaThreads share the copy.  `vec`:
+// 16-byte loads.
+template <int D>
+__device__ __forceinline__ void load_rows(__nv_bfloat16* dst,
+                                          const __nv_bfloat16* __restrict__ x,
+                                          int b, int row0, int s, int nh,
+                                          int hh, int d, bool vec) {
+  constexpr int ST = D + 8;
+  if (vec) {
+    constexpr int NV = D / 8;
+    for (int e = threadIdx.x; e < 64 * NV; e += kMmaThreads) {
+      const int r = e / NV, c = (e % NV) * 8;
+      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      if (row0 + r < s && c < d)
+        val = *reinterpret_cast<const uint4*>(
+            x + ((size_t)(b * s + row0 + r) * nh + hh) * d + c);
+      *reinterpret_cast<uint4*>(dst + r * ST + c) = val;
+    }
+    return;
+  }
+  for (int e = threadIdx.x; e < 64 * D; e += kMmaThreads) {
+    const int r = e / D, c = e % D;
+    dst[r * ST + c] = (row0 + r < s && c < d)
+                          ? x[((size_t)(b * s + row0 + r) * nh + hh) * d + c]
+                          : __float2bfloat16(0.f);
+  }
+}
+
+// The B fragment of an m16n8k16 step whose 16 B rows are rows
+// [r0, r0 + 16) of a row-major bf16 tile x ([rows][ST], read as 16-bit
+// words) and whose column is c: b0 = {x[r0 + 2t][c], x[r0 + 2t + 1][c]},
+// b1 = the same 8 rows further.
+template <int ST>
+__device__ __forceinline__ void b_rows(const unsigned short* x, int r0, int c,
+                                       int t, uint32_t& b0, uint32_t& b1) {
+  const unsigned short* p = x + (r0 + 2 * t) * ST + c;
+  b0 = p[0] | ((uint32_t)p[ST] << 16);
+  b1 = p[8 * ST] | ((uint32_t)p[9 * ST] << 16);
 }
 
 }  // namespace ptt

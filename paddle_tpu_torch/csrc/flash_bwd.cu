@@ -1,0 +1,762 @@
+// K3 `flash_bwd`: flash-attention backward (FA-2) for Hopper (sm_90a).
+//
+// Replaces the Pallas kernels `_flash_bwd_dkdv_kernel` and
+// `_flash_bwd_dq_kernel`, launched by `_pallas_flash_backward`
+// (paddle_tpu/ops/flash_attention.py:303, :362, :415).  From K1's `out` and
+// `lse` and the output gradient `g` it computes, per (batch, head):
+//   delta = rowsum(g * out)                          (f32, a pre-pass here)
+//   p     = exp(scale * q k^T - lse)                 (recomputed, never stored)
+//   dv   += p^T g        with p rounded to the value dtype first
+//   ds    = p * (g v^T - delta) * scale, rounded to the input dtype
+//   dk   += ds^T q,  dq += ds k                      (f32 sums, written in T)
+// on the port's [b, s, h, d] layout, with the reference's rounding points.
+//
+// Bound on an H100: at the training shape (b 4, s 2048, h 32, d 128,
+// causal) the five products are ~3.4e11 FLOP (0.35 ms at 989 TFLOP/s bf16)
+// against ~0.54 GB of inputs and outputs (0.16 ms at 3.35 TB/s): compute-
+// bound.  What the design does about the TPU kernel's assumptions:
+//  - no sequential grid: the dk/dv kernel gives each block one
+//    (batch, kv head, key tile) and loops over the q tiles itself, from the
+//    diagonal when causal; the dq kernel gives each block one
+//    (batch, q head, q tile) and loops over key tiles up to the diagonal.
+//    Every sum stays in one block's registers: no atomics, so dq/dk/dv are
+//    the same from run to run;
+//  - GQA in-kernel: the dk/dv block also loops over the `rep` q heads of
+//    its kv head and writes dk/dv at `hk` heads (the group's sum), instead
+//    of the reference's repeated K/V and autograd's sum over the copies;
+//  - the ragged edge is masked in-kernel (`q < s`, `k < s`) as in K1: no
+//    padding, no segment ids; key rows past `s` are never written;
+//  - bf16 with d <= 128 runs the five products on the tensor cores
+//    (`mma.sync` m16n8k16, f32 accumulation); float32 and d > 128 run a
+//    plain f32-FMA kernel from shared memory.
+// Not yet: wgmma, TMA, a load pipeline; segment ids, key bias, q_offset.
+
+#include <stdint.h>
+
+#include "common.cuh"
+
+namespace {
+
+using ptt::from_f32;
+using ptt::round_to;
+using ptt::to_f32;
+
+constexpr int kThreads = 256;  // FMA kernels: 16 x 16 threads
+
+// delta[b, h, i] = sum_c g[b, i, h, c] * out[b, i, h, c] in f32; one warp
+// per (b, i, h) row, rows taken in memory order.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+delta_kernel(const T* __restrict__ g, const T* __restrict__ out,
+             float* __restrict__ delta, int b, int s, int h, int d) {
+  const long row = ((long)blockIdx.x * kThreads + threadIdx.x) / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= (long)b * s * h) return;  // uniform across the warp
+  const T* gr = g + (size_t)row * d;
+  const T* orow = out + (size_t)row * d;
+  float acc = 0.f;
+  for (int c = lane; c < d; c += 32) acc += to_f32(gr[c]) * to_f32(orow[c]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) {
+    const int hh = (int)(row % h);
+    const int i = (int)((row / h) % s);
+    const int bb = (int)(row / ((long)h * s));
+    delta[((size_t)bb * h + hh) * s + i] = acc;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// FMA kernels: float32 at any d <= 256, bf16 at 128 < d <= 256.  Tiles of
+// BT = 64 rows for d <= 128, 32 above, so the four f32 tiles fit in shared
+// memory.
+// ---------------------------------------------------------------------------
+
+// Rows [row0, row0 + BT) of head hh of x ([b, s, nh, d]) into dst
+// ([BT][dp] f32), zero past s.
+template <typename T, int BT>
+__device__ __forceinline__ void load_tile(float* dst, int dp,
+                                          const T* __restrict__ x, int b,
+                                          int row0, int s, int nh, int hh,
+                                          int d) {
+  for (int e = threadIdx.x; e < BT * d; e += kThreads) {
+    const int r = e / d, c = e % d;
+    const int i = row0 + r;
+    dst[r * dp + c] =
+        i < s ? to_f32(x[((size_t)(b * s + i) * nh + hh) * d + c]) : 0.f;
+  }
+}
+
+// lse and delta of rows [row0, row0 + BT) of one (b, head), 0 past s.
+template <int BT>
+__device__ __forceinline__ void load_rowstats(float* lse_s, float* delta_s,
+                                              const float* __restrict__ lse,
+                                              const float* __restrict__ delta,
+                                              size_t base, int row0, int s) {
+  for (int e = threadIdx.x; e < BT; e += kThreads) {
+    const int i = row0 + e;
+    lse_s[e] = i < s ? lse[base + i] : 0.f;
+    delta_s[e] = i < s ? delta[base + i] : 0.f;
+  }
+}
+
+// One block per (key tile of BT, kv head, batch).  Thread (ty, tx) owns
+// keys ty*R + i (i < R = BT / 16); for the score tile it owns q rows
+// tx + 16*j, for dk/dv dims tx + 16*jj (jj < NJ).
+template <typename T, int BT, int NJ>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ g,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta, T* __restrict__ dk,
+                      T* __restrict__ dv, int s, int h, int hk, int d,
+                      int causal, float scale) {
+  constexpr int R = BT / 16;
+  constexpr int pp = BT + 1;
+  extern __shared__ float smem[];
+  const int dp = d + 1;  // padded rows: conflict-free column reads
+  float* k_s = smem;
+  float* v_s = k_s + BT * dp;
+  float* q_s = v_s + BT * dp;
+  float* g_s = q_s + BT * dp;
+  float* p_s = g_s + BT * dp;    // [key][q]: p^T, rounded to T
+  float* ds_s = p_s + BT * pp;   // [key][q]: ds^T, rounded to T
+  float* lse_s = ds_s + BT * pp;
+  float* delta_s = lse_s + BT;
+
+  const int k0 = blockIdx.x * BT;
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int rep = h / hk;
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+
+  load_tile<T, BT>(k_s, dp, k, b, k0, s, hk, kvh, d);
+  load_tile<T, BT>(v_s, dp, v, b, k0, s, hk, kvh, d);
+
+  float dk_acc[R][NJ], dv_acc[R][NJ];
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj) dk_acc[i][jj] = dv_acc[i][jj] = 0.f;
+
+  // causal: q tiles wholly above the diagonal see none of these keys
+  const int q_begin = causal ? k0 : 0;
+  for (int r = 0; r < rep; ++r) {
+    const int head = kvh * rep + r;
+    const size_t stats = ((size_t)b * h + head) * s;
+    for (int q0 = q_begin; q0 < s; q0 += BT) {
+      __syncthreads();  // the previous tile's readers are done
+      load_tile<T, BT>(q_s, dp, q, b, q0, s, h, head, d);
+      load_tile<T, BT>(g_s, dp, g, b, q0, s, h, head, d);
+      load_rowstats<BT>(lse_s, delta_s, lse, delta, stats, q0, s);
+      __syncthreads();
+
+      float st[R][R], dpt[R][R];  // scores and g v^T, transposed
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int j = 0; j < R; ++j) st[i][j] = dpt[i][j] = 0.f;
+      for (int c = 0; c < d; ++c) {
+        float kv[R], vv[R], qv[R], gv[R];
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          kv[i] = k_s[(ty * R + i) * dp + c];
+          vv[i] = v_s[(ty * R + i) * dp + c];
+        }
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          qv[j] = q_s[(tx + 16 * j) * dp + c];
+          gv[j] = g_s[(tx + 16 * j) * dp + c];
+        }
+#pragma unroll
+        for (int i = 0; i < R; ++i)
+#pragma unroll
+          for (int j = 0; j < R; ++j) {
+            st[i][j] = fmaf(kv[i], qv[j], st[i][j]);
+            dpt[i][j] = fmaf(vv[i], gv[j], dpt[i][j]);
+          }
+      }
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const int kj = k0 + ty * R + i;
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          const int qr = tx + 16 * j;
+          const int qi = q0 + qr;
+          const bool ok = kj < s && qi < s && (!causal || kj <= qi);
+          // masked entries are exactly 0: they add nothing to any sum
+          const float p = ok ? expf(st[i][j] * scale - lse_s[qr]) : 0.f;
+          const float ds = p * (dpt[i][j] - delta_s[qr]) * scale;
+          p_s[(ty * R + i) * pp + qr] = round_to<T>(p);
+          ds_s[(ty * R + i) * pp + qr] = round_to<T>(ds);
+        }
+      }
+      __syncthreads();
+
+      for (int qq = 0; qq < BT; ++qq) {
+        float pv[R], dsv[R];
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          pv[i] = p_s[(ty * R + i) * pp + qq];
+          dsv[i] = ds_s[(ty * R + i) * pp + qq];
+        }
+#pragma unroll
+        for (int jj = 0; jj < NJ; ++jj) {
+          const int col = tx + 16 * jj;
+          if (col < d) {
+            const float gv = g_s[qq * dp + col];
+            const float qv = q_s[qq * dp + col];
+#pragma unroll
+            for (int i = 0; i < R; ++i) {
+              dv_acc[i][jj] = fmaf(pv[i], gv, dv_acc[i][jj]);
+              dk_acc[i][jj] = fmaf(dsv[i], qv, dk_acc[i][jj]);
+            }
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int kj = k0 + ty * R + i;
+    if (kj >= s) continue;
+    const size_t row = ((size_t)(b * s + kj) * hk + kvh) * d;
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj) {
+      const int col = tx + 16 * jj;
+      if (col < d) {
+        dk[row + col] = from_f32<T>(dk_acc[i][jj]);
+        dv[row + col] = from_f32<T>(dv_acc[i][jj]);
+      }
+    }
+  }
+}
+
+// One block per (q tile of BT, q head, batch).  Thread (ty, tx) owns q rows
+// ty*R + i; for the score tile it owns keys tx + 16*j, for dq dims
+// tx + 16*jj.
+template <typename T, int BT, int NJ>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ g,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, T* __restrict__ dq,
+                    int s, int h, int hk, int d, int causal, float scale) {
+  constexpr int R = BT / 16;
+  constexpr int pp = BT + 1;
+  extern __shared__ float smem[];
+  const int dp = d + 1;
+  float* q_s = smem;
+  float* g_s = q_s + BT * dp;
+  float* k_s = g_s + BT * dp;
+  float* v_s = k_s + BT * dp;
+  float* ds_s = v_s + BT * dp;  // [q][key], rounded to T
+  float* lse_s = ds_s + BT * pp;
+  float* delta_s = lse_s + BT;
+
+  const int q0 = blockIdx.x * BT;
+  const int head = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = head / (h / hk);
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+
+  load_tile<T, BT>(q_s, dp, q, b, q0, s, h, head, d);
+  load_tile<T, BT>(g_s, dp, g, b, q0, s, h, head, d);
+  load_rowstats<BT>(lse_s, delta_s, lse, delta, ((size_t)b * h + head) * s,
+                    q0, s);
+
+  float dq_acc[R][NJ];
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj) dq_acc[i][jj] = 0.f;
+
+  // causal: key tiles wholly past the diagonal contribute nothing
+  const int k_end = causal ? min(s, q0 + BT) : s;
+  for (int k0 = 0; k0 < k_end; k0 += BT) {
+    __syncthreads();  // the previous tile's readers are done
+    load_tile<T, BT>(k_s, dp, k, b, k0, s, hk, kvh, d);
+    load_tile<T, BT>(v_s, dp, v, b, k0, s, hk, kvh, d);
+    __syncthreads();
+
+    float sc[R][R], dpv[R][R];
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int j = 0; j < R; ++j) sc[i][j] = dpv[i][j] = 0.f;
+    for (int c = 0; c < d; ++c) {
+      float qv[R], gv[R], kv[R], vv[R];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        qv[i] = q_s[(ty * R + i) * dp + c];
+        gv[i] = g_s[(ty * R + i) * dp + c];
+      }
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        kv[j] = k_s[(tx + 16 * j) * dp + c];
+        vv[j] = v_s[(tx + 16 * j) * dp + c];
+      }
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
+          dpv[i][j] = fmaf(gv[i], vv[j], dpv[i][j]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int qr = ty * R + i;
+      const int qi = q0 + qr;
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const int kj = k0 + tx + 16 * j;
+        const bool ok = kj < s && qi < s && (!causal || kj <= qi);
+        const float p = ok ? expf(sc[i][j] * scale - lse_s[qr]) : 0.f;
+        ds_s[qr * pp + tx + 16 * j] =
+            round_to<T>(p * (dpv[i][j] - delta_s[qr]) * scale);
+      }
+    }
+    __syncthreads();
+
+    for (int kk = 0; kk < BT; ++kk) {
+      float dsv[R];
+#pragma unroll
+      for (int i = 0; i < R; ++i) dsv[i] = ds_s[(ty * R + i) * pp + kk];
+#pragma unroll
+      for (int jj = 0; jj < NJ; ++jj) {
+        const int col = tx + 16 * jj;
+        if (col < d) {
+          const float kv = k_s[kk * dp + col];
+#pragma unroll
+          for (int i = 0; i < R; ++i) dq_acc[i][jj] = fmaf(dsv[i], kv, dq_acc[i][jj]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int qi = q0 + ty * R + i;
+    if (qi >= s) continue;
+    const size_t row = ((size_t)(b * s + qi) * h + head) * d;
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj) {
+      const int col = tx + 16 * jj;
+      if (col < d) dq[row + col] = from_f32<T>(dq_acc[i][jj]);
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_delta(const void* g, const void* out, void* delta, int b,
+                         int s, int h, int d, cudaStream_t stream) {
+  const long rows = (long)b * s * h;
+  const long blocks = (rows * 32 + kThreads - 1) / kThreads;
+  delta_kernel<T><<<(unsigned)blocks, kThreads, 0, stream>>>(
+      static_cast<const T*>(g), static_cast<const T*>(out),
+      static_cast<float*>(delta), b, s, h, d);
+  return cudaGetLastError();
+}
+
+template <typename T, int BT, int NJ>
+cudaError_t launch_fma(const void* q, const void* k, const void* v,
+                       const void* g, const void* lse, const void* delta,
+                       void* dq, void* dk, void* dv, int b, int s, int h,
+                       int hk, int d, int causal, float scale,
+                       cudaStream_t stream) {
+  const size_t tile = (size_t)BT * (d + 1);
+  const size_t smem_dkdv =
+      sizeof(float) * (4 * tile + 2 * (size_t)BT * (BT + 1) + 2 * BT);
+  const size_t smem_dq = sizeof(float) * (4 * tile + (size_t)BT * (BT + 1) + 2 * BT);
+  auto dkdv = flash_bwd_dkdv_kernel<T, BT, NJ>;
+  auto dqk = flash_bwd_dq_kernel<T, BT, NJ>;
+  static ptt::SmemLimit limit_dkdv, limit_dq;
+  cudaError_t err = limit_dkdv.reserve(dkdv, smem_dkdv);
+  if (err != cudaSuccess) return err;
+  err = limit_dq.reserve(dqk, smem_dq);
+  if (err != cudaSuccess) return err;
+  const int tiles = (s + BT - 1) / BT;
+  dkdv<<<dim3(tiles, hk, b), kThreads, smem_dkdv, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(g),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<T*>(dk), static_cast<T*>(dv), s, h, hk, d, causal, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dqk<<<dim3(tiles, h, b), kThreads, smem_dq, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(g),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<T*>(dq), s, h, hk, d, causal, scale);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_fma_f32(const void* q, const void* k, const void* v,
+                             const void* g, const void* lse, const void* delta,
+                             void* dq, void* dk, void* dv, int b, int s, int h,
+                             int hk, int d, int causal, float scale,
+                             cudaStream_t st) {
+  if (d <= 64)
+    return launch_fma<float, 64, 4>(q, k, v, g, lse, delta, dq, dk, dv, b, s,
+                                    h, hk, d, causal, scale, st);
+  if (d <= 128)
+    return launch_fma<float, 64, 8>(q, k, v, g, lse, delta, dq, dk, dv, b, s,
+                                    h, hk, d, causal, scale, st);
+  return launch_fma<float, 32, 16>(q, k, v, g, lse, delta, dq, dk, dv, b, s,
+                                   h, hk, d, causal, scale, st);
+}
+
+// ---------------------------------------------------------------------------
+// Tensor-core kernels: bf16, d <= D (D = 64 or 128).
+// ---------------------------------------------------------------------------
+
+constexpr int kMmaTile = 64;  // rows of the block's own tile, 16 per warp
+constexpr int kPass = 32;     // columns of the streamed tile per pass
+
+using bf16 = __nv_bfloat16;
+using ptt::b_rows;
+using ptt::kMmaThreads;
+using ptt::ld_u32;
+using ptt::mma_bf16;
+using ptt::pack_bf16;
+
+// The A fragment of one 16-deep step kk of a product whose 16 A rows are
+// rows [r0, r0 + 16) of the row-major tile x ([rows][ST]).
+template <int ST>
+__device__ __forceinline__ void a_rows(uint32_t (&a)[4], const bf16* x, int r0,
+                                       int kk, int g, int t) {
+  const bf16* p = x + (r0 + g) * ST + kk * 16 + 2 * t;
+  a[0] = ld_u32(p);
+  a[1] = ld_u32(p + 8 * ST);
+  a[2] = ld_u32(p + 8);
+  a[3] = ld_u32(p + 8 * ST + 8);
+}
+
+// One block per (64-key tile, kv head, batch); warp w owns keys 16w..16w+15
+// of the tile and keeps their dk/dv rows in f32 registers.  For each q tile
+// of each q head of the group, it computes s^T = K Q^T and dp^T = V G^T
+// 32 q columns at a time; the accumulators, turned into p^T and ds^T and
+// packed to bf16, are the A fragments of dv += p^T G and dk += ds^T Q.
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const bf16* __restrict__ g,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta, bf16* __restrict__ dk,
+                          bf16* __restrict__ dv, int s, int h, int hk, int d,
+                          int causal, float scale, bool vec) {
+  constexpr int ST = D + 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);
+  bf16* v_s = k_s + kMmaTile * ST;
+  bf16* q_s = v_s + kMmaTile * ST;
+  bf16* g_s = q_s + kMmaTile * ST;
+  float* lse_s = reinterpret_cast<float*>(g_s + kMmaTile * ST);
+  float* delta_s = lse_s + kMmaTile;
+  const unsigned short* q_u16 = reinterpret_cast<const unsigned short*>(q_s);
+  const unsigned short* g_u16 = reinterpret_cast<const unsigned short*>(g_s);
+
+  const int k0 = blockIdx.x * kMmaTile;
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int rep = h / hk;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int gr = lane >> 2, t = lane & 3;
+  const int wr = warp * 16;
+  const int key_a = k0 + wr + gr, key_b = key_a + 8;
+
+  ptt::load_rows<D>(k_s, k, b, k0, s, hk, kvh, d, vec);
+  ptt::load_rows<D>(v_s, v, b, k0, s, hk, kvh, d, vec);
+
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+#pragma unroll
+  for (int dt = 0; dt < D / 8; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[dt][e] = dv_acc[dt][e] = 0.f;
+
+  // causal: q tiles wholly above the diagonal see none of these keys
+  const int q_begin = causal ? k0 : 0;
+  for (int r = 0; r < rep; ++r) {
+    const int head = kvh * rep + r;
+    const size_t stats = ((size_t)b * h + head) * s;
+    for (int q0 = q_begin; q0 < s; q0 += kMmaTile) {
+      __syncthreads();  // the previous tile's readers are done
+      ptt::load_rows<D>(q_s, q, b, q0, s, h, head, d, vec);
+      ptt::load_rows<D>(g_s, g, b, q0, s, h, head, d, vec);
+      for (int e = threadIdx.x; e < kMmaTile; e += kMmaThreads) {
+        const int i = q0 + e;
+        lse_s[e] = i < s ? lse[stats + i] : 0.f;
+        delta_s[e] = i < s ? delta[stats + i] : 0.f;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int c0 = 0; c0 < kMmaTile; c0 += kPass) {
+        // causal: every q row of this pass precedes this warp's keys
+        if (causal && q0 + c0 + kPass - 1 < k0 + wr) continue;
+        float st[kPass / 8][4], dpt[kPass / 8][4];
+#pragma unroll
+        for (int nt = 0; nt < kPass / 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) st[nt][e] = dpt[nt][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          uint32_t ka[4], va[4];
+          a_rows<ST>(ka, k_s, wr, kk, gr, t);
+          a_rows<ST>(va, v_s, wr, kk, gr, t);
+#pragma unroll
+          for (int nt = 0; nt < kPass / 8; ++nt) {
+            const bf16* pq = q_s + (c0 + nt * 8 + gr) * ST + kk * 16 + 2 * t;
+            const bf16* pg = g_s + (c0 + nt * 8 + gr) * ST + kk * 16 + 2 * t;
+            mma_bf16(st[nt], ka, ld_u32(pq), ld_u32(pq + 8));
+            mma_bf16(dpt[nt], va, ld_u32(pg), ld_u32(pg + 8));
+          }
+        }
+        // p^T and ds^T, packed: score tiles 2kk and 2kk+1 are step kk's A
+        uint32_t pf[kPass / 16][4], dsf[kPass / 16][4];
+#pragma unroll
+        for (int nt = 0; nt < kPass / 8; ++nt) {
+          float pv[4], dsv[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kj = e < 2 ? key_a : key_b;
+            const int qc = c0 + nt * 8 + 2 * t + (e & 1);
+            const int qi = q0 + qc;
+            const bool ok = kj < s && qi < s && (!causal || kj <= qi);
+            pv[e] = ok ? expf(st[nt][e] * scale - lse_s[qc]) : 0.f;
+            dsv[e] = pv[e] * (dpt[nt][e] - delta_s[qc]) * scale;
+          }
+          pf[nt / 2][(nt % 2) * 2] = pack_bf16(pv[0], pv[1]);
+          pf[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(pv[2], pv[3]);
+          dsf[nt / 2][(nt % 2) * 2] = pack_bf16(dsv[0], dsv[1]);
+          dsf[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(dsv[2], dsv[3]);
+        }
+#pragma unroll
+        for (int kk = 0; kk < kPass / 16; ++kk)
+#pragma unroll
+          for (int dt = 0; dt < D / 8; ++dt) {
+            uint32_t b0, b1;
+            b_rows<ST>(g_u16, c0 + kk * 16, dt * 8 + gr, t, b0, b1);
+            mma_bf16(dv_acc[dt], pf[kk], b0, b1);
+            b_rows<ST>(q_u16, c0 + kk * 16, dt * 8 + gr, t, b0, b1);
+            mma_bf16(dk_acc[dt], dsf[kk], b0, b1);
+          }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int kj = half ? key_b : key_a;
+    if (kj >= s) continue;
+    const size_t row = ((size_t)(b * s + kj) * hk + kvh) * d;
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt) {
+      const int col = dt * 8 + 2 * t;
+      if (col < d) {
+        dk[row + col] = __float2bfloat16(dk_acc[dt][2 * half]);
+        dv[row + col] = __float2bfloat16(dv_acc[dt][2 * half]);
+      }
+      if (col + 1 < d) {
+        dk[row + col + 1] = __float2bfloat16(dk_acc[dt][2 * half + 1]);
+        dv[row + col + 1] = __float2bfloat16(dv_acc[dt][2 * half + 1]);
+      }
+    }
+  }
+}
+
+// One block per (64-row q tile, q head, batch); warp w owns q rows
+// 16w..16w+15 with Q and G as register fragments and dq in f32 registers.
+// Per key tile it computes s = Q K^T and dp = G V^T 32 keys at a time; ds,
+// packed to bf16, is the A fragment of dq += ds K.
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const bf16* __restrict__ g,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta, bf16* __restrict__ dq,
+                        int s, int h, int hk, int d, int causal, float scale,
+                        bool vec) {
+  constexpr int ST = D + 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
+  bf16* g_s = q_s + kMmaTile * ST;
+  bf16* k_s = g_s + kMmaTile * ST;
+  bf16* v_s = k_s + kMmaTile * ST;
+  const unsigned short* k_u16 = reinterpret_cast<const unsigned short*>(k_s);
+
+  const int q0 = blockIdx.x * kMmaTile;
+  const int head = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = head / (h / hk);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int gr = lane >> 2, t = lane & 3;
+  const int wr = warp * 16;
+  const int row_a = q0 + wr + gr, row_b = row_a + 8;
+
+  ptt::load_rows<D>(q_s, q, b, q0, s, h, head, d, vec);
+  ptt::load_rows<D>(g_s, g, b, q0, s, h, head, d, vec);
+  const size_t stats = ((size_t)b * h + head) * s;
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int qi = half ? row_b : row_a;
+    lse_r[half] = qi < s ? lse[stats + qi] : 0.f;
+    delta_r[half] = qi < s ? delta[stats + qi] : 0.f;
+  }
+  __syncthreads();
+  uint32_t qf[D / 16][4], gf[D / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    a_rows<ST>(qf[kk], q_s, wr, kk, gr, t);
+    a_rows<ST>(gf[kk], g_s, wr, kk, gr, t);
+  }
+
+  float dq_acc[D / 8][4];
+#pragma unroll
+  for (int dt = 0; dt < D / 8; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq_acc[dt][e] = 0.f;
+
+  // causal: key tiles wholly past the diagonal contribute nothing
+  const int k_end = causal ? min(s, q0 + kMmaTile) : s;
+  for (int k0 = 0; k0 < k_end; k0 += kMmaTile) {
+    __syncthreads();  // the previous tile's readers are done
+    ptt::load_rows<D>(k_s, k, b, k0, s, hk, kvh, d, vec);
+    ptt::load_rows<D>(v_s, v, b, k0, s, hk, kvh, d, vec);
+    __syncthreads();
+#pragma unroll
+    for (int c0 = 0; c0 < kMmaTile; c0 += kPass) {
+      // causal: every key of this pass follows this warp's rows
+      if (causal && k0 + c0 > q0 + wr + 15) continue;
+      float sc[kPass / 8][4], dp[kPass / 8][4];
+#pragma unroll
+      for (int nt = 0; nt < kPass / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[nt][e] = dp[nt][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+        for (int nt = 0; nt < kPass / 8; ++nt) {
+          const bf16* pk = k_s + (c0 + nt * 8 + gr) * ST + kk * 16 + 2 * t;
+          const bf16* pv = v_s + (c0 + nt * 8 + gr) * ST + kk * 16 + 2 * t;
+          mma_bf16(sc[nt], qf[kk], ld_u32(pk), ld_u32(pk + 8));
+          mma_bf16(dp[nt], gf[kk], ld_u32(pv), ld_u32(pv + 8));
+        }
+      uint32_t dsf[kPass / 16][4];
+#pragma unroll
+      for (int nt = 0; nt < kPass / 8; ++nt) {
+        float dsv[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = e < 2 ? row_a : row_b;
+          const int kj = k0 + c0 + nt * 8 + 2 * t + (e & 1);
+          const bool ok = kj < s && qi < s && (!causal || kj <= qi);
+          const float p = ok ? expf(sc[nt][e] * scale - lse_r[e >> 1]) : 0.f;
+          dsv[e] = p * (dp[nt][e] - delta_r[e >> 1]) * scale;
+        }
+        dsf[nt / 2][(nt % 2) * 2] = pack_bf16(dsv[0], dsv[1]);
+        dsf[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(dsv[2], dsv[3]);
+      }
+#pragma unroll
+      for (int kk = 0; kk < kPass / 16; ++kk)
+#pragma unroll
+        for (int dt = 0; dt < D / 8; ++dt) {
+          uint32_t b0, b1;
+          b_rows<ST>(k_u16, c0 + kk * 16, dt * 8 + gr, t, b0, b1);
+          mma_bf16(dq_acc[dt], dsf[kk], b0, b1);
+        }
+    }
+  }
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int qi = half ? row_b : row_a;
+    if (qi >= s) continue;
+    bf16* row = dq + ((size_t)(b * s + qi) * h + head) * d;
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt) {
+      const int col = dt * 8 + 2 * t;
+      if (col < d) row[col] = __float2bfloat16(dq_acc[dt][2 * half]);
+      if (col + 1 < d) row[col + 1] = __float2bfloat16(dq_acc[dt][2 * half + 1]);
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_mma(const void* q, const void* k, const void* v,
+                       const void* g, const void* lse, const void* delta,
+                       void* dq, void* dk, void* dv, int b, int s, int h,
+                       int hk, int d, int causal, float scale,
+                       cudaStream_t stream) {
+  const size_t tiles_bytes = sizeof(bf16) * 4 * (size_t)kMmaTile * (D + 8);
+  const size_t smem_dkdv = tiles_bytes + sizeof(float) * 2 * kMmaTile;
+  const bool vec = d % 8 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(v) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(g) % 16 == 0;
+  auto dkdv = flash_bwd_dkdv_mma_kernel<D>;
+  auto dqk = flash_bwd_dq_mma_kernel<D>;
+  static ptt::SmemLimit limit_dkdv, limit_dq;
+  cudaError_t err = limit_dkdv.reserve(dkdv, smem_dkdv);
+  if (err != cudaSuccess) return err;
+  err = limit_dq.reserve(dqk, tiles_bytes);
+  if (err != cudaSuccess) return err;
+  const int tiles = (s + kMmaTile - 1) / kMmaTile;
+  const bf16* qb = static_cast<const bf16*>(q);
+  const bf16* kb = static_cast<const bf16*>(k);
+  const bf16* vb = static_cast<const bf16*>(v);
+  const bf16* gb = static_cast<const bf16*>(g);
+  const float* lse_f = static_cast<const float*>(lse);
+  const float* delta_f = static_cast<const float*>(delta);
+  dkdv<<<dim3(tiles, hk, b), kMmaThreads, smem_dkdv, stream>>>(
+      qb, kb, vb, gb, lse_f, delta_f, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), s, h, hk, d, causal, scale, vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dqk<<<dim3(tiles, h, b), kMmaThreads, tiles_bytes, stream>>>(
+      qb, kb, vb, gb, lse_f, delta_f, static_cast<bf16*>(dq), s, h, hk, d,
+      causal, scale, vec);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// q, out, g, dq: [b, s, h, d]; k, v, dk, dv: [b, s, hk, d], all contiguous
+// and of one dtype; lse: [b, h, s] f32 from K1; delta: [b, h, s] f32
+// scratch, written here.
+extern "C" int ptt_flash_bwd(const void* q, const void* k, const void* v,
+                             const void* out, const void* lse, const void* g,
+                             void* dq, void* dk, void* dv, void* delta, int b,
+                             int s, int h, int hk, int d, int causal,
+                             float scale, int dtype, void* stream) {
+  if (b < 1 || s < 1 || h < 1 || hk < 1 || h % hk != 0 || d < 1 || d > 256)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (dtype == ptt::kBFloat16) {
+    err = launch_delta<bf16>(g, out, delta, b, s, h, d, st);
+    if (err != cudaSuccess) return (int)err;
+    if (d <= 64)
+      return (int)launch_mma<64>(q, k, v, g, lse, delta, dq, dk, dv, b, s, h,
+                                 hk, d, causal, scale, st);
+    if (d <= 128)
+      return (int)launch_mma<128>(q, k, v, g, lse, delta, dq, dk, dv, b, s, h,
+                                  hk, d, causal, scale, st);
+    return (int)launch_fma<bf16, 32, 16>(q, k, v, g, lse, delta, dq, dk, dv,
+                                         b, s, h, hk, d, causal, scale, st);
+  }
+  if (dtype == ptt::kFloat32) {
+    err = launch_delta<float>(g, out, delta, b, s, h, d, st);
+    if (err != cudaSuccess) return (int)err;
+    return (int)dispatch_fma_f32(q, k, v, g, lse, delta, dq, dk, dv, b, s, h,
+                                 hk, d, causal, scale, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}

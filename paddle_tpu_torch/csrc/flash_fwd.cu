@@ -33,6 +33,9 @@ namespace {
 
 using ptt::from_f32;
 using ptt::kNegInf;
+using ptt::ld_u32;
+using ptt::mma_bf16;
+using ptt::pack_bf16;
 using ptt::round_to;
 using ptt::to_f32;
 
@@ -219,58 +222,7 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* out,
 
 constexpr int kMmaRows = 64;     // q rows per block, 16 per warp
 constexpr int kMmaKeys = 64;     // keys per tile
-constexpr int kMmaThreads = 128;
-
-// d[16x8] += a[16x16] . b[16x8], bf16 inputs, f32 accumulators.  Fragment
-// layouts (PTX ISA, mma.m16n8k16): with g = lane / 4 and t = lane % 4,
-// a = {A[g][2t..], A[g+8][2t..], A[g][2t+8..], A[g+8][2t+8..]},
-// b = {B[2t..][g], B[2t+8..][g]}, c = {C[g][2t], C[g][2t+1], C[g+8][2t],
-// C[g+8][2t+1]}; each 32-bit register holds two bf16, the lower index low.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Rows [row0, row0 + 64) of head `hh` of x ([b, s, nh, d]) into dst
-// ([64][D + 8] bf16), zero past s and past d.  `vec`: 16-byte loads.
-template <int D>
-__device__ __forceinline__ void load_rows(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* __restrict__ x,
-                                          int b, int row0, int s, int nh,
-                                          int hh, int d, bool vec) {
-  constexpr int ST = D + 8;
-  if (vec) {
-    constexpr int NV = D / 8;
-    for (int e = threadIdx.x; e < 64 * NV; e += kMmaThreads) {
-      const int r = e / NV, c = (e % NV) * 8;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (row0 + r < s && c < d)
-        val = *reinterpret_cast<const uint4*>(
-            x + ((size_t)(b * s + row0 + r) * nh + hh) * d + c);
-      *reinterpret_cast<uint4*>(dst + r * ST + c) = val;
-    }
-    return;
-  }
-  for (int e = threadIdx.x; e < 64 * D; e += kMmaThreads) {
-    const int r = e / D, c = e % D;
-    dst[r * ST + c] = (row0 + r < s && c < d)
-                          ? x[((size_t)(b * s + row0 + r) * nh + hh) * d + c]
-                          : __float2bfloat16(0.f);
-  }
-}
+using ptt::kMmaThreads;
 
 template <int D>
 __global__ void __launch_bounds__(kMmaThreads)
@@ -297,7 +249,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int wr = warp * 16;  // this warp's first row in the tile
   const int row_a = q0 + wr + g, row_b = row_a + 8;
 
-  load_rows<D>(q_s, q, b, q0, s, h, head, d, vec);
+  ptt::load_rows<D>(q_s, q, b, q0, s, h, head, d, vec);
   __syncthreads();
   uint32_t qf[D / 16][4];
 #pragma unroll
@@ -319,8 +271,8 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int k_end = causal ? min(s, q0 + kMmaRows) : s;
   for (int k0 = 0; k0 < k_end; k0 += kMmaKeys) {
     __syncthreads();  // the previous tile's readers are done
-    load_rows<D>(k_s, k, b, k0, s, hk, kvh, d, vec);
-    load_rows<D>(v_s, v, b, k0, s, hk, kvh, d, vec);
+    ptt::load_rows<D>(k_s, k, b, k0, s, hk, kvh, d, vec);
+    ptt::load_rows<D>(v_s, v, b, k0, s, hk, kvh, d, vec);
     __syncthreads();
     // causal: a tile wholly above this warp's rows contributes nothing
     if (causal && k0 > q0 + wr + 15) continue;
@@ -383,9 +335,8 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
       for (int dt = 0; dt < D / 8; ++dt) {
-        const unsigned short* p = v_u16 + (kk * 16 + 2 * t) * ST + dt * 8 + g;
-        const uint32_t b0 = p[0] | ((uint32_t)p[ST] << 16);
-        const uint32_t b1 = p[8 * ST] | ((uint32_t)p[9 * ST] << 16);
+        uint32_t b0, b1;
+        ptt::b_rows<ST>(v_u16, kk * 16, dt * 8 + g, t, b0, b1);
         mma_bf16(o[dt], pf[kk], b0, b1);
       }
   }

@@ -6,9 +6,9 @@ Linear layers are `torch.nn.Linear`, whose weight is `[out, in]`; the
 reference stores `[in, out]`, so `models.convert.load_reference_state`
 transposes them.  Attention goes through `ops.flash_attention`: the
 full-sequence forward and the fresh paged prefill run the `flash_fwd`
-kernel, the paged decode step the `paged_decode_fused` kernel.  The paged
-cache writes update the arena tensors in place (the reference rebinds new
-immutable arrays).
+kernel, the paged decode step the `paged_decode_fused` kernel, and a
+training backward the `flash_bwd` kernel.  The paged cache writes update
+the arena tensors in place (the reference rebinds new immutable arrays).
 """
 
 from __future__ import annotations
@@ -20,10 +20,12 @@ import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..framework.core import INDEX_DTYPE, resolve_device, to_torch_dtype
 from ..nn.norm import RMSNorm
 from ..ops.flash_attention import paged_decode_attention, sdpa
+from ._utils import sequence_ce
 
 
 @dataclass
@@ -37,6 +39,9 @@ class LlamaConfig:
     max_position_embeddings: int = 4096
     rms_norm_eps: float = 1e-5
     rope_theta: float = 10000.0
+    # training: re-run each decoder layer's forward in the backward instead
+    # of keeping its activations (the reference's use_recompute, llama.py:49)
+    use_recompute: bool = False
 
     @staticmethod
     def llama2_7b(**overrides):
@@ -263,6 +268,7 @@ class LlamaAttention(nn.Module):
 class LlamaDecoderLayer(nn.Module):
     def __init__(self, config, rope, device=None, dtype=None):
         super().__init__()
+        self.config = config
         eps = config.rms_norm_eps
         self.input_layernorm = RMSNorm(config.hidden_size, eps, device, dtype)
         self.self_attn = LlamaAttention(config, rope, device, dtype)
@@ -271,9 +277,15 @@ class LlamaDecoderLayer(nn.Module):
         )
         self.mlp = LlamaMLP(config, device, dtype)
 
-    def forward(self, x, cache=None, pos=None):
+    def _block(self, x, cache=None, pos=None):
         h = x + self.self_attn(self.input_layernorm(x), cache, pos)
         return h + self.mlp(self.post_attention_layernorm(h))
+
+    def forward(self, x, cache=None, pos=None):
+        if cache is None and self.config.use_recompute and self.training:
+            # reference: llama.py:769-772 (incubate/recompute.py:47)
+            return checkpoint(self._block, x, use_reentrant=False)
+        return self._block(x, cache, pos)
 
 
 class LlamaModel(nn.Module):
@@ -337,9 +349,15 @@ class LlamaForCausalLM(nn.Module):
             elif isinstance(mod, RMSNorm):
                 mod.weight.fill_(1.0)
 
-    def forward(self, input_ids):
-        """Full-sequence causal forward: logits [b, s, vocab]."""
-        return self.lm_head(self.llama(input_ids))
+    def forward(self, input_ids, labels=None):
+        """Full-sequence causal forward: logits [b, s, vocab].  With
+        `labels` ([b, s] ids, -100 ignored) returns (loss, logits), the loss
+        the mean cross-entropy of `sequence_ce` on float32 logits at the
+        same positions (no shift; reference llama.py:833-839)."""
+        logits = self.lm_head(self.llama(input_ids))
+        if labels is None:
+            return logits
+        return sequence_ce(logits, labels), logits
 
 
 def to_index_tensor(x, device):

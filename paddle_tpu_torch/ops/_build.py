@@ -42,6 +42,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     # q, k, v, out, lse, b, s, h, hk, d, causal, scale, dtype, stream
     "ptt_flash_fwd": ([_P] * 5 + [_I] * 6 + [_F, _I, _P], _I),
+    # q, k, v, out, lse, g, dq, dk, dv, delta, b, s, h, hk, d, causal,
+    # scale, dtype, stream
+    "ptt_flash_bwd": ([_P] * 10 + [_I] * 6 + [_F, _I, _P], _I),
     # q, ak, av, tables, pos, out, ws, splits, b, sq, h, hk, d, ps, P,
     # max_len, scale, dtype, stream
     "ptt_paged_decode": ([_P] * 7 + [_I] * 9 + [_F, _I, _P], _I),

@@ -2,10 +2,15 @@
 `paddle_tpu/ops/flash_attention.py`.
 
 Layout at the public functions is the reference's `[batch, seq, heads,
-head_dim]`.  Two hand-written Hopper kernels carry the serving path:
+head_dim]`.  Three hand-written Hopper kernels carry the serving and
+training paths:
 
 - `flash_fwd` (csrc/flash_fwd.cu, replaces `_flash_fwd_kernel`): causal
-  prompt attention at the fresh-prefill site, through `sdpa`.
+  prompt attention at the fresh-prefill site and every training forward,
+  through `sdpa`.
+- `flash_bwd` (csrc/flash_bwd.cu, replaces `_pallas_flash_backward`): the
+  attention gradient of a training step, through the `FlashAttention`
+  autograd Function that `sdpa` uses when grad is recorded.
 - `paged_decode_fused` (csrc/paged_decode.cu, replaces
   `_fused_paged_decode_forward`): every decode step, reading the K/V page
   arena through the page tables in-kernel.
@@ -26,7 +31,7 @@ from ..framework.core import INDEX_DTYPE
 
 NEG_INF = -1e30  # the reference's mask value (flash_attention.py:36)
 
-launch_counts = {"flash_fwd": 0, "paged_decode_fused": 0}
+launch_counts = {"flash_fwd": 0, "paged_decode_fused": 0, "flash_bwd": 0}
 
 # the fused kernel holds one kv head's GQA group x window in one block
 MAX_PAGED_ROWS = 64
@@ -140,9 +145,110 @@ def flash_forward(q, k, v, causal=True, scale=None):
     return out, lse
 
 
+# ---------------------------------------------------------------------------
+# K3: flash-attention backward
+# ---------------------------------------------------------------------------
+
+
+def flash_backward_plain(q, k, v, out, lse, g, causal, scale):
+    """Plain version of `flash_bwd`: the math of the reference's
+    `_flash_backward` (flash_attention.py:1763-1814) on [b, s, h, d] inputs,
+    with its rounding points: p rounded to the input dtype before p^T g, ds
+    rounded before ds k and ds^T q, every product summed in float32.  dk/dv
+    are summed over each GQA group in float32 and rounded once.  Returns
+    (dq, dk, dv) in q's dtype."""
+    dt = q.dtype
+    b, s, h, d = q.shape
+    hk = k.shape[2]
+    rep = h // hk
+    qt, gt, ot = (x.transpose(1, 2).float() for x in (q, g, out))  # [b, h, s, d]
+    kt = k.transpose(1, 2).float().repeat_interleave(rep, dim=1)
+    vt = v.transpose(1, 2).float().repeat_interleave(rep, dim=1)
+    delta = (gt * ot).sum(-1)  # [b, h, s]
+    sc = torch.einsum("bhqd,bhkd->bhqk", qt, kt) * scale
+    if causal:
+        ids = torch.arange(s, device=q.device)
+        sc = torch.where(ids[:, None] >= ids[None, :], sc, NEG_INF)
+    p = torch.exp(sc - lse[..., None])
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(dt).float(), gt)
+    dp = torch.einsum("bhqd,bhkd->bhqk", gt, vt)
+    ds = (p * (dp - delta[..., None]) * scale).to(dt).float()
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kt)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qt)
+    dk = dk.reshape(b, hk, rep, s, d).sum(2)
+    dv = dv.reshape(b, hk, rep, s, d).sum(2)
+    return tuple(x.transpose(1, 2).to(dt).contiguous() for x in (dq, dk, dv))
+
+
+def flash_backward(q, k, v, out, lse, g, causal=True, scale=None):
+    """K3 wrapper.  q, out, g: [b, s, h, d]; k, v: [b, s, hk, d] (GQA read
+    in place, dk/dv summed over each group in-kernel); lse: [b, h, s]
+    float32 from `flash_forward`.  Returns (dq, dk, dv) shaped and typed
+    like q, k, v."""
+    _check_flash(q, k, v)
+    b, s, h, d = q.shape
+    _require(out.shape == q.shape and g.shape == q.shape,
+             "flash_bwd: out and g must be shaped like q")
+    _require(out.dtype == q.dtype and g.dtype == q.dtype,
+             "flash_bwd: out and g must be typed like q")
+    _require(lse.shape == (b, h, s) and lse.dtype == torch.float32,
+             "flash_bwd: lse must be [b, h, s] float32")
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    if not _on_cuda((q, k, v, out, lse, g), "flash_bwd"):
+        return flash_backward_plain(q, k, v, out, lse, g, causal, scale)
+    _require(all(t.is_contiguous() for t in (q, k, v, out, lse, g)),
+             "flash_bwd: inputs must be contiguous")
+    from ._build import check, lib
+
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    code = lib().ptt_flash_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), delta.data_ptr(), b, s, h, k.shape[2], d,
+        int(bool(causal)), float(scale), _dtype_code(q, "flash_bwd"), _stream(q),
+    )
+    check(code, "flash_bwd")
+    launch_counts["flash_bwd"] += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with the hand-written backward (the counterpart of the
+    reference's `custom_vjp` around `_flash_attention_core`,
+    flash_attention.py:1967-2057).  The forward runs `flash_forward` and
+    saves (q, k, v, out, lse), never the probabilities; the backward runs
+    `flash_backward`.  Inputs arrive non-contiguous (q and k after RoPE, the
+    output gradient from the reshape before o_proj): both kernels take
+    contiguous tensors, so the copies are made here."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        out, lse = flash_forward(q, k, v, causal=causal, scale=scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_backward(q, k, v, out, lse, g.contiguous(),
+                                    causal=ctx.causal, scale=ctx.scale)
+        return dq, dk, dv, None, None
+
+
 def sdpa(q, k, v, causal=False, scale=None):
     """Scaled dot-product attention on [b, s, h, d] (the port's
-    `sdpa_array`): self-attention through the `flash_fwd` kernel."""
+    `sdpa_array`): self-attention through the `flash_fwd` kernel, and,
+    when autograd records and an input requires grad, through
+    `FlashAttention` so the backward runs the `flash_bwd` kernel."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        if scale is None:
+            scale = 1.0 / math.sqrt(q.shape[-1])
+        return FlashAttention.apply(q, k, v, causal, scale)
     return flash_forward(q, k, v, causal=causal, scale=scale)[0]
 
 

@@ -3,6 +3,8 @@ serving part of `paddle_tpu/profiler.py`).
 
 The engine records one entry per finished request and one per decode step;
 `serving_summary()` aggregates them with the reference's key names.
+`kernel_launch_counts()` reads every hand-written kernel's launches
+(`flash_fwd`, `paged_decode_fused`, `flash_bwd`); `summary()` holds both.
 """
 
 from __future__ import annotations
@@ -92,3 +94,8 @@ def kernel_launch_counts():
 
 def reset_kernel_launch_counts():
     _fa.reset_launch_counts()
+
+
+def summary():
+    """The serving summary and the kernel launch counts in one dict."""
+    return {"serving": serving_summary(), "kernel_launches": kernel_launch_counts()}

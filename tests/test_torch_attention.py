@@ -112,7 +112,8 @@ def test_cpu_tensors_never_count_a_kernel_launch():
     pfa.reset_launch_counts()
     x = torch.zeros(1, 8, 2, 16)
     pfa.flash_forward(x, x, x)
-    assert pfa.launch_counts == {"flash_fwd": 0, "paged_decode_fused": 0}
+    assert pfa.launch_counts == {"flash_fwd": 0, "paged_decode_fused": 0,
+                                 "flash_bwd": 0}
 
 
 # ---------------------------------------------------------------------------
