@@ -3,29 +3,36 @@
 
     python3 chip_smoke.py
 
-Six phases; a failure in any of them exits non-zero and prints no result.
+Seven phases; a failure in any of them exits non-zero and prints no result.
 
 1. device  -- requires CUDA; prints the card's name and power limit.
 2. build   -- builds every kernel of `paddle_tpu_torch/csrc` with nvcc.
 3. kernels -- holds each kernel against its plain PyTorch version on the
-              card, in bf16, at the serving and training paths' shapes, and
-              times kernel, plain version and (where one exists) the PyTorch
-              library call with CUDA events; then every other variant the
-              wrappers launch, untimed.
+              card, in bf16, at the serving and training paths' shapes
+              (decode and chunk prefill for the paged kernels, int8 pages
+              for K4), and times kernel, plain version and (where one
+              exists) the PyTorch library call with CUDA events; then every
+              other variant the wrappers launch, untimed.
 4. slice   -- serves a full-width, full-depth Llama-2-7B (bf16, random
               weights from a seeded generator) through the paged engine
               behind `POST /generate`, checks the token counts and that every
               prefill and decode step launched the two kernels, then
               teacher-forces the generated sequences through the full-sequence
               forward and compares logits.
-5. train   -- trains Llama-2-7B's widths at 8 layers (bf16 AMP O2, AdamW with
+5. prefix  -- the same model behind prefix-cached engines, in full precision
+              and over int8 pages: requests sharing a system prompt hit the
+              cache, copy its tail page and chunk-prefill their suffix; checks
+              token counts, hits and copies, the launches of K1, K2 and K4,
+              logits against the teacher-forced forward, and prints the
+              int8 run's greedy agreement with the full-precision run.
+6. train   -- trains Llama-2-7B's widths at 8 layers (bf16 AMP O2, AdamW with
               float32 master weights) for 6 steps on one repeated batch of
               4 x 2048 tokens: finite and falling losses, K1 and K3 launched
               once per layer per step, every weight moved; step time,
               tokens/s, peak memory and a profiled step.
               Then 2 steps of 2 layers with activation recompute (K1 twice
               per layer per step).
-6. grads   -- one step's gradients of a 2-layer model at the same widths
+7. grads   -- one step's gradients of a 2-layer model at the same widths
               with the kernels against the same step with attention through
               the plain forward under autograd.
 
@@ -47,9 +54,11 @@ import urllib.request
 
 ROOT = pathlib.Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and bf16 tensor FLOP/s
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16 tensor
+# FLOP/s and float32 FLOP/s outside the tensor cores
 PEAK_BYTES_S = 3.35e12
 PEAK_BF16_FLOP_S = 989e12
+PEAK_F32_FLOP_S = 67e12
 
 # bf16 tolerances, kernel vs plain version on the same inputs: |kernel -
 # plain| <= KERNEL_ATOL + KERNEL_RTOL * |plain| elementwise.  Both sides
@@ -77,6 +86,12 @@ REL_NORM_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
 LOGIT_REL_TOL = 0.1
 
 SLICE_PROMPTS = [(20, 64), (77, 48), (200, 32), (333, 40), (500, 32), (45, 64)]
+# the prefix phase: 8 requests share a 300-token system prompt (2 full
+# 128-row pages and a 44-row tail, so every hit copies the tail page), each
+# with its own suffix, 32 new tokens each
+PREFIX_SYS_LEN = 300
+PREFIX_SUFFIXES = [20, 45, 77, 100, 130, 160, 185, 200]
+PREFIX_NEW = 32
 
 # the training slice: Llama-2-7B widths at 8 layers (AdamW's float32 state
 # for all 32 would not fit one card), batch 4 x 2048 tokens, bf16 O2
@@ -132,9 +147,11 @@ def close(out, ref):
             and rel_norm_err(out, ref) <= REL_NORM_TOL[name])
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, peak_flop_s=PEAK_BF16_FLOP_S):
+    """The least milliseconds the card could take: the larger of the bytes
+    over the memory rate and the operations over `peak_flop_s`."""
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = flops / PEAK_BF16_FLOP_S * 1e3
+    t_ops = flops / peak_flop_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -215,15 +232,19 @@ def _k1_case(b, s, h, hk, d=128, seed=0, dtype="bfloat16", causal=True,
                     bound_by=by, library_ms=lib_ms)
 
 
-def _k2_case(b, sq, h, hk, pos, d=128, ps=128, max_len=2048, seed=1,
-             dtype="bfloat16", timed=True):
-    """K2 against its plain version; with `timed`, also kernel and plain
-    times and the bound."""
+def _paged_inputs(b, sq, h, hk, pos, d, ps, max_len, seed, dtype, quant,
+                  overrun):
+    """q, arenas, (scales), tables and pos of a paged case on the card.  The
+    arenas hold random rows, quantized by the engine's own quantizer under
+    int8; page 0 is scratch, zero (scale 0) as in a fresh arena.  Tables are
+    a random permutation of the other pages; with `overrun`, entries past
+    each slot's page of `pos` point at scratch, so the window's later rows
+    read it."""
     import numpy as np
     import torch
 
     from paddle_tpu_torch.inference.paging import check_table_bounds
-    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.models.llama import _quantize_kv_rows
 
     P = -(-max_len // ps)
     pages = b * P + 1
@@ -232,39 +253,87 @@ def _k2_case(b, sq, h, hk, pos, d=128, ps=128, max_len=2048, seed=1,
     ak = torch.randn(pages, ps, hk, d, generator=g, device="cuda", dtype=dt)
     av = torch.randn(pages, ps, hk, d, generator=g, device="cuda", dtype=dt)
     q = torch.randn(b, sq, h, d, generator=g, device="cuda", dtype=dt)
+    scales = ()
+    if quant:
+        (ak, ks), (av, vs) = _quantize_kv_rows(ak), _quantize_kv_rows(av)
+        for t in (ak, av, ks, vs):
+            t[0] = 0
+        scales = (ks, vs)
     rng = np.random.default_rng(seed)
     tables_np = rng.permutation(np.arange(1, pages)).astype(np.int32).reshape(b, P)
+    if overrun:
+        for s_, p in enumerate(pos):
+            tables_np[s_, p // ps + 1:] = 0
     check_table_bounds(tables_np, pages)
     tables = torch.from_numpy(tables_np).cuda()
     pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
-    args = (q, ak, av, tables, pos_t, max_len)
-    out = fa.paged_decode_fused(*args)
+    return q, ak, av, scales, tables, pos_t
+
+
+def _k2_case(b, sq, h, hk, pos, d=128, ps=128, max_len=2048, seed=1,
+             dtype="bfloat16", timed=True, quant=False, overrun=False,
+             library=False):
+    """K2 (or, with `quant`, K4 over an int8 arena) against its plain
+    version; with `timed`, also kernel and plain times and the bound, and
+    with `library` the time of PyTorch's SDPA over the gathered live K/V
+    with the kernel's mask (K2 only: no PyTorch call reads int8 pages)."""
+    import torch
+    from torch.nn import functional as F
+
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    q, ak, av, scales, tables, pos_t = _paged_inputs(
+        b, sq, h, hk, pos, d, ps, max_len, seed, dtype, quant, overrun)
+    name = "paged_decode_fused_q8" if quant else "paged_decode_fused"
+    kernel = fa.paged_decode_fused_q8 if quant else fa.paged_decode_fused
+    plain = fa.paged_decode_q8_plain if quant else fa.paged_decode_plain
+    args = (q, ak, av, *scales, tables, pos_t, max_len)
+    out = kernel(*args)
     torch.cuda.synchronize()
     scale = 1.0 / d ** 0.5
-    ref = fa.paged_decode_plain(*args, scale)
+    ref = plain(*args, scale)
     err = (out.float() - ref.float()).abs().max().item()
     rel = rel_norm_err(out, ref)
     ok = close(out, ref)
-    shape = (f"paged_decode_fused {dtype} b={b} sq={sq} h={h} hk={hk} d={d} "
-             f"ps={ps} pos={pos}: max_abs_err {err:.3e}, rel_norm_err {rel:.3e}")
+    shape = (f"{name} {dtype} b={b} sq={sq} h={h} hk={hk} d={d} ps={ps} "
+             f"pos={pos}{' overrun' if overrun else ''}: max_abs_err "
+             f"{err:.3e}, rel_norm_err {rel:.3e}")
     if not timed:
         log("kernels", f"{shape} -> {'ok' if ok else 'FAIL'}")
         return ok, dict(max_abs_err=err)
-    ms = time_ms(lambda: fa.paged_decode_fused(*args))
-    plain_ms = time_ms(lambda: fa.paged_decode_plain(*args, scale))
-    # bytes this data needs: each slot's live K/V rows of every kv head,
-    # q, out, tables and pos; operations over the visible (row, key) pairs
+    ms = time_ms(lambda: kernel(*args))
+    plain_ms = time_ms(lambda: plain(*args, scale))
+    lib_ms = None
+    if library:
+        # one live prefix per slot: the gathered K/V [b, hk, live, d] and
+        # the kernel's mask (row w sees jid <= pos + w)
+        live = max(pos) + sq
+        kg = fa.paged_gather_kv(ak, tables, live).transpose(1, 2).contiguous()
+        vg = fa.paged_gather_kv(av, tables, live).transpose(1, 2).contiguous()
+        jid = torch.arange(live, device="cuda")
+        w = torch.arange(sq, device="cuda")
+        mask = jid[None, None, None, :] <= pos_t.view(b, 1, 1, 1) + w.view(1, 1, sq, 1)
+        qt = q.transpose(1, 2)
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kg, vg, attn_mask=mask, enable_gqa=h != hk))
+    # bytes this data needs: each slot's live K/V rows of every kv head (and
+    # their float32 scales under int8), q, out, tables and pos; operations
+    # over the visible (row, key) pairs, at the bf16 tensor peak for K2 and
+    # the float32 peak for K4 (its products are float32, as the
+    # reference's are)
     live = [min(p + sq, max_len) for p in pos]
-    nbytes = (sum(live) * hk * d * 2 * 2 + 2 * q.numel() * 2
+    row_bytes = d + 4 if quant else d * 2
+    nbytes = (sum(live) * hk * row_bytes * 2 + 2 * q.numel() * q.element_size()
               + tables.numel() * 4 + b * 4)
     visible = sum(min(p + w + 1, max_len) for p in pos for w in range(sq))
     flops = 4 * d * h * visible
-    bms, by = bound(nbytes, flops)
+    bms, by = bound(nbytes, flops, PEAK_F32_FLOP_S if quant else PEAK_BF16_FLOP_S)
+    lib_txt = "null" if lib_ms is None else f"{lib_ms:.4f}"
     log("kernels", f"{shape}, kernel_ms {ms:.4f}, plain_ms {plain_ms:.4f}, "
-                   f"library_ms null, bound_ms {bms:.5f} ({by}) -> "
+                   f"library_ms {lib_txt}, bound_ms {bms:.5f} ({by}) -> "
                    f"{'ok' if ok else 'FAIL'}")
     return ok, dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                    bound_by=by, library_ms=None)
+                    bound_by=by, library_ms=lib_ms)
 
 
 def _k3_case(b, s, h, hk, d=128, seed=6, dtype="bfloat16", causal=True,
@@ -344,10 +413,44 @@ def phase_kernels():
     ok, rec = _k1_case(1, 300, 32, 8, seed=3)  # ragged, GQA
     ok_all &= ok
     errs1 = [r["max_abs_err"] for r in k1.values()] + [rec["max_abs_err"]]
-    ok, k2 = _k2_case(8, 1, 32, 32, [1999, 1500, 1024, 700, 300, 128, 127, 5])
+    decode_pos = [1999, 1500, 1024, 700, 300, 128, 127, 5]
+    ok, k2 = _k2_case(8, 1, 32, 32, decode_pos)
     ok_all &= ok
     ok, rec2 = _k2_case(4, 4, 32, 8, [1000, 513, 64, 0], seed=2)  # GQA, sq 4
     ok_all &= ok
+    errs2 = [k2["max_abs_err"], rec2["max_abs_err"]]
+    # the chunk prefill of a prefix-cache hit: a 256-row suffix bucket at
+    # position 300, then the largest bucket and a GQA group x window of 256
+    # rows (rep 4 x sq 64), untimed
+    ok, _ = _k2_case(1, 256, 32, 32, [300], seed=9, library=True)
+    ok_all &= ok
+    for kw in (dict(b=1, sq=512, h=32, hk=32, pos=[300]),
+               dict(b=2, sq=64, h=32, hk=8, pos=[1000, 44])):
+        ok, rec = _k2_case(seed=10, timed=False, **kw)
+        ok_all &= ok
+        errs2.append(rec["max_abs_err"])
+    # K4: int8 pages at the decode and chunk cases, timed, then its other
+    # variants untimed
+    ok, k4 = _k2_case(8, 1, 32, 32, decode_pos, seed=11, quant=True)
+    ok_all &= ok
+    ok, rec = _k2_case(1, 256, 32, 32, [300], seed=12, quant=True)
+    ok_all &= ok
+    errs4 = [k4["max_abs_err"], rec["max_abs_err"]]
+    for kw in (
+        dict(b=4, sq=4, h=32, hk=8, pos=[1000, 513, 64, 0]),        # GQA, sq 4
+        dict(b=2, sq=64, h=32, hk=8, pos=[1000, 44]),               # 4 row tiles
+        dict(b=4, sq=1, h=32, hk=8, pos=[1500, 700, 129, 3], dtype="float32"),
+        dict(b=2, sq=2, h=8, hk=2, pos=[900, 40], d=64, ps=64, max_len=1024),
+        # scalar tile loads (d bytes not a multiple of 16), 2 splits
+        dict(b=2, sq=1, h=4, hk=2, pos=[700, 10], d=36, ps=16, max_len=1024),
+        # windows running past the mapped pages into scratch page 0
+        dict(b=3, sq=4, h=8, hk=2, pos=[14, 30, 7], d=64, ps=16, max_len=256,
+             overrun=True),
+    ):
+        ok, rec = _k2_case(seed=13, timed=False, quant=True, **kw)
+        ok_all &= ok
+        if kw.get("dtype", "bfloat16") == "bfloat16":
+            errs4.append(rec["max_abs_err"])
     # the other variants: each line is one kernel instantiation or mode
     for kw in (
         dict(b=1, s=128, h=32, hk=32, dtype="float32"),   # f32 FMA, d 128
@@ -362,13 +465,16 @@ def phase_kernels():
         ok_all &= ok
     for kw in (
         dict(b=4, sq=1, h=32, hk=8, pos=[1500, 700, 129, 3], dtype="float32"),
-        # largest shared memory: rep * sq = 64 rows at d 256
-        dict(b=2, sq=2, h=32, hk=1, pos=[900, 40], d=256, ps=64, max_len=1024),
+        # largest shared memory (a 64-row tile at d 256), then a partial
+        # second tile whose first row sits mid-window (rep 32 x sq 3 = 96)
+        dict(b=2, sq=3, h=32, hk=1, pos=[900, 40], d=256, ps=64, max_len=1024),
         # scalar tile loads (d * 2 bytes not a multiple of 16), 2 splits
         dict(b=2, sq=1, h=4, hk=2, pos=[700, 10], d=36, ps=16, max_len=1024),
     ):
-        ok, _ = _k2_case(seed=5, timed=False, **kw)
+        ok, rec = _k2_case(seed=5, timed=False, **kw)
         ok_all &= ok
+        if kw.get("dtype", "bfloat16") == "bfloat16":
+            errs2.append(rec["max_abs_err"])
     # the training path: K1 and K3 at the slice's shape, timed
     ok, k1_train = _k1_case(TRAIN_BATCH, TRAIN_SEQ, 32, 32, seed=7)
     ok_all &= ok
@@ -393,10 +499,11 @@ def phase_kernels():
             errs3.append(rec["max_abs_err"])
     torch.cuda.empty_cache()
     head1 = dict(k1[512], max_abs_err=max(errs1))
-    head2 = dict(k2, max_abs_err=max(k2["max_abs_err"], rec2["max_abs_err"]))
+    head2 = dict(k2, max_abs_err=max(errs2))
     head3 = dict(k3, max_abs_err=max(errs3))
+    head4 = dict(k4, max_abs_err=max(errs4))
     return {"flash_fwd": head1, "paged_decode_fused": head2,
-            "flash_bwd": head3}, ok_all
+            "paged_decode_fused_q8": head4, "flash_bwd": head3}, ok_all
 
 
 def _post(url, body):
@@ -412,12 +519,11 @@ def phase_slice(smi, cfg, device="cuda", dtype="bfloat16",
                 prompts_spec=SLICE_PROMPTS, **engine_kw):
     """Serve `cfg` through the engine behind POST /generate, then check the
     outputs.  Returns (all checks passed, kernel launch counts of the served
-    run)."""
+    run, the model)."""
     import numpy as np
     import torch
 
     from paddle_tpu_torch import profiler
-    from paddle_tpu_torch.inference import serve
     from paddle_tpu_torch.inference.engine import ContinuousBatchingEngine
     from paddle_tpu_torch.inference.paging import kv_page_bytes
     from paddle_tpu_torch.models.llama import LlamaForCausalLM
@@ -447,26 +553,10 @@ def phase_slice(smi, cfg, device="cuda", dtype="bfloat16",
     # -- the main path: concurrent POST /generate ---------------------------
     profiler.reset_kernel_launch_counts()
     profiler.reset_serving()
-    server = serve(engine, port=0, block=False)
-    url = f"http://127.0.0.1:{server.server_address[1]}/generate"
-    results = [None] * len(prompts)
-
-    def client(i):
-        results[i] = _post(url, {"input_ids": prompts[i].tolist(),
-                                 "max_new_tokens": prompts_spec[i][1]})
-
-    t0 = time.perf_counter()
-    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(prompts))]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(900)
-    wall = time.perf_counter() - t0
-    server.stop()
+    results, wall = _serve_batches(
+        engine, [[(p, new) for p, (_, new) in zip(prompts, prompts_spec)]])
     counts = profiler.kernel_launch_counts()
     summary = profiler.serving_summary()
-    if any(t.is_alive() for t in threads) or None in results:
-        raise RuntimeError("a /generate request did not complete")
 
     layers = cfg.num_hidden_layers
     gen = []
@@ -500,12 +590,31 @@ def phase_slice(smi, cfg, device="cuda", dtype="bfloat16",
     reqs = [engine.submit(p, max_new_tokens=new, keep_logits=True)
             for p, (_, new) in zip(prompts, prompts_spec)]
     engine.run_until_idle()
+    agree, total, worst, finite = _teacher_forced(model, device, prompts, gen,
+                                                  reqs, "slice")
+    logits_ok = worst <= LOGIT_REL_TOL and finite
+    ok &= logits_ok
+    log("slice", f"teacher-forced greedy agreement {agree}/{total} = "
+                 f"{agree / total:.4f}; worst logits rel err {worst:.4f} (tol "
+                 f"{LOGIT_REL_TOL}) -> {'ok' if logits_ok else 'FAIL'}")
+    if on_card:
+        profile_decode(engine, cfg, rng)
+    return ok, counts, model
+
+
+def _teacher_forced(model, device, prompts, gen, reqs, phase):
+    """Logits of each engine request (`keep_logits`) against the model's
+    full-sequence forward over prompt + generated tokens.  Returns (greedy
+    agreement count, token count, worst max|diff| / max|logit|, all
+    finite)."""
+    import numpy as np
+    import torch
+
     agree = total = 0
     worst = 0.0
     finite = True
     for p, g, r in zip(prompts, gen, reqs):
         out = r.wait(1)
-        same = np.array_equal(out[p.size:], g)
         seq = np.concatenate([p, out[p.size:-1]])[None]
         with torch.no_grad():
             ref = model(torch.from_numpy(seq).to(device))[0, p.size - 1:].float()
@@ -515,16 +624,142 @@ def phase_slice(smi, cfg, device="cuda", dtype="bfloat16",
         worst = max(worst, rel)
         agree += int((ref.argmax(-1).cpu().numpy() == out[p.size:]).sum())
         total += out.size - p.size
-        log("slice", f"prompt {p.size}: direct run tokens == HTTP tokens: "
-                     f"{same}; logits max|diff|/max|logit| {rel:.4f}")
+        log(phase, f"prompt {p.size}: direct run tokens == HTTP tokens: "
+                   f"{np.array_equal(out[p.size:], g)}; logits max|diff|/"
+                   f"max|logit| {rel:.4f}")
+    return agree, total, worst, finite
+
+
+def _serve_batches(engine, batches):
+    """POST each batch of (prompt, max_new_tokens) to /generate, the
+    requests of a batch concurrently and each batch after the previous one
+    finished.  Returns (responses in order, wall seconds)."""
+    from paddle_tpu_torch.inference import serve
+
+    server = serve(engine, port=0, block=False)
+    url = f"http://127.0.0.1:{server.server_address[1]}/generate"
+    results = []
+    t0 = time.perf_counter()
+    try:
+        for batch in batches:
+            got = [None] * len(batch)
+
+            def client(i, batch=batch, got=got):
+                p, new = batch[i]
+                got[i] = _post(url, {"input_ids": p.tolist(), "max_new_tokens": new})
+
+            threads = [threading.Thread(target=client, args=(i,))
+                       for i in range(len(batch))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(900)
+            if any(t.is_alive() for t in threads) or None in got:
+                raise RuntimeError("a /generate request did not complete")
+            results += got
+    finally:
+        server.stop()
+    return results, time.perf_counter() - t0
+
+
+def phase_prefix(smi, model, kv_quant, device="cuda", sys_len=PREFIX_SYS_LEN,
+                 suffixes=PREFIX_SUFFIXES, new_tokens=PREFIX_NEW,
+                 plain_spec=SLICE_PROMPTS, **engine_kw):
+    """Prefix-cached serving of `model` with `kv_quant` pages behind POST
+    /generate: one request with a shared system prompt of `sys_len` tokens
+    and its own suffix, alone so that it commits, then the others sharing
+    the prompt together; under int8 then the `plain_spec` mix with no shared
+    prefix.  Checks token counts, prefix hits and copy-on-write copies (each
+    >= the requests that came after the first), and the kernel launches of
+    the run, then holds logits of a direct run against the teacher-forced
+    forward.  Returns (all checks passed, launch counts, generated tokens of
+    the shared-prefix requests)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.inference.engine import ContinuousBatchingEngine
+    from paddle_tpu_torch.inference.paging import kv_page_bytes
+
+    cfg = model.config
+    layers = cfg.num_hidden_layers
+    phase = f"prefix {kv_quant}"
+    t0 = time.perf_counter()
+    engine = ContinuousBatchingEngine(model, seed=0, device=device,
+                                      prefix_cache=True, kv_quant=kv_quant,
+                                      **engine_kw)
+    engine.warmup()
+    arena = layers * engine.pool_pages * kv_page_bytes(
+        engine.page_size, cfg.num_key_value_heads, cfg.head_dim,
+        model.lm_head.weight.element_size(), kv_quant)
+    log(phase, f"engine kv_quant={kv_quant}: arena {engine.pool_pages} pages x "
+               f"{engine.page_size} rows = {arena / 2**30:.2f} GiB, built + "
+               f"warmed in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(1)
+    system = rng.integers(1, cfg.vocab_size, size=sys_len)
+    shared = [np.concatenate([system, rng.integers(1, cfg.vocab_size, size=n)])
+              .astype(np.int32) for n in suffixes]
+    plain = ([rng.integers(1, cfg.vocab_size, size=n).astype(np.int32)
+              for n, _ in plain_spec] if kv_quant == "int8" else [])
+    spec = ([(p, new_tokens) for p in shared]
+            + [(p, new) for p, (_, new) in zip(plain, plain_spec)])
+    batches = [spec[:1], spec[1:len(shared)]] + ([spec[len(shared):]] if plain else [])
+
+    # -- the main path: POST /generate --------------------------------------
+    profiler.reset_kernel_launch_counts()
+    profiler.reset_serving()
+    profiler.reset_paging()
+    results, wall = _serve_batches(engine, batches)
+    counts = profiler.kernel_launch_counts()
+    summary = profiler.serving_summary()
+    paging = profiler.paging_summary()
+
+    gen = []
+    tokens_ok = True
+    for r, (p, new) in zip(results, spec):
+        toks = r["tokens"]
+        tokens_ok &= len(toks) == p.size + new and toks[:p.size] == p.tolist()
+        gen.append(np.asarray(toks[p.size:], np.int32))
+    hits, cows = paging.get("prefix_hits", 0), paging.get("cow_copies", 0)
+    sharing_ok = hits >= len(shared) - 1 and cows >= len(shared) - 1
+    fresh = len(spec) - hits  # every miss is a fresh prefill
+    want_k1 = fresh * layers
+    want_paged = (hits + summary["decode_steps"]) * layers
+    paged_name = "paged_decode_fused_q8" if kv_quant == "int8" else "paged_decode_fused"
+    other = "paged_decode_fused" if kv_quant == "int8" else "paged_decode_fused_q8"
+    counts_ok = (counts["flash_fwd"] == want_k1 and counts[paged_name] == want_paged
+                 and counts[other] == 0)
+    ok = tokens_ok and sharing_ok and counts_ok
+    log(phase, f"served {len(spec)} requests over HTTP in {wall:.3f} s: token "
+               f"counts {'ok' if tokens_ok else 'WRONG'}; prefix hits {hits}, "
+               f"COW copies {cows}, prefill tokens saved "
+               f"{paging.get('prefill_tokens_saved', 0)}, commits "
+               f"{paging.get('cache_commits', 0)} (want hits and copies >= "
+               f"{len(shared) - 1}) -> {'ok' if sharing_ok else 'FAIL'}")
+    log(phase, f"launches {counts} (expected flash_fwd {want_k1} = {fresh} fresh "
+               f"prefills x {layers} layers, {paged_name} {want_paged} = ({hits} "
+               f"chunk prefills + {summary['decode_steps']} decode steps) x "
+               f"{layers}, {other} 0) -> {'ok' if counts_ok else 'FAIL'}")
+    decode_tps = (summary["tokens"] - summary["requests"]) / summary["decode_busy_s"]
+    log(phase, f"ttft_p50_ms {summary['ttft_p50_ms']:.3f} ttft_p95_ms "
+               f"{summary['ttft_p95_ms']:.3f} decode_tokens_per_s {decode_tps:.2f} "
+               f"(batch of up to {engine.slots}) arena_gib {arena / 2**30:.2f} "
+               f"pages {engine.pool_pages} | {smi}")
+
+    # -- correctness: a direct run's logits vs the teacher-forced forward ---
+    prompts = [p for p, _ in spec]
+    reqs = [engine.submit(p, max_new_tokens=new, keep_logits=True) for p, new in spec]
+    engine.run_until_idle()
+    agree, total, worst, finite = _teacher_forced(model, device, prompts, gen,
+                                                  reqs, phase)
     logits_ok = worst <= LOGIT_REL_TOL and finite
     ok &= logits_ok
-    log("slice", f"teacher-forced greedy agreement {agree}/{total} = "
-                 f"{agree / total:.4f}; worst logits rel err {worst:.4f} (tol "
-                 f"{LOGIT_REL_TOL}) -> {'ok' if logits_ok else 'FAIL'}")
-    if on_card:
+    log(phase, f"teacher-forced greedy agreement {agree}/{total} = "
+               f"{agree / total:.4f}; worst logits rel err {worst:.4f} (tol "
+               f"{LOGIT_REL_TOL}) -> {'ok' if logits_ok else 'FAIL'}")
+    if torch.device(device).type == "cuda" and kv_quant == "int8":
         profile_decode(engine, cfg, rng)
-    return ok, counts
+    return ok, counts, gen[:len(shared)]
 
 
 def _device_profile(run, steps):
@@ -560,7 +795,12 @@ KERNEL_GROUPS = (
     ("GEMMs (cuBLAS)", ("nvjet", "gemm", "cutlass", "splitKreduce")),
     ("K1 flash_fwd", ("flash_fwd",)),
     ("K3 flash_bwd", ("flash_bwd", "delta_kernel")),
-    ("K2 paged_decode", ("paged_decode",)),
+    # K4 is paged_decode_kernel over int8 ("signed char") pages; K2 and K4
+    # share the split combine kernel
+    ("K4 paged_decode_q8", ("paged_decode_kernel<__nv_bfloat16, signed char",
+                            "paged_decode_kernel<float, signed char")),
+    ("K2 paged_decode", ("paged_decode_kernel<",)),
+    ("K2/K4 split combine", ("combine_kernel<",)),
 )
 
 
@@ -801,10 +1041,26 @@ def main():
         kernels, kernels_ok = phase_kernels()
         from paddle_tpu_torch.models.llama import LlamaConfig
 
-        slice_ok, counts = phase_slice(
-            smi, LlamaConfig.llama2_7b(), slots=8, max_len=2048,
-            page_size=128, prefill_buckets=[32, 64, 128, 256, 512],
-        )
+        serving = dict(slots=8, max_len=2048, page_size=128,
+                       prefill_buckets=[32, 64, 128, 256, 512])
+        slice_ok, counts, model = phase_slice(smi, LlamaConfig.llama2_7b(),
+                                              **serving)
+        _free()
+        # the prefix cache in full precision, then over int8 pages: one
+        # engine (and arena) at a time, the same model
+        prefix_ok, prefix_counts, prefix_gen = True, [], {}
+        for quant in ("none", "int8"):
+            ok, c, gen = phase_prefix(smi, model, quant, **serving)
+            prefix_ok &= ok
+            prefix_counts.append(c)
+            prefix_gen[quant] = gen
+            _free()
+        same = sum(int((a == b).sum()) for a, b in zip(prefix_gen["none"],
+                                                       prefix_gen["int8"]))
+        total = sum(a.size for a in prefix_gen["none"])
+        log("prefix", f"int8 greedy tokens equal to full precision's, per "
+                      f"position: {same}/{total} = {same / total:.4f}")
+        del model
         _free()
         train_ok, train_counts = phase_train(
             smi, LlamaConfig.llama2_7b(num_hidden_layers=TRAIN_LAYERS))
@@ -818,26 +1074,33 @@ def main():
     except Exception:
         traceback.print_exc()
         return 1
-    if not (kernels_ok and slice_ok and train_ok and recompute_ok and grad_ok):
+    if not (kernels_ok and slice_ok and prefix_ok and train_ok and recompute_ok
+            and grad_ok):
         print("chip_smoke: a phase failed (see the lines above)", file=sys.stderr)
         return 1
-    # launches: the serving run's and the training run's counts, each read
+    # launches: the serving runs' and the training run's counts, each read
     # just after its path ran
+    runs = [counts, *prefix_counts, train_counts]
+    launches = {name: sum(c[name] for c in runs) for name in kernels}
     record = {"kernels": [
         {"name": "flash_fwd", "route": "cuda",
          "source": "paddle_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "paddle_tpu/ops/flash_attention.py:186",
-         "launches": counts["flash_fwd"] + train_counts["flash_fwd"],
-         **kernels["flash_fwd"]},
+         "launches": launches["flash_fwd"], **kernels["flash_fwd"]},
         {"name": "paged_decode_fused", "route": "cuda",
          "source": "paddle_tpu_torch/csrc/paged_decode.cu",
          "replaces": "paddle_tpu/ops/flash_attention.py:813",
-         "launches": counts["paged_decode_fused"],
+         "launches": launches["paged_decode_fused"],
          **kernels["paged_decode_fused"]},
+        {"name": "paged_decode_fused_q8", "route": "cuda",
+         "source": "paddle_tpu_torch/csrc/paged_decode.cu",
+         "replaces": "paddle_tpu/ops/flash_attention.py:961",
+         "launches": launches["paged_decode_fused_q8"],
+         **kernels["paged_decode_fused_q8"]},
         {"name": "flash_bwd", "route": "cuda",
          "source": "paddle_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "paddle_tpu/ops/flash_attention.py:415",
-         "launches": train_counts["flash_bwd"], **kernels["flash_bwd"]},
+         "launches": launches["flash_bwd"], **kernels["flash_bwd"]},
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

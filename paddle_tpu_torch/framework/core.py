@@ -3,8 +3,7 @@
 Counterpart of `paddle_tpu/framework/core.py`, cut to what the paged
 serving path reads.  The flag names and defaults are the reference's, so a
 deployment's `FLAGS_serve_*` environment means the same thing to both
-packages.  One default differs on purpose: `FLAGS_serve_prefix_cache` is
-off, because the prefix cache is not ported yet (ROADMAP, Queue 1).
+packages.
 """
 
 from __future__ import annotations
@@ -131,9 +130,9 @@ define_flag(
     "for masked and inactive writes).  0 = auto: slots * pages_per_seq + 1",
 )
 define_flag(
-    "FLAGS_serve_prefix_cache", False,
-    "paged KV: prefix cache over committed prompt pages.  Not ported yet; "
-    "True raises NotImplementedError at engine construction",
+    "FLAGS_serve_prefix_cache", True,
+    "paged KV: share committed prompt pages across requests (prefix cache "
+    "with copy-on-write tails; a hit prefills only the unshared suffix)",
 )
 define_flag(
     "FLAGS_serve_decode_kernel", "auto",
@@ -147,7 +146,9 @@ define_flag(
 )
 define_flag(
     "FLAGS_serve_kv_quant", "none",
-    "KV storage precision.  Only 'none' is ported; 'int8' raises",
+    "paged KV storage precision: 'none' (the model dtype) or 'int8' (int8 "
+    "rows with a float32 scale per row and kv head, read by the "
+    "paged_decode_fused_q8 kernel)",
 )
 define_flag("FLAGS_serve_tp", 1, "tensor-parallel degree.  Not ported; > 1 raises")
 define_flag("FLAGS_serve_cp", 1, "context-parallel degree.  Not ported; > 1 raises")

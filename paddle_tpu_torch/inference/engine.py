@@ -12,14 +12,29 @@ holds only the pages that cover `prompt + max_new_tokens`.
 Why padding and inactive writes are safe: a prefill's bucket-padding rows
 and every inactive slot's decode write land on scratch page 0, which no
 live sequence maps; decode attends only rows j <= pos of a slot's own
-pages, and every row it attends was written by that slot first.
+pages, and every row it attends was written by that slot (or, for a
+shared prefix, by the request that committed it) first.
 
-Not ported yet (ROADMAP, Queue 1): the prefix cache with chunk prefill and
-copy-on-write pages, speculative decoding, LoRA, int8 KV, tensor and
-context parallelism, the serving fault domain (deadlines, cancel, warm
-restart), sessions, disaggregation, the deferred token fetch and CUDA
-graphs.  A knob that asks for one of them raises NotImplementedError; this
-engine fetches each step's tokens to the host at once.
+Prefix cache (on by default, as in the reference): a request whose prompt
+starts with at least `min_prefix_match` committed tokens maps the shared
+full pages read-only, copies a matched partial page (copy-on-write, scale
+rows included under int8) and chunk-prefills only the unshared suffix at
+its offset, attending the shared pages through the paged kernel.  Every
+prefill then commits its prompt's pages; cached pages are evicted LRU when
+the allocator runs dry.
+
+kv_quant="int8" stores every page as int8 with a float32 scale per (row,
+kv head); the auto-sized pool then holds the bytes of the full-precision
+pool, about twice the pages.  A fresh prefill still attends its own
+full-precision K/V; decode steps and chunk prefills read the int8 pages
+through the `paged_decode_fused_q8` kernel.
+
+Not ported yet (ROADMAP, Queue 1): sessions, speculative decoding and its
+verify window, LoRA, the disaggregated page import, tensor and context
+parallelism, the dense slot-pool engine, the serving fault domain
+(deadlines, cancel, warm restart), `/metrics`, the deferred token fetch and
+CUDA graphs.  A knob that asks for one of them raises NotImplementedError;
+this engine fetches each step's tokens to the host at once.
 """
 
 from __future__ import annotations
@@ -41,8 +56,14 @@ from ..models.llama import (
     PagedPrefillView,
     to_index_tensor,
 )
-from ..ops.flash_attention import MAX_HEAD_DIM, MAX_PAGED_ROWS
-from .paging import PagePool, check_table_bounds
+from ..ops.flash_attention import MAX_HEAD_DIM
+from .paging import (
+    PagePool,
+    PrefixCache,
+    check_table_bounds,
+    kv_page_bytes,
+    validate_kv_quant,
+)
 
 logger = logging.getLogger("paddle_tpu_torch")
 
@@ -126,8 +147,14 @@ class ContinuousBatchingEngine:
             raise ValueError(
                 f"model lives on {model.device}, engine on {self.device}"
             )
-        self._check_not_ported(paged, prefix_cache, spec_k, lora, tp, kv_quant,
-                               role, cp)
+        flag = _fcore.flag
+        paged = bool(flag("FLAGS_serve_paged_kv") if paged is None else paged)
+        # typed QuantConfigError at construction, the reference's contract
+        self.kv_quant = validate_kv_quant(
+            flag("FLAGS_serve_kv_quant") if kv_quant is None else kv_quant,
+            paged=paged,
+        )
+        self._check_not_ported(paged, spec_k, lora, tp, role, cp)
         cfg = model.config
         self.model = model
         self.slots = int(slots if slots is not None else _fcore.flag("FLAGS_serve_slots"))
@@ -148,7 +175,6 @@ class ContinuousBatchingEngine:
         )
 
         head_dim = cfg.head_dim
-        rep = cfg.num_attention_heads // cfg.num_key_value_heads
         ps = int(page_size if page_size is not None
                  else _fcore.flag("FLAGS_serve_kv_page_size"))
         # a page never needs to exceed a sequence
@@ -161,27 +187,49 @@ class ContinuousBatchingEngine:
         # "auto" is the reference flag's default; with no silent fallback in
         # the port it is an alias of "fused"
         dk = "fused" if dk == "auto" else dk
-        if dk == "fused" and (head_dim > MAX_HEAD_DIM or rep > MAX_PAGED_ROWS):
+        if dk == "fused" and head_dim > MAX_HEAD_DIM:
             raise ValueError(
                 f"decode_kernel={dk!r} runs the fused kernel, which needs "
-                f"head_dim <= {MAX_HEAD_DIM} and a GQA group <= "
-                f"{MAX_PAGED_ROWS}; got head_dim={head_dim}, group={rep}"
+                f"head_dim <= {MAX_HEAD_DIM}; got head_dim={head_dim}"
             )
         self.decode_kernel = dk
         pp = int(pool_pages if pool_pages is not None
                  else _fcore.flag("FLAGS_serve_kv_pool_pages"))
-        if pp <= 0:  # auto: every slot can hold a max_len sequence
-            pp = self.slots * self.pages_per_seq + 1
-        self.pool_pages = pp
         # the cache dtype follows the lm_head weight (bf16 serving stays bf16)
         cache_dtype = model.lm_head.weight.dtype
+        dtype_bytes = model.lm_head.weight.element_size()
+        page_bytes = kv_page_bytes(self.page_size, cfg.num_key_value_heads,
+                                   head_dim, dtype_bytes, self.kv_quant)
+        if pp <= 0:  # auto: every slot can hold a max_len sequence
+            pp = self.slots * self.pages_per_seq + 1
+            if self.kv_quant == "int8":
+                # the same bytes as the full-precision pool, more pages
+                full = kv_page_bytes(self.page_size, cfg.num_key_value_heads,
+                                     head_dim, dtype_bytes)
+                pp = (self.slots * self.pages_per_seq * full) // page_bytes + 1
+        self.pool_pages = pp
         with torch.no_grad():
             self._arenas = [
                 PagedKVCache(pp, self.page_size, cfg.num_key_value_heads,
-                             head_dim, cache_dtype, self.device)
+                             head_dim, cache_dtype, self.device,
+                             quant=self.kv_quant)
                 for _ in range(cfg.num_hidden_layers)
             ]
+        scale_bytes = (2 * self.page_size * cfg.num_key_value_heads * 4
+                       if self.kv_quant == "int8" else 0)
+        _prof.record_kv_quant(
+            self.kv_quant,
+            arena_bytes=cfg.num_hidden_layers * pp * (page_bytes - scale_bytes),
+            scale_bytes=cfg.num_hidden_layers * pp * scale_bytes,
+        )
         self._pool = PagePool(pp)
+        use_prefix = bool(flag("FLAGS_serve_prefix_cache")
+                          if prefix_cache is None else prefix_cache)
+        self._prefix = PrefixCache(self.page_size) if use_prefix else None
+        # ignore sub-threshold matches: an accidental few-token overlap
+        # between unrelated prompts must not move a request onto the chunk
+        # prefill path (and its different first-token rounding)
+        self.min_prefix_match = 8
         self._page_table = np.zeros((self.slots, self.pages_per_seq), np.int32)
         self._slot_pages = [[] for _ in range(self.slots)]
         self._tables_t = None  # device mirror, rebuilt with _dev
@@ -205,18 +253,12 @@ class ContinuousBatchingEngine:
         self._stop = False
 
     @staticmethod
-    def _check_not_ported(paged, prefix_cache, spec_k, lora, tp, kv_quant,
-                          role, cp):
+    def _check_not_ported(paged, spec_k, lora, tp, role, cp):
         flag = _fcore.flag
-        if not (flag("FLAGS_serve_paged_kv") if paged is None else paged):
+        if not paged:
             raise _not_ported("paged=False", "the dense slot-pool engine")
-        if flag("FLAGS_serve_prefix_cache") if prefix_cache is None else prefix_cache:
-            raise _not_ported("prefix_cache=True",
-                              "prefix cache, chunk prefill and COW page copy")
         if int(flag("FLAGS_serve_spec_k") if spec_k is None else spec_k) > 0:
             raise _not_ported("spec_k > 0", "speculative decoding")
-        if str(flag("FLAGS_serve_kv_quant") if kv_quant is None else kv_quant) != "none":
-            raise _not_ported("kv_quant='int8'", "int8 KV pages (kernel K4)")
         if lora is not None:
             raise _not_ported("lora", "multi-tenant LoRA serving")
         if int(flag("FLAGS_serve_tp") if tp is None else tp) > 1:
@@ -242,14 +284,31 @@ class ContinuousBatchingEngine:
         return torch.where(hot, samp.to(torch.int32), greedy)
 
     @torch.no_grad()
-    def _prefill(self, toks, row_table, true_len, temp):
-        """Fresh paged prefill of one bucket-padded prompt: writes its K/V
-        into the pages of `row_table` and returns (first token [1], logits
-        [1, V] float32) read at row true_len - 1, not at the bucket end."""
-        views = [PagedPrefillView(a, row_table, true_len) for a in self._arenas]
+    def _prefill(self, toks, row_table, true_len, temp, start=None):
+        """Paged prefill of one bucket-padded chunk: writes its K/V into the
+        pages of `row_table` and returns (first token [1], logits [1, V]
+        float32) read at row true_len - 1, not at the bucket end.  `start`
+        None is a fresh prefill of the whole prompt; a [1] int32 tensor is
+        the chunk prefill of a prefix-cache hit's suffix, whose row 0 sits
+        at that position and which attends the shared pages."""
+        views = [
+            PagedPrefillView(a, row_table, true_len, self.max_len, start=start,
+                             kernel=self.decode_kernel)
+            for a in self._arenas
+        ]
         hidden = self.model.llama(toks, caches=views)
         logits = self.model.lm_head(hidden[:, true_len - 1]).float()
         return self._sample(logits, np.full(1, temp, np.float32)), logits
+
+    @torch.no_grad()
+    def _copy_page(self, src, dst):
+        """Copy-on-write: duplicate arena page `src` into `dst` across every
+        layer's K and V, and their scale rows under int8 (a copy without
+        them would dequantize the reader's tail wrongly, silently)."""
+        for a in self._arenas:
+            for t in (a.k, a.v, a.k_scale, a.v_scale):
+                if t is not None:
+                    t[dst].copy_(t[src])
 
     @torch.no_grad()
     def _decode_step(self, toks, pos, active, tables, temps):
@@ -331,9 +390,14 @@ class ContinuousBatchingEngine:
         matmul library).  All-zero tables aim every write at scratch page
         0."""
         zero_row = to_index_tensor(np.zeros(self.pages_per_seq), self.device)
+        zero_start = to_index_tensor(np.zeros(1), self.device)
         for b in self.prefill_buckets:
-            self._prefill(to_index_tensor(np.zeros((1, b)), self.device),
-                          zero_row, b, 0.0)
+            toks = to_index_tensor(np.zeros((1, b)), self.device)
+            self._prefill(toks, zero_row, b, 0.0)
+            if self._prefix is not None:
+                self._prefill(toks, zero_row, b, 0.0, start=zero_start)
+        if self._prefix is not None:
+            self._copy_page(0, 0)  # scratch onto itself
         S = self.slots
         self._decode_step(
             to_index_tensor(np.zeros((S, 1)), self.device),
@@ -371,6 +435,8 @@ class ContinuousBatchingEngine:
             "page_free_frac": round(
                 self._pool.free_count() / max(1, self._pool.usable_pages), 4
             ),
+            "prefix_cache_size": len(self._prefix) if self._prefix is not None else 0,
+            "kv_quant": self.kv_quant,
             "device": str(self.device),
         }
 
@@ -399,7 +465,8 @@ class ContinuousBatchingEngine:
         return self
 
     def stop(self, timeout=30.0):
-        """Stop the scheduler thread (bounded join)."""
+        """Stop the scheduler thread (bounded join).  The prefix cache keeps
+        its pages: a restarted scheduler finds them warm."""
         t = self._thread
         if t is None:
             return
@@ -442,10 +509,36 @@ class ContinuousBatchingEngine:
         return b
 
     def _pages_for(self, prompt_len, max_new):
-        """Pages a request occupies over its lifetime: positions
-        [0, L + max_new'), with max_new clamped to the context."""
+        """Pages a request occupies over its lifetime, no prefix sharing
+        assumed: positions [0, L + max_new'), max_new clamped to the
+        context."""
         span = int(prompt_len) + min(int(max_new), self.max_len - int(prompt_len))
         return -(-span // self.page_size)
+
+    def _page_fresh_headroom_locked(self, exclude):
+        """Pages fresh allocations can get: the free list plus every page
+        only the prefix cache still holds (refcount 1: no slot maps it, and
+        repeated leaf eviction reaches it), except the pages in `exclude` (a
+        request's matched prefix pages, about to be mapped).  Caller holds
+        _mu."""
+        free = self._pool.free_count()
+        if self._prefix is not None:
+            free += sum(1 for e in self._prefix.entries()
+                        if self._pool.refs[e.page] == 1 and e.page not in exclude)
+        return free
+
+    def _alloc_page_locked(self):
+        """One fresh page, evicting LRU prefix-cache entries under pressure.
+        Called only after the admission headroom check covered the request,
+        so the loop ends with a page.  Caller holds _mu."""
+        while self._pool.free_count() == 0:
+            if self._prefix is None or self._prefix.evict_one(self._pool) is None:
+                raise RuntimeError(
+                    "KV page pool exhausted mid-admission: the headroom check "
+                    "should have deferred this request (accounting bug)"
+                )
+            _prof.record_paging_event("cache_evictions")
+        return self._pool.alloc()
 
     def _release_slot_pages_locked(self, s):
         for p in self._slot_pages[s]:
@@ -471,8 +564,18 @@ class ContinuousBatchingEngine:
                 req = self._pop_request()
                 if req is None:
                     break
+                # pages a cache hit maps by incref cost no fresh allocation;
+                # the matched pages are about to be pinned, so they do not
+                # count as evictable either.  The scheduler is the only
+                # inserter and evictor, so the match holds until the prefill
                 need = self._pages_for(req.prompt.size, req.max_new_tokens)
-                if need > self._pool.free_count():
+                exclude = ()
+                if self._prefix is not None:
+                    m, fulls, tail, _ = self._prefix.lookup(req.prompt)
+                    if m >= self.min_prefix_match:
+                        need -= len(fulls)
+                        exclude = set(fulls) | ({tail} if tail is not None else set())
+                if need > self._page_fresh_headroom_locked(exclude):
                     # page pressure: park at the head of the line (FIFO kept)
                     # until finishing slots release pages
                     self._requeue.insert(0, req)
@@ -498,26 +601,81 @@ class ContinuousBatchingEngine:
         return emitted
 
     def _prefill_into_paged(self, s, req):
+        """Admission of one request into slot s: prefix-cache lookup, page
+        mapping (shared full pages read-only, a copy of a matched partial
+        page, fresh pages for the rest), then a fresh prefill of the whole
+        prompt or a chunk prefill of the unshared suffix; afterwards the
+        prompt's pages are committed to the cache."""
         L = int(req.prompt.size)
+        pinned = None  # COW source, kept alive across our own allocations
         with self._mu:
             req.max_new_tokens = min(req.max_new_tokens, self.max_len - L)
-            # the admission check covered these pages
-            pages = [self._pool.alloc()
-                     for _ in range(self._pages_for(L, req.max_new_tokens))]
+            coverage = self._pages_for(L, req.max_new_tokens)
+            match_len, shared_full, tail_page, tail_rows = 0, [], None, 0
+            if self._prefix is not None:
+                m, fp, tp, tr = self._prefix.lookup(req.prompt)
+                if m >= self.min_prefix_match:
+                    match_len, shared_full, tail_page, tail_rows = m, fp, tp, tr
+                    if tp is not None:
+                        # allocating below may evict the source entry; it
+                        # must survive until the copy lands
+                        self._pool.incref(tp)
+                        pinned = tp
+            pages = []
+            try:
+                for p in shared_full:
+                    self._pool.incref(p)
+                    pages.append(p)
+                for _ in range(len(shared_full), coverage):
+                    pages.append(self._alloc_page_locked())
+            except RuntimeError:
+                if match_len == 0:
+                    raise
+                # tiny pools: the pin itself kept the last evictable page
+                # alive.  Fall back to a fresh prefill; the admission check
+                # covered the request without any sharing
+                for p in pages:
+                    self._pool.decref(p)
+                if pinned is not None:
+                    self._pool.decref(pinned)
+                    pinned = None
+                match_len, shared_full, tail_page, tail_rows = 0, [], None, 0
+                pages = [self._alloc_page_locked() for _ in range(coverage)]
+            copy_args = None
+            if match_len and tail_rows > 0:
+                copy_args = (tail_page, pages[len(shared_full)])
             self._page_table[s, :] = 0
             self._page_table[s, :len(pages)] = pages
             self._slot_pages[s] = pages
+            if self._prefix is not None:
+                _prof.record_prefix_lookup(match_len > 0, tokens_saved=match_len,
+                                           cow_copies=1 if copy_args else 0)
             row_table = self._page_table[s].copy()
-        bucket = self._bucket_for(L)
+        suffix = L - match_len
+        bucket = self._bucket_for(suffix)
         toks = np.zeros((1, bucket), np.int32)
-        toks[0, :L] = req.prompt
+        toks[0, :suffix] = req.prompt[match_len:]
         check_table_bounds(row_table, self.pool_pages)
-        nxt, logits = self._prefill(
-            to_index_tensor(toks, self.device),
-            to_index_tensor(row_table, self.device), L, req.temperature,
-        )
-        tok = int(nxt.item())
+        try:
+            if copy_args is not None:
+                self._copy_page(*copy_args)
+            start = (None if match_len == 0
+                     else to_index_tensor(np.full(1, match_len), self.device))
+            nxt, logits = self._prefill(
+                to_index_tensor(toks, self.device),
+                to_index_tensor(row_table, self.device), suffix,
+                req.temperature, start=start,
+            )
+            tok = int(nxt.item())
+        finally:
+            if pinned is not None:
+                with self._mu:
+                    self._pool.decref(pinned)
         with self._mu:
+            if self._prefix is not None:
+                inserted = self._prefix.commit(req.prompt, pages, self._pool)
+                if inserted:
+                    _prof.record_paging_event("cache_commits", inserted)
             req.ttft_s = time.perf_counter() - req._submit_t
             self._slot_req[s] = req
             self._pos[s] = L
@@ -562,6 +720,12 @@ class ContinuousBatchingEngine:
                 self._pos[s] += 1
             _prof.record_serving_tick(len(active_idx) / self.slots,
                                       self._queue.qsize(), busy)
+            if self.kv_quant == "int8":
+                # per layer: one K/V row pair quantized per active slot, and
+                # every mapped page dequantized in the kernel's page walk
+                _prof.record_kv_quant_event("quantize", len(active_idx))
+                _prof.record_kv_quant_event(
+                    "dequantize", sum(len(self._slot_pages[s]) for s in active_idx))
             for s in active_idx:
                 req = self._slot_req[s]
                 tok = int(nxt_np[s])

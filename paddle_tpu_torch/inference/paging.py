@@ -1,5 +1,5 @@
 """Host-side bookkeeping for the block-paged KV cache (counterpart of
-`paddle_tpu/inference/paging.py`, cut to what fresh paged serving needs).
+`paddle_tpu/inference/paging.py`, one pool shard, no sessions).
 
 The device side is one `[num_pages, page_size, kv_heads, head_dim]` K/V
 arena per layer plus per-slot page tables.  Which page holds which tokens
@@ -9,23 +9,100 @@ is decided here, on the host:
   Page 0 is a permanent scratch page: inactive slots' table rows are
   all-zero and every masked write is redirected to it, so garbage never
   lands in a page a sequence attends.
+- `PrefixCache`: a token-chain index over committed prompt pages.  Full
+  pages chain by `(parent_key, page_tokens)`; a partly filled last page is
+  a tail under its parent.  A request maps every matched full page
+  read-only (incref) and copy-on-writes the matched tail, the only shared
+  page it would append into.  Entries are evicted LRU, leaves first, only
+  when the allocator runs dry.
 - `check_table_bounds`: every table entry must name a real page before a
-  table is uploaded.  The fused decode kernel indexes the arena by the raw
+  table is uploaded.  The fused decode kernels index the arena by the raw
   entry, and on CUDA an out-of-range id is an illegal address, not a
   clamped read.
 
-The prefix cache, the session store and the disaggregation wire format are
-not ported yet (ROADMAP, Queue 1).
+Sharing contract: readers of a cached page trust only rows below the
+entry's committed row count (later rows are masked by position), so the
+owner may keep appending into its committed tail; a reader never writes a
+shared page (full-page matches lie before its own rows, and the tail is
+copied into a fresh page before any token lands).
+
+int8 KV: values are stored as int8 with one float32 scale per (token row,
+kv head) in a parallel `[num_pages, page_size, kv_heads, 1]` arena per K
+and V, written by the same scatters and addressed by the same tables, so
+holding a page holds its scale rows and no bookkeeping here changes.
+
+The session store and the disaggregation wire format are not ported yet
+(ROADMAP, Queue 1).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+KV_QUANT_MODES = ("none", "int8")
 
-def kv_page_bytes(page_size, kv_heads, head_dim, dtype_bytes):
-    """Device bytes ONE layer's K+V storage spends per page."""
+
+class QuantConfigError(ValueError):
+    """An invalid KV-quantization configuration (unknown mode, or a
+    quantized arena without paging), raised at engine construction."""
+
+
+def validate_kv_quant(mode, paged=True):
+    """The normalised kv_quant mode, or QuantConfigError.  Quantization
+    needs the paged engine: the dense slot pool stays full precision."""
+    mode = "none" if mode is None else str(mode).strip().lower()
+    if mode not in KV_QUANT_MODES:
+        raise QuantConfigError(
+            f"kv_quant must be one of {'|'.join(KV_QUANT_MODES)}, got {mode!r}"
+        )
+    if mode != "none" and not paged:
+        raise QuantConfigError(
+            f"kv_quant={mode!r} requires the paged engine (paged=True): the "
+            "dense slot pool stays full-precision as the bit-identity oracle"
+        )
+    return mode
+
+
+def kv_page_bytes(page_size, kv_heads, head_dim, dtype_bytes, quant="none"):
+    """Device bytes ONE layer's K+V storage spends per page.  Under 'int8'
+    an element costs 1 byte plus a 4-byte float32 scale per (token row, kv
+    head); the int8 pool gets `head_dim * dtype_bytes / (head_dim + 4)`
+    times the pages of the same budget (~1.94x at bf16, head_dim 128)."""
+    if validate_kv_quant(quant) == "int8":
+        return 2 * int(page_size) * int(kv_heads) * (int(head_dim) + 4)
     return 2 * int(page_size) * int(kv_heads) * int(head_dim) * int(dtype_bytes)
+
+
+def check_scale_arenas(arenas, num_pages, page_size):
+    """Every int8 arena carries float32 k_scale/v_scale shaped
+    [num_pages, page_size, kv_heads, 1] (the tables index both, so page p's
+    scale rows live and die with page p); a full-precision arena carries
+    none.  Raises AssertionError otherwise."""
+    for i, a in enumerate(arenas):
+        ks, vs = getattr(a, "k_scale", None), getattr(a, "v_scale", None)
+        if getattr(a, "quant", "none") != "int8":
+            if ks is not None or vs is not None:
+                raise AssertionError(
+                    f"scale invariant: layer {i} arena is full precision "
+                    "but carries scale buffers"
+                )
+            continue
+        want = (int(num_pages), int(page_size), int(a.k.shape[2]), 1)
+        for name, t in (("k_scale", ks), ("v_scale", vs)):
+            if t is None:
+                raise AssertionError(
+                    f"scale invariant: layer {i} int8 arena missing {name}"
+                )
+            if tuple(int(d) for d in t.shape) != want:
+                raise AssertionError(
+                    f"scale invariant: layer {i} {name} shape "
+                    f"{tuple(t.shape)} != {want}"
+                )
+            if "float32" not in str(t.dtype):
+                raise AssertionError(
+                    f"scale invariant: layer {i} {name} dtype {t.dtype} "
+                    "is not float32"
+                )
 
 
 def check_table_bounds(table, num_pages):
@@ -65,6 +142,9 @@ class PagePool:
     def free_count(self):
         return len(self._free)
 
+    def used_count(self):
+        return self.usable_pages - self.free_count()
+
     def alloc(self):
         """One page at refcount 1.  The engine's admission check guarantees
         a free page; running dry is an accounting bug."""
@@ -79,6 +159,11 @@ class PagePool:
         self.refs[p] = 1
         return p
 
+    def incref(self, page):
+        if page == self.SCRATCH or self.refs[page] <= 0:
+            raise ValueError(f"incref on scratch or dead page {page}")
+        self.refs[page] += 1
+
     def decref(self, page):
         """Drop one reference; a page reaching 0 returns to the free list.
         Returns True when it did."""
@@ -89,3 +174,166 @@ class PagePool:
             self._free.append(page)
             return True
         return False
+
+
+class _Entry:
+    __slots__ = ("key", "parent_key", "page", "rows", "children", "last_used",
+                 "tokens")
+
+    def __init__(self, key, parent_key, page, rows, tokens):
+        self.key = key
+        self.parent_key = parent_key
+        self.page = int(page)
+        self.rows = int(rows)  # committed rows; readers trust only j < rows
+        self.children = 0
+        self.last_used = 0
+        self.tokens = tokens  # the page's committed token ids (tuple)
+
+
+class PrefixCache:
+    """Token-chain index over committed prompt pages.
+
+    Full pages are keyed `(parent_key, page_tokens)`, so equal prefixes
+    converge on one chain whichever request committed them; partial last
+    pages are tails under their parent, matched by longest common prefix.
+    Eviction is LRU over childless entries only: a parent outlives its
+    children, so no chain dangles.  Chains hang from one root: the base
+    model's (the reference roots one chain per LoRA adapter; LoRA is not
+    ported yet).
+    """
+
+    _ROOT = ()
+
+    def __init__(self, page_size):
+        self.page_size = int(page_size)
+        self._full = {}   # key -> _Entry (rows == page_size)
+        self._tails = {}  # parent_key -> [_Entry] (rows < page_size)
+        self._clock = 0
+
+    def __len__(self):
+        return len(self._full) + sum(len(v) for v in self._tails.values())
+
+    def entries(self):
+        yield from self._full.values()
+        for tails in self._tails.values():
+            yield from tails
+
+    def _tick(self, entry):
+        self._clock += 1
+        entry.last_used = self._clock
+
+    def lookup(self, prompt):
+        """Longest cached prefix of `prompt` (np.int32 [L]), capped at L - 1
+        so at least one suffix token remains to prefill and sample from.
+        Returns (match_len, full_pages, tail_page, tail_rows): full pages map
+        read-only as they are, the tail page (if any) must be copied before
+        the reader appends.  Bumps LRU on the matched chain; refcounts are
+        the caller's job."""
+        ps = self.page_size
+        L = int(prompt.size)
+        toks = prompt.tolist()
+        key = self._ROOT
+        full_pages, matched = [], []
+        i = 0
+        while i + ps <= L - 1:  # a full-page match must leave a suffix token
+            child = self._full.get((key, tuple(toks[i:i + ps])))
+            if child is None:
+                break
+            full_pages.append(child.page)
+            matched.append(child)
+            key = child.key
+            i += ps
+        tail_page, tail_rows, best = None, 0, None
+        for e in self._tails.get(key, ()):
+            lcp = 0
+            for a, b in zip(e.tokens, toks[i:L - 1]):  # cap the match at L - 1
+                if a != b:
+                    break
+                lcp += 1
+            if lcp > tail_rows:
+                tail_rows, tail_page, best = lcp, e.page, e
+        if best is not None:
+            matched.append(best)
+        for e in matched:
+            self._tick(e)
+        return i + tail_rows, full_pages, tail_page, tail_rows
+
+    def commit(self, prompt, pages, pool):
+        """Insert-if-absent the prompt's pages after its prefill: one entry
+        per complete page, one tail for the remainder.  New entries incref
+        their page (the cache's own hold); chain positions already cached
+        are left alone (the committer may have mapped that very page).
+        Returns the number of entries inserted."""
+        ps = self.page_size
+        L = int(prompt.size)
+        toks = prompt.tolist()
+        key = self._ROOT
+        inserted = 0
+        for i in range(L // ps):
+            ek = (key, tuple(toks[i * ps:(i + 1) * ps]))
+            e = self._full.get(ek)
+            if e is None:
+                e = _Entry(ek, key, pages[i], ps, ek[1])
+                self._full[ek] = e
+                pool.incref(e.page)
+                self._adopt(key)
+                inserted += 1
+            self._tick(e)
+            key = e.key
+        rows = L % ps
+        if rows:
+            tokens = tuple(toks[L - rows:L])
+            tails = self._tails.setdefault(key, [])
+            for e in tails:
+                if e.tokens == tokens:
+                    self._tick(e)
+                    return inserted
+            e = _Entry((key, tokens), key, pages[L // ps], rows, tokens)
+            tails.append(e)
+            pool.incref(e.page)
+            self._adopt(key)
+            self._tick(e)
+            inserted += 1
+        return inserted
+
+    def _adopt(self, parent_key):
+        parent = self._full.get(parent_key) if parent_key else None
+        if parent is not None:
+            parent.children += 1
+
+    def _remove(self, entry):
+        if entry.rows == self.page_size:
+            del self._full[entry.key]
+            self._tails.pop(entry.key, None)  # only ever an empty list by now
+        else:
+            tails = self._tails.get(entry.parent_key, [])
+            tails.remove(entry)
+            if not tails:
+                self._tails.pop(entry.parent_key, None)
+        parent = self._full.get(entry.parent_key) if entry.parent_key else None
+        if parent is not None:
+            parent.children -= 1
+
+    def evict_one(self, pool):
+        """Drop the LRU childless entry and release its page hold.  Returns
+        the evicted entry, or None when nothing is evictable.  The page only
+        reaches the free list if no live slot still maps it: eviction never
+        invalidates a reader."""
+        victim = None
+        for e in self.entries():
+            if e.rows == self.page_size and (e.children > 0 or self._tails.get(e.key)):
+                continue  # a parent outlives its children
+            if victim is None or e.last_used < victim.last_used:
+                victim = e
+        if victim is None:
+            return None
+        self._remove(victim)
+        pool.decref(victim.page)
+        return victim
+
+    def clear(self, pool):
+        """Release every cache hold; returns how many entries went."""
+        n = 0
+        while self.evict_one(pool) is not None:
+            n += 1
+        return n

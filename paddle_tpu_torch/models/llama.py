@@ -6,9 +6,11 @@ Linear layers are `torch.nn.Linear`, whose weight is `[out, in]`; the
 reference stores `[in, out]`, so `models.convert.load_reference_state`
 transposes them.  Attention goes through `ops.flash_attention`: the
 full-sequence forward and the fresh paged prefill run the `flash_fwd`
-kernel, the paged decode step the `paged_decode_fused` kernel, and a
-training backward the `flash_bwd` kernel.  The paged cache writes update
-the arena tensors in place (the reference rebinds new immutable arrays).
+kernel; the paged decode step and the chunk prefill of a prefix-cache hit
+the `paged_decode_fused` kernel, or `paged_decode_fused_q8` over an int8
+arena; a training backward the `flash_bwd` kernel.  The paged cache writes
+update the arena tensors in place (the reference rebinds new immutable
+arrays).
 """
 
 from __future__ import annotations
@@ -124,27 +126,49 @@ class PagedKVCache:
     """One layer's paged K/V arena: `[num_pages, page_size, kv_heads,
     head_dim]` tensors addressed through per-slot page tables.  Page 0 is
     scratch: inactive slots' all-zero table rows and every redirected write
-    land there (see inference/paging.py)."""
+    land there (see inference/paging.py).
+
+    quant="int8" stores K and V as int8 and adds float32 `k_scale` /
+    `v_scale` arenas `[num_pages, page_size, kv_heads, 1]`: one symmetric
+    scale per (token row, kv head), written by the same scatters and
+    addressed by the same tables.  Everything starts at zero, as in the
+    reference (so scratch rows dequantize to exactly 0)."""
 
     def __init__(self, num_pages, page_size, kv_heads, head_dim,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, device=None, quant="none"):
         self.page_size = int(page_size)
+        self.quant = str(quant)
         shape = (int(num_pages), self.page_size, int(kv_heads), int(head_dim))
+        if self.quant == "int8":
+            dtype = torch.int8
+            scales = (*shape[:3], 1)
+            self.k_scale = torch.zeros(scales, dtype=torch.float32, device=device)
+            self.v_scale = torch.zeros(scales, dtype=torch.float32, device=device)
+        else:
+            self.k_scale = self.v_scale = None
         self.k = torch.zeros(shape, dtype=dtype, device=device)
         self.v = torch.zeros(shape, dtype=dtype, device=device)
 
 
 class PagedPrefillView:
-    """Fresh prefill into a paged arena: the prompt attends to itself
-    causally while its K/V rows scatter into the pages of `table`
-    ([max_pages_per_seq] int32 tensor).  Rows at or past `true_len` (bucket
-    padding) and rows whose page index overruns the table land on scratch
-    page 0."""
+    """Prefill into a paged arena; its K/V rows scatter into the pages of
+    `table` ([max_pages_per_seq] int32 tensor).  Fresh prefill (`start` is
+    None): the prompt attends to itself causally.  Chunk prefill (`start` a
+    [1] int32 tensor): a prefix-cache hit prefills only the unshared suffix
+    at rope offset `start`, and suffix row i attends positions j <= start + i
+    of the whole sequence, shared pages included, through the paged kernel
+    (`kernel` as in `paged_decode_attention`, `max_len` its position
+    fence).  Rows at or past `true_len` (bucket padding) and rows whose page
+    index overruns the table land on scratch page 0."""
 
-    def __init__(self, arena, table, true_len):
+    def __init__(self, arena, table, true_len, max_len=None, start=None,
+                 kernel="auto"):
         self.arena = arena
         self.table = table
         self.true_len = int(true_len)
+        self.max_len = max_len
+        self.start = start
+        self.kernel = kernel
 
 
 class PagedDecodeView:
@@ -160,48 +184,98 @@ class PagedDecodeView:
         self.kernel = kernel
 
 
-def _rope_page_scatter(arena_k, arena_v, q, k, v, cos, sin, table, true_len):
-    """Prefill cache write (reference: llama.py:311): RoPE on q/k at offset
-    0, then row i of the [1, s, kv_heads, d] chunk lands at page
-    table[i // page_size], row i % page_size.  Rows with i >= true_len or a
-    page index beyond the table go to scratch page 0; several may hit the
-    same scratch row, which is harmless because page 0 is never attended
-    past the position fence.  Updates the arenas in place; returns
-    (q_rot, k_rot)."""
-    ps = arena_k.shape[1]
-    s = q.shape[1]
-    q_rot, k_rot = apply_rotary_pos_emb(q, k, cos, sin, 0)
-    i = torch.arange(s, device=q.device)
-    entry = i // ps
+def _prefill_rows(table, s, true_len, ps, start):
+    """(page, row) of each of a prefill chunk's s rows: row i lands at
+    global index start + i (start 0 for a fresh prefill); rows with
+    i >= true_len or a page index beyond the table go to scratch page 0.
+    Several may hit the same scratch row, which is harmless because page 0
+    is never attended past the position fence."""
+    i = torch.arange(s, device=table.device)
+    gidx = i if start is None else start.long()[0] + i
+    entry = gidx // ps
     P = table.shape[0]
     valid = (i < true_len) & (entry < P)
     pg = torch.where(valid, table.long()[entry.clamp(max=P - 1)], 0)
-    row = i % ps
+    return pg, gidx % ps
+
+
+def _rope_page_scatter(arena_k, arena_v, q, k, v, cos, sin, table, true_len,
+                       start=None):
+    """Prefill cache write (reference: llama.py:311): RoPE on q/k at offset
+    0, or at the per-row positions start + i of a chunk (the gather clamps
+    as the reference's does), then row i of the [1, s, kv_heads, d] chunk
+    lands where `_prefill_rows` says.  Updates the arenas in place; returns
+    (q_rot, k_rot)."""
+    q_rot, k_rot = apply_rotary_pos_emb(q, k, cos, sin, 0 if start is None else start)
+    pg, row = _prefill_rows(table, q.shape[1], true_len, arena_k.shape[1], start)
     arena_k[pg, row] = k_rot[0].to(arena_k.dtype)
     arena_v[pg, row] = v[0].to(arena_v.dtype)
     return q_rot, k_rot
 
 
-def _page_decode_write(arena, new, tables, pos):
-    """Decode cache write (reference: llama.py:431): slot s's [sq, kv_heads,
-    d] rows land at page tables[s, (pos[s] + i) // page_size], row
-    (pos[s] + i) % page_size.  Inactive slots run at pos 0 over an all-zero
-    table row, i.e. scratch page 0.  For sq > 1, rows whose page entry
-    overruns the table are redirected to scratch.  In place."""
-    ps = arena.shape[1]
+def _quantize_kv_rows(x):
+    """Symmetric per-row int8 quantization of KV rows [..., head_dim]
+    (reference: llama.py:361): scale = max|x| / 127 over the head dim in
+    float32, zero rows pinned to scale 1 so they dequantize to exactly 0,
+    round half to even, clip to +-127.  Returns (int8 values, float32
+    scales [..., 1])."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    scale = torch.where(amax > 0.0, amax / 127.0, torch.ones_like(amax))
+    return torch.clamp(torch.round(xf / scale), -127.0, 127.0).to(torch.int8), scale
+
+
+def _rope_page_scatter_quant(arena_k, arena_v, k_scale, v_scale, q, k, v, cos,
+                             sin, table, true_len, start=None):
+    """`_rope_page_scatter` for an int8 arena (reference: llama.py:377): the
+    same RoPE and addresses, with K/V rows quantized per (row, kv head) and
+    their scales scattered through the same (page, row) indices.  Returns
+    the full-precision (q_rot, k_rot): a fresh prefill's own attention runs
+    on them."""
+    q_rot, k_rot = apply_rotary_pos_emb(q, k, cos, sin, 0 if start is None else start)
+    pg, row = _prefill_rows(table, q.shape[1], true_len, arena_k.shape[1], start)
+    kq, ksc = _quantize_kv_rows(k_rot[0])
+    vq, vsc = _quantize_kv_rows(v[0])
+    arena_k[pg, row] = kq
+    arena_v[pg, row] = vq
+    k_scale[pg, row] = ksc
+    v_scale[pg, row] = vsc
+    return q_rot, k_rot
+
+
+def _decode_rows(tables, pos, sq, ps):
+    """(page, row) of slot s's window row i: page tables[s, (pos[s] + i) //
+    page_size], row (pos[s] + i) % page_size.  Inactive slots run at pos 0
+    over an all-zero table row, i.e. scratch page 0.  For sq > 1, rows whose
+    page entry overruns the table are redirected to scratch; a single row
+    never overruns (pos < pages * page_size by the engine's admission
+    math)."""
     t = tables.long()
     p = pos.long()
-    if new.shape[1] == 1:
-        # pos < pages * page_size by the engine's admission math
-        pg = t.gather(1, (p // ps)[:, None])[:, 0]
-        arena[pg, p % ps] = new[:, 0].to(arena.dtype)
-        return
-    sq = new.shape[1]
+    if sq == 1:
+        return t.gather(1, (p // ps)[:, None])[:, 0], p % ps
     idx = p[:, None] + torch.arange(sq, device=p.device)[None, :]
     entry = idx // ps
     P = t.shape[1]
-    pg = torch.where(entry < P, t.gather(1, entry.clamp(max=P - 1)), 0)
-    arena[pg, idx % ps] = new.to(arena.dtype)
+    return torch.where(entry < P, t.gather(1, entry.clamp(max=P - 1)), 0), idx % ps
+
+
+def _page_decode_write(arena, new, tables, pos):
+    """Decode cache write (reference: llama.py:431): slot s's [sq, kv_heads,
+    d] rows land where `_decode_rows` says.  In place."""
+    pg, row = _decode_rows(tables, pos, new.shape[1], arena.shape[1])
+    src = new[:, 0] if new.shape[1] == 1 else new
+    arena[pg, row] = src.to(arena.dtype)
+
+
+def _page_decode_write_quant(arena, scales, new, tables, pos):
+    """`_page_decode_write` for an int8 arena (reference: llama.py:472): the
+    rows quantize per (row, kv head), then values and scales land at the
+    same addresses.  In place."""
+    pg, row = _decode_rows(tables, pos, new.shape[1], arena.shape[1])
+    nq, ns = _quantize_kv_rows(new[:, 0] if new.shape[1] == 1 else new)
+    arena[pg, row] = nq
+    scales[pg, row] = ns
 
 
 # ---------------------------------------------------------------------------
@@ -244,18 +318,41 @@ class LlamaAttention(nn.Module):
         v = self.v_proj(x).view(b, s, self.num_kv_heads, self.head_dim)
         cos, sin = self.rope
         if isinstance(cache, PagedPrefillView):
-            q, k = _rope_page_scatter(
-                cache.arena.k, cache.arena.v, q, k, v, cos, sin, cache.table,
-                cache.true_len,
-            )
-            out = sdpa(q, k, v, causal=True)
+            a = cache.arena
+            if a.quant == "int8":
+                # the scatter quantizes on write; a fresh prefill's own
+                # attention still runs on the full-precision k/v
+                q, k = _rope_page_scatter_quant(
+                    a.k, a.v, a.k_scale, a.v_scale, q, k, v, cos, sin,
+                    cache.table, cache.true_len, cache.start,
+                )
+            else:
+                q, k = _rope_page_scatter(
+                    a.k, a.v, q, k, v, cos, sin, cache.table, cache.true_len,
+                    cache.start,
+                )
+            if cache.start is None:
+                out = sdpa(q, k, v, causal=True)
+            else:
+                # chunk prefill: the suffix attends the whole sequence
+                # through the pages, its own rows written just above
+                out = paged_decode_attention(
+                    q, a.k, a.v, cache.table.reshape(1, -1), cache.start,
+                    cache.max_len, kernel=cache.kernel, k_scale=a.k_scale,
+                    v_scale=a.v_scale,
+                )
         elif isinstance(cache, PagedDecodeView):
+            a = cache.arena
             q, k = apply_rotary_pos_emb(q, k, cos, sin, pos)
-            _page_decode_write(cache.arena.k, k, cache.tables, pos)
-            _page_decode_write(cache.arena.v, v, cache.tables, pos)
+            if a.quant == "int8":
+                _page_decode_write_quant(a.k, a.k_scale, k, cache.tables, pos)
+                _page_decode_write_quant(a.v, a.v_scale, v, cache.tables, pos)
+            else:
+                _page_decode_write(a.k, k, cache.tables, pos)
+                _page_decode_write(a.v, v, cache.tables, pos)
             out = paged_decode_attention(
-                q, cache.arena.k, cache.arena.v, cache.tables, pos,
-                cache.max_len, kernel=cache.kernel,
+                q, a.k, a.v, cache.tables, pos, cache.max_len,
+                kernel=cache.kernel, k_scale=a.k_scale, v_scale=a.v_scale,
             )
         elif cache is None:
             q, k = apply_rotary_pos_emb(q, k, cos, sin, 0)

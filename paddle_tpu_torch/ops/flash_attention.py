@@ -2,7 +2,7 @@
 `paddle_tpu/ops/flash_attention.py`.
 
 Layout at the public functions is the reference's `[batch, seq, heads,
-head_dim]`.  Three hand-written Hopper kernels carry the serving and
+head_dim]`.  Four hand-written Hopper kernels carry the serving and
 training paths:
 
 - `flash_fwd` (csrc/flash_fwd.cu, replaces `_flash_fwd_kernel`): causal
@@ -12,8 +12,12 @@ training paths:
   attention gradient of a training step, through the `FlashAttention`
   autograd Function that `sdpa` uses when grad is recorded.
 - `paged_decode_fused` (csrc/paged_decode.cu, replaces
-  `_fused_paged_decode_forward`): every decode step, reading the K/V page
-  arena through the page tables in-kernel.
+  `_fused_paged_decode_forward`): every decode step and every chunk
+  prefill of a prefix-cache hit, reading the K/V page arena through the
+  page tables in-kernel.
+- `paged_decode_fused_q8` (csrc/paged_decode.cu, replaces
+  `_fused_paged_decode_quant_forward`): the same over an int8 arena with
+  per-row float32 scales, dequantized in-kernel.
 
 Each kernel has a plain PyTorch version here.  A wrapper takes the plain
 version only for a tensor on the CPU (the tests); for a CUDA tensor it
@@ -31,13 +35,16 @@ from ..framework.core import INDEX_DTYPE
 
 NEG_INF = -1e30  # the reference's mask value (flash_attention.py:36)
 
-launch_counts = {"flash_fwd": 0, "paged_decode_fused": 0, "flash_bwd": 0}
+launch_counts = {"flash_fwd": 0, "paged_decode_fused": 0,
+                 "paged_decode_fused_q8": 0, "flash_bwd": 0}
 
-# the fused kernel holds one kv head's GQA group x window in one block
-MAX_PAGED_ROWS = 64
 MAX_HEAD_DIM = 256
-# keys one block of the fused kernel walks, about: longer page walks split
+# (row, key) pairs one block of the paged kernels takes on, about: a decode
+# block (one row) walks ~512 keys, a 64-row chunk-prefill tile one page;
+# longer page walks split across blocks
 PAGED_SPLIT_KEYS = 512
+# rows of the GQA group x window one block of the paged kernels holds
+PAGED_ROW_TILE = 64
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -294,39 +301,41 @@ def decode_attention(q, k, v, pos, scale=None):
     return out.to(q.dtype).reshape(b, h, sq, d).permute(0, 2, 1, 3)
 
 
-def _check_paged(q, arena_k, arena_v, tables, pos):
-    _require(q.dim() == 4, "paged_decode_fused: q must be [b, sq, h, d]")
+def _check_paged(q, arena_k, arena_v, tables, pos, what):
+    _require(q.dim() == 4, f"{what}: q must be [b, sq, h, d]")
     b, sq, h, d = q.shape
     _require(arena_k.dim() == 4 and arena_k.shape == arena_v.shape,
-             "paged_decode_fused: arenas must be [pages, page_size, kv_h, d]")
-    _require(arena_k.shape[3] == d, "paged_decode_fused: head_dim differs")
+             f"{what}: arenas must be [pages, page_size, kv_h, d]")
+    _require(arena_k.shape[3] == d, f"{what}: head_dim differs")
     hk = arena_k.shape[2]
-    _require(h % hk == 0,
-             f"paged_decode_fused: {h} q heads not a multiple of {hk} kv heads")
-    _require(d <= MAX_HEAD_DIM, f"paged_decode_fused: head_dim {d} > {MAX_HEAD_DIM}")
-    _require((h // hk) * sq <= MAX_PAGED_ROWS,
-             f"paged_decode_fused: rep * sq = {(h // hk) * sq} rows > "
-             f"{MAX_PAGED_ROWS}")
+    _require(h % hk == 0, f"{what}: {h} q heads not a multiple of {hk} kv heads")
+    _require(d <= MAX_HEAD_DIM, f"{what}: head_dim {d} > {MAX_HEAD_DIM}")
     _require(tables.dim() == 2 and tables.shape[0] == b,
-             "paged_decode_fused: tables must be [b, P]")
+             f"{what}: tables must be [b, P]")
     _require(tables.dtype == INDEX_DTYPE and pos.dtype == INDEX_DTYPE,
-             "paged_decode_fused: tables and pos must be int32")
-    _require(pos.shape == (b,), "paged_decode_fused: pos must be [b]")
-    _require(q.dtype == arena_k.dtype == arena_v.dtype,
-             "paged_decode_fused: q and arena dtypes differ")
-    _dtype_code(q, "paged_decode_fused")
+             f"{what}: tables and pos must be int32")
+    _require(pos.shape == (b,), f"{what}: pos must be [b]")
+    _dtype_code(q, what)
 
 
-def paged_decode_plain(q, arena_k, arena_v, tables, pos, max_len, scale):
-    """Plain version of `paged_decode_fused`: the kernel's masks over the
-    whole table width -- key jid is seen by window row w iff
-    jid <= pos + w and jid < max_len -- then a dense softmax.  Returns
-    [b, sq, h, d]."""
+def _check_scales(arena_k, k_scale, v_scale):
+    want = (*arena_k.shape[:3], 1)
+    _require(arena_k.dtype == torch.int8,
+             "paged_decode_fused_q8: arenas must be int8")
+    _require(tuple(k_scale.shape) == want and tuple(v_scale.shape) == want,
+             f"paged_decode_fused_q8: scales must be {list(want)}")
+    _require(k_scale.dtype == v_scale.dtype == torch.float32,
+             "paged_decode_fused_q8: scales must be float32")
+
+
+def _paged_attention(q, k, v, pos, max_len, scale):
+    """The masked attention of the paged kernels on gathered per-sequence
+    K/V [b, W, kv_h, d] (W = table width in rows): key jid is seen by
+    window row w iff jid <= pos + w and jid < max_len; scores and softmax
+    in float32, p cast to v's dtype before p.v (bf16 for K2, float32 for
+    K4's dequantized V).  Returns [b, sq, h, d] in q's dtype."""
     b, sq, h, d = q.shape
-    width = tables.shape[1] * arena_k.shape[1]
-    k = paged_gather_kv(arena_k, tables, width)
-    v = paged_gather_kv(arena_v, tables, width)
-    hk = k.shape[2]
+    width, hk = k.shape[1], k.shape[2]
     q5 = q.permute(0, 2, 1, 3).reshape(b, hk, h // hk, sq, d)
     kt, vt = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
     s = torch.einsum("bgrqd,bgkd->bgrqk", q5.float(), kt.float()) * scale
@@ -338,57 +347,151 @@ def paged_decode_plain(q, arena_k, arena_v, tables, pos, max_len, scale):
     return out.to(q.dtype).reshape(b, h, sq, d).permute(0, 2, 1, 3)
 
 
+def paged_decode_plain(q, arena_k, arena_v, tables, pos, max_len, scale):
+    """Plain version of `paged_decode_fused`: gather the whole table width,
+    then `_paged_attention`.  Returns [b, sq, h, d]."""
+    width = tables.shape[1] * arena_k.shape[1]
+    k = paged_gather_kv(arena_k, tables, width)
+    v = paged_gather_kv(arena_v, tables, width)
+    return _paged_attention(q, k, v, pos, max_len, scale)
+
+
+def _dequant_gather(arena, scales, tables, width):
+    """int8 rows gathered through the tables times their gathered float32
+    scales: the reference's `int8 * scale` dequant, [b, width, kv_h, d]."""
+    return (paged_gather_kv(arena, tables, width).float()
+            * paged_gather_kv(scales, tables, width))
+
+
+def paged_decode_q8_plain(q, arena_k, arena_v, k_scale, v_scale, tables, pos,
+                          max_len, scale):
+    """Plain version of `paged_decode_fused_q8`: dequantize the gathered
+    table width, then `_paged_attention` in float32 (p is not rounded: V
+    is float32).  Returns [b, sq, h, d] in q's dtype."""
+    width = tables.shape[1] * arena_k.shape[1]
+    k = _dequant_gather(arena_k, k_scale, tables, width)
+    v = _dequant_gather(arena_v, v_scale, tables, width)
+    return _paged_attention(q, k, v, pos, max_len, scale)
+
+
+def _paged_splits(P, ps, rows):
+    """Blocks a slot's page walk splits into.  A block of r rows (at most
+    one row tile) does r times a decode block's work per key, so it walks
+    about PAGED_SPLIT_KEYS / r keys, at least one page."""
+    keys = PAGED_SPLIT_KEYS // min(rows, PAGED_ROW_TILE)
+    return -(-P // max(1, keys // ps))
+
+
+def _paged_workspace(q, hk, splits):
+    """float32 workspace [b, hk, splits, rows, d + 2] where the splits'
+    partials merge (empty for one split)."""
+    b, sq, h, d = q.shape
+    n = b * hk * splits * (h // hk) * sq * (d + 2) if splits > 1 else 0
+    return torch.empty(n, dtype=torch.float32, device=q.device)
+
+
 def paged_decode_fused(q, arena_k, arena_v, tables, pos, max_len, scale=None):
-    """K2 wrapper.  q: [b, sq, h, d]; arena_k/v: [pages, page_size, kv_h, d];
+    """K2 wrapper.  q: [b, sq, h, d] (any GQA group x window: the kernel
+    tiles its rows by 64); arena_k/v: [pages, page_size, kv_h, d];
     tables: [b, P] int32 page ids (each must name a real page: the kernel
     indexes the arena by the raw value, see `check_table_bounds`); pos: [b]
     int32.  Returns [b, sq, h, d]."""
+    what = "paged_decode_fused"
     pos = _pos_vector(pos, q.shape[0], q.device)
-    _check_paged(q, arena_k, arena_v, tables, pos)
+    _check_paged(q, arena_k, arena_v, tables, pos, what)
+    _require(q.dtype == arena_k.dtype == arena_v.dtype,
+             f"{what}: q and arena dtypes differ")
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    if not _on_cuda((q, arena_k, arena_v, tables, pos), "paged_decode_fused"):
+    if not _on_cuda((q, arena_k, arena_v, tables, pos), what):
         return paged_decode_plain(q, arena_k, arena_v, tables, pos, max_len, scale)
     from ._build import check, lib
 
     q, tables, pos = q.contiguous(), tables.contiguous(), pos.contiguous()
     _require(arena_k.is_contiguous() and arena_v.is_contiguous(),
-             "paged_decode_fused: arenas must be contiguous")
+             f"{what}: arenas must be contiguous")
     b, sq, h, d = q.shape
     hk, ps, P = arena_k.shape[2], arena_k.shape[1], tables.shape[1]
     out = torch.empty_like(q)
-    # a long page walk splits across blocks of ~PAGED_SPLIT_KEYS keys; their
-    # partials merge in a float32 workspace [b, hk, splits, rows, d + 2]
-    splits = -(-P // max(1, PAGED_SPLIT_KEYS // ps))
-    ws = torch.empty(b * hk * splits * (h // hk) * sq * (d + 2) if splits > 1 else 0,
-                     dtype=torch.float32, device=q.device)
+    splits = _paged_splits(P, ps, (h // hk) * sq)
+    ws = _paged_workspace(q, hk, splits)
     code = lib().ptt_paged_decode(
         q.data_ptr(), arena_k.data_ptr(), arena_v.data_ptr(),
         tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
         ws.data_ptr() if splits > 1 else None, splits, b, sq, h, hk, d, ps,
-        P, int(max_len), float(scale), _dtype_code(q, "paged_decode_fused"),
-        _stream(q),
+        P, int(max_len), float(scale), _dtype_code(q, what), _stream(q),
     )
-    check(code, "paged_decode_fused")
-    launch_counts["paged_decode_fused"] += 1
+    check(code, what)
+    launch_counts[what] += 1
+    return out
+
+
+def paged_decode_fused_q8(q, arena_k, arena_v, k_scale, v_scale, tables, pos,
+                          max_len, scale=None):
+    """K4 wrapper: `paged_decode_fused` over an int8 arena.  arena_k/v:
+    [pages, page_size, kv_h, d] int8; k_scale/v_scale: [pages, page_size,
+    kv_h, 1] float32, addressed by the same tables; q float32 or bfloat16.
+    Returns [b, sq, h, d] in q's dtype."""
+    what = "paged_decode_fused_q8"
+    pos = _pos_vector(pos, q.shape[0], q.device)
+    _check_paged(q, arena_k, arena_v, tables, pos, what)
+    _check_scales(arena_k, k_scale, v_scale)
+    _require(arena_v.dtype == torch.int8, f"{what}: arenas must be int8")
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if not _on_cuda((q, arena_k, arena_v, k_scale, v_scale, tables, pos), what):
+        return paged_decode_q8_plain(q, arena_k, arena_v, k_scale, v_scale,
+                                     tables, pos, max_len, scale)
+    from ._build import check, lib
+
+    q, tables, pos = q.contiguous(), tables.contiguous(), pos.contiguous()
+    _require(all(t.is_contiguous() for t in (arena_k, arena_v, k_scale, v_scale)),
+             f"{what}: arenas and scales must be contiguous")
+    b, sq, h, d = q.shape
+    hk, ps, P = arena_k.shape[2], arena_k.shape[1], tables.shape[1]
+    out = torch.empty_like(q)
+    splits = _paged_splits(P, ps, (h // hk) * sq)
+    ws = _paged_workspace(q, hk, splits)
+    code = lib().ptt_paged_decode_q8(
+        q.data_ptr(), arena_k.data_ptr(), arena_v.data_ptr(),
+        k_scale.data_ptr(), v_scale.data_ptr(), tables.data_ptr(),
+        pos.data_ptr(), out.data_ptr(), ws.data_ptr() if splits > 1 else None,
+        splits, b, sq, h, hk, d, ps, P, int(max_len), float(scale),
+        _dtype_code(q, what), _stream(q),
+    )
+    check(code, what)
+    launch_counts[what] += 1
     return out
 
 
 def paged_decode_attention(q, arena_k, arena_v, tables, pos, max_len,
-                           scale=None, kernel="auto"):
+                           scale=None, kernel="auto", k_scale=None,
+                           v_scale=None):
     """Paged-decode attention dispatcher (the reference's
     `paged_decode_attention_array`, flash_attention.py:1553).  "fused" runs
-    `paged_decode_fused` (which raises on a shape it does not take); "auto",
-    the reference flag's default, is an alias of "fused" because the port
-    has no silent fallback to the oracle; "gather" runs the explicit
-    oracle: `paged_gather_kv` then the dense `decode_attention`."""
+    `paged_decode_fused`, or `paged_decode_fused_q8` when k_scale/v_scale
+    are given (an int8 arena); each raises on a shape it does not take.
+    "auto", the reference flag's default, is an alias of "fused" because
+    the port has no silent fallback to the oracle.  "gather" runs the
+    explicit oracle: `paged_gather_kv` then the dense `decode_attention`,
+    dequantizing first under int8 (q in float32, cast back at the end)."""
     if kernel not in ("auto", "fused", "gather"):
         raise ValueError(
             f"paged decode kernel must be auto|fused|gather, got {kernel!r}"
         )
-    if kernel == "gather":
-        return decode_attention(
-            q, paged_gather_kv(arena_k, tables, max_len),
-            paged_gather_kv(arena_v, tables, max_len), pos, scale,
-        )
-    return paged_decode_fused(q, arena_k, arena_v, tables, pos, max_len, scale)
+    quant = k_scale is not None
+    if quant != (v_scale is not None):
+        raise ValueError("k_scale and v_scale must be given together")
+    if kernel != "gather":
+        if quant:
+            return paged_decode_fused_q8(q, arena_k, arena_v, k_scale, v_scale,
+                                         tables, pos, max_len, scale)
+        return paged_decode_fused(q, arena_k, arena_v, tables, pos, max_len, scale)
+    if quant:
+        k = _dequant_gather(arena_k, k_scale, tables, max_len)
+        v = _dequant_gather(arena_v, v_scale, tables, max_len)
+        return decode_attention(q.float(), k, v, pos, scale).to(q.dtype)
+    return decode_attention(
+        q, paged_gather_kv(arena_k, tables, max_len),
+        paged_gather_kv(arena_v, tables, max_len), pos, scale,
+    )

@@ -1,10 +1,13 @@
 """Serving gauges and kernel launch counts of the port (counterpart of the
-serving part of `paddle_tpu/profiler.py`).
+serving, paging and KV-quant parts of `paddle_tpu/profiler.py`).
 
 The engine records one entry per finished request and one per decode step;
 `serving_summary()` aggregates them with the reference's key names.
+`paging_summary()` holds the prefix cache's lookups, hits, prompt tokens
+saved, copy-on-write copies, commits and evictions; `kv_quant_summary()` the arena's storage precision and bytes.
 `kernel_launch_counts()` reads every hand-written kernel's launches
-(`flash_fwd`, `paged_decode_fused`, `flash_bwd`); `summary()` holds both.
+(`flash_fwd`, `paged_decode_fused`, `paged_decode_fused_q8`,
+`flash_bwd`); `summary()` holds them all.
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ _TTFT_KEEP = 10000  # bound the percentile buffer; serving runs are long
 
 _lock = threading.Lock()
 _gauges = {}
+_paging = {}
+_kv_quant = {}
 
 
 def _reset_locked():
@@ -87,6 +92,95 @@ def serving_summary():
     return out
 
 
+def _reset_paging_locked():
+    _paging.update(
+        prefix_hits=0, prefix_misses=0, prefill_tokens_saved=0, cow_copies=0,
+        cache_evictions=0, cache_commits=0,
+    )
+
+
+_reset_paging_locked()
+
+
+def reset_paging():
+    with _lock:
+        _reset_paging_locked()
+
+
+def record_prefix_lookup(hit, tokens_saved=0, cow_copies=0):
+    """One admission-time prefix-cache lookup: whether a cached prefix was
+    reused, how many prompt tokens skipped prefill, and how many shared
+    pages were copied for the new reader."""
+    with _lock:
+        if hit:
+            _paging["prefix_hits"] += 1
+            _paging["prefill_tokens_saved"] += int(tokens_saved)
+            _paging["cow_copies"] += int(cow_copies)
+        else:
+            _paging["prefix_misses"] += 1
+
+
+def record_paging_event(kind, n=1):
+    """Count an allocator event: 'cache_evictions' or 'cache_commits'."""
+    with _lock:
+        _paging[kind] += int(n)
+
+
+def paging_summary():
+    """Prefix lookups, hits, hit rate, prefill tokens saved, COW copies,
+    cache evictions and commits; keys appear once their events have."""
+    with _lock:
+        g = dict(_paging)
+    out = {}
+    lookups = g["prefix_hits"] + g["prefix_misses"]
+    if lookups:
+        out.update(prefix_lookups=lookups, prefix_hits=g["prefix_hits"],
+                   prefix_hit_rate=g["prefix_hits"] / lookups,
+                   prefill_tokens_saved=g["prefill_tokens_saved"],
+                   cow_copies=g["cow_copies"])
+    for k in ("cache_evictions", "cache_commits"):
+        if g[k]:
+            out[k] = g[k]
+    return out
+
+
+def _reset_kv_quant_locked():
+    _kv_quant.update(mode="none", arena_bytes=0, scale_bytes=0, quantize=0,
+                     dequantize=0)
+
+
+_reset_kv_quant_locked()
+
+
+def reset_kv_quant():
+    with _lock:
+        _reset_kv_quant_locked()
+
+
+def record_kv_quant(mode, arena_bytes, scale_bytes):
+    """The paged arena's storage precision and device bytes, all layers
+    (engine construction; set, not summed)."""
+    with _lock:
+        _kv_quant.update(mode=str(mode), arena_bytes=int(arena_bytes),
+                         scale_bytes=int(scale_bytes))
+
+
+def record_kv_quant_event(kind, n=1):
+    """Count int8 work: 'quantize' (K/V row pairs written through the
+    quantizing scatters) or 'dequantize' (mapped pages a decode step's
+    kernel dequantized), per layer."""
+    with _lock:
+        _kv_quant[kind] += int(n)
+
+
+def kv_quant_summary():
+    """The KV-quant descriptors and counters; {} while no int8 arena has
+    been recorded."""
+    with _lock:
+        g = dict(_kv_quant)
+    return {} if g["mode"] == "none" else g
+
+
 def kernel_launch_counts():
     """Launches of each hand-written kernel since the last reset."""
     return dict(_fa.launch_counts)
@@ -97,5 +191,8 @@ def reset_kernel_launch_counts():
 
 
 def summary():
-    """The serving summary and the kernel launch counts in one dict."""
-    return {"serving": serving_summary(), "kernel_launches": kernel_launch_counts()}
+    """The serving, paging and KV-quant summaries and the kernel launch
+    counts in one dict."""
+    return {"serving": serving_summary(), "paging": paging_summary(),
+            "kv_quant": kv_quant_summary(),
+            "kernel_launches": kernel_launch_counts()}

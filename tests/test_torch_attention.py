@@ -113,7 +113,7 @@ def test_cpu_tensors_never_count_a_kernel_launch():
     x = torch.zeros(1, 8, 2, 16)
     pfa.flash_forward(x, x, x)
     assert pfa.launch_counts == {"flash_fwd": 0, "paged_decode_fused": 0,
-                                 "flash_bwd": 0}
+                                 "paged_decode_fused_q8": 0, "flash_bwd": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -193,8 +193,15 @@ def test_paged_decode_rejects_bad_inputs():
     with pytest.raises(ValueError, match="auto|fused|gather"):
         pfa.paged_decode_attention(_t(q), _t(ak), _t(av), _t(tables), _t(pos),
                                    max_len, kernel="dense")
-    big_q = torch.zeros(2, 40, 4, 16)  # rep 2 x sq 40 rows > one block
-    with pytest.raises(ValueError, match="rows"):
-        pfa.paged_decode_fused(big_q, _t(ak), _t(av), _t(tables), _t(pos), max_len)
+    with pytest.raises(ValueError, match="dtypes differ"):
+        pfa.paged_decode_fused(_t(q).bfloat16(), _t(ak), _t(av), _t(tables), _t(pos),
+                               max_len)
+    scales = torch.ones(*ak.shape[:3], 1)
+    with pytest.raises(ValueError, match="together"):
+        pfa.paged_decode_attention(_t(q), _t(ak), _t(av), _t(tables), _t(pos),
+                                   max_len, k_scale=scales)
+    with pytest.raises(ValueError, match="int8"):
+        pfa.paged_decode_fused_q8(_t(q), _t(ak), _t(av), scales, scales,
+                                  _t(tables), _t(pos), max_len)
     with pytest.raises(ValueError, match="bounds"):
         check_table_bounds(tables + ak.shape[0], ak.shape[0])

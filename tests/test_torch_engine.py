@@ -163,14 +163,14 @@ def test_submit_rejects_what_cannot_fit(models):
 @pytest.mark.parametrize(
     "knob,item",
     [
-        (dict(prefix_cache=True), "prefix cache"),
-        (dict(spec_k=2), "speculative"),
-        (dict(kv_quant="int8"), "int8"),
-        (dict(tp=2), "tensor-parallel"),
-        (dict(cp=2), "context-parallel"),
-        (dict(paged=False), "dense slot-pool"),
-        (dict(lora=object()), "LoRA"),
-        (dict(role="decode"), "disaggregated"),
+        # ids as they were when the prefix cache and int8 KV (since ported)
+        # were the first and third cases
+        pytest.param(dict(spec_k=2), "speculative", id="knob1-speculative"),
+        pytest.param(dict(tp=2), "tensor-parallel", id="knob3-tensor-parallel"),
+        pytest.param(dict(cp=2), "context-parallel", id="knob4-context-parallel"),
+        pytest.param(dict(paged=False), "dense slot-pool", id="knob5-dense slot-pool"),
+        pytest.param(dict(lora=object()), "LoRA", id="knob6-LoRA"),
+        pytest.param(dict(role="decode"), "disaggregated", id="knob7-disaggregated"),
     ],
 )
 def test_unported_knobs_raise_naming_the_roadmap_item(models, knob, item):
