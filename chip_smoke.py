@@ -3,16 +3,17 @@
 
     python3 chip_smoke.py
 
-Seven phases; a failure in any of them exits non-zero and prints no result.
+Nine phases; a failure in any of them exits non-zero and prints no result.
 
 1. device  -- requires CUDA; prints the card's name and power limit.
 2. build   -- builds every kernel of `paddle_tpu_torch/csrc` with nvcc.
 3. kernels -- holds each kernel against its plain PyTorch version on the
               card, in bf16, at the serving and training paths' shapes
               (decode and chunk prefill for the paged kernels, int8 pages
-              for K4), and times kernel, plain version and (where one
-              exists) the PyTorch library call with CUDA events; then every
-              other variant the wrappers launch, untimed.
+              for K4, the lock-step prefill for K6), and times kernel,
+              plain version and (where one exists) the PyTorch library call
+              with CUDA events; then every other variant the wrappers
+              launch, untimed.
 4. slice   -- serves a full-width, full-depth Llama-2-7B (bf16, random
               weights from a seeded generator) through the paged engine
               behind `POST /generate`, checks the token counts and that every
@@ -25,19 +26,29 @@ Seven phases; a failure in any of them exits non-zero and prints no result.
               token counts, hits and copies, the launches of K1, K2 and K4,
               logits against the teacher-forced forward, and prints the
               int8 run's greedy agreement with the full-precision run.
-6. train   -- trains Llama-2-7B's widths at 8 layers (bf16 AMP O2, AdamW with
+6. generate -- the same model's lock-step `generate`: greedy over four
+              500-token prompts, beam search, seeded sampling twice, a short
+              prompt; K6 launched once per layer by every prefill of 64+
+              tokens and never otherwise, no other kernel; prefill and
+              decode logits against the teacher-forced forward; then a
+              `GenerationPredictor` behind `POST /generate`.
+7. dense   -- the same model behind the dense slot-pool engine
+              (`paged=False`) over HTTP: token counts, K1 once per layer per
+              prefill and no other kernel, logits against the teacher-forced
+              forward, decode tokens/s and TTFT beside the paged slice's.
+8. train   -- trains Llama-2-7B's widths at 8 layers (bf16 AMP O2, AdamW with
               float32 master weights) for 6 steps on one repeated batch of
               4 x 2048 tokens: finite and falling losses, K1 and K3 launched
               once per layer per step, every weight moved; step time,
               tokens/s, peak memory and a profiled step.
               Then 2 steps of 2 layers with activation recompute (K1 twice
               per layer per step).
-7. grads   -- one step's gradients of a 2-layer model at the same widths
+9. grads   -- one step's gradients of a 2-layer model at the same widths
               with the kernels against the same step with attention through
               the plain forward under autograd.
 
-The line before the last is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}.
+Every phase prints its wall time.  The line before the last is the
+kernels' JSON record; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -92,6 +103,19 @@ SLICE_PROMPTS = [(20, 64), (77, 48), (200, 32), (333, 40), (500, 32), (45, 64)]
 PREFIX_SYS_LEN = 300
 PREFIX_SUFFIXES = [20, 45, 77, 100, 130, 160, 185, 200]
 PREFIX_NEW = 32
+
+# the generate phase: lock-step greedy over GEN_BATCH prompts of GEN_LEN
+# tokens (a 640-row cache: K6 over 500 rows at pos 0), beam search over one
+# BEAM_LEN-token prompt, seeded sampling, and a prompt too short for K6
+GEN_BATCH = 4
+GEN_LEN = 500
+GEN_NEW = 64
+BEAM_LEN = 128
+BEAM_NEW = 32
+BEAMS = 4
+SHORT_LEN = 20
+SAMPLING = dict(temperature=0.8, top_k=50, top_p=0.9, seed=7)
+PREDICTOR_LENS = [70, 100, 130]
 
 # the training slice: Llama-2-7B widths at 8 layers (AdamW's float32 state
 # for all 32 would not fit one card), batch 4 x 2048 tokens, bf16 O2
@@ -389,6 +413,57 @@ def _k3_case(b, s, h, hk, d=128, seed=6, dtype="bfloat16", causal=True,
                     bound_ms=bms, bound_by=by, library_ms=lib_ms)
 
 
+def _k6_case(b, sq, h, hk, d=128, L=640, pos=0, seed=14, dtype="bfloat16",
+             timed=True):
+    """K6 against its plain version over a static cache written up to
+    pos + sq (later rows zero, as a fresh cache); with `timed`, also kernel,
+    plain and library times (PyTorch's SDPA with the boolean mask j <= pos +
+    i over the whole cache) and the bound."""
+    import torch
+    from torch.nn import functional as F
+
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dt = getattr(torch, dtype)
+    q = torch.randn(b, sq, h, d, generator=g, device="cuda", dtype=dt)
+    k = torch.zeros(b, L, hk, d, device="cuda", dtype=dt)
+    v = torch.zeros(b, L, hk, d, device="cuda", dtype=dt)
+    live = min(pos + sq, L)
+    k[:, :live] = torch.randn(b, live, hk, d, generator=g, device="cuda", dtype=dt)
+    v[:, :live] = torch.randn(b, live, hk, d, generator=g, device="cuda", dtype=dt)
+    pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    out = fa.dense_decode(q, k, v, pos_t)
+    torch.cuda.synchronize()
+    ref = fa.decode_attention_plain(q, k, v, pos_t)
+    err = (out.float() - ref.float()).abs().max().item()
+    rel = rel_norm_err(out, ref)
+    ok = close(out, ref)
+    shape = (f"dense_decode {dtype} b={b} sq={sq} h={h} hk={hk} d={d} L={L} "
+             f"pos={pos}: max_abs_err {err:.3e}, rel_norm_err {rel:.3e}")
+    if not timed:
+        log("kernels", f"{shape} -> {'ok' if ok else 'FAIL'}")
+        return ok, dict(max_abs_err=err)
+    ms = time_ms(lambda: fa.dense_decode(q, k, v, pos_t))
+    plain_ms = time_ms(lambda: fa.decode_attention_plain(q, k, v, pos_t))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    i = torch.arange(sq, device="cuda")[:, None]
+    j = torch.arange(L, device="cuda")[None, :]
+    mask = j <= pos + i
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=h != hk))
+    # bytes: q and out, and each sequence's live K/V rows of every kv head;
+    # operations: 4 d FLOP per visible (row, key) pair at the bf16 peak
+    nbytes = 2 * q.numel() * q.element_size() + 2 * b * live * hk * d * k.element_size()
+    visible = sum(min(pos + r + 1, L) for r in range(sq))
+    bms, by = bound(nbytes, 4 * d * h * b * visible)
+    log("kernels", f"{shape}, kernel_ms {ms:.4f}, plain_ms {plain_ms:.4f}, "
+                   f"library_ms {lib_ms:.4f}, bound_ms {bms:.5f} ({by}) -> "
+                   f"{'ok' if ok else 'FAIL'}")
+    return ok, dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                    bound_by=by, library_ms=lib_ms)
+
+
 def phase_kernels():
     """Each kernel against its plain version: timed at the main paths' bf16
     shapes, then untimed over every other variant the wrappers launch on
@@ -397,6 +472,8 @@ def phase_kernels():
     shape}, all_ok); the record's max_abs_err is the worst over the bf16
     cases."""
     import torch
+
+    from paddle_tpu_torch.ops import flash_attention as fa
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions in f32
     torch.backends.cudnn.allow_tf32 = False
@@ -497,13 +574,42 @@ def phase_kernels():
         ok_all &= ok
         if kw.get("dtype", "bfloat16") == "bfloat16":
             errs3.append(rec["max_abs_err"])
+    # K6: the lock-step prefill of the generate phase, timed, then GQA,
+    # ragged sq at pos > 0, float32 and the FMA path at d 256, untimed
+    ok, k6 = _k6_case(GEN_BATCH, GEN_LEN, 32, 32, L=640)
+    ok_all &= ok
+    errs6 = [k6["max_abs_err"]]
+    for kw in (
+        dict(b=1, sq=64, h=8, hk=2, d=64, L=128, pos=30),     # GQA, mma<64>
+        dict(b=1, sq=130, h=32, hk=32, L=384, pos=200),       # ragged, pos > 0
+        dict(b=2, sq=77, h=16, hk=4, L=256, pos=10),          # ragged tile
+        dict(b=1, sq=100, h=8, hk=2, L=256, pos=50, dtype="float32"),
+        dict(b=1, sq=96, h=8, hk=2, d=256, L=256, pos=40),    # bf16 FMA, d 256
+        dict(b=1, sq=70, h=4, hk=2, d=256, L=128, pos=5, dtype="float32"),
+    ):
+        ok, rec = _k6_case(seed=15, timed=False, **kw)
+        ok_all &= ok
+        if kw.get("dtype", "bfloat16") == "bfloat16":
+            errs6.append(rec["max_abs_err"])
+    # K6 at pos 0 over a cache as long as the prompt is K1's computation:
+    # the two entry points must give the same bits
+    for dtype in ("bfloat16", "float32"):
+        g = torch.Generator(device="cuda").manual_seed(16)
+        q, k, v = (torch.randn(1, 300, heads, 128, generator=g, device="cuda",
+                               dtype=getattr(torch, dtype)) for heads in (32, 8, 8))
+        same = torch.equal(fa.dense_decode(q, k, v, 0), fa.flash_forward(q, k, v)[0])
+        ok_all &= same
+        log("kernels", f"dense_decode {dtype} at pos 0, L = sq = 300, GQA: equal "
+                       f"to flash_fwd bit for bit: {same} -> {'ok' if same else 'FAIL'}")
     torch.cuda.empty_cache()
     head1 = dict(k1[512], max_abs_err=max(errs1))
     head2 = dict(k2, max_abs_err=max(errs2))
     head3 = dict(k3, max_abs_err=max(errs3))
     head4 = dict(k4, max_abs_err=max(errs4))
+    head6 = dict(k6, max_abs_err=max(errs6))
     return {"flash_fwd": head1, "paged_decode_fused": head2,
-            "paged_decode_fused_q8": head4, "flash_bwd": head3}, ok_all
+            "paged_decode_fused_q8": head4, "flash_bwd": head3,
+            "dense_decode": head6}, ok_all
 
 
 def _post(url, body):
@@ -519,7 +625,7 @@ def phase_slice(smi, cfg, device="cuda", dtype="bfloat16",
                 prompts_spec=SLICE_PROMPTS, **engine_kw):
     """Serve `cfg` through the engine behind POST /generate, then check the
     outputs.  Returns (all checks passed, kernel launch counts of the served
-    run, the model)."""
+    run, the model, the served run's serving summary)."""
     import numpy as np
     import torch
 
@@ -599,7 +705,7 @@ def phase_slice(smi, cfg, device="cuda", dtype="bfloat16",
                  f"{LOGIT_REL_TOL}) -> {'ok' if logits_ok else 'FAIL'}")
     if on_card:
         profile_decode(engine, cfg, rng)
-    return ok, counts, model
+    return ok, counts, model, summary
 
 
 def _teacher_forced(model, device, prompts, gen, reqs, phase):
@@ -760,6 +866,225 @@ def phase_prefix(smi, model, kv_quant, device="cuda", sys_len=PREFIX_SYS_LEN,
     if torch.device(device).type == "cuda" and kv_quant == "int8":
         profile_decode(engine, cfg, rng)
     return ok, counts, gen[:len(shared)]
+
+
+def _gen_run(what, fn, layers, expect_k6, on_card):
+    """One lock-step call of the main path, its launch counts read just
+    after it: K6 `expect_k6` times, no other kernel.  Returns (output, ok,
+    counts, wall seconds)."""
+    import torch
+
+    from paddle_tpu_torch import profiler
+
+    profiler.reset_kernel_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    if on_card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = profiler.kernel_launch_counts()
+    want = dict.fromkeys(counts, 0)
+    want["dense_decode"] = expect_k6 if on_card else 0
+    ok = counts == want
+    log("generate", f"{what}: {wall:.3f} s, launches {counts} (expected "
+                    f"dense_decode {want['dense_decode']}"
+                    f"{f' = {layers} layers' if want['dense_decode'] else ''}, "
+                    f"every other kernel 0) -> {'ok' if ok else 'FAIL'}")
+    return out, ok, counts, wall
+
+
+def phase_generate(smi, model, device="cuda", batch=GEN_BATCH, prompt_len=GEN_LEN,
+                   new_tokens=GEN_NEW, beam_len=BEAM_LEN, beam_new=BEAM_NEW,
+                   beams=BEAMS, short_len=SHORT_LEN,
+                   predictor_lens=PREDICTOR_LENS):
+    """Lock-step generation on `model`: greedy over `batch` prompts of
+    `prompt_len` tokens, beam search, seeded sampling twice, a short prompt;
+    each call's launches read just after it (K6 once per layer for a prefill
+    of 64+ rows, nothing else); prefill and one decode step's logits against
+    the teacher-forced forward; then a GenerationPredictor behind POST
+    /generate.  Returns (all checks passed, the summed launch counts of the
+    calls)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.inference import GenerationPredictor, serve
+    from paddle_tpu_torch.models.llama import StaticKVCache
+
+    cfg = model.config
+    layers = cfg.num_hidden_layers
+    on_card = torch.device(device).type == "cuda"
+    rng = np.random.default_rng(2)
+    ids = torch.from_numpy(rng.integers(1, cfg.vocab_size, size=(batch, prompt_len))
+                           .astype(np.int32)).to(device)
+    runs, ok = [], True
+
+    def run(what, fn, expect_k6):
+        nonlocal ok
+        out, good, counts, wall = _gen_run(what, fn, layers, expect_k6, on_card)
+        ok &= good
+        runs.append(counts)
+        return out, wall
+
+    out, wall = run(f"greedy, {batch} x {prompt_len} tokens + {new_tokens}",
+                    lambda: model.generate(ids, max_new_tokens=new_tokens), layers)
+    shape_ok = (tuple(out.shape) == (batch, prompt_len + new_tokens)
+                and torch.equal(out[:, :prompt_len], ids)
+                and bool(((out >= 0) & (out < cfg.vocab_size)).all()))
+    ok &= shape_ok
+    log("generate", f"greedy: shape {tuple(out.shape)}, prompt kept, ids in the "
+                    f"vocabulary -> {'ok' if shape_ok else 'FAIL'}; "
+                    f"{batch * new_tokens / wall:.2f} tokens/s over the call "
+                    f"(prefill included) | {smi}")
+    greedy = out
+
+    ids_b = ids[:1, :beam_len].contiguous()
+    out_b, _ = run(f"beam search, {beams} beams, {beam_len} tokens + {beam_new}",
+                   lambda: model.generate(ids_b, max_new_tokens=beam_new,
+                                          num_beams=beams), layers)
+    beam_ok = tuple(out_b.shape) == (1, beam_len + beam_new)
+    ok &= beam_ok
+    sampled = []
+    for i in range(2):
+        o, _ = run(f"sampling {SAMPLING} run {i + 1}",
+                   lambda: model.generate(ids, max_new_tokens=new_tokens,
+                                          **SAMPLING), layers)
+        sampled.append(o)
+    same = torch.equal(sampled[0], sampled[1])
+    ok &= same and beam_ok
+    log("generate", f"beam output shape {tuple(out_b.shape)} -> "
+                    f"{'ok' if beam_ok else 'FAIL'}; the two seeded sampling runs "
+                    f"equal: {same}; sampled tokens equal to greedy's "
+                    f"{(sampled[0][:, prompt_len:] == greedy[:, prompt_len:]).float().mean().item():.3f}")
+    ids_s = ids[:1, :short_len].contiguous()
+    run(f"greedy, {short_len}-token prompt (below K6's 64 rows)",
+        lambda: model.generate(ids_s, max_new_tokens=16), 0)
+
+    # -- correctness: prefill and one decode step vs the teacher-forced
+    # forward over prompt + the greedy token
+    cache_len = -(-(prompt_len + 1) // 128) * 128
+    caches = [StaticKVCache(1, cache_len, cfg.num_key_value_heads, cfg.head_dim,
+                            model.lm_head.weight.dtype, model.device)
+              for _ in range(layers)]
+    seq = greedy[:1, :prompt_len + 1]
+    with torch.no_grad():
+        pos0 = torch.zeros((), dtype=torch.int32, device=model.device)
+        pf = model.lm_head(model.llama(seq[:, :prompt_len], caches=caches,
+                                       pos=pos0)[:, -1]).float()
+        dec = model.lm_head(model.llama(seq[:, prompt_len:], caches=caches,
+                                        pos=pos0 + prompt_len)[:, -1]).float()
+        ref = model(seq)[0, prompt_len - 1:].float()
+    del caches
+    rels = [((x[0] - r).abs().max() / r.abs().max()).item()
+            for x, r in ((pf, ref[0]), (dec, ref[1]))]
+    finite = bool(torch.isfinite(pf).all() and torch.isfinite(dec).all())
+    logits_ok = finite and max(rels) <= LOGIT_REL_TOL
+    ok &= logits_ok
+    log("generate", f"logits vs the teacher-forced forward, max|diff|/max|logit|: "
+                    f"prefill {rels[0]:.3e}, decode step {rels[1]:.3e} (tol "
+                    f"{LOGIT_REL_TOL}); greedy token {int(seq[0, -1])} == argmax of "
+                    f"the forward {int(ref[0].argmax())} -> {'ok' if logits_ok else 'FAIL'}")
+
+    # -- GenerationPredictor behind POST /generate --------------------------
+    pred = GenerationPredictor(model, max_new_tokens=32).warmup(prompt_len=70)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32)
+               for n in predictor_lens]
+    server = serve(pred, port=0, block=False)
+    url = f"http://127.0.0.1:{server.server_address[1]}/generate"
+    profiler.reset_kernel_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        http = [_post(url, {"input_ids": p.tolist()})["tokens"] for p in prompts]
+    finally:
+        server.stop()
+    wall = time.perf_counter() - t0
+    counts = profiler.kernel_launch_counts()
+    runs.append(counts)
+    want = dict.fromkeys(counts, 0)
+    want["dense_decode"] = len(prompts) * layers if on_card else 0
+    direct = [pred.generate(p).tolist() for p in prompts]
+    http_ok = http == direct and counts == want
+    ok &= http_ok
+    log("generate", f"GenerationPredictor behind POST /generate: {len(prompts)} "
+                    f"requests of {predictor_lens} tokens + 32 in {wall:.3f} s; "
+                    f"HTTP tokens == direct tokens: {http == direct}; launches "
+                    f"{counts} (expected dense_decode {want['dense_decode']}) -> "
+                    f"{'ok' if http_ok else 'FAIL'}")
+    total = {name: sum(c[name] for c in runs) for name in runs[0]}
+    return ok, total
+
+
+def phase_dense(smi, model, paged_summary, device="cuda", prompts_spec=SLICE_PROMPTS,
+                **engine_kw):
+    """The dense slot-pool engine (`paged=False`) on `model` behind POST
+    /generate with the slice's traffic: token counts, launches (K1 once per
+    layer per prefill, nothing else), logits against the teacher-forced
+    forward, decode tokens/s and TTFT beside the paged slice's
+    `paged_summary`.  Returns (all checks passed, launch counts)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.inference.engine import ContinuousBatchingEngine
+
+    cfg = model.config
+    layers = cfg.num_hidden_layers
+    on_card = torch.device(device).type == "cuda"
+    t0 = time.perf_counter()
+    engine = ContinuousBatchingEngine(model, seed=0, device=device, paged=False,
+                                      **engine_kw)
+    engine.warmup()
+    pool = 2 * layers * engine._caches[0].k.numel() * engine._caches[0].k.element_size()
+    log("dense", f"dense slot pool {engine.slots} slots x {engine.max_len} rows = "
+                 f"{pool / 2**30:.2f} GiB, built + warmed in "
+                 f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(0)  # the slice's prompts
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32)
+               for n, _ in prompts_spec]
+    profiler.reset_kernel_launch_counts()
+    profiler.reset_serving()
+    results, wall = _serve_batches(
+        engine, [[(p, new) for p, (_, new) in zip(prompts, prompts_spec)]])
+    counts = profiler.kernel_launch_counts()
+    summary = profiler.serving_summary()
+    gen, tokens_ok = [], True
+    for r, p, (n, new) in zip(results, prompts, prompts_spec):
+        toks = r["tokens"]
+        tokens_ok &= len(toks) == n + new and toks[:n] == p.tolist()
+        gen.append(np.asarray(toks[n:], np.int32))
+    want = dict.fromkeys(counts, 0)
+    want["flash_fwd"] = len(prompts) * layers if on_card else 0
+    counts_ok = counts == want
+    ok = tokens_ok and counts_ok
+    log("dense", f"served {len(prompts)} requests over HTTP in {wall:.3f} s: token "
+                 f"counts {'ok' if tokens_ok else 'WRONG'}; launches {counts} "
+                 f"(expected flash_fwd {want['flash_fwd']} = {len(prompts)} "
+                 f"prefills x {layers} layers, every other kernel 0) -> "
+                 f"{'ok' if counts_ok else 'FAIL'}")
+
+    def rates(sm):
+        return ((sm["tokens"] - sm["requests"]) / sm["decode_busy_s"],
+                sm["ttft_p50_ms"], sm["ttft_p95_ms"])
+
+    d_tps, d_p50, d_p95 = rates(summary)
+    p_tps, p_p50, p_p95 = rates(paged_summary)
+    log("dense", f"decode_tokens_per_s dense {d_tps:.2f} | paged slice {p_tps:.2f}; "
+                 f"ttft_p50_ms dense {d_p50:.3f} | paged {p_p50:.3f}; ttft_p95_ms "
+                 f"dense {d_p95:.3f} | paged {p_p95:.3f} (batch of up to "
+                 f"{engine.slots}, one run) | {smi}")
+    reqs = [engine.submit(p, max_new_tokens=new, keep_logits=True)
+            for p, (_, new) in zip(prompts, prompts_spec)]
+    engine.run_until_idle()
+    agree, total, worst, finite = _teacher_forced(model, device, prompts, gen,
+                                                  reqs, "dense")
+    logits_ok = worst <= LOGIT_REL_TOL and finite
+    ok &= logits_ok
+    log("dense", f"teacher-forced greedy agreement {agree}/{total} = "
+                 f"{agree / total:.4f}; worst logits rel err {worst:.4f} (tol "
+                 f"{LOGIT_REL_TOL}) -> {'ok' if logits_ok else 'FAIL'}")
+    if on_card:
+        profile_decode(engine, cfg, rng)
+    return ok, counts
 
 
 def _device_profile(run, steps):
@@ -1024,6 +1349,15 @@ def _free():
     torch.cuda.empty_cache()
 
 
+def _timed(phase, fn, *args, **kw):
+    """Run one phase and print its wall time."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args, **kw)
+    finally:
+        log(phase, f"phase wall time {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     if not (ROOT / "paddle_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository "
@@ -1036,21 +1370,22 @@ def main():
         return 2
     sys.path.insert(0, str(ROOT))
     try:
-        smi = phase_device()
-        phase_build()
-        kernels, kernels_ok = phase_kernels()
+        smi = _timed("device", phase_device)
+        _timed("build", phase_build)
+        kernels, kernels_ok = _timed("kernels", phase_kernels)
         from paddle_tpu_torch.models.llama import LlamaConfig
 
         serving = dict(slots=8, max_len=2048, page_size=128,
                        prefill_buckets=[32, 64, 128, 256, 512])
-        slice_ok, counts, model = phase_slice(smi, LlamaConfig.llama2_7b(),
-                                              **serving)
+        slice_ok, counts, model, slice_summary = _timed(
+            "slice", phase_slice, smi, LlamaConfig.llama2_7b(), **serving)
         _free()
         # the prefix cache in full precision, then over int8 pages: one
         # engine (and arena) at a time, the same model
         prefix_ok, prefix_counts, prefix_gen = True, [], {}
         for quant in ("none", "int8"):
-            ok, c, gen = phase_prefix(smi, model, quant, **serving)
+            ok, c, gen = _timed(f"prefix {quant}", phase_prefix, smi, model,
+                                quant, **serving)
             prefix_ok &= ok
             prefix_counts.append(c)
             prefix_gen[quant] = gen
@@ -1060,27 +1395,34 @@ def main():
         total = sum(a.size for a in prefix_gen["none"])
         log("prefix", f"int8 greedy tokens equal to full precision's, per "
                       f"position: {same}/{total} = {same / total:.4f}")
+        gen_ok, gen_counts = _timed("generate", phase_generate, smi, model)
+        _free()
+        dense_ok, dense_counts = _timed("dense", phase_dense, smi, model,
+                                        slice_summary, **serving)
         del model
         _free()
-        train_ok, train_counts = phase_train(
-            smi, LlamaConfig.llama2_7b(num_hidden_layers=TRAIN_LAYERS))
+        train_ok, train_counts = _timed(
+            "train", phase_train, smi,
+            LlamaConfig.llama2_7b(num_hidden_layers=TRAIN_LAYERS))
         _free()
         # activation recompute: K1 runs twice per layer per step
-        recompute_ok, _ = phase_train(
-            smi, LlamaConfig.llama2_7b(num_hidden_layers=2, use_recompute=True),
+        recompute_ok, _ = _timed(
+            "train", phase_train, smi,
+            LlamaConfig.llama2_7b(num_hidden_layers=2, use_recompute=True),
             steps=2, profile=False)
         _free()
-        grad_ok, _ = grad_check(LlamaConfig.llama2_7b(num_hidden_layers=2))
+        grad_ok, _ = _timed("grads", grad_check,
+                            LlamaConfig.llama2_7b(num_hidden_layers=2))
     except Exception:
         traceback.print_exc()
         return 1
-    if not (kernels_ok and slice_ok and prefix_ok and train_ok and recompute_ok
-            and grad_ok):
+    if not (kernels_ok and slice_ok and prefix_ok and gen_ok and dense_ok
+            and train_ok and recompute_ok and grad_ok):
         print("chip_smoke: a phase failed (see the lines above)", file=sys.stderr)
         return 1
-    # launches: the serving runs' and the training run's counts, each read
+    # launches: the serving, generation and training runs' counts, each read
     # just after its path ran
-    runs = [counts, *prefix_counts, train_counts]
+    runs = [counts, *prefix_counts, gen_counts, dense_counts, train_counts]
     launches = {name: sum(c[name] for c in runs) for name in kernels}
     record = {"kernels": [
         {"name": "flash_fwd", "route": "cuda",
@@ -1101,6 +1443,10 @@ def main():
          "source": "paddle_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "paddle_tpu/ops/flash_attention.py:415",
          "launches": launches["flash_bwd"], **kernels["flash_bwd"]},
+        {"name": "dense_decode", "route": "cuda",
+         "source": "paddle_tpu_torch/csrc/flash_fwd.cu",
+         "replaces": "paddle_tpu/ops/flash_attention.py:649",
+         "launches": launches["dense_decode"], **kernels["dense_decode"]},
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 """paddle_tpu_torch: the PyTorch/CUDA port of paddle_tpu.
 
 The JAX package `paddle_tpu` stays the reference; this package serves a
-paged Llama and trains it (bf16 AMP O2, AdamW) with hand-written Hopper
-kernels (`csrc/`).  Entry points run on the CUDA card unless the caller
+Llama (paged or dense slot-pool engine, or lock-step `generate` behind a
+`GenerationPredictor`) and trains it (bf16 AMP O2, AdamW) with
+hand-written Hopper kernels (`csrc/`).  Entry points run on the CUDA card unless the caller
 passes device="cpu".
 """
 

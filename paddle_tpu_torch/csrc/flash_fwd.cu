@@ -1,10 +1,25 @@
-// K1 `flash_fwd`: flash-attention forward for Hopper (sm_90a).
+// K1 `flash_fwd`: flash-attention forward for Hopper (sm_90a), and K6
+// `dense_decode`, the same kernels run against a dense static KV cache.
 //
-// Replaces the Pallas kernel `_flash_fwd_kernel`, launched by
+// K1 replaces the Pallas kernel `_flash_fwd_kernel`, launched by
 // `_pallas_flash_forward` (paddle_tpu/ops/flash_attention.py:65, :186).
 // Computes softmax(scale * q k^T + causal mask) v with an online softmax over
 // K/V tiles, f32 accumulators, and writes `out` [b, s, h, d] plus the f32
 // log-sum-exp `lse` [b, h, s] that a backward pass needs.
+//
+// K6 replaces `_decode_kernel`, launched by `_pallas_decode_forward`
+// (flash_attention.py:592, :649): q rows [b, sq, h, d] against cache
+// buffers [b, L, hk, d], row i attending cache slots j <= pos + i, where
+// `pos` is one int32 the kernel reads from device memory (no host sync, so
+// the lock-step prefill needs no .item()).  It is K1's computation with a
+// query offset (`q_off`, K1: none, i.e. 0) and a key length `lk` apart from
+// the query length (K1: lk == s): every q tile stops at the last key tile
+// its last real row sees, rows past `pos + sq` (unwritten cache rows) are
+// never read, GQA indexes the cache's kv head in place, ragged sq is masked
+// in-kernel (the reference pads q rows to 8 or 128 and loops over the GQA
+// groups; here one launch covers every head), and no lse is written.  The
+// `rep` q heads of a group are separate blocks reading the same K/V tiles,
+// which L2 serves after the first; one block per group is `wgmma` work.
 //
 // Bound on an H100: at the prefill shapes of the serving path (s <= 512,
 // d = 128) the work is 4*s*s*d*h/2 causal FLOPs against (3 + 1)*s*h*d*2
@@ -22,8 +37,8 @@
 //    d > 128 run a plain f32-FMA kernel (the first version).
 // Not yet: wgmma, TMA and a load pipeline overlapping the next K/V tile.
 //
-// Segment ids, per-key bias, the ring `carry` and `q_offset` are not
-// supported yet: their callers (varlen/BERT, ring attention) are not ported.
+// Segment ids, per-key bias and the ring `carry` are not supported yet:
+// their callers (varlen/BERT, ring attention) are not ported.
 
 #include <stdint.h>
 
@@ -51,8 +66,8 @@ template <typename T, int NJ>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out,
-                 float* __restrict__ lse, int s, int h, int hk, int d,
-                 int causal, float scale) {
+                 float* __restrict__ lse, const int* __restrict__ q_off, int s,
+                 int lk, int h, int hk, int d, int causal, float scale) {
   extern __shared__ float smem[];
   const int dp = d + 1;  // padded row: conflict-free column reads
   const int pp = kBK + 1;
@@ -68,6 +83,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int tx = tid % 16;
   const int ty = tid / 16;
+  const int qpos = q_off != nullptr ? *q_off : 0;  // key position of q row 0
 
   for (int e = tid; e < kBQ * d; e += kThreads) {
     const int r = e / d, c = e % d;
@@ -85,16 +101,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int jj = 0; jj < NJ; ++jj) acc[i][jj] = 0.f;
   }
 
-  // causal: tiles strictly above the diagonal contribute nothing
-  const int k_end = causal ? min(s, q0 + kBQ) : s;
+  // causal: keys past the tile's last real row contribute nothing
+  const int k_end = causal ? min(lk, qpos + min(s, q0 + kBQ)) : lk;
   for (int k0 = 0; k0 < k_end; k0 += kBK) {
     __syncthreads();  // the previous tile's readers are done
     for (int e = tid; e < kBK * d; e += kThreads) {
       const int r = e / d, c = e % d;
       const int kj = k0 + r;
       float kv = 0.f, vv = 0.f;
-      if (kj < s) {
-        const size_t off = ((size_t)(b * s + kj) * hk + kvh) * d + c;
+      if (kj < lk) {
+        const size_t off = ((size_t)(b * lk + kj) * hk + kvh) * d + c;
         kv = to_f32(k[off]);
         vv = to_f32(v[off]);
       }
@@ -127,7 +143,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kj = k0 + tx + 16 * j;
-        const bool ok = kj < s && (!causal || kj <= qi);
+        const bool ok = kj < lk && (!causal || kj <= qpos + qi);
         sc[i][j] = ok ? sc[i][j] * scale : kNegInf;
         rmax = fmaxf(rmax, sc[i][j]);
       }
@@ -181,14 +197,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int col = tx + 16 * jj;
       if (col < d) orow[col] = from_f32<T>(acc[i][jj] / l_safe);
     }
-    if (tx == 0) lse[((size_t)b * h + head) * s + qi] = m[i] + logf(l_safe);
+    if (lse != nullptr && tx == 0)
+      lse[((size_t)b * h + head) * s + qi] = m[i] + logf(l_safe);
   }
 }
 
 template <typename T, int NJ>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   void* lse, int b, int s, int h, int hk, int d, int causal,
-                   float scale, cudaStream_t stream) {
+                   void* lse, const int* q_off, int b, int s, int lk, int h,
+                   int hk, int d, int causal, float scale,
+                   cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * ((size_t)kBQ * (d + 1) + (size_t)kBK * (d + 1) +
                        (size_t)kBK * d + (size_t)kBQ * (kBK + 1));
@@ -200,19 +218,23 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out),
-      static_cast<float*>(lse), s, h, hk, d, causal, scale);
+      static_cast<float*>(lse), q_off, s, lk, h, hk, d, causal, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* out,
-                       void* lse, int b, int s, int h, int hk, int d,
-                       int causal, float scale, cudaStream_t stream) {
+                       void* lse, const int* q_off, int b, int s, int lk,
+                       int h, int hk, int d, int causal, float scale,
+                       cudaStream_t stream) {
   if (d <= 64)
-    return launch<T, 4>(q, k, v, out, lse, b, s, h, hk, d, causal, scale, stream);
+    return launch<T, 4>(q, k, v, out, lse, q_off, b, s, lk, h, hk, d, causal,
+                        scale, stream);
   if (d <= 128)
-    return launch<T, 8>(q, k, v, out, lse, b, s, h, hk, d, causal, scale, stream);
-  return launch<T, 16>(q, k, v, out, lse, b, s, h, hk, d, causal, scale, stream);
+    return launch<T, 8>(q, k, v, out, lse, q_off, b, s, lk, h, hk, d, causal,
+                        scale, stream);
+  return launch<T, 16>(q, k, v, out, lse, q_off, b, s, lk, h, hk, d, causal,
+                       scale, stream);
 }
 
 
@@ -230,8 +252,8 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
                      __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
-                     int s, int h, int hk, int d, int causal, float scale,
-                     bool vec) {
+                     const int* __restrict__ q_off, int s, int lk, int h,
+                     int hk, int d, int causal, float scale, bool vec) {
   constexpr int ST = D + 8;  // padded row: conflict-free fragment loads
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -248,6 +270,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int g = lane >> 2, t = lane & 3;
   const int wr = warp * 16;  // this warp's first row in the tile
   const int row_a = q0 + wr + g, row_b = row_a + 8;
+  const int qpos = q_off != nullptr ? *q_off : 0;  // key position of q row 0
 
   ptt::load_rows<D>(q_s, q, b, q0, s, h, head, d, vec);
   __syncthreads();
@@ -268,14 +291,15 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 
-  const int k_end = causal ? min(s, q0 + kMmaRows) : s;
+  // causal: keys past the tile's last real row contribute nothing
+  const int k_end = causal ? min(lk, qpos + min(s, q0 + kMmaRows)) : lk;
   for (int k0 = 0; k0 < k_end; k0 += kMmaKeys) {
     __syncthreads();  // the previous tile's readers are done
-    ptt::load_rows<D>(k_s, k, b, k0, s, hk, kvh, d, vec);
-    ptt::load_rows<D>(v_s, v, b, k0, s, hk, kvh, d, vec);
+    ptt::load_rows<D>(k_s, k, b, k0, lk, hk, kvh, d, vec);
+    ptt::load_rows<D>(v_s, v, b, k0, lk, hk, kvh, d, vec);
     __syncthreads();
     // causal: a tile wholly above this warp's rows contributes nothing
-    if (causal && k0 > q0 + wr + 15) continue;
+    if (causal && k0 > qpos + q0 + wr + 15) continue;
 
     float sc[8][4];
 #pragma unroll
@@ -296,7 +320,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
       for (int e = 0; e < 4; ++e) {
         const int kj = k0 + nt * 8 + 2 * t + (e & 1);
         const int qi = e < 2 ? row_a : row_b;
-        const bool ok = kj < s && (!causal || kj <= qi);
+        const bool ok = kj < lk && (!causal || kj <= qpos + qi);
         sc[nt][e] = ok ? sc[nt][e] * scale : kNegInf;
         mx[e >> 1] = fmaxf(mx[e >> 1], sc[nt][e]);
       }
@@ -355,14 +379,16 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
       if (col < d) orow[col] = __float2bfloat16(o[dt][2 * r] / l_safe);
       if (col + 1 < d) orow[col + 1] = __float2bfloat16(o[dt][2 * r + 1] / l_safe);
     }
-    if (t == 0) lse[((size_t)b * h + head) * s + qi] = m[r] + logf(l_safe);
+    if (lse != nullptr && t == 0)
+      lse[((size_t)b * h + head) * s + qi] = m[r] + logf(l_safe);
   }
 }
 
 template <int D>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out,
-                       void* lse, int b, int s, int h, int hk, int d,
-                       int causal, float scale, cudaStream_t stream) {
+                       void* lse, const int* q_off, int b, int s, int lk,
+                       int h, int hk, int d, int causal, float scale,
+                       cudaStream_t stream) {
   const size_t smem = sizeof(__nv_bfloat16) * (size_t)(kMmaRows + 2 * kMmaKeys) *
                       (D + 8);
   const bool vec = d % 8 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
@@ -376,8 +402,32 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out,
   kernel<<<grid, kMmaThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      static_cast<float*>(lse), s, h, hk, d, causal, scale, vec);
+      static_cast<float*>(lse), q_off, s, lk, h, hk, d, causal, scale, vec);
   return cudaGetLastError();
+}
+
+// Route by dtype and head dim: bf16 with d <= 128 on the tensor cores, the
+// rest on the FMA kernel.  q_off == nullptr: no query offset (K1).
+cudaError_t attend(const void* q, const void* k, const void* v, void* out,
+                   void* lse, const int* q_off, int b, int s, int lk, int h,
+                   int hk, int d, int causal, float scale, int dtype,
+                   cudaStream_t st) {
+  if (b < 1 || s < 1 || lk < 1 || h < 1 || hk < 1 || h % hk != 0 || d < 1 ||
+      d > 256)
+    return cudaErrorInvalidValue;
+  if (dtype == ptt::kBFloat16 && d <= 64)
+    return launch_mma<64>(q, k, v, out, lse, q_off, b, s, lk, h, hk, d, causal,
+                          scale, st);
+  if (dtype == ptt::kBFloat16 && d <= 128)
+    return launch_mma<128>(q, k, v, out, lse, q_off, b, s, lk, h, hk, d,
+                           causal, scale, st);
+  if (dtype == ptt::kBFloat16)
+    return dispatch_d<__nv_bfloat16>(q, k, v, out, lse, q_off, b, s, lk, h, hk,
+                                     d, causal, scale, st);
+  if (dtype == ptt::kFloat32)
+    return dispatch_d<float>(q, k, v, out, lse, q_off, b, s, lk, h, hk, d,
+                             causal, scale, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -387,22 +437,21 @@ extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v,
                              void* out, void* lse, int b, int s, int h, int hk,
                              int d, int causal, float scale, int dtype,
                              void* stream) {
-  if (b < 1 || s < 1 || h < 1 || hk < 1 || h % hk != 0 || d < 1 || d > 256)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == ptt::kBFloat16 && d <= 64)
-    return (int)launch_mma<64>(q, k, v, out, lse, b, s, h, hk, d, causal,
-                               scale, st);
-  if (dtype == ptt::kBFloat16 && d <= 128)
-    return (int)launch_mma<128>(q, k, v, out, lse, b, s, h, hk, d, causal,
-                                scale, st);
-  if (dtype == ptt::kBFloat16)
-    return (int)dispatch_d<__nv_bfloat16>(q, k, v, out, lse, b, s, h, hk, d,
-                                          causal, scale, st);
-  if (dtype == ptt::kFloat32)
-    return (int)dispatch_d<float>(q, k, v, out, lse, b, s, h, hk, d, causal,
-                                  scale, st);
-  return (int)cudaErrorInvalidValue;
+  return (int)attend(q, k, v, out, lse, nullptr, b, s, s, h, hk, d, causal,
+                     scale, dtype, static_cast<cudaStream_t>(stream));
+}
+
+// K6.  q: [b, sq, h, d]; k, v: [b, L, hk, d] cache buffers, all contiguous;
+// pos: one int32 in device memory, the cache position of q row 0; out:
+// [b, sq, h, d].  Row i attends cache rows j <= pos + i (j < L).
+extern "C" int ptt_dense_decode(const void* q, const void* k, const void* v,
+                                void* out, const void* pos, int b, int sq,
+                                int h, int hk, int d, int L, float scale,
+                                int dtype, void* stream) {
+  if (pos == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)attend(q, k, v, out, nullptr, static_cast<const int*>(pos), b,
+                     sq, L, h, hk, d, 1, scale, dtype,
+                     static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* ptt_error_string(int code) {

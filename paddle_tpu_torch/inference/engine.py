@@ -1,5 +1,5 @@
-"""Paged continuous-batching engine of the port (counterpart of the paged
-greedy core of `paddle_tpu/inference/engine.py`).
+"""Continuous-batching engine of the port (counterpart of the paged core
+and the dense slot pool of `paddle_tpu/inference/engine.py`).
 
 A persistent pool of `slots` decodes together: every scheduler step admits
 queued requests into free slots through a bucketed fresh prefill, then runs
@@ -29,12 +29,24 @@ pool, about twice the pages.  A fresh prefill still attends its own
 full-precision K/V; decode steps and chunk prefills read the int8 pages
 through the `paged_decode_fused_q8` kernel.
 
+paged=False keeps the reference's dense slot pool: one StaticKVCache per
+layer, `[slots, max_len, kv_heads, head_dim]`.  A prefill writes the
+bucket's K/V rows [0, bucket) of its slot's pool row (`SlotView`) while the
+prompt attends to itself through `flash_fwd`; a decode step writes row
+pos[s] of every slot and attends rows j <= pos[s] with the dense math
+(per-slot positions never take `dense_decode`).  Inactive slots run at pos
+0 and write row 0 of their own pool row; bucket padding past the true
+prompt length stays until decode overwrites it.  Both are safe because a
+slot attends only rows j <= pos of its own pool row, each written first.
+The dense pool has no prefix cache, int8 pages (QuantConfigError),
+speculation or LoRA (ValueError), as in the reference.
+
 Not ported yet (ROADMAP, Queue 1): sessions, speculative decoding and its
 verify window, LoRA, the disaggregated page import, tensor and context
-parallelism, the dense slot-pool engine, the serving fault domain
-(deadlines, cancel, warm restart), `/metrics`, the deferred token fetch and
-CUDA graphs.  A knob that asks for one of them raises NotImplementedError;
-this engine fetches each step's tokens to the host at once.
+parallelism, the serving fault domain (deadlines, cancel, warm restart),
+`/metrics`, the deferred token fetch and CUDA graphs.  A knob that asks for
+one of them raises NotImplementedError; this engine fetches each step's
+tokens to the host at once.
 """
 
 from __future__ import annotations
@@ -54,6 +66,8 @@ from ..models.llama import (
     PagedDecodeView,
     PagedKVCache,
     PagedPrefillView,
+    SlotView,
+    StaticKVCache,
     to_index_tensor,
 )
 from ..ops.flash_attention import MAX_HEAD_DIM
@@ -126,7 +140,8 @@ class EngineRequest:
 
 
 class ContinuousBatchingEngine:
-    """Paged continuous-batching engine over a port `LlamaForCausalLM`.
+    """Continuous-batching engine over a port `LlamaForCausalLM`: paged
+    (the default, FLAGS_serve_paged_kv) or the dense slot pool.
 
     submit() enqueues (bounded queue -> QueueFull); the scheduler -- the
     thread started by start()/serve(), or synchronous step() /
@@ -155,6 +170,7 @@ class ContinuousBatchingEngine:
             paged=paged,
         )
         self._check_not_ported(paged, spec_k, lora, tp, role, cp)
+        self.paged = paged
         cfg = model.config
         self.model = model
         self.slots = int(slots if slots is not None else _fcore.flag("FLAGS_serve_slots"))
@@ -174,13 +190,54 @@ class ContinuousBatchingEngine:
             else _fcore.flag("FLAGS_serve_queue_depth")
         )
 
+        # the cache dtype follows the lm_head weight (bf16 serving stays bf16)
+        cache_dtype = model.lm_head.weight.dtype
+        if paged:
+            self._init_paged(cfg, page_size, decode_kernel, pool_pages,
+                             prefix_cache, cache_dtype)
+        else:
+            # the dense slot pool: no pages, no prefix cache, no paged kernel
+            self.decode_kernel = "auto"
+            self.page_size = self.pages_per_seq = self.pool_pages = 0
+            self._arenas = self._pool = self._prefix = self._tables_t = None
+            with torch.no_grad():
+                self._caches = [
+                    StaticKVCache(self.slots, self.max_len,
+                                  cfg.num_key_value_heads, cfg.head_dim,
+                                  cache_dtype, self.device)
+                    for _ in range(cfg.num_hidden_layers)
+                ]
+        self._gen = torch.Generator(device=self.device).manual_seed(int(seed))
+
+        # host-side slot table, mutated under _mu by the scheduler
+        self._slot_req = [None] * self.slots
+        self._pos = np.zeros(self.slots, np.int32)
+        self._last_tok = np.zeros(self.slots, np.int32)
+        self._temps = np.zeros(self.slots, np.float32)
+        # device decode state (toks, pos, active), rebuilt from the host
+        # mirrors when slot membership changes
+        self._dev = None
+
+        self._queue = queue.Queue(maxsize=self.queue_depth)
+        self._requeue = []  # page-deferred requests, ahead of the queue
+        self._admitting = None  # request between queue pop and slot landing
+        self._cv = threading.Condition()
+        self._mu = threading.RLock()
+        self._thread = None
+        self._stop = False
+
+    def _init_paged(self, cfg, page_size, decode_kernel, pool_pages,
+                    prefix_cache, cache_dtype):
+        """Page geometry, per-layer arenas, page pool, prefix cache and page
+        tables of the paged engine."""
+        flag = _fcore.flag
         head_dim = cfg.head_dim
         ps = int(page_size if page_size is not None
-                 else _fcore.flag("FLAGS_serve_kv_page_size"))
+                 else flag("FLAGS_serve_kv_page_size"))
         # a page never needs to exceed a sequence
         self.page_size = max(1, min(ps, self.max_len))
         self.pages_per_seq = -(-self.max_len // self.page_size)
-        dk = str(_fcore.flag("FLAGS_serve_decode_kernel")
+        dk = str(flag("FLAGS_serve_decode_kernel")
                  if decode_kernel is None else decode_kernel)
         if dk not in ("auto", "fused", "gather"):
             raise ValueError(f"decode_kernel must be auto|fused|gather, got {dk!r}")
@@ -194,10 +251,8 @@ class ContinuousBatchingEngine:
             )
         self.decode_kernel = dk
         pp = int(pool_pages if pool_pages is not None
-                 else _fcore.flag("FLAGS_serve_kv_pool_pages"))
-        # the cache dtype follows the lm_head weight (bf16 serving stays bf16)
-        cache_dtype = model.lm_head.weight.dtype
-        dtype_bytes = model.lm_head.weight.element_size()
+                 else flag("FLAGS_serve_kv_pool_pages"))
+        dtype_bytes = cache_dtype.itemsize
         page_bytes = kv_page_bytes(self.page_size, cfg.num_key_value_heads,
                                    head_dim, dtype_bytes, self.kv_quant)
         if pp <= 0:  # auto: every slot can hold a max_len sequence
@@ -233,31 +288,21 @@ class ContinuousBatchingEngine:
         self._page_table = np.zeros((self.slots, self.pages_per_seq), np.int32)
         self._slot_pages = [[] for _ in range(self.slots)]
         self._tables_t = None  # device mirror, rebuilt with _dev
-        self._gen = torch.Generator(device=self.device).manual_seed(int(seed))
-
-        # host-side slot table, mutated under _mu by the scheduler
-        self._slot_req = [None] * self.slots
-        self._pos = np.zeros(self.slots, np.int32)
-        self._last_tok = np.zeros(self.slots, np.int32)
-        self._temps = np.zeros(self.slots, np.float32)
-        # device decode state (toks, pos, active), rebuilt from the host
-        # mirrors when slot membership changes
-        self._dev = None
-
-        self._queue = queue.Queue(maxsize=self.queue_depth)
-        self._requeue = []  # page-deferred requests, ahead of the queue
-        self._admitting = None  # request between queue pop and slot landing
-        self._cv = threading.Condition()
-        self._mu = threading.RLock()
-        self._thread = None
-        self._stop = False
 
     @staticmethod
     def _check_not_ported(paged, spec_k, lora, tp, role, cp):
         flag = _fcore.flag
         if not paged:
-            raise _not_ported("paged=False", "the dense slot-pool engine")
-        if int(flag("FLAGS_serve_spec_k") if spec_k is None else spec_k) > 0:
+            # the reference's dense pool: speculation is simply off, and
+            # the paged-only features refuse
+            if lora is not None:
+                raise ValueError("LoRA serving requires the paged engine")
+            if role is not None and role != "colocated":
+                raise ValueError(
+                    f"role={role!r} requires the paged engine: the "
+                    "prefill->decode handoff rides the page arenas"
+                )
+        elif int(flag("FLAGS_serve_spec_k") if spec_k is None else spec_k) > 0:
             raise _not_ported("spec_k > 0", "speculative decoding")
         if lora is not None:
             raise _not_ported("lora", "multi-tenant LoRA serving")
@@ -284,18 +329,22 @@ class ContinuousBatchingEngine:
         return torch.where(hot, samp.to(torch.int32), greedy)
 
     @torch.no_grad()
-    def _prefill(self, toks, row_table, true_len, temp, start=None):
-        """Paged prefill of one bucket-padded chunk: writes its K/V into the
-        pages of `row_table` and returns (first token [1], logits [1, V]
+    def _prefill(self, toks, target, true_len, temp, start=None):
+        """Prefill of one bucket-padded chunk: writes its K/V into the pages
+        of the page-table row `target` (paged) or into pool row `target`
+        (an int slot, dense) and returns (first token [1], logits [1, V]
         float32) read at row true_len - 1, not at the bucket end.  `start`
         None is a fresh prefill of the whole prompt; a [1] int32 tensor is
         the chunk prefill of a prefix-cache hit's suffix, whose row 0 sits
         at that position and which attends the shared pages."""
-        views = [
-            PagedPrefillView(a, row_table, true_len, self.max_len, start=start,
-                             kernel=self.decode_kernel)
-            for a in self._arenas
-        ]
+        if not self.paged:
+            views = [SlotView(c, target) for c in self._caches]
+        else:
+            views = [
+                PagedPrefillView(a, target, true_len, self.max_len, start=start,
+                                 kernel=self.decode_kernel)
+                for a in self._arenas
+            ]
         hidden = self.model.llama(toks, caches=views)
         logits = self.model.lm_head(hidden[:, true_len - 1]).float()
         return self._sample(logits, np.full(1, temp, np.float32)), logits
@@ -313,13 +362,17 @@ class ContinuousBatchingEngine:
     @torch.no_grad()
     def _decode_step(self, toks, pos, active, tables, temps):
         """One token for every slot: toks [S, 1], pos [S], active [S] bool,
-        tables [S, P].  Inactive slots run at pos 0 over an all-zero table
-        row (scratch).  Returns (next tokens [S], logits [S, V] float32)."""
+        tables [S, P] (None for the dense pool).  Inactive slots run at pos
+        0, over an all-zero table row (scratch) or on row 0 of their own
+        pool row.  Returns (next tokens [S], logits [S, V] float32)."""
         pos_eff = torch.where(active, pos, torch.zeros_like(pos))
-        views = [
-            PagedDecodeView(a, tables, self.max_len, kernel=self.decode_kernel)
-            for a in self._arenas
-        ]
+        if not self.paged:
+            views = self._caches
+        else:
+            views = [
+                PagedDecodeView(a, tables, self.max_len, kernel=self.decode_kernel)
+                for a in self._arenas
+            ]
         hidden = self.model.llama(toks, caches=views, pos=pos_eff)
         logits = self.model.lm_head(hidden[:, -1]).float()
         return self._sample(logits, temps), logits
@@ -354,8 +407,8 @@ class ContinuousBatchingEngine:
             )
         if max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
-        need = self._pages_for(ids.size, max_new_tokens)
-        if need > self._pool.usable_pages:
+        need = self._pages_for(ids.size, max_new_tokens) if self.paged else 0
+        if self.paged and need > self._pool.usable_pages:
             raise QueueFull(
                 f"request needs {need} KV pages (prompt {ids.size} + max_new "
                 f"{max_new_tokens} at page size {self.page_size}) but the "
@@ -388,22 +441,27 @@ class ContinuousBatchingEngine:
         """Run every prefill bucket and the decode step once on dummy data
         before traffic (on the card this builds the kernels and warms the
         matmul library).  All-zero tables aim every write at scratch page
-        0."""
-        zero_row = to_index_tensor(np.zeros(self.pages_per_seq), self.device)
+        0; the dense pool's warmup writes slot 0's rows, which its next
+        real prefill rewrites before any of them is attended."""
+        S = self.slots
+        if self.paged:
+            target = to_index_tensor(np.zeros(self.pages_per_seq), self.device)
+            tables = to_index_tensor(np.zeros((S, self.pages_per_seq)), self.device)
+        else:
+            target, tables = 0, None
         zero_start = to_index_tensor(np.zeros(1), self.device)
         for b in self.prefill_buckets:
             toks = to_index_tensor(np.zeros((1, b)), self.device)
-            self._prefill(toks, zero_row, b, 0.0)
+            self._prefill(toks, target, b, 0.0)
             if self._prefix is not None:
-                self._prefill(toks, zero_row, b, 0.0, start=zero_start)
+                self._prefill(toks, target, b, 0.0, start=zero_start)
         if self._prefix is not None:
             self._copy_page(0, 0)  # scratch onto itself
-        S = self.slots
         self._decode_step(
             to_index_tensor(np.zeros((S, 1)), self.device),
             to_index_tensor(np.zeros(S), self.device),
             torch.zeros(S, dtype=torch.bool, device=self.device),
-            to_index_tensor(np.zeros((S, self.pages_per_seq)), self.device),
+            tables,
             np.zeros(S, np.float32),
         )
         if self.device.type == "cuda":
@@ -426,15 +484,17 @@ class ContinuousBatchingEngine:
     def healthz(self):
         """Snapshot for serve()'s /healthz."""
         t = self._thread
+        if self.paged:
+            page_free = self._pool.free_count() / max(1, self._pool.usable_pages)
+        else:  # the reference's dense figure: free slots
+            page_free = (self.slots - self.active_slots) / self.slots
         return {
             "status": "ready" if t is not None and t.is_alive() else "live",
             "slots": self.slots,
             "active_slots": self.active_slots,
             "occupancy": self.active_slots / self.slots,
             "queue_depth": self.pending,
-            "page_free_frac": round(
-                self._pool.free_count() / max(1, self._pool.usable_pages), 4
-            ),
+            "page_free_frac": round(page_free, 4),
             "prefix_cache_size": len(self._prefix) if self._prefix is not None else 0,
             "kv_quant": self.kv_quant,
             "device": str(self.device),
@@ -541,6 +601,8 @@ class ContinuousBatchingEngine:
         return self._pool.alloc()
 
     def _release_slot_pages_locked(self, s):
+        if not self.paged:
+            return
         for p in self._slot_pages[s]:
             self._pool.decref(p)
         self._slot_pages[s] = []
@@ -564,18 +626,7 @@ class ContinuousBatchingEngine:
                 req = self._pop_request()
                 if req is None:
                     break
-                # pages a cache hit maps by incref cost no fresh allocation;
-                # the matched pages are about to be pinned, so they do not
-                # count as evictable either.  The scheduler is the only
-                # inserter and evictor, so the match holds until the prefill
-                need = self._pages_for(req.prompt.size, req.max_new_tokens)
-                exclude = ()
-                if self._prefix is not None:
-                    m, fulls, tail, _ = self._prefix.lookup(req.prompt)
-                    if m >= self.min_prefix_match:
-                        need -= len(fulls)
-                        exclude = set(fulls) | ({tail} if tail is not None else set())
-                if need > self._page_fresh_headroom_locked(exclude):
+                if self.paged and not self._pages_admit_locked(req):
                     # page pressure: park at the head of the line (FIFO kept)
                     # until finishing slots release pages
                     self._requeue.insert(0, req)
@@ -583,7 +634,10 @@ class ContinuousBatchingEngine:
                 self._admitting = req
                 req.state = "prefilling"
             try:
-                self._prefill_into_paged(s, req)
+                if self.paged:
+                    self._prefill_into_paged(s, req)
+                else:
+                    self._prefill_into_dense(s, req)
                 emitted += 1
             except Exception as e:  # fail THIS request, keep the engine alive
                 logger.exception("prefill of request %d failed", req.id)
@@ -599,6 +653,52 @@ class ContinuousBatchingEngine:
                     if self._admitting is req:
                         self._admitting = None
         return emitted
+
+    def _pages_admit_locked(self, req):
+        """Whether the fresh pages `req` needs are free or evictable now.
+        Pages a cache hit maps by incref cost no fresh allocation; the
+        matched pages are about to be pinned, so they do not count as
+        evictable either.  The scheduler is the only inserter and evictor,
+        so the match holds until the prefill.  Caller holds _mu."""
+        need = self._pages_for(req.prompt.size, req.max_new_tokens)
+        exclude = ()
+        if self._prefix is not None:
+            m, fulls, tail, _ = self._prefix.lookup(req.prompt)
+            if m >= self.min_prefix_match:
+                need -= len(fulls)
+                exclude = set(fulls) | ({tail} if tail is not None else set())
+        return need <= self._page_fresh_headroom_locked(exclude)
+
+    def _prefill_into_dense(self, s, req):
+        """Admission of one request into slot s of the dense pool: a fresh
+        prefill of the bucket-padded prompt into pool row s (reference:
+        engine.py:2200-2256)."""
+        L = int(req.prompt.size)
+        with self._mu:
+            # cache rows run out at max_len: the last writable decode row is
+            # max_len - 1, giving max_len - L generatable tokens
+            req.max_new_tokens = min(req.max_new_tokens, self.max_len - L)
+        toks = np.zeros((1, self._bucket_for(L)), np.int32)
+        toks[0, :L] = req.prompt
+        nxt, logits = self._prefill(to_index_tensor(toks, self.device), s, L,
+                                    req.temperature)
+        tok = int(nxt.item())
+        with self._mu:
+            self._land_locked(s, req, tok, logits)
+
+    def _land_locked(self, s, req, tok, logits):
+        """A prefilled request takes slot s and emits its first token.
+        Caller holds _mu."""
+        req.ttft_s = time.perf_counter() - req._submit_t
+        self._slot_req[s] = req
+        self._pos[s] = req.prompt.size
+        self._last_tok[s] = tok
+        self._temps[s] = req.temperature
+        req.state = "decoding"
+        self._dev = None  # membership changed: rebuild device state
+        if req.keep_logits:
+            req.logits.append(logits[0])
+        self._emit(s, req, tok)
 
     def _prefill_into_paged(self, s, req):
         """Admission of one request into slot s: prefix-cache lookup, page
@@ -676,16 +776,7 @@ class ContinuousBatchingEngine:
                 inserted = self._prefix.commit(req.prompt, pages, self._pool)
                 if inserted:
                     _prof.record_paging_event("cache_commits", inserted)
-            req.ttft_s = time.perf_counter() - req._submit_t
-            self._slot_req[s] = req
-            self._pos[s] = L
-            self._last_tok[s] = tok
-            self._temps[s] = req.temperature
-            req.state = "decoding"
-            self._dev = None  # membership changed: rebuild device state
-            if req.keep_logits:
-                req.logits.append(logits[0])
-            self._emit(s, req, tok)
+            self._land_locked(s, req, tok, logits)
 
     def _decode_once(self):
         with self._mu:
@@ -696,10 +787,11 @@ class ContinuousBatchingEngine:
             if self._dev is None:
                 active = np.zeros(self.slots, bool)
                 active[active_idx] = True
-                # tables change exactly when membership does; bound-check
-                # the host mirror before every upload
-                check_table_bounds(self._page_table, self.pool_pages)
-                self._tables_t = to_index_tensor(self._page_table, self.device)
+                if self.paged:
+                    # tables change exactly when membership does; bound-check
+                    # the host mirror before every upload
+                    check_table_bounds(self._page_table, self.pool_pages)
+                    self._tables_t = to_index_tensor(self._page_table, self.device)
                 self._dev = (
                     to_index_tensor(self._last_tok.reshape(self.slots, 1),
                                     self.device),

@@ -1,8 +1,11 @@
-"""Loss plumbing shared by the port's models (counterpart of
-`paddle_tpu/models/_utils.py`)."""
+"""Loss plumbing and the lock-step generation loop shared by the port's
+models (counterpart of `paddle_tpu/models/_utils.py`)."""
 
 from __future__ import annotations
 
+import logging
+
+import numpy as np
 import torch
 
 
@@ -24,3 +27,268 @@ def sequence_ce(logits, labels, ignore_index=-100):
     loss = (torch.logsumexp(lg, dim=-1) - picked).clamp(min=0.0)
     loss = torch.where(valid, loss, 0.0)
     return loss.sum() / valid.sum().clamp(min=1).float()
+
+
+# ---------------------------------------------------------------------------
+# lock-step generation (greedy, sampling, beam search) over static KV caches
+# ---------------------------------------------------------------------------
+
+_MASKED = -1e30  # the reference's filtered-logit value
+
+
+def _filter_logits(lg, top_k, top_p):
+    """Top-k / nucleus filtering of [b, V] logits (reference:
+    `_filter_logits_array`, models/_utils.py:28): logits below the k-th
+    largest, then those past the first whose cumulative probability reaches
+    `top_p` (in descending order, ties in the reference's order: a stable
+    ascending sort, reversed), become -1e30."""
+    out = lg
+    if top_k and top_k > 0:
+        kth = torch.sort(out, dim=-1).values[:, -int(top_k)][:, None]
+        out = torch.where(out < kth, _MASKED, out)
+    if top_p is not None and top_p < 1.0:
+        sort_idx = torch.argsort(out, dim=-1, stable=True).flip(-1)
+        sorted_lg = out.gather(-1, sort_idx)
+        probs = torch.softmax(sorted_lg, dim=-1)
+        cum = torch.cumsum(probs, dim=-1)
+        # keep tokens until the cumulative probability exceeds top_p
+        keep_sorted = cum - probs < top_p
+        keep = torch.zeros_like(keep_sorted).scatter(-1, sort_idx, keep_sorted)
+        out = torch.where(keep, out, _MASKED)
+    return out
+
+
+def _sample_from_logits(logits, gen, temp, top_k, top_p):
+    """Filter and draw one token per row from softmax(logits / temp) with
+    the torch.Generator `gen` (reference: models/_utils.py:64).  A top_k
+    below the vocabulary draws among the k largest (nucleus-filtered
+    within them), as the reference's fast path does.  Returns [b, 1]
+    int64 ids."""
+    lg = logits.float() / temp
+    if top_k and 0 < top_k < lg.shape[-1]:
+        vals, idx = torch.topk(lg, int(top_k), dim=-1)  # descending
+        if top_p is not None and top_p < 1.0:
+            probs = torch.softmax(vals, dim=-1)
+            cum = torch.cumsum(probs, dim=-1)
+            vals = torch.where(cum - probs < top_p, vals, _MASKED)
+        c = torch.multinomial(torch.softmax(vals, dim=-1), 1, generator=gen)
+        return idx.gather(-1, c)
+    lg = _filter_logits(lg, 0, top_p)
+    return torch.multinomial(torch.softmax(lg, dim=-1), 1, generator=gen)
+
+
+def _mask_eos(nxt, done, eos):
+    """Rows already done keep emitting eos; done absorbs rows that just hit
+    it (reference: models/_utils.py:100).  nxt: [b, 1]; done: [b] bool."""
+    nxt = torch.where(done[:, None], torch.full_like(nxt, eos), nxt)
+    return nxt, done | (nxt[:, 0] == eos)
+
+
+def _trim_eos(out, s0, eos):
+    """Right-trim generated columns past the last row's first eos (rows done
+    sooner are eos-padded up to it).  out: numpy [b, s0 + n] (reference:
+    models/_utils.py:117)."""
+    gen = out[:, s0:]
+    if gen.shape[1] == 0:
+        return out
+    is_eos = gen == eos
+    lens = np.where(is_eos.any(1), is_eos.argmax(1) + 1, gen.shape[1])
+    return out[:, :s0 + int(lens.max())]
+
+
+def _gather_rows(t, rows):
+    """t[rows] along dim 0, written back into t's own storage (the beam
+    reorder of a preallocated cache buffer)."""
+    t.copy_(t.index_select(0, rows))
+
+
+def _ensure_gen_state(model, b, cache_len, kv_heads):
+    """The per-layer StaticKVCaches of a generation geometry, kept on the
+    model and rebuilt when batch, cache length, dtype or device changes
+    (reference: models/_utils.py:141).  They live on the model's device in the lm_head
+    dtype (bf16 serving stays bf16)."""
+    from .llama import StaticKVCache
+
+    cfg = model.config
+    key = (b, cache_len, model.lm_head.weight.dtype, model.device)
+    if getattr(model, "_gen_cache_key", None) != key:
+        model._gen_caches = None  # free the old buffers before allocating
+        model._gen_caches = [
+            StaticKVCache(b, cache_len, kv_heads, cfg.head_dim,
+                          model.lm_head.weight.dtype, model.device)
+            for _ in range(cfg.num_hidden_layers)
+        ]
+        model._gen_cache_key = key
+    return model._gen_caches
+
+
+def _as_ids(input_ids, device, vocab):
+    """[b, s0] integer ids as a tensor on `device`, range-checked: on the
+    card an id outside [0, vocab) is a device-side assert that poisons the
+    CUDA context, where the reference's JAX gather clamps."""
+    ids = torch.as_tensor(input_ids)
+    if ids.dim() != 2 or ids.is_floating_point() or ids.dtype == torch.bool:
+        raise ValueError(f"input_ids must be [batch, seq] integer ids, got "
+                         f"{tuple(ids.shape)} {ids.dtype}")
+    ids = ids.to(device)
+    bad = (ids < 0) | (ids >= vocab)
+    if bool(bad.any()):
+        raise ValueError(
+            f"token id {int(ids[bad][0])} outside the vocabulary [0, {vocab})")
+    return ids
+
+
+def lockstep_generate(model, input_ids, max_new_tokens, temperature,
+                      forward_step, kv_heads, top_k=0, top_p=1.0,
+                      decode_strategy=None, num_beams=1, seed=None,
+                      eos_token_id=None, length_penalty=0.0):
+    """The generation loop shared by the port's causal LMs: the counterpart
+    of the reference's `compiled_generate` (models/_utils.py:160), one eager
+    step per token where the reference dispatches one compiled executable.
+
+    forward_step(toks, caches, pos) -> last-row logits [b, V].  The prompt
+    [b, s0] is prefilled at position 0 into per-layer StaticKVCaches of
+    length min(max_position_embeddings, ceil128(s0 + max_new_tokens)); then
+    every strategy -- greedy, sampling (a torch.Generator on the model's
+    device seeded by `seed`), beam search -- feeds back one token per step
+    at the device-side position, so no step waits for the device except
+    the eos checks.  Returns prompt + generated ids [b, s0 + n] (the input
+    itself when nothing can be generated)."""
+    cfg = model.config
+    if decode_strategy is None:
+        decode_strategy = (
+            "beam_search" if num_beams > 1
+            else ("sampling" if temperature > 0 else "greedy_search")
+        )
+    if decode_strategy not in ("greedy_search", "sampling", "beam_search"):
+        raise ValueError(
+            f"decode_strategy must be one of 'greedy_search', 'sampling', "
+            f"'beam_search'; got {decode_strategy!r}"
+        )
+    if decode_strategy == "beam_search" and num_beams <= 1:
+        raise ValueError("beam_search requires num_beams > 1")
+    if decode_strategy == "sampling" and temperature <= 0:
+        raise ValueError(
+            "decode_strategy='sampling' requires temperature > 0 "
+            "(use greedy_search for deterministic decoding)"
+        )
+    b, s0 = input_ids.shape[0], input_ids.shape[1]
+    # round the cache up to a multiple of 128, as the reference does (there
+    # to reuse one compiled pair; here it keeps nearby lengths on one
+    # buffer and decides whether the prefill takes dense_decode)
+    want = min(cfg.max_position_embeddings, s0 + max_new_tokens)
+    cache_len = min(cfg.max_position_embeddings, -(-want // 128) * 128)
+    if s0 + max_new_tokens > cache_len:
+        logging.getLogger("paddle_tpu_torch").warning(
+            "generate: prompt %d + max_new_tokens %d exceeds "
+            "max_position_embeddings %d; output truncated to %d new tokens",
+            s0, max_new_tokens, cfg.max_position_embeddings, max(cache_len - s0, 0),
+        )
+    max_new_tokens = min(max_new_tokens, cache_len - s0)
+    if max_new_tokens <= 0:
+        return input_ids  # over-long prompt (or none asked): nothing to add
+    was_training = model.training
+    model.eval()  # generation is inference: no dropout, no recompute
+    try:
+        ids = _as_ids(input_ids, model.device, cfg.vocab_size)
+        nb = num_beams if decode_strategy == "beam_search" else 1
+        caches = _ensure_gen_state(model, b * nb, cache_len, kv_heads)
+        pos0 = torch.zeros((), dtype=torch.int32, device=model.device)
+        eos = None if eos_token_id is None else int(eos_token_id)
+        if decode_strategy == "beam_search":
+            return _beam_search(model, ids, max_new_tokens, forward_step,
+                                caches, nb, eos, length_penalty, pos0)
+        if decode_strategy == "sampling":
+            if seed is None:
+                seed = int(np.random.randint(0, 2**31 - 1))
+            gen = torch.Generator(device=model.device).manual_seed(int(seed))
+
+            def pick(logits):
+                return _sample_from_logits(logits, gen, float(temperature),
+                                           top_k, top_p)
+        else:
+            def pick(logits):
+                return logits.argmax(dim=-1, keepdim=True)
+
+        pieces = [ids]
+        toks, pos = ids, pos0
+        done = torch.zeros(b, dtype=torch.bool, device=model.device)
+        for i in range(max_new_tokens):
+            # the all-done check syncs once per token: the price of stopping
+            # early; rows that finished sooner ride along emitting eos
+            if eos is not None and i > 0 and bool(done.all()):
+                break
+            nxt = pick(forward_step(toks, caches, pos)).to(ids.dtype)
+            pos = pos + toks.shape[1]
+            if eos is not None:
+                nxt, done = _mask_eos(nxt, done, eos)
+            pieces.append(nxt)
+            toks = nxt
+        out = torch.cat(pieces, dim=1)
+        if eos is None:
+            return out
+        return torch.from_numpy(_trim_eos(out.cpu().numpy(), s0, eos)).to(out.device)
+    finally:
+        if was_training:
+            model.train()
+
+
+def _beam_search(model, ids, max_new_tokens, forward_step, caches, nb, eos,
+                 length_penalty, pos0):
+    """Length-normalised beam search (reference: models/_utils.py:317, after
+    PaddleNLP's BeamSearchScorer): each step takes the top `nb` of the nb*V
+    continuations of every batch row, reorders the caches' rows and the
+    sequence buffer to the chosen parents, and appends the tokens; finished
+    beams continue only with eos at no added score.  On the host at the
+    end: scores / length**length_penalty pick each row's best beam."""
+    b, s0 = ids.shape
+    B = b * nb
+    V = model.config.vocab_size
+    dev = ids.device
+    toks = ids.repeat_interleave(nb, dim=0)  # [B, s0]
+    scores = torch.tensor([0.0] + [-1e9] * (nb - 1), device=dev).repeat(b, 1)
+    done = torch.zeros(b, nb, dtype=torch.bool, device=dev)
+    seqs = torch.zeros(B, max_new_tokens, dtype=torch.int32, device=dev)
+    batch_row = torch.arange(b, device=dev)[:, None] * nb
+    eos_row = None
+    if eos is not None:
+        eos_row = torch.full((V,), float("-inf"), device=dev)
+        eos_row[eos] = 0.0
+    pos = pos0
+    steps = 0
+    for t in range(max_new_tokens):
+        if eos is not None and t > 0 and bool(done.all()):
+            break
+        logits = forward_step(toks, caches, pos)  # [B, V]
+        pos = pos + toks.shape[1]
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        if eos is not None:
+            logp = torch.where(done.reshape(B, 1), eos_row, logp)
+        total = scores.reshape(B, 1) + logp
+        scores, top_i = torch.topk(total.reshape(b, nb * V), nb, dim=-1)
+        parent = top_i // V  # [b, nb], beam index within the batch row
+        token = (top_i % V).to(torch.int32)
+        rows = (batch_row + parent).reshape(-1)  # [B]
+        seqs = seqs.index_select(0, rows)
+        seqs[:, t] = token.reshape(B)
+        done = done.gather(1, parent)
+        if eos is not None:
+            done = done | (token == eos)
+        for c in caches:
+            _gather_rows(c.k, rows)
+            _gather_rows(c.v, rows)
+        toks = token.reshape(B, 1).to(ids.dtype)
+        steps += 1
+
+    seqs_np = seqs.cpu().numpy().reshape(b, nb, max_new_tokens)[:, :, :steps]
+    scores_np = scores.cpu().numpy()  # [b, nb]
+    if eos is not None:
+        is_eos = seqs_np == eos
+        lengths = np.where(is_eos.any(-1), is_eos.argmax(-1) + 1,
+                           steps).astype(np.float32)
+    else:
+        lengths = np.full((b, nb), float(steps), np.float32)
+    norm = scores_np / np.maximum(lengths, 1.0) ** length_penalty
+    best = norm.argmax(-1)  # [b]
+    out = np.concatenate([ids.cpu().numpy(), seqs_np[np.arange(b), best]], axis=1)
+    return torch.from_numpy(out.astype(ids.cpu().numpy().dtype)).to(dev)

@@ -1,6 +1,7 @@
 """Llama for the PyTorch/CUDA port (counterpart of
-`paddle_tpu/models/llama.py`): the model, rotary embeddings, and the paged
-KV views the serving engine drives.
+`paddle_tpu/models/llama.py`): the model, rotary embeddings, the paged KV
+views the serving engine drives, and the dense static KV cache of
+lock-step `generate` and the dense slot-pool engine.
 
 Linear layers are `torch.nn.Linear`, whose weight is `[out, in]`; the
 reference stores `[in, out]`, so `models.convert.load_reference_state`
@@ -8,9 +9,12 @@ transposes them.  Attention goes through `ops.flash_attention`: the
 full-sequence forward and the fresh paged prefill run the `flash_fwd`
 kernel; the paged decode step and the chunk prefill of a prefix-cache hit
 the `paged_decode_fused` kernel, or `paged_decode_fused_q8` over an int8
-arena; a training backward the `flash_bwd` kernel.  The paged cache writes
-update the arena tensors in place (the reference rebinds new immutable
-arrays).
+arena; a training backward the `flash_bwd` kernel.  Against a static
+cache, a lock-step prefill of 64+ rows runs the `dense_decode` kernel and
+shorter chunks and decode steps the dense math (`decode_attention`); the
+slot pool's prefill runs `flash_fwd` over its bucket.  The cache writes
+update the arena and cache tensors in place (the reference rebinds new
+immutable arrays).
 """
 
 from __future__ import annotations
@@ -26,8 +30,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..framework.core import INDEX_DTYPE, resolve_device, to_torch_dtype
 from ..nn.norm import RMSNorm
-from ..ops.flash_attention import paged_decode_attention, sdpa
-from ._utils import sequence_ce
+from ..ops.flash_attention import decode_attention, paged_decode_attention, sdpa
+from ._utils import lockstep_generate, sequence_ce
 
 
 @dataclass
@@ -96,14 +100,16 @@ def _rotate(x, c, s):
 
 def apply_rotary_pos_emb(q, k, cos, sin, position_offset=0):
     """q, k: [b, s, h, d].  `position_offset` is an int (all rows start
-    there) or a [b] int32 tensor of per-row offsets (the engine's slots,
-    each at its own position).  The per-row gather clamps out-of-range
-    positions, as the reference's JAX gather does (llama.py:110)."""
+    there), a 0-d int32 tensor (the same, kept on the device: lock-step
+    generation's position) or a [b] int32 tensor of per-row offsets (the
+    engine's slots, each at its own position).  The tensor gathers clamp
+    out-of-range positions, as the reference's JAX gather and dynamic slice
+    do (llama.py:110-116)."""
     s = q.shape[1]
-    if isinstance(position_offset, torch.Tensor) and position_offset.dim() == 1:
-        idx = position_offset.long()[:, None] + torch.arange(s, device=q.device)
+    if isinstance(position_offset, torch.Tensor):
+        idx = position_offset.long().reshape(-1, 1) + torch.arange(s, device=q.device)
         idx = idx.clamp(0, cos.shape[0] - 1)
-        c = cos[idx][:, :, None, :].to(q.dtype)  # [b, s, 1, d]
+        c = cos[idx][:, :, None, :].to(q.dtype)  # [b or 1, s, 1, d]
         si = sin[idx][:, :, None, :].to(q.dtype)
     else:
         off = int(position_offset)
@@ -115,6 +121,64 @@ def apply_rotary_pos_emb(q, k, cos, sin, position_offset=0):
         c = cos[off:off + s][None, :, None, :].to(q.dtype)
         si = sin[off:off + s][None, :, None, :].to(q.dtype)
     return _rotate(q, c, si), _rotate(k, c, si)
+
+
+# ---------------------------------------------------------------------------
+# dense static KV cache
+# ---------------------------------------------------------------------------
+
+
+class StaticKVCache:
+    """Preallocated `[b, max_len, kv_heads, head_dim]` K/V buffers on
+    `device`, zero at first, written in place at the current position, so a
+    decode step never changes a shape (reference: llama.py:138).  Lock-step
+    generation holds one per layer with a row per sequence; the dense
+    slot-pool engine one with a row per slot."""
+
+    def __init__(self, b, max_len, kv_heads, head_dim, dtype=torch.float32,
+                 device=None):
+        self.max_len = int(max_len)
+        shape = (int(b), self.max_len, int(kv_heads), int(head_dim))
+        self.k = torch.zeros(shape, dtype=dtype, device=device)
+        self.v = torch.zeros(shape, dtype=dtype, device=device)
+
+
+def _cache_write(cache, new, pos):
+    """Write a chunk's K or V rows `new` [b, s, kv_heads, d] into `cache`
+    [b, L, kv_heads, d] in place (reference: llama.py:156).  `pos`: the
+    position of the chunk's row 0, a 0-d int32 tensor or an int (lock-step:
+    every row at one position, written through a device index so nothing
+    waits for the device), or a [b] int32 tensor (the slot pool: row b at
+    its own position)."""
+    s = new.shape[1]
+    ar = torch.arange(s, device=cache.device)
+    if isinstance(pos, torch.Tensor) and pos.dim() == 1:
+        rows = pos.long()[:, None] + ar  # [b, s]
+        bidx = torch.arange(cache.shape[0], device=cache.device)[:, None]
+        cache[bidx, rows] = new.to(cache.dtype)
+    else:
+        idx = torch.as_tensor(pos, device=cache.device).long() + ar
+        cache.index_copy_(1, idx, new.to(cache.dtype))
+
+
+class SlotView:
+    """Write view of ONE slot of a pooled StaticKVCache, for the dense
+    slot-pool engine's prefill (reference: llama.py:180): the prompt's K/V
+    land in rows [0, bucket) of pool row `slot` (an int), while attention
+    runs over the fresh prompt alone.  Rows past the true prompt length hold
+    padding until decode overwrites them; they are never attended before,
+    because decode writes row pos first and masks j > pos."""
+
+    def __init__(self, pool, slot):
+        self.pool = pool
+        self.slot = int(slot)
+
+
+def _slot_write(pool, new, slot):
+    """Write a [1, s, kv_heads, d] chunk into rows [0, s) of pool row
+    `slot` of a [slots, max_len, kv_heads, d] buffer, in place (reference:
+    llama.py:193)."""
+    pool[slot, :new.shape[1]] = new[0].to(pool.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -354,6 +418,20 @@ class LlamaAttention(nn.Module):
                 q, a.k, a.v, cache.tables, pos, cache.max_len,
                 kernel=cache.kernel, k_scale=a.k_scale, v_scale=a.v_scale,
             )
+        elif isinstance(cache, SlotView):
+            # the slot pool's prefill: the prompt attends to itself through
+            # flash_fwd while its K/V land in the slot's pool row
+            q, k = apply_rotary_pos_emb(q, k, cos, sin, 0)
+            _slot_write(cache.pool.k, k, cache.slot)
+            _slot_write(cache.pool.v, v, cache.slot)
+            out = sdpa(q, k, v, causal=True)
+        elif isinstance(cache, StaticKVCache):
+            # write at pos, then attend the cache: validity comes from pos
+            # (row i sees j <= pos + i), never from a mask array
+            q, k = apply_rotary_pos_emb(q, k, cos, sin, pos)
+            _cache_write(cache.k, k, pos)
+            _cache_write(cache.v, v, pos)
+            out = decode_attention(q, cache.k, cache.v, pos)
         elif cache is None:
             q, k = apply_rotary_pos_emb(q, k, cos, sin, 0)
             out = sdpa(q, k, v, causal=True)
@@ -401,8 +479,10 @@ class LlamaModel(nn.Module):
 
     def forward(self, input_ids, caches=None, pos=None):
         """input_ids: [b, s] int32.  `caches`: None (plain causal forward)
-        or one paged view per layer; `pos`: [b] int32 positions for decode
-        views.  Returns the final hidden states [b, s, hidden]."""
+        or one cache view per layer (paged views, `SlotView`s or
+        `StaticKVCache`s); `pos`: [b] int32 positions for decode views, the
+        chunk's position for a `StaticKVCache` (a 0-d int32 tensor or int,
+        or [b] per slot).  Returns the final hidden states [b, s, hidden]."""
         x = self.embed_tokens(input_ids)
         for i, layer in enumerate(self.layers):
             x = layer(x, None if caches is None else caches[i], pos)
@@ -455,6 +535,27 @@ class LlamaForCausalLM(nn.Module):
         if labels is None:
             return logits
         return sequence_ce(logits, labels), logits
+
+    @torch.no_grad()
+    def generate(self, input_ids, max_new_tokens=16, temperature=0.0, top_k=0,
+                 top_p=1.0, decode_strategy=None, num_beams=1, seed=None,
+                 eos_token_id=None, length_penalty=0.0):
+        """Greedy, sampling or beam search over per-layer static KV caches
+        (reference: llama.py:841, through `_utils.lockstep_generate`): the
+        prompt [b, s0] is prefilled at position 0 in one step (`dense_decode`
+        for s0 >= 64), then one decode step per token.  Returns prompt +
+        generated ids [b, s0 + n] on the model's device."""
+
+        def forward_step(toks, caches, pos):
+            hidden = self.llama(toks, caches=caches, pos=pos)
+            return self.lm_head(hidden[:, -1])
+
+        return lockstep_generate(
+            self, input_ids, max_new_tokens, temperature, forward_step,
+            kv_heads=self.config.num_key_value_heads, top_k=top_k, top_p=top_p,
+            decode_strategy=decode_strategy, num_beams=num_beams, seed=seed,
+            eos_token_id=eos_token_id, length_penalty=length_penalty,
+        )
 
 
 def to_index_tensor(x, device):

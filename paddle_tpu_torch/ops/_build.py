@@ -51,6 +51,8 @@ SIGNATURES = {
     # q, ak, av, k_scale, v_scale, tables, pos, out, ws, splits, b, sq, h,
     # hk, d, ps, P, max_len, scale, dtype, stream
     "ptt_paged_decode_q8": ([_P] * 9 + [_I] * 9 + [_F, _I, _P], _I),
+    # q, k, v, out, pos, b, sq, h, hk, d, L, scale, dtype, stream
+    "ptt_dense_decode": ([_P] * 5 + [_I] * 6 + [_F, _I, _P], _I),
     "ptt_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -2,7 +2,7 @@
 `paddle_tpu/ops/flash_attention.py`.
 
 Layout at the public functions is the reference's `[batch, seq, heads,
-head_dim]`.  Four hand-written Hopper kernels carry the serving and
+head_dim]`.  Five hand-written Hopper kernels carry the serving and
 training paths:
 
 - `flash_fwd` (csrc/flash_fwd.cu, replaces `_flash_fwd_kernel`): causal
@@ -18,6 +18,11 @@ training paths:
 - `paged_decode_fused_q8` (csrc/paged_decode.cu, replaces
   `_fused_paged_decode_quant_forward`): the same over an int8 arena with
   per-row float32 scales, dequantized in-kernel.
+- `dense_decode` (csrc/flash_fwd.cu, K1's kernels with a query offset read
+  from the device; replaces `_pallas_decode_forward`): cached attention
+  against a dense static KV cache, taken by `decode_attention` where the
+  reference takes its Pallas kernel -- the prefill of lock-step
+  generation.
 
 Each kernel has a plain PyTorch version here.  A wrapper takes the plain
 version only for a tensor on the CPU (the tests); for a CUDA tensor it
@@ -36,7 +41,7 @@ from ..framework.core import INDEX_DTYPE
 NEG_INF = -1e30  # the reference's mask value (flash_attention.py:36)
 
 launch_counts = {"flash_fwd": 0, "paged_decode_fused": 0,
-                 "paged_decode_fused_q8": 0, "flash_bwd": 0}
+                 "paged_decode_fused_q8": 0, "flash_bwd": 0, "dense_decode": 0}
 
 MAX_HEAD_DIM = 256
 # (row, key) pairs one block of the paged kernels takes on, about: a decode
@@ -278,11 +283,13 @@ def _pos_vector(pos, b, device):
     return pos.reshape(-1).expand(b) if pos.numel() == 1 else pos.reshape(b)
 
 
-def decode_attention(q, k, v, pos, scale=None):
+def decode_attention_plain(q, k, v, pos, scale=None):
     """Cached attention against dense buffers: the dense math of the
-    reference's `decode_attention_array` (flash_attention.py:771-787).
-    q: [b, sq, h, d]; k, v: [b, L, kv_h, d]; pos: int or [b] int32.  Row i
-    of slot s attends cache rows j <= pos[s] + i.  Returns [b, sq, h, d]."""
+    reference's `decode_attention_array` (flash_attention.py:771-787), and
+    the plain version of `dense_decode`.  q: [b, sq, h, d]; k, v: [b, L,
+    kv_h, d]; pos: int, a one-element or [b] int32 tensor.  Row i of slot s
+    attends cache rows j <= pos[s] + i; scores and softmax in float32, p
+    rounded to v's dtype before p.v.  Returns [b, sq, h, d]."""
     b, sq, h, d = q.shape
     L, hk = k.shape[1], k.shape[2]
     rep = h // hk
@@ -299,6 +306,86 @@ def decode_attention(q, k, v, pos, scale=None):
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bgrqk,bgkd->bgrqd", p.to(v.dtype).float(), vt.float())
     return out.to(q.dtype).reshape(b, h, sq, d).permute(0, 2, 1, 3)
+
+
+# ---------------------------------------------------------------------------
+# K6: cached attention against a dense static cache
+# ---------------------------------------------------------------------------
+
+
+def takes_dense_decode(sq, d, L, per_row_pos):
+    """The reference's dispatch rule (`decode_attention_array`,
+    flash_attention.py:738-744): its Pallas kernel, and so `dense_decode`
+    here, runs for a scalar position, at least 64 query rows, head_dim <=
+    256 and a cache length that is a multiple of 128; everything else takes
+    the dense math.  On the serving paths that is the prefill of lock-step
+    generation and nothing else: single-token and per-slot decode steps
+    stay dense."""
+    return not per_row_pos and sq >= 64 and d <= MAX_HEAD_DIM and L % 128 == 0
+
+
+def _check_dense_decode(q, k, v, pos, what):
+    _require(q.dim() == 4 and k.dim() == 4 and v.dim() == 4,
+             f"{what}: q must be [b, sq, h, d], k and v [b, L, kv_h, d]")
+    b, sq, h, d = q.shape
+    _require(k.shape == v.shape, f"{what}: k and v shapes differ")
+    _require(k.shape[0] == b and k.shape[3] == d,
+             f"{what}: q {tuple(q.shape)} and cache {tuple(k.shape)} must share "
+             "batch and head_dim")
+    _require(h % k.shape[2] == 0,
+             f"{what}: {h} q heads not a multiple of {k.shape[2]} kv heads")
+    _require(d <= MAX_HEAD_DIM, f"{what}: head_dim {d} > {MAX_HEAD_DIM}")
+    _require(q.dtype == k.dtype == v.dtype, f"{what}: q, k, v dtypes differ")
+    _require(pos.numel() == 1 and pos.dtype == INDEX_DTYPE,
+             f"{what}: pos must be one int32")
+    _dtype_code(q, what)
+
+
+def dense_decode(q, k, v, pos, scale=None):
+    """K6 wrapper.  q: [b, sq, h, d] (any sq: the kernel masks the ragged
+    tile itself); k, v: [b, L, kv_h, d] cache buffers with h % kv_h == 0
+    (GQA reads kv head h // rep in place, one launch for every head); pos:
+    the cache position of q row 0, a one-element int32 tensor on q's device
+    (an int is uploaded) that the kernel reads itself, so launching never
+    waits for the device.  Row i attends cache rows j <= pos + i.  Returns
+    [b, sq, h, d]."""
+    what = "dense_decode"
+    if not isinstance(pos, torch.Tensor):
+        pos = torch.tensor(int(pos), dtype=INDEX_DTYPE, device=q.device)
+    _check_dense_decode(q, k, v, pos, what)
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if not _on_cuda((q, k, v, pos), what):
+        return decode_attention_plain(q, k, v, pos, scale)
+    _require(k.is_contiguous() and v.is_contiguous(),
+             f"{what}: cache buffers must be contiguous")
+    from ._build import check, lib
+
+    q, pos = q.contiguous(), pos.contiguous()
+    b, sq, h, d = q.shape
+    out = torch.empty_like(q)
+    code = lib().ptt_dense_decode(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        pos.data_ptr(), b, sq, h, k.shape[2], d, k.shape[1], float(scale),
+        _dtype_code(q, what), _stream(q),
+    )
+    check(code, what)
+    launch_counts[what] += 1
+    return out
+
+
+def decode_attention(q, k, v, pos, scale=None):
+    """Cached attention against dense buffers, the reference's dispatcher
+    `decode_attention_array` (flash_attention.py:698).  q: [b, sq, h, d];
+    k, v: [b, L, kv_h, d]; pos: a scalar (an int or a 0-d int32 tensor:
+    the lock-step position) or a [b] int32 tensor (per-slot positions).
+    `dense_decode` where `takes_dense_decode` holds -- on a CUDA tensor the
+    kernel runs or raises -- else the dense math, as the reference's XLA
+    path.  Returns [b, sq, h, d]."""
+    per_row = getattr(pos, "ndim", 0) == 1
+    if takes_dense_decode(q.shape[1], q.shape[3], k.shape[1], per_row):
+        return dense_decode(q, k, v, pos, scale)
+    return decode_attention_plain(q, k, v, pos, scale)
 
 
 def _check_paged(q, arena_k, arena_v, tables, pos, what):

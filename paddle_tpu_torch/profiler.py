@@ -6,8 +6,8 @@ The engine records one entry per finished request and one per decode step;
 `paging_summary()` holds the prefix cache's lookups, hits, prompt tokens
 saved, copy-on-write copies, commits and evictions; `kv_quant_summary()` the arena's storage precision and bytes.
 `kernel_launch_counts()` reads every hand-written kernel's launches
-(`flash_fwd`, `paged_decode_fused`, `paged_decode_fused_q8`,
-`flash_bwd`); `summary()` holds them all.
+(`flash_fwd`, `paged_decode_fused`, `paged_decode_fused_q8`, `flash_bwd`,
+`dense_decode`); `summary()` holds them all.
 """
 
 from __future__ import annotations

@@ -168,7 +168,9 @@ def test_submit_rejects_what_cannot_fit(models):
         pytest.param(dict(spec_k=2), "speculative", id="knob1-speculative"),
         pytest.param(dict(tp=2), "tensor-parallel", id="knob3-tensor-parallel"),
         pytest.param(dict(cp=2), "context-parallel", id="knob4-context-parallel"),
-        pytest.param(dict(paged=False), "dense slot-pool", id="knob5-dense slot-pool"),
+        # the dense slot pool itself is ported; under tensor parallelism not
+        pytest.param(dict(paged=False, tp=2), "tensor-parallel",
+                     id="knob5-dense slot-pool"),
         pytest.param(dict(lora=object()), "LoRA", id="knob6-LoRA"),
         pytest.param(dict(role="decode"), "disaggregated", id="knob7-disaggregated"),
     ],
