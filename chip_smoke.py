@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Nine phases; a failure in any of them exits non-zero and prints no result.
+Ten phases; a failure in any of them exits non-zero and prints no result.
 
 1. device  -- requires CUDA; prints the card's name and power limit.
 2. build   -- builds every kernel of `paddle_tpu_torch/csrc` with nvcc.
@@ -13,7 +13,8 @@ Nine phases; a failure in any of them exits non-zero and prints no result.
               for K4, the lock-step prefill for K6), and times kernel,
               plain version and (where one exists) the PyTorch library call
               with CUDA events; then every other variant the wrappers
-              launch, untimed.
+              launch, untimed.  K5 (context-parallel decode) is timed
+              beside K2 over the same global arena.
 4. slice   -- serves a full-width, full-depth Llama-2-7B (bf16, random
               weights from a seeded generator) through the paged engine
               behind `POST /generate`, checks the token counts and that every
@@ -36,14 +37,25 @@ Nine phases; a failure in any of them exits non-zero and prints no result.
               (`paged=False`) over HTTP: token counts, K1 once per layer per
               prefill and no other kernel, logits against the teacher-forced
               forward, decode tokens/s and TTFT beside the paged slice's.
-8. train   -- trains Llama-2-7B's widths at 8 layers (bf16 AMP O2, AdamW with
+8. cp      -- the same model behind long-document engines (slots 4, the
+              4096-token context): questions about one 3000-token document
+              share its pages through the prefix cache, beside two fresh
+              prompts, over HTTP; at cp=1, then cp=2 (the page audit every
+              step), cp=2 with speculative decoding (spec_k=2), and the
+              same over int8 pages.  Checks token counts, /healthz, the 400
+              answer to a prompt past the context, K5 launched once per
+              shard per layer per paged attention (no K2 or K4 under cp),
+              logits against the teacher-forced forward; prints the greedy
+              agreement between runs, speculation counters, decode
+              tokens/s and TTFT, and a profiled cp=2 decode step.
+9. train   -- trains Llama-2-7B's widths at 8 layers (bf16 AMP O2, AdamW with
               float32 master weights) for 6 steps on one repeated batch of
               4 x 2048 tokens: finite and falling losses, K1 and K3 launched
               once per layer per step, every weight moved; step time,
               tokens/s, peak memory and a profiled step.
               Then 2 steps of 2 layers with activation recompute (K1 twice
               per layer per step).
-9. grads   -- one step's gradients of a 2-layer model at the same widths
+10. grads  -- one step's gradients of a 2-layer model at the same widths
               with the kernels against the same step with attention through
               the plain forward under autograd.
 
@@ -116,6 +128,25 @@ BEAMS = 4
 SHORT_LEN = 20
 SAMPLING = dict(temperature=0.8, top_k=50, top_p=0.9, seed=7)
 PREDICTOR_LENS = [70, 100, 130]
+
+# the cp phase: questions about one 3000-token document (23 full 128-row
+# pages and a 56-row tail) share its pages through the prefix cache; the
+# first question commits alone, the other three hit the cache beside two
+# fresh prompts; every request gets 32 new tokens; a 4100-token prompt is
+# past the 4096-token context.  Runs, one engine at a time: (label, cp,
+# spec_k, kv_quant, page audit every step)
+CP_DOC_LEN = 3000
+CP_QUESTIONS = [120, 40, 150, 200]
+CP_FRESH = [1500, 3500]
+CP_NEW = 32
+CP_OVERFLOW = 4100
+CP_RUNS = [("a cp1", 1, 0, "none", False), ("b cp2", 2, 0, "none", True),
+           ("c cp2 spec2", 2, 2, "none", False),
+           ("d cp2 spec2 int8", 2, 2, "int8", False)]
+
+# K5's timed case: 8 slots at per-slot positions drawn from 3000-4000 of a
+# 4096-token context (numpy.random.default_rng(5).integers(3000, 4001, 8))
+K5_DECODE_POS = [3671, 3805, 3022, 3808, 3469, 3515, 3630, 3286]
 
 # the training slice: Llama-2-7B widths at 8 layers (AdamW's float32 state
 # for all 32 would not fit one card), batch 4 x 2048 tokens, bf16 O2
@@ -464,6 +495,163 @@ def _k6_case(b, sq, h, hk, d=128, L=640, pos=0, seed=14, dtype="bfloat16",
                     bound_by=by, library_ms=lib_ms)
 
 
+def _cp_inputs(b, sq, h, hk, pos, d, ps, max_len, cp, seed, dtype, quant,
+               device="cuda"):
+    """q, global arenas, (scales), tables and pos of a cp case: the engine's
+    round-robin layout, shard s owning pages [s*per_shard, (s+1)*per_shard)
+    with its scratch page (zero, scale 0) first and sequence page j of
+    every slot on shard j % cp, a random permutation of the shard's pages.
+    Under int8 the rows are quantized by the engine's own quantizer."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.inference.paging import check_table_bounds
+    from paddle_tpu_torch.models.llama import _quantize_kv_rows
+
+    P = -(-(-(-max_len // ps)) // cp) * cp
+    per = b * (P // cp) + 1
+    pages = cp * per
+    g = torch.Generator(device=device).manual_seed(seed)
+    dt = getattr(torch, dtype)
+    mk = lambda *shape: torch.randn(*shape, generator=g, device=device, dtype=dt)
+    ak, av, q = mk(pages, ps, hk, d), mk(pages, ps, hk, d), mk(b, sq, h, d)
+    scales = ()
+    if quant:
+        (ak, ks), (av, vs) = _quantize_kv_rows(ak), _quantize_kv_rows(av)
+        scales = (ks, vs)
+    for t in (ak, av, *scales):
+        t[::per] = 0  # every shard's scratch page
+    rng = np.random.default_rng(seed)
+    tables_np = np.zeros((b, P), np.int32)
+    for s in range(cp):
+        ids = rng.permutation(np.arange(s * per + 1, (s + 1) * per))
+        tables_np[:, s::cp] = ids.reshape(b, P // cp)
+    check_table_bounds(tables_np, pages)
+    tables = torch.from_numpy(tables_np).to(device)
+    pos_t = torch.tensor(pos, dtype=torch.int32, device=device)
+    return q, ak, av, scales, tables, pos_t
+
+
+def _cp_run(q, ak, av, scales, local, pos_t, max_len, cp, scale, partials):
+    """One shard-by-shard pass of K5's function: `partials` (the kernel's
+    wrapper or its plain version) per shard over its slice of the arena,
+    then the combine.  Returns (output [b, sq, h, d], per-shard partials)."""
+    import torch
+
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    per = ak.shape[0] // cp
+    parts = []
+    for s, (loc, base) in enumerate(local):
+        sl = slice(s * per, (s + 1) * per)
+        sc = (scales[0][sl], scales[1][sl]) if scales else (None, None)
+        parts.append(partials(q, ak[sl], av[sl], loc, base, pos_t, max_len,
+                              scale, *sc))
+    acc, m, l = (torch.stack(x) for x in zip(*parts))
+    b, sq, h, d = q.shape
+    out = fa.cp_softmax_combine(acc, m, l).reshape(b, h, sq, d)
+    return out.permute(0, 2, 1, 3).to(q.dtype), parts
+
+
+def _partials_ok(got, ref, dtype):
+    """K5's per-shard partials against the plain version's: on every row
+    that sees a key, m within 1e-3, l within 1e-3 relative (both sum the
+    same float32 exponentials) and acc / l within `close()`'s tolerance of
+    the plain acc / l (the normalised shard output, whose rounding both
+    tolerance families describe); on a row that sees none, m = -1e30 in
+    both (its l and acc are the masked scores' leftovers, which only the
+    merge's e^(m - m*) = 0 removes, and are not compared)."""
+    import torch
+
+    name = str(dtype).removeprefix("torch.")
+    atol, rtol = ((KERNEL_ATOL, KERNEL_RTOL) if name == "bfloat16"
+                  else (F32_ATOL, F32_RTOL))
+    ok = True
+    for (a, m, l), (ra, rm, rl) in zip(got, ref):
+        seen = rm > -1e29  # [b, hk, R, 1]
+        ok &= bool(torch.isfinite(a).all() and torch.isfinite(m).all()
+                   and torch.isfinite(l).all())
+        ok &= bool((m[~seen] == rm[~seen]).all())
+        ok &= bool(((m - rm).abs()[seen] <= 1e-3).all())
+        ok &= bool(((l - rl).abs()[seen] <= 1e-3 * rl[seen]).all())
+        o = torch.where(seen, a / l.clamp(min=1e-30), 0.0)
+        r = torch.where(seen, ra / rl.clamp(min=1e-30), 0.0)
+        ok &= bool(((o - r).abs() <= atol + rtol * r.abs()).all())
+    return ok
+
+
+def _k5_case(b, sq, h, hk, pos, d=128, ps=128, max_len=4096, cp=2, seed=20,
+             dtype="bfloat16", quant=False, timed=True, device="cuda"):
+    """K5 (`paged_decode_partials`, one launch per shard, then the combine)
+    against its plain version over a global arena in the cp layout: the
+    combined output against `paged_decode_plain` (or its int8 version)
+    over the global arena and tables, and each shard's partials against
+    `paged_decode_partials_plain`.  With `timed`, also K5's time (every
+    shard's launch plus the combine, the cp tables derived beforehand as
+    the engine derives them once per table upload), K2's over the same
+    global arena and tables (no PyTorch call reads pages: this is what cp
+    costs on one card), the plain version's and the bound."""
+    import torch
+
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    q, ak, av, scales, tables, pos_t = _cp_inputs(
+        b, sq, h, hk, pos, d, ps, max_len, cp, seed, dtype, quant, device)
+    local = fa.cp_local_tables(tables, cp, ak.shape[0] // cp, ps)
+    scale = 1.0 / d ** 0.5
+    kw = dict(k_scale=scales[0], v_scale=scales[1]) if quant else {}
+    out = fa.paged_decode_cp(q, ak, av, tables, pos_t, max_len, cp, local=local, **kw)
+    _, parts = _cp_run(q, ak, av, scales, local, pos_t, max_len, cp, scale,
+                       fa.paged_decode_partials)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    plain, plain_parts = _cp_run(q, ak, av, scales, local, pos_t, max_len, cp,
+                                 scale, fa.paged_decode_partials_plain)
+    glob = (fa.paged_decode_q8_plain(q, ak, av, *scales, tables, pos_t, max_len, scale)
+            if quant
+            else fa.paged_decode_plain(q, ak, av, tables, pos_t, max_len, scale))
+    err = (out.float() - glob.float()).abs().max().item()
+    rel = rel_norm_err(out, glob)
+    parts_ok = _partials_ok(parts, plain_parts, q.dtype)
+    ok = close(out, glob) and close(plain, glob) and parts_ok
+    name = "paged_decode_fused_cp_q8" if quant else "paged_decode_fused_cp"
+    shape = (f"{name} {dtype} b={b} sq={sq} h={h} hk={hk} d={d} ps={ps} cp={cp} "
+             f"max_len={max_len} pos={pos} splits/shard="
+             f"{fa._paged_splits(tables.shape[1] // cp, ps, (h // hk) * sq)}: "
+             f"max_abs_err {err:.3e}, rel_norm_err {rel:.3e} vs the global "
+             f"plain version, partials {'ok' if parts_ok else 'WRONG'}")
+    if not timed:
+        log("kernels", f"{shape} -> {'ok' if ok else 'FAIL'}")
+        return ok, dict(max_abs_err=err)
+    ms = time_ms(lambda: fa.paged_decode_cp(q, ak, av, tables, pos_t, max_len, cp,
+                                            local=local, **kw))
+    plain_ms = time_ms(lambda: _cp_run(q, ak, av, scales, local, pos_t, max_len,
+                                       cp, scale, fa.paged_decode_partials_plain))
+    k2_ms = (None if quant else
+             time_ms(lambda: fa.paged_decode_fused(q, ak, av, tables, pos_t, max_len)))
+    # bytes: q, each slot's live K/V rows of every kv head (scales under
+    # int8), the local tables, page_base and pos read once, every shard's
+    # partials written once, the output written once; operations over the
+    # visible (row, key) pairs at the bf16 tensor peak (K4's float32 peak
+    # under int8)
+    live = [min(p + sq, max_len) for p in pos]
+    row_bytes = d + 4 if quant else d * 2
+    R = (h // hk) * sq
+    nbytes = (sum(live) * hk * row_bytes * 2 + 2 * q.numel() * q.element_size()
+              + tables.numel() * 4 + tables.shape[1] * 4 + cp * b * 4
+              + cp * b * hk * R * (d + 2) * 4)
+    visible = sum(min(p + w + 1, max_len) for p in pos for w in range(sq))
+    bms, by = bound(nbytes, 4 * d * h * visible,
+                    PEAK_F32_FLOP_S if quant else PEAK_BF16_FLOP_S)
+    k2_txt = "n/a" if k2_ms is None else f"{k2_ms:.4f}"
+    log("kernels", f"{shape}, kernel_ms {ms:.4f} ({cp} launches + combine), "
+                   f"k2_same_arena_ms {k2_txt}, plain_ms {plain_ms:.4f}, "
+                   f"library_ms null, bound_ms {bms:.5f} ({by}) -> "
+                   f"{'ok' if ok else 'FAIL'}")
+    return ok, dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                    bound_by=by, library_ms=None, k2_same_arena_ms=k2_ms)
+
+
 def phase_kernels():
     """Each kernel against its plain version: timed at the main paths' bf16
     shapes, then untimed over every other variant the wrappers launch on
@@ -601,15 +789,37 @@ def phase_kernels():
         ok_all &= same
         log("kernels", f"dense_decode {dtype} at pos 0, L = sq = 300, GQA: equal "
                        f"to flash_fwd bit for bit: {same} -> {'ok' if same else 'FAIL'}")
+    # K5: cp=2 decode at the cp phase's context (per-slot pos 3000-4000 of
+    # 4096, 4 splits per shard), timed beside K2 over the same arena; then
+    # the variants the cp engine launches, untimed
+    ok, k5 = _k5_case(8, 1, 32, 32, K5_DECODE_POS)
+    ok_all &= ok
+    errs5 = [k5["max_abs_err"]]
+    for kw in (
+        dict(b=4, sq=1, h=32, hk=8, pos=[3500, 1700, 129, 3], dtype="float32"),
+        dict(b=8, sq=1, h=32, hk=32, pos=K5_DECODE_POS, quant=True),     # int8
+        dict(b=8, sq=3, h=32, hk=32, pos=K5_DECODE_POS),    # a verify window
+        dict(b=4, sq=3, h=32, hk=32, pos=[3100, 2000, 900, 1], quant=True),
+        dict(b=1, sq=256, h=32, hk=32, pos=[3000]),  # a hit's chunk prefill
+        dict(b=4, sq=3, h=32, hk=8, d=64, pos=[3999, 2100, 700, 64]),    # GQA
+        dict(b=4, sq=1, h=32, hk=32, pos=[3900, 3000, 1000, 5], cp=4),
+        # pos < page_size: shard 1 sees no key; one split per shard
+        dict(b=4, sq=1, h=32, hk=32, pos=[1000, 300, 100, 0], max_len=1024),
+    ):
+        ok, rec = _k5_case(seed=21, timed=False, **kw)
+        ok_all &= ok
+        if kw.get("dtype", "bfloat16") == "bfloat16" and not kw.get("quant"):
+            errs5.append(rec["max_abs_err"])
     torch.cuda.empty_cache()
     head1 = dict(k1[512], max_abs_err=max(errs1))
     head2 = dict(k2, max_abs_err=max(errs2))
     head3 = dict(k3, max_abs_err=max(errs3))
     head4 = dict(k4, max_abs_err=max(errs4))
     head6 = dict(k6, max_abs_err=max(errs6))
+    head5 = dict(k5, max_abs_err=max(errs5))
     return {"flash_fwd": head1, "paged_decode_fused": head2,
             "paged_decode_fused_q8": head4, "flash_bwd": head3,
-            "dense_decode": head6}, ok_all
+            "dense_decode": head6, "paged_decode_fused_cp": head5}, ok_all
 
 
 def _post(url, body):
@@ -868,6 +1078,188 @@ def phase_prefix(smi, model, kv_quant, device="cuda", sys_len=PREFIX_SYS_LEN,
     return ok, counts, gen[:len(shared)]
 
 
+def _post_status(url, body):
+    """POST and return (HTTP status, JSON body), error statuses included."""
+    import urllib.error
+
+    try:
+        return 200, _post(url, body)
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _profile_cp_decode(engine, cfg, rng, prompt_len):
+    """`profile_decode` of a cp engine with the cross-shard combine inside
+    a profiler range, so its device time shows apart from the kernels'."""
+    import torch
+
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    real = fa.cp_softmax_combine
+
+    def combine(*args, **kw):
+        with torch.profiler.record_function("cp_softmax_combine"):
+            return real(*args, **kw)
+
+    fa.cp_softmax_combine = combine
+    try:
+        profile_decode(engine, cfg, rng, prompt_len=prompt_len)
+    finally:
+        fa.cp_softmax_combine = real
+
+
+def phase_cp(smi, model, device="cuda", doc_len=CP_DOC_LEN,
+             questions=CP_QUESTIONS, fresh=CP_FRESH, new_tokens=CP_NEW,
+             overflow_len=CP_OVERFLOW, runs=CP_RUNS, profile_len=CP_DOC_LEN,
+             **engine_kw):
+    """Long-document serving of `model` behind POST /generate, one engine
+    at a time: for each (label, cp, spec_k, kv_quant, audit) of `runs`,
+    request 1 (the document + its first question) alone so that it
+    commits, then the other questions (prefix hits: chunk prefills of their
+    suffixes through the pages) with two fresh prompts together, then one
+    prompt past the context, which must be answered 400 with the engine's
+    per-shard geometry.  Checks token counts, /healthz, the kernel launches
+    of the run (K5 once per shard per layer per paged attention under cp,
+    no K2 or K4 there), and a direct run's logits against the
+    teacher-forced forward; prints the greedy agreement between runs, the
+    speculation counters, decode tokens/s and TTFT, and profiles the first
+    cp run's decode step.  Returns (all checks passed, launch counts of
+    every run)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.framework import core
+    from paddle_tpu_torch.inference import serve
+    from paddle_tpu_torch.inference.engine import ContinuousBatchingEngine
+    from paddle_tpu_torch.inference.paging import kv_page_bytes
+
+    cfg = model.config
+    layers = cfg.num_hidden_layers
+    on_card = torch.device(device).type == "cuda"
+    rng = np.random.default_rng(2)
+    doc = rng.integers(1, cfg.vocab_size, size=doc_len)
+    shared = [np.concatenate([doc, rng.integers(1, cfg.vocab_size, size=n)])
+              .astype(np.int32) for n in questions]
+    others = [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32) for n in fresh]
+    spec = [(p, new_tokens) for p in shared + others]
+    batches = [spec[:1], spec[1:]]
+    overflow = rng.integers(1, cfg.vocab_size, size=overflow_len).astype(np.int32)
+    ok_all, all_counts, gens, profiled = True, [], {}, False
+    for label, cp, spec_k, quant, audit in runs:
+        phase = f"cp {label}"
+        t0 = time.perf_counter()
+        engine = ContinuousBatchingEngine(model, seed=0, device=device, cp=cp,
+                                          spec_k=spec_k, kv_quant=quant,
+                                          prefix_cache=True, **engine_kw)
+        engine.warmup()
+        arena = layers * engine.pool_pages * kv_page_bytes(
+            engine.page_size, cfg.num_key_value_heads, cfg.head_dim,
+            model.lm_head.weight.element_size(), quant)
+        log(phase, f"engine cp={cp} spec_k={spec_k} kv_quant={quant} audit={audit}: "
+                   f"arena {engine.pool_pages} pages x {engine.page_size} rows "
+                   f"= {arena / 2**30:.2f} GiB, {engine.pages_per_seq // cp} "
+                   f"pages per shard per sequence, built + warmed in "
+                   f"{time.perf_counter() - t0:.1f} s")
+        core.set_flags({"FLAGS_serve_debug_invariants": audit})
+
+        # -- the main path: POST /generate ----------------------------------
+        profiler.reset_kernel_launch_counts()
+        profiler.reset_serving()
+        profiler.reset_paging()
+        profiler.reset_speculation()
+        try:
+            results, wall = _serve_batches(engine, batches)
+        finally:
+            core.set_flags({"FLAGS_serve_debug_invariants": False})
+        counts = profiler.kernel_launch_counts()
+        summary = profiler.serving_summary()
+        paging = profiler.paging_summary()
+        spec_sum = profiler.speculation_summary()
+        all_counts.append(counts)
+        health = engine.healthz()
+        server = serve(engine, port=0, block=False)
+        try:
+            code, body = _post_status(
+                f"http://127.0.0.1:{server.server_address[1]}/generate",
+                {"input_ids": overflow.tolist(), "max_new_tokens": new_tokens})
+        finally:
+            server.stop()
+
+        gen = []
+        tokens_ok = True
+        for r, (p, new) in zip(results, spec):
+            toks = r["tokens"]
+            tokens_ok &= len(toks) == p.size + new and toks[:p.size] == p.tolist()
+            gen.append(np.asarray(toks[p.size:], np.int32))
+        gens[label] = gen
+        cap = body.get("capacity", {})
+        per_shard = engine.pages_per_seq // cp
+        overflow_ok = (code == 400 and body.get("type") == "ContextOverflow"
+                       and cap.get("cp") == cp
+                       and cap.get("pages_per_shard") == per_shard
+                       and cap.get("tokens_per_shard") == per_shard * engine.page_size)
+        health_ok = (health["cp"] == cp and health["mesh_shape"] == {"cp": cp, "mp": 1}
+                     and (cp == 1 or len(health["page_free_by_shard"]) == cp))
+        hits = paging.get("prefix_hits", 0)
+        misses = paging.get("prefix_lookups", 0) - hits
+        steps = summary["decode_steps"]
+        want = dict.fromkeys(counts, 0)
+        if on_card:
+            paged = "paged_decode_fused" + ("_cp" if cp > 1 else "") + (
+                "_q8" if quant == "int8" else "")
+            want["flash_fwd"] = misses * layers
+            want[paged] = cp * layers * (steps + hits)
+        counts_ok = counts == want and hits == len(shared) - 1
+        ok = tokens_ok and overflow_ok and health_ok and counts_ok
+        log(phase, f"served {len(spec)} requests over HTTP in {wall:.3f} s: token "
+                   f"counts {'ok' if tokens_ok else 'WRONG'}; prefix hits {hits}, "
+                   f"COW copies {paging.get('cow_copies', 0)}, prefill tokens "
+                   f"saved {paging.get('prefill_tokens_saved', 0)}; healthz cp "
+                   f"{health['cp']} mesh_shape {health['mesh_shape']} "
+                   f"page_free_by_shard {health.get('page_free_by_shard')} -> "
+                   f"{'ok' if health_ok else 'FAIL'}")
+        log(phase, f"launches {counts} (expected {want}: flash_fwd = {misses} fresh "
+                   f"prefills x {layers} layers, the paged kernel = {cp} shards x "
+                   f"{layers} layers x ({steps} {'verify' if spec_k else 'decode'} "
+                   f"steps + {hits} chunk prefills)) -> "
+                   f"{'ok' if counts_ok else 'FAIL'}")
+        log(phase, f"{overflow_len}-token prompt: HTTP {code} {body.get('type')} "
+                   f"capacity {cap} -> {'ok' if overflow_ok else 'FAIL'}")
+        decode_tps = (summary["tokens"] - summary["requests"]) / summary["decode_busy_s"]
+        log(phase, f"ttft_p50_ms {summary['ttft_p50_ms']:.3f} ttft_p95_ms "
+                   f"{summary['ttft_p95_ms']:.3f} decode_tokens_per_s "
+                   f"{decode_tps:.2f} (batch of up to {engine.slots}) speculation "
+                   f"{spec_sum or 'off'} | {smi}")
+
+        # -- correctness: a direct run's logits vs the teacher-forced forward
+        prompts = [p for p, _ in spec]
+        reqs = [engine.submit(p, max_new_tokens=new, keep_logits=True)
+                for p, new in spec]
+        engine.run_until_idle()
+        agree, total, worst, finite = _teacher_forced(model, device, prompts, gen,
+                                                      reqs, phase)
+        logits_ok = worst <= LOGIT_REL_TOL and finite
+        ok &= logits_ok
+        log(phase, f"teacher-forced greedy agreement {agree}/{total} = "
+                   f"{agree / total:.4f}; worst logits rel err {worst:.4f} (tol "
+                   f"{LOGIT_REL_TOL}) -> {'ok' if logits_ok else 'FAIL'}")
+        if on_card and cp > 1 and not profiled:
+            _profile_cp_decode(engine, cfg, rng, profile_len)
+            profiled = True
+        ok_all &= ok
+        del engine, reqs
+        if on_card:
+            _free()
+    labels = [r[0] for r in runs]
+    for a, b in zip(labels, labels[1:]):
+        same = sum(int((x == y).sum()) for x, y in zip(gens[a], gens[b]))
+        total = sum(x.size for x in gens[a])
+        log("cp", f"greedy tokens of {b} equal to {a}'s, per position: "
+                  f"{same}/{total} = {same / total:.4f}")
+    return ok_all, all_counts
+
+
 def _gen_run(what, fn, layers, expect_k6, on_card):
     """One lock-step call of the main path, its launch counts read just
     after it: K6 `expect_k6` times, no other kernel.  Returns (output, ok,
@@ -1120,12 +1512,14 @@ KERNEL_GROUPS = (
     ("GEMMs (cuBLAS)", ("nvjet", "gemm", "cutlass", "splitKreduce")),
     ("K1 flash_fwd", ("flash_fwd",)),
     ("K3 flash_bwd", ("flash_bwd", "delta_kernel")),
-    # K4 is paged_decode_kernel over int8 ("signed char") pages; K2 and K4
-    # share the split combine kernel
-    ("K4 paged_decode_q8", ("paged_decode_kernel<__nv_bfloat16, signed char",
-                            "paged_decode_kernel<float, signed char")),
-    ("K2 paged_decode", ("paged_decode_kernel<",)),
-    ("K2/K4 split combine", ("combine_kernel<",)),
+    # K4 is paged_decode_kernel over int8 ("signed char") pages; K5 is the
+    # same template (K2's under full precision, K4's under int8) and no
+    # step runs both, so under cp these rows are K5; all share the split
+    # combine kernel
+    ("K4/K5-int8 paged_decode_q8", ("paged_decode_kernel<__nv_bfloat16, signed char",
+                                    "paged_decode_kernel<float, signed char")),
+    ("K2/K5 paged_decode", ("paged_decode_kernel<",)),
+    ("K2/K4/K5 split combine", ("combine_kernel<",)),
 )
 
 
@@ -1163,14 +1557,16 @@ def _log_profile(what, wall_us, kernels, spans, steps, top=8):
 def profile_decode(engine, cfg, rng, prompt_len=256, steps=8):
     """Where a decode step's time goes: every slot busy at ~prompt_len
     tokens, `steps` steps under torch.profiler."""
-    for _ in range(engine.slots):
-        engine.submit(rng.integers(1, cfg.vocab_size, size=prompt_len),
-                      max_new_tokens=steps + 4)
+    reqs = [engine.submit(rng.integers(1, cfg.vocab_size, size=prompt_len),
+                          max_new_tokens=steps + 4)
+            for _ in range(engine.slots)]
     engine.step()  # admits every slot (prefills) and decodes once
     engine.step()
     # each step ends in the host fetch of the step's tokens
     wall_us, kernels, spans = _device_profile(engine.step, steps)
     engine.run_until_idle()
+    for r in reqs:  # a request that failed would leave its slot out
+        r.wait(1)
     _log_profile(f"decode step, {engine.slots} slots at ~{prompt_len} tokens",
                  wall_us, kernels, spans, steps)
 
@@ -1399,6 +1795,10 @@ def main():
         _free()
         dense_ok, dense_counts = _timed("dense", phase_dense, smi, model,
                                         slice_summary, **serving)
+        _free()
+        cp_ok, cp_counts = _timed("cp", phase_cp, smi, model, slots=4,
+                                  max_len=4096, page_size=128,
+                                  prefill_buckets=[32, 64, 128, 256, 512])
         del model
         _free()
         train_ok, train_counts = _timed(
@@ -1417,13 +1817,17 @@ def main():
         traceback.print_exc()
         return 1
     if not (kernels_ok and slice_ok and prefix_ok and gen_ok and dense_ok
-            and train_ok and recompute_ok and grad_ok):
+            and cp_ok and train_ok and recompute_ok and grad_ok):
         print("chip_smoke: a phase failed (see the lines above)", file=sys.stderr)
         return 1
     # launches: the serving, generation and training runs' counts, each read
     # just after its path ran
-    runs = [counts, *prefix_counts, gen_counts, dense_counts, train_counts]
+    runs = [counts, *prefix_counts, gen_counts, dense_counts, *cp_counts,
+            train_counts]
     launches = {name: sum(c[name] for c in runs) for name in kernels}
+    # K5's two variants are one kernel of the record
+    launches["paged_decode_fused_cp"] += sum(c["paged_decode_fused_cp_q8"]
+                                             for c in runs)
     record = {"kernels": [
         {"name": "flash_fwd", "route": "cuda",
          "source": "paddle_tpu_torch/csrc/flash_fwd.cu",
@@ -1447,6 +1851,11 @@ def main():
          "source": "paddle_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "paddle_tpu/ops/flash_attention.py:649",
          "launches": launches["dense_decode"], **kernels["dense_decode"]},
+        {"name": "paged_decode_fused_cp", "route": "cuda",
+         "source": "paddle_tpu_torch/csrc/paged_decode.cu",
+         "replaces": "paddle_tpu/ops/flash_attention.py:1172",
+         "launches": launches["paged_decode_fused_cp"],
+         **kernels["paged_decode_fused_cp"]},
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

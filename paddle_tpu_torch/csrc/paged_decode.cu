@@ -1,9 +1,11 @@
-// K2 `paged_decode_fused` and K4 `paged_decode_fused_q8`: paged attention
-// for Hopper (sm_90a).
+// K2 `paged_decode_fused`, K4 `paged_decode_fused_q8` and K5
+// `paged_decode_partials` (+ its int8 variant): paged attention for Hopper
+// (sm_90a).
 //
 // Replaces the Pallas kernels `_fused_paged_decode_forward`
-// (paddle_tpu/ops/flash_attention.py:813, inline kernel :856) and
-// `_fused_paged_decode_quant_forward` (:961, call :1063).  Both read the
+// (paddle_tpu/ops/flash_attention.py:813, inline kernel :856),
+// `_fused_paged_decode_quant_forward` (:961, call :1063) and
+// `_fused_paged_decode_partials_forward` (:1172, call :1310).  All read the
 // K/V page arena THROUGH the per-slot page tables inside the kernel, so the
 // dense per-sequence copy that the gather path writes (`paged_gather_kv`)
 // never exists.  K4 is the same kernel over an int8 arena: each stored row
@@ -35,10 +37,23 @@
 // The dot products are plain f32 FMAs; a cp.async/TMA pipeline and the
 // tensor cores for wide chunk tiles are the next steps.
 //
-// Masks are the reference's (:869-898): row r at window offset w = r % sq
-// sees key jid iff jid <= pos + w and jid < max_len.  Scratch page 0 (zero
-// values, scale 0 until masked writes land there) is fenced by the same
-// test before any softmax.  K2 rounds p to bf16 before P.V as the reference
+// K5 is the same page walk for context-parallel decode: each cp shard runs
+// it over its own slice of the arena with a local table whose columns are
+// not consecutive sequence pages, so `page_base[j]` gives column j's first
+// token position (j * ps when null, which is K2/K4), and in "partials" mode
+// a block writes its un-normalised online-softmax state (acc, m, l) in
+// place of acc / l.  The split combine then has a partials mode too
+// (M = max m, L = sum l e^(m - M), acc* = sum acc e^(m - M), no divide), so
+// each launch returns one (acc, m, l) per shard for the cross-shard merge.
+// A shard's launch reads only that shard's live pages, so the cp shards of
+// one step together move K2's bytes: the same byte bound, plus the
+// partials' round trip through device memory for the merge.
+//
+// Masks are the reference's (:869-898, K5 :1250-1258): row r at window
+// offset w = r % sq sees key jid iff jid <= pos + w and jid < max_len, with
+// jid = page_base[j] + row-in-page.  Scratch page 0 (zero values, scale 0
+// until masked writes land there) is fenced by the same test before any
+// softmax.  K2 rounds p to bf16 before P.V as the reference
 // does (`p.astype(v.dtype)`); K4 does not, because the reference's V is the
 // float32 dequantized tile there.
 
@@ -147,20 +162,30 @@ __device__ __forceinline__ void load_tile(
   }
 }
 
-// Grid (slot, kv head x row tile, split).  With one split the block
-// normalises and writes `out`; otherwise it writes its unnormalised
-// partials (acc [Rt][d], m [Rt], l [Rt]) to the workspace for
-// `combine_kernel`.  T: q and out; TS: the stored K/V element.
+// Where finished rows go in partials mode: acc [b, hk, R, d], m and l
+// [b, hk, R], float32, un-normalised (null acc: normalised rows of `out`).
+struct Partials {
+  float* acc;
+  float* m;
+  float* l;
+};
+
+// Grid (slot, kv head x row tile, split).  With one split the block writes
+// its rows to `out` (normalised) or to `part`; otherwise it writes its
+// unnormalised partials (acc [Rt][d], m [Rt], l [Rt]) to the workspace for
+// `combine_kernel`.  T: q and out; TS: the stored K/V element.  Column j's
+// first token position is page_base[j], or j * ps when page_base is null.
 template <typename T, typename TS>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_kernel(const T* __restrict__ q, const TS* __restrict__ ak,
                     const TS* __restrict__ av, const float* __restrict__ ks,
                     const float* __restrict__ vs,
                     const int* __restrict__ tables,
+                    const int* __restrict__ page_base,
                     const int* __restrict__ pos, T* __restrict__ out,
-                    float* __restrict__ ws, int sq, int h, int hk, int d,
-                    int ps, int P, int max_len, float scale, int G,
-                    int ntiles, bool vec) {
+                    Partials part, float* __restrict__ ws, int sq, int h,
+                    int hk, int d, int ps, int P, int max_len, float scale,
+                    int G, int ntiles, bool vec) {
   extern __shared__ float smem[];
   const int slot = blockIdx.x;
   const int g = blockIdx.y / ntiles;
@@ -210,10 +235,11 @@ paged_decode_kernel(const T* __restrict__ q, const TS* __restrict__ ak,
 
   for (int j = j0; j < j1; ++j) {
     // pages entirely beyond the newest visible position contribute nothing
-    if (j * ps > last) break;
+    const int pb = page_base != nullptr ? page_base[j] : j * ps;
+    if (pb > last) continue;
     const size_t page = (size_t)tables[(size_t)slot * P + j];
     for (int c0 = 0; c0 < ps; c0 += kTK) {
-      const int base = j * ps + c0;
+      const int base = pb + c0;
       if (base > last) break;
       const int rows = min(kTK, ps - c0);
       __syncthreads();  // the previous chunk's readers are done
@@ -278,6 +304,19 @@ paged_decode_kernel(const T* __restrict__ q, const TS* __restrict__ ak,
   }
   __syncthreads();
 
+  if (nsplit == 1 && part.acc != nullptr) {
+    // rows with no visible key keep m = -1e30 and whatever l and acc the
+    // masked scores gave (as the reference's K5): the cross-shard merge's
+    // e^(m - m*) = 0 removes them
+    const size_t row0 = ((size_t)slot * hk + g) * R + r0;
+    for (int e = tid; e < Rt * d; e += kThreads)
+      part.acc[row0 * d + e] = acc_s[e];
+    for (int rr = tid; rr < Rt; rr += kThreads) {
+      part.m[row0 + rr] = m_s[rr];
+      part.l[row0 + rr] = l_s[rr];
+    }
+    return;
+  }
   if (nsplit == 1) {
     for (int e = tid; e < Rt * d; e += kThreads) {
       const int rr = e / d, r = r0 + rr, c = e % d;
@@ -302,12 +341,14 @@ paged_decode_kernel(const T* __restrict__ q, const TS* __restrict__ ak,
 }
 
 // Merge the splits' (acc, m, l) per row: M = max m, L = sum l e^(m - M),
-// out = sum acc e^(m - M) / max(L, 1e-30).  Grid (slot, kv head x row
-// tile).
+// out = sum acc e^(m - M) / max(L, 1e-30); in partials mode (part.acc
+// non-null) write (sum acc e^(m - M), M, L) undivided.  Grid (slot, kv head
+// x row tile).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-combine_kernel(const float* __restrict__ ws, T* __restrict__ out, int nsplit,
-               int sq, int h, int hk, int d, int ntiles) {
+combine_kernel(const float* __restrict__ ws, T* __restrict__ out,
+               Partials part, int nsplit, int sq, int h, int hk, int d,
+               int ntiles) {
   const int slot = blockIdx.x;
   const int g = blockIdx.y / ntiles;
   const int r0 = (blockIdx.y % ntiles) * kRowTile;
@@ -327,11 +368,22 @@ combine_kernel(const float* __restrict__ ws, T* __restrict__ out, int nsplit,
       L += w * ml[((size_t)s * R + r) * 2 + 1];
       A += w * acc[((size_t)s * R + r) * d + c];
     }
+    if (part.acc != nullptr) {
+      const size_t row = ((size_t)slot * hk + g) * R + r;
+      part.acc[row * d + c] = A;
+      if (c == 0) {
+        part.m[row] = M;
+        part.l[row] = L;
+      }
+      continue;
+    }
     const int head = g * rep + r / sq;
     out[((size_t)(slot * sq + r % sq) * h + head) * d + c] =
         from_f32<T>(A / fmaxf(L, 1e-30f));
   }
 }
+
+constexpr Partials kNoPartials{nullptr, nullptr, nullptr};
 
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
@@ -340,9 +392,10 @@ bool aligned16(const void* p) {
 template <typename T, typename TS>
 cudaError_t launch(const void* q, const void* ak, const void* av,
                    const void* ks, const void* vs, const void* tables,
-                   const void* pos, void* out, void* ws, int nsplit, int b,
-                   int sq, int h, int hk, int d, int ps, int P, int max_len,
-                   float scale, cudaStream_t stream) {
+                   const void* page_base, const void* pos, void* out,
+                   Partials part, void* ws, int nsplit, int b, int sq, int h,
+                   int hk, int d, int ps, int P, int max_len, float scale,
+                   cudaStream_t stream) {
   const int R = (h / hk) * sq;
   const int Rt = min(R, kRowTile);
   const int ntiles = (R + kRowTile - 1) / kRowTile;
@@ -352,6 +405,9 @@ cudaError_t launch(const void* q, const void* ak, const void* av,
   const bool vec =
       (d * sizeof(TS)) % 16 == 0 && aligned16(ak) && aligned16(av);
   if (nsplit > 1 && ws == nullptr) return cudaErrorInvalidValue;
+  if (part.acc != nullptr ? (part.m == nullptr || part.l == nullptr)
+                          : out == nullptr)
+    return cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * smem_floats(Rt, d, G);
   auto kernel = paged_decode_kernel<T, TS>;
   static ptt::SmemLimit limit;
@@ -361,14 +417,14 @@ cudaError_t launch(const void* q, const void* ak, const void* av,
       static_cast<const T*>(q), static_cast<const TS*>(ak),
       static_cast<const TS*>(av), static_cast<const float*>(ks),
       static_cast<const float*>(vs), static_cast<const int*>(tables),
-      static_cast<const int*>(pos), static_cast<T*>(out),
-      static_cast<float*>(ws), sq, h, hk, d, ps, P, max_len, scale, G, ntiles,
-      vec);
+      static_cast<const int*>(page_base), static_cast<const int*>(pos),
+      static_cast<T*>(out), part, static_cast<float*>(ws), sq, h, hk, d, ps,
+      P, max_len, scale, G, ntiles, vec);
   err = cudaGetLastError();
   if (err != cudaSuccess || nsplit == 1) return err;
   combine_kernel<T><<<dim3(b, hk * ntiles), kThreads, 0, stream>>>(
-      static_cast<const float*>(ws), static_cast<T*>(out), nsplit, sq, h, hk,
-      d, ntiles);
+      static_cast<const float*>(ws), static_cast<T*>(out), part, nsplit, sq,
+      h, hk, d, ntiles);
   return cudaGetLastError();
 }
 
@@ -395,12 +451,13 @@ extern "C" int ptt_paged_decode(const void* q, const void* ak, const void* av,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == ptt::kBFloat16)
     return (int)launch<__nv_bfloat16, __nv_bfloat16>(
-        q, ak, av, nullptr, nullptr, tables, pos, out, ws, splits, b, sq, h,
-        hk, d, ps, P, max_len, scale, st);
+        q, ak, av, nullptr, nullptr, tables, nullptr, pos, out, kNoPartials,
+        ws, splits, b, sq, h, hk, d, ps, P, max_len, scale, st);
   if (dtype == ptt::kFloat32)
-    return (int)launch<float, float>(q, ak, av, nullptr, nullptr, tables, pos,
-                                     out, ws, splits, b, sq, h, hk, d, ps, P,
-                                     max_len, scale, st);
+    return (int)launch<float, float>(q, ak, av, nullptr, nullptr, tables,
+                                     nullptr, pos, out, kNoPartials, ws,
+                                     splits, b, sq, h, hk, d, ps, P, max_len,
+                                     scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -418,12 +475,66 @@ extern "C" int ptt_paged_decode_q8(const void* q, const void* ak,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == ptt::kBFloat16)
-    return (int)launch<__nv_bfloat16, int8_t>(q, ak, av, ks, vs, tables, pos,
-                                              out, ws, splits, b, sq, h, hk,
-                                              d, ps, P, max_len, scale, st);
+    return (int)launch<__nv_bfloat16, int8_t>(
+        q, ak, av, ks, vs, tables, nullptr, pos, out, kNoPartials, ws, splits,
+        b, sq, h, hk, d, ps, P, max_len, scale, st);
   if (dtype == ptt::kFloat32)
-    return (int)launch<float, int8_t>(q, ak, av, ks, vs, tables, pos, out, ws,
-                                      splits, b, sq, h, hk, d, ps, P, max_len,
-                                      scale, st);
+    return (int)launch<float, int8_t>(q, ak, av, ks, vs, tables, nullptr, pos,
+                                      out, kNoPartials, ws, splits, b, sq, h,
+                                      hk, d, ps, P, max_len, scale, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K5: the page walk of one cp shard.  q: [b, sq, h, d]; arenas: the shard's
+// [per_shard, ps, hk, d] pages; tables: [b, P] LOCAL page ids (row 0 = the
+// shard's scratch page); page_base: [P] int32, column j's first token
+// position; pos: [b] int32.  Writes the un-normalised float32 partials
+// acc [b, hk, rep * sq, d], m and l [b, hk, rep * sq] (row r = group member
+// r / sq at window offset r % sq).  ws as for ptt_paged_decode.
+extern "C" int ptt_paged_decode_partials(
+    const void* q, const void* ak, const void* av, const void* tables,
+    const void* page_base, const void* pos, void* acc, void* m, void* l,
+    void* ws, int splits, int b, int sq, int h, int hk, int d, int ps, int P,
+    int max_len, float scale, int dtype, void* stream) {
+  if (bad_shape(b, sq, h, hk, d, ps, P, splits) || page_base == nullptr ||
+      acc == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Partials part{static_cast<float*>(acc), static_cast<float*>(m),
+                      static_cast<float*>(l)};
+  if (dtype == ptt::kBFloat16)
+    return (int)launch<__nv_bfloat16, __nv_bfloat16>(
+        q, ak, av, nullptr, nullptr, tables, page_base, pos, nullptr, part, ws,
+        splits, b, sq, h, hk, d, ps, P, max_len, scale, st);
+  if (dtype == ptt::kFloat32)
+    return (int)launch<float, float>(q, ak, av, nullptr, nullptr, tables,
+                                     page_base, pos, nullptr, part, ws, splits,
+                                     b, sq, h, hk, d, ps, P, max_len, scale,
+                                     st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K5 over an int8 shard arena with its float32 scales [per_shard, ps, hk,
+// 1] (ks, vs); q in `dtype`.
+extern "C" int ptt_paged_decode_partials_q8(
+    const void* q, const void* ak, const void* av, const void* ks,
+    const void* vs, const void* tables, const void* page_base,
+    const void* pos, void* acc, void* m, void* l, void* ws, int splits, int b,
+    int sq, int h, int hk, int d, int ps, int P, int max_len, float scale,
+    int dtype, void* stream) {
+  if (bad_shape(b, sq, h, hk, d, ps, P, splits) || page_base == nullptr ||
+      acc == nullptr || ks == nullptr || vs == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Partials part{static_cast<float*>(acc), static_cast<float*>(m),
+                      static_cast<float*>(l)};
+  if (dtype == ptt::kBFloat16)
+    return (int)launch<__nv_bfloat16, int8_t>(
+        q, ak, av, ks, vs, tables, page_base, pos, nullptr, part, ws, splits,
+        b, sq, h, hk, d, ps, P, max_len, scale, st);
+  if (dtype == ptt::kFloat32)
+    return (int)launch<float, int8_t>(q, ak, av, ks, vs, tables, page_base,
+                                      pos, nullptr, part, ws, splits, b, sq, h,
+                                      hk, d, ps, P, max_len, scale, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -100,6 +100,15 @@ def flag(name):
     return _flags[name]
 
 
+def set_flags(flags):
+    """Set registered flags from a {name: value} dict (the reference's
+    `paddle.set_flags`); an unknown name raises KeyError."""
+    for name in flags:
+        if name not in _flags:
+            raise KeyError(f"unknown flag {name!r}")
+    _flags.update(flags)
+
+
 define_flag(
     "FLAGS_serve_slots", 4,
     "continuous-batching engine: number of slots (max concurrently decoding "
@@ -142,7 +151,9 @@ define_flag(
 )
 define_flag(
     "FLAGS_serve_spec_k", 0,
-    "speculative decoding draft length.  Not ported yet; > 0 raises",
+    "paged engine: speculative decoding draft length k (0 = off).  Greedy "
+    "slots draft up to k tokens by prompt lookup and one verify step "
+    "scores k+1 positions; requests may lower it with submit(spec_k=)",
 )
 define_flag(
     "FLAGS_serve_kv_quant", "none",
@@ -151,4 +162,16 @@ define_flag(
     "paged_decode_fused_q8 kernel)",
 )
 define_flag("FLAGS_serve_tp", 1, "tensor-parallel degree.  Not ported; > 1 raises")
-define_flag("FLAGS_serve_cp", 1, "context-parallel degree.  Not ported; > 1 raises")
+define_flag(
+    "FLAGS_serve_cp", 1,
+    "paged engine: context-parallel degree.  The page arena splits into cp "
+    "shards, sequence page k lives on shard k % cp, and every paged "
+    "attention runs one paged_decode_partials launch per shard and merges "
+    "their softmax partials (on one card: the shards are page ranges of "
+    "one arena)",
+)
+define_flag(
+    "FLAGS_serve_debug_invariants", False,
+    "engine: audit the page pool, page tables, prefix cache and cp layout "
+    "after every scheduler step (raises AssertionError on drift)",
+)

@@ -57,9 +57,12 @@ def serve(engine, port=8866, host="127.0.0.1", block=True):
     (stdlib ThreadingHTTPServer); an engine's scheduler thread starts here.
 
     - POST /generate: body {"input_ids": [...], "max_new_tokens": n,
-      "temperature": t, "eos_token_id": id} -> {"tokens": prompt +
-      generated}.  Engine: a full queue answers 503 with a Retry-After
-      header; a prompt past the context answers 400.  Predictor: calls to
+      "temperature": t, "eos_token_id": id, "spec_k": k} -> {"tokens":
+      prompt + generated}.  Engine: `spec_k` caps the request's draft
+      length (0 opts out of speculation); a full queue answers 503 with a
+      Retry-After header; a prompt past the context answers 400 with the
+      engine's capacity geometry under "capacity" (per shard under cp);
+      another bad body answers 400.  Predictor: calls to
       the one model run one at a time; beyond FLAGS_serve_queue_depth
       running or waiting requests the server answers 503; a bad body, or a
       request the model refuses, answers 400.
@@ -116,14 +119,20 @@ def serve(engine, port=8866, host="127.0.0.1", block=True):
             try:
                 n = int(self.headers.get("Content-Length", 0))
                 req = json.loads(self.rfile.read(n))
+                spec_k = req.get("spec_k")
                 handle = engine.submit(
                     req["input_ids"],
                     max_new_tokens=int(req.get("max_new_tokens") or 32),
                     temperature=float(req.get("temperature", 0.0)),
                     eos_token_id=req.get("eos_token_id"),
+                    spec_k=None if spec_k is None else int(spec_k),
                 )
             except QueueFull as e:
                 self._error(503, e, retry_after=e.retry_after_s)
+                return
+            except ContextOverflow as e:  # terminal: no retry holds more
+                self._reply(400, {"error": str(e), "type": type(e).__name__,
+                                  "retriable": False, "capacity": e.body()})
                 return
             except (ValueError, KeyError, TypeError) as e:  # bad request
                 self._error(400, e)

@@ -29,6 +29,25 @@ pool, about twice the pages.  A fresh prefill still attends its own
 full-precision K/V; decode steps and chunk prefills read the int8 pages
 through the `paged_decode_fused_q8` kernel.
 
+Context parallelism (cp > 1, the reference's layout): the pool splits into
+cp equal page ranges, each with its own scratch page first, and sequence
+page k of every request comes from shard k % cp (fresh pages, the COW tail
+and eviction alike).  Admission covers each shard's share of a request's
+pages.  Every paged attention (decode step, verify window, chunk prefill)
+runs one `paged_decode_partials` (K5) launch per shard over that shard's
+slice of the arena and merges the shards' softmax partials.  On one card
+the shards are page ranges of the same arena and the merge is torch ops;
+across cards it becomes the reference's pmax/psum.
+
+Speculative decoding (spec_k > 0, paged only): each greedy slot drafts up
+to k tokens by prompt lookup over its own history (`spec.NgramDrafter`),
+and one verify step scores the committed last token plus the drafts, k + 1
+rows per slot through the paged kernels.  Draft i is accepted while it
+equals the model's greedy token after the rows before it, so the emitted
+tokens are the ones one-at-a-time decode gives; a verify step fetches its
+tokens every step, as the next drafts need them.  Sampled slots and
+requests with spec_k=0 ride the verify step at one row.
+
 paged=False keeps the reference's dense slot pool: one StaticKVCache per
 layer, `[slots, max_len, kv_heads, head_dim]`.  A prefill writes the
 bucket's K/V rows [0, bucket) of its slot's pool row (`SlotView`) while the
@@ -39,14 +58,15 @@ pos[s] of every slot and attends rows j <= pos[s] with the dense math
 prompt length stays until decode overwrites it.  Both are safe because a
 slot attends only rows j <= pos of its own pool row, each written first.
 The dense pool has no prefix cache, int8 pages (QuantConfigError),
-speculation or LoRA (ValueError), as in the reference.
+context parallelism or LoRA (ValueError), and speculation is off, as in
+the reference.
 
-Not ported yet (ROADMAP, Queue 1): sessions, speculative decoding and its
-verify window, LoRA, the disaggregated page import, tensor and context
-parallelism, the serving fault domain (deadlines, cancel, warm restart),
-`/metrics`, the deferred token fetch and CUDA graphs.  A knob that asks for
-one of them raises NotImplementedError; this engine fetches each step's
-tokens to the host at once.
+Not ported yet (ROADMAP, Queue 1): sessions, LoRA, the disaggregated page
+import, tensor parallelism, context parallelism across cards (NCCL), the
+serving fault domain (deadlines, cancel, warm restart), `/metrics`, the
+deferred token fetch and CUDA graphs.  A knob that asks for one of them
+raises NotImplementedError; this engine fetches each step's tokens to the
+host at once.
 """
 
 from __future__ import annotations
@@ -70,14 +90,17 @@ from ..models.llama import (
     StaticKVCache,
     to_index_tensor,
 )
-from ..ops.flash_attention import MAX_HEAD_DIM
+from ..ops.flash_attention import MAX_HEAD_DIM, cp_local_tables
 from .paging import (
     PagePool,
     PrefixCache,
+    check_scale_arenas,
     check_table_bounds,
     kv_page_bytes,
+    spec_write_pages,
     validate_kv_quant,
 )
+from .spec import NgramDrafter
 
 logger = logging.getLogger("paddle_tpu_torch")
 
@@ -92,7 +115,34 @@ class QueueFull(RuntimeError):
 
 
 class ContextOverflow(ValueError):
-    """The prompt does not fit the engine's context (max_len)."""
+    """The prompt does not fit the engine's context (max_len): raised at
+    submit, before any page is touched, with the capacity geometry (per
+    shard under cp) that serve() returns in its 400 body (reference:
+    engine.py:167)."""
+
+    def __init__(self, prompt_len, max_len, cp=1, pages_per_shard=0,
+                 page_size=0):
+        self.prompt_len = int(prompt_len)
+        self.max_len = int(max_len)
+        self.cp = int(cp)
+        self.pages_per_shard = int(pages_per_shard)
+        self.page_size = int(page_size)
+        detail = (f"prompt length {self.prompt_len} exceeds engine capacity: "
+                  f"max_len={self.max_len}")
+        if self.cp > 1:
+            detail += (f" (cp={self.cp} shards x {self.pages_per_shard} pages "
+                       f"x {self.page_size} tokens/page per shard)")
+        super().__init__(detail)
+
+    def body(self):
+        """JSON-safe capacity record for the HTTP 400 body."""
+        out = {"prompt_len": self.prompt_len, "max_len": self.max_len,
+               "cp": self.cp}
+        if self.pages_per_shard:
+            out["pages_per_shard"] = self.pages_per_shard
+            out["page_size"] = self.page_size
+            out["tokens_per_shard"] = self.pages_per_shard * self.page_size
+        return out
 
 
 def _not_ported(knob, item):
@@ -106,16 +156,19 @@ class EngineRequest:
     """Handle for one submitted generation.  Lifecycle: queued ->
     prefilling -> decoding -> one of {eos, length, error}, exactly once.
     With `keep_logits`, the float32 logits row behind every emitted token
-    is kept in `logits` (a list of device tensors)."""
+    is kept in `logits` (a list of device tensors).  `spec_k` caps this
+    request's draft length below the engine's (0 opts out, None = the
+    engine's)."""
 
     def __init__(self, rid, prompt, max_new_tokens, temperature, eos_token_id,
-                 keep_logits=False):
+                 keep_logits=False, spec_k=None):
         self.id = int(rid)
         self.prompt = prompt  # np.int32 [L]
         self.max_new_tokens = int(max_new_tokens)
         self.temperature = float(temperature)
         self.eos_token_id = eos_token_id
         self.keep_logits = bool(keep_logits)
+        self.spec_k = None if spec_k is None else int(spec_k)
         self.logits = []
         self.tokens = []  # generated ids (eos included when hit)
         self.finished = threading.Event()
@@ -169,9 +222,25 @@ class ContinuousBatchingEngine:
             flag("FLAGS_serve_kv_quant") if kv_quant is None else kv_quant,
             paged=paged,
         )
-        self._check_not_ported(paged, spec_k, lora, tp, role, cp)
+        self._check_not_ported(paged, lora, tp, role)
         self.paged = paged
         cfg = model.config
+        # context parallelism splits the page arena: paged engines only
+        self.cp = int(flag("FLAGS_serve_cp") if cp is None else cp)
+        if self.cp < 1:
+            raise ValueError(f"cp must be >= 1, got {self.cp}")
+        if self.cp > 1 and not paged:
+            raise ValueError(
+                f"cp={self.cp} requires the paged engine: context parallelism "
+                "shards the page arena, not dense slot buffers"
+            )
+        # speculation rides the paged scatter's scratch redirect for its
+        # rejected rows: the dense pool keeps it off, as the reference does
+        sk = int(flag("FLAGS_serve_spec_k") if spec_k is None else spec_k)
+        if sk < 0:
+            raise ValueError("spec_k must be >= 0")
+        self.spec_k = sk if paged else 0
+        self._spec_on = self.spec_k > 0
         self.model = model
         self.slots = int(slots if slots is not None else _fcore.flag("FLAGS_serve_slots"))
         max_len = max_len if max_len is not None else cfg.max_position_embeddings
@@ -200,6 +269,7 @@ class ContinuousBatchingEngine:
             self.decode_kernel = "auto"
             self.page_size = self.pages_per_seq = self.pool_pages = 0
             self._arenas = self._pool = self._prefix = self._tables_t = None
+            self._local_t = None
             with torch.no_grad():
                 self._caches = [
                     StaticKVCache(self.slots, self.max_len,
@@ -208,14 +278,22 @@ class ContinuousBatchingEngine:
                     for _ in range(cfg.num_hidden_layers)
                 ]
         self._gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        # one partials merge per layer per paged attention under cp (the
+        # reference's all-reduces; torch ops on one card)
+        _prof.record_mesh_topology(
+            devices=1, tp=1, cp=self.cp,
+            allreduce_per_step=cfg.num_hidden_layers if self.cp > 1 else 0,
+        )
 
         # host-side slot table, mutated under _mu by the scheduler
         self._slot_req = [None] * self.slots
         self._pos = np.zeros(self.slots, np.int32)
         self._last_tok = np.zeros(self.slots, np.int32)
         self._temps = np.zeros(self.slots, np.float32)
-        # device decode state (toks, pos, active), rebuilt from the host
-        # mirrors when slot membership changes
+        self._drafters = [None] * self.slots  # per-slot NgramDrafter or None
+        # device decode state, rebuilt from the host mirrors when slot
+        # membership changes: (toks, pos, active), or (pos, active) under
+        # speculation, whose tokens come from the host every step
         self._dev = None
 
         self._queue = queue.Queue(maxsize=self.queue_depth)
@@ -237,6 +315,9 @@ class ContinuousBatchingEngine:
         # a page never needs to exceed a sequence
         self.page_size = max(1, min(ps, self.max_len))
         self.pages_per_seq = -(-self.max_len // self.page_size)
+        # sequence page k lives on shard k % cp: the table width pads to a
+        # cp multiple, so shard s's local table is columns s, s + cp, ...
+        self.pages_per_seq = -(-self.pages_per_seq // self.cp) * self.cp
         dk = str(flag("FLAGS_serve_decode_kernel")
                  if decode_kernel is None else decode_kernel)
         if dk not in ("auto", "fused", "gather"):
@@ -256,12 +337,17 @@ class ContinuousBatchingEngine:
         page_bytes = kv_page_bytes(self.page_size, cfg.num_key_value_heads,
                                    head_dim, dtype_bytes, self.kv_quant)
         if pp <= 0:  # auto: every slot can hold a max_len sequence
-            pp = self.slots * self.pages_per_seq + 1
+            # per shard: pages_per_seq / cp pages of every slot plus its
+            # scratch page (cp = 1: slots * pages_per_seq + 1)
+            pp = self.cp * (self.slots * (self.pages_per_seq // self.cp) + 1)
             if self.kv_quant == "int8":
                 # the same bytes as the full-precision pool, more pages
                 full = kv_page_bytes(self.page_size, cfg.num_key_value_heads,
                                      head_dim, dtype_bytes)
                 pp = (self.slots * self.pages_per_seq * full) // page_bytes + 1
+        if self.cp > 1:
+            # equal per-shard ranges, each with its own scratch page
+            pp = -(-max(pp, 2 * self.cp) // self.cp) * self.cp
         self.pool_pages = pp
         with torch.no_grad():
             self._arenas = [
@@ -277,7 +363,7 @@ class ContinuousBatchingEngine:
             arena_bytes=cfg.num_hidden_layers * pp * (page_bytes - scale_bytes),
             scale_bytes=cfg.num_hidden_layers * pp * scale_bytes,
         )
-        self._pool = PagePool(pp)
+        self._pool = PagePool(pp, shards=self.cp)
         use_prefix = bool(flag("FLAGS_serve_prefix_cache")
                           if prefix_cache is None else prefix_cache)
         self._prefix = PrefixCache(self.page_size) if use_prefix else None
@@ -288,13 +374,13 @@ class ContinuousBatchingEngine:
         self._page_table = np.zeros((self.slots, self.pages_per_seq), np.int32)
         self._slot_pages = [[] for _ in range(self.slots)]
         self._tables_t = None  # device mirror, rebuilt with _dev
+        self._local_t = None  # its per-shard local tables under cp
 
     @staticmethod
-    def _check_not_ported(paged, spec_k, lora, tp, role, cp):
+    def _check_not_ported(paged, lora, tp, role):
         flag = _fcore.flag
         if not paged:
-            # the reference's dense pool: speculation is simply off, and
-            # the paged-only features refuse
+            # the reference's dense pool: the paged-only features refuse
             if lora is not None:
                 raise ValueError("LoRA serving requires the paged engine")
             if role is not None and role != "colocated":
@@ -302,14 +388,10 @@ class ContinuousBatchingEngine:
                     f"role={role!r} requires the paged engine: the "
                     "prefill->decode handoff rides the page arenas"
                 )
-        elif int(flag("FLAGS_serve_spec_k") if spec_k is None else spec_k) > 0:
-            raise _not_ported("spec_k > 0", "speculative decoding")
         if lora is not None:
             raise _not_ported("lora", "multi-tenant LoRA serving")
         if int(flag("FLAGS_serve_tp") if tp is None else tp) > 1:
             raise _not_ported("tp > 1", "tensor-parallel serving")
-        if int(flag("FLAGS_serve_cp") if cp is None else cp) > 1:
-            raise _not_ported("cp > 1", "context-parallel decode (kernel K5)")
         if role is not None and role != "colocated":
             raise _not_ported(f"role={role!r}", "disaggregated prefill/decode")
 
@@ -329,20 +411,22 @@ class ContinuousBatchingEngine:
         return torch.where(hot, samp.to(torch.int32), greedy)
 
     @torch.no_grad()
-    def _prefill(self, toks, target, true_len, temp, start=None):
+    def _prefill(self, toks, target, true_len, temp, start=None, local=None):
         """Prefill of one bucket-padded chunk: writes its K/V into the pages
         of the page-table row `target` (paged) or into pool row `target`
         (an int slot, dense) and returns (first token [1], logits [1, V]
         float32) read at row true_len - 1, not at the bucket end.  `start`
         None is a fresh prefill of the whole prompt; a [1] int32 tensor is
         the chunk prefill of a prefix-cache hit's suffix, whose row 0 sits
-        at that position and which attends the shared pages."""
+        at that position and which attends the shared pages (under cp
+        through `local`, the row's `_local_tables`)."""
         if not self.paged:
             views = [SlotView(c, target) for c in self._caches]
         else:
             views = [
                 PagedPrefillView(a, target, true_len, self.max_len, start=start,
-                                 kernel=self.decode_kernel)
+                                 kernel=self.decode_kernel, cp=self.cp,
+                                 local=local)
                 for a in self._arenas
             ]
         hidden = self.model.llama(toks, caches=views)
@@ -359,32 +443,86 @@ class ContinuousBatchingEngine:
                 if t is not None:
                     t[dst].copy_(t[src])
 
+    def _host_local_tables(self, table):
+        """`cp_local_tables` of a host page table (np.int32 [rows, P]), each
+        shard's entries bound-checked against its page range: the kernel
+        indexes the shard's arena slice by the raw entry."""
+        local = cp_local_tables(torch.from_numpy(table), self.cp,
+                                self._pool.per_shard, self.page_size)
+        for loc, _ in local:
+            check_table_bounds(loc.numpy(), self._pool.per_shard)
+        return local
+
+    def _local_tables(self, table):
+        """`_host_local_tables` of `table` uploaded to the engine's device,
+        derived once per table upload and shared by every layer; None at
+        cp=1."""
+        if self.cp == 1:
+            return None
+        return [(loc.to(self.device), base.to(self.device))
+                for loc, base in self._host_local_tables(table)]
+
+    def _paged_views(self, tables, local):
+        return [
+            PagedDecodeView(a, tables, self.max_len, kernel=self.decode_kernel,
+                            cp=self.cp, local=local)
+            for a in self._arenas
+        ]
+
     @torch.no_grad()
-    def _decode_step(self, toks, pos, active, tables, temps):
+    def _decode_step(self, toks, pos, active, tables, local, temps):
         """One token for every slot: toks [S, 1], pos [S], active [S] bool,
-        tables [S, P] (None for the dense pool).  Inactive slots run at pos
-        0, over an all-zero table row (scratch) or on row 0 of their own
-        pool row.  Returns (next tokens [S], logits [S, V] float32)."""
+        tables [S, P] and its cp `local` tables (None for the dense pool).
+        Inactive slots run at pos 0, over an all-zero table row (scratch) or
+        on row 0 of their own pool row.  Returns (next tokens [S], logits
+        [S, V] float32)."""
         pos_eff = torch.where(active, pos, torch.zeros_like(pos))
-        if not self.paged:
-            views = self._caches
-        else:
-            views = [
-                PagedDecodeView(a, tables, self.max_len, kernel=self.decode_kernel)
-                for a in self._arenas
-            ]
+        views = self._caches if not self.paged else self._paged_views(tables, local)
         hidden = self.model.llama(toks, caches=views, pos=pos_eff)
         logits = self.model.lm_head(hidden[:, -1]).float()
         return self._sample(logits, temps), logits
 
+    @torch.no_grad()
+    def _verify_step(self, toks, pos, active, valid_len, tables, local, temps):
+        """Speculative verify (reference: `_verify_paged_body`,
+        engine.py:846): one forward scores k + 1 rows per slot.  toks [S,
+        k+1]: column 0 the committed last token (not yet in the pages; this
+        window writes it), columns 1..k the drafts; valid_len [S] counts the
+        committed token plus the real drafts (1: a plain decode row).  Row
+        i writes its K/V at pos + i and attends j <= pos + i, so greedy[i]
+        is the model's token after the window's first i + 1 rows.  Draft i
+        is accepted iff it equals greedy[i - 1] and every earlier draft was
+        accepted; the slot emits greedy[0..n_acc].  Rejected rows need no
+        rollback: the next window rewrites [new_pos, new_pos + k] before
+        anything attends them.  Column 0 of a sampled slot (temp > 0, always
+        at valid_len 1) is drawn from the engine's generator.  Returns (out
+        [S, k+1] int32, n_emit [S], new_pos [S], logits [S, k+1, V]
+        float32)."""
+        pos_eff = torch.where(active, pos, torch.zeros_like(pos))
+        hidden = self.model.llama(toks, caches=self._paged_views(tables, local),
+                                  pos=pos_eff)
+        logits = self.model.lm_head(hidden).float()
+        greedy = logits.argmax(dim=-1).to(torch.int32)  # [S, k+1]
+        k = greedy.shape[1] - 1
+        drafts_ok = toks[:, 1:] == greedy[:, :-1]
+        considered = (torch.arange(k, device=toks.device)[None, :]
+                      < (valid_len - 1)[:, None])
+        n_acc = torch.cumprod((drafts_ok & considered).to(torch.int32), dim=1).sum(1)
+        n_emit = torch.where(active, n_acc + 1, 0).to(torch.int32)
+        out = greedy.clone()
+        out[:, 0] = self._sample(logits[:, 0], temps)
+        return out, n_emit, pos + n_emit, logits
+
     # -- public API ------------------------------------------------------------
 
     def submit(self, input_ids, max_new_tokens=32, temperature=0.0,
-               eos_token_id=None, keep_logits=False):
+               eos_token_id=None, keep_logits=False, spec_k=None):
         """Enqueue one request (1-D token ids); returns an EngineRequest at
         once.  Raises ContextOverflow when the prompt does not fit max_len
         and QueueFull when the queue is at capacity or the request's page
-        need exceeds the whole pool.  Ids outside [0, vocab_size) raise
+        need exceeds the pool (under cp: a shard's share of it exceeds the
+        shard).  `spec_k` caps the request's draft length below the
+        engine's (0 opts out).  Ids outside [0, vocab_size) raise
         ValueError: on the card an out-of-range embedding row is a
         device-side assert that poisons the CUDA context for every later
         step, where the reference's JAX gather clamps."""
@@ -402,20 +540,26 @@ class ContinuousBatchingEngine:
         ids = raw.astype(np.int32)
         if ids.size >= self.max_len:
             raise ContextOverflow(
-                f"prompt length {ids.size} exceeds engine capacity: "
-                f"max_len={self.max_len}"
+                ids.size, self.max_len, cp=self.cp,
+                pages_per_shard=self.pages_per_seq // self.cp if self.paged else 0,
+                page_size=self.page_size if self.paged else 0,
             )
         if max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
+        if spec_k is not None and int(spec_k) < 0:
+            raise ValueError("spec_k must be >= 0")
+        # sequence page k comes only from shard k % cp: the fullest shard
+        # must hold ceil(need / cp) of its per_shard - 1 usable pages
         need = self._pages_for(ids.size, max_new_tokens) if self.paged else 0
-        if self.paged and need > self._pool.usable_pages:
+        if self.paged and -(-need // self.cp) > self._pool.per_shard - 1:
             raise QueueFull(
                 f"request needs {need} KV pages (prompt {ids.size} + max_new "
                 f"{max_new_tokens} at page size {self.page_size}) but the "
                 f"pool holds {self._pool.usable_pages}"
+                + (f" across cp={self.cp} shards" if self.cp > 1 else "")
             )
         req = EngineRequest(next(self._req_ids), ids, max_new_tokens,
-                            temperature, eos_token_id, keep_logits)
+                            temperature, eos_token_id, keep_logits, spec_k)
         req._submit_t = time.perf_counter()
         try:
             self._queue.put_nowait(req)
@@ -450,20 +594,27 @@ class ContinuousBatchingEngine:
         else:
             target, tables = 0, None
         zero_start = to_index_tensor(np.zeros(1), self.device)
+        row_local = (self._local_tables(np.zeros((1, self.pages_per_seq), np.int32))
+                     if self.paged else None)
         for b in self.prefill_buckets:
             toks = to_index_tensor(np.zeros((1, b)), self.device)
             self._prefill(toks, target, b, 0.0)
             if self._prefix is not None:
-                self._prefill(toks, target, b, 0.0, start=zero_start)
+                self._prefill(toks, target, b, 0.0, start=zero_start,
+                              local=row_local)
         if self._prefix is not None:
             self._copy_page(0, 0)  # scratch onto itself
-        self._decode_step(
-            to_index_tensor(np.zeros((S, 1)), self.device),
-            to_index_tensor(np.zeros(S), self.device),
-            torch.zeros(S, dtype=torch.bool, device=self.device),
-            tables,
-            np.zeros(S, np.float32),
-        )
+        local = (self._local_tables(np.zeros((S, self.pages_per_seq), np.int32))
+                 if self.paged else None)
+        zeros = to_index_tensor(np.zeros(S), self.device)
+        idle = torch.zeros(S, dtype=torch.bool, device=self.device)
+        if self._spec_on:  # the verify step replaces the decode step
+            self._verify_step(
+                to_index_tensor(np.zeros((S, self.spec_k + 1)), self.device),
+                zeros, idle, zeros + 1, tables, local, np.zeros(S, np.float32))
+        else:
+            self._decode_step(to_index_tensor(np.zeros((S, 1)), self.device),
+                              zeros, idle, tables, local, np.zeros(S, np.float32))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return self
@@ -488,7 +639,7 @@ class ContinuousBatchingEngine:
             page_free = self._pool.free_count() / max(1, self._pool.usable_pages)
         else:  # the reference's dense figure: free slots
             page_free = (self.slots - self.active_slots) / self.slots
-        return {
+        out = {
             "status": "ready" if t is not None and t.is_alive() else "live",
             "slots": self.slots,
             "active_slots": self.active_slots,
@@ -498,14 +649,26 @@ class ContinuousBatchingEngine:
             "prefix_cache_size": len(self._prefix) if self._prefix is not None else 0,
             "kv_quant": self.kv_quant,
             "device": str(self.device),
+            "cp": self.cp,
+            "mesh_shape": {"cp": self.cp, "mp": 1},
         }
+        if self.cp > 1:
+            # the fullest shard bounds admission: a sequence page lands only
+            # on its own shard, so the pool-wide sum would flatter
+            out["page_free_by_shard"] = [self._pool.free_count(sh)
+                                         for sh in range(self.cp)]
+        return out
 
     def step(self):
         """One scheduling tick: admit queued requests into free slots
         (bucketed prefill), then advance every active slot one token.
         Returns the tokens emitted.  Do not mix with start()."""
         emitted = self._admit()
-        return emitted + self._decode_once()
+        emitted += self._decode_once_spec() if self._spec_on else self._decode_once()
+        if self.paged and _fcore.flag("FLAGS_serve_debug_invariants"):
+            with self._mu:
+                self._check_page_invariants_locked()
+        return emitted
 
     def run_until_idle(self):
         """Drive step() until queue and slots are empty."""
@@ -575,30 +738,43 @@ class ContinuousBatchingEngine:
         span = int(prompt_len) + min(int(max_new), self.max_len - int(prompt_len))
         return -(-span // self.page_size)
 
-    def _page_fresh_headroom_locked(self, exclude):
-        """Pages fresh allocations can get: the free list plus every page
-        only the prefix cache still holds (refcount 1: no slot maps it, and
-        repeated leaf eviction reaches it), except the pages in `exclude` (a
-        request's matched prefix pages, about to be mapped).  Caller holds
-        _mu."""
-        free = self._pool.free_count()
+    def _page_fresh_headroom_by_shard_locked(self, exclude):
+        """Pages fresh allocations can get on each pool shard: its free list
+        plus every page there that only the prefix cache still holds
+        (refcount 1: no slot maps it, and repeated leaf eviction reaches
+        it), except the pages in `exclude` (a request's matched prefix
+        pages, about to be mapped).  Caller holds _mu."""
+        free = [self._pool.free_count(sh) for sh in range(self.cp)]
         if self._prefix is not None:
-            free += sum(1 for e in self._prefix.entries()
-                        if self._pool.refs[e.page] == 1 and e.page not in exclude)
+            for e in self._prefix.entries():
+                if self._pool.refs[e.page] == 1 and e.page not in exclude:
+                    free[self._pool.shard_of(e.page)] += 1
         return free
 
-    def _alloc_page_locked(self):
-        """One fresh page, evicting LRU prefix-cache entries under pressure.
-        Called only after the admission headroom check covered the request,
-        so the loop ends with a page.  Caller holds _mu."""
-        while self._pool.free_count() == 0:
-            if self._prefix is None or self._prefix.evict_one(self._pool) is None:
+    def _alloc_page_locked(self, shard=0):
+        """One fresh page from pool shard `shard`, evicting LRU prefix-cache
+        entries on that shard under pressure.  Under cp a cached chain
+        alternates shards (page k on shard k % cp), so every entry of this
+        shard may be the parent of another shard's page: then the LRU leaf
+        of any shard goes, which frees a page elsewhere and makes its
+        parent a leaf, and the loop goes on.  Called only after the
+        admission headroom check covered the request, and repeated leaf
+        eviction reaches every page only the cache holds, so the loop ends
+        with a page.  Caller holds _mu."""
+        while self._pool.free_count(shard) == 0:
+            victim = None
+            if self._prefix is not None:
+                victim = self._prefix.evict_one(
+                    self._pool, shard=shard if self.cp > 1 else None)
+                if victim is None and self.cp > 1:
+                    victim = self._prefix.evict_one(self._pool)
+            if victim is None:
                 raise RuntimeError(
                     "KV page pool exhausted mid-admission: the headroom check "
                     "should have deferred this request (accounting bug)"
                 )
             _prof.record_paging_event("cache_evictions")
-        return self._pool.alloc()
+        return self._pool.alloc(shard)
 
     def _release_slot_pages_locked(self, s):
         if not self.paged:
@@ -655,19 +831,26 @@ class ContinuousBatchingEngine:
         return emitted
 
     def _pages_admit_locked(self, req):
-        """Whether the fresh pages `req` needs are free or evictable now.
-        Pages a cache hit maps by incref cost no fresh allocation; the
-        matched pages are about to be pinned, so they do not count as
-        evictable either.  The scheduler is the only inserter and evictor,
-        so the match holds until the prefill.  Caller holds _mu."""
-        need = self._pages_for(req.prompt.size, req.max_new_tokens)
+        """Whether the fresh pages `req` needs are free or evictable now, on
+        every pool shard: fresh pages land at sequence indices [coverage -
+        need, coverage), index k on shard k % cp.  Pages a cache hit maps
+        by incref cost no fresh allocation; the matched pages are about to
+        be pinned, so they do not count as evictable either.  The scheduler
+        is the only inserter and evictor, so the match holds until the
+        prefill.  Caller holds _mu."""
+        coverage = self._pages_for(req.prompt.size, req.max_new_tokens)
+        need = coverage
         exclude = ()
         if self._prefix is not None:
             m, fulls, tail, _ = self._prefix.lookup(req.prompt)
             if m >= self.min_prefix_match:
                 need -= len(fulls)
                 exclude = set(fulls) | ({tail} if tail is not None else set())
-        return need <= self._page_fresh_headroom_locked(exclude)
+        by_shard = [0] * self.cp
+        for k in range(coverage - need, coverage):
+            by_shard[k % self.cp] += 1
+        head = self._page_fresh_headroom_by_shard_locked(exclude)
+        return all(n <= h for n, h in zip(by_shard, head))
 
     def _prefill_into_dense(self, s, req):
         """Admission of one request into slot s of the dense pool: a fresh
@@ -696,6 +879,12 @@ class ContinuousBatchingEngine:
         self._temps[s] = req.temperature
         req.state = "decoding"
         self._dev = None  # membership changed: rebuild device state
+        if self._spec_on and req.temperature == 0.0 and req.spec_k != 0:
+            # greedy slots draft from their own history; sampled slots ride
+            # the verify step undrafted (greedy equivalence is the only
+            # acceptance rule)
+            self._drafters[s] = NgramDrafter().reset(
+                [int(t) for t in req.prompt] + [tok])
         if req.keep_logits:
             req.logits.append(logits[0])
         self._emit(s, req, tok)
@@ -726,8 +915,10 @@ class ContinuousBatchingEngine:
                 for p in shared_full:
                     self._pool.incref(p)
                     pages.append(p)
-                for _ in range(len(shared_full), coverage):
-                    pages.append(self._alloc_page_locked())
+                # sequence page i goes to shard i % cp, the layout the cp
+                # kernel reads (the COW tail page included)
+                for i in range(len(shared_full), coverage):
+                    pages.append(self._alloc_page_locked(i % self.cp))
             except RuntimeError:
                 if match_len == 0:
                     raise
@@ -740,7 +931,8 @@ class ContinuousBatchingEngine:
                     self._pool.decref(pinned)
                     pinned = None
                 match_len, shared_full, tail_page, tail_rows = 0, [], None, 0
-                pages = [self._alloc_page_locked() for _ in range(coverage)]
+                pages = [self._alloc_page_locked(i % self.cp)
+                         for i in range(coverage)]
             copy_args = None
             if match_len and tail_rows > 0:
                 copy_args = (tail_page, pages[len(shared_full)])
@@ -759,12 +951,14 @@ class ContinuousBatchingEngine:
         try:
             if copy_args is not None:
                 self._copy_page(*copy_args)
-            start = (None if match_len == 0
-                     else to_index_tensor(np.full(1, match_len), self.device))
+            start = local = None
+            if match_len:
+                start = to_index_tensor(np.full(1, match_len), self.device)
+                local = self._local_tables(row_table[None])
             nxt, logits = self._prefill(
                 to_index_tensor(toks, self.device),
                 to_index_tensor(row_table, self.device), suffix,
-                req.temperature, start=start,
+                req.temperature, start=start, local=local,
             )
             tok = int(nxt.item())
         finally:
@@ -778,6 +972,15 @@ class ContinuousBatchingEngine:
                     _prof.record_paging_event("cache_commits", inserted)
             self._land_locked(s, req, tok, logits)
 
+    def _upload_tables_locked(self):
+        """Mirror the host page table (and, under cp, its per-shard local
+        tables) to the device.  Tables change exactly when slot membership
+        does; every entry is bound-checked before the upload.  Caller holds
+        _mu."""
+        check_table_bounds(self._page_table, self.pool_pages)
+        self._tables_t = to_index_tensor(self._page_table, self.device)
+        self._local_t = self._local_tables(self._page_table)
+
     def _decode_once(self):
         with self._mu:
             active_idx = [s for s in range(self.slots)
@@ -788,10 +991,7 @@ class ContinuousBatchingEngine:
                 active = np.zeros(self.slots, bool)
                 active[active_idx] = True
                 if self.paged:
-                    # tables change exactly when membership does; bound-check
-                    # the host mirror before every upload
-                    check_table_bounds(self._page_table, self.pool_pages)
-                    self._tables_t = to_index_tensor(self._page_table, self.device)
+                    self._upload_tables_locked()
                 self._dev = (
                     to_index_tensor(self._last_tok.reshape(self.slots, 1),
                                     self.device),
@@ -802,7 +1002,7 @@ class ContinuousBatchingEngine:
             temps = self._temps.copy()
         t0 = time.perf_counter()
         nxt, logits = self._decode_step(toks_t, pos_t, active_t,
-                                        self._tables_t, temps)
+                                        self._tables_t, self._local_t, temps)
         nxt_np = nxt.cpu().numpy()  # fetched every step in this slice
         busy = time.perf_counter() - t0
         with self._mu:
@@ -827,6 +1027,156 @@ class ContinuousBatchingEngine:
                 self._emit(s, req, tok)
         return len(active_idx)
 
+    def _decode_once_spec(self):
+        """One speculative round for every active slot (reference:
+        `_decode_once_spec`, engine.py:2627): draft on the host, verify k + 1
+        rows per slot in one forward, emit each slot's accepted run.  The
+        draft budget min(spec_k, req.spec_k, remaining - 1) keeps every
+        committed row inside the slot's mapped pages and the emitted run
+        within max_new_tokens; an eos inside the run ends the request there
+        and drops the rest of the run.  Returns the tokens emitted."""
+        K1 = self.spec_k + 1
+        with self._mu:
+            active_idx = [s for s in range(self.slots)
+                          if self._slot_req[s] is not None]
+            if not active_idx:
+                return 0
+            if self._dev is None:
+                active = np.zeros(self.slots, bool)
+                active[active_idx] = True
+                self._upload_tables_locked()
+                self._dev = (to_index_tensor(self._pos, self.device),
+                             torch.from_numpy(active).to(self.device))
+            pos_t, active_t = self._dev
+            toks = np.zeros((self.slots, K1), np.int32)
+            valid = np.ones(self.slots, np.int32)
+            proposed = 0
+            for s in active_idx:
+                req = self._slot_req[s]
+                toks[s, 0] = self._last_tok[s]
+                dr = self._drafters[s]
+                if dr is None:
+                    continue  # sampled or opted out: a plain decode row
+                budget = min(self.spec_k,
+                             self.spec_k if req.spec_k is None else req.spec_k,
+                             req.max_new_tokens - len(req.tokens) - 1)
+                draft = dr.propose(budget) if budget > 0 else []
+                toks[s, 1:1 + len(draft)] = draft
+                valid[s] = 1 + len(draft)
+                proposed += len(draft)
+            temps = self._temps.copy()
+        t0 = time.perf_counter()
+        out, n_emit, new_pos, logits = self._verify_step(
+            to_index_tensor(toks, self.device), pos_t, active_t,
+            to_index_tensor(valid, self.device), self._tables_t, self._local_t,
+            temps)
+        out_np = out.cpu().numpy()  # the next drafts need these tokens
+        n_np = n_emit.cpu().numpy()
+        busy = time.perf_counter() - t0
+        with self._mu:
+            self._dev = (new_pos, active_t)
+            accepted = emitted = 0
+            for s in active_idx:
+                req = self._slot_req[s]
+                n = int(n_np[s])
+                self._pos[s] += n
+                accepted += n - 1
+                emitted += n
+                dr = self._drafters[s]
+                for j in range(n):
+                    if self._slot_req[s] is not req:
+                        break  # eos inside the accepted run right-trims
+                    tok = int(out_np[s, j])
+                    self._last_tok[s] = tok
+                    if dr is not None:
+                        dr.extend(tok)
+                    if req.keep_logits:
+                        req.logits.append(logits[s, j])
+                    self._emit(s, req, tok)
+            _prof.record_serving_tick(len(active_idx) / self.slots,
+                                      self._queue.qsize(), busy)
+            _prof.record_speculation(proposed, accepted, emitted, len(active_idx))
+            if self.kv_quant == "int8":
+                # the window quantizes k + 1 row pairs per active slot
+                _prof.record_kv_quant_event("quantize", len(active_idx) * K1)
+                _prof.record_kv_quant_event(
+                    "dequantize", sum(len(self._slot_pages[s]) for s in active_idx))
+        return emitted
+
+    def _check_page_invariants_locked(self):
+        """The page audit of FLAGS_serve_debug_invariants (reference:
+        engine.py:3131): every page's refcount equals its holds (slot
+        mappings, cache entries, the scratch pin of every shard), the free
+        lists are exactly the unpinned ref-0 pages, free slots map nothing,
+        an occupied slot's table agrees with its mapping and covers every
+        position it has written, a verify window's overrun entries are
+        scratch redirects, every cp local table stays inside its shard, and
+        sequence page j of a slot sits on shard j % cp.  Raises
+        AssertionError.  Caller holds _mu."""
+        pool, ps = self._pool, self.page_size
+        check_table_bounds(self._page_table, pool.num_pages)
+        check_scale_arenas(self._arenas, pool.num_pages, ps)
+        expected = np.zeros(pool.num_pages, np.int64)
+        expected[list(pool.scratch_pages)] = 1
+        for s in range(self.slots):
+            row, mapped = self._page_table[s], self._slot_pages[s]
+            if self._slot_req[s] is None:
+                if mapped or row.any():
+                    raise AssertionError(
+                        f"page invariant: free slot {s} still maps pages "
+                        f"{mapped} (table row {row.tolist()})")
+                continue
+            if (len(set(mapped)) != len(mapped)
+                    or any(pool.is_scratch(p) for p in mapped)):
+                raise AssertionError(
+                    f"page invariant: slot {s} mapping {mapped} has "
+                    "duplicates or scratch")
+            if [int(p) for p in row if p] != list(mapped):
+                raise AssertionError(
+                    f"page invariant: slot {s} table row {row.tolist()} "
+                    f"disagrees with its mapping {mapped}")
+            if (int(self._pos[s]) - 1) // ps >= len(mapped):
+                raise AssertionError(
+                    f"page invariant: slot {s} at pos {int(self._pos[s])} "
+                    f"writes past its {len(mapped)} mapped pages")
+            if self._spec_on:
+                _, over = spec_write_pages(int(self._pos[s]), self.spec_k + 1,
+                                           ps, len(mapped))
+                bad = [e for e in over if e < row.shape[0] and row[e] != 0]
+                if bad:
+                    raise AssertionError(
+                        f"page invariant: slot {s} verify window entries {bad} "
+                        f"lie past its {len(mapped)}-page mapping but are not "
+                        "scratch redirects")
+            for j, p in enumerate(mapped):
+                expected[p] += 1
+                if pool.shard_of(p) != j % self.cp:
+                    raise AssertionError(
+                        f"page invariant: slot {s} sequence page {j} is page "
+                        f"{p} on shard {pool.shard_of(p)}, expected shard "
+                        f"{j % self.cp} (cp={self.cp})")
+        if self._prefix is not None:
+            for e in self._prefix.entries():
+                if not 0 < e.rows <= ps:
+                    raise AssertionError(
+                        f"page invariant: cache entry on page {e.page} has "
+                        f"row count {e.rows} outside (0, {ps}]")
+                expected[e.page] += 1
+        if not np.array_equal(expected, pool.refs):
+            bad = [(p, int(pool.refs[p]), int(expected[p]))
+                   for p in range(pool.num_pages) if pool.refs[p] != expected[p]]
+            raise AssertionError(
+                f"page invariant: refcount drift (page, actual, expected): {bad}")
+        free = sorted(pool._free)
+        ref0 = [p for p in range(pool.num_pages)
+                if pool.refs[p] == 0 and not pool.is_scratch(p)]
+        if free != ref0:
+            raise AssertionError(
+                f"page invariant: free list {free} != ref-0 pages {ref0}")
+        if self.cp > 1:
+            # raises ValueError on a local id outside its shard's range
+            self._host_local_tables(self._page_table)
+
     def _emit(self, s, req, tok):
         req.tokens.append(tok)
         if req.eos_token_id is not None and tok == req.eos_token_id:
@@ -841,6 +1191,7 @@ class ContinuousBatchingEngine:
         self._pos[s] = 0
         self._last_tok[s] = 0
         self._temps[s] = 0.0
+        self._drafters[s] = None
         self._release_slot_pages_locked(s)
         self._dev = None
         self._resolve(req, reason)

@@ -1,20 +1,24 @@
 """Host-side bookkeeping for the block-paged KV cache (counterpart of
-`paddle_tpu/inference/paging.py`, one pool shard, no sessions).
+`paddle_tpu/inference/paging.py`, no sessions).
 
 The device side is one `[num_pages, page_size, kv_heads, head_dim]` K/V
 arena per layer plus per-slot page tables.  Which page holds which tokens
 is decided here, on the host:
 
-- `PagePool`: refcounted allocator over page ids with a FIFO free list.
+- `PagePool`: refcounted allocator over page ids with FIFO free lists.
   Page 0 is a permanent scratch page: inactive slots' table rows are
   all-zero and every masked write is redirected to it, so garbage never
-  lands in a page a sequence attends.
+  lands in a page a sequence attends.  Under context parallelism the ids
+  split into `shards` equal ranges, each with its own scratch page first
+  and its own free list; sequence page k comes from shard k % cp.
 - `PrefixCache`: a token-chain index over committed prompt pages.  Full
   pages chain by `(parent_key, page_tokens)`; a partly filled last page is
   a tail under its parent.  A request maps every matched full page
   read-only (incref) and copy-on-writes the matched tail, the only shared
   page it would append into.  Entries are evicted LRU, leaves first, only
   when the allocator runs dry.
+- `spec_write_pages`: which page-table entries a speculative verify
+  window writes through, split at the slot's mapped pages.
 - `check_table_bounds`: every table entry must name a real page before a
   table is uploaded.  The fused decode kernels index the arena by the raw
   entry, and on CUDA an out-of-range id is an illegal address, not a
@@ -25,6 +29,12 @@ entry's committed row count (later rows are masked by position), so the
 owner may keep appending into its committed tail; a reader never writes a
 shared page (full-page matches lie before its own rows, and the tail is
 copied into a fresh page before any token lands).
+
+Speculative verify widens the decode write from one row to a window
+[pos, pos + k] per slot.  Every window row whose table entry is unmapped
+(0) or past the table lands on scratch page 0, so rejected drafts need no
+rollback: their rows sit on scratch or past the slot's advanced pos, where
+the next window rewrites them before any query attends them.
 
 int8 KV: values are stored as int8 with one float32 scale per (token row,
 kv head) in a parallel `[num_pages, page_size, kv_heads, 1]` arena per K
@@ -40,6 +50,22 @@ from __future__ import annotations
 import numpy as np
 
 KV_QUANT_MODES = ("none", "int8")
+
+
+def spec_write_pages(pos, width, page_size, mapped_entries):
+    """Page-table entries a verify window [pos, pos + width) writes through,
+    as (in_table, overrun): sorted entry indices inside the slot's mapped
+    prefix (entry < mapped_entries) and those beyond it.  Overrun entries
+    must scatter to scratch page 0: the engine's draft budget (at most
+    remaining - 1 drafts) keeps every committed row in the mapped prefix,
+    so only rejected drafts can overrun (reference: paging.py:48)."""
+    pos, width, ps = int(pos), int(width), int(page_size)
+    if width <= 0:
+        return [], []
+    entries = sorted({(pos + i) // ps for i in range(width)})
+    in_table = [e for e in entries if e < mapped_entries]
+    overrun = [e for e in entries if e >= mapped_entries]
+    return in_table, overrun
 
 
 class QuantConfigError(ValueError):
@@ -123,55 +149,90 @@ def check_table_bounds(table, num_pages):
 class PagePool:
     """Refcounted page allocator.  Page 0 is scratch: pinned at refcount 1,
     never handed out, the target of every redirected write.  Freed pages
-    return to the tail of the free list (FIFO reuse)."""
+    return to the tail of their shard's free list (FIFO reuse).
 
-    SCRATCH = 0
+    Context parallelism splits the ids into `shards` equal contiguous
+    ranges: shard s owns [s*per_shard, (s+1)*per_shard), and its first
+    page is that shard's scratch, pinned like page 0.  Sequence page k must
+    come from shard k % cp (the layout the cp decode kernel reads), so
+    `alloc` takes the shard.  shards=1 is the single pool."""
 
-    def __init__(self, num_pages):
-        if num_pages < 2:
-            raise ValueError("page pool needs >= 2 pages (1 scratch + 1 usable)")
+    def __init__(self, num_pages, shards=1):
+        shards = int(shards)
+        if shards < 1:
+            raise ValueError(f"page pool shards must be >= 1, got {shards}")
+        if num_pages % shards:
+            raise ValueError(
+                f"page pool size {num_pages} must divide evenly into "
+                f"{shards} shards"
+            )
+        if num_pages < 2 * shards:
+            raise ValueError(
+                "page pool needs >= 2 pages per shard (1 scratch + 1 usable)"
+            )
         self.num_pages = int(num_pages)
+        self.shards = shards
+        self.per_shard = self.num_pages // shards
+        self.scratch_pages = tuple(s * self.per_shard for s in range(shards))
         self.refs = np.zeros(self.num_pages, np.int64)
-        self.refs[self.SCRATCH] = 1
-        self._free = list(range(1, self.num_pages))
+        self.refs[list(self.scratch_pages)] = 1
+        self._free_by_shard = [
+            list(range(s * self.per_shard + 1, (s + 1) * self.per_shard))
+            for s in range(shards)
+        ]
+
+    @property
+    def _free(self):
+        """Every free page id, shard by shard (audits and tests)."""
+        return [p for lst in self._free_by_shard for p in lst]
 
     @property
     def usable_pages(self):
-        return self.num_pages - 1
+        return self.num_pages - self.shards
 
-    def free_count(self):
-        return len(self._free)
+    def shard_of(self, page):
+        return int(page) // self.per_shard
+
+    def is_scratch(self, page):
+        return int(page) % self.per_shard == 0
+
+    def free_count(self, shard=None):
+        if shard is None:
+            return sum(len(lst) for lst in self._free_by_shard)
+        return len(self._free_by_shard[shard])
 
     def used_count(self):
         return self.usable_pages - self.free_count()
 
-    def alloc(self):
-        """One page at refcount 1.  The engine's admission check guarantees
-        a free page; running dry is an accounting bug."""
-        if not self._free:
+    def alloc(self, shard=0):
+        """One page at refcount 1 from `shard`'s range.  The engine's
+        admission check guarantees a free page; running dry is an
+        accounting bug."""
+        free = self._free_by_shard[shard]
+        if not free:
             raise RuntimeError(
-                "page pool exhausted: admission should have deferred this "
-                "allocation (accounting bug)"
+                f"page pool shard {shard} exhausted: admission should have "
+                "deferred this allocation (accounting bug)"
             )
-        p = self._free.pop(0)
+        p = free.pop(0)
         if self.refs[p] != 0:
             raise RuntimeError(f"free-list page {p} had refcount {self.refs[p]}")
         self.refs[p] = 1
         return p
 
     def incref(self, page):
-        if page == self.SCRATCH or self.refs[page] <= 0:
+        if self.is_scratch(page) or self.refs[page] <= 0:
             raise ValueError(f"incref on scratch or dead page {page}")
         self.refs[page] += 1
 
     def decref(self, page):
-        """Drop one reference; a page reaching 0 returns to the free list.
-        Returns True when it did."""
-        if page == self.SCRATCH or self.refs[page] <= 0:
+        """Drop one reference; a page reaching 0 returns to its shard's free
+        list.  Returns True when it did."""
+        if self.is_scratch(page) or self.refs[page] <= 0:
             raise ValueError(f"decref on scratch or dead page {page}")
         self.refs[page] -= 1
         if self.refs[page] == 0:
-            self._free.append(page)
+            self._free_by_shard[self.shard_of(page)].append(page)
             return True
         return False
 
@@ -314,13 +375,17 @@ class PrefixCache:
         if parent is not None:
             parent.children -= 1
 
-    def evict_one(self, pool):
+    def evict_one(self, pool, shard=None):
         """Drop the LRU childless entry and release its page hold.  Returns
         the evicted entry, or None when nothing is evictable.  The page only
         reaches the free list if no live slot still maps it: eviction never
-        invalidates a reader."""
+        invalidates a reader.  `shard` restricts the victims to entries
+        whose page lies in that pool shard: under cp, evicting elsewhere
+        cannot relieve that shard."""
         victim = None
         for e in self.entries():
+            if shard is not None and pool.shard_of(e.page) != shard:
+                continue
             if e.rows == self.page_size and (e.children > 0 or self._tails.get(e.key)):
                 continue  # a parent outlives its children
             if victim is None or e.last_used < victim.last_used:

@@ -9,7 +9,9 @@ transposes them.  Attention goes through `ops.flash_attention`: the
 full-sequence forward and the fresh paged prefill run the `flash_fwd`
 kernel; the paged decode step and the chunk prefill of a prefix-cache hit
 the `paged_decode_fused` kernel, or `paged_decode_fused_q8` over an int8
-arena; a training backward the `flash_bwd` kernel.  Against a static
+arena, and under context parallelism one `paged_decode_partials` launch
+per cp shard (the speculative verify window is a decode step of k + 1
+rows); a training backward the `flash_bwd` kernel.  Against a static
 cache, a lock-step prefill of 64+ rows runs the `dense_decode` kernel and
 shorter chunks and decode steps the dense math (`decode_attention`); the
 slot pool's prefill runs `flash_fwd` over its bucket.  The cache writes
@@ -223,29 +225,40 @@ class PagedPrefillView:
     of the whole sequence, shared pages included, through the paged kernel
     (`kernel` as in `paged_decode_attention`, `max_len` its position
     fence).  Rows at or past `true_len` (bucket padding) and rows whose page
-    index overruns the table land on scratch page 0."""
+    index overruns the table land on scratch page 0.  Under context
+    parallelism (`cp` > 1) the chunk's attention runs per shard; `local` is
+    `cp_local_tables` of the [1, P] table, derived once per forward by the
+    caller and shared by every layer's view.  The writes address global
+    page ids either way."""
 
     def __init__(self, arena, table, true_len, max_len=None, start=None,
-                 kernel="auto"):
+                 kernel="auto", cp=1, local=None):
         self.arena = arena
         self.table = table
         self.true_len = int(true_len)
         self.max_len = max_len
         self.start = start
         self.kernel = kernel
+        self.cp = int(cp)
+        self.local = local
 
 
 class PagedDecodeView:
     """Decode over the paged arena: `tables` is the [slots,
-    max_pages_per_seq] int32 page table; slot s writes its token at page
-    tables[s, pos // page_size], row pos % page_size, and attends its pages
-    through the fused kernel (or the gather oracle)."""
+    max_pages_per_seq] int32 page table; slot s writes its token (or its
+    verify window's rows) at page tables[s, pos // page_size], row pos %
+    page_size, and attends its pages through the fused kernel (or the
+    gather oracle).  With `cp` > 1 attention runs one K5 launch per shard
+    over `local` (`cp_local_tables` of `tables`, derived once per forward
+    and shared by every layer's view)."""
 
-    def __init__(self, arena, tables, max_len, kernel="auto"):
+    def __init__(self, arena, tables, max_len, kernel="auto", cp=1, local=None):
         self.arena = arena
         self.tables = tables
         self.max_len = int(max_len)
         self.kernel = kernel
+        self.cp = int(cp)
+        self.local = local
 
 
 def _prefill_rows(table, s, true_len, ps, start):
@@ -403,7 +416,7 @@ class LlamaAttention(nn.Module):
                 out = paged_decode_attention(
                     q, a.k, a.v, cache.table.reshape(1, -1), cache.start,
                     cache.max_len, kernel=cache.kernel, k_scale=a.k_scale,
-                    v_scale=a.v_scale,
+                    v_scale=a.v_scale, cp=cache.cp, local=cache.local,
                 )
         elif isinstance(cache, PagedDecodeView):
             a = cache.arena
@@ -417,6 +430,7 @@ class LlamaAttention(nn.Module):
             out = paged_decode_attention(
                 q, a.k, a.v, cache.tables, pos, cache.max_len,
                 kernel=cache.kernel, k_scale=a.k_scale, v_scale=a.v_scale,
+                cp=cache.cp, local=cache.local,
             )
         elif isinstance(cache, SlotView):
             # the slot pool's prefill: the prompt attends to itself through

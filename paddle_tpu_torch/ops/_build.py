@@ -51,6 +51,12 @@ SIGNATURES = {
     # q, ak, av, k_scale, v_scale, tables, pos, out, ws, splits, b, sq, h,
     # hk, d, ps, P, max_len, scale, dtype, stream
     "ptt_paged_decode_q8": ([_P] * 9 + [_I] * 9 + [_F, _I, _P], _I),
+    # q, ak, av, tables, page_base, pos, acc, m, l, ws, splits, b, sq, h,
+    # hk, d, ps, P, max_len, scale, dtype, stream
+    "ptt_paged_decode_partials": ([_P] * 10 + [_I] * 9 + [_F, _I, _P], _I),
+    # q, ak, av, k_scale, v_scale, tables, page_base, pos, acc, m, l, ws,
+    # splits, b, sq, h, hk, d, ps, P, max_len, scale, dtype, stream
+    "ptt_paged_decode_partials_q8": ([_P] * 12 + [_I] * 9 + [_F, _I, _P], _I),
     # q, k, v, out, pos, b, sq, h, hk, d, L, scale, dtype, stream
     "ptt_dense_decode": ([_P] * 5 + [_I] * 6 + [_F, _I, _P], _I),
     "ptt_error_string": ([_I], ctypes.c_char_p),

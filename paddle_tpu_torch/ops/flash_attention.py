@@ -2,7 +2,7 @@
 `paddle_tpu/ops/flash_attention.py`.
 
 Layout at the public functions is the reference's `[batch, seq, heads,
-head_dim]`.  Five hand-written Hopper kernels carry the serving and
+head_dim]`.  Six hand-written Hopper kernels carry the serving and
 training paths:
 
 - `flash_fwd` (csrc/flash_fwd.cu, replaces `_flash_fwd_kernel`): causal
@@ -23,6 +23,11 @@ training paths:
   against a dense static KV cache, taken by `decode_attention` where the
   reference takes its Pallas kernel -- the prefill of lock-step
   generation.
+- `paged_decode_partials` (csrc/paged_decode.cu, K2's page walk with a
+  token position per table column and un-normalised output; replaces
+  `_fused_paged_decode_partials_forward`): context-parallel paged
+  attention, one launch per cp shard over that shard's page range, the
+  shards merged by `cp_softmax_combine` (`paged_decode_cp`).
 
 Each kernel has a plain PyTorch version here.  A wrapper takes the plain
 version only for a tensor on the CPU (the tests); for a CUDA tensor it
@@ -40,8 +45,12 @@ from ..framework.core import INDEX_DTYPE
 
 NEG_INF = -1e30  # the reference's mask value (flash_attention.py:36)
 
+# K5's two counts carry the reference's names (`_log_pallas_call`,
+# flash_attention.py:1608) but count kernel launches: one per cp shard, so
+# cp times the reference's count of cp dispatches
 launch_counts = {"flash_fwd": 0, "paged_decode_fused": 0,
-                 "paged_decode_fused_q8": 0, "flash_bwd": 0, "dense_decode": 0}
+                 "paged_decode_fused_q8": 0, "flash_bwd": 0, "dense_decode": 0,
+                 "paged_decode_fused_cp": 0, "paged_decode_fused_cp_q8": 0}
 
 MAX_HEAD_DIM = 256
 # (row, key) pairs one block of the paged kernels takes on, about: a decode
@@ -551,17 +560,193 @@ def paged_decode_fused_q8(q, arena_k, arena_v, k_scale, v_scale, tables, pos,
     return out
 
 
+# ---------------------------------------------------------------------------
+# K5: paged decode partials, for context-parallel decode
+# ---------------------------------------------------------------------------
+
+
+def cp_softmax_combine(acc, m, l, eps=1e-30):
+    """Merge per-shard online-softmax partials into finished attention (the
+    reference's `cp_softmax_combine`, flash_attention.py:1386).  acc [cp,
+    ..., d], m and l [cp, ..., 1], float32, over DISJOINT key sets stacked
+    on axis 0:
+
+        m* = max_s m_s
+        out = sum_s acc_s e^(m_s - m*) / max(sum_s l_s e^(m_s - m*), eps)
+
+    A shard that saw no key of a row (m_s = -1e30 or -inf) drops out, since
+    e^(m_s - m*) = 0 for the finite m* that shard 0, which holds token 0,
+    guarantees.  On one card the shards' partials are merged here with
+    torch ops; across cards the sums become all-reduces."""
+    m_star = m.amax(dim=0)
+    corr = torch.exp(m - m_star[None])
+    l_star = (l * corr).sum(dim=0)
+    acc_star = (acc * corr).sum(dim=0)
+    return acc_star / torch.clamp(l_star, min=eps)
+
+
+def cp_local_tables(tables, cp, per_shard, page_size):
+    """Per cp shard s, (local table [b, P/cp] int32, page_base [P/cp]
+    int32) from the global page table `tables` ([b, P] int32), as the
+    reference derives them (flash_attention.py:1451-1457).  Sequence page k
+    lives on shard k % cp, so shard s's columns are k = s + cp*j; a global
+    id g in its range becomes the local row g - s*per_shard, and anything
+    else (unmapped columns, scratch) local row 0, the shard's own scratch
+    page, which the position fence masks.  page_base[j] = (s + cp*j) *
+    page_size is the first token position of local column j."""
+    P = tables.shape[1]
+    if P % cp:
+        raise ValueError(f"page table width {P} does not divide into cp={cp} shards")
+    out = []
+    for s in range(cp):
+        cols = s + cp * torch.arange(P // cp, dtype=INDEX_DTYPE, device=tables.device)
+        loc = tables[:, s::cp] - s * per_shard
+        loc = torch.where((loc > 0) & (loc < per_shard), loc, 0).to(INDEX_DTYPE)
+        out.append((loc.contiguous(), cols * page_size))
+    return out
+
+
+def paged_decode_partials_plain(q, arena_k, arena_v, tables, page_base, pos,
+                                max_len, scale, k_scale=None, v_scale=None):
+    """Plain version of `paged_decode_partials`: gather the shard's pages
+    through the local table; key jid = page_base[col] + lane is seen by
+    row r (window offset w = r % sq) iff jid <= pos + w and jid < max_len.
+    Returns float32 acc [b, hk, rep*sq, d], m and l [b, hk, rep*sq, 1]: m
+    the row max of the seen scores (-1e30 for a row that sees none), l =
+    sum e^(s - m), acc = sum e^(s - m) v over the seen keys, p cast to v's
+    dtype before p.v (bf16 pages; int8 pages dequantize to float32)."""
+    b, sq, h, d = q.shape
+    ps, hk = arena_k.shape[1], arena_k.shape[2]
+    width = tables.shape[1] * ps
+    if k_scale is not None:
+        k = _dequant_gather(arena_k, k_scale, tables, width)
+        v = _dequant_gather(arena_v, v_scale, tables, width)
+    else:
+        k = paged_gather_kv(arena_k, tables, width)
+        v = paged_gather_kv(arena_v, tables, width)
+    R = (h // hk) * sq
+    q4 = q.permute(0, 2, 1, 3).reshape(b, hk, R, d)  # row r: member r // sq
+    kt, vt = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+    s = torch.einsum("bgrd,bgkd->bgrk", q4.float(), kt.float()) * scale
+    lane = torch.arange(ps, device=q.device)
+    jid = (page_base.long()[:, None] + lane).reshape(1, width)
+    w = (torch.arange(R, device=q.device) % sq).view(R, 1)
+    seen = (jid <= pos.view(b, 1, 1, 1) + w) & (jid < max_len)
+    s = torch.where(seen, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(seen, torch.exp(s - m), 0.0)
+    acc = torch.einsum("bgrk,bgkd->bgrd", p.to(v.dtype).float(), vt.float())
+    return acc, m, p.sum(dim=-1, keepdim=True)
+
+
+def paged_decode_partials(q, arena_k, arena_v, tables, page_base, pos,
+                          max_len, scale=None, k_scale=None, v_scale=None):
+    """K5 wrapper: one cp shard's page walk.  q: [b, sq, h, d]; arena_k/v:
+    the shard's pages [per_shard, page_size, kv_h, d] (a contiguous slice
+    of the global arena), int8 with float32 k_scale/v_scale [per_shard,
+    page_size, kv_h, 1] for the int8 variant; tables: [b, P_l] int32 LOCAL
+    page ids (each must name a page of the shard, see `cp_local_tables`);
+    page_base: [P_l] int32; pos: [b] int32.  Returns float32 (acc [b, hk,
+    rep*sq, d], m, l [b, hk, rep*sq, 1]), un-normalised.  A row that sees
+    no key has m = -1e30; its l and acc are whatever the masked scores gave
+    and must not be read without the combine's e^(m - m*)."""
+    quant = k_scale is not None
+    what = "paged_decode_fused_cp_q8" if quant else "paged_decode_fused_cp"
+    pos = _pos_vector(pos, q.shape[0], q.device)
+    _check_paged(q, arena_k, arena_v, tables, pos, what)
+    _require(page_base.shape == (tables.shape[1],) and page_base.dtype == INDEX_DTYPE,
+             f"{what}: page_base must be [P] int32")
+    if quant:
+        _check_scales(arena_k, k_scale, v_scale)
+        _require(arena_v.dtype == torch.int8, f"{what}: arenas must be int8")
+    else:
+        _require(q.dtype == arena_k.dtype == arena_v.dtype,
+                 f"{what}: q and arena dtypes differ")
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    scales = (k_scale, v_scale) if quant else ()
+    if not _on_cuda((q, arena_k, arena_v, *scales, tables, page_base, pos), what):
+        return paged_decode_partials_plain(q, arena_k, arena_v, tables, page_base,
+                                           pos, max_len, scale, k_scale, v_scale)
+    from ._build import check, lib
+
+    q, tables = q.contiguous(), tables.contiguous()
+    page_base, pos = page_base.contiguous(), pos.contiguous()
+    _require(all(t.is_contiguous() for t in (arena_k, arena_v, *scales)),
+             f"{what}: arenas and scales must be contiguous")
+    b, sq, h, d = q.shape
+    hk, ps, P = arena_k.shape[2], arena_k.shape[1], tables.shape[1]
+    R = (h // hk) * sq
+    acc = torch.empty((b, hk, R, d), dtype=torch.float32, device=q.device)
+    m = torch.empty((b, hk, R, 1), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    splits = _paged_splits(P, ps, R)
+    ws = _paged_workspace(q, hk, splits)
+    ptrs = [q.data_ptr(), arena_k.data_ptr(), arena_v.data_ptr()]
+    ptrs += [t.data_ptr() for t in scales]
+    ptrs += [tables.data_ptr(), page_base.data_ptr(), pos.data_ptr(),
+             acc.data_ptr(), m.data_ptr(), l.data_ptr(),
+             ws.data_ptr() if splits > 1 else None]
+    fn = (lib().ptt_paged_decode_partials_q8 if quant
+          else lib().ptt_paged_decode_partials)
+    code = fn(*ptrs, splits, b, sq, h, hk, d, ps, P, int(max_len), float(scale),
+              _dtype_code(q, what), _stream(q))
+    check(code, what)
+    launch_counts[what] += 1
+    return acc, m, l
+
+
+def paged_decode_cp(q, arena_k, arena_v, tables, pos, max_len, cp, scale=None,
+                    k_scale=None, v_scale=None, local=None):
+    """Context-parallel paged attention (the reference's
+    `_fused_paged_decode_cp_impl`, flash_attention.py:1411): the arena's
+    page axis splits into `cp` equal shards, shard s owning global pages
+    [s*per_shard, (s+1)*per_shard) with its scratch page first.  One K5
+    launch per shard over the view arena[s*per_shard:(s+1)*per_shard] (no
+    copy; the scale arenas likewise) with its local table and page_base
+    (`local`: `cp_local_tables` of `tables`, derived here when None), then
+    `cp_softmax_combine` over the shards, cast to q's dtype.  tables: [b,
+    P] GLOBAL page ids in the round-robin layout (sequence page k on shard
+    k % cp).  Returns [b, sq, h, d]."""
+    num_pages, ps = arena_k.shape[0], arena_k.shape[1]
+    if num_pages % cp or tables.shape[1] % cp:
+        raise ValueError(
+            f"context-parallel paged attention needs the pool ({num_pages} "
+            f"pages) and the table width ({tables.shape[1]}) to divide into "
+            f"cp={cp} shards"
+        )
+    per_shard = num_pages // cp
+    if local is None:
+        local = cp_local_tables(tables, cp, per_shard, ps)
+    pos = _pos_vector(pos, q.shape[0], q.device)
+    parts = []
+    for s, (loc, base) in enumerate(local):
+        sl = slice(s * per_shard, (s + 1) * per_shard)
+        scales = (k_scale[sl], v_scale[sl]) if k_scale is not None else (None, None)
+        parts.append(paged_decode_partials(q, arena_k[sl], arena_v[sl], loc, base,
+                                           pos, max_len, scale, *scales))
+    acc, m, l = (torch.stack(x) for x in zip(*parts))
+    b, sq, h, d = q.shape
+    out = cp_softmax_combine(acc, m, l)  # [b, hk, rep*sq, d]
+    return out.reshape(b, h, sq, d).permute(0, 2, 1, 3).to(q.dtype)
+
+
 def paged_decode_attention(q, arena_k, arena_v, tables, pos, max_len,
                            scale=None, kernel="auto", k_scale=None,
-                           v_scale=None):
+                           v_scale=None, cp=1, local=None):
     """Paged-decode attention dispatcher (the reference's
     `paged_decode_attention_array`, flash_attention.py:1553).  "fused" runs
     `paged_decode_fused`, or `paged_decode_fused_q8` when k_scale/v_scale
     are given (an int8 arena); each raises on a shape it does not take.
-    "auto", the reference flag's default, is an alias of "fused" because
-    the port has no silent fallback to the oracle.  "gather" runs the
-    explicit oracle: `paged_gather_kv` then the dense `decode_attention`,
-    dequantizing first under int8 (q in float32, cast back at the end)."""
+    With cp > 1 it runs `paged_decode_cp` (K5 per shard, then the combine;
+    `local` its precomputed `cp_local_tables`), and a pool or table width
+    that does not divide by cp raises ValueError (the reference falls back
+    to the gather there; the port has no silent fallback).  "auto", the
+    reference flag's default, is an alias of "fused" because the port has
+    no silent fallback to the oracle.  "gather" runs the explicit oracle
+    over the global arena: `paged_gather_kv` then the dense
+    `decode_attention`, dequantizing first under int8 (q in float32, cast
+    back at the end)."""
     if kernel not in ("auto", "fused", "gather"):
         raise ValueError(
             f"paged decode kernel must be auto|fused|gather, got {kernel!r}"
@@ -570,6 +755,9 @@ def paged_decode_attention(q, arena_k, arena_v, tables, pos, max_len,
     if quant != (v_scale is not None):
         raise ValueError("k_scale and v_scale must be given together")
     if kernel != "gather":
+        if cp > 1:
+            return paged_decode_cp(q, arena_k, arena_v, tables, pos, max_len, cp,
+                                   scale, k_scale, v_scale, local)
         if quant:
             return paged_decode_fused_q8(q, arena_k, arena_v, k_scale, v_scale,
                                          tables, pos, max_len, scale)

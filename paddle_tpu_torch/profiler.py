@@ -4,10 +4,14 @@ serving, paging and KV-quant parts of `paddle_tpu/profiler.py`).
 The engine records one entry per finished request and one per decode step;
 `serving_summary()` aggregates them with the reference's key names.
 `paging_summary()` holds the prefix cache's lookups, hits, prompt tokens
-saved, copy-on-write copies, commits and evictions; `kv_quant_summary()` the arena's storage precision and bytes.
+saved, copy-on-write copies, commits and evictions;
+`kv_quant_summary()` the arena's storage precision and bytes;
+`speculation_summary()` the verify steps' drafts proposed, accepted and
+tokens emitted; `mesh_summary()` the serving engine's parallel layout.
 `kernel_launch_counts()` reads every hand-written kernel's launches
 (`flash_fwd`, `paged_decode_fused`, `paged_decode_fused_q8`, `flash_bwd`,
-`dense_decode`); `summary()` holds them all.
+`dense_decode`, `paged_decode_fused_cp`, `paged_decode_fused_cp_q8`);
+`summary()` holds them all.
 """
 
 from __future__ import annotations
@@ -22,6 +26,8 @@ _lock = threading.Lock()
 _gauges = {}
 _paging = {}
 _kv_quant = {}
+_spec = {}
+_mesh = {}
 
 
 def _reset_locked():
@@ -181,6 +187,74 @@ def kv_quant_summary():
     return {} if g["mode"] == "none" else g
 
 
+def _reset_speculation_locked():
+    _spec.update(steps=0, proposed=0, accepted=0, emitted=0, slot_steps=0)
+
+
+_reset_speculation_locked()
+
+
+def reset_speculation():
+    with _lock:
+        _reset_speculation_locked()
+
+
+def record_speculation(proposed, accepted, emitted, slots):
+    """One speculative verify step: drafts proposed and accepted across the
+    batch, tokens emitted, and how many active slots took part."""
+    with _lock:
+        _spec["steps"] += 1
+        _spec["proposed"] += int(proposed)
+        _spec["accepted"] += int(accepted)
+        _spec["emitted"] += int(emitted)
+        _spec["slot_steps"] += int(slots)
+
+
+def speculation_summary():
+    """Verify steps, drafts proposed and accepted, tokens emitted,
+    acceptance_rate (accepted / proposed) and tokens_per_step (emitted per
+    slot-step; 1.0 is the plain engine).  {} before any verify step."""
+    with _lock:
+        g = dict(_spec)
+    if not g["steps"]:
+        return {}
+    out = {k: g[k] for k in ("steps", "proposed", "accepted", "emitted")}
+    if g["proposed"]:
+        out["acceptance_rate"] = g["accepted"] / g["proposed"]
+    if g["slot_steps"]:
+        out["tokens_per_step"] = g["emitted"] / g["slot_steps"]
+    return out
+
+
+def _reset_mesh_locked():
+    _mesh.update(devices=0, tp=1, cp=1, allreduce_per_step=0)
+
+
+_reset_mesh_locked()
+
+
+def reset_mesh():
+    with _lock:
+        _reset_mesh_locked()
+
+
+def record_mesh_topology(devices, tp, allreduce_per_step, cp=1):
+    """The serving engine's layout (construction; set, not summed): cards
+    used, tensor- and context-parallel degrees, and the cross-shard merges
+    per decode step (one softmax-partials combine per layer under cp, the
+    reference's all-reduces; on one card they run as torch ops)."""
+    with _lock:
+        _mesh.update(devices=int(devices), tp=int(tp), cp=int(cp),
+                     allreduce_per_step=int(allreduce_per_step))
+
+
+def mesh_summary():
+    """The recorded layout; {} until an engine has recorded one."""
+    with _lock:
+        g = dict(_mesh)
+    return g if g["devices"] else {}
+
+
 def kernel_launch_counts():
     """Launches of each hand-written kernel since the last reset."""
     return dict(_fa.launch_counts)
@@ -191,8 +265,9 @@ def reset_kernel_launch_counts():
 
 
 def summary():
-    """The serving, paging and KV-quant summaries and the kernel launch
-    counts in one dict."""
+    """The serving, paging, KV-quant, speculation and mesh summaries and the
+    kernel launch counts in one dict."""
     return {"serving": serving_summary(), "paging": paging_summary(),
             "kv_quant": kv_quant_summary(),
+            "speculation": speculation_summary(), "mesh": mesh_summary(),
             "kernel_launches": kernel_launch_counts()}

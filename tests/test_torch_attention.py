@@ -114,7 +114,8 @@ def test_cpu_tensors_never_count_a_kernel_launch():
     pfa.flash_forward(x, x, x)
     assert pfa.launch_counts == {"flash_fwd": 0, "paged_decode_fused": 0,
                                  "paged_decode_fused_q8": 0, "flash_bwd": 0,
-                                 "dense_decode": 0}
+                                 "dense_decode": 0, "paged_decode_fused_cp": 0,
+                                 "paged_decode_fused_cp_q8": 0}
 
 
 # ---------------------------------------------------------------------------

@@ -161,23 +161,30 @@ def test_submit_rejects_what_cannot_fit(models):
 
 
 @pytest.mark.parametrize(
-    "knob,item",
+    "knob,item,error",
     [
         # ids as they were when the prefix cache and int8 KV (since ported)
-        # were the first and third cases
-        pytest.param(dict(spec_k=2), "speculative", id="knob1-speculative"),
-        pytest.param(dict(tp=2), "tensor-parallel", id="knob3-tensor-parallel"),
-        pytest.param(dict(cp=2), "context-parallel", id="knob4-context-parallel"),
+        # were the first and third cases.  Speculation and context
+        # parallelism are ported too: their cases now hold the typed
+        # refusals left of them (the reference's ValueErrors)
+        pytest.param(dict(spec_k=-1), "spec_k must be >= 0", ValueError,
+                     id="knob1-speculative"),
+        pytest.param(dict(tp=2), "tensor-parallel", NotImplementedError,
+                     id="knob3-tensor-parallel"),
+        pytest.param(dict(cp=2, paged=False), "requires the paged engine",
+                     ValueError, id="knob4-context-parallel"),
         # the dense slot pool itself is ported; under tensor parallelism not
         pytest.param(dict(paged=False, tp=2), "tensor-parallel",
-                     id="knob5-dense slot-pool"),
-        pytest.param(dict(lora=object()), "LoRA", id="knob6-LoRA"),
-        pytest.param(dict(role="decode"), "disaggregated", id="knob7-disaggregated"),
+                     NotImplementedError, id="knob5-dense slot-pool"),
+        pytest.param(dict(lora=object()), "LoRA", NotImplementedError,
+                     id="knob6-LoRA"),
+        pytest.param(dict(role="decode"), "disaggregated", NotImplementedError,
+                     id="knob7-disaggregated"),
     ],
 )
-def test_unported_knobs_raise_naming_the_roadmap_item(models, knob, item):
+def test_unported_knobs_raise_naming_the_roadmap_item(models, knob, item, error):
     _, tm = models
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(error, match=item):
         _engine(tm, **knob)
 
 

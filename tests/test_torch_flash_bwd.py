@@ -201,5 +201,6 @@ def test_cpu_backward_never_counts_a_kernel_launch():
     _port_grads(*_inputs(1, 1, 8, 2, 2, 16), causal=True)
     assert pfa.launch_counts == {"flash_fwd": 0, "paged_decode_fused": 0,
                                  "paged_decode_fused_q8": 0, "flash_bwd": 0,
-                                 "dense_decode": 0}
+                                 "dense_decode": 0, "paged_decode_fused_cp": 0,
+                                 "paged_decode_fused_cp_q8": 0}
     assert profiler.summary()["kernel_launches"]["flash_bwd"] == 0
