@@ -13,8 +13,12 @@ Ten phases; a failure in any of them exits non-zero and prints no result.
               for K4, the lock-step prefill for K6), and times kernel,
               plain version and (where one exists) the PyTorch library call
               with CUDA events; then every other variant the wrappers
-              launch, untimed.  K5 (context-parallel decode) is timed
-              beside K2 over the same global arena.
+              launch, untimed, on every kernel path their dispatch rules
+              pick (K1/K6: wgmma + TMA, mma.sync, FMA; K2/K4/K5: the
+              tensor-core chunk window, the FMA page walk).  K5
+              (context-parallel decode) is timed beside K2 over the same
+              global arena; the chunk windows of K2, K4 and K5 are timed
+              apart.
 4. slice   -- serves a full-width, full-depth Llama-2-7B (bf16, random
               weights from a seeded generator) through the paged engine
               behind `POST /generate`, checks the token counts and that every
@@ -24,9 +28,10 @@ Ten phases; a failure in any of them exits non-zero and prints no result.
 5. prefix  -- the same model behind prefix-cached engines, in full precision
               and over int8 pages: requests sharing a system prompt hit the
               cache, copy its tail page and chunk-prefill their suffix; checks
-              token counts, hits and copies, the launches of K1, K2 and K4,
-              logits against the teacher-forced forward, and prints the
-              int8 run's greedy agreement with the full-precision run.
+              token counts, hits and copies, the launches of K1, K2 and K4
+              (every chunk prefill on the tensor-core path), logits against
+              the teacher-forced forward, and prints the int8 run's greedy
+              agreement with the full-precision run.
 6. generate -- the same model's lock-step `generate`: greedy over four
               500-token prompts, beam search, seeded sampling twice, a short
               prompt; K6 launched once per layer by every prefill of 64+
@@ -44,14 +49,16 @@ Ten phases; a failure in any of them exits non-zero and prints no result.
               step), cp=2 with speculative decoding (spec_k=2), and the
               same over int8 pages.  Checks token counts, /healthz, the 400
               answer to a prompt past the context, K5 launched once per
-              shard per layer per paged attention (no K2 or K4 under cp),
+              shard per layer per paged attention (no K2 or K4 under cp;
+              every chunk prefill on the tensor-core path),
               logits against the teacher-forced forward; prints the greedy
               agreement between runs, speculation counters, decode
               tokens/s and TTFT, and a profiled cp=2 decode step.
 9. train   -- trains Llama-2-7B's widths at 8 layers (bf16 AMP O2, AdamW with
               float32 master weights) for 6 steps on one repeated batch of
-              4 x 2048 tokens: finite and falling losses, K1 and K3 launched
-              once per layer per step, every weight moved; step time,
+              4 x 2048 tokens: finite and falling losses, K1 (on its wgmma
+              path) and K3 launched once per layer per step, every weight
+              moved; step time,
               tokens/s, peak memory and a profiled step.
               Then 2 steps of 2 layers with activation recompute (K1 twice
               per layer per step).
@@ -202,6 +209,11 @@ def close(out, ref):
             and rel_norm_err(out, ref) <= REL_NORM_TOL[name])
 
 
+def _main(counts):
+    """The launch counts that are not zero, for a log line."""
+    return {name: n for name, n in counts.items() if n}
+
+
 def bound(nbytes, flops, peak_flop_s=PEAK_BF16_FLOP_S):
     """The least milliseconds the card could take: the larger of the bytes
     over the memory rate and the operations over `peak_flop_s`."""
@@ -229,6 +241,27 @@ def phase_device():
     return smi
 
 
+def _ptxas_summary(report):
+    """One line per compiled kernel from `ptxas -v`: its name, registers and
+    spills, and the head of its mangled name (which tells the template
+    instances apart)."""
+    import re
+
+    out, name, spill = [], None, ""
+    for line in report.splitlines():
+        found = re.search(r"Function properties for (\S+)", line)
+        if found:
+            name, spill = found.group(1), ""
+        elif "spill" in line:
+            spill = line.strip()
+        elif name and (found := re.search(r"Used (\d+) registers", line)):
+            short = re.search(r"([a-z][a-z_]*_kernel)", name)
+            out.append(f"{short.group(1) if short else name}: {found.group(1)} "
+                       f"registers, {spill} [{name[:72]}]")
+            name = None
+    return out
+
+
 def phase_build():
     from paddle_tpu_torch.ops import _build
 
@@ -236,9 +269,8 @@ def phase_build():
     path = _build.build(verbose=True)
     _build.lib()
     secs = time.perf_counter() - t0
-    for line in _build.build.ptxas_report.splitlines():
-        if "registers" in line or "spill" in line:
-            log("build", "ptxas: " + line.strip())
+    for line in _ptxas_summary(_build.build.ptxas_report):
+        log("build", "ptxas: " + line)
     log("build", f"built {path.name} from "
                  f"{[p.name for p in _build.sources()]} in {secs:.2f} s")
     return secs
@@ -265,8 +297,8 @@ def _k1_case(b, s, h, hk, d=128, seed=0, dtype="bfloat16", causal=True,
     lse_err = (lse - ref_lse).abs().max().item()
     ok = close(out, ref_out) and lse_err <= LSE_ATOL
     shape = (f"flash_fwd {dtype} b={b} s={s} h={h} hk={hk} d={d} "
-             f"causal={causal}: max_abs_err {err:.3e}, rel_norm_err {rel:.3e}, "
-             f"lse_err {lse_err:.3e}")
+             f"causal={causal} path {fa.flash_path(s, d, q.dtype)}: max_abs_err "
+             f"{err:.3e}, rel_norm_err {rel:.3e}, lse_err {lse_err:.3e}")
     if not timed:
         log("kernels", f"{shape} -> {'ok' if ok else 'FAIL'}")
         return ok, dict(max_abs_err=err)
@@ -350,8 +382,9 @@ def _k2_case(b, sq, h, hk, pos, d=128, ps=128, max_len=2048, seed=1,
     err = (out.float() - ref.float()).abs().max().item()
     rel = rel_norm_err(out, ref)
     ok = close(out, ref)
+    path = fa.paged_path((h // hk) * sq, d, q.dtype)
     shape = (f"{name} {dtype} b={b} sq={sq} h={h} hk={hk} d={d} ps={ps} "
-             f"pos={pos}{' overrun' if overrun else ''}: max_abs_err "
+             f"pos={pos}{' overrun' if overrun else ''} path {path}: max_abs_err "
              f"{err:.3e}, rel_norm_err {rel:.3e}")
     if not timed:
         log("kernels", f"{shape} -> {'ok' if ok else 'FAIL'}")
@@ -373,16 +406,19 @@ def _k2_case(b, sq, h, hk, pos, d=128, ps=128, max_len=2048, seed=1,
             qt, kg, vg, attn_mask=mask, enable_gqa=h != hk))
     # bytes this data needs: each slot's live K/V rows of every kv head (and
     # their float32 scales under int8), q, out, tables and pos; operations
-    # over the visible (row, key) pairs, at the bf16 tensor peak for K2 and
-    # the float32 peak for K4 (its products are float32, as the
-    # reference's are)
+    # over the visible (row, key) pairs, at the peak of the units that run
+    # them: the bf16 tensor peak for K2 and for the tensor-core chunk window
+    # (int8 pages too: it converts them to bf16 exactly), the float32 peak
+    # for K4's FMA page walk (its products are float32, as the reference's
+    # are)
     live = [min(p + sq, max_len) for p in pos]
     row_bytes = d + 4 if quant else d * 2
     nbytes = (sum(live) * hk * row_bytes * 2 + 2 * q.numel() * q.element_size()
               + tables.numel() * 4 + b * 4)
     visible = sum(min(p + w + 1, max_len) for p in pos for w in range(sq))
     flops = 4 * d * h * visible
-    bms, by = bound(nbytes, flops, PEAK_F32_FLOP_S if quant else PEAK_BF16_FLOP_S)
+    f32_units = quant and path == "fma"
+    bms, by = bound(nbytes, flops, PEAK_F32_FLOP_S if f32_units else PEAK_BF16_FLOP_S)
     lib_txt = "null" if lib_ms is None else f"{lib_ms:.4f}"
     log("kernels", f"{shape}, kernel_ms {ms:.4f}, plain_ms {plain_ms:.4f}, "
                    f"library_ms {lib_txt}, bound_ms {bms:.5f} ({by}) -> "
@@ -615,9 +651,11 @@ def _k5_case(b, sq, h, hk, pos, d=128, ps=128, max_len=4096, cp=2, seed=20,
     parts_ok = _partials_ok(parts, plain_parts, q.dtype)
     ok = close(out, glob) and close(plain, glob) and parts_ok
     name = "paged_decode_fused_cp_q8" if quant else "paged_decode_fused_cp"
+    rows = (h // hk) * sq
+    path = fa.paged_path(rows, d, q.dtype)
     shape = (f"{name} {dtype} b={b} sq={sq} h={h} hk={hk} d={d} ps={ps} cp={cp} "
-             f"max_len={max_len} pos={pos} splits/shard="
-             f"{fa._paged_splits(tables.shape[1] // cp, ps, (h // hk) * sq)}: "
+             f"max_len={max_len} pos={pos} path {path} splits/shard="
+             f"{fa.paged_splits(path, b, hk, rows, tables.shape[1] // cp, ps)}: "
              f"max_abs_err {err:.3e}, rel_norm_err {rel:.3e} vs the global "
              f"plain version, partials {'ok' if parts_ok else 'WRONG'}")
     if not timed:
@@ -632,8 +670,8 @@ def _k5_case(b, sq, h, hk, pos, d=128, ps=128, max_len=4096, cp=2, seed=20,
     # bytes: q, each slot's live K/V rows of every kv head (scales under
     # int8), the local tables, page_base and pos read once, every shard's
     # partials written once, the output written once; operations over the
-    # visible (row, key) pairs at the bf16 tensor peak (K4's float32 peak
-    # under int8)
+    # visible (row, key) pairs at the bf16 tensor peak (the float32 peak for
+    # the FMA page walk over int8 pages)
     live = [min(p + sq, max_len) for p in pos]
     row_bytes = d + 4 if quant else d * 2
     R = (h // hk) * sq
@@ -642,7 +680,7 @@ def _k5_case(b, sq, h, hk, pos, d=128, ps=128, max_len=4096, cp=2, seed=20,
               + cp * b * hk * R * (d + 2) * 4)
     visible = sum(min(p + w + 1, max_len) for p in pos for w in range(sq))
     bms, by = bound(nbytes, 4 * d * h * visible,
-                    PEAK_F32_FLOP_S if quant else PEAK_BF16_FLOP_S)
+                    PEAK_F32_FLOP_S if quant and path == "fma" else PEAK_BF16_FLOP_S)
     k2_txt = "n/a" if k2_ms is None else f"{k2_ms:.4f}"
     log("kernels", f"{shape}, kernel_ms {ms:.4f} ({cp} launches + combine), "
                    f"k2_same_arena_ms {k2_txt}, plain_ms {plain_ms:.4f}, "
@@ -652,13 +690,32 @@ def _k5_case(b, sq, h, hk, pos, d=128, ps=128, max_len=4096, cp=2, seed=20,
                     bound_by=by, library_ms=None, k2_same_arena_ms=k2_ms)
 
 
+# The chunk window's tensor-core path (rows = rep * sq >= 16, bf16, d 64 or
+# 128), each case over bf16 and over int8 pages: the smallest tile, 16 + 1
+# rows, one full tile, a ragged second tile, the largest bucket, GQA rep 4
+# x sq 64, d 64 at page size 64, and a window running into scratch page 0
+# with 16-row pages (a key tile spans four pages)
+CHUNK_CASES = (
+    dict(b=2, sq=16, h=32, hk=32, pos=[700, 5]),
+    dict(b=2, sq=17, h=32, hk=32, pos=[300, 40]),
+    dict(b=1, sq=64, h=32, hk=32, pos=[1000]),
+    dict(b=2, sq=65, h=32, hk=32, pos=[129, 1500]),
+    dict(b=1, sq=512, h=32, hk=32, pos=[300]),
+    dict(b=2, sq=64, h=32, hk=8, pos=[1000, 44]),
+    dict(b=2, sq=40, h=8, hk=2, pos=[900, 40], d=64, ps=64, max_len=1024),
+    dict(b=3, sq=16, h=8, hk=2, pos=[14, 30, 7], d=64, ps=16, max_len=256,
+         overrun=True),
+)
+
+
 def phase_kernels():
     """Each kernel against its plain version: timed at the main paths' bf16
     shapes, then untimed over every other variant the wrappers launch on
     the card (float32, head_dim 64 and 256, non-causal, GQA, ragged, the
-    largest shared memory).  Returns ({name: record at the headline
-    shape}, all_ok); the record's max_abs_err is the worst over the bf16
-    cases."""
+    largest shared memory, each kernel path of `flash_path` and
+    `paged_path`).  Returns ({name: record at the headline shape}, all_ok);
+    the record's max_abs_err is the worst over the bf16 cases of that
+    entry."""
     import torch
 
     from paddle_tpu_torch.ops import flash_attention as fa
@@ -670,64 +727,74 @@ def phase_kernels():
                    f"({F32_ATOL}, {F32_RTOL}) in f32; lse within {LSE_ATOL}; "
                    f"rel_norm_err per (batch, head) <= {REL_NORM_TOL}")
     ok_all = True
-    k1 = {}
-    for s in (16, 128, 512):
-        ok, rec = _k1_case(1, s, 32, 32)
+
+    def case(fn, errs, **kw):
+        nonlocal ok_all
+        ok, rec = fn(**kw)
         ok_all &= ok
-        k1[s] = rec
-    ok, rec = _k1_case(1, 300, 32, 8, seed=3)  # ragged, GQA
-    ok_all &= ok
-    errs1 = [r["max_abs_err"] for r in k1.values()] + [rec["max_abs_err"]]
+        if kw.get("dtype", "bfloat16") == "bfloat16" and errs is not None:
+            errs.append(rec["max_abs_err"])
+        return rec
+
+    # K1: the serving prefill buckets (s 16 on mma.sync, 128 and 512 on
+    # wgmma) timed, then ragged GQA, non-causal and d 64 on both paths
+    errs1 = []
+    k1 = {s: case(_k1_case, errs1, b=1, s=s, h=32, hk=32) for s in (16, 128, 512)}
+    for kw in (dict(b=1, s=300, h=32, hk=8),                  # ragged, GQA
+               dict(b=1, s=128, h=32, hk=32, causal=False),
+               dict(b=2, s=300, h=16, hk=4, d=64, causal=False),
+               dict(b=1, s=512, h=16, hk=16, d=64),
+               dict(b=2, s=16, h=8, hk=2, d=64),
+               dict(b=1, s=2048, h=8, hk=8, causal=False)):
+        case(_k1_case, errs1, seed=3, timed=False, **kw)
     decode_pos = [1999, 1500, 1024, 700, 300, 128, 127, 5]
-    ok, k2 = _k2_case(8, 1, 32, 32, decode_pos)
-    ok_all &= ok
-    ok, rec2 = _k2_case(4, 4, 32, 8, [1000, 513, 64, 0], seed=2)  # GQA, sq 4
-    ok_all &= ok
-    errs2 = [k2["max_abs_err"], rec2["max_abs_err"]]
+    errs2 = []
+    k2 = case(_k2_case, errs2, b=8, sq=1, h=32, hk=32, pos=decode_pos)
+    case(_k2_case, errs2, b=4, sq=4, h=32, hk=8, pos=[1000, 513, 64, 0], seed=2)
     # the chunk prefill of a prefix-cache hit: a 256-row suffix bucket at
-    # position 300, then the largest bucket and a GQA group x window of 256
-    # rows (rep 4 x sq 64), untimed
-    ok, _ = _k2_case(1, 256, 32, 32, [300], seed=9, library=True)
-    ok_all &= ok
-    for kw in (dict(b=1, sq=512, h=32, hk=32, pos=[300]),
-               dict(b=2, sq=64, h=32, hk=8, pos=[1000, 44])):
-        ok, rec = _k2_case(seed=10, timed=False, **kw)
-        ok_all &= ok
-        errs2.append(rec["max_abs_err"])
-    # K4: int8 pages at the decode and chunk cases, timed, then its other
-    # variants untimed
-    ok, k4 = _k2_case(8, 1, 32, 32, decode_pos, seed=11, quant=True)
-    ok_all &= ok
-    ok, rec = _k2_case(1, 256, 32, 32, [300], seed=12, quant=True)
-    ok_all &= ok
-    errs4 = [k4["max_abs_err"], rec["max_abs_err"]]
+    # position 300 on the tensor-core path, timed beside SDPA on the
+    # gathered K/V; then every chunk case untimed
+    errs2c, errs4c = [], []
+    k2c = case(_k2_case, errs2c, b=1, sq=256, h=32, hk=32, pos=[300], seed=9,
+               library=True)
+    for kw in CHUNK_CASES:
+        case(_k2_case, errs2c, seed=10, timed=False, **kw)
+    # K4: int8 pages at the decode case and the chunk window, timed, then
+    # the chunk cases and its other variants untimed
+    errs4 = []
+    k4 = case(_k2_case, errs4, b=8, sq=1, h=32, hk=32, pos=decode_pos, seed=11,
+              quant=True)
+    k4c = case(_k2_case, errs4c, b=1, sq=256, h=32, hk=32, pos=[300], seed=12,
+               quant=True)
+    for kw in CHUNK_CASES:
+        case(_k2_case, errs4c, seed=13, timed=False, quant=True, **kw)
     for kw in (
         dict(b=4, sq=4, h=32, hk=8, pos=[1000, 513, 64, 0]),        # GQA, sq 4
-        dict(b=2, sq=64, h=32, hk=8, pos=[1000, 44]),               # 4 row tiles
         dict(b=4, sq=1, h=32, hk=8, pos=[1500, 700, 129, 3], dtype="float32"),
         dict(b=2, sq=2, h=8, hk=2, pos=[900, 40], d=64, ps=64, max_len=1024),
         # scalar tile loads (d bytes not a multiple of 16), 2 splits
         dict(b=2, sq=1, h=4, hk=2, pos=[700, 10], d=36, ps=16, max_len=1024),
-        # windows running past the mapped pages into scratch page 0
-        dict(b=3, sq=4, h=8, hk=2, pos=[14, 30, 7], d=64, ps=16, max_len=256,
+        # windows running past the mapped pages into scratch page 0, on
+        # the FMA page walk (12 rows; CHUNK_CASES has the tensor-core one)
+        dict(b=3, sq=3, h=8, hk=2, pos=[14, 30, 7], d=64, ps=16, max_len=256,
              overrun=True),
+        # float32 q at 64 rows: the FMA page walk
+        dict(b=1, sq=64, h=8, hk=8, pos=[300], d=64, ps=64, max_len=1024,
+             dtype="float32"),
     ):
-        ok, rec = _k2_case(seed=13, timed=False, quant=True, **kw)
-        ok_all &= ok
-        if kw.get("dtype", "bfloat16") == "bfloat16":
-            errs4.append(rec["max_abs_err"])
+        case(_k2_case, errs4, seed=13, timed=False, quant=True, **kw)
     # the other variants: each line is one kernel instantiation or mode
     for kw in (
         dict(b=1, s=128, h=32, hk=32, dtype="float32"),   # f32 FMA, d 128
         dict(b=1, s=100, h=8, hk=2, d=256, dtype="float32"),  # f32 FMA, d 256
         dict(b=1, s=200, h=16, hk=4, d=256),              # bf16 FMA, d 256
-        dict(b=2, s=130, h=32, hk=8, d=64),               # bf16 mma<64>
-        dict(b=2, s=200, h=32, hk=8, causal=False),       # non-causal mma<128>
+        dict(b=2, s=130, h=32, hk=8, d=64),               # wgmma<64>
+        dict(b=2, s=100, h=32, hk=8, causal=False),       # non-causal mma<128>
         dict(b=1, s=150, h=8, hk=8, d=64, causal=False, dtype="float32"),
         dict(b=1, s=70, h=4, hk=2, d=36),                 # mma<64>, scalar loads
+        dict(b=1, s=200, h=8, hk=2, d=100),               # mma<128>, d not 64/128
     ):
-        ok, _ = _k1_case(seed=4, timed=False, **kw)
-        ok_all &= ok
+        case(_k1_case, errs1, seed=4, timed=False, **kw)
     for kw in (
         dict(b=4, sq=1, h=32, hk=8, pos=[1500, 700, 129, 3], dtype="float32"),
         # largest shared memory (a 64-row tile at d 256), then a partial
@@ -735,18 +802,17 @@ def phase_kernels():
         dict(b=2, sq=3, h=32, hk=1, pos=[900, 40], d=256, ps=64, max_len=1024),
         # scalar tile loads (d * 2 bytes not a multiple of 16), 2 splits
         dict(b=2, sq=1, h=4, hk=2, pos=[700, 10], d=36, ps=16, max_len=1024),
+        # 15 rows: the last shape below the tensor-core path
+        dict(b=2, sq=15, h=8, hk=8, pos=[400, 9], d=64, ps=64, max_len=1024),
+        # a float32 chunk: the FMA page walk at 64 rows
+        dict(b=1, sq=64, h=8, hk=8, pos=[300], d=64, ps=64, max_len=1024,
+             dtype="float32"),
     ):
-        ok, rec = _k2_case(seed=5, timed=False, **kw)
-        ok_all &= ok
-        if kw.get("dtype", "bfloat16") == "bfloat16":
-            errs2.append(rec["max_abs_err"])
+        case(_k2_case, errs2, seed=5, timed=False, **kw)
     # the training path: K1 and K3 at the slice's shape, timed
-    ok, k1_train = _k1_case(TRAIN_BATCH, TRAIN_SEQ, 32, 32, seed=7)
-    ok_all &= ok
-    errs1.append(k1_train["max_abs_err"])
-    ok, k3 = _k3_case(TRAIN_BATCH, TRAIN_SEQ, 32, 32)
-    ok_all &= ok
-    errs3 = [k3["max_abs_err"]]
+    k1_train = case(_k1_case, errs1, b=TRAIN_BATCH, s=TRAIN_SEQ, h=32, hk=32, seed=7)
+    errs3 = []
+    k3 = case(_k3_case, errs3, b=TRAIN_BATCH, s=TRAIN_SEQ, h=32, hk=32)
     for kw in (
         dict(b=1, s=128, h=32, hk=32, dtype="float32"),    # f32 FMA, d 128
         dict(b=2, s=256, h=32, hk=8),                      # GQA
@@ -758,68 +824,74 @@ def phase_kernels():
         dict(b=1, s=70, h=4, hk=2, d=36),                  # d not a power of 2
         dict(b=1, s=150, h=8, hk=8, d=64, causal=False, dtype="float32"),
     ):
-        ok, rec = _k3_case(seed=8, timed=False, **kw)
-        ok_all &= ok
-        if kw.get("dtype", "bfloat16") == "bfloat16":
-            errs3.append(rec["max_abs_err"])
-    # K6: the lock-step prefill of the generate phase, timed, then GQA,
-    # ragged sq at pos > 0, float32 and the FMA path at d 256, untimed
-    ok, k6 = _k6_case(GEN_BATCH, GEN_LEN, 32, 32, L=640)
-    ok_all &= ok
-    errs6 = [k6["max_abs_err"]]
+        case(_k3_case, errs3, seed=8, timed=False, **kw)
+    # K6: the lock-step prefill of the generate phase (wgmma), timed, then
+    # GQA, ragged sq at pos > 0 on both tensor-core paths, float32 and the
+    # FMA path at d 256, untimed
+    errs6 = []
+    k6 = case(_k6_case, errs6, b=GEN_BATCH, sq=GEN_LEN, h=32, hk=32, L=640)
     for kw in (
         dict(b=1, sq=64, h=8, hk=2, d=64, L=128, pos=30),     # GQA, mma<64>
         dict(b=1, sq=130, h=32, hk=32, L=384, pos=200),       # ragged, pos > 0
         dict(b=2, sq=77, h=16, hk=4, L=256, pos=10),          # ragged tile
+        dict(b=2, sq=200, h=16, hk=4, d=64, L=512, pos=250),  # wgmma<64>, GQA
         dict(b=1, sq=100, h=8, hk=2, L=256, pos=50, dtype="float32"),
         dict(b=1, sq=96, h=8, hk=2, d=256, L=256, pos=40),    # bf16 FMA, d 256
         dict(b=1, sq=70, h=4, hk=2, d=256, L=128, pos=5, dtype="float32"),
     ):
-        ok, rec = _k6_case(seed=15, timed=False, **kw)
-        ok_all &= ok
-        if kw.get("dtype", "bfloat16") == "bfloat16":
-            errs6.append(rec["max_abs_err"])
+        case(_k6_case, errs6, seed=15, timed=False, **kw)
     # K6 at pos 0 over a cache as long as the prompt is K1's computation:
-    # the two entry points must give the same bits
-    for dtype in ("bfloat16", "float32"):
+    # the two entry points must give the same bits, on each K1 path
+    for dtype, sq in (("bfloat16", 300), ("bfloat16", 100), ("float32", 300)):
         g = torch.Generator(device="cuda").manual_seed(16)
-        q, k, v = (torch.randn(1, 300, heads, 128, generator=g, device="cuda",
+        q, k, v = (torch.randn(1, sq, heads, 128, generator=g, device="cuda",
                                dtype=getattr(torch, dtype)) for heads in (32, 8, 8))
         same = torch.equal(fa.dense_decode(q, k, v, 0), fa.flash_forward(q, k, v)[0])
         ok_all &= same
-        log("kernels", f"dense_decode {dtype} at pos 0, L = sq = 300, GQA: equal "
-                       f"to flash_fwd bit for bit: {same} -> {'ok' if same else 'FAIL'}")
+        log("kernels", f"dense_decode {dtype} at pos 0, L = sq = {sq}, GQA, path "
+                       f"{fa.flash_path(sq, 128, q.dtype)}: equal to flash_fwd bit "
+                       f"for bit: {same} -> {'ok' if same else 'FAIL'}")
     # K5: cp=2 decode at the cp phase's context (per-slot pos 3000-4000 of
-    # 4096, 4 splits per shard), timed beside K2 over the same arena; then
+    # 4096, 4 splits per shard), timed beside K2 over the same arena; its
+    # chunk window (a hit's 256-row chunk prefill at pos 3000), timed; then
     # the variants the cp engine launches, untimed
-    ok, k5 = _k5_case(8, 1, 32, 32, K5_DECODE_POS)
-    ok_all &= ok
-    errs5 = [k5["max_abs_err"]]
+    errs5, errs5c = [], []
+    k5 = case(_k5_case, errs5, b=8, sq=1, h=32, hk=32, pos=K5_DECODE_POS)
+    k5c = case(_k5_case, errs5c, b=1, sq=256, h=32, hk=32, pos=[3000])
     for kw in (
         dict(b=4, sq=1, h=32, hk=8, pos=[3500, 1700, 129, 3], dtype="float32"),
         dict(b=8, sq=1, h=32, hk=32, pos=K5_DECODE_POS, quant=True),     # int8
         dict(b=8, sq=3, h=32, hk=32, pos=K5_DECODE_POS),    # a verify window
         dict(b=4, sq=3, h=32, hk=32, pos=[3100, 2000, 900, 1], quant=True),
-        dict(b=1, sq=256, h=32, hk=32, pos=[3000]),  # a hit's chunk prefill
         dict(b=4, sq=3, h=32, hk=8, d=64, pos=[3999, 2100, 700, 64]),    # GQA
         dict(b=4, sq=1, h=32, hk=32, pos=[3900, 3000, 1000, 5], cp=4),
         # pos < page_size: shard 1 sees no key; one split per shard
         dict(b=4, sq=1, h=32, hk=32, pos=[1000, 300, 100, 0], max_len=1024),
     ):
-        ok, rec = _k5_case(seed=21, timed=False, **kw)
-        ok_all &= ok
-        if kw.get("dtype", "bfloat16") == "bfloat16" and not kw.get("quant"):
-            errs5.append(rec["max_abs_err"])
+        case(_k5_case, errs5 if not kw.get("quant") else None, seed=21,
+             timed=False, **kw)
+    for kw in (
+        # chunk windows: the slot at pos 0 sees no key of shard 1 (nor, at
+        # cp 4, of shards 1-3), pos 100 only some rows do
+        dict(b=4, sq=64, h=32, hk=32, pos=[3000, 1000, 100, 0]),
+        dict(b=4, sq=64, h=32, hk=32, pos=[3000, 1000, 100, 0], quant=True),
+        dict(b=2, sq=64, h=32, hk=32, pos=[1000, 0], cp=4),
+        dict(b=2, sq=64, h=32, hk=32, pos=[1000, 40], cp=4, quant=True),
+        dict(b=2, sq=16, h=32, hk=8, d=64, pos=[2000, 10]),            # GQA
+    ):
+        case(_k5_case, errs5c, seed=22, timed=False, **kw)
     torch.cuda.empty_cache()
-    head1 = dict(k1[512], max_abs_err=max(errs1))
-    head2 = dict(k2, max_abs_err=max(errs2))
-    head3 = dict(k3, max_abs_err=max(errs3))
-    head4 = dict(k4, max_abs_err=max(errs4))
-    head6 = dict(k6, max_abs_err=max(errs6))
-    head5 = dict(k5, max_abs_err=max(errs5))
-    return {"flash_fwd": head1, "paged_decode_fused": head2,
-            "paged_decode_fused_q8": head4, "flash_bwd": head3,
-            "dense_decode": head6, "paged_decode_fused_cp": head5}, ok_all
+    worst = lambda rec, errs: dict(rec, max_abs_err=max(errs))
+    return {"flash_fwd": worst(k1[512], errs1),
+            "flash_fwd_wgmma": worst(k1_train, errs1),
+            "paged_decode_fused": worst(k2, errs2),
+            "paged_decode_fused_mma": worst(k2c, errs2c),
+            "paged_decode_fused_q8": worst(k4, errs4),
+            "paged_decode_fused_q8_mma": worst(k4c, errs4c),
+            "flash_bwd": worst(k3, errs3),
+            "dense_decode": worst(k6, errs6),
+            "paged_decode_fused_cp": worst(k5, errs5),
+            "paged_decode_fused_cp_mma": worst(k5c, errs5c)}, ok_all
 
 
 def _post(url, body):
@@ -891,11 +963,13 @@ def phase_slice(smi, cfg, device="cuda", dtype="bfloat16",
     peak_gib = (f"{torch.cuda.max_memory_allocated() / 2**30:.2f}" if on_card
                 else "not measured")
     log("slice", f"served {len(prompts)} requests over HTTP in {wall:.3f} s: "
-                 f"token counts {'ok' if tokens_ok else 'WRONG'}; launches {counts} "
+                 f"token counts {'ok' if tokens_ok else 'WRONG'}; launches {_main(counts)} "
                  f"(expected flash_fwd {want_k1} = {len(prompts)} prefills x "
                  f"{layers} layers, paged_decode_fused {want_k2} = "
                  f"{summary['decode_steps']} decode steps x {layers}) -> "
-                 f"{'ok' if counts_ok else 'FAIL'}")
+                 f"{'ok' if counts_ok else 'FAIL'}; prefills on K1's wgmma path "
+                 f"{counts['flash_fwd_wgmma'] // max(1, layers)} of {len(prompts)} "
+                 f"(buckets of 128+ rows)")
     log("slice", f"ttft_p50_ms {summary['ttft_p50_ms']:.3f} ttft_p95_ms "
                  f"{summary['ttft_p95_ms']:.3f} decode_tokens_per_s "
                  f"{decode_tps:.2f} (batch of up to {engine.slots}) "
@@ -1043,8 +1117,11 @@ def phase_prefix(smi, model, kv_quant, device="cuda", sys_len=PREFIX_SYS_LEN,
     want_paged = (hits + summary["decode_steps"]) * layers
     paged_name = "paged_decode_fused_q8" if kv_quant == "int8" else "paged_decode_fused"
     other = "paged_decode_fused" if kv_quant == "int8" else "paged_decode_fused_q8"
+    on_card = torch.device(device).type == "cuda"
+    want_tc = hits * layers if on_card else 0  # every chunk prefill
+    tc_ok = counts[paged_name + "_mma"] == want_tc
     counts_ok = (counts["flash_fwd"] == want_k1 and counts[paged_name] == want_paged
-                 and counts[other] == 0)
+                 and counts[other] == 0 and tc_ok)
     ok = tokens_ok and sharing_ok and counts_ok
     log(phase, f"served {len(spec)} requests over HTTP in {wall:.3f} s: token "
                f"counts {'ok' if tokens_ok else 'WRONG'}; prefix hits {hits}, "
@@ -1052,10 +1129,14 @@ def phase_prefix(smi, model, kv_quant, device="cuda", sys_len=PREFIX_SYS_LEN,
                f"{paging.get('prefill_tokens_saved', 0)}, commits "
                f"{paging.get('cache_commits', 0)} (want hits and copies >= "
                f"{len(shared) - 1}) -> {'ok' if sharing_ok else 'FAIL'}")
-    log(phase, f"launches {counts} (expected flash_fwd {want_k1} = {fresh} fresh "
-               f"prefills x {layers} layers, {paged_name} {want_paged} = ({hits} "
-               f"chunk prefills + {summary['decode_steps']} decode steps) x "
+    log(phase, f"launches {_main(counts)} (expected flash_fwd {want_k1} = {fresh} "
+               f"fresh prefills x {layers} layers, {paged_name} {want_paged} = "
+               f"({hits} chunk prefills + {summary['decode_steps']} decode steps) x "
                f"{layers}, {other} 0) -> {'ok' if counts_ok else 'FAIL'}")
+    log(phase, f"chunk prefills on the tensor-core path: "
+               f"{counts[paged_name + '_mma'] // max(1, layers)} of {hits} "
+               f"({counts[paged_name + '_mma']} launches, expected {want_tc}) -> "
+               f"{'ok' if tc_ok else 'FAIL'}")
     decode_tps = (summary["tokens"] - summary["requests"]) / summary["decode_busy_s"]
     log(phase, f"ttft_p50_ms {summary['ttft_p50_ms']:.3f} ttft_p95_ms "
                f"{summary['ttft_p95_ms']:.3f} decode_tokens_per_s {decode_tps:.2f} "
@@ -1073,8 +1154,13 @@ def phase_prefix(smi, model, kv_quant, device="cuda", sys_len=PREFIX_SYS_LEN,
     log(phase, f"teacher-forced greedy agreement {agree}/{total} = "
                f"{agree / total:.4f}; worst logits rel err {worst:.4f} (tol "
                f"{LOGIT_REL_TOL}) -> {'ok' if logits_ok else 'FAIL'}")
-    if torch.device(device).type == "cuda" and kv_quant == "int8":
-        profile_decode(engine, cfg, rng)
+    if torch.device(device).type == "cuda":
+        if kv_quant == "int8":
+            profile_decode(engine, cfg, rng)
+        else:
+            profile_prefix_hit(engine, [
+                np.concatenate([system, rng.integers(1, cfg.vocab_size, size=n)])
+                .astype(np.int32) for n in (64, 128, 200)])
     return ok, counts, gen[:len(shared)]
 
 
@@ -1199,31 +1285,44 @@ def phase_cp(smi, model, device="cuda", doc_len=CP_DOC_LEN,
                        and cap.get("cp") == cp
                        and cap.get("pages_per_shard") == per_shard
                        and cap.get("tokens_per_shard") == per_shard * engine.page_size)
-        health_ok = (health["cp"] == cp and health["mesh_shape"] == {"cp": cp, "mp": 1}
+        # the reference's mesh_shape keeps only the axes larger than 1
+        health_ok = (health["cp"] == cp and health["tp"] == 1
+                     and health["mesh_shape"] == ({"cp": cp} if cp > 1 else {})
                      and (cp == 1 or len(health["page_free_by_shard"]) == cp))
         hits = paging.get("prefix_hits", 0)
         misses = paging.get("prefix_lookups", 0) - hits
         steps = summary["decode_steps"]
         want = dict.fromkeys(counts, 0)
+        paged = "paged_decode_fused" + ("_cp" if cp > 1 else "") + (
+            "_q8" if quant == "int8" else "")
         if on_card:
-            paged = "paged_decode_fused" + ("_cp" if cp > 1 else "") + (
-                "_q8" if quant == "int8" else "")
             want["flash_fwd"] = misses * layers
+            # every fresh prompt here is past 128 tokens: K1's wgmma path
+            want["flash_fwd_wgmma"] = misses * layers
             want[paged] = cp * layers * (steps + hits)
+            # every chunk prefill on the tensor-core path, every decode or
+            # verify step (1 or 3 rows) on the FMA page walk
+            want[paged + "_mma"] = cp * layers * hits
         counts_ok = counts == want and hits == len(shared) - 1
         ok = tokens_ok and overflow_ok and health_ok and counts_ok
         log(phase, f"served {len(spec)} requests over HTTP in {wall:.3f} s: token "
                    f"counts {'ok' if tokens_ok else 'WRONG'}; prefix hits {hits}, "
                    f"COW copies {paging.get('cow_copies', 0)}, prefill tokens "
                    f"saved {paging.get('prefill_tokens_saved', 0)}; healthz cp "
-                   f"{health['cp']} mesh_shape {health['mesh_shape']} "
+                   f"{health['cp']} tp {health['tp']} mesh_shape {health['mesh_shape']} "
+                   f"tokens_per_step {health['tokens_per_step']} "
                    f"page_free_by_shard {health.get('page_free_by_shard')} -> "
                    f"{'ok' if health_ok else 'FAIL'}")
-        log(phase, f"launches {counts} (expected {want}: flash_fwd = {misses} fresh "
-                   f"prefills x {layers} layers, the paged kernel = {cp} shards x "
-                   f"{layers} layers x ({steps} {'verify' if spec_k else 'decode'} "
-                   f"steps + {hits} chunk prefills)) -> "
-                   f"{'ok' if counts_ok else 'FAIL'}")
+        log(phase, f"launches {_main(counts)} (expected {_main(want)}: flash_fwd = "
+                   f"{misses} fresh prefills x {layers} layers, the paged kernel = "
+                   f"{cp} shards x {layers} layers x ({steps} "
+                   f"{'verify' if spec_k else 'decode'} steps + {hits} chunk "
+                   f"prefills)) -> {'ok' if counts_ok else 'FAIL'}")
+        log(phase, f"chunk prefills on the tensor-core path: "
+                   f"{counts[paged + '_mma'] // max(1, cp * layers)} of {hits} "
+                   f"({counts[paged + '_mma']} launches, expected "
+                   f"{want[paged + '_mma']}); fresh prefills on K1's wgmma path "
+                   f"{counts['flash_fwd_wgmma'] // max(1, layers)} of {misses}")
         log(phase, f"{overflow_len}-token prompt: HTTP {code} {body.get('type')} "
                    f"capacity {cap} -> {'ok' if overflow_ok else 'FAIL'}")
         decode_tps = (summary["tokens"] - summary["requests"]) / summary["decode_busy_s"]
@@ -1260,10 +1359,10 @@ def phase_cp(smi, model, device="cuda", doc_len=CP_DOC_LEN,
     return ok_all, all_counts
 
 
-def _gen_run(what, fn, layers, expect_k6, on_card):
+def _gen_run(what, fn, layers, expect_k6, on_card, wgmma=False):
     """One lock-step call of the main path, its launch counts read just
-    after it: K6 `expect_k6` times, no other kernel.  Returns (output, ok,
-    counts, wall seconds)."""
+    after it: K6 `expect_k6` times (each on the wgmma path with `wgmma`), no
+    other kernel.  Returns (output, ok, counts, wall seconds)."""
     import torch
 
     from paddle_tpu_torch import profiler
@@ -1277,10 +1376,12 @@ def _gen_run(what, fn, layers, expect_k6, on_card):
     counts = profiler.kernel_launch_counts()
     want = dict.fromkeys(counts, 0)
     want["dense_decode"] = expect_k6 if on_card else 0
+    want["dense_decode_wgmma"] = want["dense_decode"] if wgmma else 0
     ok = counts == want
     log("generate", f"{what}: {wall:.3f} s, launches {counts} (expected "
                     f"dense_decode {want['dense_decode']}"
-                    f"{f' = {layers} layers' if want['dense_decode'] else ''}, "
+                    f"{f' = {layers} layers' if want['dense_decode'] else ''}"
+                    f"{' on the wgmma path' if want['dense_decode_wgmma'] else ''}, "
                     f"every other kernel 0) -> {'ok' if ok else 'FAIL'}")
     return out, ok, counts, wall
 
@@ -1302,6 +1403,7 @@ def phase_generate(smi, model, device="cuda", batch=GEN_BATCH, prompt_len=GEN_LE
     from paddle_tpu_torch import profiler
     from paddle_tpu_torch.inference import GenerationPredictor, serve
     from paddle_tpu_torch.models.llama import StaticKVCache
+    from paddle_tpu_torch.ops import flash_attention as fa
 
     cfg = model.config
     layers = cfg.num_hidden_layers
@@ -1311,15 +1413,18 @@ def phase_generate(smi, model, device="cuda", batch=GEN_BATCH, prompt_len=GEN_LE
                            .astype(np.int32)).to(device)
     runs, ok = [], True
 
-    def run(what, fn, expect_k6):
+    def run(what, fn, expect_k6, rows=0):
         nonlocal ok
-        out, good, counts, wall = _gen_run(what, fn, layers, expect_k6, on_card)
+        wgmma = fa.flash_path(rows, cfg.head_dim, model.lm_head.weight.dtype) == "wgmma"
+        out, good, counts, wall = _gen_run(what, fn, layers, expect_k6, on_card,
+                                           wgmma)
         ok &= good
         runs.append(counts)
         return out, wall
 
     out, wall = run(f"greedy, {batch} x {prompt_len} tokens + {new_tokens}",
-                    lambda: model.generate(ids, max_new_tokens=new_tokens), layers)
+                    lambda: model.generate(ids, max_new_tokens=new_tokens), layers,
+                    prompt_len)
     shape_ok = (tuple(out.shape) == (batch, prompt_len + new_tokens)
                 and torch.equal(out[:, :prompt_len], ids)
                 and bool(((out >= 0) & (out < cfg.vocab_size)).all()))
@@ -1333,14 +1438,14 @@ def phase_generate(smi, model, device="cuda", batch=GEN_BATCH, prompt_len=GEN_LE
     ids_b = ids[:1, :beam_len].contiguous()
     out_b, _ = run(f"beam search, {beams} beams, {beam_len} tokens + {beam_new}",
                    lambda: model.generate(ids_b, max_new_tokens=beam_new,
-                                          num_beams=beams), layers)
+                                          num_beams=beams), layers, beam_len)
     beam_ok = tuple(out_b.shape) == (1, beam_len + beam_new)
     ok &= beam_ok
     sampled = []
     for i in range(2):
         o, _ = run(f"sampling {SAMPLING} run {i + 1}",
                    lambda: model.generate(ids, max_new_tokens=new_tokens,
-                                          **SAMPLING), layers)
+                                          **SAMPLING), layers, prompt_len)
         sampled.append(o)
     same = torch.equal(sampled[0], sampled[1])
     ok &= same and beam_ok
@@ -1394,6 +1499,9 @@ def phase_generate(smi, model, device="cuda", batch=GEN_BATCH, prompt_len=GEN_LE
     runs.append(counts)
     want = dict.fromkeys(counts, 0)
     want["dense_decode"] = len(prompts) * layers if on_card else 0
+    want["dense_decode_wgmma"] = layers * sum(
+        fa.flash_path(n, cfg.head_dim, model.lm_head.weight.dtype) == "wgmma"
+        for n in predictor_lens) if on_card else 0
     direct = [pred.generate(p).tolist() for p in prompts]
     http_ok = http == direct and counts == want
     ok &= http_ok
@@ -1418,6 +1526,7 @@ def phase_dense(smi, model, paged_summary, device="cuda", prompts_spec=SLICE_PRO
 
     from paddle_tpu_torch import profiler
     from paddle_tpu_torch.inference.engine import ContinuousBatchingEngine
+    from paddle_tpu_torch.ops import flash_attention as fa
 
     cfg = model.config
     layers = cfg.num_hidden_layers
@@ -1446,6 +1555,11 @@ def phase_dense(smi, model, paged_summary, device="cuda", prompts_spec=SLICE_PRO
         gen.append(np.asarray(toks[n:], np.int32))
     want = dict.fromkeys(counts, 0)
     want["flash_fwd"] = len(prompts) * layers if on_card else 0
+    # prefills of 128+ bucket rows take K1's wgmma path
+    buckets = [engine._bucket_for(n) for n, _ in prompts_spec]
+    want["flash_fwd_wgmma"] = layers * sum(
+        fa.flash_path(b, cfg.head_dim, model.lm_head.weight.dtype) == "wgmma"
+        for b in buckets) if on_card else 0
     counts_ok = counts == want
     ok = tokens_ok and counts_ok
     log("dense", f"served {len(prompts)} requests over HTTP in {wall:.3f} s: token "
@@ -1512,10 +1626,12 @@ KERNEL_GROUPS = (
     ("GEMMs (cuBLAS)", ("nvjet", "gemm", "cutlass", "splitKreduce")),
     ("K1 flash_fwd", ("flash_fwd",)),
     ("K3 flash_bwd", ("flash_bwd", "delta_kernel")),
-    # K4 is paged_decode_kernel over int8 ("signed char") pages; K5 is the
-    # same template (K2's under full precision, K4's under int8) and no
-    # step runs both, so under cp these rows are K5; all share the split
-    # combine kernel
+    # the chunk windows (16+ rows) of K2, K4 and K5 run paged_chunk_mma_kernel;
+    # below 16 rows K4 is paged_decode_kernel over int8 ("signed char")
+    # pages; K5 is the same templates (K2's under full precision, K4's
+    # under int8) and no step runs both, so under cp these rows are K5; all
+    # share the split combine kernel
+    ("K2/K4/K5 chunk window (tensor cores)", ("paged_chunk_mma_kernel",)),
     ("K4/K5-int8 paged_decode_q8", ("paged_decode_kernel<__nv_bfloat16, signed char",
                                     "paged_decode_kernel<float, signed char")),
     ("K2/K5 paged_decode", ("paged_decode_kernel<",)),
@@ -1552,6 +1668,27 @@ def _log_profile(what, wall_us, kernels, spans, steps, top=8):
     for name, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:top]:
         log("profile", f"  {us / busy:6.3f} of device time, "
                        f"{us / steps / 1e3:.4f} ms/step: {name[:90]}")
+
+
+def profile_prefix_hit(engine, prompts):
+    """Where a prefix hit's time to first token goes: each prompt (sharing
+    a committed prefix) submitted alone and admitted by one engine step --
+    its chunk prefill through the pages, then one decode step -- under
+    torch.profiler."""
+    pending = iter(prompts)
+    reqs = []
+
+    def admit():
+        reqs.append(engine.submit(next(pending), max_new_tokens=2))
+        engine.step()
+
+    wall_us, kernels, spans = _device_profile(admit, len(prompts))
+    engine.run_until_idle()
+    for r in reqs:
+        r.wait(1)
+    _log_profile(f"prefix-hit admission (chunk prefill of "
+                 f"{[p.size for p in prompts]}-token prompts + one decode step)",
+                 wall_us, kernels, spans, len(prompts))
 
 
 def profile_decode(engine, cfg, rng, prompt_len=256, steps=8):
@@ -1652,7 +1789,10 @@ def phase_train(smi, cfg, device="cuda", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
     falls = losses[-1] < losses[0]
     fwd_per_step = 2 if cfg.use_recompute else 1
     want_fwd, want_bwd = fwd_per_step * layers * steps, layers * steps
-    counts_ok = (counts["flash_fwd"] == want_fwd and counts["flash_bwd"] == want_bwd)
+    # every training-shape K1 launch takes the wgmma path
+    want_wgmma = want_fwd if on_card else 0
+    counts_ok = (counts["flash_fwd"] == want_fwd and counts["flash_bwd"] == want_bwd
+                 and counts["flash_fwd_wgmma"] == want_wgmma)
     moved = [name for name, p in model.named_parameters()
              if not torch.equal(opt.state[p].get("master_weight", p).detach().cpu(),
                                 before[name])]
@@ -1662,8 +1802,9 @@ def phase_train(smi, cfg, device="cuda", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
             else "not measured")
     log("train", "losses " + " ".join(f"{x:.4f}" for x in losses)
                  + f": finite {finite}, last < first {falls}")
-    log("train", f"launches {counts} (expected flash_fwd {want_fwd} = "
-                 f"{fwd_per_step} x {layers} layers x {steps} steps, flash_bwd "
+    log("train", f"launches {_main(counts)} (expected flash_fwd {want_fwd} = "
+                 f"{fwd_per_step} x {layers} layers x {steps} steps, each on the "
+                 f"wgmma path: flash_fwd_wgmma {want_wgmma}; flash_bwd "
                  f"{want_bwd}) -> {'ok' if counts_ok else 'FAIL'}; weights moved "
                  f"{len(moved)}/{len(before)} -> {'ok' if moved_ok else 'FAIL'}")
     log("train", f"step_ms median of steps 2-{steps} {step_s * 1e3:.1f} (all: "
@@ -1825,37 +1966,32 @@ def main():
     runs = [counts, *prefix_counts, gen_counts, dense_counts, *cp_counts,
             train_counts]
     launches = {name: sum(c[name] for c in runs) for name in kernels}
-    # K5's two variants are one kernel of the record
+    # K5's two variants are one kernel of the record, on each path
     launches["paged_decode_fused_cp"] += sum(c["paged_decode_fused_cp_q8"]
                                              for c in runs)
+    launches["paged_decode_fused_cp_mma"] += sum(c["paged_decode_fused_cp_q8_mma"]
+                                                 for c in runs)
+    # (record name, source, the Pallas kernel it replaces); a `_wgmma` or
+    # `_mma` entry is its kernel's tensor-core path, timed at its main-path
+    # shape (K1 at the training shape, the chunk windows at a hit's 256-row
+    # chunk prefill), with the launches that took it
+    entries = (
+        ("flash_fwd", "flash_fwd.cu", 186),
+        ("flash_fwd_wgmma", "flash_fwd.cu", 186),
+        ("paged_decode_fused", "paged_decode.cu", 813),
+        ("paged_decode_fused_mma", "paged_decode.cu", 813),
+        ("paged_decode_fused_q8", "paged_decode.cu", 961),
+        ("paged_decode_fused_q8_mma", "paged_decode.cu", 961),
+        ("flash_bwd", "flash_bwd.cu", 415),
+        ("dense_decode", "flash_fwd.cu", 649),
+        ("paged_decode_fused_cp", "paged_decode.cu", 1172),
+        ("paged_decode_fused_cp_mma", "paged_decode.cu", 1172),
+    )
     record = {"kernels": [
-        {"name": "flash_fwd", "route": "cuda",
-         "source": "paddle_tpu_torch/csrc/flash_fwd.cu",
-         "replaces": "paddle_tpu/ops/flash_attention.py:186",
-         "launches": launches["flash_fwd"], **kernels["flash_fwd"]},
-        {"name": "paged_decode_fused", "route": "cuda",
-         "source": "paddle_tpu_torch/csrc/paged_decode.cu",
-         "replaces": "paddle_tpu/ops/flash_attention.py:813",
-         "launches": launches["paged_decode_fused"],
-         **kernels["paged_decode_fused"]},
-        {"name": "paged_decode_fused_q8", "route": "cuda",
-         "source": "paddle_tpu_torch/csrc/paged_decode.cu",
-         "replaces": "paddle_tpu/ops/flash_attention.py:961",
-         "launches": launches["paged_decode_fused_q8"],
-         **kernels["paged_decode_fused_q8"]},
-        {"name": "flash_bwd", "route": "cuda",
-         "source": "paddle_tpu_torch/csrc/flash_bwd.cu",
-         "replaces": "paddle_tpu/ops/flash_attention.py:415",
-         "launches": launches["flash_bwd"], **kernels["flash_bwd"]},
-        {"name": "dense_decode", "route": "cuda",
-         "source": "paddle_tpu_torch/csrc/flash_fwd.cu",
-         "replaces": "paddle_tpu/ops/flash_attention.py:649",
-         "launches": launches["dense_decode"], **kernels["dense_decode"]},
-        {"name": "paged_decode_fused_cp", "route": "cuda",
-         "source": "paddle_tpu_torch/csrc/paged_decode.cu",
-         "replaces": "paddle_tpu/ops/flash_attention.py:1172",
-         "launches": launches["paged_decode_fused_cp"],
-         **kernels["paged_decode_fused_cp"]},
+        {"name": name, "route": "cuda", "source": f"paddle_tpu_torch/csrc/{src}",
+         "replaces": f"paddle_tpu/ops/flash_attention.py:{line}",
+         "launches": launches[name], **kernels[name]}
+        for name, src, line in entries
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -56,18 +56,23 @@ def serve(engine, port=8866, host="127.0.0.1", block=True):
     """Serve a ContinuousBatchingEngine or a GenerationPredictor over HTTP
     (stdlib ThreadingHTTPServer); an engine's scheduler thread starts here.
 
-    - POST /generate: body {"input_ids": [...], "max_new_tokens": n,
-      "temperature": t, "eos_token_id": id, "spec_k": k} -> {"tokens":
-      prompt + generated}.  Engine: `spec_k` caps the request's draft
-      length (0 opts out of speculation); a full queue answers 503 with a
-      Retry-After header; a prompt past the context answers 400 with the
-      engine's capacity geometry under "capacity" (per shard under cp);
-      another bad body answers 400.  Predictor: calls to
-      the one model run one at a time; beyond FLAGS_serve_queue_depth
-      running or waiting requests the server answers 503; a bad body, or a
-      request the model refuses, answers 400.
-    - GET /healthz: an engine's status, occupancy and queue depth; a
-      predictor's {"status": "ready"}.
+    - POST /generate: body {"input_ids": [...] or [[...], ...],
+      "max_new_tokens": n, "temperature": t, "eos_token_id": id, "spec_k":
+      k} -> {"tokens": prompt + generated}, one token row per input row for
+      a batched body.  Engine: each row is its own request; `spec_k` caps
+      the request's draft length (0 opts out of speculation); a full queue
+      answers 503 with a Retry-After header (rows already admitted still
+      complete; the client retries the batch); a prompt past the context
+      answers 400 with the engine's capacity geometry under "capacity" (per
+      shard under cp); a bad body, or a request that fails inside the
+      engine, answers 400 with "Type: message".  Predictor: calls to the
+      one model run one at a time; beyond FLAGS_serve_queue_depth running
+      or waiting requests the server answers 503; a bad body, or a request
+      the model refuses, answers 400.  Error bodies carry "error", "type",
+      "retriable" and "retry_after_s", as the reference's do.
+    - GET /health: {"status": "ok"}.
+    - GET /healthz: an engine's status, occupancy, queue depth, mesh and
+      tokens per step; a predictor's {"status": "ready"}.
 
     `port=0` binds a free port (read it from `server.server_address`).
     With `block=False` the server runs on a daemon thread and the returned
@@ -93,15 +98,21 @@ def serve(engine, port=8866, host="127.0.0.1", block=True):
             self.end_headers()
             self.wfile.write(body)
 
-        def _error(self, code, err, retry_after=None):
+        def _error(self, code, err, retry_after=None, msg=None):
+            # the reference's typed error body (`_reply_error`), less the
+            # trace id (the port has no tracing yet)
             headers = {}
             if retry_after is not None:
                 headers["Retry-After"] = str(max(1, int(retry_after + 0.5)))
-            self._reply(code, {"error": str(err), "type": type(err).__name__,
-                               "retriable": retry_after is not None}, headers)
+            self._reply(code, {"error": str(err) if msg is None else msg,
+                               "type": type(err).__name__,
+                               "retriable": retry_after is not None,
+                               "retry_after_s": retry_after or 0}, headers)
 
         def do_GET(self):
-            if self.path == "/healthz" and predictor is not None:
+            if self.path == "/health":
+                self._reply(200, {"status": "ok"})
+            elif self.path == "/healthz" and predictor is not None:
                 self._reply(200, {"status": "ready"})
             elif self.path == "/healthz":
                 h = engine.healthz()
@@ -119,30 +130,34 @@ def serve(engine, port=8866, host="127.0.0.1", block=True):
             try:
                 n = int(self.headers.get("Content-Length", 0))
                 req = json.loads(self.rfile.read(n))
+                ids = req["input_ids"]
                 spec_k = req.get("spec_k")
-                handle = engine.submit(
-                    req["input_ids"],
-                    max_new_tokens=int(req.get("max_new_tokens") or 32),
-                    temperature=float(req.get("temperature", 0.0)),
-                    eos_token_id=req.get("eos_token_id"),
-                    spec_k=None if spec_k is None else int(spec_k),
-                )
-            except QueueFull as e:
-                self._error(503, e, retry_after=e.retry_after_s)
-                return
-            except ContextOverflow as e:  # terminal: no retry holds more
-                self._reply(400, {"error": str(e), "type": type(e).__name__,
-                                  "retriable": False, "capacity": e.body()})
-                return
-            except (ValueError, KeyError, TypeError) as e:  # bad request
-                self._error(400, e)
-                return
-            try:
-                out = handle.wait(timeout=600)
-            except Exception as e:  # the request failed inside the engine
-                self._error(500, e)
-                return
-            self._reply(200, {"tokens": out.tolist()})
+                # one request per row of a batched body (reference:
+                # inference/__init__.py:414)
+                rows = ids if ids and isinstance(ids[0], list) else [ids]
+                handles = []
+                try:
+                    for row in rows:
+                        handles.append(engine.submit(
+                            row,
+                            max_new_tokens=int(req.get("max_new_tokens") or 32),
+                            temperature=float(req.get("temperature", 0.0)),
+                            eos_token_id=req.get("eos_token_id"),
+                            spec_k=None if spec_k is None else int(spec_k),
+                        ))
+                except ContextOverflow as e:  # terminal: no retry holds more
+                    self._reply(400, {"error": str(e), "type": type(e).__name__,
+                                      "retriable": False, "retry_after_s": 0,
+                                      "capacity": e.body()})
+                    return
+                except QueueFull as e:
+                    self._error(503, e, retry_after=e.retry_after_s)
+                    return
+                outs = [h.wait(timeout=600).tolist() for h in handles]
+                self._reply(200, {"tokens": outs if isinstance(ids[0], list)
+                                  else outs[0]})
+            except Exception as e:  # a bad body, or a failure inside the engine
+                self._error(400, e, msg=f"{type(e).__name__}: {e}")
 
         def _generate_predictor(self):
             if not gate.acquire(blocking=False):

@@ -291,6 +291,10 @@ class ContinuousBatchingEngine:
         self._last_tok = np.zeros(self.slots, np.int32)
         self._temps = np.zeros(self.slots, np.float32)
         self._drafters = [None] * self.slots  # per-slot NgramDrafter or None
+        # EWMA of emitted tokens per active slot per verify step (1.0
+        # without speculation, where every step emits one per slot), the
+        # reference's /healthz tokens_per_step (engine.py:666, :2749)
+        self._tok_rate_ewma = 1.0
         # device decode state, rebuilt from the host mirrors when slot
         # membership changes: (toks, pos, active), or (pos, active) under
         # speculation, whose tokens come from the host every step
@@ -649,8 +653,11 @@ class ContinuousBatchingEngine:
             "prefix_cache_size": len(self._prefix) if self._prefix is not None else 0,
             "kv_quant": self.kv_quant,
             "device": str(self.device),
+            "tokens_per_step": round(self._tok_rate_ewma, 3),
+            "tp": 1,
             "cp": self.cp,
-            "mesh_shape": {"cp": self.cp, "mp": 1},
+            # the reference keeps only the mesh axes larger than 1
+            "mesh_shape": {"cp": self.cp} if self.cp > 1 else {},
         }
         if self.cp > 1:
             # the fullest shard bounds admission: a sequence page lands only
@@ -1093,6 +1100,9 @@ class ContinuousBatchingEngine:
                     if req.keep_logits:
                         req.logits.append(logits[s, j])
                     self._emit(s, req, tok)
+            if emitted:
+                self._tok_rate_ewma = (0.8 * self._tok_rate_ewma
+                                       + 0.2 * emitted / len(active_idx))
             _prof.record_serving_tick(len(active_idx) / self.slots,
                                       self._queue.qsize(), busy)
             _prof.record_speculation(proposed, accepted, emitted, len(active_idx))

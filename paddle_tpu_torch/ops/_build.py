@@ -40,25 +40,25 @@ NVCC_FLAGS = [
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of the exported functions: (argtypes, restype)
 SIGNATURES = {
-    # q, k, v, out, lse, b, s, h, hk, d, causal, scale, dtype, stream
-    "ptt_flash_fwd": ([_P] * 5 + [_I] * 6 + [_F, _I, _P], _I),
+    # q, k, v, out, lse, b, s, h, hk, d, causal, scale, dtype, path, stream
+    "ptt_flash_fwd": ([_P] * 5 + [_I] * 6 + [_F, _I, _I, _P], _I),
     # q, k, v, out, lse, g, dq, dk, dv, delta, b, s, h, hk, d, causal,
     # scale, dtype, stream
     "ptt_flash_bwd": ([_P] * 10 + [_I] * 6 + [_F, _I, _P], _I),
-    # q, ak, av, tables, pos, out, ws, splits, b, sq, h, hk, d, ps, P,
+    # q, ak, av, tables, pos, out, ws, splits, mma, b, sq, h, hk, d, ps, P,
     # max_len, scale, dtype, stream
-    "ptt_paged_decode": ([_P] * 7 + [_I] * 9 + [_F, _I, _P], _I),
-    # q, ak, av, k_scale, v_scale, tables, pos, out, ws, splits, b, sq, h,
-    # hk, d, ps, P, max_len, scale, dtype, stream
-    "ptt_paged_decode_q8": ([_P] * 9 + [_I] * 9 + [_F, _I, _P], _I),
-    # q, ak, av, tables, page_base, pos, acc, m, l, ws, splits, b, sq, h,
-    # hk, d, ps, P, max_len, scale, dtype, stream
-    "ptt_paged_decode_partials": ([_P] * 10 + [_I] * 9 + [_F, _I, _P], _I),
+    "ptt_paged_decode": ([_P] * 7 + [_I] * 10 + [_F, _I, _P], _I),
+    # q, ak, av, k_scale, v_scale, tables, pos, out, ws, splits, mma, b, sq,
+    # h, hk, d, ps, P, max_len, scale, dtype, stream
+    "ptt_paged_decode_q8": ([_P] * 9 + [_I] * 10 + [_F, _I, _P], _I),
+    # q, ak, av, tables, page_base, pos, acc, m, l, ws, splits, mma, b, sq,
+    # h, hk, d, ps, P, max_len, scale, dtype, stream
+    "ptt_paged_decode_partials": ([_P] * 10 + [_I] * 10 + [_F, _I, _P], _I),
     # q, ak, av, k_scale, v_scale, tables, page_base, pos, acc, m, l, ws,
-    # splits, b, sq, h, hk, d, ps, P, max_len, scale, dtype, stream
-    "ptt_paged_decode_partials_q8": ([_P] * 12 + [_I] * 9 + [_F, _I, _P], _I),
-    # q, k, v, out, pos, b, sq, h, hk, d, L, scale, dtype, stream
-    "ptt_dense_decode": ([_P] * 5 + [_I] * 6 + [_F, _I, _P], _I),
+    # splits, mma, b, sq, h, hk, d, ps, P, max_len, scale, dtype, stream
+    "ptt_paged_decode_partials_q8": ([_P] * 12 + [_I] * 10 + [_F, _I, _P], _I),
+    # q, k, v, out, pos, b, sq, h, hk, d, L, scale, dtype, path, stream
+    "ptt_dense_decode": ([_P] * 5 + [_I] * 6 + [_F, _I, _I, _P], _I),
     "ptt_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -33,6 +33,14 @@ Each kernel has a plain PyTorch version here.  A wrapper takes the plain
 version only for a tensor on the CPU (the tests); for a CUDA tensor it
 launches the kernel or raises.  `launch_counts` counts kernel launches, so a
 run can show that the main path went through the kernels.
+
+Where a kernel has more than one implementation, one function here picks it
+from the shape and passes the choice to the C entry point, which raises on
+a shape the choice does not fit (never another kernel): `flash_path` for K1
+and K6 (the `wgmma` + TMA kernel, `mma.sync`, or FMA) and `paged_path` for
+K2, K4 and K5 (the tensor-core chunk window, or the FMA page walk).  The
+`*_wgmma` and `*_mma` counts are the launches that took the tensor-core
+kernels, a subset of their kernel's count.
 """
 
 from __future__ import annotations
@@ -50,15 +58,27 @@ NEG_INF = -1e30  # the reference's mask value (flash_attention.py:36)
 # cp times the reference's count of cp dispatches
 launch_counts = {"flash_fwd": 0, "paged_decode_fused": 0,
                  "paged_decode_fused_q8": 0, "flash_bwd": 0, "dense_decode": 0,
-                 "paged_decode_fused_cp": 0, "paged_decode_fused_cp_q8": 0}
+                 "paged_decode_fused_cp": 0, "paged_decode_fused_cp_q8": 0,
+                 "flash_fwd_wgmma": 0, "dense_decode_wgmma": 0,
+                 "paged_decode_fused_mma": 0, "paged_decode_fused_q8_mma": 0,
+                 "paged_decode_fused_cp_mma": 0, "paged_decode_fused_cp_q8_mma": 0}
 
 MAX_HEAD_DIM = 256
-# (row, key) pairs one block of the paged kernels takes on, about: a decode
-# block (one row) walks ~512 keys, a 64-row chunk-prefill tile one page;
-# longer page walks split across blocks
+# (row, key) pairs one block of the FMA paged kernel takes on, about: a
+# decode block (one row) walks ~512 keys, a 64-row chunk-prefill tile one
+# page; longer page walks split across blocks
 PAGED_SPLIT_KEYS = 512
 # rows of the GQA group x window one block of the paged kernels holds
 PAGED_ROW_TILE = 64
+# the chunk window takes the tensor-core kernel from one warp's 16 rows
+PAGED_MMA_MIN_ROWS = 16
+# keys per tile of the tensor-core chunk kernel
+PAGED_MMA_KEYS = 64
+# blocks the chunk kernel's grid fills: three (~70 KB of shared memory
+# each at d 128) per SM of an H100 (132 SMs), one wave
+PAGED_MMA_BLOCKS = 396
+# the q tile of K1's Hopper kernel (two warpgroups of 64 rows)
+FLASH_WGMMA_ROWS = 128
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -97,6 +117,49 @@ def _on_cuda(tensors, what):
 
 def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+_FLASH_PATHS = {"fma": 0, "mma": 1, "wgmma": 2}
+
+
+def flash_path(rows, d, dtype):
+    """The kernel K1 and K6 launch for `rows` query rows of head_dim `d`:
+    "wgmma" (TMA + `wgmma`, a 128-row tile per block) for bfloat16 with d 64
+    or 128 and at least FLASH_WGMMA_ROWS rows; "mma" (`mma.sync`, 64-row
+    tiles) for the other bfloat16 shapes with d <= 128; "fma" for float32
+    and d > 128."""
+    if dtype == torch.bfloat16 and d in (64, 128) and rows >= FLASH_WGMMA_ROWS:
+        return "wgmma"
+    return "mma" if dtype == torch.bfloat16 and d <= 128 else "fma"
+
+
+def paged_path(rows, d, dtype):
+    """The kernel K2, K4 and K5 launch for a GQA group x window of `rows` =
+    rep * sq rows: "mma" (the tensor-core chunk window) for a bfloat16 q
+    with d 64 or 128 and at least PAGED_MMA_MIN_ROWS rows -- every chunk
+    prefill of a served Llama -- and "fma" (the page walk on FMAs: decode,
+    the verify window, float32) otherwise."""
+    if dtype == torch.bfloat16 and d in (64, 128) and rows >= PAGED_MMA_MIN_ROWS:
+        return "mma"
+    return "fma"
+
+
+def paged_splits(path, b, hk, rows, P, ps):
+    """Blocks a slot's page walk splits into.  FMA: a block of r rows (at
+    most one row tile) does r times a decode block's work per key, so it
+    walks about PAGED_SPLIT_KEYS / r keys, at least one page.  Tensor-core
+    chunk window: a 64-row block takes a 64-key tile in about the time the
+    FMA block took a few keys, so splitting by keys would leave most splits
+    idle; the host does not know the live length (pos lies on the card), so
+    it splits only to fill one wave of the card (at most PAGED_MMA_BLOCKS
+    blocks), at most one split per 64-key tile of the table, and each block
+    divides the live tiles among the splits itself."""
+    if path == "fma":
+        keys = PAGED_SPLIT_KEYS // min(rows, PAGED_ROW_TILE)
+        return -(-P // max(1, keys // ps))
+    tiles = -(-(P * ps) // PAGED_MMA_KEYS)
+    blocks = b * hk * -(-rows // PAGED_ROW_TILE)
+    return max(1, min(tiles, PAGED_MMA_BLOCKS // blocks))
 
 
 # ---------------------------------------------------------------------------
@@ -154,15 +217,18 @@ def flash_forward(q, k, v, causal=True, scale=None):
     from ._build import check, lib
 
     b, s, h, d = q.shape
+    path = flash_path(s, d, q.dtype)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     code = lib().ptt_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), b, s, h, k.shape[2], d, int(bool(causal)),
-        float(scale), _dtype_code(q, "flash_fwd"), _stream(q),
+        float(scale), _dtype_code(q, "flash_fwd"), _FLASH_PATHS[path], _stream(q),
     )
-    check(code, "flash_fwd")
+    check(code, f"flash_fwd ({path})")
     launch_counts["flash_fwd"] += 1
+    if path == "wgmma":
+        launch_counts["flash_fwd_wgmma"] += 1
     return out, lse
 
 
@@ -372,14 +438,17 @@ def dense_decode(q, k, v, pos, scale=None):
 
     q, pos = q.contiguous(), pos.contiguous()
     b, sq, h, d = q.shape
+    path = flash_path(sq, d, q.dtype)
     out = torch.empty_like(q)
     code = lib().ptt_dense_decode(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         pos.data_ptr(), b, sq, h, k.shape[2], d, k.shape[1], float(scale),
-        _dtype_code(q, what), _stream(q),
+        _dtype_code(q, what), _FLASH_PATHS[path], _stream(q),
     )
-    check(code, what)
+    check(code, f"{what} ({path})")
     launch_counts[what] += 1
+    if path == "wgmma":
+        launch_counts[what + "_wgmma"] += 1
     return out
 
 
@@ -470,12 +539,14 @@ def paged_decode_q8_plain(q, arena_k, arena_v, k_scale, v_scale, tables, pos,
     return _paged_attention(q, k, v, pos, max_len, scale)
 
 
-def _paged_splits(P, ps, rows):
-    """Blocks a slot's page walk splits into.  A block of r rows (at most
-    one row tile) does r times a decode block's work per key, so it walks
-    about PAGED_SPLIT_KEYS / r keys, at least one page."""
-    keys = PAGED_SPLIT_KEYS // min(rows, PAGED_ROW_TILE)
-    return -(-P // max(1, keys // ps))
+def _count(code, what, path):
+    """Raise on a failed paged launch, else count it (and its path)."""
+    from ._build import check
+
+    check(code, f"{what} ({path})")
+    launch_counts[what] += 1
+    if path == "mma":
+        launch_counts[what + "_mma"] += 1
 
 
 def _paged_workspace(q, hk, splits):
@@ -501,24 +572,25 @@ def paged_decode_fused(q, arena_k, arena_v, tables, pos, max_len, scale=None):
         scale = 1.0 / math.sqrt(q.shape[-1])
     if not _on_cuda((q, arena_k, arena_v, tables, pos), what):
         return paged_decode_plain(q, arena_k, arena_v, tables, pos, max_len, scale)
-    from ._build import check, lib
+    from ._build import lib
 
     q, tables, pos = q.contiguous(), tables.contiguous(), pos.contiguous()
     _require(arena_k.is_contiguous() and arena_v.is_contiguous(),
              f"{what}: arenas must be contiguous")
     b, sq, h, d = q.shape
     hk, ps, P = arena_k.shape[2], arena_k.shape[1], tables.shape[1]
+    path = paged_path((h // hk) * sq, d, q.dtype)
     out = torch.empty_like(q)
-    splits = _paged_splits(P, ps, (h // hk) * sq)
+    splits = paged_splits(path, b, hk, (h // hk) * sq, P, ps)
     ws = _paged_workspace(q, hk, splits)
     code = lib().ptt_paged_decode(
         q.data_ptr(), arena_k.data_ptr(), arena_v.data_ptr(),
         tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
-        ws.data_ptr() if splits > 1 else None, splits, b, sq, h, hk, d, ps,
-        P, int(max_len), float(scale), _dtype_code(q, what), _stream(q),
+        ws.data_ptr() if splits > 1 else None, splits, int(path == "mma"), b,
+        sq, h, hk, d, ps, P, int(max_len), float(scale), _dtype_code(q, what),
+        _stream(q),
     )
-    check(code, what)
-    launch_counts[what] += 1
+    _count(code, what, path)
     return out
 
 
@@ -538,25 +610,25 @@ def paged_decode_fused_q8(q, arena_k, arena_v, k_scale, v_scale, tables, pos,
     if not _on_cuda((q, arena_k, arena_v, k_scale, v_scale, tables, pos), what):
         return paged_decode_q8_plain(q, arena_k, arena_v, k_scale, v_scale,
                                      tables, pos, max_len, scale)
-    from ._build import check, lib
+    from ._build import lib
 
     q, tables, pos = q.contiguous(), tables.contiguous(), pos.contiguous()
     _require(all(t.is_contiguous() for t in (arena_k, arena_v, k_scale, v_scale)),
              f"{what}: arenas and scales must be contiguous")
     b, sq, h, d = q.shape
     hk, ps, P = arena_k.shape[2], arena_k.shape[1], tables.shape[1]
+    path = paged_path((h // hk) * sq, d, q.dtype)
     out = torch.empty_like(q)
-    splits = _paged_splits(P, ps, (h // hk) * sq)
+    splits = paged_splits(path, b, hk, (h // hk) * sq, P, ps)
     ws = _paged_workspace(q, hk, splits)
     code = lib().ptt_paged_decode_q8(
         q.data_ptr(), arena_k.data_ptr(), arena_v.data_ptr(),
         k_scale.data_ptr(), v_scale.data_ptr(), tables.data_ptr(),
         pos.data_ptr(), out.data_ptr(), ws.data_ptr() if splits > 1 else None,
-        splits, b, sq, h, hk, d, ps, P, int(max_len), float(scale),
-        _dtype_code(q, what), _stream(q),
+        splits, int(path == "mma"), b, sq, h, hk, d, ps, P, int(max_len),
+        float(scale), _dtype_code(q, what), _stream(q),
     )
-    check(code, what)
-    launch_counts[what] += 1
+    _count(code, what, path)
     return out
 
 
@@ -668,7 +740,7 @@ def paged_decode_partials(q, arena_k, arena_v, tables, page_base, pos,
     if not _on_cuda((q, arena_k, arena_v, *scales, tables, page_base, pos), what):
         return paged_decode_partials_plain(q, arena_k, arena_v, tables, page_base,
                                            pos, max_len, scale, k_scale, v_scale)
-    from ._build import check, lib
+    from ._build import lib
 
     q, tables = q.contiguous(), tables.contiguous()
     page_base, pos = page_base.contiguous(), pos.contiguous()
@@ -680,7 +752,8 @@ def paged_decode_partials(q, arena_k, arena_v, tables, page_base, pos,
     acc = torch.empty((b, hk, R, d), dtype=torch.float32, device=q.device)
     m = torch.empty((b, hk, R, 1), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
-    splits = _paged_splits(P, ps, R)
+    path = paged_path(R, d, q.dtype)
+    splits = paged_splits(path, b, hk, R, P, ps)
     ws = _paged_workspace(q, hk, splits)
     ptrs = [q.data_ptr(), arena_k.data_ptr(), arena_v.data_ptr()]
     ptrs += [t.data_ptr() for t in scales]
@@ -689,10 +762,9 @@ def paged_decode_partials(q, arena_k, arena_v, tables, page_base, pos,
              ws.data_ptr() if splits > 1 else None]
     fn = (lib().ptt_paged_decode_partials_q8 if quant
           else lib().ptt_paged_decode_partials)
-    code = fn(*ptrs, splits, b, sq, h, hk, d, ps, P, int(max_len), float(scale),
-              _dtype_code(q, what), _stream(q))
-    check(code, what)
-    launch_counts[what] += 1
+    code = fn(*ptrs, splits, int(path == "mma"), b, sq, h, hk, d, ps, P,
+              int(max_len), float(scale), _dtype_code(q, what), _stream(q))
+    _count(code, what, path)
     return acc, m, l
 
 

@@ -115,7 +115,12 @@ def test_cpu_tensors_never_count_a_kernel_launch():
     assert pfa.launch_counts == {"flash_fwd": 0, "paged_decode_fused": 0,
                                  "paged_decode_fused_q8": 0, "flash_bwd": 0,
                                  "dense_decode": 0, "paged_decode_fused_cp": 0,
-                                 "paged_decode_fused_cp_q8": 0}
+                                 "paged_decode_fused_cp_q8": 0,
+                                 "flash_fwd_wgmma": 0, "dense_decode_wgmma": 0,
+                                 "paged_decode_fused_mma": 0,
+                                 "paged_decode_fused_q8_mma": 0,
+                                 "paged_decode_fused_cp_mma": 0,
+                                 "paged_decode_fused_cp_q8_mma": 0}
 
 
 # ---------------------------------------------------------------------------

@@ -341,7 +341,7 @@ def test_cp2_greedy_identical_to_jax_cp2_and_to_cp1(models, reference, k5_calls)
     assert k5_calls["paged_decode_fused_cp"] > 0
     assert k5_calls["paged_decode_fused_cp"] % 2 == 0  # one per shard
     h = eng.healthz()
-    assert h["cp"] == 2 and h["mesh_shape"] == {"cp": 2, "mp": 1}
+    assert h["cp"] == 2 and h["mesh_shape"] == {"cp": 2}
     assert len(h["page_free_by_shard"]) == 2
     assert profiler.mesh_summary()["cp"] == 2
     assert eng._pool.per_shard * 2 == eng._pool.num_pages

@@ -202,5 +202,10 @@ def test_cpu_backward_never_counts_a_kernel_launch():
     assert pfa.launch_counts == {"flash_fwd": 0, "paged_decode_fused": 0,
                                  "paged_decode_fused_q8": 0, "flash_bwd": 0,
                                  "dense_decode": 0, "paged_decode_fused_cp": 0,
-                                 "paged_decode_fused_cp_q8": 0}
+                                 "paged_decode_fused_cp_q8": 0,
+                                 "flash_fwd_wgmma": 0, "dense_decode_wgmma": 0,
+                                 "paged_decode_fused_mma": 0,
+                                 "paged_decode_fused_q8_mma": 0,
+                                 "paged_decode_fused_cp_mma": 0,
+                                 "paged_decode_fused_cp_q8_mma": 0}
     assert profiler.summary()["kernel_launches"]["flash_bwd"] == 0

@@ -110,6 +110,37 @@ def test_ctypes_signatures_match_the_c_exports():
         assert c_to_ctypes[ret.replace(" ", "")] == restype, name
 
 
+def _c_parameter_names(name):
+    """Parameter names of one `extern "C"` function in csrc/*.cu."""
+    import re
+
+    for src in _build.sources():
+        text = re.sub(r"//[^\n]*", "", src.read_text())
+        found = re.search(r'extern "C"[\w\s\*]+?\b' + name + r"\s*\(([^)]*)\)", text)
+        if found:
+            return [p.strip().split()[-1].lstrip("*")
+                    for p in found.group(1).split(",")]
+    raise AssertionError(f"{name} not found")
+
+
+@pytest.mark.parametrize("name, before, choice", [
+    ("ptt_paged_decode", "splits", "mma"),
+    ("ptt_paged_decode_q8", "splits", "mma"),
+    ("ptt_paged_decode_partials", "splits", "mma"),
+    ("ptt_paged_decode_partials_q8", "splits", "mma"),
+    ("ptt_flash_fwd", "dtype", "path"),
+    ("ptt_dense_decode", "dtype", "path"),
+])
+def test_entry_points_take_the_hosts_kernel_choice(name, before, choice):
+    """Each entry point behind a dispatch rule (`paged_path`, `flash_path`)
+    takes the host's choice as the int the wrappers pass it in."""
+    import ctypes
+
+    names = _c_parameter_names(name)
+    assert names[names.index(before) + 1] == choice
+    assert _build.SIGNATURES[name][0][names.index(choice)] is ctypes.c_int
+
+
 def _run_chip_smoke(script, cwd):
     return subprocess.run([sys.executable, str(script)], cwd=cwd,
                           capture_output=True, text=True, timeout=120)
