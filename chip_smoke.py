@@ -151,6 +151,16 @@ CP_RUNS = [("a cp1", 1, 0, "none", False), ("b cp2", 2, 0, "none", True),
            ("c cp2 spec2", 2, 2, "none", False),
            ("d cp2 spec2 int8", 2, 2, "int8", False)]
 
+# the cp_f32 phase: the cp phase's traffic with the model and its arenas in
+# float32, through (label, cp, spec_k) engines, each held against the first.
+# A first divergence passes as a near tie when the first run's top-2 logit
+# gap there is at most F32_TIE_REL of max|logit|: float32 re-associated sums
+# (split and shard merges in another order) move logits by ~1e-6 relative,
+# so a gap 1000x that is still a tie, while a wrong page or mask moves
+# logits by whole units
+CP_F32_RUNS = [("a cp1", 1, 0), ("b cp2", 2, 0), ("c cp2 spec2", 2, 2)]
+F32_TIE_REL = 1e-3
+
 # K5's timed case: 8 slots at per-slot positions drawn from 3000-4000 of a
 # 4096-token context (numpy.random.default_rng(5).integers(3000, 4001, 8))
 K5_DECODE_POS = [3671, 3805, 3022, 3808, 3469, 3515, 3630, 3286]
@@ -184,6 +194,48 @@ def time_ms(fn, iters=20, warmup=3):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, iters=10, warmup=2):
+    """The device time of `fn()` per call: the summed durations of the
+    kernels it launches, from torch.profiler over `iters` calls after
+    `warmup`, without the wrapper's host time.  Returns (ms, {kernel name:
+    ms per call}); (None, {}) when the profiler saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kernels = {}
+    for ev in prof.key_averages():
+        if (ev.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(ev, "is_user_annotation", False)):
+            us = getattr(ev, "self_device_time_total", 0.0)
+            if us > 0:
+                kernels[ev.key] = kernels.get(ev.key, 0.0) + us / iters / 1e3
+    total = sum(kernels.values())
+    return (total if total > 0 else None), kernels
+
+
+def _dev_txt(ms):
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
+def _parts_txt(kernels):
+    """Each kernel of a call by the short name of its template, with its
+    device ms per call."""
+    import re
+
+    out = []
+    for name, ms in kernels.items():
+        short = re.search(r"(\w+_kernel)", name)
+        out.append(f"{short.group(1) if short else name[:40]} {ms:.4f}")
+    return ", ".join(out)
 
 
 def rel_norm_err(out, ref):
@@ -307,16 +359,17 @@ def _k1_case(b, s, h, hk, d=128, seed=0, dtype="bfloat16", causal=True,
     kt = k.transpose(1, 2).repeat_interleave(rep, 1).contiguous()
     vt = v.transpose(1, 2).repeat_interleave(rep, 1).contiguous()
     ms = time_ms(lambda: fa.flash_forward(q, k, v, causal=True))
+    dev, _ = device_ms(lambda: fa.flash_forward(q, k, v, causal=True))
     plain_ms = time_ms(lambda: fa.flash_forward_plain(q, k, v, True, 1.0 / d ** 0.5))
     lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
     nbytes = 2 * (q.numel() * 2 + k.numel() * 2) + 4 * lse.numel()
     flops = 4 * d * h * b * s * (s + 1) // 2  # causal (q, k) pairs
     bms, by = bound(nbytes, flops)
-    log("kernels", f"{shape}, kernel_ms {ms:.4f}, plain_ms {plain_ms:.4f}, "
-                   f"library_ms {lib_ms:.4f}, bound_ms {bms:.5f} ({by}) -> "
-                   f"{'ok' if ok else 'FAIL'}")
-    return ok, dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                    bound_by=by, library_ms=lib_ms)
+    log("kernels", f"{shape}, kernel_ms {ms:.4f}, device_ms {_dev_txt(dev)}, "
+                   f"plain_ms {plain_ms:.4f}, library_ms {lib_ms:.4f}, bound_ms "
+                   f"{bms:.5f} ({by}) -> {'ok' if ok else 'FAIL'}")
+    return ok, dict(max_abs_err=err, ms=ms, device_ms=dev, plain_ms=plain_ms,
+                    bound_ms=bms, bound_by=by, library_ms=lib_ms)
 
 
 def _paged_inputs(b, sq, h, hk, pos, d, ps, max_len, seed, dtype, quant,
@@ -390,6 +443,7 @@ def _k2_case(b, sq, h, hk, pos, d=128, ps=128, max_len=2048, seed=1,
         log("kernels", f"{shape} -> {'ok' if ok else 'FAIL'}")
         return ok, dict(max_abs_err=err)
     ms = time_ms(lambda: kernel(*args))
+    dev, parts = device_ms(lambda: kernel(*args))
     plain_ms = time_ms(lambda: plain(*args, scale))
     lib_ms = None
     if library:
@@ -407,24 +461,24 @@ def _k2_case(b, sq, h, hk, pos, d=128, ps=128, max_len=2048, seed=1,
     # bytes this data needs: each slot's live K/V rows of every kv head (and
     # their float32 scales under int8), q, out, tables and pos; operations
     # over the visible (row, key) pairs, at the peak of the units that run
-    # them: the bf16 tensor peak for K2 and for the tensor-core chunk window
-    # (int8 pages too: it converts them to bf16 exactly), the float32 peak
-    # for K4's FMA page walk (its products are float32, as the reference's
-    # are)
+    # them: the bf16 tensor peak for the chunk window (int8 pages too: it
+    # converts them to bf16 exactly) and the decode walk (bf16 q: the
+    # tensor peak bounds the same products), the float32 peak for the FMA
+    # page walk (float32 products, as the reference's are)
     live = [min(p + sq, max_len) for p in pos]
-    row_bytes = d + 4 if quant else d * 2
+    row_bytes = d + 4 if quant else d * ak.element_size()
     nbytes = (sum(live) * hk * row_bytes * 2 + 2 * q.numel() * q.element_size()
               + tables.numel() * 4 + b * 4)
     visible = sum(min(p + w + 1, max_len) for p in pos for w in range(sq))
     flops = 4 * d * h * visible
-    f32_units = quant and path == "fma"
+    f32_units = path == "fma"
     bms, by = bound(nbytes, flops, PEAK_F32_FLOP_S if f32_units else PEAK_BF16_FLOP_S)
     lib_txt = "null" if lib_ms is None else f"{lib_ms:.4f}"
-    log("kernels", f"{shape}, kernel_ms {ms:.4f}, plain_ms {plain_ms:.4f}, "
-                   f"library_ms {lib_txt}, bound_ms {bms:.5f} ({by}) -> "
-                   f"{'ok' if ok else 'FAIL'}")
-    return ok, dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                    bound_by=by, library_ms=lib_ms)
+    log("kernels", f"{shape}, kernel_ms {ms:.4f}, device_ms {_dev_txt(dev)} "
+                   f"({_parts_txt(parts)}), plain_ms {plain_ms:.4f}, library_ms "
+                   f"{lib_txt}, bound_ms {bms:.5f} ({by}) -> {'ok' if ok else 'FAIL'}")
+    return ok, dict(max_abs_err=err, ms=ms, device_ms=dev, plain_ms=plain_ms,
+                    bound_ms=bms, bound_by=by, library_ms=lib_ms)
 
 
 def _k3_case(b, s, h, hk, d=128, seed=6, dtype="bfloat16", causal=True,
@@ -451,7 +505,8 @@ def _k3_case(b, s, h, hk, d=128, seed=6, dtype="bfloat16", causal=True,
     errs = [(x.float() - r.float()).abs().max().item() for x, r in zip(got, ref)]
     rels = [rel_norm_err(x, r) for x, r in zip(got, ref)]
     ok = all(close(x, r) for x, r in zip(got, ref))
-    shape = (f"flash_bwd {dtype} b={b} s={s} h={h} hk={hk} d={d} causal={causal}: "
+    shape = (f"flash_bwd {dtype} b={b} s={s} h={h} hk={hk} d={d} causal={causal} "
+             f"path {fa.flash_path(s, d, q.dtype)}: "
              f"max_abs_err dq/dk/dv {errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e}, "
              f"rel_norm_err {rels[0]:.3e}/{rels[1]:.3e}/{rels[2]:.3e}")
     del ref
@@ -459,6 +514,7 @@ def _k3_case(b, s, h, hk, d=128, seed=6, dtype="bfloat16", causal=True,
         log("kernels", f"{shape} -> {'ok' if ok else 'FAIL'}")
         return ok, dict(max_abs_err=max(errs))
     ms = time_ms(lambda: fa.flash_backward(*args))
+    dev, parts = device_ms(lambda: fa.flash_backward(*args))
     plain_ms = time_ms(lambda: fa.flash_backward_plain(*args), iters=5, warmup=1)
     rep = h // hk
     qt = q.transpose(1, 2).detach().requires_grad_()
@@ -473,11 +529,16 @@ def _k3_case(b, s, h, hk, d=128, seed=6, dtype="bfloat16", causal=True,
     nbytes = 2 * 4 * (q.numel() + k.numel()) + 4 * lse.numel()
     pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
     bms, by = bound(nbytes, 10 * d * pairs)
-    log("kernels", f"{shape}, kernel_ms {ms:.4f}, plain_ms {plain_ms:.4f}, "
-                   f"library_ms {lib_ms:.4f}, bound_ms {bms:.5f} ({by}) -> "
+    lib_dev, _ = device_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), gt,
+                                                       retain_graph=True))
+    log("kernels", f"{shape}, kernel_ms {ms:.4f}, device_ms {_dev_txt(dev)} "
+                   f"({_parts_txt(parts)}), plain_ms {plain_ms:.4f}, library_ms "
+                   f"{lib_ms:.4f} "
+                   f"(device {_dev_txt(lib_dev)}), bound_ms {bms:.5f} ({by}) -> "
                    f"{'ok' if ok else 'FAIL'}")
-    return ok, dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                    bound_ms=bms, bound_by=by, library_ms=lib_ms)
+    return ok, dict(max_abs_err=max(errs), ms=ms, device_ms=dev,
+                    plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                    library_ms=lib_ms)
 
 
 def _k6_case(b, sq, h, hk, d=128, L=640, pos=0, seed=14, dtype="bfloat16",
@@ -512,6 +573,7 @@ def _k6_case(b, sq, h, hk, d=128, L=640, pos=0, seed=14, dtype="bfloat16",
         log("kernels", f"{shape} -> {'ok' if ok else 'FAIL'}")
         return ok, dict(max_abs_err=err)
     ms = time_ms(lambda: fa.dense_decode(q, k, v, pos_t))
+    dev, _ = device_ms(lambda: fa.dense_decode(q, k, v, pos_t))
     plain_ms = time_ms(lambda: fa.decode_attention_plain(q, k, v, pos_t))
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     i = torch.arange(sq, device="cuda")[:, None]
@@ -524,11 +586,11 @@ def _k6_case(b, sq, h, hk, d=128, L=640, pos=0, seed=14, dtype="bfloat16",
     nbytes = 2 * q.numel() * q.element_size() + 2 * b * live * hk * d * k.element_size()
     visible = sum(min(pos + r + 1, L) for r in range(sq))
     bms, by = bound(nbytes, 4 * d * h * b * visible)
-    log("kernels", f"{shape}, kernel_ms {ms:.4f}, plain_ms {plain_ms:.4f}, "
-                   f"library_ms {lib_ms:.4f}, bound_ms {bms:.5f} ({by}) -> "
-                   f"{'ok' if ok else 'FAIL'}")
-    return ok, dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                    bound_by=by, library_ms=lib_ms)
+    log("kernels", f"{shape}, kernel_ms {ms:.4f}, device_ms {_dev_txt(dev)}, "
+                   f"plain_ms {plain_ms:.4f}, library_ms {lib_ms:.4f}, bound_ms "
+                   f"{bms:.5f} ({by}) -> {'ok' if ok else 'FAIL'}")
+    return ok, dict(max_abs_err=err, ms=ms, device_ms=dev, plain_ms=plain_ms,
+                    bound_ms=bms, bound_by=by, library_ms=lib_ms)
 
 
 def _cp_inputs(b, sq, h, hk, pos, d, ps, max_len, cp, seed, dtype, quant,
@@ -618,15 +680,16 @@ def _partials_ok(got, ref, dtype):
 
 def _k5_case(b, sq, h, hk, pos, d=128, ps=128, max_len=4096, cp=2, seed=20,
              dtype="bfloat16", quant=False, timed=True, device="cuda"):
-    """K5 (`paged_decode_partials`, one launch per shard, then the combine)
-    against its plain version over a global arena in the cp layout: the
-    combined output against `paged_decode_plain` (or its int8 version)
-    over the global arena and tables, and each shard's partials against
-    `paged_decode_partials_plain`.  With `timed`, also K5's time (every
-    shard's launch plus the combine, the cp tables derived beforehand as
-    the engine derives them once per table upload), K2's over the same
-    global arena and tables (no PyTorch call reads pages: this is what cp
-    costs on one card), the plain version's and the bound."""
+    """K5 on one card (`paged_decode_cp`: one launch over every shard, then
+    the split combine) against its plain version over a global arena in
+    the cp layout: the output against `paged_decode_plain` (or its int8
+    version) over the global arena and tables, and each shard's partials
+    (`paged_decode_partials`, the across-card form) against
+    `paged_decode_partials_plain`.  With `timed`, also K5's time (the cp
+    tables stacked beforehand, as the engine stacks them once per table
+    upload) and device time, K2's over the same global arena and tables (no
+    PyTorch call reads pages: this is what cp costs on one card), the plain
+    version's and the bound."""
     import torch
 
     from paddle_tpu_torch.ops import flash_attention as fa
@@ -634,9 +697,11 @@ def _k5_case(b, sq, h, hk, pos, d=128, ps=128, max_len=4096, cp=2, seed=20,
     q, ak, av, scales, tables, pos_t = _cp_inputs(
         b, sq, h, hk, pos, d, ps, max_len, cp, seed, dtype, quant, device)
     local = fa.cp_local_tables(tables, cp, ak.shape[0] // cp, ps)
+    stacked = fa.cp_stacked_tables(tables, cp, ak.shape[0] // cp, ps)
     scale = 1.0 / d ** 0.5
     kw = dict(k_scale=scales[0], v_scale=scales[1]) if quant else {}
-    out = fa.paged_decode_cp(q, ak, av, tables, pos_t, max_len, cp, local=local, **kw)
+    out = fa.paged_decode_cp(q, ak, av, tables, pos_t, max_len, cp, local=stacked,
+                             **kw)
     _, parts = _cp_run(q, ak, av, scales, local, pos_t, max_len, cp, scale,
                        fa.paged_decode_partials)
     if device == "cuda":
@@ -655,39 +720,42 @@ def _k5_case(b, sq, h, hk, pos, d=128, ps=128, max_len=4096, cp=2, seed=20,
     path = fa.paged_path(rows, d, q.dtype)
     shape = (f"{name} {dtype} b={b} sq={sq} h={h} hk={hk} d={d} ps={ps} cp={cp} "
              f"max_len={max_len} pos={pos} path {path} splits/shard="
-             f"{fa.paged_splits(path, b, hk, rows, tables.shape[1] // cp, ps)}: "
+             f"{fa.paged_splits(path, b, hk, rows, tables.shape[1] // cp, ps, cp)}: "
              f"max_abs_err {err:.3e}, rel_norm_err {rel:.3e} vs the global "
              f"plain version, partials {'ok' if parts_ok else 'WRONG'}")
     if not timed:
         log("kernels", f"{shape} -> {'ok' if ok else 'FAIL'}")
         return ok, dict(max_abs_err=err)
-    ms = time_ms(lambda: fa.paged_decode_cp(q, ak, av, tables, pos_t, max_len, cp,
-                                            local=local, **kw))
+    run = lambda: fa.paged_decode_cp(q, ak, av, tables, pos_t, max_len, cp,
+                                     local=stacked, **kw)
+    ms = time_ms(run)
+    dev, parts = device_ms(run)
     plain_ms = time_ms(lambda: _cp_run(q, ak, av, scales, local, pos_t, max_len,
                                        cp, scale, fa.paged_decode_partials_plain))
-    k2_ms = (None if quant else
-             time_ms(lambda: fa.paged_decode_fused(q, ak, av, tables, pos_t, max_len)))
+    k2 = lambda: fa.paged_decode_fused(q, ak, av, tables, pos_t, max_len)
+    k2_ms, k2_dev = (None, None) if quant else (time_ms(k2), device_ms(k2)[0])
     # bytes: q, each slot's live K/V rows of every kv head (scales under
-    # int8), the local tables, page_base and pos read once, every shard's
-    # partials written once, the output written once; operations over the
-    # visible (row, key) pairs at the bf16 tensor peak (the float32 peak for
-    # the FMA page walk over int8 pages)
+    # int8), the local tables, page_base and pos read once, the output
+    # written once (the splits' and shards' partials are the kernel's
+    # choice, not the function's); operations over the visible (row, key)
+    # pairs at the bf16 tensor peak (the float32 peak for the FMA page walk)
     live = [min(p + sq, max_len) for p in pos]
-    row_bytes = d + 4 if quant else d * 2
+    row_bytes = d + 4 if quant else d * ak.element_size()
     R = (h // hk) * sq
     nbytes = (sum(live) * hk * row_bytes * 2 + 2 * q.numel() * q.element_size()
-              + tables.numel() * 4 + tables.shape[1] * 4 + cp * b * 4
-              + cp * b * hk * R * (d + 2) * 4)
+              + tables.numel() * 4 + tables.shape[1] * 4 + b * 4)
     visible = sum(min(p + w + 1, max_len) for p in pos for w in range(sq))
     bms, by = bound(nbytes, 4 * d * h * visible,
-                    PEAK_F32_FLOP_S if quant and path == "fma" else PEAK_BF16_FLOP_S)
-    k2_txt = "n/a" if k2_ms is None else f"{k2_ms:.4f}"
-    log("kernels", f"{shape}, kernel_ms {ms:.4f} ({cp} launches + combine), "
-                   f"k2_same_arena_ms {k2_txt}, plain_ms {plain_ms:.4f}, "
-                   f"library_ms null, bound_ms {bms:.5f} ({by}) -> "
-                   f"{'ok' if ok else 'FAIL'}")
-    return ok, dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                    bound_by=by, library_ms=None, k2_same_arena_ms=k2_ms)
+                    PEAK_F32_FLOP_S if path == "fma" else PEAK_BF16_FLOP_S)
+    k2_txt = "n/a" if k2_ms is None else f"{k2_ms:.4f} (device {_dev_txt(k2_dev)})"
+    log("kernels", f"{shape}, kernel_ms {ms:.4f} (one launch + combine), "
+                   f"device_ms {_dev_txt(dev)} ({_parts_txt(parts)}), "
+                   f"k2_same_arena_ms {k2_txt}, "
+                   f"plain_ms {plain_ms:.4f}, library_ms null, bound_ms "
+                   f"{bms:.5f} ({by}) -> {'ok' if ok else 'FAIL'}")
+    return ok, dict(max_abs_err=err, ms=ms, device_ms=dev, plain_ms=plain_ms,
+                    bound_ms=bms, bound_by=by, library_ms=None,
+                    k2_same_arena_ms=k2_ms, k2_same_arena_device_ms=k2_dev)
 
 
 # The chunk window's tensor-core path (rows = rep * sq >= 16, bf16, d 64 or
@@ -708,14 +776,93 @@ CHUNK_CASES = (
 )
 
 
+# The decode walk (rows = rep * sq < 16, bf16 q, d 64 or 128), each case
+# over bf16 and over int8 pages: a verify window (3 rows), GQA rep 4 (4
+# rows), rep 4 x sq 3 (12 rows: two 8-row tiles), d 64 with 16-row pages (a
+# 64-key stage spans four pages), a window running into scratch page 0, 15
+# rows, 8 rows, and a slot at pos 0 (one key)
+WALK_CASES = (
+    dict(b=4, sq=3, h=32, hk=32, pos=[1000, 513, 64, 0]),
+    dict(b=4, sq=1, h=32, hk=8, pos=[1500, 700, 129, 3]),
+    dict(b=4, sq=3, h=32, hk=8, pos=[1000, 513, 64, 0]),
+    dict(b=2, sq=1, h=8, hk=2, pos=[900, 40], d=64, ps=16, max_len=1024),
+    dict(b=3, sq=3, h=8, hk=2, pos=[14, 30, 7], d=64, ps=16, max_len=256,
+         overrun=True),
+    dict(b=2, sq=15, h=8, hk=8, pos=[400, 9], d=64, ps=64, max_len=1024),
+    dict(b=2, sq=2, h=8, hk=2, pos=[900, 40], d=64, ps=64, max_len=1024),
+    dict(b=2, sq=1, h=32, hk=32, pos=[0, 700]),
+)
+
+# The FMA page walk (float32 q, or d not 64/128), each case over bf16 or
+# float32 pages and over int8 pages: GQA, the largest shared memory (a
+# 64-row tile at d 256, then a partial second tile whose first row sits
+# mid-window: rep 32 x sq 3 = 96), scalar tile loads (d bytes not a
+# multiple of 16, 2 splits), a float32 chunk of 64 rows, and a window
+# running into scratch page 0
+FMA_CASES = (
+    dict(b=4, sq=1, h=32, hk=8, pos=[1500, 700, 129, 3], dtype="float32"),
+    dict(b=2, sq=3, h=32, hk=1, pos=[900, 40], d=256, ps=64, max_len=1024),
+    dict(b=2, sq=1, h=4, hk=2, pos=[700, 10], d=36, ps=16, max_len=1024),
+    dict(b=1, sq=64, h=8, hk=8, pos=[300], d=64, ps=64, max_len=1024,
+         dtype="float32"),
+    dict(b=3, sq=3, h=8, hk=2, pos=[14, 30, 7], d=64, ps=16, max_len=256,
+         overrun=True, dtype="float32"),
+)
+
+# K3's variants beside the timed shapes: on the wgmma kernels GQA (hk 8),
+# ragged s (300, 1000), d 64, non-causal and one 128-row tile; on
+# mma.sync s 16 and 127 (below the wgmma tile) and d 36; the FMA kernels
+# (float32, d 256)
+K3_CASES = (
+    dict(b=2, s=256, h=32, hk=8),
+    dict(b=1, s=300, h=16, hk=4),
+    dict(b=2, s=1000, h=32, hk=8, d=64),
+    dict(b=1, s=1000, h=32, hk=8),
+    dict(b=2, s=200, h=8, hk=8, causal=False),
+    dict(b=2, s=300, h=16, hk=16, d=64, causal=False),
+    dict(b=2, s=128, h=32, hk=8),
+    dict(b=2, s=130, h=8, hk=2, d=64),
+    dict(b=2, s=16, h=8, hk=2),
+    dict(b=1, s=127, h=8, hk=8, d=64),
+    dict(b=1, s=70, h=4, hk=2, d=36),
+    dict(b=1, s=100, h=8, hk=2, d=256),
+    dict(b=1, s=128, h=32, hk=32, dtype="float32"),
+    dict(b=1, s=100, h=8, hk=2, d=256, dtype="float32"),
+    dict(b=1, s=150, h=8, hk=8, d=64, causal=False, dtype="float32"),
+)
+
+
+def _k3_repeat(b, s, h, hk, d=128, causal=True, seed=17):
+    """K3 twice on the same inputs: dq, dk and dv must be equal bit for bit
+    (no float atomics, a fixed order of every sum)."""
+    import torch
+
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, g = (torch.randn(b, s, heads, d, generator=gen, device="cuda",
+                              dtype=torch.bfloat16) for heads in (h, hk, hk, h))
+    out, lse = fa.flash_forward(q, k, v, causal=causal)
+    first = fa.flash_backward(q, k, v, out, lse, g, causal)
+    second = fa.flash_backward(q, k, v, out, lse, g, causal)
+    same = all(torch.equal(x, y) for x, y in zip(first, second))
+    log("kernels", f"flash_bwd bfloat16 b={b} s={s} h={h} hk={hk} d={d} "
+                   f"causal={causal} path {fa.flash_path(s, d, q.dtype)}: two "
+                   f"calls equal bit for bit (dq, dk, dv): {same} -> "
+                   f"{'ok' if same else 'FAIL'}")
+    return same
+
+
 def phase_kernels():
-    """Each kernel against its plain version: timed at the main paths' bf16
-    shapes, then untimed over every other variant the wrappers launch on
-    the card (float32, head_dim 64 and 256, non-causal, GQA, ragged, the
-    largest shared memory, each kernel path of `flash_path` and
-    `paged_path`).  Returns ({name: record at the headline shape}, all_ok);
-    the record's max_abs_err is the worst over the bf16 cases of that
-    entry."""
+    """Each kernel against its plain version: timed at the main paths'
+    shapes (bf16; the FMA page walks at the same decode steps in float32),
+    then untimed over every other variant the wrappers launch on the card
+    (float32, head_dim 64 and 256, non-causal, GQA, ragged, the largest
+    shared memory, each kernel path of `flash_path` and `paged_path`, cp 2
+    and 4), with K3 held bit for bit across two calls.  Returns ({name:
+    record at the headline shape}, all_ok); the record's max_abs_err is the
+    worst over the bf16 cases of that entry (over every case of an FMA
+    page-walk entry)."""
     import torch
 
     from paddle_tpu_torch.ops import flash_attention as fa
@@ -728,11 +875,14 @@ def phase_kernels():
                    f"rel_norm_err per (batch, head) <= {REL_NORM_TOL}")
     ok_all = True
 
+    fma_errs = ()  # the FMA paths' lists keep every dtype's errors
+
     def case(fn, errs, **kw):
         nonlocal ok_all
         ok, rec = fn(**kw)
         ok_all &= ok
-        if kw.get("dtype", "bfloat16") == "bfloat16" and errs is not None:
+        if errs is not None and (kw.get("dtype", "bfloat16") == "bfloat16"
+                                 or any(errs is e for e in fma_errs)):
             errs.append(rec["max_abs_err"])
         return rec
 
@@ -748,41 +898,33 @@ def phase_kernels():
                dict(b=1, s=2048, h=8, hk=8, causal=False)):
         case(_k1_case, errs1, seed=3, timed=False, **kw)
     decode_pos = [1999, 1500, 1024, 700, 300, 128, 127, 5]
-    errs2 = []
-    k2 = case(_k2_case, errs2, b=8, sq=1, h=32, hk=32, pos=decode_pos)
-    case(_k2_case, errs2, b=4, sq=4, h=32, hk=8, pos=[1000, 513, 64, 0], seed=2)
-    # the chunk prefill of a prefix-cache hit: a 256-row suffix bucket at
-    # position 300 on the tensor-core path, timed beside SDPA on the
-    # gathered K/V; then every chunk case untimed
-    errs2c, errs4c = [], []
+    # K2 and K4 each on their three paths: the decode walk (bf16 q, under
+    # 16 rows: every decode and verify step), timed at the decode step; the
+    # FMA page walk (float32 q, other d), timed at the same step in
+    # float32; the tensor-core chunk window, timed at a prefix hit's
+    # 256-row chunk prefill beside SDPA on the gathered K/V (K2).  Then
+    # every other case untimed, each over bf16 and over int8 pages.
+    errs2w, errs2, errs2c, errs4w, errs4, errs4c = [], [], [], [], [], []
+    fma_errs = (errs2, errs4)
+    k2w = case(_k2_case, errs2w, b=8, sq=1, h=32, hk=32, pos=decode_pos)
+    k4w = case(_k2_case, errs4w, b=8, sq=1, h=32, hk=32, pos=decode_pos, seed=11,
+               quant=True)
+    k2 = case(_k2_case, errs2, b=8, sq=1, h=32, hk=32, pos=decode_pos,
+              dtype="float32", seed=3)
+    k4 = case(_k2_case, errs4, b=8, sq=1, h=32, hk=32, pos=decode_pos,
+              dtype="float32", seed=4, quant=True)
     k2c = case(_k2_case, errs2c, b=1, sq=256, h=32, hk=32, pos=[300], seed=9,
                library=True)
-    for kw in CHUNK_CASES:
-        case(_k2_case, errs2c, seed=10, timed=False, **kw)
-    # K4: int8 pages at the decode case and the chunk window, timed, then
-    # the chunk cases and its other variants untimed
-    errs4 = []
-    k4 = case(_k2_case, errs4, b=8, sq=1, h=32, hk=32, pos=decode_pos, seed=11,
-              quant=True)
     k4c = case(_k2_case, errs4c, b=1, sq=256, h=32, hk=32, pos=[300], seed=12,
                quant=True)
-    for kw in CHUNK_CASES:
-        case(_k2_case, errs4c, seed=13, timed=False, quant=True, **kw)
-    for kw in (
-        dict(b=4, sq=4, h=32, hk=8, pos=[1000, 513, 64, 0]),        # GQA, sq 4
-        dict(b=4, sq=1, h=32, hk=8, pos=[1500, 700, 129, 3], dtype="float32"),
-        dict(b=2, sq=2, h=8, hk=2, pos=[900, 40], d=64, ps=64, max_len=1024),
-        # scalar tile loads (d bytes not a multiple of 16), 2 splits
-        dict(b=2, sq=1, h=4, hk=2, pos=[700, 10], d=36, ps=16, max_len=1024),
-        # windows running past the mapped pages into scratch page 0, on
-        # the FMA page walk (12 rows; CHUNK_CASES has the tensor-core one)
-        dict(b=3, sq=3, h=8, hk=2, pos=[14, 30, 7], d=64, ps=16, max_len=256,
-             overrun=True),
-        # float32 q at 64 rows: the FMA page walk
-        dict(b=1, sq=64, h=8, hk=8, pos=[300], d=64, ps=64, max_len=1024,
-             dtype="float32"),
-    ):
-        case(_k2_case, errs4, seed=13, timed=False, quant=True, **kw)
+    for quant, (ew, ec, ef) in ((False, (errs2w, errs2c, errs2)),
+                                (True, (errs4w, errs4c, errs4))):
+        for kw in WALK_CASES:
+            case(_k2_case, ew, seed=10, timed=False, quant=quant, **kw)
+        for kw in CHUNK_CASES:
+            case(_k2_case, ec, seed=10, timed=False, quant=quant, **kw)
+        for kw in FMA_CASES:
+            case(_k2_case, ef, seed=5, timed=False, quant=quant, **kw)
     # the other variants: each line is one kernel instantiation or mode
     for kw in (
         dict(b=1, s=128, h=32, hk=32, dtype="float32"),   # f32 FMA, d 128
@@ -795,36 +937,20 @@ def phase_kernels():
         dict(b=1, s=200, h=8, hk=2, d=100),               # mma<128>, d not 64/128
     ):
         case(_k1_case, errs1, seed=4, timed=False, **kw)
-    for kw in (
-        dict(b=4, sq=1, h=32, hk=8, pos=[1500, 700, 129, 3], dtype="float32"),
-        # largest shared memory (a 64-row tile at d 256), then a partial
-        # second tile whose first row sits mid-window (rep 32 x sq 3 = 96)
-        dict(b=2, sq=3, h=32, hk=1, pos=[900, 40], d=256, ps=64, max_len=1024),
-        # scalar tile loads (d * 2 bytes not a multiple of 16), 2 splits
-        dict(b=2, sq=1, h=4, hk=2, pos=[700, 10], d=36, ps=16, max_len=1024),
-        # 15 rows: the last shape below the tensor-core path
-        dict(b=2, sq=15, h=8, hk=8, pos=[400, 9], d=64, ps=64, max_len=1024),
-        # a float32 chunk: the FMA page walk at 64 rows
-        dict(b=1, sq=64, h=8, hk=8, pos=[300], d=64, ps=64, max_len=1024,
-             dtype="float32"),
-    ):
-        case(_k2_case, errs2, seed=5, timed=False, **kw)
-    # the training path: K1 and K3 at the slice's shape, timed
+    # the training path: K1 and K3 at the slice's shape (both on their
+    # wgmma kernels), timed; K3 at s 512 timed too; then K3's other
+    # variants untimed, and two calls held bit for bit
     k1_train = case(_k1_case, errs1, b=TRAIN_BATCH, s=TRAIN_SEQ, h=32, hk=32, seed=7)
     errs3 = []
-    k3 = case(_k3_case, errs3, b=TRAIN_BATCH, s=TRAIN_SEQ, h=32, hk=32)
-    for kw in (
-        dict(b=1, s=128, h=32, hk=32, dtype="float32"),    # f32 FMA, d 128
-        dict(b=2, s=256, h=32, hk=8),                      # GQA
-        dict(b=1, s=300, h=16, hk=4),                      # ragged, GQA
-        dict(b=2, s=200, h=8, hk=8, causal=False),         # non-causal
-        dict(b=2, s=130, h=8, hk=2, d=64),                 # d 64
-        dict(b=1, s=100, h=8, hk=2, d=256),                # bf16 FMA, d 256
-        dict(b=1, s=100, h=8, hk=2, d=256, dtype="float32"),
-        dict(b=1, s=70, h=4, hk=2, d=36),                  # d not a power of 2
-        dict(b=1, s=150, h=8, hk=8, d=64, causal=False, dtype="float32"),
-    ):
+    k3w = case(_k3_case, errs3, b=TRAIN_BATCH, s=TRAIN_SEQ, h=32, hk=32)
+    k3 = case(_k3_case, errs3, b=TRAIN_BATCH, s=512, h=32, hk=32, seed=9)
+    for kw in K3_CASES:
         case(_k3_case, errs3, seed=8, timed=False, **kw)
+    for kw in (dict(b=TRAIN_BATCH, s=TRAIN_SEQ, h=32, hk=32),
+               dict(b=2, s=1000, h=32, hk=8, d=64),
+               dict(b=2, s=300, h=16, hk=4, causal=False),
+               dict(b=2, s=16, h=8, hk=2)):
+        ok_all &= _k3_repeat(**kw)
     # K6: the lock-step prefill of the generate phase (wgmma), timed, then
     # GQA, ragged sq at pos > 0 on both tensor-core paths, float32 and the
     # FMA path at d 256, untimed
@@ -851,25 +977,38 @@ def phase_kernels():
         log("kernels", f"dense_decode {dtype} at pos 0, L = sq = {sq}, GQA, path "
                        f"{fa.flash_path(sq, 128, q.dtype)}: equal to flash_fwd bit "
                        f"for bit: {same} -> {'ok' if same else 'FAIL'}")
-    # K5: cp=2 decode at the cp phase's context (per-slot pos 3000-4000 of
-    # 4096, 4 splits per shard), timed beside K2 over the same arena; its
-    # chunk window (a hit's 256-row chunk prefill at pos 3000), timed; then
-    # the variants the cp engine launches, untimed
-    errs5, errs5c = [], []
-    k5 = case(_k5_case, errs5, b=8, sq=1, h=32, hk=32, pos=K5_DECODE_POS)
+    # K5 (every shard in one launch): cp=2 decode at the cp phase's context
+    # (per-slot pos 3000-4000 of 4096) on the decode walk, timed beside K2
+    # over the same arena; the same in float32 (the FMA page walk, the
+    # cp_f32 phase's path); its chunk window (a hit's 256-row chunk prefill
+    # at pos 3000), timed; then the variants the cp engine launches,
+    # untimed, at cp 2 and 4
+    errs5w, errs5, errs5c = [], [], []
+    fma_errs += (errs5,)
+    k5w = case(_k5_case, errs5w, b=8, sq=1, h=32, hk=32, pos=K5_DECODE_POS)
+    k5 = case(_k5_case, errs5, b=8, sq=1, h=32, hk=32, pos=K5_DECODE_POS,
+              dtype="float32", seed=23)
     k5c = case(_k5_case, errs5c, b=1, sq=256, h=32, hk=32, pos=[3000])
     for kw in (
-        dict(b=4, sq=1, h=32, hk=8, pos=[3500, 1700, 129, 3], dtype="float32"),
         dict(b=8, sq=1, h=32, hk=32, pos=K5_DECODE_POS, quant=True),     # int8
         dict(b=8, sq=3, h=32, hk=32, pos=K5_DECODE_POS),    # a verify window
         dict(b=4, sq=3, h=32, hk=32, pos=[3100, 2000, 900, 1], quant=True),
         dict(b=4, sq=3, h=32, hk=8, d=64, pos=[3999, 2100, 700, 64]),    # GQA
         dict(b=4, sq=1, h=32, hk=32, pos=[3900, 3000, 1000, 5], cp=4),
-        # pos < page_size: shard 1 sees no key; one split per shard
+        dict(b=4, sq=3, h=32, hk=8, pos=[3900, 2000, 1000, 5], cp=4, quant=True),
+        # pos < page_size: shard 1 sees no key
         dict(b=4, sq=1, h=32, hk=32, pos=[1000, 300, 100, 0], max_len=1024),
     ):
-        case(_k5_case, errs5 if not kw.get("quant") else None, seed=21,
+        case(_k5_case, errs5w if not kw.get("quant") else None, seed=21,
              timed=False, **kw)
+    for kw in (
+        dict(b=4, sq=1, h=32, hk=8, pos=[3500, 1700, 129, 3], dtype="float32"),
+        dict(b=4, sq=3, h=32, hk=8, pos=[3500, 1700, 129, 3], dtype="float32",
+             cp=4),
+        dict(b=4, sq=1, h=32, hk=8, pos=[3500, 1700, 129, 3], dtype="float32",
+             quant=True),
+    ):
+        case(_k5_case, errs5, seed=21, timed=False, **kw)
     for kw in (
         # chunk windows: the slot at pos 0 sees no key of shard 1 (nor, at
         # cp 4, of shards 1-3), pos 100 only some rows do
@@ -885,12 +1024,16 @@ def phase_kernels():
     return {"flash_fwd": worst(k1[512], errs1),
             "flash_fwd_wgmma": worst(k1_train, errs1),
             "paged_decode_fused": worst(k2, errs2),
+            "paged_decode_fused_walk": worst(k2w, errs2w),
             "paged_decode_fused_mma": worst(k2c, errs2c),
             "paged_decode_fused_q8": worst(k4, errs4),
+            "paged_decode_fused_q8_walk": worst(k4w, errs4w),
             "paged_decode_fused_q8_mma": worst(k4c, errs4c),
             "flash_bwd": worst(k3, errs3),
+            "flash_bwd_wgmma": worst(k3w, errs3),
             "dense_decode": worst(k6, errs6),
             "paged_decode_fused_cp": worst(k5, errs5),
+            "paged_decode_fused_cp_walk": worst(k5w, errs5w),
             "paged_decode_fused_cp_mma": worst(k5c, errs5c)}, ok_all
 
 
@@ -955,8 +1098,11 @@ def phase_slice(smi, cfg, device="cuda", dtype="bfloat16",
         gen.append(np.asarray(toks[n:], np.int32))
     want_k1 = len(prompts) * layers
     want_k2 = summary["decode_steps"] * layers
+    # every decode step on the decode walk
+    want_walk = want_k2 if on_card else 0
     counts_ok = (counts["flash_fwd"] == want_k1
-                 and counts["paged_decode_fused"] == want_k2)
+                 and counts["paged_decode_fused"] == want_k2
+                 and counts["paged_decode_fused_walk"] == want_walk)
     ok = tokens_ok and counts_ok
     decode_tokens = summary["tokens"] - summary["requests"]
     decode_tps = decode_tokens / summary["decode_busy_s"]
@@ -966,7 +1112,8 @@ def phase_slice(smi, cfg, device="cuda", dtype="bfloat16",
                  f"token counts {'ok' if tokens_ok else 'WRONG'}; launches {_main(counts)} "
                  f"(expected flash_fwd {want_k1} = {len(prompts)} prefills x "
                  f"{layers} layers, paged_decode_fused {want_k2} = "
-                 f"{summary['decode_steps']} decode steps x {layers}) -> "
+                 f"{summary['decode_steps']} decode steps x {layers}, each on the "
+                 f"decode walk: paged_decode_fused_walk {want_walk}) -> "
                  f"{'ok' if counts_ok else 'FAIL'}; prefills on K1's wgmma path "
                  f"{counts['flash_fwd_wgmma'] // max(1, layers)} of {len(prompts)} "
                  f"(buckets of 128+ rows)")
@@ -1119,7 +1266,10 @@ def phase_prefix(smi, model, kv_quant, device="cuda", sys_len=PREFIX_SYS_LEN,
     other = "paged_decode_fused" if kv_quant == "int8" else "paged_decode_fused_q8"
     on_card = torch.device(device).type == "cuda"
     want_tc = hits * layers if on_card else 0  # every chunk prefill
-    tc_ok = counts[paged_name + "_mma"] == want_tc
+    # every decode step on the decode walk
+    want_walk = summary["decode_steps"] * layers if on_card else 0
+    tc_ok = (counts[paged_name + "_mma"] == want_tc
+             and counts[paged_name + "_walk"] == want_walk)
     counts_ok = (counts["flash_fwd"] == want_k1 and counts[paged_name] == want_paged
                  and counts[other] == 0 and tc_ok)
     ok = tokens_ok and sharing_ok and counts_ok
@@ -1135,8 +1285,11 @@ def phase_prefix(smi, model, kv_quant, device="cuda", sys_len=PREFIX_SYS_LEN,
                f"{layers}, {other} 0) -> {'ok' if counts_ok else 'FAIL'}")
     log(phase, f"chunk prefills on the tensor-core path: "
                f"{counts[paged_name + '_mma'] // max(1, layers)} of {hits} "
-               f"({counts[paged_name + '_mma']} launches, expected {want_tc}) -> "
-               f"{'ok' if tc_ok else 'FAIL'}")
+               f"({counts[paged_name + '_mma']} launches, expected {want_tc}); "
+               f"decode steps on the decode walk: "
+               f"{counts[paged_name + '_walk'] // max(1, layers)} of "
+               f"{summary['decode_steps']} ({counts[paged_name + '_walk']} "
+               f"launches, expected {want_walk}) -> {'ok' if tc_ok else 'FAIL'}")
     decode_tps = (summary["tokens"] - summary["requests"]) / summary["decode_busy_s"]
     log(phase, f"ttft_p50_ms {summary['ttft_p50_ms']:.3f} ttft_p95_ms "
                f"{summary['ttft_p95_ms']:.3f} decode_tokens_per_s {decode_tps:.2f} "
@@ -1174,26 +1327,6 @@ def _post_status(url, body):
         return e.code, json.loads(e.read())
 
 
-def _profile_cp_decode(engine, cfg, rng, prompt_len):
-    """`profile_decode` of a cp engine with the cross-shard combine inside
-    a profiler range, so its device time shows apart from the kernels'."""
-    import torch
-
-    from paddle_tpu_torch.ops import flash_attention as fa
-
-    real = fa.cp_softmax_combine
-
-    def combine(*args, **kw):
-        with torch.profiler.record_function("cp_softmax_combine"):
-            return real(*args, **kw)
-
-    fa.cp_softmax_combine = combine
-    try:
-        profile_decode(engine, cfg, rng, prompt_len=prompt_len)
-    finally:
-        fa.cp_softmax_combine = real
-
-
 def phase_cp(smi, model, device="cuda", doc_len=CP_DOC_LEN,
              questions=CP_QUESTIONS, fresh=CP_FRESH, new_tokens=CP_NEW,
              overflow_len=CP_OVERFLOW, runs=CP_RUNS, profile_len=CP_DOC_LEN,
@@ -1205,8 +1338,9 @@ def phase_cp(smi, model, device="cuda", doc_len=CP_DOC_LEN,
     suffixes through the pages) with two fresh prompts together, then one
     prompt past the context, which must be answered 400 with the engine's
     per-shard geometry.  Checks token counts, /healthz, the kernel launches
-    of the run (K5 once per shard per layer per paged attention under cp,
-    no K2 or K4 there), and a direct run's logits against the
+    of the run (K5 once per layer per paged attention under cp, every shard
+    in one launch, no K2 or K4 there; every decode or verify step on the
+    decode walk), and a direct run's logits against the
     teacher-forced forward; prints the greedy agreement between runs, the
     speculation counters, decode tokens/s and TTFT, and profiles the first
     cp run's decode step.  Returns (all checks passed, launch counts of
@@ -1299,10 +1433,12 @@ def phase_cp(smi, model, device="cuda", doc_len=CP_DOC_LEN,
             want["flash_fwd"] = misses * layers
             # every fresh prompt here is past 128 tokens: K1's wgmma path
             want["flash_fwd_wgmma"] = misses * layers
-            want[paged] = cp * layers * (steps + hits)
+            # one launch per layer per paged attention, every shard in it
+            want[paged] = layers * (steps + hits)
             # every chunk prefill on the tensor-core path, every decode or
-            # verify step (1 or 3 rows) on the FMA page walk
-            want[paged + "_mma"] = cp * layers * hits
+            # verify step (1 or 3 rows) on the decode walk
+            want[paged + "_mma"] = layers * hits
+            want[paged + "_walk"] = layers * steps
         counts_ok = counts == want and hits == len(shared) - 1
         ok = tokens_ok and overflow_ok and health_ok and counts_ok
         log(phase, f"served {len(spec)} requests over HTTP in {wall:.3f} s: token "
@@ -1315,13 +1451,16 @@ def phase_cp(smi, model, device="cuda", doc_len=CP_DOC_LEN,
                    f"{'ok' if health_ok else 'FAIL'}")
         log(phase, f"launches {_main(counts)} (expected {_main(want)}: flash_fwd = "
                    f"{misses} fresh prefills x {layers} layers, the paged kernel = "
-                   f"{cp} shards x {layers} layers x ({steps} "
+                   f"{layers} layers x ({steps} "
                    f"{'verify' if spec_k else 'decode'} steps + {hits} chunk "
-                   f"prefills)) -> {'ok' if counts_ok else 'FAIL'}")
+                   f"prefills), each launch over all {cp} shards) -> "
+                   f"{'ok' if counts_ok else 'FAIL'}")
         log(phase, f"chunk prefills on the tensor-core path: "
-                   f"{counts[paged + '_mma'] // max(1, cp * layers)} of {hits} "
+                   f"{counts[paged + '_mma'] // max(1, layers)} of {hits} "
                    f"({counts[paged + '_mma']} launches, expected "
-                   f"{want[paged + '_mma']}); fresh prefills on K1's wgmma path "
+                   f"{want[paged + '_mma']}); {'verify' if spec_k else 'decode'} "
+                   f"steps on the decode walk {counts[paged + '_walk'] // max(1, layers)} "
+                   f"of {steps}; fresh prefills on K1's wgmma path "
                    f"{counts['flash_fwd_wgmma'] // max(1, layers)} of {misses}")
         log(phase, f"{overflow_len}-token prompt: HTTP {code} {body.get('type')} "
                    f"capacity {cap} -> {'ok' if overflow_ok else 'FAIL'}")
@@ -1344,7 +1483,7 @@ def phase_cp(smi, model, device="cuda", doc_len=CP_DOC_LEN,
                    f"{agree / total:.4f}; worst logits rel err {worst:.4f} (tol "
                    f"{LOGIT_REL_TOL}) -> {'ok' if logits_ok else 'FAIL'}")
         if on_card and cp > 1 and not profiled:
-            _profile_cp_decode(engine, cfg, rng, profile_len)
+            profile_decode(engine, cfg, rng, prompt_len=profile_len)
             profiled = True
         ok_all &= ok
         del engine, reqs
@@ -1356,6 +1495,101 @@ def phase_cp(smi, model, device="cuda", doc_len=CP_DOC_LEN,
         total = sum(x.size for x in gens[a])
         log("cp", f"greedy tokens of {b} equal to {a}'s, per position: "
                   f"{same}/{total} = {same / total:.4f}")
+    return ok_all, all_counts
+
+
+def _top2_gap(model, device, prompt, gen, at):
+    """The top-2 logit gap, and max|logit|, of the teacher-forced forward
+    over prompt + gen at generated position `at`."""
+    import numpy as np
+    import torch
+
+    seq = np.concatenate([prompt, gen[:at]])[None]
+    with torch.no_grad():
+        row = model(torch.from_numpy(seq).to(device))[0, -1].float()
+    top = row.topk(2).values
+    return (top[0] - top[1]).item(), row.abs().max().item()
+
+
+def phase_cp_f32(smi, model, device="cuda", doc_len=CP_DOC_LEN,
+                 questions=CP_QUESTIONS, fresh=CP_FRESH, new_tokens=CP_NEW,
+                 runs=CP_F32_RUNS, **engine_kw):
+    """Context parallelism and speculation held in float32 (F4): `model`
+    (float32, and so its arenas) serves the cp phase's traffic behind POST
+    /generate through each engine of `runs`, one at a time.  For each run
+    after the first, per-position greedy agreement with the first run, and
+    at each request's first divergence the top-2 logit gap of the first
+    run's teacher-forced forward.  Passes when every request's tokens are
+    identical or its first divergence is a near tie: gap <= F32_TIE_REL x
+    max|logit| there.  Returns (ok, launch counts of every run)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.inference.engine import ContinuousBatchingEngine
+
+    cfg = model.config
+    layers = cfg.num_hidden_layers
+    on_card = torch.device(device).type == "cuda"
+    rng = np.random.default_rng(2)  # phase_cp's traffic
+    doc = rng.integers(1, cfg.vocab_size, size=doc_len)
+    shared = [np.concatenate([doc, rng.integers(1, cfg.vocab_size, size=n)])
+              .astype(np.int32) for n in questions]
+    others = [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32) for n in fresh]
+    spec = [(p, new_tokens) for p in shared + others]
+    batches = [spec[:1], spec[1:]]
+    log("cp_f32", f"Llama {cfg.hidden_size} hidden x {layers} layers in "
+                  f"{model.lm_head.weight.dtype} (arenas too); near-tie rule: "
+                  f"top-2 gap <= {F32_TIE_REL} x max|logit| | {smi}")
+    ok_all, all_counts, gens = True, [], {}
+    for label, cp, spec_k in runs:
+        phase = f"cp_f32 {label}"
+        engine = ContinuousBatchingEngine(model, seed=0, device=device, cp=cp,
+                                          spec_k=spec_k, prefix_cache=True,
+                                          **engine_kw)
+        engine.warmup()
+        profiler.reset_kernel_launch_counts()
+        results, wall = _serve_batches(engine, batches)
+        counts = profiler.kernel_launch_counts()
+        all_counts.append(counts)
+        gen, tokens_ok = [], True
+        for r, (p, new) in zip(results, spec):
+            toks = r["tokens"]
+            tokens_ok &= len(toks) == p.size + new and toks[:p.size] == p.tolist()
+            gen.append(np.asarray(toks[p.size:], np.int32))
+        gens[label] = gen
+        k5 = counts["paged_decode_fused_cp"]
+        # under cp every paged attention is K5 (never K2); cp=1 runs K2
+        paths_ok = (not on_card or (k5 > 0 and counts["paged_decode_fused"] == 0
+                                    if cp > 1 else
+                                    counts["paged_decode_fused"] > 0 and k5 == 0))
+        ok = tokens_ok and paths_ok
+        log(phase, f"engine cp={cp} spec_k={spec_k}: served {len(spec)} requests "
+                   f"in {wall:.3f} s, token counts {'ok' if tokens_ok else 'WRONG'}; "
+                   f"launches {_main(counts)} -> {'ok' if paths_ok else 'FAIL'}")
+        ok_all &= ok
+        del engine
+        if on_card:
+            _free()
+    base = runs[0][0]
+    for label, _, _ in runs[1:]:
+        same = total = 0
+        for i, ((p, _), a, b) in enumerate(zip(spec, gens[base], gens[label])):
+            same += int((a == b).sum())
+            total += a.size
+            diff = np.flatnonzero(a != b)
+            if diff.size == 0:
+                continue
+            at = int(diff[0])
+            gap, top = _top2_gap(model, device, p, a, at)
+            tie = gap <= F32_TIE_REL * top
+            ok_all &= tie
+            log("cp_f32", f"{label} vs {base}, request {i} (prompt {p.size}): first "
+                          f"divergence at generated position {at}: top-2 gap "
+                          f"{gap:.6e}, max|logit| {top:.4f}, gap / max|logit| "
+                          f"{gap / top:.3e} -> {'near tie' if tie else 'FAIL'}")
+        log("cp_f32", f"greedy tokens of {label} equal to {base}'s, per position: "
+                      f"{same}/{total} = {same / total:.4f}")
     return ok_all, all_counts
 
 
@@ -1626,15 +1860,17 @@ KERNEL_GROUPS = (
     ("GEMMs (cuBLAS)", ("nvjet", "gemm", "cutlass", "splitKreduce")),
     ("K1 flash_fwd", ("flash_fwd",)),
     ("K3 flash_bwd", ("flash_bwd", "delta_kernel")),
-    # the chunk windows (16+ rows) of K2, K4 and K5 run paged_chunk_mma_kernel;
-    # below 16 rows K4 is paged_decode_kernel over int8 ("signed char")
-    # pages; K5 is the same templates (K2's under full precision, K4's
-    # under int8) and no step runs both, so under cp these rows are K5; all
-    # share the split combine kernel
+    # the chunk windows (16+ rows) of K2, K4 and K5 run paged_chunk_mma_kernel,
+    # their decode and verify steps (under 16 rows, bf16 q) the decode walk,
+    # float32 the FMA page walk (paged_decode_kernel; over int8 "signed
+    # char" pages K4's); K5 is the same templates with every shard in one
+    # launch, and no step runs both K2 and K5, so under cp these rows are
+    # K5; all share the split combine kernel
     ("K2/K4/K5 chunk window (tensor cores)", ("paged_chunk_mma_kernel",)),
-    ("K4/K5-int8 paged_decode_q8", ("paged_decode_kernel<__nv_bfloat16, signed char",
-                                    "paged_decode_kernel<float, signed char")),
-    ("K2/K5 paged_decode", ("paged_decode_kernel<",)),
+    ("K2/K4/K5 decode walk", ("paged_walk_kernel",)),
+    ("K4/K5-int8 FMA walk", ("paged_decode_kernel<__nv_bfloat16, signed char",
+                             "paged_decode_kernel<float, signed char")),
+    ("K2/K5 FMA walk", ("paged_decode_kernel<",)),
     ("K2/K4/K5 split combine", ("combine_kernel<",)),
 )
 
@@ -1791,8 +2027,11 @@ def phase_train(smi, cfg, device="cuda", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
     want_fwd, want_bwd = fwd_per_step * layers * steps, layers * steps
     # every training-shape K1 launch takes the wgmma path
     want_wgmma = want_fwd if on_card else 0
+    # and every K3 launch the wgmma kernels
+    want_bwd_wgmma = want_bwd if on_card else 0
     counts_ok = (counts["flash_fwd"] == want_fwd and counts["flash_bwd"] == want_bwd
-                 and counts["flash_fwd_wgmma"] == want_wgmma)
+                 and counts["flash_fwd_wgmma"] == want_wgmma
+                 and counts["flash_bwd_wgmma"] == want_bwd_wgmma)
     moved = [name for name, p in model.named_parameters()
              if not torch.equal(opt.state[p].get("master_weight", p).detach().cpu(),
                                 before[name])]
@@ -1805,7 +2044,8 @@ def phase_train(smi, cfg, device="cuda", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
     log("train", f"launches {_main(counts)} (expected flash_fwd {want_fwd} = "
                  f"{fwd_per_step} x {layers} layers x {steps} steps, each on the "
                  f"wgmma path: flash_fwd_wgmma {want_wgmma}; flash_bwd "
-                 f"{want_bwd}) -> {'ok' if counts_ok else 'FAIL'}; weights moved "
+                 f"{want_bwd}, each on its wgmma kernels: flash_bwd_wgmma "
+                 f"{want_bwd_wgmma}) -> {'ok' if counts_ok else 'FAIL'}; weights moved "
                  f"{len(moved)}/{len(before)} -> {'ok' if moved_ok else 'FAIL'}")
     log("train", f"step_ms median of steps 2-{steps} {step_s * 1e3:.1f} (all: "
                  + " ".join(f"{x * 1e3:.1f}" for x in secs)
@@ -1937,9 +2177,14 @@ def main():
         dense_ok, dense_counts = _timed("dense", phase_dense, smi, model,
                                         slice_summary, **serving)
         _free()
-        cp_ok, cp_counts = _timed("cp", phase_cp, smi, model, slots=4,
-                                  max_len=4096, page_size=128,
-                                  prefill_buckets=[32, 64, 128, 256, 512])
+        cp_kw = dict(slots=4, max_len=4096, page_size=128,
+                     prefill_buckets=[32, 64, 128, 256, 512])
+        cp_ok, cp_counts = _timed("cp", phase_cp, smi, model, **cp_kw)
+        _free()
+        # F4: the same traffic in float32, the model and its arenas too
+        model.float()
+        _free()
+        f32_ok, f32_counts = _timed("cp_f32", phase_cp_f32, smi, model, **cp_kw)
         del model
         _free()
         train_ok, train_counts = _timed(
@@ -1958,33 +2203,38 @@ def main():
         traceback.print_exc()
         return 1
     if not (kernels_ok and slice_ok and prefix_ok and gen_ok and dense_ok
-            and cp_ok and train_ok and recompute_ok and grad_ok):
+            and cp_ok and f32_ok and train_ok and recompute_ok and grad_ok):
         print("chip_smoke: a phase failed (see the lines above)", file=sys.stderr)
         return 1
     # launches: the serving, generation and training runs' counts, each read
     # just after its path ran
     runs = [counts, *prefix_counts, gen_counts, dense_counts, *cp_counts,
-            train_counts]
+            *f32_counts, train_counts]
     launches = {name: sum(c[name] for c in runs) for name in kernels}
     # K5's two variants are one kernel of the record, on each path
-    launches["paged_decode_fused_cp"] += sum(c["paged_decode_fused_cp_q8"]
-                                             for c in runs)
-    launches["paged_decode_fused_cp_mma"] += sum(c["paged_decode_fused_cp_q8_mma"]
-                                                 for c in runs)
-    # (record name, source, the Pallas kernel it replaces); a `_wgmma` or
-    # `_mma` entry is its kernel's tensor-core path, timed at its main-path
-    # shape (K1 at the training shape, the chunk windows at a hit's 256-row
-    # chunk prefill), with the launches that took it
+    for path in ("", "_mma", "_walk"):
+        launches["paged_decode_fused_cp" + path] += sum(
+            c["paged_decode_fused_cp_q8" + path] for c in runs)
+    # (record name, source, the Pallas kernel it replaces); a `_wgmma`,
+    # `_mma` or `_walk` entry is one path of its kernel, timed at its
+    # main-path shape (K1 and K3 at the training shape, the chunk windows at
+    # a hit's 256-row chunk prefill, the walks at a decode step), with the
+    # launches that took it; the plain entry is timed at its headline shape
+    # and counts all its kernel's launches
     entries = (
         ("flash_fwd", "flash_fwd.cu", 186),
         ("flash_fwd_wgmma", "flash_fwd.cu", 186),
         ("paged_decode_fused", "paged_decode.cu", 813),
+        ("paged_decode_fused_walk", "paged_decode.cu", 813),
         ("paged_decode_fused_mma", "paged_decode.cu", 813),
         ("paged_decode_fused_q8", "paged_decode.cu", 961),
+        ("paged_decode_fused_q8_walk", "paged_decode.cu", 961),
         ("paged_decode_fused_q8_mma", "paged_decode.cu", 961),
         ("flash_bwd", "flash_bwd.cu", 415),
+        ("flash_bwd_wgmma", "flash_bwd.cu", 415),
         ("dense_decode", "flash_fwd.cu", 649),
         ("paged_decode_fused_cp", "paged_decode.cu", 1172),
+        ("paged_decode_fused_cp_walk", "paged_decode.cu", 1172),
         ("paged_decode_fused_cp_mma", "paged_decode.cu", 1172),
     )
     record = {"kernels": [

@@ -26,14 +26,29 @@
 //    of the reference's repeated K/V and autograd's sum over the copies;
 //  - the ragged edge is masked in-kernel (`q < s`, `k < s`) as in K1: no
 //    padding, no segment ids; key rows past `s` are never written;
-//  - bf16 with d <= 128 runs the five products on the tensor cores
-//    (`mma.sync` m16n8k16, f32 accumulation); float32 and d > 128 run a
-//    plain f32-FMA kernel from shared memory.
-// Not yet: wgmma, TMA, a load pipeline; segment ids, key bias, q_offset.
+//  - bf16 with d = 64 or 128 and at least 128 rows (every training step)
+//    runs the Hopper kernels (`hop::`): per block one producer warp and two
+//    consumer warpgroups.  The producer keeps a two-stage ring of TMA tiles
+//    (128-byte swizzled, the tensor maps encoded per call through the
+//    driver entry point, so the build needs no -lcuda) full behind
+//    full/empty mbarriers.  The dk/dv kernel holds 128 keys (64 per
+//    warpgroup) and streams 64-row Q/dO tiles with their lse and delta;
+//    the dq kernel holds 128 q rows and streams 64-key K/V tiles.  S, dP
+//    and their transposes are `wgmma` products of K-major tiles; P^T.dO,
+//    dS^T.Q and dS.K read their B operand MN-major (the transposed form, as
+//    K1 reads V), with P^T and dS as the register A operand, rounded to
+//    bf16 where the reference rounds them;
+//  - other bf16 shapes with d <= 128 run the five products on `mma.sync`
+//    m16n8k16 (f32 accumulation); float32 and d > 128 run a plain f32-FMA
+//    kernel from shared memory.  The host picks the kernel (`flash_path`).
+// The dq kernel recomputes S and dP (seven products where the math needs
+// five): the price of a deterministic dq without float atomics.
+// Not yet: segment ids, key bias, q_offset.
 
 #include <stdint.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -726,37 +741,548 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Hopper kernels: bf16, d = D in {64, 128}, TMA loads and wgmma products.
+// ---------------------------------------------------------------------------
+
+namespace hop {
+
+using namespace ptt::hop;  // barriers, TMA, descriptors, wgmma (hopper.cuh)
+
+constexpr int kStages = 2;                 // the streamed tiles' ring
+constexpr int kConsumers = 256;            // two warpgroups of 64 rows
+constexpr int kThreads = kConsumers + 32;  // and one producer warp
+// the dk/dv kernel: a whole producer warpgroup, so `setmaxnreg` can move
+// its registers to the consumers
+constexpr int kThreadsDkdv = kConsumers + 128;
+constexpr int kKeys = 128;   // dk/dv kernel: keys per block, 64 per warpgroup
+constexpr int kQStep = 64;   // dk/dv kernel: q rows per streamed tile
+constexpr int kRows = 128;   // dq kernel: q rows per block, 64 per warpgroup
+constexpr int kKStep = 64;   // dq kernel: keys per streamed tile
+
+// A tile of R rows x D columns is D / 64 column halves of [R][64] bf16
+// (R x 128 bytes each), 128-byte swizzled: TMA's box of 64 columns.
+template <int R>
+__device__ __forceinline__ void tma_tile(bf16* dst, const CUtensorMap* map,
+                                          uint64_t* bar, int halves, int head,
+                                          int row0, int b) {
+  for (int hf = 0; hf < halves; ++hf)
+    tma_load_4d(dst + hf * R * 64, map, bar, hf * 64, head, row0, b);
+}
+
+// dk/dv kernel shared memory, in bytes from a 1024-byte-aligned base: K and
+// V of the block's keys, the Q and dO rings, each stage's lse and delta
+// [2][kQStep] f32, then the barriers.
+template <int D>
+struct DkdvSmem {
+  static constexpr size_t kKV = (size_t)kKeys * D * 2;  // K or V
+  static constexpr size_t kT = (size_t)kQStep * D * 2;  // one Q or dO tile
+  static constexpr size_t k = 0;
+  static constexpr size_t v = k + kKV;
+  static constexpr size_t q = v + kKV;
+  static constexpr size_t g = q + kStages * kT;
+  static constexpr size_t stats = g + kStages * kT;
+  static constexpr size_t bar = stats + kStages * 2 * kQStep * 4;
+  static constexpr size_t bytes = bar + (2 * kStages + 1) * 8;
+};
+
+// One block per (128-key tile, kv head, batch).  The producer warp loads K
+// and V once, then, for each q head of the group and each 64-row q tile
+// from the diagonal (causal) on, Q and dO by TMA and the rows' lse and delta
+// into a two-stage ring; all 32 of its lanes arrive on the stage's full
+// barrier (lane 0 with the TMA bytes), so their plain stores of lse and
+// delta are released with it.  Consumer warpgroup w owns keys 64w..64w+63:
+//   S^T = K.Q^T, dP^T = V.dO^T       (wgmma, both operands K-major)
+//   P^T = exp(scale S^T - lse), dS^T = P^T (dP^T - delta) scale
+//   dV += P^T.dO, dK += dS^T.Q       (P^T, dS^T rounded to bf16 as the
+//                                     register operand; dO, Q MN-major)
+// with dK and dV in f32 registers for the whole walk, written once.
+template <int D>
+__global__ void __launch_bounds__(kThreadsDkdv, 1)
+flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                            const __grid_constant__ CUtensorMap tm_k,
+                            const __grid_constant__ CUtensorMap tm_v,
+                            const __grid_constant__ CUtensorMap tm_g,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            bf16* __restrict__ dk, bf16* __restrict__ dv, int s,
+                            int h, int hk, int causal, float scale) {
+  using L = DkdvSmem<D>;
+  constexpr int kHalves = D / 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  bf16* k_s = reinterpret_cast<bf16*>(smem + L::k);
+  bf16* v_s = reinterpret_cast<bf16*>(smem + L::v);
+  bf16* q_s = reinterpret_cast<bf16*>(smem + L::q);
+  bf16* g_s = reinterpret_cast<bf16*>(smem + L::g);
+  float* st_s = reinterpret_cast<float*>(smem + L::stats);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bar);
+  uint64_t* empty = full + kStages;
+  uint64_t* kvbar = empty + kStages;
+
+  const int k0 = blockIdx.x * kKeys;
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int rep = h / hk;
+  // causal: q tiles wholly above the diagonal see none of these keys (k0 is
+  // a multiple of kQStep)
+  const int q_begin = causal ? k0 : 0;
+  const int n_q = (s - q_begin + kQStep - 1) / kQStep;
+  const int n_iter = rep * n_q;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&full[i], 32);
+      mbar_init(&empty[i], kConsumers);
+    }
+    mbar_init(kvbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (warp >= kConsumers / 32) {
+    // the producer warpgroup hands its registers to the consumers (dK
+    // and dV stay in registers for the whole walk); its first warp loads
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (warp == kConsumers / 32) {
+      // the producer; rows past s arrive as zeros (the tensor maps' bounds)
+      if (lane == 0) {
+        mbar_expect_tx(kvbar, (uint32_t)(2 * L::kKV));
+        tma_tile<kKeys>(k_s, &tm_k, kvbar, kHalves, kvh, k0, b);
+        tma_tile<kKeys>(v_s, &tm_v, kvbar, kHalves, kvh, k0, b);
+      }
+      for (int i = 0; i < n_iter; ++i) {
+        const int st = i % kStages;
+        const int head = kvh * rep + i / n_q;
+        const int q0 = q_begin + (i % n_q) * kQStep;
+        if (i >= kStages) mbar_wait(&empty[st], ((i / kStages) & 1) ^ 1);
+        const size_t base = ((size_t)b * h + head) * s;
+        float* stg = st_s + st * 2 * kQStep;
+        for (int r = lane; r < kQStep; r += 32) {
+          const int qi = q0 + r;
+          stg[r] = qi < s ? lse[base + qi] * kLog2e : 0.f;
+          stg[kQStep + r] = qi < s ? delta[base + qi] : 0.f;
+        }
+        if (lane == 0) {
+          mbar_expect_tx(&full[st], (uint32_t)(2 * L::kT));
+          tma_tile<kQStep>(q_s + (size_t)st * kQStep * D, &tm_q, &full[st],
+                           kHalves, head, q0, b);
+          tma_tile<kQStep>(g_s + (size_t)st * kQStep * D, &tm_g, &full[st],
+                           kHalves, head, q0, b);
+        } else {
+          mbar_arrive(&full[st]);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    // a consumer warpgroup: keys [k0 + 64 wg, +64); warp wq of it keys
+    // 16 wq.., this thread keys g and g + 8 of those.  S^T and dP^T
+    // accumulators: element 4j + e at key row g + 8 (e / 2), q column
+    // 8j + 2t + (e % 2); dK and dV likewise with d columns.
+    const int wg = warp / 4, wq = warp % 4;
+    const int g = lane >> 2, t = lane & 3;
+    const int wg_key0 = k0 + wg * 64;
+    const int key_a = wg_key0 + wq * 16 + g, key_b = key_a + 8;
+    const unsigned char* k_wg =
+        reinterpret_cast<const unsigned char*>(k_s) + wg * 64 * 128;
+    const unsigned char* v_wg =
+        reinterpret_cast<const unsigned char*>(v_s) + wg * 64 * 128;
+    const float sl2 = scale * kLog2e;
+
+    float dka[D / 2], dva[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+
+    mbar_wait(kvbar, 0);
+    for (int i = 0; i < n_iter; ++i) {
+      const int st = i % kStages;
+      const int q0 = q_begin + (i % n_q) * kQStep;
+      mbar_wait(&full[st], (i / kStages) & 1);
+      // causal: every q row of the tile precedes this warpgroup's keys
+      if (causal && q0 + kQStep - 1 < wg_key0) {
+        mbar_arrive(&empty[st]);
+        continue;
+      }
+      const unsigned char* qt =
+          reinterpret_cast<const unsigned char*>(q_s + (size_t)st * kQStep * D);
+      const unsigned char* gt =
+          reinterpret_cast<const unsigned char*>(g_s + (size_t)st * kQStep * D);
+      const float* lse2 = st_s + st * 2 * kQStep;  // lse * log2(e)
+      const float* dl = lse2 + kQStep;
+
+      float sc[kQStep / 2], dp[kQStep / 2];
+      fence_regs(sc);
+      fence_regs(dp);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        // column half kk / 4, 32 bytes per 16-deep step inside it
+        const size_t aoff = (size_t)(kk / 4) * (kKeys * 128) + (kk % 4) * 32;
+        const size_t boff = (size_t)(kk / 4) * (kQStep * 128) + (kk % 4) * 32;
+        wgmma_ss_n64(sc, make_desc(k_wg + aoff, 16, 1024),
+                     make_desc(qt + boff, 16, 1024), kk > 0);
+        wgmma_ss_n64(dp, make_desc(v_wg + aoff, 16, 1024),
+                     make_desc(gt + boff, 16, 1024), kk > 0);
+      }
+      wg_commit();
+      wg_wait0();
+      fence_regs(sc);
+      fence_regs(dp);
+
+      // P^T and dS^T, bf16, as the register A operand: q columns 16kk.. of
+      // the scores are the k columns of step kk
+      uint32_t pf[kQStep / 16][4], dsf[kQStep / 16][4];
+#pragma unroll
+      for (int j = 0; j < kQStep / 8; ++j) {
+        float pv[4], dsv[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * j + 2 * t + (e & 1);
+          const int qi = q0 + c;
+          const int kj = e < 2 ? key_a : key_b;
+          const bool ok = kj < s && qi < s && (!causal || kj <= qi);
+          // masked entries are exactly 0: they add nothing to any sum
+          pv[e] = ok ? exp2f(sc[4 * j + e] * sl2 - lse2[c]) : 0.f;
+          dsv[e] = pv[e] * (dp[4 * j + e] - dl[c]) * scale;
+        }
+        pf[j / 2][(j % 2) * 2] = pack_bf16(pv[0], pv[1]);
+        pf[j / 2][(j % 2) * 2 + 1] = pack_bf16(pv[2], pv[3]);
+        dsf[j / 2][(j % 2) * 2] = pack_bf16(dsv[0], dsv[1]);
+        dsf[j / 2][(j % 2) * 2 + 1] = pack_bf16(dsv[2], dsv[3]);
+      }
+      fence_regs(dva);
+      fence_regs(dka);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < kQStep / 16; ++kk) {
+        // 16 q rows = two 1024-byte atoms per step; the next 64 d columns
+        // lie one column half (kQStep rows of 128 bytes) further
+        const uint64_t dg = make_desc(gt + kk * 2048, kQStep * 128, 1024);
+        const uint64_t dqd = make_desc(qt + kk * 2048, kQStep * 128, 1024);
+        if constexpr (D == 128) {
+          wgmma_rs_n128(dva, pf[kk], dg);
+          wgmma_rs_n128(dka, dsf[kk], dqd);
+        } else {
+          wgmma_rs_n64(dva, pf[kk], dg);
+          wgmma_rs_n64(dka, dsf[kk], dqd);
+        }
+      }
+      wg_commit();
+      wg_wait0();
+      fence_regs(dva);
+      fence_regs(dka);
+      mbar_arrive(&empty[st]);  // this thread is done with the stage
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int kj = r ? key_b : key_a;
+      if (kj >= s) continue;
+      const size_t row = ((size_t)(b * s + kj) * hk + kvh) * D;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(dk + row + 8 * j + 2 * t) =
+            pack_bf16(dka[4 * j + 2 * r], dka[4 * j + 2 * r + 1]);
+        *reinterpret_cast<uint32_t*>(dv + row + 8 * j + 2 * t) =
+            pack_bf16(dva[4 * j + 2 * r], dva[4 * j + 2 * r + 1]);
+      }
+    }
+  }
+}
+
+// dq kernel shared memory: Q and dO of the block's rows, the K and V rings,
+// then the barriers.
+template <int D>
+struct DqSmem {
+  static constexpr size_t kT = (size_t)kRows * D * 2;    // Q or dO
+  static constexpr size_t kKV = (size_t)kKStep * D * 2;  // one K or V tile
+  static constexpr size_t q = 0;
+  static constexpr size_t g = q + kT;
+  static constexpr size_t k = g + kT;
+  static constexpr size_t v = k + kStages * kKV;
+  static constexpr size_t bar = v + kStages * kKV;
+  static constexpr size_t bytes = bar + (2 * kStages + 1) * 8;
+};
+
+// One block per (128-row q tile, q head, batch), longest causal tiles
+// first.  The producer loads Q and dO once, then K and V tiles of 64 keys
+// up to the diagonal into a two-stage ring.  Consumer warpgroup w owns q
+// rows 64w..64w+63:
+//   S = Q.K^T, dP = dO.V^T           (wgmma, both operands K-major)
+//   dS = exp(scale S - lse) (dP - delta) scale, rounded to bf16
+//   dQ += dS.K                       (K MN-major)
+// dQ in f32 registers, written once: no atomics, so dq is deterministic.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const __grid_constant__ CUtensorMap tm_g,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          bf16* __restrict__ dq, int s, int h, int hk,
+                          int causal, float scale) {
+  using L = DqSmem<D>;
+  constexpr int kHalves = D / 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  bf16* q_s = reinterpret_cast<bf16*>(smem + L::q);
+  bf16* g_s = reinterpret_cast<bf16*>(smem + L::g);
+  bf16* k_s = reinterpret_cast<bf16*>(smem + L::k);
+  bf16* v_s = reinterpret_cast<bf16*>(smem + L::v);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bar);
+  uint64_t* empty = full + kStages;
+  uint64_t* qbar = empty + kStages;
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;  // longest tiles first
+  const int head = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = head / (h / hk);
+  // causal: key tiles wholly past the tile's last row contribute nothing
+  const int k_end = causal ? min(s, q0 + kRows) : s;
+  const int n_tiles = (k_end + kKStep - 1) / kKStep;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], kConsumers);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (warp == kConsumers / 32) {
+    if (lane == 0) {
+      mbar_expect_tx(qbar, (uint32_t)(2 * L::kT));
+      tma_tile<kRows>(q_s, &tm_q, qbar, kHalves, head, q0, b);
+      tma_tile<kRows>(g_s, &tm_g, qbar, kHalves, head, q0, b);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % kStages;
+        if (i >= kStages) mbar_wait(&empty[st], ((i / kStages) & 1) ^ 1);
+        mbar_expect_tx(&full[st], (uint32_t)(2 * L::kKV));
+        tma_tile<kKStep>(k_s + (size_t)st * kKStep * D, &tm_k, &full[st],
+                          kHalves, kvh, i * kKStep, b);
+        tma_tile<kKStep>(v_s + (size_t)st * kKStep * D, &tm_v, &full[st],
+                          kHalves, kvh, i * kKStep, b);
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup: q rows [q0 + 64 wg, +64); this thread rows g and
+  // g + 8 of warp wq's 16
+  const int wg = warp / 4, wq = warp % 4;
+  const int g = lane >> 2, t = lane & 3;
+  const int row_a = q0 + wg * 64 + wq * 16 + g, row_b = row_a + 8;
+  const int wg_last = q0 + wg * 64 + 63;
+  const unsigned char* q_wg =
+      reinterpret_cast<const unsigned char*>(q_s) + wg * 64 * 128;
+  const unsigned char* g_wg =
+      reinterpret_cast<const unsigned char*>(g_s) + wg * 64 * 128;
+  const float sl2 = scale * kLog2e;
+  const size_t stats = ((size_t)b * h + head) * s;
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = r ? row_b : row_a;
+    lse2[r] = qi < s ? lse[stats + qi] * kLog2e : 0.f;
+    dl[r] = qi < s ? delta[stats + qi] : 0.f;
+  }
+
+  float dqa[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dqa[i] = 0.f;
+
+  mbar_wait(qbar, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i % kStages;
+    const int kb = i * kKStep;
+    mbar_wait(&full[st], (i / kStages) & 1);
+    // causal: every key of the tile follows this warpgroup's rows
+    if (causal && kb > wg_last) {
+      mbar_arrive(&empty[st]);
+      continue;
+    }
+    const unsigned char* kt =
+        reinterpret_cast<const unsigned char*>(k_s + (size_t)st * kKStep * D);
+    const unsigned char* vt =
+        reinterpret_cast<const unsigned char*>(v_s + (size_t)st * kKStep * D);
+
+    float sc[kKStep / 2], dp[kKStep / 2];
+    fence_regs(sc);
+    fence_regs(dp);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const size_t aoff = (size_t)(kk / 4) * (kRows * 128) + (kk % 4) * 32;
+      const size_t boff = (size_t)(kk / 4) * (kKStep * 128) + (kk % 4) * 32;
+      wgmma_ss_n64(sc, make_desc(q_wg + aoff, 16, 1024),
+                   make_desc(kt + boff, 16, 1024), kk > 0);
+      wgmma_ss_n64(dp, make_desc(g_wg + aoff, 16, 1024),
+                   make_desc(vt + boff, 16, 1024), kk > 0);
+    }
+    wg_commit();
+    wg_wait0();
+    fence_regs(sc);
+    fence_regs(dp);
+
+    uint32_t dsf[kKStep / 16][4];
+#pragma unroll
+    for (int j = 0; j < kKStep / 8; ++j) {
+      float dsv[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = e < 2 ? row_a : row_b;
+        const int kj = kb + 8 * j + 2 * t + (e & 1);
+        const bool ok = kj < s && qi < s && (!causal || kj <= qi);
+        const float p = ok ? exp2f(sc[4 * j + e] * sl2 - lse2[e >> 1]) : 0.f;
+        dsv[e] = p * (dp[4 * j + e] - dl[e >> 1]) * scale;
+      }
+      dsf[j / 2][(j % 2) * 2] = pack_bf16(dsv[0], dsv[1]);
+      dsf[j / 2][(j % 2) * 2 + 1] = pack_bf16(dsv[2], dsv[3]);
+    }
+    fence_regs(dqa);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kKStep / 16; ++kk) {
+      // 16 keys = two atoms per step; the next 64 d columns one half further
+      const uint64_t db = make_desc(kt + kk * 2048, kKStep * 128, 1024);
+      if constexpr (D == 128)
+        wgmma_rs_n128(dqa, dsf[kk], db);
+      else
+        wgmma_rs_n64(dqa, dsf[kk], db);
+    }
+    wg_commit();
+    wg_wait0();
+    fence_regs(dqa);
+    mbar_arrive(&empty[st]);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = r ? row_b : row_a;
+    if (qi >= s) continue;
+    bf16* row = dq + ((size_t)(b * s + qi) * h + head) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(row + 8 * j + 2 * t) =
+          pack_bf16(dqa[4 * j + 2 * r], dqa[4 * j + 2 * r + 1]);
+  }
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* g,
+                   const void* lse, const void* delta, void* dq, void* dk,
+                   void* dv, int b, int s, int h, int hk, int causal,
+                   float scale, cudaStream_t stream) {
+  // the dk/dv kernel streams 64-row Q/dO tiles against 128 keys; the dq
+  // kernel 64-key K/V tiles against 128 rows
+  CUtensorMap q64, g64, k128, v128, q128, g128, k64, v64;
+  if (!make_map(&q64, q, b, s, h, D, kQStep) ||
+      !make_map(&g64, g, b, s, h, D, kQStep) ||
+      !make_map(&k128, k, b, s, hk, D, kKeys) ||
+      !make_map(&v128, v, b, s, hk, D, kKeys) ||
+      !make_map(&q128, q, b, s, h, D, kRows) ||
+      !make_map(&g128, g, b, s, h, D, kRows) ||
+      !make_map(&k64, k, b, s, hk, D, kKStep) ||
+      !make_map(&v64, v, b, s, hk, D, kKStep))
+    return cudaErrorNotSupported;
+  const size_t smem_dkdv = DkdvSmem<D>::bytes + 1024;  // + the alignment
+  const size_t smem_dq = DqSmem<D>::bytes + 1024;
+  auto dkdv = flash_bwd_dkdv_wgmma_kernel<D>;
+  auto dqk = flash_bwd_dq_wgmma_kernel<D>;
+  static ptt::SmemLimit limit_dkdv, limit_dq;
+  cudaError_t err = limit_dkdv.reserve(dkdv, smem_dkdv);
+  if (err != cudaSuccess) return err;
+  err = limit_dq.reserve(dqk, smem_dq);
+  if (err != cudaSuccess) return err;
+  const float* lse_f = static_cast<const float*>(lse);
+  const float* delta_f = static_cast<const float*>(delta);
+  dkdv<<<dim3((s + kKeys - 1) / kKeys, hk, b), kThreadsDkdv, smem_dkdv,
+         stream>>>(
+      q64, k128, v128, g64, lse_f, delta_f, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), s, h, hk, causal, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dqk<<<dim3((s + kRows - 1) / kRows, h, b), kThreads, smem_dq, stream>>>(
+      q128, k64, v64, g128, lse_f, delta_f, static_cast<bf16*>(dq), s, h, hk,
+      causal, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace hop
+
+// Kernel choices, picked by the host (`flash_path`, as for K1).
+constexpr int kPathFma = 0;    // f32 FMA, any dtype and d
+constexpr int kPathMma = 1;    // mma.sync, bf16 d <= 128
+constexpr int kPathWgmma = 2;  // wgmma + TMA, bf16 d = 64 or 128
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// The products of the kernel `path` names, after the delta pre-pass; a path
+// the shape does not fit is cudaErrorInvalidValue, never another kernel.
+cudaError_t backward(int path, const void* q, const void* k, const void* v,
+                     const void* g, const void* lse, const void* delta,
+                     void* dq, void* dk, void* dv, int b, int s, int h, int hk,
+                     int d, int causal, float scale, int dtype,
+                     cudaStream_t st) {
+  if (path == kPathWgmma) {
+    if (dtype != ptt::kBFloat16 || (d != 64 && d != 128) || !aligned16(q) ||
+        !aligned16(k) || !aligned16(v) || !aligned16(g))
+      return cudaErrorInvalidValue;
+    if (d == 64)
+      return hop::launch<64>(q, k, v, g, lse, delta, dq, dk, dv, b, s, h, hk,
+                             causal, scale, st);
+    return hop::launch<128>(q, k, v, g, lse, delta, dq, dk, dv, b, s, h, hk,
+                            causal, scale, st);
+  }
+  if (path == kPathMma) {
+    if (dtype != ptt::kBFloat16 || d > 128) return cudaErrorInvalidValue;
+    if (d <= 64)
+      return launch_mma<64>(q, k, v, g, lse, delta, dq, dk, dv, b, s, h, hk, d,
+                            causal, scale, st);
+    return launch_mma<128>(q, k, v, g, lse, delta, dq, dk, dv, b, s, h, hk, d,
+                           causal, scale, st);
+  }
+  if (path != kPathFma) return cudaErrorInvalidValue;
+  if (dtype == ptt::kBFloat16)
+    return launch_fma<bf16, 32, 16>(q, k, v, g, lse, delta, dq, dk, dv, b, s,
+                                    h, hk, d, causal, scale, st);
+  return dispatch_fma_f32(q, k, v, g, lse, delta, dq, dk, dv, b, s, h, hk, d,
+                          causal, scale, st);
+}
+
 }  // namespace
 
 // q, out, g, dq: [b, s, h, d]; k, v, dk, dv: [b, s, hk, d], all contiguous
 // and of one dtype; lse: [b, h, s] f32 from K1; delta: [b, h, s] f32
-// scratch, written here.
+// scratch, written here.  path: 0 the FMA kernels, 1 mma.sync, 2 wgmma +
+// TMA.
 extern "C" int ptt_flash_bwd(const void* q, const void* k, const void* v,
                              const void* out, const void* lse, const void* g,
                              void* dq, void* dk, void* dv, void* delta, int b,
                              int s, int h, int hk, int d, int causal,
-                             float scale, int dtype, void* stream) {
-  if (b < 1 || s < 1 || h < 1 || hk < 1 || h % hk != 0 || d < 1 || d > 256)
+                             float scale, int dtype, int path, void* stream) {
+  if (b < 1 || s < 1 || h < 1 || hk < 1 || h % hk != 0 || d < 1 || d > 256 ||
+      h > 65535 || b > 65535 ||
+      (dtype != ptt::kBFloat16 && dtype != ptt::kFloat32))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == ptt::kBFloat16) {
-    err = launch_delta<bf16>(g, out, delta, b, s, h, d, st);
-    if (err != cudaSuccess) return (int)err;
-    if (d <= 64)
-      return (int)launch_mma<64>(q, k, v, g, lse, delta, dq, dk, dv, b, s, h,
-                                 hk, d, causal, scale, st);
-    if (d <= 128)
-      return (int)launch_mma<128>(q, k, v, g, lse, delta, dq, dk, dv, b, s, h,
-                                  hk, d, causal, scale, st);
-    return (int)launch_fma<bf16, 32, 16>(q, k, v, g, lse, delta, dq, dk, dv,
-                                         b, s, h, hk, d, causal, scale, st);
-  }
-  if (dtype == ptt::kFloat32) {
-    err = launch_delta<float>(g, out, delta, b, s, h, d, st);
-    if (err != cudaSuccess) return (int)err;
-    return (int)dispatch_fma_f32(q, k, v, g, lse, delta, dq, dk, dv, b, s, h,
-                                 hk, d, causal, scale, st);
-  }
-  return (int)cudaErrorInvalidValue;
+  const cudaError_t err =
+      dtype == ptt::kBFloat16
+          ? launch_delta<bf16>(g, out, delta, b, s, h, d, st)
+          : launch_delta<float>(g, out, delta, b, s, h, d, st);
+  if (err != cudaSuccess) return (int)err;
+  return (int)backward(path, q, k, v, g, lse, delta, dq, dk, dv, b, s, h, hk,
+                       d, causal, scale, dtype, st);
 }

@@ -34,8 +34,30 @@
 //    partials -- the same merge the reference's context-parallel decode
 //    does across shards (cp_softmax_combine, :1386);
 //  - K/V tiles load 16 bytes per thread (8 bf16 or 16 int8 values).
-// Under 16 rows (decode sq 1, the verify window sq 3) and over float32
-// arenas the dot products are plain f32 FMAs (`paged_decode_kernel`).
+// Over float32 arenas and at d other than 64 or 128 the dot products are
+// plain f32 FMAs from f32 shared-memory tiles (`paged_decode_kernel`, the
+// FMA page walk); bf16 q at d 64 or 128 takes the decode walk under 16 rows
+// and the chunk window from 16.
+//
+// The decode walk (`paged_walk_kernel`): under 16 rows -- every decode
+// step (R = 1 for Llama-2-7B's MHA) and verify window (R = 3) -- the walk
+// is pure streaming at about R FLOP per byte, so latency and the bytes in
+// flight bound it.  Each block (128 threads) streams its share of the live
+// keys through a ring of kWalkStages = 3 stages of 8 KB of K and 8 KB of V
+// in the stored dtype (32 bf16 or 64 int8 key rows at d 128; no f32
+// staging), 16-byte `cp.async` copies, keys in table order so a stage may
+// span pages, the split's table columns staged in shared memory first.
+// Bytes in flight: two stages ahead = 32 KB a block; four blocks of ~49 KB
+// fit an SM at R = 1, so ~128 KB are in flight per SM, above the ~24 KB
+// that 3.35 TB/s x ~1 us of latency / 132 SMs asks for.  The dot products
+// run in registers: a key row belongs to one group of d / 8 lanes (a
+// half-warp at d 128, a quarter-warp at d 64), each lane holding 16 bytes
+// (8 columns) of every q row and reading the same 8 columns of the K and V
+// rows; a dot product is 8 FMAs and a shuffle reduction inside the group.
+// Each group keeps its online softmax (m, l) and its 8 columns of acc per
+// row in registers over the keys it takes; the groups merge once, through
+// shared memory, at block end.  Rows come in tiles of 1, 4 or 8 (9-15 rows
+// take two blocks), so the registers follow R.
 //
 // The chunk window (`paged_chunk_mma_kernel`): a tile of 16 rows or more,
 // bf16 q and d = 64 or 128 -- every chunk prefill of a prefix-cache hit
@@ -60,17 +82,21 @@
 // reference keep p in float32 there; the kernels phase holds it to the
 // bf16 tolerance.
 //
-// K5 is the same page walk for context-parallel decode: each cp shard runs
-// it over its own slice of the arena with a local table whose columns are
-// not consecutive sequence pages, so `page_base[j]` gives column j's first
-// token position (j * ps when null, which is K2/K4), and in "partials" mode
-// a block writes its un-normalised online-softmax state (acc, m, l) in
-// place of acc / l.  The split combine then has a partials mode too
-// (M = max m, L = sum l e^(m - M), acc* = sum acc e^(m - M), no divide), so
-// each launch returns one (acc, m, l) per shard for the cross-shard merge.
-// A shard's launch reads only that shard's live pages, so the cp shards of
-// one step together move K2's bytes: the same byte bound, plus the
-// partials' round trip through device memory for the merge.
+// K5 is the same page walks for context-parallel decode: a cp shard walks
+// its own slice of the arena with a local table whose columns are not
+// consecutive sequence pages, so `page_base[j]` gives column j's first
+// token position (j * ps when null, which is K2/K4).  On one card every
+// shard runs in ONE launch (`ptt_paged_decode_cp`): the grid's third axis
+// is shard x split, block (slot, kv head, shard s x split) walks shard s's
+// arena slice (offset s * per_shard pages), its stacked local table and
+// page_base, and writes its partials; the split combine merges all cp x
+// splits partials of a row (the same merge as cp_softmax_combine, :1386)
+// and writes the finished output in q's dtype.  A shard walks only its
+// live pages, so the shards of one step together move K2's bytes.  Per
+// shard (`ptt_paged_decode_partials`, the across-card form) a block writes
+// its un-normalised state (acc, m, l) in place of acc / l, and the combine
+// has a partials mode (M = max m, L = sum l e^(m - M), acc* = sum acc
+// e^(m - M), no divide) for the cross-shard merge outside.
 //
 // Masks are the reference's (:869-898, K5 :1250-1258): row r at window
 // offset w = r % sq sees key jid iff jid <= pos + w and jid < max_len, with
@@ -99,6 +125,7 @@ __device__ __forceinline__ float to_f32(int8_t x) { return (float)x; }
 constexpr int kThreads = 128;
 constexpr int kTK = 32;         // page rows per chunk (one score per lane)
 constexpr int kRowTile = 64;    // rows a block holds (PAGED_ROW_TILE)
+constexpr int kMmaMinRows = 16; // the chunk window's rows (PAGED_MMA_MIN_ROWS)
 
 // p as the P.V product reads it: rounded to the stored dtype for K2, float32
 // for K4 (its V tile is the float32 dequantized page).
@@ -209,13 +236,23 @@ paged_decode_kernel(const T* __restrict__ q, const TS* __restrict__ ak,
                     const int* __restrict__ pos, T* __restrict__ out,
                     Partials part, float* __restrict__ ws, int sq, int h,
                     int hk, int d, int ps, int P, int max_len, float scale,
-                    int G, int ntiles, bool vec) {
+                    int G, int ntiles, bool vec, int nsplit,
+                    size_t shard_rows) {
   extern __shared__ float smem[];
   const int slot = blockIdx.x;
   const int g = blockIdx.y / ntiles;
   const int r0 = (blockIdx.y % ntiles) * kRowTile;  // rows [r0, r0 + Rt)
-  const int split = blockIdx.z;
-  const int nsplit = gridDim.z;
+  // z = shard * nsplit + split; nz = cp * nsplit partials per row
+  const int z = blockIdx.z, nz = gridDim.z;
+  const int shard = z / nsplit, split = z % nsplit;
+  ak += shard * shard_rows * d;
+  av += shard * shard_rows * d;
+  if (ks != nullptr) {
+    ks += shard * shard_rows;
+    vs += shard * shard_rows;
+  }
+  tables += (size_t)shard * gridDim.x * P;
+  if (page_base != nullptr) page_base += (size_t)shard * P;
   const int rep = h / hk;
   const int R = rep * sq;
   const int Rt = min(kRowTile, R - r0);
@@ -328,7 +365,7 @@ paged_decode_kernel(const T* __restrict__ q, const TS* __restrict__ ak,
   }
   __syncthreads();
 
-  if (nsplit == 1 && part.acc != nullptr) {
+  if (nz == 1 && part.acc != nullptr) {
     // rows with no visible key keep m = -1e30 and whatever l and acc the
     // masked scores gave (as the reference's K5): the cross-shard merge's
     // e^(m - m*) = 0 removes them
@@ -341,7 +378,7 @@ paged_decode_kernel(const T* __restrict__ q, const TS* __restrict__ ak,
     }
     return;
   }
-  if (nsplit == 1) {
+  if (nz == 1) {
     for (int e = tid; e < Rt * d; e += kThreads) {
       const int rr = e / d, r = r0 + rr, c = e % d;
       const int head = g * rep + r / sq;
@@ -351,11 +388,11 @@ paged_decode_kernel(const T* __restrict__ q, const TS* __restrict__ ak,
     }
     return;
   }
-  // partials of this split at rows [r0, r0 + Rt) of the (slot, g, split)
+  // partials of this split at rows [r0, r0 + Rt) of the (slot, g, z)
   // region; a split past `last` leaves m = -1e30, l = 0
-  const size_t region = ((size_t)slot * hk + g) * nsplit + split;
+  const size_t region = ((size_t)slot * hk + g) * nz + z;
   float* ws_acc = ws + (region * R + r0) * d;
-  float* ws_ml = ws + (size_t)gridDim.x * hk * nsplit * R * d +
+  float* ws_ml = ws + (size_t)gridDim.x * hk * nz * R * d +
                  (region * R + r0) * 2;
   for (int e = tid; e < Rt * d; e += kThreads) ws_acc[e] = acc_s[e];
   for (int rr = tid; rr < Rt; rr += kThreads) {
@@ -521,7 +558,8 @@ paged_chunk_mma_kernel(const __nv_bfloat16* __restrict__ q,
                        const int* __restrict__ pos,
                        __nv_bfloat16* __restrict__ out, Partials part,
                        float* __restrict__ ws, int sq, int h, int hk, int ps,
-                       int P, int max_len, float scale, int ntiles) {
+                       int P, int max_len, float scale, int ntiles,
+                       int nsplit, size_t shard_rows) {
   constexpr bool kQuant = std::is_same<TS, int8_t>::value;
   using L = ChunkSmem<D, kQuant>;
   constexpr int ST = L::ST;
@@ -538,8 +576,17 @@ paged_chunk_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int slot = blockIdx.x;
   const int kvh = blockIdx.y / ntiles;
   const int r0 = (blockIdx.y % ntiles) * kRowTile;  // rows [r0, r0 + Rt)
-  const int split = blockIdx.z;
-  const int nsplit = gridDim.z;
+  // z = shard * nsplit + split; nz = cp * nsplit partials per row
+  const int z = blockIdx.z, nz = gridDim.z;
+  const int shard = z / nsplit, split = z % nsplit;
+  ak += shard * shard_rows * D;
+  av += shard * shard_rows * D;
+  if constexpr (kQuant) {
+    ks += shard * shard_rows;
+    vs += shard * shard_rows;
+  }
+  tables += (size_t)shard * gridDim.x * P;
+  if (page_base != nullptr) page_base += (size_t)shard * P;
   const int rep = h / hk;
   const int R = rep * sq;
   const int Rt = min(kRowTile, R - r0);
@@ -775,7 +822,7 @@ paged_chunk_mma_kernel(const __nv_bfloat16* __restrict__ q,
     const int rr = wr + g + 8 * r;  // row in the tile
     if (rr >= Rt) continue;
     const int row = r0 + rr;
-    if (nsplit == 1 && part.acc != nullptr) {
+    if (nz == 1 && part.acc != nullptr) {
       const size_t prow = ((size_t)slot * hk + kvh) * R + row;
 #pragma unroll
       for (int dt = 0; dt < D / 8; ++dt)
@@ -785,7 +832,7 @@ paged_chunk_mma_kernel(const __nv_bfloat16* __restrict__ q,
         part.m[prow] = m[r];
         part.l[prow] = l[r];
       }
-    } else if (nsplit == 1) {
+    } else if (nz == 1) {
       const float inv = 1.f / fmaxf(l[r], 1e-30f);  // masked rows give 0
       __nv_bfloat16* orow =
           out + ((size_t)(slot * sq + row % sq) * h + kvh * rep + row / sq) * D;
@@ -795,14 +842,14 @@ paged_chunk_mma_kernel(const __nv_bfloat16* __restrict__ q,
             ptt::pack_bf16(o[dt][2 * r] * inv, o[dt][2 * r + 1] * inv);
     } else {
       // this split's partials at row `row` of the (slot, kvh, split) region
-      const size_t region = ((size_t)slot * hk + kvh) * nsplit + split;
+      const size_t region = ((size_t)slot * hk + kvh) * nz + z;
       float* ws_acc = ws + (region * R + row) * D;
 #pragma unroll
       for (int dt = 0; dt < D / 8; ++dt)
         *reinterpret_cast<float2*>(ws_acc + dt * 8 + 2 * t) =
             make_float2(o[dt][2 * r], o[dt][2 * r + 1]);
       if (t == 0) {
-        float* ws_ml = ws + (size_t)gridDim.x * hk * nsplit * R * D +
+        float* ws_ml = ws + (size_t)gridDim.x * hk * nz * R * D +
                        (region * R + row) * 2;
         ws_ml[0] = m[r];
         ws_ml[1] = l[r];
@@ -811,17 +858,371 @@ paged_chunk_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The decode walk: fewer than 16 rows (a decode step, a verify window),
+// bf16 q, d = D in {64, 128}, bf16 or int8 pages.
+// ---------------------------------------------------------------------------
+
+constexpr int kWalkStages = 3;          // cp.async ring
+constexpr int kWalkStageBytes = 8192;   // K bytes (and again V) per stage
+
+// Shared memory of the walk, in bytes: the K and V rings ([kWalkStages]
+// [keys][D] in the stored dtype, no f32 staging), each stage's key
+// positions, and under int8 the rows' K and V scales.  At block end the
+// ring holds the key groups' (acc, m, l) for the merge.
+template <int D, typename TS>
+struct WalkSmem {
+  static constexpr bool kQuant = std::is_same<TS, int8_t>::value;
+  static constexpr int kKeys = kWalkStageBytes / (D * (int)sizeof(TS));
+  static constexpr size_t k = 0;
+  static constexpr size_t v = k + (size_t)kWalkStages * kWalkStageBytes;
+  static constexpr size_t jid = v + (size_t)kWalkStages * kWalkStageBytes;
+  static constexpr size_t ksc = jid + (size_t)kWalkStages * kKeys * 4;
+  static constexpr size_t vsc = ksc + (kQuant ? (size_t)kWalkStages * kKeys * 4 : 0);
+  static constexpr size_t bytes = vsc + (kQuant ? (size_t)kWalkStages * kKeys * 4 : 0);
+};
+
+// 8 stored values at p as f32: 16 bytes of bf16, or 8 bytes of int8.
+__device__ __forceinline__ void load8(float (&x)[8], const __nv_bfloat16* p) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h2[i]);
+    x[2 * i] = f.x;
+    x[2 * i + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void load8(float (&x)[8], const int8_t* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) x[i] = (float)b[i];
+}
+
+// Grid (slot, kv head x row tile, shard x split), outputs and workspace as
+// `paged_decode_kernel`; RT rows per tile (1, 4 or 8), each of the rows'
+// split takes its share of the LIVE key tiles (found on the card, as the
+// chunk window does).  A key row is read by one group of D / 8 lanes (a
+// half-warp at d 128, a quarter-warp at d 64), each lane holding 8
+// columns: 16 bytes of each q row in registers, and of each K and V row in
+// shared memory.  A dot product is 8 FMAs and a shuffle reduction inside
+// the group; each group keeps an online softmax (m, l) and acc of its 8
+// columns per row in registers over the keys it takes (keys grp, grp + NG,
+// ... of each stage), and the groups merge once at block end.
+template <int D, typename TS, int RT>
+__global__ void __launch_bounds__(kThreads, RT >= 8 ? 2 : 3)
+paged_walk_kernel(const __nv_bfloat16* __restrict__ q,
+                  const TS* __restrict__ ak, const TS* __restrict__ av,
+                  const float* __restrict__ ks, const float* __restrict__ vs,
+                  const int* __restrict__ tables,
+                  const int* __restrict__ page_base,
+                  const int* __restrict__ pos, __nv_bfloat16* __restrict__ out,
+                  Partials part, float* __restrict__ ws, int sq, int h,
+                  int hk, int ps, int P, int max_len, float scale, int ntiles,
+                  int nsplit, size_t shard_rows) {
+  constexpr bool kQuant = std::is_same<TS, int8_t>::value;
+  using L = WalkSmem<D, TS>;
+  constexpr int CK = L::kKeys;                 // keys per stage
+  constexpr int LPK = D / 8;                   // lanes per key row
+  constexpr int NG = (kThreads / 32) * (32 / LPK);  // key groups per block
+  constexpr int KPG = CK / NG;                 // keys per group per stage
+  constexpr int KB = RT >= 8 ? 2 : 4;          // keys per softmax update
+  static_assert(KPG % KB == 0, "a group's keys split into whole batches");
+  static_assert((size_t)NG * RT * (D + 2) * 4 <= L::jid,
+                "the groups' partials fit the ring they take over");
+  extern __shared__ __align__(16) unsigned char walk_smem[];
+  TS* k_s = reinterpret_cast<TS*>(walk_smem + L::k);
+  TS* v_s = reinterpret_cast<TS*>(walk_smem + L::v);
+  int* jid_s = reinterpret_cast<int*>(walk_smem + L::jid);
+  float* ksc_s = reinterpret_cast<float*>(walk_smem + L::ksc);
+  float* vsc_s = reinterpret_cast<float*>(walk_smem + L::vsc);
+
+  const int slot = blockIdx.x;
+  const int kvh = blockIdx.y / ntiles;
+  const int r0 = (blockIdx.y % ntiles) * RT;  // rows [r0, r0 + Rt)
+  // z = shard * nsplit + split; nz = cp * nsplit partials per row
+  const int z = blockIdx.z, nz = gridDim.z;
+  const int shard = z / nsplit, split = z % nsplit;
+  ak += shard * shard_rows * D;
+  av += shard * shard_rows * D;
+  if constexpr (kQuant) {
+    ks += shard * shard_rows;
+    vs += shard * shard_rows;
+  }
+  const int* trow = tables + ((size_t)shard * gridDim.x + slot) * P;
+  const int* pbase = page_base != nullptr ? page_base + (size_t)shard * P : nullptr;
+  const int rep = h / hk;
+  const int R = rep * sq;
+  const int Rt = min(RT, R - r0);
+  const int p0 = pos[slot];
+  const int r1 = r0 + Rt - 1;
+  const int last = p0 + (r0 / sq == r1 / sq ? r1 % sq : sq - 1);
+
+  // the live columns: the prefix whose first position is at most `last`
+  int lo = 0, hi = P;
+  while (lo < hi) {
+    const int mid = (lo + hi) / 2;
+    const int pb = pbase != nullptr ? pbase[mid] : mid * ps;
+    if (pb <= last) lo = mid + 1; else hi = mid;
+  }
+  const int key_end = lo * ps;
+  const int n_tiles = (key_end + CK - 1) / CK;
+  const int per = (n_tiles + nsplit - 1) / nsplit;
+  const int tile0 = split * per;
+  const int nt = min(n_tiles, tile0 + per) - tile0;  // may be <= 0
+
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int grp = (tid / 32) * (32 / LPK) + lane / LPK;  // this key group
+  const int gl = lane % LPK;  // columns 8 gl .. 8 gl + 7
+
+  // the split's table columns (page id, first position) into shared
+  // memory once, so no copy waits on a table read in the loop
+  int* tab_s = reinterpret_cast<int*>(walk_smem + L::bytes);  // [P]
+  int* pb_s = tab_s + P;                                      // [P]
+  const int col0 = nt > 0 ? tile0 * CK / ps : 0;
+  const int col1 = nt > 0 ? min(lo, ((tile0 + nt) * CK + ps - 1) / ps) : 0;
+  for (int j = col0 + tid; j < col1; j += kThreads) {
+    tab_s[j] = trow[j];
+    pb_s[j] = pbase != nullptr ? pbase[j] : j * ps;
+  }
+  __syncthreads();
+
+  // issue the copies of key tile `tile` into stage `st`: 16 bytes a copy,
+  // keys in table order (column j, row in page), zero rows past key_end
+  auto issue = [&](int tile, int st) {
+    constexpr int EPC = 16 / sizeof(TS);  // elements per copy
+    constexpr int CPR = D / EPC;          // copies per key row
+    for (int e = tid; e < CK * CPR; e += kThreads) {
+      const int kk = e / CPR, c = (e % CPR) * EPC;
+      const int key = tile * CK + kk;
+      TS* kd = k_s + ((size_t)st * CK + kk) * D + c;
+      TS* vd = v_s + ((size_t)st * CK + kk) * D + c;
+      if (key < key_end) {
+        const int j = key / ps, rip = key - j * ps;
+        const size_t row = ((size_t)tab_s[j] * ps + rip) * hk + kvh;
+        cp_async16(kd, ak + row * D + c);
+        cp_async16(vd, av + row * D + c);
+        if (c == 0) {
+          jid_s[st * CK + kk] = pb_s[j] + rip;
+          if constexpr (kQuant) {
+            cp_async4(ksc_s + st * CK + kk, ks + row);
+            cp_async4(vsc_s + st * CK + kk, vs + row);
+          }
+        }
+      } else {
+        *reinterpret_cast<uint4*>(kd) = make_uint4(0u, 0u, 0u, 0u);
+        *reinterpret_cast<uint4*>(vd) = make_uint4(0u, 0u, 0u, 0u);
+        if (c == 0) {
+          jid_s[st * CK + kk] = INT_MAX;  // fails every mask
+          if constexpr (kQuant) {
+            ksc_s[st * CK + kk] = 0.f;
+            vsc_s[st * CK + kk] = 0.f;
+          }
+        }
+      }
+    }
+  };
+
+  for (int i = 0; i < kWalkStages - 1; ++i) {
+    if (i < nt) issue(tile0 + i, i);
+    cp_async_commit();
+  }
+
+  // this lane's 8 columns of each q row (row r: group member r / sq at
+  // window offset r % sq), and the newest key position each row sees;
+  // rows past Rt see none
+  float qr[RT][8], acc[RT][8], m[RT], l[RT];
+  int lim[RT];
+#pragma unroll
+  for (int r = 0; r < RT; ++r) {
+    const int row = r0 + r;
+    if (r < Rt) {
+      load8(qr[r], q + ((size_t)(slot * sq + row % sq) * h + kvh * rep +
+                        row / sq) * D + 8 * gl);
+      lim[r] = p0 + row % sq;
+    } else {
+#pragma unroll
+      for (int c = 0; c < 8; ++c) qr[r][c] = 0.f;
+      lim[r] = -1;
+    }
+    m[r] = kNegInf;
+    l[r] = 0.f;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
+  }
+
+  for (int i = 0; i < nt; ++i) {
+    cp_async_wait<kWalkStages - 2>();
+    __syncthreads();  // tile i has landed; every thread is done with i - 1
+    {
+      // refill the stage that held tile i - 1, kWalkStages - 1 ahead
+      const int nx = i + kWalkStages - 1;
+      if (nx < nt) issue(tile0 + nx, nx % kWalkStages);
+      cp_async_commit();
+    }
+    const int st = i % kWalkStages;
+    const TS* kt = k_s + (size_t)st * CK * D;
+    const TS* vt = v_s + (size_t)st * CK * D;
+    const int* jd = jid_s + st * CK;
+#pragma unroll
+    for (int u0 = 0; u0 < KPG; u0 += KB) {
+      float sc[KB][RT];
+#pragma unroll
+      for (int u = 0; u < KB; ++u) {
+        float kf[8];
+        load8(kf, kt + (size_t)(grp + NG * (u0 + u)) * D + 8 * gl);
+#pragma unroll
+        for (int r = 0; r < RT; ++r) {
+          float dot = 0.f;
+#pragma unroll
+          for (int c = 0; c < 8; ++c) dot = fmaf(qr[r][c], kf[c], dot);
+          sc[u][r] = dot;
+        }
+      }
+      // the group's lanes hold the 8-column parts of each dot product
+#pragma unroll
+      for (int u = 0; u < KB; ++u)
+#pragma unroll
+        for (int r = 0; r < RT; ++r)
+#pragma unroll
+          for (int off = LPK / 2; off > 0; off >>= 1)
+            sc[u][r] += __shfl_xor_sync(0xffffffffu, sc[u][r], off);
+#pragma unroll
+      for (int r = 0; r < RT; ++r) {
+        bool ok[KB];
+        float mx = m[r];
+#pragma unroll
+        for (int u = 0; u < KB; ++u) {
+          const int kk = grp + NG * (u0 + u);
+          const int j = jd[kk];
+          ok[u] = j <= lim[r] && j < max_len;
+          float x = sc[u][r] * scale;
+          if constexpr (kQuant) x *= ksc_s[st * CK + kk];
+          sc[u][r] = x;
+          if (ok[u]) mx = fmaxf(mx, x);
+        }
+        const float alpha = __expf(m[r] - mx);
+        m[r] = mx;
+        l[r] *= alpha;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[r][c] *= alpha;
+#pragma unroll
+        for (int u = 0; u < KB; ++u) {
+          // masked keys add exactly nothing
+          const float p = ok[u] ? __expf(sc[u][r] - mx) : 0.f;
+          l[r] += p;
+          sc[u][r] = p;
+        }
+      }
+      // P.V: p rounded to bf16 for bf16 pages (K2), float32 times the V
+      // row's scale for int8 pages (K4's dequantized V)
+#pragma unroll
+      for (int u = 0; u < KB; ++u) {
+        const int kk = grp + NG * (u0 + u);
+        float vf[8];
+        load8(vf, vt + (size_t)kk * D + 8 * gl);
+        float vsc = 1.f;
+        if constexpr (kQuant) vsc = vsc_s[st * CK + kk];
+#pragma unroll
+        for (int r = 0; r < RT; ++r) {
+          const float pv = kQuant ? sc[u][r] * vsc : round_p<TS>(sc[u][r]);
+#pragma unroll
+          for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(pv, vf[c], acc[r][c]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: it holds the groups' partials now
+
+  float* g_acc = reinterpret_cast<float*>(walk_smem);  // [NG][RT][D]
+  float* g_m = g_acc + NG * RT * D;                    // [NG][RT]
+  float* g_l = g_m + NG * RT;
+#pragma unroll
+  for (int r = 0; r < RT; ++r) {
+    float4* dst = reinterpret_cast<float4*>(g_acc + (grp * RT + r) * D + 8 * gl);
+    dst[0] = make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+    dst[1] = make_float4(acc[r][4], acc[r][5], acc[r][6], acc[r][7]);
+    if (gl == 0) {
+      g_m[grp * RT + r] = m[r];
+      g_l[grp * RT + r] = l[r];
+    }
+  }
+  __syncthreads();
+
+  // merge the groups per (row, column): M = max m, L = sum l e^(m - M),
+  // A = sum acc e^(m - M); a group that saw no key has m = -1e30, l = 0
+  const size_t region = ((size_t)slot * hk + kvh) * nz + z;
+  for (int e = tid; e < Rt * D; e += kThreads) {
+    const int r = e / D, c = e % D, row = r0 + r;
+    float M = kNegInf;
+#pragma unroll
+    for (int gi = 0; gi < NG; ++gi) M = fmaxf(M, g_m[gi * RT + r]);
+    float Ls = 0.f, A = 0.f;
+#pragma unroll
+    for (int gi = 0; gi < NG; ++gi) {
+      const float w = __expf(g_m[gi * RT + r] - M);
+      Ls += w * g_l[gi * RT + r];
+      A += w * g_acc[(gi * RT + r) * D + c];
+    }
+    if (nz == 1 && part.acc != nullptr) {
+      const size_t prow = ((size_t)slot * hk + kvh) * R + row;
+      part.acc[prow * D + c] = A;
+      if (c == 0) {
+        part.m[prow] = M;
+        part.l[prow] = Ls;
+      }
+    } else if (nz == 1) {
+      out[((size_t)(slot * sq + row % sq) * h + kvh * rep + row / sq) * D + c] =
+          __float2bfloat16(A / fmaxf(Ls, 1e-30f));  // masked rows give 0
+    } else {
+      ws[(region * R + row) * D + c] = A;
+      if (c == 0) {
+        float* ws_ml = ws + (size_t)gridDim.x * hk * nz * R * D +
+                       (region * R + row) * 2;
+        ws_ml[0] = M;
+        ws_ml[1] = Ls;
+      }
+    }
+  }
+}
+
 constexpr Partials kNoPartials{nullptr, nullptr, nullptr};
+
+// Kernel choices, picked by the host (`paged_path`).
+constexpr int kPathFma = 0;    // the f32-FMA page walk: any dtype and d
+constexpr int kPathMma = 1;    // the tensor-core chunk window: 16+ rows
+constexpr int kPathWalk = 2;   // the decode walk: under 16 rows
 
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// One launch's geometry: `cp` shards of `shard_rows` arena rows (pages x
+// page size x kv heads) each, `nsplit` splits per shard's walk; the
+// workspace takes cp * nsplit partials per row when that is above 1.
+struct Walk {
+  int cp;
+  size_t shard_rows;
+  int nsplit;
+  int nz() const { return cp * nsplit; }
+};
+
+bool bad_outputs(const void* out, Partials part, const void* ws,
+                 const Walk& w) {
+  if (w.nz() > 1 && ws == nullptr) return true;
+  if (part.acc != nullptr && w.nz() > 1 && w.cp > 1) return true;
+  return part.acc != nullptr ? (part.m == nullptr || part.l == nullptr)
+                             : out == nullptr;
 }
 
 template <typename T, typename TS>
 cudaError_t launch(const void* q, const void* ak, const void* av,
                    const void* ks, const void* vs, const void* tables,
                    const void* page_base, const void* pos, void* out,
-                   Partials part, void* ws, int nsplit, int b, int sq, int h,
+                   Partials part, void* ws, Walk w, int b, int sq, int h,
                    int hk, int d, int ps, int P, int max_len, float scale,
                    cudaStream_t stream) {
   const int R = (h / hk) * sq;
@@ -832,129 +1233,194 @@ cudaError_t launch(const void* q, const void* ak, const void* av,
   while (G > 1 && G * Rt * kTK > kThreads) G >>= 1;
   const bool vec =
       (d * sizeof(TS)) % 16 == 0 && aligned16(ak) && aligned16(av);
-  if (nsplit > 1 && ws == nullptr) return cudaErrorInvalidValue;
-  if (part.acc != nullptr ? (part.m == nullptr || part.l == nullptr)
-                          : out == nullptr)
-    return cudaErrorInvalidValue;
+  if (bad_outputs(out, part, ws, w)) return cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * smem_floats(Rt, d, G);
   auto kernel = paged_decode_kernel<T, TS>;
   static ptt::SmemLimit limit;
   cudaError_t err = limit.reserve(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(b, hk * ntiles, nsplit), kThreads, smem, stream>>>(
+  kernel<<<dim3(b, hk * ntiles, w.nz()), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const TS*>(ak),
       static_cast<const TS*>(av), static_cast<const float*>(ks),
       static_cast<const float*>(vs), static_cast<const int*>(tables),
       static_cast<const int*>(page_base), static_cast<const int*>(pos),
       static_cast<T*>(out), part, static_cast<float*>(ws), sq, h, hk, d, ps,
-      P, max_len, scale, G, ntiles, vec);
+      P, max_len, scale, G, ntiles, vec, w.nsplit, w.shard_rows);
   err = cudaGetLastError();
-  if (err != cudaSuccess || nsplit == 1) return err;
-  return combine<T>(ws, out, part, nsplit, b, sq, h, hk, d, stream);
+  if (err != cudaSuccess || w.nz() == 1) return err;
+  return combine<T>(ws, out, part, w.nz(), b, sq, h, hk, d, stream);
 }
 
 template <int D, typename TS>
 cudaError_t launch_chunk(const void* q, const void* ak, const void* av,
                          const void* ks, const void* vs, const void* tables,
                          const void* page_base, const void* pos, void* out,
-                         Partials part, void* ws, int nsplit, int b, int sq,
-                         int h, int hk, int ps, int P, int max_len,
-                         float scale, cudaStream_t stream) {
+                         Partials part, void* ws, Walk w, int b, int sq, int h,
+                         int hk, int ps, int P, int max_len, float scale,
+                         cudaStream_t stream) {
   const int R = (h / hk) * sq;
   const int ntiles = (R + kRowTile - 1) / kRowTile;
   if ((long long)hk * ntiles > 65535) return cudaErrorInvalidValue;
   if (!aligned16(q) || !aligned16(ak) || !aligned16(av))
     return cudaErrorInvalidValue;  // 16-byte copies only
-  if (nsplit > 1 && ws == nullptr) return cudaErrorInvalidValue;
-  if (part.acc != nullptr ? (part.m == nullptr || part.l == nullptr)
-                          : out == nullptr)
-    return cudaErrorInvalidValue;
+  if (bad_outputs(out, part, ws, w)) return cudaErrorInvalidValue;
   constexpr size_t smem = ChunkSmem<D, std::is_same<TS, int8_t>::value>::bytes;
   auto kernel = paged_chunk_mma_kernel<D, TS>;
   static ptt::SmemLimit limit;
   cudaError_t err = limit.reserve(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(b, hk * ntiles, nsplit), kThreads, smem, stream>>>(
+  kernel<<<dim3(b, hk * ntiles, w.nz()), kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const TS*>(ak),
       static_cast<const TS*>(av), static_cast<const float*>(ks),
       static_cast<const float*>(vs), static_cast<const int*>(tables),
       static_cast<const int*>(page_base), static_cast<const int*>(pos),
       static_cast<__nv_bfloat16*>(out), part, static_cast<float*>(ws), sq, h,
-      hk, ps, P, max_len, scale, ntiles);
+      hk, ps, P, max_len, scale, ntiles, w.nsplit, w.shard_rows);
   err = cudaGetLastError();
-  if (err != cudaSuccess || nsplit == 1) return err;
-  return combine<__nv_bfloat16>(ws, out, part, nsplit, b, sq, h, hk, D, stream);
+  if (err != cudaSuccess || w.nz() == 1) return err;
+  return combine<__nv_bfloat16>(ws, out, part, w.nz(), b, sq, h, hk, D, stream);
 }
 
-// One paged launch: `mma` (the host's choice, `paged_path` in
-// ops/flash_attention.py) takes the tensor-core chunk kernel, which needs
-// bf16 q and d = 64 or 128 and raises cudaErrorInvalidValue otherwise;
-// else the FMA kernel over a `dtype` q (TS: the stored element).
+template <int D, typename TS, int RT>
+cudaError_t launch_walk_rt(const void* q, const void* ak, const void* av,
+                           const void* ks, const void* vs, const void* tables,
+                           const void* page_base, const void* pos, void* out,
+                           Partials part, void* ws, Walk w, int b, int sq,
+                           int h, int hk, int ps, int P, int max_len,
+                           float scale, cudaStream_t stream) {
+  const int R = (h / hk) * sq;
+  const int ntiles = (R + RT - 1) / RT;
+  if ((long long)hk * ntiles > 65535) return cudaErrorInvalidValue;
+  // the ring, then the table's page ids and first positions [2][P]
+  const size_t smem = WalkSmem<D, TS>::bytes + (size_t)2 * P * sizeof(int);
+  auto kernel = paged_walk_kernel<D, TS, RT>;
+  static ptt::SmemLimit limit;
+  cudaError_t err = limit.reserve(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(b, hk * ntiles, w.nz()), kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const TS*>(ak),
+      static_cast<const TS*>(av), static_cast<const float*>(ks),
+      static_cast<const float*>(vs), static_cast<const int*>(tables),
+      static_cast<const int*>(page_base), static_cast<const int*>(pos),
+      static_cast<__nv_bfloat16*>(out), part, static_cast<float*>(ws), sq, h,
+      hk, ps, P, max_len, scale, ntiles, w.nsplit, w.shard_rows);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || w.nz() == 1) return err;
+  return combine<__nv_bfloat16>(ws, out, part, w.nz(), b, sq, h, hk, D, stream);
+}
+
+// The walk's row tile: 1 row (a decode step of one q head per kv head), 4
+// (a verify window, small GQA groups) or 8 (the rest, up to 15 rows in two
+// tiles), so the q and acc registers follow the rows a block holds.
+template <int D, typename TS>
+cudaError_t launch_walk(const void* q, const void* ak, const void* av,
+                        const void* ks, const void* vs, const void* tables,
+                        const void* page_base, const void* pos, void* out,
+                        Partials part, void* ws, Walk w, int b, int sq, int h,
+                        int hk, int ps, int P, int max_len, float scale,
+                        cudaStream_t stream) {
+  const int R = (h / hk) * sq;
+  if (R >= kMmaMinRows) return cudaErrorInvalidValue;
+  if (!aligned16(q) || !aligned16(ak) || !aligned16(av))
+    return cudaErrorInvalidValue;  // 16-byte copies only
+  if (bad_outputs(out, part, ws, w)) return cudaErrorInvalidValue;
+  if (R == 1)
+    return launch_walk_rt<D, TS, 1>(q, ak, av, ks, vs, tables, page_base, pos,
+                                    out, part, ws, w, b, sq, h, hk, ps, P,
+                                    max_len, scale, stream);
+  if (R <= 4)
+    return launch_walk_rt<D, TS, 4>(q, ak, av, ks, vs, tables, page_base, pos,
+                                    out, part, ws, w, b, sq, h, hk, ps, P,
+                                    max_len, scale, stream);
+  return launch_walk_rt<D, TS, 8>(q, ak, av, ks, vs, tables, page_base, pos,
+                                  out, part, ws, w, b, sq, h, hk, ps, P,
+                                  max_len, scale, stream);
+}
+
+// One paged launch on the kernel `path` names (the host's choice,
+// `paged_path` in ops/flash_attention.py); a shape the path does not take
+// is cudaErrorInvalidValue, never another kernel.  The chunk window and the
+// walk need a bf16 q and d = 64 or 128; the FMA walk takes a `dtype` q.
+// TS: the stored element.
 template <typename TS>
-cudaError_t route(int mma, int dtype, const void* q, const void* ak,
+cudaError_t route(int path, int dtype, const void* q, const void* ak,
                   const void* av, const void* ks, const void* vs,
                   const void* tables, const void* page_base, const void* pos,
-                  void* out, Partials part, void* ws, int splits, int b,
-                  int sq, int h, int hk, int d, int ps, int P, int max_len,
+                  void* out, Partials part, void* ws, Walk w, int b, int sq,
+                  int h, int hk, int d, int ps, int P, int max_len,
                   float scale, cudaStream_t st) {
   constexpr bool kQuant = std::is_same<TS, int8_t>::value;
   using TB = typename std::conditional<kQuant, int8_t, __nv_bfloat16>::type;
   using TF = typename std::conditional<kQuant, int8_t, float>::type;
-  if (mma) {
+  if (path == kPathMma || path == kPathWalk) {
     if (dtype != ptt::kBFloat16 || (d != 64 && d != 128))
       return cudaErrorInvalidValue;
+    if (path == kPathMma) {
+      if (d == 64)
+        return launch_chunk<64, TB>(q, ak, av, ks, vs, tables, page_base, pos,
+                                    out, part, ws, w, b, sq, h, hk, ps, P,
+                                    max_len, scale, st);
+      return launch_chunk<128, TB>(q, ak, av, ks, vs, tables, page_base, pos,
+                                   out, part, ws, w, b, sq, h, hk, ps, P,
+                                   max_len, scale, st);
+    }
     if (d == 64)
-      return launch_chunk<64, TB>(q, ak, av, ks, vs, tables, page_base, pos,
-                                  out, part, ws, splits, b, sq, h, hk, ps, P,
-                                  max_len, scale, st);
-    return launch_chunk<128, TB>(q, ak, av, ks, vs, tables, page_base, pos,
-                                 out, part, ws, splits, b, sq, h, hk, ps, P,
+      return launch_walk<64, TB>(q, ak, av, ks, vs, tables, page_base, pos,
+                                 out, part, ws, w, b, sq, h, hk, ps, P,
                                  max_len, scale, st);
+    return launch_walk<128, TB>(q, ak, av, ks, vs, tables, page_base, pos, out,
+                                part, ws, w, b, sq, h, hk, ps, P, max_len,
+                                scale, st);
   }
+  if (path != kPathFma) return cudaErrorInvalidValue;
   if (dtype == ptt::kBFloat16)
     return launch<__nv_bfloat16, TB>(q, ak, av, ks, vs, tables, page_base,
-                                     pos, out, part, ws, splits, b, sq, h, hk,
-                                     d, ps, P, max_len, scale, st);
+                                     pos, out, part, ws, w, b, sq, h, hk, d,
+                                     ps, P, max_len, scale, st);
   if (dtype == ptt::kFloat32)
     return launch<float, TF>(q, ak, av, ks, vs, tables, page_base, pos, out,
-                             part, ws, splits, b, sq, h, hk, d, ps, P,
-                             max_len, scale, st);
+                             part, ws, w, b, sq, h, hk, d, ps, P, max_len,
+                             scale, st);
   return cudaErrorInvalidValue;
 }
 
 // The chunk kernel divides the live 64-key tiles among the splits, so it
-// takes up to one split per tile of the table; the FMA kernel one per page.
+// takes up to one split per tile of the table; the walk one per tile of
+// its stage's keys; the FMA kernel one per page.
 bool bad_shape(int b, int sq, int h, int hk, int d, int ps, int P,
-               int splits, int mma) {
-  const long long max_splits =
-      mma ? ((long long)P * ps + kChunkKeys - 1) / kChunkKeys : P;
-  return b < 1 || sq < 1 || h < 1 || hk < 1 || h % hk != 0 || d < 1 ||
-         d > 256 || ps < 1 || P < 1 || splits < 1 || splits > max_splits ||
-         (mma != 0 && mma != 1);
+               int splits, int path) {
+  if (b < 1 || sq < 1 || h < 1 || hk < 1 || h % hk != 0 || d < 1 || d > 256 ||
+      ps < 1 || P < 1 || splits < 1 || splits > 65535)
+    return true;
+  const long long keys = (long long)P * ps;
+  if (path == kPathMma) return splits > (keys + kChunkKeys - 1) / kChunkKeys;
+  if (path == kPathWalk) return splits > keys;
+  if (path == kPathFma) return splits > P;
+  return true;
 }
 
 }  // namespace
 
 // q: [b, sq, h, d]; arenas: [pages, ps, hk, d]; tables: [b, P] int32;
 // pos: [b] int32; out: [b, sq, h, d].  Each slot's page walk splits into
-// `splits` blocks (1 <= splits <= P for the FMA kernel; for the chunk
-// kernel at most the table's 64-key tiles); with more than one, ws is a
-// float32 workspace of b * hk * splits * rep * sq * (d + 2) elements, else
-// it may be null.  `mma`: 1 runs the tensor-core chunk kernel (bf16, d 64
-// or 128), 0 the FMA kernel.  All contiguous.
+// `splits` blocks (at most P for the FMA kernel, the table's 64-key tiles
+// for the chunk kernel); with more than one, ws is a float32 workspace of
+// b * hk * splits * rep * sq * (d + 2) elements, else it may be null.
+// `path`: 0 the FMA walk, 1 the tensor-core chunk window (bf16, d 64 or
+// 128, 16+ rows), 2 the decode walk (bf16, d 64 or 128, under 16 rows).
+// All contiguous.
 extern "C" int ptt_paged_decode(const void* q, const void* ak, const void* av,
                                 const void* tables, const void* pos, void* out,
-                                void* ws, int splits, int mma, int b, int sq,
+                                void* ws, int splits, int path, int b, int sq,
                                 int h, int hk, int d, int ps, int P,
                                 int max_len, float scale, int dtype,
                                 void* stream) {
-  if (bad_shape(b, sq, h, hk, d, ps, P, splits, mma))
+  if (bad_shape(b, sq, h, hk, d, ps, P, splits, path))
     return (int)cudaErrorInvalidValue;
-  if (dtype == ptt::kFloat32 && mma) return (int)cudaErrorInvalidValue;
   return (int)route<__nv_bfloat16>(
-      mma, dtype, q, ak, av, nullptr, nullptr, tables, nullptr, pos, out,
-      kNoPartials, ws, splits, b, sq, h, hk, d, ps, P, max_len, scale,
-      static_cast<cudaStream_t>(stream));
+      path, dtype, q, ak, av, nullptr, nullptr, tables, nullptr, pos, out,
+      kNoPartials, ws, Walk{1, 0, splits}, b, sq, h, hk, d, ps, P, max_len,
+      scale, static_cast<cudaStream_t>(stream));
 }
 
 // The same over int8 arenas [pages, ps, hk, d] with float32 scales
@@ -963,15 +1429,15 @@ extern "C" int ptt_paged_decode_q8(const void* q, const void* ak,
                                    const void* av, const void* ks,
                                    const void* vs, const void* tables,
                                    const void* pos, void* out, void* ws,
-                                   int splits, int mma, int b, int sq, int h,
+                                   int splits, int path, int b, int sq, int h,
                                    int hk, int d, int ps, int P, int max_len,
                                    float scale, int dtype, void* stream) {
-  if (bad_shape(b, sq, h, hk, d, ps, P, splits, mma) || ks == nullptr ||
+  if (bad_shape(b, sq, h, hk, d, ps, P, splits, path) || ks == nullptr ||
       vs == nullptr)
     return (int)cudaErrorInvalidValue;
-  return (int)route<int8_t>(mma, dtype, q, ak, av, ks, vs, tables, nullptr,
-                            pos, out, kNoPartials, ws, splits, b, sq, h, hk, d,
-                            ps, P, max_len, scale,
+  return (int)route<int8_t>(path, dtype, q, ak, av, ks, vs, tables, nullptr,
+                            pos, out, kNoPartials, ws, Walk{1, 0, splits}, b,
+                            sq, h, hk, d, ps, P, max_len, scale,
                             static_cast<cudaStream_t>(stream));
 }
 
@@ -980,23 +1446,22 @@ extern "C" int ptt_paged_decode_q8(const void* q, const void* ak,
 // shard's scratch page); page_base: [P] int32, column j's first token
 // position (rising with j); pos: [b] int32.  Writes the un-normalised
 // float32 partials acc [b, hk, rep * sq, d], m and l [b, hk, rep * sq] (row
-// r = group member r / sq at window offset r % sq).  ws and mma as for
+// r = group member r / sq at window offset r % sq).  ws and path as for
 // ptt_paged_decode.
 extern "C" int ptt_paged_decode_partials(
     const void* q, const void* ak, const void* av, const void* tables,
     const void* page_base, const void* pos, void* acc, void* m, void* l,
-    void* ws, int splits, int mma, int b, int sq, int h, int hk, int d,
+    void* ws, int splits, int path, int b, int sq, int h, int hk, int d,
     int ps, int P, int max_len, float scale, int dtype, void* stream) {
-  if (bad_shape(b, sq, h, hk, d, ps, P, splits, mma) || page_base == nullptr ||
+  if (bad_shape(b, sq, h, hk, d, ps, P, splits, path) || page_base == nullptr ||
       acc == nullptr)
     return (int)cudaErrorInvalidValue;
-  if (dtype == ptt::kFloat32 && mma) return (int)cudaErrorInvalidValue;
   const Partials part{static_cast<float*>(acc), static_cast<float*>(m),
                       static_cast<float*>(l)};
   return (int)route<__nv_bfloat16>(
-      mma, dtype, q, ak, av, nullptr, nullptr, tables, page_base, pos,
-      nullptr, part, ws, splits, b, sq, h, hk, d, ps, P, max_len, scale,
-      static_cast<cudaStream_t>(stream));
+      path, dtype, q, ak, av, nullptr, nullptr, tables, page_base, pos,
+      nullptr, part, ws, Walk{1, 0, splits}, b, sq, h, hk, d, ps, P, max_len,
+      scale, static_cast<cudaStream_t>(stream));
 }
 
 // K5 over an int8 shard arena with its float32 scales [per_shard, ps, hk,
@@ -1005,15 +1470,61 @@ extern "C" int ptt_paged_decode_partials_q8(
     const void* q, const void* ak, const void* av, const void* ks,
     const void* vs, const void* tables, const void* page_base,
     const void* pos, void* acc, void* m, void* l, void* ws, int splits,
-    int mma, int b, int sq, int h, int hk, int d, int ps, int P, int max_len,
+    int path, int b, int sq, int h, int hk, int d, int ps, int P, int max_len,
     float scale, int dtype, void* stream) {
-  if (bad_shape(b, sq, h, hk, d, ps, P, splits, mma) || page_base == nullptr ||
+  if (bad_shape(b, sq, h, hk, d, ps, P, splits, path) || page_base == nullptr ||
       acc == nullptr || ks == nullptr || vs == nullptr)
     return (int)cudaErrorInvalidValue;
   const Partials part{static_cast<float*>(acc), static_cast<float*>(m),
                       static_cast<float*>(l)};
-  return (int)route<int8_t>(mma, dtype, q, ak, av, ks, vs, tables, page_base,
-                            pos, nullptr, part, ws, splits, b, sq, h, hk, d,
-                            ps, P, max_len, scale,
+  return (int)route<int8_t>(path, dtype, q, ak, av, ks, vs, tables, page_base,
+                            pos, nullptr, part, ws, Walk{1, 0, splits}, b, sq,
+                            h, hk, d, ps, P, max_len, scale,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// K5 on one card, every shard in one launch: the global arenas [cp *
+// per_shard, ps, hk, d] (int8 with ks, vs [cp * per_shard, ps, hk, 1] for
+// the _q8 entry), shard s owning pages [s * per_shard, (s + 1) * per_shard);
+// tables: [cp, b, P] LOCAL page ids (cp_local_tables stacked, P = the
+// shard's columns); page_base: [cp, P] int32; pos: [b] int32.  The grid's
+// third axis is shard x split; the split combine merges all cp * splits
+// partials of a row and writes the finished out [b, sq, h, d] in q's dtype.
+// ws: float32 [b * hk * cp * splits * rep * sq * (d + 2)], never null.
+// path as for ptt_paged_decode.
+extern "C" int ptt_paged_decode_cp(const void* q, const void* ak,
+                                   const void* av, const void* tables,
+                                   const void* page_base, const void* pos,
+                                   void* out, void* ws, int cp, int per_shard,
+                                   int splits, int path, int b, int sq, int h,
+                                   int hk, int d, int ps, int P, int max_len,
+                                   float scale, int dtype, void* stream) {
+  if (bad_shape(b, sq, h, hk, d, ps, P, splits, path) || page_base == nullptr ||
+      cp < 2 || per_shard < 1 || (long long)cp * splits > 65535)
+    return (int)cudaErrorInvalidValue;
+  const Walk w{cp, (size_t)per_shard * ps * hk, splits};
+  return (int)route<__nv_bfloat16>(
+      path, dtype, q, ak, av, nullptr, nullptr, tables, page_base, pos, out,
+      kNoPartials, ws, w, b, sq, h, hk, d, ps, P, max_len, scale,
+      static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int ptt_paged_decode_cp_q8(const void* q, const void* ak,
+                                      const void* av, const void* ks,
+                                      const void* vs, const void* tables,
+                                      const void* page_base, const void* pos,
+                                      void* out, void* ws, int cp,
+                                      int per_shard, int splits, int path,
+                                      int b, int sq, int h, int hk, int d,
+                                      int ps, int P, int max_len, float scale,
+                                      int dtype, void* stream) {
+  if (bad_shape(b, sq, h, hk, d, ps, P, splits, path) || page_base == nullptr ||
+      ks == nullptr || vs == nullptr || cp < 2 || per_shard < 1 ||
+      (long long)cp * splits > 65535)
+    return (int)cudaErrorInvalidValue;
+  const Walk w{cp, (size_t)per_shard * ps * hk, splits};
+  return (int)route<int8_t>(path, dtype, q, ak, av, ks, vs, tables, page_base,
+                            pos, out, kNoPartials, ws, w, b, sq, h, hk, d, ps,
+                            P, max_len, scale,
                             static_cast<cudaStream_t>(stream));
 }

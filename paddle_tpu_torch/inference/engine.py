@@ -458,13 +458,14 @@ class ContinuousBatchingEngine:
         return local
 
     def _local_tables(self, table):
-        """`_host_local_tables` of `table` uploaded to the engine's device,
-        derived once per table upload and shared by every layer; None at
-        cp=1."""
+        """`_host_local_tables` of `table`, stacked ([cp, rows, P/cp] local
+        tables, [cp, P/cp] page_base: `cp_stacked_tables`) and uploaded to
+        the engine's device once per table upload, shared by every layer's
+        one-launch K5; None at cp=1."""
         if self.cp == 1:
             return None
-        return [(loc.to(self.device), base.to(self.device))
-                for loc, base in self._host_local_tables(table)]
+        local = self._host_local_tables(table)
+        return tuple(torch.stack(x).to(self.device) for x in zip(*local))
 
     def _paged_views(self, tables, local):
         return [

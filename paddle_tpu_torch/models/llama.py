@@ -226,9 +226,9 @@ class PagedPrefillView:
     (`kernel` as in `paged_decode_attention`, `max_len` its position
     fence).  Rows at or past `true_len` (bucket padding) and rows whose page
     index overruns the table land on scratch page 0.  Under context
-    parallelism (`cp` > 1) the chunk's attention runs per shard; `local` is
-    `cp_local_tables` of the [1, P] table, derived once per forward by the
-    caller and shared by every layer's view.  The writes address global
+    parallelism (`cp` > 1) the chunk's attention runs over every shard;
+    `local` is `cp_stacked_tables` of the [1, P] table, derived once per
+    forward by the caller and shared by every layer's view.  The writes address global
     page ids either way."""
 
     def __init__(self, arena, table, true_len, max_len=None, start=None,
@@ -248,9 +248,9 @@ class PagedDecodeView:
     max_pages_per_seq] int32 page table; slot s writes its token (or its
     verify window's rows) at page tables[s, pos // page_size], row pos %
     page_size, and attends its pages through the fused kernel (or the
-    gather oracle).  With `cp` > 1 attention runs one K5 launch per shard
-    over `local` (`cp_local_tables` of `tables`, derived once per forward
-    and shared by every layer's view)."""
+    gather oracle).  With `cp` > 1 attention runs K5 over every shard in
+    one launch, through `local` (`cp_stacked_tables` of `tables`, derived
+    once per forward and shared by every layer's view)."""
 
     def __init__(self, arena, tables, max_len, kernel="auto", cp=1, local=None):
         self.arena = arena

@@ -26,8 +26,10 @@ training paths:
 - `paged_decode_partials` (csrc/paged_decode.cu, K2's page walk with a
   token position per table column and un-normalised output; replaces
   `_fused_paged_decode_partials_forward`): context-parallel paged
-  attention, one launch per cp shard over that shard's page range, the
-  shards merged by `cp_softmax_combine` (`paged_decode_cp`).
+  attention over each cp shard's page range.  On one card
+  `paged_decode_cp` walks every shard in one launch and merges them in the
+  split combine; per shard, the partials feed `cp_softmax_combine`, the
+  form the merge takes across cards.
 
 Each kernel has a plain PyTorch version here.  A wrapper takes the plain
 version only for a tensor on the CPU (the tests); for a CUDA tensor it
@@ -36,11 +38,12 @@ run can show that the main path went through the kernels.
 
 Where a kernel has more than one implementation, one function here picks it
 from the shape and passes the choice to the C entry point, which raises on
-a shape the choice does not fit (never another kernel): `flash_path` for K1
-and K6 (the `wgmma` + TMA kernel, `mma.sync`, or FMA) and `paged_path` for
-K2, K4 and K5 (the tensor-core chunk window, or the FMA page walk).  The
-`*_wgmma` and `*_mma` counts are the launches that took the tensor-core
-kernels, a subset of their kernel's count.
+a shape the choice does not fit (never another kernel): `flash_path` for
+K1, K6 and K3 (the `wgmma` + TMA kernels, `mma.sync`, or FMA) and
+`paged_path` for K2, K4 and K5 (the tensor-core chunk window, the decode
+walk, or the FMA page walk).  The `*_wgmma`, `*_mma` and `*_walk` counts
+are the launches that took those kernels, a subset of their kernel's
+count.
 """
 
 from __future__ import annotations
@@ -54,14 +57,18 @@ from ..framework.core import INDEX_DTYPE
 NEG_INF = -1e30  # the reference's mask value (flash_attention.py:36)
 
 # K5's two counts carry the reference's names (`_log_pallas_call`,
-# flash_attention.py:1608) but count kernel launches: one per cp shard, so
-# cp times the reference's count of cp dispatches
+# flash_attention.py:1608) and count kernel launches: one per
+# `paged_decode_cp` call (every shard), or one per shard through
+# `paged_decode_partials`
 launch_counts = {"flash_fwd": 0, "paged_decode_fused": 0,
                  "paged_decode_fused_q8": 0, "flash_bwd": 0, "dense_decode": 0,
                  "paged_decode_fused_cp": 0, "paged_decode_fused_cp_q8": 0,
                  "flash_fwd_wgmma": 0, "dense_decode_wgmma": 0,
+                 "flash_bwd_wgmma": 0,
                  "paged_decode_fused_mma": 0, "paged_decode_fused_q8_mma": 0,
-                 "paged_decode_fused_cp_mma": 0, "paged_decode_fused_cp_q8_mma": 0}
+                 "paged_decode_fused_cp_mma": 0, "paged_decode_fused_cp_q8_mma": 0,
+                 "paged_decode_fused_walk": 0, "paged_decode_fused_q8_walk": 0,
+                 "paged_decode_fused_cp_walk": 0, "paged_decode_fused_cp_q8_walk": 0}
 
 MAX_HEAD_DIM = 256
 # (row, key) pairs one block of the FMA paged kernel takes on, about: a
@@ -77,6 +84,11 @@ PAGED_MMA_KEYS = 64
 # blocks the chunk kernel's grid fills: three (~70 KB of shared memory
 # each at d 128) per SM of an H100 (132 SMs), one wave
 PAGED_MMA_BLOCKS = 396
+# blocks the decode walk's grid fills: four waves of three per SM, so a
+# long slot's walk splits into short ones while short slots' blocks finish
+# at once (a throwaway sweep on the H100 of one and two waves against four
+# and eight favoured four)
+PAGED_WALK_BLOCKS = 1584
 # the q tile of K1's Hopper kernel (two warpgroups of 64 rows)
 FLASH_WGMMA_ROWS = 128
 
@@ -120,10 +132,11 @@ def _stream(t):
 
 
 _FLASH_PATHS = {"fma": 0, "mma": 1, "wgmma": 2}
+_PAGED_PATHS = {"fma": 0, "mma": 1, "walk": 2}
 
 
 def flash_path(rows, d, dtype):
-    """The kernel K1 and K6 launch for `rows` query rows of head_dim `d`:
+    """The kernel K1, K6 and K3 launch for `rows` query rows of head_dim `d`:
     "wgmma" (TMA + `wgmma`, a 128-row tile per block) for bfloat16 with d 64
     or 128 and at least FLASH_WGMMA_ROWS rows; "mma" (`mma.sync`, 64-row
     tiles) for the other bfloat16 shapes with d <= 128; "fma" for float32
@@ -135,30 +148,40 @@ def flash_path(rows, d, dtype):
 
 def paged_path(rows, d, dtype):
     """The kernel K2, K4 and K5 launch for a GQA group x window of `rows` =
-    rep * sq rows: "mma" (the tensor-core chunk window) for a bfloat16 q
-    with d 64 or 128 and at least PAGED_MMA_MIN_ROWS rows -- every chunk
-    prefill of a served Llama -- and "fma" (the page walk on FMAs: decode,
-    the verify window, float32) otherwise."""
-    if dtype == torch.bfloat16 and d in (64, 128) and rows >= PAGED_MMA_MIN_ROWS:
-        return "mma"
-    return "fma"
+    rep * sq rows, for a bfloat16 q with d 64 or 128: "mma" (the
+    tensor-core chunk window) from PAGED_MMA_MIN_ROWS rows -- every chunk
+    prefill of a served Llama -- and "walk" (the decode walk: cp.async
+    ring, dot products in registers) below -- every decode step and verify
+    window; "fma" (the page walk on FMAs) for float32 and other d."""
+    if dtype != torch.bfloat16 or d not in (64, 128):
+        return "fma"
+    return "mma" if rows >= PAGED_MMA_MIN_ROWS else "walk"
 
 
-def paged_splits(path, b, hk, rows, P, ps):
-    """Blocks a slot's page walk splits into.  FMA: a block of r rows (at
-    most one row tile) does r times a decode block's work per key, so it
-    walks about PAGED_SPLIT_KEYS / r keys, at least one page.  Tensor-core
-    chunk window: a 64-row block takes a 64-key tile in about the time the
-    FMA block took a few keys, so splitting by keys would leave most splits
-    idle; the host does not know the live length (pos lies on the card), so
-    it splits only to fill one wave of the card (at most PAGED_MMA_BLOCKS
-    blocks), at most one split per 64-key tile of the table, and each block
-    divides the live tiles among the splits itself."""
+def walk_row_tile(rows):
+    """Rows one decode-walk block holds: 1, 4, or 8 (so 9-15 rows take two
+    blocks)."""
+    return 1 if rows == 1 else 4 if rows <= 4 else 8
+
+
+def paged_splits(path, b, hk, rows, P, ps, cp=1):
+    """Blocks each cp shard's page walk splits into (`P` the shard's table
+    width).  FMA: a block of r rows (at most one row tile) does r times a
+    decode block's work per key, so it walks about PAGED_SPLIT_KEYS / r
+    keys, at least one page.  The tensor-core chunk window and the decode
+    walk: the host does not know the live length (pos lies on the card), so
+    it splits only to fill the card -- one wave of PAGED_MMA_BLOCKS blocks
+    for the chunk window, at most one split per 64-key tile of the table;
+    PAGED_WALK_BLOCKS for the walk, at most one split per page -- and each
+    block divides the live key tiles among the splits itself."""
     if path == "fma":
         keys = PAGED_SPLIT_KEYS // min(rows, PAGED_ROW_TILE)
         return -(-P // max(1, keys // ps))
+    if path == "walk":
+        blocks = cp * b * hk * -(-rows // walk_row_tile(rows))
+        return max(1, min(P, PAGED_WALK_BLOCKS // blocks))
     tiles = -(-(P * ps) // PAGED_MMA_KEYS)
-    blocks = b * hk * -(-rows // PAGED_ROW_TILE)
+    blocks = cp * b * hk * -(-rows // PAGED_ROW_TILE)
     return max(1, min(tiles, PAGED_MMA_BLOCKS // blocks))
 
 
@@ -270,8 +293,9 @@ def flash_backward_plain(q, k, v, out, lse, g, causal, scale):
 def flash_backward(q, k, v, out, lse, g, causal=True, scale=None):
     """K3 wrapper.  q, out, g: [b, s, h, d]; k, v: [b, s, hk, d] (GQA read
     in place, dk/dv summed over each group in-kernel); lse: [b, h, s]
-    float32 from `flash_forward`.  Returns (dq, dk, dv) shaped and typed
-    like q, k, v."""
+    float32 from `flash_forward`.  The kernel is `flash_path(s, d, dtype)`'s,
+    as for K1: the wgmma + TMA kernels for bfloat16 with d 64 or 128 and at
+    least 128 rows.  Returns (dq, dk, dv) shaped and typed like q, k, v."""
     _check_flash(q, k, v)
     b, s, h, d = q.shape
     _require(out.shape == q.shape and g.shape == q.shape,
@@ -288,16 +312,20 @@ def flash_backward(q, k, v, out, lse, g, causal=True, scale=None):
              "flash_bwd: inputs must be contiguous")
     from ._build import check, lib
 
+    path = flash_path(s, d, q.dtype)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     code = lib().ptt_flash_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), delta.data_ptr(), b, s, h, k.shape[2], d,
-        int(bool(causal)), float(scale), _dtype_code(q, "flash_bwd"), _stream(q),
+        int(bool(causal)), float(scale), _dtype_code(q, "flash_bwd"),
+        _FLASH_PATHS[path], _stream(q),
     )
-    check(code, "flash_bwd")
+    check(code, f"flash_bwd ({path})")
     launch_counts["flash_bwd"] += 1
+    if path == "wgmma":
+        launch_counts["flash_bwd_wgmma"] += 1
     return dq, dk, dv
 
 
@@ -545,15 +573,16 @@ def _count(code, what, path):
 
     check(code, f"{what} ({path})")
     launch_counts[what] += 1
-    if path == "mma":
-        launch_counts[what + "_mma"] += 1
+    if path != "fma":
+        launch_counts[f"{what}_{path}"] += 1
 
 
-def _paged_workspace(q, hk, splits):
-    """float32 workspace [b, hk, splits, rows, d + 2] where the splits'
-    partials merge (empty for one split)."""
+def _paged_workspace(q, hk, splits, cp=1):
+    """float32 workspace [b, hk, cp * splits, rows, d + 2] where the cp
+    shards' and splits' partials merge (empty for one of them)."""
     b, sq, h, d = q.shape
-    n = b * hk * splits * (h // hk) * sq * (d + 2) if splits > 1 else 0
+    n = cp * splits
+    n = b * hk * n * (h // hk) * sq * (d + 2) if n > 1 else 0
     return torch.empty(n, dtype=torch.float32, device=q.device)
 
 
@@ -586,7 +615,7 @@ def paged_decode_fused(q, arena_k, arena_v, tables, pos, max_len, scale=None):
     code = lib().ptt_paged_decode(
         q.data_ptr(), arena_k.data_ptr(), arena_v.data_ptr(),
         tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
-        ws.data_ptr() if splits > 1 else None, splits, int(path == "mma"), b,
+        ws.data_ptr() if splits > 1 else None, splits, _PAGED_PATHS[path], b,
         sq, h, hk, d, ps, P, int(max_len), float(scale), _dtype_code(q, what),
         _stream(q),
     )
@@ -625,7 +654,7 @@ def paged_decode_fused_q8(q, arena_k, arena_v, k_scale, v_scale, tables, pos,
         q.data_ptr(), arena_k.data_ptr(), arena_v.data_ptr(),
         k_scale.data_ptr(), v_scale.data_ptr(), tables.data_ptr(),
         pos.data_ptr(), out.data_ptr(), ws.data_ptr() if splits > 1 else None,
-        splits, int(path == "mma"), b, sq, h, hk, d, ps, P, int(max_len),
+        splits, _PAGED_PATHS[path], b, sq, h, hk, d, ps, P, int(max_len),
         float(scale), _dtype_code(q, what), _stream(q),
     )
     _count(code, what, path)
@@ -762,10 +791,18 @@ def paged_decode_partials(q, arena_k, arena_v, tables, page_base, pos,
              ws.data_ptr() if splits > 1 else None]
     fn = (lib().ptt_paged_decode_partials_q8 if quant
           else lib().ptt_paged_decode_partials)
-    code = fn(*ptrs, splits, int(path == "mma"), b, sq, h, hk, d, ps, P,
+    code = fn(*ptrs, splits, _PAGED_PATHS[path], b, sq, h, hk, d, ps, P,
               int(max_len), float(scale), _dtype_code(q, what), _stream(q))
     _count(code, what, path)
     return acc, m, l
+
+
+def cp_stacked_tables(tables, cp, per_shard, page_size):
+    """`cp_local_tables` stacked for the one-launch K5: (local tables [cp,
+    b, P/cp] int32, page_base [cp, P/cp] int32); shard s's are [s]."""
+    local = cp_local_tables(tables, cp, per_shard, page_size)
+    return (torch.stack([loc for loc, _ in local]).contiguous(),
+            torch.stack([base for _, base in local]).contiguous())
 
 
 def paged_decode_cp(q, arena_k, arena_v, tables, pos, max_len, cp, scale=None,
@@ -773,13 +810,16 @@ def paged_decode_cp(q, arena_k, arena_v, tables, pos, max_len, cp, scale=None,
     """Context-parallel paged attention (the reference's
     `_fused_paged_decode_cp_impl`, flash_attention.py:1411): the arena's
     page axis splits into `cp` equal shards, shard s owning global pages
-    [s*per_shard, (s+1)*per_shard) with its scratch page first.  One K5
-    launch per shard over the view arena[s*per_shard:(s+1)*per_shard] (no
-    copy; the scale arenas likewise) with its local table and page_base
-    (`local`: `cp_local_tables` of `tables`, derived here when None), then
-    `cp_softmax_combine` over the shards, cast to q's dtype.  tables: [b,
-    P] GLOBAL page ids in the round-robin layout (sequence page k on shard
-    k % cp).  Returns [b, sq, h, d]."""
+    [s*per_shard, (s+1)*per_shard) with its scratch page first; `local` is
+    `cp_stacked_tables` of `tables` (derived here when None).  On the card
+    one launch walks every shard (grid axis shard x split, each block over
+    its shard's slice of the arena, the scale arenas likewise) and the
+    split combine merges all shards' partials into the output in q's dtype:
+    `ptt_paged_decode_cp`.  On the CPU each shard runs
+    `paged_decode_partials` over the view arena[s*per_shard:(s+1)*per_shard]
+    and `cp_softmax_combine` merges them, as the reference does.  tables:
+    [b, P] GLOBAL page ids in the round-robin layout (sequence page k on
+    shard k % cp).  Returns [b, sq, h, d]."""
     num_pages, ps = arena_k.shape[0], arena_k.shape[1]
     if num_pages % cp or tables.shape[1] % cp:
         raise ValueError(
@@ -789,18 +829,55 @@ def paged_decode_cp(q, arena_k, arena_v, tables, pos, max_len, cp, scale=None,
         )
     per_shard = num_pages // cp
     if local is None:
-        local = cp_local_tables(tables, cp, per_shard, ps)
+        local = cp_stacked_tables(tables, cp, per_shard, ps)
+    loc, base = local
     pos = _pos_vector(pos, q.shape[0], q.device)
-    parts = []
-    for s, (loc, base) in enumerate(local):
-        sl = slice(s * per_shard, (s + 1) * per_shard)
-        scales = (k_scale[sl], v_scale[sl]) if k_scale is not None else (None, None)
-        parts.append(paged_decode_partials(q, arena_k[sl], arena_v[sl], loc, base,
-                                           pos, max_len, scale, *scales))
-    acc, m, l = (torch.stack(x) for x in zip(*parts))
+    quant = k_scale is not None
+    scales = (k_scale, v_scale) if quant else ()
+    what = "paged_decode_fused_cp_q8" if quant else "paged_decode_fused_cp"
     b, sq, h, d = q.shape
-    out = cp_softmax_combine(acc, m, l)  # [b, hk, rep*sq, d]
-    return out.reshape(b, h, sq, d).permute(0, 2, 1, 3).to(q.dtype)
+    if not _on_cuda((q, arena_k, arena_v, *scales, loc, base, pos), what):
+        parts = []
+        for s in range(cp):
+            sl = slice(s * per_shard, (s + 1) * per_shard)
+            sc = (k_scale[sl], v_scale[sl]) if quant else (None, None)
+            parts.append(paged_decode_partials(q, arena_k[sl], arena_v[sl], loc[s],
+                                               base[s], pos, max_len, scale, *sc))
+        acc, m, l = (torch.stack(x) for x in zip(*parts))
+        out = cp_softmax_combine(acc, m, l)  # [b, hk, rep*sq, d]
+        return out.reshape(b, h, sq, d).permute(0, 2, 1, 3).to(q.dtype)
+    _check_paged(q, arena_k, arena_v, loc[0], pos, what)
+    _require(loc.shape[0] == cp and base.shape == (cp, loc.shape[2])
+             and base.dtype == INDEX_DTYPE,
+             f"{what}: local tables must be [cp, b, P] and page_base [cp, P] int32")
+    if quant:
+        _check_scales(arena_k, k_scale, v_scale)
+        _require(arena_v.dtype == torch.int8, f"{what}: arenas must be int8")
+    else:
+        _require(q.dtype == arena_k.dtype == arena_v.dtype,
+                 f"{what}: q and arena dtypes differ")
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    from ._build import lib
+
+    q, loc, base, pos = q.contiguous(), loc.contiguous(), base.contiguous(), pos.contiguous()
+    _require(all(t.is_contiguous() for t in (arena_k, arena_v, *scales)),
+             f"{what}: arenas and scales must be contiguous")
+    hk, P = arena_k.shape[2], loc.shape[2]
+    rows = (h // hk) * sq
+    path = paged_path(rows, d, q.dtype)
+    splits = paged_splits(path, b, hk, rows, P, ps, cp)
+    ws = _paged_workspace(q, hk, splits, cp)
+    out = torch.empty_like(q)
+    ptrs = [q.data_ptr(), arena_k.data_ptr(), arena_v.data_ptr()]
+    ptrs += [t.data_ptr() for t in scales]
+    ptrs += [loc.data_ptr(), base.data_ptr(), pos.data_ptr(), out.data_ptr(),
+             ws.data_ptr()]
+    fn = lib().ptt_paged_decode_cp_q8 if quant else lib().ptt_paged_decode_cp
+    code = fn(*ptrs, cp, per_shard, splits, _PAGED_PATHS[path], b, sq, h, hk, d,
+              ps, P, int(max_len), float(scale), _dtype_code(q, what), _stream(q))
+    _count(code, what, path)
+    return out
 
 
 def paged_decode_attention(q, arena_k, arena_v, tables, pos, max_len,
@@ -810,8 +887,9 @@ def paged_decode_attention(q, arena_k, arena_v, tables, pos, max_len,
     `paged_decode_attention_array`, flash_attention.py:1553).  "fused" runs
     `paged_decode_fused`, or `paged_decode_fused_q8` when k_scale/v_scale
     are given (an int8 arena); each raises on a shape it does not take.
-    With cp > 1 it runs `paged_decode_cp` (K5 per shard, then the combine;
-    `local` its precomputed `cp_local_tables`), and a pool or table width
+    With cp > 1 it runs `paged_decode_cp` (K5, every shard in one launch
+    on the card; `local` its precomputed `cp_stacked_tables`), and a pool or
+    table width
     that does not divide by cp raises ValueError (the reference falls back
     to the gather there; the port has no silent fallback).  "auto", the
     reference flag's default, is an alias of "fused" because the port has

@@ -207,5 +207,10 @@ def test_cpu_backward_never_counts_a_kernel_launch():
                                  "paged_decode_fused_mma": 0,
                                  "paged_decode_fused_q8_mma": 0,
                                  "paged_decode_fused_cp_mma": 0,
-                                 "paged_decode_fused_cp_q8_mma": 0}
+                                 "paged_decode_fused_cp_q8_mma": 0,
+                                 "flash_bwd_wgmma": 0,
+                                 "paged_decode_fused_walk": 0,
+                                 "paged_decode_fused_q8_walk": 0,
+                                 "paged_decode_fused_cp_walk": 0,
+                                 "paged_decode_fused_cp_q8_walk": 0}
     assert profiler.summary()["kernel_launches"]["flash_bwd"] == 0

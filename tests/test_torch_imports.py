@@ -124,12 +124,15 @@ def _c_parameter_names(name):
 
 
 @pytest.mark.parametrize("name, before, choice", [
-    ("ptt_paged_decode", "splits", "mma"),
-    ("ptt_paged_decode_q8", "splits", "mma"),
-    ("ptt_paged_decode_partials", "splits", "mma"),
-    ("ptt_paged_decode_partials_q8", "splits", "mma"),
+    ("ptt_paged_decode", "splits", "path"),
+    ("ptt_paged_decode_q8", "splits", "path"),
+    ("ptt_paged_decode_partials", "splits", "path"),
+    ("ptt_paged_decode_partials_q8", "splits", "path"),
+    ("ptt_paged_decode_cp", "splits", "path"),
+    ("ptt_paged_decode_cp_q8", "splits", "path"),
     ("ptt_flash_fwd", "dtype", "path"),
     ("ptt_dense_decode", "dtype", "path"),
+    ("ptt_flash_bwd", "dtype", "path"),
 ])
 def test_entry_points_take_the_hosts_kernel_choice(name, before, choice):
     """Each entry point behind a dispatch rule (`paged_path`, `flash_path`)

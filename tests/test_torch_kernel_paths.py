@@ -5,8 +5,10 @@
   head_dim <= 128 `mma.sync`, float32 and head_dim > 128 the FMA kernel.
 - `paged_path` (K2, K4 and K5): a bfloat16 q with head_dim 64 or 128 and a
   GQA group x window of at least 16 rows takes the tensor-core chunk
-  window, everything else the FMA page walk.
-- `paged_splits` and the split workspace.
+  window, fewer rows the decode walk, everything else the FMA page walk.
+- K3 (`flash_backward`) takes `flash_path` too: the wgmma + TMA kernels
+  for bfloat16 with head_dim 64 or 128 from 128 rows.
+- `paged_splits` (per cp shard) and the split workspace.
 - Each wrapper passes its path to the C entry point and counts the launch
   under its kernel and, on a tensor-core path, under the path's count: a
   fake library stands in for the card, so the arguments the kernels would
@@ -33,7 +35,10 @@ def _counts():
 @pytest.mark.parametrize("d", [36, 64, 128, 256])
 @pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "f32"])
 def test_paged_path_boundaries(rows, d, dtype):
-    want = "mma" if dtype == BF16 and d in (64, 128) and rows >= 16 else "fma"
+    if dtype != BF16 or d not in (64, 128):
+        want = "fma"
+    else:
+        want = "mma" if rows >= 16 else "walk"
     assert pfa.paged_path(rows, d, dtype) == want
 
 
@@ -51,7 +56,8 @@ def test_flash_path_boundaries(rows, d, dtype):
 
 
 @pytest.mark.parametrize("b, hk, rows, P, ps, want", [
-    # the FMA page walk: about 512 / rows keys per split, at least a page
+    # the FMA page walk (float32): about 512 / rows keys per split, at
+    # least a page
     (8, 32, 1, 16, 128, 4),      # decode, a 2048-token table
     (8, 32, 3, 16, 128, 16),     # the verify window: one page per split
     (2, 2, 1, 64, 16, 2),        # 32 pages of 16 rows per split
@@ -66,14 +72,38 @@ def test_flash_path_boundaries(rows, d, dtype):
     (3, 2, 64, 16, 16, 4),       # 6 blocks, 4 key tiles in the table
 ])
 def test_paged_splits(b, hk, rows, P, ps, want):
-    path = pfa.paged_path(rows, 128, BF16)
+    path = pfa.paged_path(rows, 128, BF16 if rows >= 16 else F32)
     assert pfa.paged_splits(path, b, hk, rows, P, ps) == want
 
 
-@pytest.mark.parametrize("splits, n", [(1, 0), (3, 1 * 4 * 3 * 2 * 16 * 66)])
-def test_paged_workspace_holds_every_splits_partials(splits, n):
+@pytest.mark.parametrize("b, hk, rows, P, ps, cp, want", [
+    # the decode walk fills PAGED_WALK_BLOCKS (1584: four waves of three
+    # blocks on each of 132 SMs), at most one split per page of the
+    # shard's table
+    (8, 32, 1, 16, 128, 1, 6),    # decode: 256 blocks
+    (8, 32, 3, 16, 128, 1, 6),    # the verify window: one 4-row tile
+    (8, 8, 12, 16, 128, 1, 12),   # rep 4 x sq 3: two 8-row tiles, 128 blocks
+    (4, 32, 1, 16, 128, 2, 6),    # cp 2: 256 blocks over both shards
+    (8, 32, 1, 16, 128, 2, 3),    # cp 2 at 8 slots: 512 blocks
+    (1, 2, 1, 4, 16, 1, 4),       # 2 blocks: every page of the table
+    (1, 2, 1, 4, 16, 4, 4),
+])
+def test_walk_splits(b, hk, rows, P, ps, cp, want):
+    assert pfa.paged_path(rows, 128, BF16) == "walk"
+    assert pfa.paged_splits("walk", b, hk, rows, P, ps, cp) == want
+
+
+@pytest.mark.parametrize("rows, want", [(1, 1), (2, 4), (4, 4), (5, 8), (15, 8)])
+def test_walk_row_tile(rows, want):
+    assert pfa.walk_row_tile(rows) == want
+
+
+@pytest.mark.parametrize("splits, cp, n", [
+    (1, 1, 0), (3, 1, 1 * 4 * 3 * 2 * 16 * 66), (1, 2, 1 * 4 * 2 * 2 * 16 * 66),
+    (3, 2, 1 * 4 * 6 * 2 * 16 * 66)])
+def test_paged_workspace_holds_every_splits_partials(splits, cp, n):
     q = torch.zeros(1, 16, 8, 64)  # rep 2 x sq 16 rows per kv head
-    assert pfa._paged_workspace(q, 4, splits).numel() == n
+    assert pfa._paged_workspace(q, 4, splits, cp).numel() == n
 
 
 class _FakeLib:
@@ -112,12 +142,14 @@ def _paged_inputs(b, sq, h, hk, d, dtype=BF16, ps=16, P=4, quant=False):
 
 
 @pytest.mark.parametrize("sq, hk, d, dtype, path", [
-    (15, 8, 64, BF16, "fma"),
+    (15, 8, 64, BF16, "walk"),
     (16, 8, 64, BF16, "mma"),
     (4, 2, 128, BF16, "mma"),     # GQA: rep 4 x sq 4 = 16 rows
-    (3, 2, 128, BF16, "fma"),     # 12 rows
+    (3, 2, 128, BF16, "walk"),    # 12 rows
+    (1, 8, 128, BF16, "walk"),    # a decode step
     (64, 8, 36, BF16, "fma"),
     (64, 8, 64, F32, "fma"),
+    (1, 8, 64, F32, "fma"),
 ])
 @pytest.mark.parametrize("kernel", ["k2", "k4", "k5", "k5_q8"])
 def test_paged_wrappers_pass_and_count_their_path(fake_card, sq, hk, d, dtype,
@@ -144,12 +176,12 @@ def test_paged_wrappers_pass_and_count_their_path(fake_card, sq, hk, d, dtype,
                               "paged_decode_fused_cp": "paged_decode_partials",
                               "paged_decode_fused_cp_q8": "paged_decode_partials_q8"}[name]
     rows = (8 // hk) * sq
-    assert args[i_splits + 1] == int(path == "mma")  # the path argument
+    assert args[i_splits + 1] == {"fma": 0, "mma": 1, "walk": 2}[path]
     assert args[i_splits] == pfa.paged_splits(path, 1, hk, rows, 4, 16)
     want = dict.fromkeys(pfa.launch_counts, 0)
     want[name] = 1
-    if path == "mma":
-        want[name + "_mma"] = 1
+    if path != "fma":
+        want[f"{name}_{path}"] = 1
     assert pfa.launch_counts == want
 
 
@@ -174,6 +206,33 @@ def test_flash_wrappers_pass_and_count_their_path(fake_card, s, d, dtype, path):
     want["flash_fwd"] = want["dense_decode"] = 1
     if path == "wgmma":
         want["flash_fwd_wgmma"] = want["dense_decode_wgmma"] = 1
+    assert pfa.launch_counts == want
+
+
+@pytest.mark.parametrize("s, d, dtype, path", [
+    (16, 128, BF16, "mma"),       # below the wgmma tile: the old kernels
+    (127, 64, BF16, "mma"),
+    (128, 128, BF16, "wgmma"),
+    (1000, 64, BF16, "wgmma"),    # ragged
+    (2048, 128, BF16, "wgmma"),   # the training shape
+    (300, 100, BF16, "mma"),      # d not 64 or 128
+    (300, 128, F32, "fma"),
+    (200, 256, BF16, "fma"),
+])
+def test_flash_backward_passes_and_counts_its_path(fake_card, s, d, dtype, path):
+    g = torch.Generator().manual_seed(2)
+    q, k, v = (torch.randn(1, s, heads, d, generator=g).to(dtype)
+               for heads in (8, 2, 2))
+    lse = torch.zeros(1, 8, s)
+    pfa.flash_backward(q, k, v, q, lse, q)
+    (entry, args), = fake_card.calls
+    assert entry == "ptt_flash_bwd"
+    assert args[10:16] == (1, s, 8, 2, d, 1)  # b, s, h, hk, d, causal
+    assert args[18] == {"fma": 0, "mma": 1, "wgmma": 2}[path]
+    want = dict.fromkeys(pfa.launch_counts, 0)
+    want["flash_bwd"] = 1
+    if path == "wgmma":
+        want["flash_bwd_wgmma"] = 1
     assert pfa.launch_counts == want
 
 
