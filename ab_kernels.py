@@ -9,8 +9,9 @@ own sources into its own build directory, in the order old, new, new, old,
 on the same inputs made from fixed seeds by that checkout's `chip_smoke`
 helpers:
 
-- K3 (`flash_backward`) at the training shape (b 4, s 2048, h 32, d 128,
-  causal) and at s 512;
+- K1 (`flash_forward`) and K3 (`flash_backward`) at the training shape
+  (b 4, s 2048, h 32, d 128, causal), K3 at s 512, and both without a
+  mask at BERT-base's shape (b 32, s 384, h 12, d 64, not causal);
 - K2 and K4 (`paged_decode_fused`, `_q8`) at the serving decode step (b 8,
   sq 1, h 32, pos up to 1999 of 2048, page size 128);
 - K5 on one card (`paged_decode_cp`, cp 2) at the long-document decode
@@ -64,13 +65,17 @@ def _child(tree, train):
                                   "ms": cs.time_ms(fn), "device_ms": device_ms(fn)}),
               flush=True)
 
-    for s in (2048, 512):
+    for b, s, h, d, causal in ((4, 2048, 32, 128, True), (4, 512, 32, 128, True),
+                               (32, 384, 12, 64, False)):
         g = torch.Generator(device="cuda").manual_seed(6)
-        q, k, v, go = (torch.randn(4, s, 32, 128, generator=g, device="cuda",
+        q, k, v, go = (torch.randn(b, s, h, d, generator=g, device="cuda",
                                    dtype=torch.bfloat16) for _ in range(4))
-        out, lse = fa.flash_forward(q, k, v, causal=True)
-        emit(f"flash_bwd s={s}",
-             lambda: fa.flash_backward(q, k, v, out, lse, go, True, 128 ** -0.5))
+        out, lse = fa.flash_forward(q, k, v, causal=causal)
+        shape = f"b={b} s={s} h={h} d={d} causal={causal}"
+        if s != 512:
+            emit(f"flash_fwd {shape}", lambda: fa.flash_forward(q, k, v, causal=causal))
+        emit(f"flash_bwd {shape}",
+             lambda: fa.flash_backward(q, k, v, out, lse, go, causal, d ** -0.5))
     pos = [1999, 1500, 1024, 700, 300, 128, 127, 5]
     for quant in (False, True):
         q, ak, av, scales, tables, pos_t = cs._paged_inputs(

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Ten phases; a failure in any of them exits non-zero and prints no result.
+Eleven phases; a failure in any of them exits non-zero and prints no result.
 
 1. device  -- requires CUDA; prints the card's name and power limit.
 2. build   -- builds every kernel of `paddle_tpu_torch/csrc` with nvcc.
@@ -15,7 +15,9 @@ Ten phases; a failure in any of them exits non-zero and prints no result.
               with CUDA events; then every other variant the wrappers
               launch, untimed, on every kernel path their dispatch rules
               pick (K1/K6: wgmma + TMA, mma.sync, FMA; K2/K4/K5: the
-              tensor-core chunk window, the FMA page walk).  K5
+              tensor-core chunk window, the FMA page walk); K1 and K3 with
+              segment ids and key bias on each of their paths, timed at
+              BERT's shape beside SDPA with the equivalent boolean mask.  K5
               (context-parallel decode) is timed beside K2 over the same
               global arena; the chunk windows of K2, K4 and K5 are timed
               apart.
@@ -65,6 +67,15 @@ Ten phases; a failure in any of them exits non-zero and prints no result.
 10. grads  -- one step's gradients of a 2-layer model at the same widths
               with the kernels against the same step with attention through
               the plain forward under autograd.
+11. bert   -- bench_bert's BERT-base SQuAD fine-tuning (bf16 O2, AdamW at
+              3e-5, dropout 0) for 6 steps on one batch of 32 x 384 tokens
+              padded from lengths 192-384: finite and falling losses, K1 and
+              K3 launched once per layer per step on their wgmma paths with
+              segment ids and no fallback, step time, examples/s, peak
+              memory and a profiled step; an encoder layer with the padding
+              as a key-padding attn_mask (K1's key bias) against segment ids
+              on the valid rows; then a 2-layer model's gradients with the
+              kernels against attention through the plain forward.
 
 Every phase prints its wall time.  The line before the last is the
 kernels' JSON record; the last line is {"ok": true, "device": {...}}.
@@ -172,6 +183,41 @@ TRAIN_BATCH = 4
 TRAIN_SEQ = 2048
 TRAIN_STEPS = 6
 
+# the bert phase: bench_bert's BERT-base SQuAD fine-tuning (bench.py:2288),
+# batch 32 x 384 (lengths 192-384, padded), 6 AdamW steps at lr 3e-5
+BERT_BATCH = 32
+BERT_SEQ = 384
+BERT_VOCAB = 30522
+BERT_STEPS = 6
+BERT_LR = 3e-5
+# a key whose bias is above this is live in `_bool_mask` (the padding bias
+# is -1e30, a live key's finite)
+NEG_BIAS_LIVE = -1e29
+
+# K1 and K3 with segment ids and key bias, untimed, on every path
+# `flash_path` picks: wgmma (bf16, d 64 or 128, 128+ rows) with BERT's
+# padding ids, a padding bias (and a batch row with no live key), both,
+# packed sequences (a row's own keys only in the last tiles) with and
+# without the causal fence (varlen), GQA on a ragged length; mma.sync at s
+# 64 and 127; the FMA kernels in float32 and at d 256
+MASKED_CASES = (
+    dict(b=4, s=384, h=12, hk=12, kind="pad"),
+    dict(b=4, s=384, h=12, hk=12, kind="kbias", dead_row=True),
+    dict(b=4, s=384, h=12, hk=12, kind="both"),
+    dict(b=2, s=384, h=12, hk=12, kind="packed"),
+    dict(b=2, s=384, h=12, hk=12, kind="packed", causal=True),
+    dict(b=2, s=300, h=16, hk=4, kind="pad"),
+    dict(b=2, s=256, h=16, hk=4, d=128, kind="both", causal=True),
+    dict(b=2, s=64, h=8, hk=8, kind="pad"),
+    dict(b=2, s=127, h=8, hk=2, kind="kbias", dead_row=True),
+    dict(b=2, s=127, h=8, hk=8, kind="packed", causal=True),
+    dict(b=2, s=100, h=8, hk=8, d=128, kind="both"),
+    dict(b=2, s=200, h=8, hk=2, kind="both", dtype="float32"),
+    dict(b=2, s=130, h=8, hk=8, kind="kbias", dead_row=True, dtype="float32"),
+    dict(b=2, s=130, h=8, hk=8, kind="packed", causal=True, dtype="float32"),
+    dict(b=1, s=100, h=4, hk=2, d=256, kind="pad"),
+)
+
 
 def log(phase, msg):
     print(f"[{phase}] {msg}", flush=True)
@@ -259,6 +305,22 @@ def close(out, ref):
     return (bool(torch.isfinite(o).all())
             and bool(((o - r).abs() <= atol + rtol * r.abs()).all())
             and rel_norm_err(out, ref) <= REL_NORM_TOL[name])
+
+
+def worst_excess(out, ref):
+    """Where `out` is furthest past the elementwise tolerance of `close`:
+    (excess over atol + rtol |ref|, out, ref, index), for a failure's log
+    line."""
+    import torch
+
+    name = str(ref.dtype).removeprefix("torch.")
+    atol, rtol = ((KERNEL_ATOL, KERNEL_RTOL) if name == "bfloat16"
+                  else (F32_ATOL, F32_RTOL))
+    o, r = out.float(), ref.float()
+    excess = (o - r).abs() - (atol + rtol * r.abs())
+    i = int(excess.argmax())
+    idx = tuple(int(x) for x in torch.unravel_index(torch.tensor(i), excess.shape))
+    return excess.flatten()[i].item(), o.flatten()[i].item(), r.flatten()[i].item(), idx
 
 
 def _main(counts):
@@ -539,6 +601,198 @@ def _k3_case(b, s, h, hk, d=128, seed=6, dtype="bfloat16", causal=True,
     return ok, dict(max_abs_err=max(errs), ms=ms, device_ms=dev,
                     plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                     library_ms=lib_ms)
+
+
+def bert_batch(batch=None, seq=None, vocab=None, seed=0):
+    """bench_bert's batch (bench.py:2316-2324): numpy's RandomState(seed)
+    draws the token ids, lengths uniform in [seq // 2, seq], then the start
+    and the end positions, each uniform in [0, seq // 2).  Returns (ids
+    [batch, seq] int32, lengths [batch], starts [batch], ends [batch])."""
+    import numpy as np
+
+    batch, seq = batch or BERT_BATCH, seq or BERT_SEQ
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, vocab or BERT_VOCAB, (batch, seq)).astype(np.int32)
+    lens = rng.randint(seq // 2, seq + 1, (batch,))
+    starts = rng.randint(0, seq // 2, (batch,))
+    return ids, lens, starts, rng.randint(0, seq // 2, (batch,))
+
+
+def _masking(kind, b, s, seed, dead_row=False, device="cuda"):
+    """(segments [b, s] int32 or None, kbias [b, s] float32 or None) of a
+    masked K1/K3 case, from numpy's generator `seed`:
+    - "pad": BERT's ids (`BertModel.to_segs`): valid tokens 0, pad position
+      j gets j + 1; lengths bench_bert's at its shape, else uniform in
+      [s // 2, s];
+    - "kbias": the same padding as a key bias: -1e30 on pad keys, N(0, 1)
+      on valid ones; with `dead_row`, batch row 0 has -1e30 on every key (a
+      row with no live key: the output is the mean of V);
+    - "both": the padding ids and a finite N(0, 1) bias on every key (with
+      the padding bias a pad row, whose only key of its id is itself, would
+      have no live key);
+    - "packed": packed sequences (varlen): row r's boundaries at s // 3 + r
+      and s - s // 5 - r, so the last sequence's rows find their own keys
+      only in the last key tiles (every earlier tile fully masked)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    j = np.arange(s)[None, :]
+    if b == BERT_BATCH and s == BERT_SEQ:
+        lens = bert_batch()[1]
+    else:
+        lens = rng.integers(s // 2, s + 1, b)
+    valid = j < lens[:, None]
+    segs = bias = None
+    if kind in ("pad", "both"):
+        segs = np.where(valid, 0, j + 1)
+    if kind in ("kbias", "both"):
+        bias = rng.standard_normal((b, s))
+        if kind == "kbias":
+            bias = np.where(valid, bias, -1e30)
+        if dead_row:
+            bias[0] = -1e30
+    if kind == "packed":
+        r = np.arange(b)[:, None]
+        segs = (j >= s // 3 + r).astype(np.int64) + (j >= s - s // 5 - r)
+    to = lambda x, dt: None if x is None else torch.tensor(x, dtype=dt, device=device)
+    return to(segs, torch.int32), to(bias, torch.float32)
+
+
+def _bool_mask(segments, kbias, causal):
+    """The [b, 1, s, s] boolean mask (True: attend) equivalent to segments,
+    a padding bias and the causal fence, for PyTorch's SDPA."""
+    import torch
+
+    ref = segments if segments is not None else kbias
+    b, s = ref.shape
+    mask = torch.ones(b, 1, s, s, dtype=torch.bool, device=ref.device)
+    if segments is not None:
+        mask &= (segments[:, None, :, None] == segments[:, None, None, :])
+    if kbias is not None:
+        mask &= (kbias > NEG_BIAS_LIVE)[:, None, None, :]
+    if causal:
+        mask &= torch.ones(s, s, dtype=torch.bool, device=ref.device).tril()
+    return mask
+
+
+def _masked_case(b, s, h, hk, kind, d=64, causal=False, dtype="bfloat16",
+                 seed=30, dead_row=False, timed=False):
+    """K1 and K3 with segment ids and/or a key bias against their plain
+    versions on the same inputs (out and lse; dq, dk, dv), K3 twice bit for
+    bit; with `timed` (BERT's shape), kernel, device, plain and library
+    times of both -- the library call is PyTorch's SDPA with the equivalent
+    boolean [b, 1, s, s] mask, and its backward -- and their bounds.
+    With `dead_row` (batch row 0 has no live key) that row's dq, dk and dv
+    are held by the per-(batch, head) norm alone: p is 1 on all its keys,
+    so its ds are O(1) on every key where a live row's are O(1 / s), and
+    its dq and dk are sums of s such terms that cancel, in which one bf16
+    rounding of ds that falls the other way moves an entry near 0 past the
+    elementwise bound (float32 holds it elementwise).
+    Returns (ok, forward record, backward record)."""
+    import torch
+    from torch.nn import functional as F
+
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    mk = lambda heads: torch.randn(b, s, heads, d, generator=gen, device="cuda",
+                                   dtype=getattr(torch, dtype))
+    q, k, v, g = mk(h), mk(hk), mk(hk), mk(h)
+    segs, kbias = _masking(kind, b, s, seed, dead_row)
+    scale = 1.0 / d ** 0.5
+    out, lse = fa.flash_forward(q, k, v, causal, scale, segs, kbias)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = fa.flash_forward_plain(q, k, v, causal, scale, segs, kbias)
+    f_err = (out.float() - ref_out.float()).abs().max().item()
+    lse_err = (lse - ref_lse).abs().max().item()
+    f_ok = close(out, ref_out) and lse_err <= LSE_ATOL
+    args = (q, k, v, out, lse, g, causal, scale, segs, kbias)
+    got = fa.flash_backward(*args)
+    again = fa.flash_backward(*args)
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip(got, again))
+    ref = fa.flash_backward_plain(*args)
+    errs = [(x.float() - r.float()).abs().max().item() for x, r in zip(got, ref)]
+    rels = [rel_norm_err(x, r) for x, r in zip(got, ref)]
+    lo = 1 if dead_row and dtype == "bfloat16" else 0
+
+    def held(x, r):
+        if not lo:
+            return close(x, r)
+        return (close(x[lo:], r[lo:])
+                and rel_norm_err(x[:lo], r[:lo]) <= REL_NORM_TOL[dtype])
+
+    b_ok = same and all(held(x, r) for x, r in zip(got, ref))
+    del ref, again
+    path = fa.flash_path(s, d, q.dtype)
+    shape = (f"{dtype} b={b} s={s} h={h} hk={hk} d={d} causal={causal} "
+             f"{kind}{' dead row' if dead_row else ''} path {path}")
+    fwd = (f"flash_fwd masked {shape}: max_abs_err {f_err:.3e}, rel_norm_err "
+           f"{rel_norm_err(out, ref_out):.3e}, lse_err {lse_err:.3e}")
+    bwd = (f"flash_bwd masked {shape}: max_abs_err dq/dk/dv "
+           f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e}, rel_norm_err "
+           f"{rels[0]:.3e}/{rels[1]:.3e}/{rels[2]:.3e}, two calls equal bit for "
+           f"bit {same}")
+    frec, brec = dict(max_abs_err=f_err), dict(max_abs_err=max(errs))
+    if timed:
+        bool_mask = _bool_mask(segs, kbias, causal)
+        rep = h // hk
+        qt = q.transpose(1, 2).detach().requires_grad_()
+        kt = k.transpose(1, 2).repeat_interleave(rep, 1).detach().requires_grad_()
+        vt = v.transpose(1, 2).repeat_interleave(rep, 1).detach().requires_grad_()
+        fwd_call = lambda: fa.flash_forward(q, k, v, causal, scale, segs, kbias)
+        lib_fwd = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bool_mask)
+        lib_out = lib_fwd()
+        gt = g.transpose(1, 2)
+        lib_bwd = lambda: torch.autograd.grad(lib_out, (qt, kt, vt), gt,
+                                              retain_graph=True)
+        # the pairs this data lets through (every pair is still computed:
+        # no key tile is skipped); bytes: q, k, v, out (K1) and also g, dq,
+        # dk, dv (K3) once, lse, the ids and the bias
+        live = int(bool_mask.sum().item()) * h
+        mask_bytes = sum(4 * t.numel() for t in (segs, kbias) if t is not None)
+        t_bytes = 2 * (q.numel() + k.numel()) * q.element_size()
+        f_bound = bound(t_bytes + 4 * lse.numel() + mask_bytes, 4 * d * live)
+        b_bound = bound(2 * t_bytes + 4 * lse.numel() + mask_bytes, 10 * d * live)
+        # the same calls without segment ids or bias: what the mask costs
+        plain_out, plain_lse = fa.flash_forward(q, k, v, causal, scale)
+        unmasked = {
+            "flash_fwd": device_ms(lambda: fa.flash_forward(q, k, v, causal, scale))[0],
+            "flash_bwd": device_ms(lambda: fa.flash_backward(
+                q, k, v, plain_out, plain_lse, g, causal, scale))[0]}
+        for what, rec, call, plain, lib, (bms, by) in (
+                ("flash_fwd", frec, fwd_call,
+                 lambda: fa.flash_forward_plain(q, k, v, causal, scale, segs, kbias),
+                 lib_fwd, f_bound),
+                ("flash_bwd", brec, lambda: fa.flash_backward(*args),
+                 lambda: fa.flash_backward_plain(*args), lib_bwd, b_bound)):
+            ms = time_ms(call)
+            dev, parts = device_ms(call)
+            plain_ms = time_ms(plain, iters=5, warmup=1)
+            lib_ms = time_ms(lib)
+            lib_dev, _ = device_ms(lib)
+            rec.update(ms=ms, device_ms=dev, plain_ms=plain_ms, bound_ms=bms,
+                       bound_by=by, library_ms=lib_ms)
+            text = (f", kernel_ms {ms:.4f}, device_ms {_dev_txt(dev)} "
+                    f"({_parts_txt(parts)}, unmasked on the same inputs "
+                    f"{_dev_txt(unmasked[what])}), plain_ms {plain_ms:.4f}, "
+                    f"library_ms {lib_ms:.4f} (device {_dev_txt(lib_dev)}; SDPA "
+                    f"with the boolean mask), bound_ms {bms:.5f} ({by}, {live} "
+                    f"live pairs)")
+            if what == "flash_fwd":
+                fwd += text
+            else:
+                bwd += text
+    if not f_ok:
+        fwd += f"; worst past tolerance {worst_excess(out, ref_out)}"
+    if not b_ok:
+        ref = fa.flash_backward_plain(*args)
+        bwd += "; worst past tolerance dq/dk/dv " + " / ".join(
+            str(worst_excess(x[lo:], r[lo:])) for x, r in zip(got, ref))
+    log("kernels", f"{fwd} -> {'ok' if f_ok else 'FAIL'}")
+    log("kernels", f"{bwd} -> {'ok' if b_ok else 'FAIL'}")
+    return f_ok and b_ok, frec, brec
 
 
 def _k6_case(b, sq, h, hk, d=128, L=640, pos=0, seed=14, dtype="bfloat16",
@@ -951,6 +1205,17 @@ def phase_kernels():
                dict(b=2, s=300, h=16, hk=4, causal=False),
                dict(b=2, s=16, h=8, hk=2)):
         ok_all &= _k3_repeat(**kw)
+    # K1 and K3 with segment ids and key bias: BERT's shape (the bert
+    # phase's attention, wgmma at d 64), timed, then every other variant
+    ok, k1m, k3m = _masked_case(BERT_BATCH, BERT_SEQ, 12, 12, "pad", timed=True)
+    ok_all &= ok
+    errs1m, errs3m = [k1m["max_abs_err"]], [k3m["max_abs_err"]]
+    for kw in MASKED_CASES:
+        ok, frec, brec = _masked_case(seed=31, **kw)
+        ok_all &= ok
+        if kw.get("dtype", "bfloat16") == "bfloat16":
+            errs1m.append(frec["max_abs_err"])
+            errs3m.append(brec["max_abs_err"])
     # K6: the lock-step prefill of the generate phase (wgmma), timed, then
     # GQA, ragged sq at pos > 0 on both tensor-core paths, float32 and the
     # FMA path at d 256, untimed
@@ -1031,6 +1296,8 @@ def phase_kernels():
             "paged_decode_fused_q8_mma": worst(k4c, errs4c),
             "flash_bwd": worst(k3, errs3),
             "flash_bwd_wgmma": worst(k3w, errs3),
+            "flash_fwd_masked": worst(k1m, errs1m),
+            "flash_bwd_masked": worst(k3m, errs3m),
             "dense_decode": worst(k6, errs6),
             "paged_decode_fused_cp": worst(k5, errs5),
             "paged_decode_fused_cp_walk": worst(k5w, errs5w),
@@ -2116,6 +2383,228 @@ def grad_check(cfg, device="cuda", batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=1):
     return ok, ratios[worst]
 
 
+# ---------------------------------------------------------------------------
+# BERT-base SQuAD fine-tuning
+# ---------------------------------------------------------------------------
+
+
+def _bert_model(cfg, device, seed=0, lr=BERT_LR):
+    """bench_bert's set-up (bench.py:2299-2304): a float32
+    BertForQuestionAnswering in train mode, AdamW at `lr` (weight decay
+    0.01), then bf16 O2 with float32 masters (LayerNorms stay float32)."""
+    from paddle_tpu_torch import amp, optimizer
+    from paddle_tpu_torch.models.bert import BertForQuestionAnswering
+
+    model = BertForQuestionAnswering(cfg, device=device, dtype="float32",
+                                     seed=seed).train()
+    opt = optimizer.AdamW(learning_rate=lr, parameters=model.named_parameters())
+    return amp.decorate(model, opt, level="O2", dtype="bfloat16")
+
+
+def _bert_inputs(cfg, device, batch, seq, seed):
+    """bench_bert's batch on `device`: ids, the [b, s] padding mask, start
+    and end positions (`bert_batch`)."""
+    import numpy as np
+    import torch
+
+    ids, lens, starts, ends = bert_batch(batch, seq, cfg.vocab_size, seed)
+    mask = (np.arange(seq)[None, :] < lens[:, None]).astype(np.int64)
+    to = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)
+    return to(ids), to(mask), to(starts.astype(np.int64)), to(ends.astype(np.int64))
+
+
+def _bert_step(model, opt, inputs):
+    ids, mask, starts, ends = inputs
+    loss, _, _ = model(ids, attention_mask=mask, start_positions=starts,
+                       end_positions=ends)
+    loss.backward()
+    opt.step()
+    opt.clear_grad()
+    return loss
+
+
+def phase_bert(smi, cfg, device="cuda", batch=BERT_BATCH, seq=BERT_SEQ,
+               steps=BERT_STEPS, seed=0, profile=True):
+    """bench_bert's training loop (bench.py:2288): BERT-base SQuAD, bf16 O2,
+    AdamW at 3e-5, dropout 0, `steps` steps on one padded batch.  Checks
+    finite, falling losses, and that every layer's attention ran K1 and K3
+    once per step on the wgmma path with segment ids, with no fallback to
+    the plain path; prints the step time (median of steps 2-`steps`),
+    examples/s, peak memory and, with `profile`, a profiled step.  Returns
+    (ok, kernel launch counts of the training run)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, opt = _bert_model(cfg, device, seed)
+    inputs = _bert_inputs(cfg, device, batch, seq, seed)
+    layers = cfg.num_hidden_layers
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens = int(inputs[1].sum())
+    log("bert", f"BertForQuestionAnswering {cfg.hidden_size} hidden x {layers} "
+                f"layers x {cfg.num_attention_heads} heads ({n_params} params), "
+                f"bf16 O2 + AdamW lr {BERT_LR}, batch {batch} x {seq} ({tokens} "
+                f"tokens, the rest padding), built in {time.perf_counter() - t0:.1f} s")
+
+    # -- the main path: model(...) -> backward -> AdamW -------------------
+    profiler.reset_kernel_launch_counts()
+    losses, secs = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(_bert_step(model, opt, inputs).item())
+        if on_card:
+            torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    counts = profiler.kernel_launch_counts()
+    fallbacks = dict(fa.fallback_counts)
+
+    finite = all(np.isfinite(losses))
+    falls = losses[-1] < losses[0]
+    want = layers * steps
+    want_card = want if on_card else 0
+    counts_ok = (all(counts[f"flash_{k}"] == want_card
+                     for k in ("fwd", "fwd_wgmma", "fwd_masked", "bwd",
+                               "bwd_wgmma", "bwd_masked"))
+                 and not any(fallbacks.values()))
+    step_s = statistics.median(secs[1:])
+    peak = (f"{torch.cuda.max_memory_allocated() / 2**30:.2f}" if on_card
+            else "not measured")
+    log("bert", "losses " + " ".join(f"{x:.4f}" for x in losses)
+                + f": finite {finite}, last < first {falls}")
+    log("bert", f"launches {_main(counts)}, fallbacks {fallbacks} (expected "
+                f"flash_fwd and flash_bwd {want_card} = {layers} layers x {steps} "
+                f"steps on the card, each on the wgmma path with segment ids: "
+                f"_wgmma and _masked {want_card}; no fallback) -> "
+                f"{'ok' if counts_ok else 'FAIL'}")
+    log("bert", f"step_ms median of steps 2-{steps} {step_s * 1e3:.1f} (all: "
+                + " ".join(f"{x * 1e3:.1f}" for x in secs)
+                + f"), examples_per_s {batch / step_s:.1f}, tokens_per_s (padded) "
+                f"{batch * seq / step_s:.1f}, peak_mem_gib {peak} | {smi}")
+    if on_card and profile:
+        gemm_params = sum(m.weight.numel() for m in model.modules()
+                          if isinstance(m, torch.nn.Linear))
+        gemm_ms, _ = bound(0, 6 * gemm_params * batch * seq)
+        log("profile", f"BERT step GEMMs: {6 * gemm_params * batch * seq:.3e} "
+                       f"FLOP, bound {gemm_ms:.2f} ms at {PEAK_BF16_FLOP_S:.3g} FLOP/s")
+        wall_us, kernels, spans = _device_profile(
+            lambda: _bert_step(model, opt, inputs), 1)
+        _log_profile(f"BERT training step, batch {batch} x {seq}, {layers} layers",
+                     wall_us, kernels, spans, 1, top=12)
+    ok = finite and falls and counts_ok
+    ok &= _bert_kbias_check(model, cfg, inputs, on_card)
+    return ok, counts
+
+
+def _bert_kbias_check(model, cfg, inputs, on_card):
+    """One BertEncoderLayer forward with the padding as a key-padding
+    attn_mask (K1's key bias) against the same layer with segment ids (the
+    main path's form), on the valid rows of the batch, within the bf16
+    tolerance (pad rows differ by design: with the bias they see every
+    valid key, with the ids only themselves)."""
+    import torch
+
+    from paddle_tpu_torch.models.bert import to_segs
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    _, mask, _, _ = inputs
+    layer = model.bert.encoder[0]
+    gen = torch.Generator(device=mask.device).manual_seed(3)
+    x = torch.randn(*mask.shape, cfg.hidden_size, generator=gen, device=mask.device,
+                    dtype=layer.linear1.weight.dtype)
+    bias = torch.where(mask > 0, 0.0, -1e30)[:, None, None, :]
+    fa.reset_launch_counts()
+    with torch.no_grad():
+        by_bias = layer(x, attn_mask=bias)
+        by_segs = layer(x, segment_ids=to_segs(mask))
+    masked = fa.launch_counts["flash_fwd_masked"] == (2 if on_card else 0)
+    live = mask > 0
+    o, r = by_bias[live].float(), by_segs[live].float()
+    err = (o - r).abs().max().item()
+    ok = (bool(torch.isfinite(o).all()) and masked
+          and bool(((o - r).abs() <= KERNEL_ATOL + KERNEL_RTOL * r.abs()).all()))
+    log("bert", f"encoder layer 0, key-padding attn_mask (key bias) vs segment "
+                f"ids on the {int(live.sum())} valid rows: max_abs_err {err:.3e}, "
+                f"both on K1: {masked} -> {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+# parameters whose gradient is 0 in exact arithmetic: a key projection's
+# bias adds the same q.b to all of a query's scores, which the softmax
+# cancels; the span classifier's bias and the last LayerNorm's bias get the
+# sum over positions of p - onehot, which is 0.  Their gradients are
+# round-off, so the ratio below is not defined for them.
+def _bert_zero_grad(name, layers):
+    return (name.endswith("attn.k_proj.bias") or name == "classifier.bias"
+            or name == f"bert.encoder.{layers - 1}.norm2.bias")
+
+
+def bert_grad_check(cfg, device="cuda", batch=BERT_BATCH, seq=BERT_SEQ, seed=1):
+    """One step's gradients of a 2-layer BERT at BERT-base's widths with
+    K1/K3 and segment ids, and again with attention through
+    `flash_forward_plain` (the same ids) under autograd: per parameter
+    ||g_kernel - g_plain|| / ||g_plain|| <= GRAD_REL_TOL (parameters whose
+    exact gradient is 0 left out, see `_bert_zero_grad`).  Returns (ok,
+    worst ratio)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.nn import functional as nnf
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    model, _ = _bert_model(cfg, device, seed)
+    inputs = _bert_inputs(cfg, device, batch, seq, seed)
+    ids, mask, starts, ends = inputs
+
+    def grads():
+        loss, _, _ = model(ids, attention_mask=mask, start_positions=starts,
+                           end_positions=ends)
+        loss.backward()
+        out = {n: p.grad.detach().float() for n, p in model.named_parameters()
+               if p.grad is not None}
+        model.zero_grad(set_to_none=True)
+        return out
+
+    def plain_sdpa(q, k, v, mask=None, causal=False, scale=None, segment_ids=None):
+        segs = None if segment_ids is None else segment_ids.to(torch.int32)
+        return fa.flash_forward_plain(q, k, v, causal, 1.0 / q.shape[-1] ** 0.5,
+                                      segs)[0]
+
+    fa.reset_launch_counts()
+    kernel = grads()
+    k3_kernel = fa.launch_counts["flash_bwd_masked"]
+    sdpa = nnf.sdpa
+    nnf.sdpa = plain_sdpa
+    try:
+        plain = grads()
+    finally:
+        nnf.sdpa = sdpa
+    k3_plain = fa.launch_counts["flash_bwd"] - k3_kernel
+    layers = cfg.num_hidden_layers
+    ratios = {n: ((kernel[n] - plain[n]).norm() / plain[n].norm()).item()
+              for n in kernel if not _bert_zero_grad(n, layers)}
+    worst = max(ratios, key=ratios.get)
+    on_card = torch.device(device).type == "cuda"
+    paths_ok = k3_plain == 0 and k3_kernel == (layers if on_card else 0)
+    ok = (all(np.isfinite(list(ratios.values()))) and ratios[worst] <= GRAD_REL_TOL
+          and paths_ok and set(kernel) == set(plain))
+    log("bert", f"grad check, {layers} layers, batch {batch} x {seq}: worst "
+                f"||g_kernel - g_plain|| / ||g_plain|| {ratios[worst]:.3e} "
+                f"({worst}), median {statistics.median(ratios.values()):.3e} (tol "
+                f"{GRAD_REL_TOL}; {len(kernel) - len(ratios)} parameters with an "
+                f"exact gradient of 0 left out); flash_bwd launches kernel pass "
+                f"{k3_kernel} (with segment ids), plain pass {k3_plain} -> "
+                f"{'ok' if ok else 'FAIL'}")
+    return ok, ratios[worst]
+
+
 def _free():
     """Release the previous phase's model before the next one builds."""
     import gc
@@ -2199,17 +2688,27 @@ def main():
         _free()
         grad_ok, _ = _timed("grads", grad_check,
                             LlamaConfig.llama2_7b(num_hidden_layers=2))
+        _free()
+        from paddle_tpu_torch.models.bert import BertConfig
+
+        no_dropout = dict(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+        bert_ok, bert_counts = _timed("bert", phase_bert, smi,
+                                      BertConfig.bert_base(**no_dropout))
+        _free()
+        bert_grad_ok, _ = _timed("bert", bert_grad_check, BertConfig.bert_base(
+            num_hidden_layers=2, **no_dropout))
     except Exception:
         traceback.print_exc()
         return 1
     if not (kernels_ok and slice_ok and prefix_ok and gen_ok and dense_ok
-            and cp_ok and f32_ok and train_ok and recompute_ok and grad_ok):
+            and cp_ok and f32_ok and train_ok and recompute_ok and grad_ok
+            and bert_ok and bert_grad_ok):
         print("chip_smoke: a phase failed (see the lines above)", file=sys.stderr)
         return 1
     # launches: the serving, generation and training runs' counts, each read
     # just after its path ran
     runs = [counts, *prefix_counts, gen_counts, dense_counts, *cp_counts,
-            *f32_counts, train_counts]
+            *f32_counts, train_counts, bert_counts]
     launches = {name: sum(c[name] for c in runs) for name in kernels}
     # K5's two variants are one kernel of the record, on each path
     for path in ("", "_mma", "_walk"):
@@ -2219,8 +2718,9 @@ def main():
     # `_mma` or `_walk` entry is one path of its kernel, timed at its
     # main-path shape (K1 and K3 at the training shape, the chunk windows at
     # a hit's 256-row chunk prefill, the walks at a decode step), with the
-    # launches that took it; the plain entry is timed at its headline shape
-    # and counts all its kernel's launches
+    # launches that took it; a `_masked` entry is K1's or K3's launches with
+    # segment ids or a key bias, timed at BERT's shape; the plain entry is
+    # timed at its headline shape and counts all its kernel's launches
     entries = (
         ("flash_fwd", "flash_fwd.cu", 186),
         ("flash_fwd_wgmma", "flash_fwd.cu", 186),
@@ -2232,6 +2732,8 @@ def main():
         ("paged_decode_fused_q8_mma", "paged_decode.cu", 961),
         ("flash_bwd", "flash_bwd.cu", 415),
         ("flash_bwd_wgmma", "flash_bwd.cu", 415),
+        ("flash_fwd_masked", "flash_fwd.cu", 186),
+        ("flash_bwd_masked", "flash_bwd.cu", 415),
         ("dense_decode", "flash_fwd.cu", 649),
         ("paged_decode_fused_cp", "paged_decode.cu", 1172),
         ("paged_decode_fused_cp_walk", "paged_decode.cu", 1172),

@@ -2,8 +2,8 @@
 
 The JAX package `paddle_tpu` stays the reference; this package serves a
 Llama (paged or dense slot-pool engine, or lock-step `generate` behind a
-`GenerationPredictor`) and trains it (bf16 AMP O2, AdamW) with
-hand-written Hopper kernels (`csrc/`).  Entry points run on the CUDA card unless the caller
+`GenerationPredictor`), trains it and fine-tunes BERT (bf16 AMP O2,
+AdamW) with hand-written Hopper kernels (`csrc/`).  Entry points run on the CUDA card unless the caller
 passes device="cpu".
 """
 

@@ -8,10 +8,13 @@ softmax, norm statistics -- take float32).  The port makes those casts
 explicit where they land instead of using `torch.autocast`, which would
 cast other ops than the reference does:
 
-- `RMSNorm` normalises in float32 and returns the stream's dtype, so the
-  residual stream stays bf16 (nn/norm.py);
+- `RMSNorm` and `LayerNorm` normalise in float32 and return the stream's
+  dtype, so the residual stream stays bf16 (nn/norm.py; the reference's
+  O2 casts layer_norm's input to float32, so its stream after a LayerNorm
+  is float32);
 - attention runs in the stream's dtype with float32 softmax in-kernel;
-- logits go to float32 in `models._utils.sequence_ce`.
+- logits go to float32 in `models._utils.sequence_ce` and
+  `nn.functional.cross_entropy`.
 
 O1 and fp16 loss scaling (`GradScaler`) are not needed by a bf16 step and
 are not ported yet.
@@ -23,11 +26,11 @@ import torch
 from torch import nn
 
 from ..framework.core import to_torch_dtype
-from ..nn.norm import RMSNorm
+from ..nn.norm import LayerNorm, RMSNorm
 
 # layers whose parameters stay float32 under O2 (reference: amp :62; the
-# port has no BatchNorm/GroupNorm/LayerNorm/SpectralNorm of its own yet)
-KEEP_FP32 = (RMSNorm,)
+# port has no BatchNorm/GroupNorm/SpectralNorm of its own yet)
+KEEP_FP32 = (LayerNorm, RMSNorm)
 
 _NOT_PORTED = "is not ported yet (ROADMAP.md Queue 1, item 12b: fp16 GradScaler and AMP O1)"
 

@@ -3,6 +3,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>  // INFINITY
 #include <stdint.h>
 
 #include <atomic>
@@ -41,7 +42,45 @@ struct SmemLimit {
 
 // The reference kernels mask with a large finite negative, not -inf, so a
 // row whose tile is fully masked stays NaN-free (flash_attention.py:36).
+// Such a tile gives p = 1 on each of its keys until a live key rescales
+// them away (alpha = 0); a row with no live key at all (a key-padding bias
+// of -1e30 on every key) keeps them, so its output is the mean of V and
+// its lse kNegInf, as in the reference.  Keys past the sequence are not
+// keys: they score -INFINITY (p = 0 exactly) in the forward and are
+// skipped in the backward.
 constexpr float kNegInf = -1e30f;
+// kNegInf in the base-2 domain of the Hopper kernels: kNegInf * log2(e)
+// rounded to float32.  A key bias of -1e30 times log2(e) is this value, and
+// the round trip through lse (x ln 2 to store, x log2(e) to read back) is
+// exact, so a row with no live key gets p = 1 in the backward as the
+// reference's p = exp(-1e30 - lse) does.
+constexpr float kNegInf2 = -1.442695e30f;
+
+// Segment ids and per-key bias of K1 and K3 (the reference's `segments=`
+// and `kbias=`), both optional and shared by every head: seg [b, s] int32,
+// kbias [b, s] float32.  A query attends only to keys of its own id; kbias
+// adds one value to every score of its key, after the scale and before the
+// mask.
+struct Masking {
+  const int* seg;
+  const float* kbias;
+
+  // Whether there is anything to mask: the kernels take a template flag
+  // from this, so a launch with neither runs the unmasked instructions.
+  bool on() const { return seg != nullptr || kbias != nullptr; }
+};
+
+// The segment id of row i of batch b (0 without segments), through the
+// read-only path.
+__device__ __forceinline__ int seg_of(const Masking& mk, int b, int s, int i) {
+  return mk.seg != nullptr ? __ldg(mk.seg + (size_t)b * s + i) : 0;
+}
+
+// The key bias of key j of batch b (0 without one).
+__device__ __forceinline__ float bias_of(const Masking& mk, int b, int s,
+                                         int j) {
+  return mk.kbias != nullptr ? __ldg(mk.kbias + (size_t)b * s + j) : 0.f;
+}
 
 // dtype codes passed from Python: 0 = float32, 1 = bfloat16.
 constexpr int kFloat32 = 0;

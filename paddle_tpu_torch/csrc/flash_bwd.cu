@@ -43,7 +43,15 @@
 //    kernel from shared memory.  The host picks the kernel (`flash_path`).
 // The dq kernel recomputes S and dP (seven products where the math needs
 // five): the price of a deterministic dq without float atomics.
-// Not yet: segment ids, key bias, q_offset.
+// Segment ids and the per-key bias (`segments=`, `kbias=`) mask the
+// recomputed scores exactly as K1 masked them, on every path: a masked
+// pair scores kNegInf (p = exp(kNegInf - lse): 0, or 1 on a row with no
+// live key, as in the reference), a key past s is skipped.  Each block
+// reads the ids and biases of its own rows or keys once; the streamed
+// tiles' ids (and, for key tiles, biases) ride in shared memory beside
+// them, staged by the producer (the Hopper kernels) or read through the
+// read-only path (the others).
+// Not yet: q_offset, delta (ring attention).
 
 #include <stdint.h>
 
@@ -57,6 +65,33 @@ using ptt::round_to;
 using ptt::to_f32;
 
 constexpr int kThreads = 256;  // FMA kernels: 16 x 16 threads
+
+using ptt::kNegInf;
+using ptt::kNegInf2;
+using ptt::Masking;
+
+// p = exp(score - lse) of one in-bounds (row, key) pair under segment ids
+// or a key bias, the score masked as K1 masked it: `dot` is q.k, `kb` the
+// key's bias (`bias` says whether there is one), `live` whether the causal
+// fence and the segments let the pair through.  One exponential a pair:
+// the argument is chosen first.
+__device__ __forceinline__ float masked_p(float dot, float scale, float kb,
+                                          bool bias, bool live, float lse) {
+  const float x = !live ? kNegInf - lse
+                  : bias ? fmaf(dot, scale, kb) - lse
+                         : fmaf(dot, scale, -lse);
+  return expf(x);
+}
+
+// The same in the base-2 domain of the Hopper kernels: `sl2` = scale x
+// log2(e), `kb2` = kbias x log2(e), `lse2` = lse x log2(e).
+__device__ __forceinline__ float masked_p2(float dot, float sl2, float kb2,
+                                           bool bias, bool live, float lse2) {
+  const float x = !live ? kNegInf2 - lse2
+                  : bias ? fmaf(dot, sl2, kb2) - lse2
+                         : fmaf(dot, sl2, -lse2);
+  return exp2f(x);
+}
 
 // delta[b, h, i] = sum_c g[b, i, h, c] * out[b, i, h, c] in f32; one warp
 // per (b, i, h) row, rows taken in memory order.
@@ -103,30 +138,36 @@ __device__ __forceinline__ void load_tile(float* dst, int dp,
   }
 }
 
-// lse and delta of rows [row0, row0 + BT) of one (b, head), 0 past s.
+// lse and delta of rows [row0, row0 + BT) of one (b, head), 0 past s;
+// with `seg_s`, the rows' segment ids too.
 template <int BT>
 __device__ __forceinline__ void load_rowstats(float* lse_s, float* delta_s,
                                               const float* __restrict__ lse,
                                               const float* __restrict__ delta,
-                                              size_t base, int row0, int s) {
+                                              size_t base, int row0, int s,
+                                              int* seg_s = nullptr,
+                                              const Masking* mk = nullptr,
+                                              int b = 0) {
   for (int e = threadIdx.x; e < BT; e += kThreads) {
     const int i = row0 + e;
     lse_s[e] = i < s ? lse[base + i] : 0.f;
     delta_s[e] = i < s ? delta[base + i] : 0.f;
+    if (seg_s != nullptr) seg_s[e] = i < s ? ptt::seg_of(*mk, b, s, i) : 0;
   }
 }
 
 // One block per (key tile of BT, kv head, batch).  Thread (ty, tx) owns
 // keys ty*R + i (i < R = BT / 16); for the score tile it owns q rows
-// tx + 16*j, for dk/dv dims tx + 16*jj (jj < NJ).
-template <typename T, int BT, int NJ>
+// tx + 16*j, for dk/dv dims tx + 16*jj (jj < NJ).  kMask: segment ids or a
+// key bias take part (every kernel here takes this flag).
+template <typename T, int BT, int NJ, bool kMask>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ g,
                       const float* __restrict__ lse,
                       const float* __restrict__ delta, T* __restrict__ dk,
-                      T* __restrict__ dv, int s, int h, int hk, int d,
-                      int causal, float scale) {
+                      T* __restrict__ dv, Masking mk, int s, int h, int hk,
+                      int d, int causal, float scale) {
   constexpr int R = BT / 16;
   constexpr int pp = BT + 1;
   extern __shared__ float smem[];
@@ -139,6 +180,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* ds_s = p_s + BT * pp;   // [key][q]: ds^T, rounded to T
   float* lse_s = ds_s + BT * pp;
   float* delta_s = lse_s + BT;
+  int* seg_s = reinterpret_cast<int*>(delta_s + BT);  // the q rows' ids
 
   const int k0 = blockIdx.x * BT;
   const int kvh = blockIdx.y;
@@ -146,9 +188,18 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int rep = h / hk;
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
+  const bool bias = mk.kbias != nullptr;
 
   load_tile<T, BT>(k_s, dp, k, b, k0, s, hk, kvh, d);
   load_tile<T, BT>(v_s, dp, v, b, k0, s, hk, kvh, d);
+  int kseg[R];  // this thread's keys: ids and biases, read once
+  float kb[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int kj = k0 + ty * R + i;
+    kseg[i] = kMask && kj < s ? ptt::seg_of(mk, b, s, kj) : 0;
+    kb[i] = kMask && kj < s ? ptt::bias_of(mk, b, s, kj) : 0.f;
+  }
 
   float dk_acc[R][NJ], dv_acc[R][NJ];
 #pragma unroll
@@ -165,7 +216,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       __syncthreads();  // the previous tile's readers are done
       load_tile<T, BT>(q_s, dp, q, b, q0, s, h, head, d);
       load_tile<T, BT>(g_s, dp, g, b, q0, s, h, head, d);
-      load_rowstats<BT>(lse_s, delta_s, lse, delta, stats, q0, s);
+      load_rowstats<BT>(lse_s, delta_s, lse, delta, stats, q0, s,
+                        kMask ? seg_s : nullptr, &mk, b);
       __syncthreads();
 
       float st[R][R], dpt[R][R];  // scores and g v^T, transposed
@@ -200,9 +252,15 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int j = 0; j < R; ++j) {
           const int qr = tx + 16 * j;
           const int qi = q0 + qr;
-          const bool ok = kj < s && qi < s && (!causal || kj <= qi);
-          // masked entries are exactly 0: they add nothing to any sum
-          const float p = ok ? expf(st[i][j] * scale - lse_s[qr]) : 0.f;
+          // pairs past s are exactly 0: they add nothing to any sum
+          float p = 0.f;
+          if constexpr (kMask) {
+            const bool live = (!causal || kj <= qi) && kseg[i] == seg_s[qr];
+            if (kj < s && qi < s)
+              p = masked_p(st[i][j], scale, kb[i], bias, live, lse_s[qr]);
+          } else if (kj < s && qi < s && (!causal || kj <= qi)) {
+            p = expf(st[i][j] * scale - lse_s[qr]);
+          }
           const float ds = p * (dpt[i][j] - delta_s[qr]) * scale;
           p_s[(ty * R + i) * pp + qr] = round_to<T>(p);
           ds_s[(ty * R + i) * pp + qr] = round_to<T>(ds);
@@ -253,13 +311,14 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // One block per (q tile of BT, q head, batch).  Thread (ty, tx) owns q rows
 // ty*R + i; for the score tile it owns keys tx + 16*j, for dq dims
 // tx + 16*jj.
-template <typename T, int BT, int NJ>
+template <typename T, int BT, int NJ, bool kMask>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ g,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq,
-                    int s, int h, int hk, int d, int causal, float scale) {
+                    Masking mk, int s, int h, int hk, int d, int causal,
+                    float scale) {
   constexpr int R = BT / 16;
   constexpr int pp = BT + 1;
   extern __shared__ float smem[];
@@ -283,6 +342,13 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   load_tile<T, BT>(g_s, dp, g, b, q0, s, h, head, d);
   load_rowstats<BT>(lse_s, delta_s, lse, delta, ((size_t)b * h + head) * s,
                     q0, s);
+  const bool bias = mk.kbias != nullptr;
+  int qseg[R];  // this thread's rows' ids, read once
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int qi = q0 + ty * R + i;
+    qseg[i] = kMask && qi < s ? ptt::seg_of(mk, b, s, qi) : 0;
+  }
 
   float dq_acc[R][NJ];
 #pragma unroll
@@ -323,6 +389,14 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
           dpv[i][j] = fmaf(gv[i], vv[j], dpv[i][j]);
         }
     }
+    int kseg[R];
+    float kb[R];
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int kj = k0 + tx + 16 * j;
+      kseg[j] = kMask && kj < s ? ptt::seg_of(mk, b, s, kj) : 0;
+      kb[j] = kMask && kj < s ? ptt::bias_of(mk, b, s, kj) : 0.f;
+    }
 #pragma unroll
     for (int i = 0; i < R; ++i) {
       const int qr = ty * R + i;
@@ -330,8 +404,14 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < R; ++j) {
         const int kj = k0 + tx + 16 * j;
-        const bool ok = kj < s && qi < s && (!causal || kj <= qi);
-        const float p = ok ? expf(sc[i][j] * scale - lse_s[qr]) : 0.f;
+        float p = 0.f;
+        if constexpr (kMask) {
+          const bool live = (!causal || kj <= qi) && kseg[j] == qseg[i];
+          if (kj < s && qi < s)
+            p = masked_p(sc[i][j], scale, kb[j], bias, live, lse_s[qr]);
+        } else if (kj < s && qi < s && (!causal || kj <= qi)) {
+          p = expf(sc[i][j] * scale - lse_s[qr]);
+        }
         ds_s[qr * pp + tx + 16 * j] =
             round_to<T>(p * (dpv[i][j] - delta_s[qr]) * scale);
       }
@@ -381,49 +461,52 @@ cudaError_t launch_delta(const void* g, const void* out, void* delta, int b,
 template <typename T, int BT, int NJ>
 cudaError_t launch_fma(const void* q, const void* k, const void* v,
                        const void* g, const void* lse, const void* delta,
-                       void* dq, void* dk, void* dv, int b, int s, int h,
-                       int hk, int d, int causal, float scale,
+                       void* dq, void* dk, void* dv, Masking mk, int b, int s,
+                       int h, int hk, int d, int causal, float scale,
                        cudaStream_t stream) {
   const size_t tile = (size_t)BT * (d + 1);
+  // the tiles, p^T and ds^T, the q rows' lse, delta and segment ids
   const size_t smem_dkdv =
-      sizeof(float) * (4 * tile + 2 * (size_t)BT * (BT + 1) + 2 * BT);
+      sizeof(float) * (4 * tile + 2 * (size_t)BT * (BT + 1) + 3 * BT);
   const size_t smem_dq = sizeof(float) * (4 * tile + (size_t)BT * (BT + 1) + 2 * BT);
-  auto dkdv = flash_bwd_dkdv_kernel<T, BT, NJ>;
-  auto dqk = flash_bwd_dq_kernel<T, BT, NJ>;
-  static ptt::SmemLimit limit_dkdv, limit_dq;
-  cudaError_t err = limit_dkdv.reserve(dkdv, smem_dkdv);
+  auto dkdv = mk.on() ? flash_bwd_dkdv_kernel<T, BT, NJ, true>
+                      : flash_bwd_dkdv_kernel<T, BT, NJ, false>;
+  auto dqk = mk.on() ? flash_bwd_dq_kernel<T, BT, NJ, true>
+                     : flash_bwd_dq_kernel<T, BT, NJ, false>;
+  static ptt::SmemLimit limit_dkdv[2], limit_dq[2];  // one per instantiation
+  cudaError_t err = limit_dkdv[mk.on()].reserve(dkdv, smem_dkdv);
   if (err != cudaSuccess) return err;
-  err = limit_dq.reserve(dqk, smem_dq);
+  err = limit_dq[mk.on()].reserve(dqk, smem_dq);
   if (err != cudaSuccess) return err;
   const int tiles = (s + BT - 1) / BT;
   dkdv<<<dim3(tiles, hk, b), kThreads, smem_dkdv, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(g),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), s, h, hk, d, causal, scale);
+      static_cast<T*>(dk), static_cast<T*>(dv), mk, s, h, hk, d, causal, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   dqk<<<dim3(tiles, h, b), kThreads, smem_dq, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(g),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), s, h, hk, d, causal, scale);
+      static_cast<T*>(dq), mk, s, h, hk, d, causal, scale);
   return cudaGetLastError();
 }
 
 cudaError_t dispatch_fma_f32(const void* q, const void* k, const void* v,
                              const void* g, const void* lse, const void* delta,
-                             void* dq, void* dk, void* dv, int b, int s, int h,
-                             int hk, int d, int causal, float scale,
-                             cudaStream_t st) {
+                             void* dq, void* dk, void* dv, Masking mk, int b,
+                             int s, int h, int hk, int d, int causal,
+                             float scale, cudaStream_t st) {
   if (d <= 64)
-    return launch_fma<float, 64, 4>(q, k, v, g, lse, delta, dq, dk, dv, b, s,
-                                    h, hk, d, causal, scale, st);
+    return launch_fma<float, 64, 4>(q, k, v, g, lse, delta, dq, dk, dv, mk, b,
+                                    s, h, hk, d, causal, scale, st);
   if (d <= 128)
-    return launch_fma<float, 64, 8>(q, k, v, g, lse, delta, dq, dk, dv, b, s,
-                                    h, hk, d, causal, scale, st);
-  return launch_fma<float, 32, 16>(q, k, v, g, lse, delta, dq, dk, dv, b, s,
-                                   h, hk, d, causal, scale, st);
+    return launch_fma<float, 64, 8>(q, k, v, g, lse, delta, dq, dk, dv, mk, b,
+                                    s, h, hk, d, causal, scale, st);
+  return launch_fma<float, 32, 16>(q, k, v, g, lse, delta, dq, dk, dv, mk, b,
+                                   s, h, hk, d, causal, scale, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -457,14 +540,14 @@ __device__ __forceinline__ void a_rows(uint32_t (&a)[4], const bf16* x, int r0,
 // of each q head of the group, it computes s^T = K Q^T and dp^T = V G^T
 // 32 q columns at a time; the accumulators, turned into p^T and ds^T and
 // packed to bf16, are the A fragments of dv += p^T G and dk += ds^T Q.
-template <int D>
+template <int D, bool kMask>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                           const bf16* __restrict__ v, const bf16* __restrict__ g,
                           const float* __restrict__ lse,
                           const float* __restrict__ delta, bf16* __restrict__ dk,
-                          bf16* __restrict__ dv, int s, int h, int hk, int d,
-                          int causal, float scale, bool vec) {
+                          bf16* __restrict__ dv, Masking mk, int s, int h,
+                          int hk, int d, int causal, float scale, bool vec) {
   constexpr int ST = D + 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* k_s = reinterpret_cast<bf16*>(smem_raw);
@@ -473,6 +556,7 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   bf16* g_s = q_s + kMmaTile * ST;
   float* lse_s = reinterpret_cast<float*>(g_s + kMmaTile * ST);
   float* delta_s = lse_s + kMmaTile;
+  int* seg_s = reinterpret_cast<int*>(delta_s + kMmaTile);  // the q rows' ids
   const unsigned short* q_u16 = reinterpret_cast<const unsigned short*>(q_s);
   const unsigned short* g_u16 = reinterpret_cast<const unsigned short*>(g_s);
 
@@ -485,6 +569,12 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   const int gr = lane >> 2, t = lane & 3;
   const int wr = warp * 16;
   const int key_a = k0 + wr + gr, key_b = key_a + 8;
+  const bool bias = mk.kbias != nullptr;
+  // this thread's two keys: ids and biases, read once
+  const int kseg[2] = {kMask && key_a < s ? ptt::seg_of(mk, b, s, key_a) : 0,
+                       kMask && key_b < s ? ptt::seg_of(mk, b, s, key_b) : 0};
+  const float kb[2] = {kMask && key_a < s ? ptt::bias_of(mk, b, s, key_a) : 0.f,
+                       kMask && key_b < s ? ptt::bias_of(mk, b, s, key_b) : 0.f};
 
   ptt::load_rows<D>(k_s, k, b, k0, s, hk, kvh, d, vec);
   ptt::load_rows<D>(v_s, v, b, k0, s, hk, kvh, d, vec);
@@ -508,6 +598,7 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
         const int i = q0 + e;
         lse_s[e] = i < s ? lse[stats + i] : 0.f;
         delta_s[e] = i < s ? delta[stats + i] : 0.f;
+        if constexpr (kMask) seg_s[e] = i < s ? ptt::seg_of(mk, b, s, i) : 0;
       }
       __syncthreads();
 #pragma unroll
@@ -542,8 +633,16 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
             const int kj = e < 2 ? key_a : key_b;
             const int qc = c0 + nt * 8 + 2 * t + (e & 1);
             const int qi = q0 + qc;
-            const bool ok = kj < s && qi < s && (!causal || kj <= qi);
-            pv[e] = ok ? expf(st[nt][e] * scale - lse_s[qc]) : 0.f;
+            pv[e] = 0.f;
+            if constexpr (kMask) {
+              const bool live =
+                  (!causal || kj <= qi) && kseg[e >> 1] == seg_s[qc];
+              if (kj < s && qi < s)
+                pv[e] = masked_p(st[nt][e], scale, kb[e >> 1], bias, live,
+                                 lse_s[qc]);
+            } else if (kj < s && qi < s && (!causal || kj <= qi)) {
+              pv[e] = expf(st[nt][e] * scale - lse_s[qc]);
+            }
             dsv[e] = pv[e] * (dpt[nt][e] - delta_s[qc]) * scale;
           }
           pf[nt / 2][(nt % 2) * 2] = pack_bf16(pv[0], pv[1]);
@@ -589,14 +688,14 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 // 16w..16w+15 with Q and G as register fragments and dq in f32 registers.
 // Per key tile it computes s = Q K^T and dp = G V^T 32 keys at a time; ds,
 // packed to bf16, is the A fragment of dq += ds K.
-template <int D>
+template <int D, bool kMask>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, const bf16* __restrict__ g,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta, bf16* __restrict__ dq,
-                        int s, int h, int hk, int d, int causal, float scale,
-                        bool vec) {
+                        Masking mk, int s, int h, int hk, int d, int causal,
+                        float scale, bool vec) {
   constexpr int ST = D + 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
@@ -618,12 +717,15 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   ptt::load_rows<D>(q_s, q, b, q0, s, h, head, d, vec);
   ptt::load_rows<D>(g_s, g, b, q0, s, h, head, d, vec);
   const size_t stats = ((size_t)b * h + head) * s;
+  const bool bias = mk.kbias != nullptr;
   float lse_r[2], delta_r[2];
+  int qseg[2];
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int qi = half ? row_b : row_a;
     lse_r[half] = qi < s ? lse[stats + qi] : 0.f;
     delta_r[half] = qi < s ? delta[stats + qi] : 0.f;
+    qseg[half] = kMask && qi < s ? ptt::seg_of(mk, b, s, qi) : 0;
   }
   __syncthreads();
   uint32_t qf[D / 16][4], gf[D / 16][4];
@@ -668,12 +770,28 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int nt = 0; nt < kPass / 8; ++nt) {
         float dsv[4];
+        int kseg[2];
+        float kb[2];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int kj = k0 + c0 + nt * 8 + 2 * t + c;
+          kseg[c] = kMask && kj < s ? ptt::seg_of(mk, b, s, kj) : 0;
+          kb[c] = kMask && kj < s ? ptt::bias_of(mk, b, s, kj) : 0.f;
+        }
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int qi = e < 2 ? row_a : row_b;
           const int kj = k0 + c0 + nt * 8 + 2 * t + (e & 1);
-          const bool ok = kj < s && qi < s && (!causal || kj <= qi);
-          const float p = ok ? expf(sc[nt][e] * scale - lse_r[e >> 1]) : 0.f;
+          float p = 0.f;
+          if constexpr (kMask) {
+            const bool live =
+                (!causal || kj <= qi) && kseg[e & 1] == qseg[e >> 1];
+            if (kj < s && qi < s)
+              p = masked_p(sc[nt][e], scale, kb[e & 1], bias, live,
+                           lse_r[e >> 1]);
+          } else if (kj < s && qi < s && (!causal || kj <= qi)) {
+            p = expf(sc[nt][e] * scale - lse_r[e >> 1]);
+          }
           dsv[e] = p * (dp[nt][e] - delta_r[e >> 1]) * scale;
         }
         dsf[nt / 2][(nt % 2) * 2] = pack_bf16(dsv[0], dsv[1]);
@@ -707,21 +825,24 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int D>
 cudaError_t launch_mma(const void* q, const void* k, const void* v,
                        const void* g, const void* lse, const void* delta,
-                       void* dq, void* dk, void* dv, int b, int s, int h,
-                       int hk, int d, int causal, float scale,
+                       void* dq, void* dk, void* dv, Masking mk, int b, int s,
+                       int h, int hk, int d, int causal, float scale,
                        cudaStream_t stream) {
   const size_t tiles_bytes = sizeof(bf16) * 4 * (size_t)kMmaTile * (D + 8);
-  const size_t smem_dkdv = tiles_bytes + sizeof(float) * 2 * kMmaTile;
+  // and the q rows' lse, delta and segment ids
+  const size_t smem_dkdv = tiles_bytes + sizeof(float) * 3 * kMmaTile;
   const bool vec = d % 8 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(v) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(g) % 16 == 0;
-  auto dkdv = flash_bwd_dkdv_mma_kernel<D>;
-  auto dqk = flash_bwd_dq_mma_kernel<D>;
-  static ptt::SmemLimit limit_dkdv, limit_dq;
-  cudaError_t err = limit_dkdv.reserve(dkdv, smem_dkdv);
+  auto dkdv = mk.on() ? flash_bwd_dkdv_mma_kernel<D, true>
+                      : flash_bwd_dkdv_mma_kernel<D, false>;
+  auto dqk = mk.on() ? flash_bwd_dq_mma_kernel<D, true>
+                     : flash_bwd_dq_mma_kernel<D, false>;
+  static ptt::SmemLimit limit_dkdv[2], limit_dq[2];  // one per instantiation
+  cudaError_t err = limit_dkdv[mk.on()].reserve(dkdv, smem_dkdv);
   if (err != cudaSuccess) return err;
-  err = limit_dq.reserve(dqk, tiles_bytes);
+  err = limit_dq[mk.on()].reserve(dqk, tiles_bytes);
   if (err != cudaSuccess) return err;
   const int tiles = (s + kMmaTile - 1) / kMmaTile;
   const bf16* qb = static_cast<const bf16*>(q);
@@ -732,11 +853,11 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
   const float* delta_f = static_cast<const float*>(delta);
   dkdv<<<dim3(tiles, hk, b), kMmaThreads, smem_dkdv, stream>>>(
       qb, kb, vb, gb, lse_f, delta_f, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), s, h, hk, d, causal, scale, vec);
+      static_cast<bf16*>(dv), mk, s, h, hk, d, causal, scale, vec);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   dqk<<<dim3(tiles, h, b), kMmaThreads, tiles_bytes, stream>>>(
-      qb, kb, vb, gb, lse_f, delta_f, static_cast<bf16*>(dq), s, h, hk, d,
+      qb, kb, vb, gb, lse_f, delta_f, static_cast<bf16*>(dq), mk, s, h, hk, d,
       causal, scale, vec);
   return cudaGetLastError();
 }
@@ -771,8 +892,8 @@ __device__ __forceinline__ void tma_tile(bf16* dst, const CUtensorMap* map,
 }
 
 // dk/dv kernel shared memory, in bytes from a 1024-byte-aligned base: K and
-// V of the block's keys, the Q and dO rings, each stage's lse and delta
-// [2][kQStep] f32, then the barriers.
+// V of the block's keys, the Q and dO rings, each stage's lse, delta and
+// segment ids [3][kQStep] (f32, f32, int32), then the barriers.
 template <int D>
 struct DkdvSmem {
   static constexpr size_t kKV = (size_t)kKeys * D * 2;  // K or V
@@ -782,22 +903,22 @@ struct DkdvSmem {
   static constexpr size_t q = v + kKV;
   static constexpr size_t g = q + kStages * kT;
   static constexpr size_t stats = g + kStages * kT;
-  static constexpr size_t bar = stats + kStages * 2 * kQStep * 4;
+  static constexpr size_t bar = stats + kStages * 3 * kQStep * 4;
   static constexpr size_t bytes = bar + (2 * kStages + 1) * 8;
 };
 
 // One block per (128-key tile, kv head, batch).  The producer warp loads K
 // and V once, then, for each q head of the group and each 64-row q tile
-// from the diagonal (causal) on, Q and dO by TMA and the rows' lse and delta
-// into a two-stage ring; all 32 of its lanes arrive on the stage's full
-// barrier (lane 0 with the TMA bytes), so their plain stores of lse and
-// delta are released with it.  Consumer warpgroup w owns keys 64w..64w+63:
+// from the diagonal (causal) on, Q and dO by TMA and the rows' lse, delta
+// and segment ids into a two-stage ring; all 32 of its lanes arrive on the
+// stage's full barrier (lane 0 with the TMA bytes), so their plain stores
+// are released with it.  Consumer warpgroup w owns keys 64w..64w+63:
 //   S^T = K.Q^T, dP^T = V.dO^T       (wgmma, both operands K-major)
 //   P^T = exp(scale S^T - lse), dS^T = P^T (dP^T - delta) scale
 //   dV += P^T.dO, dK += dS^T.Q       (P^T, dS^T rounded to bf16 as the
 //                                     register operand; dO, Q MN-major)
 // with dK and dV in f32 registers for the whole walk, written once.
-template <int D>
+template <int D, bool kMask>
 __global__ void __launch_bounds__(kThreadsDkdv, 1)
 flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                             const __grid_constant__ CUtensorMap tm_k,
@@ -805,8 +926,9 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                             const __grid_constant__ CUtensorMap tm_g,
                             const float* __restrict__ lse,
                             const float* __restrict__ delta,
-                            bf16* __restrict__ dk, bf16* __restrict__ dv, int s,
-                            int h, int hk, int causal, float scale) {
+                            bf16* __restrict__ dk, bf16* __restrict__ dv,
+                            Masking mk, int s, int h, int hk, int causal,
+                            float scale) {
   using L = DkdvSmem<D>;
   constexpr int kHalves = D / 64;
   extern __shared__ unsigned char smem_raw[];
@@ -860,11 +982,13 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         const int q0 = q_begin + (i % n_q) * kQStep;
         if (i >= kStages) mbar_wait(&empty[st], ((i / kStages) & 1) ^ 1);
         const size_t base = ((size_t)b * h + head) * s;
-        float* stg = st_s + st * 2 * kQStep;
+        float* stg = st_s + st * 3 * kQStep;
+        int* sgg = reinterpret_cast<int*>(stg + 2 * kQStep);
         for (int r = lane; r < kQStep; r += 32) {
           const int qi = q0 + r;
           stg[r] = qi < s ? lse[base + qi] * kLog2e : 0.f;
           stg[kQStep + r] = qi < s ? delta[base + qi] : 0.f;
+          if constexpr (kMask) sgg[r] = qi < s ? ptt::seg_of(mk, b, s, qi) : 0;
         }
         if (lane == 0) {
           mbar_expect_tx(&full[st], (uint32_t)(2 * L::kT));
@@ -892,6 +1016,13 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const unsigned char* v_wg =
         reinterpret_cast<const unsigned char*>(v_s) + wg * 64 * 128;
     const float sl2 = scale * kLog2e;
+    const bool bias = mk.kbias != nullptr;
+    // this thread's two keys: ids and biases (x log2 e), read once
+    const int kseg[2] = {kMask && key_a < s ? ptt::seg_of(mk, b, s, key_a) : 0,
+                         kMask && key_b < s ? ptt::seg_of(mk, b, s, key_b) : 0};
+    const float kb2[2] = {
+        kMask && key_a < s ? ptt::bias_of(mk, b, s, key_a) * kLog2e : 0.f,
+        kMask && key_b < s ? ptt::bias_of(mk, b, s, key_b) * kLog2e : 0.f};
 
     float dka[D / 2], dva[D / 2];
 #pragma unroll
@@ -911,8 +1042,9 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
           reinterpret_cast<const unsigned char*>(q_s + (size_t)st * kQStep * D);
       const unsigned char* gt =
           reinterpret_cast<const unsigned char*>(g_s + (size_t)st * kQStep * D);
-      const float* lse2 = st_s + st * 2 * kQStep;  // lse * log2(e)
+      const float* lse2 = st_s + st * 3 * kQStep;  // lse * log2(e)
       const float* dl = lse2 + kQStep;
+      const int* qsg = reinterpret_cast<const int*>(dl + kQStep);
 
       float sc[kQStep / 2], dp[kQStep / 2];
       fence_regs(sc);
@@ -944,9 +1076,16 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
           const int c = 8 * j + 2 * t + (e & 1);
           const int qi = q0 + c;
           const int kj = e < 2 ? key_a : key_b;
-          const bool ok = kj < s && qi < s && (!causal || kj <= qi);
-          // masked entries are exactly 0: they add nothing to any sum
-          pv[e] = ok ? exp2f(sc[4 * j + e] * sl2 - lse2[c]) : 0.f;
+          // pairs past s are exactly 0: they add nothing to any sum
+          pv[e] = 0.f;
+          if constexpr (kMask) {
+            const bool live = (!causal || kj <= qi) && kseg[e >> 1] == qsg[c];
+            if (kj < s && qi < s)
+              pv[e] = masked_p2(sc[4 * j + e], sl2, kb2[e >> 1], bias, live,
+                                lse2[c]);
+          } else if (kj < s && qi < s && (!causal || kj <= qi)) {
+            pv[e] = exp2f(sc[4 * j + e] * sl2 - lse2[c]);
+          }
           dsv[e] = pv[e] * (dp[4 * j + e] - dl[c]) * scale;
         }
         pf[j / 2][(j % 2) * 2] = pack_bf16(pv[0], pv[1]);
@@ -995,7 +1134,8 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 }
 
 // dq kernel shared memory: Q and dO of the block's rows, the K and V rings,
-// then the barriers.
+// each stage's key ids [kKStep] int32 and key biases x log2(e) [kKStep]
+// f32 (masked launches), then the barriers.
 template <int D>
 struct DqSmem {
   static constexpr size_t kT = (size_t)kRows * D * 2;    // Q or dO
@@ -1004,7 +1144,8 @@ struct DqSmem {
   static constexpr size_t g = q + kT;
   static constexpr size_t k = g + kT;
   static constexpr size_t v = k + kStages * kKV;
-  static constexpr size_t bar = v + kStages * kKV;
+  static constexpr size_t mask = v + kStages * kKV;
+  static constexpr size_t bar = mask + kStages * kKStep * 8;
   static constexpr size_t bytes = bar + (2 * kStages + 1) * 8;
 };
 
@@ -1016,7 +1157,7 @@ struct DqSmem {
 //   dS = exp(scale S - lse) (dP - delta) scale, rounded to bf16
 //   dQ += dS.K                       (K MN-major)
 // dQ in f32 registers, written once: no atomics, so dq is deterministic.
-template <int D>
+template <int D, bool kMask>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const __grid_constant__ CUtensorMap tm_k,
@@ -1024,8 +1165,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const __grid_constant__ CUtensorMap tm_g,
                           const float* __restrict__ lse,
                           const float* __restrict__ delta,
-                          bf16* __restrict__ dq, int s, int h, int hk,
-                          int causal, float scale) {
+                          bf16* __restrict__ dq, Masking mk, int s, int h,
+                          int hk, int causal, float scale) {
   using L = DqSmem<D>;
   constexpr int kHalves = D / 64;
   extern __shared__ unsigned char smem_raw[];
@@ -1035,6 +1176,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   bf16* g_s = reinterpret_cast<bf16*>(smem + L::g);
   bf16* k_s = reinterpret_cast<bf16*>(smem + L::k);
   bf16* v_s = reinterpret_cast<bf16*>(smem + L::v);
+  int* kseg_s = reinterpret_cast<int*>(smem + L::mask);  // [kStages][kKStep]
+  float* kb_s = reinterpret_cast<float*>(kseg_s + kStages * kKStep);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bar);
   uint64_t* empty = full + kStages;
   uint64_t* qbar = empty + kStages;
@@ -1049,7 +1192,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   if (threadIdx.x == 0) {
     for (int i = 0; i < kStages; ++i) {
-      mbar_init(&full[i], 1);
+      mbar_init(&full[i], kMask ? 32 : 1);
       mbar_init(&empty[i], kConsumers);
     }
     mbar_init(qbar, 1);
@@ -1059,6 +1202,35 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+  if (warp == kConsumers / 32 && kMask) {
+    // the producer of a masked launch: as below, and all 32 lanes stage
+    // each key tile's ids and biases (x log2 e) beside it, arriving on the
+    // stage's full barrier (lane 0 with the TMA bytes) to release them
+    if (lane == 0) {
+      mbar_expect_tx(qbar, (uint32_t)(2 * L::kT));
+      tma_tile<kRows>(q_s, &tm_q, qbar, kHalves, head, q0, b);
+      tma_tile<kRows>(g_s, &tm_g, qbar, kHalves, head, q0, b);
+    }
+    for (int i = 0; i < n_tiles; ++i) {
+      const int st = i % kStages;
+      if (i >= kStages) mbar_wait(&empty[st], ((i / kStages) & 1) ^ 1);
+      for (int r = lane; r < kKStep; r += 32) {
+        const int kj = i * kKStep + r;
+        kseg_s[st * kKStep + r] = kj < s ? ptt::seg_of(mk, b, s, kj) : 0;
+        kb_s[st * kKStep + r] = kj < s ? ptt::bias_of(mk, b, s, kj) * kLog2e : 0.f;
+      }
+      if (lane == 0) {
+        mbar_expect_tx(&full[st], (uint32_t)(2 * L::kKV));
+        tma_tile<kKStep>(k_s + (size_t)st * kKStep * D, &tm_k, &full[st],
+                          kHalves, kvh, i * kKStep, b);
+        tma_tile<kKStep>(v_s + (size_t)st * kKStep * D, &tm_v, &full[st],
+                          kHalves, kvh, i * kKStep, b);
+      } else {
+        mbar_arrive(&full[st]);
+      }
+    }
+    return;
+  }
   if (warp == kConsumers / 32) {
     if (lane == 0) {
       mbar_expect_tx(qbar, (uint32_t)(2 * L::kT));
@@ -1089,12 +1261,15 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       reinterpret_cast<const unsigned char*>(g_s) + wg * 64 * 128;
   const float sl2 = scale * kLog2e;
   const size_t stats = ((size_t)b * h + head) * s;
+  const bool bias = mk.kbias != nullptr;
   float lse2[2], dl[2];
+  int qseg[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int qi = r ? row_b : row_a;
     lse2[r] = qi < s ? lse[stats + qi] * kLog2e : 0.f;
     dl[r] = qi < s ? delta[stats + qi] : 0.f;
+    qseg[r] = kMask && qi < s ? ptt::seg_of(mk, b, s, qi) : 0;
   }
 
   float dqa[D / 2];
@@ -1138,12 +1313,27 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
     for (int j = 0; j < kKStep / 8; ++j) {
       float dsv[4];
+      int kseg[2];
+      float kb2[2];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {  // staged by the producer
+        kseg[c] = kMask ? kseg_s[st * kKStep + 8 * j + 2 * t + c] : 0;
+        kb2[c] = kMask ? kb_s[st * kKStep + 8 * j + 2 * t + c] : 0.f;
+      }
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int qi = e < 2 ? row_a : row_b;
         const int kj = kb + 8 * j + 2 * t + (e & 1);
-        const bool ok = kj < s && qi < s && (!causal || kj <= qi);
-        const float p = ok ? exp2f(sc[4 * j + e] * sl2 - lse2[e >> 1]) : 0.f;
+        float p = 0.f;
+        if constexpr (kMask) {
+          const bool live =
+              (!causal || kj <= qi) && kseg[e & 1] == qseg[e >> 1];
+          if (kj < s && qi < s)
+            p = masked_p2(sc[4 * j + e], sl2, kb2[e & 1], bias, live,
+                          lse2[e >> 1]);
+        } else if (kj < s && qi < s && (!causal || kj <= qi)) {
+          p = exp2f(sc[4 * j + e] * sl2 - lse2[e >> 1]);
+        }
         dsv[e] = p * (dp[4 * j + e] - dl[e >> 1]) * scale;
       }
       dsf[j / 2][(j % 2) * 2] = pack_bf16(dsv[0], dsv[1]);
@@ -1181,8 +1371,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* g,
                    const void* lse, const void* delta, void* dq, void* dk,
-                   void* dv, int b, int s, int h, int hk, int causal,
-                   float scale, cudaStream_t stream) {
+                   void* dv, Masking mk, int b, int s, int h, int hk,
+                   int causal, float scale, cudaStream_t stream) {
   // the dk/dv kernel streams 64-row Q/dO tiles against 128 keys; the dq
   // kernel 64-key K/V tiles against 128 rows
   CUtensorMap q64, g64, k128, v128, q128, g128, k64, v64;
@@ -1197,24 +1387,26 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* g,
     return cudaErrorNotSupported;
   const size_t smem_dkdv = DkdvSmem<D>::bytes + 1024;  // + the alignment
   const size_t smem_dq = DqSmem<D>::bytes + 1024;
-  auto dkdv = flash_bwd_dkdv_wgmma_kernel<D>;
-  auto dqk = flash_bwd_dq_wgmma_kernel<D>;
-  static ptt::SmemLimit limit_dkdv, limit_dq;
-  cudaError_t err = limit_dkdv.reserve(dkdv, smem_dkdv);
+  auto dkdv = mk.on() ? flash_bwd_dkdv_wgmma_kernel<D, true>
+                      : flash_bwd_dkdv_wgmma_kernel<D, false>;
+  auto dqk = mk.on() ? flash_bwd_dq_wgmma_kernel<D, true>
+                     : flash_bwd_dq_wgmma_kernel<D, false>;
+  static ptt::SmemLimit limit_dkdv[2], limit_dq[2];  // one per instantiation
+  cudaError_t err = limit_dkdv[mk.on()].reserve(dkdv, smem_dkdv);
   if (err != cudaSuccess) return err;
-  err = limit_dq.reserve(dqk, smem_dq);
+  err = limit_dq[mk.on()].reserve(dqk, smem_dq);
   if (err != cudaSuccess) return err;
   const float* lse_f = static_cast<const float*>(lse);
   const float* delta_f = static_cast<const float*>(delta);
   dkdv<<<dim3((s + kKeys - 1) / kKeys, hk, b), kThreadsDkdv, smem_dkdv,
          stream>>>(
       q64, k128, v128, g64, lse_f, delta_f, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), s, h, hk, causal, scale);
+      static_cast<bf16*>(dv), mk, s, h, hk, causal, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   dqk<<<dim3((s + kRows - 1) / kRows, h, b), kThreads, smem_dq, stream>>>(
-      q128, k64, v64, g128, lse_f, delta_f, static_cast<bf16*>(dq), s, h, hk,
-      causal, scale);
+      q128, k64, v64, g128, lse_f, delta_f, static_cast<bf16*>(dq), mk, s, h,
+      hk, causal, scale);
   return cudaGetLastError();
 }
 
@@ -1233,33 +1425,33 @@ bool aligned16(const void* p) {
 // the shape does not fit is cudaErrorInvalidValue, never another kernel.
 cudaError_t backward(int path, const void* q, const void* k, const void* v,
                      const void* g, const void* lse, const void* delta,
-                     void* dq, void* dk, void* dv, int b, int s, int h, int hk,
-                     int d, int causal, float scale, int dtype,
+                     void* dq, void* dk, void* dv, Masking mk, int b, int s,
+                     int h, int hk, int d, int causal, float scale, int dtype,
                      cudaStream_t st) {
   if (path == kPathWgmma) {
     if (dtype != ptt::kBFloat16 || (d != 64 && d != 128) || !aligned16(q) ||
         !aligned16(k) || !aligned16(v) || !aligned16(g))
       return cudaErrorInvalidValue;
     if (d == 64)
-      return hop::launch<64>(q, k, v, g, lse, delta, dq, dk, dv, b, s, h, hk,
-                             causal, scale, st);
-    return hop::launch<128>(q, k, v, g, lse, delta, dq, dk, dv, b, s, h, hk,
-                            causal, scale, st);
+      return hop::launch<64>(q, k, v, g, lse, delta, dq, dk, dv, mk, b, s, h,
+                             hk, causal, scale, st);
+    return hop::launch<128>(q, k, v, g, lse, delta, dq, dk, dv, mk, b, s, h,
+                            hk, causal, scale, st);
   }
   if (path == kPathMma) {
     if (dtype != ptt::kBFloat16 || d > 128) return cudaErrorInvalidValue;
     if (d <= 64)
-      return launch_mma<64>(q, k, v, g, lse, delta, dq, dk, dv, b, s, h, hk, d,
-                            causal, scale, st);
-    return launch_mma<128>(q, k, v, g, lse, delta, dq, dk, dv, b, s, h, hk, d,
-                           causal, scale, st);
+      return launch_mma<64>(q, k, v, g, lse, delta, dq, dk, dv, mk, b, s, h,
+                            hk, d, causal, scale, st);
+    return launch_mma<128>(q, k, v, g, lse, delta, dq, dk, dv, mk, b, s, h,
+                           hk, d, causal, scale, st);
   }
   if (path != kPathFma) return cudaErrorInvalidValue;
   if (dtype == ptt::kBFloat16)
-    return launch_fma<bf16, 32, 16>(q, k, v, g, lse, delta, dq, dk, dv, b, s,
-                                    h, hk, d, causal, scale, st);
-  return dispatch_fma_f32(q, k, v, g, lse, delta, dq, dk, dv, b, s, h, hk, d,
-                          causal, scale, st);
+    return launch_fma<bf16, 32, 16>(q, k, v, g, lse, delta, dq, dk, dv, mk, b,
+                                    s, h, hk, d, causal, scale, st);
+  return dispatch_fma_f32(q, k, v, g, lse, delta, dq, dk, dv, mk, b, s, h, hk,
+                          d, causal, scale, st);
 }
 
 }  // namespace
@@ -1267,12 +1459,15 @@ cudaError_t backward(int path, const void* q, const void* k, const void* v,
 // q, out, g, dq: [b, s, h, d]; k, v, dk, dv: [b, s, hk, d], all contiguous
 // and of one dtype; lse: [b, h, s] f32 from K1; delta: [b, h, s] f32
 // scratch, written here.  path: 0 the FMA kernels, 1 mma.sync, 2 wgmma +
-// TMA.
+// TMA.  segments ([b, s] int32) and kbias ([b, s] f32), each contiguous or
+// null, as K1 got them.
 extern "C" int ptt_flash_bwd(const void* q, const void* k, const void* v,
                              const void* out, const void* lse, const void* g,
                              void* dq, void* dk, void* dv, void* delta, int b,
                              int s, int h, int hk, int d, int causal,
-                             float scale, int dtype, int path, void* stream) {
+                             float scale, int dtype, int path,
+                             const void* segments, const void* kbias,
+                             void* stream) {
   if (b < 1 || s < 1 || h < 1 || hk < 1 || h % hk != 0 || d < 1 || d > 256 ||
       h > 65535 || b > 65535 ||
       (dtype != ptt::kBFloat16 && dtype != ptt::kFloat32))
@@ -1283,6 +1478,8 @@ extern "C" int ptt_flash_bwd(const void* q, const void* k, const void* v,
           ? launch_delta<bf16>(g, out, delta, b, s, h, d, st)
           : launch_delta<float>(g, out, delta, b, s, h, d, st);
   if (err != cudaSuccess) return (int)err;
-  return (int)backward(path, q, k, v, g, lse, delta, dq, dk, dv, b, s, h, hk,
-                       d, causal, scale, dtype, st);
+  const Masking mk{static_cast<const int*>(segments),
+                   static_cast<const float*>(kbias)};
+  return (int)backward(path, q, k, v, g, lse, delta, dq, dk, dv, mk, b, s, h,
+                       hk, d, causal, scale, dtype, st);
 }

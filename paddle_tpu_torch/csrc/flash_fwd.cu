@@ -51,8 +51,17 @@
 //    f32-FMA kernel (the first version).  The host picks the kernel
 //    (`flash_path` in ops/flash_attention.py) and passes it in.
 //
-// Segment ids, per-key bias and the ring `carry` are not supported yet:
-// their callers (varlen/BERT, ring attention) are not ported.
+// K1 also takes the reference's segment ids and per-key bias (`segments=`,
+// `kbias=`: packed sequences, BERT's padding, a lowered key-padding mask),
+// on every path, at the masking site of each: a key of another segment is
+// masked like a causal one, and the bias is added to the scaled score
+// before the mask (in the base-2 kernel as bias * log2(e)).  Each q row's
+// id is read once; the keys' ids and biases through the read-only path.
+// In the Hopper kernel the producer warp stages each key tile's ids and
+// biases in shared memory beside the tile.  Key tiles whose segments cannot
+// match are still walked.  K6 passes none.
+// The ring `carry` and `q_offset` are not supported yet: their caller
+// (ring attention) is not ported.
 
 #include <stdint.h>
 
@@ -63,6 +72,7 @@ namespace {
 
 using ptt::from_f32;
 using ptt::kNegInf;
+using ptt::kNegInf2;
 using ptt::ld_u32;
 using ptt::mma_bf16;
 using ptt::pack_bf16;
@@ -76,13 +86,15 @@ constexpr int kThreads = 256;  // 16 x 16: each thread owns 4 rows x (4 keys | N
 // Thread (ty, tx) owns q rows ty*4 + i (i < 4).  For the scores it owns
 // keys tx + 16*j (j < 4); for the output it owns dims tx + 16*jj
 // (jj < NJ, NJ = ceil(d / 16)).  The 16 threads of a row sit in one
-// half-warp, so row reductions are 4 xor-shuffles.
-template <typename T, int NJ>
+// half-warp, so row reductions are 4 xor-shuffles.  kMask: segment ids or
+// a key bias (`mk`) take part; without, the kernel is the unmasked one.
+template <typename T, int NJ, bool kMask>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out,
-                 float* __restrict__ lse, const int* __restrict__ q_off, int s,
-                 int lk, int h, int hk, int d, int causal, float scale) {
+                 float* __restrict__ lse, const int* __restrict__ q_off,
+                 ptt::Masking mk, int s, int lk, int h, int hk, int d,
+                 int causal, float scale) {
   extern __shared__ float smem[];
   const int dp = d + 1;  // padded row: conflict-free column reads
   const int pp = kBK + 1;
@@ -108,12 +120,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   float m[4], l[4], acc[4][NJ];
+  int qseg[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = kNegInf;
     l[i] = 0.f;
 #pragma unroll
     for (int jj = 0; jj < NJ; ++jj) acc[i][jj] = 0.f;
+    const int qi = q0 + ty * 4 + i;
+    qseg[i] = kMask && qi < s ? ptt::seg_of(mk, b, s, qi) : 0;
   }
 
   // causal: keys past the tile's last real row contribute nothing
@@ -151,6 +166,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
     }
 
+    int kseg[4] = {0, 0, 0, 0};
+    float kb[4] = {0.f, 0.f, 0.f, 0.f};
+    if constexpr (kMask) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kj = k0 + tx + 16 * j;
+        kseg[j] = kj < lk ? ptt::seg_of(mk, b, lk, kj) : 0;
+        kb[j] = kj < lk ? ptt::bias_of(mk, b, lk, kj) : 0.f;
+      }
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int qi = q0 + ty * 4 + i;
@@ -158,8 +183,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kj = k0 + tx + 16 * j;
-        const bool ok = kj < lk && (!causal || kj <= qpos + qi);
-        sc[i][j] = ok ? sc[i][j] * scale : kNegInf;
+        if constexpr (kMask) {
+          const bool live = (!causal || kj <= qpos + qi) && kseg[j] == qseg[i];
+          sc[i][j] = kj >= lk ? -INFINITY
+                     : live   ? fmaf(sc[i][j], scale, kb[j])
+                              : kNegInf;
+        } else {
+          const bool ok = kj < lk && (!causal || kj <= qpos + qi);
+          sc[i][j] = ok ? sc[i][j] * scale : kNegInf;
+        }
         rmax = fmaxf(rmax, sc[i][j]);
       }
 #pragma unroll
@@ -204,7 +236,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int qi = q0 + ty * 4 + i;
     if (qi >= s) continue;
-    // fully masked rows give 0, not NaN (flash_attention.py:139-141)
+    // l >= 1 on every row (see kNegInf); the guard is the reference's
+    // (flash_attention.py:139-141)
     const float l_safe = fmaxf(l[i], 1e-30f);
     T* orow = out + ((size_t)(b * s + qi) * h + head) * d;
 #pragma unroll
@@ -219,37 +252,38 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int NJ>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   void* lse, const int* q_off, int b, int s, int lk, int h,
-                   int hk, int d, int causal, float scale,
+                   void* lse, const int* q_off, ptt::Masking mk, int b, int s,
+                   int lk, int h, int hk, int d, int causal, float scale,
                    cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * ((size_t)kBQ * (d + 1) + (size_t)kBK * (d + 1) +
                        (size_t)kBK * d + (size_t)kBQ * (kBK + 1));
-  auto kernel = flash_fwd_kernel<T, NJ>;
-  static ptt::SmemLimit limit;
-  cudaError_t err = limit.reserve(kernel, smem);
+  auto kernel = mk.on() ? flash_fwd_kernel<T, NJ, true>
+                        : flash_fwd_kernel<T, NJ, false>;
+  static ptt::SmemLimit limit[2];  // one per instantiation
+  cudaError_t err = limit[mk.on()].reserve(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((s + kBQ - 1) / kBQ, h, b);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out),
-      static_cast<float*>(lse), q_off, s, lk, h, hk, d, causal, scale);
+      static_cast<float*>(lse), q_off, mk, s, lk, h, hk, d, causal, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* out,
-                       void* lse, const int* q_off, int b, int s, int lk,
-                       int h, int hk, int d, int causal, float scale,
-                       cudaStream_t stream) {
+                       void* lse, const int* q_off, ptt::Masking mk, int b,
+                       int s, int lk, int h, int hk, int d, int causal,
+                       float scale, cudaStream_t stream) {
   if (d <= 64)
-    return launch<T, 4>(q, k, v, out, lse, q_off, b, s, lk, h, hk, d, causal,
-                        scale, stream);
+    return launch<T, 4>(q, k, v, out, lse, q_off, mk, b, s, lk, h, hk, d,
+                        causal, scale, stream);
   if (d <= 128)
-    return launch<T, 8>(q, k, v, out, lse, q_off, b, s, lk, h, hk, d, causal,
-                        scale, stream);
-  return launch<T, 16>(q, k, v, out, lse, q_off, b, s, lk, h, hk, d, causal,
-                       scale, stream);
+    return launch<T, 8>(q, k, v, out, lse, q_off, mk, b, s, lk, h, hk, d,
+                        causal, scale, stream);
+  return launch<T, 16>(q, k, v, out, lse, q_off, mk, b, s, lk, h, hk, d,
+                       causal, scale, stream);
 }
 
 
@@ -261,14 +295,15 @@ constexpr int kMmaRows = 64;     // q rows per block, 16 per warp
 constexpr int kMmaKeys = 64;     // keys per tile
 using ptt::kMmaThreads;
 
-template <int D>
+template <int D, bool kMask>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
                      __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
-                     const int* __restrict__ q_off, int s, int lk, int h,
-                     int hk, int d, int causal, float scale, bool vec) {
+                     const int* __restrict__ q_off, ptt::Masking mk, int s,
+                     int lk, int h, int hk, int d, int causal, float scale,
+                     bool vec) {
   constexpr int ST = D + 8;  // padded row: conflict-free fragment loads
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -286,6 +321,8 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int wr = warp * 16;  // this warp's first row in the tile
   const int row_a = q0 + wr + g, row_b = row_a + 8;
   const int qpos = q_off != nullptr ? *q_off : 0;  // key position of q row 0
+  const int qseg[2] = {kMask && row_a < s ? ptt::seg_of(mk, b, s, row_a) : 0,
+                       kMask && row_b < s ? ptt::seg_of(mk, b, s, row_b) : 0};
 
   ptt::load_rows<D>(q_s, q, b, q0, s, h, head, d, vec);
   __syncthreads();
@@ -332,12 +369,25 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kj = k0 + nt * 8 + 2 * t + (e & 1);
-        const int qi = e < 2 ? row_a : row_b;
-        const bool ok = kj < lk && (!causal || kj <= qpos + qi);
-        sc[nt][e] = ok ? sc[nt][e] * scale : kNegInf;
-        mx[e >> 1] = fmaxf(mx[e >> 1], sc[nt][e]);
+      for (int c = 0; c < 2; ++c) {
+        const int kj = k0 + nt * 8 + 2 * t + c;
+        const int kseg = kMask && kj < lk ? ptt::seg_of(mk, b, lk, kj) : 0;
+        const float kb = kMask && kj < lk ? ptt::bias_of(mk, b, lk, kj) : 0.f;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int e = 2 * r + c;
+          const int qi = r ? row_b : row_a;
+          if constexpr (kMask) {
+            const bool live = (!causal || kj <= qpos + qi) && kseg == qseg[r];
+            sc[nt][e] = kj >= lk ? -INFINITY
+                        : live   ? fmaf(sc[nt][e], scale, kb)
+                                 : kNegInf;
+          } else {
+            const bool ok = kj < lk && (!causal || kj <= qpos + qi);
+            sc[nt][e] = ok ? sc[nt][e] * scale : kNegInf;
+          }
+          mx[r] = fmaxf(mx[r], sc[nt][e]);
+        }
       }
     float alpha[2];
 #pragma unroll
@@ -386,7 +436,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     const int qi = r ? row_b : row_a;
     if (qi >= s) continue;
-    const float l_safe = fmaxf(l[r], 1e-30f);  // fully masked rows give 0
+    const float l_safe = fmaxf(l[r], 1e-30f);  // l >= 1 (see kNegInf)
     __nv_bfloat16* orow = out + ((size_t)(b * s + qi) * h + head) * d;
 #pragma unroll
     for (int dt = 0; dt < D / 8; ++dt) {
@@ -401,23 +451,25 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
 template <int D>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out,
-                       void* lse, const int* q_off, int b, int s, int lk,
-                       int h, int hk, int d, int causal, float scale,
-                       cudaStream_t stream) {
+                       void* lse, const int* q_off, ptt::Masking mk, int b,
+                       int s, int lk, int h, int hk, int d, int causal,
+                       float scale, cudaStream_t stream) {
   const size_t smem = sizeof(__nv_bfloat16) * (size_t)(kMmaRows + 2 * kMmaKeys) *
                       (D + 8);
   const bool vec = d % 8 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(v) % 16 == 0;
-  auto kernel = flash_fwd_mma_kernel<D>;
-  static ptt::SmemLimit limit;
-  cudaError_t err = limit.reserve(kernel, smem);
+  auto kernel = mk.on() ? flash_fwd_mma_kernel<D, true>
+                        : flash_fwd_mma_kernel<D, false>;
+  static ptt::SmemLimit limit[2];  // one per instantiation
+  cudaError_t err = limit[mk.on()].reserve(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((s + kMmaRows - 1) / kMmaRows, h, b);
   kernel<<<grid, kMmaThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      static_cast<float*>(lse), q_off, s, lk, h, hk, d, causal, scale, vec);
+      static_cast<float*>(lse), q_off, mk, s, lk, h, hk, d, causal, scale,
+      vec);
   return cudaGetLastError();
 }
 
@@ -437,7 +489,8 @@ using namespace ptt::hop;  // barriers, TMA, descriptors, wgmma (hopper.cuh)
 
 // Shared memory, in bytes from a 1024-byte-aligned base: Q as D / 64
 // column halves of [kBQ][64], then the K and V rings (kStages tiles of
-// D / 64 halves of [kBN][64] each), then the barriers.
+// D / 64 halves of [kBN][64] each), each stage's key ids [kBN] int32 and
+// key biases x log2(e) [kBN] f32 (masked launches), then the barriers.
 template <int D>
 struct Smem {
   static constexpr int kHalves = D / 64;
@@ -446,19 +499,20 @@ struct Smem {
   static constexpr size_t q = 0;
   static constexpr size_t k = q + kQ;
   static constexpr size_t v = k + kStages * kKV;
-  static constexpr size_t bar = v + kStages * kKV;
+  static constexpr size_t mask = v + kStages * kKV;
+  static constexpr size_t bar = mask + kStages * kBN * 8;
   static constexpr size_t bytes = bar + (2 * kStages + 1) * 8;
 };
 
-template <int D>
+template <int D, bool kMask>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v,
                        __nv_bfloat16* __restrict__ out,
                        float* __restrict__ lse, const int* __restrict__ q_off,
-                       int s, int lk, int h, int hk, int causal,
-                       float scale_log2) {
+                       ptt::Masking mk, int s, int lk, int h, int hk,
+                       int causal, float scale_log2) {
   using L = Smem<D>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
@@ -466,6 +520,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem + L::q);
   __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem + L::k);
   __nv_bfloat16* v_s = reinterpret_cast<__nv_bfloat16*>(smem + L::v);
+  int* kseg_s = reinterpret_cast<int*>(smem + L::mask);  // [kStages][kBN]
+  float* kb_s = reinterpret_cast<float*>(kseg_s + kStages * kBN);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bar);
   uint64_t* empty = full + kStages;
   uint64_t* qbar = empty + kStages;
@@ -481,7 +537,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   if (threadIdx.x == 0) {
     for (int i = 0; i < kStages; ++i) {
-      mbar_init(&full[i], 1);
+      mbar_init(&full[i], kMask ? 32 : 1);
       mbar_init(&empty[i], kConsumers);
     }
     mbar_init(qbar, 1);
@@ -490,6 +546,38 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   __syncthreads();
 
   const int warp = threadIdx.x / 32;
+  if (warp == kConsumers / 32 && kMask) {
+    // the producer of a masked launch: as below, and all 32 lanes stage
+    // each key tile's ids and biases (x log2 e) beside it; every lane
+    // arrives on the stage's full barrier (lane 0 with the TMA bytes), which
+    // releases their stores to the consumers
+    const int lane = threadIdx.x % 32;
+    if (lane == 0) {
+      mbar_expect_tx(qbar, (uint32_t)L::kQ);
+      for (int hf = 0; hf < L::kHalves; ++hf)
+        tma_load_4d(q_s + hf * kBQ * 64, &tm_q, qbar, hf * 64, head, q0, b);
+    }
+    for (int i = 0; i < n_tiles; ++i) {
+      const int st = i % kStages;
+      if (i >= kStages) mbar_wait(&empty[st], ((i / kStages) & 1) ^ 1);
+      for (int r = lane; r < kBN; r += 32) {
+        const int kj = i * kBN + r;
+        kseg_s[st * kBN + r] = kj < lk ? ptt::seg_of(mk, b, lk, kj) : 0;
+        kb_s[st * kBN + r] = kj < lk ? ptt::bias_of(mk, b, lk, kj) * kLog2e : 0.f;
+      }
+      if (lane == 0) {
+        mbar_expect_tx(&full[st], (uint32_t)(2 * L::kKV));
+        for (int hf = 0; hf < L::kHalves; ++hf) {
+          const size_t off = (size_t)st * kBN * D + (size_t)hf * kBN * 64;
+          tma_load_4d(k_s + off, &tm_k, &full[st], hf * 64, kvh, i * kBN, b);
+          tma_load_4d(v_s + off, &tm_v, &full[st], hf * 64, kvh, i * kBN, b);
+        }
+      } else {
+        mbar_arrive(&full[st]);
+      }
+    }
+    return;
+  }
   if (warp == kConsumers / 32) {
     // the producer: Q once, then K and V tiles into the ring; rows past s
     // or lk arrive as zeros (the tensor maps' bounds)
@@ -524,7 +612,11 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   float o[D / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  // the masked score (see kNegInf2; unmasked rows always see a live key)
+  constexpr float kMasked = kMask ? kNegInf2 : kNegInf;
+  float m[2] = {kMasked, kMasked}, l[2] = {0.f, 0.f};
+  const int qseg[2] = {kMask && row_a < s ? ptt::seg_of(mk, b, s, row_a) : 0,
+                       kMask && row_b < s ? ptt::seg_of(mk, b, s, row_b) : 0};
 
   mbar_wait(qbar, 0);
   for (int i = 0; i < n_tiles; ++i) {
@@ -551,17 +643,32 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     fence_regs(sc);
 
     const int k0 = i * kBN;
-    float mx[2] = {kNegInf, kNegInf};
+    float mx[2] = {kMasked, kMasked};
 #pragma unroll
     for (int j = 0; j < kBN / 8; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kj = k0 + 8 * j + 2 * t + (e & 1);
-        const int qi = e < 2 ? row_a : row_b;
-        const bool ok = kj < lk && (!causal || kj <= qpos + qi);
-        const float x = ok ? sc[4 * j + e] * scale_log2 : kNegInf;
-        sc[4 * j + e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      for (int c = 0; c < 2; ++c) {
+        const int kj = k0 + 8 * j + 2 * t + c;
+        // the key's id and bias, staged by the producer
+        const int kseg = kMask ? kseg_s[st * kBN + 8 * j + 2 * t + c] : 0;
+        const float kb2 = kMask ? kb_s[st * kBN + 8 * j + 2 * t + c] : 0.f;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int e = 2 * r + c;
+          const int qi = r ? row_b : row_a;
+          float x;
+          if constexpr (kMask) {
+            const bool live = (!causal || kj <= qpos + qi) && kseg == qseg[r];
+            x = kj >= lk ? -INFINITY
+                : live   ? fmaf(sc[4 * j + e], scale_log2, kb2)
+                         : kNegInf2;
+          } else {
+            const bool ok = kj < lk && (!causal || kj <= qpos + qi);
+            x = ok ? sc[4 * j + e] * scale_log2 : kNegInf;
+          }
+          sc[4 * j + e] = x;
+          mx[r] = fmaxf(mx[r], x);
+        }
       }
     float alpha[2];
 #pragma unroll
@@ -620,7 +727,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     const int qi = r ? row_b : row_a;
     if (qi >= s) continue;
-    const float l_safe = fmaxf(l[r], 1e-30f);  // fully masked rows give 0
+    const float l_safe = fmaxf(l[r], 1e-30f);  // l >= 1 (see kNegInf)
     const float inv = 1.f / l_safe;
     __nv_bfloat16* orow = out + ((size_t)(b * s + qi) * h + head) * D;
 #pragma unroll
@@ -634,21 +741,23 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   void* lse, const int* q_off, int b, int s, int lk, int h,
-                   int hk, int causal, float scale, cudaStream_t stream) {
-  CUtensorMap mq, mk, mv;
-  if (!make_map(&mq, q, b, s, h, D, kBQ) || !make_map(&mk, k, b, lk, hk, D, kBN) ||
-      !make_map(&mv, v, b, lk, hk, D, kBN))
+                   void* lse, const int* q_off, ptt::Masking mk, int b, int s,
+                   int lk, int h, int hk, int causal, float scale,
+                   cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  if (!make_map(&tq, q, b, s, h, D, kBQ) || !make_map(&tk, k, b, lk, hk, D, kBN) ||
+      !make_map(&tv, v, b, lk, hk, D, kBN))
     return cudaErrorNotSupported;
   const size_t smem = Smem<D>::bytes + 1024;  // + the 1024-byte alignment
-  auto kernel = flash_fwd_wgmma_kernel<D>;
-  static ptt::SmemLimit limit;
-  cudaError_t err = limit.reserve(kernel, smem);
+  auto kernel = mk.on() ? flash_fwd_wgmma_kernel<D, true>
+                        : flash_fwd_wgmma_kernel<D, false>;
+  static ptt::SmemLimit limit[2];  // one per instantiation
+  cudaError_t err = limit[mk.on()].reserve(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((s + kBQ - 1) / kBQ, h, b);
   kernel<<<grid, kThreads, smem, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse),
-      q_off, s, lk, h, hk, causal, scale * kLog2e);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse),
+      q_off, mk, s, lk, h, hk, causal, scale * kLog2e);
   return cudaGetLastError();
 }
 
@@ -667,9 +776,9 @@ bool aligned16(const void* p) {
 // cudaErrorInvalidValue, never another kernel.  q_off == nullptr: no query
 // offset (K1).
 cudaError_t attend(int path, const void* q, const void* k, const void* v,
-                   void* out, void* lse, const int* q_off, int b, int s,
-                   int lk, int h, int hk, int d, int causal, float scale,
-                   int dtype, cudaStream_t st) {
+                   void* out, void* lse, const int* q_off, ptt::Masking mk,
+                   int b, int s, int lk, int h, int hk, int d, int causal,
+                   float scale, int dtype, cudaStream_t st) {
   if (b < 1 || s < 1 || lk < 1 || h < 1 || hk < 1 || h % hk != 0 || d < 1 ||
       d > 256 || h > 65535 || b > 65535)
     return cudaErrorInvalidValue;
@@ -678,25 +787,25 @@ cudaError_t attend(int path, const void* q, const void* k, const void* v,
         !aligned16(k) || !aligned16(v))
       return cudaErrorInvalidValue;
     if (d == 64)
-      return hop::launch<64>(q, k, v, out, lse, q_off, b, s, lk, h, hk,
+      return hop::launch<64>(q, k, v, out, lse, q_off, mk, b, s, lk, h, hk,
                              causal, scale, st);
-    return hop::launch<128>(q, k, v, out, lse, q_off, b, s, lk, h, hk, causal,
-                            scale, st);
+    return hop::launch<128>(q, k, v, out, lse, q_off, mk, b, s, lk, h, hk,
+                            causal, scale, st);
   }
   if (path == kPathMma && (dtype != ptt::kBFloat16 || d > 128))
     return cudaErrorInvalidValue;
   if (path != kPathMma && path != kPathFma) return cudaErrorInvalidValue;
   if (path == kPathMma && d <= 64)
-    return launch_mma<64>(q, k, v, out, lse, q_off, b, s, lk, h, hk, d, causal,
-                          scale, st);
+    return launch_mma<64>(q, k, v, out, lse, q_off, mk, b, s, lk, h, hk, d,
+                          causal, scale, st);
   if (path == kPathMma)
-    return launch_mma<128>(q, k, v, out, lse, q_off, b, s, lk, h, hk, d,
+    return launch_mma<128>(q, k, v, out, lse, q_off, mk, b, s, lk, h, hk, d,
                            causal, scale, st);
   if (dtype == ptt::kBFloat16)
-    return dispatch_d<__nv_bfloat16>(q, k, v, out, lse, q_off, b, s, lk, h, hk,
-                                     d, causal, scale, st);
+    return dispatch_d<__nv_bfloat16>(q, k, v, out, lse, q_off, mk, b, s, lk,
+                                     h, hk, d, causal, scale, st);
   if (dtype == ptt::kFloat32)
-    return dispatch_d<float>(q, k, v, out, lse, q_off, b, s, lk, h, hk, d,
+    return dispatch_d<float>(q, k, v, out, lse, q_off, mk, b, s, lk, h, hk, d,
                              causal, scale, st);
   return cudaErrorInvalidValue;
 }
@@ -704,12 +813,16 @@ cudaError_t attend(int path, const void* q, const void* k, const void* v,
 }  // namespace
 
 // q, k, v: [b, s, h | hk, d] contiguous; out: [b, s, h, d]; lse: [b, h, s]
-// f32.  path: 0 the FMA kernel, 1 mma.sync, 2 wgmma + TMA.
+// f32.  path: 0 the FMA kernel, 1 mma.sync, 2 wgmma + TMA.  segments: [b, s]
+// int32 segment ids, kbias: [b, s] f32 key bias, each contiguous or null.
 extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v,
                              void* out, void* lse, int b, int s, int h, int hk,
                              int d, int causal, float scale, int dtype,
-                             int path, void* stream) {
-  return (int)attend(path, q, k, v, out, lse, nullptr, b, s, s, h, hk, d,
+                             int path, const void* segments, const void* kbias,
+                             void* stream) {
+  const ptt::Masking mk{static_cast<const int*>(segments),
+                        static_cast<const float*>(kbias)};
+  return (int)attend(path, q, k, v, out, lse, nullptr, mk, b, s, s, h, hk, d,
                      causal, scale, dtype, static_cast<cudaStream_t>(stream));
 }
 
@@ -723,8 +836,8 @@ extern "C" int ptt_dense_decode(const void* q, const void* k, const void* v,
                                 int dtype, int path, void* stream) {
   if (pos == nullptr) return (int)cudaErrorInvalidValue;
   return (int)attend(path, q, k, v, out, nullptr, static_cast<const int*>(pos),
-                     b, sq, L, h, hk, d, 1, scale, dtype,
-                     static_cast<cudaStream_t>(stream));
+                     ptt::Masking{nullptr, nullptr}, b, sq, L, h, hk, d, 1,
+                     scale, dtype, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* ptt_error_string(int code) {

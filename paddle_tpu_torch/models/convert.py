@@ -1,4 +1,5 @@
-"""Load the JAX package's Llama weights into the port's model."""
+"""Load the JAX package's model weights (Llama, BERT) into the port's
+models."""
 
 from __future__ import annotations
 
@@ -9,11 +10,14 @@ from torch import nn
 
 def load_reference_state(model, state):
     """Copy a reference `state_dict()` -- a dict of numpy arrays named like
-    `llama.layers.0.self_attn.q_proj.weight` -- into `model` (a port
-    LlamaForCausalLM) in place, casting to each parameter's dtype and device.
+    `llama.layers.0.self_attn.q_proj.weight` or
+    `bert.encoder.0.attn.q_proj.weight` -- into `model` (a port Llama or
+    BERT model with the same names) in place, casting to each parameter's
+    dtype and device.
 
     Every Linear weight is transposed: the reference stores `[in, out]`
     (paddle_tpu/nn/common.py:16), `torch.nn.Linear` stores `[out, in]`.
+    Embedding tables, norm weights and biases are copied as they are.
     Raises on a missing or unexpected name or a shape mismatch.  Returns
     the model."""
     linear = {

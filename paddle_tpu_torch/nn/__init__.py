@@ -1,7 +1,11 @@
 """Layers of the port."""
 
-from . import clip
+from . import clip, functional
 from .clip import ClipGradByGlobalNorm
-from .norm import RMSNorm
+from .common import Dropout
+from .norm import LayerNorm, RMSNorm
+from .transformer import MultiHeadAttention, TransformerEncoder, TransformerEncoderLayer
 
-__all__ = ["ClipGradByGlobalNorm", "RMSNorm", "clip"]
+__all__ = ["ClipGradByGlobalNorm", "Dropout", "LayerNorm", "MultiHeadAttention",
+           "RMSNorm", "TransformerEncoder", "TransformerEncoderLayer", "clip",
+           "functional"]

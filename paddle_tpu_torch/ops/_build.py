@@ -40,11 +40,12 @@ NVCC_FLAGS = [
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of the exported functions: (argtypes, restype)
 SIGNATURES = {
-    # q, k, v, out, lse, b, s, h, hk, d, causal, scale, dtype, path, stream
-    "ptt_flash_fwd": ([_P] * 5 + [_I] * 6 + [_F, _I, _I, _P], _I),
+    # q, k, v, out, lse, b, s, h, hk, d, causal, scale, dtype, path,
+    # segments, kbias, stream
+    "ptt_flash_fwd": ([_P] * 5 + [_I] * 6 + [_F, _I, _I, _P, _P, _P], _I),
     # q, k, v, out, lse, g, dq, dk, dv, delta, b, s, h, hk, d, causal,
-    # scale, dtype, path, stream
-    "ptt_flash_bwd": ([_P] * 10 + [_I] * 6 + [_F, _I, _I, _P], _I),
+    # scale, dtype, path, segments, kbias, stream
+    "ptt_flash_bwd": ([_P] * 10 + [_I] * 6 + [_F, _I, _I, _P, _P, _P], _I),
     # q, ak, av, tables, pos, out, ws, splits, path, b, sq, h, hk, d, ps, P,
     # max_len, scale, dtype, stream
     "ptt_paged_decode": ([_P] * 7 + [_I] * 10 + [_F, _I, _P], _I),

@@ -44,6 +44,13 @@ K1, K6 and K3 (the `wgmma` + TMA kernels, `mma.sync`, or FMA) and
 walk, or the FMA page walk).  The `*_wgmma`, `*_mma` and `*_walk` counts
 are the launches that took those kernels, a subset of their kernel's
 count.
+
+K1 and K3 also take the reference's `segments` (packed sequences, BERT's
+padding) and `kbias` (a lowered key-padding mask) on every path; their
+`*_masked` counts are the launches that carried either.  `sdpa` picks the
+kernels or the reference's XLA path (`attention_plain`, plain torch ops
+under autograd) by the reference's rule, `flash_viable`, and counts the
+second in `fallback_counts`.
 """
 
 from __future__ import annotations
@@ -65,6 +72,7 @@ launch_counts = {"flash_fwd": 0, "paged_decode_fused": 0,
                  "paged_decode_fused_cp": 0, "paged_decode_fused_cp_q8": 0,
                  "flash_fwd_wgmma": 0, "dense_decode_wgmma": 0,
                  "flash_bwd_wgmma": 0,
+                 "flash_fwd_masked": 0, "flash_bwd_masked": 0,
                  "paged_decode_fused_mma": 0, "paged_decode_fused_q8_mma": 0,
                  "paged_decode_fused_cp_mma": 0, "paged_decode_fused_cp_q8_mma": 0,
                  "paged_decode_fused_walk": 0, "paged_decode_fused_q8_walk": 0,
@@ -96,8 +104,10 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def reset_launch_counts():
+    """Zero every launch count and every fallback count."""
     for name in launch_counts:
         launch_counts[name] = 0
+    reset_fallback_counts()
 
 
 def _dtype_code(t, what):
@@ -205,54 +215,112 @@ def _check_flash(q, k, v):
     _dtype_code(q, "flash_fwd")
 
 
-def flash_forward_plain(q, k, v, causal, scale):
+def _check_masking(q, segments, kbias, what):
+    """`segments` [b, s] int32 and `kbias` [b, s] float32, each optional,
+    on q's device."""
+    b, s = q.shape[0], q.shape[1]
+    if segments is not None:
+        _require(tuple(segments.shape) == (b, s) and segments.dtype == INDEX_DTYPE,
+                 f"{what}: segments must be [b, s] = [{b}, {s}] int32, got "
+                 f"{tuple(segments.shape)} {segments.dtype}")
+        _require(segments.device == q.device, f"{what}: segments not on q's device")
+    if kbias is not None:
+        _require(tuple(kbias.shape) == (b, s) and kbias.dtype == torch.float32,
+                 f"{what}: kbias must be [b, s] = [{b}, {s}] float32, got "
+                 f"{tuple(kbias.shape)} {kbias.dtype}")
+        _require(kbias.device == q.device, f"{what}: kbias not on q's device")
+
+
+def _masked_scores(sc, causal, segments, kbias):
+    """The reference's masking of [b, h, sq, sk] float32 scores, already
+    scaled (`_blk_mask`, flash_attention.py:51-62, after the key bias of
+    :115-124): plus kbias per key, then NEG_INF where the causal fence or
+    the segment ids (a query sees only keys of its own id) exclude a pair."""
+    if kbias is not None:
+        sc = sc + kbias[:, None, None, :]
+    sq, sk = sc.shape[-2], sc.shape[-1]
+    if causal:
+        q_ids = torch.arange(sq, device=sc.device)[:, None]
+        k_ids = torch.arange(sk, device=sc.device)[None, :]
+        sc = torch.where(q_ids >= k_ids - (sk - sq), sc, NEG_INF)
+    if segments is not None:
+        same = segments[:, None, :, None] == segments[:, None, None, :]
+        sc = torch.where(same, sc, NEG_INF)
+    return sc
+
+
+def flash_forward_plain(q, k, v, causal, scale, segments=None, kbias=None):
     """Plain version of `flash_fwd`: the reference's dense attention
-    (`_dense_attention`, flash_attention.py:1744) on [b, s, h, d] inputs.
-    Returns (out [b, s, h, d] in q's dtype, lse [b, h, s] float32)."""
+    (`_dense_attention`, flash_attention.py:1744) on [b, s, h, d] inputs,
+    masked as `_masked_scores` says.  A row whose every key is masked (a
+    key-padding bias of NEG_INF on all of them) has lse == NEG_INF, so p is
+    1 on every key; its output is the mean of V, as the reference's kernel
+    divides by their count (:137-141).  Returns (out [b, s, h, d] in q's
+    dtype, lse [b, h, s] float32)."""
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # [b, h, s, d]
     rep = qt.shape[1] // kt.shape[1]
     if rep != 1:  # GQA: kv head i serves q heads [i*rep, (i+1)*rep)
         kt = kt.repeat_interleave(rep, dim=1)
         vt = vt.repeat_interleave(rep, dim=1)
     s = torch.einsum("bhqd,bhkd->bhqk", qt.float(), kt.float()) * scale
-    sq, sk = s.shape[-2], s.shape[-1]
-    if causal:
-        q_ids = torch.arange(sq, device=s.device)[:, None]
-        k_ids = torch.arange(sk, device=s.device)[None, :]
-        s = torch.where(q_ids >= k_ids - (sk - sq), s, NEG_INF)
+    s = _masked_scores(s, causal, segments, kbias)
     lse = torch.logsumexp(s, dim=-1)
     p = torch.exp(s - lse[..., None])
     out = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), vt.float())
+    if kbias is not None:  # sum(p) is 1 but on rows with no live key
+        out = out / p.sum(-1, keepdim=True)
     return out.to(q.dtype).transpose(1, 2).contiguous(), lse
 
 
-def flash_forward(q, k, v, causal=True, scale=None):
+def flash_forward(q, k, v, causal=True, scale=None, segments=None, kbias=None):
     """K1 wrapper.  q: [b, s, h, d]; k, v: [b, s, hk, d] with h % hk == 0
-    (GQA indexes kv head h // rep in-kernel); float32 or bfloat16.  Returns
-    (out [b, s, h, d], lse [b, h, s] float32)."""
+    (GQA indexes kv head h // rep in-kernel); float32 or bfloat16.
+    `segments` ([b, s] int32: a query attends only to keys of its own id)
+    and `kbias` ([b, s] float32, added to every head's scores of that key)
+    are optional, shared by all heads, and read in-kernel.  Returns (out
+    [b, s, h, d], lse [b, h, s] float32)."""
     _check_flash(q, k, v)
+    _check_masking(q, segments, kbias, "flash_fwd")
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if not _on_cuda((q, k, v), "flash_fwd"):
-        return flash_forward_plain(q, k, v, causal, scale)
+        return flash_forward_plain(q, k, v, causal, scale, segments, kbias)
     _require(q.is_contiguous() and k.is_contiguous() and v.is_contiguous(),
              "flash_fwd: q, k, v must be contiguous")
     from ._build import check, lib
 
     b, s, h, d = q.shape
     path = flash_path(s, d, q.dtype)
+    segments, kbias = _contiguous_or_none(segments), _contiguous_or_none(kbias)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     code = lib().ptt_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), b, s, h, k.shape[2], d, int(bool(causal)),
-        float(scale), _dtype_code(q, "flash_fwd"), _FLASH_PATHS[path], _stream(q),
+        float(scale), _dtype_code(q, "flash_fwd"), _FLASH_PATHS[path],
+        _ptr(segments), _ptr(kbias), _stream(q),
     )
     check(code, f"flash_fwd ({path})")
-    launch_counts["flash_fwd"] += 1
-    if path == "wgmma":
-        launch_counts["flash_fwd_wgmma"] += 1
+    _count_flash("flash_fwd", path, segments, kbias)
     return out, lse
+
+
+def _contiguous_or_none(t):
+    return None if t is None else t.contiguous()
+
+
+def _ptr(t):
+    """A tensor's device address for a nullable kernel operand (None: the
+    null pointer)."""
+    return None if t is None else t.data_ptr()
+
+
+def _count_flash(what, path, segments, kbias):
+    launch_counts[what] += 1
+    if path == "wgmma":
+        launch_counts[what + "_wgmma"] += 1
+    if segments is not None or kbias is not None:
+        launch_counts[what + "_masked"] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -260,13 +328,17 @@ def flash_forward(q, k, v, causal=True, scale=None):
 # ---------------------------------------------------------------------------
 
 
-def flash_backward_plain(q, k, v, out, lse, g, causal, scale):
+def flash_backward_plain(q, k, v, out, lse, g, causal, scale, segments=None,
+                         kbias=None):
     """Plain version of `flash_bwd`: the math of the reference's
     `_flash_backward` (flash_attention.py:1763-1814) on [b, s, h, d] inputs,
     with its rounding points: p rounded to the input dtype before p^T g, ds
-    rounded before ds k and ds^T q, every product summed in float32.  dk/dv
-    are summed over each GQA group in float32 and rounded once.  Returns
-    (dq, dk, dv) in q's dtype."""
+    rounded before ds k and ds^T q, every product summed in float32.  The
+    scores are masked as the forward masked them, and p = exp(s - lse) is
+    recomputed from the forward's lse (on a row with no live key, 1 on
+    every key, as in the reference's kernel).  dk/dv are summed over each
+    GQA group in float32 and rounded once.  Returns (dq, dk, dv) in q's
+    dtype."""
     dt = q.dtype
     b, s, h, d = q.shape
     hk = k.shape[2]
@@ -276,9 +348,7 @@ def flash_backward_plain(q, k, v, out, lse, g, causal, scale):
     vt = v.transpose(1, 2).float().repeat_interleave(rep, dim=1)
     delta = (gt * ot).sum(-1)  # [b, h, s]
     sc = torch.einsum("bhqd,bhkd->bhqk", qt, kt) * scale
-    if causal:
-        ids = torch.arange(s, device=q.device)
-        sc = torch.where(ids[:, None] >= ids[None, :], sc, NEG_INF)
+    sc = _masked_scores(sc, causal, segments, kbias)
     p = torch.exp(sc - lse[..., None])
     dv = torch.einsum("bhqk,bhqd->bhkd", p.to(dt).float(), gt)
     dp = torch.einsum("bhqd,bhkd->bhqk", gt, vt)
@@ -290,13 +360,17 @@ def flash_backward_plain(q, k, v, out, lse, g, causal, scale):
     return tuple(x.transpose(1, 2).to(dt).contiguous() for x in (dq, dk, dv))
 
 
-def flash_backward(q, k, v, out, lse, g, causal=True, scale=None):
+def flash_backward(q, k, v, out, lse, g, causal=True, scale=None,
+                   segments=None, kbias=None):
     """K3 wrapper.  q, out, g: [b, s, h, d]; k, v: [b, s, hk, d] (GQA read
     in place, dk/dv summed over each group in-kernel); lse: [b, h, s]
-    float32 from `flash_forward`.  The kernel is `flash_path(s, d, dtype)`'s,
-    as for K1: the wgmma + TMA kernels for bfloat16 with d 64 or 128 and at
-    least 128 rows.  Returns (dq, dk, dv) shaped and typed like q, k, v."""
+    float32 from `flash_forward`; `segments` and `kbias` as the forward got
+    them (p is recomputed under the same mask).  The kernel is
+    `flash_path(s, d, dtype)`'s, as for K1: the wgmma + TMA kernels for
+    bfloat16 with d 64 or 128 and at least 128 rows.  Returns (dq, dk, dv)
+    shaped and typed like q, k, v."""
     _check_flash(q, k, v)
+    _check_masking(q, segments, kbias, "flash_bwd")
     b, s, h, d = q.shape
     _require(out.shape == q.shape and g.shape == q.shape,
              "flash_bwd: out and g must be shaped like q")
@@ -307,12 +381,14 @@ def flash_backward(q, k, v, out, lse, g, causal=True, scale=None):
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     if not _on_cuda((q, k, v, out, lse, g), "flash_bwd"):
-        return flash_backward_plain(q, k, v, out, lse, g, causal, scale)
+        return flash_backward_plain(q, k, v, out, lse, g, causal, scale,
+                                    segments, kbias)
     _require(all(t.is_contiguous() for t in (q, k, v, out, lse, g)),
              "flash_bwd: inputs must be contiguous")
     from ._build import check, lib
 
     path = flash_path(s, d, q.dtype)
+    segments, kbias = _contiguous_or_none(segments), _contiguous_or_none(kbias)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     code = lib().ptt_flash_bwd(
@@ -320,12 +396,10 @@ def flash_backward(q, k, v, out, lse, g, causal=True, scale=None):
         lse.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), delta.data_ptr(), b, s, h, k.shape[2], d,
         int(bool(causal)), float(scale), _dtype_code(q, "flash_bwd"),
-        _FLASH_PATHS[path], _stream(q),
+        _FLASH_PATHS[path], _ptr(segments), _ptr(kbias), _stream(q),
     )
     check(code, f"flash_bwd ({path})")
-    launch_counts["flash_bwd"] += 1
-    if path == "wgmma":
-        launch_counts["flash_bwd_wgmma"] += 1
+    _count_flash("flash_bwd", path, segments, kbias)
     return dq, dk, dv
 
 
@@ -334,37 +408,163 @@ class FlashAttention(torch.autograd.Function):
     reference's `custom_vjp` around `_flash_attention_core`,
     flash_attention.py:1967-2057).  The forward runs `flash_forward` and
     saves (q, k, v, out, lse), never the probabilities; the backward runs
-    `flash_backward`.  Inputs arrive non-contiguous (q and k after RoPE, the
-    output gradient from the reshape before o_proj): both kernels take
-    contiguous tensors, so the copies are made here."""
+    `flash_backward` under the same segment ids and key bias, which get no
+    gradient (the reference's `_flash_bwd_rule` returns None for both).
+    Inputs arrive non-contiguous (q and k after RoPE, the output gradient
+    from the reshape before o_proj): both kernels take contiguous tensors,
+    so the copies are made here."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale):
+    def forward(ctx, q, k, v, causal, scale, segments=None, kbias=None):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        out, lse = flash_forward(q, k, v, causal=causal, scale=scale)
+        out, lse = flash_forward(q, k, v, causal=causal, scale=scale,
+                                 segments=segments, kbias=kbias)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.scale = causal, scale
+        ctx.segments, ctx.kbias = segments, kbias
         return out
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_backward(q, k, v, out, lse, g.contiguous(),
-                                    causal=ctx.causal, scale=ctx.scale)
-        return dq, dk, dv, None, None
+                                    causal=ctx.causal, scale=ctx.scale,
+                                    segments=ctx.segments, kbias=ctx.kbias)
+        return dq, dk, dv, None, None, None, None
 
 
-def sdpa(q, k, v, causal=False, scale=None):
+# ---------------------------------------------------------------------------
+# dispatch: the kernels, or the reference's XLA path as plain torch ops
+# ---------------------------------------------------------------------------
+
+# Why an attention call did not take K1/K3 (the reference's
+# `_FALLBACK_REASONS` that apply here, flash_attention.py:1829-1839), and
+# how often since the last reset; `_log_pallas_fallback` (:1857) counts
+# the same
+FALLBACK_REASONS = ("attn_mask not key-padding", "q/k shapes differ",
+                    "head_dim > 256")
+fallback_counts = dict.fromkeys(FALLBACK_REASONS, 0)
+
+
+def reset_fallback_counts():
+    for reason in fallback_counts:
+        fallback_counts[reason] = 0
+
+
+def key_padding_bias(mask, b, sk):
+    """The reference's `_key_padding_bias` (flash_attention.py:1894): an
+    additive mask broadcast over the query rows and heads -- shape [mb, 1,
+    1, sk] with mb 1 or b -- becomes a [b, sk] float32 per-key bias for the
+    kernels; any other mask (or none) gives None."""
+    if mask is None or mask.dim() != 4 or mask.shape[1] != 1 or mask.shape[2] != 1:
+        return None
+    mb = mask.shape[0]
+    if mb not in (1, b) or mask.shape[3] != sk:
+        return None
+    return mask.reshape(mb, sk).float().expand(b, sk).contiguous()
+
+
+def flash_viable(q, k, mask, kbias):
+    """The reference's `_pallas_viable` (flash_attention.py:1939): whether
+    an attention call takes K1/K3, and if not, the reason.  A mask that did
+    not lower to a key bias, or q and k of different batch, length or head
+    width (cross attention, a cache), take the plain path; GQA is fine (the
+    kernels read kv heads in place, where the reference repeats them
+    first)."""
+    if mask is not None and kbias is None:
+        return False, "attn_mask not key-padding"
+    if (q.shape[0], q.shape[1], q.shape[3]) != (k.shape[0], k.shape[1], k.shape[3]):
+        return False, "q/k shapes differ"
+    if q.shape[3] > MAX_HEAD_DIM:
+        return False, "head_dim > 256"
+    return True, None
+
+
+def attention_plain(q, k, v, mask=None, causal=False, scale=None, segment_ids=None):
+    """The reference's XLA path (`_blockwise_attention` and
+    `_flash_backward`, flash_attention.py:1703, :1763, reached from :1987)
+    as plain torch ops: scores in float32, the causal fence with the
+    rectangular offset sk - sq, the additive `mask` (broadcast to [b, h,
+    sq, sk]) plus NEG_INF between segments, softmax, p rounded to v's dtype
+    before p.v; autograd differentiates it.  q: [b, sq, h, d]; k, v: [b,
+    sk, hk, d].  Returns [b, sq, h, d]."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    rep = qt.shape[1] // kt.shape[1]
+    if rep != 1:
+        kt = kt.repeat_interleave(rep, dim=1)
+        vt = vt.repeat_interleave(rep, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", qt.float(), kt.float()) * scale
+    s = _masked_scores(s, causal, None, None)
+    if mask is not None:
+        s = s + mask.float()
+    if segment_ids is not None:
+        same = segment_ids[:, None, :, None] == segment_ids[:, None, None, :]
+        s = s + torch.where(same, 0.0, NEG_INF)
+    p = torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True))
+    out = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), vt.float())
+    return out.to(q.dtype).transpose(1, 2)
+
+
+def sdpa(q, k, v, mask=None, causal=False, scale=None, segment_ids=None):
     """Scaled dot-product attention on [b, s, h, d] (the port's
-    `sdpa_array`): self-attention through the `flash_fwd` kernel, and,
-    when autograd records and an input requires grad, through
-    `FlashAttention` so the backward runs the `flash_bwd` kernel."""
+    `sdpa_array`, flash_attention.py:2060; GQA when k and v have fewer
+    heads).  `mask`: an additive mask broadcastable to [b, h, sq, sk];
+    `segment_ids`: [b, s] ids, a query attends only to keys of its own id.
+    Where `flash_viable` holds -- no mask or a key-padding mask ([b or 1,
+    1, 1, sk], lowered to a per-key bias), q and k of one shape -- the call
+    runs the `flash_fwd` kernel and, when autograd records and an input
+    requires grad, `FlashAttention`, so the backward runs `flash_bwd`.
+    Other shapes take `attention_plain` under autograd, counted in
+    `fallback_counts`: the choice follows the shape, never a failure."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    kbias = key_padding_bias(mask, q.shape[0], k.shape[1])
+    viable, reason = flash_viable(q, k, mask, kbias)
+    if not viable:
+        fallback_counts[reason] += 1
+        return attention_plain(q, k, v, mask, causal, scale, segment_ids)
+    segments = None if segment_ids is None else segment_ids.to(INDEX_DTYPE)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        if scale is None:
-            scale = 1.0 / math.sqrt(q.shape[-1])
-        return FlashAttention.apply(q, k, v, causal, scale)
-    return flash_forward(q, k, v, causal=causal, scale=scale)[0]
+        return FlashAttention.apply(q, k, v, causal, scale, segments, kbias)
+    return flash_forward(q, k, v, causal=causal, scale=scale, segments=segments,
+                         kbias=kbias)[0]
+
+
+def cu_seqlens_to_segment_ids(cu_seqlens, total_len):
+    """[n + 1] cumulative lengths -> [total_len] int32 segment ids (the
+    reference's, flash_attention.py:2082): position i gets the index of the
+    sequence it lies in; a padding tail past cu[-1] gets n."""
+    cu = torch.as_tensor(cu_seqlens).to(torch.int64)
+    pos = torch.arange(total_len, dtype=torch.int64, device=cu.device)
+    return torch.searchsorted(cu[1:].contiguous(), pos, right=True).to(INDEX_DTYPE)
+
+
+def flash_attn_varlen_array(q, k, v, cu_seqlens, causal=True, scale=None):
+    """Packed varlen attention (the reference's `flash_attn_varlen_array`,
+    flash_attention.py:2090): q, k, v [total, h, d] hold the sequences one
+    after another, `cu_seqlens` [n + 1] their cumulative lengths; each
+    sequence attends only to itself, through the segment ids of
+    `cu_seqlens_to_segment_ids`.  Returns [total, h, d]."""
+    seg = cu_seqlens_to_segment_ids(cu_seqlens, q.shape[0]).to(q.device)[None]
+    return sdpa(q[None], k[None], v[None], None, causal, scale, segment_ids=seg)[0]
+
+
+def flash_attn_varlen(query, key, value, cu_seqlens_q, cu_seqlens_k=None,
+                      causal=True, scale=None):
+    """The varlen entry (the reference's `flash_attn_varlen`,
+    flash_attention.py:2143): self-attention layouts only, so a
+    `cu_seqlens_k` other than `cu_seqlens_q` raises NotImplementedError."""
+    if cu_seqlens_k is not None and cu_seqlens_k is not cu_seqlens_q:
+        cq, ck = torch.as_tensor(cu_seqlens_q), torch.as_tensor(cu_seqlens_k)
+        if cq.shape != ck.shape or not bool((cq.cpu() == ck.cpu()).all()):
+            raise NotImplementedError(
+                "flash_attn_varlen: distinct cu_seqlens_k is not supported "
+                "(self-attention layouts only); pass equal cu_seqlens"
+            )
+    return flash_attn_varlen_array(query, key, value, cu_seqlens_q, causal, scale)
 
 
 # ---------------------------------------------------------------------------

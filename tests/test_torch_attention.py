@@ -122,6 +122,7 @@ def test_cpu_tensors_never_count_a_kernel_launch():
                                  "paged_decode_fused_cp_mma": 0,
                                  "paged_decode_fused_cp_q8_mma": 0,
                                  "flash_bwd_wgmma": 0,
+                                 "flash_fwd_masked": 0, "flash_bwd_masked": 0,
                                  "paged_decode_fused_walk": 0,
                                  "paged_decode_fused_q8_walk": 0,
                                  "paged_decode_fused_cp_walk": 0,

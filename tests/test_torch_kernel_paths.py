@@ -247,3 +247,112 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
     pfa.flash_forward(x, x, x)
     pfa.dense_decode(x, x, x, 0)
     assert pfa.launch_counts == dict.fromkeys(pfa.launch_counts, 0)
+
+
+# ---------------------------------------------------------------------------
+# K1 and K3 with segment ids and key bias
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("b, s, h, hk, d, dtype, path", [
+    (32, 384, 12, 12, 64, BF16, "wgmma"),   # BERT-base SQuAD: wgmma at d 64
+    (2, 127, 8, 2, 64, BF16, "mma"),
+    (2, 64, 8, 8, 128, BF16, "mma"),
+    (2, 200, 8, 2, 64, F32, "fma"),
+    (1, 100, 4, 2, 256, BF16, "fma"),
+])
+@pytest.mark.parametrize("operands", ["segments", "kbias", "both"])
+def test_masked_wrappers_pass_their_operands_and_count(fake_card, b, s, h, hk, d,
+                                                       dtype, path, operands):
+    g = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn(b, s, heads, d, generator=g).to(dtype)
+               for heads in (h, hk, hk))
+    segs = torch.zeros(b, s, dtype=torch.int32) if operands != "kbias" else None
+    kbias = torch.zeros(b, s) if operands != "segments" else None
+    pfa.flash_forward(q, k, v, False, None, segs, kbias)
+    pfa.flash_backward(q, k, v, q, torch.zeros(b, h, s), q, False, None, segs, kbias)
+    (fwd, fargs), (bwd, bargs) = fake_card.calls
+    code = {"fma": 0, "mma": 1, "wgmma": 2}[path]
+    ptr = lambda t: None if t is None else t.data_ptr()
+    assert fwd == "ptt_flash_fwd" and fargs[13:16] == (code, ptr(segs), ptr(kbias))
+    assert bwd == "ptt_flash_bwd" and bargs[18:21] == (code, ptr(segs), ptr(kbias))
+    want = dict.fromkeys(pfa.launch_counts, 0)
+    for name in ("flash_fwd", "flash_bwd"):
+        want[name] = want[name + "_masked"] = 1
+        if path == "wgmma":
+            want[name + "_wgmma"] = 1
+    assert pfa.launch_counts == want
+
+
+def test_unmasked_launches_pass_null_operands(fake_card):
+    x = torch.zeros(1, 128, 4, 64, dtype=BF16)
+    pfa.flash_forward(x, x, x)
+    pfa.dense_decode(x, x, x, 0)
+    (_, fargs), (dec, dargs) = fake_card.calls
+    assert fargs[14:16] == (None, None)
+    assert dec == "ptt_dense_decode" and len(dargs) == 15  # K6 takes no masking
+    assert pfa.launch_counts["flash_fwd_masked"] == 0
+
+
+MASKS = {
+    "none": None,
+    "key padding [b, 1, 1, s]": torch.zeros(2, 1, 1, 64),
+    "key padding [1, 1, 1, s]": torch.zeros(1, 1, 1, 64),
+    "per head [b, h, 1, s]": torch.zeros(2, 4, 1, 64),
+    "general [b, 1, s, s]": torch.zeros(2, 1, 64, 64),
+}
+
+
+@pytest.mark.parametrize("mask", MASKS, ids=list(MASKS))
+@pytest.mark.parametrize("shape", ["self", "gqa", "cross", "d 300"])
+def test_flash_viable_follows_the_reference_rule(mask, shape):
+    """`flash_viable` (the reference's `_pallas_viable`): the kernels take
+    no mask or a key-padding one, over q and k of one batch, length and
+    head width (GQA allowed); everything else is the plain path."""
+    d = 300 if shape == "d 300" else 16
+    q = torch.zeros(2, 64, 4, d)
+    k = torch.zeros(2, 48 if shape == "cross" else 64, 2 if shape == "gqa" else 4, d)
+    m = MASKS[mask]
+    if shape == "cross" and m is not None:
+        m = m[..., :48]
+    kbias = pfa.key_padding_bias(m, 2, k.shape[1])
+    viable, reason = pfa.flash_viable(q, k, m, kbias)
+    if mask.startswith("per head") or mask.startswith("general"):
+        assert (viable, reason) == (False, "attn_mask not key-padding")
+    elif shape == "cross":
+        assert (viable, reason) == (False, "q/k shapes differ")
+    elif shape == "d 300":
+        assert (viable, reason) == (False, "head_dim > 256")
+    else:
+        assert (viable, reason) == (True, None)
+
+
+def test_sdpa_dispatch_on_the_card(fake_card):
+    """On CUDA tensors a key-padding mask or segment ids launch K1 with
+    their operands; a general mask takes the plain path and reaches no
+    kernel, counted as a fallback."""
+    q = torch.zeros(2, 128, 4, 64, dtype=BF16)
+    segs = torch.zeros(2, 128, dtype=torch.int64)
+    pfa.sdpa(q, q, q, segment_ids=segs)
+    pfa.sdpa(q, q, q, torch.zeros(2, 1, 1, 128))
+    calls = [name for name, _ in fake_card.calls]
+    assert calls == ["ptt_flash_fwd", "ptt_flash_fwd"]
+    assert fake_card.calls[0][1][14] is not None  # the ids, as int32
+    assert fake_card.calls[1][1][15] is not None  # the key bias
+    pfa.sdpa(q, q, q, torch.zeros(2, 1, 128, 128))
+    assert len(fake_card.calls) == 2
+    assert pfa.fallback_counts["attn_mask not key-padding"] == 1
+    assert pfa.launch_counts["flash_fwd_masked"] == 2
+
+
+def test_cpu_masked_calls_never_reach_the_library(monkeypatch):
+    def no_library():
+        raise AssertionError("a CPU tensor reached the kernel library")
+
+    monkeypatch.setattr(_build, "lib", no_library)
+    q = torch.randn(2, 64, 4, 16)
+    for mask in MASKS.values():
+        pfa.sdpa(q, q, q, mask, segment_ids=torch.zeros(2, 64, dtype=torch.int32))
+    q.requires_grad_()
+    pfa.sdpa(q, q, q, MASKS["key padding [b, 1, 1, s]"]).sum().backward()
+    assert pfa.launch_counts == dict.fromkeys(pfa.launch_counts, 0)
