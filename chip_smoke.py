@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Eleven phases; a failure in any of them exits non-zero and prints no result.
+Thirteen phases; a failure in any of them exits non-zero and prints no
+result.
 
 1. device  -- requires CUDA; prints the card's name and power limit.
 2. build   -- builds every kernel of `paddle_tpu_torch/csrc` with nvcc.
@@ -20,31 +21,46 @@ Eleven phases; a failure in any of them exits non-zero and prints no result.
               BERT's shape beside SDPA with the equivalent boolean mask.  K5
               (context-parallel decode) is timed beside K2 over the same
               global arena; the chunk windows of K2, K4 and K5 are timed
-              apart.
-4. slice   -- serves a full-width, full-depth Llama-2-7B (bf16, random
+              apart.  Then K1 and K3 with the ring operands: q_offset over
+              rectangular keys (the gathered form's launch, rank 7 of 8 at
+              bench_longcontext_32k's shape: 4096 rows against 32768 keys, 8
+              heads of 128) timed beside SDPA with the equivalent boolean
+              mask; K1 with float32 out and with the carry, K3 with delta
+              (a rotating hop: 2048 rows against 2048 keys), timed; then
+              each on every path (wgmma, mma.sync, FMA).
+4. ring    -- bench_longcontext_32k's attention (one 32768-token sequence, 8
+              heads of 128, R = 8 ranks of the sep axis on the card): forward
+              and backward of full-sequence causal K1 + K3, then
+              `ring_attention_array` in the gathered and the rotating
+              zig-zag forms, then non-causal K1 + K3 and the non-causal
+              Pallas-hop ring; each ring form against its flash run (outputs,
+              gradients) with the launches its form implies; prints
+              attention_32k_fwd_bwd_ms, each form's ms (all ranks and per
+              rank) and ring_vs_split_flash.
+5. slice   -- serves a full-width, full-depth Llama-2-7B (bf16, random
               weights from a seeded generator) through the paged engine
               behind `POST /generate`, checks the token counts and that every
               prefill and decode step launched the two kernels, then
               teacher-forces the generated sequences through the full-sequence
               forward and compares logits.
-5. prefix  -- the same model behind prefix-cached engines, in full precision
+6. prefix  -- the same model behind prefix-cached engines, in full precision
               and over int8 pages: requests sharing a system prompt hit the
               cache, copy its tail page and chunk-prefill their suffix; checks
               token counts, hits and copies, the launches of K1, K2 and K4
               (every chunk prefill on the tensor-core path), logits against
               the teacher-forced forward, and prints the int8 run's greedy
               agreement with the full-precision run.
-6. generate -- the same model's lock-step `generate`: greedy over four
+7. generate -- the same model's lock-step `generate`: greedy over four
               500-token prompts, beam search, seeded sampling twice, a short
               prompt; K6 launched once per layer by every prefill of 64+
               tokens and never otherwise, no other kernel; prefill and
               decode logits against the teacher-forced forward; then a
               `GenerationPredictor` behind `POST /generate`.
-7. dense   -- the same model behind the dense slot-pool engine
+8. dense   -- the same model behind the dense slot-pool engine
               (`paged=False`) over HTTP: token counts, K1 once per layer per
               prefill and no other kernel, logits against the teacher-forced
               forward, decode tokens/s and TTFT beside the paged slice's.
-8. cp      -- the same model behind long-document engines (slots 4, the
+9. cp      -- the same model behind long-document engines (slots 4, the
               4096-token context): questions about one 3000-token document
               share its pages through the prefix cache, beside two fresh
               prompts, over HTTP; at cp=1, then cp=2 (the page audit every
@@ -56,7 +72,7 @@ Eleven phases; a failure in any of them exits non-zero and prints no result.
               logits against the teacher-forced forward; prints the greedy
               agreement between runs, speculation counters, decode
               tokens/s and TTFT, and a profiled cp=2 decode step.
-9. train   -- trains Llama-2-7B's widths at 8 layers (bf16 AMP O2, AdamW with
+10. train  -- trains Llama-2-7B's widths at 8 layers (bf16 AMP O2, AdamW with
               float32 master weights) for 6 steps on one repeated batch of
               4 x 2048 tokens: finite and falling losses, K1 (on its wgmma
               path) and K3 launched once per layer per step, every weight
@@ -64,10 +80,10 @@ Eleven phases; a failure in any of them exits non-zero and prints no result.
               tokens/s, peak memory and a profiled step.
               Then 2 steps of 2 layers with activation recompute (K1 twice
               per layer per step).
-10. grads  -- one step's gradients of a 2-layer model at the same widths
+11. grads  -- one step's gradients of a 2-layer model at the same widths
               with the kernels against the same step with attention through
               the plain forward under autograd.
-11. bert   -- bench_bert's BERT-base SQuAD fine-tuning (bf16 O2, AdamW at
+12. bert   -- bench_bert's BERT-base SQuAD fine-tuning (bf16 O2, AdamW at
               3e-5, dropout 0) for 6 steps on one batch of 32 x 384 tokens
               padded from lengths 192-384: finite and falling losses, K1 and
               K3 launched once per layer per step on their wgmma paths with
@@ -76,6 +92,19 @@ Eleven phases; a failure in any of them exits non-zero and prints no result.
               as a key-padding attn_mask (K1's key bias) against segment ids
               on the valid rows; then a 2-layer model's gradients with the
               kernels against attention through the plain forward.
+13. longcontext -- long-context training through the Llama's
+              `context_parallel_degree` on a sep mesh (ring attention, every
+              rank on the card): Llama-2-7B's widths at 4 layers, one
+              sequence of 32768 tokens over R = 8 (K/V 512 MiB a layer: the
+              rotating zig-zag form), bf16 O2 + AdamW, 3 steps: finite and
+              falling losses, exactly R (2R + 1) K1 and K3 launches per
+              layer per step (2R - 1 per rank with the carry, every K3 with
+              delta), every one on the wgmma path, no plain attention; step
+              time, tokens/s, peak memory, a profiled step.  Then 2 layers,
+              16384 tokens over R = 4 (K/V exactly 256 MiB: the gathered
+              form, one K1 and one K3 with q_offset per rank), 2 steps; then
+              one step's gradients of 2 layers at 32768 tokens over R = 8
+              against context_parallel_degree 1 (full-sequence K1/K3).
 
 Every phase prints its wall time.  The line before the last is the
 kernels' JSON record; the last line is {"ok": true, "device": {...}}.
@@ -293,12 +322,14 @@ def rel_norm_err(out, ref):
     return ((o - r).norm(dim=1) / r.norm(dim=1)).max().item()
 
 
-def close(out, ref):
+def close(out, ref, dtype=None):
     """Finite, elementwise within the dtype's tolerance of the plain
-    version, and within REL_NORM_TOL per (batch, head)."""
+    version, and within REL_NORM_TOL per (batch, head).  `dtype`: the name
+    of the inputs' dtype when it is not the output's (a float32 output of
+    bf16 inputs rounds p to bf16 as a bf16 output does)."""
     import torch
 
-    name = str(ref.dtype).removeprefix("torch.")
+    name = dtype or str(ref.dtype).removeprefix("torch.")
     atol, rtol = ((KERNEL_ATOL, KERNEL_RTOL) if name == "bfloat16"
                   else (F32_ATOL, F32_RTOL))
     o, r = out.float(), ref.float()
@@ -1086,6 +1117,268 @@ K3_CASES = (
 )
 
 
+# ring attention at bench_longcontext_32k's shape (bench.py:2347): one
+# sequence of 32768 tokens, 8 heads of 128, R = 8 ranks of the sep axis
+RING_SEQ = 32768
+RING_HEADS = 8
+RING_R = 8
+
+# the ring operands of K1 and K3 on every path they launch, untimed, at
+# S = 2048 over R = 4 (c = 256): wgmma (bf16, d 128 and 64, GQA), mma.sync
+# (bf16, d 96), FMA (float32; bf16 at d 256)
+RING_CASES = (
+    dict(h=8, hk=8),
+    dict(h=8, hk=2),
+    dict(h=4, hk=4, d=64),
+    dict(h=4, hk=4, d=96),
+    dict(h=4, hk=4, dtype="float32"),
+    dict(h=4, hk=2, d=256),
+)
+
+
+def _ring_inputs(S, R, h, hk, d, dtype, seed):
+    """Rank R-1's q shard in the zig-zag layout ([1, 2c, h, d]: chunks R-1
+    and R of c = S / 2R) with its q block starts, all S keys, and a g."""
+    import torch
+
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import ring_attention as ra
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    mk = lambda rows, heads: torch.randn(1, rows, heads, d, generator=gen,
+                                         device="cuda", dtype=getattr(torch, dtype))
+    c = S // (2 * R)
+    starts = ra._zigzag_starts(S, R, R - 1, "cuda")
+    return mk(2 * c, h), mk(S, hk), mk(S, hk), mk(2 * c, h), starts
+
+
+def _ring_pairs(starts, s, lk, h):
+    """(q, k) pairs a causal call with these q block starts computes."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    pos = fa.q_positions(s, starts, starts.device)
+    return int((pos.clamp(max=lk - 1) + 1).sum().item()) * h
+
+
+def _ring_bool_mask(starts, s, lk):
+    """The [1, 1, s, lk] boolean mask (True: attend) of a causal call with
+    these q block starts, for PyTorch's SDPA."""
+    import torch
+
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    pos = fa.q_positions(s, starts, starts.device)
+    return (pos[:, None] >= torch.arange(lk, device=pos.device)[None, :])[None, None]
+
+
+def _ring_offset_case(S, R, h, hk, d=128, dtype="bfloat16", seed=40, timed=False):
+    """K1 and K3 with `q_offset` over rectangular keys (the gathered form's
+    launch: rank R-1's 2c zig-zag rows against all S keys, causal) against
+    their plain versions; with `timed`, kernel, device, plain and library
+    times -- the library call is SDPA with the equivalent boolean mask --
+    and the bounds.  Returns (ok, K1 record, K3 record)."""
+    import torch
+    from torch.nn import functional as F
+
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, g, starts = _ring_inputs(S, R, h, hk, d, dtype, seed)
+    scale = 1.0 / d ** 0.5
+    s = q.shape[1]
+    out, lse = fa.flash_forward(q, k, v, True, scale, q_offset=starts)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = fa.flash_forward_plain(q, k, v, True, scale, q_offset=starts)
+    f_err = (out.float() - ref_out.float()).abs().max().item()
+    lse_err = (lse - ref_lse).abs().max().item()
+    f_ok = close(out, ref_out, dtype) and lse_err <= LSE_ATOL
+    del ref_out, ref_lse
+    args = (q, k, v, out, lse, g, True, scale)
+    got = fa.flash_backward(*args, q_offset=starts)
+    again = fa.flash_backward(*args, q_offset=starts)
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip(got, again))
+    del again
+    ref = fa.flash_backward_plain(*args, q_offset=starts)
+    errs = [(x.float() - r.float()).abs().max().item() for x, r in zip(got, ref)]
+    rels = [rel_norm_err(x, r) for x, r in zip(got, ref)]
+    b_ok = same and all(close(x, r, dtype) for x, r in zip(got, ref))
+    del ref
+    path = fa.flash_path(s, d, q.dtype)
+    shape = (f"{dtype} s={s} lk={S} h={h} hk={hk} d={d} causal, q_offset "
+             f"(rank {R - 1} of {R}) path {path}")
+    fwd = (f"flash_fwd offset {shape}: max_abs_err {f_err:.3e}, lse_err "
+           f"{lse_err:.3e}")
+    bwd = (f"flash_bwd offset {shape}: max_abs_err dq/dk/dv "
+           f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e}, rel_norm_err "
+           f"{rels[0]:.3e}/{rels[1]:.3e}/{rels[2]:.3e}, two calls equal bit for "
+           f"bit {same}")
+    frec, brec = dict(max_abs_err=f_err), dict(max_abs_err=max(errs))
+    if timed:
+        mask = _ring_bool_mask(starts, s, S)
+        rep = h // hk
+        qt = q.transpose(1, 2).detach().requires_grad_()
+        kt = k.transpose(1, 2).repeat_interleave(rep, 1).detach().requires_grad_()
+        vt = v.transpose(1, 2).repeat_interleave(rep, 1).detach().requires_grad_()
+        lib_fwd = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+        lib_out = lib_fwd()
+        gt = g.transpose(1, 2)
+        lib_bwd = lambda: torch.autograd.grad(lib_out, (qt, kt, vt), gt,
+                                              retain_graph=True)
+        pairs = _ring_pairs(starts, s, S, h)
+        qb, kb = q.numel() * q.element_size(), k.numel() * k.element_size()
+        # K1: q, k, v read, out written, lse; K3: q, out, g, dq and k, v,
+        # dk, dv, lse; the starts
+        f_bound = bound(2 * qb + 2 * kb + 4 * lse.numel() + 4 * starts.numel(),
+                        4 * d * pairs)
+        b_bound = bound(4 * qb + 4 * kb + 4 * lse.numel() + 4 * starts.numel(),
+                        10 * d * pairs)
+        for what, rec, call, plain, lib, (bms, by) in (
+                ("flash_fwd", frec,
+                 lambda: fa.flash_forward(q, k, v, True, scale, q_offset=starts),
+                 lambda: fa.flash_forward_plain(q, k, v, True, scale,
+                                                q_offset=starts),
+                 lib_fwd, f_bound),
+                ("flash_bwd", brec,
+                 lambda: fa.flash_backward(*args, q_offset=starts),
+                 lambda: fa.flash_backward_plain(*args, q_offset=starts),
+                 lib_bwd, b_bound)):
+            ms = time_ms(call)
+            dev, parts = device_ms(call)
+            plain_ms = time_ms(plain, iters=3, warmup=1)
+            lib_ms = time_ms(lib)
+            lib_dev, _ = device_ms(lib)
+            rec.update(ms=ms, device_ms=dev, plain_ms=plain_ms, bound_ms=bms,
+                       bound_by=by, library_ms=lib_ms)
+            text = (f", kernel_ms {ms:.4f}, device_ms {_dev_txt(dev)} "
+                    f"({_parts_txt(parts)}), plain_ms {plain_ms:.4f}, library_ms "
+                    f"{lib_ms:.4f} (device {_dev_txt(lib_dev)}; SDPA with the "
+                    f"boolean mask), bound_ms {bms:.5f} ({by}, {pairs} pairs)")
+            if what == "flash_fwd":
+                fwd += text
+            else:
+                bwd += text
+        del lib_out, mask
+    log("kernels", f"{fwd} -> {'ok' if f_ok else 'FAIL'}")
+    log("kernels", f"{bwd} -> {'ok' if b_ok else 'FAIL'}")
+    return f_ok and b_ok, frec, brec
+
+
+def _ring_hop_case(c, h, hk, d=128, dtype="bfloat16", seed=41, timed=False):
+    """A rotating-ring hop: q of c rows after a causal diagonal hop (K1 with
+    float32 out, no carry), then K1 over the next c keys with the carry
+    (float32 out), then K3 of that hop with the delta of the merged result;
+    each against its plain version.  With `timed`, the carry K1 and the
+    delta K3 are timed (no one PyTorch call computes either: library
+    none).  Returns (ok, K1 carry record, K3 delta record)."""
+    import torch
+
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    mk = lambda heads: torch.randn(1, c, heads, d, generator=gen, device="cuda",
+                                   dtype=getattr(torch, dtype))
+    q, k0, v0, k, v, g = mk(h), mk(hk), mk(hk), mk(hk), mk(hk), mk(h)
+    scale = 1.0 / d ** 0.5
+    f32 = torch.float32
+    first = fa.flash_forward(q, k0, v0, True, scale, out_dtype=f32)
+    ref_first = fa.flash_forward_plain(q, k0, v0, True, scale, out_dtype=f32)
+    out, lse = fa.flash_forward(q, k, v, False, scale, carry=first, out_dtype=f32)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = fa.flash_forward_plain(q, k, v, False, scale, carry=first,
+                                              out_dtype=f32)
+    errs_f = [(first[0] - ref_first[0]).abs().max().item(),
+              (out - ref_out).abs().max().item()]
+    lse_err = max((first[1] - ref_first[1]).abs().max().item(),
+                  (lse - ref_lse).abs().max().item())
+    f_ok = (first[0].dtype == f32 and out.dtype == f32
+            and close(first[0], ref_first[0], dtype)
+            and close(out, ref_out, dtype) and lse_err <= LSE_ATOL)
+    gq = g.to(q.dtype)
+    delta = (gq.float() * out).sum(-1).transpose(1, 2).contiguous()
+    got = fa.flash_backward(q, k, v, None, lse, gq, False, scale, delta=delta)
+    again = fa.flash_backward(q, k, v, None, lse, gq, False, scale, delta=delta)
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip(got, again))
+    ref = fa.flash_backward_plain(q, k, v, None, lse, gq, False, scale, delta=delta)
+    errs = [(x.float() - r.float()).abs().max().item() for x, r in zip(got, ref)]
+    rels = [rel_norm_err(x, r) for x, r in zip(got, ref)]
+    b_ok = same and all(close(x, r, dtype) for x, r in zip(got, ref))
+    path = fa.flash_path(c, d, q.dtype)
+    shape = f"{dtype} s=lk={c} h={h} hk={hk} d={d} path {path}"
+    fwd = (f"flash_fwd carry {shape}: float32 out of a causal hop max_abs_err "
+           f"{errs_f[0]:.3e}, then a full hop merged onto it max_abs_err "
+           f"{errs_f[1]:.3e}, lse_err {lse_err:.3e}")
+    bwd = (f"flash_bwd delta {shape}: max_abs_err dq/dk/dv "
+           f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e}, rel_norm_err "
+           f"{rels[0]:.3e}/{rels[1]:.3e}/{rels[2]:.3e}, two calls equal bit for "
+           f"bit {same}")
+    frec, brec = dict(max_abs_err=max(errs_f)), dict(max_abs_err=max(errs))
+    if timed:
+        qb, kb = q.numel() * q.element_size(), k.numel() * k.element_size()
+        hop_pairs = h * c * c
+        # K1: q, k, v; the carry (f32 out, lse) read, out and lse written
+        f_bound = bound(qb + 2 * kb + 2 * 4 * out.numel() + 2 * 4 * lse.numel(),
+                        4 * d * hop_pairs)
+        # K3: q, g, dq, k, v, dk, dv; lse and delta read
+        b_bound = bound(3 * qb + 4 * kb + 2 * 4 * lse.numel(), 10 * d * hop_pairs)
+        for what, rec, call, plain, (bms, by) in (
+                ("flash_fwd", frec,
+                 lambda: fa.flash_forward(q, k, v, False, scale, carry=first,
+                                          out_dtype=f32),
+                 lambda: fa.flash_forward_plain(q, k, v, False, scale,
+                                                carry=first, out_dtype=f32),
+                 f_bound),
+                ("flash_bwd", brec,
+                 lambda: fa.flash_backward(q, k, v, None, lse, gq, False, scale,
+                                           delta=delta),
+                 lambda: fa.flash_backward_plain(q, k, v, None, lse, gq, False,
+                                                 scale, delta=delta),
+                 b_bound)):
+            ms = time_ms(call)
+            dev, parts = device_ms(call)
+            plain_ms = time_ms(plain, iters=5, warmup=1)
+            rec.update(ms=ms, device_ms=dev, plain_ms=plain_ms, bound_ms=bms,
+                       bound_by=by, library_ms=None)
+            text = (f", kernel_ms {ms:.4f}, device_ms {_dev_txt(dev)} "
+                    f"({_parts_txt(parts)}), plain_ms {plain_ms:.4f}, library "
+                    f"none, bound_ms {bms:.5f} ({by})")
+            if what == "flash_fwd":
+                fwd += text
+            else:
+                bwd += text
+    log("kernels", f"{fwd} -> {'ok' if f_ok else 'FAIL'}")
+    log("kernels", f"{bwd} -> {'ok' if b_ok else 'FAIL'}")
+    return f_ok and b_ok, frec, brec
+
+
+def ring_kernel_cases(timed=True):
+    """The ring operands: K1 and K3 with q_offset (rectangular), K1 with
+    float32 out and with the carry, K3 with delta.  Timed at the ring
+    shape (`RING_*`), then untimed on every path (`RING_CASES`).  Returns
+    (ok, {record name: record})."""
+    ok_all = True
+    recs = {}
+    if timed:
+        ok, recs["flash_fwd_offset"], recs["flash_bwd_offset"] = _ring_offset_case(
+            RING_SEQ, RING_R, RING_HEADS, RING_HEADS, timed=True)
+        ok_all &= ok
+        ok, recs["flash_fwd_carry"], recs["flash_bwd_delta"] = _ring_hop_case(
+            RING_SEQ // (2 * RING_R), RING_HEADS, RING_HEADS, timed=True)
+        ok_all &= ok
+    errs = {name: [] for name in ("flash_fwd_offset", "flash_bwd_offset",
+                                  "flash_fwd_carry", "flash_bwd_delta")}
+    for kw in RING_CASES:
+        ok, f1, b1 = _ring_offset_case(2048, 4, seed=42, **kw)
+        ok2, f2, b2 = _ring_hop_case(256, seed=43, **kw)
+        ok_all &= ok and ok2
+        if kw.get("dtype", "bfloat16") == "bfloat16":
+            for name, rec in (("flash_fwd_offset", f1), ("flash_bwd_offset", b1),
+                              ("flash_fwd_carry", f2), ("flash_bwd_delta", b2)):
+                errs[name].append(rec["max_abs_err"])
+    for name, rec in recs.items():
+        rec["max_abs_err"] = max([rec["max_abs_err"], *errs[name]])
+    return ok_all, recs
+
+
 def _k3_repeat(b, s, h, hk, d=128, causal=True, seed=17):
     """K3 twice on the same inputs: dq, dk and dv must be equal bit for bit
     (no float atomics, a fixed order of every sum)."""
@@ -1113,7 +1406,8 @@ def phase_kernels():
     then untimed over every other variant the wrappers launch on the card
     (float32, head_dim 64 and 256, non-causal, GQA, ragged, the largest
     shared memory, each kernel path of `flash_path` and `paged_path`, cp 2
-    and 4), with K3 held bit for bit across two calls.  Returns ({name:
+    and 4), with K3 held bit for bit across two calls; then K1's and K3's
+    ring operands (`ring_kernel_cases`).  Returns ({name:
     record at the headline shape}, all_ok); the record's max_abs_err is the
     worst over the bf16 cases of that entry (over every case of an FMA
     page-walk entry)."""
@@ -1284,9 +1578,14 @@ def phase_kernels():
         dict(b=2, sq=16, h=32, hk=8, d=64, pos=[2000, 10]),            # GQA
     ):
         case(_k5_case, errs5c, seed=22, timed=False, **kw)
+    # the ring operands of K1 and K3: timed at the ring's shapes, then on
+    # every path
+    ring_ok, ring_recs = ring_kernel_cases(timed=True)
+    ok_all &= ring_ok
     torch.cuda.empty_cache()
     worst = lambda rec, errs: dict(rec, max_abs_err=max(errs))
-    return {"flash_fwd": worst(k1[512], errs1),
+    return {**ring_recs,
+            "flash_fwd": worst(k1[512], errs1),
             "flash_fwd_wgmma": worst(k1_train, errs1),
             "paged_decode_fused": worst(k2, errs2),
             "paged_decode_fused_walk": worst(k2w, errs2w),
@@ -2605,6 +2904,268 @@ def bert_grad_check(cfg, device="cuda", batch=BERT_BATCH, seq=BERT_SEQ, seed=1):
     return ok, ratios[worst]
 
 
+# ---------------------------------------------------------------------------
+# ring (context-parallel) attention and long-context training
+# ---------------------------------------------------------------------------
+
+# the long-context training cells: Llama-2-7B's widths with the sep axis's
+# R ranks on the card.  32768 tokens over R = 8: K/V of 512 MiB per layer
+# (bf16, 32 heads of 128), over the 256 MiB budget, so the rotating
+# zig-zag form; depth cut to 4 layers (the 8-layer train phase peaks at
+# 40.63 GiB with 8192 tokens).  Then 16384 tokens over R = 4 at 2 layers:
+# K/V of exactly 256 MiB, the gathered form.
+LC_SEQ, LC_R, LC_LAYERS, LC_STEPS = 32768, 8, 4, 3
+LC2_SEQ, LC2_R, LC2_LAYERS, LC2_STEPS = 16384, 4, 2, 2
+
+
+def _ring_launches(form, R, calls=1):
+    """The K1/K3 launches `calls` ring calls of `form` make over R ranks:
+    gathered one K1 and one K3 per rank, each with q_offset; rotating 2R + 1
+    of each per rank, 2R - 1 K1 with the carry, every K3 with delta; the
+    Pallas-hop ring (not causal) R of each per rank, R - 1 K1 with the
+    carry; flash (no ring) one of each."""
+    per = {"gathered": dict(fwd=R, offset=R, carry=0, delta=0),
+           "rotating": dict(fwd=R * (2 * R + 1), offset=0, carry=R * (2 * R - 1),
+                            delta=R * (2 * R + 1)),
+           "hops": dict(fwd=R * R, offset=0, carry=R * (R - 1), delta=R * R),
+           "flash": dict(fwd=1, offset=0, carry=0, delta=0)}[form]
+    return {"flash_fwd": calls * per["fwd"], "flash_bwd": calls * per["fwd"],
+            "flash_fwd_offset": calls * per["offset"],
+            "flash_bwd_offset": calls * per["offset"],
+            "flash_fwd_carry": calls * per["carry"],
+            "flash_bwd_delta": calls * per["delta"]}
+
+
+def _launches_ok(counts, want, on_card):
+    """Every count of `want` as expected (0 on the CPU), every K1/K3 launch
+    on its wgmma path, and no attention fell back to the plain path."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import ring_attention as ra
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    scale = 1 if on_card else 0
+    ok = all(counts[name] == n * scale for name, n in want.items())
+    ok &= counts["flash_fwd_wgmma"] == counts["flash_fwd"]
+    ok &= counts["flash_bwd_wgmma"] == counts["flash_bwd"]
+    return ok and not any(fa.fallback_counts.values()) and ra.form_counts["plain"] == 0
+
+
+def phase_ring(smi, S=RING_SEQ, h=RING_HEADS, d=128, R=RING_R, seed=50,
+               device="cuda", iters=5):
+    """bench_longcontext_32k's attention (bench.py:2347-2455) through the
+    port: q, k, v [1, S, h, d] bf16, loss = mean(out^2), forward and
+    backward, in five ways -- full-sequence causal K1 + K3 ("flash", the
+    reference's baseline), `ring_attention_array` over a sep axis of R in
+    the gathered zig-zag form, in the rotating form (the gathered-KV budget
+    set to 0, as tests/test_longcontext_moe.py:278 does), then non-causal
+    K1 + K3 and the non-causal Pallas-hop ring.  Each ring form against its
+    flash run (outputs at the kernels' bf16 tolerance, gradients per (b,
+    head) within REL_NORM_TOL), the launches of each run against the form,
+    then `attention_32k_fwd_bwd_ms` (flash), each form's ms over all R
+    ranks (one after another on the card) and per rank (over R), and
+    `ring_vs_split_flash` = per rank / (flash / R).  Returns (ok, the runs'
+    launch counts)."""
+    import torch
+
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.distributed import mesh
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import ring_attention as ra
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    on_card = torch.device(device).type == "cuda"
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, k, v = (torch.randn(1, S, h, d, generator=gen, device=device,
+                           dtype=torch.bfloat16) for _ in range(3))
+
+    def step(fn):
+        qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+        out = fn(qs, ks, vs)
+        grads = torch.autograd.grad((out.float() ** 2).mean(), (qs, ks, vs))
+        return out.detach(), grads
+
+    ring = lambda causal: (lambda *x: ra.ring_attention_array(*x, "sep", causal))
+    flash = lambda causal: (lambda *x: fa.sdpa(*x, None, causal))
+    ways = (("flash", True, flash(True), None), ("gathered", True, ring(True), None),
+            ("rotating", True, ring(True), 0), ("flash", False, flash(False), None),
+            ("hops", False, ring(False), None))
+    saved = mesh.get_mesh(), ra._GATHERED_KV_MAX_BYTES
+    mesh.build_mesh(sep=R, device=device)
+    ok_all, runs, ms, ref = True, [], {}, {}
+    try:
+        for form, causal, fn, budget in ways:
+            ra._GATHERED_KV_MAX_BYTES = saved[1] if budget is None else budget
+            fa.reset_launch_counts()
+            ra.reset_form_counts()
+            out, grads = step(fn)  # the main path's run
+            if on_card:
+                torch.cuda.synchronize()
+            counts = profiler.kernel_launch_counts()
+            forms = dict(ra.form_counts)
+            runs.append(counts)
+            name = form if form != "flash" else f"flash causal={causal}"
+            ok = _launches_ok(counts, _ring_launches(form, R), on_card)
+            ok &= form == "flash" or forms[form] == 1
+            text = f"{name}: launches {_main(counts)}, forms {_main(forms)}"
+            if form == "flash":
+                ref[causal] = (out, grads)
+            else:
+                r_out, r_grads = ref[causal]
+                err = (out.float() - r_out.float()).abs().max().item()
+                g_rel = [rel_norm_err(x, r) for x, r in zip(grads, r_grads)]
+                held = close(out, r_out) and max(g_rel) <= REL_NORM_TOL["bfloat16"]
+                ok &= held
+                text += (f"; against flash: out max_abs_err {err:.3e}, rel_norm_err "
+                         f"{rel_norm_err(out, r_out):.3e}, grads rel_norm_err dq/dk/dv "
+                         + "/".join(f"{x:.3e}" for x in g_rel))
+            del out, grads
+            if on_card:
+                ms[name] = time_ms(lambda: step(fn), iters=iters, warmup=1)
+                dev, _ = device_ms(lambda: step(fn), iters=2, warmup=0)
+                text += f"; fwd+bwd ms {ms[name]:.3f} (device {_dev_txt(dev)})"
+            log("ring", f"{text} -> {'ok' if ok else 'FAIL'}")
+            ok_all &= ok
+    finally:
+        mesh.set_mesh(saved[0])
+        ra._GATHERED_KV_MAX_BYTES = saved[1]
+    if on_card:
+        t_flash = ms["flash causal=True"]
+        metrics = {"attention_32k_fwd_bwd_ms": t_flash}
+        for form, base in (("gathered", t_flash), ("rotating", t_flash),
+                           ("hops", ms["flash causal=False"])):
+            metrics[f"ring_{form}_ms"] = ms[form]
+            metrics[f"ring_{form}_per_rank_ms"] = ms[form] / R
+            metrics[f"ring_vs_split_flash_{form}"] = (ms[form] / R) / (base / R)
+        metrics["ring_vs_split_flash"] = metrics["ring_vs_split_flash_gathered"]
+        log("ring", f"S {S}, h {h}, d {d}, R {R} (all ranks on one card, one "
+                    f"after another; per rank = all / R; the non-causal hop ring "
+                    f"against non-causal flash): {json.dumps(metrics)} | {smi}")
+    return ok_all, runs
+
+
+def phase_longcontext(smi, cfg, R, seq, steps, form, device="cuda", seed=0,
+                      profile=True):
+    """Long-context training (the reference's context parallelism:
+    `LlamaConfig.context_parallel_degree` on a sep mesh of R): `cfg` for
+    `steps` AdamW steps (bf16 O2) on one sequence of `seq` tokens, the
+    attention of every layer through ring attention in `form`.  Checks
+    finite and falling losses and the exact launches the form implies
+    (`_ring_launches`, once per layer per step, every one on the wgmma
+    path, no plain attention); prints step time, tokens/s, peak memory and,
+    with `profile`, a profiled step.  Returns (ok, launch counts)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.distributed import mesh
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import ring_attention as ra
+
+    phase = f"longcontext {seq}"
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.cuda.reset_peak_memory_stats()
+    saved = mesh.get_mesh()
+    mesh.build_mesh(sep=R, device=device)
+    try:
+        model, opt = _train_model(cfg, device, seed=seed)
+        layers = cfg.num_hidden_layers
+        kv_mib = seq * cfg.hidden_size * 2 * 2 / 2**20
+        log(phase, f"Llama {cfg.hidden_size} hidden x {layers} layers, "
+                   f"context_parallel_degree {cfg.context_parallel_degree} on a "
+                   f"sep mesh of {R}, one sequence of {seq} tokens (K/V {kv_mib:.0f} "
+                   f"MiB a layer against the {ra._GATHERED_KV_MAX_BYTES / 2**20:.0f} "
+                   f"MiB budget: the {form} form), bf16 O2 + AdamW")
+        rng = np.random.default_rng(seed)
+        ids = torch.from_numpy(
+            rng.integers(1, cfg.vocab_size, size=(1, seq)).astype(np.int32)).to(device)
+        profiler.reset_kernel_launch_counts()
+        ra.reset_form_counts()
+        losses, secs = [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            losses.append(_train_step(model, opt, ids).item())
+            if on_card:
+                torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        counts = profiler.kernel_launch_counts()
+        forms = dict(ra.form_counts)
+        want = _ring_launches(form, R, calls=layers * steps)
+        counts_ok = (_launches_ok(counts, want, on_card)
+                     and forms == dict(dict.fromkeys(ra.FORMS, 0),
+                                       **{form: layers * steps}))
+        finite = all(np.isfinite(losses))
+        falls = losses[-1] < losses[0]
+        step_s = statistics.median(secs[1:])
+        peak = (f"{torch.cuda.max_memory_allocated() / 2**30:.2f}" if on_card
+                else "not measured")
+        log(phase, "losses " + " ".join(f"{x:.4f}" for x in losses)
+                   + f": finite {finite}, last < first {falls}")
+        log(phase, f"launches {_main(counts)}, forms {_main(forms)} (expected "
+                   f"{want} on the card, each on the wgmma path, no plain "
+                   f"attention) -> {'ok' if counts_ok else 'FAIL'}")
+        log(phase, f"step_ms median of steps 2-{steps} {step_s * 1e3:.1f} (all: "
+                   + " ".join(f"{x * 1e3:.1f}" for x in secs)
+                   + f"), tokens_per_s {seq / step_s:.1f}, peak_mem_gib {peak} | {smi}")
+        if on_card and profile:
+            wall_us, kernels, spans = _device_profile(
+                lambda: _train_step(model, opt, ids), 1)
+            _log_profile(f"long-context training step, {seq} tokens over R {R}, "
+                         f"{layers} layers", wall_us, kernels, spans, 1, top=12)
+    finally:
+        mesh.set_mesh(saved)
+    return finite and falls and counts_ok, counts
+
+
+def longcontext_grad_check(cfg, R, seq, device="cuda", seed=1):
+    """One step's parameter gradients of `cfg` (context_parallel_degree R)
+    through ring attention on a sep mesh of R, against the same weights and
+    tokens with context_parallel_degree 1 (full-sequence K1/K3): per
+    parameter ||g_ring - g_flash|| / ||g_flash|| <= GRAD_REL_TOL.  Returns
+    (ok, worst ratio)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.distributed import mesh
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import ring_attention as ra
+
+    saved = mesh.get_mesh()
+    mesh.build_mesh(sep=R, device=device)
+    try:
+        model, _ = _train_model(cfg, device, seed=seed)
+        ids = torch.from_numpy(np.random.default_rng(seed).integers(
+            1, cfg.vocab_size, size=(1, seq)).astype(np.int32)).to(device)
+
+        def grads():
+            loss, _ = model(ids, labels=ids)
+            loss.backward()
+            out = {n: p.grad.detach().float() for n, p in model.named_parameters()}
+            model.zero_grad(set_to_none=True)
+            return out
+
+        ra.reset_form_counts()
+        ring = grads()
+        ring_forms = dict(ra.form_counts)
+        model.config.context_parallel_degree = 1
+        flash = grads()
+        flash_forms = dict(ra.form_counts)
+    finally:
+        mesh.set_mesh(saved)
+    ratios = {n: ((ring[n] - flash[n]).norm() / flash[n].norm()).item() for n in ring}
+    worst = max(ratios, key=ratios.get)
+    layers = cfg.num_hidden_layers
+    forms_ok = (sum(ring_forms.values()) == layers and ring_forms["plain"] == 0
+                and flash_forms == ring_forms)
+    ok = (all(np.isfinite(list(ratios.values()))) and ratios[worst] <= GRAD_REL_TOL
+          and forms_ok)
+    log(f"longcontext {seq}", f"grad check, {layers} layers, {seq} tokens over R "
+                              f"{R} ({_main(ring_forms)}) against "
+                              f"context_parallel_degree 1: worst ||g_ring - "
+                              f"g_flash|| / ||g_flash|| {ratios[worst]:.3e} "
+                              f"({worst}), median "
+                              f"{statistics.median(ratios.values()):.3e} (tol "
+                              f"{GRAD_REL_TOL}) -> {'ok' if ok else 'FAIL'}")
+    return ok, ratios[worst]
+
+
 def _free():
     """Release the previous phase's model before the next one builds."""
     import gc
@@ -2639,6 +3200,8 @@ def main():
         smi = _timed("device", phase_device)
         _timed("build", phase_build)
         kernels, kernels_ok = _timed("kernels", phase_kernels)
+        ring_ok, ring_counts = _timed("ring", phase_ring, smi)
+        _free()
         from paddle_tpu_torch.models.llama import LlamaConfig
 
         serving = dict(slots=8, max_len=2048, page_size=128,
@@ -2697,18 +3260,37 @@ def main():
         _free()
         bert_grad_ok, _ = _timed("bert", bert_grad_check, BertConfig.bert_base(
             num_hidden_layers=2, **no_dropout))
+        _free()
+        # long-context training: the rotating zig-zag form at 32768 tokens
+        # over R = 8, then the gathered form at 16384 over R = 4, then one
+        # step's gradients against full-sequence attention
+        lc = lambda seq, layers, cp: LlamaConfig.llama2_7b(
+            num_hidden_layers=layers, context_parallel_degree=cp,
+            max_position_embeddings=seq)
+        lc_ok, lc_counts = _timed("longcontext", phase_longcontext, smi,
+                                  lc(LC_SEQ, LC_LAYERS, LC_R), LC_R, LC_SEQ,
+                                  LC_STEPS, "rotating")
+        _free()
+        lc2_ok, lc2_counts = _timed("longcontext", phase_longcontext, smi,
+                                    lc(LC2_SEQ, LC2_LAYERS, LC2_R), LC2_R, LC2_SEQ,
+                                    LC2_STEPS, "gathered", profile=False)
+        _free()
+        lc_grad_ok, _ = _timed("longcontext", longcontext_grad_check,
+                               lc(LC_SEQ, 2, LC_R), LC_R, LC_SEQ)
     except Exception:
         traceback.print_exc()
         return 1
     if not (kernels_ok and slice_ok and prefix_ok and gen_ok and dense_ok
             and cp_ok and f32_ok and train_ok and recompute_ok and grad_ok
-            and bert_ok and bert_grad_ok):
+            and bert_ok and bert_grad_ok and ring_ok and lc_ok and lc2_ok
+            and lc_grad_ok):
         print("chip_smoke: a phase failed (see the lines above)", file=sys.stderr)
         return 1
     # launches: the serving, generation and training runs' counts, each read
     # just after its path ran
     runs = [counts, *prefix_counts, gen_counts, dense_counts, *cp_counts,
-            *f32_counts, train_counts, bert_counts]
+            *f32_counts, train_counts, bert_counts, *ring_counts, lc_counts,
+            lc2_counts]
     launches = {name: sum(c[name] for c in runs) for name in kernels}
     # K5's two variants are one kernel of the record, on each path
     for path in ("", "_mma", "_walk"):
@@ -2719,8 +3301,12 @@ def main():
     # main-path shape (K1 and K3 at the training shape, the chunk windows at
     # a hit's 256-row chunk prefill, the walks at a decode step), with the
     # launches that took it; a `_masked` entry is K1's or K3's launches with
-    # segment ids or a key bias, timed at BERT's shape; the plain entry is
-    # timed at its headline shape and counts all its kernel's launches
+    # segment ids or a key bias, timed at BERT's shape; an `_offset`,
+    # `_carry` or `_delta` entry is K1's or K3's launches with that ring
+    # operand, timed at the ring's shape (bench_longcontext_32k: the gathered
+    # form's launch for q_offset, a rotating hop for the carry and delta);
+    # the plain entry is timed at its headline shape and counts all its
+    # kernel's launches
     entries = (
         ("flash_fwd", "flash_fwd.cu", 186),
         ("flash_fwd_wgmma", "flash_fwd.cu", 186),
@@ -2734,6 +3320,10 @@ def main():
         ("flash_bwd_wgmma", "flash_bwd.cu", 415),
         ("flash_fwd_masked", "flash_fwd.cu", 186),
         ("flash_bwd_masked", "flash_bwd.cu", 415),
+        ("flash_fwd_offset", "flash_fwd.cu", 186),
+        ("flash_fwd_carry", "flash_fwd.cu", 186),
+        ("flash_bwd_offset", "flash_bwd.cu", 415),
+        ("flash_bwd_delta", "flash_bwd.cu", 415),
         ("dense_decode", "flash_fwd.cu", 649),
         ("paged_decode_fused_cp", "paged_decode.cu", 1172),
         ("paged_decode_fused_cp_walk", "paged_decode.cu", 1172),

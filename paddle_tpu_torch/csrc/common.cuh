@@ -82,6 +82,41 @@ __device__ __forceinline__ float bias_of(const Masking& mk, int b, int s,
   return mk.kbias != nullptr ? __ldg(mk.kbias + (size_t)b * s + j) : 0.f;
 }
 
+// The ring-attention operands of K1 and K3 (the reference's `q_offset=`,
+// `carry=` and `out_dtype=`), read only by the kernels' kRing
+// instantiations, so a launch without them runs the instructions it ran
+// before they existed.
+//  - q_off [s / bq] int32: the absolute position of the first row of each
+//    bq-row block of q (bq a multiple of 128, so no kernel tile straddles
+//    two blocks); null: row i sits at position i.  Key j sits at j.
+//  - c_out [b, s, h, d] f32 and c_lse [b, h, s] f32 (K1): a partial
+//    (out, lse) the launch merges its keys onto; null: none.
+//  - out32 (K1): write the output in f32 here, not in the input dtype.
+struct Ring {
+  const int* q_off;
+  int bq;
+  const float* c_out;
+  const float* c_lse;
+  float* out32;
+
+  bool on() const {
+    return q_off != nullptr || c_out != nullptr || out32 != nullptr;
+  }
+};
+
+// Which instantiation of a kernel a launch takes: 0 the plain one, 1 the
+// masked one, 2 the ring one (the two flags never combine).
+inline int variant(const Masking& mk, const Ring& rg) {
+  return rg.on() ? 2 : mk.on() ? 1 : 0;
+}
+
+// The shift that puts row qi of the tile starting at row q0 at key
+// position qpos + qi: the tile's block start less its first row.
+__device__ __forceinline__ int ring_qpos(const Ring& rg, int q0) {
+  return rg.q_off != nullptr ? __ldg(rg.q_off + q0 / rg.bq) + q0 % rg.bq - q0
+                             : 0;
+}
+
 // dtype codes passed from Python: 0 = float32, 1 = bfloat16.
 constexpr int kFloat32 = 0;
 constexpr int kBFloat16 = 1;

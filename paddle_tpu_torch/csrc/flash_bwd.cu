@@ -51,7 +51,21 @@
 // tiles' ids (and, for key tiles, biases) ride in shared memory beside
 // them, staged by the producer (the Hopper kernels) or read through the
 // read-only path (the others).
-// Not yet: q_offset, delta (ring attention).
+// K3 also takes the reference's ring operands (`ptt_flash_bwd_ring`), on
+// every path, under a compile-time flag (kRing) so a launch without them
+// runs the instructions it ran before:
+//  - rectangular keys: dk and dv come out at lk rows;
+//  - `q_offset`: each bq-row block of q starts at its own absolute
+//    position.  A zig-zag shard's two chunks jump, so "the q tiles from
+//    the diagonal on" is no longer a contiguous range: the dk/dv kernels
+//    test every q tile's absolute rows against their key tile (skip it,
+//    take it whole, or mask it), and the dq kernels end their key sweep at
+//    their tile's absolute diagonal;
+//  - `delta=`: the ring computes rowsum(g * out) once for all its hops;
+//    given, the pre-pass is skipped and `out` is not read.
+// The ring's `g` is the cotangent of its final cast to the input dtype
+// (ring_attention.py:199, :372), so its values are exact in bf16: K3 takes
+// g in q's dtype and needs no float32-g path.
 
 #include <stdint.h>
 
@@ -69,6 +83,7 @@ constexpr int kThreads = 256;  // FMA kernels: 16 x 16 threads
 using ptt::kNegInf;
 using ptt::kNegInf2;
 using ptt::Masking;
+using ptt::Ring;
 
 // p = exp(score - lse) of one in-bounds (row, key) pair under segment ids
 // or a key bias, the score masked as K1 masked it: `dot` is q.k, `kb` the
@@ -159,15 +174,16 @@ __device__ __forceinline__ void load_rowstats(float* lse_s, float* delta_s,
 // One block per (key tile of BT, kv head, batch).  Thread (ty, tx) owns
 // keys ty*R + i (i < R = BT / 16); for the score tile it owns q rows
 // tx + 16*j, for dk/dv dims tx + 16*jj (jj < NJ).  kMask: segment ids or a
-// key bias take part (every kernel here takes this flag).
-template <typename T, int BT, int NJ, bool kMask>
+// key bias take part; kRing: the q blocks' absolute starts (`rg.q_off`)
+// do (every kernel here takes both flags, never both set).  Keys: lk rows.
+template <typename T, int BT, int NJ, bool kMask, bool kRing>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ g,
                       const float* __restrict__ lse,
                       const float* __restrict__ delta, T* __restrict__ dk,
-                      T* __restrict__ dv, Masking mk, int s, int h, int hk,
-                      int d, int causal, float scale) {
+                      T* __restrict__ dv, Masking mk, Ring rg, int s, int lk,
+                      int h, int hk, int d, int causal, float scale) {
   constexpr int R = BT / 16;
   constexpr int pp = BT + 1;
   extern __shared__ float smem[];
@@ -190,15 +206,15 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int ty = threadIdx.x / 16;
   const bool bias = mk.kbias != nullptr;
 
-  load_tile<T, BT>(k_s, dp, k, b, k0, s, hk, kvh, d);
-  load_tile<T, BT>(v_s, dp, v, b, k0, s, hk, kvh, d);
+  load_tile<T, BT>(k_s, dp, k, b, k0, lk, hk, kvh, d);
+  load_tile<T, BT>(v_s, dp, v, b, k0, lk, hk, kvh, d);
   int kseg[R];  // this thread's keys: ids and biases, read once
   float kb[R];
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     const int kj = k0 + ty * R + i;
-    kseg[i] = kMask && kj < s ? ptt::seg_of(mk, b, s, kj) : 0;
-    kb[i] = kMask && kj < s ? ptt::bias_of(mk, b, s, kj) : 0.f;
+    kseg[i] = kMask && kj < lk ? ptt::seg_of(mk, b, lk, kj) : 0;
+    kb[i] = kMask && kj < lk ? ptt::bias_of(mk, b, lk, kj) : 0.f;
   }
 
   float dk_acc[R][NJ], dv_acc[R][NJ];
@@ -208,11 +224,14 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int jj = 0; jj < NJ; ++jj) dk_acc[i][jj] = dv_acc[i][jj] = 0.f;
 
   // causal: q tiles wholly above the diagonal see none of these keys
-  const int q_begin = causal ? k0 : 0;
+  // (kRing: each q tile is tested by its absolute rows, which jump)
+  const int q_begin = causal && !kRing ? k0 : 0;
   for (int r = 0; r < rep; ++r) {
     const int head = kvh * rep + r;
     const size_t stats = ((size_t)b * h + head) * s;
     for (int q0 = q_begin; q0 < s; q0 += BT) {
+      const int qp = kRing ? ptt::ring_qpos(rg, q0) : 0;  // row i at qp + i
+      if (kRing && causal && qp + q0 + BT - 1 < k0) continue;
       __syncthreads();  // the previous tile's readers are done
       load_tile<T, BT>(q_s, dp, q, b, q0, s, h, head, d);
       load_tile<T, BT>(g_s, dp, g, b, q0, s, h, head, d);
@@ -256,9 +275,9 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
           float p = 0.f;
           if constexpr (kMask) {
             const bool live = (!causal || kj <= qi) && kseg[i] == seg_s[qr];
-            if (kj < s && qi < s)
+            if (kj < lk && qi < s)
               p = masked_p(st[i][j], scale, kb[i], bias, live, lse_s[qr]);
-          } else if (kj < s && qi < s && (!causal || kj <= qi)) {
+          } else if (kj < lk && qi < s && (!causal || kj <= qp + qi)) {
             p = expf(st[i][j] * scale - lse_s[qr]);
           }
           const float ds = p * (dpt[i][j] - delta_s[qr]) * scale;
@@ -295,8 +314,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     const int kj = k0 + ty * R + i;
-    if (kj >= s) continue;
-    const size_t row = ((size_t)(b * s + kj) * hk + kvh) * d;
+    if (kj >= lk) continue;
+    const size_t row = ((size_t)(b * lk + kj) * hk + kvh) * d;
 #pragma unroll
     for (int jj = 0; jj < NJ; ++jj) {
       const int col = tx + 16 * jj;
@@ -311,14 +330,14 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // One block per (q tile of BT, q head, batch).  Thread (ty, tx) owns q rows
 // ty*R + i; for the score tile it owns keys tx + 16*j, for dq dims
 // tx + 16*jj.
-template <typename T, int BT, int NJ, bool kMask>
+template <typename T, int BT, int NJ, bool kMask, bool kRing>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ g,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq,
-                    Masking mk, int s, int h, int hk, int d, int causal,
-                    float scale) {
+                    Masking mk, Ring rg, int s, int lk, int h, int hk, int d,
+                    int causal, float scale) {
   constexpr int R = BT / 16;
   constexpr int pp = BT + 1;
   extern __shared__ float smem[];
@@ -356,12 +375,13 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int jj = 0; jj < NJ; ++jj) dq_acc[i][jj] = 0.f;
 
+  const int qp = kRing ? ptt::ring_qpos(rg, q0) : 0;  // row i at qp + i
   // causal: key tiles wholly past the diagonal contribute nothing
-  const int k_end = causal ? min(s, q0 + BT) : s;
+  const int k_end = causal ? min(lk, qp + min(s, q0 + BT)) : lk;
   for (int k0 = 0; k0 < k_end; k0 += BT) {
     __syncthreads();  // the previous tile's readers are done
-    load_tile<T, BT>(k_s, dp, k, b, k0, s, hk, kvh, d);
-    load_tile<T, BT>(v_s, dp, v, b, k0, s, hk, kvh, d);
+    load_tile<T, BT>(k_s, dp, k, b, k0, lk, hk, kvh, d);
+    load_tile<T, BT>(v_s, dp, v, b, k0, lk, hk, kvh, d);
     __syncthreads();
 
     float sc[R][R], dpv[R][R];
@@ -394,8 +414,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < R; ++j) {
       const int kj = k0 + tx + 16 * j;
-      kseg[j] = kMask && kj < s ? ptt::seg_of(mk, b, s, kj) : 0;
-      kb[j] = kMask && kj < s ? ptt::bias_of(mk, b, s, kj) : 0.f;
+      kseg[j] = kMask && kj < lk ? ptt::seg_of(mk, b, lk, kj) : 0;
+      kb[j] = kMask && kj < lk ? ptt::bias_of(mk, b, lk, kj) : 0.f;
     }
 #pragma unroll
     for (int i = 0; i < R; ++i) {
@@ -407,9 +427,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         float p = 0.f;
         if constexpr (kMask) {
           const bool live = (!causal || kj <= qi) && kseg[j] == qseg[i];
-          if (kj < s && qi < s)
+          if (kj < lk && qi < s)
             p = masked_p(sc[i][j], scale, kb[j], bias, live, lse_s[qr]);
-        } else if (kj < s && qi < s && (!causal || kj <= qi)) {
+        } else if (kj < lk && qi < s && (!causal || kj <= qp + qi)) {
           p = expf(sc[i][j] * scale - lse_s[qr]);
         }
         ds_s[qr * pp + tx + 16 * j] =
@@ -461,52 +481,55 @@ cudaError_t launch_delta(const void* g, const void* out, void* delta, int b,
 template <typename T, int BT, int NJ>
 cudaError_t launch_fma(const void* q, const void* k, const void* v,
                        const void* g, const void* lse, const void* delta,
-                       void* dq, void* dk, void* dv, Masking mk, int b, int s,
-                       int h, int hk, int d, int causal, float scale,
-                       cudaStream_t stream) {
+                       void* dq, void* dk, void* dv, Masking mk, Ring rg,
+                       int b, int s, int lk, int h, int hk, int d, int causal,
+                       float scale, cudaStream_t stream) {
   const size_t tile = (size_t)BT * (d + 1);
   // the tiles, p^T and ds^T, the q rows' lse, delta and segment ids
   const size_t smem_dkdv =
       sizeof(float) * (4 * tile + 2 * (size_t)BT * (BT + 1) + 3 * BT);
   const size_t smem_dq = sizeof(float) * (4 * tile + (size_t)BT * (BT + 1) + 2 * BT);
-  auto dkdv = mk.on() ? flash_bwd_dkdv_kernel<T, BT, NJ, true>
-                      : flash_bwd_dkdv_kernel<T, BT, NJ, false>;
-  auto dqk = mk.on() ? flash_bwd_dq_kernel<T, BT, NJ, true>
-                     : flash_bwd_dq_kernel<T, BT, NJ, false>;
-  static ptt::SmemLimit limit_dkdv[2], limit_dq[2];  // one per instantiation
-  cudaError_t err = limit_dkdv[mk.on()].reserve(dkdv, smem_dkdv);
+  const int var = ptt::variant(mk, rg);
+  auto dkdv = var == 2   ? flash_bwd_dkdv_kernel<T, BT, NJ, false, true>
+              : var == 1 ? flash_bwd_dkdv_kernel<T, BT, NJ, true, false>
+                         : flash_bwd_dkdv_kernel<T, BT, NJ, false, false>;
+  auto dqk = var == 2   ? flash_bwd_dq_kernel<T, BT, NJ, false, true>
+             : var == 1 ? flash_bwd_dq_kernel<T, BT, NJ, true, false>
+                        : flash_bwd_dq_kernel<T, BT, NJ, false, false>;
+  static ptt::SmemLimit limit_dkdv[3], limit_dq[3];  // one per instantiation
+  cudaError_t err = limit_dkdv[var].reserve(dkdv, smem_dkdv);
   if (err != cudaSuccess) return err;
-  err = limit_dq[mk.on()].reserve(dqk, smem_dq);
+  err = limit_dq[var].reserve(dqk, smem_dq);
   if (err != cudaSuccess) return err;
-  const int tiles = (s + BT - 1) / BT;
-  dkdv<<<dim3(tiles, hk, b), kThreads, smem_dkdv, stream>>>(
+  dkdv<<<dim3((lk + BT - 1) / BT, hk, b), kThreads, smem_dkdv, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(g),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), mk, s, h, hk, d, causal, scale);
+      static_cast<T*>(dk), static_cast<T*>(dv), mk, rg, s, lk, h, hk, d,
+      causal, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dqk<<<dim3(tiles, h, b), kThreads, smem_dq, stream>>>(
+  dqk<<<dim3((s + BT - 1) / BT, h, b), kThreads, smem_dq, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(g),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), mk, s, h, hk, d, causal, scale);
+      static_cast<T*>(dq), mk, rg, s, lk, h, hk, d, causal, scale);
   return cudaGetLastError();
 }
 
 cudaError_t dispatch_fma_f32(const void* q, const void* k, const void* v,
                              const void* g, const void* lse, const void* delta,
-                             void* dq, void* dk, void* dv, Masking mk, int b,
-                             int s, int h, int hk, int d, int causal,
-                             float scale, cudaStream_t st) {
+                             void* dq, void* dk, void* dv, Masking mk, Ring rg,
+                             int b, int s, int lk, int h, int hk, int d,
+                             int causal, float scale, cudaStream_t st) {
   if (d <= 64)
-    return launch_fma<float, 64, 4>(q, k, v, g, lse, delta, dq, dk, dv, mk, b,
-                                    s, h, hk, d, causal, scale, st);
+    return launch_fma<float, 64, 4>(q, k, v, g, lse, delta, dq, dk, dv, mk, rg,
+                                    b, s, lk, h, hk, d, causal, scale, st);
   if (d <= 128)
-    return launch_fma<float, 64, 8>(q, k, v, g, lse, delta, dq, dk, dv, mk, b,
-                                    s, h, hk, d, causal, scale, st);
-  return launch_fma<float, 32, 16>(q, k, v, g, lse, delta, dq, dk, dv, mk, b,
-                                   s, h, hk, d, causal, scale, st);
+    return launch_fma<float, 64, 8>(q, k, v, g, lse, delta, dq, dk, dv, mk, rg,
+                                    b, s, lk, h, hk, d, causal, scale, st);
+  return launch_fma<float, 32, 16>(q, k, v, g, lse, delta, dq, dk, dv, mk, rg,
+                                   b, s, lk, h, hk, d, causal, scale, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -540,14 +563,15 @@ __device__ __forceinline__ void a_rows(uint32_t (&a)[4], const bf16* x, int r0,
 // of each q head of the group, it computes s^T = K Q^T and dp^T = V G^T
 // 32 q columns at a time; the accumulators, turned into p^T and ds^T and
 // packed to bf16, are the A fragments of dv += p^T G and dk += ds^T Q.
-template <int D, bool kMask>
+template <int D, bool kMask, bool kRing>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                           const bf16* __restrict__ v, const bf16* __restrict__ g,
                           const float* __restrict__ lse,
                           const float* __restrict__ delta, bf16* __restrict__ dk,
-                          bf16* __restrict__ dv, Masking mk, int s, int h,
-                          int hk, int d, int causal, float scale, bool vec) {
+                          bf16* __restrict__ dv, Masking mk, Ring rg, int s,
+                          int lk, int h, int hk, int d, int causal, float scale,
+                          bool vec) {
   constexpr int ST = D + 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* k_s = reinterpret_cast<bf16*>(smem_raw);
@@ -571,13 +595,13 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   const int key_a = k0 + wr + gr, key_b = key_a + 8;
   const bool bias = mk.kbias != nullptr;
   // this thread's two keys: ids and biases, read once
-  const int kseg[2] = {kMask && key_a < s ? ptt::seg_of(mk, b, s, key_a) : 0,
-                       kMask && key_b < s ? ptt::seg_of(mk, b, s, key_b) : 0};
-  const float kb[2] = {kMask && key_a < s ? ptt::bias_of(mk, b, s, key_a) : 0.f,
-                       kMask && key_b < s ? ptt::bias_of(mk, b, s, key_b) : 0.f};
+  const int kseg[2] = {kMask && key_a < lk ? ptt::seg_of(mk, b, lk, key_a) : 0,
+                       kMask && key_b < lk ? ptt::seg_of(mk, b, lk, key_b) : 0};
+  const float kb[2] = {kMask && key_a < lk ? ptt::bias_of(mk, b, lk, key_a) : 0.f,
+                       kMask && key_b < lk ? ptt::bias_of(mk, b, lk, key_b) : 0.f};
 
-  ptt::load_rows<D>(k_s, k, b, k0, s, hk, kvh, d, vec);
-  ptt::load_rows<D>(v_s, v, b, k0, s, hk, kvh, d, vec);
+  ptt::load_rows<D>(k_s, k, b, k0, lk, hk, kvh, d, vec);
+  ptt::load_rows<D>(v_s, v, b, k0, lk, hk, kvh, d, vec);
 
   float dk_acc[D / 8][4], dv_acc[D / 8][4];
 #pragma unroll
@@ -586,11 +610,14 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     for (int e = 0; e < 4; ++e) dk_acc[dt][e] = dv_acc[dt][e] = 0.f;
 
   // causal: q tiles wholly above the diagonal see none of these keys
-  const int q_begin = causal ? k0 : 0;
+  // (kRing: each q tile is tested by its absolute rows, which jump)
+  const int q_begin = causal && !kRing ? k0 : 0;
   for (int r = 0; r < rep; ++r) {
     const int head = kvh * rep + r;
     const size_t stats = ((size_t)b * h + head) * s;
     for (int q0 = q_begin; q0 < s; q0 += kMmaTile) {
+      const int qp = kRing ? ptt::ring_qpos(rg, q0) : 0;  // row i at qp + i
+      if (kRing && causal && qp + q0 + kMmaTile - 1 < k0) continue;
       __syncthreads();  // the previous tile's readers are done
       ptt::load_rows<D>(q_s, q, b, q0, s, h, head, d, vec);
       ptt::load_rows<D>(g_s, g, b, q0, s, h, head, d, vec);
@@ -604,7 +631,7 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 #pragma unroll
       for (int c0 = 0; c0 < kMmaTile; c0 += kPass) {
         // causal: every q row of this pass precedes this warp's keys
-        if (causal && q0 + c0 + kPass - 1 < k0 + wr) continue;
+        if (causal && qp + q0 + c0 + kPass - 1 < k0 + wr) continue;
         float st[kPass / 8][4], dpt[kPass / 8][4];
 #pragma unroll
         for (int nt = 0; nt < kPass / 8; ++nt)
@@ -637,10 +664,10 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
             if constexpr (kMask) {
               const bool live =
                   (!causal || kj <= qi) && kseg[e >> 1] == seg_s[qc];
-              if (kj < s && qi < s)
+              if (kj < lk && qi < s)
                 pv[e] = masked_p(st[nt][e], scale, kb[e >> 1], bias, live,
                                  lse_s[qc]);
-            } else if (kj < s && qi < s && (!causal || kj <= qi)) {
+            } else if (kj < lk && qi < s && (!causal || kj <= qp + qi)) {
               pv[e] = expf(st[nt][e] * scale - lse_s[qc]);
             }
             dsv[e] = pv[e] * (dpt[nt][e] - delta_s[qc]) * scale;
@@ -667,8 +694,8 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int kj = half ? key_b : key_a;
-    if (kj >= s) continue;
-    const size_t row = ((size_t)(b * s + kj) * hk + kvh) * d;
+    if (kj >= lk) continue;
+    const size_t row = ((size_t)(b * lk + kj) * hk + kvh) * d;
 #pragma unroll
     for (int dt = 0; dt < D / 8; ++dt) {
       const int col = dt * 8 + 2 * t;
@@ -688,14 +715,14 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 // 16w..16w+15 with Q and G as register fragments and dq in f32 registers.
 // Per key tile it computes s = Q K^T and dp = G V^T 32 keys at a time; ds,
 // packed to bf16, is the A fragment of dq += ds K.
-template <int D, bool kMask>
+template <int D, bool kMask, bool kRing>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, const bf16* __restrict__ g,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta, bf16* __restrict__ dq,
-                        Masking mk, int s, int h, int hk, int d, int causal,
-                        float scale, bool vec) {
+                        Masking mk, Ring rg, int s, int lk, int h, int hk,
+                        int d, int causal, float scale, bool vec) {
   constexpr int ST = D + 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
@@ -741,17 +768,18 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < 4; ++e) dq_acc[dt][e] = 0.f;
 
+  const int qp = kRing ? ptt::ring_qpos(rg, q0) : 0;  // row i at qp + i
   // causal: key tiles wholly past the diagonal contribute nothing
-  const int k_end = causal ? min(s, q0 + kMmaTile) : s;
+  const int k_end = causal ? min(lk, qp + min(s, q0 + kMmaTile)) : lk;
   for (int k0 = 0; k0 < k_end; k0 += kMmaTile) {
     __syncthreads();  // the previous tile's readers are done
-    ptt::load_rows<D>(k_s, k, b, k0, s, hk, kvh, d, vec);
-    ptt::load_rows<D>(v_s, v, b, k0, s, hk, kvh, d, vec);
+    ptt::load_rows<D>(k_s, k, b, k0, lk, hk, kvh, d, vec);
+    ptt::load_rows<D>(v_s, v, b, k0, lk, hk, kvh, d, vec);
     __syncthreads();
 #pragma unroll
     for (int c0 = 0; c0 < kMmaTile; c0 += kPass) {
       // causal: every key of this pass follows this warp's rows
-      if (causal && k0 + c0 > q0 + wr + 15) continue;
+      if (causal && k0 + c0 > qp + q0 + wr + 15) continue;
       float sc[kPass / 8][4], dp[kPass / 8][4];
 #pragma unroll
       for (int nt = 0; nt < kPass / 8; ++nt)
@@ -775,8 +803,8 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
           const int kj = k0 + c0 + nt * 8 + 2 * t + c;
-          kseg[c] = kMask && kj < s ? ptt::seg_of(mk, b, s, kj) : 0;
-          kb[c] = kMask && kj < s ? ptt::bias_of(mk, b, s, kj) : 0.f;
+          kseg[c] = kMask && kj < lk ? ptt::seg_of(mk, b, lk, kj) : 0;
+          kb[c] = kMask && kj < lk ? ptt::bias_of(mk, b, lk, kj) : 0.f;
         }
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
@@ -786,10 +814,10 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           if constexpr (kMask) {
             const bool live =
                 (!causal || kj <= qi) && kseg[e & 1] == qseg[e >> 1];
-            if (kj < s && qi < s)
+            if (kj < lk && qi < s)
               p = masked_p(sc[nt][e], scale, kb[e & 1], bias, live,
                            lse_r[e >> 1]);
-          } else if (kj < s && qi < s && (!causal || kj <= qi)) {
+          } else if (kj < lk && qi < s && (!causal || kj <= qp + qi)) {
             p = expf(sc[nt][e] * scale - lse_r[e >> 1]);
           }
           dsv[e] = p * (dp[nt][e] - delta_r[e >> 1]) * scale;
@@ -825,9 +853,9 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int D>
 cudaError_t launch_mma(const void* q, const void* k, const void* v,
                        const void* g, const void* lse, const void* delta,
-                       void* dq, void* dk, void* dv, Masking mk, int b, int s,
-                       int h, int hk, int d, int causal, float scale,
-                       cudaStream_t stream) {
+                       void* dq, void* dk, void* dv, Masking mk, Ring rg,
+                       int b, int s, int lk, int h, int hk, int d, int causal,
+                       float scale, cudaStream_t stream) {
   const size_t tiles_bytes = sizeof(bf16) * 4 * (size_t)kMmaTile * (D + 8);
   // and the q rows' lse, delta and segment ids
   const size_t smem_dkdv = tiles_bytes + sizeof(float) * 3 * kMmaTile;
@@ -835,30 +863,33 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
                    reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(v) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(g) % 16 == 0;
-  auto dkdv = mk.on() ? flash_bwd_dkdv_mma_kernel<D, true>
-                      : flash_bwd_dkdv_mma_kernel<D, false>;
-  auto dqk = mk.on() ? flash_bwd_dq_mma_kernel<D, true>
-                     : flash_bwd_dq_mma_kernel<D, false>;
-  static ptt::SmemLimit limit_dkdv[2], limit_dq[2];  // one per instantiation
-  cudaError_t err = limit_dkdv[mk.on()].reserve(dkdv, smem_dkdv);
+  const int var = ptt::variant(mk, rg);
+  auto dkdv = var == 2   ? flash_bwd_dkdv_mma_kernel<D, false, true>
+              : var == 1 ? flash_bwd_dkdv_mma_kernel<D, true, false>
+                         : flash_bwd_dkdv_mma_kernel<D, false, false>;
+  auto dqk = var == 2   ? flash_bwd_dq_mma_kernel<D, false, true>
+             : var == 1 ? flash_bwd_dq_mma_kernel<D, true, false>
+                        : flash_bwd_dq_mma_kernel<D, false, false>;
+  static ptt::SmemLimit limit_dkdv[3], limit_dq[3];  // one per instantiation
+  cudaError_t err = limit_dkdv[var].reserve(dkdv, smem_dkdv);
   if (err != cudaSuccess) return err;
-  err = limit_dq[mk.on()].reserve(dqk, tiles_bytes);
+  err = limit_dq[var].reserve(dqk, tiles_bytes);
   if (err != cudaSuccess) return err;
-  const int tiles = (s + kMmaTile - 1) / kMmaTile;
   const bf16* qb = static_cast<const bf16*>(q);
   const bf16* kb = static_cast<const bf16*>(k);
   const bf16* vb = static_cast<const bf16*>(v);
   const bf16* gb = static_cast<const bf16*>(g);
   const float* lse_f = static_cast<const float*>(lse);
   const float* delta_f = static_cast<const float*>(delta);
-  dkdv<<<dim3(tiles, hk, b), kMmaThreads, smem_dkdv, stream>>>(
-      qb, kb, vb, gb, lse_f, delta_f, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), mk, s, h, hk, d, causal, scale, vec);
+  dkdv<<<dim3((lk + kMmaTile - 1) / kMmaTile, hk, b), kMmaThreads, smem_dkdv,
+         stream>>>(qb, kb, vb, gb, lse_f, delta_f, static_cast<bf16*>(dk),
+                   static_cast<bf16*>(dv), mk, rg, s, lk, h, hk, d, causal,
+                   scale, vec);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dqk<<<dim3(tiles, h, b), kMmaThreads, tiles_bytes, stream>>>(
-      qb, kb, vb, gb, lse_f, delta_f, static_cast<bf16*>(dq), mk, s, h, hk, d,
-      causal, scale, vec);
+  dqk<<<dim3((s + kMmaTile - 1) / kMmaTile, h, b), kMmaThreads, tiles_bytes,
+        stream>>>(qb, kb, vb, gb, lse_f, delta_f, static_cast<bf16*>(dq), mk,
+                  rg, s, lk, h, hk, d, causal, scale, vec);
   return cudaGetLastError();
 }
 
@@ -918,7 +949,11 @@ struct DkdvSmem {
 //   dV += P^T.dO, dK += dS^T.Q       (P^T, dS^T rounded to bf16 as the
 //                                     register operand; dO, Q MN-major)
 // with dK and dV in f32 registers for the whole walk, written once.
-template <int D, bool kMask>
+// kRing (the q blocks' absolute starts): every q tile of every head is
+// tested by its absolute rows, and producer and consumers skip the same
+// tiles (those wholly before the block's keys); `it` counts the tiles
+// that go through the ring.
+template <int D, bool kMask, bool kRing>
 __global__ void __launch_bounds__(kThreadsDkdv, 1)
 flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                             const __grid_constant__ CUtensorMap tm_k,
@@ -927,8 +962,8 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                             const float* __restrict__ lse,
                             const float* __restrict__ delta,
                             bf16* __restrict__ dk, bf16* __restrict__ dv,
-                            Masking mk, int s, int h, int hk, int causal,
-                            float scale) {
+                            Masking mk, Ring rg, int s, int lk, int h, int hk,
+                            int causal, float scale) {
   using L = DkdvSmem<D>;
   constexpr int kHalves = D / 64;
   extern __shared__ unsigned char smem_raw[];
@@ -949,7 +984,7 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int rep = h / hk;
   // causal: q tiles wholly above the diagonal see none of these keys (k0 is
   // a multiple of kQStep)
-  const int q_begin = causal ? k0 : 0;
+  const int q_begin = causal && !kRing ? k0 : 0;
   const int n_q = (s - q_begin + kQStep - 1) / kQStep;
   const int n_iter = rep * n_q;
 
@@ -976,11 +1011,15 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         tma_tile<kKeys>(k_s, &tm_k, kvbar, kHalves, kvh, k0, b);
         tma_tile<kKeys>(v_s, &tm_v, kvbar, kHalves, kvh, k0, b);
       }
+      int it = 0;
       for (int i = 0; i < n_iter; ++i) {
-        const int st = i % kStages;
         const int head = kvh * rep + i / n_q;
         const int q0 = q_begin + (i % n_q) * kQStep;
-        if (i >= kStages) mbar_wait(&empty[st], ((i / kStages) & 1) ^ 1);
+        if (kRing && causal && ptt::ring_qpos(rg, q0) + q0 + kQStep - 1 < k0)
+          continue;
+        const int st = it % kStages;
+        if (it >= kStages) mbar_wait(&empty[st], ((it / kStages) & 1) ^ 1);
+        ++it;
         const size_t base = ((size_t)b * h + head) * s;
         float* stg = st_s + st * 3 * kQStep;
         int* sgg = reinterpret_cast<int*>(stg + 2 * kQStep);
@@ -1018,23 +1057,27 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const float sl2 = scale * kLog2e;
     const bool bias = mk.kbias != nullptr;
     // this thread's two keys: ids and biases (x log2 e), read once
-    const int kseg[2] = {kMask && key_a < s ? ptt::seg_of(mk, b, s, key_a) : 0,
-                         kMask && key_b < s ? ptt::seg_of(mk, b, s, key_b) : 0};
+    const int kseg[2] = {kMask && key_a < lk ? ptt::seg_of(mk, b, lk, key_a) : 0,
+                         kMask && key_b < lk ? ptt::seg_of(mk, b, lk, key_b) : 0};
     const float kb2[2] = {
-        kMask && key_a < s ? ptt::bias_of(mk, b, s, key_a) * kLog2e : 0.f,
-        kMask && key_b < s ? ptt::bias_of(mk, b, s, key_b) * kLog2e : 0.f};
+        kMask && key_a < lk ? ptt::bias_of(mk, b, lk, key_a) * kLog2e : 0.f,
+        kMask && key_b < lk ? ptt::bias_of(mk, b, lk, key_b) * kLog2e : 0.f};
 
     float dka[D / 2], dva[D / 2];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
 
     mbar_wait(kvbar, 0);
+    int it = 0;
     for (int i = 0; i < n_iter; ++i) {
-      const int st = i % kStages;
       const int q0 = q_begin + (i % n_q) * kQStep;
-      mbar_wait(&full[st], (i / kStages) & 1);
+      const int qp = kRing ? ptt::ring_qpos(rg, q0) : 0;  // row i at qp + i
+      if (kRing && causal && qp + q0 + kQStep - 1 < k0) continue;  // not loaded
+      const int st = it % kStages;
+      mbar_wait(&full[st], (it / kStages) & 1);
+      ++it;
       // causal: every q row of the tile precedes this warpgroup's keys
-      if (causal && q0 + kQStep - 1 < wg_key0) {
+      if (causal && qp + q0 + kQStep - 1 < wg_key0) {
         mbar_arrive(&empty[st]);
         continue;
       }
@@ -1080,10 +1123,10 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
           pv[e] = 0.f;
           if constexpr (kMask) {
             const bool live = (!causal || kj <= qi) && kseg[e >> 1] == qsg[c];
-            if (kj < s && qi < s)
+            if (kj < lk && qi < s)
               pv[e] = masked_p2(sc[4 * j + e], sl2, kb2[e >> 1], bias, live,
                                 lse2[c]);
-          } else if (kj < s && qi < s && (!causal || kj <= qi)) {
+          } else if (kj < lk && qi < s && (!causal || kj <= qp + qi)) {
             pv[e] = exp2f(sc[4 * j + e] * sl2 - lse2[c]);
           }
           dsv[e] = pv[e] * (dp[4 * j + e] - dl[c]) * scale;
@@ -1120,8 +1163,8 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int kj = r ? key_b : key_a;
-      if (kj >= s) continue;
-      const size_t row = ((size_t)(b * s + kj) * hk + kvh) * D;
+      if (kj >= lk) continue;
+      const size_t row = ((size_t)(b * lk + kj) * hk + kvh) * D;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
         *reinterpret_cast<uint32_t*>(dk + row + 8 * j + 2 * t) =
@@ -1157,7 +1200,7 @@ struct DqSmem {
 //   dS = exp(scale S - lse) (dP - delta) scale, rounded to bf16
 //   dQ += dS.K                       (K MN-major)
 // dQ in f32 registers, written once: no atomics, so dq is deterministic.
-template <int D, bool kMask>
+template <int D, bool kMask, bool kRing>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const __grid_constant__ CUtensorMap tm_k,
@@ -1165,8 +1208,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const __grid_constant__ CUtensorMap tm_g,
                           const float* __restrict__ lse,
                           const float* __restrict__ delta,
-                          bf16* __restrict__ dq, Masking mk, int s, int h,
-                          int hk, int causal, float scale) {
+                          bf16* __restrict__ dq, Masking mk, Ring rg, int s,
+                          int lk, int h, int hk, int causal, float scale) {
   using L = DqSmem<D>;
   constexpr int kHalves = D / 64;
   extern __shared__ unsigned char smem_raw[];
@@ -1186,8 +1229,9 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int head = blockIdx.y;
   const int b = blockIdx.z;
   const int kvh = head / (h / hk);
+  const int qp = kRing ? ptt::ring_qpos(rg, q0) : 0;  // row i at qp + i
   // causal: key tiles wholly past the tile's last row contribute nothing
-  const int k_end = causal ? min(s, q0 + kRows) : s;
+  const int k_end = causal ? min(lk, qp + min(s, q0 + kRows)) : lk;
   const int n_tiles = (k_end + kKStep - 1) / kKStep;
 
   if (threadIdx.x == 0) {
@@ -1216,8 +1260,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       if (i >= kStages) mbar_wait(&empty[st], ((i / kStages) & 1) ^ 1);
       for (int r = lane; r < kKStep; r += 32) {
         const int kj = i * kKStep + r;
-        kseg_s[st * kKStep + r] = kj < s ? ptt::seg_of(mk, b, s, kj) : 0;
-        kb_s[st * kKStep + r] = kj < s ? ptt::bias_of(mk, b, s, kj) * kLog2e : 0.f;
+        kseg_s[st * kKStep + r] = kj < lk ? ptt::seg_of(mk, b, lk, kj) : 0;
+        kb_s[st * kKStep + r] = kj < lk ? ptt::bias_of(mk, b, lk, kj) * kLog2e : 0.f;
       }
       if (lane == 0) {
         mbar_expect_tx(&full[st], (uint32_t)(2 * L::kKV));
@@ -1282,7 +1326,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int kb = i * kKStep;
     mbar_wait(&full[st], (i / kStages) & 1);
     // causal: every key of the tile follows this warpgroup's rows
-    if (causal && kb > wg_last) {
+    if (causal && kb > qp + wg_last) {
       mbar_arrive(&empty[st]);
       continue;
     }
@@ -1328,10 +1372,10 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         if constexpr (kMask) {
           const bool live =
               (!causal || kj <= qi) && kseg[e & 1] == qseg[e >> 1];
-          if (kj < s && qi < s)
+          if (kj < lk && qi < s)
             p = masked_p2(sc[4 * j + e], sl2, kb2[e & 1], bias, live,
                           lse2[e >> 1]);
-        } else if (kj < s && qi < s && (!causal || kj <= qi)) {
+        } else if (kj < lk && qi < s && (!causal || kj <= qp + qi)) {
           p = exp2f(sc[4 * j + e] * sl2 - lse2[e >> 1]);
         }
         dsv[e] = p * (dp[4 * j + e] - dl[e >> 1]) * scale;
@@ -1371,42 +1415,45 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* g,
                    const void* lse, const void* delta, void* dq, void* dk,
-                   void* dv, Masking mk, int b, int s, int h, int hk,
-                   int causal, float scale, cudaStream_t stream) {
+                   void* dv, Masking mk, Ring rg, int b, int s, int lk, int h,
+                   int hk, int causal, float scale, cudaStream_t stream) {
   // the dk/dv kernel streams 64-row Q/dO tiles against 128 keys; the dq
   // kernel 64-key K/V tiles against 128 rows
   CUtensorMap q64, g64, k128, v128, q128, g128, k64, v64;
   if (!make_map(&q64, q, b, s, h, D, kQStep) ||
       !make_map(&g64, g, b, s, h, D, kQStep) ||
-      !make_map(&k128, k, b, s, hk, D, kKeys) ||
-      !make_map(&v128, v, b, s, hk, D, kKeys) ||
+      !make_map(&k128, k, b, lk, hk, D, kKeys) ||
+      !make_map(&v128, v, b, lk, hk, D, kKeys) ||
       !make_map(&q128, q, b, s, h, D, kRows) ||
       !make_map(&g128, g, b, s, h, D, kRows) ||
-      !make_map(&k64, k, b, s, hk, D, kKStep) ||
-      !make_map(&v64, v, b, s, hk, D, kKStep))
+      !make_map(&k64, k, b, lk, hk, D, kKStep) ||
+      !make_map(&v64, v, b, lk, hk, D, kKStep))
     return cudaErrorNotSupported;
   const size_t smem_dkdv = DkdvSmem<D>::bytes + 1024;  // + the alignment
   const size_t smem_dq = DqSmem<D>::bytes + 1024;
-  auto dkdv = mk.on() ? flash_bwd_dkdv_wgmma_kernel<D, true>
-                      : flash_bwd_dkdv_wgmma_kernel<D, false>;
-  auto dqk = mk.on() ? flash_bwd_dq_wgmma_kernel<D, true>
-                     : flash_bwd_dq_wgmma_kernel<D, false>;
-  static ptt::SmemLimit limit_dkdv[2], limit_dq[2];  // one per instantiation
-  cudaError_t err = limit_dkdv[mk.on()].reserve(dkdv, smem_dkdv);
+  const int var = ptt::variant(mk, rg);
+  auto dkdv = var == 2   ? flash_bwd_dkdv_wgmma_kernel<D, false, true>
+              : var == 1 ? flash_bwd_dkdv_wgmma_kernel<D, true, false>
+                         : flash_bwd_dkdv_wgmma_kernel<D, false, false>;
+  auto dqk = var == 2   ? flash_bwd_dq_wgmma_kernel<D, false, true>
+             : var == 1 ? flash_bwd_dq_wgmma_kernel<D, true, false>
+                        : flash_bwd_dq_wgmma_kernel<D, false, false>;
+  static ptt::SmemLimit limit_dkdv[3], limit_dq[3];  // one per instantiation
+  cudaError_t err = limit_dkdv[var].reserve(dkdv, smem_dkdv);
   if (err != cudaSuccess) return err;
-  err = limit_dq[mk.on()].reserve(dqk, smem_dq);
+  err = limit_dq[var].reserve(dqk, smem_dq);
   if (err != cudaSuccess) return err;
   const float* lse_f = static_cast<const float*>(lse);
   const float* delta_f = static_cast<const float*>(delta);
-  dkdv<<<dim3((s + kKeys - 1) / kKeys, hk, b), kThreadsDkdv, smem_dkdv,
+  dkdv<<<dim3((lk + kKeys - 1) / kKeys, hk, b), kThreadsDkdv, smem_dkdv,
          stream>>>(
       q64, k128, v128, g64, lse_f, delta_f, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), mk, s, h, hk, causal, scale);
+      static_cast<bf16*>(dv), mk, rg, s, lk, h, hk, causal, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   dqk<<<dim3((s + kRows - 1) / kRows, h, b), kThreads, smem_dq, stream>>>(
-      q128, k64, v64, g128, lse_f, delta_f, static_cast<bf16*>(dq), mk, s, h,
-      hk, causal, scale);
+      q128, k64, v64, g128, lse_f, delta_f, static_cast<bf16*>(dq), mk, rg, s,
+      lk, h, hk, causal, scale);
   return cudaGetLastError();
 }
 
@@ -1425,33 +1472,33 @@ bool aligned16(const void* p) {
 // the shape does not fit is cudaErrorInvalidValue, never another kernel.
 cudaError_t backward(int path, const void* q, const void* k, const void* v,
                      const void* g, const void* lse, const void* delta,
-                     void* dq, void* dk, void* dv, Masking mk, int b, int s,
-                     int h, int hk, int d, int causal, float scale, int dtype,
-                     cudaStream_t st) {
+                     void* dq, void* dk, void* dv, Masking mk, Ring rg, int b,
+                     int s, int lk, int h, int hk, int d, int causal,
+                     float scale, int dtype, cudaStream_t st) {
   if (path == kPathWgmma) {
     if (dtype != ptt::kBFloat16 || (d != 64 && d != 128) || !aligned16(q) ||
         !aligned16(k) || !aligned16(v) || !aligned16(g))
       return cudaErrorInvalidValue;
     if (d == 64)
-      return hop::launch<64>(q, k, v, g, lse, delta, dq, dk, dv, mk, b, s, h,
-                             hk, causal, scale, st);
-    return hop::launch<128>(q, k, v, g, lse, delta, dq, dk, dv, mk, b, s, h,
-                            hk, causal, scale, st);
+      return hop::launch<64>(q, k, v, g, lse, delta, dq, dk, dv, mk, rg, b, s,
+                             lk, h, hk, causal, scale, st);
+    return hop::launch<128>(q, k, v, g, lse, delta, dq, dk, dv, mk, rg, b, s,
+                            lk, h, hk, causal, scale, st);
   }
   if (path == kPathMma) {
     if (dtype != ptt::kBFloat16 || d > 128) return cudaErrorInvalidValue;
     if (d <= 64)
-      return launch_mma<64>(q, k, v, g, lse, delta, dq, dk, dv, mk, b, s, h,
-                            hk, d, causal, scale, st);
-    return launch_mma<128>(q, k, v, g, lse, delta, dq, dk, dv, mk, b, s, h,
-                           hk, d, causal, scale, st);
+      return launch_mma<64>(q, k, v, g, lse, delta, dq, dk, dv, mk, rg, b, s,
+                            lk, h, hk, d, causal, scale, st);
+    return launch_mma<128>(q, k, v, g, lse, delta, dq, dk, dv, mk, rg, b, s,
+                           lk, h, hk, d, causal, scale, st);
   }
   if (path != kPathFma) return cudaErrorInvalidValue;
   if (dtype == ptt::kBFloat16)
-    return launch_fma<bf16, 32, 16>(q, k, v, g, lse, delta, dq, dk, dv, mk, b,
-                                    s, h, hk, d, causal, scale, st);
-  return dispatch_fma_f32(q, k, v, g, lse, delta, dq, dk, dv, mk, b, s, h, hk,
-                          d, causal, scale, st);
+    return launch_fma<bf16, 32, 16>(q, k, v, g, lse, delta, dq, dk, dv, mk, rg,
+                                    b, s, lk, h, hk, d, causal, scale, st);
+  return dispatch_fma_f32(q, k, v, g, lse, delta, dq, dk, dv, mk, rg, b, s, lk,
+                          h, hk, d, causal, scale, st);
 }
 
 }  // namespace
@@ -1480,6 +1527,42 @@ extern "C" int ptt_flash_bwd(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return (int)err;
   const Masking mk{static_cast<const int*>(segments),
                    static_cast<const float*>(kbias)};
-  return (int)backward(path, q, k, v, g, lse, delta, dq, dk, dv, mk, b, s, h,
-                       hk, d, causal, scale, dtype, st);
+  return (int)backward(path, q, k, v, g, lse, delta, dq, dk, dv, mk, Ring{},
+                       b, s, s, h, hk, d, causal, scale, dtype, st);
+}
+
+// K3 with the ring operands (ring attention's hops and gathered form).
+// q, g, dq: [b, s, h, d]; k, v, dk, dv: [b, lk, hk, d] (lk may differ from
+// s), of one dtype; lse: [b, h, s] f32 from K1.  q_offset: [s / bq] int32
+// absolute block starts as for ptt_flash_fwd_ring, or null.  delta: [b, h,
+// s] f32; delta_given: read it as it is (rowsum(g * out), computed once by
+// the ring for every hop) and never read `out`; else the pre-pass writes
+// it from g and out ([b, s, h, d] in q's dtype).  Contiguous; no segment
+// ids or key bias.
+extern "C" int ptt_flash_bwd_ring(const void* q, const void* k, const void* v,
+                                  const void* out, const void* lse,
+                                  const void* g, void* dq, void* dk, void* dv,
+                                  void* delta, const void* q_offset, int b,
+                                  int s, int lk, int h, int hk, int d, int bq,
+                                  int causal, float scale, int dtype, int path,
+                                  int delta_given, void* stream) {
+  if (b < 1 || s < 1 || lk < 1 || h < 1 || hk < 1 || h % hk != 0 || d < 1 ||
+      d > 256 || h > 65535 || b > 65535 ||
+      (dtype != ptt::kBFloat16 && dtype != ptt::kFloat32) ||
+      (q_offset != nullptr && (bq < 128 || bq % 128 != 0 || s % bq != 0)) ||
+      (!delta_given && out == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!delta_given) {
+    const cudaError_t err =
+        dtype == ptt::kBFloat16
+            ? launch_delta<bf16>(g, out, delta, b, s, h, d, st)
+            : launch_delta<float>(g, out, delta, b, s, h, d, st);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const Ring rg{static_cast<const int*>(q_offset), bq, nullptr, nullptr,
+                nullptr};
+  return (int)backward(path, q, k, v, g, lse, delta, dq, dk, dv,
+                       Masking{nullptr, nullptr}, rg, b, s, lk, h, hk, d,
+                       causal, scale, dtype, st);
 }

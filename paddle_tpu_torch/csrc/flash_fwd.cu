@@ -60,8 +60,20 @@
 // In the Hopper kernel the producer warp stages each key tile's ids and
 // biases in shared memory beside the tile.  Key tiles whose segments cannot
 // match are still walked.  K6 passes none.
-// The ring `carry` and `q_offset` are not supported yet: their caller
-// (ring attention) is not ported.
+// K1 also takes the reference's ring operands (ring attention's hops and
+// its gathered form, `ptt_flash_fwd_ring`), on every path:
+//  - `q_offset`: each bq-row block of q starts at its own absolute
+//    position (the zig-zag shard's two chunks jump); a tile reads its
+//    block's start once, masks `key <= position` with it and ends its
+//    causal key sweep at its last row's position;
+//  - rectangular keys: lk keys against s query rows;
+//  - `carry=(out_prev, lse_prev)`: a hop merges its keys onto the running
+//    result, which enters as a pseudo-block (m = lse_prev, l = 1, acc =
+//    out_prev) and leaves normalised, as the reference's does;
+//  - `out_dtype=float32`: the partials between hops stay in float32.
+// They take a compile-time flag (kRing) as masking does, so a launch
+// without them runs the instructions it ran before.  Masking and the ring
+// operands are never combined.
 
 #include <stdint.h>
 
@@ -88,13 +100,14 @@ constexpr int kThreads = 256;  // 16 x 16: each thread owns 4 rows x (4 keys | N
 // (jj < NJ, NJ = ceil(d / 16)).  The 16 threads of a row sit in one
 // half-warp, so row reductions are 4 xor-shuffles.  kMask: segment ids or
 // a key bias (`mk`) take part; without, the kernel is the unmasked one.
-template <typename T, int NJ, bool kMask>
+// kRing: the ring operands (`rg`) take part (never with kMask).
+template <typename T, int NJ, bool kMask, bool kRing>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out,
                  float* __restrict__ lse, const int* __restrict__ q_off,
-                 ptt::Masking mk, int s, int lk, int h, int hk, int d,
-                 int causal, float scale) {
+                 ptt::Masking mk, ptt::Ring rg, int s, int lk, int h, int hk,
+                 int d, int causal, float scale) {
   extern __shared__ float smem[];
   const int dp = d + 1;  // padded row: conflict-free column reads
   const int pp = kBK + 1;
@@ -110,7 +123,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int tx = tid % 16;
   const int ty = tid / 16;
-  const int qpos = q_off != nullptr ? *q_off : 0;  // key position of q row 0
+  // key position of q row 0 (kRing: of the tile's block, less q0)
+  const int qpos = kRing ? ptt::ring_qpos(rg, q0) : q_off != nullptr ? *q_off : 0;
 
   for (int e = tid; e < kBQ * d; e += kThreads) {
     const int r = e / d, c = e % d;
@@ -129,6 +143,20 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int jj = 0; jj < NJ; ++jj) acc[i][jj] = 0.f;
     const int qi = q0 + ty * 4 + i;
     qseg[i] = kMask && qi < s ? ptt::seg_of(mk, b, s, qi) : 0;
+    if constexpr (kRing) {
+      // the carry is a pseudo-block with m = lse_prev, l = 1, acc = out_prev
+      // (the reference's `_init`, flash_attention.py:89-96)
+      if (rg.c_out != nullptr && qi < s) {
+        m[i] = rg.c_lse[((size_t)b * h + head) * s + qi];
+        l[i] = 1.f;
+        const float* crow = rg.c_out + ((size_t)(b * s + qi) * h + head) * d;
+#pragma unroll
+        for (int jj = 0; jj < NJ; ++jj) {
+          const int col = tx + 16 * jj;
+          if (col < d) acc[i][jj] = crow[col];
+        }
+      }
+    }
   }
 
   // causal: keys past the tile's last real row contribute nothing
@@ -239,11 +267,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // l >= 1 on every row (see kNegInf); the guard is the reference's
     // (flash_attention.py:139-141)
     const float l_safe = fmaxf(l[i], 1e-30f);
-    T* orow = out + ((size_t)(b * s + qi) * h + head) * d;
+    const size_t orow = ((size_t)(b * s + qi) * h + head) * d;
 #pragma unroll
     for (int jj = 0; jj < NJ; ++jj) {
       const int col = tx + 16 * jj;
-      if (col < d) orow[col] = from_f32<T>(acc[i][jj] / l_safe);
+      if (col >= d) continue;
+      if (kRing && rg.out32 != nullptr)
+        rg.out32[orow + col] = acc[i][jj] / l_safe;
+      else
+        out[orow + col] = from_f32<T>(acc[i][jj] / l_safe);
     }
     if (lse != nullptr && tx == 0)
       lse[((size_t)b * h + head) * s + qi] = m[i] + logf(l_safe);
@@ -252,37 +284,39 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int NJ>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   void* lse, const int* q_off, ptt::Masking mk, int b, int s,
-                   int lk, int h, int hk, int d, int causal, float scale,
-                   cudaStream_t stream) {
+                   void* lse, const int* q_off, ptt::Masking mk, ptt::Ring rg,
+                   int b, int s, int lk, int h, int hk, int d, int causal,
+                   float scale, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * ((size_t)kBQ * (d + 1) + (size_t)kBK * (d + 1) +
                        (size_t)kBK * d + (size_t)kBQ * (kBK + 1));
-  auto kernel = mk.on() ? flash_fwd_kernel<T, NJ, true>
-                        : flash_fwd_kernel<T, NJ, false>;
-  static ptt::SmemLimit limit[2];  // one per instantiation
-  cudaError_t err = limit[mk.on()].reserve(kernel, smem);
+  const int var = ptt::variant(mk, rg);
+  auto kernel = var == 2   ? flash_fwd_kernel<T, NJ, false, true>
+                : var == 1 ? flash_fwd_kernel<T, NJ, true, false>
+                           : flash_fwd_kernel<T, NJ, false, false>;
+  static ptt::SmemLimit limit[3];  // one per instantiation
+  cudaError_t err = limit[var].reserve(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((s + kBQ - 1) / kBQ, h, b);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out),
-      static_cast<float*>(lse), q_off, mk, s, lk, h, hk, d, causal, scale);
+      static_cast<float*>(lse), q_off, mk, rg, s, lk, h, hk, d, causal, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* out,
-                       void* lse, const int* q_off, ptt::Masking mk, int b,
-                       int s, int lk, int h, int hk, int d, int causal,
-                       float scale, cudaStream_t stream) {
+                       void* lse, const int* q_off, ptt::Masking mk,
+                       ptt::Ring rg, int b, int s, int lk, int h, int hk,
+                       int d, int causal, float scale, cudaStream_t stream) {
   if (d <= 64)
-    return launch<T, 4>(q, k, v, out, lse, q_off, mk, b, s, lk, h, hk, d,
+    return launch<T, 4>(q, k, v, out, lse, q_off, mk, rg, b, s, lk, h, hk, d,
                         causal, scale, stream);
   if (d <= 128)
-    return launch<T, 8>(q, k, v, out, lse, q_off, mk, b, s, lk, h, hk, d,
+    return launch<T, 8>(q, k, v, out, lse, q_off, mk, rg, b, s, lk, h, hk, d,
                         causal, scale, stream);
-  return launch<T, 16>(q, k, v, out, lse, q_off, mk, b, s, lk, h, hk, d,
+  return launch<T, 16>(q, k, v, out, lse, q_off, mk, rg, b, s, lk, h, hk, d,
                        causal, scale, stream);
 }
 
@@ -295,15 +329,15 @@ constexpr int kMmaRows = 64;     // q rows per block, 16 per warp
 constexpr int kMmaKeys = 64;     // keys per tile
 using ptt::kMmaThreads;
 
-template <int D, bool kMask>
+template <int D, bool kMask, bool kRing>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
                      __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
-                     const int* __restrict__ q_off, ptt::Masking mk, int s,
-                     int lk, int h, int hk, int d, int causal, float scale,
-                     bool vec) {
+                     const int* __restrict__ q_off, ptt::Masking mk,
+                     ptt::Ring rg, int s, int lk, int h, int hk, int d,
+                     int causal, float scale, bool vec) {
   constexpr int ST = D + 8;  // padded row: conflict-free fragment loads
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -320,7 +354,8 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int g = lane >> 2, t = lane & 3;
   const int wr = warp * 16;  // this warp's first row in the tile
   const int row_a = q0 + wr + g, row_b = row_a + 8;
-  const int qpos = q_off != nullptr ? *q_off : 0;  // key position of q row 0
+  // key position of q row 0 (kRing: of the tile's block, less q0)
+  const int qpos = kRing ? ptt::ring_qpos(rg, q0) : q_off != nullptr ? *q_off : 0;
   const int qseg[2] = {kMask && row_a < s ? ptt::seg_of(mk, b, s, row_a) : 0,
                        kMask && row_b < s ? ptt::seg_of(mk, b, s, row_b) : 0};
 
@@ -342,6 +377,25 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  if constexpr (kRing) {
+    // the carry as a pseudo-block: m = lse_prev, acc = out_prev, and l = 1
+    // on the first thread of the quad (l holds per-thread parts)
+    if (rg.c_out != nullptr) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int qi = r ? row_b : row_a;
+        if (qi >= s) continue;
+        m[r] = rg.c_lse[((size_t)b * h + head) * s + qi];
+        l[r] = t == 0 ? 1.f : 0.f;
+        const float* crow = rg.c_out + ((size_t)(b * s + qi) * h + head) * d;
+#pragma unroll
+        for (int dt = 0; dt < D / 8; ++dt)
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            if (dt * 8 + 2 * t + c < d) o[dt][2 * r + c] = crow[dt * 8 + 2 * t + c];
+      }
+    }
+  }
 
   // causal: keys past the tile's last real row contribute nothing
   const int k_end = causal ? min(lk, qpos + min(s, q0 + kMmaRows)) : lk;
@@ -437,12 +491,18 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     const int qi = r ? row_b : row_a;
     if (qi >= s) continue;
     const float l_safe = fmaxf(l[r], 1e-30f);  // l >= 1 (see kNegInf)
-    __nv_bfloat16* orow = out + ((size_t)(b * s + qi) * h + head) * d;
+    const size_t orow = ((size_t)(b * s + qi) * h + head) * d;
 #pragma unroll
     for (int dt = 0; dt < D / 8; ++dt) {
       const int col = dt * 8 + 2 * t;
-      if (col < d) orow[col] = __float2bfloat16(o[dt][2 * r] / l_safe);
-      if (col + 1 < d) orow[col + 1] = __float2bfloat16(o[dt][2 * r + 1] / l_safe);
+      if (kRing && rg.out32 != nullptr) {
+        if (col < d) rg.out32[orow + col] = o[dt][2 * r] / l_safe;
+        if (col + 1 < d) rg.out32[orow + col + 1] = o[dt][2 * r + 1] / l_safe;
+        continue;
+      }
+      if (col < d) out[orow + col] = __float2bfloat16(o[dt][2 * r] / l_safe);
+      if (col + 1 < d)
+        out[orow + col + 1] = __float2bfloat16(o[dt][2 * r + 1] / l_safe);
     }
     if (lse != nullptr && t == 0)
       lse[((size_t)b * h + head) * s + qi] = m[r] + logf(l_safe);
@@ -451,24 +511,26 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
 template <int D>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out,
-                       void* lse, const int* q_off, ptt::Masking mk, int b,
-                       int s, int lk, int h, int hk, int d, int causal,
-                       float scale, cudaStream_t stream) {
+                       void* lse, const int* q_off, ptt::Masking mk,
+                       ptt::Ring rg, int b, int s, int lk, int h, int hk,
+                       int d, int causal, float scale, cudaStream_t stream) {
   const size_t smem = sizeof(__nv_bfloat16) * (size_t)(kMmaRows + 2 * kMmaKeys) *
                       (D + 8);
   const bool vec = d % 8 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(v) % 16 == 0;
-  auto kernel = mk.on() ? flash_fwd_mma_kernel<D, true>
-                        : flash_fwd_mma_kernel<D, false>;
-  static ptt::SmemLimit limit[2];  // one per instantiation
-  cudaError_t err = limit[mk.on()].reserve(kernel, smem);
+  const int var = ptt::variant(mk, rg);
+  auto kernel = var == 2   ? flash_fwd_mma_kernel<D, false, true>
+                : var == 1 ? flash_fwd_mma_kernel<D, true, false>
+                           : flash_fwd_mma_kernel<D, false, false>;
+  static ptt::SmemLimit limit[3];  // one per instantiation
+  cudaError_t err = limit[var].reserve(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((s + kMmaRows - 1) / kMmaRows, h, b);
   kernel<<<grid, kMmaThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      static_cast<float*>(lse), q_off, mk, s, lk, h, hk, d, causal, scale,
+      static_cast<float*>(lse), q_off, mk, rg, s, lk, h, hk, d, causal, scale,
       vec);
   return cudaGetLastError();
 }
@@ -504,15 +566,15 @@ struct Smem {
   static constexpr size_t bytes = bar + (2 * kStages + 1) * 8;
 };
 
-template <int D, bool kMask>
+template <int D, bool kMask, bool kRing>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v,
                        __nv_bfloat16* __restrict__ out,
                        float* __restrict__ lse, const int* __restrict__ q_off,
-                       ptt::Masking mk, int s, int lk, int h, int hk,
-                       int causal, float scale_log2) {
+                       ptt::Masking mk, ptt::Ring rg, int s, int lk, int h,
+                       int hk, int causal, float scale_log2) {
   using L = Smem<D>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
@@ -530,7 +592,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int head = blockIdx.y;
   const int b = blockIdx.z;
   const int kvh = head / (h / hk);
-  const int qpos = q_off != nullptr ? *q_off : 0;  // key position of q row 0
+  // key position of q row 0 (kRing: of the tile's block, less q0)
+  const int qpos = kRing ? ptt::ring_qpos(rg, q0) : q_off != nullptr ? *q_off : 0;
   // causal: keys past the tile's last real row contribute nothing
   const int k_end = causal ? min(lk, qpos + min(s, q0 + kBQ)) : lk;
   const int n_tiles = (k_end + kBN - 1) / kBN;
@@ -617,6 +680,26 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   float m[2] = {kMasked, kMasked}, l[2] = {0.f, 0.f};
   const int qseg[2] = {kMask && row_a < s ? ptt::seg_of(mk, b, s, row_a) : 0,
                        kMask && row_b < s ? ptt::seg_of(mk, b, s, row_b) : 0};
+  if constexpr (kRing) {
+    // the carry as a pseudo-block: m = lse_prev (base 2), acc = out_prev,
+    // l = 1 on the first thread of the quad (l holds per-thread parts)
+    if (rg.c_out != nullptr) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int qi = r ? row_b : row_a;
+        if (qi >= s) continue;
+        m[r] = rg.c_lse[((size_t)b * h + head) * s + qi] * kLog2e;
+        l[r] = t == 0 ? 1.f : 0.f;
+        const float* crow = rg.c_out + ((size_t)(b * s + qi) * h + head) * D;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          const float2 c2 = *reinterpret_cast<const float2*>(crow + 8 * j + 2 * t);
+          o[4 * j + 2 * r] = c2.x;
+          o[4 * j + 2 * r + 1] = c2.y;
+        }
+      }
+    }
+  }
 
   mbar_wait(qbar, 0);
   for (int i = 0; i < n_tiles; ++i) {
@@ -729,11 +812,18 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (qi >= s) continue;
     const float l_safe = fmaxf(l[r], 1e-30f);  // l >= 1 (see kNegInf)
     const float inv = 1.f / l_safe;
-    __nv_bfloat16* orow = out + ((size_t)(b * s + qi) * h + head) * D;
+    const size_t orow = ((size_t)(b * s + qi) * h + head) * D;
+    if (kRing && rg.out32 != nullptr) {  // float32 partials between hops
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * t) =
-          pack_bf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<float2*>(rg.out32 + orow + 8 * j + 2 * t) =
+            make_float2(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+    } else {
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(out + orow + 8 * j + 2 * t) =
+            pack_bf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+    }
     if (lse != nullptr && t == 0)
       lse[((size_t)b * h + head) * s + qi] = (m[r] + log2f(l_safe)) * kLn2;
   }
@@ -741,23 +831,25 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   void* lse, const int* q_off, ptt::Masking mk, int b, int s,
-                   int lk, int h, int hk, int causal, float scale,
-                   cudaStream_t stream) {
+                   void* lse, const int* q_off, ptt::Masking mk, ptt::Ring rg,
+                   int b, int s, int lk, int h, int hk, int causal,
+                   float scale, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   if (!make_map(&tq, q, b, s, h, D, kBQ) || !make_map(&tk, k, b, lk, hk, D, kBN) ||
       !make_map(&tv, v, b, lk, hk, D, kBN))
     return cudaErrorNotSupported;
   const size_t smem = Smem<D>::bytes + 1024;  // + the 1024-byte alignment
-  auto kernel = mk.on() ? flash_fwd_wgmma_kernel<D, true>
-                        : flash_fwd_wgmma_kernel<D, false>;
-  static ptt::SmemLimit limit[2];  // one per instantiation
-  cudaError_t err = limit[mk.on()].reserve(kernel, smem);
+  const int var = ptt::variant(mk, rg);
+  auto kernel = var == 2   ? flash_fwd_wgmma_kernel<D, false, true>
+                : var == 1 ? flash_fwd_wgmma_kernel<D, true, false>
+                           : flash_fwd_wgmma_kernel<D, false, false>;
+  static ptt::SmemLimit limit[3];  // one per instantiation
+  cudaError_t err = limit[var].reserve(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((s + kBQ - 1) / kBQ, h, b);
   kernel<<<grid, kThreads, smem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse),
-      q_off, mk, s, lk, h, hk, causal, scale * kLog2e);
+      q_off, mk, rg, s, lk, h, hk, causal, scale * kLog2e);
   return cudaGetLastError();
 }
 
@@ -777,36 +869,42 @@ bool aligned16(const void* p) {
 // offset (K1).
 cudaError_t attend(int path, const void* q, const void* k, const void* v,
                    void* out, void* lse, const int* q_off, ptt::Masking mk,
-                   int b, int s, int lk, int h, int hk, int d, int causal,
-                   float scale, int dtype, cudaStream_t st) {
+                   ptt::Ring rg, int b, int s, int lk, int h, int hk, int d,
+                   int causal, float scale, int dtype, cudaStream_t st) {
   if (b < 1 || s < 1 || lk < 1 || h < 1 || hk < 1 || h % hk != 0 || d < 1 ||
       d > 256 || h > 65535 || b > 65535)
+    return cudaErrorInvalidValue;
+  // the ring operands: never with masking; q blocks of whole 128-row tiles
+  if (rg.on() && (mk.on() || q_off != nullptr ||
+                  (rg.q_off != nullptr && (rg.bq < 128 || rg.bq % 128 != 0 ||
+                                           s % rg.bq != 0)) ||
+                  (rg.c_out == nullptr) != (rg.c_lse == nullptr)))
     return cudaErrorInvalidValue;
   if (path == kPathWgmma) {
     if (dtype != ptt::kBFloat16 || (d != 64 && d != 128) || !aligned16(q) ||
         !aligned16(k) || !aligned16(v))
       return cudaErrorInvalidValue;
     if (d == 64)
-      return hop::launch<64>(q, k, v, out, lse, q_off, mk, b, s, lk, h, hk,
-                             causal, scale, st);
-    return hop::launch<128>(q, k, v, out, lse, q_off, mk, b, s, lk, h, hk,
-                            causal, scale, st);
+      return hop::launch<64>(q, k, v, out, lse, q_off, mk, rg, b, s, lk, h,
+                             hk, causal, scale, st);
+    return hop::launch<128>(q, k, v, out, lse, q_off, mk, rg, b, s, lk, h,
+                            hk, causal, scale, st);
   }
   if (path == kPathMma && (dtype != ptt::kBFloat16 || d > 128))
     return cudaErrorInvalidValue;
   if (path != kPathMma && path != kPathFma) return cudaErrorInvalidValue;
   if (path == kPathMma && d <= 64)
-    return launch_mma<64>(q, k, v, out, lse, q_off, mk, b, s, lk, h, hk, d,
-                          causal, scale, st);
+    return launch_mma<64>(q, k, v, out, lse, q_off, mk, rg, b, s, lk, h, hk,
+                          d, causal, scale, st);
   if (path == kPathMma)
-    return launch_mma<128>(q, k, v, out, lse, q_off, mk, b, s, lk, h, hk, d,
-                           causal, scale, st);
+    return launch_mma<128>(q, k, v, out, lse, q_off, mk, rg, b, s, lk, h, hk,
+                           d, causal, scale, st);
   if (dtype == ptt::kBFloat16)
-    return dispatch_d<__nv_bfloat16>(q, k, v, out, lse, q_off, mk, b, s, lk,
-                                     h, hk, d, causal, scale, st);
+    return dispatch_d<__nv_bfloat16>(q, k, v, out, lse, q_off, mk, rg, b, s,
+                                     lk, h, hk, d, causal, scale, st);
   if (dtype == ptt::kFloat32)
-    return dispatch_d<float>(q, k, v, out, lse, q_off, mk, b, s, lk, h, hk, d,
-                             causal, scale, st);
+    return dispatch_d<float>(q, k, v, out, lse, q_off, mk, rg, b, s, lk, h, hk,
+                             d, causal, scale, st);
   return cudaErrorInvalidValue;
 }
 
@@ -822,7 +920,32 @@ extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v,
                              void* stream) {
   const ptt::Masking mk{static_cast<const int*>(segments),
                         static_cast<const float*>(kbias)};
-  return (int)attend(path, q, k, v, out, lse, nullptr, mk, b, s, s, h, hk, d,
+  return (int)attend(path, q, k, v, out, lse, nullptr, mk, ptt::Ring{}, b, s,
+                     s, h, hk, d, causal, scale, dtype,
+                     static_cast<cudaStream_t>(stream));
+}
+
+// K1 with the ring operands (ring attention's hops and gathered form).
+// q: [b, s, h, d]; k, v: [b, lk, hk, d] (lk may differ from s); out: [b, s,
+// h, d] in q's dtype, or f32 when out_f32; lse: [b, h, s] f32.  q_offset:
+// [s / bq] int32, each bq-row block's absolute start (bq a multiple of 128
+// dividing s), or null (row i at position i); key j sits at position j and
+// a causal row sees keys up to its own position.  carry_out [b, s, h, d]
+// f32 and carry_lse [b, h, s] f32, both or neither: the partial result the
+// launch merges its keys onto.  Contiguous, no segment ids or key bias.
+// With none of the three, the launch is K1's plain kernel over lk keys.
+extern "C" int ptt_flash_fwd_ring(const void* q, const void* k, const void* v,
+                                  void* out, void* lse, const void* q_offset,
+                                  const void* carry_out, const void* carry_lse,
+                                  int b, int s, int lk, int h, int hk, int d,
+                                  int bq, int causal, float scale, int dtype,
+                                  int path, int out_f32, void* stream) {
+  const ptt::Ring rg{static_cast<const int*>(q_offset), bq,
+                     static_cast<const float*>(carry_out),
+                     static_cast<const float*>(carry_lse),
+                     out_f32 ? static_cast<float*>(out) : nullptr};
+  return (int)attend(path, q, k, v, out, lse, nullptr,
+                     ptt::Masking{nullptr, nullptr}, rg, b, s, lk, h, hk, d,
                      causal, scale, dtype, static_cast<cudaStream_t>(stream));
 }
 
@@ -836,8 +959,8 @@ extern "C" int ptt_dense_decode(const void* q, const void* k, const void* v,
                                 int dtype, int path, void* stream) {
   if (pos == nullptr) return (int)cudaErrorInvalidValue;
   return (int)attend(path, q, k, v, out, nullptr, static_cast<const int*>(pos),
-                     ptt::Masking{nullptr, nullptr}, b, sq, L, h, hk, d, 1,
-                     scale, dtype, static_cast<cudaStream_t>(stream));
+                     ptt::Masking{nullptr, nullptr}, ptt::Ring{}, b, sq, L, h,
+                     hk, d, 1, scale, dtype, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* ptt_error_string(int code) {

@@ -1,0 +1,2 @@
+"""Counterpart of `paddle_tpu/distributed/fleet/meta_parallel/`: ring
+(context-parallel) and Ulysses attention."""

@@ -7,7 +7,9 @@ Linear layers are `torch.nn.Linear`, whose weight is `[out, in]`; the
 reference stores `[in, out]`, so `models.convert.load_reference_state`
 transposes them.  Attention goes through `ops.flash_attention`: the
 full-sequence forward and the fresh paged prefill run the `flash_fwd`
-kernel; the paged decode step and the chunk prefill of a prefix-cache hit
+kernel (under context parallelism, `context_parallel_degree` on a `sep`
+mesh, ring attention's K1 and K3 launches; with `sep_degree`, Ulysses);
+the paged decode step and the chunk prefill of a prefix-cache hit
 the `paged_decode_fused` kernel, or `paged_decode_fused_q8` over an int8
 arena, and under context parallelism one `paged_decode_partials` launch
 per cp shard (the speculative verify window is a decode step of k + 1
@@ -22,6 +24,7 @@ immutable arrays).
 from __future__ import annotations
 
 import math
+import warnings
 from dataclasses import dataclass
 
 import numpy as np
@@ -30,6 +33,11 @@ from torch import nn
 from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..distributed import mesh as _mesh
+from ..distributed.fleet.meta_parallel.ring_attention import (
+    ring_flash_attention,
+    ulysses_attention,
+)
 from ..framework.core import INDEX_DTYPE, resolve_device, to_torch_dtype
 from ..nn.norm import RMSNorm
 from ..ops.flash_attention import decode_attention, paged_decode_attention, sdpa
@@ -47,6 +55,11 @@ class LlamaConfig:
     max_position_embeddings: int = 4096
     rms_norm_eps: float = 1e-5
     rope_theta: float = 10000.0
+    # long-context parallelism over the 'sep' mesh axis (the reference's
+    # llama.py:44-49): sep_degree routes full-sequence attention through
+    # Ulysses, context_parallel_degree through ring attention
+    sep_degree: int = 1
+    context_parallel_degree: int = 1
     # training: re-run each decoder layer's forward in the backward instead
     # of keeping its activations (the reference's use_recompute, llama.py:49)
     use_recompute: bool = False
@@ -376,6 +389,7 @@ class LlamaMLP(nn.Module):
 class LlamaAttention(nn.Module):
     def __init__(self, config, rope, device=None, dtype=None):
         super().__init__()
+        self.config = config
         h = config.hidden_size
         self.num_heads = config.num_attention_heads
         self.num_kv_heads = config.num_key_value_heads
@@ -448,10 +462,36 @@ class LlamaAttention(nn.Module):
             out = decode_attention(q, cache.k, cache.v, pos)
         elif cache is None:
             q, k = apply_rotary_pos_emb(q, k, cos, sin, 0)
-            out = sdpa(q, k, v, causal=True)
+            out = self._dispatch_attention(q, k, v)
         else:
             raise TypeError(f"unsupported cache view {type(cache).__name__}")
         return self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
+
+    def _dispatch_attention(self, q, k, v):
+        """Route by config (the reference's llama.py:711-745): ring (context
+        parallel) > Ulysses (sep) > flash.  Both long-context paths ride the
+        'sep' mesh axis and fall back to `sdpa` when the mesh has none."""
+        cfg = self.config
+        sep_n = _mesh.axis_size("sep")
+        want_ring = sep_n > 1 and cfg.context_parallel_degree > 1
+        want_ulysses = sep_n > 1 and cfg.sep_degree > 1
+        if want_ring or want_ulysses:
+            # ring and Ulysses take equal q/k head counts: GQA kv heads are
+            # repeated first
+            if self.num_kv_heads != self.num_heads:
+                rep = self.num_heads // self.num_kv_heads
+                k = k.repeat_interleave(rep, dim=2)
+                v = v.repeat_interleave(rep, dim=2)
+            if want_ring:
+                return ring_flash_attention(q, k, v, causal=True)
+            if self.num_heads % sep_n == 0:
+                return ulysses_attention(q, k, v, causal=True)
+            warnings.warn(
+                f"sep_degree set but num_attention_heads ({self.num_heads}) is "
+                f"not divisible by the sep mesh axis ({sep_n}); falling back "
+                "to flash attention"
+            )
+        return sdpa(q, k, v, causal=True)
 
 
 class LlamaDecoderLayer(nn.Module):

@@ -46,6 +46,12 @@ SIGNATURES = {
     # q, k, v, out, lse, g, dq, dk, dv, delta, b, s, h, hk, d, causal,
     # scale, dtype, path, segments, kbias, stream
     "ptt_flash_bwd": ([_P] * 10 + [_I] * 6 + [_F, _I, _I, _P, _P, _P], _I),
+    # q, k, v, out, lse, q_offset, carry_out, carry_lse, b, s, lk, h, hk, d,
+    # bq, causal, scale, dtype, path, out_f32, stream
+    "ptt_flash_fwd_ring": ([_P] * 8 + [_I] * 8 + [_F, _I, _I, _I, _P], _I),
+    # q, k, v, out, lse, g, dq, dk, dv, delta, q_offset, b, s, lk, h, hk, d,
+    # bq, causal, scale, dtype, path, delta_given, stream
+    "ptt_flash_bwd_ring": ([_P] * 11 + [_I] * 8 + [_F, _I, _I, _I, _P], _I),
     # q, ak, av, tables, pos, out, ws, splits, path, b, sq, h, hk, d, ps, P,
     # max_len, scale, dtype, stream
     "ptt_paged_decode": ([_P] * 7 + [_I] * 10 + [_F, _I, _P], _I),

@@ -7,10 +7,12 @@ training paths:
 
 - `flash_fwd` (csrc/flash_fwd.cu, replaces `_flash_fwd_kernel`): causal
   prompt attention at the fresh-prefill site and every training forward,
-  through `sdpa`.
+  through `sdpa`; every hop of ring attention
+  (`distributed/fleet/meta_parallel/ring_attention.py`).
 - `flash_bwd` (csrc/flash_bwd.cu, replaces `_pallas_flash_backward`): the
   attention gradient of a training step, through the `FlashAttention`
-  autograd Function that `sdpa` uses when grad is recorded.
+  autograd Function that `sdpa` uses when grad is recorded, and of every
+  ring hop.
 - `paged_decode_fused` (csrc/paged_decode.cu, replaces
   `_fused_paged_decode_forward`): every decode step and every chunk
   prefill of a prefix-cache hit, reading the K/V page arena through the
@@ -51,6 +53,17 @@ padding) and `kbias` (a lowered key-padding mask) on every path; their
 kernels or the reference's XLA path (`attention_plain`, plain torch ops
 under autograd) by the reference's rule, `flash_viable`, and counts the
 second in `fallback_counts`.
+
+K1 and K3 take the reference's ring operands too, through their own C
+entry points (`ptt_flash_fwd_ring`, `ptt_flash_bwd_ring`), so a launch
+without them is the one it was before: keys of another length than the
+queries; `q_offset` ([s / bq] int32, `q_block_starts`), the absolute start
+of each bq-row block of q (the zig-zag shard's two chunks); K1's `carry`
+(a partial out and lse the launch merges its keys onto) and `out_dtype=
+torch.float32`; K3's `delta` (rowsum(g * out), computed once by the ring
+for all its hops).  Causal masking is by absolute position: key j at j,
+query row i at i or at its block's offset (`_masked_scores`).  Their
+launches count under `*_offset`, `flash_fwd_carry` and `flash_bwd_delta`.
 """
 
 from __future__ import annotations
@@ -73,6 +86,8 @@ launch_counts = {"flash_fwd": 0, "paged_decode_fused": 0,
                  "flash_fwd_wgmma": 0, "dense_decode_wgmma": 0,
                  "flash_bwd_wgmma": 0,
                  "flash_fwd_masked": 0, "flash_bwd_masked": 0,
+                 "flash_fwd_offset": 0, "flash_fwd_carry": 0,
+                 "flash_bwd_offset": 0, "flash_bwd_delta": 0,
                  "paged_decode_fused_mma": 0, "paged_decode_fused_q8_mma": 0,
                  "paged_decode_fused_cp_mma": 0, "paged_decode_fused_cp_q8_mma": 0,
                  "paged_decode_fused_walk": 0, "paged_decode_fused_q8_walk": 0,
@@ -201,13 +216,15 @@ def paged_splits(path, b, hk, rows, P, ps, cp=1):
 
 
 def _check_flash(q, k, v):
+    """q [b, s, h, d] against k, v [b, lk, hk, d]: lk may differ from s
+    (the ring's gathered keys)."""
     _require(q.dim() == 4 and k.dim() == 4 and v.dim() == 4,
              "flash_fwd: q, k, v must be [b, s, h, d]")
     b, s, h, d = q.shape
     _require(k.shape == v.shape, "flash_fwd: k and v shapes differ")
-    _require(k.shape[0] == b and k.shape[1] == s and k.shape[3] == d,
+    _require(k.shape[0] == b and k.shape[1] >= 1 and k.shape[3] == d,
              f"flash_fwd: q {tuple(q.shape)} and k {tuple(k.shape)} must share "
-             "batch, seq and head_dim")
+             "batch and head_dim")
     _require(h % k.shape[2] == 0,
              f"flash_fwd: {h} q heads not a multiple of {k.shape[2]} kv heads")
     _require(d <= MAX_HEAD_DIM, f"flash_fwd: head_dim {d} > {MAX_HEAD_DIM}")
@@ -215,10 +232,13 @@ def _check_flash(q, k, v):
     _dtype_code(q, "flash_fwd")
 
 
-def _check_masking(q, segments, kbias, what):
+def _check_masking(q, k, segments, kbias, what):
     """`segments` [b, s] int32 and `kbias` [b, s] float32, each optional,
-    on q's device."""
+    on q's device; either needs keys as long as the queries (the ids are
+    shared by both)."""
     b, s = q.shape[0], q.shape[1]
+    _require((segments is None and kbias is None) or k.shape[1] == s,
+             f"{what}: segments and kbias need sq == sk, got {s} and {k.shape[1]}")
     if segments is not None:
         _require(tuple(segments.shape) == (b, s) and segments.dtype == INDEX_DTYPE,
                  f"{what}: segments must be [b, s] = [{b}, {s}] int32, got "
@@ -231,77 +251,186 @@ def _check_masking(q, segments, kbias, what):
         _require(kbias.device == q.device, f"{what}: kbias not on q's device")
 
 
-def _masked_scores(sc, causal, segments, kbias):
+def q_block_starts(offsets_and_lens, bq, device):
+    """The reference's `q_block_starts` (flash_attention.py:144): per-q-block
+    absolute start positions of a q formed by concatenating chunks,
+    [(global_offset, rows), ...] -> an int32 tensor on `device`, one entry
+    per `bq` rows.  `bq` divides every chunk, so no block straddles two."""
+    starts = []
+    for off, n in offsets_and_lens:
+        _require(n % bq == 0, f"q_block_starts: {bq} does not divide {n} rows")
+        starts.extend(range(off, off + n, bq))
+    return torch.tensor(starts, dtype=INDEX_DTYPE, device=device)
+
+
+def _offset_block(q_offset, s):
+    """The rows of each block of `q_offset` ([s / bq] int32): bq, a multiple
+    of 128 dividing s (a kernel tile of 64 or 128 rows never straddles two
+    blocks)."""
+    n = q_offset.numel()
+    _require(q_offset.dim() == 1 and q_offset.dtype == INDEX_DTYPE and n >= 1
+             and s % n == 0 and (s // n) % 128 == 0,
+             f"q_offset must be [s / bq] int32 with bq a multiple of 128 "
+             f"dividing s = {s}, got {tuple(q_offset.shape)} {q_offset.dtype}")
+    return s // n
+
+
+def q_positions(s, q_offset, device):
+    """Absolute positions [s] of the query rows: row i of block j at
+    q_offset[j] + i % bq, or i without offsets (the reference's kernels,
+    `q_start = qi * block_q`, flash_attention.py:80-86)."""
+    rows = torch.arange(s, device=device)
+    if q_offset is None:
+        return rows
+    bq = _offset_block(q_offset, s)
+    return q_offset.to(device).long().repeat_interleave(bq) + rows % bq
+
+
+def _masked_scores(sc, causal, segments, kbias, q_pos=None):
     """The reference's masking of [b, h, sq, sk] float32 scores, already
     scaled (`_blk_mask`, flash_attention.py:51-62, after the key bias of
     :115-124): plus kbias per key, then NEG_INF where the causal fence or
-    the segment ids (a query sees only keys of its own id) exclude a pair."""
+    the segment ids (a query sees only keys of its own id) exclude a pair.
+    The causal fence is by absolute position: key j sits at j, query row i
+    at q_pos[i] and sees keys j <= q_pos[i].  Without `q_pos` the rows sit
+    at 0..sq-1 (top-left, as the reference's kernels without q_offset:
+    for sq != sk a causal call passes explicit positions); the XLA path's
+    bottom-right alignment is q_pos = i + sk - sq (`attention_plain`)."""
     if kbias is not None:
         sc = sc + kbias[:, None, None, :]
     sq, sk = sc.shape[-2], sc.shape[-1]
     if causal:
-        q_ids = torch.arange(sq, device=sc.device)[:, None]
+        if q_pos is None:
+            q_pos = torch.arange(sq, device=sc.device)
         k_ids = torch.arange(sk, device=sc.device)[None, :]
-        sc = torch.where(q_ids >= k_ids - (sk - sq), sc, NEG_INF)
+        sc = torch.where(q_pos[:, None] >= k_ids, sc, NEG_INF)
     if segments is not None:
         same = segments[:, None, :, None] == segments[:, None, None, :]
         sc = torch.where(same, sc, NEG_INF)
     return sc
 
 
-def flash_forward_plain(q, k, v, causal, scale, segments=None, kbias=None):
+def flash_forward_plain(q, k, v, causal, scale, segments=None, kbias=None,
+                        q_offset=None, carry=None, out_dtype=None):
     """Plain version of `flash_fwd`: the reference's dense attention
-    (`_dense_attention`, flash_attention.py:1744) on [b, s, h, d] inputs,
-    masked as `_masked_scores` says.  A row whose every key is masked (a
-    key-padding bias of NEG_INF on all of them) has lse == NEG_INF, so p is
-    1 on every key; its output is the mean of V, as the reference's kernel
-    divides by their count (:137-141).  Returns (out [b, s, h, d] in q's
-    dtype, lse [b, h, s] float32)."""
+    (`_dense_attention`, flash_attention.py:1744) on [b, s, h, d] inputs
+    against k, v [b, lk, hk, d], masked as `_masked_scores` says (rows at
+    the absolute positions of `q_offset`).  A row whose every key is masked
+    (a key-padding bias of NEG_INF on all of them) has lse == NEG_INF, so p
+    is 1 on every key; its output is the mean of V, as the reference's
+    kernel divides by their count (:137-141).  `carry=(out_prev [b, s, h,
+    d] f32, lse_prev [b, h, s] f32)` enters as one more key with score
+    lse_prev and value out_prev (the reference's `_init`, :89-96).  Returns
+    (out [b, s, h, d] in `out_dtype`, default q's dtype, lse [b, h, s]
+    float32)."""
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # [b, h, s, d]
     rep = qt.shape[1] // kt.shape[1]
     if rep != 1:  # GQA: kv head i serves q heads [i*rep, (i+1)*rep)
         kt = kt.repeat_interleave(rep, dim=1)
         vt = vt.repeat_interleave(rep, dim=1)
     s = torch.einsum("bhqd,bhkd->bhqk", qt.float(), kt.float()) * scale
-    s = _masked_scores(s, causal, segments, kbias)
+    q_pos = q_positions(q.shape[1], q_offset, q.device) if causal else None
+    s = _masked_scores(s, causal, segments, kbias, q_pos)
+    out_dtype = out_dtype or q.dtype
+    if carry is not None:
+        out_prev, lse_prev = carry
+        m = torch.maximum(s.amax(-1), lse_prev)
+        p = torch.exp(s - m[..., None])
+        w = torch.exp(lse_prev - m)  # the carry's weight
+        l = (p.sum(-1) + w).clamp_min(1e-30)
+        acc = (torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), vt.float())
+               + w[..., None] * out_prev.transpose(1, 2))
+        out = acc / l[..., None]
+        return (out.to(out_dtype).transpose(1, 2).contiguous(),
+                m + torch.log(l))
     lse = torch.logsumexp(s, dim=-1)
     p = torch.exp(s - lse[..., None])
     out = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), vt.float())
     if kbias is not None:  # sum(p) is 1 but on rows with no live key
         out = out / p.sum(-1, keepdim=True)
-    return out.to(q.dtype).transpose(1, 2).contiguous(), lse
+    return out.to(out_dtype).transpose(1, 2).contiguous(), lse
 
 
-def flash_forward(q, k, v, causal=True, scale=None, segments=None, kbias=None):
-    """K1 wrapper.  q: [b, s, h, d]; k, v: [b, s, hk, d] with h % hk == 0
+def _check_ring(q, q_offset, carry, out_dtype, what):
+    """The ring operands: `q_offset` [s / bq] int32 (see `_offset_block`),
+    `carry` (out [b, s, h, d] float32, lse [b, h, s] float32), `out_dtype`
+    None or float32, all on q's device."""
+    b, s, h, d = q.shape
+    if q_offset is not None:
+        _offset_block(q_offset, s)
+        _require(q_offset.device == q.device, f"{what}: q_offset not on q's device")
+    if carry is not None:
+        out_prev, lse_prev = carry
+        _require(tuple(out_prev.shape) == (b, s, h, d)
+                 and out_prev.dtype == torch.float32
+                 and tuple(lse_prev.shape) == (b, h, s)
+                 and lse_prev.dtype == torch.float32,
+                 f"{what}: carry must be (out [b, s, h, d] float32, lse [b, h, "
+                 f"s] float32)")
+        _require(out_prev.device == q.device and lse_prev.device == q.device,
+                 f"{what}: carry not on q's device")
+    _require(out_dtype in (None, torch.float32),
+             f"{what}: out_dtype must be None or torch.float32")
+
+
+def flash_forward(q, k, v, causal=True, scale=None, segments=None, kbias=None,
+                  q_offset=None, carry=None, out_dtype=None):
+    """K1 wrapper.  q: [b, s, h, d]; k, v: [b, lk, hk, d] with h % hk == 0
     (GQA indexes kv head h // rep in-kernel); float32 or bfloat16.
     `segments` ([b, s] int32: a query attends only to keys of its own id)
     and `kbias` ([b, s] float32, added to every head's scores of that key)
-    are optional, shared by all heads, and read in-kernel.  Returns (out
-    [b, s, h, d], lse [b, h, s] float32)."""
+    are optional, shared by all heads, read in-kernel, and need lk == s.
+    The ring operands (the reference's, flash_attention.py:186): `q_offset`
+    ([s / bq] int32 on q's device, `q_block_starts`) puts each bq-row block
+    of q at its own absolute position, key j at j (without it row i is at
+    i; a causal call with lk != s passes it); `carry=(out_prev, lse_prev)`
+    merges this call's keys onto a partial result; `out_dtype=
+    torch.float32` keeps the output in float32.  Returns (out [b, s, h, d],
+    lse [b, h, s] float32)."""
     _check_flash(q, k, v)
-    _check_masking(q, segments, kbias, "flash_fwd")
+    _check_masking(q, k, segments, kbias, "flash_fwd")
+    _check_ring(q, q_offset, carry, out_dtype, "flash_fwd")
+    _require(segments is None and kbias is None
+             or q_offset is None and carry is None and out_dtype is None,
+             "flash_fwd: segments and kbias do not combine with the ring operands")
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if not _on_cuda((q, k, v), "flash_fwd"):
-        return flash_forward_plain(q, k, v, causal, scale, segments, kbias)
+        return flash_forward_plain(q, k, v, causal, scale, segments, kbias,
+                                   q_offset, carry, out_dtype)
     _require(q.is_contiguous() and k.is_contiguous() and v.is_contiguous(),
              "flash_fwd: q, k, v must be contiguous")
     from ._build import check, lib
 
     b, s, h, d = q.shape
+    lk = k.shape[1]
     path = flash_path(s, d, q.dtype)
-    segments, kbias = _contiguous_or_none(segments), _contiguous_or_none(kbias)
-    out = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    code = lib().ptt_flash_fwd(
+    if q_offset is None and carry is None and out_dtype is None and lk == s:
+        segments, kbias = _contiguous_or_none(segments), _contiguous_or_none(kbias)
+        out = torch.empty_like(q)
+        code = lib().ptt_flash_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), b, s, h, k.shape[2], d, int(bool(causal)),
+            float(scale), _dtype_code(q, "flash_fwd"), _FLASH_PATHS[path],
+            _ptr(segments), _ptr(kbias), _stream(q),
+        )
+        check(code, f"flash_fwd ({path})")
+        _count_flash("flash_fwd", path, segments, kbias)
+        return out, lse
+    out = torch.empty_like(q, dtype=out_dtype or q.dtype)
+    bq = 0 if q_offset is None else _offset_block(q_offset, s)
+    if carry is not None:
+        carry = tuple(x.contiguous() for x in carry)
+    code = lib().ptt_flash_fwd_ring(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), b, s, h, k.shape[2], d, int(bool(causal)),
-        float(scale), _dtype_code(q, "flash_fwd"), _FLASH_PATHS[path],
-        _ptr(segments), _ptr(kbias), _stream(q),
+        lse.data_ptr(), _ptr(_contiguous_or_none(q_offset)),
+        *(_ptr(x) for x in (carry or (None, None))), b, s, lk, h, k.shape[2],
+        d, bq, int(bool(causal)), float(scale), _dtype_code(q, "flash_fwd"),
+        _FLASH_PATHS[path], int(out.dtype == torch.float32), _stream(q),
     )
-    check(code, f"flash_fwd ({path})")
-    _count_flash("flash_fwd", path, segments, kbias)
+    check(code, f"flash_fwd ring ({path})")
+    _count_flash("flash_fwd", path, None, None, q_offset, carry)
     return out, lse
 
 
@@ -315,12 +444,18 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _count_flash(what, path, segments, kbias):
+def _count_flash(what, path, segments, kbias, q_offset=None, extra=None):
+    """One launch of K1 or K3 (`what`), under its path's and its operands'
+    counts: `extra` is K1's carry or K3's delta."""
     launch_counts[what] += 1
     if path == "wgmma":
         launch_counts[what + "_wgmma"] += 1
     if segments is not None or kbias is not None:
         launch_counts[what + "_masked"] += 1
+    if q_offset is not None:
+        launch_counts[what + "_offset"] += 1
+    if extra is not None:
+        launch_counts[what + ("_carry" if what == "flash_fwd" else "_delta")] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -329,67 +464,99 @@ def _count_flash(what, path, segments, kbias):
 
 
 def flash_backward_plain(q, k, v, out, lse, g, causal, scale, segments=None,
-                         kbias=None):
+                         kbias=None, q_offset=None, delta=None):
     """Plain version of `flash_bwd`: the math of the reference's
-    `_flash_backward` (flash_attention.py:1763-1814) on [b, s, h, d] inputs,
-    with its rounding points: p rounded to the input dtype before p^T g, ds
-    rounded before ds k and ds^T q, every product summed in float32.  The
-    scores are masked as the forward masked them, and p = exp(s - lse) is
-    recomputed from the forward's lse (on a row with no live key, 1 on
-    every key, as in the reference's kernel).  dk/dv are summed over each
-    GQA group in float32 and rounded once.  Returns (dq, dk, dv) in q's
-    dtype."""
+    `_flash_backward` (flash_attention.py:1763-1814) on [b, s, h, d] inputs
+    against k, v [b, lk, hk, d], with its rounding points: p rounded to the
+    input dtype before p^T g, ds rounded before ds k and ds^T q, every
+    product summed in float32.  The scores are masked as the forward masked
+    them (rows at the absolute positions of `q_offset`), and p = exp(s -
+    lse) is recomputed from the forward's lse (on a row with no live key,
+    1 on every key, as in the reference's kernel).  `delta` ([b, h, s]
+    float32, rowsum(g * out)) is used as given, and `out` then not read.
+    dk/dv are summed over each GQA group in float32 and rounded once.
+    Returns (dq, dk, dv) in q's dtype."""
     dt = q.dtype
     b, s, h, d = q.shape
-    hk = k.shape[2]
+    hk, lk = k.shape[2], k.shape[1]
     rep = h // hk
-    qt, gt, ot = (x.transpose(1, 2).float() for x in (q, g, out))  # [b, h, s, d]
+    qt, gt = (x.transpose(1, 2).float() for x in (q, g))  # [b, h, s, d]
     kt = k.transpose(1, 2).float().repeat_interleave(rep, dim=1)
     vt = v.transpose(1, 2).float().repeat_interleave(rep, dim=1)
-    delta = (gt * ot).sum(-1)  # [b, h, s]
+    if delta is None:
+        delta = (gt * out.transpose(1, 2).float()).sum(-1)  # [b, h, s]
     sc = torch.einsum("bhqd,bhkd->bhqk", qt, kt) * scale
-    sc = _masked_scores(sc, causal, segments, kbias)
+    q_pos = q_positions(s, q_offset, q.device) if causal else None
+    sc = _masked_scores(sc, causal, segments, kbias, q_pos)
     p = torch.exp(sc - lse[..., None])
     dv = torch.einsum("bhqk,bhqd->bhkd", p.to(dt).float(), gt)
     dp = torch.einsum("bhqd,bhkd->bhqk", gt, vt)
     ds = (p * (dp - delta[..., None]) * scale).to(dt).float()
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, kt)
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, qt)
-    dk = dk.reshape(b, hk, rep, s, d).sum(2)
-    dv = dv.reshape(b, hk, rep, s, d).sum(2)
+    dk = dk.reshape(b, hk, rep, lk, d).sum(2)
+    dv = dv.reshape(b, hk, rep, lk, d).sum(2)
     return tuple(x.transpose(1, 2).to(dt).contiguous() for x in (dq, dk, dv))
 
 
 def flash_backward(q, k, v, out, lse, g, causal=True, scale=None,
-                   segments=None, kbias=None):
-    """K3 wrapper.  q, out, g: [b, s, h, d]; k, v: [b, s, hk, d] (GQA read
+                   segments=None, kbias=None, q_offset=None, delta=None):
+    """K3 wrapper.  q, out, g: [b, s, h, d]; k, v: [b, lk, hk, d] (GQA read
     in place, dk/dv summed over each group in-kernel); lse: [b, h, s]
-    float32 from `flash_forward`; `segments` and `kbias` as the forward got
-    them (p is recomputed under the same mask).  The kernel is
-    `flash_path(s, d, dtype)`'s, as for K1: the wgmma + TMA kernels for
-    bfloat16 with d 64 or 128 and at least 128 rows.  Returns (dq, dk, dv)
-    shaped and typed like q, k, v."""
+    float32 from `flash_forward`; `segments`, `kbias` and `q_offset` as the
+    forward got them (p is recomputed under the same mask).  `delta` ([b,
+    h, s] float32, rowsum(g * out)): given, the kernel's pre-pass is
+    skipped and `out` may be None (the ring computes it once for all its
+    hops).  The kernel is `flash_path(s, d, dtype)`'s, as for K1: the wgmma
+    + TMA kernels for bfloat16 with d 64 or 128 and at least 128 rows.
+    Returns (dq, dk, dv) shaped and typed like q, k, v."""
     _check_flash(q, k, v)
-    _check_masking(q, segments, kbias, "flash_bwd")
+    _check_masking(q, k, segments, kbias, "flash_bwd")
+    _check_ring(q, q_offset, None, None, "flash_bwd")
+    _require(segments is None and kbias is None
+             or q_offset is None and delta is None,
+             "flash_bwd: segments and kbias do not combine with the ring operands")
     b, s, h, d = q.shape
-    _require(out.shape == q.shape and g.shape == q.shape,
+    lk = k.shape[1]
+    _require(delta is not None or out is not None,
+             "flash_bwd: out is needed without delta")
+    _require(g.shape == q.shape and (out is None or out.shape == q.shape),
              "flash_bwd: out and g must be shaped like q")
-    _require(out.dtype == q.dtype and g.dtype == q.dtype,
+    _require(g.dtype == q.dtype and (out is None or out.dtype == q.dtype),
              "flash_bwd: out and g must be typed like q")
     _require(lse.shape == (b, h, s) and lse.dtype == torch.float32,
              "flash_bwd: lse must be [b, h, s] float32")
+    _require(delta is None or (delta.shape == (b, h, s)
+                               and delta.dtype == torch.float32),
+             "flash_bwd: delta must be [b, h, s] float32")
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    if not _on_cuda((q, k, v, out, lse, g), "flash_bwd"):
+    given = [t for t in (q, k, v, out, lse, g, delta) if t is not None]
+    if not _on_cuda(given, "flash_bwd"):
         return flash_backward_plain(q, k, v, out, lse, g, causal, scale,
-                                    segments, kbias)
-    _require(all(t.is_contiguous() for t in (q, k, v, out, lse, g)),
+                                    segments, kbias, q_offset, delta)
+    _require(all(t.is_contiguous() for t in given),
              "flash_bwd: inputs must be contiguous")
     from ._build import check, lib
 
     path = flash_path(s, d, q.dtype)
-    segments, kbias = _contiguous_or_none(segments), _contiguous_or_none(kbias)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q_offset is not None or delta is not None or lk != s:
+        bq = 0 if q_offset is None else _offset_block(q_offset, s)
+        scratch = delta if delta is not None else torch.empty(
+            (b, h, s), dtype=torch.float32, device=q.device)
+        code = lib().ptt_flash_bwd_ring(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(out), lse.data_ptr(),
+            g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            scratch.data_ptr(), _ptr(_contiguous_or_none(q_offset)), b, s, lk,
+            h, k.shape[2], d, bq, int(bool(causal)), float(scale),
+            _dtype_code(q, "flash_bwd"), _FLASH_PATHS[path],
+            int(delta is not None), _stream(q),
+        )
+        check(code, f"flash_bwd ring ({path})")
+        _count_flash("flash_bwd", path, None, None, q_offset, delta)
+        return dq, dk, dv
+    segments, kbias = _contiguous_or_none(segments), _contiguous_or_none(kbias)
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     code = lib().ptt_flash_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -496,7 +663,9 @@ def attention_plain(q, k, v, mask=None, causal=False, scale=None, segment_ids=No
         kt = kt.repeat_interleave(rep, dim=1)
         vt = vt.repeat_interleave(rep, dim=1)
     s = torch.einsum("bhqd,bhkd->bhqk", qt.float(), kt.float()) * scale
-    s = _masked_scores(s, causal, None, None)
+    sq, sk = q.shape[1], k.shape[1]  # bottom-right: the last row sees every key
+    s = _masked_scores(s, causal, None, None,
+                       torch.arange(sq, device=s.device) + (sk - sq))
     if mask is not None:
         s = s + mask.float()
     if segment_ids is not None:

@@ -91,15 +91,25 @@ def test_sdpa_matches_reference_sdpa_array():
     [
         (dict(d=272), "head_dim"),
         (dict(hk=3), "multiple"),
-        (dict(sk=9), "share"),
+        (dict(bk=2), "share"),
     ],
 )
 def test_flash_forward_rejects_what_the_kernel_does_not_take(kwargs, match):
-    d, hk, sk = kwargs.get("d", 16), kwargs.get("hk", 2), kwargs.get("sk", 8)
+    d, hk, bk = kwargs.get("d", 16), kwargs.get("hk", 2), kwargs.get("bk", 1)
     q = torch.zeros(1, 8, 4, d)
-    k = torch.zeros(1, sk, hk, d)
+    k = torch.zeros(bk, 8, hk, d)
     with pytest.raises(ValueError, match=match):
         pfa.flash_forward(q, k, k.clone())
+
+
+def test_flash_forward_takes_rectangular_keys():
+    """Keys of another length than the queries (the ring's gathered form)
+    are K1's, not a rejection; segment ids and key bias still need sq == sk."""
+    q, k = torch.randn(1, 8, 4, 16), torch.randn(1, 9, 2, 16)
+    out, lse = pfa.flash_forward(q, k, k.clone(), causal=False)
+    assert out.shape == q.shape and lse.shape == (1, 4, 8)
+    with pytest.raises(ValueError, match="sq == sk"):
+        pfa.flash_forward(q, k, k.clone(), segments=torch.zeros(1, 8, dtype=torch.int32))
 
 
 def test_flash_forward_rejects_integer_dtype():
@@ -123,6 +133,8 @@ def test_cpu_tensors_never_count_a_kernel_launch():
                                  "paged_decode_fused_cp_q8_mma": 0,
                                  "flash_bwd_wgmma": 0,
                                  "flash_fwd_masked": 0, "flash_bwd_masked": 0,
+                                 "flash_fwd_offset": 0, "flash_fwd_carry": 0,
+                                 "flash_bwd_offset": 0, "flash_bwd_delta": 0,
                                  "paged_decode_fused_walk": 0,
                                  "paged_decode_fused_q8_walk": 0,
                                  "paged_decode_fused_cp_walk": 0,

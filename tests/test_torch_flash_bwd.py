@@ -210,6 +210,8 @@ def test_cpu_backward_never_counts_a_kernel_launch():
                                  "paged_decode_fused_cp_q8_mma": 0,
                                  "flash_bwd_wgmma": 0,
                                  "flash_fwd_masked": 0, "flash_bwd_masked": 0,
+                                 "flash_fwd_offset": 0, "flash_fwd_carry": 0,
+                                 "flash_bwd_offset": 0, "flash_bwd_delta": 0,
                                  "paged_decode_fused_walk": 0,
                                  "paged_decode_fused_q8_walk": 0,
                                  "paged_decode_fused_cp_walk": 0,

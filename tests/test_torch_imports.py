@@ -133,6 +133,8 @@ def _c_parameter_names(name):
     ("ptt_flash_fwd", "dtype", "path"),
     ("ptt_dense_decode", "dtype", "path"),
     ("ptt_flash_bwd", "dtype", "path"),
+    ("ptt_flash_fwd_ring", "dtype", "path"),
+    ("ptt_flash_bwd_ring", "dtype", "path"),
 ])
 def test_entry_points_take_the_hosts_kernel_choice(name, before, choice):
     """Each entry point behind a dispatch rule (`paged_path`, `flash_path`)

@@ -13,6 +13,10 @@
   under its kernel and, on a tensor-core path, under the path's count: a
   fake library stands in for the card, so the arguments the kernels would
   get are read here.  CPU tensors launch nothing and count nothing.
+- K1's and K3's ring operands (q_offset, carry, float32 out, delta,
+  rectangular keys) go to the ring entry points on the same path rule,
+  counted under `*_offset`, `flash_fwd_carry` and `flash_bwd_delta`; a
+  launch without them keeps the parent's entry point.
 """
 
 import pytest
@@ -356,3 +360,63 @@ def test_cpu_masked_calls_never_reach_the_library(monkeypatch):
     q.requires_grad_()
     pfa.sdpa(q, q, q, MASKS["key padding [b, 1, 1, s]"]).sum().backward()
     assert pfa.launch_counts == dict.fromkeys(pfa.launch_counts, 0)
+
+
+# ---------------------------------------------------------------------------
+# K1 and K3 with the ring operands
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("s, lk, d, dtype, path", [
+    (4096, 32768, 128, BF16, "wgmma"),   # the gathered form at 32k, R 8
+    (2048, 2048, 128, BF16, "wgmma"),    # a rotating hop
+    (512, 2048, 64, BF16, "wgmma"),
+    (512, 2048, 96, BF16, "mma"),
+    (256, 1024, 128, F32, "fma"),
+    (256, 512, 256, BF16, "fma"),
+])
+def test_ring_operands_take_the_ring_entry_on_their_path(fake_card, s, lk, d,
+                                                         dtype, path):
+    """q_offset, the carry and float32 out go to `ptt_flash_fwd_ring`,
+    q_offset and delta to `ptt_flash_bwd_ring`, each on `flash_path(s, d,
+    dtype)`'s kernel, with the rows per q block, the key length and the
+    operands' pointers; the launches count under the operand's name."""
+    g = torch.Generator().manual_seed(4)
+    q = torch.randn(1, s, 4, d, generator=g).to(dtype)
+    k = torch.randn(1, lk, 4, d, generator=g).to(dtype)
+    starts = torch.arange(0, s, 128, dtype=torch.int32)  # blocks of 128 rows
+    out, lse = pfa.flash_forward(q, k, k, True, None, q_offset=starts)
+    carry = (torch.zeros(1, s, 4, d), torch.zeros(1, 4, s))
+    pfa.flash_forward(q, q, q, False, None, carry=carry, out_dtype=F32)
+    pfa.flash_backward(q, k, k, out, lse, q, True, None, q_offset=starts)
+    delta = torch.zeros(1, 4, s)
+    pfa.flash_backward(q, q, q, None, lse, q, False, None, delta=delta)
+    code = {"fma": 0, "mma": 1, "wgmma": 2}[path]
+    (f1, a1), (f2, a2), (b1, c1), (b2, c2) = fake_card.calls
+    assert f1 == f2 == "ptt_flash_fwd_ring" and b1 == b2 == "ptt_flash_bwd_ring"
+    # q_offset, carry_out, carry_lse; b, s, lk, h, hk, d, bq, causal; path, out_f32
+    assert a1[5:8] == (starts.data_ptr(), None, None)
+    assert a1[8:16] == (1, s, lk, 4, 4, d, 128, 1)
+    assert a1[18:20] == (code, int(dtype == F32))  # a float32 out: out32
+    assert a2[5:8] == (None, carry[0].data_ptr(), carry[1].data_ptr())
+    assert a2[8:16] == (1, s, s, 4, 4, d, 0, 0) and a2[18:20] == (code, 1)
+    # delta scratch, q_offset; b, s, lk, h, hk, d, bq, causal; path, delta_given
+    assert c1[10] == starts.data_ptr() and c1[11:19] == (1, s, lk, 4, 4, d, 128, 1)
+    assert c1[21:23] == (code, 0)
+    assert c2[3] is None and c2[9] == delta.data_ptr() and c2[10] is None
+    assert c2[11:19] == (1, s, s, 4, 4, d, 0, 0) and c2[21:23] == (code, 1)
+    want = dict.fromkeys(pfa.launch_counts, 0)
+    want.update(flash_fwd=2, flash_bwd=2, flash_fwd_offset=1, flash_fwd_carry=1,
+                flash_bwd_offset=1, flash_bwd_delta=1)
+    if path == "wgmma":
+        want.update(flash_fwd_wgmma=2, flash_bwd_wgmma=2)
+    assert pfa.launch_counts == want
+
+
+def test_launches_without_ring_operands_keep_the_parents_entry(fake_card):
+    """K1 and K3 without the ring operands and with sq == sk call the entry
+    points they called before the operands existed."""
+    x = torch.zeros(1, 256, 4, 128, dtype=BF16)
+    out, lse = pfa.flash_forward(x, x, x)
+    pfa.flash_backward(x, x, x, out, lse, x)
+    assert [name for name, _ in fake_card.calls] == ["ptt_flash_fwd", "ptt_flash_bwd"]
