@@ -106,6 +106,16 @@ result.
               one step's gradients of 2 layers at 32768 tokens over R = 8
               against context_parallel_degree 1 (full-sequence K1/K3).
 
+Every serving phase (slice, prefix, dense, cp, cp_f32) runs on the
+engine's CUDA graphs: it prints `compile_counts()` after warmup and again
+after its traffic and fails if they differ (0 new traces under traffic),
+prints the host fetches per decode step and decode tokens/s over the
+decode window's wall clock, and (cp_f32 aside) holds one replay of each
+step that an admission ran -- fresh prefill, chunk prefill, decode or
+verify -- against an eager run of the same body on the same static
+inputs, bit for bit.  The profiled steps print the host's time until the
+last step returned and the kernels per step beside wall, busy and idle.
+
 Every phase prints its wall time.  The line before the last is the
 kernels' JSON record; the last line is {"ok": true, "device": {...}}.
 """
@@ -1634,6 +1644,7 @@ def phase_slice(smi, cfg, device="cuda", dtype="bfloat16",
     model = LlamaForCausalLM(cfg, device=device, dtype=dtype, seed=0)
     engine = ContinuousBatchingEngine(model, seed=0, device=device, **engine_kw)
     engine.warmup()
+    warm = _warm_counts("slice", engine)
     arena = cfg.num_hidden_layers * engine.pool_pages * kv_page_bytes(
         engine.page_size, cfg.num_key_value_heads, cfg.head_dim,
         model.lm_head.weight.element_size(),
@@ -1654,6 +1665,7 @@ def phase_slice(smi, cfg, device="cuda", dtype="bfloat16",
         engine, [[(p, new) for p, (_, new) in zip(prompts, prompts_spec)]])
     counts = profiler.kernel_launch_counts()
     summary = profiler.serving_summary()
+    graphs_ok = _no_retrace("slice", engine, warm)
 
     layers = cfg.num_hidden_layers
     gen = []
@@ -1669,9 +1681,8 @@ def phase_slice(smi, cfg, device="cuda", dtype="bfloat16",
     counts_ok = (counts["flash_fwd"] == want_k1
                  and counts["paged_decode_fused"] == want_k2
                  and counts["paged_decode_fused_walk"] == want_walk)
-    ok = tokens_ok and counts_ok
-    decode_tokens = summary["tokens"] - summary["requests"]
-    decode_tps = decode_tokens / summary["decode_busy_s"]
+    ok = tokens_ok and counts_ok and graphs_ok
+    decode_tps, fetches = _decode_rates(summary)
     peak_gib = (f"{torch.cuda.max_memory_allocated() / 2**30:.2f}" if on_card
                 else "not measured")
     log("slice", f"served {len(prompts)} requests over HTTP in {wall:.3f} s: "
@@ -1685,7 +1696,10 @@ def phase_slice(smi, cfg, device="cuda", dtype="bfloat16",
                  f"(buckets of 128+ rows)")
     log("slice", f"ttft_p50_ms {summary['ttft_p50_ms']:.3f} ttft_p95_ms "
                  f"{summary['ttft_p95_ms']:.3f} decode_tokens_per_s "
-                 f"{decode_tps:.2f} (batch of up to {engine.slots}) "
+                 f"{decode_tps:.2f} over the decode window of "
+                 f"{summary['decode_window_s']:.3f} s (batch of up to "
+                 f"{engine.slots}) host fetches per decode step {fetches:.3f} "
+                 f"({summary['host_fetches']} in {summary['decode_steps']} steps) "
                  f"occupancy_mean {summary['occupancy_mean']:.3f} "
                  f"peak_mem_gib {peak_gib} | {smi}")
 
@@ -1700,6 +1714,9 @@ def phase_slice(smi, cfg, device="cuda", dtype="bfloat16",
     log("slice", f"teacher-forced greedy agreement {agree}/{total} = "
                  f"{agree / total:.4f}; worst logits rel err {worst:.4f} (tol "
                  f"{LOGIT_REL_TOL}) -> {'ok' if logits_ok else 'FAIL'}")
+    ok &= check_replay("slice", engine, [
+        rng.integers(1, cfg.vocab_size, size=min(100, engine.max_len // 4))
+        .astype(np.int32)])
     if on_card:
         profile_decode(engine, cfg, rng)
     return ok, counts, model, summary
@@ -1765,6 +1782,66 @@ def _serve_batches(engine, batches):
     return results, time.perf_counter() - t0
 
 
+def _warm_counts(phase, engine):
+    """Print the engine's compile counts right after warmup() and the size
+    of its graph pool; return the counts."""
+    counts = engine.compile_counts()
+    log(phase, f"compile_counts after warmup {counts}; graph pool "
+               f"{engine.graph_pool_bytes() / 2**20:.1f} MiB")
+    return counts
+
+
+def _no_retrace(phase, engine, warm):
+    """compile_counts() after the traffic against `warm`: the reference's
+    "0 recompiles under traffic"."""
+    after = engine.compile_counts()
+    ok = after == warm
+    log(phase, f"compile_counts after traffic {after} -> "
+               f"{'ok, 0 new traces' if ok else 'FAIL'}")
+    return ok
+
+
+def _decode_rates(summary):
+    """(decode tokens/s over the decode window's wall clock, host fetches of
+    decode tokens per decode step)."""
+    window = summary["decode_window_s"]
+    decoded = summary["tokens"] - summary["requests"]
+    return (decoded / window if window > 0 else 0.0,
+            summary["host_fetches"] / max(1, summary["decode_steps"]))
+
+
+def check_replay(phase, engine, prompts, new_tokens=8):
+    """Replay against eager: submit `prompts` (a fresh prompt, then any
+    prefix-cache hits) and admit them with one engine step (their prefills,
+    a hit's COW copy, one decode or verify step).  Then each executable
+    that step ran -- the COW copy aside, which is not idempotent -- replays
+    once beside one eager run of its body on the same static inputs, while
+    the admitted requests still hold the pages both write alike.  Same
+    shapes and kernels, so anything but bit-identical tokens and logits is
+    a capture fault.  Returns whether every one was."""
+    import torch
+
+    graphs = engine.step_graphs()
+    before = {n: g.trace_count + g.replay_count for n, g in graphs.items()}
+    reqs = [engine.submit(p, max_new_tokens=new_tokens) for p in prompts]
+    engine.step()
+    ok, parts = True, []
+    for name, g in graphs.items():
+        if name == "copy" or g.trace_count + g.replay_count == before[name]:
+            continue
+        replayed, eager = g.compare_eager(g.last_key)
+        same = all(torch.equal(a, b) for a, b in zip(replayed, eager))
+        ok &= same
+        key = "" if g.last_key is None else f" {g.last_key}"
+        parts.append(f"{name}{key} {'bit-identical' if same else 'DIFFERS'}")
+    engine.run_until_idle()
+    for r in reqs:
+        r.wait(1)
+    log(phase, f"replay vs eager on the same static inputs: {'; '.join(parts)} "
+               f"-> {'ok' if ok and parts else 'FAIL'}")
+    return ok and bool(parts)
+
+
 def phase_prefix(smi, model, kv_quant, device="cuda", sys_len=PREFIX_SYS_LEN,
                  suffixes=PREFIX_SUFFIXES, new_tokens=PREFIX_NEW,
                  plain_spec=SLICE_PROMPTS, **engine_kw):
@@ -1792,6 +1869,7 @@ def phase_prefix(smi, model, kv_quant, device="cuda", sys_len=PREFIX_SYS_LEN,
                                       prefix_cache=True, kv_quant=kv_quant,
                                       **engine_kw)
     engine.warmup()
+    warm = _warm_counts(phase, engine)
     arena = layers * engine.pool_pages * kv_page_bytes(
         engine.page_size, cfg.num_key_value_heads, cfg.head_dim,
         model.lm_head.weight.element_size(), kv_quant)
@@ -1816,6 +1894,7 @@ def phase_prefix(smi, model, kv_quant, device="cuda", sys_len=PREFIX_SYS_LEN,
     counts = profiler.kernel_launch_counts()
     summary = profiler.serving_summary()
     paging = profiler.paging_summary()
+    graphs_ok = _no_retrace(phase, engine, warm)
 
     gen = []
     tokens_ok = True
@@ -1838,7 +1917,7 @@ def phase_prefix(smi, model, kv_quant, device="cuda", sys_len=PREFIX_SYS_LEN,
              and counts[paged_name + "_walk"] == want_walk)
     counts_ok = (counts["flash_fwd"] == want_k1 and counts[paged_name] == want_paged
                  and counts[other] == 0 and tc_ok)
-    ok = tokens_ok and sharing_ok and counts_ok
+    ok = tokens_ok and sharing_ok and counts_ok and graphs_ok
     log(phase, f"served {len(spec)} requests over HTTP in {wall:.3f} s: token "
                f"counts {'ok' if tokens_ok else 'WRONG'}; prefix hits {hits}, "
                f"COW copies {cows}, prefill tokens saved "
@@ -1856,10 +1935,12 @@ def phase_prefix(smi, model, kv_quant, device="cuda", sys_len=PREFIX_SYS_LEN,
                f"{counts[paged_name + '_walk'] // max(1, layers)} of "
                f"{summary['decode_steps']} ({counts[paged_name + '_walk']} "
                f"launches, expected {want_walk}) -> {'ok' if tc_ok else 'FAIL'}")
-    decode_tps = (summary["tokens"] - summary["requests"]) / summary["decode_busy_s"]
+    decode_tps, fetches = _decode_rates(summary)
     log(phase, f"ttft_p50_ms {summary['ttft_p50_ms']:.3f} ttft_p95_ms "
                f"{summary['ttft_p95_ms']:.3f} decode_tokens_per_s {decode_tps:.2f} "
-               f"(batch of up to {engine.slots}) arena_gib {arena / 2**30:.2f} "
+               f"over the decode window of {summary['decode_window_s']:.3f} s "
+               f"(batch of up to {engine.slots}) host fetches per decode step "
+               f"{fetches:.3f} arena_gib {arena / 2**30:.2f} "
                f"pages {engine.pool_pages} | {smi}")
 
     # -- correctness: a direct run's logits vs the teacher-forced forward ---
@@ -1873,6 +1954,11 @@ def phase_prefix(smi, model, kv_quant, device="cuda", sys_len=PREFIX_SYS_LEN,
     log(phase, f"teacher-forced greedy agreement {agree}/{total} = "
                f"{agree / total:.4f}; worst logits rel err {worst:.4f} (tol "
                f"{LOGIT_REL_TOL}) -> {'ok' if logits_ok else 'FAIL'}")
+    n = min(100, engine.max_len // 4)
+    ok &= check_replay(phase, engine, [
+        rng.integers(1, cfg.vocab_size, size=n).astype(np.int32),
+        np.concatenate([system, rng.integers(1, cfg.vocab_size, size=n)])
+        .astype(np.int32)])
     if torch.device(device).type == "cuda":
         if kv_quant == "int8":
             profile_decode(engine, cfg, rng)
@@ -1939,6 +2025,7 @@ def phase_cp(smi, model, device="cuda", doc_len=CP_DOC_LEN,
                                           spec_k=spec_k, kv_quant=quant,
                                           prefix_cache=True, **engine_kw)
         engine.warmup()
+        warm = _warm_counts(phase, engine)
         arena = layers * engine.pool_pages * kv_page_bytes(
             engine.page_size, cfg.num_key_value_heads, cfg.head_dim,
             model.lm_head.weight.element_size(), quant)
@@ -1963,6 +2050,7 @@ def phase_cp(smi, model, device="cuda", doc_len=CP_DOC_LEN,
         paging = profiler.paging_summary()
         spec_sum = profiler.speculation_summary()
         all_counts.append(counts)
+        graphs_ok = _no_retrace(phase, engine, warm)
         health = engine.healthz()
         server = serve(engine, port=0, block=False)
         try:
@@ -2006,7 +2094,7 @@ def phase_cp(smi, model, device="cuda", doc_len=CP_DOC_LEN,
             want[paged + "_mma"] = layers * hits
             want[paged + "_walk"] = layers * steps
         counts_ok = counts == want and hits == len(shared) - 1
-        ok = tokens_ok and overflow_ok and health_ok and counts_ok
+        ok = tokens_ok and overflow_ok and health_ok and counts_ok and graphs_ok
         log(phase, f"served {len(spec)} requests over HTTP in {wall:.3f} s: token "
                    f"counts {'ok' if tokens_ok else 'WRONG'}; prefix hits {hits}, "
                    f"COW copies {paging.get('cow_copies', 0)}, prefill tokens "
@@ -2030,11 +2118,14 @@ def phase_cp(smi, model, device="cuda", doc_len=CP_DOC_LEN,
                    f"{counts['flash_fwd_wgmma'] // max(1, layers)} of {misses}")
         log(phase, f"{overflow_len}-token prompt: HTTP {code} {body.get('type')} "
                    f"capacity {cap} -> {'ok' if overflow_ok else 'FAIL'}")
-        decode_tps = (summary["tokens"] - summary["requests"]) / summary["decode_busy_s"]
+        decode_tps, fetches = _decode_rates(summary)
         log(phase, f"ttft_p50_ms {summary['ttft_p50_ms']:.3f} ttft_p95_ms "
                    f"{summary['ttft_p95_ms']:.3f} decode_tokens_per_s "
-                   f"{decode_tps:.2f} (batch of up to {engine.slots}) speculation "
-                   f"{spec_sum or 'off'} | {smi}")
+                   f"{decode_tps:.2f} over the decode window of "
+                   f"{summary['decode_window_s']:.3f} s (batch of up to "
+                   f"{engine.slots}) host fetches per "
+                   f"{'verify' if spec_k else 'decode'} step {fetches:.3f} "
+                   f"speculation {spec_sum or 'off'} | {smi}")
 
         # -- correctness: a direct run's logits vs the teacher-forced forward
         prompts = [p for p, _ in spec]
@@ -2048,6 +2139,11 @@ def phase_cp(smi, model, device="cuda", doc_len=CP_DOC_LEN,
         log(phase, f"teacher-forced greedy agreement {agree}/{total} = "
                    f"{agree / total:.4f}; worst logits rel err {worst:.4f} (tol "
                    f"{LOGIT_REL_TOL}) -> {'ok' if logits_ok else 'FAIL'}")
+        n = min(100, engine.max_len // 4)
+        ok &= check_replay(phase, engine, [
+            rng.integers(1, cfg.vocab_size, size=n).astype(np.int32),
+            np.concatenate([doc, rng.integers(1, cfg.vocab_size, size=n)])
+            .astype(np.int32)])
         if on_card and cp > 1 and not profiled:
             profile_decode(engine, cfg, rng, prompt_len=profile_len)
             profiled = True
@@ -2114,10 +2210,12 @@ def phase_cp_f32(smi, model, device="cuda", doc_len=CP_DOC_LEN,
                                           spec_k=spec_k, prefix_cache=True,
                                           **engine_kw)
         engine.warmup()
+        warm = _warm_counts(phase, engine)
         profiler.reset_kernel_launch_counts()
         results, wall = _serve_batches(engine, batches)
         counts = profiler.kernel_launch_counts()
         all_counts.append(counts)
+        graphs_ok = _no_retrace(phase, engine, warm)
         gen, tokens_ok = [], True
         for r, (p, new) in zip(results, spec):
             toks = r["tokens"]
@@ -2129,7 +2227,7 @@ def phase_cp_f32(smi, model, device="cuda", doc_len=CP_DOC_LEN,
         paths_ok = (not on_card or (k5 > 0 and counts["paged_decode_fused"] == 0
                                     if cp > 1 else
                                     counts["paged_decode_fused"] > 0 and k5 == 0))
-        ok = tokens_ok and paths_ok
+        ok = tokens_ok and paths_ok and graphs_ok
         log(phase, f"engine cp={cp} spec_k={spec_k}: served {len(spec)} requests "
                    f"in {wall:.3f} s, token counts {'ok' if tokens_ok else 'WRONG'}; "
                    f"launches {_main(counts)} -> {'ok' if paths_ok else 'FAIL'}")
@@ -2335,6 +2433,7 @@ def phase_dense(smi, model, paged_summary, device="cuda", prompts_spec=SLICE_PRO
     engine = ContinuousBatchingEngine(model, seed=0, device=device, paged=False,
                                       **engine_kw)
     engine.warmup()
+    warm = _warm_counts("dense", engine)
     pool = 2 * layers * engine._caches[0].k.numel() * engine._caches[0].k.element_size()
     log("dense", f"dense slot pool {engine.slots} slots x {engine.max_len} rows = "
                  f"{pool / 2**30:.2f} GiB, built + warmed in "
@@ -2348,6 +2447,7 @@ def phase_dense(smi, model, paged_summary, device="cuda", prompts_spec=SLICE_PRO
         engine, [[(p, new) for p, (_, new) in zip(prompts, prompts_spec)]])
     counts = profiler.kernel_launch_counts()
     summary = profiler.serving_summary()
+    graphs_ok = _no_retrace("dense", engine, warm)
     gen, tokens_ok = [], True
     for r, p, (n, new) in zip(results, prompts, prompts_spec):
         toks = r["tokens"]
@@ -2361,7 +2461,7 @@ def phase_dense(smi, model, paged_summary, device="cuda", prompts_spec=SLICE_PRO
         fa.flash_path(b, cfg.head_dim, model.lm_head.weight.dtype) == "wgmma"
         for b in buckets) if on_card else 0
     counts_ok = counts == want
-    ok = tokens_ok and counts_ok
+    ok = tokens_ok and counts_ok and graphs_ok
     log("dense", f"served {len(prompts)} requests over HTTP in {wall:.3f} s: token "
                  f"counts {'ok' if tokens_ok else 'WRONG'}; launches {counts} "
                  f"(expected flash_fwd {want['flash_fwd']} = {len(prompts)} "
@@ -2369,12 +2469,13 @@ def phase_dense(smi, model, paged_summary, device="cuda", prompts_spec=SLICE_PRO
                  f"{'ok' if counts_ok else 'FAIL'}")
 
     def rates(sm):
-        return ((sm["tokens"] - sm["requests"]) / sm["decode_busy_s"],
-                sm["ttft_p50_ms"], sm["ttft_p95_ms"])
+        return _decode_rates(sm)[0], sm["ttft_p50_ms"], sm["ttft_p95_ms"]
 
     d_tps, d_p50, d_p95 = rates(summary)
     p_tps, p_p50, p_p95 = rates(paged_summary)
-    log("dense", f"decode_tokens_per_s dense {d_tps:.2f} | paged slice {p_tps:.2f}; "
+    log("dense", f"decode_tokens_per_s over the decode window dense {d_tps:.2f} "
+                 f"| paged slice {p_tps:.2f}; host fetches per decode step "
+                 f"{_decode_rates(summary)[1]:.3f}; "
                  f"ttft_p50_ms dense {d_p50:.3f} | paged {p_p50:.3f}; ttft_p95_ms "
                  f"dense {d_p95:.3f} | paged {p_p95:.3f} (batch of up to "
                  f"{engine.slots}, one run) | {smi}")
@@ -2388,6 +2489,9 @@ def phase_dense(smi, model, paged_summary, device="cuda", prompts_spec=SLICE_PRO
     log("dense", f"teacher-forced greedy agreement {agree}/{total} = "
                  f"{agree / total:.4f}; worst logits rel err {worst:.4f} (tol "
                  f"{LOGIT_REL_TOL}) -> {'ok' if logits_ok else 'FAIL'}")
+    ok &= check_replay("dense", engine, [
+        rng.integers(1, cfg.vocab_size, size=min(100, engine.max_len // 4))
+        .astype(np.int32)])
     if on_card:
         profile_decode(engine, cfg, rng)
     return ok, counts
@@ -2395,8 +2499,10 @@ def phase_dense(smi, model, paged_summary, device="cuda", prompts_spec=SLICE_PRO
 
 def _device_profile(run, steps):
     """Run `run()` `steps` times under torch.profiler.  Returns (wall us,
-    {kernel name: device us}, {annotated range: device us}); the kernel
-    dict is empty when the profiler saw no device time."""
+    {kernel name: device us}, {annotated range: device us}, {"host_us":
+    the host's time until the last call returned, before the final sync,
+    "kernels": kernels run}); the kernel dict is empty when the profiler
+    saw no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2405,9 +2511,10 @@ def _device_profile(run, steps):
         t0 = time.perf_counter()
         for _ in range(steps):
             run()
+        host_us = (time.perf_counter() - t0) * 1e6
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels, spans = {}, {}
+    kernels, spans, n = {}, {}, 0
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -2418,7 +2525,8 @@ def _device_profile(run, steps):
         else:
             us = getattr(ev, "self_device_time_total", 0.0)
             kernels[ev.key] = kernels.get(ev.key, 0.0) + us
-    return wall_us, kernels, spans
+            n += ev.count
+    return wall_us, kernels, spans, {"host_us": host_us, "kernels": n}
 
 
 # device time by kind of kernel, matched on the kernel's name
@@ -2441,17 +2549,26 @@ KERNEL_GROUPS = (
 )
 
 
-def _log_profile(what, wall_us, kernels, spans, steps, top=8):
+def _log_profile(what, wall_us, kernels, spans, steps, top=8, stats=None):
     """Print the step's wall time, the device's busy time and idle share,
-    the device time by kind of kernel, annotated ranges, and the top
-    kernels ("not measured" when the profiler saw no device time)."""
+    the host's time until the last step returned and the kernels a step
+    ran (`stats` of `_device_profile`), the device time by kind of kernel,
+    annotated ranges, and the top kernels ("not measured" when the
+    profiler saw no device time)."""
     busy = sum(kernels.values())
     if busy <= 0:
         log("profile", "device time not measured (the profiler saw no kernels)")
         return
+    extra = ""
+    if stats:
+        n = stats["kernels"] / steps
+        idle_us = (wall_us - busy) / steps
+        extra = (f"; host until the last step returned "
+                 f"{stats['host_us'] / steps / 1e3:.3f} ms/step; {n:.0f} "
+                 f"kernels/step, idle {idle_us / max(n, 1):.2f} us per kernel")
     log("profile", f"{what}: wall {wall_us / steps / 1e3:.3f} ms/step, device "
                    f"busy {busy / steps / 1e3:.3f} ms/step, idle share "
-                   f"{1 - busy / wall_us:.3f}")
+                   f"{1 - busy / wall_us:.3f}{extra}")
     groups = {label: 0.0 for label, _ in KERNEL_GROUPS}
     other = 0.0
     for name, us in kernels.items():
@@ -2484,13 +2601,13 @@ def profile_prefix_hit(engine, prompts):
         reqs.append(engine.submit(next(pending), max_new_tokens=2))
         engine.step()
 
-    wall_us, kernels, spans = _device_profile(admit, len(prompts))
+    wall_us, kernels, spans, stats = _device_profile(admit, len(prompts))
     engine.run_until_idle()
     for r in reqs:
         r.wait(1)
     _log_profile(f"prefix-hit admission (chunk prefill of "
                  f"{[p.size for p in prompts]}-token prompts + one decode step)",
-                 wall_us, kernels, spans, len(prompts))
+                 wall_us, kernels, spans, len(prompts), stats=stats)
 
 
 def profile_decode(engine, cfg, rng, prompt_len=256, steps=8):
@@ -2502,12 +2619,12 @@ def profile_decode(engine, cfg, rng, prompt_len=256, steps=8):
     engine.step()  # admits every slot (prefills) and decodes once
     engine.step()
     # each step ends in the host fetch of the step's tokens
-    wall_us, kernels, spans = _device_profile(engine.step, steps)
+    wall_us, kernels, spans, stats = _device_profile(engine.step, steps)
     engine.run_until_idle()
     for r in reqs:  # a request that failed would leave its slot out
         r.wait(1)
     _log_profile(f"decode step, {engine.slots} slots at ~{prompt_len} tokens",
-                 wall_us, kernels, spans, steps)
+                 wall_us, kernels, spans, steps, stats=stats)
 
 
 # ---------------------------------------------------------------------------
@@ -2624,10 +2741,10 @@ def phase_train(smi, cfg, device="cuda", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
         gemm_ms, _ = bound(0, 6 * gemm_params * batch * seq)
         log("profile", f"training step GEMMs: {6 * gemm_params * batch * seq:.3e} "
                        f"FLOP, bound {gemm_ms:.2f} ms at {PEAK_BF16_FLOP_S:.3g} FLOP/s")
-        wall_us, kernels, spans = _device_profile(
+        wall_us, kernels, spans, stats = _device_profile(
             lambda: _train_step(model, opt, ids), 1)
         _log_profile(f"training step, batch {batch} x {seq}, {layers} layers",
-                     wall_us, kernels, spans, 1, top=12)
+                     wall_us, kernels, spans, 1, top=12, stats=stats)
     return finite and falls and counts_ok and moved_ok, counts
 
 
@@ -2793,10 +2910,10 @@ def phase_bert(smi, cfg, device="cuda", batch=BERT_BATCH, seq=BERT_SEQ,
         gemm_ms, _ = bound(0, 6 * gemm_params * batch * seq)
         log("profile", f"BERT step GEMMs: {6 * gemm_params * batch * seq:.3e} "
                        f"FLOP, bound {gemm_ms:.2f} ms at {PEAK_BF16_FLOP_S:.3g} FLOP/s")
-        wall_us, kernels, spans = _device_profile(
+        wall_us, kernels, spans, stats = _device_profile(
             lambda: _bert_step(model, opt, inputs), 1)
         _log_profile(f"BERT training step, batch {batch} x {seq}, {layers} layers",
-                     wall_us, kernels, spans, 1, top=12)
+                     wall_us, kernels, spans, 1, top=12, stats=stats)
     ok = finite and falls and counts_ok
     ok &= _bert_kbias_check(model, cfg, inputs, on_card)
     return ok, counts
@@ -3106,10 +3223,11 @@ def phase_longcontext(smi, cfg, R, seq, steps, form, device="cuda", seed=0,
                    + " ".join(f"{x * 1e3:.1f}" for x in secs)
                    + f"), tokens_per_s {seq / step_s:.1f}, peak_mem_gib {peak} | {smi}")
         if on_card and profile:
-            wall_us, kernels, spans = _device_profile(
+            wall_us, kernels, spans, stats = _device_profile(
                 lambda: _train_step(model, opt, ids), 1)
             _log_profile(f"long-context training step, {seq} tokens over R {R}, "
-                         f"{layers} layers", wall_us, kernels, spans, 1, top=12)
+                         f"{layers} layers", wall_us, kernels, spans, 1, top=12,
+                         stats=stats)
     finally:
         mesh.set_mesh(saved)
     return finite and falls and counts_ok, counts
@@ -3229,8 +3347,10 @@ def main():
         dense_ok, dense_counts = _timed("dense", phase_dense, smi, model,
                                         slice_summary, **serving)
         _free()
+        # buckets up to the context: every prompt of the traffic lands in a
+        # warmed one, so none traces under traffic
         cp_kw = dict(slots=4, max_len=4096, page_size=128,
-                     prefill_buckets=[32, 64, 128, 256, 512])
+                     prefill_buckets=[32, 64, 128, 256, 512, 2048, 4095])
         cp_ok, cp_counts = _timed("cp", phase_cp, smi, model, **cp_kw)
         _free()
         # F4: the same traffic in float32, the model and its arenas too

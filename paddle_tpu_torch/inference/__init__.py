@@ -13,10 +13,15 @@ import numpy as np
 import torch
 
 from ..framework import core as _fcore
-from .engine import ContextOverflow, ContinuousBatchingEngine, QueueFull
+from .engine import (
+    ContextOverflow,
+    ContinuousBatchingEngine,
+    NonFiniteLogits,
+    QueueFull,
+)
 
 __all__ = ["serve", "ContinuousBatchingEngine", "GenerationPredictor",
-           "QueueFull", "ContextOverflow"]
+           "QueueFull", "ContextOverflow", "NonFiniteLogits"]
 
 
 class GenerationPredictor:
@@ -64,8 +69,9 @@ def serve(engine, port=8866, host="127.0.0.1", block=True):
       answers 503 with a Retry-After header (rows already admitted still
       complete; the client retries the batch); a prompt past the context
       answers 400 with the engine's capacity geometry under "capacity" (per
-      shard under cp); a bad body, or a request that fails inside the
-      engine, answers 400 with "Type: message".  Predictor: calls to the
+      shard under cp); a request whose logits went non-finite answers 500
+      (NonFiniteLogits); a bad body, or a request that fails otherwise
+      inside the engine, answers 400 with "Type: message".  Predictor: calls to the
       one model run one at a time; beyond FLAGS_serve_queue_depth running
       or waiting requests the server answers 503; a bad body, or a request
       the model refuses, answers 400.  Error bodies carry "error", "type",
@@ -156,6 +162,8 @@ def serve(engine, port=8866, host="127.0.0.1", block=True):
                 outs = [h.wait(timeout=600).tolist() for h in handles]
                 self._reply(200, {"tokens": outs if isinstance(ids[0], list)
                                   else outs[0]})
+            except NonFiniteLogits as e:  # the reference's 500, not retriable
+                self._error(500, e)
             except Exception as e:  # a bad body, or a failure inside the engine
                 self._error(400, e, msg=f"{type(e).__name__}: {e}")
 

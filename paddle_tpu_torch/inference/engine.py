@@ -61,12 +61,38 @@ The dense pool has no prefix cache, int8 pages (QuantConfigError),
 context parallelism or LoRA (ValueError), and speculation is off, as in
 the reference.
 
+Compiled steps (the reference's `jit.to_static` executables,
+engine.py:604-660): every step kind is a `graphs.StepGraph` -- the fresh
+prefill and the chunk prefill one per bucket, the decode step, the verify
+step and the COW page copy one each -- traced once (`warmup()` traces them
+all before traffic) and replayed after that; `compile_counts()` reads their
+trace counts under the reference's keys.  On the card each executable is a
+CUDA graph around the step's kernels (K1 in the fresh-prefill buckets, K2
+or K4 in the decode, verify and chunk steps, K5 in all three under cp); on
+the CPU the same bodies run eagerly on the same static buffers.  Every
+per-request value a step reads is data in a static buffer: tokens,
+positions, the active mask, temperatures, page tables (and their cp local
+tables), a prefill's true length, a chunk's start, a copy's pages.
+Sampling runs on the card: greedy and a draw from the engine's generator
+are both computed and the temperature picks one.
+
+In-flight decode (the reference's deferred token fetch, engine.py:2594,
+:2822): between slot-membership changes the decode loop state lives in the
+decode graph's static inputs, which the step itself advances, so a decode
+step is one graph replay with no host transfer.  Each dispatched step
+leaves a copy of its tokens and finite flags on `_pending_fetch`;
+`_flush_pending_locked` fetches them all at once and emits them.  A step
+flushes when one of its slots has an EOS watch, an `on_token` consumer,
+`keep_logits` or a length bound within reach; admission flushes first, and
+so does stop().  A slot whose logits went non-finite errors alone with
+NonFiniteLogits; its co-batched slots go on.  Verify steps and the first
+token of a prefill are still fetched at once, as in the reference: the
+next drafts, and the landing, need them.
+
 Not ported yet (ROADMAP, Queue 1): sessions, LoRA, the disaggregated page
 import, tensor parallelism, context parallelism across cards (NCCL), the
-serving fault domain (deadlines, cancel, warm restart), `/metrics`, the
-deferred token fetch and CUDA graphs.  A knob that asks for one of them
-raises NotImplementedError; this engine fetches each step's tokens to the
-host at once.
+rest of the serving fault domain (deadlines, cancel, warm restart) and
+`/metrics`.  A knob that asks for one of them raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -88,9 +114,9 @@ from ..models.llama import (
     PagedPrefillView,
     SlotView,
     StaticKVCache,
-    to_index_tensor,
 )
 from ..ops.flash_attention import MAX_HEAD_DIM, cp_local_tables
+from .graphs import StepGraph, new_pool
 from .paging import (
     PagePool,
     PrefixCache,
@@ -145,6 +171,12 @@ class ContextOverflow(ValueError):
         return out
 
 
+class NonFiniteLogits(FloatingPointError):
+    """This request's decode step produced non-finite logits (reference:
+    engine.py:241); it errors alone, its co-batched slots are
+    row-independent and go on.  serve() answers 500."""
+
+
 def _not_ported(knob, item):
     return NotImplementedError(
         f"{knob} is not ported to paddle_tpu_torch yet (ROADMAP Queue 1: "
@@ -155,18 +187,20 @@ def _not_ported(knob, item):
 class EngineRequest:
     """Handle for one submitted generation.  Lifecycle: queued ->
     prefilling -> decoding -> one of {eos, length, error}, exactly once.
-    With `keep_logits`, the float32 logits row behind every emitted token
-    is kept in `logits` (a list of device tensors).  `spec_k` caps this
-    request's draft length below the engine's (0 opts out, None = the
-    engine's)."""
+    `on_token(tok)` is called with every emitted token (a raising consumer
+    is ignored).  With `keep_logits`, the float32 logits row behind every
+    emitted token is kept in `logits` (a list of device tensors, copies of
+    the steps' outputs).  `spec_k` caps this request's draft length below
+    the engine's (0 opts out, None = the engine's)."""
 
     def __init__(self, rid, prompt, max_new_tokens, temperature, eos_token_id,
-                 keep_logits=False, spec_k=None):
+                 keep_logits=False, spec_k=None, on_token=None):
         self.id = int(rid)
         self.prompt = prompt  # np.int32 [L]
         self.max_new_tokens = int(max_new_tokens)
         self.temperature = float(temperature)
         self.eos_token_id = eos_token_id
+        self.on_token = on_token
         self.keep_logits = bool(keep_logits)
         self.spec_k = None if spec_k is None else int(spec_k)
         self.logits = []
@@ -268,8 +302,7 @@ class ContinuousBatchingEngine:
             # the dense slot pool: no pages, no prefix cache, no paged kernel
             self.decode_kernel = "auto"
             self.page_size = self.pages_per_seq = self.pool_pages = 0
-            self._arenas = self._pool = self._prefix = self._tables_t = None
-            self._local_t = None
+            self._arenas = self._pool = self._prefix = None
             with torch.no_grad():
                 self._caches = [
                     StaticKVCache(self.slots, self.max_len,
@@ -278,6 +311,7 @@ class ContinuousBatchingEngine:
                     for _ in range(cfg.num_hidden_layers)
                 ]
         self._gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        self._init_graphs()
         # one partials merge per layer per paged attention under cp (the
         # reference's all-reduces; torch ops on one card)
         _prof.record_mesh_topology(
@@ -295,10 +329,14 @@ class ContinuousBatchingEngine:
         # without speculation, where every step emits one per slot), the
         # reference's /healthz tokens_per_step (engine.py:666, :2749)
         self._tok_rate_ewma = 1.0
-        # device decode state, rebuilt from the host mirrors when slot
-        # membership changes: (toks, pos, active), or (pos, active) under
-        # speculation, whose tokens come from the host every step
+        # the device-resident decode loop state: the decode (or verify)
+        # graph's static inputs, reloaded from the host mirrors only when
+        # slot membership changes (None until then)
         self._dev = None
+        # decode steps dispatched but not fetched yet: [(copy of [nxt;
+        # finite] [2, S] int32, active slots, dispatch time, copy of the
+        # logits or None)]
+        self._pending_fetch = []
 
         self._queue = queue.Queue(maxsize=self.queue_depth)
         self._requeue = []  # page-deferred requests, ahead of the queue
@@ -377,8 +415,6 @@ class ContinuousBatchingEngine:
         self.min_prefix_match = 8
         self._page_table = np.zeros((self.slots, self.pages_per_seq), np.int32)
         self._slot_pages = [[] for _ in range(self.slots)]
-        self._tables_t = None  # device mirror, rebuilt with _dev
-        self._local_t = None  # its per-shard local tables under cp
 
     @staticmethod
     def _check_not_ported(paged, lora, tp, role):
@@ -399,73 +435,118 @@ class ContinuousBatchingEngine:
         if role is not None and role != "colocated":
             raise _not_ported(f"role={role!r}", "disaggregated prefill/decode")
 
-    # -- model steps -----------------------------------------------------------
+    # -- compiled steps ----------------------------------------------------------
+
+    def _init_graphs(self):
+        """One StepGraph per step kind, sharing one memory pool; every one
+        that samples draws from (and advances) the engine's generator."""
+        pool = new_pool(self.device)
+
+        def graph(name, body):
+            return StepGraph(name, body, self.device, pool, (self._gen,))
+
+        if self.paged:
+            self._prefill_g = graph("prefill", self._prefill_paged_body)
+            self._chunk_g = graph("chunk_prefill", self._chunk_prefill_body)
+            self._copy_g = graph("copy", self._copy_page_body)
+            self._decode_g = graph("decode", self._decode_paged_body)
+        else:
+            self._prefill_g = graph("prefill", self._prefill_dense_body)
+            self._chunk_g = self._copy_g = None
+            self._decode_g = graph("decode", self._decode_dense_body)
+        self._verify_g = graph("verify", self._verify_body) if self._spec_on else None
+
+    def step_graphs(self):
+        """The engine's executables by compile_counts() key."""
+        out = {"prefill": self._prefill_g, "decode": self._decode_g}
+        if self.paged:
+            out["chunk_prefill"] = self._chunk_g
+            out["copy"] = self._copy_g
+        if self._spec_on:
+            out["verify"] = self._verify_g
+        return out
+
+    def compile_counts(self):
+        """{prefill, decode} trace counts, plus chunk_prefill and copy when
+        paged and verify under speculation (the reference's keys,
+        engine.py:1366): prefill == buckets used, chunk_prefill == buckets
+        warmed, decode, copy and verify == 1, and no new trace under
+        traffic.  `aot_hits` is 0: the port keeps no executable cache."""
+        out = {k: g.trace_count for k, g in self.step_graphs().items()}
+        out["aot_hits"] = 0
+        return out
+
+    def graph_pool_bytes(self):
+        """Device memory reserved while capturing the engine's graphs (0 on
+        the CPU)."""
+        return sum(g.pool_bytes for g in self.step_graphs().values())
 
     def _sample(self, logits, temps):
-        """Greedy argmax, or a draw from softmax(logits / temp) with the
-        engine's generator for rows with temp > 0.  logits: [N, V] float32;
-        temps: host float32 [N]."""
-        greedy = logits.argmax(dim=-1).to(torch.int32)
-        if not (temps > 0).any():
-            return greedy
-        t = torch.from_numpy(np.maximum(temps, 1e-6)).to(logits.device)
-        probs = torch.softmax(logits / t[:, None], dim=-1)
-        samp = torch.multinomial(probs, 1, generator=self._gen)[:, 0]
-        hot = torch.from_numpy(temps > 0).to(logits.device)
-        return torch.where(hot, samp.to(torch.int32), greedy)
+        """Next tokens [N] int32 of float32 logits [N, V] at device
+        temperatures temps [N] (the reference's sampler, engine.py:752):
+        the greedy argmax and a draw from softmax(logits / temp) are both
+        computed and where(temps > 0) picks one, so greedy against sampled
+        is data.  The draw is the exponential race argmax(logits / temp -
+        log E), E ~ Exp(1) from the engine's generator: no host sync."""
+        greedy = logits.argmax(dim=-1)
+        e = torch.empty_like(logits).exponential_(generator=self._gen)
+        samp = (logits / temps.clamp_min(1e-6)[:, None] - e.log()).argmax(dim=-1)
+        return torch.where(temps > 0, samp, greedy).to(torch.int32)
+
+    def _prefill_tail(self, hidden, true_len, temp):
+        """(first token [1], logits [1, V] float32) of the row true_len - 1
+        (a [1] device tensor), not the bucket end."""
+        last = hidden.index_select(1, (true_len - 1).long())[:, 0]
+        logits = self.model.lm_head(last).float()
+        return self._sample(logits, temp), logits
 
     @torch.no_grad()
-    def _prefill(self, toks, target, true_len, temp, start=None, local=None):
-        """Prefill of one bucket-padded chunk: writes its K/V into the pages
-        of the page-table row `target` (paged) or into pool row `target`
-        (an int slot, dense) and returns (first token [1], logits [1, V]
-        float32) read at row true_len - 1, not at the bucket end.  `start`
-        None is a fresh prefill of the whole prompt; a [1] int32 tensor is
-        the chunk prefill of a prefix-cache hit's suffix, whose row 0 sits
-        at that position and which attends the shared pages (under cp
-        through `local`, the row's `_local_tables`)."""
-        if not self.paged:
-            views = [SlotView(c, target) for c in self._caches]
-        else:
-            views = [
-                PagedPrefillView(a, target, true_len, self.max_len, start=start,
-                                 kernel=self.decode_kernel, cp=self.cp,
-                                 local=local)
-                for a in self._arenas
-            ]
-        hidden = self.model.llama(toks, caches=views)
-        logits = self.model.lm_head(hidden[:, true_len - 1]).float()
-        return self._sample(logits, np.full(1, temp, np.float32)), logits
+    def _prefill_paged_body(self, toks, table, true_len, temp):
+        """Fresh paged prefill of one bucket (reference:
+        `_prefill_paged_body`, engine.py:917): toks [1, bucket], its K/V
+        scattered into the pages of table [P]; true_len [1] int32, temp [1]
+        float32."""
+        views = [PagedPrefillView(a, table, true_len, self.max_len,
+                                  kernel=self.decode_kernel, cp=self.cp)
+                 for a in self._arenas]
+        return self._prefill_tail(self.model.llama(toks, caches=views),
+                                  true_len, temp)
 
     @torch.no_grad()
-    def _copy_page(self, src, dst):
-        """Copy-on-write: duplicate arena page `src` into `dst` across every
-        layer's K and V, and their scale rows under int8 (a copy without
-        them would dequantize the reader's tail wrongly, silently)."""
+    def _chunk_prefill_body(self, toks, table, true_len, start, temp, loc=None,
+                            base=None):
+        """Chunk prefill of a prefix-cache hit's suffix (reference:
+        `_chunk_prefill_body`, engine.py:956): suffix row 0 sits at start
+        [1] and the rows attend the shared pages; under cp through the
+        row's stacked local tables loc [cp, 1, P/cp] and base [cp, P/cp]."""
+        local = None if loc is None else (loc, base)
+        views = [PagedPrefillView(a, table, true_len, self.max_len, start=start,
+                                  kernel=self.decode_kernel, cp=self.cp,
+                                  local=local)
+                 for a in self._arenas]
+        return self._prefill_tail(self.model.llama(toks, caches=views),
+                                  true_len, temp)
+
+    @torch.no_grad()
+    def _prefill_dense_body(self, toks, slot, true_len, temp):
+        """The dense pool's prefill (reference: `_prefill_body`,
+        engine.py:770): the bucket's K/V rows land in pool row slot [1]."""
+        views = [SlotView(c, slot) for c in self._caches]
+        return self._prefill_tail(self.model.llama(toks, caches=views),
+                                  true_len, temp)
+
+    @torch.no_grad()
+    def _copy_page_body(self, src, dst):
+        """Copy-on-write (reference: `_copy_page_body`, engine.py:999):
+        arena page src [1] into dst [1] across every layer's K and V, and
+        their scale rows under int8 (a copy without them would dequantize
+        the reader's tail wrongly, silently)."""
+        src, dst = src.long(), dst.long()
         for a in self._arenas:
             for t in (a.k, a.v, a.k_scale, a.v_scale):
                 if t is not None:
-                    t[dst].copy_(t[src])
-
-    def _host_local_tables(self, table):
-        """`cp_local_tables` of a host page table (np.int32 [rows, P]), each
-        shard's entries bound-checked against its page range: the kernel
-        indexes the shard's arena slice by the raw entry."""
-        local = cp_local_tables(torch.from_numpy(table), self.cp,
-                                self._pool.per_shard, self.page_size)
-        for loc, _ in local:
-            check_table_bounds(loc.numpy(), self._pool.per_shard)
-        return local
-
-    def _local_tables(self, table):
-        """`_host_local_tables` of `table`, stacked ([cp, rows, P/cp] local
-        tables, [cp, P/cp] page_base: `cp_stacked_tables`) and uploaded to
-        the engine's device once per table upload, shared by every layer's
-        one-launch K5; None at cp=1."""
-        if self.cp == 1:
-            return None
-        local = self._host_local_tables(table)
-        return tuple(torch.stack(x).to(self.device) for x in zip(*local))
+                    t.index_copy_(0, dst, t.index_select(0, src))
+        return ()
 
     def _paged_views(self, tables, local):
         return [
@@ -474,25 +555,46 @@ class ContinuousBatchingEngine:
             for a in self._arenas
         ]
 
-    @torch.no_grad()
-    def _decode_step(self, toks, pos, active, tables, local, temps):
-        """One token for every slot: toks [S, 1], pos [S], active [S] bool,
-        tables [S, P] and its cp `local` tables (None for the dense pool).
-        Inactive slots run at pos 0, over an all-zero table row (scratch) or
-        on row 0 of their own pool row.  Returns (next tokens [S], logits
+    def _decode_tail(self, views, toks, pos, active, temps):
+        """The decode step on `views` (reference: `_decode_body`,
+        engine.py:730): toks [S, 1], pos [S], active [S] bool, temps [S].
+        Inactive slots run at pos 0.  Writes the next tokens into toks and
+        the advanced positions (active slots only) into pos, so the next
+        step reads them where they are.  Returns (next tokens [S] int32,
+        finite [S] bool: every logit finite or the slot inactive, logits
         [S, V] float32)."""
         pos_eff = torch.where(active, pos, torch.zeros_like(pos))
-        views = self._caches if not self.paged else self._paged_views(tables, local)
         hidden = self.model.llama(toks, caches=views, pos=pos_eff)
         logits = self.model.lm_head(hidden[:, -1]).float()
-        return self._sample(logits, temps), logits
+        nxt = self._sample(logits, temps)
+        finite = torch.isfinite(logits).all(dim=-1) | ~active
+        toks.copy_(nxt[:, None])
+        pos.copy_(torch.where(active, pos + 1, pos))
+        return nxt, finite, logits
 
     @torch.no_grad()
-    def _verify_step(self, toks, pos, active, valid_len, tables, local, temps):
+    def _decode_paged_body(self, toks, pos, active, temps, tables, loc=None,
+                           base=None):
+        """`_decode_tail` over the paged arenas: tables [S, P] and, under cp,
+        their stacked local tables loc [cp, S, P/cp], base [cp, P/cp].
+        Inactive slots run over an all-zero table row (scratch)."""
+        local = None if loc is None else (loc, base)
+        return self._decode_tail(self._paged_views(tables, local), toks, pos,
+                                 active, temps)
+
+    @torch.no_grad()
+    def _decode_dense_body(self, toks, pos, active, temps):
+        """`_decode_tail` over the dense pool: inactive slots write row 0 of
+        their own pool row."""
+        return self._decode_tail(self._caches, toks, pos, active, temps)
+
+    @torch.no_grad()
+    def _verify_body(self, toks, pos, active, valid, temps, tables, loc=None,
+                     base=None):
         """Speculative verify (reference: `_verify_paged_body`,
         engine.py:846): one forward scores k + 1 rows per slot.  toks [S,
         k+1]: column 0 the committed last token (not yet in the pages; this
-        window writes it), columns 1..k the drafts; valid_len [S] counts the
+        window writes it), columns 1..k the drafts; valid [S] counts the
         committed token plus the real drafts (1: a plain decode row).  Row
         i writes its K/V at pos + i and attends j <= pos + i, so greedy[i]
         is the model's token after the window's first i + 1 rows.  Draft i
@@ -500,30 +602,103 @@ class ContinuousBatchingEngine:
         accepted; the slot emits greedy[0..n_acc].  Rejected rows need no
         rollback: the next window rewrites [new_pos, new_pos + k] before
         anything attends them.  Column 0 of a sampled slot (temp > 0, always
-        at valid_len 1) is drawn from the engine's generator.  Returns (out
-        [S, k+1] int32, n_emit [S], new_pos [S], logits [S, k+1, V]
+        at valid 1) is drawn from the engine's generator.  Advances pos by
+        n_emit in place.  Returns (out [S, k+1] int32, n_emit [S] int32,
+        finite [S] bool over the emitted rows, logits [S, k+1, V]
         float32)."""
+        local = None if loc is None else (loc, base)
         pos_eff = torch.where(active, pos, torch.zeros_like(pos))
         hidden = self.model.llama(toks, caches=self._paged_views(tables, local),
                                   pos=pos_eff)
         logits = self.model.lm_head(hidden).float()
         greedy = logits.argmax(dim=-1).to(torch.int32)  # [S, k+1]
-        k = greedy.shape[1] - 1
+        k1 = greedy.shape[1]
         drafts_ok = toks[:, 1:] == greedy[:, :-1]
-        considered = (torch.arange(k, device=toks.device)[None, :]
-                      < (valid_len - 1)[:, None])
+        considered = (torch.arange(k1 - 1, device=toks.device)[None, :]
+                      < (valid - 1)[:, None])
         n_acc = torch.cumprod((drafts_ok & considered).to(torch.int32), dim=1).sum(1)
         n_emit = torch.where(active, n_acc + 1, 0).to(torch.int32)
         out = greedy.clone()
         out[:, 0] = self._sample(logits[:, 0], temps)
-        return out, n_emit, pos + n_emit, logits
+        # the non-finite watch covers the emitted rows only: a rejected
+        # draft's logits are thrown away
+        emitted = torch.arange(k1, device=toks.device)[None, :] < n_emit[:, None]
+        finite = (torch.isfinite(logits).all(dim=-1) | ~emitted).all(dim=1) | ~active
+        pos.add_(n_emit)
+        return out, n_emit, finite, logits
+
+    def _local_tables(self, table):
+        """`cp_stacked_tables` of a host page table (np.int32 [rows, P]):
+        [cp, rows, P/cp] local tables and [cp, P/cp] page_base, host
+        tensors, each shard's entries bound-checked against its page range
+        (the kernel indexes the shard's arena slice by the raw entry).  They
+        reach the card once per table upload, in a graph's static inputs,
+        shared by every layer's one-launch K5; None at cp=1."""
+        if self.cp == 1:
+            return None
+        local = self._host_local_tables(table)
+        return tuple(torch.stack(x) for x in zip(*local))
+
+    def _host_local_tables(self, table):
+        """`cp_local_tables` of a host page table, bound-checked per shard."""
+        local = cp_local_tables(torch.from_numpy(table), self.cp,
+                                self._pool.per_shard, self.page_size)
+        for loc, _ in local:
+            check_table_bounds(loc.numpy(), self._pool.per_shard)
+        return local
+
+    def _table_inputs(self, table):
+        """A step's table inputs for the host page table `table` ([rows, P]):
+        `tables` (its bounds checked), and `loc`/`base` under cp."""
+        check_table_bounds(table, self.pool_pages)
+        out = {"tables": np.ascontiguousarray(table, np.int32)}
+        if self.cp > 1:
+            out["loc"], out["base"] = self._local_tables(table)
+        return out
+
+    def _run_prefill(self, toks, true_len, temp, table=None, slot=None,
+                     start=None):
+        """One bucket-padded prefill chunk toks [1, bucket] (np.int32)
+        through its executable: into the pages of `table` (np.int32 [P],
+        paged), fresh or, with `start` (the matched prefix length), the
+        chunk prefill of a prefix-cache hit; or into dense pool row `slot`.
+        Returns the static (first token [1], logits [1, V]) outputs."""
+        bucket = toks.shape[1]
+        inp = {"toks": toks, "true_len": np.full(1, true_len, np.int32),
+               "temp": np.full(1, temp, np.float32)}
+        if not self.paged:
+            return self._prefill_g(bucket, slot=np.full(1, slot, np.int32), **inp)
+        if start is None:
+            return self._prefill_g(bucket, table=table, **inp)
+        inp.update(table=table, start=np.full(1, start, np.int32))
+        if self.cp > 1:
+            inp["loc"], inp["base"] = self._local_tables(table[None])
+        return self._chunk_g(bucket, **inp)
+
+    def _copy_page(self, src, dst):
+        self._copy_g(None, src=np.full(1, src, np.int32),
+                     dst=np.full(1, dst, np.int32))
+
+    def _idle_step_inputs(self):
+        """Inputs of a decode (or verify) step with every slot inactive:
+        all-zero tables aim every write at scratch page 0 (the dense pool:
+        row 0 of each slot's own pool row)."""
+        S = self.slots
+        out = {"pos": np.zeros(S, np.int32), "active": np.zeros(S, bool),
+               "temps": np.zeros(S, np.float32)}
+        if self.paged:
+            out.update(self._table_inputs(np.zeros((S, self.pages_per_seq),
+                                                   np.int32)))
+        return out
 
     # -- public API ------------------------------------------------------------
 
     def submit(self, input_ids, max_new_tokens=32, temperature=0.0,
-               eos_token_id=None, keep_logits=False, spec_k=None):
+               eos_token_id=None, keep_logits=False, spec_k=None, on_token=None):
         """Enqueue one request (1-D token ids); returns an EngineRequest at
-        once.  Raises ContextOverflow when the prompt does not fit max_len
+        once.  `on_token(tok)` streams each emitted token (the scheduler
+        then fetches every decode step at once).  Raises ContextOverflow
+        when the prompt does not fit max_len
         and QueueFull when the queue is at capacity or the request's page
         need exceeds the pool (under cp: a shard's share of it exceeds the
         shard).  `spec_k` caps the request's draft length below the
@@ -564,7 +739,8 @@ class ContinuousBatchingEngine:
                 + (f" across cp={self.cp} shards" if self.cp > 1 else "")
             )
         req = EngineRequest(next(self._req_ids), ids, max_new_tokens,
-                            temperature, eos_token_id, keep_logits, spec_k)
+                            temperature, eos_token_id, keep_logits, spec_k,
+                            on_token)
         req._submit_t = time.perf_counter()
         try:
             self._queue.put_nowait(req)
@@ -587,39 +763,32 @@ class ContinuousBatchingEngine:
         return req.wait(timeout)
 
     def warmup(self):
-        """Run every prefill bucket and the decode step once on dummy data
-        before traffic (on the card this builds the kernels and warms the
-        matmul library).  All-zero tables aim every write at scratch page
-        0; the dense pool's warmup writes slot 0's rows, which its next
-        real prefill rewrites before any of them is attended."""
-        S = self.slots
-        if self.paged:
-            target = to_index_tensor(np.zeros(self.pages_per_seq), self.device)
-            tables = to_index_tensor(np.zeros((S, self.pages_per_seq)), self.device)
-        else:
-            target, tables = 0, None
-        zero_start = to_index_tensor(np.zeros(1), self.device)
-        row_local = (self._local_tables(np.zeros((1, self.pages_per_seq), np.int32))
-                     if self.paged else None)
+        """Trace every executable before traffic (reference: engine.py:1266):
+        each prefill bucket (and, paged, its chunk prefill), the COW copy,
+        the decode step and, under speculation, the verify step, on dummy
+        data.  On the card a trace builds the kernels, warms the matmul
+        library and captures the step's CUDA graph.  All-zero tables aim
+        every write at scratch page 0; the dense pool's warmup writes slot
+        0's rows, which its next real prefill rewrites before any of them
+        is attended."""
+        P = self.pages_per_seq
+        zero_row = np.zeros(P, np.int32)
         for b in self.prefill_buckets:
-            toks = to_index_tensor(np.zeros((1, b)), self.device)
-            self._prefill(toks, target, b, 0.0)
-            if self._prefix is not None:
-                self._prefill(toks, target, b, 0.0, start=zero_start,
-                              local=row_local)
-        if self._prefix is not None:
+            toks = np.zeros((1, b), np.int32)
+            if self.paged:
+                self._run_prefill(toks, b, 0.0, table=zero_row)
+                self._run_prefill(toks, b, 0.0, table=zero_row, start=0)
+            else:
+                self._run_prefill(toks, b, 0.0, slot=0)
+        if self.paged:
             self._copy_page(0, 0)  # scratch onto itself
-        local = (self._local_tables(np.zeros((S, self.pages_per_seq), np.int32))
-                 if self.paged else None)
-        zeros = to_index_tensor(np.zeros(S), self.device)
-        idle = torch.zeros(S, dtype=torch.bool, device=self.device)
-        if self._spec_on:  # the verify step replaces the decode step
-            self._verify_step(
-                to_index_tensor(np.zeros((S, self.spec_k + 1)), self.device),
-                zeros, idle, zeros + 1, tables, local, np.zeros(S, np.float32))
-        else:
-            self._decode_step(to_index_tensor(np.zeros((S, 1)), self.device),
-                              zeros, idle, tables, local, np.zeros(S, np.float32))
+        idle = self._idle_step_inputs()
+        self._decode_g(None, toks=np.zeros((self.slots, 1), np.int32), **idle)
+        if self._spec_on:
+            self._verify_g(None, toks=np.zeros((self.slots, self.spec_k + 1), np.int32),
+                           valid=np.ones(self.slots, np.int32), **idle)
+        with self._mu:
+            self._dev = None  # the traces overwrote the loop state
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return self
@@ -679,10 +848,15 @@ class ContinuousBatchingEngine:
         return emitted
 
     def run_until_idle(self):
-        """Drive step() until queue and slots are empty."""
+        """Drive step() until queue and slots are empty.  The last step of
+        every request flushes (its length bound is within reach), so
+        nothing is left pending; a flush here would only catch a leak."""
         total = 0
         while self.has_work():
             total += self.step()
+        if self._pending_fetch:
+            with self._mu:
+                self._flush_pending_locked()
         return total
 
     def start(self):
@@ -696,18 +870,22 @@ class ContinuousBatchingEngine:
         return self
 
     def stop(self, timeout=30.0):
-        """Stop the scheduler thread (bounded join).  The prefix cache keeps
-        its pages: a restarted scheduler finds them warm."""
+        """Stop the scheduler thread (bounded join), then flush the pending
+        decode steps, so that a stop racing an in-flight step leaves no
+        dispatched token unemitted (reference: engine.py:1643).  The prefix
+        cache keeps its pages: a restarted scheduler finds them warm."""
         t = self._thread
-        if t is None:
-            return
-        self._stop = True
-        with self._cv:
-            self._cv.notify_all()
-        t.join(timeout)
-        if t.is_alive():
-            raise RuntimeError(f"engine scheduler did not stop within {timeout}s")
-        self._thread = None
+        if t is not None:
+            self._stop = True
+            with self._cv:
+                self._cv.notify_all()
+            t.join(timeout)
+            if t.is_alive():
+                raise RuntimeError(
+                    f"engine scheduler did not stop within {timeout}s")
+            self._thread = None
+        with self._mu:
+            self._flush_pending_locked()
 
     # -- scheduler ---------------------------------------------------------------
 
@@ -723,6 +901,7 @@ class ContinuousBatchingEngine:
             except Exception as e:  # fail the in-flight requests, keep serving
                 logger.exception("engine step failed")
                 with self._mu:
+                    self._pending_fetch.clear()  # their steps are void
                     for s, req in enumerate(self._slot_req):
                         if req is not None:
                             req.error = e
@@ -866,14 +1045,16 @@ class ContinuousBatchingEngine:
         engine.py:2200-2256)."""
         L = int(req.prompt.size)
         with self._mu:
+            # the slot rebuild after this landing reads _last_tok: it must
+            # hold every step already dispatched
+            self._flush_pending_locked()
             # cache rows run out at max_len: the last writable decode row is
             # max_len - 1, giving max_len - L generatable tokens
             req.max_new_tokens = min(req.max_new_tokens, self.max_len - L)
         toks = np.zeros((1, self._bucket_for(L)), np.int32)
         toks[0, :L] = req.prompt
-        nxt, logits = self._prefill(to_index_tensor(toks, self.device), s, L,
-                                    req.temperature)
-        tok = int(nxt.item())
+        nxt, logits = self._run_prefill(toks, L, req.temperature, slot=s)
+        tok = int(nxt[0])  # the landing fetch of the first token
         with self._mu:
             self._land_locked(s, req, tok, logits)
 
@@ -894,7 +1075,7 @@ class ContinuousBatchingEngine:
             self._drafters[s] = NgramDrafter().reset(
                 [int(t) for t in req.prompt] + [tok])
         if req.keep_logits:
-            req.logits.append(logits[0])
+            req.logits.append(logits[0].clone())  # the output is static
         self._emit(s, req, tok)
 
     def _prefill_into_paged(self, s, req):
@@ -906,6 +1087,9 @@ class ContinuousBatchingEngine:
         L = int(req.prompt.size)
         pinned = None  # COW source, kept alive across our own allocations
         with self._mu:
+            # the slot rebuild after this landing reads _last_tok: it must
+            # hold every step already dispatched
+            self._flush_pending_locked()
             req.max_new_tokens = min(req.max_new_tokens, self.max_len - L)
             coverage = self._pages_for(L, req.max_new_tokens)
             match_len, shared_full, tail_page, tail_rows = 0, [], None, 0
@@ -959,16 +1143,10 @@ class ContinuousBatchingEngine:
         try:
             if copy_args is not None:
                 self._copy_page(*copy_args)
-            start = local = None
-            if match_len:
-                start = to_index_tensor(np.full(1, match_len), self.device)
-                local = self._local_tables(row_table[None])
-            nxt, logits = self._prefill(
-                to_index_tensor(toks, self.device),
-                to_index_tensor(row_table, self.device), suffix,
-                req.temperature, start=start, local=local,
-            )
-            tok = int(nxt.item())
+            nxt, logits = self._run_prefill(
+                toks, suffix, req.temperature, table=row_table,
+                start=match_len if match_len else None)
+            tok = int(nxt[0])  # the landing fetch of the first token
         finally:
             if pinned is not None:
                 with self._mu:
@@ -980,82 +1158,121 @@ class ContinuousBatchingEngine:
                     _prof.record_paging_event("cache_commits", inserted)
             self._land_locked(s, req, tok, logits)
 
-    def _upload_tables_locked(self):
-        """Mirror the host page table (and, under cp, its per-shard local
-        tables) to the device.  Tables change exactly when slot membership
-        does; every entry is bound-checked before the upload.  Caller holds
-        _mu."""
-        check_table_bounds(self._page_table, self.pool_pages)
-        self._tables_t = to_index_tensor(self._page_table, self.device)
-        self._local_t = self._local_tables(self._page_table)
+    def _load_state_locked(self, active_idx):
+        """The decode loop state of the current slot membership, from the
+        host mirrors: positions, the active mask, temperatures and the page
+        tables (and their cp local tables), bound-checked.  Loaded into the
+        decode or verify graph's static inputs at a membership change; the
+        steps advance them on the card after that.  Caller holds _mu."""
+        active = np.zeros(self.slots, bool)
+        active[active_idx] = True
+        state = {"pos": self._pos.copy(), "active": active,
+                 "temps": self._temps.copy()}
+        if self.paged:
+            state.update(self._table_inputs(self._page_table))
+        return state
+
+    def _needs_tokens_locked(self, active_idx, depth):
+        """The reference's flush rule (engine.py:2594-2603): fetch now when a
+        slot watches for EOS, streams its tokens (`on_token`, and the port's
+        `keep_logits`), or reaches its length bound within the `depth`
+        steps in flight.  Caller holds _mu."""
+        for s in active_idx:
+            req = self._slot_req[s]
+            if (req.eos_token_id is not None or req.on_token is not None
+                    or req.keep_logits
+                    or len(req.tokens) + depth >= req.max_new_tokens):
+                return True
+        return False
 
     def _decode_once(self):
+        """One decode step for every active slot: one replay of the decode
+        graph, left in flight unless the flush rule fetches it."""
         with self._mu:
             active_idx = [s for s in range(self.slots)
                           if self._slot_req[s] is not None]
             if not active_idx:
                 return 0
-            if self._dev is None:
-                active = np.zeros(self.slots, bool)
-                active[active_idx] = True
-                if self.paged:
-                    self._upload_tables_locked()
-                self._dev = (
-                    to_index_tensor(self._last_tok.reshape(self.slots, 1),
-                                    self.device),
-                    to_index_tensor(self._pos, self.device),
-                    torch.from_numpy(active).to(self.device),
-                )
-            toks_t, pos_t, active_t = self._dev
-            temps = self._temps.copy()
-        t0 = time.perf_counter()
-        nxt, logits = self._decode_step(toks_t, pos_t, active_t,
-                                        self._tables_t, self._local_t, temps)
-        nxt_np = nxt.cpu().numpy()  # fetched every step in this slice
-        busy = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            load = {}
+            if self._dev is None:  # membership changed: reload the state
+                load = self._load_state_locked(active_idx)
+                load["toks"] = self._last_tok.reshape(self.slots, 1).copy()
+            keep = any(self._slot_req[s].keep_logits for s in active_idx)
+        nxt, finite, logits = self._decode_g(None, **load)
+        # the pending entry copies the static outputs: the next replay
+        # overwrites them
+        step = torch.stack([nxt, finite.to(torch.int32)])
+        kept = logits.clone() if keep else None
         with self._mu:
-            self._dev = (nxt[:, None], torch.where(active_t, pos_t + 1, pos_t),
-                         active_t)
+            self._dev = self._decode_g.inputs(None)
             for s in active_idx:
                 self._pos[s] += 1
+            self._pending_fetch.append((step, active_idx, t0, kept))
+            if self._needs_tokens_locked(active_idx, len(self._pending_fetch)):
+                self._flush_pending_locked()
             _prof.record_serving_tick(len(active_idx) / self.slots,
-                                      self._queue.qsize(), busy)
+                                      self._queue.qsize(),
+                                      time.perf_counter() - t0, t0=t0)
             if self.kv_quant == "int8":
                 # per layer: one K/V row pair quantized per active slot, and
                 # every mapped page dequantized in the kernel's page walk
                 _prof.record_kv_quant_event("quantize", len(active_idx))
                 _prof.record_kv_quant_event(
                     "dequantize", sum(len(self._slot_pages[s]) for s in active_idx))
-            for s in active_idx:
+        return len(active_idx)
+
+    def _flush_pending_locked(self):
+        """Fetch every dispatched decode step not fetched yet, in one
+        transfer, and emit its tokens (reference: engine.py:2822).  A slot
+        whose logits went non-finite errors alone with NonFiniteLogits.
+        Membership is constant across the pending steps (any change
+        flushes first), so each entry's slots are exact; a slot that
+        finished earlier in this flush skips the rest.  Caller holds
+        _mu."""
+        if not self._pending_fetch:
+            return
+        batches, self._pending_fetch = self._pending_fetch, []
+        fetched = torch.stack([b[0] for b in batches]).cpu().numpy()
+        _prof.record_host_fetch()
+        for (_, idx, _, kept), (nxt_np, fin_np) in zip(batches, fetched):
+            for s in idx:
                 req = self._slot_req[s]
+                if req is None:  # finished earlier in this flush
+                    continue
+                if not fin_np[s]:
+                    self._fail_nonfinite_locked(s, req)
+                    continue
                 tok = int(nxt_np[s])
                 self._last_tok[s] = tok
                 if req.keep_logits:
-                    req.logits.append(logits[s])
+                    req.logits.append(kept[s])
                 self._emit(s, req, tok)
-        return len(active_idx)
+
+    def _fail_nonfinite_locked(self, s, req):
+        req.error = NonFiniteLogits(
+            f"request {req.id}: non-finite logits at position "
+            f"{int(self._pos[s])} (slot {s}); the slot was evicted, its "
+            "co-batched requests are unaffected")
+        self._finish(s, req, "error")
 
     def _decode_once_spec(self):
         """One speculative round for every active slot (reference:
         `_decode_once_spec`, engine.py:2627): draft on the host, verify k + 1
-        rows per slot in one forward, emit each slot's accepted run.  The
-        draft budget min(spec_k, req.spec_k, remaining - 1) keeps every
-        committed row inside the slot's mapped pages and the emitted run
-        within max_new_tokens; an eos inside the run ends the request there
-        and drops the rest of the run.  Returns the tokens emitted."""
+        rows per slot in one replay of the verify graph, fetch, emit each
+        slot's accepted run.  The draft budget min(spec_k, req.spec_k,
+        remaining - 1) keeps every committed row inside the slot's mapped
+        pages and the emitted run within max_new_tokens; an eos inside the
+        run ends the request there and drops the rest of the run.  Returns
+        the tokens emitted."""
         K1 = self.spec_k + 1
         with self._mu:
             active_idx = [s for s in range(self.slots)
                           if self._slot_req[s] is not None]
             if not active_idx:
                 return 0
-            if self._dev is None:
-                active = np.zeros(self.slots, bool)
-                active[active_idx] = True
-                self._upload_tables_locked()
-                self._dev = (to_index_tensor(self._pos, self.device),
-                             torch.from_numpy(active).to(self.device))
-            pos_t, active_t = self._dev
+            t0 = time.perf_counter()
+            load = {} if self._dev is not None else self._load_state_locked(active_idx)
             toks = np.zeros((self.slots, K1), np.int32)
             valid = np.ones(self.slots, np.int32)
             proposed = 0
@@ -1072,21 +1289,21 @@ class ContinuousBatchingEngine:
                 toks[s, 1:1 + len(draft)] = draft
                 valid[s] = 1 + len(draft)
                 proposed += len(draft)
-            temps = self._temps.copy()
-        t0 = time.perf_counter()
-        out, n_emit, new_pos, logits = self._verify_step(
-            to_index_tensor(toks, self.device), pos_t, active_t,
-            to_index_tensor(valid, self.device), self._tables_t, self._local_t,
-            temps)
-        out_np = out.cpu().numpy()  # the next drafts need these tokens
-        n_np = n_emit.cpu().numpy()
-        busy = time.perf_counter() - t0
+        out, n_emit, finite, logits = self._verify_g(None, toks=toks, valid=valid,
+                                                     **load)
+        # the next drafts need these tokens: one fetch every verify step
+        host = torch.cat([out, n_emit[:, None], finite[:, None].to(torch.int32)],
+                         dim=1).cpu().numpy()
+        _prof.record_host_fetch()
         with self._mu:
-            self._dev = (new_pos, active_t)
+            self._dev = self._verify_g.inputs(None)
             accepted = emitted = 0
             for s in active_idx:
                 req = self._slot_req[s]
-                n = int(n_np[s])
+                if not host[s, K1 + 1]:
+                    self._fail_nonfinite_locked(s, req)
+                    continue
+                n = int(host[s, K1])
                 self._pos[s] += n
                 accepted += n - 1
                 emitted += n
@@ -1094,18 +1311,19 @@ class ContinuousBatchingEngine:
                 for j in range(n):
                     if self._slot_req[s] is not req:
                         break  # eos inside the accepted run right-trims
-                    tok = int(out_np[s, j])
+                    tok = int(host[s, j])
                     self._last_tok[s] = tok
                     if dr is not None:
                         dr.extend(tok)
                     if req.keep_logits:
-                        req.logits.append(logits[s, j])
+                        req.logits.append(logits[s, j].clone())
                     self._emit(s, req, tok)
             if emitted:
                 self._tok_rate_ewma = (0.8 * self._tok_rate_ewma
                                        + 0.2 * emitted / len(active_idx))
             _prof.record_serving_tick(len(active_idx) / self.slots,
-                                      self._queue.qsize(), busy)
+                                      self._queue.qsize(),
+                                      time.perf_counter() - t0, t0=t0)
             _prof.record_speculation(proposed, accepted, emitted, len(active_idx))
             if self.kv_quant == "int8":
                 # the window quantizes k + 1 row pairs per active slot
@@ -1190,6 +1408,11 @@ class ContinuousBatchingEngine:
 
     def _emit(self, s, req, tok):
         req.tokens.append(tok)
+        if req.on_token is not None:
+            try:
+                req.on_token(tok)
+            except Exception:
+                pass  # a broken consumer must not take the engine down
         if req.eos_token_id is not None and tok == req.eos_token_id:
             self._finish(s, req, "eos")
         elif len(req.tokens) >= req.max_new_tokens:

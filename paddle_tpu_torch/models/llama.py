@@ -179,21 +179,23 @@ def _cache_write(cache, new, pos):
 class SlotView:
     """Write view of ONE slot of a pooled StaticKVCache, for the dense
     slot-pool engine's prefill (reference: llama.py:180): the prompt's K/V
-    land in rows [0, bucket) of pool row `slot` (an int), while attention
-    runs over the fresh prompt alone.  Rows past the true prompt length hold
-    padding until decode overwrites them; they are never attended before,
-    because decode writes row pos first and masks j > pos."""
+    land in rows [0, bucket) of pool row `slot` (a [1] int32 tensor on the
+    pool's device: data, as the engine's captured prefill takes it), while
+    attention runs over the fresh prompt alone.  Rows past the true prompt
+    length hold padding until decode overwrites them; they are never
+    attended before, because decode writes row pos first and masks j >
+    pos."""
 
     def __init__(self, pool, slot):
         self.pool = pool
-        self.slot = int(slot)
+        self.slot = slot
 
 
 def _slot_write(pool, new, slot):
     """Write a [1, s, kv_heads, d] chunk into rows [0, s) of pool row
-    `slot` of a [slots, max_len, kv_heads, d] buffer, in place (reference:
-    llama.py:193)."""
-    pool[slot, :new.shape[1]] = new[0].to(pool.dtype)
+    `slot` ([1] int32) of a [slots, max_len, kv_heads, d] buffer, in place
+    (reference: llama.py:193), indexing on the device."""
+    pool.narrow(1, 0, new.shape[1]).index_copy_(0, slot.long(), new.to(pool.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -237,8 +239,10 @@ class PagedPrefillView:
     at rope offset `start`, and suffix row i attends positions j <= start + i
     of the whole sequence, shared pages included, through the paged kernel
     (`kernel` as in `paged_decode_attention`, `max_len` its position
-    fence).  Rows at or past `true_len` (bucket padding) and rows whose page
-    index overruns the table land on scratch page 0.  Under context
+    fence).  Rows at or past `true_len` (bucket padding; an int, or a [1]
+    int32 tensor on the arena's device, as the engine's captured prefills
+    pass it) and rows whose page index overruns the table land on scratch
+    page 0.  Under context
     parallelism (`cp` > 1) the chunk's attention runs over every shard;
     `local` is `cp_stacked_tables` of the [1, P] table, derived once per
     forward by the caller and shared by every layer's view.  The writes address global
@@ -248,7 +252,8 @@ class PagedPrefillView:
                  kernel="auto", cp=1, local=None):
         self.arena = arena
         self.table = table
-        self.true_len = int(true_len)
+        self.true_len = (true_len if isinstance(true_len, torch.Tensor)
+                         else int(true_len))
         self.max_len = max_len
         self.start = start
         self.kernel = kernel
@@ -277,7 +282,8 @@ class PagedDecodeView:
 def _prefill_rows(table, s, true_len, ps, start):
     """(page, row) of each of a prefill chunk's s rows: row i lands at
     global index start + i (start 0 for a fresh prefill); rows with
-    i >= true_len or a page index beyond the table go to scratch page 0.
+    i >= true_len (an int or a [1] tensor) or a page index beyond the table
+    go to scratch page 0.
     Several may hit the same scratch row, which is harmless because page 0
     is never attended past the position fence."""
     i = torch.arange(s, device=table.device)

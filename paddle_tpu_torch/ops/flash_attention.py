@@ -750,7 +750,24 @@ def paged_gather_kv(arena, tables, max_len):
     return g.reshape(b, -1, arena.shape[2], arena.shape[3])[:, :max_len]
 
 
-def _pos_vector(pos, b, device):
+def capturing():
+    """True while this thread captures a CUDA graph (False without CUDA)."""
+    return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
+
+
+def _require_device_operand(x, device, what):
+    """Inside a capture a host scalar would be uploaded from pageable memory
+    (which a capture refuses) or baked into the graph: every caller there
+    passes a tensor already on the kernel's device."""
+    if capturing() and not (isinstance(x, torch.Tensor) and x.device == device):
+        raise ValueError(
+            f"{what}: got a host value ({type(x).__name__}) under CUDA graph "
+            f"capture; pass a tensor on {device}"
+        )
+
+
+def _pos_vector(pos, b, device, what):
+    _require_device_operand(pos, device, what)
     pos = torch.as_tensor(pos, dtype=INDEX_DTYPE, device=device)
     return pos.reshape(-1).expand(b) if pos.numel() == 1 else pos.reshape(b)
 
@@ -771,7 +788,7 @@ def decode_attention_plain(q, k, v, pos, scale=None):
     kt = k.permute(0, 2, 1, 3)  # [b, hk, L, d] -- never repeated
     vt = v.permute(0, 2, 1, 3)
     s = torch.einsum("bgrqd,bgkd->bgrqk", q5.float(), kt.float()) * scale
-    p_ = _pos_vector(pos, b, q.device)
+    p_ = _pos_vector(pos, b, q.device, "decode_attention")
     q_ids = p_.view(b, 1, 1, 1, 1) + torch.arange(sq, device=q.device).view(sq, 1)
     k_ids = torch.arange(L, device=q.device).view(1, L)
     s = torch.where(q_ids >= k_ids, s, NEG_INF)
@@ -822,6 +839,7 @@ def dense_decode(q, k, v, pos, scale=None):
     waits for the device.  Row i attends cache rows j <= pos + i.  Returns
     [b, sq, h, d]."""
     what = "dense_decode"
+    _require_device_operand(pos, q.device, what)
     if not isinstance(pos, torch.Tensor):
         pos = torch.tensor(int(pos), dtype=INDEX_DTYPE, device=q.device)
     _check_dense_decode(q, k, v, pos, what)
@@ -962,7 +980,7 @@ def paged_decode_fused(q, arena_k, arena_v, tables, pos, max_len, scale=None):
     indexes the arena by the raw value, see `check_table_bounds`); pos: [b]
     int32.  Returns [b, sq, h, d]."""
     what = "paged_decode_fused"
-    pos = _pos_vector(pos, q.shape[0], q.device)
+    pos = _pos_vector(pos, q.shape[0], q.device, what)
     _check_paged(q, arena_k, arena_v, tables, pos, what)
     _require(q.dtype == arena_k.dtype == arena_v.dtype,
              f"{what}: q and arena dtypes differ")
@@ -999,7 +1017,7 @@ def paged_decode_fused_q8(q, arena_k, arena_v, k_scale, v_scale, tables, pos,
     kv_h, 1] float32, addressed by the same tables; q float32 or bfloat16.
     Returns [b, sq, h, d] in q's dtype."""
     what = "paged_decode_fused_q8"
-    pos = _pos_vector(pos, q.shape[0], q.device)
+    pos = _pos_vector(pos, q.shape[0], q.device, what)
     _check_paged(q, arena_k, arena_v, tables, pos, what)
     _check_scales(arena_k, k_scale, v_scale)
     _require(arena_v.dtype == torch.int8, f"{what}: arenas must be int8")
@@ -1122,7 +1140,7 @@ def paged_decode_partials(q, arena_k, arena_v, tables, page_base, pos,
     and must not be read without the combine's e^(m - m*)."""
     quant = k_scale is not None
     what = "paged_decode_fused_cp_q8" if quant else "paged_decode_fused_cp"
-    pos = _pos_vector(pos, q.shape[0], q.device)
+    pos = _pos_vector(pos, q.shape[0], q.device, what)
     _check_paged(q, arena_k, arena_v, tables, pos, what)
     _require(page_base.shape == (tables.shape[1],) and page_base.dtype == INDEX_DTYPE,
              f"{what}: page_base must be [P] int32")
@@ -1200,7 +1218,7 @@ def paged_decode_cp(q, arena_k, arena_v, tables, pos, max_len, cp, scale=None,
     if local is None:
         local = cp_stacked_tables(tables, cp, per_shard, ps)
     loc, base = local
-    pos = _pos_vector(pos, q.shape[0], q.device)
+    pos = _pos_vector(pos, q.shape[0], q.device, "paged_decode_cp")
     quant = k_scale is not None
     scales = (k_scale, v_scale) if quant else ()
     what = "paged_decode_fused_cp_q8" if quant else "paged_decode_fused_cp"

@@ -17,6 +17,7 @@ tokens emitted; `mesh_summary()` the serving engine's parallel layout.
 from __future__ import annotations
 
 import threading
+import time
 
 from .ops import flash_attention as _fa
 
@@ -34,7 +35,7 @@ def _reset_locked():
     _gauges.update(
         requests=0, tokens=0, ttfts_s=[], busy_s=0.0, ticks=0,
         occupancy_sum=0.0, occupancy_peak=0.0, queue_depth_sum=0,
-        queue_depth_max=0,
+        queue_depth_max=0, window_t0=None, window_t1=None, host_fetches=0,
     )
 
 
@@ -56,17 +57,31 @@ def record_serving_request(ttft_s, tokens):
             del _gauges["ttfts_s"][:-_TTFT_KEEP]
 
 
-def record_serving_tick(occupancy, queue_depth, busy_s):
+def record_serving_tick(occupancy, queue_depth, busy_s, t0=None):
     """One decode step: fraction of slots active, queued requests, and the
-    step's wall time (summed into the busy window for tokens/s)."""
+    step's time from dispatch to after any flush (the reference's meaning:
+    a step left in flight costs its dispatch only).  `t0`, the step's
+    dispatch time on `time.perf_counter`'s clock, extends the decode window
+    (the first step's dispatch to the last step's record), over which
+    decode tokens/s is taken."""
     with _lock:
         g = _gauges
+        if t0 is not None:
+            if g["window_t0"] is None:
+                g["window_t0"] = float(t0)
+            g["window_t1"] = time.perf_counter()
         g["ticks"] += 1
         g["occupancy_sum"] += float(occupancy)
         g["occupancy_peak"] = max(g["occupancy_peak"], float(occupancy))
         g["queue_depth_sum"] += int(queue_depth)
         g["queue_depth_max"] = max(g["queue_depth_max"], int(queue_depth))
         g["busy_s"] += float(busy_s)
+
+
+def record_host_fetch(n=1):
+    """One device-to-host fetch of decode or verify tokens."""
+    with _lock:
+        _gauges["host_fetches"] += int(n)
 
 
 def _pctl(sorted_vals, q):
@@ -77,14 +92,18 @@ def _pctl(sorted_vals, q):
 
 
 def serving_summary():
-    """requests, tokens, tokens/s over the decode busy window, decode steps
-    and their summed wall time, TTFT p50/p95 (ms), mean and peak slot
-    occupancy, queue depth avg/max."""
+    """requests, tokens, tokens/s over the summed step times, decode steps
+    and their summed times, the decode window's wall seconds, host fetches
+    of decode tokens, TTFT p50/p95 (ms), mean and peak slot occupancy,
+    queue depth avg/max."""
     with _lock:
         g = dict(_gauges)
         ttfts = sorted(g["ttfts_s"])
+    window = (0.0 if g["window_t0"] is None
+              else g["window_t1"] - g["window_t0"])
     out = {"requests": g["requests"], "tokens": g["tokens"],
-           "decode_steps": g["ticks"], "decode_busy_s": g["busy_s"]}
+           "decode_steps": g["ticks"], "decode_busy_s": g["busy_s"],
+           "decode_window_s": window, "host_fetches": g["host_fetches"]}
     if g["busy_s"] > 0:
         out["tokens_per_s"] = g["tokens"] / g["busy_s"]
     if ttfts:
