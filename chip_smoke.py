@@ -27,7 +27,11 @@ result.
               heads of 128) timed beside SDPA with the equivalent boolean
               mask; K1 with float32 out and with the carry, K3 with delta
               (a rotating hop: 2048 rows against 2048 keys), timed; then
-              each on every path (wgmma, mma.sync, FMA).
+              each on every path (wgmma, mma.sync, FMA).  K2 over the page
+              view of a dense static cache (`decode_attention` outside K6's
+              shapes) at the generate phase's decode step and the dense
+              pool's, timed beside the float32 dense math it replaces and
+              SDPA over the dense cache with the mask j <= pos.
 4. ring    -- bench_longcontext_32k's attention (one 32768-token sequence, 8
               heads of 128, R = 8 ranks of the sep axis on the card): forward
               and backward of full-sequence causal K1 + K3, then
@@ -42,7 +46,9 @@ result.
               behind `POST /generate`, checks the token counts and that every
               prefill and decode step launched the two kernels, then
               teacher-forces the generated sequences through the full-sequence
-              forward and compares logits.
+              forward and compares logits; one request posted twice with
+              `X-Idempotency-Key` generates once, `X-Deadline-Ms: 0` answers
+              504.
 6. prefix  -- the same model behind prefix-cached engines, in full precision
               and over int8 pages: requests sharing a system prompt hit the
               cache, copy its tail page and chunk-prefill their suffix; checks
@@ -50,16 +56,23 @@ result.
               (every chunk prefill on the tensor-core path), logits against
               the teacher-forced forward, and prints the int8 run's greedy
               agreement with the full-precision run.
-7. generate -- the same model's lock-step `generate`: greedy over four
-              500-token prompts, beam search, seeded sampling twice, a short
-              prompt; K6 launched once per layer by every prefill of 64+
-              tokens and never otherwise, no other kernel; prefill and
-              decode logits against the teacher-forced forward; then a
+7. generate -- the same model's lock-step `generate` on its captured
+              steps (`model._gen_fns`, CUDA graphs): greedy over four
+              500-token prompts, beam search, seeded sampling, a short
+              prompt, each called twice (the second traces nothing, gives
+              the first's tokens, and its tokens/s is printed); a third
+              sampling seed differs; K6 launched once per layer by every
+              prefill of 64+ tokens, K2 over the caches' page view by every
+              other step, no other kernel; one greedy and one beam decode
+              step replayed equal to eager bit for bit; prefill and decode
+              logits against the teacher-forced forward; then a warmed
               `GenerationPredictor` behind `POST /generate`.
 8. dense   -- the same model behind the dense slot-pool engine
               (`paged=False`) over HTTP: token counts, K1 once per layer per
-              prefill and no other kernel, logits against the teacher-forced
-              forward, decode tokens/s and TTFT beside the paged slice's.
+              prefill and K2 over the pool's page view once per layer per
+              decode step, no other kernel, logits against the
+              teacher-forced forward, decode tokens/s, TTFT and the graph
+              pool beside the paged slice's, a profiled decode step.
 9. cp      -- the same model behind long-document engines (slots 4, the
               4096-token context): questions about one 3000-token document
               share its pages through the prefix cache, beside two fresh
@@ -185,6 +198,14 @@ BEAMS = 4
 SHORT_LEN = 20
 SAMPLING = dict(temperature=0.8, top_k=50, top_p=0.9, seed=7)
 PREDICTOR_LENS = [70, 100, 130]
+# the greedy call's generated tokens/s and the dense pool's decode tokens/s
+# and graph pool MiB when both ran eager steps over the float32 dense math
+# (this script's generate and dense phases before the steps were captured
+# and the dense attention moved onto K2; NVIDIA H100 80GB HBM3, 700 W):
+# the "was" each phase prints beside its own figure
+GEN_TOKENS_PER_S_WAS = 86.03
+DENSE_TOKENS_PER_S_WAS = 80.55
+DENSE_GRAPH_POOL_MIB_WAS = 602
 
 # the cp phase: questions about one 3000-token document (23 full 128-row
 # pages and a 56-row tail) share its pages through the prefix cache; the
@@ -888,6 +909,80 @@ def _k6_case(b, sq, h, hk, d=128, L=640, pos=0, seed=14, dtype="bfloat16",
                     bound_ms=bms, bound_by=by, library_ms=lib_ms)
 
 
+def _k2_dense_case(b, sq, h, hk, pos, L, d=128, seed=18, dtype="bfloat16",
+                   timed=True):
+    """K2 over the page view of a dense static cache, as `decode_attention`
+    runs it for every shape K6 does not take (the generate phase's decode
+    steps and short prefills, the dense pool's decode), against its plain
+    version `decode_attention_plain` (the whole cache upcast to float32, the
+    route it replaces).  `pos`: one position (lock-step) or one per slot
+    (the dense pool); the cache is written up to pos + sq, later rows zero.
+    With `timed`, also kernel, device, plain and library times (PyTorch's
+    SDPA over the dense cache with the boolean mask j <= pos + i) and the
+    byte bound (the K/V rows up to each slot's position)."""
+    import torch
+    from torch.nn import functional as F
+
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    per_row = isinstance(pos, (list, tuple))
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dt = getattr(torch, dtype)
+    q = torch.randn(b, sq, h, d, generator=g, device="cuda", dtype=dt)
+    k = torch.zeros(b, L, hk, d, device="cuda", dtype=dt)
+    v = torch.zeros(b, L, hk, d, device="cuda", dtype=dt)
+    live = [min(p + sq, L) for p in (pos if per_row else [pos] * b)]
+    for s_, n in enumerate(live):
+        k[s_, :n] = torch.randn(n, hk, d, generator=g, device="cuda", dtype=dt)
+        v[s_, :n] = torch.randn(n, hk, d, generator=g, device="cuda", dtype=dt)
+    pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    table = fa.dense_page_table(b, L, "cuda")
+
+    def kernel():
+        return fa.decode_attention(q, k, v, pos_t, table=table)
+
+    before = fa.launch_counts["paged_decode_fused"]
+    out = kernel()
+    torch.cuda.synchronize()
+    launched = fa.launch_counts["paged_decode_fused"] - before
+    ref = fa.decode_attention_plain(q, k, v, pos_t)
+    err = (out.float() - ref.float()).abs().max().item()
+    rel = rel_norm_err(out, ref)
+    ok = close(out, ref) and launched == 1
+    path = fa.paged_path((h // hk) * sq, d, q.dtype)
+    shape = (f"paged_decode_fused over a dense view {dtype} b={b} sq={sq} h={h} "
+             f"hk={hk} d={d} L={L} ps={fa.dense_page_size(L)} pos="
+             f"{pos} path {path}: K2 launches {launched}, max_abs_err {err:.3e}, "
+             f"rel_norm_err {rel:.3e}")
+    if not timed:
+        log("kernels", f"{shape} -> {'ok' if ok else 'FAIL'}")
+        return ok, dict(max_abs_err=err)
+    ms = time_ms(kernel)
+    dev, parts = device_ms(kernel)
+    plain_ms = time_ms(lambda: fa.decode_attention_plain(q, k, v, pos_t))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    i = torch.arange(sq, device="cuda")[:, None]
+    j = torch.arange(L, device="cuda")[None, :]
+    mask = j[None, None] <= pos_t.view(-1, 1, 1, 1) + i  # [b or 1, 1, sq, L]
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=h != hk))
+    # bytes this data needs: each slot's K/V rows up to its position, q,
+    # out, the table and pos; operations over the visible pairs at the
+    # bf16 tensor peak (as for K2's decode walk)
+    nbytes = (sum(live) * hk * d * k.element_size() * 2
+              + 2 * q.numel() * q.element_size() + table.numel() * 4 + pos_t.numel() * 4)
+    visible = sum(min(p + w + 1, L) for p in (pos if per_row else [pos] * b)
+                  for w in range(sq))
+    bms, by = bound(nbytes, 4 * d * h * visible,
+                    PEAK_F32_FLOP_S if path == "fma" else PEAK_BF16_FLOP_S)
+    log("kernels", f"{shape}, kernel_ms {ms:.4f}, device_ms {_dev_txt(dev)} "
+                   f"({_parts_txt(parts)}), plain_ms {plain_ms:.4f} (the float32 "
+                   f"dense math it replaces), library_ms {lib_ms:.4f}, bound_ms "
+                   f"{bms:.5f} ({by}) -> {'ok' if ok else 'FAIL'}")
+    return ok, dict(max_abs_err=err, ms=ms, device_ms=dev, plain_ms=plain_ms,
+                    bound_ms=bms, bound_by=by, library_ms=lib_ms)
+
+
 def _cp_inputs(b, sq, h, hk, pos, d, ps, max_len, cp, seed, dtype, quant,
                device="cuda"):
     """q, global arenas, (scales), tables and pos of a cp case: the engine's
@@ -1535,6 +1630,21 @@ def phase_kernels():
         dict(b=1, sq=70, h=4, hk=2, d=256, L=128, pos=5, dtype="float32"),
     ):
         case(_k6_case, errs6, seed=15, timed=False, **kw)
+    # K2 over a dense cache's page view: the generate phase's last decode
+    # step (4 sequences at 563 of a 640-row cache) and the dense pool's
+    # decode step (8 slots of 2048 rows at the K2 case's positions), timed;
+    # then a short lock-step prefill (the chunk window), a one-page cache
+    # (L not a multiple of 128) and float32 (the FMA walk), untimed
+    errs2d = []
+    k2d_gen = case(_k2_dense_case, errs2d, b=GEN_BATCH, sq=1, h=32, hk=32,
+                   pos=GEN_LEN + GEN_NEW - 1, L=640)
+    k2d = case(_k2_dense_case, errs2d, b=8, sq=1, h=32, hk=32, pos=decode_pos,
+               L=2048)
+    for kw in (dict(b=1, sq=SHORT_LEN, h=32, hk=32, pos=0, L=128),
+               dict(b=2, sq=7, h=32, hk=8, pos=[190, 3], L=200),
+               dict(b=3, sq=1, h=32, hk=32, pos=[600, 5, 0], L=640,
+                    dtype="float32")):
+        case(_k2_dense_case, errs2d, seed=19, timed=False, **kw)
     # K6 at pos 0 over a cache as long as the prompt is K1's computation:
     # the two entry points must give the same bits, on each K1 path
     for dtype, sq in (("bfloat16", 300), ("bfloat16", 100), ("float32", 300)):
@@ -1608,6 +1718,8 @@ def phase_kernels():
             "flash_fwd_masked": worst(k1m, errs1m),
             "flash_bwd_masked": worst(k3m, errs3m),
             "dense_decode": worst(k6, errs6),
+            "paged_decode_fused_dense_pool": worst(k2d, errs2d),
+            "paged_decode_fused_dense_generate": worst(k2d_gen, errs2d),
             "paged_decode_fused_cp": worst(k5, errs5),
             "paged_decode_fused_cp_walk": worst(k5w, errs5w),
             "paged_decode_fused_cp_mma": worst(k5c, errs5c)}, ok_all
@@ -1620,6 +1732,63 @@ def _post(url, body):
     )
     with urllib.request.urlopen(req, timeout=600) as resp:
         return json.loads(resp.read())
+
+
+def _post_full(url, body, headers=None):
+    """POST and return (HTTP status, response headers, JSON body), error
+    statuses included."""
+    import urllib.error
+
+    req = urllib.request.Request(url, data=json.dumps(body).encode(), headers={
+        "Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return resp.status, resp.headers, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers, json.loads(e.read())
+
+
+def check_http_fields(phase, engine, prompt, new_tokens=8):
+    """The request fields of /generate beyond the generation's own, over
+    HTTP on `engine`: one request with `X-Idempotency-Key` posted twice
+    generates once (admissions counted at `submit`) and its replay carries
+    `X-Idempotency-Replay: hit` and the same body; `X-Deadline-Ms: 0`
+    answers 504 DeadlineExceeded and admits nothing.  Returns whether
+    both held."""
+    from paddle_tpu_torch.inference import serve
+
+    admitted = []
+    real = engine.submit
+
+    def submit(*a, **kw):
+        admitted.append(1)
+        return real(*a, **kw)
+
+    engine.submit = submit
+    server = serve(engine, port=0, block=False)
+    url = f"http://127.0.0.1:{server.server_address[1]}/generate"
+    body = {"input_ids": prompt.tolist(), "max_new_tokens": new_tokens}
+    key = {"X-Idempotency-Key": f"{phase}-once"}
+    try:
+        first = _post_full(url, body, key)
+        again = _post_full(url, body, key)
+        late = _post_full(url, body, {"X-Deadline-Ms": "0"})
+    finally:
+        server.stop()
+        del engine.submit
+    keyed_ok = (first[0] == again[0] == 200 and first[2] == again[2]
+                and first[1].get("X-Idempotency-Replay") is None
+                and again[1].get("X-Idempotency-Replay") == "hit"
+                and len(admitted) == 1)
+    late_ok = (late[0] == 504 and late[2]["type"] == "DeadlineExceeded"
+               and late[2]["retriable"] is False and len(admitted) == 1)
+    log(phase, f"POST /generate with one X-Idempotency-Key twice: statuses "
+               f"{first[0]}, {again[0]}, replay header "
+               f"{again[1].get('X-Idempotency-Replay')!r}, equal bodies "
+               f"{first[2] == again[2]}, admissions {len(admitted)} (expected 1); "
+               f"X-Deadline-Ms: 0 answered {late[0]} {late[2].get('type')} -> "
+               f"{'ok' if keyed_ok and late_ok else 'FAIL'}")
+    return keyed_ok and late_ok
 
 
 def phase_slice(smi, cfg, device="cuda", dtype="bfloat16",
@@ -1661,9 +1830,11 @@ def phase_slice(smi, cfg, device="cuda", dtype="bfloat16",
     # -- the main path: concurrent POST /generate ---------------------------
     profiler.reset_kernel_launch_counts()
     profiler.reset_serving()
+    replays = engine._decode_g.replay_count
     results, wall = _serve_batches(
         engine, [[(p, new) for p, (_, new) in zip(prompts, prompts_spec)]])
     counts = profiler.kernel_launch_counts()
+    decode_steps = engine._decode_g.replay_count - replays
     summary = profiler.serving_summary()
     graphs_ok = _no_retrace("slice", engine, warm)
 
@@ -1717,6 +1888,7 @@ def phase_slice(smi, cfg, device="cuda", dtype="bfloat16",
     ok &= check_replay("slice", engine, [
         rng.integers(1, cfg.vocab_size, size=min(100, engine.max_len // 4))
         .astype(np.int32)])
+    ok &= check_http_fields("slice", engine, prompts[0])
     if on_card:
         profile_decode(engine, cfg, rng)
     return ok, counts, model, summary
@@ -1971,12 +2143,8 @@ def phase_prefix(smi, model, kv_quant, device="cuda", sys_len=PREFIX_SYS_LEN,
 
 def _post_status(url, body):
     """POST and return (HTTP status, JSON body), error statuses included."""
-    import urllib.error
-
-    try:
-        return 200, _post(url, body)
-    except urllib.error.HTTPError as e:
-        return e.code, json.loads(e.read())
+    status, _, payload = _post_full(url, body)
+    return status, payload
 
 
 def phase_cp(smi, model, device="cuda", doc_len=CP_DOC_LEN,
@@ -2257,14 +2425,48 @@ def phase_cp_f32(smi, model, device="cuda", doc_len=CP_DOC_LEN,
     return ok_all, all_counts
 
 
-def _gen_run(what, fn, layers, expect_k6, on_card, wgmma=False):
-    """One lock-step call of the main path, its launch counts read just
-    after it: K6 `expect_k6` times (each on the wgmma path with `wgmma`), no
-    other kernel.  Returns (output, ok, counts, wall seconds)."""
+def _gen_expect(cfg, dtype, s0, cache_len, steps, traced):
+    """The launches of one lock-step call on the card: per layer, K6 for a
+    prefill of s0 rows where `takes_dense_decode` takes it, else K2 over
+    the cache's page view (on the path `paged_path` picks), and K2 for each
+    of the steps - 1 decode steps; a key the call traced runs its step once
+    more (the warm run before capture).  `traced`: (prefill traced, decode
+    traced)."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    want = dict.fromkeys(fa.launch_counts, 0)
+    layers, d = cfg.num_hidden_layers, cfg.head_dim
+    rep = cfg.num_attention_heads // cfg.num_key_value_heads
+
+    def add(sq, n):
+        if fa.takes_dense_decode(sq, d, cache_len, False):
+            want["dense_decode"] += n * layers
+            if fa.flash_path(sq, d, dtype) == "wgmma":
+                want["dense_decode_wgmma"] += n * layers
+            return
+        want["paged_decode_fused"] += n * layers
+        path = fa.paged_path(rep * sq, d, dtype)
+        if path != "fma":
+            want[f"paged_decode_fused_{path}"] += n * layers
+
+    add(s0, 1 + traced[0])
+    if steps > 1:
+        add(1, steps - 1 + traced[1])
+    return want
+
+
+def _gen_run(what, fn, model, key, s0, steps, on_card):
+    """One lock-step call of the main path (`steps` tokens after an s0-row
+    prompt, through `model._gen_fns[key]`), its launch counts read just
+    after it and held to `_gen_expect`'s, exactly: no other kernel, and no
+    attention outside K6 and K2.  Returns (output, ok, counts, wall
+    seconds, keys traced)."""
     import torch
 
     from paddle_tpu_torch import profiler
 
+    fns = getattr(model, "_gen_fns", None)
+    before = fns[key].trace_count if fns and key in fns else 0
     profiler.reset_kernel_launch_counts()
     t0 = time.perf_counter()
     out = fn()
@@ -2272,36 +2474,52 @@ def _gen_run(what, fn, layers, expect_k6, on_card, wgmma=False):
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = profiler.kernel_launch_counts()
-    want = dict.fromkeys(counts, 0)
-    want["dense_decode"] = expect_k6 if on_card else 0
-    want["dense_decode_wgmma"] = want["dense_decode"] if wgmma else 0
+    traced = model._gen_fns[key].trace_count - (before if model._gen_fns is fns else 0)
+    cache_len = model._gen_caches[0].max_len
+    want = (_gen_expect(model.config, model.lm_head.weight.dtype, s0, cache_len,
+                        steps, (traced >= 1, traced >= 2))
+            if on_card else dict.fromkeys(counts, 0))
     ok = counts == want
-    log("generate", f"{what}: {wall:.3f} s, launches {counts} (expected "
-                    f"dense_decode {want['dense_decode']}"
-                    f"{f' = {layers} layers' if want['dense_decode'] else ''}"
-                    f"{' on the wgmma path' if want['dense_decode_wgmma'] else ''}, "
-                    f"every other kernel 0) -> {'ok' if ok else 'FAIL'}")
-    return out, ok, counts, wall
+    log("generate", f"{what}: {wall:.3f} s, {traced} new traces of {key!r}, "
+                    f"launches {_main(counts)} (expected {_main(want)}, every "
+                    f"other kernel 0) -> {'ok' if ok else 'FAIL'}")
+    return out, ok, counts, wall, traced
+
+
+def _replay_vs_eager(model, key, shape, state=()):
+    """One replay of `model._gen_fns[key]` at input shape `shape` beside an
+    eager run of its body on the same static inputs; True when bit for bit
+    equal."""
+    import torch
+
+    replayed, eager = model._gen_fns[key].compare_eager(shape, state)
+    same = all(torch.equal(x, y) for x, y in zip(replayed, eager))
+    log("generate", f"replay vs eager of {key!r} at {shape}: "
+                    f"{'bit-identical' if same else 'DIFFERS'} -> "
+                    f"{'ok' if same else 'FAIL'}")
+    return same
 
 
 def phase_generate(smi, model, device="cuda", batch=GEN_BATCH, prompt_len=GEN_LEN,
                    new_tokens=GEN_NEW, beam_len=BEAM_LEN, beam_new=BEAM_NEW,
                    beams=BEAMS, short_len=SHORT_LEN,
                    predictor_lens=PREDICTOR_LENS):
-    """Lock-step generation on `model`: greedy over `batch` prompts of
-    `prompt_len` tokens, beam search, seeded sampling twice, a short prompt;
-    each call's launches read just after it (K6 once per layer for a prefill
-    of 64+ rows, nothing else); prefill and one decode step's logits against
-    the teacher-forced forward; then a GenerationPredictor behind POST
-    /generate.  Returns (all checks passed, the summed launch counts of the
-    calls)."""
+    """Lock-step generation on `model`, every strategy on its captured
+    steps (`model._gen_fns`): greedy over `batch` prompts of `prompt_len`
+    tokens, beam search, seeded sampling, a short prompt, each called
+    twice: the first call traces the prefill and decode shapes, the second
+    traces nothing and gives the same tokens.  Each call's launches are
+    read just after it (`_gen_expect`: K6 once per layer for a prefill of
+    64+ rows, K2 over the page view for the rest, nothing else); one greedy
+    and one beam decode step replay equal to eager bit for bit; prefill and
+    one decode step's logits against the teacher-forced forward; then a
+    warmed GenerationPredictor behind POST /generate.  Returns (all checks
+    passed, the summed launch counts of the calls)."""
     import numpy as np
     import torch
 
-    from paddle_tpu_torch import profiler
     from paddle_tpu_torch.inference import GenerationPredictor, serve
     from paddle_tpu_torch.models.llama import StaticKVCache
-    from paddle_tpu_torch.ops import flash_attention as fa
 
     cfg = model.config
     layers = cfg.num_hidden_layers
@@ -2311,49 +2529,39 @@ def phase_generate(smi, model, device="cuda", batch=GEN_BATCH, prompt_len=GEN_LE
                            .astype(np.int32)).to(device)
     runs, ok = [], True
 
-    def run(what, fn, expect_k6, rows=0):
+    def twice(what, fn, key, s0, steps):
+        """Call 1 traces both shapes, call 2 none and repeats its tokens.
+        Returns (call 2's output, call 2's wall seconds)."""
         nonlocal ok
-        wgmma = fa.flash_path(rows, cfg.head_dim, model.lm_head.weight.dtype) == "wgmma"
-        out, good, counts, wall = _gen_run(what, fn, layers, expect_k6, on_card,
-                                           wgmma)
-        ok &= good
-        runs.append(counts)
-        return out, wall
+        outs = []
+        for call in (1, 2):
+            out, good, counts, wall, traced = _gen_run(
+                f"{what}, call {call}", fn, model, key, s0, steps, on_card)
+            ok &= good and traced == (2 if call == 1 else 0)
+            runs.append(counts)
+            outs.append(out)
+        same = torch.equal(outs[0], outs[1])
+        ok &= same
+        log("generate", f"{what}: call 2 traced nothing and gave call 1's "
+                        f"tokens: {same} -> {'ok' if same else 'FAIL'}")
+        return outs[1], wall
 
-    out, wall = run(f"greedy, {batch} x {prompt_len} tokens + {new_tokens}",
-                    lambda: model.generate(ids, max_new_tokens=new_tokens), layers,
-                    prompt_len)
+    out, wall = twice(f"greedy, {batch} x {prompt_len} tokens + {new_tokens}",
+                      lambda: model.generate(ids, max_new_tokens=new_tokens),
+                      "greedy", prompt_len, new_tokens)
     shape_ok = (tuple(out.shape) == (batch, prompt_len + new_tokens)
                 and torch.equal(out[:, :prompt_len], ids)
                 and bool(((out >= 0) & (out < cfg.vocab_size)).all()))
     ok &= shape_ok
+    pool = sum(g.pool_bytes for g in model._gen_fns.values())
     log("generate", f"greedy: shape {tuple(out.shape)}, prompt kept, ids in the "
-                    f"vocabulary -> {'ok' if shape_ok else 'FAIL'}; "
-                    f"{batch * new_tokens / wall:.2f} tokens/s over the call "
-                    f"(prefill included) | {smi}")
+                    f"vocabulary -> {'ok' if shape_ok else 'FAIL'}; warm call "
+                    f"{batch * new_tokens / wall:.2f} generated tokens/s over the "
+                    f"call (prefill included; eager steps: "
+                    f"{GEN_TOKENS_PER_S_WAS}); graph pool {pool / 2**20:.1f} MiB "
+                    f"| {smi}")
+    ok &= _replay_vs_eager(model, "greedy", (batch, 1))
     greedy = out
-
-    ids_b = ids[:1, :beam_len].contiguous()
-    out_b, _ = run(f"beam search, {beams} beams, {beam_len} tokens + {beam_new}",
-                   lambda: model.generate(ids_b, max_new_tokens=beam_new,
-                                          num_beams=beams), layers, beam_len)
-    beam_ok = tuple(out_b.shape) == (1, beam_len + beam_new)
-    ok &= beam_ok
-    sampled = []
-    for i in range(2):
-        o, _ = run(f"sampling {SAMPLING} run {i + 1}",
-                   lambda: model.generate(ids, max_new_tokens=new_tokens,
-                                          **SAMPLING), layers, prompt_len)
-        sampled.append(o)
-    same = torch.equal(sampled[0], sampled[1])
-    ok &= same and beam_ok
-    log("generate", f"beam output shape {tuple(out_b.shape)} -> "
-                    f"{'ok' if beam_ok else 'FAIL'}; the two seeded sampling runs "
-                    f"equal: {same}; sampled tokens equal to greedy's "
-                    f"{(sampled[0][:, prompt_len:] == greedy[:, prompt_len:]).float().mean().item():.3f}")
-    ids_s = ids[:1, :short_len].contiguous()
-    run(f"greedy, {short_len}-token prompt (below K6's 64 rows)",
-        lambda: model.generate(ids_s, max_new_tokens=16), 0)
 
     # -- correctness: prefill and one decode step vs the teacher-forced
     # forward over prompt + the greedy token
@@ -2380,33 +2588,70 @@ def phase_generate(smi, model, device="cuda", batch=GEN_BATCH, prompt_len=GEN_LE
                     f"{LOGIT_REL_TOL}); greedy token {int(seq[0, -1])} == argmax of "
                     f"the forward {int(ref[0].argmax())} -> {'ok' if logits_ok else 'FAIL'}")
 
-    # -- GenerationPredictor behind POST /generate --------------------------
-    pred = GenerationPredictor(model, max_new_tokens=32).warmup(prompt_len=70)
+    ids_b = ids[:1, :beam_len].contiguous()
+    beam_key = ("beam", beams, None)
+    out_b, _ = twice(f"beam search, {beams} beams, {beam_len} tokens + {beam_new}",
+                     lambda: model.generate(ids_b, max_new_tokens=beam_new,
+                                            num_beams=beams),
+                     beam_key, beam_len, beam_new)
+    beam_ok = tuple(out_b.shape) == (1, beam_len + beam_new)
+    ok &= beam_ok
+    # after the last step the step index points past the sequence buffer:
+    # replay the last step again (column beam_new - 1), the caches restored
+    # between the two runs (the step reorders them in place)
+    model._gen_fns[beam_key].inputs(((beams, 1), beam_new))["ti"].fill_(beam_new - 1)
+    ok &= _replay_vs_eager(model, beam_key, ((beams, 1), beam_new),
+                           [t for c in model._gen_caches for t in (c.k, c.v)])
+    sampled, _ = twice(f"sampling {SAMPLING}",
+                       lambda: model.generate(ids, max_new_tokens=new_tokens,
+                                              **SAMPLING),
+                       ("sample", SAMPLING["top_k"], SAMPLING["top_p"]),
+                       prompt_len, new_tokens)
+    other_seed = dict(SAMPLING, seed=SAMPLING["seed"] + 1)
+    o, good, counts, _, _ = _gen_run(
+        f"sampling, seed {other_seed['seed']}",
+        lambda: model.generate(ids, max_new_tokens=new_tokens, **other_seed),
+        model, ("sample", SAMPLING["top_k"], SAMPLING["top_p"]), prompt_len,
+        new_tokens, on_card)
+    runs.append(counts)
+    differ = not torch.equal(o, sampled)
+    ok &= good and differ and beam_ok
+    log("generate", f"beam output shape {tuple(out_b.shape)} -> "
+                    f"{'ok' if beam_ok else 'FAIL'}; seed {other_seed['seed']} "
+                    f"differs from seed {SAMPLING['seed']}: {differ}; sampled "
+                    f"tokens equal to greedy's "
+                    f"{(sampled[:, prompt_len:] == greedy[:, prompt_len:]).float().mean().item():.3f}")
+    ids_s = ids[:1, :short_len].contiguous()
+    twice(f"greedy, {short_len}-token prompt (below K6's 64 rows: K2's chunk "
+          f"window)", lambda: model.generate(ids_s, max_new_tokens=16),
+          "greedy", short_len, 16)
+
+    # -- GenerationPredictor behind POST /generate, warmed at the first
+    # request's geometry (which then traces nothing)
+    pred = GenerationPredictor(model, max_new_tokens=32).warmup(
+        prompt_len=predictor_lens[0])
     prompts = [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32)
                for n in predictor_lens]
     server = serve(pred, port=0, block=False)
     url = f"http://127.0.0.1:{server.server_address[1]}/generate"
-    profiler.reset_kernel_launch_counts()
-    t0 = time.perf_counter()
+    http = []
     try:
-        http = [_post(url, {"input_ids": p.tolist()})["tokens"] for p in prompts]
+        for i, p in enumerate(prompts):
+            out, good, counts, _, traced = _gen_run(
+                f"POST /generate of {p.size} tokens + 32",
+                lambda p=p: _post(url, {"input_ids": p.tolist()})["tokens"],
+                model, "greedy", p.size, 32, on_card)
+            ok &= good and (traced == 0 if i == 0 else True)
+            runs.append(counts)
+            http.append(out)
     finally:
         server.stop()
-    wall = time.perf_counter() - t0
-    counts = profiler.kernel_launch_counts()
-    runs.append(counts)
-    want = dict.fromkeys(counts, 0)
-    want["dense_decode"] = len(prompts) * layers if on_card else 0
-    want["dense_decode_wgmma"] = layers * sum(
-        fa.flash_path(n, cfg.head_dim, model.lm_head.weight.dtype) == "wgmma"
-        for n in predictor_lens) if on_card else 0
     direct = [pred.generate(p).tolist() for p in prompts]
-    http_ok = http == direct and counts == want
+    http_ok = http == direct
     ok &= http_ok
     log("generate", f"GenerationPredictor behind POST /generate: {len(prompts)} "
-                    f"requests of {predictor_lens} tokens + 32 in {wall:.3f} s; "
-                    f"HTTP tokens == direct tokens: {http == direct}; launches "
-                    f"{counts} (expected dense_decode {want['dense_decode']}) -> "
+                    f"requests of {predictor_lens} tokens + 32; the warmed geometry "
+                    f"traced nothing; HTTP tokens == direct tokens: {http_ok} -> "
                     f"{'ok' if http_ok else 'FAIL'}")
     total = {name: sum(c[name] for c in runs) for name in runs[0]}
     return ok, total
@@ -2416,9 +2661,11 @@ def phase_dense(smi, model, paged_summary, device="cuda", prompts_spec=SLICE_PRO
                 **engine_kw):
     """The dense slot-pool engine (`paged=False`) on `model` behind POST
     /generate with the slice's traffic: token counts, launches (K1 once per
-    layer per prefill, nothing else), logits against the teacher-forced
-    forward, decode tokens/s and TTFT beside the paged slice's
-    `paged_summary`.  Returns (all checks passed, launch counts)."""
+    layer per prefill, K2 over the pool's page view once per layer per
+    decode step, nothing else), logits against the teacher-forced forward,
+    decode tokens/s, TTFT and the graph pool beside the paged slice's
+    `paged_summary`, then a profiled decode step (wall, busy, idle, kernels
+    per step).  Returns (all checks passed, launch counts)."""
     import numpy as np
     import torch
 
@@ -2443,9 +2690,11 @@ def phase_dense(smi, model, paged_summary, device="cuda", prompts_spec=SLICE_PRO
                for n, _ in prompts_spec]
     profiler.reset_kernel_launch_counts()
     profiler.reset_serving()
+    replays = engine._decode_g.replay_count
     results, wall = _serve_batches(
         engine, [[(p, new) for p, (_, new) in zip(prompts, prompts_spec)]])
     counts = profiler.kernel_launch_counts()
+    decode_steps = engine._decode_g.replay_count - replays
     summary = profiler.serving_summary()
     graphs_ok = _no_retrace("dense", engine, warm)
     gen, tokens_ok = [], True
@@ -2460,13 +2709,22 @@ def phase_dense(smi, model, paged_summary, device="cuda", prompts_spec=SLICE_PRO
     want["flash_fwd_wgmma"] = layers * sum(
         fa.flash_path(b, cfg.head_dim, model.lm_head.weight.dtype) == "wgmma"
         for b in buckets) if on_card else 0
-    counts_ok = counts == want
+    # every decode step attends each layer's pool through K2 over its page
+    # view (one row per slot: the decode walk in bf16)
+    path = fa.paged_path(cfg.num_attention_heads // cfg.num_key_value_heads,
+                         cfg.head_dim, model.lm_head.weight.dtype)
+    want["paged_decode_fused"] = decode_steps * layers if on_card else 0
+    if path != "fma":
+        want[f"paged_decode_fused_{path}"] = want["paged_decode_fused"]
+    counts_ok = counts == want and decode_steps > 0
     ok = tokens_ok and counts_ok and graphs_ok
     log("dense", f"served {len(prompts)} requests over HTTP in {wall:.3f} s: token "
-                 f"counts {'ok' if tokens_ok else 'WRONG'}; launches {counts} "
+                 f"counts {'ok' if tokens_ok else 'WRONG'}; launches {_main(counts)} "
                  f"(expected flash_fwd {want['flash_fwd']} = {len(prompts)} "
-                 f"prefills x {layers} layers, every other kernel 0) -> "
-                 f"{'ok' if counts_ok else 'FAIL'}")
+                 f"prefills x {layers} layers, paged_decode_fused "
+                 f"{want['paged_decode_fused']} = {decode_steps} decode steps x "
+                 f"{layers} layers over the page view ({path}), every other "
+                 f"kernel 0) -> {'ok' if counts_ok else 'FAIL'}")
 
     def rates(sm):
         return _decode_rates(sm)[0], sm["ttft_p50_ms"], sm["ttft_p95_ms"]
@@ -2474,7 +2732,10 @@ def phase_dense(smi, model, paged_summary, device="cuda", prompts_spec=SLICE_PRO
     d_tps, d_p50, d_p95 = rates(summary)
     p_tps, p_p50, p_p95 = rates(paged_summary)
     log("dense", f"decode_tokens_per_s over the decode window dense {d_tps:.2f} "
-                 f"| paged slice {p_tps:.2f}; host fetches per decode step "
+                 f"(on the float32 dense math: {DENSE_TOKENS_PER_S_WAS}) | paged "
+                 f"slice {p_tps:.2f}; graph pool "
+                 f"{engine.graph_pool_bytes() / 2**20:.1f} MiB (on the dense math: "
+                 f"{DENSE_GRAPH_POOL_MIB_WAS}); host fetches per decode step "
                  f"{_decode_rates(summary)[1]:.3f}; "
                  f"ttft_p50_ms dense {d_p50:.3f} | paged {p_p50:.3f}; ttft_p95_ms "
                  f"dense {d_p95:.3f} | paged {p_p95:.3f} (batch of up to "
@@ -3411,11 +3672,15 @@ def main():
     runs = [counts, *prefix_counts, gen_counts, dense_counts, *cp_counts,
             *f32_counts, train_counts, bert_counts, *ring_counts, lc_counts,
             lc2_counts]
-    launches = {name: sum(c[name] for c in runs) for name in kernels}
+    launches = {name: sum(c.get(name, 0) for c in runs) for name in kernels}
     # K5's two variants are one kernel of the record, on each path
     for path in ("", "_mma", "_walk"):
         launches["paged_decode_fused_cp" + path] += sum(
             c["paged_decode_fused_cp_q8" + path] for c in runs)
+    # K2 over a dense cache's page view: every K2 launch of the generate and
+    # dense phases (neither runs a paged cache)
+    launches["paged_decode_fused_dense_generate"] = gen_counts["paged_decode_fused"]
+    launches["paged_decode_fused_dense_pool"] = dense_counts["paged_decode_fused"]
     # (record name, source, the Pallas kernel it replaces); a `_wgmma`,
     # `_mma` or `_walk` entry is one path of its kernel, timed at its
     # main-path shape (K1 and K3 at the training shape, the chunk windows at
@@ -3425,8 +3690,10 @@ def main():
     # `_carry` or `_delta` entry is K1's or K3's launches with that ring
     # operand, timed at the ring's shape (bench_longcontext_32k: the gathered
     # form's launch for q_offset, a rotating hop for the carry and delta);
-    # the plain entry is timed at its headline shape and counts all its
-    # kernel's launches
+    # a `_dense_*` entry is K2 over a dense cache's page view, timed at the
+    # generate phase's decode step or the dense pool's, with that phase's
+    # K2 launches; the plain entry is timed at its headline shape and counts
+    # all its kernel's launches
     entries = (
         ("flash_fwd", "flash_fwd.cu", 186),
         ("flash_fwd_wgmma", "flash_fwd.cu", 186),
@@ -3445,6 +3712,8 @@ def main():
         ("flash_bwd_offset", "flash_bwd.cu", 415),
         ("flash_bwd_delta", "flash_bwd.cu", 415),
         ("dense_decode", "flash_fwd.cu", 649),
+        ("paged_decode_fused_dense_generate", "paged_decode.cu", 813),
+        ("paged_decode_fused_dense_pool", "paged_decode.cu", 813),
         ("paged_decode_fused_cp", "paged_decode.cu", 1172),
         ("paged_decode_fused_cp_walk", "paged_decode.cu", 1172),
         ("paged_decode_fused_cp_mma", "paged_decode.cu", 1172),

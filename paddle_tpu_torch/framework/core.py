@@ -175,3 +175,10 @@ define_flag(
     "engine: audit the page pool, page tables, prefix cache and cp layout "
     "after every scheduler step (raises AssertionError on drift)",
 )
+define_flag(
+    "FLAGS_router_idem_ttl", 300.0,
+    "serve(): seconds a completed response stays cached against its "
+    "X-Idempotency-Key.  Within the TTL a resubmitted key replays the stored "
+    "response instead of generating again; an in-flight resubmit joins the "
+    "live request",
+)

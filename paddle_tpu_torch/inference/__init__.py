@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from ..framework import core as _fcore
+from ..serving.journal import IdempotencyCache
 from .engine import (
     ContextOverflow,
     ContinuousBatchingEngine,
@@ -27,8 +28,8 @@ __all__ = ["serve", "ContinuousBatchingEngine", "GenerationPredictor",
 class GenerationPredictor:
     """Lock-step generation behind `serve()` (reference: inference/
     __init__.py:126): each request runs the model's `generate` over its
-    static KV caches, one request at a time.  Ids come in and go out as
-    numpy arrays."""
+    static KV caches and captured steps, one request at a time.  Ids come
+    in and go out as numpy arrays."""
 
     def __init__(self, model, max_new_tokens=32):
         self.model = model
@@ -49,9 +50,12 @@ class GenerationPredictor:
 
     def warmup(self, batch_size=1, prompt_len=8, max_new_tokens=None,
                temperature=0.0):
-        """One dummy generate on zero ids before traffic: on the card it
-        builds the kernels and warms the matmul library and the allocator
-        for that geometry.  The weights are only read."""
+        """One dummy generate on zero ids before traffic: it traces the
+        prefill and decode steps of that geometry (batch, prompt length,
+        cache length, strategy), on the card capturing their CUDA graphs
+        after building the kernels, so a later request of the same geometry
+        traces nothing (reference: inference/__init__.py:163).  The weights
+        are only read."""
         ids = np.zeros((int(batch_size), int(prompt_len)), np.int32)
         self.generate(ids, max_new_tokens=max_new_tokens, temperature=temperature)
         return self
@@ -71,11 +75,23 @@ def serve(engine, port=8866, host="127.0.0.1", block=True):
       answers 400 with the engine's capacity geometry under "capacity" (per
       shard under cp); a request whose logits went non-finite answers 500
       (NonFiniteLogits); a bad body, or a request that fails otherwise
-      inside the engine, answers 400 with "Type: message".  Predictor: calls to the
-      one model run one at a time; beyond FLAGS_serve_queue_depth running
-      or waiting requests the server answers 503; a bad body, or a request
-      the model refuses, answers 400.  Error bodies carry "error", "type",
-      "retriable" and "retry_after_s", as the reference's do.
+      inside the engine, answers 400 with "Type: message".  The engine
+      path also takes the reference's other fields: a deadline
+      (`deadline_s`, else the `X-Deadline-Ms` header / 1e3) <= 0 answers
+      504 DeadlineExceeded before admission, not retriable; `deadline_s` >
+      0, `session_id`, `handoff` and `reservation` answer a typed 400
+      NotImplementedError naming their ROADMAP Queue 1 item, and `adapter`
+      the reference's 400 ValueError (no LoRA arena).  A request with
+      `X-Idempotency-Key` generates once per key: a completed response (200
+      or a non-retriable error) is kept for FLAGS_router_idem_ttl seconds
+      and replayed with `X-Idempotency-Replay: hit`; a retry while the
+      first is in flight waits for it and answers the same with
+      `X-Idempotency-Replay: join`.  The response is cached before its
+      bytes go out; a retriable error is never cached.  Predictor: calls to
+      the one model run one at a time; beyond FLAGS_serve_queue_depth
+      running or waiting requests the server answers 503; a bad body, or a
+      request the model refuses, answers 400.  Error bodies carry "error",
+      "type", "retriable" and "retry_after_s", as the reference's do.
     - GET /health: {"status": "ok"}.
     - GET /healthz: an engine's status, occupancy, queue depth, mesh and
       tokens per step; a predictor's {"status": "ready"}.
@@ -89,12 +105,25 @@ def serve(engine, port=8866, host="127.0.0.1", block=True):
         engine = None
     lock = threading.Lock()  # one model: serialise the predictor's callers
     gate = threading.BoundedSemaphore(int(_fcore.flag("FLAGS_serve_queue_depth")))
+    # request dedupe of the engine path (reference: inference/__init__.py:
+    # 262-272): a keyed /generate completes into the cache before its
+    # response bytes go out
+    idem = IdempotencyCache() if engine is not None else None
 
     class Handler(BaseHTTPRequestHandler):
+        _idem_key = None  # the key this handler must complete, if any
+
         def log_message(self, *a):
             pass
 
         def _reply(self, code, payload, headers=None):
+            key = self._idem_key
+            if key is not None:
+                # complete before any response byte leaves: a reset between
+                # completion and delivery leaves the response cached for the
+                # client's keyed retry
+                self._idem_key = None
+                idem.complete(key, code, payload, headers)
             body = json.dumps(payload).encode()
             self.send_response(code)
             self.send_header("Content-Type", "application/json")
@@ -104,16 +133,20 @@ def serve(engine, port=8866, host="127.0.0.1", block=True):
             self.end_headers()
             self.wfile.write(body)
 
-        def _error(self, code, err, retry_after=None, msg=None):
+        def _reply_error(self, code, err_type, msg, retriable, retry_after=None):
             # the reference's typed error body (`_reply_error`), less the
             # trace id (the port has no tracing yet)
             headers = {}
             if retry_after is not None:
                 headers["Retry-After"] = str(max(1, int(retry_after + 0.5)))
-            self._reply(code, {"error": str(err) if msg is None else msg,
-                               "type": type(err).__name__,
-                               "retriable": retry_after is not None,
+            self._reply(code, {"error": msg, "type": err_type,
+                               "retriable": bool(retriable),
                                "retry_after_s": retry_after or 0}, headers)
+
+        def _error(self, code, err, retry_after=None, msg=None):
+            self._reply_error(code, type(err).__name__,
+                              str(err) if msg is None else msg,
+                              retry_after is not None, retry_after)
 
         def do_GET(self):
             if self.path == "/health":
@@ -134,9 +167,59 @@ def serve(engine, port=8866, host="127.0.0.1", block=True):
                 self._generate_predictor()
                 return
             try:
+                self._generate_keyed()
+            finally:
+                key = self._idem_key
+                if key is not None:
+                    # the handler died without replying: wake joiners with
+                    # no response, so their keyed retries execute again
+                    self._idem_key = None
+                    idem.abandon(key)
+
+        def _generate_keyed(self):
+            """The reference's `X-Idempotency-Key` rule (inference/
+            __init__.py:605-632) around the engine's /generate."""
+            key = self.headers.get("X-Idempotency-Key")
+            if key:
+                verdict, val = idem.begin(key)
+                if verdict == "done":
+                    status, body, hdrs = val
+                    self._reply(status, body, {**hdrs, "X-Idempotency-Replay": "hit"})
+                    return
+                if verdict == "join":
+                    resp = idem.wait(val)
+                    if resp is None:
+                        self._error(503, RuntimeError(
+                            "idempotent join aborted; retry with the same key"),
+                            retry_after=1.0)
+                        return
+                    status, body, hdrs = resp
+                    self._reply(status, body, {**hdrs, "X-Idempotency-Replay": "join"})
+                    return
+                self._idem_key = key  # first sight: generate, then cache
+            self._generate_engine()
+
+        def _deadline_s(self, req):
+            """The request's deadline: the body's `deadline_s`, else the
+            `X-Deadline-Ms` hop header (reference: inference/__init__.py:
+            365-374)."""
+            d = req.get("deadline_s")
+            if d is not None:
+                return float(d)
+            hdr = self.headers.get("X-Deadline-Ms")
+            return None if hdr is None else float(hdr) / 1e3
+
+        def _generate_engine(self):
+            try:
                 n = int(self.headers.get("Content-Length", 0))
                 req = json.loads(self.rfile.read(n))
                 ids = req["input_ids"]
+                deadline_s = self._deadline_s(req)
+                if deadline_s is not None and deadline_s <= 0:
+                    # the budget was spent in flight: admit nothing
+                    self._reply_error(504, "DeadlineExceeded",
+                                      "deadline exhausted before admission", False)
+                    return
                 spec_k = req.get("spec_k")
                 # one request per row of a batched body (reference:
                 # inference/__init__.py:414)
@@ -150,6 +233,11 @@ def serve(engine, port=8866, host="127.0.0.1", block=True):
                             temperature=float(req.get("temperature", 0.0)),
                             eos_token_id=req.get("eos_token_id"),
                             spec_k=None if spec_k is None else int(spec_k),
+                            deadline_s=deadline_s,
+                            adapter=req.get("adapter"),
+                            session_id=req.get("session_id"),
+                            handoff=req.get("handoff"),
+                            reservation=req.get("reservation"),
                         ))
                 except ContextOverflow as e:  # terminal: no retry holds more
                     self._reply(400, {"error": str(e), "type": type(e).__name__,

@@ -52,8 +52,10 @@ paged=False keeps the reference's dense slot pool: one StaticKVCache per
 layer, `[slots, max_len, kv_heads, head_dim]`.  A prefill writes the
 bucket's K/V rows [0, bucket) of its slot's pool row (`SlotView`) while the
 prompt attends to itself through `flash_fwd`; a decode step writes row
-pos[s] of every slot and attends rows j <= pos[s] with the dense math
-(per-slot positions never take `dense_decode`).  Inactive slots run at pos
+pos[s] of every slot and attends rows j <= pos[s] through
+`paged_decode_fused` over the pool's page view (each StaticKVCache's
+`table`, on the device since construction; per-slot positions never take
+`dense_decode`), so it reads only the live rows.  Inactive slots run at pos
 0 and write row 0 of their own pool row; bucket padding past the true
 prompt length stays until decode overwrites it.  Both are safe because a
 slot attends only rows j <= pos of its own pool row, each written first.
@@ -68,7 +70,8 @@ step and the COW page copy one each -- traced once (`warmup()` traces them
 all before traffic) and replayed after that; `compile_counts()` reads their
 trace counts under the reference's keys.  On the card each executable is a
 CUDA graph around the step's kernels (K1 in the fresh-prefill buckets, K2
-or K4 in the decode, verify and chunk steps, K5 in all three under cp); on
+or K4 in the decode, verify and chunk steps, K5 in all three under cp; the
+dense pool: K1 in its prefills, K2 over its page view in its decode); on
 the CPU the same bodies run eagerly on the same static buffers.  Every
 per-request value a step reads is data in a static buffer: tokens,
 positions, the active mask, temperatures, page tables (and their cp local
@@ -92,7 +95,9 @@ next drafts, and the landing, need them.
 Not ported yet (ROADMAP, Queue 1): sessions, LoRA, the disaggregated page
 import, tensor parallelism, context parallelism across cards (NCCL), the
 rest of the serving fault domain (deadlines, cancel, warm restart) and
-`/metrics`.  A knob that asks for one of them raises NotImplementedError.
+`/metrics`.  A knob that asks for one of them raises NotImplementedError,
+and so does a request field of one (`submit`'s `deadline_s` > 0,
+`session_id`, `handoff`, `reservation`).
 """
 
 from __future__ import annotations
@@ -694,7 +699,9 @@ class ContinuousBatchingEngine:
     # -- public API ------------------------------------------------------------
 
     def submit(self, input_ids, max_new_tokens=32, temperature=0.0,
-               eos_token_id=None, keep_logits=False, spec_k=None, on_token=None):
+               eos_token_id=None, keep_logits=False, spec_k=None, on_token=None,
+               deadline_s=None, adapter=None, session_id=None, handoff=None,
+               reservation=None):
         """Enqueue one request (1-D token ids); returns an EngineRequest at
         once.  `on_token(tok)` streams each emitted token (the scheduler
         then fetches every decode step at once).  Raises ContextOverflow
@@ -705,7 +712,16 @@ class ContinuousBatchingEngine:
         engine's (0 opts out).  Ids outside [0, vocab_size) raise
         ValueError: on the card an out-of-range embedding row is a
         device-side assert that poisons the CUDA context for every later
-        step, where the reference's JAX gather clamps."""
+        step, where the reference's JAX gather clamps.
+
+        The reference's other request fields (its `submit`, engine.py:
+        1120-1133, :1223-1228) refuse as it would on an engine like this
+        one, or name the Queue 1 item that ports them: `deadline_s` <= 0
+        raises ValueError and > 0 NotImplementedError (the serving fault
+        domain); an `adapter` other than None or 0 raises the reference's
+        ValueError (no LoRA arena); `session_id` raises NotImplementedError
+        (sessions), `handoff` and `reservation` too (disaggregated
+        prefill/decode)."""
         raw = np.asarray(input_ids).reshape(-1)
         if raw.size == 0:
             raise ValueError("empty prompt")
@@ -726,8 +742,22 @@ class ContinuousBatchingEngine:
             )
         if max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
+        if deadline_s is not None:
+            if deadline_s <= 0:
+                raise ValueError("deadline_s must be > 0")
+            raise _not_ported("deadline_s", "the serving fault domain")
         if spec_k is not None and int(spec_k) < 0:
             raise ValueError("spec_k must be >= 0")
+        if adapter is not None and adapter != 0:
+            raise ValueError(
+                "engine has no LoRA arena (construct with lora=) but "
+                f"request named adapter {adapter!r}"
+            )
+        if session_id is not None:
+            raise _not_ported("session_id", "sessions")
+        for knob, value in (("handoff", handoff), ("reservation", reservation)):
+            if value is not None:
+                raise _not_ported(knob, "disaggregated prefill/decode")
         # sequence page k comes only from shard k % cp: the fullest shard
         # must hold ceil(need / cp) of its per_shard - 1 usable pages
         need = self._pages_for(ids.size, max_new_tokens) if self.paged else 0

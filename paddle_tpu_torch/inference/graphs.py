@@ -9,7 +9,9 @@ outputs.  The first call with a key is the trace:
 
 - on CUDA, one eager warm run of the body on a side stream (kernel builds,
   shared-memory limits, cuBLAS workspaces), the inputs the body updated in
-  place put back, then the capture into a `torch.cuda.CUDAGraph`
+  place and the generators it drew from put back (so the replay draws what
+  the warm run drew, and a re-seeded call repeats a traced one), then the
+  capture into a `torch.cuda.CUDAGraph`
   (`capture_error_mode="thread_local"`, so a capture on the scheduler
   thread never catches another thread's work) in the memory pool shared by
   every graph of the engine, then one replay;
@@ -116,20 +118,29 @@ class StepGraph:
         self.replay_count += 1
         return ent.outputs
 
-    def compare_eager(self, key):
+    def compare_eager(self, key, state=()):
         """One replay of `key` beside one eager run of its body on the same
         static inputs (restored between and after them, arenas aside, which
-        both write alike).  Launch counts are left as they were.  Returns
-        (replayed outputs, eager outputs), copies both."""
+        both write alike).  `state`: other tensors the body rewrites in
+        place and reads again (beam search reorders its KV caches), saved
+        and restored likewise.  Launch counts are left as they were.
+        Returns (replayed outputs, eager outputs), copies both."""
         ent = self._entries[key]
         saved = {n: b.clone() for n, b in ent.inputs.items()}
+        kept = [t.clone() for t in state]
+
+        def restore():
+            self._put_back(ent.inputs, saved)
+            for t, old in zip(state, kept):
+                t.copy_(old)
+
         snap = dict(self.counters)
         try:
             self._run(ent)
             replayed = tuple(o.clone() for o in ent.outputs)
-            self._put_back(ent.inputs, saved)
+            restore()
             eager = tuple(o.clone() for o in self.body(**ent.inputs))
-            self._put_back(ent.inputs, saved)
+            restore()
         finally:
             self._set_counts(snap)
         if self.on_card:
@@ -184,6 +195,7 @@ class StepGraph:
             return ent
         dev = self.device
         saved = {n: b.clone() for n, b in ent.inputs.items()}
+        gen_states = [g.get_state() for g in self.generators]
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
@@ -191,6 +203,8 @@ class StepGraph:
         torch.cuda.current_stream(dev).wait_stream(side)
         self._put_back(ent.inputs, saved)
         torch.cuda.synchronize(dev)
+        for gen, state in zip(self.generators, gen_states):
+            gen.set_state(state)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
         graph = torch.cuda.CUDAGraph()

@@ -58,12 +58,22 @@ def _filter_logits(lg, top_k, top_p):
     return out
 
 
+def _draw(probs, gen):
+    """One draw per row of probs [b, n] (rows summing to 1) with the
+    torch.Generator `gen`: the exponential race argmax(p / E), E ~ Exp(1),
+    which is the draw `torch.multinomial` makes for one sample, without its
+    host-side check of the input (which a CUDA graph capture refuses).
+    Returns [b, 1] int64 column ids."""
+    e = torch.empty_like(probs).exponential_(generator=gen)
+    return (probs / e).argmax(dim=-1, keepdim=True)
+
+
 def _sample_from_logits(logits, gen, temp, top_k, top_p):
     """Filter and draw one token per row from softmax(logits / temp) with
-    the torch.Generator `gen` (reference: models/_utils.py:64).  A top_k
-    below the vocabulary draws among the k largest (nucleus-filtered
-    within them), as the reference's fast path does.  Returns [b, 1]
-    int64 ids."""
+    the torch.Generator `gen` (reference: models/_utils.py:64); `temp` is a
+    0-d float32 tensor, data of the step.  A top_k below the vocabulary
+    draws among the k largest (nucleus-filtered within them), as the
+    reference's fast path does.  Returns [b, 1] int64 ids."""
     lg = logits.float() / temp
     if top_k and 0 < top_k < lg.shape[-1]:
         vals, idx = torch.topk(lg, int(top_k), dim=-1)  # descending
@@ -71,10 +81,9 @@ def _sample_from_logits(logits, gen, temp, top_k, top_p):
             probs = torch.softmax(vals, dim=-1)
             cum = torch.cumsum(probs, dim=-1)
             vals = torch.where(cum - probs < top_p, vals, _MASKED)
-        c = torch.multinomial(torch.softmax(vals, dim=-1), 1, generator=gen)
-        return idx.gather(-1, c)
+        return idx.gather(-1, _draw(torch.softmax(vals, dim=-1), gen))
     lg = _filter_logits(lg, 0, top_p)
-    return torch.multinomial(torch.softmax(lg, dim=-1), 1, generator=gen)
+    return _draw(torch.softmax(lg, dim=-1), gen)
 
 
 def _mask_eos(nxt, done, eos):
@@ -103,23 +112,38 @@ def _gather_rows(t, rows):
 
 
 def _ensure_gen_state(model, b, cache_len, kv_heads):
-    """The per-layer StaticKVCaches of a generation geometry, kept on the
-    model and rebuilt when batch, cache length, dtype or device changes
-    (reference: models/_utils.py:141).  They live on the model's device in the lm_head
-    dtype (bf16 serving stays bf16)."""
+    """The per-layer StaticKVCaches of a generation geometry and the
+    registry of its captured steps, kept on the model and rebuilt together
+    when batch, cache length, dtype or device changes (reference:
+    models/_utils.py:141-157): a step captured over the old caches would
+    replay into freed memory.  The caches live on the model's device in the
+    lm_head dtype (bf16 serving stays bf16).  Returns (caches, fns)."""
+    from ..inference.graphs import new_pool
     from .llama import StaticKVCache
 
     cfg = model.config
     key = (b, cache_len, model.lm_head.weight.dtype, model.device)
     if getattr(model, "_gen_cache_key", None) != key:
-        model._gen_caches = None  # free the old buffers before allocating
+        # free the old graphs, then the buffers they read, before allocating
+        model._gen_fns = model._gen_caches = model._gen_pool = None
         model._gen_caches = [
             StaticKVCache(b, cache_len, kv_heads, cfg.head_dim,
                           model.lm_head.weight.dtype, model.device)
             for _ in range(cfg.num_hidden_layers)
         ]
+        model._gen_fns = {}
+        model._gen_pool = new_pool(model.device)
         model._gen_cache_key = key
-    return model._gen_caches
+    return model._gen_caches, model._gen_fns
+
+
+def _generator(model):
+    """The model's sampling generator on its device: one, registered with
+    every sampling step it captures and re-seeded at each call."""
+    gen = getattr(model, "_gen_generator", None)
+    if gen is None or gen.device != model.device:
+        gen = model._gen_generator = torch.Generator(device=model.device)
+    return gen
 
 
 def _as_ids(input_ids, device, vocab):
@@ -138,22 +162,54 @@ def _as_ids(input_ids, device, vocab):
     return ids
 
 
+def _token_body(forward_step, caches, pick, eos):
+    """The step of greedy and sampled generation (reference:
+    `_greedy_step`, `_greedy_eos_step`, `_sample_step`, `_sample_eos_step`,
+    models/_utils.py:230-309): forward the tokens toks [b, s] at position
+    pos (0-d int32), pick the next [b, 1] (`pick(logits, temp)`; temp a 0-d
+    float32 tensor or None), mask it with eos and update done [b] when eos
+    is set.  It advances pos (and done) in place, and at the decode shape
+    (s == 1) writes the token into toks itself, so each later decode step
+    is a replay with no input to copy.  Returns (next tokens, pos[,
+    done])."""
+
+    def body(toks, pos, done=None, temp=None):
+        nxt = pick(forward_step(toks, caches, pos), temp).to(toks.dtype)
+        if eos is not None:
+            nxt, new_done = _mask_eos(nxt, done, eos)
+            done.copy_(new_done)
+        pos.add_(toks.shape[1])
+        if toks.shape[1] == 1:
+            toks.copy_(nxt)
+            nxt = toks
+        return (nxt, pos) if eos is None else (nxt, pos, done)
+
+    return body
+
+
 def lockstep_generate(model, input_ids, max_new_tokens, temperature,
                       forward_step, kv_heads, top_k=0, top_p=1.0,
                       decode_strategy=None, num_beams=1, seed=None,
                       eos_token_id=None, length_penalty=0.0):
     """The generation loop shared by the port's causal LMs: the counterpart
-    of the reference's `compiled_generate` (models/_utils.py:160), one eager
-    step per token where the reference dispatches one compiled executable.
+    of the reference's `compiled_generate` (models/_utils.py:160).
 
     forward_step(toks, caches, pos) -> last-row logits [b, V].  The prompt
     [b, s0] is prefilled at position 0 into per-layer StaticKVCaches of
     length min(max_position_embeddings, ceil128(s0 + max_new_tokens)); then
-    every strategy -- greedy, sampling (a torch.Generator on the model's
-    device seeded by `seed`), beam search -- feeds back one token per step
-    at the device-side position, so no step waits for the device except
-    the eos checks.  Returns prompt + generated ids [b, s0 + n] (the input
-    itself when nothing can be generated)."""
+    every strategy -- greedy, sampling (the model's generator, re-seeded
+    with `seed`), beam search -- feeds back one token per step at the
+    device-side position.  Every step is an `inference/graphs.StepGraph`
+    kept in `model._gen_fns` under the reference's keys ("greedy",
+    ("greedy", eos), ("sample", top_k, top_p), ("sample", top_k, top_p,
+    eos), ("beam", num_beams, eos)), one executable per input shape: a
+    call traces the prefill shape and the decode shape once (`trace_count`
+    2), and a repeat call of the same geometry replays them (on the card,
+    CUDA graphs).  Only the eos checks wait for the device, once a token.
+    Returns prompt + generated ids [b, s0 + n] (the input itself when
+    nothing can be generated)."""
+    from ..inference.graphs import StepGraph
+
     cfg = model.config
     if decode_strategy is None:
         decode_strategy = (
@@ -173,9 +229,9 @@ def lockstep_generate(model, input_ids, max_new_tokens, temperature,
             "(use greedy_search for deterministic decoding)"
         )
     b, s0 = input_ids.shape[0], input_ids.shape[1]
-    # round the cache up to a multiple of 128, as the reference does (there
-    # to reuse one compiled pair; here it keeps nearby lengths on one
-    # buffer and decides whether the prefill takes dense_decode)
+    # round the cache up to a multiple of 128, as the reference does, so
+    # nearby lengths reuse one pair of captured steps (it also decides
+    # whether the prefill takes dense_decode)
     want = min(cfg.max_position_embeddings, s0 + max_new_tokens)
     cache_len = min(cfg.max_position_embeddings, -(-want // 128) * 128)
     if s0 + max_new_tokens > cache_len:
@@ -192,38 +248,52 @@ def lockstep_generate(model, input_ids, max_new_tokens, temperature,
     try:
         ids = _as_ids(input_ids, model.device, cfg.vocab_size)
         nb = num_beams if decode_strategy == "beam_search" else 1
-        caches = _ensure_gen_state(model, b * nb, cache_len, kv_heads)
+        caches, fns = _ensure_gen_state(model, b * nb, cache_len, kv_heads)
         pos0 = torch.zeros((), dtype=torch.int32, device=model.device)
         eos = None if eos_token_id is None else int(eos_token_id)
+
+        def graph(key, body, generators=()):
+            if key not in fns:
+                fns[key] = StepGraph(f"generate {key}", body, model.device,
+                                     model._gen_pool, generators)
+            return fns[key]
+
         if decode_strategy == "beam_search":
             return _beam_search(model, ids, max_new_tokens, forward_step,
-                                caches, nb, eos, length_penalty, pos0)
+                                caches, graph, nb, eos, length_penalty, pos0)
+        data = {}
         if decode_strategy == "sampling":
             if seed is None:
                 seed = int(np.random.randint(0, 2**31 - 1))
-            gen = torch.Generator(device=model.device).manual_seed(int(seed))
+            gen = _generator(model)
+            gen.manual_seed(int(seed))
+            data["temp"] = torch.tensor(float(temperature), device=model.device)
+            key, gens = ("sample", top_k, top_p), (gen,)
 
-            def pick(logits):
-                return _sample_from_logits(logits, gen, float(temperature),
-                                           top_k, top_p)
+            def pick(logits, temp):
+                return _sample_from_logits(logits, gen, temp, top_k, top_p)
         else:
-            def pick(logits):
+            key, gens = "greedy", ()
+
+            def pick(logits, temp):
                 return logits.argmax(dim=-1, keepdim=True)
 
-        pieces = [ids]
-        toks, pos = ids, pos0
-        done = torch.zeros(b, dtype=torch.bool, device=model.device)
-        for i in range(max_new_tokens):
+        if eos is not None:
+            key = (*key, eos) if isinstance(key, tuple) else (key, eos)
+            data["done"] = torch.zeros(b, dtype=torch.bool, device=model.device)
+        step = graph(key, _token_body(forward_step, caches, pick, eos), gens)
+        outs = step(tuple(ids.shape), toks=ids, pos=pos0, **data)
+        pieces = [ids, outs[0].clone()]
+        # the decode executable starts from the prefill's outputs; later
+        # steps advance its static inputs themselves
+        first = {**data, **dict(zip(("toks", "pos", "done"), outs))}
+        for i in range(1, max_new_tokens):
             # the all-done check syncs once per token: the price of stopping
             # early; rows that finished sooner ride along emitting eos
-            if eos is not None and i > 0 and bool(done.all()):
+            if eos is not None and bool(outs[2].all()):
                 break
-            nxt = pick(forward_step(toks, caches, pos)).to(ids.dtype)
-            pos = pos + toks.shape[1]
-            if eos is not None:
-                nxt, done = _mask_eos(nxt, done, eos)
-            pieces.append(nxt)
-            toks = nxt
+            outs = step((b, 1), **(first if i == 1 else {}))
+            pieces.append(outs[0].clone())  # the output is the step's own buffer
         out = torch.cat(pieces, dim=1)
         if eos is None:
             return out
@@ -233,55 +303,85 @@ def lockstep_generate(model, input_ids, max_new_tokens, temperature,
             model.train()
 
 
-def _beam_search(model, ids, max_new_tokens, forward_step, caches, nb, eos,
-                 length_penalty, pos0):
-    """Length-normalised beam search (reference: models/_utils.py:317, after
-    PaddleNLP's BeamSearchScorer): each step takes the top `nb` of the nb*V
-    continuations of every batch row, reorders the caches' rows and the
-    sequence buffer to the chosen parents, and appends the tokens; finished
-    beams continue only with eos at no added score.  On the host at the
-    end: scores / length**length_penalty pick each row's best beam."""
-    b, s0 = ids.shape
+def _beam_body(forward_step, caches, b, nb, V, eos):
+    """The whole beam step (reference: `_beam_step`, models/_utils.py:
+    336-373): forward toks [B, s] at pos, take the top nb of every batch
+    row's nb * V continuations (finished beams continue only with eos at
+    no added score), reorder the caches' rows and the sequence buffer seqs
+    [B, T] to the chosen parents, and write the tokens into column ti of
+    seqs.  The step index ti (0-d int32) is data, so one executable serves
+    every step.  scores [b, nb], done [b, nb], seqs, ti and pos advance in
+    place; at the decode shape the tokens land in toks too.  Returns
+    (tokens [B, 1], pos, ti, scores, done, seqs)."""
     B = b * nb
-    V = model.config.vocab_size
-    dev = ids.device
-    toks = ids.repeat_interleave(nb, dim=0)  # [B, s0]
-    scores = torch.tensor([0.0] + [-1e9] * (nb - 1), device=dev).repeat(b, 1)
-    done = torch.zeros(b, nb, dtype=torch.bool, device=dev)
-    seqs = torch.zeros(B, max_new_tokens, dtype=torch.int32, device=dev)
-    batch_row = torch.arange(b, device=dev)[:, None] * nb
-    eos_row = None
-    if eos is not None:
-        eos_row = torch.full((V,), float("-inf"), device=dev)
-        eos_row[eos] = 0.0
-    pos = pos0
-    steps = 0
-    for t in range(max_new_tokens):
-        if eos is not None and t > 0 and bool(done.all()):
-            break
+
+    def body(toks, pos, ti, scores, done, seqs):
+        s = toks.shape[1]
         logits = forward_step(toks, caches, pos)  # [B, V]
-        pos = pos + toks.shape[1]
         logp = torch.log_softmax(logits.float(), dim=-1)
         if eos is not None:
+            vocab = torch.arange(V, device=logp.device)
+            eos_row = torch.where(vocab == eos, 0.0, float("-inf"))
             logp = torch.where(done.reshape(B, 1), eos_row, logp)
         total = scores.reshape(B, 1) + logp
-        scores, top_i = torch.topk(total.reshape(b, nb * V), nb, dim=-1)
+        top_v, top_i = torch.topk(total.reshape(b, nb * V), nb, dim=-1)
         parent = top_i // V  # [b, nb], beam index within the batch row
         token = (top_i % V).to(torch.int32)
-        rows = (batch_row + parent).reshape(-1)  # [B]
-        seqs = seqs.index_select(0, rows)
-        seqs[:, t] = token.reshape(B)
-        done = done.gather(1, parent)
+        rows = (torch.arange(b, device=toks.device)[:, None] * nb
+                + parent).reshape(-1)  # [B]
+        new_seqs = seqs.index_select(0, rows)
+        new_seqs.index_copy_(1, ti.long().reshape(1), token.reshape(B, 1))
+        new_done = done.gather(1, parent)
         if eos is not None:
-            done = done | (token == eos)
+            new_done = new_done | (token == eos)
         for c in caches:
             _gather_rows(c.k, rows)
             _gather_rows(c.v, rows)
-        toks = token.reshape(B, 1).to(ids.dtype)
+        seqs.copy_(new_seqs)
+        scores.copy_(top_v)
+        done.copy_(new_done)
+        ti.add_(1)
+        pos.add_(s)
+        tok = token.reshape(B, 1).to(toks.dtype)
+        if s == 1:
+            toks.copy_(tok)
+            tok = toks
+        return tok, pos, ti, scores, done, seqs
+
+    return body
+
+
+def _beam_search(model, ids, max_new_tokens, forward_step, caches, graph, nb,
+                 eos, length_penalty, pos0):
+    """Length-normalised beam search (reference: models/_utils.py:317, after
+    PaddleNLP's BeamSearchScorer): each step is one executable of
+    `_beam_body`, under the key ("beam", nb, eos).  On the host at the end:
+    scores / length**length_penalty pick each row's best beam."""
+    b, s0 = ids.shape
+    B = b * nb
+    T = max_new_tokens
+    dev = ids.device
+    step = graph(("beam", nb, eos),
+                 _beam_body(forward_step, caches, b, nb, model.config.vocab_size, eos))
+    state = dict(
+        toks=ids.repeat_interleave(nb, dim=0),  # [B, s0]
+        pos=pos0,
+        ti=torch.zeros((), dtype=torch.int32, device=dev),
+        scores=torch.tensor([0.0] + [-1e9] * (nb - 1), device=dev).repeat(b, 1),
+        done=torch.zeros(b, nb, dtype=torch.bool, device=dev),
+        seqs=torch.zeros(B, T, dtype=torch.int32, device=dev),
+    )
+    outs = step(((B, s0), T), **state)
+    first = dict(zip(state, outs))
+    steps = 1
+    for _ in range(1, T):
+        if eos is not None and bool(outs[4].all()):
+            break
+        outs = step(((B, 1), T), **(first if steps == 1 else {}))
         steps += 1
 
-    seqs_np = seqs.cpu().numpy().reshape(b, nb, max_new_tokens)[:, :, :steps]
-    scores_np = scores.cpu().numpy()  # [b, nb]
+    seqs_np = outs[5].cpu().numpy().reshape(b, nb, T)[:, :, :steps]
+    scores_np = outs[3].cpu().numpy()  # [b, nb]
     if eos is not None:
         is_eos = seqs_np == eos
         lengths = np.where(is_eos.any(-1), is_eos.argmax(-1) + 1,
@@ -290,5 +390,6 @@ def _beam_search(model, ids, max_new_tokens, forward_step, caches, nb, eos,
         lengths = np.full((b, nb), float(steps), np.float32)
     norm = scores_np / np.maximum(lengths, 1.0) ** length_penalty
     best = norm.argmax(-1)  # [b]
-    out = np.concatenate([ids.cpu().numpy(), seqs_np[np.arange(b), best]], axis=1)
-    return torch.from_numpy(out.astype(ids.cpu().numpy().dtype)).to(dev)
+    ids_np = ids.cpu().numpy()
+    out = np.concatenate([ids_np, seqs_np[np.arange(b), best]], axis=1)
+    return torch.from_numpy(out.astype(ids_np.dtype)).to(dev)

@@ -15,8 +15,9 @@ arena, and under context parallelism one `paged_decode_partials` launch
 per cp shard (the speculative verify window is a decode step of k + 1
 rows); a training backward the `flash_bwd` kernel.  Against a static
 cache, a lock-step prefill of 64+ rows runs the `dense_decode` kernel and
-shorter chunks and decode steps the dense math (`decode_attention`); the
-slot pool's prefill runs `flash_fwd` over its bucket.  The cache writes
+shorter chunks and decode steps (the slot pool's too) `paged_decode_fused`
+over the cache's page view (`decode_attention`); the slot pool's prefill
+runs `flash_fwd` over its bucket.  The cache writes
 update the arena and cache tensors in place (the reference rebinds new
 immutable arrays).
 """
@@ -40,7 +41,12 @@ from ..distributed.fleet.meta_parallel.ring_attention import (
 )
 from ..framework.core import INDEX_DTYPE, resolve_device, to_torch_dtype
 from ..nn.norm import RMSNorm
-from ..ops.flash_attention import decode_attention, paged_decode_attention, sdpa
+from ..ops.flash_attention import (
+    decode_attention,
+    dense_page_table,
+    paged_decode_attention,
+    sdpa,
+)
 from ._utils import lockstep_generate, sequence_ce
 
 
@@ -148,7 +154,11 @@ class StaticKVCache:
     `device`, zero at first, written in place at the current position, so a
     decode step never changes a shape (reference: llama.py:138).  Lock-step
     generation holds one per layer with a row per sequence; the dense
-    slot-pool engine one with a row per slot."""
+    slot-pool engine one with a row per slot.  `table` is the page table of
+    the buffers' page view (`ops.flash_attention.dense_page_table`), built
+    here once on the device: attention outside `dense_decode`'s shapes
+    reads the cache through it with `paged_decode_fused`, and a captured
+    step finds it already on the card."""
 
     def __init__(self, b, max_len, kv_heads, head_dim, dtype=torch.float32,
                  device=None):
@@ -156,6 +166,7 @@ class StaticKVCache:
         shape = (int(b), self.max_len, int(kv_heads), int(head_dim))
         self.k = torch.zeros(shape, dtype=dtype, device=device)
         self.v = torch.zeros(shape, dtype=dtype, device=device)
+        self.table = dense_page_table(int(b), self.max_len, self.k.device)
 
 
 def _cache_write(cache, new, pos):
@@ -465,7 +476,7 @@ class LlamaAttention(nn.Module):
             q, k = apply_rotary_pos_emb(q, k, cos, sin, pos)
             _cache_write(cache.k, k, pos)
             _cache_write(cache.v, v, pos)
-            out = decode_attention(q, cache.k, cache.v, pos)
+            out = decode_attention(q, cache.k, cache.v, pos, table=cache.table)
         elif cache is None:
             q, k = apply_rotary_pos_emb(q, k, cos, sin, 0)
             out = self._dispatch_attention(q, k, v)

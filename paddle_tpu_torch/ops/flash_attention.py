@@ -16,7 +16,10 @@ training paths:
 - `paged_decode_fused` (csrc/paged_decode.cu, replaces
   `_fused_paged_decode_forward`): every decode step and every chunk
   prefill of a prefix-cache hit, reading the K/V page arena through the
-  page tables in-kernel.
+  page tables in-kernel; and every cached attention against a dense
+  static cache outside K6's shapes (lock-step decode steps and short
+  prefills, the dense slot pool's decode), over the cache's page view
+  (`dense_page_view`, `dense_page_table`).
 - `paged_decode_fused_q8` (csrc/paged_decode.cu, replaces
   `_fused_paged_decode_quant_forward`): the same over an int8 arena with
   per-row float32 scales, dequantized in-kernel.
@@ -24,7 +27,7 @@ training paths:
   from the device; replaces `_pallas_decode_forward`): cached attention
   against a dense static KV cache, taken by `decode_attention` where the
   reference takes its Pallas kernel -- the prefill of lock-step
-  generation.
+  generation from 64 rows.
 - `paged_decode_partials` (csrc/paged_decode.cu, K2's page walk with a
   token position per table column and un-normalised output; replaces
   `_fused_paged_decode_partials_forward`): context-parallel paged
@@ -114,6 +117,10 @@ PAGED_MMA_BLOCKS = 396
 PAGED_WALK_BLOCKS = 1584
 # the q tile of K1's Hopper kernel (two warpgroups of 64 rows)
 FLASH_WGMMA_ROWS = 128
+# rows per page of a dense cache's page view (`dense_page_view`): the
+# paged engine's page size, so K2 splits a dense walk as it splits a paged
+# one
+DENSE_PAGE_ROWS = 128
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -775,7 +782,9 @@ def _pos_vector(pos, b, device, what):
 def decode_attention_plain(q, k, v, pos, scale=None):
     """Cached attention against dense buffers: the dense math of the
     reference's `decode_attention_array` (flash_attention.py:771-787), and
-    the plain version of `dense_decode`.  q: [b, sq, h, d]; k, v: [b, L,
+    the plain version of `dense_decode`.  No serving or generate path
+    reaches it on a CUDA tensor (it upcasts the whole cache to float32):
+    `decode_attention` runs K6 or K2.  q: [b, sq, h, d]; k, v: [b, L,
     kv_h, d]; pos: int, a one-element or [b] int32 tensor.  Row i of slot s
     attends cache rows j <= pos[s] + i; scores and softmax in float32, p
     rounded to v's dtype before p.v.  Returns [b, sq, h, d]."""
@@ -807,9 +816,10 @@ def takes_dense_decode(sq, d, L, per_row_pos):
     flash_attention.py:738-744): its Pallas kernel, and so `dense_decode`
     here, runs for a scalar position, at least 64 query rows, head_dim <=
     256 and a cache length that is a multiple of 128; everything else takes
-    the dense math.  On the serving paths that is the prefill of lock-step
-    generation and nothing else: single-token and per-slot decode steps
-    stay dense."""
+    the reference's dense math, which `decode_attention` runs as K2 over
+    the cache's page view.  On the serving paths that is the prefill of
+    lock-step generation and nothing else: single-token and per-slot
+    decode steps take K2."""
     return not per_row_pos and sq >= 64 and d <= MAX_HEAD_DIM and L % 128 == 0
 
 
@@ -867,18 +877,59 @@ def dense_decode(q, k, v, pos, scale=None):
     return out
 
 
-def decode_attention(q, k, v, pos, scale=None):
+def dense_page_size(L):
+    """Rows per page of a dense cache's page view: DENSE_PAGE_ROWS where
+    the cache length L is a multiple of it, else L (one page per
+    sequence)."""
+    return DENSE_PAGE_ROWS if L % DENSE_PAGE_ROWS == 0 else L
+
+
+def dense_page_table(b, L, device):
+    """The page table of the page view of a dense [b, L, kv_h, d] cache:
+    [b, L / ps] int32 with t[s, j] = s * L / ps + j, so sequence s's pages
+    are its own rows, in order.  Every entry names a page of the view, so
+    it needs no `check_table_bounds`."""
+    n = L // dense_page_size(L)
+    return torch.arange(b * n, dtype=INDEX_DTYPE, device=device).reshape(b, n)
+
+
+def dense_page_view(cache):
+    """A dense [b, L, kv_h, d] cache as a paged arena [b * L / ps, ps, kv_h,
+    d] over the same memory (a view; a copy only of a non-contiguous CPU
+    tensor, which the tests pass)."""
+    b, L, hk, d = cache.shape
+    ps = dense_page_size(L)
+    return cache.reshape(b * L // ps, ps, hk, d)
+
+
+def decode_attention(q, k, v, pos, scale=None, table=None):
     """Cached attention against dense buffers, the reference's dispatcher
     `decode_attention_array` (flash_attention.py:698).  q: [b, sq, h, d];
     k, v: [b, L, kv_h, d]; pos: a scalar (an int or a 0-d int32 tensor:
     the lock-step position) or a [b] int32 tensor (per-slot positions).
-    `dense_decode` where `takes_dense_decode` holds -- on a CUDA tensor the
-    kernel runs or raises -- else the dense math, as the reference's XLA
-    path.  Returns [b, sq, h, d]."""
+    `dense_decode` (K6) where `takes_dense_decode` holds, the reference's
+    rule; everything else -- decode steps, short prefills, per-slot
+    positions, where the reference runs its XLA math -- goes through
+    `paged_decode_fused` (K2) over the caches' page view
+    (`dense_page_view`) under `table`, the cache's `dense_page_table` (made
+    here when None), with max_len L: key j is seen by row i iff j <= pos +
+    i, as in the dense math.  On a CUDA tensor the kernel runs or raises;
+    on the CPU both wrappers run their plain versions.  A head wider than
+    MAX_HEAD_DIM, which no kernel takes and no model of the port has, runs
+    the dense math itself.  Returns [b, sq, h, d]."""
     per_row = getattr(pos, "ndim", 0) == 1
-    if takes_dense_decode(q.shape[1], q.shape[3], k.shape[1], per_row):
+    b, L = k.shape[0], k.shape[1]
+    if takes_dense_decode(q.shape[1], q.shape[3], L, per_row):
         return dense_decode(q, k, v, pos, scale)
-    return decode_attention_plain(q, k, v, pos, scale)
+    if q.shape[3] > MAX_HEAD_DIM:
+        return decode_attention_plain(q, k, v, pos, scale)
+    if k.is_cuda:
+        _require(k.is_contiguous() and v.is_contiguous(),
+                 "decode_attention: cache buffers must be contiguous")
+    if table is None:
+        table = dense_page_table(b, L, k.device)
+    return paged_decode_fused(q, dense_page_view(k), dense_page_view(v), table,
+                              pos, L, scale)
 
 
 def _check_paged(q, arena_k, arena_v, tables, pos, what):

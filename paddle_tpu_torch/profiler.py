@@ -7,7 +7,9 @@ The engine records one entry per finished request and one per decode step;
 saved, copy-on-write copies, commits and evictions;
 `kv_quant_summary()` the arena's storage precision and bytes;
 `speculation_summary()` the verify steps' drafts proposed, accepted and
-tokens emitted; `mesh_summary()` the serving engine's parallel layout.
+tokens emitted; `mesh_summary()` the serving engine's parallel layout;
+`router_summary()` the front door's idempotent replays (`idem_hits`) and
+joins of a live keyed request (`idem_joins`).
 `kernel_launch_counts()` reads every hand-written kernel's launches
 (`flash_fwd`, `paged_decode_fused`, `paged_decode_fused_q8`, `flash_bwd`,
 `dense_decode`, `paged_decode_fused_cp`, `paged_decode_fused_cp_q8`);
@@ -29,6 +31,7 @@ _paging = {}
 _kv_quant = {}
 _spec = {}
 _mesh = {}
+_router = {}
 
 
 def _reset_locked():
@@ -274,6 +277,31 @@ def mesh_summary():
     return g if g["devices"] else {}
 
 
+def _reset_router_locked():
+    _router.update(idem_hits=0, idem_joins=0)
+
+
+_reset_router_locked()
+
+
+def reset_router():
+    with _lock:
+        _reset_router_locked()
+
+
+def record_router_event(kind, n=1):
+    """Count one front-door event: 'idem_hits' (a keyed request replayed
+    from the idempotency cache) or 'idem_joins' (one that joined the live
+    request of its key)."""
+    with _lock:
+        _router[kind] += int(n)
+
+
+def router_summary():
+    with _lock:
+        return dict(_router)
+
+
 def kernel_launch_counts():
     """Launches of each hand-written kernel since the last reset."""
     return dict(_fa.launch_counts)
@@ -284,9 +312,10 @@ def reset_kernel_launch_counts():
 
 
 def summary():
-    """The serving, paging, KV-quant, speculation and mesh summaries and the
-    kernel launch counts in one dict."""
+    """The serving, paging, KV-quant, speculation, mesh and router summaries
+    and the kernel launch counts in one dict."""
     return {"serving": serving_summary(), "paging": paging_summary(),
             "kv_quant": kv_quant_summary(),
             "speculation": speculation_summary(), "mesh": mesh_summary(),
+            "router": router_summary(),
             "kernel_launches": kernel_launch_counts()}
