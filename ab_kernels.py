@@ -2,7 +2,7 @@
 """Time two checkouts of the port's attention kernels on one CUDA card, in
 turns.
 
-    python3 ab_kernels.py OLD_DIR NEW_DIR [--train]
+    python3 ab_kernels.py OLD_DIR NEW_DIR [--train] [--bert]
 
 Each checkout runs in a process of its own, so its kernels build from its
 own sources into its own build directory, in the order old, new, new, old,
@@ -21,8 +21,10 @@ One JSON line per kernel and turn: the wrapper's median time over CUDA
 events (host time included) and its device time per call (torch.profiler:
 the summed durations of the kernels it launched).  With --train, also the
 median step time of steps 2-4 of the training slice (Llama-2-7B's widths at
-8 layers, batch 4 x 2048, bf16 O2 + AdamW).  Compare times only within one
-call: two calls may land on cards with other power limits.
+8 layers, batch 4 x 2048, bf16 O2 + AdamW); with --bert, the median step
+time of steps 2-10 of the bert phase's training (BERT-base, 32 x 384, bf16
+O2 + AdamW, no dropout), whose step is bound by the host.  Compare times
+only within one call: two calls may land on cards with other power limits.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ import subprocess
 import sys
 
 
-def _child(tree, train):
+def _child(tree, train, bert):
     sys.path.insert(0, tree)
     import statistics
     import time
@@ -108,15 +110,33 @@ def _child(tree, train):
         print("AB " + json.dumps({"tree": tree, "kernel": "training step",
                                   "ms": statistics.median(secs[1:]) * 1e3}),
               flush=True)
+        del model, opt
+        torch.cuda.empty_cache()
+    if bert:
+        from paddle_tpu_torch.models.bert import BertConfig
+
+        cfg = BertConfig.bert_base(hidden_dropout_prob=0.0,
+                                   attention_probs_dropout_prob=0.0)
+        model, opt = cs._bert_model(cfg, "cuda")
+        inputs = cs._bert_inputs(cfg, "cuda", cs.BERT_BATCH, cs.BERT_SEQ, 0)
+        secs = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            cs._bert_step(model, opt, inputs).item()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        print("AB " + json.dumps({"tree": tree, "kernel": "BERT training step",
+                                  "ms": statistics.median(secs[1:]) * 1e3,
+                                  "all_ms": [x * 1e3 for x in secs]}), flush=True)
 
 
 def main():
     args = sys.argv[1:]
     if args and args[0] == "--child":
-        _child(args[1], "--train" in args)
+        _child(args[1], "--train" in args, "--bert" in args)
         return 0
-    train = "--train" in args
-    trees = [a for a in args if a != "--train"]
+    flags = [a for a in args if a in ("--train", "--bert")]
+    trees = [a for a in args if a not in flags]
     if len(trees) != 2:
         print(__doc__, file=sys.stderr)
         return 2
@@ -126,8 +146,7 @@ def main():
         capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
     for tree in (old, new, new, old):
-        cmd = ([sys.executable, os.path.abspath(__file__), "--child", tree]
-               + (["--train"] if train else []))
+        cmd = [sys.executable, os.path.abspath(__file__), "--child", tree] + flags
         if subprocess.run(cmd, cwd=tree).returncode != 0:
             print(f"ab_kernels: the run of {tree} failed", file=sys.stderr)
             return 1

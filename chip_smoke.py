@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Thirteen phases; a failure in any of them exits non-zero and prints no
+Fourteen phases; a failure in any of them exits non-zero and prints no
 result.
 
 1. device  -- requires CUDA; prints the card's name and power limit.
@@ -31,7 +31,21 @@ result.
               view of a dense static cache (`decode_attention` outside K6's
               shapes) at the generate phase's decode step and the dense
               pool's, timed beside the float32 dense math it replaces and
-              SDPA over the dense cache with the mask j <= pos.
+              SDPA over the dense cache with the mask j <= pos.  Then the
+              optimizer's kernels: adam_fused (one launch over every
+              tensor) at the train phase's 8-layer parameters (bf16 with
+              float32 masters, float32 norms) and at BERT-base's, against
+              adam_multi_plain (parameters, masters, moments and beta
+              powers equal bit for bit, parameters equal to the masters
+              rounded), decay terms larger than the update among the
+              variants, timed
+              beside torch.optim.AdamW(fused=True) over float32 tensors of
+              the same shapes; a set found_inf changes nothing, bit for
+              bit; every decay mode, dtype, unaligned and ragged tensor
+              untimed; unscale_fused over the train phase's gradients,
+              bit for bit against its plain version, clean and with one
+              inf, timed beside torch._amp_foreach_non_finite_check_and_
+              unscale_.
 4. ring    -- bench_longcontext_32k's attention (one 32768-token sequence, 8
               heads of 128, R = 8 ranks of the sep axis on the card): forward
               and backward of full-sequence causal K1 + K3, then
@@ -88,32 +102,45 @@ result.
 10. train  -- trains Llama-2-7B's widths at 8 layers (bf16 AMP O2, AdamW with
               float32 master weights) for 6 steps on one repeated batch of
               4 x 2048 tokens: finite and falling losses, K1 (on its wgmma
-              path) and K3 launched once per layer per step, every weight
-              moved; step time,
-              tokens/s, peak memory and a profiled step.
+              path) and K3 launched once per layer per step, adam_fused
+              once per step, every weight moved; step time,
+              tokens/s, peak memory and a profiled step with AdamW's span.
               Then 2 steps of 2 layers with activation recompute (K1 twice
               per layer per step).
 11. grads  -- one step's gradients of a 2-layer model at the same widths
               with the kernels against the same step with attention through
               the plain forward under autograd.
-12. bert   -- bench_bert's BERT-base SQuAD fine-tuning (bf16 O2, AdamW at
+12. amp    -- the reference's O1 recipe on Llama-2-7B's widths at 2 layers,
+              float32 parameters, batch 2 x 2048: auto_cast O1 bf16, a
+              dynamic GradScaler, LinearWarmup into CosineAnnealingDecay,
+              ClipGradByGlobalNorm(1.0) and AdamW for 6 steps, step 4's
+              gradients given one inf: finite, falling losses; the inf
+              step leaves every parameter, moment and power bit for bit
+              and halves the scale; each step at its scheduler's rate;
+              K1 and K3 once per layer per step on their wgmma paths,
+              adam_fused and unscale_fused once per step.  Then SGD,
+              Momentum, Adagrad, RMSProp, Adamax and Lamb two steps each:
+              finite, every weight moved, step ms.
+13. bert   -- bench_bert's BERT-base SQuAD fine-tuning (bf16 O2, AdamW at
               3e-5, dropout 0) for 6 steps on one batch of 32 x 384 tokens
               padded from lengths 192-384: finite and falling losses, K1 and
               K3 launched once per layer per step on their wgmma paths with
-              segment ids and no fallback, step time, examples/s, peak
-              memory and a profiled step; an encoder layer with the padding
+              segment ids and no fallback, adam_fused once per step, step
+              time, examples/s, peak memory and a profiled step with
+              AdamW's span; an encoder layer with the padding
               as a key-padding attn_mask (K1's key bias) against segment ids
               on the valid rows; then a 2-layer model's gradients with the
               kernels against attention through the plain forward.
-13. longcontext -- long-context training through the Llama's
+14. longcontext -- long-context training through the Llama's
               `context_parallel_degree` on a sep mesh (ring attention, every
               rank on the card): Llama-2-7B's widths at 4 layers, one
               sequence of 32768 tokens over R = 8 (K/V 512 MiB a layer: the
               rotating zig-zag form), bf16 O2 + AdamW, 3 steps: finite and
               falling losses, exactly R (2R + 1) K1 and K3 launches per
               layer per step (2R - 1 per rank with the carry, every K3 with
-              delta), every one on the wgmma path, no plain attention; step
-              time, tokens/s, peak memory, a profiled step.  Then 2 layers,
+              delta), every one on the wgmma path, no plain attention,
+              adam_fused once per step; step time, tokens/s, peak memory, a
+              profiled step.  Then 2 layers,
               16384 tokens over R = 4 (K/V exactly 256 MiB: the gathered
               form, one K1 and one K3 with q_offset per rank), 2 steps; then
               one step's gradients of 2 layers at 32768 tokens over R = 8
@@ -250,6 +277,10 @@ BERT_SEQ = 384
 BERT_VOCAB = 30522
 BERT_STEPS = 6
 BERT_LR = 3e-5
+# AdamW's span of a profiled step when AdamW ran as per-parameter torch
+# ops, before adam_fused (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 5)
+ADAMW_SPAN_WAS = {("train", 8): 115.814, ("bert", 12): 74.241,
+                  ("longcontext", 4): 65.668}
 # a key whose bias is above this is live in `_bool_mask` (the padding bias
 # is -1e30, a live key's finite)
 NEG_BIAS_LIVE = -1e29
@@ -1484,6 +1515,366 @@ def ring_kernel_cases(timed=True):
     return ok_all, recs
 
 
+# ---------------------------------------------------------------------------
+# the optimizer's kernels: adam_fused and unscale_fused
+# ---------------------------------------------------------------------------
+
+# adam_fused against adam_multi_plain on the same inputs: parameters,
+# masters, moments and beta powers equal bit for bit (torch.equal).  Both
+# round once per float32 operation in the same order (the kernel's
+# intrinsics are never contracted into FMAs, and torch's division and sqrt
+# round as IEEE does), so any difference is a fault of the kernel: a decay
+# term of 6e-8 on a weight of 0.02 or a moment of 1e-8 is a fault, which a
+# tolerance of a few ulps plus an absolute term would hide.
+ADAM_FLOPS = 16  # float32 operations of one element's update
+AMP_LR = 3e-4
+
+
+def llama_param_specs(cfg):
+    """(shape, stays float32) of each parameter of `cfg`'s LlamaForCausalLM
+    in its order: under bf16 O2 the RMSNorm weights stay float32, every
+    other tensor is bf16 with a float32 master."""
+    h, inter, vocab = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    kv = cfg.num_key_value_heads * (h // cfg.num_attention_heads)
+    layer = [((h, h), False), ((kv, h), False), ((kv, h), False), ((h, h), False),
+             ((inter, h), False), ((inter, h), False), ((h, inter), False),
+             ((h,), True), ((h,), True)]
+    return ([((vocab, h), False)] + layer * cfg.num_hidden_layers
+            + [((h,), True), ((vocab, h), False)])
+
+
+def bert_param_specs(cfg):
+    """The same for `cfg`'s BertForQuestionAnswering (its LayerNorms stay
+    float32), read from a model built on the CPU."""
+    import torch
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models.bert import BertForQuestionAnswering
+
+    model = amp.decorate(BertForQuestionAnswering(cfg, device="cpu"), level="O2")
+    return [(tuple(p.shape), p.dtype == torch.float32) for p in model.parameters()]
+
+
+def _adam_lists(specs, seed, device="cuda", low=None, masters=True,
+                mode="decoupled", wd=0.01, w_scale=0.02):
+    """Random Adam state over `specs` as a training step holds it: each
+    tensor that does not stay float32 in `low` (default bf16) with a
+    float32 master (or none, `masters=False`), the others float32; weights
+    of scale `w_scale`; moments and beta powers as after three steps; decay
+    `wd` in `mode` on the low-precision tensors.  Returns the list
+    arguments of `adam_multi`."""
+    import torch
+
+    low = low or torch.bfloat16
+    g = torch.Generator(device=device).manual_seed(seed)
+    rnd = lambda shape, scale: torch.randn(shape, generator=g, device=device) * scale
+    out = {k: [] for k in ("params", "grads", "masters", "moments1", "moments2",
+                           "beta1_pows", "beta2_pows", "decays")}
+    for shape, keep in specs:
+        w = rnd(shape, w_scale)
+        dtype = torch.float32 if keep else low
+        out["params"].append(w if keep else w.to(dtype))
+        out["masters"].append(None if keep or not masters or dtype == torch.float32
+                              else w)
+        out["grads"].append(rnd(shape, 1e-3).to(dtype))
+        out["moments1"].append(rnd(shape, 1e-4))
+        out["moments2"].append(rnd(shape, 1e-4).square())
+        out["beta1_pows"].append(torch.full((), 0.9 ** 3, device=device))
+        out["beta2_pows"].append(torch.full((), 0.999 ** 3, device=device))
+        out["decays"].append((0.0 if keep else wd, mode))
+    return out
+
+
+def _adam_clone(d):
+    return {k: [t.clone() if hasattr(t, "clone") else t for t in v]
+            for k, v in d.items()}
+
+
+def _adam_state_tensors(d):
+    return [t for k in ("params", "masters", "moments1", "moments2", "beta1_pows",
+                        "beta2_pows") for t in d[k] if t is not None]
+
+
+def _adam_compare(got, ref):
+    """(all equal bit for bit, max |got - ref|, tensors that differ) over
+    params, masters, moments and powers; a parameter with a master must
+    also equal it rounded to the parameter's dtype."""
+    import torch
+
+    ok, err, differ = True, 0.0, 0
+    for a, b in zip(_adam_state_tensors(got), _adam_state_tensors(ref)):
+        same = torch.equal(a, b)
+        differ += not same
+        ok &= same and bool(torch.isfinite(a.float()).all())
+        err = max(err, (a.float() - b.float()).abs().max().item())
+    for p, w in zip(got["params"], got["masters"]):
+        if w is not None:
+            ok &= torch.equal(p, w.to(p.dtype))
+    return ok, err, differ
+
+
+def _adam_run(d, lr, found_inf=None, table=None, plain=False):
+    from paddle_tpu_torch.ops import optim
+
+    args = (d["params"], d["grads"], d["masters"], d["moments1"], d["moments2"],
+            d["beta1_pows"], d["beta2_pows"], d["decays"], lr, 0.9, 0.999, 1e-8)
+    if plain:
+        optim.adam_multi_plain(*args, found_inf=found_inf)
+    else:
+        optim.adam_multi(*args, found_inf=found_inf, table=table)
+
+
+def _adam_case(what, specs, seed, timed=True):
+    """adam_fused over `specs` (bf16 with float32 masters, float32 norms)
+    against adam_multi_plain on a copy of the same state: one step, held
+    by `_adam_compare`; with `timed`, kernel and plain times, the byte
+    bound (28 B per element) and torch.optim.AdamW(fused=True) over float32
+    tensors of the same shapes.  Returns (ok, record)."""
+    import torch
+
+    from paddle_tpu_torch.ops import optim
+
+    got = _adam_lists(specs, seed)
+    ref = _adam_clone(got)
+    lr = torch.full((), AMP_LR, device="cuda")
+    table = optim.MultiTensorTable()
+    _adam_run(got, lr, table=table)
+    torch.cuda.synchronize()
+    _adam_run(ref, lr, plain=True)
+    ok, err, differ = _adam_compare(got, ref)
+    n = sum(p.numel() for p in got["params"])
+    shape = (f"adam_fused {what}: {len(specs)} tensors, {n} elements, one launch: "
+             f"params, masters, moments and powers equal to the plain version "
+             f"bit for bit ({differ} of {len(_adam_state_tensors(got))} tensors "
+             f"differ, max_abs_err {err:.3e}), params == masters rounded")
+    if not timed:
+        log("kernels", f"{shape} -> {'ok' if ok else 'FAIL'}")
+        return ok, dict(max_abs_err=err)
+    plain_ms = time_ms(lambda: _adam_run(ref, lr, plain=True), iters=3, warmup=1)
+    del ref
+    torch.cuda.empty_cache()
+    ms = time_ms(lambda: _adam_run(got, lr, table=table), iters=10, warmup=2)
+    dev, _ = device_ms(lambda: _adam_run(got, lr, table=table), iters=5, warmup=1)
+    args = [got[k] for k in ("params", "grads", "masters", "moments1", "moments2",
+                             "beta1_pows", "beta2_pows", "decays")]
+    t0 = time.perf_counter()
+    for _ in range(20):
+        optim.adam_entries(*args)
+    pack_ms = (time.perf_counter() - t0) / 20 * 1e3
+    bms, by = bound(28 * n, ADAM_FLOPS * n, PEAK_F32_FLOP_S)
+    # the library's fused AdamW over float32 tensors of the same shapes
+    params = [w if w is not None else p for p, w in zip(got["params"], got["masters"])]
+    del got
+    for p in params:
+        p.grad = torch.randn(p.shape, device="cuda") * 1e-3
+    lib = torch.optim.AdamW(params, lr=AMP_LR, weight_decay=0.01, fused=True)
+    lib_ms = time_ms(lib.step, iters=5, warmup=2)
+    del lib, params
+    torch.cuda.empty_cache()
+    log("kernels", f"{shape}, kernel_ms {ms:.4f} (the host's packing of the "
+                   f"entries {pack_ms:.4f} of it), device_ms {_dev_txt(dev)}, "
+                   f"plain_ms {plain_ms:.4f}, library_ms (torch AdamW fused, "
+                   f"float32) {lib_ms:.4f}, bound_ms {bms:.5f} ({by}, 28 B per "
+                   f"element) -> {'ok' if ok else 'FAIL'}")
+    return ok, dict(max_abs_err=err, ms=ms, device_ms=dev, plain_ms=plain_ms,
+                    bound_ms=bms, bound_by=by, library_ms=lib_ms)
+
+
+def _adam_skip_case(what, specs, seed):
+    """A set found_inf: one launch writes nothing, bit for bit."""
+    import torch
+
+    from paddle_tpu_torch.ops import optim
+
+    d = _adam_lists(specs, seed)
+    before = [t.clone() for t in _adam_state_tensors(d)]
+    _adam_run(d, torch.full((), AMP_LR, device="cuda"),
+              found_inf=torch.ones((), dtype=torch.int32, device="cuda"),
+              table=optim.MultiTensorTable())
+    same = all(torch.equal(a, b) for a, b in zip(_adam_state_tensors(d), before))
+    log("kernels", f"adam_fused {what} with found_inf set: every param, master, "
+                   f"moment and power unchanged bit for bit: {same} -> "
+                   f"{'ok' if same else 'FAIL'}")
+    return same
+
+
+def _adam_variants():
+    """Every other variant the wrapper launches, untimed: decay modes (L2,
+    L1, decoupled L1), decay terms larger than the update (weights of
+    scale 1, coefficient 0.1, decoupled and L2), bf16 and fp16 without
+    masters, fp16 with masters, float32 only, unaligned storage (views one
+    element into a buffer), and sizes that leave vector tails and span
+    chunks.  Returns (ok, max_abs_err)."""
+    import torch
+
+    from paddle_tpu_torch.ops import optim
+
+    sizes = [((1,), True), ((7,), False), ((8,), False), ((3, 5), True),
+             ((optim.CHUNK + 9,), False), ((2, optim.CHUNK + 3), False)]
+    cases = [dict(mode=m) for m in ("l2", "l1", "decoupled_l1")] + [
+        dict(w_scale=1.0, wd=0.1), dict(w_scale=1.0, wd=0.1, mode="l2"),
+        dict(masters=False), dict(low=torch.float16),
+        dict(low=torch.float16, masters=False), dict(low=torch.float32),
+        dict(unaligned=True)]
+    ok, worst = True, 0.0
+    lr = torch.full((), AMP_LR, device="cuda")
+    for i, kw in enumerate(cases):
+        unaligned = kw.pop("unaligned", False)
+        got = _adam_lists(sizes, 60 + i, **kw)
+        if unaligned:
+            for k in ("params", "grads", "masters", "moments1", "moments2"):
+                got[k] = [None if t is None else
+                          torch.cat([t.reshape(-1)[:1], t.reshape(-1)])[1:].view(t.shape)
+                          for t in got[k]]
+        ref = _adam_clone(got)
+        _adam_run(got, lr, table=optim.MultiTensorTable())
+        _adam_run(ref, lr, plain=True)
+        good, err, differ = _adam_compare(got, ref)
+        ok &= good
+        worst = max(worst, err)
+        log("kernels", f"adam_fused variant {kw}{' unaligned' if unaligned else ''}: "
+                       f"bit for bit ({differ} tensors differ, max_abs_err "
+                       f"{err:.3e}) -> {'ok' if good else 'FAIL'}")
+    return ok, worst
+
+
+def _grad_lists(specs, seed, low=None, device="cuda"):
+    import torch
+
+    low = low or torch.bfloat16
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [(torch.randn(shape, generator=g, device=device) * 32.0).to(
+        torch.float32 if keep else low) for shape, keep in specs]
+
+
+def _unscale_case(what, specs, seed, timed=True):
+    """unscale_fused over `specs`' gradients (bf16, float32 norms) against
+    unscale_multi_plain on copies: once clean (found_inf stays 0), once
+    with one inf injected (found_inf 1), equal bit for bit (one multiply by
+    the inverse rounded to the gradient's dtype on both sides); with
+    `timed`, times, the byte bound (4 B per bf16 element, 8 per float32)
+    and torch._amp_foreach_non_finite_check_and_unscale_.  Returns (ok,
+    record)."""
+    import torch
+
+    from paddle_tpu_torch.ops import optim
+
+    got = _grad_lists(specs, seed)
+    ref = [g.clone() for g in got]
+    scale = torch.full((), 2.0 ** 15, device="cuda")
+    table = optim.MultiTensorTable()
+    ok, err = True, 0.0
+    for inject in (False, True):
+        if inject:
+            got[len(got) // 2].view(-1)[123] = float("inf")
+            ref[len(ref) // 2].view(-1)[123] = float("inf")
+        f_got = torch.zeros((), dtype=torch.int32, device="cuda")
+        f_ref = torch.zeros((), dtype=torch.int32, device="cuda")
+        optim.unscale_multi(got, scale, f_got, table=table)
+        optim.unscale_multi_plain(ref, scale, f_ref)
+        same = all(torch.equal(a, b) for a, b in zip(got, ref))
+        err = max([err] + [(a.float() - b.float()).nan_to_num(0.0, 0.0, 0.0)
+                           .abs().max().item() for a, b in zip(got, ref)])
+        ok &= same and int(f_got) == int(inject) == int(f_ref)
+    n = sum(g.numel() for g in got)
+    nbytes = sum(2 * g.numel() * g.element_size() for g in got)
+    shape = (f"unscale_fused {what}: {len(got)} gradients, {n} elements, one "
+             f"launch: equal to the plain version bit for bit, found_inf 0 clean "
+             f"and 1 with one inf")
+    del ref
+    if not timed:
+        log("kernels", f"{shape} -> {'ok' if ok else 'FAIL'}")
+        return ok, dict(max_abs_err=err)
+    flag = torch.zeros((), dtype=torch.int32, device="cuda")
+    one = torch.ones((), device="cuda")  # scale 1: the gradients stay as they are
+    ms = time_ms(lambda: optim.unscale_multi(got, one, flag, table=table))
+    dev, _ = device_ms(lambda: optim.unscale_multi(got, one, flag, table=table))
+    plain_ms = time_ms(lambda: optim.unscale_multi_plain(got, one, flag), iters=3,
+                       warmup=1)
+    # the library call takes float32 and fp16, not bf16: fp16 gradients of
+    # the same shapes move the same bytes
+    half = [g.half() if g.dtype == torch.bfloat16 else g for g in got]
+    found_f = torch.zeros(1, device="cuda")
+    inv = torch.ones(1, device="cuda")
+    lib_ms = time_ms(lambda: torch._amp_foreach_non_finite_check_and_unscale_(
+        half, found_f, inv))
+    del half
+    bms, by = bound(nbytes, 2 * n, PEAK_F32_FLOP_S)
+    log("kernels", f"{shape}, kernel_ms {ms:.4f}, device_ms {_dev_txt(dev)}, "
+                   f"plain_ms {plain_ms:.4f}, library_ms "
+                   f"(_amp_foreach_non_finite_check_and_unscale_, fp16 in place "
+                   f"of bf16) {lib_ms:.4f}, "
+                   f"bound_ms {bms:.5f} ({by}) -> {'ok' if ok else 'FAIL'}")
+    return ok, dict(max_abs_err=err, ms=ms, device_ms=dev, plain_ms=plain_ms,
+                    bound_ms=bms, bound_by=by, library_ms=lib_ms)
+
+
+def _unscale_variants():
+    """unscale_fused on float32, bf16 and fp16 gradients, an unaligned view,
+    tails, with and without a nan: against the plain version, bit for
+    bit, and the flag."""
+    import torch
+
+    from paddle_tpu_torch.ops import optim
+
+    sizes = [((1,), True), ((7,), False), ((optim.CHUNK + 9,), False),
+             ((3, 5), True)]
+    ok = True
+    scale = torch.full((), 1024.0, device="cuda")
+    for i, low in enumerate((torch.bfloat16, torch.float16, torch.float32)):
+        for bad in (False, True):
+            got = _grad_lists(sizes, 70 + i, low=low)
+            got[2] = torch.cat([got[2][:1], got[2]])[1:]  # unaligned storage
+            if bad:
+                got[1].view(-1)[3] = float("nan")
+            ref = [g.clone() for g in got]
+            f_got = torch.zeros((), dtype=torch.int32, device="cuda")
+            f_ref = torch.zeros((), dtype=torch.int32, device="cuda")
+            optim.unscale_multi(got, scale, f_got, table=optim.MultiTensorTable())
+            optim.unscale_multi_plain(ref, scale, f_ref)
+            same = all(torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0))
+                       for a, b in zip(got, ref))
+            good = same and int(f_got) == int(f_ref) == int(bad)
+            ok &= good
+            log("kernels", f"unscale_fused variant {low} nan {bad} -> "
+                           f"{'ok' if good else 'FAIL'}")
+    return ok
+
+
+def optim_kernel_cases(timed=True):
+    """adam_fused over the train phase's parameters (Llama-2-7B's widths at
+    TRAIN_LAYERS layers) and over BERT-base's, timed; found_inf skips bit
+    for bit; every other variant untimed; then unscale_fused over the
+    train phase's gradients, timed, and its variants.  Returns ({record
+    name: record}, ok)."""
+    import torch
+
+    from paddle_tpu_torch.models.bert import BertConfig
+    from paddle_tpu_torch.models.llama import LlamaConfig
+
+    llama = llama_param_specs(LlamaConfig.llama2_7b(num_hidden_layers=TRAIN_LAYERS))
+    bert = bert_param_specs(BertConfig.bert_base())
+    ok, rec = _adam_case(f"Llama-2-7B widths x {TRAIN_LAYERS} layers (the train "
+                         f"phase's parameters)", llama, seed=80, timed=timed)
+    torch.cuda.empty_cache()
+    ok_b, rec_b = _adam_case("BERT-base (the bert phase's parameters)", bert,
+                             seed=81, timed=timed)
+    ok &= ok_b
+    ok &= _adam_skip_case("BERT-base", bert, seed=82)
+    ok &= _adam_skip_case("one Llama-2-7B layer", llama[1:10], seed=83)
+    ok_v, err_v = _adam_variants()
+    ok &= ok_v
+    torch.cuda.empty_cache()
+    ok_u, rec_u = _unscale_case("the train phase's gradients", llama, seed=84,
+                                timed=timed)
+    ok &= ok_u & _unscale_variants()
+    torch.cuda.empty_cache()
+    worst = max(rec["max_abs_err"], rec_b["max_abs_err"], err_v)
+    return {"adam_fused": dict(rec, max_abs_err=worst),
+            "adam_fused_bert": dict(rec_b, max_abs_err=worst),
+            "unscale_fused": rec_u}, ok
+
+
 def _k3_repeat(b, s, h, hk, d=128, causal=True, seed=17):
     """K3 twice on the same inputs: dq, dk and dv must be equal bit for bit
     (no float atomics, a fixed order of every sum)."""
@@ -1703,8 +2094,11 @@ def phase_kernels():
     ring_ok, ring_recs = ring_kernel_cases(timed=True)
     ok_all &= ring_ok
     torch.cuda.empty_cache()
+    # the optimizer's kernels at the train and bert phases' parameters
+    optim_recs, optim_ok = optim_kernel_cases(timed=True)
+    ok_all &= optim_ok
     worst = lambda rec, errs: dict(rec, max_abs_err=max(errs))
-    return {**ring_recs,
+    return {**ring_recs, **optim_recs,
             "flash_fwd": worst(k1[512], errs1),
             "flash_fwd_wgmma": worst(k1_train, errs1),
             "paged_decode_fused": worst(k2, errs2),
@@ -2432,9 +2826,10 @@ def _gen_expect(cfg, dtype, s0, cache_len, steps, traced):
     of the steps - 1 decode steps; a key the call traced runs its step once
     more (the warm run before capture).  `traced`: (prefill traced, decode
     traced)."""
+    from paddle_tpu_torch import profiler
     from paddle_tpu_torch.ops import flash_attention as fa
 
-    want = dict.fromkeys(fa.launch_counts, 0)
+    want = dict.fromkeys(profiler.kernel_launch_counts(), 0)
     layers, d = cfg.num_hidden_layers, cfg.head_dim
     rep = cfg.num_attention_heads // cfg.num_key_value_heads
 
@@ -2807,6 +3202,8 @@ KERNEL_GROUPS = (
                              "paged_decode_kernel<float, signed char")),
     ("K2/K5 FMA walk", ("paged_decode_kernel<",)),
     ("K2/K4/K5 split combine", ("combine_kernel<",)),
+    ("adam_fused", ("adam_multi_kernel", "adam_pows_kernel")),
+    ("unscale_fused", ("unscale_multi_kernel",)),
 )
 
 
@@ -2848,6 +3245,14 @@ def _log_profile(what, wall_us, kernels, spans, steps, top=8, stats=None):
     for name, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:top]:
         log("profile", f"  {us / busy:6.3f} of device time, "
                        f"{us / steps / 1e3:.4f} ms/step: {name[:90]}")
+
+
+def _log_adamw_span(phase, spans, was_ms=None):
+    """AdamW's range on the device (torch's `Optimizer.step#AdamW.step`
+    annotation) per profiled step, beside an earlier run's figure."""
+    ms = sum(us for name, us in spans.items() if "Optimizer.step" in name) / 1e3
+    was = f" (as per-parameter torch ops: {was_ms} ms)" if was_ms else ""
+    log(phase, f"AdamW's span {ms:.3f} ms on the device, one adam_fused launch{was}")
 
 
 def profile_prefix_hit(engine, prompts):
@@ -2973,9 +3378,13 @@ def phase_train(smi, cfg, device="cuda", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
     want_wgmma = want_fwd if on_card else 0
     # and every K3 launch the wgmma kernels
     want_bwd_wgmma = want_bwd if on_card else 0
+    # and every AdamW step one adam_fused launch (no unscale: no scaler)
+    want_adam = steps if on_card else 0
     counts_ok = (counts["flash_fwd"] == want_fwd and counts["flash_bwd"] == want_bwd
                  and counts["flash_fwd_wgmma"] == want_wgmma
-                 and counts["flash_bwd_wgmma"] == want_bwd_wgmma)
+                 and counts["flash_bwd_wgmma"] == want_bwd_wgmma
+                 and counts["adam_fused"] == want_adam
+                 and counts["unscale_fused"] == 0)
     moved = [name for name, p in model.named_parameters()
              if not torch.equal(opt.state[p].get("master_weight", p).detach().cpu(),
                                 before[name])]
@@ -2989,7 +3398,8 @@ def phase_train(smi, cfg, device="cuda", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                  f"{fwd_per_step} x {layers} layers x {steps} steps, each on the "
                  f"wgmma path: flash_fwd_wgmma {want_wgmma}; flash_bwd "
                  f"{want_bwd}, each on its wgmma kernels: flash_bwd_wgmma "
-                 f"{want_bwd_wgmma}) -> {'ok' if counts_ok else 'FAIL'}; weights moved "
+                 f"{want_bwd_wgmma}; adam_fused {want_adam} = one per step) -> "
+                 f"{'ok' if counts_ok else 'FAIL'}; weights moved "
                  f"{len(moved)}/{len(before)} -> {'ok' if moved_ok else 'FAIL'}")
     log("train", f"step_ms median of steps 2-{steps} {step_s * 1e3:.1f} (all: "
                  + " ".join(f"{x * 1e3:.1f}" for x in secs)
@@ -3006,6 +3416,7 @@ def phase_train(smi, cfg, device="cuda", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
             lambda: _train_step(model, opt, ids), 1)
         _log_profile(f"training step, batch {batch} x {seq}, {layers} layers",
                      wall_us, kernels, spans, 1, top=12, stats=stats)
+        _log_adamw_span("train", spans, ADAMW_SPAN_WAS.get(("train", layers)))
     return finite and falls and counts_ok and moved_ok, counts
 
 
@@ -3058,6 +3469,163 @@ def grad_check(cfg, device="cuda", batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=1):
                  f"flash_bwd launches kernel pass {k3_kernel}, plain pass "
                  f"{k3_plain} -> {'ok' if ok else 'FAIL'}")
     return ok, ratios[worst]
+
+
+# ---------------------------------------------------------------------------
+# AMP O1 with loss scaling, a schedule and clipping; the other optimizers
+# ---------------------------------------------------------------------------
+
+AMP_LAYERS, AMP_BATCH, AMP_SEQ, AMP_STEPS = 2, 2, 2048, 6
+AMP_INF_STEP = 4  # 1-based: this step's gradients get one inf after backward
+OTHER_OPTIMIZERS = (("SGD", dict(learning_rate=1e-2)),
+                    ("Momentum", dict(learning_rate=1e-3, momentum=0.9)),
+                    ("Adagrad", dict(learning_rate=1e-4)),
+                    ("RMSProp", dict(learning_rate=1e-5, centered=True, momentum=0.5)),
+                    ("Adamax", dict(learning_rate=1e-4)),
+                    ("Lamb", dict(learning_rate=1e-4)))
+
+
+def _amp_state(model, opt):
+    """Every parameter and every piece of optimizer state, cloned."""
+    out = [p.detach().clone() for p in model.parameters()]
+    for st in opt.state.values():
+        out += [t.clone() for t in st.values() if hasattr(t, "clone")]
+    return out
+
+
+def phase_amp(smi, cfg, device="cuda", batch=AMP_BATCH, seq=AMP_SEQ,
+              steps=AMP_STEPS, seed=0):
+    """The reference's O1 recipe: a float32 Llama trained under
+    `auto_cast(level="O1", dtype="bfloat16")` with a dynamic `GradScaler`,
+    `LinearWarmup` into `CosineAnnealingDecay`, `ClipGradByGlobalNorm(1.0)`
+    and AdamW, `steps` steps on one repeated batch; step AMP_INF_STEP's
+    gradients get one inf after backward.  Checks finite losses that fall,
+    that the inf step changes no parameter, moment or power (bit for bit)
+    and halves the scale, that every step ran at its scheduler's rate, and
+    the launches: K1 and K3 once per layer per step on their wgmma paths
+    (the white ops feed attention bf16 q, k, v), adam_fused and
+    unscale_fused once per step.  Then SGD, Momentum, Adagrad, RMSProp,
+    Adamax and Lamb each take two O1 steps of the same model: finite
+    losses, every weight moved, step ms.  Returns (ok, launch counts of
+    the AdamW run)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import amp, optimizer, profiler
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.cuda.reset_peak_memory_stats()
+    model = LlamaForCausalLM(cfg, device=device, dtype="float32", seed=seed).train()
+    lr = optimizer.lr
+    sched = lr.LinearWarmup(lr.CosineAnnealingDecay(AMP_LR, steps), 2, AMP_LR / 10,
+                            AMP_LR)
+    opt = optimizer.AdamW(learning_rate=sched, parameters=model.named_parameters(),
+                          grad_clip=ClipGradByGlobalNorm(1.0),
+                          apply_decay_param_fun=lambda n: "norm" not in n)
+    scaler = amp.GradScaler(init_loss_scaling=2.0 ** 15)
+    layers = cfg.num_hidden_layers
+    rng = np.random.default_rng(seed)
+    ids = torch.from_numpy(
+        rng.integers(1, cfg.vocab_size, size=(batch, seq)).astype(np.int32)).to(device)
+    log("amp", f"Llama {cfg.hidden_size} hidden x {layers} layers, float32 "
+               f"parameters, auto_cast O1 bf16 + GradScaler (dynamic, 2^15) + "
+               f"LinearWarmup(CosineAnnealingDecay) + ClipGradByGlobalNorm(1.0) + "
+               f"AdamW, batch {batch} x {seq}, one inf at step {AMP_INF_STEP}")
+
+    def step(inject):
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            loss, _ = model(ids, labels=ids)
+        scaler.scale(loss).backward()
+        if inject:
+            next(model.parameters()).grad.view(-1)[7] = float("inf")
+        scaler.step(opt)
+        scaler.update()
+        opt.clear_grad()
+        return loss
+
+    # -- the main path ------------------------------------------------------
+    profiler.reset_kernel_launch_counts()
+    losses, secs, rates, scales = [], [], [], []
+    skip_same = False
+    for i in range(1, steps + 1):
+        want_lr = sched()
+        scale_before = float(scaler.get_loss_scaling())
+        before = _amp_state(model, opt) if i == AMP_INF_STEP else None
+        t0 = time.perf_counter()
+        losses.append(step(i == AMP_INF_STEP).item())
+        if on_card:
+            torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        rates.append((want_lr, opt._lr_t.item()))
+        scales.append(float(scaler.get_loss_scaling()))
+        if before is not None:
+            skip_same = (all(torch.equal(a, b) for a, b in
+                             zip(before, _amp_state(model, opt)))
+                         and scaler.last_found_inf
+                         and scales[-1] == scale_before / 2)
+            del before
+        sched.step()
+    counts = profiler.kernel_launch_counts()
+    kept = [x for i, x in enumerate(losses, 1) if i != AMP_INF_STEP]
+    finite = all(np.isfinite(losses))
+    falls = kept[-1] < kept[0]
+    rates_ok = all(np.float32(a) == np.float32(b) for a, b in rates)
+    scale = 1 if on_card else 0
+    want = dict(flash_fwd=layers * steps, flash_fwd_wgmma=layers * steps,
+                flash_bwd=layers * steps, flash_bwd_wgmma=layers * steps,
+                adam_fused=steps, unscale_fused=steps)
+    counts_ok = all(counts[k] == n * scale for k, n in want.items())
+    step_s = statistics.median(secs[1:])
+    log("amp", "losses " + " ".join(f"{x:.4f}" for x in losses)
+               + f": finite {finite}, last < first (the inf step aside) {falls}")
+    log("amp", f"step {AMP_INF_STEP} (one inf): every parameter, moment and power "
+               f"unchanged bit for bit, last_found_inf, scale halved: "
+               f"{skip_same}; scales " + " ".join(f"{x:g}" for x in scales)
+               + f" -> {'ok' if skip_same else 'FAIL'}")
+    log("amp", "rates (scheduler, device scalar): "
+               + " ".join(f"{a:.3e}/{b:.3e}" for a, b in rates)
+               + f" -> {'ok' if rates_ok else 'FAIL'}")
+    log("amp", f"launches {_main(counts)} (expected {want} on the card: K1 and K3 "
+               f"once per layer per step on their wgmma paths, adam_fused and "
+               f"unscale_fused once per step, the inf step too) -> "
+               f"{'ok' if counts_ok else 'FAIL'}")
+    peak = (f"{torch.cuda.max_memory_allocated() / 2**30:.2f}" if on_card
+            else "not measured")
+    log("amp", f"step_ms median of steps 2-{steps} {step_s * 1e3:.1f} (all: "
+               + " ".join(f"{x * 1e3:.1f}" for x in secs)
+               + f"), tokens_per_s {batch * seq / step_s:.1f}, peak_mem_gib {peak} | {smi}")
+    ok = finite and falls and skip_same and rates_ok and counts_ok
+    del opt, scaler
+
+    # -- the other optimizers, two O1 steps each -------------------------------
+    for name, kw in OTHER_OPTIMIZERS:
+        other = getattr(optimizer, name)(parameters=model.named_parameters(), **kw)
+        before = [p.detach().clone() for p in model.parameters()]
+        o_losses, o_secs = [], []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            with amp.auto_cast(level="O1", dtype="bfloat16"):
+                loss, _ = model(ids, labels=ids)
+            loss.backward()
+            other.step()
+            other.clear_grad()
+            o_losses.append(loss.item())
+            o_secs.append(time.perf_counter() - t0)
+        moved = sum(not torch.equal(a, p.detach())
+                    for a, p in zip(before, model.parameters()))
+        good = all(np.isfinite(o_losses)) and moved == len(before)
+        ok &= good
+        log("amp", f"{name} {kw}: losses " + " ".join(f"{x:.4f}" for x in o_losses)
+                   + f", weights moved {moved}/{len(before)}, step_ms "
+                   + " ".join(f"{x * 1e3:.1f}" for x in o_secs)
+                   + f" -> {'ok' if good else 'FAIL'}")
+        del other, before
+    del model
+    return ok, counts
 
 
 # ---------------------------------------------------------------------------
@@ -3147,9 +3715,12 @@ def phase_bert(smi, cfg, device="cuda", batch=BERT_BATCH, seq=BERT_SEQ,
     falls = losses[-1] < losses[0]
     want = layers * steps
     want_card = want if on_card else 0
+    want_adam = steps if on_card else 0
     counts_ok = (all(counts[f"flash_{k}"] == want_card
                      for k in ("fwd", "fwd_wgmma", "fwd_masked", "bwd",
                                "bwd_wgmma", "bwd_masked"))
+                 and counts["adam_fused"] == want_adam
+                 and counts["unscale_fused"] == 0
                  and not any(fallbacks.values()))
     step_s = statistics.median(secs[1:])
     peak = (f"{torch.cuda.max_memory_allocated() / 2**30:.2f}" if on_card
@@ -3159,7 +3730,8 @@ def phase_bert(smi, cfg, device="cuda", batch=BERT_BATCH, seq=BERT_SEQ,
     log("bert", f"launches {_main(counts)}, fallbacks {fallbacks} (expected "
                 f"flash_fwd and flash_bwd {want_card} = {layers} layers x {steps} "
                 f"steps on the card, each on the wgmma path with segment ids: "
-                f"_wgmma and _masked {want_card}; no fallback) -> "
+                f"_wgmma and _masked {want_card}; adam_fused {want_adam} = one per "
+                f"step; no fallback) -> "
                 f"{'ok' if counts_ok else 'FAIL'}")
     log("bert", f"step_ms median of steps 2-{steps} {step_s * 1e3:.1f} (all: "
                 + " ".join(f"{x * 1e3:.1f}" for x in secs)
@@ -3175,6 +3747,7 @@ def phase_bert(smi, cfg, device="cuda", batch=BERT_BATCH, seq=BERT_SEQ,
             lambda: _bert_step(model, opt, inputs), 1)
         _log_profile(f"BERT training step, batch {batch} x {seq}, {layers} layers",
                      wall_us, kernels, spans, 1, top=12, stats=stats)
+        _log_adamw_span("bert", spans, ADAMW_SPAN_WAS.get(("bert", layers)))
     ok = finite and falls and counts_ok
     ok &= _bert_kbias_check(model, cfg, inputs, on_card)
     return ok, counts
@@ -3371,7 +3944,7 @@ def phase_ring(smi, S=RING_SEQ, h=RING_HEADS, d=128, R=RING_R, seed=50,
     try:
         for form, causal, fn, budget in ways:
             ra._GATHERED_KV_MAX_BYTES = saved[1] if budget is None else budget
-            fa.reset_launch_counts()
+            profiler.reset_kernel_launch_counts()
             ra.reset_form_counts()
             out, grads = step(fn)  # the main path's run
             if on_card:
@@ -3467,6 +4040,7 @@ def phase_longcontext(smi, cfg, R, seq, steps, form, device="cuda", seed=0,
         counts = profiler.kernel_launch_counts()
         forms = dict(ra.form_counts)
         want = _ring_launches(form, R, calls=layers * steps)
+        want["adam_fused"] = steps  # one launch per AdamW step
         counts_ok = (_launches_ok(counts, want, on_card)
                      and forms == dict(dict.fromkeys(ra.FORMS, 0),
                                        **{form: layers * steps}))
@@ -3489,6 +4063,7 @@ def phase_longcontext(smi, cfg, R, seq, steps, form, device="cuda", seed=0,
             _log_profile(f"long-context training step, {seq} tokens over R {R}, "
                          f"{layers} layers", wall_us, kernels, spans, 1, top=12,
                          stats=stats)
+            _log_adamw_span(phase, spans, ADAMW_SPAN_WAS.get(("longcontext", layers)))
     finally:
         mesh.set_mesh(saved)
     return finite and falls and counts_ok, counts
@@ -3633,6 +4208,9 @@ def main():
         grad_ok, _ = _timed("grads", grad_check,
                             LlamaConfig.llama2_7b(num_hidden_layers=2))
         _free()
+        amp_ok, amp_counts = _timed("amp", phase_amp, smi, LlamaConfig.llama2_7b(
+            num_hidden_layers=AMP_LAYERS))
+        _free()
         from paddle_tpu_torch.models.bert import BertConfig
 
         no_dropout = dict(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
@@ -3663,16 +4241,20 @@ def main():
         return 1
     if not (kernels_ok and slice_ok and prefix_ok and gen_ok and dense_ok
             and cp_ok and f32_ok and train_ok and recompute_ok and grad_ok
-            and bert_ok and bert_grad_ok and ring_ok and lc_ok and lc2_ok
-            and lc_grad_ok):
+            and amp_ok and bert_ok and bert_grad_ok and ring_ok and lc_ok
+            and lc2_ok and lc_grad_ok):
         print("chip_smoke: a phase failed (see the lines above)", file=sys.stderr)
         return 1
     # launches: the serving, generation and training runs' counts, each read
     # just after its path ran
     runs = [counts, *prefix_counts, gen_counts, dense_counts, *cp_counts,
-            *f32_counts, train_counts, bert_counts, *ring_counts, lc_counts,
-            lc2_counts]
+            *f32_counts, train_counts, amp_counts, bert_counts, *ring_counts,
+            lc_counts, lc2_counts]
     launches = {name: sum(c.get(name, 0) for c in runs) for name in kernels}
+    # adam_fused at BERT's parameters: the bert phase's launches; the other
+    # entry the Llama runs' (train, amp, longcontext)
+    launches["adam_fused_bert"] = bert_counts["adam_fused"]
+    launches["adam_fused"] -= bert_counts["adam_fused"]
     # K5's two variants are one kernel of the record, on each path
     for path in ("", "_mma", "_walk"):
         launches["paged_decode_fused_cp" + path] += sum(
@@ -3718,9 +4300,18 @@ def main():
         ("paged_decode_fused_cp_walk", "paged_decode.cu", 1172),
         ("paged_decode_fused_cp_mma", "paged_decode.cu", 1172),
     )
+    # the optimizer's kernels replace XLA fusions of the reference's step;
+    # `adam_fused_bert` is adam_fused timed at BERT-base's parameters, with
+    # the bert phase's launches
+    entries += (
+        ("adam_fused", "optim.cu", "paddle_tpu/optimizer/__init__.py:376"),
+        ("adam_fused_bert", "optim.cu", "paddle_tpu/optimizer/__init__.py:376"),
+        ("unscale_fused", "optim.cu", "paddle_tpu/amp/__init__.py:228"),
+    )
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": f"paddle_tpu_torch/csrc/{src}",
-         "replaces": f"paddle_tpu/ops/flash_attention.py:{line}",
+         "replaces": (line if isinstance(line, str)
+                      else f"paddle_tpu/ops/flash_attention.py:{line}"),
          "launches": launches[name], **kernels[name]}
         for name, src, line in entries
     ]}

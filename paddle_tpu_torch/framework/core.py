@@ -9,6 +9,7 @@ packages.
 from __future__ import annotations
 
 import os
+import threading
 
 import torch
 
@@ -74,6 +75,55 @@ def resolve_device(device):
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     return device
+
+
+# ---------------------------------------------------------------------------
+# AMP (dispatch-level casting under `amp.auto_cast`)
+# ---------------------------------------------------------------------------
+
+
+class AmpState:
+    """One `amp.auto_cast` context: the AMP dtype and the op names it casts
+    (the reference's AmpState).  A white op's float inputs of another float
+    dtype go to `dtype`; a black op's bf16 and fp16 inputs go to float32
+    (reference `ops/dispatch.py` `amp_cast_inputs`)."""
+
+    def __init__(self, dtype, white, black):
+        self.dtype = dtype
+        self.white = frozenset(white)
+        self.black = frozenset(black)
+
+    def cast(self, op, t):
+        """`t` as op `op` takes it under this state."""
+        if not isinstance(t, torch.Tensor) or not t.is_floating_point():
+            return t
+        if op in self.white and t.dtype != self.dtype:
+            return t.to(self.dtype)
+        if op in self.black and t.dtype in (torch.bfloat16, torch.float16):
+            return t.float()
+        return t
+
+
+_amp_local = threading.local()
+
+
+def active_amp():
+    """The innermost `amp.auto_cast` state of this thread, or None."""
+    return getattr(_amp_local, "state", None)
+
+
+def set_active_amp(state):
+    """Make `state` (an AmpState or None) active; returns the previous one."""
+    old = active_amp()
+    _amp_local.state = state
+    return old
+
+
+def amp_cast(op, t):
+    """`t` cast for op `op` under the active auto_cast (unchanged without
+    one): the call-site cast of the port's own ops (`nn.functional`)."""
+    state = active_amp()
+    return t if state is None else state.cast(op, t)
 
 
 # ---------------------------------------------------------------------------

@@ -5,7 +5,8 @@ transformer layers use them.
 The reference's AMP casts at dispatch (white-list ops take the AMP dtype,
 black-list ops float32); the port makes those casts here, where they land:
 `layer_norm` takes its statistics in float32 and returns the activation
-dtype, `cross_entropy` works on float32 logits.
+dtype (under `amp.auto_cast` its bf16 / fp16 inputs go to float32 first),
+`cross_entropy` works on float32 logits.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import numbers
 import torch
 from torch.nn import functional as F
 
+from ..framework.core import amp_cast
 from ..ops.flash_attention import NEG_INF, sdpa
 
 
@@ -33,6 +35,8 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
     if isinstance(normalized_shape, numbers.Integral):
         normalized_shape = (int(normalized_shape),)
     dims = tuple(range(-len(tuple(normalized_shape)), 0))
+    # a black op under amp.auto_cast: bf16 / fp16 inputs in float32
+    x, weight, bias = (amp_cast("layer_norm", t) for t in (x, weight, bias))
     x32 = x.float()
     mean = x32.mean(dim=dims, keepdim=True)
     var = x32.var(dim=dims, unbiased=False, keepdim=True)

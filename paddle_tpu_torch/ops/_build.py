@@ -73,6 +73,11 @@ SIGNATURES = {
     "ptt_paged_decode_cp_q8": ([_P] * 10 + [_I] * 12 + [_F, _I, _P], _I),
     # q, k, v, out, pos, b, sq, h, hk, d, L, scale, dtype, path, stream
     "ptt_dense_decode": ([_P] * 5 + [_I] * 6 + [_F, _I, _I, _P], _I),
+    # tensors, chunks, n_tensors, n_chunks, chunk_size, lr, b1, b2, 1 - b1,
+    # 1 - b2, eps, found_inf, stream
+    "ptt_adam_multi": ([_P, _P, _I, _I, _I, _P] + [_F] * 5 + [_P, _P], _I),
+    # tensors, chunks, n_chunks, chunk_size, scale, found_inf, stream
+    "ptt_unscale_multi": ([_P, _P, _I, _I, _P, _P, _P], _I),
     "ptt_error_string": ([_I], ctypes.c_char_p),
 }
 

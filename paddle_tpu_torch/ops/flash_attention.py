@@ -132,12 +132,26 @@ def reset_launch_counts():
     reset_fallback_counts()
 
 
+# the ROADMAP.md Queue 1 item that brings float16 to the kernels
+FP16_ITEM = "fp16 operands of K1-K6"
+
+
 def _dtype_code(t, what):
+    """The kernels' dtype code of t.  float16 runs the plain versions on the
+    CPU (code None, never passed to a kernel) and raises on CUDA: the
+    tensor-core paths are written for bf16."""
+    if t.dtype == torch.float16:
+        if t.device.type == "cuda":
+            raise NotImplementedError(
+                f"{what}: float16 operands on the card are not ported yet "
+                f"(ROADMAP.md Queue 1, {FP16_ITEM}); use bfloat16 or float32")
+        return None
     try:
         return _DTYPE_CODES[t.dtype]
     except KeyError:
         raise TypeError(
-            f"{what}: dtype {t.dtype} not supported (float32 or bfloat16)"
+            f"{what}: dtype {t.dtype} not supported (float32 or bfloat16; "
+            "float16 on the CPU)"
         ) from None
 
 

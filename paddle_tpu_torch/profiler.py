@@ -12,7 +12,8 @@ tokens emitted; `mesh_summary()` the serving engine's parallel layout;
 joins of a live keyed request (`idem_joins`).
 `kernel_launch_counts()` reads every hand-written kernel's launches
 (`flash_fwd`, `paged_decode_fused`, `paged_decode_fused_q8`, `flash_bwd`,
-`dense_decode`, `paged_decode_fused_cp`, `paged_decode_fused_cp_q8`);
+`dense_decode`, `paged_decode_fused_cp`, `paged_decode_fused_cp_q8`, and
+the optimizer's `adam_fused` and `unscale_fused`);
 `summary()` holds them all.
 """
 
@@ -22,6 +23,7 @@ import threading
 import time
 
 from .ops import flash_attention as _fa
+from .ops import optim as _optim
 
 _TTFT_KEEP = 10000  # bound the percentile buffer; serving runs are long
 
@@ -304,11 +306,12 @@ def router_summary():
 
 def kernel_launch_counts():
     """Launches of each hand-written kernel since the last reset."""
-    return dict(_fa.launch_counts)
+    return {**_fa.launch_counts, **_optim.launch_counts}
 
 
 def reset_kernel_launch_counts():
     _fa.reset_launch_counts()
+    _optim.reset_launch_counts()
 
 
 def summary():
