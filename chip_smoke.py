@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Fourteen phases; a failure in any of them exits non-zero and prints no
+Fifteen phases; a failure in any of them exits non-zero and prints no
 result.
 
 1. device  -- requires CUDA; prints the card's name and power limit.
@@ -87,7 +87,27 @@ result.
               decode step, no other kernel, logits against the
               teacher-forced forward, decode tokens/s, TTFT and the graph
               pool beside the paged slice's, a profiled decode step.
-9. cp      -- the same model behind long-document engines (slots 4, the
+9. fault   -- the serving fault domain on the same model behind a warmed
+              paged engine (prefix cache off, so every pass prefills
+              afresh): the slice's six requests unfaulted over POST
+              /generate under `serve(supervise=True)` with the watchdog
+              armed (K1 and K2 counted; decode tokens/s and a profiled
+              decode step beside PR 12's), then drills under
+              `EngineSupervisor`, each checked against the unfaulted
+              pass's tokens bit for bit: a 512-token request evicted at its
+              deadline (DeadlineExceeded, its slot to the queued request;
+              the lag from deadline to resolve), a cancelled queued and
+              slotted request, a prefill hang ended by the watchdog (one
+              warm restart, no new trace, no replay of the woken thread;
+              the ms from the trip to the first token after it), a NaN
+              poisoned slot (one NonFiniteLogits), a crashed scheduler
+              loop, the restart budget spent (fail_all: every request
+              EngineRestarted), a deadline under the drain estimate
+              (DeadlineUnattainable), and `server.drain()` with POSTs in
+              flight (they finish; a new one answers 503 with Retry-After;
+              /healthz reads draining); every request resolves exactly
+              once.
+10. cp     -- the same model behind long-document engines (slots 4, the
               4096-token context): questions about one 3000-token document
               share its pages through the prefix cache, beside two fresh
               prompts, over HTTP; at cp=1, then cp=2 (the page audit every
@@ -99,7 +119,7 @@ result.
               logits against the teacher-forced forward; prints the greedy
               agreement between runs, speculation counters, decode
               tokens/s and TTFT, and a profiled cp=2 decode step.
-10. train  -- trains Llama-2-7B's widths at 8 layers (bf16 AMP O2, AdamW with
+11. train  -- trains Llama-2-7B's widths at 8 layers (bf16 AMP O2, AdamW with
               float32 master weights) for 6 steps on one repeated batch of
               4 x 2048 tokens: finite and falling losses, K1 (on its wgmma
               path) and K3 launched once per layer per step, adam_fused
@@ -107,10 +127,10 @@ result.
               tokens/s, peak memory and a profiled step with AdamW's span.
               Then 2 steps of 2 layers with activation recompute (K1 twice
               per layer per step).
-11. grads  -- one step's gradients of a 2-layer model at the same widths
+12. grads  -- one step's gradients of a 2-layer model at the same widths
               with the kernels against the same step with attention through
               the plain forward under autograd.
-12. amp    -- the reference's O1 recipe on Llama-2-7B's widths at 2 layers,
+13. amp    -- the reference's O1 recipe on Llama-2-7B's widths at 2 layers,
               float32 parameters, batch 2 x 2048: auto_cast O1 bf16, a
               dynamic GradScaler, LinearWarmup into CosineAnnealingDecay,
               ClipGradByGlobalNorm(1.0) and AdamW for 6 steps, step 4's
@@ -121,7 +141,7 @@ result.
               adam_fused and unscale_fused once per step.  Then SGD,
               Momentum, Adagrad, RMSProp, Adamax and Lamb two steps each:
               finite, every weight moved, step ms.
-13. bert   -- bench_bert's BERT-base SQuAD fine-tuning (bf16 O2, AdamW at
+14. bert   -- bench_bert's BERT-base SQuAD fine-tuning (bf16 O2, AdamW at
               3e-5, dropout 0) for 6 steps on one batch of 32 x 384 tokens
               padded from lengths 192-384: finite and falling losses, K1 and
               K3 launched once per layer per step on their wgmma paths with
@@ -131,7 +151,7 @@ result.
               as a key-padding attn_mask (K1's key bias) against segment ids
               on the valid rows; then a 2-layer model's gradients with the
               kernels against attention through the plain forward.
-14. longcontext -- long-context training through the Llama's
+15. longcontext -- long-context training through the Llama's
               `context_parallel_degree` on a sep mesh (ring attention, every
               rank on the card): Llama-2-7B's widths at 4 layers, one
               sequence of 32768 tokens over R = 8 (K/V 512 MiB a layer: the
@@ -146,14 +166,14 @@ result.
               one step's gradients of 2 layers at 32768 tokens over R = 8
               against context_parallel_degree 1 (full-sequence K1/K3).
 
-Every serving phase (slice, prefix, dense, cp, cp_f32) runs on the
+Every serving phase (slice, prefix, dense, fault, cp, cp_f32) runs on the
 engine's CUDA graphs: it prints `compile_counts()` after warmup and again
 after its traffic and fails if they differ (0 new traces under traffic),
 prints the host fetches per decode step and decode tokens/s over the
-decode window's wall clock, and (cp_f32 aside) holds one replay of each
+decode window's wall clock, and holds one replay of each
 step that an admission ran -- fresh prefill, chunk prefill, decode or
 verify -- against an eager run of the same body on the same static
-inputs, bit for bit.  The profiled steps print the host's time until the
+inputs, bit for bit (cp_f32 and fault aside).  The profiled steps print the host's time until the
 last step returned and the kernels per step beside wall, busy and idle.
 
 Every phase prints its wall time.  The line before the last is the
@@ -170,6 +190,7 @@ import sys
 import threading
 import time
 import traceback
+import urllib.error
 import urllib.request
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -233,6 +254,20 @@ PREDICTOR_LENS = [70, 100, 130]
 GEN_TOKENS_PER_S_WAS = 86.03
 DENSE_TOKENS_PER_S_WAS = 80.55
 DENSE_GRAPH_POOL_MIB_WAS = 602
+# the slice's profiled paged decode step (8 slots at ~256 tokens) and its
+# decode tokens/s in PR 12's final run (NVIDIA H100 80GB HBM3, 700 W): the
+# fault phase prints its own beside them
+SLICE_DECODE_STEP_MS_WAS = 11.919
+SLICE_DECODE_TPS_WAS = 428.43
+
+# the fault phase's drills: the watchdog deadline of every armed region,
+# how long the injected prefill hang blocks (past the deadline, so the
+# watchdog ends it and the hung thread wakes after the restart), the
+# deadline of the request evicted mid-flight, and its new tokens
+FAULT_STEP_TIMEOUT_S = 2.0
+FAULT_HANG_S = 5.0
+FAULT_EVICT_DEADLINE_S = 0.3
+FAULT_EVICT_NEW = 512
 
 # the cp phase: questions about one 3000-token document (23 full 128-row
 # pages and a 56-row tail) share its pages through the prefix cache; the
@@ -2142,6 +2177,15 @@ def _post_full(url, body, headers=None):
         return e.code, e.headers, json.loads(e.read())
 
 
+def _get_full(url):
+    """GET and return (HTTP status, JSON body), error statuses included."""
+    try:
+        with urllib.request.urlopen(url, timeout=600) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
 def check_http_fields(phase, engine, prompt, new_tokens=8):
     """The request fields of /generate beyond the generation's own, over
     HTTP on `engine`: one request with `X-Idempotency-Key` posted twice
@@ -3150,6 +3194,385 @@ def phase_dense(smi, model, paged_summary, device="cuda", prompts_spec=SLICE_PRO
         .astype(np.int32)])
     if on_card:
         profile_decode(engine, cfg, rng)
+    return ok, counts
+
+
+class _FaultRun:
+    """Bookkeeping of the fault phase over one engine: every landing
+    (slot, request) and every terminal transition, counted per request by
+    wrapping the engine's `_land_locked` and `_resolve`."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.landed = []  # (slot, request id)
+        self.resolved = {}  # request id -> terminal transitions
+        land, resolve = engine._land_locked, engine._resolve
+
+        def land_spy(s, req, tok, logits):
+            self.landed.append((s, req.id))
+            return land(s, req, tok, logits)
+
+        def resolve_spy(req, reason):
+            if not req.finished.is_set():
+                self.resolved[req.id] = self.resolved.get(req.id, 0) + 1
+            return resolve(req, reason)
+
+        engine._land_locked, engine._resolve = land_spy, resolve_spy
+        self.reqs = []
+
+    def submit(self, prompt, new, **kw):
+        r = self.engine.submit(prompt, max_new_tokens=new, **kw)
+        self.reqs.append(r)
+        return r
+
+    def finish(self, reqs, timeout=300):
+        """Wait for `reqs` (bounded); {request: tokens or the error}."""
+        out = {}
+        for r in reqs:
+            try:
+                out[r] = r.wait(timeout)[r.prompt.size:]
+            except Exception as e:  # a typed fault, checked by the caller
+                out[r] = e
+        return out
+
+    def exactly_once(self):
+        return (all(self.resolved.get(r.id) == 1 for r in self.reqs)
+                and all(r.finished.is_set() for r in self.reqs))
+
+
+def _first_token_times(reqs):
+    """on_token callbacks stamping each request's first token (monotonic
+    clock) into a dict by request index."""
+    first = {}
+
+    def stamp(i):
+        def on_token(tok):
+            first.setdefault(i, time.monotonic())
+        return on_token
+
+    return first, [stamp(i) for i in range(len(reqs))]
+
+
+def phase_fault(smi, model, device="cuda", prompts_spec=SLICE_PROMPTS,
+                step_timeout=FAULT_STEP_TIMEOUT_S, hang_s=FAULT_HANG_S,
+                evict_deadline=FAULT_EVICT_DEADLINE_S, evict_new=FAULT_EVICT_NEW,
+                **engine_kw):
+    """The serving fault domain on `model` (the slice's, full width) behind
+    a warmed paged engine with the prefix cache off (every pass prefills
+    afresh, so a pass's greedy tokens are the unfaulted pass's bit for
+    bit):
+
+    0. the unfaulted pass: the slice's six requests over POST /generate
+       under `serve(supervise=True)` with the watchdog armed (the main
+       path: K1 per prefill, K2 per decode step, counted), its decode
+       tokens/s, then a profiled decode step;
+    1. deadline eviction: a request of `evict_new` tokens with a deadline
+       of `evict_deadline` s beside the six and a filler ends in
+       DeadlineExceeded with tokens done, a queued request takes its slot,
+       the six keep their tokens; the lag from deadline to resolve;
+    2. cancel: a queued request and a slotted one;
+    3. prefill hang under EngineSupervisor: one restart, the six keep their
+       tokens, no new trace; the hung thread wakes after the restart and
+       no replay of it lands (replay and launch counts unchanged); the ms
+       from the watchdog's trip to the first token after the restart;
+    4. NaN poison: exactly one request NonFiniteLogits, the others keep
+       their tokens, the poison input all-False again on the card;
+    5. loop crash: the supervisor restarts the thread;
+    6. the restart budget: past it, fail_all resolves every request as
+       EngineRestarted (then the engine is restored);
+    7. an unattainable deadline: DeadlineUnattainable with retry_after_s;
+    8. HTTP drain: in-flight POSTs finish, a new POST answers 503 with
+       Retry-After, /healthz reads draining.
+
+    Every request of the phase resolves exactly once.  Returns (all
+    checks passed, launch counts of the unfaulted pass)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.fault import EngineSupervisor, injection as finj
+    from paddle_tpu_torch.framework import core as fcore
+    from paddle_tpu_torch.inference import serve
+    from paddle_tpu_torch.inference.engine import (
+        ContinuousBatchingEngine,
+        DeadlineExceeded,
+        DeadlineUnattainable,
+        EngineRestarted,
+        NonFiniteLogits,
+        RequestCancelled,
+    )
+
+    cfg = model.config
+    layers = cfg.num_hidden_layers
+    on_card = torch.device(device).type == "cuda"
+    t0 = time.perf_counter()
+    engine = ContinuousBatchingEngine(model, seed=0, device=device,
+                                      prefix_cache=False, **engine_kw)
+    engine.warmup()
+    warm = _warm_counts("fault", engine)
+    log("fault", f"engine built + warmed in {time.perf_counter() - t0:.1f} s "
+                 f"(prefix cache off)")
+    rng = np.random.default_rng(0)  # the slice's prompts
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32)
+               for n, _ in prompts_spec]
+    news = [new for _, new in prompts_spec]
+    fcore.set_flags({"FLAGS_serve_step_timeout_sec": step_timeout,
+                     "FLAGS_fault_hang_sec": hang_s})
+    run = _FaultRun(engine)
+    ok = True
+
+    def check(what, cond, detail=""):
+        nonlocal ok
+        ok &= bool(cond)
+        log("fault", f"{what}: {detail} -> {'ok' if cond else 'FAIL'}")
+
+    def same(outs, reqs):
+        return all(isinstance(outs[r], np.ndarray) and np.array_equal(outs[r], b)
+                   for r, b in zip(reqs, base))
+
+    def extra(n, new, seed):
+        """A prompt of n tokens (at most a quarter of the context) and its
+        new tokens (at most half)."""
+        n, new = min(n, engine.max_len // 4), min(new, engine.max_len // 2)
+        return np.random.default_rng(seed).integers(
+            1, cfg.vocab_size, size=n).astype(np.int32), new
+
+    try:
+        # -- 0. the unfaulted pass over HTTP: the main path -------------------
+        profiler.reset_kernel_launch_counts()
+        profiler.reset_serving()
+        replays = engine._decode_g.replay_count
+        server = serve(engine, port=0, block=False, supervise=True,
+                       handle_signals=False)
+        url = f"http://127.0.0.1:{server.server_address[1]}/generate"
+        got = [None] * len(prompts)
+
+        def client(i):
+            got[i] = _post(url, {"input_ids": prompts[i].tolist(),
+                                 "max_new_tokens": news[i]})
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(prompts))]
+        try:
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(600)
+        finally:
+            server.stop()
+        counts = profiler.kernel_launch_counts()
+        decode_steps = engine._decode_g.replay_count - replays
+        summary = profiler.serving_summary()
+        base = [np.asarray(g["tokens"][p.size:], np.int32) if g else None
+                for g, p in zip(got, prompts)]
+        tokens_ok = all(b is not None and b.size == n
+                        for b, n in zip(base, news))
+        want_k1 = len(prompts) * layers if on_card else 0
+        want_k2 = decode_steps * layers if on_card else 0
+        counts_ok = (counts["flash_fwd"] == want_k1 and decode_steps > 0
+                     and counts["paged_decode_fused"] == want_k2)
+        check("unfaulted pass over POST /generate", tokens_ok and counts_ok,
+              f"token counts {'ok' if tokens_ok else 'WRONG'}, launches "
+              f"{_main(counts)} (expected flash_fwd {want_k1}, "
+              f"paged_decode_fused {want_k2} = {decode_steps} decode steps x "
+              f"{layers} layers)")
+        tps, _ = _decode_rates(summary)
+        step_ms = summary["decode_window_s"] / max(1, summary["decode_steps"]) * 1e3
+        log("fault", f"decode_tokens_per_s {tps:.2f} (PR 12's slice: "
+                     f"{SLICE_DECODE_TPS_WAS}); decode window per step "
+                     f"{step_ms:.3f} ms; EWMA step time from the flushes "
+                     f"{(engine._step_ewma_s or 0) * 1e3:.3f} ms (the dispatch "
+                     f"time per step {summary['decode_busy_s'] / max(1, summary['decode_steps']) * 1e3:.3f} ms); "
+                     f"the watchdog armed at {step_timeout} s, under "
+                     f"EngineSupervisor | {smi}")
+        if on_card:
+            log("fault", f"profiled decode step below (PR 12's slice: wall "
+                         f"{SLICE_DECODE_STEP_MS_WAS} ms)")
+            profile_decode(engine, cfg, rng)
+        ok &= _no_retrace("fault", engine, warm)
+
+        engine.start()
+        sup = EngineSupervisor(engine, poll_interval=0.02, max_restarts=8,
+                               backoff=0.0).start()
+
+        # -- 1. deadline eviction at step granularity -------------------------
+        victim = run.submit(*extra(100, evict_new, 101),
+                            deadline_s=evict_deadline)
+        reqs = [run.submit(p, n) for p, n in zip(prompts, news)]
+        filler = run.submit(*extra(60, 64, 102))
+        queued = run.submit(*extra(90, 32, 103))
+        outs = run.finish([victim, *reqs, filler, queued])
+        err = outs[victim]
+        v_slot = [s for s, rid in run.landed if rid == victim.id]
+        took = [s for s, rid in run.landed if rid == queued.id]
+        evicted = (isinstance(err, DeadlineExceeded) and err.tokens_done > 0
+                   and victim.finish_reason == "timeout")
+        check("deadline eviction", evicted and same(outs, reqs)
+              and v_slot == took and isinstance(outs[queued], np.ndarray),
+              f"{type(err).__name__} tokens_done "
+              f"{getattr(err, 'tokens_done', None)} of {victim.max_new_tokens}, the queued "
+              f"request took slot {took} (the victim's {v_slot}), co-batched "
+              f"tokens equal the unfaulted pass's: {same(outs, reqs)}")
+        lag = (victim._finish_t - victim._deadline_t) * 1e3
+        log("fault", f"eviction lag from deadline to resolve {lag:.3f} ms | {smi}")
+
+        # -- 2. cancel: a queued request and a slotted one --------------------
+        first, stamps = _first_token_times([0])
+        slotted = run.submit(*extra(70, 512, 104), on_token=stamps[0])
+        reqs = [run.submit(p, n) for p, n in zip(prompts, news)]
+        fill = run.submit(*extra(50, 64, 105))
+        waiting = run.submit(*extra(40, 16, 106)).cancel()
+        t_end = time.monotonic() + 120
+        while len(slotted.tokens) < 2 and time.monotonic() < t_end:
+            time.sleep(0.002)
+        slotted.cancel()
+        outs = run.finish([slotted, waiting, *reqs, fill])
+        e_s, e_w = outs[slotted], outs[waiting]
+        check("cancel", isinstance(e_s, RequestCancelled) and e_s.tokens_done >= 2
+              and isinstance(e_w, RequestCancelled) and e_w.tokens_done == 0
+              and waiting.id not in [rid for _, rid in run.landed]
+              and same(outs, reqs),
+              f"slotted: {type(e_s).__name__} tokens_done "
+              f"{getattr(e_s, 'tokens_done', None)}; queued: {type(e_w).__name__} "
+              f"tokens_done {getattr(e_w, 'tokens_done', None)}, never landed; "
+              f"co-batched tokens equal: {same(outs, reqs)}")
+
+        # -- 3. prefill hang -> watchdog -> one warm restart ------------------
+        restarts = engine.restart_count
+        hung_thread = engine._thread
+        finj.arm("serve.prefill.hang:1")
+        first, stamps = _first_token_times(prompts)
+        reqs = [run.submit(p, n, on_token=f)
+                for p, n, f in zip(prompts, news, stamps)]
+        outs = run.finish(reqs)
+        graphs = engine.step_graphs().values()
+        replayed = sum(g.replay_count for g in graphs)
+        launched = profiler.kernel_launch_counts()
+        hung_thread.join(hang_s + 30)  # wakes, meets the fence, ends
+        fenced = (not hung_thread.is_alive()
+                  and sum(g.replay_count for g in graphs) == replayed
+                  and profiler.kernel_launch_counts() == launched)
+        events = finj.recent_events()
+        trip = [e["t"] for e in events if e["kind"] == "watchdog"]
+        restart_t = [e["t"] for e in events if e["kind"] == "engine"
+                     and "restart #" in e["detail"]]
+        after = [t for t in first.values() if restart_t and t > restart_t[-1]]
+        traced = engine.compile_counts() == warm
+        check("prefill hang", engine.restart_count == restarts + 1
+              and same(outs, reqs) and traced and fenced,
+              f"restarts {engine.restart_count - restarts} (expected 1), tokens "
+              f"equal the unfaulted pass's: {same(outs, reqs)}, compile_counts "
+              f"unchanged: {traced}, the hung thread ended without a replay "
+              f"(replays {replayed}, launches unchanged): {fenced}")
+        if trip and after:
+            log("fault", f"restart latency from the watchdog's trip to the first "
+                         f"token after the restart {(min(after) - trip[-1]) * 1e3:.3f} "
+                         f"ms (trip at {step_timeout} s into the hang) | {smi}")
+        else:
+            check("restart latency", False, "no trip or no token after the restart")
+
+        # -- 4. NaN poison of one slot ----------------------------------------
+        finj.arm("serve.decode.nan:1")
+        reqs = [run.submit(p, n) for p, n in zip(prompts, news)]
+        outs = run.finish(reqs)
+        bad = [r for r in reqs if isinstance(outs[r], NonFiniteLogits)]
+        rest = [(r, b) for r, b in zip(reqs, base) if r not in bad]
+        kept = all(isinstance(outs[r], np.ndarray) and np.array_equal(outs[r], b)
+                   for r, b in rest)
+        reset = not bool(engine._decode_g.inputs(None)["poison"].any())
+        check("NaN poison", len(bad) == 1 and kept and reset,
+              f"{len(bad)} request NonFiniteLogits (expected 1), the other "
+              f"{len(rest)} equal the unfaulted pass's: {kept}, poison input "
+              f"all-False after the step: {reset}")
+
+        # -- 5. loop crash -> the supervisor restarts the thread -------------
+        restarts = engine.restart_count
+        finj.arm("serve.loop.crash:1")
+        reqs = [run.submit(p, n) for p, n in zip(prompts, news)]
+        outs = run.finish(reqs)
+        check("loop crash", engine.restart_count == restarts + 1
+              and same(outs, reqs),
+              f"restarts {engine.restart_count - restarts} (expected 1), tokens "
+              f"equal: {same(outs, reqs)}")
+        sup.stop()
+
+        # -- 6. the restart budget, then fail_all ----------------------------
+        budget = EngineSupervisor(engine, poll_interval=0.02, max_restarts=1,
+                                  backoff=0.0)
+        restarts = engine.restart_count
+        finj.arm("serve.loop.crash:*")
+        budget.start()
+        reqs = [run.submit(p, n) for p, n in zip(prompts, news)]
+        outs = run.finish(reqs)
+        budget.stop()
+        finj.disarm()
+        failed = all(isinstance(outs[r], EngineRestarted)
+                     and r.finish_reason == "restarted" for r in reqs)
+        check("restart budget", budget.dead and failed
+              and engine.restart_count == restarts + 1
+              and engine.healthz()["status"] == "dead",
+              f"supervisor dead {budget.dead} after {engine.restart_count - restarts} "
+              f"restart, every request EngineRestarted: {failed}")
+        engine._dead = False  # restore the engine for the checks below
+        engine.start()
+
+        # -- 7. a deadline below the drain estimate --------------------------
+        reqs = [run.submit(p, n) for p, n in zip(prompts, news)]
+        est = engine.estimate_drain_s()
+        try:
+            engine.submit(prompts[0], max_new_tokens=8, deadline_s=est / 2)
+            refused = None
+        except DeadlineUnattainable as e:
+            refused = e
+        outs = run.finish(reqs)
+        check("unattainable deadline", refused is not None and est > 0
+              and refused.retry_after_s > est / 2 and same(outs, reqs),
+              f"deadline {est / 2:.4f} s under the estimate {est:.4f} s: "
+              f"{type(refused).__name__} retry_after_s "
+              f"{getattr(refused, 'retry_after_s', None)}")
+        engine.stop()
+
+        # -- 8. HTTP drain ----------------------------------------------------
+        server = serve(engine, port=0, block=False, supervise=True,
+                       handle_signals=False)
+        port = server.server_address[1]
+        url = f"http://127.0.0.1:{port}/generate"
+        got = [None] * len(prompts)
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(prompts))]
+        try:
+            for t in threads:
+                t.start()
+            t_end = time.monotonic() + 120
+            while engine.active_slots < len(prompts) and time.monotonic() < t_end:
+                time.sleep(0.002)
+            drain = server.drain(grace=300)
+            shed = _post_full(url, {"input_ids": prompts[0].tolist(),
+                                    "max_new_tokens": 4})
+            health = _get_full(f"http://127.0.0.1:{port}/healthz")
+            for t in threads:
+                t.join(600)
+            drain.join(600)
+        finally:
+            server.stop()
+        finished = all(g is not None and np.array_equal(
+            np.asarray(g["tokens"][p.size:], np.int32), b)
+            for g, p, b in zip(got, prompts, base))
+        check("HTTP drain", finished and shed[0] == 503
+              and shed[1].get("Retry-After") is not None
+              and health[0] == 503 and health[1]["status"] == "draining",
+              f"in-flight POSTs finished with the unfaulted tokens: {finished}; "
+              f"a new POST answered {shed[0]} {shed[2].get('type')} Retry-After "
+              f"{shed[1].get('Retry-After')}; /healthz {health[0]} "
+              f"{health[1].get('status')}")
+        check("exactly once", run.exactly_once(),
+              f"{len(run.reqs)} requests, each resolved once")
+        ok &= _no_retrace("fault", engine, warm)
+    finally:
+        finj.disarm()
+        fcore.set_flags({"FLAGS_serve_step_timeout_sec": 0.0,
+                         "FLAGS_fault_hang_sec": 3600.0})
+        engine.stop()
     return ok, counts
 
 
@@ -4183,6 +4606,9 @@ def main():
         dense_ok, dense_counts = _timed("dense", phase_dense, smi, model,
                                         slice_summary, **serving)
         _free()
+        fault_ok, fault_counts = _timed("fault", phase_fault, smi, model,
+                                        **serving)
+        _free()
         # buckets up to the context: every prompt of the traffic lands in a
         # warmed one, so none traces under traffic
         cp_kw = dict(slots=4, max_len=4096, page_size=128,
@@ -4240,14 +4666,15 @@ def main():
         traceback.print_exc()
         return 1
     if not (kernels_ok and slice_ok and prefix_ok and gen_ok and dense_ok
-            and cp_ok and f32_ok and train_ok and recompute_ok and grad_ok
+            and fault_ok and cp_ok and f32_ok and train_ok and recompute_ok and grad_ok
             and amp_ok and bert_ok and bert_grad_ok and ring_ok and lc_ok
             and lc2_ok and lc_grad_ok):
         print("chip_smoke: a phase failed (see the lines above)", file=sys.stderr)
         return 1
     # launches: the serving, generation and training runs' counts, each read
     # just after its path ran
-    runs = [counts, *prefix_counts, gen_counts, dense_counts, *cp_counts,
+    runs = [counts, *prefix_counts, gen_counts, dense_counts, fault_counts,
+            *cp_counts,
             *f32_counts, train_counts, amp_counts, bert_counts, *ring_counts,
             lc_counts, lc2_counts]
     launches = {name: sum(c.get(name, 0) for c in runs) for name in kernels}

@@ -222,8 +222,41 @@ define_flag(
 )
 define_flag(
     "FLAGS_serve_debug_invariants", False,
-    "engine: audit the page pool, page tables, prefix cache and cp layout "
-    "after every scheduler step (raises AssertionError on drift)",
+    "engine: after every scheduler step assert the slot invariants (a free "
+    "slot fully recycled, one live request per slot, positions <= max_len) "
+    "and audit the page pool, page tables, prefix cache and cp layout "
+    "(raises AssertionError on drift)",
+)
+define_flag(
+    "FLAGS_serve_step_timeout_sec", 0.0,
+    "serving watchdog deadline (s) for the engine's armed regions (prefill "
+    "dispatch, decode dispatch, token fetch); a region overrunning it trips "
+    "the EngineSupervisor into a bounded warm engine restart.  0 disables.",
+)
+define_flag(
+    "FLAGS_serve_max_restarts", 3,
+    "EngineSupervisor restart budget: after this many engine restarts the "
+    "supervisor declares the engine dead and fails all pending requests",
+)
+define_flag(
+    "FLAGS_serve_restart_backoff", 0.5,
+    "initial delay (s) before an engine restart, doubled per consecutive "
+    "restart",
+)
+define_flag(
+    "FLAGS_serve_drain_grace", 10.0,
+    "SIGTERM drain budget (s) for serve(): stop admitting, finish in-flight "
+    "up to this long, then stop cleanly.  PADDLE_STOP_GRACE overrides it.",
+)
+define_flag(
+    "FLAGS_fault_inject", "",
+    "comma-separated fault points to arm: name[:count|*] "
+    "(e.g. 'serve.prefill.hang:1,serve.decode.nan')",
+)
+define_flag(
+    "FLAGS_fault_hang_sec", 3600.0,
+    "how long an armed *.hang fault point blocks (default: long enough that "
+    "the watchdog, not the sleep, ends the hang)",
 )
 define_flag(
     "FLAGS_router_idem_ttl", 300.0,

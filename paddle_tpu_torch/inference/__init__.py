@@ -6,23 +6,53 @@ and the predictor's `/generate` paths).
 from __future__ import annotations
 
 import json
+import os
+import signal as _signal
 import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 import torch
 
+from ..fault import EngineSupervisor
 from ..framework import core as _fcore
 from ..serving.journal import IdempotencyCache
 from .engine import (
     ContextOverflow,
     ContinuousBatchingEngine,
+    DeadlineExceeded,
+    DeadlineUnattainable,
+    EngineRequest,
+    EngineRestarted,
+    EngineUnavailable,
     NonFiniteLogits,
     QueueFull,
+    RequestCancelled,
 )
 
 __all__ = ["serve", "ContinuousBatchingEngine", "GenerationPredictor",
-           "QueueFull", "ContextOverflow", "NonFiniteLogits"]
+           "EngineRequest", "QueueFull", "ContextOverflow", "NonFiniteLogits",
+           "EngineUnavailable", "DeadlineUnattainable", "DeadlineExceeded",
+           "RequestCancelled", "EngineRestarted"]
+
+# the SIGTERM handlers serve() has installed and not yet put back
+_our_sigterm = set()
+
+
+def _sigterm_default_in_child():
+    """A forked child starts with SIG_DFL in place of a serve() drain
+    handler: the child has no server to drain, and a caught SIGTERM would
+    leave it running when its parent tries to end it."""
+    try:
+        if _signal.getsignal(_signal.SIGTERM) in _our_sigterm:
+            _signal.signal(_signal.SIGTERM, _signal.SIG_DFL)
+    except (ValueError, TypeError):
+        pass
+    _our_sigterm.clear()
+
+
+os.register_at_fork(after_in_child=_sigterm_default_in_child)
 
 
 class GenerationPredictor:
@@ -61,50 +91,77 @@ class GenerationPredictor:
         return self
 
 
-def serve(engine, port=8866, host="127.0.0.1", block=True):
+def serve(engine, port=8866, host="127.0.0.1", block=True, supervise=True,
+          handle_signals=None):
     """Serve a ContinuousBatchingEngine or a GenerationPredictor over HTTP
     (stdlib ThreadingHTTPServer); an engine's scheduler thread starts here.
 
     - POST /generate: body {"input_ids": [...] or [[...], ...],
       "max_new_tokens": n, "temperature": t, "eos_token_id": id, "spec_k":
-      k} -> {"tokens": prompt + generated}, one token row per input row for
-      a batched body.  Engine: each row is its own request; `spec_k` caps
-      the request's draft length (0 opts out of speculation); a full queue
-      answers 503 with a Retry-After header (rows already admitted still
-      complete; the client retries the batch); a prompt past the context
-      answers 400 with the engine's capacity geometry under "capacity" (per
-      shard under cp); a request whose logits went non-finite answers 500
-      (NonFiniteLogits); a bad body, or a request that fails otherwise
-      inside the engine, answers 400 with "Type: message".  The engine
-      path also takes the reference's other fields: a deadline
-      (`deadline_s`, else the `X-Deadline-Ms` header / 1e3) <= 0 answers
-      504 DeadlineExceeded before admission, not retriable; `deadline_s` >
-      0, `session_id`, `handoff` and `reservation` answer a typed 400
-      NotImplementedError naming their ROADMAP Queue 1 item, and `adapter`
-      the reference's 400 ValueError (no LoRA arena).  A request with
-      `X-Idempotency-Key` generates once per key: a completed response (200
-      or a non-retriable error) is kept for FLAGS_router_idem_ttl seconds
-      and replayed with `X-Idempotency-Replay: hit`; a retry while the
-      first is in flight waits for it and answers the same with
-      `X-Idempotency-Replay: join`.  The response is cached before its
-      bytes go out; a retriable error is never cached.  Predictor: calls to
-      the one model run one at a time; beyond FLAGS_serve_queue_depth
-      running or waiting requests the server answers 503; a bad body, or a
-      request the model refuses, answers 400.  Error bodies carry "error",
-      "type", "retriable" and "retry_after_s", as the reference's do.
+      k, "deadline_s": s} -> {"tokens": prompt + generated}, one token row
+      per input row for a batched body.  Engine: each row is its own
+      request; `spec_k` caps the request's draft length (0 opts out of
+      speculation); a deadline (`deadline_s`, else the `X-Deadline-Ms`
+      header / 1e3) <= 0 answers 504 DeadlineExceeded before admission, not
+      retriable; a live one is served: one the queue-drain estimate cannot
+      meet answers a retriable 504 DeadlineUnattainable, and one that
+      expires in flight a 504 DeadlineExceeded, not retriable.  A full
+      queue, a draining or dead engine answer 503 (QueueFull,
+      EngineUnavailable; rows already admitted still complete; the client
+      retries the batch), and so does a request an engine restart cut off
+      (EngineRestarted); every 503 carries Retry-After from the engine's
+      queue-drain estimate.  A prompt past the context answers 400 with the
+      engine's capacity geometry under "capacity" (per shard under cp); a
+      request whose logits went non-finite answers 500 (NonFiniteLogits); a
+      bad body, or a request that fails otherwise inside the engine,
+      answers 400 with "Type: message".  `session_id`, `handoff` and
+      `reservation` answer a typed 400 NotImplementedError naming their
+      ROADMAP Queue 1 item, and `adapter` the reference's 400 ValueError
+      (no LoRA arena).  A request with `X-Idempotency-Key` generates once
+      per key: a completed response (200 or a non-retriable error) is kept
+      for FLAGS_router_idem_ttl seconds and replayed with
+      `X-Idempotency-Replay: hit`; a retry while the first is in flight
+      waits for it and answers the same with `X-Idempotency-Replay: join`.
+      The response is cached before its bytes go out; a retriable error is
+      never cached.  Predictor: calls to the one model run one at a time;
+      beyond FLAGS_serve_queue_depth running or waiting requests the server
+      answers 503; a bad body, or a request the model refuses, answers 400.
+      Error bodies carry "error", "type", "retriable" and "retry_after_s",
+      as the reference's do.
     - GET /health: {"status": "ok"}.
-    - GET /healthz: an engine's status, occupancy, queue depth, mesh and
-      tokens per step; a predictor's {"status": "ready"}.
+    - GET /healthz: an engine's status (ready, live, draining, dead),
+      occupancy, queue depth, restarts, drain estimate, deadline-miss rate,
+      mesh and tokens per step (503 unless ready or live); a predictor's
+      {"status": "ready"} (or "draining").
+
+    Fault domain (reference: inference/__init__.py:216-225): an engine runs
+    under a `fault.EngineSupervisor` (`supervise=False` opts out), so a
+    wedged or dead scheduler gets a bounded warm restart and, past the
+    budget, clients get typed 503s instead of hangs.  `server.drain(grace)`
+    stops admitting (POSTs answer 503 "Draining" with Retry-After,
+    /healthz reads draining), lets in-flight work finish for up to `grace`
+    seconds (PADDLE_STOP_GRACE, else FLAGS_serve_drain_grace), then stops
+    the supervisor, the engine and the HTTP loop; it returns its worker
+    thread.  SIGTERM drains too, when serve() runs on the main thread or
+    `handle_signals=True`; the previous handler comes back when the server
+    stops, and a forked child starts with SIG_DFL.
 
     `port=0` binds a free port (read it from `server.server_address`).
     With `block=False` the server runs on a daemon thread and the returned
-    server's `stop()` shuts down the HTTP loop (and an engine's scheduler).
+    server's `stop()` shuts down the HTTP loop, the supervisor and an
+    engine's scheduler, and puts the SIGTERM handler back.
     """
     predictor = engine if isinstance(engine, GenerationPredictor) else None
     if predictor is not None:
         engine = None
+    supervisor = None
+    if engine is not None:
+        engine.start()
+        if supervise:
+            supervisor = EngineSupervisor(engine).start()
     lock = threading.Lock()  # one model: serialise the predictor's callers
     gate = threading.BoundedSemaphore(int(_fcore.flag("FLAGS_serve_queue_depth")))
+    state = {"draining": False}
     # request dedupe of the engine path (reference: inference/__init__.py:
     # 262-272): a keyed /generate completes into the cache before its
     # response bytes go out
@@ -148,18 +205,32 @@ def serve(engine, port=8866, host="127.0.0.1", block=True):
                               str(err) if msg is None else msg,
                               retry_after is not None, retry_after)
 
+        def _busy(self, msg, retry_after=None, err_type="EngineUnavailable"):
+            # a retriable 503 whose Retry-After is the queue-drain estimate
+            # (reference: `_busy`): a shed client retries when a slot is
+            # plausibly free
+            if retry_after is None:
+                retry_after = engine.estimate_drain_s() if engine is not None else 1.0
+            self._reply_error(503, err_type, msg, True, retry_after)
+
         def do_GET(self):
             if self.path == "/health":
                 self._reply(200, {"status": "ok"})
-            elif self.path == "/healthz" and predictor is not None:
-                self._reply(200, {"status": "ready"})
             elif self.path == "/healthz":
-                h = engine.healthz()
+                if engine is not None:
+                    h = engine.healthz()
+                    if state["draining"] and h["status"] != "dead":
+                        h["status"] = "draining"
+                else:
+                    h = {"status": "draining" if state["draining"] else "ready"}
                 self._reply(200 if h["status"] in ("ready", "live") else 503, h)
             else:
                 self._reply(404, {"error": "use GET /healthz or POST /generate"})
 
         def do_POST(self):
+            if state["draining"]:
+                self._busy("server draining, retry elsewhere", err_type="Draining")
+                return
             if self.path != "/generate":
                 self._reply(404, {"error": "use POST /generate"})
                 return
@@ -244,12 +315,22 @@ def serve(engine, port=8866, host="127.0.0.1", block=True):
                                       "retriable": False, "retry_after_s": 0,
                                       "capacity": e.body()})
                     return
-                except QueueFull as e:
-                    self._error(503, e, retry_after=e.retry_after_s)
+                except DeadlineUnattainable as e:
+                    # 504 but retriable: a less loaded replica may meet it
+                    self._reply_error(504, type(e).__name__, str(e), True,
+                                      e.retry_after_s)
+                    return
+                except EngineUnavailable as e:  # queue full, draining, dead
+                    self._busy(str(e), retry_after=e.retry_after_s,
+                               err_type=type(e).__name__)
                     return
                 outs = [h.wait(timeout=600).tolist() for h in handles]
                 self._reply(200, {"tokens": outs if isinstance(ids[0], list)
                                   else outs[0]})
+            except EngineRestarted as e:  # lost to a restart: safe to retry
+                self._busy(str(e), err_type=type(e).__name__)
+            except DeadlineExceeded as e:  # the same budget cannot succeed
+                self._reply_error(504, type(e).__name__, str(e), False)
             except NonFiniteLogits as e:  # the reference's 500, not retriable
                 self._error(500, e)
             except Exception as e:  # a bad body, or a failure inside the engine
@@ -279,23 +360,77 @@ def serve(engine, port=8866, host="127.0.0.1", block=True):
     server = ThreadingHTTPServer((host, port), Handler)
     server.engine = engine
     server.predictor = predictor
-    if engine is not None:
-        engine.start()
+    server.supervisor = supervisor
+    prev_handler = {}
+
+    def restore_handler():
+        """Put the previous SIGTERM handler back, unless someone replaced
+        ours meanwhile.  Only the main thread may: elsewhere (the drain
+        worker) it stays for a later stop() on the main thread."""
+        if _signal.SIGTERM not in prev_handler:
+            return
+        ours = prev_handler["ours"]
+        try:
+            if _signal.getsignal(_signal.SIGTERM) is ours:
+                _signal.signal(_signal.SIGTERM, prev_handler[_signal.SIGTERM])
+        except ValueError:
+            return
+        del prev_handler[_signal.SIGTERM], prev_handler["ours"]
+        _our_sigterm.discard(ours)
 
     def stop():
+        if supervisor is not None:
+            supervisor.stop()
         server.shutdown()
         server.server_close()
         if engine is not None:
             engine.stop()
+        restore_handler()
+
+    def drain(grace=None):
+        """Stop admitting (503 + Retry-After), let in-flight work finish
+        for up to `grace` seconds, then stop the supervisor, the engine
+        and the HTTP loop.  Idempotent; returns the worker thread."""
+        if state["draining"]:
+            return state["drain_thread"]
+        state["draining"] = True
+        if grace is None:
+            grace = float(os.environ.get("PADDLE_STOP_GRACE",
+                                         _fcore.flag("FLAGS_serve_drain_grace")))
+
+        def worker():
+            if engine is not None:
+                engine.drain()
+                deadline = time.monotonic() + float(grace)
+                while engine.has_work() and time.monotonic() < deadline:
+                    time.sleep(0.02)
+            if supervisor is not None:
+                supervisor.stop()
+            if engine is not None:
+                engine.stop()
+            server.shutdown()
+
+        t = threading.Thread(target=worker, name="serve-drain", daemon=True)
+        state["drain_thread"] = t
+        t.start()
+        return t
 
     server.stop = stop
+    server.drain = drain
+    if handle_signals or handle_signals is None:
+        handler = lambda signum, frame: drain()  # noqa: E731
+        try:
+            prev_handler[_signal.SIGTERM] = _signal.signal(_signal.SIGTERM, handler)
+            prev_handler["ours"] = handler
+            _our_sigterm.add(handler)
+        except ValueError:  # not the main thread
+            if handle_signals:
+                raise
     if block:
         try:
             server.serve_forever()
         finally:
-            server.server_close()
-            if engine is not None:
-                engine.stop()
+            stop()
         return server
     threading.Thread(target=server.serve_forever, name="serve-http",
                      daemon=True).start()

@@ -92,18 +92,55 @@ NonFiniteLogits; its co-batched slots go on.  Verify steps and the first
 token of a prefill are still fetched at once, as in the reference: the
 next drafts, and the landing, need them.
 
+Serving fault domain (the reference's, engine.py:51-75):
+
+- Request lifecycle: every submitted request resolves exactly once,
+  queued -> prefilling -> decoding -> one of {eos, length, timeout,
+  cancelled, restarted, error}.  `deadline_s` evicts an expired slot at
+  step granularity (host clock only; the dispatched tokens are flushed
+  first, then the slot is recycled, no retrace), and `submit` refuses a
+  deadline the queue-drain estimate cannot meet (`DeadlineUnattainable`);
+  `cancel()` frees the slot the same way.
+- Watchdogged regions: the prefill dispatch, the decode dispatch and the
+  host token fetch run under the engine's `fault.Watchdog` with deadline
+  FLAGS_serve_step_timeout_sec; an overrun records a trip that the
+  `fault.EngineSupervisor` turns into a bounded warm restart.
+- Warm restart: `restart()` abandons the scheduler thread behind a
+  generation counter, requeues the in-flight requests that emitted nothing,
+  fails the rest with `EngineRestarted`, and keeps the pool, the prefix
+  cache and every StepGraph (0 new traces).  The graphs' static inputs are
+  shared by every thread that replays them, so each dispatch -- static
+  input copies, the replay and the copies of its outputs -- runs under a
+  launch lock that first checks the generation (`_launch`): a thread of an
+  earlier life (one that woke from a hang after the restart) raises
+  `_StaleEngine` there and replays nothing.  `restart()` takes that lock
+  (bounded; it waits out a capture in progress) before it moves the
+  generation, then reloads the loop state from the host mirrors.
+- Injectable faults: `serve.prefill.hang` (blocks the prefill dispatch),
+  `serve.decode.nan` (a one-hot [S] bool static input of the decode and
+  verify graphs NaNs one slot's logits before the finite check for one
+  step, then is zeroed on the card; co-batched slots are bit-identical to
+  an unpoisoned run) and `serve.loop.crash` (the scheduler thread dies).
+
+A warm restart recovers host-side wedges: a hung dispatch, a crashed
+loop, a stalled scheduler.  A kernel that never retires leaves the CUDA
+context wedged: no restart can recover it, the supervisor's budget runs
+out, and `fail_all()` resolves every request without taking `_mu` from
+the thread stuck in the fetch (a bounded acquire) and without a CUDA call.
+
 Not ported yet (ROADMAP, Queue 1): sessions, LoRA, the disaggregated page
-import, tensor parallelism, context parallelism across cards (NCCL), the
-rest of the serving fault domain (deadlines, cancel, warm restart) and
+import, tensor parallelism, context parallelism across cards (NCCL) and
 `/metrics`.  A knob that asks for one of them raises NotImplementedError,
-and so does a request field of one (`submit`'s `deadline_s` > 0,
-`session_id`, `handoff`, `reservation`).
+and so does a request field of one (`submit`'s `session_id`, `handoff`,
+`reservation`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import logging
+import math
 import queue
 import threading
 import time
@@ -112,6 +149,8 @@ import numpy as np
 import torch
 
 from .. import profiler as _prof
+from ..fault import injection as _inj
+from ..fault import watchdog as _wd
 from ..framework import core as _fcore
 from ..models.llama import (
     PagedDecodeView,
@@ -135,14 +174,32 @@ from .spec import NgramDrafter
 
 logger = logging.getLogger("paddle_tpu_torch")
 
+# deadline-miss-rate EWMA weight per terminal resolution (the reference's
+# _MISS_EWMA_ALPHA): ~20-request memory
+_MISS_EWMA_ALPHA = 0.05
+# how long restart() waits for a capture in progress to end before it gives
+# up on the launch lock (a capture that never ends means a wedged card)
+_CAPTURE_WAIT_S = 120.0
 
-class QueueFull(RuntimeError):
+
+class EngineUnavailable(RuntimeError):
+    """The engine cannot take this request now (queue full, draining, dead,
+    or an unattainable deadline): serve() answers 503 with a Retry-After
+    from the queue-drain estimate (reference: engine.py:146)."""
+
+    def __init__(self, msg, retry_after_s=None):
+        super().__init__(msg)
+        self.retry_after_s = retry_after_s
+
+
+class QueueFull(EngineUnavailable):
     """Admission queue at capacity, or a request whose page need exceeds
     the whole pool; serve() answers 503 with a Retry-After header."""
 
-    def __init__(self, msg, retry_after_s=0.0):
-        super().__init__(msg)
-        self.retry_after_s = retry_after_s
+
+class DeadlineUnattainable(EngineUnavailable):
+    """Deadline-aware admission: the request's deadline cannot beat the
+    current queue-drain estimate (reference: engine.py:161)."""
 
 
 class ContextOverflow(ValueError):
@@ -176,10 +233,52 @@ class ContextOverflow(ValueError):
         return out
 
 
+class DeadlineExceeded(TimeoutError):
+    """The request's deadline expired mid-flight; its slot was evicted at
+    step granularity, with no retrace (reference: engine.py:203)."""
+
+    def __init__(self, request_id, tokens_done, max_new_tokens, deadline_s):
+        self.request_id = request_id
+        self.tokens_done = tokens_done
+        super().__init__(
+            f"request {request_id} missed its {deadline_s}s deadline "
+            f"({tokens_done}/{max_new_tokens} tokens generated)"
+        )
+
+
+class RequestCancelled(RuntimeError):
+    """The request was cancelled via EngineRequest.cancel()."""
+
+    def __init__(self, request_id, tokens_done):
+        self.request_id = request_id
+        self.tokens_done = tokens_done
+        super().__init__(
+            f"request {request_id} cancelled ({tokens_done} tokens generated)"
+        )
+
+
+class EngineRestarted(RuntimeError):
+    """The engine restarted (or died) while this request was in flight and
+    its decode state was lost; serve() answers a retriable 503."""
+
+    def __init__(self, request_id, reason=""):
+        self.request_id = request_id
+        self.reason = reason
+        msg = f"engine restarted while request {request_id} was in flight"
+        if reason:
+            msg += f" ({reason})"
+        super().__init__(msg + "; retry the request")
+
+
 class NonFiniteLogits(FloatingPointError):
     """This request's decode step produced non-finite logits (reference:
     engine.py:241); it errors alone, its co-batched slots are
     row-independent and go on.  serve() answers 500."""
+
+
+class _StaleEngine(Exception):
+    """Internal: a restart superseded the scheduler generation this thread
+    was started for; abort without touching engine state or the card."""
 
 
 def _not_ported(knob, item):
@@ -191,15 +290,17 @@ def _not_ported(knob, item):
 
 class EngineRequest:
     """Handle for one submitted generation.  Lifecycle: queued ->
-    prefilling -> decoding -> one of {eos, length, error}, exactly once.
-    `on_token(tok)` is called with every emitted token (a raising consumer
-    is ignored).  With `keep_logits`, the float32 logits row behind every
-    emitted token is kept in `logits` (a list of device tensors, copies of
-    the steps' outputs).  `spec_k` caps this request's draft length below
-    the engine's (0 opts out, None = the engine's)."""
+    prefilling -> decoding -> one of {eos, length, timeout, cancelled,
+    restarted, error}, exactly once.  `on_token(tok)` is called with every
+    emitted token (a raising consumer is ignored).  With `keep_logits`, the
+    float32 logits row behind every emitted token is kept in `logits` (a
+    list of device tensors, copies of the steps' outputs).  `spec_k` caps
+    this request's draft length below the engine's (0 opts out, None = the
+    engine's).  `deadline_s` is relative to submission; the absolute
+    deadline is `_deadline_t` on `time.perf_counter`'s clock."""
 
     def __init__(self, rid, prompt, max_new_tokens, temperature, eos_token_id,
-                 keep_logits=False, spec_k=None, on_token=None):
+                 keep_logits=False, spec_k=None, on_token=None, deadline_s=None):
         self.id = int(rid)
         self.prompt = prompt  # np.int32 [L]
         self.max_new_tokens = int(max_new_tokens)
@@ -208,18 +309,38 @@ class EngineRequest:
         self.on_token = on_token
         self.keep_logits = bool(keep_logits)
         self.spec_k = None if spec_k is None else int(spec_k)
+        self.deadline_s = None if deadline_s is None else float(deadline_s)
         self.logits = []
         self.tokens = []  # generated ids (eos included when hit)
         self.finished = threading.Event()
-        self.finish_reason = None
-        self.state = "queued"
+        self.finish_reason = None  # eos|length|timeout|cancelled|restarted|error
+        self.state = "queued"  # the live phase; finish_reason once terminal
+        self.cancelled = False
         self.error = None
         self.ttft_s = None
         self._submit_t = None
+        self._deadline_t = None  # absolute deadline (perf_counter)
+        self._finish_t = None
+
+    def cancel(self):
+        """Ask the scheduler to evict this request at its next step: a
+        queued request resolves without taking a slot, a slotted one has
+        its slot recycled (no retrace).  Idempotent; the resolution is still
+        exactly once (`finish_reason == "cancelled"`)."""
+        self.cancelled = True
+        return self
+
+    def expired(self, now=None):
+        if self._deadline_t is None:
+            return False
+        return (time.perf_counter() if now is None else now) >= self._deadline_t
 
     def wait(self, timeout=None):
         """Block until the request finishes; returns prompt + generated ids
-        (np.int32), or raises the request's error."""
+        (np.int32).  Raises a TimeoutError naming the request and its live
+        state when `timeout` elapses first, and re-raises the request's
+        typed error (DeadlineExceeded, RequestCancelled, EngineRestarted,
+        NonFiniteLogits, ...) when it resolved unsuccessfully."""
         if not self.finished.wait(timeout):
             raise TimeoutError(
                 f"request {self.id} not finished after {timeout}s "
@@ -235,11 +356,14 @@ class ContinuousBatchingEngine:
     """Continuous-batching engine over a port `LlamaForCausalLM`: paged
     (the default, FLAGS_serve_paged_kv) or the dense slot pool.
 
-    submit() enqueues (bounded queue -> QueueFull); the scheduler -- the
-    thread started by start()/serve(), or synchronous step() /
-    run_until_idle() calls -- admits queued requests into free slots and
-    advances every active slot one token per decode step.  `device=None`
-    means the CUDA card; the model must live on the engine's device.
+    submit() enqueues (bounded queue -> QueueFull, deadline-aware admission
+    -> DeadlineUnattainable); the scheduler -- the thread started by
+    start()/serve(), or synchronous step() / run_until_idle() calls --
+    evicts cancelled and expired slots, admits queued requests into free
+    slots and advances every active slot one token per decode step.
+    restart(), fail_all() and drain() are the fault domain's (a
+    `fault.EngineSupervisor` calls the first two).  `device=None` means the
+    CUDA card; the model must live on the engine's device.
     """
 
     _req_ids = itertools.count(1)  # request ids unique across engines
@@ -344,12 +468,33 @@ class ContinuousBatchingEngine:
         self._pending_fetch = []
 
         self._queue = queue.Queue(maxsize=self.queue_depth)
-        self._requeue = []  # page-deferred requests, ahead of the queue
+        # page-deferred and restart-requeued requests, ahead of the queue
+        self._requeue = []
+        self._queued_new_tokens = 0  # tokens owed to queued + requeued work
         self._admitting = None  # request between queue pop and slot landing
         self._cv = threading.Condition()
-        self._mu = threading.RLock()
+        self._mu = threading.RLock()  # slot table, host mirrors, requeue
+        # held across each dispatch (static input copies, replay, output
+        # copies) after the generation check: see _launch
+        self._launch_mu = threading.Lock()
         self._thread = None
         self._stop = False
+
+        # fault domain: the generation counter fences restarted-away
+        # scheduler threads; the engine's watchdog records trips (it makes
+        # no CUDA call) for the EngineSupervisor to act on
+        self._generation = 0
+        self._dead = False
+        self._draining = False
+        self.restart_count = 0
+        self._watchdog = _wd.Watchdog(action=self._on_watchdog)
+        self._watchdog_trip = None  # (region, deadline_s), set by the monitor
+        self._last_progress = time.monotonic()
+        # EWMA wall seconds per decode step, from dispatch to fetch
+        self._step_ewma_s = None
+        # deadline-miss rate over terminal resolutions (EWMA): 1 for a
+        # timeout eviction, 0 for a normal finish
+        self._miss_ewma = 0.0
 
     def _init_paged(self, cfg, page_size, decode_kernel, pool_pages,
                     prefix_cache, cache_dtype):
@@ -560,17 +705,20 @@ class ContinuousBatchingEngine:
             for a in self._arenas
         ]
 
-    def _decode_tail(self, views, toks, pos, active, temps):
+    def _decode_tail(self, views, toks, pos, active, temps, poison):
         """The decode step on `views` (reference: `_decode_body`,
-        engine.py:730): toks [S, 1], pos [S], active [S] bool, temps [S].
-        Inactive slots run at pos 0.  Writes the next tokens into toks and
-        the advanced positions (active slots only) into pos, so the next
-        step reads them where they are.  Returns (next tokens [S] int32,
-        finite [S] bool: every logit finite or the slot inactive, logits
-        [S, V] float32)."""
+        engine.py:730): toks [S, 1], pos [S], active [S] bool, temps [S],
+        poison [S] bool (the `serve.decode.nan` drill: a poisoned slot's
+        logits become NaN before the finite check; all-False, it changes
+        no bit).  Inactive slots run at pos 0.  Writes the next tokens into
+        toks and the advanced positions (active slots only) into pos, so
+        the next step reads them where they are.  Returns (next tokens [S]
+        int32, finite [S] bool: every logit finite or the slot inactive,
+        logits [S, V] float32)."""
         pos_eff = torch.where(active, pos, torch.zeros_like(pos))
         hidden = self.model.llama(toks, caches=views, pos=pos_eff)
         logits = self.model.lm_head(hidden[:, -1]).float()
+        logits = torch.where(poison[:, None], torch.nan, logits)
         nxt = self._sample(logits, temps)
         finite = torch.isfinite(logits).all(dim=-1) | ~active
         toks.copy_(nxt[:, None])
@@ -578,24 +726,24 @@ class ContinuousBatchingEngine:
         return nxt, finite, logits
 
     @torch.no_grad()
-    def _decode_paged_body(self, toks, pos, active, temps, tables, loc=None,
-                           base=None):
+    def _decode_paged_body(self, toks, pos, active, temps, poison, tables,
+                           loc=None, base=None):
         """`_decode_tail` over the paged arenas: tables [S, P] and, under cp,
         their stacked local tables loc [cp, S, P/cp], base [cp, P/cp].
         Inactive slots run over an all-zero table row (scratch)."""
         local = None if loc is None else (loc, base)
         return self._decode_tail(self._paged_views(tables, local), toks, pos,
-                                 active, temps)
+                                 active, temps, poison)
 
     @torch.no_grad()
-    def _decode_dense_body(self, toks, pos, active, temps):
+    def _decode_dense_body(self, toks, pos, active, temps, poison):
         """`_decode_tail` over the dense pool: inactive slots write row 0 of
         their own pool row."""
-        return self._decode_tail(self._caches, toks, pos, active, temps)
+        return self._decode_tail(self._caches, toks, pos, active, temps, poison)
 
     @torch.no_grad()
-    def _verify_body(self, toks, pos, active, valid, temps, tables, loc=None,
-                     base=None):
+    def _verify_body(self, toks, pos, active, valid, temps, poison, tables,
+                     loc=None, base=None):
         """Speculative verify (reference: `_verify_paged_body`,
         engine.py:846): one forward scores k + 1 rows per slot.  toks [S,
         k+1]: column 0 the committed last token (not yet in the pages; this
@@ -607,8 +755,9 @@ class ContinuousBatchingEngine:
         accepted; the slot emits greedy[0..n_acc].  Rejected rows need no
         rollback: the next window rewrites [new_pos, new_pos + k] before
         anything attends them.  Column 0 of a sampled slot (temp > 0, always
-        at valid 1) is drawn from the engine's generator.  Advances pos by
-        n_emit in place.  Returns (out [S, k+1] int32, n_emit [S] int32,
+        at valid 1) is drawn from the engine's generator.  poison [S] bool
+        NaNs a slot's logits, as in `_decode_tail`.  Advances pos by n_emit
+        in place.  Returns (out [S, k+1] int32, n_emit [S] int32,
         finite [S] bool over the emitted rows, logits [S, k+1, V]
         float32)."""
         local = None if loc is None else (loc, base)
@@ -616,6 +765,7 @@ class ContinuousBatchingEngine:
         hidden = self.model.llama(toks, caches=self._paged_views(tables, local),
                                   pos=pos_eff)
         logits = self.model.lm_head(hidden).float()
+        logits = torch.where(poison[:, None, None], torch.nan, logits)
         greedy = logits.argmax(dim=-1).to(torch.int32)  # [S, k+1]
         k1 = greedy.shape[1]
         drafts_ok = toks[:, 1:] == greedy[:, :-1]
@@ -690,7 +840,7 @@ class ContinuousBatchingEngine:
         row 0 of each slot's own pool row)."""
         S = self.slots
         out = {"pos": np.zeros(S, np.int32), "active": np.zeros(S, bool),
-               "temps": np.zeros(S, np.float32)}
+               "temps": np.zeros(S, np.float32), "poison": np.zeros(S, bool)}
         if self.paged:
             out.update(self._table_inputs(np.zeros((S, self.pages_per_seq),
                                                    np.int32)))
@@ -705,23 +855,24 @@ class ContinuousBatchingEngine:
         """Enqueue one request (1-D token ids); returns an EngineRequest at
         once.  `on_token(tok)` streams each emitted token (the scheduler
         then fetches every decode step at once).  Raises ContextOverflow
-        when the prompt does not fit max_len
-        and QueueFull when the queue is at capacity or the request's page
-        need exceeds the pool (under cp: a shard's share of it exceeds the
-        shard).  `spec_k` caps the request's draft length below the
-        engine's (0 opts out).  Ids outside [0, vocab_size) raise
-        ValueError: on the card an out-of-range embedding row is a
-        device-side assert that poisons the CUDA context for every later
-        step, where the reference's JAX gather clamps.
+        when the prompt does not fit max_len, QueueFull when the queue is
+        at capacity or the request's page need exceeds the pool (under cp:
+        a shard's share of it exceeds the shard), DeadlineUnattainable when
+        `deadline_s` cannot beat the current queue-drain estimate, and
+        EngineUnavailable while draining or after the restart budget is
+        spent (reference: engine.py:1077-1250).  `spec_k` caps the
+        request's draft length below the engine's (0 opts out).  Ids
+        outside [0, vocab_size) raise ValueError: on the card an
+        out-of-range embedding row is a device-side assert that poisons the
+        CUDA context for every later step, where the reference's JAX gather
+        clamps.
 
-        The reference's other request fields (its `submit`, engine.py:
-        1120-1133, :1223-1228) refuse as it would on an engine like this
-        one, or name the Queue 1 item that ports them: `deadline_s` <= 0
-        raises ValueError and > 0 NotImplementedError (the serving fault
-        domain); an `adapter` other than None or 0 raises the reference's
-        ValueError (no LoRA arena); `session_id` raises NotImplementedError
-        (sessions), `handoff` and `reservation` too (disaggregated
-        prefill/decode)."""
+        The reference's other request fields refuse as it would on an
+        engine like this one, or name the Queue 1 item that ports them:
+        `deadline_s` <= 0 raises ValueError; an `adapter` other than None or
+        0 raises the reference's ValueError (no LoRA arena); `session_id`
+        raises NotImplementedError (sessions), `handoff` and `reservation`
+        too (disaggregated prefill/decode)."""
         raw = np.asarray(input_ids).reshape(-1)
         if raw.size == 0:
             raise ValueError("empty prompt")
@@ -742,10 +893,8 @@ class ContinuousBatchingEngine:
             )
         if max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
-        if deadline_s is not None:
-            if deadline_s <= 0:
-                raise ValueError("deadline_s must be > 0")
-            raise _not_ported("deadline_s", "the serving fault domain")
+        if deadline_s is not None and deadline_s <= 0:
+            raise ValueError("deadline_s must be > 0")
         if spec_k is not None and int(spec_k) < 0:
             raise ValueError("spec_k must be >= 0")
         if adapter is not None and adapter != 0:
@@ -758,6 +907,21 @@ class ContinuousBatchingEngine:
         for knob, value in (("handoff", handoff), ("reservation", reservation)):
             if value is not None:
                 raise _not_ported(knob, "disaggregated prefill/decode")
+        if self._dead:
+            raise EngineUnavailable(
+                "engine is dead (restart budget exhausted); restart the server")
+        if self._draining:
+            raise EngineUnavailable("engine is draining (shutdown in progress)",
+                                    retry_after_s=self.estimate_drain_s())
+        if deadline_s is not None:
+            est = self.estimate_drain_s()
+            if est > float(deadline_s):
+                _prof.record_serving_fault("rejected_deadline")
+                raise DeadlineUnattainable(
+                    f"deadline {deadline_s}s cannot beat the current "
+                    f"queue-drain estimate {est:.2f}s",
+                    retry_after_s=est,
+                )
         # sequence page k comes only from shard k % cp: the fullest shard
         # must hold ceil(need / cp) of its per_shard - 1 usable pages
         need = self._pages_for(ids.size, max_new_tokens) if self.paged else 0
@@ -766,17 +930,26 @@ class ContinuousBatchingEngine:
                 f"request needs {need} KV pages (prompt {ids.size} + max_new "
                 f"{max_new_tokens} at page size {self.page_size}) but the "
                 f"pool holds {self._pool.usable_pages}"
-                + (f" across cp={self.cp} shards" if self.cp > 1 else "")
+                + (f" across cp={self.cp} shards" if self.cp > 1 else ""),
+                retry_after_s=self._shed_retry_after(deadline_s),
             )
         req = EngineRequest(next(self._req_ids), ids, max_new_tokens,
                             temperature, eos_token_id, keep_logits, spec_k,
-                            on_token)
+                            on_token, deadline_s=deadline_s)
         req._submit_t = time.perf_counter()
+        if deadline_s is not None:
+            req._deadline_t = req._submit_t + float(deadline_s)
+        # counted before the put: the scheduler may pop it at once
+        with self._mu:
+            self._queued_new_tokens += req.max_new_tokens
         try:
             self._queue.put_nowait(req)
         except queue.Full:
+            with self._mu:
+                self._queued_new_tokens -= req.max_new_tokens
             raise QueueFull(
-                f"admission queue full ({self.queue_depth} pending)"
+                f"admission queue full ({self.queue_depth} pending)",
+                retry_after_s=self._shed_retry_after(deadline_s),
             ) from None
         with self._cv:
             self._cv.notify()
@@ -836,24 +1009,71 @@ class ContinuousBatchingEngine:
         return bool(self._queue.qsize() or self._requeue
                     or self._admitting is not None or self.active_slots)
 
+    def estimate_drain_s(self):
+        """Wall seconds until the current backlog drains (reference:
+        engine.py:1408): tokens still owed to active slots plus tokens asked
+        for by queued work, decoded `slots` at a time at the EWMA decode
+        step time, scaled by the EWMA tokens per step.  The step time comes
+        from the flushes (dispatch of the first pending step to the end of
+        the fetch, over the steps fetched), not from the dispatch time that
+        `record_serving_tick` keeps, which reads ~0 with decode in flight.
+        0 before any evidence (admit everything)."""
+        ew = self._step_ewma_s
+        if not ew:
+            return 0.0
+        with self._mu:
+            active = sum(max(0, r.max_new_tokens - len(r.tokens))
+                         for r in self._slot_req if r is not None)
+            queued = max(0, self._queued_new_tokens)
+        if not (active or queued):
+            return 0.0
+        rate = max(1e-6, self._tok_rate_ewma)
+        return math.ceil((active + queued) / (max(1, self.slots) * rate)) * ew
+
+    def _shed_retry_after(self, deadline_s):
+        """Retry-After of a QueueFull: the drain estimate, clamped by the
+        request's own deadline (a client is never told to retry after its
+        deadline has passed)."""
+        est = self.estimate_drain_s()
+        if deadline_s is not None:
+            return min(est, float(deadline_s))
+        return est
+
     def healthz(self):
-        """Snapshot for serve()'s /healthz."""
+        """Snapshot for serve()'s /healthz (reference: engine.py:1442):
+        status dead (restart budget spent), draining, ready (scheduler
+        thread alive) or live, occupancy, queue depth, restarts, the
+        queue-drain estimate, the EWMA decode step time, the deadline-miss
+        rate and the serving layout."""
         t = self._thread
+        if self._dead:
+            status = "dead"
+        elif self._draining:
+            status = "draining"
+        elif t is not None and t.is_alive():
+            status = "ready"
+        else:
+            status = "live"
         if self.paged:
             page_free = self._pool.free_count() / max(1, self._pool.usable_pages)
         else:  # the reference's dense figure: free slots
             page_free = (self.slots - self.active_slots) / self.slots
+        ew = self._step_ewma_s
         out = {
-            "status": "ready" if t is not None and t.is_alive() else "live",
+            "status": status,
             "slots": self.slots,
             "active_slots": self.active_slots,
             "occupancy": self.active_slots / self.slots,
             "queue_depth": self.pending,
+            "restarts": self.restart_count,
+            "drain_estimate_s": round(self.estimate_drain_s(), 3),
             "page_free_frac": round(page_free, 4),
             "prefix_cache_size": len(self._prefix) if self._prefix is not None else 0,
+            "decode_ewma_ms": round(ew * 1e3, 3) if ew else 0.0,
+            "tokens_per_step": round(self._tok_rate_ewma, 3),
+            "deadline_miss_rate": round(self._miss_ewma, 4),
             "kv_quant": self.kv_quant,
             "device": str(self.device),
-            "tokens_per_step": round(self._tok_rate_ewma, 3),
             "tp": 1,
             "cp": self.cp,
             # the reference keeps only the mesh axes larger than 1
@@ -866,15 +1086,19 @@ class ContinuousBatchingEngine:
                                          for sh in range(self.cp)]
         return out
 
-    def step(self):
-        """One scheduling tick: admit queued requests into free slots
-        (bucketed prefill), then advance every active slot one token.
-        Returns the tokens emitted.  Do not mix with start()."""
-        emitted = self._admit()
-        emitted += self._decode_once_spec() if self._spec_on else self._decode_once()
-        if self.paged and _fcore.flag("FLAGS_serve_debug_invariants"):
-            with self._mu:
-                self._check_page_invariants_locked()
+    def step(self, gen=None):
+        """One scheduling tick: evict cancelled and expired slots, admit
+        queued requests into free slots (bucketed prefill), then advance
+        every active slot one token.  Returns the tokens emitted.  Do not
+        mix with start()."""
+        gen = self._generation if gen is None else gen
+        self._evict_expired(gen)
+        emitted = self._admit(gen)
+        emitted += (self._decode_once_spec(gen) if self._spec_on
+                    else self._decode_once(gen))
+        if _fcore.flag("FLAGS_serve_debug_invariants"):
+            self._check_invariants()
+        self._last_progress = time.monotonic()
         return emitted
 
     def run_until_idle(self):
@@ -882,7 +1106,7 @@ class ContinuousBatchingEngine:
         every request flushes (its length bound is within reach), so
         nothing is left pending; a flush here would only catch a leak."""
         total = 0
-        while self.has_work():
+        while not self._dead and self.has_work():
             total += self.step()
         if self._pending_fetch:
             with self._mu:
@@ -900,10 +1124,12 @@ class ContinuousBatchingEngine:
         return self
 
     def stop(self, timeout=30.0):
-        """Stop the scheduler thread (bounded join), then flush the pending
-        decode steps, so that a stop racing an in-flight step leaves no
-        dispatched token unemitted (reference: engine.py:1643).  The prefix
-        cache keeps its pages: a restarted scheduler finds them warm."""
+        """Stop the scheduler thread (bounded join; a thread that does not
+        stop in time is abandoned behind the generation fence), then flush
+        the pending decode steps, so that a stop racing an in-flight step
+        leaves no dispatched token unemitted (reference: engine.py:1643).
+        The prefix cache keeps its pages: a restarted scheduler finds them
+        warm."""
         t = self._thread
         if t is not None:
             self._stop = True
@@ -911,26 +1137,203 @@ class ContinuousBatchingEngine:
                 self._cv.notify_all()
             t.join(timeout)
             if t.is_alive():
-                raise RuntimeError(
-                    f"engine scheduler did not stop within {timeout}s")
+                logger.error("engine scheduler did not stop within %.1fs; "
+                             "abandoning the thread", timeout)
+                with self._mu:
+                    self._generation += 1
             self._thread = None
         with self._mu:
-            self._flush_pending_locked()
+            try:
+                self._flush_pending_locked()
+            except _StaleEngine:
+                pass
+            except Exception:
+                logger.exception("engine stop: pending-token flush failed")
+
+    def drain(self):
+        """Stop admitting (submit raises EngineUnavailable, serve() sheds
+        with 503 + Retry-After); in-flight work keeps decoding."""
+        self._draining = True
+        return self
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.stop()
+        return False
+
+    # -- fault domain: restart / fail-all -------------------------------------
+
+    def _on_watchdog(self, region, elapsed):
+        # the watchdog's action, on its monitor thread: record the trip
+        # (host state only, no CUDA call); the supervisor restarts the engine
+        self._watchdog_trip = (region, elapsed)
+
+    def _wd_timeout(self):
+        return float(_fcore.flag("FLAGS_serve_step_timeout_sec"))
+
+    def _check_gen(self, gen):
+        if gen != self._generation:
+            raise _StaleEngine(
+                f"scheduler generation {gen} superseded by {self._generation}")
+
+    @contextlib.contextmanager
+    def _launch(self, gen):
+        """The fence around one dispatch: the launch lock, then the
+        generation check, held across the static input copies, the replay
+        and the copies of its outputs.  A thread of a superseded generation
+        raises _StaleEngine here, before it copies or replays anything."""
+        with self._launch_mu:
+            self._check_gen(gen)
+            yield
+
+    def _acquire_launch_lock(self):
+        """restart()'s bounded take of the launch lock: 1 s, or as long as a
+        capture is in progress (up to _CAPTURE_WAIT_S), since another
+        thread's launches would break it.  A lock never released (a
+        dispatch wedged in the driver) is given up on: the generation fence
+        still stops that thread at its next state touch."""
+        if self._launch_mu.acquire(timeout=1.0):
+            return True
+        t_end = time.monotonic() + _CAPTURE_WAIT_S
+        while (any(g.tracing for g in self.step_graphs().values())
+               and time.monotonic() < t_end):
+            if self._launch_mu.acquire(timeout=1.0):
+                return True
+        return False
+
+    def _reset_slots_locked(self):
+        """Every slot freed on the host (its page mappings released; the
+        pool and the prefix cache stay), the device loop state dropped for
+        a reload from the host mirrors.  Caller holds _mu (or gave up on
+        it); no CUDA call."""
+        for s in range(self.slots):
+            self._slot_req[s] = None
+            self._release_slot_pages_locked(s)
+        self._pos[:] = 0
+        self._last_tok[:] = 0
+        self._temps[:] = 0.0
+        # drafters rebuild at re-admission from prompt + first token
+        self._drafters = [None] * self.slots
+        self._dev = None
+        self._pending_fetch = []
+
+    def restart(self, reason=""):
+        """Bounded warm restart (reference: engine.py:1710; the
+        EngineSupervisor calls it): fence out the scheduler thread, resolve
+        every in-flight request exactly once -- requeued when it emitted no
+        token yet, failed with EngineRestarted when its stream had started
+        -- and start a fresh scheduler on the same StepGraphs, pool and
+        prefix cache (0 new traces; the pool needs no scrub, garbage rows
+        are never attended).  It waits for the launch lock first, so that
+        no replay of the old life lands after the new life begins; then
+        `_mu`, bounded (a thread wedged in a fetch may hold it).  No CUDA
+        call."""
+        launched = self._acquire_launch_lock()
+        locked = self._mu.acquire(timeout=1.0)
+        try:
+            self._generation += 1
+            old, self._thread = self._thread, None
+            was_threaded = old is not None
+            requeue, fail = [], []
+            adm, self._admitting = self._admitting, None
+            live = [adm] + list(self._slot_req)
+            for req in live:
+                if req is None or req.finished.is_set() or req in requeue + fail:
+                    continue
+                (requeue if not req.tokens else fail).append(req)
+            self._reset_slots_locked()
+            self._watchdog_trip = None
+            self._last_progress = time.monotonic()
+            for req in requeue:
+                req.state = "queued"
+                self._queued_new_tokens += req.max_new_tokens
+            self._requeue = requeue + self._requeue
+            self.restart_count += 1
+        finally:
+            if locked:
+                self._mu.release()
+            if launched:
+                self._launch_mu.release()
+        for req in fail:
+            req.error = EngineRestarted(req.id, reason)
+            self._resolve(req, "restarted")
+        _inj.record_event("engine", f"restart #{self.restart_count}: {reason}")
+        _prof.record_serving_fault("restarts")
+        logger.warning("engine restart #%d (%s): %d request(s) requeued, %d "
+                       "failed with EngineRestarted", self.restart_count,
+                       reason or "?", len(requeue), len(fail))
+        self._stop = False
+        if was_threaded:
+            self.start()
+        return self
+
+    def fail_all(self, reason=""):
+        """Terminal (reference: engine.py:1794): mark the engine dead
+        (submit raises EngineUnavailable) and resolve every pending request
+        -- queued, admitting, slotted -- with EngineRestarted, exactly once.
+        The EngineSupervisor calls it when the restart budget is spent, so
+        clients get errors, never hangs.  `_mu` is taken with a bound (the
+        thread stuck in a fetch of a wedged card holds it) and no CUDA call
+        is made."""
+        self._dead = True
+        pending = []
+        locked = self._mu.acquire(timeout=1.0)
+        try:
+            self._generation += 1  # fence out any wedged scheduler
+            self._thread = None
+            adm, self._admitting = self._admitting, None
+            if adm is not None:
+                pending.append(adm)
+            pending.extend(r for r in self._slot_req if r is not None)
+            pending.extend(self._requeue)
+            self._requeue = []
+            while True:
+                try:
+                    pending.append(self._queue.get_nowait())
+                except queue.Empty:
+                    break
+            self._queued_new_tokens = 0
+            self._reset_slots_locked()
+        finally:
+            if locked:
+                self._mu.release()
+        for req in pending:
+            if not req.finished.is_set():
+                req.error = EngineRestarted(req.id, reason or "engine dead")
+                self._resolve(req, "restarted")
+        _inj.record_event("engine", f"fail_all: {reason} ({len(pending)} requests)")
+        logger.error("engine dead (%s): %d pending request(s) failed with "
+                     "EngineRestarted", reason or "?", len(pending))
+        return len(pending)
 
     # -- scheduler ---------------------------------------------------------------
 
     def _loop(self):
-        while not self._stop:
+        gen = self._generation
+        while not self._stop and gen == self._generation:
+            self._last_progress = time.monotonic()
             if not self.has_work():
                 with self._cv:
                     if not (self._stop or self._queue.qsize() or self._requeue):
                         self._cv.wait(timeout=0.05)
                 continue
             try:
-                self.step()
+                _inj.inject("serve.loop.crash", context="scheduler loop")
+                self.step(gen=gen)
+            except _StaleEngine:
+                return  # a restart superseded this thread
+            except _inj.InjectedFault as e:
+                # the drill: the scheduler thread dies (not as an unhandled
+                # thread exception); the supervisor sees a dead thread
+                logger.error("engine scheduler crashed: %s", e)
+                return
             except Exception as e:  # fail the in-flight requests, keep serving
                 logger.exception("engine step failed")
                 with self._mu:
+                    if gen != self._generation:
+                        return
                     self._pending_fetch.clear()  # their steps are void
                     for s, req in enumerate(self._slot_req):
                         if req is not None:
@@ -1001,19 +1404,69 @@ class ContinuousBatchingEngine:
         self._slot_pages[s] = []
         self._page_table[s, :] = 0
 
-    def _pop_request(self):
-        """Next request, page-deferred ones first.  Caller holds _mu."""
-        if self._requeue:
-            return self._requeue.pop(0)
-        try:
-            return self._queue.get_nowait()
-        except queue.Empty:
-            return None
+    def _evict_expired(self, gen):
+        """Evict cancelled and deadline-expired slots at step granularity
+        (reference: engine.py:2032): on the host clock alone; only when a
+        victim exists, flush the tokens already dispatched, then recycle
+        the slot (no retrace) and resolve the request with its typed
+        error."""
+        with self._mu:
+            self._check_gen(gen)
+            now = time.perf_counter()
+            victims = []
+            for s, req in enumerate(self._slot_req):
+                if req is None:
+                    continue
+                if req.cancelled:
+                    victims.append((s, req, "cancelled"))
+                elif req.expired(now):
+                    victims.append((s, req, "timeout"))
+            if not victims:
+                return
+            self._flush_pending_locked()  # emit what was already dispatched
+            for s, req, reason in victims:
+                if self._slot_req[s] is not req:
+                    continue  # resolved during the flush (eos, length, nan)
+                if reason == "cancelled":
+                    req.error = RequestCancelled(req.id, len(req.tokens))
+                else:
+                    req.error = DeadlineExceeded(req.id, len(req.tokens),
+                                                 req.max_new_tokens,
+                                                 req.deadline_s)
+                self._finish(s, req, reason)
 
-    def _admit(self):
+    def _pop_request(self):
+        """Next admissible request, page-deferred and restart-requeued ones
+        first; a dead-on-arrival one (cancelled, or past its deadline)
+        resolves without a prefill (reference: engine.py:2064).  Caller
+        holds _mu."""
+        while True:
+            if self._requeue:
+                req = self._requeue.pop(0)
+            else:
+                try:
+                    req = self._queue.get_nowait()
+                except queue.Empty:
+                    return None
+            self._queued_new_tokens -= req.max_new_tokens
+            if req.finished.is_set():
+                continue
+            if req.cancelled:
+                req.error = RequestCancelled(req.id, 0)
+                self._resolve(req, "cancelled")
+                continue
+            if req.expired():
+                req.error = DeadlineExceeded(req.id, 0, req.max_new_tokens,
+                                             req.deadline_s)
+                self._resolve(req, "timeout")
+                continue
+            return req
+
+    def _admit(self, gen):
         emitted = 0
         for s in range(self.slots):
             with self._mu:
+                self._check_gen(gen)
                 if self._slot_req[s] is not None:
                     continue
                 req = self._pop_request()
@@ -1023,15 +1476,18 @@ class ContinuousBatchingEngine:
                     # page pressure: park at the head of the line (FIFO kept)
                     # until finishing slots release pages
                     self._requeue.insert(0, req)
+                    self._queued_new_tokens += req.max_new_tokens
                     break
                 self._admitting = req
                 req.state = "prefilling"
             try:
                 if self.paged:
-                    self._prefill_into_paged(s, req)
+                    self._prefill_into_paged(s, req, gen)
                 else:
-                    self._prefill_into_dense(s, req)
+                    self._prefill_into_dense(s, req, gen)
                 emitted += 1
+            except _StaleEngine:
+                raise  # the restart owns this request now
             except Exception as e:  # fail THIS request, keep the engine alive
                 logger.exception("prefill of request %d failed", req.id)
                 req.error = e
@@ -1039,7 +1495,10 @@ class ContinuousBatchingEngine:
                     if self._slot_req[s] is req:
                         self._finish(s, req, "error")
                     else:
-                        self._release_slot_pages_locked(s)
+                        if gen == self._generation:
+                            # mapped but never landed (a restart that raced
+                            # ahead released the pages itself)
+                            self._release_slot_pages_locked(s)
                         self._resolve(req, "error")
             finally:
                 with self._mu:
@@ -1069,12 +1528,13 @@ class ContinuousBatchingEngine:
         head = self._page_fresh_headroom_by_shard_locked(exclude)
         return all(n <= h for n, h in zip(by_shard, head))
 
-    def _prefill_into_dense(self, s, req):
+    def _prefill_into_dense(self, s, req, gen):
         """Admission of one request into slot s of the dense pool: a fresh
         prefill of the bucket-padded prompt into pool row s (reference:
         engine.py:2200-2256)."""
         L = int(req.prompt.size)
         with self._mu:
+            self._check_gen(gen)
             # the slot rebuild after this landing reads _last_tok: it must
             # hold every step already dispatched
             self._flush_pending_locked()
@@ -1083,10 +1543,25 @@ class ContinuousBatchingEngine:
             req.max_new_tokens = min(req.max_new_tokens, self.max_len - L)
         toks = np.zeros((1, self._bucket_for(L)), np.int32)
         toks[0, :L] = req.prompt
-        nxt, logits = self._run_prefill(toks, L, req.temperature, slot=s)
-        tok = int(nxt[0])  # the landing fetch of the first token
+        with self._prefill_armed(req):
+            with self._launch(gen):
+                nxt, logits = self._run_prefill(toks, L, req.temperature, slot=s)
+            tok = int(nxt[0])  # the landing fetch of the first token
         with self._mu:
+            self._check_gen(gen)  # a restart during the dispatch owns req
             self._land_locked(s, req, tok, logits)
+
+    @contextlib.contextmanager
+    def _prefill_armed(self, req):
+        """The watchdogged `serve.prefill` region of a prefill's dispatch
+        and first-token fetch (reference: engine.py:2227, :2350), with the
+        injectable hang first.  The caller's launch fence comes after the
+        hang: a restart during the hang owns the request (and released its
+        pages), so the woken thread copies and replays nothing."""
+        with self._watchdog.arm("serve.prefill", timeout=self._wd_timeout(),
+                                context=f"req {req.id}"):
+            _inj.inject_hang("serve.prefill.hang", context=f"req {req.id}")
+            yield
 
     def _land_locked(self, s, req, tok, logits):
         """A prefilled request takes slot s and emits its first token.
@@ -1108,7 +1583,7 @@ class ContinuousBatchingEngine:
             req.logits.append(logits[0].clone())  # the output is static
         self._emit(s, req, tok)
 
-    def _prefill_into_paged(self, s, req):
+    def _prefill_into_paged(self, s, req, gen):
         """Admission of one request into slot s: prefix-cache lookup, page
         mapping (shared full pages read-only, a copy of a matched partial
         page, fresh pages for the rest), then a fresh prefill of the whole
@@ -1117,6 +1592,7 @@ class ContinuousBatchingEngine:
         L = int(req.prompt.size)
         pinned = None  # COW source, kept alive across our own allocations
         with self._mu:
+            self._check_gen(gen)
             # the slot rebuild after this landing reads _last_tok: it must
             # hold every step already dispatched
             self._flush_pending_locked()
@@ -1171,17 +1647,20 @@ class ContinuousBatchingEngine:
         toks[0, :suffix] = req.prompt[match_len:]
         check_table_bounds(row_table, self.pool_pages)
         try:
-            if copy_args is not None:
-                self._copy_page(*copy_args)
-            nxt, logits = self._run_prefill(
-                toks, suffix, req.temperature, table=row_table,
-                start=match_len if match_len else None)
-            tok = int(nxt[0])  # the landing fetch of the first token
+            with self._prefill_armed(req):
+                with self._launch(gen):
+                    if copy_args is not None:
+                        self._copy_page(*copy_args)
+                    nxt, logits = self._run_prefill(
+                        toks, suffix, req.temperature, table=row_table,
+                        start=match_len if match_len else None)
+                tok = int(nxt[0])  # the landing fetch of the first token
         finally:
             if pinned is not None:
                 with self._mu:
                     self._pool.decref(pinned)
         with self._mu:
+            self._check_gen(gen)  # a restart during the dispatch owns req
             if self._prefix is not None:
                 inserted = self._prefix.commit(req.prompt, pages, self._pool)
                 if inserted:
@@ -1196,8 +1675,11 @@ class ContinuousBatchingEngine:
         steps advance them on the card after that.  Caller holds _mu."""
         active = np.zeros(self.slots, bool)
         active[active_idx] = True
+        # the poison input too: a restart may have cut a poisoned step off
+        # before its reset
         state = {"pos": self._pos.copy(), "active": active,
-                 "temps": self._temps.copy()}
+                 "temps": self._temps.copy(),
+                 "poison": np.zeros(self.slots, bool)}
         if self.paged:
             state.update(self._table_inputs(self._page_table))
         return state
@@ -1215,10 +1697,22 @@ class ContinuousBatchingEngine:
                 return True
         return False
 
-    def _decode_once(self):
+    def _poison_locked(self, active_idx):
+        """The `serve.decode.nan` drill (reference: engine.py:2563): when
+        armed, a one-hot [S] host mask naming the first active slot, for the
+        step's `poison` static input; else None.  Caller holds _mu."""
+        if not _inj.should_fire("serve.decode.nan",
+                                context=f"slot {active_idx[0]}"):
+            return None
+        mask = np.zeros(self.slots, bool)
+        mask[active_idx[0]] = True
+        return mask
+
+    def _decode_once(self, gen):
         """One decode step for every active slot: one replay of the decode
         graph, left in flight unless the flush rule fetches it."""
         with self._mu:
+            self._check_gen(gen)
             active_idx = [s for s in range(self.slots)
                           if self._slot_req[s] is not None]
             if not active_idx:
@@ -1229,17 +1723,27 @@ class ContinuousBatchingEngine:
                 load = self._load_state_locked(active_idx)
                 load["toks"] = self._last_tok.reshape(self.slots, 1).copy()
             keep = any(self._slot_req[s].keep_logits for s in active_idx)
-        nxt, finite, logits = self._decode_g(None, **load)
-        # the pending entry copies the static outputs: the next replay
-        # overwrites them
-        step = torch.stack([nxt, finite.to(torch.int32)])
-        kept = logits.clone() if keep else None
+            poison = self._poison_locked(active_idx)
+            if poison is not None:
+                load["poison"] = poison
+        with self._watchdog.arm("serve.decode", timeout=self._wd_timeout(),
+                                context=f"{len(active_idx)} active slots"):
+            with self._launch(gen):
+                nxt, finite, logits = self._decode_g(None, **load)
+                # the pending entry copies the static outputs: the next
+                # replay overwrites them
+                step = torch.stack([nxt, finite.to(torch.int32)])
+                kept = logits.clone() if keep else None
+                if poison is not None:  # one step only, reset on the card
+                    self._decode_g.inputs(None)["poison"].zero_()
         with self._mu:
+            self._check_gen(gen)
             self._dev = self._decode_g.inputs(None)
             for s in active_idx:
                 self._pos[s] += 1
             self._pending_fetch.append((step, active_idx, t0, kept))
-            if self._needs_tokens_locked(active_idx, len(self._pending_fetch)):
+            if poison is not None or self._needs_tokens_locked(
+                    active_idx, len(self._pending_fetch)):
                 self._flush_pending_locked()
             _prof.record_serving_tick(len(active_idx) / self.slots,
                                       self._queue.qsize(),
@@ -1252,19 +1756,34 @@ class ContinuousBatchingEngine:
                     "dequantize", sum(len(self._slot_pages[s]) for s in active_idx))
         return len(active_idx)
 
+    def _note_step_time(self, per):
+        """Blend one decode step's wall time into the EWMA that
+        estimate_drain_s reads.  Caller holds _mu."""
+        ew = self._step_ewma_s
+        self._step_ewma_s = per if ew is None else 0.8 * ew + 0.2 * per
+
     def _flush_pending_locked(self):
         """Fetch every dispatched decode step not fetched yet, in one
         transfer, and emit its tokens (reference: engine.py:2822).  A slot
         whose logits went non-finite errors alone with NonFiniteLogits.
         Membership is constant across the pending steps (any change
         flushes first), so each entry's slots are exact; a slot that
-        finished earlier in this flush skips the rest.  Caller holds
-        _mu."""
+        finished earlier in this flush skips the rest.  The fetch runs in
+        the watchdogged `serve.fetch` region; the generation is checked
+        after it (a restart that could not take _mu may have superseded
+        this thread meanwhile).  The EWMA step time is the first pending
+        step's dispatch to the fetch's end, over the steps fetched.  Caller
+        holds _mu."""
         if not self._pending_fetch:
             return
+        gen0 = self._generation
         batches, self._pending_fetch = self._pending_fetch, []
-        fetched = torch.stack([b[0] for b in batches]).cpu().numpy()
+        with self._watchdog.arm("serve.fetch", timeout=self._wd_timeout(),
+                                context=f"{len(batches)} buffered steps"):
+            fetched = torch.stack([b[0] for b in batches]).cpu().numpy()
+        self._check_gen(gen0)
         _prof.record_host_fetch()
+        self._note_step_time((time.perf_counter() - batches[0][2]) / len(batches))
         for (_, idx, _, kept), (nxt_np, fin_np) in zip(batches, fetched):
             for s in idx:
                 req = self._slot_req[s]
@@ -1280,13 +1799,14 @@ class ContinuousBatchingEngine:
                 self._emit(s, req, tok)
 
     def _fail_nonfinite_locked(self, s, req):
+        _prof.record_serving_fault("nonfinite")
         req.error = NonFiniteLogits(
-            f"request {req.id}: non-finite logits at position "
-            f"{int(self._pos[s])} (slot {s}); the slot was evicted, its "
+            f"request {req.id}: non-finite logit window at position "
+            f"{int(self._pos[s])} (slot {s}); the slot was evicted — "
             "co-batched requests are unaffected")
         self._finish(s, req, "error")
 
-    def _decode_once_spec(self):
+    def _decode_once_spec(self, gen):
         """One speculative round for every active slot (reference:
         `_decode_once_spec`, engine.py:2627): draft on the host, verify k + 1
         rows per slot in one replay of the verify graph, fetch, emit each
@@ -1297,6 +1817,7 @@ class ContinuousBatchingEngine:
         the tokens emitted."""
         K1 = self.spec_k + 1
         with self._mu:
+            self._check_gen(gen)
             active_idx = [s for s in range(self.slots)
                           if self._slot_req[s] is not None]
             if not active_idx:
@@ -1319,14 +1840,32 @@ class ContinuousBatchingEngine:
                 toks[s, 1:1 + len(draft)] = draft
                 valid[s] = 1 + len(draft)
                 proposed += len(draft)
-        out, n_emit, finite, logits = self._verify_g(None, toks=toks, valid=valid,
-                                                     **load)
-        # the next drafts need these tokens: one fetch every verify step
-        host = torch.cat([out, n_emit[:, None], finite[:, None].to(torch.int32)],
-                         dim=1).cpu().numpy()
-        _prof.record_host_fetch()
+            poison = self._poison_locked(active_idx)
+            if poison is not None:
+                load["poison"] = poison
+        with self._watchdog.arm("serve.decode", timeout=self._wd_timeout(),
+                                context=f"{len(active_idx)} active slots "
+                                        f"(spec k={self.spec_k})"):
+            with self._launch(gen):
+                out, n_emit, finite, logits = self._verify_g(
+                    None, toks=toks, valid=valid, **load)
+                # the next drafts need these tokens: one fetch every step
+                step = torch.cat([out, n_emit[:, None],
+                                  finite[:, None].to(torch.int32)], dim=1)
+                if poison is not None:  # one step only, reset on the card
+                    self._verify_g.inputs(None)["poison"].zero_()
         with self._mu:
+            self._check_gen(gen)
             self._dev = self._verify_g.inputs(None)
+            with self._watchdog.arm("serve.fetch", timeout=self._wd_timeout(),
+                                    context=f"verify fetch ({len(active_idx)} "
+                                            "slots)"):
+                host = step.cpu().numpy()
+            # a restart that could not take _mu may have superseded this
+            # thread during the fetch
+            self._check_gen(gen)
+            _prof.record_host_fetch()
+            self._note_step_time(time.perf_counter() - t0)
             accepted = emitted = 0
             for s in active_idx:
                 req = self._slot_req[s]
@@ -1361,6 +1900,44 @@ class ContinuousBatchingEngine:
                 _prof.record_kv_quant_event(
                     "dequantize", sum(len(self._slot_pages[s]) for s in active_idx))
         return emitted
+
+    def _check_invariants(self):
+        """FLAGS_serve_debug_invariants after a step (reference:
+        engine.py:3075): a free slot is fully recycled (pos and temperature
+        zeroed), an occupied slot holds exactly one live request at a
+        position within the context, no request holds two slots, the queued
+        token count is not negative; then, paged, the page audit.  Raises
+        AssertionError."""
+        with self._mu:
+            seen = {}
+            for s, req in enumerate(self._slot_req):
+                if req is None:
+                    if self._pos[s] != 0 or self._temps[s] != 0.0:
+                        raise AssertionError(
+                            f"slot invariant: slot {s} is free but not "
+                            f"recycled (pos={int(self._pos[s])}, "
+                            f"temp={float(self._temps[s])})")
+                    continue
+                if req.finished.is_set():
+                    raise AssertionError(
+                        f"slot invariant: slot {s} holds already-resolved "
+                        f"request {req.id} ({req.finish_reason})")
+                if id(req) in seen:
+                    raise AssertionError(
+                        f"slot invariant: request {req.id} occupies slots "
+                        f"{seen[id(req)]} and {s}")
+                seen[id(req)] = s
+                if not 0 < int(self._pos[s]) <= self.max_len:
+                    raise AssertionError(
+                        f"slot invariant: slot {s} (request {req.id}) at "
+                        f"position {int(self._pos[s])} outside (0, "
+                        f"{self.max_len}]")
+            if self._queued_new_tokens < 0:
+                raise AssertionError(
+                    "slot invariant: queued-token accounting went negative "
+                    f"({self._queued_new_tokens})")
+            if self.paged:
+                self._check_page_invariants_locked()
 
     def _check_page_invariants_locked(self):
         """The page audit of FLAGS_serve_debug_invariants (reference:
@@ -1461,11 +2038,28 @@ class ContinuousBatchingEngine:
         self._resolve(req, reason)
 
     def _resolve(self, req, reason):
-        """Terminal transition, exactly once."""
+        """Terminal transition, exactly once (reference: engine.py:3036): a
+        request that already resolved (a restart raced an eviction, a stop
+        raced a finish) is left untouched."""
         if req.finished.is_set():
             return
         req.finish_reason = reason
         req.state = reason
+        req._finish_t = time.perf_counter()
         if reason in ("eos", "length"):
             _prof.record_serving_request(req.ttft_s or 0.0, len(req.tokens))
+        elif reason == "timeout":
+            _prof.record_serving_fault("deadline_miss")
+        if reason in ("eos", "length", "timeout"):
+            # the miss rate over organic outcomes only: restarts and
+            # cancellations are no deadline signal
+            with self._mu:
+                self._miss_ewma = ((1.0 - _MISS_EWMA_ALPHA) * self._miss_ewma
+                                   + _MISS_EWMA_ALPHA * (reason == "timeout"))
+                rate = self._miss_ewma
+            _prof.record_deadline_miss_rate(rate)
+        elif reason == "cancelled":
+            _prof.record_serving_fault("cancelled")
+        elif reason == "restarted":
+            _prof.record_serving_fault("restarted_requests")
         req.finished.set()

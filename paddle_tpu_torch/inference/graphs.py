@@ -74,7 +74,8 @@ class StepGraph:
     (the kernels' `launch_counts` unless a test passes its own).
     `trace_count` counts traced keys, `replay_count` the calls after them,
     `last_key` is the key of the last call, `pool_bytes` the device memory
-    reserved while capturing."""
+    reserved while capturing, `tracing` whether a trace (on CUDA: a warm
+    run and a capture) is in progress."""
 
     def __init__(self, name, body, device, pool=None, generators=(),
                  counters=None):
@@ -88,6 +89,7 @@ class StepGraph:
         self.replay_count = 0
         self.pool_bytes = 0
         self.last_key = None
+        self.tracing = False
         self._entries = {}
 
     @property
@@ -106,7 +108,11 @@ class StepGraph:
         self.last_key = key
         ent = self._entries.get(key)
         if ent is None:
-            ent = self._trace(key, inputs)
+            self.tracing = True
+            try:
+                ent = self._trace(key, inputs)
+            finally:
+                self.tracing = False
             self._entries[key] = ent
             self.trace_count += 1
             return ent.outputs

@@ -2,7 +2,10 @@
 serving, paging and KV-quant parts of `paddle_tpu/profiler.py`).
 
 The engine records one entry per finished request and one per decode step;
-`serving_summary()` aggregates them with the reference's key names.
+`serving_summary()` aggregates them with the reference's key names, with
+the fault domain's counters (`record_serving_fault`: restarts, deadline
+evictions, admission refusals, cancellations, non-finite logits) under
+"faults" and the deadline-miss rate.
 `paging_summary()` holds the prefix cache's lookups, hits, prompt tokens
 saved, copy-on-write copies, commits and evictions;
 `kv_quant_summary()` the arena's storage precision and bytes;
@@ -41,6 +44,7 @@ def _reset_locked():
         requests=0, tokens=0, ttfts_s=[], busy_s=0.0, ticks=0,
         occupancy_sum=0.0, occupancy_peak=0.0, queue_depth_sum=0,
         queue_depth_max=0, window_t0=None, window_t1=None, host_fetches=0,
+        faults={}, deadline_miss_rate=0.0,
     )
 
 
@@ -83,6 +87,30 @@ def record_serving_tick(occupancy, queue_depth, busy_s, t0=None):
         g["busy_s"] += float(busy_s)
 
 
+# serving fault-domain counter kinds (the reference's, profiler.py:160):
+# engine restarts, requests failed by a restart, deadline evictions (the
+# timeouts) and admission rejections, cancellations, non-finite logits
+SERVING_FAULT_KINDS = (
+    "restarts", "restarted_requests", "deadline_miss", "rejected_deadline",
+    "cancelled", "nonfinite",
+)
+
+
+def record_serving_fault(kind, n=1):
+    """Count one serving fault-domain event (SERVING_FAULT_KINDS; an
+    unknown kind is counted too)."""
+    with _lock:
+        f = _gauges["faults"]
+        f[kind] = f.get(kind, 0) + int(n)
+
+
+def record_deadline_miss_rate(rate):
+    """Publish the engine's deadline-miss-rate EWMA over terminal
+    resolutions (the engine owns the blend)."""
+    with _lock:
+        _gauges["deadline_miss_rate"] = float(rate)
+
+
 def record_host_fetch(n=1):
     """One device-to-host fetch of decode or verify tokens."""
     with _lock:
@@ -100,15 +128,22 @@ def serving_summary():
     """requests, tokens, tokens/s over the summed step times, decode steps
     and their summed times, the decode window's wall seconds, host fetches
     of decode tokens, TTFT p50/p95 (ms), mean and peak slot occupancy,
-    queue depth avg/max."""
+    queue depth avg/max, the deadline-miss rate and, once one happened,
+    the fault-domain counters under "faults" (restarts,
+    restarted_requests, deadline_miss: the timeouts, rejected_deadline,
+    cancelled, nonfinite)."""
     with _lock:
         g = dict(_gauges)
+        g["faults"] = dict(g["faults"])
         ttfts = sorted(g["ttfts_s"])
     window = (0.0 if g["window_t0"] is None
               else g["window_t1"] - g["window_t0"])
     out = {"requests": g["requests"], "tokens": g["tokens"],
            "decode_steps": g["ticks"], "decode_busy_s": g["busy_s"],
-           "decode_window_s": window, "host_fetches": g["host_fetches"]}
+           "decode_window_s": window, "host_fetches": g["host_fetches"],
+           "deadline_miss_rate": g["deadline_miss_rate"]}
+    if g["faults"]:
+        out["faults"] = dict(g["faults"])
     if g["busy_s"] > 0:
         out["tokens_per_s"] = g["tokens"] / g["busy_s"]
     if ttfts:

@@ -8,8 +8,11 @@ as in `test_torch_serve_contract.py`:
   DeadlineExceeded, not retriable, and admits nothing; `adapter` on an
   engine without a LoRA arena answers the reference's 400 ValueError: status
   and body equal to the reference's (less its `trace_id`);
-- a live deadline, `session_id`, `handoff` and `reservation` answer the
-  port's typed 400 NotImplementedError naming their ROADMAP Queue 1 item;
+- a live deadline (`deadline_s`, `X-Deadline-Ms`, the body's over the
+  header's) is served as the reference serves it: the same status and
+  tokens, every row admitted;
+- `session_id`, `handoff` and `reservation` answer the port's typed 400
+  NotImplementedError naming their ROADMAP Queue 1 item;
 - `X-Idempotency-Key`: a key posted twice generates once and replays the
   same body with `X-Idempotency-Replay: hit` (admissions counted at
   `submit`, on both servers); two concurrent posts of one key admit once
@@ -152,8 +155,23 @@ def test_adapter_0_is_the_base_model_as_in_the_reference(pair):
     assert port == ref and port[0] == 200
 
 
+@pytest.mark.parametrize("body,headers", [
+    ({"input_ids": _prompt(5, 14), "max_new_tokens": 4, "deadline_s": 30.0}, None),
+    ({"input_ids": _prompt(6, 15), "max_new_tokens": 4}, {"X-Deadline-Ms": "30000"}),
+    ({"input_ids": [_prompt(5, 16), _prompt(7, 17)], "max_new_tokens": 3,
+      "deadline_s": 60}, {"X-Deadline-Ms": "1"}),
+], ids=["body", "header", "batch-body-over-header"])
+def test_a_live_deadline_is_served_as_the_reference_serves_it(pair, body, headers):
+    before = pair.admissions()
+    ref, port = pair.both(body, headers)
+    assert port == ref
+    assert port[0] == 200 and port[1] is None
+    rows = len(body["input_ids"]) if isinstance(body["input_ids"][0], list) else 1
+    after = pair.admissions()
+    assert {k: after[k] - before[k] for k in after} == {"ref": rows, "port": rows}
+
+
 @pytest.mark.parametrize("field,value,item", [
-    ("deadline_s", 30.0, "the serving fault domain"),
     ("session_id", "s-1", "sessions"),
     ("handoff", {"prompt_len": 5}, "disaggregated prefill/decode"),
     ("reservation", "r-1", "disaggregated prefill/decode"),
