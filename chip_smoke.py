@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Fifteen phases; a failure in any of them exits non-zero and prints no
+Sixteen phases; a failure in any of them exits non-zero and prints no
 result.
 
 1. device  -- requires CUDA; prints the card's name and power limit.
@@ -107,7 +107,21 @@ result.
               flight (they finish; a new one answers 503 with Retry-After;
               /healthz reads draining); every request resolves exactly
               once.
-10. cp     -- the same model behind long-document engines (slots 4, the
+10. obs    -- the observability spine on the same model behind a warmed
+              paged engine (prefix cache off) under `serve(supervise=True)`:
+              the slice's six requests with FLAGS_trace off, then on with
+              client X-Trace-Id / X-Parent-Span (the same tokens bit for
+              bit, no new trace, the same host fetches per decode step,
+              every id echoed, each /trace/<id> one serve.handle under the
+              client's span with engine.queue/prefill/decode/fetch; K1 and
+              K2 counted; decode tokens/s with trace off and on); /metrics
+              scraped around the traced pass (the kept name list, requests
+              and tokens moved by the traffic, dispatch counts per compiled
+              shape > 0 and unmoved, no fallback); a prefill hang under the
+              supervisor writes a watchdog flight dump, then the restart's;
+              a profiled decode window with trace on runs the kernels per
+              step of one with trace off.
+11. cp     -- the same model behind long-document engines (slots 4, the
               4096-token context): questions about one 3000-token document
               share its pages through the prefix cache, beside two fresh
               prompts, over HTTP; at cp=1, then cp=2 (the page audit every
@@ -119,7 +133,7 @@ result.
               logits against the teacher-forced forward; prints the greedy
               agreement between runs, speculation counters, decode
               tokens/s and TTFT, and a profiled cp=2 decode step.
-11. train  -- trains Llama-2-7B's widths at 8 layers (bf16 AMP O2, AdamW with
+12. train  -- trains Llama-2-7B's widths at 8 layers (bf16 AMP O2, AdamW with
               float32 master weights) for 6 steps on one repeated batch of
               4 x 2048 tokens: finite and falling losses, K1 (on its wgmma
               path) and K3 launched once per layer per step, adam_fused
@@ -127,10 +141,10 @@ result.
               tokens/s, peak memory and a profiled step with AdamW's span.
               Then 2 steps of 2 layers with activation recompute (K1 twice
               per layer per step).
-12. grads  -- one step's gradients of a 2-layer model at the same widths
+13. grads  -- one step's gradients of a 2-layer model at the same widths
               with the kernels against the same step with attention through
               the plain forward under autograd.
-13. amp    -- the reference's O1 recipe on Llama-2-7B's widths at 2 layers,
+14. amp    -- the reference's O1 recipe on Llama-2-7B's widths at 2 layers,
               float32 parameters, batch 2 x 2048: auto_cast O1 bf16, a
               dynamic GradScaler, LinearWarmup into CosineAnnealingDecay,
               ClipGradByGlobalNorm(1.0) and AdamW for 6 steps, step 4's
@@ -141,7 +155,7 @@ result.
               adam_fused and unscale_fused once per step.  Then SGD,
               Momentum, Adagrad, RMSProp, Adamax and Lamb two steps each:
               finite, every weight moved, step ms.
-14. bert   -- bench_bert's BERT-base SQuAD fine-tuning (bf16 O2, AdamW at
+15. bert   -- bench_bert's BERT-base SQuAD fine-tuning (bf16 O2, AdamW at
               3e-5, dropout 0) for 6 steps on one batch of 32 x 384 tokens
               padded from lengths 192-384: finite and falling losses, K1 and
               K3 launched once per layer per step on their wgmma paths with
@@ -151,7 +165,7 @@ result.
               as a key-padding attn_mask (K1's key bias) against segment ids
               on the valid rows; then a 2-layer model's gradients with the
               kernels against attention through the plain forward.
-15. longcontext -- long-context training through the Llama's
+16. longcontext -- long-context training through the Llama's
               `context_parallel_degree` on a sep mesh (ring attention, every
               rank on the card): Llama-2-7B's widths at 4 layers, one
               sequence of 32768 tokens over R = 8 (K/V 512 MiB a layer: the
@@ -166,7 +180,7 @@ result.
               one step's gradients of 2 layers at 32768 tokens over R = 8
               against context_parallel_degree 1 (full-sequence K1/K3).
 
-Every serving phase (slice, prefix, dense, fault, cp, cp_f32) runs on the
+Every serving phase (slice, prefix, dense, fault, obs, cp, cp_f32) runs on the
 engine's CUDA graphs: it prints `compile_counts()` after warmup and again
 after its traffic and fails if they differ (0 new traces under traffic),
 prints the host fetches per decode step and decode tokens/s over the
@@ -182,8 +196,11 @@ kernels' JSON record; the last line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import gc
 import json
+import os
 import pathlib
+import shutil
 import statistics
 import subprocess
 import sys
@@ -268,6 +285,13 @@ FAULT_STEP_TIMEOUT_S = 2.0
 FAULT_HANG_S = 5.0
 FAULT_EVICT_DEADLINE_S = 0.3
 FAULT_EVICT_NEW = 512
+
+# the obs phase: the client's span, the parent of every traced request's
+# serve.handle
+OBS_CLIENT_SPAN = "c1c1c1c1c1c1c1c1"
+# after the first trace-off and trace-on passes: the FLAGS_trace of each
+# further timed pass
+OBS_PASSES = (True, False, False, True, True, False)
 
 # the cp phase: questions about one 3000-token document (23 full 128-row
 # pages and a 56-row tail) share its pages through the prefix cache; the
@@ -3576,6 +3600,384 @@ def phase_fault(smi, model, device="cuda", prompts_spec=SLICE_PROMPTS,
     return ok, counts
 
 
+def _obs_samples(text):
+    """{name{labels}: value} of a /metrics scrape (every sample parses) and
+    the metric names of its TYPE lines, in order."""
+    samples, names = {}, []
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            names.append(line.split()[2])
+        elif line and not line.startswith("#"):
+            key, val = line.rsplit(" ", 1)
+            samples[key] = float(val)
+    return samples, names
+
+
+def _obs_metric(samples, name, **labels):
+    """One sample's value; labels besides the replica's, by name."""
+    want = ",".join(f'{k}="{v}"' for k, v in sorted(labels.items()))
+    for key, val in samples.items():
+        if key.startswith(name + "{") and (not want or want in key):
+            return val
+    raise KeyError(f"{name} {labels} not in the scrape")
+
+
+def _profile_decode_kernels(engine, cfg, rng, trace=None, prompt_len=256, steps=8):
+    """`profile_decode` with each request's trace context: returns (kernels
+    per decode step, wall ms per step, idle share) and prints the profile."""
+    reqs = [engine.submit(rng.integers(1, cfg.vocab_size, size=prompt_len),
+                          max_new_tokens=steps + 4, trace=trace)
+            for _ in range(engine.slots)]
+    engine.step()
+    engine.step()
+    wall_us, kernels, spans, stats = _device_profile(engine.step, steps)
+    engine.run_until_idle()
+    for r in reqs:
+        r.wait(1)
+    _log_profile(f"decode step, {engine.slots} slots at ~{prompt_len} tokens, "
+                 f"trace {'on' if trace else 'off'}", wall_us, kernels, spans,
+                 steps, stats=stats)
+    busy = sum(kernels.values())
+    return (stats["kernels"] / steps, wall_us / steps / 1e3,
+            1 - busy / wall_us if wall_us > 0 else 0.0)
+
+
+def phase_obs(smi, model, device="cuda", prompts_spec=SLICE_PROMPTS,
+              step_timeout=FAULT_STEP_TIMEOUT_S, hang_s=FAULT_HANG_S,
+              **engine_kw):
+    """The observability spine on `model` (the slice's, full width) behind a
+    warmed paged engine with the prefix cache off (so a pass's greedy tokens
+    repeat bit for bit), under `serve(supervise=True)`.  Each pass posts
+    the slice's six requests to /generate while the scheduler is held, then
+    lets it go, so every pass admits all six in its first step and runs the
+    same decode steps and fetches:
+
+    1. trace off: the tokens, decode tokens/s, host fetches per decode
+       step, compile_counts();
+    2. trace on (FLAGS_trace), each request with a client X-Trace-Id and
+       X-Parent-Span: the same tokens bit for bit, no new trace, the same
+       host fetches per step, every reply echoing its id, and each
+       /trace/<id> one serve.handle root under the client's span with
+       engine.queue, engine.prefill, engine.decode and engine.fetch below.
+       This pass is the main path: the launch counts are set to 0 before
+       it and read after it (K1 six prefills x layers, K2 decode steps x
+       layers).  Then three more passes each way (`OBS_PASSES`), each with
+       the same tokens, steps and fetches: decode tokens/s with trace off
+       and on (four passes each, interleaved), each pass's host ms per
+       decode step and the garbage collector's passes;
+    3. /metrics scraped before and after step 2: every line parses, the
+       name set is `obs.metrics.METRIC_NAMES`, requests_total moves by 6 and
+       tokens_total by the tokens served, the per-compiled-shape dispatch
+       counts of flash_fwd and paged_decode_fused are > 0 and do not move
+       (nothing traced), every fallback count is 0;
+    4. flight: a prefill hang past the watchdog's deadline under the
+       supervisor, PADDLE_OBS_DIR set: a `watchdog-serve.prefill` dump whose
+       header parses and whose events hold the injected hang and the
+       watchdog's trip, then an `engine-restart-1` dump, and the six
+       requests give step 1's tokens;
+    5. profiled decode windows with trace off, then on: the same kernels
+       per step; their wall and idle share.
+
+    Returns (all checks passed, the launch counts of step 2)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.fault import injection as finj
+    from paddle_tpu_torch.framework import core as fcore
+    from paddle_tpu_torch.inference import serve
+    from paddle_tpu_torch.inference.engine import ContinuousBatchingEngine
+    from paddle_tpu_torch.obs import flight, metrics, trace
+
+    cfg = model.config
+    layers = cfg.num_hidden_layers
+    on_card = torch.device(device).type == "cuda"
+    t0 = time.perf_counter()
+    engine = ContinuousBatchingEngine(model, seed=0, device=device,
+                                      prefix_cache=False, **engine_kw)
+    engine.warmup()
+    warm = _warm_counts("obs", engine)
+    log("obs", f"engine built + warmed in {time.perf_counter() - t0:.1f} s "
+               f"(prefix cache off)")
+    rng = np.random.default_rng(0)  # the slice's prompts
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32)
+               for n, _ in prompts_spec]
+    news = [new for _, new in prompts_spec]
+    ok = True
+
+    def check(what, cond, detail=""):
+        nonlocal ok
+        ok &= bool(cond)
+        log("obs", f"{what}: {detail} -> {'ok' if cond else 'FAIL'}")
+
+    server = serve(engine, port=0, block=False, supervise=True,
+                   handle_signals=False)
+    base_url = f"http://127.0.0.1:{server.server_address[1]}"
+
+    def scrape():
+        with urllib.request.urlopen(base_url + "/metrics", timeout=60) as resp:
+            return _obs_samples(resp.read().decode())
+
+    def serve_pass(traced, scrapes=None, notes=None):
+        """The six requests, admitted together, with the launch counts and
+        the serving gauges set to 0 first; `scrapes` (a list) gets /metrics
+        just before the traffic and just after it, `notes` (a list) the
+        pass's host ms per decode step (dispatch to record) and the Python
+        garbage collector's passes and ms.  Returns (generated tokens,
+        reply headers, client trace ids, decode steps, serving summary,
+        launch counts); the scheduler is left stopped, every step of the
+        pass recorded."""
+        tids = [trace.new_trace_id() for _ in prompts]
+        got = [None] * len(prompts)
+        step_ms, gc_ms, gc_runs, gc_t0 = [], [0.0], [0, 0, 0], [0.0]
+        record_tick = profiler.record_serving_tick
+
+        def tick(occupancy, queue_depth, busy_s, t0=None):
+            step_ms.append(busy_s * 1e3)
+            record_tick(occupancy, queue_depth, busy_s, t0=t0)
+
+        def on_gc(phase, info):
+            if phase == "start":
+                gc_t0[0] = time.perf_counter()
+            else:
+                gc_ms[0] += (time.perf_counter() - gc_t0[0]) * 1e3
+                gc_runs[info["generation"]] += 1
+
+        def client(i):
+            headers = ({trace.HDR_TRACE: tids[i], trace.HDR_PARENT: OBS_CLIENT_SPAN}
+                       if traced else None)
+            got[i] = _post_full(base_url + "/generate",
+                                {"input_ids": prompts[i].tolist(),
+                                 "max_new_tokens": news[i]}, headers)
+
+        engine.stop()  # hold the scheduler while the six queue
+        profiler.reset_kernel_launch_counts()
+        profiler.reset_serving()
+        if scrapes is not None:
+            scrapes.append(scrape())
+        replays = engine._decode_g.replay_count
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        t_end = time.monotonic() + 120
+        while engine.pending < len(prompts) and time.monotonic() < t_end:
+            time.sleep(0.002)
+        profiler.record_serving_tick = tick
+        gc.callbacks.append(on_gc)
+        try:
+            engine.start()
+            for t in threads:
+                t.join(600)
+            # the last step records after its flush resolved the requests
+            engine.stop()
+        finally:
+            profiler.record_serving_tick = record_tick
+            gc.callbacks.remove(on_gc)
+        if any(t.is_alive() for t in threads) or None in got:
+            raise RuntimeError("obs: a /generate request did not complete")
+        if notes is not None:
+            notes.append((step_ms, gc_runs, gc_ms[0]))
+        counts = profiler.kernel_launch_counts()
+        if scrapes is not None:
+            scrapes.append(scrape())
+        toks = [np.asarray(b["tokens"][p.size:], np.int32) if s == 200 else None
+                for (s, _, b), p in zip(got, prompts)]
+        return (toks, [h for _, h, _ in got], tids,
+                engine._decode_g.replay_count - replays,
+                profiler.serving_summary(), counts)
+
+    def tree_of(tid):
+        """/trace/<tid> once its serve.handle span (recorded after the
+        reply's bytes are out) is in; bounded."""
+        t_end = time.monotonic() + 30
+        while True:
+            status, doc = _get_full(f"{base_url}/trace/{tid}")
+            if status == 200 and any(r["name"] == "serve.handle"
+                                     for r in doc["spans"]):
+                return doc["spans"]
+            if time.monotonic() > t_end:
+                return doc.get("spans", [])
+            time.sleep(0.01)
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    obs_dir = tempfile.mkdtemp(prefix="obs_flight_", dir=ROOT / "build")
+    old_obs_dir = os.environ.get("PADDLE_OBS_DIR")
+    counts = {}
+    try:
+        # -- 1. trace off --------------------------------------------------
+        fcore.set_flags({"FLAGS_trace": False})
+        notes = {False: [], True: []}
+        base, _, _, steps_off, sum_off, _ = serve_pass(False, notes=notes[False])
+        tps_off, fetch_off = _decode_rates(sum_off)
+        tokens_ok = all(b is not None and b.size == n for b, n in zip(base, news))
+        check("trace off: six requests over POST /generate", tokens_ok,
+              f"{steps_off} decode steps, host fetches per decode step "
+              f"{fetch_off:.4f}, decode_tokens_per_s {tps_off:.2f}")
+        ok &= _no_retrace("obs", engine, warm)
+
+        # -- 2. trace on, with client trace context, and 3. /metrics --------
+        fcore.set_flags({"FLAGS_trace": True})
+        trace.reset()
+        recorded = trace.stats()["spans_recorded"]
+        scrapes = []
+        toks, hdrs, tids, steps_on, sum_on, counts = serve_pass(True, scrapes,
+                                                                notes[True])
+        (before, names_before), (after, names_after) = scrapes
+        tps_on, fetch_on = _decode_rates(sum_on)
+        same = all(t is not None and np.array_equal(t, b) for t, b in zip(toks, base))
+        check("trace on: the same tokens bit for bit", same,
+              f"{sum(t is not None and np.array_equal(t, b) for t, b in zip(toks, base))}"
+              f"/{len(base)} requests equal")
+        check("trace on: no new trace, the same fetches per step",
+              engine.compile_counts() == warm and fetch_on == fetch_off
+              and steps_on == steps_off,
+              f"compile_counts {engine.compile_counts()}, host fetches per "
+              f"decode step {fetch_on:.4f} (off {fetch_off:.4f}), decode steps "
+              f"{steps_on} (off {steps_off})")
+        echoed = all(h.get(trace.HDR_TRACE) == t for h, t in zip(hdrs, tids))
+        check("every reply echoes its X-Trace-Id", echoed, f"{len(tids)} replies")
+        want = {"engine.queue", "engine.prefill", "engine.decode", "engine.fetch"}
+        shapes = []
+        for tid in tids:
+            roots = tree_of(tid)
+            kids = {c["name"] for r in roots for c in r["children"]}
+            shapes.append(len(roots) == 1 and roots[0]["name"] == "serve.handle"
+                          and roots[0]["parent_id"] == OBS_CLIENT_SPAN
+                          and want <= kids)
+        check("each /trace/<id>: one serve.handle under the client's span, "
+              "engine.queue/prefill/decode/fetch below", all(shapes),
+              f"{sum(shapes)}/{len(tids)} trees; spans recorded "
+              f"{trace.stats()['spans_recorded'] - recorded}, dropped "
+              f"{trace.stats()['spans_dropped']}")
+        # four passes each way in the order off, on | on, off, off, on, on,
+        # off, so that a drift over the phase cancels
+        rates = {False: [tps_off], True: [tps_on]}
+        for traced in OBS_PASSES:
+            fcore.set_flags({"FLAGS_trace": traced})
+            more, _, _, steps, summary, _ = serve_pass(traced, notes=notes[traced])
+            rate, fetch = _decode_rates(summary)
+            rates[traced].append(rate)
+            check(f"trace {'on' if traced else 'off'} again: the same tokens, "
+                  f"steps and fetches",
+                  all(t is not None and np.array_equal(t, b)
+                      for t, b in zip(more, base))
+                  and steps == steps_off and fetch == fetch_off,
+                  f"decode steps {steps}, host fetches per step {fetch:.4f}")
+        fcore.set_flags({"FLAGS_trace": True})
+        for traced in (False, True):
+            for i, (ms, runs, gms) in enumerate(notes[traced]):
+                ms = sorted(ms)
+                log("obs", f"trace {'on' if traced else 'off'} pass {i + 1}: "
+                           f"decode_tokens_per_s {rates[traced][i]:.2f}; the host's "
+                           f"ms per decode step (dispatch to record) median "
+                           f"{statistics.median(ms):.3f}, p90 "
+                           f"{ms[int(0.9 * (len(ms) - 1))]:.3f}, max {ms[-1]:.3f}; "
+                           f"gc passes by generation {runs}, {gms:.3f} ms")
+        off, on = (statistics.mean(rates[k]) for k in (False, True))
+        log("obs", f"decode_tokens_per_s means over {len(rates[False])} passes "
+                   f"each: trace off {off:.2f}, on {on:.2f} "
+                   f"({on / max(off, 1e-9) - 1:+.4f}); host fetches per decode "
+                   f"step off {fetch_off:.4f}, on {fetch_on:.4f} | {smi}")
+        want_k1 = len(prompts) * layers if on_card else 0
+        want_k2 = steps_on * layers if on_card else 0
+        check("launch counts of the traced pass",
+              counts["flash_fwd"] == want_k1 and counts["paged_decode_fused"] == want_k2
+              and steps_on > 0,
+              f"{_main(counts)} (expected flash_fwd {want_k1} = 6 prefills x "
+              f"{layers} layers, paged_decode_fused {want_k2} = {steps_on} decode "
+              f"steps x {layers} layers)")
+        served = sum(int(t.size) for t in toks if t is not None)
+        moved_req = (_obs_metric(after, "paddle_serving_requests_total")
+                     - _obs_metric(before, "paddle_serving_requests_total"))
+        moved_tok = (_obs_metric(after, "paddle_serving_tokens_total")
+                     - _obs_metric(before, "paddle_serving_tokens_total"))
+        check("/metrics: names and serving counters",
+              names_before == names_after == list(metrics.METRIC_NAMES)
+              and moved_req == len(prompts) and moved_tok == served,
+              f"{len(names_after)} names (the kept list's {len(metrics.METRIC_NAMES)}), "
+              f"{len(after)} samples; requests_total moved {moved_req:g} (expected "
+              f"{len(prompts)}), tokens_total {moved_tok:g} (expected {served})")
+        pallas = {k: (_obs_metric(before, "paddle_flash_pallas_calls_total", kernel=k),
+                      _obs_metric(after, "paddle_flash_pallas_calls_total", kernel=k))
+                  for k in ("flash_fwd", "paged_decode_fused")}
+        fallbacks = [v for k, v in after.items()
+                     if k.startswith("paddle_flash_fallbacks_total")]
+        pallas_ok = all(a == b and (a > 0 or not on_card) for b, a in pallas.values())
+        check("/metrics: kernel dispatches per compiled shape, no fallback",
+              pallas_ok and len(fallbacks) == 9 and not any(fallbacks),
+              f"flash_fwd {pallas['flash_fwd'][1]:g}, paged_decode_fused "
+              f"{pallas['paged_decode_fused'][1]:g} (warmup's traces; unchanged "
+              f"by the traffic, which traced nothing); {len(fallbacks)} fallback "
+              f"reasons, all 0: {not any(fallbacks)}")
+        log("obs", f"obs buffers: spans recorded "
+                   f"{_obs_metric(after, 'paddle_obs_spans_recorded_total'):g}, "
+                   f"buffered {_obs_metric(after, 'paddle_obs_spans_buffered'):g}, "
+                   f"dropped {_obs_metric(after, 'paddle_obs_spans_dropped_total'):g}; "
+                   f"flight events {_obs_metric(after, 'paddle_flight_events_total'):g}")
+
+        # -- 4. flight: a watchdog trip and the supervisor's restart --------
+        os.environ["PADDLE_OBS_DIR"] = obs_dir
+        fcore.set_flags({"FLAGS_serve_step_timeout_sec": step_timeout,
+                         "FLAGS_fault_hang_sec": hang_s})
+        restarts = engine.restart_count
+        finj.arm("serve.prefill.hang:1")
+        toks, _, _, _, _, _ = serve_pass(True)
+        finj.disarm()
+        dumps = {}
+        for path in sorted(pathlib.Path(obs_dir).glob("flight-*.jsonl")):
+            lines = [json.loads(l) for l in path.read_text().splitlines()]
+            dumps[lines[0]["reason"]] = (path.name, lines[0], lines[1:])
+        trip = dumps.get("watchdog-serve.prefill")
+        kinds = {e["kind"] for e in trip[2]} if trip else set()
+        order = sorted(dumps, key=lambda r: dumps[r][0])
+        check("flight: watchdog dump, then the restart's",
+              trip is not None and trip[1]["kind"] == "header"
+              and {"hang", "watchdog"} <= kinds
+              and "serve.prefill" in trip[1]["armed"]
+              and order[:2] == ["watchdog-serve.prefill", "engine-restart-1"]
+              and engine.restart_count == restarts + 1,
+              f"dumps {[dumps[r][0] for r in order]}; the trip's header "
+              f"{sorted(trip[1]) if trip else None}, its ring's kinds "
+              f"{sorted(kinds)}; restarts {engine.restart_count - restarts}")
+        same = all(t is not None and np.array_equal(t, b) for t, b in zip(toks, base))
+        check("flight: the six requests after the restart", same,
+              "tokens equal trace off's")
+
+        # -- 5. profiled decode windows, trace off then on, after every
+        # timed pass ---------------------------------------------------------
+        fcore.set_flags({"FLAGS_serve_step_timeout_sec": 0.0,
+                         "FLAGS_fault_hang_sec": 3600.0})
+        if on_card:
+            engine.stop()  # the profiles drive the steps themselves
+            fcore.set_flags({"FLAGS_trace": False})
+            k_off, wall_off, idle_off = _profile_decode_kernels(engine, cfg, rng)
+            fcore.set_flags({"FLAGS_trace": True})
+            k_on, wall_on, idle_on = _profile_decode_kernels(
+                engine, cfg, rng, trace=(trace.new_trace_id(), OBS_CLIENT_SPAN))
+            check("profiled decode step: kernels per step trace on = off",
+                  k_on == k_off,
+                  f"{k_on:.1f} (off {k_off:.1f}); wall {wall_on:.3f} ms/step "
+                  f"(off {wall_off:.3f}), idle share {idle_on:.3f} (off "
+                  f"{idle_off:.3f}) | {smi}")
+        ok &= _no_retrace("obs", engine, warm)
+    finally:
+        finj.disarm()
+        fcore.set_flags({"FLAGS_trace": False, "FLAGS_serve_step_timeout_sec": 0.0,
+                         "FLAGS_fault_hang_sec": 3600.0})
+        if old_obs_dir is None:
+            os.environ.pop("PADDLE_OBS_DIR", None)
+        else:
+            os.environ["PADDLE_OBS_DIR"] = old_obs_dir
+        server.stop()
+        trace.reset()
+        flight.reset()
+        shutil.rmtree(obs_dir, ignore_errors=True)
+    return ok, counts
+
+
 def _device_profile(run, steps):
     """Run `run()` `steps` times under torch.profiler.  Returns (wall us,
     {kernel name: device us}, {annotated range: device us}, {"host_us":
@@ -4545,8 +4947,6 @@ def longcontext_grad_check(cfg, R, seq, device="cuda", seed=1):
 
 def _free():
     """Release the previous phase's model before the next one builds."""
-    import gc
-
     import torch
 
     gc.collect()
@@ -4609,6 +5009,8 @@ def main():
         fault_ok, fault_counts = _timed("fault", phase_fault, smi, model,
                                         **serving)
         _free()
+        obs_ok, obs_counts = _timed("obs", phase_obs, smi, model, **serving)
+        _free()
         # buckets up to the context: every prompt of the traffic lands in a
         # warmed one, so none traces under traffic
         cp_kw = dict(slots=4, max_len=4096, page_size=128,
@@ -4666,7 +5068,7 @@ def main():
         traceback.print_exc()
         return 1
     if not (kernels_ok and slice_ok and prefix_ok and gen_ok and dense_ok
-            and fault_ok and cp_ok and f32_ok and train_ok and recompute_ok and grad_ok
+            and fault_ok and obs_ok and cp_ok and f32_ok and train_ok and recompute_ok and grad_ok
             and amp_ok and bert_ok and bert_grad_ok and ring_ok and lc_ok
             and lc2_ok and lc_grad_ok):
         print("chip_smoke: a phase failed (see the lines above)", file=sys.stderr)
@@ -4674,7 +5076,7 @@ def main():
     # launches: the serving, generation and training runs' counts, each read
     # just after its path ran
     runs = [counts, *prefix_counts, gen_counts, dense_counts, fault_counts,
-            *cp_counts,
+            obs_counts, *cp_counts,
             *f32_counts, train_counts, amp_counts, bert_counts, *ring_counts,
             lc_counts, lc2_counts]
     launches = {name: sum(c.get(name, 0) for c in runs) for name in kernels}

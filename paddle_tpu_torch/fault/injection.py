@@ -28,6 +28,7 @@ import threading
 import time
 
 from ..framework import core as _core
+from ..obs import flight as _flight
 
 logger = logging.getLogger("paddle_tpu_torch")
 
@@ -45,8 +46,11 @@ _events = collections.deque(maxlen=64)
 
 
 def record_event(kind, detail=""):
-    """Append to the fault-event ring buffer (thread-safe: deque append)."""
+    """Append to the fault-event ring buffer (thread-safe: deque append),
+    and mirror the event into the obs flight recorder's ring, so its dumps
+    carry the fault timeline."""
     _events.append({"t": time.monotonic(), "kind": kind, "detail": str(detail)})
+    _flight.record(kind, detail)
 
 
 def recent_events(n=None):

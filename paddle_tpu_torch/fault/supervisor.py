@@ -9,6 +9,7 @@ import threading
 import time
 
 from ..framework import core as _core
+from ..obs import flight as _flight
 from . import injection as _inj
 
 logger = logging.getLogger("paddle_tpu_torch")
@@ -33,7 +34,10 @@ class EngineSupervisor:
     emitted nothing, else failed with `EngineRestarted`).  Past
     `max_restarts` the supervisor declares the engine dead and
     `engine.fail_all()` resolves everything pending with typed errors.
-    The poll thread reads host state only: no CUDA call."""
+    Each restart first writes the flight recorder's ring to a dump
+    (`engine-restart-{n}`), and so does the exhausted budget
+    (`engine-restart-budget-exhausted`).  The poll thread reads host state
+    only: no CUDA call."""
 
     def __init__(self, engine, poll_interval=0.1, max_restarts=None,
                  backoff=None, backoff_max=30.0, stall_timeout=None):
@@ -125,12 +129,16 @@ class EngineSupervisor:
                          reason)
             _inj.record_event(
                 "engine", f"restart budget exhausted after {spent} ({reason})")
+            _flight.dump("engine-restart-budget-exhausted")
             with self._state_mu:
                 self.dead = True
             self.engine.fail_all(f"restart budget exhausted ({reason})")
             return False
         logger.error("engine supervisor: %s; engine restart %d/%d in %.2fs",
                      reason, spent, self.max_restarts, delay)
+        # before the restart clears the engine's state: the timeline up to
+        # the trip is what the post-mortem needs
+        _flight.dump(f"engine-restart-{spent}")
         if delay > 0:
             time.sleep(delay)
         self.engine.restart(reason)

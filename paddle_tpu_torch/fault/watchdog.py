@@ -20,6 +20,15 @@ must not touch the device either.  A CUDA call there would join a stream
 capture running on the scheduler thread (and invalidate it), or block
 behind the very stream that is wedged.
 
+Before its action, a trip writes the flight recorder's ring to a JSONL
+dump (`obs.flight.dump(f"watchdog-{region}")`); every arm notes the
+region in the recorder's armed-region gauge.  Both hold strings and
+numbers only, never a region or its action.
+
+A monitor pass (the regions that expired together, fired in turn) ends
+observably: `wait_for_monitor()` returns once no pass is running, and by
+then the monitor thread holds nothing of the regions it fired.
+
 A timeout <= 0 disables a region: it costs no lock.
 """
 
@@ -32,6 +41,8 @@ import sys
 import threading
 import time
 import traceback
+
+from ..obs import flight as _flight
 
 logger = logging.getLogger("paddle_tpu_torch")
 
@@ -89,6 +100,7 @@ _regions = {}  # id -> _Region
 _cv = threading.Condition()
 _ids = itertools.count(1)
 _monitor = None
+_firing = 0  # regions of the monitor pass in progress, under _cv
 
 
 def _ensure_monitor():
@@ -102,28 +114,53 @@ def _ensure_monitor():
 
 def _monitor_loop():
     # no local of this frame outlives one pass: a region kept here would
-    # keep its watchdog's action, and so the engine behind it, alive
+    # keep its watchdog's action, and so the engine behind it, alive.  The
+    # pass ends (wait_for_monitor wakes) only after _fire_all returned,
+    # when its frame, the expired list and the last region are gone
+    global _firing
     while True:
         _fire_all(_wait_for_expired())
+        with _cv:
+            _firing = 0
+            _cv.notify_all()
+
+
+def wait_for_monitor(timeout=5.0):
+    """Block until no monitor pass is firing regions, for at most `timeout`
+    seconds; returns whether none is.  A region popped from the table
+    before the monitor marked it fired never fires, so once its `arm()`
+    has exited this tells whether it tripped: the trip's action has run
+    and the monitor holds nothing of the region.  Holds no region and no
+    action itself."""
+    t_end = time.monotonic() + float(timeout)
+    with _cv:
+        while _firing:
+            left = t_end - time.monotonic()
+            if left <= 0:
+                return False
+            _cv.wait(left)
+    return True
 
 
 def _wait_for_expired():
     """Block until some armed region is past its deadline; mark those
-    fired and return them."""
+    fired, count them as the pass in progress and return them.  No region
+    is held while waiting: a region that exits meanwhile is freed with its
+    arm()."""
+    global _firing
     with _cv:
         while True:
-            live = [r for r in _regions.values() if not r.fired]
             now = time.monotonic()
-            if not live:
-                _cv.wait(timeout=60)
+            nearest = min((r.deadline for r in _regions.values() if not r.fired),
+                          default=None)
+            if nearest is None or nearest > now:
+                _cv.wait(timeout=60 if nearest is None else nearest - now)
                 continue
-            nearest = min(r.deadline for r in live)
-            if nearest > now:
-                _cv.wait(timeout=nearest - now)
-                continue
-            expired = [r for r in live if r.deadline <= now]
+            expired = [r for r in _regions.values()
+                       if not r.fired and r.deadline <= now]
             for r in expired:
                 r.fired = True
+            _firing = len(expired)
             return expired
 
 
@@ -141,9 +178,15 @@ def _fire(r):
     logger.error("watchdog fired: %s", note)
     dump_stacks(note=note)
     _inj.record_event("watchdog", f"fired: {r.region} after {r.timeout:.1f}s")
+    # the trip is the moment state is about to be lost: the ring goes to
+    # disk before the action runs (the dump reads strings and numbers only)
+    _flight.dump(f"watchdog-{r.region}")
     action = r.watchdog.action
     if callable(action):
-        action(r.region, r.timeout)
+        try:
+            action(r.region, r.timeout)
+        except Exception:  # the monitor serves every other region too
+            logger.exception("watchdog action for region %r failed", r.region)
     # "raise": arm() raises WatchdogTimeout when the region exits
 
 
@@ -165,11 +208,14 @@ class Watchdog:
         if t <= 0:
             yield
             return
+        # the last arm per region, a gauge rather than a ring event: decode
+        # and fetch arm every step and would flood the ring
+        _flight.note_arm(region, context)
         _ensure_monitor()
         r = _Region(next(_ids), region, time.monotonic() + t, t, context, self)
         with _cv:
             _regions[r.id] = r
-            _cv.notify()
+            _cv.notify_all()  # the monitor, not a wait_for_monitor caller
         try:
             yield
         finally:

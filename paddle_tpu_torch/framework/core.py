@@ -259,6 +259,20 @@ define_flag(
     "the watchdog, not the sleep, ends the hang)",
 )
 define_flag(
+    "FLAGS_trace",
+    os.environ.get("PADDLE_TRACE", "") not in ("", "0", "false"),
+    "host-side request tracing (paddle_tpu_torch.obs): record per-stage "
+    "spans (serve.handle, engine.queue/prefill/chunk_prefill/decode/verify/"
+    "fetch) into a bounded in-memory buffer, served on GET /trace/<id> and "
+    "exportable as Chrome-trace JSON.  Host bookkeeping only: no new trace "
+    "of a step, no device sync; off by default",
+)
+define_flag(
+    "FLAGS_obs_buffer_events", 4096,
+    "capacity of the obs span buffer and of the flight recorder's event "
+    "ring (paddle_tpu_torch.obs); the oldest entries are evicted first",
+)
+define_flag(
     "FLAGS_router_idem_ttl", 300.0,
     "serve(): seconds a completed response stays cached against its "
     "X-Idempotency-Key.  Within the TTL a resubmitted key replays the stored "

@@ -17,6 +17,9 @@ import torch
 
 from ..fault import EngineSupervisor
 from ..framework import core as _fcore
+from ..obs import flight as _flight
+from ..obs import metrics as _obs_metrics
+from ..obs import trace as _obs
 from ..serving.journal import IdempotencyCache
 from .engine import (
     ContextOverflow,
@@ -126,13 +129,26 @@ def serve(engine, port=8866, host="127.0.0.1", block=True, supervise=True,
       never cached.  Predictor: calls to the one model run one at a time;
       beyond FLAGS_serve_queue_depth running or waiting requests the server
       answers 503; a bad body, or a request the model refuses, answers 400.
-      Error bodies carry "error", "type", "retriable" and "retry_after_s",
-      as the reference's do.
+      Error bodies carry "error", "type", "retriable", "retry_after_s" and
+      "trace_id", as the reference's do.
     - GET /health: {"status": "ok"}.
     - GET /healthz: an engine's status (ready, live, draining, dead),
       occupancy, queue depth, restarts, drain estimate, deadline-miss rate,
       mesh and tokens per step (503 unless ready or live); a predictor's
       {"status": "ready"} (or "draining").
+    - GET /metrics: every profiler family as Prometheus text
+      (`obs.metrics.render`), each sample labelled {replica="host:port"}
+      with the bound address.
+    - GET /trace/<id>: {"trace_id", "spans": [root, ...]}, the span tree of
+      one trace (`obs.trace.tree`), or 404 when none of its spans is
+      buffered.
+
+    Tracing (reference: inference/__init__.py:575-600): every POST joins
+    the caller's trace context (`X-Trace-Id`, `X-Parent-Span`) or mints a
+    root, and every reply carries `X-Trace-Id`.  Under FLAGS_trace the
+    request's `serve.handle` span (its id minted first, so the engine's
+    stage spans hang under it; the rows of a batched body share it) is
+    recorded after the reply's bytes are out, as the reference records it.
 
     Fault domain (reference: inference/__init__.py:216-225): an engine runs
     under a `fault.EngineSupervisor` (`supervise=False` opts out), so a
@@ -142,7 +158,9 @@ def serve(engine, port=8866, host="127.0.0.1", block=True, supervise=True,
     /healthz reads draining), lets in-flight work finish for up to `grace`
     seconds (PADDLE_STOP_GRACE, else FLAGS_serve_drain_grace), then stops
     the supervisor, the engine and the HTTP loop; it returns its worker
-    thread.  SIGTERM drains too, when serve() runs on the main thread or
+    thread.  A drain first writes the flight recorder's ring to a dump
+    (`serve-drain`); while it lasts, /metrics, /trace and /healthz still
+    answer.  SIGTERM drains too, when serve() runs on the main thread or
     `handle_signals=True`; the previous handler comes back when the server
     stops, and a forked child starts with SIG_DFL.
 
@@ -169,6 +187,8 @@ def serve(engine, port=8866, host="127.0.0.1", block=True, supervise=True,
 
     class Handler(BaseHTTPRequestHandler):
         _idem_key = None  # the key this handler must complete, if any
+        _trace_id = None  # the POST's trace id, echoed on every reply
+        _err = None  # the POST's error type, for its serve.handle span
 
         def log_message(self, *a):
             pass
@@ -185,20 +205,24 @@ def serve(engine, port=8866, host="127.0.0.1", block=True, supervise=True,
             self.send_response(code)
             self.send_header("Content-Type", "application/json")
             self.send_header("Content-Length", str(len(body)))
+            if self._trace_id:
+                self.send_header(_obs.HDR_TRACE, self._trace_id)
             for k, v in (headers or {}).items():
                 self.send_header(k, v)
             self.end_headers()
             self.wfile.write(body)
 
         def _reply_error(self, code, err_type, msg, retriable, retry_after=None):
-            # the reference's typed error body (`_reply_error`), less the
-            # trace id (the port has no tracing yet)
+            # the reference's typed error body (`_reply_error`): the trace
+            # id joins a failure to its span tree
+            self._err = err_type
             headers = {}
             if retry_after is not None:
                 headers["Retry-After"] = str(max(1, int(retry_after + 0.5)))
             self._reply(code, {"error": msg, "type": err_type,
                                "retriable": bool(retriable),
-                               "retry_after_s": retry_after or 0}, headers)
+                               "retry_after_s": retry_after or 0,
+                               "trace_id": self._trace_id}, headers)
 
         def _error(self, code, err, retry_after=None, msg=None):
             self._reply_error(code, type(err).__name__,
@@ -224,10 +248,46 @@ def serve(engine, port=8866, host="127.0.0.1", block=True, supervise=True,
                 else:
                     h = {"status": "draining" if state["draining"] else "ready"}
                 self._reply(200 if h["status"] in ("ready", "live") else 503, h)
+            elif self.path == "/metrics":
+                # the bound address, not the port argument (0: ephemeral)
+                bh, bp = self.server.server_address[:2]
+                body = _obs_metrics.render(labels={"replica": f"{bh}:{bp}"}).encode()
+                self.send_response(200)
+                self.send_header("Content-Type", _obs_metrics.CONTENT_TYPE)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+            elif self.path.startswith("/trace/"):
+                tid = self.path[len("/trace/"):]
+                roots = _obs.tree(tid)
+                if roots:
+                    self._reply(200, {"trace_id": tid, "spans": roots})
+                else:
+                    self._reply(404, {"error": f"no spans buffered for trace {tid!r}"})
             else:
-                self._reply(404, {"error": "use GET /healthz or POST /generate"})
+                self._reply(404, {"error": "use GET /healthz, /metrics, "
+                                           "/trace/<id> or POST /generate"})
 
         def do_POST(self):
+            # the caller's trace context, or a minted root (minting is
+            # always on: error bodies carry trace_id); the serve.handle
+            # span id is minted first so the engine's spans can hang under
+            # it before it completes
+            ctx = _obs.ctx_from_headers(self.headers)
+            self._trace_id = ctx[0] if ctx else _obs.new_trace_id()
+            self._handle_sid = _obs.new_span_id()
+            self._err = None
+            t0 = time.perf_counter()
+            try:
+                self._do_post()
+            finally:
+                _obs.record("serve.handle", self._trace_id, t0=t0,
+                            t1=time.perf_counter(), span_id=self._handle_sid,
+                            parent_id=ctx[1] if ctx else None,
+                            status="error" if self._err else "ok",
+                            path=self.path, error=self._err)
+
+        def _do_post(self):
             if state["draining"]:
                 self._busy("server draining, retry elsewhere", err_type="Draining")
                 return
@@ -309,11 +369,14 @@ def serve(engine, port=8866, host="127.0.0.1", block=True, supervise=True,
                             session_id=req.get("session_id"),
                             handoff=req.get("handoff"),
                             reservation=req.get("reservation"),
+                            trace=(self._trace_id, self._handle_sid),
                         ))
                 except ContextOverflow as e:  # terminal: no retry holds more
+                    self._err = type(e).__name__
                     self._reply(400, {"error": str(e), "type": type(e).__name__,
                                       "retriable": False, "retry_after_s": 0,
-                                      "capacity": e.body()})
+                                      "capacity": e.body(),
+                                      "trace_id": self._trace_id})
                     return
                 except DeadlineUnattainable as e:
                     # 504 but retriable: a less loaded replica may meet it
@@ -399,6 +462,9 @@ def serve(engine, port=8866, host="127.0.0.1", block=True, supervise=True,
                                          _fcore.flag("FLAGS_serve_drain_grace")))
 
         def worker():
+            # the process's last orderly moment: the ring goes to disk
+            # before in-flight work winds down
+            _flight.dump("serve-drain")
             if engine is not None:
                 engine.drain()
                 deadline = time.monotonic() + float(grace)

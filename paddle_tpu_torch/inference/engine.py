@@ -128,10 +128,26 @@ context wedged: no restart can recover it, the supervisor's budget runs
 out, and `fail_all()` resolves every request without taking `_mu` from
 the thread stuck in the fetch (a bounded acquire) and without a CUDA call.
 
+Observability (the reference's, engine.py:2217-2862): a request
+submitted with `trace=(trace_id, parent_span_id)` records, under
+FLAGS_trace, an `engine.queue` span (submission to the prefill's
+dispatch), `engine.prefill` (or `engine.chunk_prefill` after a prefix
+hit), one `engine.decode` span per decode epoch (a stretch of constant
+slot membership, opened where the loop state is reloaded and closed at
+every membership change; with `engine.verify` and the epoch's drafts
+proposed and accepted under speculation) and `engine.fetch` per token
+fetch that emitted for it.  Every hook is host code around a dispatch or a
+fetch, never inside a step body, and reads the host clock only: with
+decode in flight an epoch and a fetch measure host time, as the
+reference's do.  Span attributes and the epoch's bookkeeping hold request
+ids and trace ids, never a request.  Admission refusals
+(`rejected_deadline`, `queue_full`) go to the flight recorder's ring, and
+so do restarts and `fail_all` (through `fault.injection.record_event`).
+
 Not ported yet (ROADMAP, Queue 1): sessions, LoRA, the disaggregated page
-import, tensor parallelism, context parallelism across cards (NCCL) and
-`/metrics`.  A knob that asks for one of them raises NotImplementedError,
-and so does a request field of one (`submit`'s `session_id`, `handoff`,
+import, tensor parallelism and context parallelism across cards (NCCL).
+A knob that asks for one of them raises NotImplementedError, and so does
+a request field of one (`submit`'s `session_id`, `handoff`,
 `reservation`).
 """
 
@@ -152,6 +168,8 @@ from .. import profiler as _prof
 from ..fault import injection as _inj
 from ..fault import watchdog as _wd
 from ..framework import core as _fcore
+from ..obs import flight as _flight
+from ..obs import trace as _obs
 from ..models.llama import (
     PagedDecodeView,
     PagedKVCache,
@@ -297,10 +315,13 @@ class EngineRequest:
     list of device tensors, copies of the steps' outputs).  `spec_k` caps
     this request's draft length below the engine's (0 opts out, None = the
     engine's).  `deadline_s` is relative to submission; the absolute
-    deadline is `_deadline_t` on `time.perf_counter`'s clock."""
+    deadline is `_deadline_t` on `time.perf_counter`'s clock.  `trace` is
+    the request's trace context, (trace_id, parent_span_id) strings, or
+    None."""
 
     def __init__(self, rid, prompt, max_new_tokens, temperature, eos_token_id,
-                 keep_logits=False, spec_k=None, on_token=None, deadline_s=None):
+                 keep_logits=False, spec_k=None, on_token=None, deadline_s=None,
+                 trace=None):
         self.id = int(rid)
         self.prompt = prompt  # np.int32 [L]
         self.max_new_tokens = int(max_new_tokens)
@@ -310,6 +331,8 @@ class EngineRequest:
         self.keep_logits = bool(keep_logits)
         self.spec_k = None if spec_k is None else int(spec_k)
         self.deadline_s = None if deadline_s is None else float(deadline_s)
+        self.trace = (None if trace is None
+                      else (str(trace[0]), str(trace[1] or "")))
         self.logits = []
         self.tokens = []  # generated ids (eos included when hit)
         self.finished = threading.Event()
@@ -462,6 +485,8 @@ class ContinuousBatchingEngine:
         # graph's static inputs, reloaded from the host mirrors only when
         # slot membership changes (None until then)
         self._dev = None
+        # the open decode epoch of traced members (_obs_epoch_open), or None
+        self._ep = None
         # decode steps dispatched but not fetched yet: [(copy of [nxt;
         # finite] [2, S] int32, active slots, dispatch time, copy of the
         # logits or None)]
@@ -851,7 +876,7 @@ class ContinuousBatchingEngine:
     def submit(self, input_ids, max_new_tokens=32, temperature=0.0,
                eos_token_id=None, keep_logits=False, spec_k=None, on_token=None,
                deadline_s=None, adapter=None, session_id=None, handoff=None,
-               reservation=None):
+               reservation=None, trace=None):
         """Enqueue one request (1-D token ids); returns an EngineRequest at
         once.  `on_token(tok)` streams each emitted token (the scheduler
         then fetches every decode step at once).  Raises ContextOverflow
@@ -860,7 +885,9 @@ class ContinuousBatchingEngine:
         a shard's share of it exceeds the shard), DeadlineUnattainable when
         `deadline_s` cannot beat the current queue-drain estimate, and
         EngineUnavailable while draining or after the restart budget is
-        spent (reference: engine.py:1077-1250).  `spec_k` caps the
+        spent (reference: engine.py:1077-1250).  `trace` is the request's
+        trace context (trace_id, parent_span_id): under FLAGS_trace its
+        engine.* spans hang under that parent.  `spec_k` caps the
         request's draft length below the engine's (0 opts out).  Ids
         outside [0, vocab_size) raise ValueError: on the card an
         out-of-range embedding row is a device-side assert that poisons the
@@ -917,6 +944,9 @@ class ContinuousBatchingEngine:
             est = self.estimate_drain_s()
             if est > float(deadline_s):
                 _prof.record_serving_fault("rejected_deadline")
+                _flight.record("admission", "rejected_deadline",
+                               deadline_s=float(deadline_s),
+                               drain_est_s=round(est, 3))
                 raise DeadlineUnattainable(
                     f"deadline {deadline_s}s cannot beat the current "
                     f"queue-drain estimate {est:.2f}s",
@@ -935,7 +965,7 @@ class ContinuousBatchingEngine:
             )
         req = EngineRequest(next(self._req_ids), ids, max_new_tokens,
                             temperature, eos_token_id, keep_logits, spec_k,
-                            on_token, deadline_s=deadline_s)
+                            on_token, deadline_s=deadline_s, trace=trace)
         req._submit_t = time.perf_counter()
         if deadline_s is not None:
             req._deadline_t = req._submit_t + float(deadline_s)
@@ -947,6 +977,8 @@ class ContinuousBatchingEngine:
         except queue.Full:
             with self._mu:
                 self._queued_new_tokens -= req.max_new_tokens
+            _flight.record("admission", "queue_full",
+                           queue_depth=self.queue_depth)
             raise QueueFull(
                 f"admission queue full ({self.queue_depth} pending)",
                 retry_after_s=self._shed_retry_after(deadline_s),
@@ -1216,6 +1248,7 @@ class ContinuousBatchingEngine:
         self._temps[:] = 0.0
         # drafters rebuild at re-admission from prompt + first token
         self._drafters = [None] * self.slots
+        self._obs_epoch_close()
         self._dev = None
         self._pending_fetch = []
 
@@ -1541,8 +1574,10 @@ class ContinuousBatchingEngine:
             # cache rows run out at max_len: the last writable decode row is
             # max_len - 1, giving max_len - L generatable tokens
             req.max_new_tokens = min(req.max_new_tokens, self.max_len - L)
-        toks = np.zeros((1, self._bucket_for(L)), np.int32)
+        bucket = self._bucket_for(L)
+        toks = np.zeros((1, bucket), np.int32)
         toks[0, :L] = req.prompt
+        t_pf = self._obs_queued(req)
         with self._prefill_armed(req):
             with self._launch(gen):
                 nxt, logits = self._run_prefill(toks, L, req.temperature, slot=s)
@@ -1550,6 +1585,26 @@ class ContinuousBatchingEngine:
         with self._mu:
             self._check_gen(gen)  # a restart during the dispatch owns req
             self._land_locked(s, req, tok, logits)
+        self._obs_prefilled(req, t_pf, s, bucket, 0)
+
+    def _obs_queued(self, req):
+        """The prefill's dispatch time; records the request's engine.queue
+        span (submission to now) when it is traced."""
+        t_pf = time.perf_counter()
+        if req.trace:
+            _obs.record("engine.queue", req.trace[0], t0=req._submit_t,
+                        t1=t_pf, parent_id=req.trace[1], req=req.id)
+        return t_pf
+
+    def _obs_prefilled(self, req, t_pf, s, bucket, match_len):
+        """Records a traced request's engine.prefill span (engine.
+        chunk_prefill after a prefix hit): dispatch to landing."""
+        if req.trace:
+            _obs.record(
+                "engine.chunk_prefill" if match_len else "engine.prefill",
+                req.trace[0], t0=t_pf, t1=time.perf_counter(),
+                parent_id=req.trace[1], req=req.id, bucket=bucket, slot=s,
+                prefix_match=match_len or None)
 
     @contextlib.contextmanager
     def _prefill_armed(self, req):
@@ -1572,6 +1627,7 @@ class ContinuousBatchingEngine:
         self._last_tok[s] = tok
         self._temps[s] = req.temperature
         req.state = "decoding"
+        self._obs_epoch_close()
         self._dev = None  # membership changed: rebuild device state
         if self._spec_on and req.temperature == 0.0 and req.spec_k != 0:
             # greedy slots draft from their own history; sampled slots ride
@@ -1646,6 +1702,7 @@ class ContinuousBatchingEngine:
         toks = np.zeros((1, bucket), np.int32)
         toks[0, :suffix] = req.prompt[match_len:]
         check_table_bounds(row_table, self.pool_pages)
+        t_pf = self._obs_queued(req)
         try:
             with self._prefill_armed(req):
                 with self._launch(gen):
@@ -1666,6 +1723,7 @@ class ContinuousBatchingEngine:
                 if inserted:
                     _prof.record_paging_event("cache_commits", inserted)
             self._land_locked(s, req, tok, logits)
+        self._obs_prefilled(req, t_pf, s, bucket, match_len)
 
     def _load_state_locked(self, active_idx):
         """The decode loop state of the current slot membership, from the
@@ -1722,6 +1780,7 @@ class ContinuousBatchingEngine:
             if self._dev is None:  # membership changed: reload the state
                 load = self._load_state_locked(active_idx)
                 load["toks"] = self._last_tok.reshape(self.slots, 1).copy()
+                self._obs_epoch_open(active_idx)
             keep = any(self._slot_req[s].keep_logits for s in active_idx)
             poison = self._poison_locked(active_idx)
             if poison is not None:
@@ -1745,9 +1804,12 @@ class ContinuousBatchingEngine:
             if poison is not None or self._needs_tokens_locked(
                     active_idx, len(self._pending_fetch)):
                 self._flush_pending_locked()
+            if self._ep is not None:  # closed if the flush finished a slot
+                self._ep["ticks"] += 1
             _prof.record_serving_tick(len(active_idx) / self.slots,
                                       self._queue.qsize(),
                                       time.perf_counter() - t0, t0=t0)
+            self._record_paging_tick_locked()
             if self.kv_quant == "int8":
                 # per layer: one K/V row pair quantized per active slot, and
                 # every mapped page dequantized in the kernel's page walk
@@ -1755,6 +1817,48 @@ class ContinuousBatchingEngine:
                 _prof.record_kv_quant_event(
                     "dequantize", sum(len(self._slot_pages[s]) for s in active_idx))
         return len(active_idx)
+
+    def _record_paging_tick_locked(self):
+        """The page pool's occupancy after a decode step (paged only).
+        Caller holds _mu."""
+        if self.paged:
+            _prof.record_paging_tick(self._pool.used_count(),
+                                     self._pool.usable_pages)
+
+    def _obs_epoch_open(self, active_idx):
+        """Open a decode epoch (reference: engine.py:2778) at a reload of
+        the loop state: the stretch of constant slot membership that
+        starts here.  Only when FLAGS_trace is on and a member is traced;
+        the epoch keeps (slot, request id, trace context) per member, no
+        request.  Caller holds _mu."""
+        self._obs_epoch_close()
+        if not _obs.enabled():
+            return
+        members = [(s, self._slot_req[s].id, self._slot_req[s].trace)
+                   for s in active_idx]
+        if any(tr for _, _, tr in members):
+            self._ep = {"t0": time.perf_counter(), "ticks": 0,
+                        "members": members, "proposed": 0, "accepted": 0}
+
+    def _obs_epoch_close(self):
+        """Close the open decode epoch (reference: engine.py:2796): one
+        engine.decode span per traced member over the epoch's steps, and
+        under speculation an engine.verify span with the epoch's drafts
+        proposed and accepted.  Caller holds _mu."""
+        ep, self._ep = self._ep, None
+        if not ep or not ep["ticks"]:
+            return
+        t1 = time.perf_counter()
+        for s, rid, tr in ep["members"]:
+            if not tr:
+                continue
+            _obs.record("engine.decode", tr[0], t0=ep["t0"], t1=t1,
+                        parent_id=tr[1], req=rid, slot=s, ticks=ep["ticks"])
+            if self._spec_on:
+                _obs.record("engine.verify", tr[0], t0=ep["t0"], t1=t1,
+                            parent_id=tr[1], req=rid, slot=s,
+                            ticks=ep["ticks"], proposed=ep["proposed"],
+                            accepted=ep["accepted"])
 
     def _note_step_time(self, per):
         """Blend one decode step's wall time into the EWMA that
@@ -1778,11 +1882,23 @@ class ContinuousBatchingEngine:
             return
         gen0 = self._generation
         batches, self._pending_fetch = self._pending_fetch, []
+        t_f0 = time.perf_counter()
         with self._watchdog.arm("serve.fetch", timeout=self._wd_timeout(),
                                 context=f"{len(batches)} buffered steps"):
             fetched = torch.stack([b[0] for b in batches]).cpu().numpy()
         self._check_gen(gen0)
         _prof.record_host_fetch()
+        if _obs.enabled():  # one engine.fetch span per traced request
+            now = time.perf_counter()
+            traced = {}
+            for _, idx, _, _ in batches:
+                for s in idx:
+                    req = self._slot_req[s]
+                    if req is not None and req.trace:
+                        traced[req.id] = req.trace
+            for rid, tr in traced.items():
+                _obs.record("engine.fetch", tr[0], t0=t_f0, t1=now,
+                            parent_id=tr[1], req=rid, steps=len(batches))
         self._note_step_time((time.perf_counter() - batches[0][2]) / len(batches))
         for (_, idx, _, kept), (nxt_np, fin_np) in zip(batches, fetched):
             for s in idx:
@@ -1823,7 +1939,10 @@ class ContinuousBatchingEngine:
             if not active_idx:
                 return 0
             t0 = time.perf_counter()
-            load = {} if self._dev is not None else self._load_state_locked(active_idx)
+            load = {}
+            if self._dev is None:  # membership changed: reload the state
+                load = self._load_state_locked(active_idx)
+                self._obs_epoch_open(active_idx)
             toks = np.zeros((self.slots, K1), np.int32)
             valid = np.ones(self.slots, np.int32)
             proposed = 0
@@ -1840,6 +1959,8 @@ class ContinuousBatchingEngine:
                 toks[s, 1:1 + len(draft)] = draft
                 valid[s] = 1 + len(draft)
                 proposed += len(draft)
+            if self._ep is not None:
+                self._ep["proposed"] += proposed
             poison = self._poison_locked(active_idx)
             if poison is not None:
                 load["poison"] = poison
@@ -1890,9 +2011,13 @@ class ContinuousBatchingEngine:
             if emitted:
                 self._tok_rate_ewma = (0.8 * self._tok_rate_ewma
                                        + 0.2 * emitted / len(active_idx))
+            if self._ep is not None:  # closed if a slot finished
+                self._ep["ticks"] += 1
+                self._ep["accepted"] += accepted
             _prof.record_serving_tick(len(active_idx) / self.slots,
                                       self._queue.qsize(),
                                       time.perf_counter() - t0, t0=t0)
+            self._record_paging_tick_locked()
             _prof.record_speculation(proposed, accepted, emitted, len(active_idx))
             if self.kv_quant == "int8":
                 # the window quantizes k + 1 row pairs per active slot
@@ -2034,6 +2159,7 @@ class ContinuousBatchingEngine:
         self._temps[s] = 0.0
         self._drafters[s] = None
         self._release_slot_pages_locked(s)
+        self._obs_epoch_close()
         self._dev = None
         self._resolve(req, reason)
 

@@ -32,6 +32,13 @@ stay "kernels launched": a trace on CUDA counts its warm run and its
 replay.  On the CPU a replay counts the same delta, whatever the eager body
 bumped.
 
+The per-compiled-shape dispatch counts (`ops.flash_attention.
+pallas_calls`, the reference's meaning) move only in a trace's warm run
+(on the CPU, its one eager run): the capture, every replay and
+`compare_eager` leave them as they were.  `trace_total` counts every
+StepGraph trace in the process (`/metrics`' `paddle_sanitizer_traces_
+total`).
+
 A failed capture raises; there is no eager fallback on CUDA.
 """
 
@@ -41,6 +48,8 @@ import numpy as np
 import torch
 
 from ..ops import flash_attention as _fa
+
+trace_total = 0  # StepGraph traces in this process, of every engine
 
 
 def new_pool(device):
@@ -108,6 +117,7 @@ class StepGraph:
         self.last_key = key
         ent = self._entries.get(key)
         if ent is None:
+            global trace_total
             self.tracing = True
             try:
                 ent = self._trace(key, inputs)
@@ -115,6 +125,7 @@ class StepGraph:
                 self.tracing = False
             self._entries[key] = ent
             self.trace_count += 1
+            trace_total += 1
             return ent.outputs
         for name, value in inputs.items():
             if name not in ent.inputs:
@@ -141,6 +152,7 @@ class StepGraph:
                 t.copy_(old)
 
         snap = dict(self.counters)
+        dispatches = dict(_fa.pallas_calls)
         try:
             self._run(ent)
             replayed = tuple(o.clone() for o in ent.outputs)
@@ -149,6 +161,7 @@ class StepGraph:
             restore()
         finally:
             self._set_counts(snap)
+            _fa.pallas_calls.update(dispatches)
         if self.on_card:
             torch.cuda.synchronize(self.device)
         return replayed, eager
@@ -217,11 +230,13 @@ class StepGraph:
         for gen in self.generators:
             graph.register_generator_state(gen)
         before = dict(self.counters)
+        dispatches = dict(_fa.pallas_calls)
         with torch.cuda.graph(graph, pool=self.pool,
                               capture_error_mode="thread_local"):
             outs = self._as_tuple(self.body(**ent.inputs))
         ent.delta = self._delta(before)
         self._set_counts(before)  # a capture launches nothing
+        _fa.pallas_calls.update(dispatches)  # the warm run counted them
         self.pool_bytes += max(0, torch.cuda.memory_reserved(dev) - reserved)
         ent.graph, ent.outputs = graph, outs
         self._replay(ent)
@@ -242,6 +257,8 @@ class StepGraph:
 
     def _replay(self, ent):
         snap = dict(self.counters)
+        dispatches = dict(_fa.pallas_calls)
         self._run(ent)
         self._set_counts(snap)  # the eager CPU body bumps them itself
+        _fa.pallas_calls.update(dispatches)
         self._add_delta(ent.delta)

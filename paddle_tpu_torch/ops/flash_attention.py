@@ -132,6 +132,33 @@ def reset_launch_counts():
     reset_fallback_counts()
 
 
+# The reference's kernel names (`_PALLAS_KERNELS`, flash_attention.py:
+# 1826-1830) and their dispatch counts with the reference's meaning: one
+# per compiled shape (`_log_pallas_call`, :1848), that is one per launch
+# site in a StepGraph trace (its warm run; the capture and every replay
+# add nothing) or per launch outside a graph.  `launch_counts` keeps
+# counting every launch, replays included.  `/metrics` renders these as
+# `paddle_flash_pallas_calls_total{kernel=}`.
+PALLAS_KERNELS = ("flash_fwd", "flash_bwd", "decode", "paged_decode_fused",
+                  "paged_decode_fused_q8", "paged_decode_fused_cp",
+                  "paged_decode_fused_cp_q8")
+_PALLAS_NAME = {"dense_decode": "decode"}  # K6 under the reference's name
+pallas_calls = dict.fromkeys(PALLAS_KERNELS, 0)
+
+
+def reset_pallas_calls():
+    for name in pallas_calls:
+        pallas_calls[name] = 0
+
+
+def _dispatched(what):
+    """One launch of the kernel `what` (a `launch_counts` base name): its
+    launch count and its per-compiled-shape dispatch count."""
+    launch_counts[what] += 1
+    name = _PALLAS_NAME.get(what, what)
+    pallas_calls[name] = pallas_calls.get(name, 0) + 1
+
+
 # the ROADMAP.md Queue 1 item that brings float16 to the kernels
 FP16_ITEM = "fp16 operands of K1-K6"
 
@@ -468,7 +495,7 @@ def _ptr(t):
 def _count_flash(what, path, segments, kbias, q_offset=None, extra=None):
     """One launch of K1 or K3 (`what`), under its path's and its operands'
     counts: `extra` is K1's carry or K3's delta."""
-    launch_counts[what] += 1
+    _dispatched(what)
     if path == "wgmma":
         launch_counts[what + "_wgmma"] += 1
     if segments is not None or kbias is not None:
@@ -628,7 +655,8 @@ class FlashAttention(torch.autograd.Function):
 # Why an attention call did not take K1/K3 (the reference's
 # `_FALLBACK_REASONS` that apply here, flash_attention.py:1829-1839), and
 # how often since the last reset; `_log_pallas_fallback` (:1857) counts
-# the same
+# the same, and `/metrics` renders them as
+# `paddle_flash_fallbacks_total{reason=}`
 FALLBACK_REASONS = ("attn_mask not key-padding", "q/k shapes differ",
                     "head_dim > 256")
 fallback_counts = dict.fromkeys(FALLBACK_REASONS, 0)
@@ -885,7 +913,7 @@ def dense_decode(q, k, v, pos, scale=None):
         _dtype_code(q, what), _FLASH_PATHS[path], _stream(q),
     )
     check(code, f"{what} ({path})")
-    launch_counts[what] += 1
+    _dispatched(what)
     if path == "wgmma":
         launch_counts[what + "_wgmma"] += 1
     return out
@@ -1024,7 +1052,7 @@ def _count(code, what, path):
     from ._build import check
 
     check(code, f"{what} ({path})")
-    launch_counts[what] += 1
+    _dispatched(what)
     if path != "fma":
         launch_counts[f"{what}_{path}"] += 1
 

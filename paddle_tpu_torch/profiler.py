@@ -18,6 +18,22 @@ joins of a live keyed request (`idem_joins`).
 `dense_decode`, `paged_decode_fused_cp`, `paged_decode_fused_cp_q8`, and
 the optimizer's `adam_fused` and `unscale_fused`);
 `summary()` holds them all.
+
+The reference's other families carry its keys too, for `/metrics` and the
+flight recorder's dump header: `step` (`record_step`, the training
+loop's host-time split), `lora`, `autoscale`, `disagg` and `sessions`.
+Their `record_*` functions exist, but nothing on the port's path calls
+them until their ROADMAP items land.  `record_paging_tick` feeds the
+page-pool gauges (`pages_used_peak`, `pages_total`); the flash counters
+(`record_flash_fallback`, `record_flash_pallas_call`) are the kernels'
+own per-trace counts, see `ops.flash_attention.pallas_calls`.
+
+`metrics_snapshot()` is one raw snapshot of every family under one lock
+that, unlike the `*_summary()` helpers, never leaves a zero out (the
+exported metric names are stable before any traffic); `reset()` zeroes
+every family in one critical section (the new families have no reset
+of their own).  Kernel launch counts are not a family here:
+`reset_kernel_launch_counts()` zeroes them.
 """
 
 from __future__ import annotations
@@ -37,6 +53,11 @@ _kv_quant = {}
 _spec = {}
 _mesh = {}
 _router = {}
+_step = {}
+_lora = {}
+_autoscale = {}
+_disagg = {}
+_sessions = {}
 
 
 def _reset_locked():
@@ -160,7 +181,8 @@ def serving_summary():
 def _reset_paging_locked():
     _paging.update(
         prefix_hits=0, prefix_misses=0, prefill_tokens_saved=0, cow_copies=0,
-        cache_evictions=0, cache_commits=0,
+        cache_evictions=0, cache_commits=0, ticks=0, pages_used_sum=0,
+        pages_used_peak=0, pages_total=0,
     )
 
 
@@ -189,6 +211,17 @@ def record_paging_event(kind, n=1):
     """Count an allocator event: 'cache_evictions' or 'cache_commits'."""
     with _lock:
         _paging[kind] += int(n)
+
+
+def record_paging_tick(pages_used, pages_total):
+    """One decode step's page-pool occupancy: pages in use (held by slots
+    or the prefix cache) out of the usable pages."""
+    with _lock:
+        g = _paging
+        g["ticks"] += 1
+        g["pages_used_sum"] += int(pages_used)
+        g["pages_total"] = int(pages_total)
+        g["pages_used_peak"] = max(g["pages_used_peak"], int(pages_used))
 
 
 def paging_summary():
@@ -315,6 +348,7 @@ def mesh_summary():
 
 
 def _reset_router_locked():
+    _router.clear()
     _router.update(idem_hits=0, idem_joins=0)
 
 
@@ -329,14 +363,237 @@ def reset_router():
 def record_router_event(kind, n=1):
     """Count one front-door event: 'idem_hits' (a keyed request replayed
     from the idempotency cache) or 'idem_joins' (one that joined the live
-    request of its key)."""
+    request of its key); another kind is counted too."""
     with _lock:
-        _router[kind] += int(n)
+        _router[kind] = _router.get(kind, 0) + int(n)
 
 
 def router_summary():
     with _lock:
         return dict(_router)
+
+
+# -- the reference's other families: their keys, for /metrics and the
+# flight header; recorded once their ROADMAP items land -----------------
+
+
+def _reset_step_locked():
+    _step.update(steps=0, dispatch_s=0.0, host_blocked_s=0.0, wall_s=0.0,
+                 inflight_sum=0, inflight_max=0)
+
+
+def record_step(dispatch_s=0.0, host_blocked_s=0.0, inflight=0, wall_s=0.0):
+    """One training step's host-time split (dispatching, blocked on the
+    card), its wall time and the in-flight depth of the step ring."""
+    with _lock:
+        g = _step
+        g["steps"] += 1
+        g["dispatch_s"] += float(dispatch_s)
+        g["host_blocked_s"] += float(host_blocked_s)
+        g["wall_s"] += float(wall_s)
+        g["inflight_sum"] += int(inflight)
+        g["inflight_max"] = max(g["inflight_max"], int(inflight))
+
+
+def _reset_lora_locked():
+    _lora.clear()
+    _lora.update(loads=0, evictions=0, residency_hits=0, residency_misses=0,
+                 resident=0, capacity=0)
+
+
+def record_lora_event(kind, n=1):
+    """Count one adapter-arena event: 'loads', 'evictions',
+    'residency_hits' or 'residency_misses' (another kind is counted too)."""
+    with _lock:
+        _lora[kind] = _lora.get(kind, 0) + int(n)
+
+
+def record_lora_residency(resident, capacity):
+    """The adapters resident in the arena and its slots (set)."""
+    with _lock:
+        _lora.update(resident=int(resident), capacity=int(capacity))
+
+
+def lora_summary():
+    """Loads, evictions, resident, capacity and the residency hit rate;
+    {} before any acquire."""
+    with _lock:
+        g = dict(_lora)
+    lookups = g["residency_hits"] + g["residency_misses"]
+    if not lookups and not g["loads"]:
+        return {}
+    out = {k: g[k] for k in ("loads", "evictions", "resident", "capacity")}
+    if lookups:
+        out["residency_lookups"] = lookups
+        out["residency_hit_rate"] = g["residency_hits"] / lookups
+    return out
+
+
+def _reset_autoscale_locked():
+    _autoscale.clear()
+    _autoscale.update(ticks=0, scale_ups=0, scale_downs=0, holds=0,
+                      spawn_failures=0, reaps=0, replicas=0, replicas_peak=0)
+
+
+def record_autoscale_event(kind, n=1):
+    """Count one autoscaler event: 'ticks', 'scale_ups', 'scale_downs',
+    'holds', 'spawn_failures' or 'reaps' (another kind is counted too)."""
+    with _lock:
+        _autoscale[kind] = _autoscale.get(kind, 0) + int(n)
+
+
+def record_autoscale_replicas(n):
+    """The fleet size under the autoscaler (set) and its peak."""
+    with _lock:
+        _autoscale["replicas"] = int(n)
+        _autoscale["replicas_peak"] = max(_autoscale["replicas_peak"], int(n))
+
+
+def autoscale_summary():
+    """The autoscaler's counters; {} until the control loop has acted."""
+    with _lock:
+        g = dict(_autoscale)
+    return g if g["ticks"] or g["scale_ups"] or g["scale_downs"] else {}
+
+
+def _reset_disagg_locked():
+    _disagg.clear()
+    _disagg.update(exports=0, imports=0, import_pages=0, handoff_bytes=0,
+                   pair_picks=0, handoff_retries=0, reserve_fails=0,
+                   no_decode_capacity=0)
+
+
+def record_disagg_event(kind, n=1):
+    """Count one disaggregated-serving event: 'exports', 'imports',
+    'import_pages', 'handoff_bytes', 'pair_picks', 'handoff_retries',
+    'reserve_fails' or 'no_decode_capacity' (another kind is counted
+    too)."""
+    with _lock:
+        _disagg[kind] = _disagg.get(kind, 0) + int(n)
+
+
+def disagg_summary():
+    """The handoff counters; {} before any handoff traffic."""
+    with _lock:
+        g = dict(_disagg)
+    return g if any(g.values()) else {}
+
+
+_SESSION_KEYS = ("sessions_resident", "session_tenants", "session_pages_pinned",
+                 "session_prefill_tokens_saved_total", "session_evictions_total",
+                 "session_binds_total")
+
+
+def _reset_sessions_locked():
+    _sessions.update(dict.fromkeys(_SESSION_KEYS, 0))
+
+
+def record_session_stats(stats):
+    """Fold one session store's stats() dict into the session gauges (its
+    keys of `_SESSION_KEYS`, set)."""
+    with _lock:
+        for k in _SESSION_KEYS:
+            if k in stats:
+                _sessions[k] = int(stats[k])
+
+
+def session_summary():
+    """The session gauges; {} until a session store has pushed one."""
+    with _lock:
+        g = dict(_sessions)
+    return g if any(g.values()) else {}
+
+
+for _reset_fn in (_reset_step_locked, _reset_lora_locked,
+                  _reset_autoscale_locked, _reset_disagg_locked,
+                  _reset_sessions_locked):
+    _reset_fn()
+
+
+# -- the kernels' dispatch counts (per trace) and fallbacks ----------------
+
+
+def record_flash_fallback(reason):
+    """One attention call that took the plain path instead of a kernel,
+    by reason (`ops.flash_attention.fallback_counts`)."""
+    with _lock:
+        fc = _fa.fallback_counts
+        fc[reason] = fc.get(reason, 0) + 1
+
+
+def flash_fallback_summary():
+    """{reason: count} of the fallbacks since the last reset (non-zero
+    reasons only)."""
+    with _lock:
+        return {k: v for k, v in _fa.fallback_counts.items() if v}
+
+
+def reset_flash_fallbacks():
+    with _lock:
+        _fa.reset_fallback_counts()
+
+
+def record_flash_pallas_call(kernel):
+    """One kernel dispatch by the reference's kernel name, counted per
+    compiled shape (`ops.flash_attention.pallas_calls`)."""
+    with _lock:
+        pc = _fa.pallas_calls
+        pc[kernel] = pc.get(kernel, 0) + 1
+
+
+def flash_pallas_summary():
+    """{kernel: count} of the dispatches since the last reset (non-zero
+    kernels only)."""
+    with _lock:
+        return {k: v for k, v in _fa.pallas_calls.items() if v}
+
+
+def reset_flash_pallas():
+    with _lock:
+        _fa.reset_pallas_calls()
+
+
+def reset():
+    """Zero every counter family (serving, paging, KV quant, speculation,
+    mesh, router, step, LoRA, autoscale, disagg, sessions, the flash
+    dispatch and fallback counts) in one critical section; the older
+    families' reset_*() helpers stay for callers that keep the others."""
+    with _lock:
+        _reset_locked()
+        _reset_paging_locked()
+        _reset_kv_quant_locked()
+        _reset_speculation_locked()
+        _reset_mesh_locked()
+        _reset_router_locked()
+        _reset_step_locked()
+        _reset_lora_locked()
+        _reset_autoscale_locked()
+        _reset_disagg_locked()
+        _reset_sessions_locked()
+        _fa.reset_fallback_counts()
+        _fa.reset_pallas_calls()
+
+
+def metrics_snapshot():
+    """One raw snapshot of every family under one lock, for the /metrics
+    renderer (`obs.metrics`); unlike the *_summary() helpers it never
+    leaves a zero out.  `flash_fallbacks` and `flash_pallas` hold the
+    non-zero counts (the renderer zero-fills the known label sets)."""
+    with _lock:
+        serving = dict(_gauges)
+        serving["ttfts_s"] = list(serving["ttfts_s"])
+        serving["faults"] = dict(serving["faults"])
+        router = dict(_router)
+        router["replica_states"] = {}  # the router is not ported yet
+        return {
+            "step": dict(_step), "serving": serving, "paging": dict(_paging),
+            "speculation": dict(_spec), "lora": dict(_lora), "router": router,
+            "autoscale": dict(_autoscale), "disagg": dict(_disagg),
+            "mesh": dict(_mesh), "kv_quant": dict(_kv_quant),
+            "sessions": dict(_sessions),
+            "flash_fallbacks": {k: v for k, v in _fa.fallback_counts.items() if v},
+            "flash_pallas": {k: v for k, v in _fa.pallas_calls.items() if v},
+        }
 
 
 def kernel_launch_counts():

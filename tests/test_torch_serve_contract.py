@@ -3,8 +3,8 @@ reference's `serve()` on the CPU.
 
 Tiny Llamas on shared weights (`load_reference_state`) behind both servers;
 the same bodies go to each, and the status codes, `Retry-After` headers and
-JSON bodies must be equal (the reference's `trace_id` aside: the port has no
-tracing yet):
+JSON bodies must be equal (their `trace_id`s aside: each server mints its
+own):
 
 - a batched body `[a, b]`, a ragged pair and a flat prompt: one token row
   per input row, a flat answer to a flat body;

@@ -558,9 +558,13 @@ def test_watchdog_raises_after_an_overrun_and_dumps_the_stacks(capsys):
 def test_a_tripped_watchdog_keeps_no_engine_alive(model):
     """The monitor thread holds nothing of a region after firing it: an
     engine whose watchdog tripped is freed once its owner drops it (on the
-    card it holds the arena, the graphs' pool and the model)."""
+    card it holds the arena, the graphs' pool and the model).  The monitor
+    pass that fires the region (stacks, flight dump, action) may still run
+    when the step ends on a loaded machine: wait for its end, bounded."""
     import gc
     import weakref
+
+    from paddle_tpu_torch.fault import watchdog
 
     eng = _engine(model, slots=1)
     tcore.set_flags({"FLAGS_serve_step_timeout_sec": 0.05,
@@ -569,6 +573,7 @@ def test_a_tripped_watchdog_keeps_no_engine_alive(model):
     r = eng.submit(_prompt(4), max_new_tokens=2)
     eng.run_until_idle()  # the hang trips the watchdog, then the step ends
     r.wait(1)
+    assert watchdog.wait_for_monitor(WAIT_S)
     assert eng._watchdog_trip is not None
     ref = weakref.ref(eng)
     del eng
