@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Sixteen phases; a failure in any of them exits non-zero and prints no
-result.
+Sixteen phases, and the serving, training and amp ones again in float16
+(below); a failure in any of them exits non-zero and prints no result.
 
 1. device  -- requires CUDA; prints the card's name and power limit.
 2. build   -- builds every kernel of `paddle_tpu_torch/csrc` with nvcc.
@@ -45,7 +45,11 @@ result.
               untimed; unscale_fused over the train phase's gradients,
               bit for bit against its plain version, clean and with one
               inf, timed beside torch._amp_foreach_non_finite_check_and_
-              unscale_.
+              unscale_.  Then every K1-K6 case above that runs in bf16
+              again in float16 at the same shapes, at the float16
+              tolerance, one case per kernel timed (the `_f16` records),
+              and adam_fused and unscale_fused over float16 parameters
+              and gradients, timed.
 4. ring    -- bench_longcontext_32k's attention (one 32768-token sequence, 8
               heads of 128, R = 8 ranks of the sep axis on the card): forward
               and backward of full-sequence causal K1 + K3, then
@@ -180,6 +184,23 @@ result.
               one step's gradients of 2 layers at 32768 tokens over R = 8
               against context_parallel_degree 1 (full-sequence K1/K3).
 
+The float16 phases (their log lines read "[fp16 <phase>]"):
+- serve (after cp_f32) -- Llama-2-7B in float16 at full width and depth:
+  the slice phase's traffic and checks, the range of the residual
+  stream through the 32 layers, a comparison line beside the bf16
+  slice's figures (decode tokens/s, TTFT, the profiled decode step, peak
+  memory), the prefix phase over int8 pages (K4 with a float16 q), the
+  greedy lock-step `generate` (K6, K2 over the page view) and one cp=2
+  run of the cp phase (K5).
+- train (after grads) -- the train phase's shape in fp16 O2 under a
+  dynamic GradScaler (2^15), 8 steps, step 4 given one inf: every skipped
+  step unchanged bit for bit with the scale halved, losses of the applied
+  steps finite and falling, K1 and K3 with float16 operands on their
+  wgmma paths, adam_fused and unscale_fused once per step.
+- amp (after amp) -- the amp phase's O1 run with auto_cast(dtype=
+  "float16"), the other optimizers aside.
+The record's `_f16` entries count the launches of these runs.
+
 Every serving phase (slice, prefix, dense, fault, obs, cp, cp_f32) runs on the
 engine's CUDA graphs: it prints `compile_counts()` after warmup and again
 after its traffic and fails if they differ (0 new traces under traffic),
@@ -212,8 +233,8 @@ import urllib.request
 
 ROOT = pathlib.Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16 tensor
-# FLOP/s and float32 FLOP/s outside the tensor cores
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16 (and fp16)
+# tensor FLOP/s and float32 FLOP/s outside the tensor cores
 PEAK_BYTES_S = 3.35e12
 PEAK_BF16_FLOP_S = 989e12
 PEAK_F32_FLOP_S = 67e12
@@ -226,6 +247,11 @@ PEAK_F32_FLOP_S = 67e12
 KERNEL_ATOL = 1e-2
 KERNEL_RTOL = 2e-2
 LSE_ATOL = 1e-3
+# float16: the same two rounding points at float16's ulp, 2^-10 relative
+# (8x finer than bf16's), so a few ulps: rtol 4e-3 and atol 2e-3, each
+# tighter than bf16's
+FP16_ATOL = 2e-3
+FP16_RTOL = 4e-3
 # float32 (accepted for parity): the same sums re-associated, no rounding
 # of p, so far tighter
 F32_ATOL = 1e-4
@@ -236,7 +262,7 @@ F32_RTOL = 1e-4
 # 128-key page twice in place of another moves this norm by 0.50-0.75 for
 # every slot past one page (the plain version, so computed); bf16 rounding
 # moves it by ~3e-3.
-REL_NORM_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
+REL_NORM_TOL = {"bfloat16": 1e-2, "float16": 2e-3, "float32": 1e-4}
 # bf16 slice: logits of the paged engine (K1 over the bucket, K2 over pages)
 # against the teacher-forced full-sequence forward (K1 over the whole
 # sequence).  Different matmul shapes round differently through 32 bf16
@@ -369,8 +395,26 @@ MASKED_CASES = (
 )
 
 
+# a prefix of every log line's phase while a phase runs again at another
+# dtype (`labelled`)
+_LABEL = [""]
+
+
 def log(phase, msg):
-    print(f"[{phase}] {msg}", flush=True)
+    print(f"[{_LABEL[0]}{phase}] {msg}", flush=True)
+
+
+class labelled:
+    """Within the block, log lines read "[<prefix><phase>]"."""
+
+    def __init__(self, prefix):
+        self.prefix = prefix
+
+    def __enter__(self):
+        self.saved, _LABEL[0] = _LABEL[0], self.prefix
+
+    def __exit__(self, *exc):
+        _LABEL[0] = self.saved
 
 
 def time_ms(fn, iters=20, warmup=3):
@@ -443,6 +487,24 @@ def rel_norm_err(out, ref):
     return ((o - r).norm(dim=1) / r.norm(dim=1)).max().item()
 
 
+def tolerances(name):
+    """(atol, rtol) of kernel vs plain version for inputs of dtype `name`."""
+    return {"bfloat16": (KERNEL_ATOL, KERNEL_RTOL),
+            "float16": (FP16_ATOL, FP16_RTOL)}.get(name, (F32_ATOL, F32_RTOL))
+
+
+def parity_matmuls():
+    """Full-precision matmuls for the plain versions and parity checks:
+    no TF32 (torch.matmul's and cuDNN's), and no float16 GEMM that reduces
+    its split-K partials in float16 (cuBLAS's reduced-precision reduction,
+    on by default)."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
+
+
 def close(out, ref, dtype=None):
     """Finite, elementwise within the dtype's tolerance of the plain
     version, and within REL_NORM_TOL per (batch, head).  `dtype`: the name
@@ -451,8 +513,7 @@ def close(out, ref, dtype=None):
     import torch
 
     name = dtype or str(ref.dtype).removeprefix("torch.")
-    atol, rtol = ((KERNEL_ATOL, KERNEL_RTOL) if name == "bfloat16"
-                  else (F32_ATOL, F32_RTOL))
+    atol, rtol = tolerances(name)
     o, r = out.float(), ref.float()
     return (bool(torch.isfinite(o).all())
             and bool(((o - r).abs() <= atol + rtol * r.abs()).all())
@@ -465,9 +526,7 @@ def worst_excess(out, ref):
     line."""
     import torch
 
-    name = str(ref.dtype).removeprefix("torch.")
-    atol, rtol = ((KERNEL_ATOL, KERNEL_RTOL) if name == "bfloat16"
-                  else (F32_ATOL, F32_RTOL))
+    atol, rtol = tolerances(str(ref.dtype).removeprefix("torch."))
     o, r = out.float(), ref.float()
     excess = (o - r).abs() - (atol + rtol * r.abs())
     i = int(excess.argmax())
@@ -867,7 +926,7 @@ def _masked_case(b, s, h, hk, kind, d=64, causal=False, dtype="bfloat16",
     ref = fa.flash_backward_plain(*args)
     errs = [(x.float() - r.float()).abs().max().item() for x, r in zip(got, ref)]
     rels = [rel_norm_err(x, r) for x, r in zip(got, ref)]
-    lo = 1 if dead_row and dtype == "bfloat16" else 0
+    lo = 1 if dead_row and dtype in ("bfloat16", "float16") else 0
 
     def held(x, r):
         if not lo:
@@ -1141,9 +1200,7 @@ def _partials_ok(got, ref, dtype):
     merge's e^(m - m*) = 0 removes, and are not compared)."""
     import torch
 
-    name = str(dtype).removeprefix("torch.")
-    atol, rtol = ((KERNEL_ATOL, KERNEL_RTOL) if name == "bfloat16"
-                  else (F32_ATOL, F32_RTOL))
+    atol, rtol = tolerances(str(dtype).removeprefix("torch."))
     ok = True
     for (a, m, l), (ra, rm, rl) in zip(got, ref):
         seen = rm > -1e29  # [b, hk, R, 1]
@@ -1309,6 +1366,88 @@ K3_CASES = (
     dict(b=1, s=128, h=32, hk=32, dtype="float32"),
     dict(b=1, s=100, h=8, hk=2, d=256, dtype="float32"),
     dict(b=1, s=150, h=8, hk=8, d=64, causal=False, dtype="float32"),
+)
+
+
+# K1's variants beside the timed shapes: ragged GQA, non-causal, d 64 on
+# both tensor-core paths (seed 3); then one line per kernel instantiation
+# or mode (seed 4): the FMA kernels (float32 at d 128 and 256, bf16 at d
+# 256), wgmma<64>, non-causal mma<128>, mma<64> with scalar loads, mma<128>
+# at d not 64 or 128
+K1_CASES = (
+    dict(b=1, s=300, h=32, hk=8, seed=3),
+    dict(b=1, s=128, h=32, hk=32, causal=False, seed=3),
+    dict(b=2, s=300, h=16, hk=4, d=64, causal=False, seed=3),
+    dict(b=1, s=512, h=16, hk=16, d=64, seed=3),
+    dict(b=2, s=16, h=8, hk=2, d=64, seed=3),
+    dict(b=1, s=2048, h=8, hk=8, causal=False, seed=3),
+    dict(b=1, s=128, h=32, hk=32, dtype="float32", seed=4),
+    dict(b=1, s=100, h=8, hk=2, d=256, dtype="float32", seed=4),
+    dict(b=1, s=200, h=16, hk=4, d=256, seed=4),
+    dict(b=2, s=130, h=32, hk=8, d=64, seed=4),
+    dict(b=2, s=100, h=32, hk=8, causal=False, seed=4),
+    dict(b=1, s=150, h=8, hk=8, d=64, causal=False, dtype="float32", seed=4),
+    dict(b=1, s=70, h=4, hk=2, d=36, seed=4),
+    dict(b=1, s=200, h=8, hk=2, d=100, seed=4),
+)
+
+# K3 twice on the same inputs, bit for bit: the training shape, ragged GQA
+# at d 64, non-causal, and mma.sync at s 16
+K3_REPEATS = (
+    dict(b=TRAIN_BATCH, s=TRAIN_SEQ, h=32, hk=32),
+    dict(b=2, s=1000, h=32, hk=8, d=64),
+    dict(b=2, s=300, h=16, hk=4, causal=False),
+    dict(b=2, s=16, h=8, hk=2),
+)
+
+# K6's variants: GQA on mma<64>, ragged sq at pos > 0, a ragged tile,
+# wgmma<64> with GQA, float32, the FMA path at d 256 (bf16 and float32)
+K6_CASES = (
+    dict(b=1, sq=64, h=8, hk=2, d=64, L=128, pos=30),
+    dict(b=1, sq=130, h=32, hk=32, L=384, pos=200),
+    dict(b=2, sq=77, h=16, hk=4, L=256, pos=10),
+    dict(b=2, sq=200, h=16, hk=4, d=64, L=512, pos=250),
+    dict(b=1, sq=100, h=8, hk=2, L=256, pos=50, dtype="float32"),
+    dict(b=1, sq=96, h=8, hk=2, d=256, L=256, pos=40),
+    dict(b=1, sq=70, h=4, hk=2, d=256, L=128, pos=5, dtype="float32"),
+)
+
+# K2 over a dense cache's page view beside the timed decode steps: a short
+# lock-step prefill (the chunk window), a one-page cache (L not a multiple
+# of 128) and float32 (the FMA walk)
+K2_DENSE_CASES = (
+    dict(b=1, sq=SHORT_LEN, h=32, hk=32, pos=0, L=128),
+    dict(b=2, sq=7, h=32, hk=8, pos=[190, 3], L=200),
+    dict(b=3, sq=1, h=32, hk=32, pos=[600, 5, 0], L=640, dtype="float32"),
+)
+
+# K5's variants the cp engine launches, untimed, at cp 2 and 4: on the
+# decode walk (int8, a verify window, GQA, cp 4, a slot whose pos is under
+# one page so shard 1 sees no key); the FMA page walk in float32; the
+# chunk windows (the slot at pos 0 sees no key of shard 1, nor at cp 4 of
+# shards 1-3; pos 100 only some rows do)
+K5_WALK_CASES = (
+    dict(b=8, sq=1, h=32, hk=32, pos=K5_DECODE_POS, quant=True),
+    dict(b=8, sq=3, h=32, hk=32, pos=K5_DECODE_POS),
+    dict(b=4, sq=3, h=32, hk=32, pos=[3100, 2000, 900, 1], quant=True),
+    dict(b=4, sq=3, h=32, hk=8, d=64, pos=[3999, 2100, 700, 64]),
+    dict(b=4, sq=1, h=32, hk=32, pos=[3900, 3000, 1000, 5], cp=4),
+    dict(b=4, sq=3, h=32, hk=8, pos=[3900, 2000, 1000, 5], cp=4, quant=True),
+    dict(b=4, sq=1, h=32, hk=32, pos=[1000, 300, 100, 0], max_len=1024),
+)
+K5_FMA_CASES = (
+    dict(b=4, sq=1, h=32, hk=8, pos=[3500, 1700, 129, 3], dtype="float32"),
+    dict(b=4, sq=3, h=32, hk=8, pos=[3500, 1700, 129, 3], dtype="float32",
+         cp=4),
+    dict(b=4, sq=1, h=32, hk=8, pos=[3500, 1700, 129, 3], dtype="float32",
+         quant=True),
+)
+K5_CHUNK_CASES = (
+    dict(b=4, sq=64, h=32, hk=32, pos=[3000, 1000, 100, 0]),
+    dict(b=4, sq=64, h=32, hk=32, pos=[3000, 1000, 100, 0], quant=True),
+    dict(b=2, sq=64, h=32, hk=32, pos=[1000, 0], cp=4),
+    dict(b=2, sq=64, h=32, hk=32, pos=[1000, 40], cp=4, quant=True),
+    dict(b=2, sq=16, h=32, hk=8, d=64, pos=[2000, 10]),
 )
 
 
@@ -1683,8 +1822,9 @@ def _adam_run(d, lr, found_inf=None, table=None, plain=False):
         optim.adam_multi(*args, found_inf=found_inf, table=table)
 
 
-def _adam_case(what, specs, seed, timed=True):
-    """adam_fused over `specs` (bf16 with float32 masters, float32 norms)
+def _adam_case(what, specs, seed, timed=True, low=None):
+    """adam_fused over `specs` (`low`, default bf16, with float32 masters,
+    float32 norms)
     against adam_multi_plain on a copy of the same state: one step, held
     by `_adam_compare`; with `timed`, kernel and plain times, the byte
     bound (28 B per element) and torch.optim.AdamW(fused=True) over float32
@@ -1693,7 +1833,7 @@ def _adam_case(what, specs, seed, timed=True):
 
     from paddle_tpu_torch.ops import optim
 
-    got = _adam_lists(specs, seed)
+    got = _adam_lists(specs, seed, low=low)
     ref = _adam_clone(got)
     lr = torch.full((), AMP_LR, device="cuda")
     table = optim.MultiTensorTable()
@@ -1806,8 +1946,9 @@ def _grad_lists(specs, seed, low=None, device="cuda"):
         torch.float32 if keep else low) for shape, keep in specs]
 
 
-def _unscale_case(what, specs, seed, timed=True):
-    """unscale_fused over `specs`' gradients (bf16, float32 norms) against
+def _unscale_case(what, specs, seed, timed=True, low=None):
+    """unscale_fused over `specs`' gradients (`low`, default bf16, float32
+    norms) against
     unscale_multi_plain on copies: once clean (found_inf stays 0), once
     with one inf injected (found_inf 1), equal bit for bit (one multiply by
     the inverse rounded to the gradient's dtype on both sides); with
@@ -1818,7 +1959,7 @@ def _unscale_case(what, specs, seed, timed=True):
 
     from paddle_tpu_torch.ops import optim
 
-    got = _grad_lists(specs, seed)
+    got = _grad_lists(specs, seed, low=low)
     ref = [g.clone() for g in got]
     scale = torch.full((), 2.0 ** 15, device="cuda")
     table = optim.MultiTensorTable()
@@ -1859,10 +2000,12 @@ def _unscale_case(what, specs, seed, timed=True):
         half, found_f, inv))
     del half
     bms, by = bound(nbytes, 2 * n, PEAK_F32_FLOP_S)
+    lib_dtype = ("fp16 in place of bf16" if low in (None, torch.bfloat16)
+                 else "float16")
     log("kernels", f"{shape}, kernel_ms {ms:.4f}, device_ms {_dev_txt(dev)}, "
                    f"plain_ms {plain_ms:.4f}, library_ms "
-                   f"(_amp_foreach_non_finite_check_and_unscale_, fp16 in place "
-                   f"of bf16) {lib_ms:.4f}, "
+                   f"(_amp_foreach_non_finite_check_and_unscale_, {lib_dtype}) "
+                   f"{lib_ms:.4f}, "
                    f"bound_ms {bms:.5f} ({by}) -> {'ok' if ok else 'FAIL'}")
     return ok, dict(max_abs_err=err, ms=ms, device_ms=dev, plain_ms=plain_ms,
                     bound_ms=bms, bound_by=by, library_ms=lib_ms)
@@ -1928,13 +2071,24 @@ def optim_kernel_cases(timed=True):
                                 timed=timed)
     ok &= ok_u & _unscale_variants()
     torch.cuda.empty_cache()
+    # the fp16_train phase's: float16 parameters with float32 masters, and
+    # float16 gradients (the library call then takes them as they are)
+    ok16, rec16 = _adam_case(f"float16, Llama-2-7B widths x {TRAIN_LAYERS} "
+                             f"layers", llama, seed=85, timed=timed,
+                             low=torch.float16)
+    torch.cuda.empty_cache()
+    ok_u16, rec_u16 = _unscale_case("float16, the train phase's gradients", llama,
+                                    seed=86, timed=timed, low=torch.float16)
+    ok &= ok16 and ok_u16
+    torch.cuda.empty_cache()
     worst = max(rec["max_abs_err"], rec_b["max_abs_err"], err_v)
     return {"adam_fused": dict(rec, max_abs_err=worst),
             "adam_fused_bert": dict(rec_b, max_abs_err=worst),
-            "unscale_fused": rec_u}, ok
+            "unscale_fused": rec_u, "adam_fused_f16": rec16,
+            "unscale_fused_f16": rec_u16}, ok
 
 
-def _k3_repeat(b, s, h, hk, d=128, causal=True, seed=17):
+def _k3_repeat(b, s, h, hk, d=128, causal=True, seed=17, dtype="bfloat16"):
     """K3 twice on the same inputs: dq, dk and dv must be equal bit for bit
     (no float atomics, a fixed order of every sum)."""
     import torch
@@ -1943,12 +2097,12 @@ def _k3_repeat(b, s, h, hk, d=128, causal=True, seed=17):
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v, g = (torch.randn(b, s, heads, d, generator=gen, device="cuda",
-                              dtype=torch.bfloat16) for heads in (h, hk, hk, h))
+                              dtype=getattr(torch, dtype)) for heads in (h, hk, hk, h))
     out, lse = fa.flash_forward(q, k, v, causal=causal)
     first = fa.flash_backward(q, k, v, out, lse, g, causal)
     second = fa.flash_backward(q, k, v, out, lse, g, causal)
     same = all(torch.equal(x, y) for x, y in zip(first, second))
-    log("kernels", f"flash_bwd bfloat16 b={b} s={s} h={h} hk={hk} d={d} "
+    log("kernels", f"flash_bwd {dtype} b={b} s={s} h={h} hk={hk} d={d} "
                    f"causal={causal} path {fa.flash_path(s, d, q.dtype)}: two "
                    f"calls equal bit for bit (dq, dk, dv): {same} -> "
                    f"{'ok' if same else 'FAIL'}")
@@ -1970,8 +2124,7 @@ def phase_kernels():
 
     from paddle_tpu_torch.ops import flash_attention as fa
 
-    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions in f32
-    torch.backends.cudnn.allow_tf32 = False
+    parity_matmuls()  # the plain versions in f32
     log("kernels", f"tolerances: |kernel - plain| <= atol + rtol |plain| with "
                    f"(atol, rtol) = ({KERNEL_ATOL}, {KERNEL_RTOL}) in bf16, "
                    f"({F32_ATOL}, {F32_RTOL}) in f32; lse within {LSE_ATOL}; "
@@ -1993,13 +2146,8 @@ def phase_kernels():
     # wgmma) timed, then ragged GQA, non-causal and d 64 on both paths
     errs1 = []
     k1 = {s: case(_k1_case, errs1, b=1, s=s, h=32, hk=32) for s in (16, 128, 512)}
-    for kw in (dict(b=1, s=300, h=32, hk=8),                  # ragged, GQA
-               dict(b=1, s=128, h=32, hk=32, causal=False),
-               dict(b=2, s=300, h=16, hk=4, d=64, causal=False),
-               dict(b=1, s=512, h=16, hk=16, d=64),
-               dict(b=2, s=16, h=8, hk=2, d=64),
-               dict(b=1, s=2048, h=8, hk=8, causal=False)):
-        case(_k1_case, errs1, seed=3, timed=False, **kw)
+    for kw in K1_CASES:
+        case(_k1_case, errs1, timed=False, **kw)
     decode_pos = [1999, 1500, 1024, 700, 300, 128, 127, 5]
     # K2 and K4 each on their three paths: the decode walk (bf16 q, under
     # 16 rows: every decode and verify step), timed at the decode step; the
@@ -2028,18 +2176,6 @@ def phase_kernels():
             case(_k2_case, ec, seed=10, timed=False, quant=quant, **kw)
         for kw in FMA_CASES:
             case(_k2_case, ef, seed=5, timed=False, quant=quant, **kw)
-    # the other variants: each line is one kernel instantiation or mode
-    for kw in (
-        dict(b=1, s=128, h=32, hk=32, dtype="float32"),   # f32 FMA, d 128
-        dict(b=1, s=100, h=8, hk=2, d=256, dtype="float32"),  # f32 FMA, d 256
-        dict(b=1, s=200, h=16, hk=4, d=256),              # bf16 FMA, d 256
-        dict(b=2, s=130, h=32, hk=8, d=64),               # wgmma<64>
-        dict(b=2, s=100, h=32, hk=8, causal=False),       # non-causal mma<128>
-        dict(b=1, s=150, h=8, hk=8, d=64, causal=False, dtype="float32"),
-        dict(b=1, s=70, h=4, hk=2, d=36),                 # mma<64>, scalar loads
-        dict(b=1, s=200, h=8, hk=2, d=100),               # mma<128>, d not 64/128
-    ):
-        case(_k1_case, errs1, seed=4, timed=False, **kw)
     # the training path: K1 and K3 at the slice's shape (both on their
     # wgmma kernels), timed; K3 at s 512 timed too; then K3's other
     # variants untimed, and two calls held bit for bit
@@ -2049,10 +2185,7 @@ def phase_kernels():
     k3 = case(_k3_case, errs3, b=TRAIN_BATCH, s=512, h=32, hk=32, seed=9)
     for kw in K3_CASES:
         case(_k3_case, errs3, seed=8, timed=False, **kw)
-    for kw in (dict(b=TRAIN_BATCH, s=TRAIN_SEQ, h=32, hk=32),
-               dict(b=2, s=1000, h=32, hk=8, d=64),
-               dict(b=2, s=300, h=16, hk=4, causal=False),
-               dict(b=2, s=16, h=8, hk=2)):
+    for kw in K3_REPEATS:
         ok_all &= _k3_repeat(**kw)
     # K1 and K3 with segment ids and key bias: BERT's shape (the bert
     # phase's attention, wgmma at d 64), timed, then every other variant
@@ -2070,15 +2203,7 @@ def phase_kernels():
     # FMA path at d 256, untimed
     errs6 = []
     k6 = case(_k6_case, errs6, b=GEN_BATCH, sq=GEN_LEN, h=32, hk=32, L=640)
-    for kw in (
-        dict(b=1, sq=64, h=8, hk=2, d=64, L=128, pos=30),     # GQA, mma<64>
-        dict(b=1, sq=130, h=32, hk=32, L=384, pos=200),       # ragged, pos > 0
-        dict(b=2, sq=77, h=16, hk=4, L=256, pos=10),          # ragged tile
-        dict(b=2, sq=200, h=16, hk=4, d=64, L=512, pos=250),  # wgmma<64>, GQA
-        dict(b=1, sq=100, h=8, hk=2, L=256, pos=50, dtype="float32"),
-        dict(b=1, sq=96, h=8, hk=2, d=256, L=256, pos=40),    # bf16 FMA, d 256
-        dict(b=1, sq=70, h=4, hk=2, d=256, L=128, pos=5, dtype="float32"),
-    ):
+    for kw in K6_CASES:
         case(_k6_case, errs6, seed=15, timed=False, **kw)
     # K2 over a dense cache's page view: the generate phase's last decode
     # step (4 sequences at 563 of a 640-row cache) and the dense pool's
@@ -2090,22 +2215,10 @@ def phase_kernels():
                    pos=GEN_LEN + GEN_NEW - 1, L=640)
     k2d = case(_k2_dense_case, errs2d, b=8, sq=1, h=32, hk=32, pos=decode_pos,
                L=2048)
-    for kw in (dict(b=1, sq=SHORT_LEN, h=32, hk=32, pos=0, L=128),
-               dict(b=2, sq=7, h=32, hk=8, pos=[190, 3], L=200),
-               dict(b=3, sq=1, h=32, hk=32, pos=[600, 5, 0], L=640,
-                    dtype="float32")):
+    for kw in K2_DENSE_CASES:
         case(_k2_dense_case, errs2d, seed=19, timed=False, **kw)
-    # K6 at pos 0 over a cache as long as the prompt is K1's computation:
-    # the two entry points must give the same bits, on each K1 path
     for dtype, sq in (("bfloat16", 300), ("bfloat16", 100), ("float32", 300)):
-        g = torch.Generator(device="cuda").manual_seed(16)
-        q, k, v = (torch.randn(1, sq, heads, 128, generator=g, device="cuda",
-                               dtype=getattr(torch, dtype)) for heads in (32, 8, 8))
-        same = torch.equal(fa.dense_decode(q, k, v, 0), fa.flash_forward(q, k, v)[0])
-        ok_all &= same
-        log("kernels", f"dense_decode {dtype} at pos 0, L = sq = {sq}, GQA, path "
-                       f"{fa.flash_path(sq, 128, q.dtype)}: equal to flash_fwd bit "
-                       f"for bit: {same} -> {'ok' if same else 'FAIL'}")
+        ok_all &= _k6_is_k1(dtype, sq)
     # K5 (every shard in one launch): cp=2 decode at the cp phase's context
     # (per-slot pos 3000-4000 of 4096) on the decode walk, timed beside K2
     # over the same arena; the same in float32 (the FMA page walk, the
@@ -2118,35 +2231,12 @@ def phase_kernels():
     k5 = case(_k5_case, errs5, b=8, sq=1, h=32, hk=32, pos=K5_DECODE_POS,
               dtype="float32", seed=23)
     k5c = case(_k5_case, errs5c, b=1, sq=256, h=32, hk=32, pos=[3000])
-    for kw in (
-        dict(b=8, sq=1, h=32, hk=32, pos=K5_DECODE_POS, quant=True),     # int8
-        dict(b=8, sq=3, h=32, hk=32, pos=K5_DECODE_POS),    # a verify window
-        dict(b=4, sq=3, h=32, hk=32, pos=[3100, 2000, 900, 1], quant=True),
-        dict(b=4, sq=3, h=32, hk=8, d=64, pos=[3999, 2100, 700, 64]),    # GQA
-        dict(b=4, sq=1, h=32, hk=32, pos=[3900, 3000, 1000, 5], cp=4),
-        dict(b=4, sq=3, h=32, hk=8, pos=[3900, 2000, 1000, 5], cp=4, quant=True),
-        # pos < page_size: shard 1 sees no key
-        dict(b=4, sq=1, h=32, hk=32, pos=[1000, 300, 100, 0], max_len=1024),
-    ):
+    for kw in K5_WALK_CASES:
         case(_k5_case, errs5w if not kw.get("quant") else None, seed=21,
              timed=False, **kw)
-    for kw in (
-        dict(b=4, sq=1, h=32, hk=8, pos=[3500, 1700, 129, 3], dtype="float32"),
-        dict(b=4, sq=3, h=32, hk=8, pos=[3500, 1700, 129, 3], dtype="float32",
-             cp=4),
-        dict(b=4, sq=1, h=32, hk=8, pos=[3500, 1700, 129, 3], dtype="float32",
-             quant=True),
-    ):
+    for kw in K5_FMA_CASES:
         case(_k5_case, errs5, seed=21, timed=False, **kw)
-    for kw in (
-        # chunk windows: the slot at pos 0 sees no key of shard 1 (nor, at
-        # cp 4, of shards 1-3), pos 100 only some rows do
-        dict(b=4, sq=64, h=32, hk=32, pos=[3000, 1000, 100, 0]),
-        dict(b=4, sq=64, h=32, hk=32, pos=[3000, 1000, 100, 0], quant=True),
-        dict(b=2, sq=64, h=32, hk=32, pos=[1000, 0], cp=4),
-        dict(b=2, sq=64, h=32, hk=32, pos=[1000, 40], cp=4, quant=True),
-        dict(b=2, sq=16, h=32, hk=8, d=64, pos=[2000, 10]),            # GQA
-    ):
+    for kw in K5_CHUNK_CASES:
         case(_k5_case, errs5c, seed=22, timed=False, **kw)
     # the ring operands of K1 and K3: timed at the ring's shapes, then on
     # every path
@@ -2156,8 +2246,12 @@ def phase_kernels():
     # the optimizer's kernels at the train and bert phases' parameters
     optim_recs, optim_ok = optim_kernel_cases(timed=True)
     ok_all &= optim_ok
+    torch.cuda.empty_cache()
+    # every case above again in float16
+    fp16_recs, fp16_ok = fp16_kernel_cases()
+    ok_all &= fp16_ok
     worst = lambda rec, errs: dict(rec, max_abs_err=max(errs))
-    return {**ring_recs, **optim_recs,
+    return {**ring_recs, **optim_recs, **fp16_recs,
             "flash_fwd": worst(k1[512], errs1),
             "flash_fwd_wgmma": worst(k1_train, errs1),
             "paged_decode_fused": worst(k2, errs2),
@@ -2176,6 +2270,135 @@ def phase_kernels():
             "paged_decode_fused_cp": worst(k5, errs5),
             "paged_decode_fused_cp_walk": worst(k5w, errs5w),
             "paged_decode_fused_cp_mma": worst(k5c, errs5c)}, ok_all
+
+
+def _k6_is_k1(dtype, sq):
+    """K6 at pos 0 over a cache as long as the prompt is K1's computation:
+    the two entry points must give the same bits, on each K1 path."""
+    import torch
+
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(16)
+    q, k, v = (torch.randn(1, sq, heads, 128, generator=g, device="cuda",
+                           dtype=getattr(torch, dtype)) for heads in (32, 8, 8))
+    same = torch.equal(fa.dense_decode(q, k, v, 0), fa.flash_forward(q, k, v)[0])
+    log("kernels", f"dense_decode {dtype} at pos 0, L = sq = {sq}, GQA, path "
+                   f"{fa.flash_path(sq, 128, q.dtype)}: equal to flash_fwd bit "
+                   f"for bit: {same} -> {'ok' if same else 'FAIL'}")
+    return same
+
+
+def fp16_kernel_cases():
+    """Every K1-K6 case above that runs in bf16, again in float16 at the
+    same shapes (the float32 cases aside; bf16 over int8 pages becomes an
+    fp16 q over int8 pages), each against its plain version at FP16_ATOL /
+    FP16_RTOL, on the path the bf16 case took: K1 at s 16/128/512 and the
+    training shape, its variants, with segment ids and key bias, with the
+    ring operands; K3 likewise and twice bit for bit; K6 and K6 = K1 at pos
+    0; K2 over pages (walk, chunk window, FMA at other d) and over a dense
+    cache's page view; K4 and K5 on their walks and chunk windows.  One
+    case per kernel is timed at its main-path shape beside its bound and
+    SDPA in float16 where one call computes the same function, and so is
+    K4's chunk window (the fp16_serve phase's prefix hits).  Returns
+    ({record name: record}, all_ok); a record's max_abs_err is the worst
+    over its kernel's float16 cases."""
+    import torch
+
+    half = "float16"
+    ok_all = True
+    errs = {}
+
+    def case(fn, name, **kw):
+        nonlocal ok_all
+        ok, rec = fn(dtype=half, **kw)
+        ok_all &= ok
+        errs.setdefault(name, []).append(rec["max_abs_err"])
+        return rec
+
+    def bf16_only(cases):
+        return [kw for kw in cases if kw.get("dtype", "bfloat16") == "bfloat16"]
+
+    log("kernels", f"float16 cases: (atol, rtol) = ({FP16_ATOL}, {FP16_RTOL}), "
+                   f"rel_norm_err per (batch, head) <= {REL_NORM_TOL['float16']}")
+    recs = {}
+    # K1: the prefill buckets (s 512 timed) and the training shape, then
+    # the variants
+    recs["flash_fwd_f16"] = case(_k1_case, "flash_fwd_f16", b=1, s=512, h=32, hk=32)
+    for kw in (dict(b=1, s=16, h=32, hk=32), dict(b=1, s=128, h=32, hk=32),
+               dict(b=TRAIN_BATCH, s=TRAIN_SEQ, h=32, hk=32, seed=7),
+               *bf16_only(K1_CASES)):
+        case(_k1_case, "flash_fwd_f16", timed=False, **kw)
+    # K3: the training shape timed, s 512 and the variants, twice bit for bit
+    recs["flash_bwd_f16"] = case(_k3_case, "flash_bwd_f16", b=TRAIN_BATCH,
+                                 s=TRAIN_SEQ, h=32, hk=32)
+    for kw in (dict(b=TRAIN_BATCH, s=512, h=32, hk=32, seed=9),
+               *bf16_only(K3_CASES)):
+        kw = dict(kw)
+        case(_k3_case, "flash_bwd_f16", seed=kw.pop("seed", 8), timed=False, **kw)
+    for kw in K3_REPEATS:
+        ok_all &= _k3_repeat(dtype=half, **kw)
+    torch.cuda.empty_cache()
+    # K1 and K3 with segment ids and key bias (BERT's shape and the
+    # variants), and with the ring operands
+    for kw in (dict(b=BERT_BATCH, s=BERT_SEQ, h=12, hk=12, kind="pad"),
+               *bf16_only(MASKED_CASES)):
+        kw = dict(kw)
+        ok, frec, brec = _masked_case(seed=kw.pop("seed", 31), dtype=half, **kw)
+        ok_all &= ok
+        errs["flash_fwd_f16"].append(frec["max_abs_err"])
+        errs["flash_bwd_f16"].append(brec["max_abs_err"])
+    for kw in bf16_only(RING_CASES):
+        ok, f1, b1 = _ring_offset_case(2048, 4, seed=42, dtype=half, **kw)
+        ok2, f2, b2 = _ring_hop_case(256, seed=43, dtype=half, **kw)
+        ok_all &= ok and ok2
+        errs["flash_fwd_f16"] += [f1["max_abs_err"], f2["max_abs_err"]]
+        errs["flash_bwd_f16"] += [b1["max_abs_err"], b2["max_abs_err"]]
+    torch.cuda.empty_cache()
+    # K6: the lock-step prefill timed, the variants, K6 = K1 at pos 0
+    recs["dense_decode_f16"] = case(_k6_case, "dense_decode_f16", b=GEN_BATCH,
+                                    sq=GEN_LEN, h=32, hk=32, L=640)
+    for kw in bf16_only(K6_CASES):
+        case(_k6_case, "dense_decode_f16", seed=15, timed=False, **kw)
+    for sq in (300, 100):
+        ok_all &= _k6_is_k1(half, sq)
+    # K2 and K4: the decode walk timed at the decode step, K4's chunk
+    # window at a hit's 256-row chunk prefill; K2's chunk window beside
+    # SDPA untimed; then every walk, chunk and FMA case over float16 and
+    # over int8 pages, and K2 over a dense cache's page view
+    decode_pos = [1999, 1500, 1024, 700, 300, 128, 127, 5]
+    recs["paged_decode_fused_f16"] = case(
+        _k2_case, "paged_decode_fused_f16", b=8, sq=1, h=32, hk=32, pos=decode_pos,
+        library=True)
+    recs["paged_decode_fused_q8_f16"] = case(
+        _k2_case, "paged_decode_fused_q8_f16", b=8, sq=1, h=32, hk=32,
+        pos=decode_pos, seed=11, quant=True)
+    recs["paged_decode_fused_q8_mma_f16"] = case(
+        _k2_case, "paged_decode_fused_q8_mma_f16", b=1, sq=256, h=32, hk=32,
+        pos=[300], seed=12, quant=True)
+    case(_k2_case, "paged_decode_fused_f16", b=1, sq=256, h=32, hk=32, pos=[300],
+         seed=9, timed=False)
+    for quant, name in ((False, "paged_decode_fused_f16"),
+                        (True, "paged_decode_fused_q8_f16")):
+        for kw in (*WALK_CASES, *CHUNK_CASES, *bf16_only(FMA_CASES)):
+            case(_k2_case, name, seed=10, timed=False, quant=quant, **kw)
+    for kw in (dict(b=GEN_BATCH, sq=1, h=32, hk=32, pos=GEN_LEN + GEN_NEW - 1,
+                    L=640),
+               dict(b=8, sq=1, h=32, hk=32, pos=decode_pos, L=2048),
+               *bf16_only(K2_DENSE_CASES)):
+        case(_k2_dense_case, "paged_decode_fused_f16", seed=19, timed=False, **kw)
+    torch.cuda.empty_cache()
+    # K5: cp=2 decode at the cp phase's context on the walk, timed, then
+    # the walk and chunk variants
+    recs["paged_decode_fused_cp_f16"] = case(
+        _k5_case, "paged_decode_fused_cp_f16", b=8, sq=1, h=32, hk=32,
+        pos=K5_DECODE_POS)
+    for kw in (*K5_WALK_CASES, *K5_CHUNK_CASES):
+        case(_k5_case, "paged_decode_fused_cp_f16", seed=22, timed=False, **kw)
+    torch.cuda.empty_cache()
+    for name, rec in recs.items():
+        rec["max_abs_err"] = max(errs[name])
+    return recs, ok_all
 
 
 def _post(url, body):
@@ -2268,8 +2491,7 @@ def phase_slice(smi, cfg, device="cuda", dtype="bfloat16",
 
     on_card = torch.device(device).type == "cuda"
     if on_card:
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        parity_matmuls()
         torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = LlamaForCausalLM(cfg, device=device, dtype=dtype, seed=0)
@@ -2352,7 +2574,8 @@ def phase_slice(smi, cfg, device="cuda", dtype="bfloat16",
         .astype(np.int32)])
     ok &= check_http_fields("slice", engine, prompts[0])
     if on_card:
-        profile_decode(engine, cfg, rng)
+        summary = dict(summary, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                       decode_profile=profile_decode(engine, cfg, rng))
     return ok, counts, model, summary
 
 
@@ -2887,6 +3110,114 @@ def phase_cp_f32(smi, model, device="cuda", doc_len=CP_DOC_LEN,
     return ok_all, all_counts
 
 
+# the fp16_serve phase's context-parallel run: (label, cp, spec_k,
+# kv_quant, page audit every step), as CP_RUNS
+FP16_CP_RUNS = [("cp2", 2, 0, "none", False)]
+
+
+def activation_ranges(model, ids):
+    """max|x| of the residual stream after each decoder layer and of the
+    logits, in one forward over `ids` (forward hooks).  Returns (per-layer
+    maxima, logits' max, index of the first layer whose output is not
+    finite or None)."""
+    import torch
+
+    maxima = []
+
+    def hook(_mod, _inp, out):
+        maxima.append(out.float().abs().max().item())
+
+    hooks = [layer.register_forward_hook(hook) for layer in model.llama.layers]
+    try:
+        with torch.no_grad():
+            logits = model(ids)
+    finally:
+        for h in hooks:
+            h.remove()
+    first_bad = next((i for i, m in enumerate(maxima) if not m < float("inf")), None)
+    return maxima, logits.float().abs().max().item(), first_bad
+
+
+def phase_fp16_serve(smi, cfg, bf16, serving, cp_kw, device="cuda", sizes=None):
+    """Llama-2-7B in float16 at full width and depth (seeded weights) on
+    the serving main paths, with the bf16 phases' checks: the slice's six
+    requests behind POST /generate on the engine's CUDA graphs (K1 once per
+    layer per prefill, K2 once per layer per decode step on the decode
+    walk, 0 new traces, one replay per step bit for bit against eager,
+    logits against the teacher-forced float16 forward), the prefix traffic
+    over int8 pages (K4 with a float16 q: every chunk prefill on its
+    tensor-core window, every decode step on the walk), lock-step greedy
+    `generate` over 4 x 500 tokens + 64 (K6 for the prefill, K2 over the
+    caches' page view for the decode steps), and the cp phase's traffic at
+    cp 2 (K5).  First, the range of the residual stream through the 32
+    layers in float16 (float16 tops out at 65504).  Prints decode tokens/s,
+    TTFT, the profiled decode step and peak memory beside the bf16 slice's
+    (`bf16`, its serving summary).  `sizes`: {"slice" | "prefix" |
+    "generate" | "cp": keyword arguments of that phase} (a rehearsal's
+    small shapes; the defaults are the bf16 phases').  Returns (all passed,
+    launch counts of every run)."""
+    import numpy as np
+    import torch
+
+    sizes = sizes or {}
+    ok, counts, model, summary = phase_slice(smi, cfg, device=device,
+                                             dtype="float16", **serving,
+                                             **sizes.get("slice", {}))
+    rng = np.random.default_rng(3)
+    ids = torch.from_numpy(rng.integers(1, cfg.vocab_size,
+                                        size=(1, min(512, serving["max_len"])))
+                           .astype(np.int32)).to(device)
+    maxima, logit_max, first_bad = activation_ranges(model, ids)
+    finite = first_bad is None and logit_max < float("inf")
+    ok &= finite
+    log("range", f"float16 forward of {ids.shape[1]} tokens: max|residual| "
+                 f"after layers 1, 8, 16, 24, 32: "
+                 + ", ".join(f"{maxima[i]:.1f}" for i in (0, 7, 15, 23, 31)
+                             if i < len(maxima))
+                 + f"; largest {max(maxima):.1f} (float16 max 65504), max|logit| "
+                 f"{logit_max:.2f}; first non-finite layer "
+                 f"{'none' if first_bad is None else first_bad + 1} -> "
+                 f"{'ok' if finite else 'FAIL'}")
+    if "decode_profile" in summary:
+        tps16, _ = _decode_rates(summary)
+        tps, _ = _decode_rates(bf16)
+        prof16 = summary["decode_profile"] or {}
+        prof = bf16.get("decode_profile") or {}
+
+        def fig(d, key, fmt):
+            return format(d[key], fmt) if key in d else "not measured"
+
+        log("compare", f"float16 vs bfloat16, the slice's traffic on one card: "
+                       f"decode_tokens_per_s {tps16:.2f} vs {tps:.2f}; ttft_p50_ms "
+                       f"{summary['ttft_p50_ms']:.3f} vs {bf16['ttft_p50_ms']:.3f}; "
+                       f"ttft_p95_ms {summary['ttft_p95_ms']:.3f} vs "
+                       f"{bf16['ttft_p95_ms']:.3f}; decode step wall_ms "
+                       f"{fig(prof16, 'wall_ms', '.3f')} vs {fig(prof, 'wall_ms', '.3f')}, "
+                       f"busy_ms {fig(prof16, 'busy_ms', '.3f')} vs "
+                       f"{fig(prof, 'busy_ms', '.3f')}, idle_share "
+                       f"{fig(prof16, 'idle_share', '.3f')} vs "
+                       f"{fig(prof, 'idle_share', '.3f')}; peak_mem_gib "
+                       f"{summary['peak_gib']:.2f} vs {bf16['peak_gib']:.2f} | {smi}")
+    runs = [counts]
+    _free()
+    good, c, _ = _timed("prefix int8", phase_prefix, smi, model, "int8",
+                        device=device, **serving, **sizes.get("prefix", {}))
+    ok &= good
+    runs.append(c)
+    _free()
+    good, c = _timed("generate", phase_generate, smi, model, device=device,
+                     greedy_only=True, **sizes.get("generate", {}))
+    ok &= good
+    runs.append(c)
+    _free()
+    good, cs = _timed("cp", phase_cp, smi, model, device=device,
+                      runs=FP16_CP_RUNS, **cp_kw, **sizes.get("cp", {}))
+    ok &= good
+    runs += cs
+    del model
+    return ok, runs
+
+
 def _gen_expect(cfg, dtype, s0, cache_len, steps, traced):
     """The launches of one lock-step call on the card: per layer, K6 for a
     prefill of s0 rows where `takes_dense_decode` takes it, else K2 over
@@ -2966,7 +3297,7 @@ def _replay_vs_eager(model, key, shape, state=()):
 def phase_generate(smi, model, device="cuda", batch=GEN_BATCH, prompt_len=GEN_LEN,
                    new_tokens=GEN_NEW, beam_len=BEAM_LEN, beam_new=BEAM_NEW,
                    beams=BEAMS, short_len=SHORT_LEN,
-                   predictor_lens=PREDICTOR_LENS):
+                   predictor_lens=PREDICTOR_LENS, greedy_only=False):
     """Lock-step generation on `model`, every strategy on its captured
     steps (`model._gen_fns`): greedy over `batch` prompts of `prompt_len`
     tokens, beam search, seeded sampling, a short prompt, each called
@@ -2976,8 +3307,9 @@ def phase_generate(smi, model, device="cuda", batch=GEN_BATCH, prompt_len=GEN_LE
     64+ rows, K2 over the page view for the rest, nothing else); one greedy
     and one beam decode step replay equal to eager bit for bit; prefill and
     one decode step's logits against the teacher-forced forward; then a
-    warmed GenerationPredictor behind POST /generate.  Returns (all checks
-    passed, the summed launch counts of the calls)."""
+    warmed GenerationPredictor behind POST /generate; `greedy_only` stops
+    after the greedy calls and their checks.  Returns (all checks passed,
+    the summed launch counts of the calls)."""
     import numpy as np
     import torch
 
@@ -3050,6 +3382,8 @@ def phase_generate(smi, model, device="cuda", batch=GEN_BATCH, prompt_len=GEN_LE
                     f"prefill {rels[0]:.3e}, decode step {rels[1]:.3e} (tol "
                     f"{LOGIT_REL_TOL}); greedy token {int(seq[0, -1])} == argmax of "
                     f"the forward {int(ref[0].argmax())} -> {'ok' if logits_ok else 'FAIL'}")
+    if greedy_only:
+        return ok, {name: sum(c[name] for c in runs) for name in runs[0]}
 
     ids_b = ids[:1, :beam_len].contiguous()
     beam_key = ("beam", beams, None)
@@ -4024,6 +4358,7 @@ KERNEL_GROUPS = (
     ("K2/K4/K5 chunk window (tensor cores)", ("paged_chunk_mma_kernel",)),
     ("K2/K4/K5 decode walk", ("paged_walk_kernel",)),
     ("K4/K5-int8 FMA walk", ("paged_decode_kernel<__nv_bfloat16, signed char",
+                             "paged_decode_kernel<__half, signed char",
                              "paged_decode_kernel<float, signed char")),
     ("K2/K5 FMA walk", ("paged_decode_kernel<",)),
     ("K2/K4/K5 split combine", ("combine_kernel<",)),
@@ -4041,7 +4376,7 @@ def _log_profile(what, wall_us, kernels, spans, steps, top=8, stats=None):
     busy = sum(kernels.values())
     if busy <= 0:
         log("profile", "device time not measured (the profiler saw no kernels)")
-        return
+        return None
     extra = ""
     if stats:
         n = stats["kernels"] / steps
@@ -4070,6 +4405,8 @@ def _log_profile(what, wall_us, kernels, spans, steps, top=8, stats=None):
     for name, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:top]:
         log("profile", f"  {us / busy:6.3f} of device time, "
                        f"{us / steps / 1e3:.4f} ms/step: {name[:90]}")
+    return dict(wall_ms=wall_us / steps / 1e3, busy_ms=busy / steps / 1e3,
+                idle_share=1 - busy / wall_us)
 
 
 def _log_adamw_span(phase, spans, was_ms=None):
@@ -4114,8 +4451,8 @@ def profile_decode(engine, cfg, rng, prompt_len=256, steps=8):
     engine.run_until_idle()
     for r in reqs:  # a request that failed would leave its slot out
         r.wait(1)
-    _log_profile(f"decode step, {engine.slots} slots at ~{prompt_len} tokens",
-                 wall_us, kernels, spans, steps, stats=stats)
+    return _log_profile(f"decode step, {engine.slots} slots at ~{prompt_len} tokens",
+                        wall_us, kernels, spans, steps, stats=stats)
 
 
 # ---------------------------------------------------------------------------
@@ -4166,8 +4503,7 @@ def phase_train(smi, cfg, device="cuda", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
 
     on_card = torch.device(device).type == "cuda"
     if on_card:
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        parity_matmuls()
         torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model, opt = _train_model(cfg, device, seed=seed)
@@ -4310,6 +4646,33 @@ OTHER_OPTIMIZERS = (("SGD", dict(learning_rate=1e-2)),
                     ("Lamb", dict(learning_rate=1e-4)))
 
 
+class attention_dtypes:
+    """Within the block, the dtype of q in every K1 and K3 call, by kernel:
+    {"flash_fwd": {dtypes}, "flash_bwd": {dtypes}} (the wrappers looked up
+    by `FlashAttention` at call time, wrapped for the block)."""
+
+    def __enter__(self):
+        from paddle_tpu_torch.ops import flash_attention as fa
+
+        self.seen = {"flash_fwd": set(), "flash_bwd": set()}
+        self.saved = fa.flash_forward, fa.flash_backward
+
+        def wrap(name, fn):
+            def inner(q, *args, **kw):
+                self.seen[name].add(str(q.dtype).removeprefix("torch."))
+                return fn(q, *args, **kw)
+            return inner
+
+        fa.flash_forward = wrap("flash_fwd", self.saved[0])
+        fa.flash_backward = wrap("flash_bwd", self.saved[1])
+        return self.seen
+
+    def __exit__(self, *exc):
+        from paddle_tpu_torch.ops import flash_attention as fa
+
+        fa.flash_forward, fa.flash_backward = self.saved
+
+
 def _amp_state(model, opt):
     """Every parameter and every piece of optimizer state, cloned."""
     out = [p.detach().clone() for p in model.parameters()]
@@ -4319,17 +4682,18 @@ def _amp_state(model, opt):
 
 
 def phase_amp(smi, cfg, device="cuda", batch=AMP_BATCH, seq=AMP_SEQ,
-              steps=AMP_STEPS, seed=0):
+              steps=AMP_STEPS, seed=0, dtype="bfloat16", others=True):
     """The reference's O1 recipe: a float32 Llama trained under
-    `auto_cast(level="O1", dtype="bfloat16")` with a dynamic `GradScaler`,
+    `auto_cast(level="O1", dtype=dtype)` with a dynamic `GradScaler`,
     `LinearWarmup` into `CosineAnnealingDecay`, `ClipGradByGlobalNorm(1.0)`
     and AdamW, `steps` steps on one repeated batch; step AMP_INF_STEP's
     gradients get one inf after backward.  Checks finite losses that fall,
     that the inf step changes no parameter, moment or power (bit for bit)
     and halves the scale, that every step ran at its scheduler's rate, and
     the launches: K1 and K3 once per layer per step on their wgmma paths
-    (the white ops feed attention bf16 q, k, v), adam_fused and
-    unscale_fused once per step.  Then SGD, Momentum, Adagrad, RMSProp,
+    (the white ops feed attention q, k, v in `dtype`, which a probe of the
+    first step's K1 and K3 calls confirms), adam_fused and unscale_fused
+    once per step.  Then, with `others`, SGD, Momentum, Adagrad, RMSProp,
     Adamax and Lamb each take two O1 steps of the same model: finite
     losses, every weight moved, step ms.  Returns (ok, launch counts of
     the AdamW run)."""
@@ -4342,7 +4706,7 @@ def phase_amp(smi, cfg, device="cuda", batch=AMP_BATCH, seq=AMP_SEQ,
 
     on_card = torch.device(device).type == "cuda"
     if on_card:
-        torch.backends.cuda.matmul.allow_tf32 = False
+        parity_matmuls()
         torch.cuda.reset_peak_memory_stats()
     model = LlamaForCausalLM(cfg, device=device, dtype="float32", seed=seed).train()
     lr = optimizer.lr
@@ -4357,12 +4721,12 @@ def phase_amp(smi, cfg, device="cuda", batch=AMP_BATCH, seq=AMP_SEQ,
     ids = torch.from_numpy(
         rng.integers(1, cfg.vocab_size, size=(batch, seq)).astype(np.int32)).to(device)
     log("amp", f"Llama {cfg.hidden_size} hidden x {layers} layers, float32 "
-               f"parameters, auto_cast O1 bf16 + GradScaler (dynamic, 2^15) + "
+               f"parameters, auto_cast O1 {dtype} + GradScaler (dynamic, 2^15) + "
                f"LinearWarmup(CosineAnnealingDecay) + ClipGradByGlobalNorm(1.0) + "
                f"AdamW, batch {batch} x {seq}, one inf at step {AMP_INF_STEP}")
 
     def step(inject):
-        with amp.auto_cast(level="O1", dtype="bfloat16"):
+        with amp.auto_cast(level="O1", dtype=dtype):
             loss, _ = model(ids, labels=ids)
         scaler.scale(loss).backward()
         if inject:
@@ -4381,7 +4745,10 @@ def phase_amp(smi, cfg, device="cuda", batch=AMP_BATCH, seq=AMP_SEQ,
         scale_before = float(scaler.get_loss_scaling())
         before = _amp_state(model, opt) if i == AMP_INF_STEP else None
         t0 = time.perf_counter()
-        losses.append(step(i == AMP_INF_STEP).item())
+        with attention_dtypes() as seen:
+            losses.append(step(i == AMP_INF_STEP).item())
+        if i == 1:
+            first_seen = seen
         if on_card:
             torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
@@ -4404,7 +4771,11 @@ def phase_amp(smi, cfg, device="cuda", batch=AMP_BATCH, seq=AMP_SEQ,
                 flash_bwd=layers * steps, flash_bwd_wgmma=layers * steps,
                 adam_fused=steps, unscale_fused=steps)
     counts_ok = all(counts[k] == n * scale for k, n in want.items())
+    want_seen = {"flash_fwd": {dtype}, "flash_bwd": {dtype}}
+    dtypes_ok = first_seen == want_seen
     step_s = statistics.median(secs[1:])
+    log("amp", f"step 1's attention operands by kernel {first_seen} (expected "
+               f"{want_seen}) -> {'ok' if dtypes_ok else 'FAIL'}")
     log("amp", "losses " + " ".join(f"{x:.4f}" for x in losses)
                + f": finite {finite}, last < first (the inf step aside) {falls}")
     log("amp", f"step {AMP_INF_STEP} (one inf): every parameter, moment and power "
@@ -4423,17 +4794,17 @@ def phase_amp(smi, cfg, device="cuda", batch=AMP_BATCH, seq=AMP_SEQ,
     log("amp", f"step_ms median of steps 2-{steps} {step_s * 1e3:.1f} (all: "
                + " ".join(f"{x * 1e3:.1f}" for x in secs)
                + f"), tokens_per_s {batch * seq / step_s:.1f}, peak_mem_gib {peak} | {smi}")
-    ok = finite and falls and skip_same and rates_ok and counts_ok
+    ok = finite and falls and skip_same and rates_ok and counts_ok and dtypes_ok
     del opt, scaler
 
     # -- the other optimizers, two O1 steps each -------------------------------
-    for name, kw in OTHER_OPTIMIZERS:
+    for name, kw in OTHER_OPTIMIZERS if others else ():
         other = getattr(optimizer, name)(parameters=model.named_parameters(), **kw)
         before = [p.detach().clone() for p in model.parameters()]
         o_losses, o_secs = [], []
         for _ in range(2):
             t0 = time.perf_counter()
-            with amp.auto_cast(level="O1", dtype="bfloat16"):
+            with amp.auto_cast(level="O1", dtype=dtype):
                 loss, _ = model(ids, labels=ids)
             loss.backward()
             other.step()
@@ -4451,6 +4822,125 @@ def phase_amp(smi, cfg, device="cuda", batch=AMP_BATCH, seq=AMP_SEQ,
         del other, before
     del model
     return ok, counts
+
+
+# fp16 O2 training: the train phase's shape, 8 steps, step 4's gradients
+# given one inf after backward (a step whose gradients overflow on their
+# own is skipped too)
+FP16_TRAIN_STEPS = 8
+FP16_INF_STEP = 4
+
+
+def phase_fp16_train(smi, cfg, device="cuda", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                     steps=FP16_TRAIN_STEPS, seed=0):
+    """fp16 O2 training of `cfg`: a float32 Llama decorated with
+    `amp.decorate(level="O2", dtype="float16")` (float32 masters), AdamW
+    (adam_fused) and a dynamic `GradScaler` at the reference's defaults
+    (2^15, x2 after 2000 good steps, /2 after each bad one), `steps` steps
+    on one repeated batch; step FP16_INF_STEP's gradients get one inf after
+    backward.  Each step unscales first and reads the scaler's flag, so a
+    step about to be skipped -- the injected inf or an overflow the scaler
+    finds by itself -- is snapshotted and must leave every parameter,
+    master, moment and power unchanged bit for bit and halve the scale.
+    Checks: losses finite on every applied step and falling; K1 and K3
+    once per layer per step on their wgmma paths with float16 q (a probe of
+    step 1's calls), adam_fused and unscale_fused once per step.  Prints
+    step ms, tokens/s, the skip pattern and peak memory.  Returns (all
+    passed, launch counts)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import amp, optimizer, profiler
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        parity_matmuls()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device=device, dtype="float32", seed=seed).train()
+    opt = optimizer.AdamW(learning_rate=1e-4, parameters=model.named_parameters(),
+                          weight_decay=0.01)
+    model, opt = amp.decorate(model, opt, level="O2", dtype="float16")
+    scaler = amp.GradScaler()
+    layers = cfg.num_hidden_layers
+    n16 = sum(p.numel() for p in model.parameters() if p.dtype == torch.float16)
+    log("train", f"Llama {cfg.hidden_size} hidden x {layers} layers, fp16 O2 "
+                 f"({n16} of {sum(p.numel() for p in model.parameters())} params "
+                 f"in float16) + float32 masters + AdamW + GradScaler (dynamic, "
+                 f"init {float(scaler.get_loss_scaling()):g}), batch {batch} x "
+                 f"{seq}, one inf at step {FP16_INF_STEP}, built in "
+                 f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(seed)
+    ids = torch.from_numpy(
+        rng.integers(1, cfg.vocab_size, size=(batch, seq)).astype(np.int32)).to(device)
+
+    # -- the main path: forward, scaled backward, unscale, AdamW, update ----
+    profiler.reset_kernel_launch_counts()
+    losses, secs, scales, skipped, first_seen = [], [], [], [], None
+    skips_ok = True
+    for i in range(1, steps + 1):
+        scale_before = float(scaler.get_loss_scaling())
+        t0 = time.perf_counter()
+        with attention_dtypes() as seen:
+            loss, _ = model(ids, labels=ids)
+            scaler.scale(loss).backward()
+        if i == FP16_INF_STEP:
+            next(model.parameters()).grad.view(-1)[7] = float("inf")
+        scaler.unscale_(opt)
+        found = bool(scaler._found_inf)
+        before = _amp_state(model, opt) if found else None
+        scaler.step(opt)
+        scaler.update()
+        opt.clear_grad()
+        losses.append(loss.item())
+        if on_card:
+            torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        scales.append(float(scaler.get_loss_scaling()))
+        first_seen = first_seen or seen
+        if found:
+            skipped.append(i)
+            same = all(torch.equal(a, b) for a, b in zip(before, _amp_state(model, opt)))
+            skips_ok &= same and scaler.last_found_inf and scales[-1] == scale_before / 2
+            log("train", f"step {i} skipped: every parameter, master, moment and "
+                         f"power unchanged bit for bit {same}, scale "
+                         f"{scale_before:g} -> {scales[-1]:g}")
+            del before
+    counts = profiler.kernel_launch_counts()
+    applied = [x for i, x in enumerate(losses, 1) if i not in skipped]
+    finite = all(np.isfinite(applied))
+    falls = len(applied) >= 2 and applied[-1] < applied[0]
+    skips_ok &= FP16_INF_STEP in skipped
+    scale = 1 if on_card else 0
+    want = dict(flash_fwd=layers * steps, flash_fwd_wgmma=layers * steps,
+                flash_bwd=layers * steps, flash_bwd_wgmma=layers * steps,
+                adam_fused=steps, unscale_fused=steps)
+    counts_ok = all(counts[k] == n * scale for k, n in want.items())
+    want_seen = {"flash_fwd": {"float16"}, "flash_bwd": {"float16"}}
+    dtypes_ok = first_seen == want_seen
+    good = [x for i, x in enumerate(secs, 1) if i > 1 and i not in skipped]
+    step_s = statistics.median(good or secs)
+    peak = (f"{torch.cuda.max_memory_allocated() / 2**30:.2f}" if on_card
+            else "not measured")
+    log("train", "losses " + " ".join(f"{x:.4f}" for x in losses)
+                 + f": applied steps finite {finite}, last < first {falls}")
+    log("train", f"skip pattern {['skip' if i in skipped else 'step' for i in range(1, steps + 1)]}"
+                 f", scales " + " ".join(f"{x:g}" for x in scales)
+                 + f"; every skip unchanged bit for bit with the scale halved, "
+                 f"the injected one among them -> {'ok' if skips_ok else 'FAIL'}")
+    log("train", f"step 1's attention operands by kernel {first_seen} (expected "
+                 f"{want_seen}) -> {'ok' if dtypes_ok else 'FAIL'}; launches "
+                 f"{_main(counts)} (expected {want} on the card: K1 and K3 once "
+                 f"per layer per step on their wgmma paths, adam_fused and "
+                 f"unscale_fused once per step, skipped steps too) -> "
+                 f"{'ok' if counts_ok else 'FAIL'}")
+    log("train", f"step_ms median of applied steps 2-{steps} {step_s * 1e3:.1f} "
+                 f"(all: " + " ".join(f"{x * 1e3:.1f}" for x in secs)
+                 + f"), tokens_per_s {batch * seq / step_s:.1f}, peak_mem_gib "
+                 f"{peak} | {smi}")
+    del model, opt, scaler
+    return finite and falls and skips_ok and counts_ok and dtypes_ok, counts
 
 
 # ---------------------------------------------------------------------------
@@ -4510,8 +5000,7 @@ def phase_bert(smi, cfg, device="cuda", batch=BERT_BATCH, seq=BERT_SEQ,
 
     on_card = torch.device(device).type == "cuda"
     if on_card:
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        parity_matmuls()
         torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model, opt = _bert_model(cfg, device, seed)
@@ -4837,7 +5326,7 @@ def phase_longcontext(smi, cfg, R, seq, steps, form, device="cuda", seed=0,
     phase = f"longcontext {seq}"
     on_card = torch.device(device).type == "cuda"
     if on_card:
-        torch.backends.cuda.matmul.allow_tf32 = False
+        parity_matmuls()
         torch.cuda.reset_peak_memory_stats()
     saved = mesh.get_mesh()
     mesh.build_mesh(sep=R, device=device)
@@ -5023,6 +5512,12 @@ def main():
         f32_ok, f32_counts = _timed("cp_f32", phase_cp_f32, smi, model, **cp_kw)
         del model
         _free()
+        # the serving paths again with the model in float16
+        with labelled("fp16 "):
+            serve16_ok, serve16_counts = _timed(
+                "serve", phase_fp16_serve, smi, LlamaConfig.llama2_7b(),
+                slice_summary, serving, cp_kw)
+        _free()
         train_ok, train_counts = _timed(
             "train", phase_train, smi,
             LlamaConfig.llama2_7b(num_hidden_layers=TRAIN_LAYERS))
@@ -5036,8 +5531,19 @@ def main():
         grad_ok, _ = _timed("grads", grad_check,
                             LlamaConfig.llama2_7b(num_hidden_layers=2))
         _free()
+        with labelled("fp16 "):
+            train16_ok, train16_counts = _timed(
+                "train", phase_fp16_train, smi,
+                LlamaConfig.llama2_7b(num_hidden_layers=TRAIN_LAYERS))
+        _free()
         amp_ok, amp_counts = _timed("amp", phase_amp, smi, LlamaConfig.llama2_7b(
             num_hidden_layers=AMP_LAYERS))
+        _free()
+        # O1 with float16 white ops: K1 and K3 take float16 operands
+        with labelled("fp16 "):
+            amp16_ok, amp16_counts = _timed(
+                "amp", phase_amp, smi, LlamaConfig.llama2_7b(
+                    num_hidden_layers=AMP_LAYERS), dtype="float16", others=False)
         _free()
         from paddle_tpu_torch.models.bert import BertConfig
 
@@ -5067,10 +5573,21 @@ def main():
     except Exception:
         traceback.print_exc()
         return 1
+    # the float16 main paths' launches, read just after each of their runs
+    runs16 = [*serve16_counts, train16_counts, amp16_counts]
+    launches16 = {f"{base}_f16": sum(c.get(base, 0) for c in runs16)
+                  for base in ("flash_fwd", "flash_bwd", "dense_decode",
+                               "paged_decode_fused", "paged_decode_fused_q8",
+                               "paged_decode_fused_q8_mma", "paged_decode_fused_cp",
+                               "adam_fused", "unscale_fused")}
+    idle16 = [name for name, n in launches16.items() if n == 0]
+    log("fp16", f"float16 launches on the main paths {launches16}; kernels not "
+                f"launched: {idle16 or 'none'} -> {'FAIL' if idle16 else 'ok'}")
     if not (kernels_ok and slice_ok and prefix_ok and gen_ok and dense_ok
             and fault_ok and obs_ok and cp_ok and f32_ok and train_ok and recompute_ok and grad_ok
             and amp_ok and bert_ok and bert_grad_ok and ring_ok and lc_ok
-            and lc2_ok and lc_grad_ok):
+            and lc2_ok and lc_grad_ok and serve16_ok and train16_ok and amp16_ok
+            and not idle16):
         print("chip_smoke: a phase failed (see the lines above)", file=sys.stderr)
         return 1
     # launches: the serving, generation and training runs' counts, each read
@@ -5080,6 +5597,7 @@ def main():
             *f32_counts, train_counts, amp_counts, bert_counts, *ring_counts,
             lc_counts, lc2_counts]
     launches = {name: sum(c.get(name, 0) for c in runs) for name in kernels}
+    launches.update(launches16)
     # adam_fused at BERT's parameters: the bert phase's launches; the other
     # entry the Llama runs' (train, amp, longcontext)
     launches["adam_fused_bert"] = bert_counts["adam_fused"]
@@ -5129,6 +5647,18 @@ def main():
         ("paged_decode_fused_cp_walk", "paged_decode.cu", 1172),
         ("paged_decode_fused_cp_mma", "paged_decode.cu", 1172),
     )
+    # the float16 instantiations of K1-K6 (and K4's chunk window), each timed
+    # at its kernel's main-path shape in float16, with the launches of the
+    # float16 main paths (fp16_serve, fp16_train, the fp16 O1 amp run)
+    entries += (
+        ("flash_fwd_f16", "flash_fwd.cu", 186),
+        ("flash_bwd_f16", "flash_bwd.cu", 415),
+        ("dense_decode_f16", "flash_fwd.cu", 649),
+        ("paged_decode_fused_f16", "paged_decode.cu", 813),
+        ("paged_decode_fused_q8_f16", "paged_decode.cu", 961),
+        ("paged_decode_fused_q8_mma_f16", "paged_decode.cu", 961),
+        ("paged_decode_fused_cp_f16", "paged_decode.cu", 1172),
+    )
     # the optimizer's kernels replace XLA fusions of the reference's step;
     # `adam_fused_bert` is adam_fused timed at BERT-base's parameters, with
     # the bert phase's launches
@@ -5136,6 +5666,8 @@ def main():
         ("adam_fused", "optim.cu", "paddle_tpu/optimizer/__init__.py:376"),
         ("adam_fused_bert", "optim.cu", "paddle_tpu/optimizer/__init__.py:376"),
         ("unscale_fused", "optim.cu", "paddle_tpu/amp/__init__.py:228"),
+        ("adam_fused_f16", "optim.cu", "paddle_tpu/optimizer/__init__.py:376"),
+        ("unscale_fused_f16", "optim.cu", "paddle_tpu/amp/__init__.py:228"),
     )
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": f"paddle_tpu_torch/csrc/{src}",

@@ -2,12 +2,14 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>  // INFINITY
 #include <stdint.h>
 
 #include <atomic>
 #include <mutex>
+#include <type_traits>
 
 namespace ptt {
 
@@ -117,14 +119,24 @@ __device__ __forceinline__ int ring_qpos(const Ring& rg, int q0) {
                              : 0;
 }
 
-// dtype codes passed from Python: 0 = float32, 1 = bfloat16.
+// dtype codes passed from Python: 0 = float32, 1 = bfloat16, 2 = float16
+// (the codes of ops/optim.py and optim.cu too).
 constexpr int kFloat32 = 0;
 constexpr int kBFloat16 = 1;
+constexpr int kFloat16 = 2;
+
+// The tensor-core kernels take their 16-bit element type T as a template
+// parameter: __nv_bfloat16 or __half.  Both are 2 bytes, so tiles, swizzle
+// and shared-memory budgets are the same; only the products' type strings,
+// the conversions and the tensor maps' data type differ.
+template <typename T>
+constexpr bool kIsHalf = std::is_same<T, __half>::value;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -136,6 +148,10 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float x) {
+  return __float2half_rn(x);  // past 65504: inf, as the reference's astype
+}
 
 // The reference feeds the probabilities to the P.V product in the value
 // dtype (`p.astype(v.dtype)`), while the softmax denominator sums them in
@@ -146,45 +162,63 @@ __device__ __forceinline__ float round_to(float x) {
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core helpers (bf16 `mma.sync` m16n8k16, f32 accumulation).
+// Tensor-core helpers (`mma.sync` m16n8k16 on bf16 or fp16, f32
+// accumulation).
 // ---------------------------------------------------------------------------
 
 // Threads of a tensor-core block: 4 warps, each owning 16 rows of a 64-row
 // tile.
 constexpr int kMmaThreads = 128;
 
-// d[16x8] += a[16x16] . b[16x8], bf16 inputs, f32 accumulators.  Fragment
-// layouts (PTX ISA, mma.m16n8k16): with g = lane / 4 and t = lane % 4,
-// a = {A[g][2t..], A[g+8][2t..], A[g][2t+8..], A[g+8][2t+8..]},
-// b = {B[2t..][g], B[2t+8..][g]}, c = {C[g][2t], C[g][2t+1], C[g+8][2t],
-// C[g+8][2t+1]}; each 32-bit register holds two bf16, the lower index low.
-// So the accumulators of two neighbouring 8-column score tiles, packed to
-// bf16, are the A fragment of one 16-deep step of the next product.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// d[16x8] += a[16x16] . b[16x8], T (bf16 or fp16) inputs, f32
+// accumulators.  Fragment layouts (PTX ISA, mma.m16n8k16): with g = lane /
+// 4 and t = lane % 4, a = {A[g][2t..], A[g+8][2t..], A[g][2t+8..],
+// A[g+8][2t+8..]}, b = {B[2t..][g], B[2t+8..][g]}, c = {C[g][2t],
+// C[g][2t+1], C[g+8][2t], C[g+8][2t+1]}; each 32-bit register holds two
+// 16-bit values, the lower index low.  So the accumulators of two
+// neighbouring 8-column score tiles, packed to T, are the A fragment of one
+// 16-deep step of the next product.
+template <typename T>
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  if constexpr (kIsHalf<T>) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  } else {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// Two floats rounded to T (round to nearest even), lo in the low half.
+template <typename T>
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  if constexpr (kIsHalf<T>) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
 }
 
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
+template <typename T>
+__device__ __forceinline__ uint32_t ld_u32(const T* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
 // Rows [row0, row0 + 64) of head `hh` of x ([b, s, nh, d]) into dst
-// ([64][D + 8] bf16, the padding keeps fragment loads conflict-free), zero
+// ([64][D + 8] of T, the padding keeps fragment loads conflict-free), zero
 // past s and past d; the block's kMmaThreads share the copy.  `vec`:
 // 16-byte loads.
-template <int D>
-__device__ __forceinline__ void load_rows(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* __restrict__ x,
+template <int D, typename T>
+__device__ __forceinline__ void load_rows(T* dst, const T* __restrict__ x,
                                           int b, int row0, int s, int nh,
                                           int hh, int d, bool vec) {
   constexpr int ST = D + 8;
@@ -204,12 +238,12 @@ __device__ __forceinline__ void load_rows(__nv_bfloat16* dst,
     const int r = e / D, c = e % D;
     dst[r * ST + c] = (row0 + r < s && c < d)
                           ? x[((size_t)(b * s + row0 + r) * nh + hh) * d + c]
-                          : __float2bfloat16(0.f);
+                          : from_f32<T>(0.f);
   }
 }
 
 // The B fragment of an m16n8k16 step whose 16 B rows are rows
-// [r0, r0 + 16) of a row-major bf16 tile x ([rows][ST], read as 16-bit
+// [r0, r0 + 16) of a row-major 16-bit tile x ([rows][ST], read as 16-bit
 // words) and whose column is c: b0 = {x[r0 + 2t][c], x[r0 + 2t + 1][c]},
 // b1 = the same 8 rows further.
 template <int ST>

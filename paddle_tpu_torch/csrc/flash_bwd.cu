@@ -26,8 +26,8 @@
 //    of the reference's repeated K/V and autograd's sum over the copies;
 //  - the ragged edge is masked in-kernel (`q < s`, `k < s`) as in K1: no
 //    padding, no segment ids; key rows past `s` are never written;
-//  - bf16 with d = 64 or 128 and at least 128 rows (every training step)
-//    runs the Hopper kernels (`hop::`): per block one producer warp and two
+//  - bf16 or fp16 with d = 64 or 128 and at least 128 rows (every
+//    training step) runs the Hopper kernels (`hop::`): per block one producer warp and two
 //    consumer warpgroups.  The producer keeps a two-stage ring of TMA tiles
 //    (128-byte swizzled, the tensor maps encoded per call through the
 //    driver entry point, so the build needs no -lcuda) full behind
@@ -37,8 +37,11 @@
 //    and their transposes are `wgmma` products of K-major tiles; P^T.dO,
 //    dS^T.Q and dS.K read their B operand MN-major (the transposed form, as
 //    K1 reads V), with P^T and dS as the register A operand, rounded to
-//    bf16 where the reference rounds them;
-//  - other bf16 shapes with d <= 128 run the five products on `mma.sync`
+//    the input dtype where the reference rounds them (`g.dtype` for P,
+//    `q.dtype` for dS: one dtype here).  In fp16 a dS beyond 65504 (the
+//    loss scale of a dynamic GradScaler can carry it there) rounds to inf
+//    as the reference's cast does; the scaler finds it and skips the step;
+//  - other bf16 or fp16 shapes with d <= 128 run the five products on `mma.sync`
 //    m16n8k16 (f32 accumulation); float32 and d > 128 run a plain f32-FMA
 //    kernel from shared memory.  The host picks the kernel (`flash_path`).
 // The dq kernel recomputes S and dP (seven products where the math needs
@@ -64,8 +67,8 @@
 //  - `delta=`: the ring computes rowsum(g * out) once for all its hops;
 //    given, the pre-pass is skipped and `out` is not read.
 // The ring's `g` is the cotangent of its final cast to the input dtype
-// (ring_attention.py:199, :372), so its values are exact in bf16: K3 takes
-// g in q's dtype and needs no float32-g path.
+// (ring_attention.py:199, :372), so its values are exact in that dtype: K3
+// takes g in q's dtype and needs no float32-g path.
 
 #include <stdint.h>
 
@@ -133,7 +136,7 @@ delta_kernel(const T* __restrict__ g, const T* __restrict__ out,
 }
 
 // ---------------------------------------------------------------------------
-// FMA kernels: float32 at any d <= 256, bf16 at 128 < d <= 256.  Tiles of
+// FMA kernels: float32 at any d <= 256, bf16 and fp16 at 128 < d <= 256.  Tiles of
 // BT = 64 rows for d <= 128, 32 above, so the four f32 tiles fit in shared
 // memory.
 // ---------------------------------------------------------------------------
@@ -533,25 +536,24 @@ cudaError_t dispatch_fma_f32(const void* q, const void* k, const void* v,
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core kernels: bf16, d <= D (D = 64 or 128).
+// Tensor-core kernels: T = bf16 or fp16, d <= D (D = 64 or 128).
 // ---------------------------------------------------------------------------
 
 constexpr int kMmaTile = 64;  // rows of the block's own tile, 16 per warp
 constexpr int kPass = 32;     // columns of the streamed tile per pass
 
-using bf16 = __nv_bfloat16;
 using ptt::b_rows;
 using ptt::kMmaThreads;
 using ptt::ld_u32;
-using ptt::mma_bf16;
-using ptt::pack_bf16;
+using ptt::mma;
+using ptt::pack;
 
 // The A fragment of one 16-deep step kk of a product whose 16 A rows are
 // rows [r0, r0 + 16) of the row-major tile x ([rows][ST]).
-template <int ST>
-__device__ __forceinline__ void a_rows(uint32_t (&a)[4], const bf16* x, int r0,
+template <int ST, typename T>
+__device__ __forceinline__ void a_rows(uint32_t (&a)[4], const T* x, int r0,
                                        int kk, int g, int t) {
-  const bf16* p = x + (r0 + g) * ST + kk * 16 + 2 * t;
+  const T* p = x + (r0 + g) * ST + kk * 16 + 2 * t;
   a[0] = ld_u32(p);
   a[1] = ld_u32(p + 8 * ST);
   a[2] = ld_u32(p + 8);
@@ -562,22 +564,22 @@ __device__ __forceinline__ void a_rows(uint32_t (&a)[4], const bf16* x, int r0,
 // of the tile and keeps their dk/dv rows in f32 registers.  For each q tile
 // of each q head of the group, it computes s^T = K Q^T and dp^T = V G^T
 // 32 q columns at a time; the accumulators, turned into p^T and ds^T and
-// packed to bf16, are the A fragments of dv += p^T G and dk += ds^T Q.
-template <int D, bool kMask, bool kRing>
+// packed to T, are the A fragments of dv += p^T G and dk += ds^T Q.
+template <typename T, int D, bool kMask, bool kRing>
 __global__ void __launch_bounds__(kMmaThreads)
-flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, const bf16* __restrict__ g,
+flash_bwd_dkdv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, const T* __restrict__ g,
                           const float* __restrict__ lse,
-                          const float* __restrict__ delta, bf16* __restrict__ dk,
-                          bf16* __restrict__ dv, Masking mk, Ring rg, int s,
+                          const float* __restrict__ delta, T* __restrict__ dk,
+                          T* __restrict__ dv, Masking mk, Ring rg, int s,
                           int lk, int h, int hk, int d, int causal, float scale,
                           bool vec) {
   constexpr int ST = D + 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* v_s = k_s + kMmaTile * ST;
-  bf16* q_s = v_s + kMmaTile * ST;
-  bf16* g_s = q_s + kMmaTile * ST;
+  T* k_s = reinterpret_cast<T*>(smem_raw);
+  T* v_s = k_s + kMmaTile * ST;
+  T* q_s = v_s + kMmaTile * ST;
+  T* g_s = q_s + kMmaTile * ST;
   float* lse_s = reinterpret_cast<float*>(g_s + kMmaTile * ST);
   float* delta_s = lse_s + kMmaTile;
   int* seg_s = reinterpret_cast<int*>(delta_s + kMmaTile);  // the q rows' ids
@@ -644,10 +646,10 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
           a_rows<ST>(va, v_s, wr, kk, gr, t);
 #pragma unroll
           for (int nt = 0; nt < kPass / 8; ++nt) {
-            const bf16* pq = q_s + (c0 + nt * 8 + gr) * ST + kk * 16 + 2 * t;
-            const bf16* pg = g_s + (c0 + nt * 8 + gr) * ST + kk * 16 + 2 * t;
-            mma_bf16(st[nt], ka, ld_u32(pq), ld_u32(pq + 8));
-            mma_bf16(dpt[nt], va, ld_u32(pg), ld_u32(pg + 8));
+            const T* pq = q_s + (c0 + nt * 8 + gr) * ST + kk * 16 + 2 * t;
+            const T* pg = g_s + (c0 + nt * 8 + gr) * ST + kk * 16 + 2 * t;
+            mma<T>(st[nt], ka, ld_u32(pq), ld_u32(pq + 8));
+            mma<T>(dpt[nt], va, ld_u32(pg), ld_u32(pg + 8));
           }
         }
         // p^T and ds^T, packed: score tiles 2kk and 2kk+1 are step kk's A
@@ -672,10 +674,10 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
             }
             dsv[e] = pv[e] * (dpt[nt][e] - delta_s[qc]) * scale;
           }
-          pf[nt / 2][(nt % 2) * 2] = pack_bf16(pv[0], pv[1]);
-          pf[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(pv[2], pv[3]);
-          dsf[nt / 2][(nt % 2) * 2] = pack_bf16(dsv[0], dsv[1]);
-          dsf[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(dsv[2], dsv[3]);
+          pf[nt / 2][(nt % 2) * 2] = pack<T>(pv[0], pv[1]);
+          pf[nt / 2][(nt % 2) * 2 + 1] = pack<T>(pv[2], pv[3]);
+          dsf[nt / 2][(nt % 2) * 2] = pack<T>(dsv[0], dsv[1]);
+          dsf[nt / 2][(nt % 2) * 2 + 1] = pack<T>(dsv[2], dsv[3]);
         }
 #pragma unroll
         for (int kk = 0; kk < kPass / 16; ++kk)
@@ -683,9 +685,9 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
           for (int dt = 0; dt < D / 8; ++dt) {
             uint32_t b0, b1;
             b_rows<ST>(g_u16, c0 + kk * 16, dt * 8 + gr, t, b0, b1);
-            mma_bf16(dv_acc[dt], pf[kk], b0, b1);
+            mma<T>(dv_acc[dt], pf[kk], b0, b1);
             b_rows<ST>(q_u16, c0 + kk * 16, dt * 8 + gr, t, b0, b1);
-            mma_bf16(dk_acc[dt], dsf[kk], b0, b1);
+            mma<T>(dk_acc[dt], dsf[kk], b0, b1);
           }
       }
     }
@@ -700,12 +702,12 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     for (int dt = 0; dt < D / 8; ++dt) {
       const int col = dt * 8 + 2 * t;
       if (col < d) {
-        dk[row + col] = __float2bfloat16(dk_acc[dt][2 * half]);
-        dv[row + col] = __float2bfloat16(dv_acc[dt][2 * half]);
+        dk[row + col] = from_f32<T>(dk_acc[dt][2 * half]);
+        dv[row + col] = from_f32<T>(dv_acc[dt][2 * half]);
       }
       if (col + 1 < d) {
-        dk[row + col + 1] = __float2bfloat16(dk_acc[dt][2 * half + 1]);
-        dv[row + col + 1] = __float2bfloat16(dv_acc[dt][2 * half + 1]);
+        dk[row + col + 1] = from_f32<T>(dk_acc[dt][2 * half + 1]);
+        dv[row + col + 1] = from_f32<T>(dv_acc[dt][2 * half + 1]);
       }
     }
   }
@@ -714,21 +716,21 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 // One block per (64-row q tile, q head, batch); warp w owns q rows
 // 16w..16w+15 with Q and G as register fragments and dq in f32 registers.
 // Per key tile it computes s = Q K^T and dp = G V^T 32 keys at a time; ds,
-// packed to bf16, is the A fragment of dq += ds K.
-template <int D, bool kMask, bool kRing>
+// packed to T, is the A fragment of dq += ds K.
+template <typename T, int D, bool kMask, bool kRing>
 __global__ void __launch_bounds__(kMmaThreads)
-flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, const bf16* __restrict__ g,
+flash_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ g,
                         const float* __restrict__ lse,
-                        const float* __restrict__ delta, bf16* __restrict__ dq,
+                        const float* __restrict__ delta, T* __restrict__ dq,
                         Masking mk, Ring rg, int s, int lk, int h, int hk,
                         int d, int causal, float scale, bool vec) {
   constexpr int ST = D + 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* g_s = q_s + kMmaTile * ST;
-  bf16* k_s = g_s + kMmaTile * ST;
-  bf16* v_s = k_s + kMmaTile * ST;
+  T* q_s = reinterpret_cast<T*>(smem_raw);
+  T* g_s = q_s + kMmaTile * ST;
+  T* k_s = g_s + kMmaTile * ST;
+  T* v_s = k_s + kMmaTile * ST;
   const unsigned short* k_u16 = reinterpret_cast<const unsigned short*>(k_s);
 
   const int q0 = blockIdx.x * kMmaTile;
@@ -789,10 +791,10 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int kk = 0; kk < D / 16; ++kk)
 #pragma unroll
         for (int nt = 0; nt < kPass / 8; ++nt) {
-          const bf16* pk = k_s + (c0 + nt * 8 + gr) * ST + kk * 16 + 2 * t;
-          const bf16* pv = v_s + (c0 + nt * 8 + gr) * ST + kk * 16 + 2 * t;
-          mma_bf16(sc[nt], qf[kk], ld_u32(pk), ld_u32(pk + 8));
-          mma_bf16(dp[nt], gf[kk], ld_u32(pv), ld_u32(pv + 8));
+          const T* pk = k_s + (c0 + nt * 8 + gr) * ST + kk * 16 + 2 * t;
+          const T* pv = v_s + (c0 + nt * 8 + gr) * ST + kk * 16 + 2 * t;
+          mma<T>(sc[nt], qf[kk], ld_u32(pk), ld_u32(pk + 8));
+          mma<T>(dp[nt], gf[kk], ld_u32(pv), ld_u32(pv + 8));
         }
       uint32_t dsf[kPass / 16][4];
 #pragma unroll
@@ -822,8 +824,8 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           }
           dsv[e] = p * (dp[nt][e] - delta_r[e >> 1]) * scale;
         }
-        dsf[nt / 2][(nt % 2) * 2] = pack_bf16(dsv[0], dsv[1]);
-        dsf[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(dsv[2], dsv[3]);
+        dsf[nt / 2][(nt % 2) * 2] = pack<T>(dsv[0], dsv[1]);
+        dsf[nt / 2][(nt % 2) * 2 + 1] = pack<T>(dsv[2], dsv[3]);
       }
 #pragma unroll
       for (int kk = 0; kk < kPass / 16; ++kk)
@@ -831,7 +833,7 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         for (int dt = 0; dt < D / 8; ++dt) {
           uint32_t b0, b1;
           b_rows<ST>(k_u16, c0 + kk * 16, dt * 8 + gr, t, b0, b1);
-          mma_bf16(dq_acc[dt], dsf[kk], b0, b1);
+          mma<T>(dq_acc[dt], dsf[kk], b0, b1);
         }
     }
   }
@@ -840,23 +842,23 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int half = 0; half < 2; ++half) {
     const int qi = half ? row_b : row_a;
     if (qi >= s) continue;
-    bf16* row = dq + ((size_t)(b * s + qi) * h + head) * d;
+    T* row = dq + ((size_t)(b * s + qi) * h + head) * d;
 #pragma unroll
     for (int dt = 0; dt < D / 8; ++dt) {
       const int col = dt * 8 + 2 * t;
-      if (col < d) row[col] = __float2bfloat16(dq_acc[dt][2 * half]);
-      if (col + 1 < d) row[col + 1] = __float2bfloat16(dq_acc[dt][2 * half + 1]);
+      if (col < d) row[col] = from_f32<T>(dq_acc[dt][2 * half]);
+      if (col + 1 < d) row[col + 1] = from_f32<T>(dq_acc[dt][2 * half + 1]);
     }
   }
 }
 
-template <int D>
+template <typename T, int D>
 cudaError_t launch_mma(const void* q, const void* k, const void* v,
                        const void* g, const void* lse, const void* delta,
                        void* dq, void* dk, void* dv, Masking mk, Ring rg,
                        int b, int s, int lk, int h, int hk, int d, int causal,
                        float scale, cudaStream_t stream) {
-  const size_t tiles_bytes = sizeof(bf16) * 4 * (size_t)kMmaTile * (D + 8);
+  const size_t tiles_bytes = sizeof(T) * 4 * (size_t)kMmaTile * (D + 8);
   // and the q rows' lse, delta and segment ids
   const size_t smem_dkdv = tiles_bytes + sizeof(float) * 3 * kMmaTile;
   const bool vec = d % 8 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
@@ -864,37 +866,38 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
                    reinterpret_cast<uintptr_t>(v) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(g) % 16 == 0;
   const int var = ptt::variant(mk, rg);
-  auto dkdv = var == 2   ? flash_bwd_dkdv_mma_kernel<D, false, true>
-              : var == 1 ? flash_bwd_dkdv_mma_kernel<D, true, false>
-                         : flash_bwd_dkdv_mma_kernel<D, false, false>;
-  auto dqk = var == 2   ? flash_bwd_dq_mma_kernel<D, false, true>
-             : var == 1 ? flash_bwd_dq_mma_kernel<D, true, false>
-                        : flash_bwd_dq_mma_kernel<D, false, false>;
+  auto dkdv = var == 2   ? flash_bwd_dkdv_mma_kernel<T, D, false, true>
+              : var == 1 ? flash_bwd_dkdv_mma_kernel<T, D, true, false>
+                         : flash_bwd_dkdv_mma_kernel<T, D, false, false>;
+  auto dqk = var == 2   ? flash_bwd_dq_mma_kernel<T, D, false, true>
+             : var == 1 ? flash_bwd_dq_mma_kernel<T, D, true, false>
+                        : flash_bwd_dq_mma_kernel<T, D, false, false>;
   static ptt::SmemLimit limit_dkdv[3], limit_dq[3];  // one per instantiation
   cudaError_t err = limit_dkdv[var].reserve(dkdv, smem_dkdv);
   if (err != cudaSuccess) return err;
   err = limit_dq[var].reserve(dqk, tiles_bytes);
   if (err != cudaSuccess) return err;
-  const bf16* qb = static_cast<const bf16*>(q);
-  const bf16* kb = static_cast<const bf16*>(k);
-  const bf16* vb = static_cast<const bf16*>(v);
-  const bf16* gb = static_cast<const bf16*>(g);
+  const T* qb = static_cast<const T*>(q);
+  const T* kb = static_cast<const T*>(k);
+  const T* vb = static_cast<const T*>(v);
+  const T* gb = static_cast<const T*>(g);
   const float* lse_f = static_cast<const float*>(lse);
   const float* delta_f = static_cast<const float*>(delta);
   dkdv<<<dim3((lk + kMmaTile - 1) / kMmaTile, hk, b), kMmaThreads, smem_dkdv,
-         stream>>>(qb, kb, vb, gb, lse_f, delta_f, static_cast<bf16*>(dk),
-                   static_cast<bf16*>(dv), mk, rg, s, lk, h, hk, d, causal,
+         stream>>>(qb, kb, vb, gb, lse_f, delta_f, static_cast<T*>(dk),
+                   static_cast<T*>(dv), mk, rg, s, lk, h, hk, d, causal,
                    scale, vec);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   dqk<<<dim3((s + kMmaTile - 1) / kMmaTile, h, b), kMmaThreads, tiles_bytes,
-        stream>>>(qb, kb, vb, gb, lse_f, delta_f, static_cast<bf16*>(dq), mk,
+        stream>>>(qb, kb, vb, gb, lse_f, delta_f, static_cast<T*>(dq), mk,
                   rg, s, lk, h, hk, d, causal, scale, vec);
   return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
-// Hopper kernels: bf16, d = D in {64, 128}, TMA loads and wgmma products.
+// Hopper kernels: T = bf16 or fp16, d = D in {64, 128}, TMA loads and
+// wgmma products.
 // ---------------------------------------------------------------------------
 
 namespace hop {
@@ -912,10 +915,10 @@ constexpr int kQStep = 64;   // dk/dv kernel: q rows per streamed tile
 constexpr int kRows = 128;   // dq kernel: q rows per block, 64 per warpgroup
 constexpr int kKStep = 64;   // dq kernel: keys per streamed tile
 
-// A tile of R rows x D columns is D / 64 column halves of [R][64] bf16
-// (R x 128 bytes each), 128-byte swizzled: TMA's box of 64 columns.
-template <int R>
-__device__ __forceinline__ void tma_tile(bf16* dst, const CUtensorMap* map,
+// A tile of R rows x D columns is D / 64 column halves of [R][64] 16-bit
+// values (R x 128 bytes each), 128-byte swizzled: TMA's box of 64 columns.
+template <int R, typename T>
+__device__ __forceinline__ void tma_tile(T* dst, const CUtensorMap* map,
                                           uint64_t* bar, int halves, int head,
                                           int row0, int b) {
   for (int hf = 0; hf < halves; ++hf)
@@ -946,14 +949,14 @@ struct DkdvSmem {
 // are released with it.  Consumer warpgroup w owns keys 64w..64w+63:
 //   S^T = K.Q^T, dP^T = V.dO^T       (wgmma, both operands K-major)
 //   P^T = exp(scale S^T - lse), dS^T = P^T (dP^T - delta) scale
-//   dV += P^T.dO, dK += dS^T.Q       (P^T, dS^T rounded to bf16 as the
+//   dV += P^T.dO, dK += dS^T.Q       (P^T, dS^T rounded to T as the
 //                                     register operand; dO, Q MN-major)
 // with dK and dV in f32 registers for the whole walk, written once.
 // kRing (the q blocks' absolute starts): every q tile of every head is
 // tested by its absolute rows, and producer and consumers skip the same
 // tiles (those wholly before the block's keys); `it` counts the tiles
 // that go through the ring.
-template <int D, bool kMask, bool kRing>
+template <typename T, int D, bool kMask, bool kRing>
 __global__ void __launch_bounds__(kThreadsDkdv, 1)
 flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                             const __grid_constant__ CUtensorMap tm_k,
@@ -961,7 +964,7 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                             const __grid_constant__ CUtensorMap tm_g,
                             const float* __restrict__ lse,
                             const float* __restrict__ delta,
-                            bf16* __restrict__ dk, bf16* __restrict__ dv,
+                            T* __restrict__ dk, T* __restrict__ dv,
                             Masking mk, Ring rg, int s, int lk, int h, int hk,
                             int causal, float scale) {
   using L = DkdvSmem<D>;
@@ -969,10 +972,10 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  bf16* k_s = reinterpret_cast<bf16*>(smem + L::k);
-  bf16* v_s = reinterpret_cast<bf16*>(smem + L::v);
-  bf16* q_s = reinterpret_cast<bf16*>(smem + L::q);
-  bf16* g_s = reinterpret_cast<bf16*>(smem + L::g);
+  T* k_s = reinterpret_cast<T*>(smem + L::k);
+  T* v_s = reinterpret_cast<T*>(smem + L::v);
+  T* q_s = reinterpret_cast<T*>(smem + L::q);
+  T* g_s = reinterpret_cast<T*>(smem + L::g);
   float* st_s = reinterpret_cast<float*>(smem + L::stats);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bar);
   uint64_t* empty = full + kStages;
@@ -1098,9 +1101,9 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         // column half kk / 4, 32 bytes per 16-deep step inside it
         const size_t aoff = (size_t)(kk / 4) * (kKeys * 128) + (kk % 4) * 32;
         const size_t boff = (size_t)(kk / 4) * (kQStep * 128) + (kk % 4) * 32;
-        wgmma_ss_n64(sc, make_desc(k_wg + aoff, 16, 1024),
+        wgmma_ss_n64<T>(sc, make_desc(k_wg + aoff, 16, 1024),
                      make_desc(qt + boff, 16, 1024), kk > 0);
-        wgmma_ss_n64(dp, make_desc(v_wg + aoff, 16, 1024),
+        wgmma_ss_n64<T>(dp, make_desc(v_wg + aoff, 16, 1024),
                      make_desc(gt + boff, 16, 1024), kk > 0);
       }
       wg_commit();
@@ -1108,7 +1111,7 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       fence_regs(sc);
       fence_regs(dp);
 
-      // P^T and dS^T, bf16, as the register A operand: q columns 16kk.. of
+      // P^T and dS^T in T as the register A operand: q columns 16kk.. of
       // the scores are the k columns of step kk
       uint32_t pf[kQStep / 16][4], dsf[kQStep / 16][4];
 #pragma unroll
@@ -1131,10 +1134,10 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
           }
           dsv[e] = pv[e] * (dp[4 * j + e] - dl[c]) * scale;
         }
-        pf[j / 2][(j % 2) * 2] = pack_bf16(pv[0], pv[1]);
-        pf[j / 2][(j % 2) * 2 + 1] = pack_bf16(pv[2], pv[3]);
-        dsf[j / 2][(j % 2) * 2] = pack_bf16(dsv[0], dsv[1]);
-        dsf[j / 2][(j % 2) * 2 + 1] = pack_bf16(dsv[2], dsv[3]);
+        pf[j / 2][(j % 2) * 2] = pack<T>(pv[0], pv[1]);
+        pf[j / 2][(j % 2) * 2 + 1] = pack<T>(pv[2], pv[3]);
+        dsf[j / 2][(j % 2) * 2] = pack<T>(dsv[0], dsv[1]);
+        dsf[j / 2][(j % 2) * 2 + 1] = pack<T>(dsv[2], dsv[3]);
       }
       fence_regs(dva);
       fence_regs(dka);
@@ -1146,11 +1149,11 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         const uint64_t dg = make_desc(gt + kk * 2048, kQStep * 128, 1024);
         const uint64_t dqd = make_desc(qt + kk * 2048, kQStep * 128, 1024);
         if constexpr (D == 128) {
-          wgmma_rs_n128(dva, pf[kk], dg);
-          wgmma_rs_n128(dka, dsf[kk], dqd);
+          wgmma_rs_n128<T>(dva, pf[kk], dg);
+          wgmma_rs_n128<T>(dka, dsf[kk], dqd);
         } else {
-          wgmma_rs_n64(dva, pf[kk], dg);
-          wgmma_rs_n64(dka, dsf[kk], dqd);
+          wgmma_rs_n64<T>(dva, pf[kk], dg);
+          wgmma_rs_n64<T>(dka, dsf[kk], dqd);
         }
       }
       wg_commit();
@@ -1168,9 +1171,9 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
         *reinterpret_cast<uint32_t*>(dk + row + 8 * j + 2 * t) =
-            pack_bf16(dka[4 * j + 2 * r], dka[4 * j + 2 * r + 1]);
+            pack<T>(dka[4 * j + 2 * r], dka[4 * j + 2 * r + 1]);
         *reinterpret_cast<uint32_t*>(dv + row + 8 * j + 2 * t) =
-            pack_bf16(dva[4 * j + 2 * r], dva[4 * j + 2 * r + 1]);
+            pack<T>(dva[4 * j + 2 * r], dva[4 * j + 2 * r + 1]);
       }
     }
   }
@@ -1197,10 +1200,10 @@ struct DqSmem {
 // up to the diagonal into a two-stage ring.  Consumer warpgroup w owns q
 // rows 64w..64w+63:
 //   S = Q.K^T, dP = dO.V^T           (wgmma, both operands K-major)
-//   dS = exp(scale S - lse) (dP - delta) scale, rounded to bf16
+//   dS = exp(scale S - lse) (dP - delta) scale, rounded to T
 //   dQ += dS.K                       (K MN-major)
 // dQ in f32 registers, written once: no atomics, so dq is deterministic.
-template <int D, bool kMask, bool kRing>
+template <typename T, int D, bool kMask, bool kRing>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const __grid_constant__ CUtensorMap tm_k,
@@ -1208,17 +1211,17 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const __grid_constant__ CUtensorMap tm_g,
                           const float* __restrict__ lse,
                           const float* __restrict__ delta,
-                          bf16* __restrict__ dq, Masking mk, Ring rg, int s,
+                          T* __restrict__ dq, Masking mk, Ring rg, int s,
                           int lk, int h, int hk, int causal, float scale) {
   using L = DqSmem<D>;
   constexpr int kHalves = D / 64;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  bf16* q_s = reinterpret_cast<bf16*>(smem + L::q);
-  bf16* g_s = reinterpret_cast<bf16*>(smem + L::g);
-  bf16* k_s = reinterpret_cast<bf16*>(smem + L::k);
-  bf16* v_s = reinterpret_cast<bf16*>(smem + L::v);
+  T* q_s = reinterpret_cast<T*>(smem + L::q);
+  T* g_s = reinterpret_cast<T*>(smem + L::g);
+  T* k_s = reinterpret_cast<T*>(smem + L::k);
+  T* v_s = reinterpret_cast<T*>(smem + L::v);
   int* kseg_s = reinterpret_cast<int*>(smem + L::mask);  // [kStages][kKStep]
   float* kb_s = reinterpret_cast<float*>(kseg_s + kStages * kKStep);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bar);
@@ -1343,9 +1346,9 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int kk = 0; kk < D / 16; ++kk) {
       const size_t aoff = (size_t)(kk / 4) * (kRows * 128) + (kk % 4) * 32;
       const size_t boff = (size_t)(kk / 4) * (kKStep * 128) + (kk % 4) * 32;
-      wgmma_ss_n64(sc, make_desc(q_wg + aoff, 16, 1024),
+      wgmma_ss_n64<T>(sc, make_desc(q_wg + aoff, 16, 1024),
                    make_desc(kt + boff, 16, 1024), kk > 0);
-      wgmma_ss_n64(dp, make_desc(g_wg + aoff, 16, 1024),
+      wgmma_ss_n64<T>(dp, make_desc(g_wg + aoff, 16, 1024),
                    make_desc(vt + boff, 16, 1024), kk > 0);
     }
     wg_commit();
@@ -1380,8 +1383,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         }
         dsv[e] = p * (dp[4 * j + e] - dl[e >> 1]) * scale;
       }
-      dsf[j / 2][(j % 2) * 2] = pack_bf16(dsv[0], dsv[1]);
-      dsf[j / 2][(j % 2) * 2 + 1] = pack_bf16(dsv[2], dsv[3]);
+      dsf[j / 2][(j % 2) * 2] = pack<T>(dsv[0], dsv[1]);
+      dsf[j / 2][(j % 2) * 2 + 1] = pack<T>(dsv[2], dsv[3]);
     }
     fence_regs(dqa);
     wg_fence();
@@ -1390,9 +1393,9 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       // 16 keys = two atoms per step; the next 64 d columns one half further
       const uint64_t db = make_desc(kt + kk * 2048, kKStep * 128, 1024);
       if constexpr (D == 128)
-        wgmma_rs_n128(dqa, dsf[kk], db);
+        wgmma_rs_n128<T>(dqa, dsf[kk], db);
       else
-        wgmma_rs_n64(dqa, dsf[kk], db);
+        wgmma_rs_n64<T>(dqa, dsf[kk], db);
     }
     wg_commit();
     wg_wait0();
@@ -1404,15 +1407,15 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   for (int r = 0; r < 2; ++r) {
     const int qi = r ? row_b : row_a;
     if (qi >= s) continue;
-    bf16* row = dq + ((size_t)(b * s + qi) * h + head) * D;
+    T* row = dq + ((size_t)(b * s + qi) * h + head) * D;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
       *reinterpret_cast<uint32_t*>(row + 8 * j + 2 * t) =
-          pack_bf16(dqa[4 * j + 2 * r], dqa[4 * j + 2 * r + 1]);
+          pack<T>(dqa[4 * j + 2 * r], dqa[4 * j + 2 * r + 1]);
   }
 }
 
-template <int D>
+template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* g,
                    const void* lse, const void* delta, void* dq, void* dk,
                    void* dv, Masking mk, Ring rg, int b, int s, int lk, int h,
@@ -1420,24 +1423,24 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* g,
   // the dk/dv kernel streams 64-row Q/dO tiles against 128 keys; the dq
   // kernel 64-key K/V tiles against 128 rows
   CUtensorMap q64, g64, k128, v128, q128, g128, k64, v64;
-  if (!make_map(&q64, q, b, s, h, D, kQStep) ||
-      !make_map(&g64, g, b, s, h, D, kQStep) ||
-      !make_map(&k128, k, b, lk, hk, D, kKeys) ||
-      !make_map(&v128, v, b, lk, hk, D, kKeys) ||
-      !make_map(&q128, q, b, s, h, D, kRows) ||
-      !make_map(&g128, g, b, s, h, D, kRows) ||
-      !make_map(&k64, k, b, lk, hk, D, kKStep) ||
-      !make_map(&v64, v, b, lk, hk, D, kKStep))
+  if (!make_map<T>(&q64, q, b, s, h, D, kQStep) ||
+      !make_map<T>(&g64, g, b, s, h, D, kQStep) ||
+      !make_map<T>(&k128, k, b, lk, hk, D, kKeys) ||
+      !make_map<T>(&v128, v, b, lk, hk, D, kKeys) ||
+      !make_map<T>(&q128, q, b, s, h, D, kRows) ||
+      !make_map<T>(&g128, g, b, s, h, D, kRows) ||
+      !make_map<T>(&k64, k, b, lk, hk, D, kKStep) ||
+      !make_map<T>(&v64, v, b, lk, hk, D, kKStep))
     return cudaErrorNotSupported;
   const size_t smem_dkdv = DkdvSmem<D>::bytes + 1024;  // + the alignment
   const size_t smem_dq = DqSmem<D>::bytes + 1024;
   const int var = ptt::variant(mk, rg);
-  auto dkdv = var == 2   ? flash_bwd_dkdv_wgmma_kernel<D, false, true>
-              : var == 1 ? flash_bwd_dkdv_wgmma_kernel<D, true, false>
-                         : flash_bwd_dkdv_wgmma_kernel<D, false, false>;
-  auto dqk = var == 2   ? flash_bwd_dq_wgmma_kernel<D, false, true>
-             : var == 1 ? flash_bwd_dq_wgmma_kernel<D, true, false>
-                        : flash_bwd_dq_wgmma_kernel<D, false, false>;
+  auto dkdv = var == 2   ? flash_bwd_dkdv_wgmma_kernel<T, D, false, true>
+              : var == 1 ? flash_bwd_dkdv_wgmma_kernel<T, D, true, false>
+                         : flash_bwd_dkdv_wgmma_kernel<T, D, false, false>;
+  auto dqk = var == 2   ? flash_bwd_dq_wgmma_kernel<T, D, false, true>
+             : var == 1 ? flash_bwd_dq_wgmma_kernel<T, D, true, false>
+                        : flash_bwd_dq_wgmma_kernel<T, D, false, false>;
   static ptt::SmemLimit limit_dkdv[3], limit_dq[3];  // one per instantiation
   cudaError_t err = limit_dkdv[var].reserve(dkdv, smem_dkdv);
   if (err != cudaSuccess) return err;
@@ -1447,12 +1450,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* g,
   const float* delta_f = static_cast<const float*>(delta);
   dkdv<<<dim3((lk + kKeys - 1) / kKeys, hk, b), kThreadsDkdv, smem_dkdv,
          stream>>>(
-      q64, k128, v128, g64, lse_f, delta_f, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), mk, rg, s, lk, h, hk, causal, scale);
+      q64, k128, v128, g64, lse_f, delta_f, static_cast<T*>(dk),
+      static_cast<T*>(dv), mk, rg, s, lk, h, hk, causal, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   dqk<<<dim3((s + kRows - 1) / kRows, h, b), kThreads, smem_dq, stream>>>(
-      q128, k64, v64, g128, lse_f, delta_f, static_cast<bf16*>(dq), mk, rg, s,
+      q128, k64, v64, g128, lse_f, delta_f, static_cast<T*>(dq), mk, rg, s,
       lk, h, hk, causal, scale);
   return cudaGetLastError();
 }
@@ -1461,44 +1464,77 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* g,
 
 // Kernel choices, picked by the host (`flash_path`, as for K1).
 constexpr int kPathFma = 0;    // f32 FMA, any dtype and d
-constexpr int kPathMma = 1;    // mma.sync, bf16 d <= 128
-constexpr int kPathWgmma = 2;  // wgmma + TMA, bf16 d = 64 or 128
+constexpr int kPathMma = 1;    // mma.sync, bf16 or fp16 d <= 128
+constexpr int kPathWgmma = 2;  // wgmma + TMA, bf16 or fp16 d = 64 or 128
 
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-// The products of the kernel `path` names, after the delta pre-pass; a path
-// the shape does not fit is cudaErrorInvalidValue, never another kernel.
+// The products of the kernel `path` names in element type T (bf16 or
+// fp16), after the delta pre-pass; a path the shape does not fit is
+// cudaErrorInvalidValue, never another kernel.
+template <typename T>
+cudaError_t backward16(int path, const void* q, const void* k, const void* v,
+                       const void* g, const void* lse, const void* delta,
+                       void* dq, void* dk, void* dv, Masking mk, Ring rg,
+                       int b, int s, int lk, int h, int hk, int d, int causal,
+                       float scale, cudaStream_t st) {
+  if (path == kPathWgmma) {
+    if ((d != 64 && d != 128) || !aligned16(q) || !aligned16(k) ||
+        !aligned16(v) || !aligned16(g))
+      return cudaErrorInvalidValue;
+    if (d == 64)
+      return hop::launch<T, 64>(q, k, v, g, lse, delta, dq, dk, dv, mk, rg, b,
+                                s, lk, h, hk, causal, scale, st);
+    return hop::launch<T, 128>(q, k, v, g, lse, delta, dq, dk, dv, mk, rg, b,
+                               s, lk, h, hk, causal, scale, st);
+  }
+  if (path == kPathMma) {
+    if (d > 128) return cudaErrorInvalidValue;
+    if (d <= 64)
+      return launch_mma<T, 64>(q, k, v, g, lse, delta, dq, dk, dv, mk, rg, b,
+                               s, lk, h, hk, d, causal, scale, st);
+    return launch_mma<T, 128>(q, k, v, g, lse, delta, dq, dk, dv, mk, rg, b, s,
+                              lk, h, hk, d, causal, scale, st);
+  }
+  if (path != kPathFma) return cudaErrorInvalidValue;
+  return launch_fma<T, 32, 16>(q, k, v, g, lse, delta, dq, dk, dv, mk, rg, b,
+                               s, lk, h, hk, d, causal, scale, st);
+}
+
+// The products of the kernel `path` names, after the delta pre-pass; bf16
+// and fp16 take the same paths.
 cudaError_t backward(int path, const void* q, const void* k, const void* v,
                      const void* g, const void* lse, const void* delta,
                      void* dq, void* dk, void* dv, Masking mk, Ring rg, int b,
                      int s, int lk, int h, int hk, int d, int causal,
                      float scale, int dtype, cudaStream_t st) {
-  if (path == kPathWgmma) {
-    if (dtype != ptt::kBFloat16 || (d != 64 && d != 128) || !aligned16(q) ||
-        !aligned16(k) || !aligned16(v) || !aligned16(g))
-      return cudaErrorInvalidValue;
-    if (d == 64)
-      return hop::launch<64>(q, k, v, g, lse, delta, dq, dk, dv, mk, rg, b, s,
-                             lk, h, hk, causal, scale, st);
-    return hop::launch<128>(q, k, v, g, lse, delta, dq, dk, dv, mk, rg, b, s,
-                            lk, h, hk, causal, scale, st);
-  }
-  if (path == kPathMma) {
-    if (dtype != ptt::kBFloat16 || d > 128) return cudaErrorInvalidValue;
-    if (d <= 64)
-      return launch_mma<64>(q, k, v, g, lse, delta, dq, dk, dv, mk, rg, b, s,
-                            lk, h, hk, d, causal, scale, st);
-    return launch_mma<128>(q, k, v, g, lse, delta, dq, dk, dv, mk, rg, b, s,
-                           lk, h, hk, d, causal, scale, st);
-  }
-  if (path != kPathFma) return cudaErrorInvalidValue;
   if (dtype == ptt::kBFloat16)
-    return launch_fma<bf16, 32, 16>(q, k, v, g, lse, delta, dq, dk, dv, mk, rg,
-                                    b, s, lk, h, hk, d, causal, scale, st);
+    return backward16<__nv_bfloat16>(path, q, k, v, g, lse, delta, dq, dk, dv,
+                                     mk, rg, b, s, lk, h, hk, d, causal,
+                                     scale, st);
+  if (dtype == ptt::kFloat16)
+    return backward16<__half>(path, q, k, v, g, lse, delta, dq, dk, dv, mk, rg,
+                              b, s, lk, h, hk, d, causal, scale, st);
+  if (path != kPathFma) return cudaErrorInvalidValue;
   return dispatch_fma_f32(q, k, v, g, lse, delta, dq, dk, dv, mk, rg, b, s, lk,
                           h, hk, d, causal, scale, st);
+}
+
+// The delta pre-pass in the inputs' dtype.
+cudaError_t delta_pass(int dtype, const void* g, const void* out, void* delta,
+                       int b, int s, int h, int d, cudaStream_t st) {
+  if (dtype == ptt::kBFloat16)
+    return launch_delta<__nv_bfloat16>(g, out, delta, b, s, h, d, st);
+  if (dtype == ptt::kFloat16)
+    return launch_delta<__half>(g, out, delta, b, s, h, d, st);
+  return launch_delta<float>(g, out, delta, b, s, h, d, st);
+}
+
+bool known_dtype(int dtype) {
+  return dtype == ptt::kBFloat16 || dtype == ptt::kFloat16 ||
+         dtype == ptt::kFloat32;
 }
 
 }  // namespace
@@ -1516,14 +1552,10 @@ extern "C" int ptt_flash_bwd(const void* q, const void* k, const void* v,
                              const void* segments, const void* kbias,
                              void* stream) {
   if (b < 1 || s < 1 || h < 1 || hk < 1 || h % hk != 0 || d < 1 || d > 256 ||
-      h > 65535 || b > 65535 ||
-      (dtype != ptt::kBFloat16 && dtype != ptt::kFloat32))
+      h > 65535 || b > 65535 || !known_dtype(dtype))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      dtype == ptt::kBFloat16
-          ? launch_delta<bf16>(g, out, delta, b, s, h, d, st)
-          : launch_delta<float>(g, out, delta, b, s, h, d, st);
+  const cudaError_t err = delta_pass(dtype, g, out, delta, b, s, h, d, st);
   if (err != cudaSuccess) return (int)err;
   const Masking mk{static_cast<const int*>(segments),
                    static_cast<const float*>(kbias)};
@@ -1547,17 +1579,13 @@ extern "C" int ptt_flash_bwd_ring(const void* q, const void* k, const void* v,
                                   int causal, float scale, int dtype, int path,
                                   int delta_given, void* stream) {
   if (b < 1 || s < 1 || lk < 1 || h < 1 || hk < 1 || h % hk != 0 || d < 1 ||
-      d > 256 || h > 65535 || b > 65535 ||
-      (dtype != ptt::kBFloat16 && dtype != ptt::kFloat32) ||
+      d > 256 || h > 65535 || b > 65535 || !known_dtype(dtype) ||
       (q_offset != nullptr && (bq < 128 || bq % 128 != 0 || s % bq != 0)) ||
       (!delta_given && out == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!delta_given) {
-    const cudaError_t err =
-        dtype == ptt::kBFloat16
-            ? launch_delta<bf16>(g, out, delta, b, s, h, d, st)
-            : launch_delta<float>(g, out, delta, b, s, h, d, st);
+    const cudaError_t err = delta_pass(dtype, g, out, delta, b, s, h, d, st);
     if (err != cudaSuccess) return (int)err;
   }
   const Ring rg{static_cast<const int*>(q_offset), bq, nullptr, nullptr,

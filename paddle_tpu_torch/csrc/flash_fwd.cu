@@ -31,21 +31,23 @@
 //  - GQA reads kv head `h / rep` in place, never a repeated copy of K/V;
 //  - the ragged edge (k >= s) is masked in-kernel, so no padding to 128
 //    and no segment ids are needed;
-//  - bf16 with d = 64 or 128 and at least 128 query rows runs the Hopper
-//    kernel (`flash_fwd_wgmma_kernel`): a 128-row q tile per block held by
-//    two consumer warpgroups of 64 rows, and one producer warp that loads
+//  - bf16 or fp16 with d = 64 or 128 and at least 128 query rows runs the
+//    Hopper kernel (`flash_fwd_wgmma_kernel`): a 128-row q tile per block
+//    held by two consumer warpgroups of 64 rows, and one producer warp that
+//    loads
 //    Q once and K/V tiles of 128 keys by TMA into a two-stage ring, each
 //    stage guarded by a full and an empty mbarrier, so the next tile's copy
 //    overlaps this tile's products.  S = Q.K^T is a `wgmma` m64n128k16 with
 //    Q and K read from 128-byte-swizzled shared memory; the online softmax
-//    runs in registers (base 2); P, rounded to bf16, is the register A
+//    runs in registers (base 2); P, rounded to the value dtype (bf16 or
+//    fp16, the reference's `p.astype(v.dtype)`), is the register A
 //    operand of the P.V `wgmma`, whose B operand V is read MN-major (the
 //    transposed form for 16-bit types).  The tensor maps are encoded on the
 //    host per call; their bounds zero-fill the ragged edge, which is then
 //    masked in registers; GQA reads kv head h / rep through the map's head
 //    coordinate; K6's query offset is read in-kernel.
-//  - other bf16 shapes with d <= 128 (fewer than 128 rows, d not 64 or
-//    128) run `mma.sync` m16n8k16 with f32 accumulation: each warp owns 16
+//  - other bf16 or fp16 shapes with d <= 128 (fewer than 128 rows, d not
+//    64 or 128) run `mma.sync` m16n8k16 with f32 accumulation: each warp owns 16
 //    q rows, keeps Q and P as register fragments and the output
 //    accumulator in registers.  float32 inputs and d > 128 run a plain
 //    f32-FMA kernel (the first version).  The host picks the kernel
@@ -86,8 +88,8 @@ using ptt::from_f32;
 using ptt::kNegInf;
 using ptt::kNegInf2;
 using ptt::ld_u32;
-using ptt::mma_bf16;
-using ptt::pack_bf16;
+using ptt::mma;
+using ptt::pack;
 using ptt::round_to;
 using ptt::to_f32;
 
@@ -322,27 +324,26 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* out,
 
 
 // ---------------------------------------------------------------------------
-// Tensor-core kernel: bf16, d <= D (D = 64 or 128).
+// Tensor-core kernel: T = bf16 or fp16, d <= D (D = 64 or 128).
 // ---------------------------------------------------------------------------
 
 constexpr int kMmaRows = 64;     // q rows per block, 16 per warp
 constexpr int kMmaKeys = 64;     // keys per tile
 using ptt::kMmaThreads;
 
-template <int D, bool kMask, bool kRing>
+template <typename T, int D, bool kMask, bool kRing>
 __global__ void __launch_bounds__(kMmaThreads)
-flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, T* __restrict__ out,
+                     float* __restrict__ lse,
                      const int* __restrict__ q_off, ptt::Masking mk,
                      ptt::Ring rg, int s, int lk, int h, int hk, int d,
                      int causal, float scale, bool vec) {
   constexpr int ST = D + 8;  // padded row: conflict-free fragment loads
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* k_s = q_s + kMmaRows * ST;
-  __nv_bfloat16* v_s = k_s + kMmaKeys * ST;
+  T* q_s = reinterpret_cast<T*>(smem_raw);
+  T* k_s = q_s + kMmaRows * ST;
+  T* v_s = k_s + kMmaKeys * ST;
   const unsigned short* v_u16 = reinterpret_cast<const unsigned short*>(v_s);
 
   const int q0 = blockIdx.x * kMmaRows;
@@ -364,7 +365,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   uint32_t qf[D / 16][4];
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    const __nv_bfloat16* p = q_s + (wr + g) * ST + kk * 16 + 2 * t;
+    const T* p = q_s + (wr + g) * ST + kk * 16 + 2 * t;
     qf[kk][0] = ld_u32(p);
     qf[kk][1] = ld_u32(p + 8 * ST);
     qf[kk][2] = ld_u32(p + 8);
@@ -414,8 +415,8 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
       for (int e = 0; e < 4; ++e) sc[nt][e] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        const __nv_bfloat16* p = k_s + (nt * 8 + g) * ST + kk * 16 + 2 * t;
-        mma_bf16(sc[nt], qf[kk], ld_u32(p), ld_u32(p + 8));
+        const T* p = k_s + (nt * 8 + g) * ST + kk * 16 + 2 * t;
+        mma<T>(sc[nt], qf[kk], ld_u32(p), ld_u32(p + 8));
       }
     }
 
@@ -452,8 +453,9 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
       alpha[r] = expf(m[r] - m_new);
       m[r] = m_new;
     }
-    // P in bf16 as the A fragments of P.V: key columns of score tiles 2kk
-    // and 2kk+1 are the k columns of P.V step kk
+    // P in T (the value dtype, the reference's rounding point) as the A
+    // fragments of P.V: key columns of score tiles 2kk and 2kk+1 are the k
+    // columns of P.V step kk
     uint32_t pf[4][4];
     float rs[2] = {0.f, 0.f};
 #pragma unroll
@@ -462,8 +464,8 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
       const float p2 = expf(sc[nt][2] - m[1]), p3 = expf(sc[nt][3] - m[1]);
       rs[0] += p0 + p1;
       rs[1] += p2 + p3;
-      pf[nt / 2][(nt % 2) * 2] = pack_bf16(p0, p1);
-      pf[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(p2, p3);
+      pf[nt / 2][(nt % 2) * 2] = pack<T>(p0, p1);
+      pf[nt / 2][(nt % 2) * 2 + 1] = pack<T>(p2, p3);
     }
 #pragma unroll
     for (int r = 0; r < 2; ++r) l[r] = alpha[r] * l[r] + rs[r];  // per-thread part
@@ -480,7 +482,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
       for (int dt = 0; dt < D / 8; ++dt) {
         uint32_t b0, b1;
         ptt::b_rows<ST>(v_u16, kk * 16, dt * 8 + g, t, b0, b1);
-        mma_bf16(o[dt], pf[kk], b0, b1);
+        mma<T>(o[dt], pf[kk], b0, b1);
       }
   }
 
@@ -500,43 +502,43 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
         if (col + 1 < d) rg.out32[orow + col + 1] = o[dt][2 * r + 1] / l_safe;
         continue;
       }
-      if (col < d) out[orow + col] = __float2bfloat16(o[dt][2 * r] / l_safe);
+      if (col < d) out[orow + col] = from_f32<T>(o[dt][2 * r] / l_safe);
       if (col + 1 < d)
-        out[orow + col + 1] = __float2bfloat16(o[dt][2 * r + 1] / l_safe);
+        out[orow + col + 1] = from_f32<T>(o[dt][2 * r + 1] / l_safe);
     }
     if (lse != nullptr && t == 0)
       lse[((size_t)b * h + head) * s + qi] = m[r] + logf(l_safe);
   }
 }
 
-template <int D>
+template <typename T, int D>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out,
                        void* lse, const int* q_off, ptt::Masking mk,
                        ptt::Ring rg, int b, int s, int lk, int h, int hk,
                        int d, int causal, float scale, cudaStream_t stream) {
-  const size_t smem = sizeof(__nv_bfloat16) * (size_t)(kMmaRows + 2 * kMmaKeys) *
-                      (D + 8);
+  const size_t smem = sizeof(T) * (size_t)(kMmaRows + 2 * kMmaKeys) * (D + 8);
   const bool vec = d % 8 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(v) % 16 == 0;
   const int var = ptt::variant(mk, rg);
-  auto kernel = var == 2   ? flash_fwd_mma_kernel<D, false, true>
-                : var == 1 ? flash_fwd_mma_kernel<D, true, false>
-                           : flash_fwd_mma_kernel<D, false, false>;
+  auto kernel = var == 2   ? flash_fwd_mma_kernel<T, D, false, true>
+                : var == 1 ? flash_fwd_mma_kernel<T, D, true, false>
+                           : flash_fwd_mma_kernel<T, D, false, false>;
   static ptt::SmemLimit limit[3];  // one per instantiation
   cudaError_t err = limit[var].reserve(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((s + kMmaRows - 1) / kMmaRows, h, b);
   kernel<<<grid, kMmaThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out),
       static_cast<float*>(lse), q_off, mk, rg, s, lk, h, hk, d, causal, scale,
       vec);
   return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
-// Hopper kernel: bf16, d = D in {64, 128}, TMA loads and wgmma products.
+// Hopper kernel: T = bf16 or fp16, d = D in {64, 128}, TMA loads and wgmma
+// products.
 // ---------------------------------------------------------------------------
 
 namespace hop {
@@ -566,12 +568,12 @@ struct Smem {
   static constexpr size_t bytes = bar + (2 * kStages + 1) * 8;
 };
 
-template <int D, bool kMask, bool kRing>
+template <typename T, int D, bool kMask, bool kRing>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v,
-                       __nv_bfloat16* __restrict__ out,
+                       T* __restrict__ out,
                        float* __restrict__ lse, const int* __restrict__ q_off,
                        ptt::Masking mk, ptt::Ring rg, int s, int lk, int h,
                        int hk, int causal, float scale_log2) {
@@ -579,9 +581,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem + L::q);
-  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem + L::k);
-  __nv_bfloat16* v_s = reinterpret_cast<__nv_bfloat16*>(smem + L::v);
+  T* q_s = reinterpret_cast<T*>(smem + L::q);
+  T* k_s = reinterpret_cast<T*>(smem + L::k);
+  T* v_s = reinterpret_cast<T*>(smem + L::v);
   int* kseg_s = reinterpret_cast<int*>(smem + L::mask);  // [kStages][kBN]
   float* kb_s = reinterpret_cast<float*>(kseg_s + kStages * kBN);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bar);
@@ -718,7 +720,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       // column half kk / 4, 32 bytes per 16-deep step inside it
       const size_t off = (size_t)(kk / 4) * (kBQ * 128) + (kk % 4) * 32;
       const size_t koff = (size_t)(kk / 4) * (kBN * 128) + (kk % 4) * 32;
-      wgmma_ss_n128(sc, make_desc(q_wg + off, 16, 1024),
+      wgmma_ss_n128<T>(sc, make_desc(q_wg + off, 16, 1024),
                     make_desc(kt + koff, 16, 1024), kk > 0);
     }
     wg_commit();
@@ -762,8 +764,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       alpha[r] = exp2f(m[r] - m_new);
       m[r] = m_new;
     }
-    // P in bf16 (K1's rounding point) as the register A operand of P.V:
-    // key columns 16kk.. of the scores are the k columns of step kk
+    // P in T (K1's rounding point, the value dtype) as the register A
+    // operand of P.V: key columns 16kk.. of the scores are the k columns of
+    // step kk
     uint32_t pf[kBN / 16][4];
     float rs[2] = {0.f, 0.f};
 #pragma unroll
@@ -774,8 +777,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       const float p3 = exp2f(sc[4 * j + 3] - m[1]);
       rs[0] += p0 + p1;
       rs[1] += p2 + p3;
-      pf[j / 2][(j % 2) * 2] = pack_bf16(p0, p1);
-      pf[j / 2][(j % 2) * 2 + 1] = pack_bf16(p2, p3);
+      pf[j / 2][(j % 2) * 2] = pack<T>(p0, p1);
+      pf[j / 2][(j % 2) * 2 + 1] = pack<T>(p2, p3);
     }
 #pragma unroll
     for (int r = 0; r < 2; ++r) l[r] = alpha[r] * l[r] + rs[r];  // per-thread part
@@ -794,9 +797,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       // lie one column half (kBN rows of 128 bytes) further
       const uint64_t db = make_desc(vt + kk * 2048, kBN * 128, 1024);
       if constexpr (D == 128)
-        wgmma_rs_n128(o, pf[kk], db);
+        wgmma_rs_n128<T>(o, pf[kk], db);
       else
-        wgmma_rs_n64(o, pf[kk], db);
+        wgmma_rs_n64<T>(o, pf[kk], db);
     }
     wg_commit();
     wg_wait0();
@@ -822,33 +825,34 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
         *reinterpret_cast<uint32_t*>(out + orow + 8 * j + 2 * t) =
-            pack_bf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+            pack<T>(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
     }
     if (lse != nullptr && t == 0)
       lse[((size_t)b * h + head) * s + qi] = (m[r] + log2f(l_safe)) * kLn2;
   }
 }
 
-template <int D>
+template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    void* lse, const int* q_off, ptt::Masking mk, ptt::Ring rg,
                    int b, int s, int lk, int h, int hk, int causal,
                    float scale, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, q, b, s, h, D, kBQ) || !make_map(&tk, k, b, lk, hk, D, kBN) ||
-      !make_map(&tv, v, b, lk, hk, D, kBN))
+  if (!make_map<T>(&tq, q, b, s, h, D, kBQ) ||
+      !make_map<T>(&tk, k, b, lk, hk, D, kBN) ||
+      !make_map<T>(&tv, v, b, lk, hk, D, kBN))
     return cudaErrorNotSupported;
   const size_t smem = Smem<D>::bytes + 1024;  // + the 1024-byte alignment
   const int var = ptt::variant(mk, rg);
-  auto kernel = var == 2   ? flash_fwd_wgmma_kernel<D, false, true>
-                : var == 1 ? flash_fwd_wgmma_kernel<D, true, false>
-                           : flash_fwd_wgmma_kernel<D, false, false>;
+  auto kernel = var == 2   ? flash_fwd_wgmma_kernel<T, D, false, true>
+                : var == 1 ? flash_fwd_wgmma_kernel<T, D, true, false>
+                           : flash_fwd_wgmma_kernel<T, D, false, false>;
   static ptt::SmemLimit limit[3];  // one per instantiation
   cudaError_t err = limit[var].reserve(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((s + kBQ - 1) / kBQ, h, b);
   kernel<<<grid, kThreads, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse),
+      tq, tk, tv, static_cast<T*>(out), static_cast<float*>(lse),
       q_off, mk, rg, s, lk, h, hk, causal, scale * kLog2e);
   return cudaGetLastError();
 }
@@ -857,16 +861,40 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 
 // Kernel choices, picked by the host (`flash_path`).
 constexpr int kPathFma = 0;    // f32 FMA, any dtype and d
-constexpr int kPathMma = 1;    // mma.sync, bf16 d <= 128
-constexpr int kPathWgmma = 2;  // wgmma + TMA, bf16 d = 64 or 128
+constexpr int kPathMma = 1;    // mma.sync, bf16 or fp16 d <= 128
+constexpr int kPathWgmma = 2;  // wgmma + TMA, bf16 or fp16 d = 64 or 128
 
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
+// The tensor-core paths in element type T (bf16 or fp16).
+template <typename T>
+cudaError_t attend_tc(int path, const void* q, const void* k, const void* v,
+                      void* out, void* lse, const int* q_off, ptt::Masking mk,
+                      ptt::Ring rg, int b, int s, int lk, int h, int hk, int d,
+                      int causal, float scale, cudaStream_t st) {
+  if (path == kPathWgmma) {
+    if ((d != 64 && d != 128) || !aligned16(q) || !aligned16(k) ||
+        !aligned16(v))
+      return cudaErrorInvalidValue;
+    if (d == 64)
+      return hop::launch<T, 64>(q, k, v, out, lse, q_off, mk, rg, b, s, lk, h,
+                                hk, causal, scale, st);
+    return hop::launch<T, 128>(q, k, v, out, lse, q_off, mk, rg, b, s, lk, h,
+                               hk, causal, scale, st);
+  }
+  if (d > 128) return cudaErrorInvalidValue;
+  if (d <= 64)
+    return launch_mma<T, 64>(q, k, v, out, lse, q_off, mk, rg, b, s, lk, h, hk,
+                             d, causal, scale, st);
+  return launch_mma<T, 128>(q, k, v, out, lse, q_off, mk, rg, b, s, lk, h, hk,
+                            d, causal, scale, st);
+}
+
 // Run the kernel `path` names; a path the shape does not fit is
 // cudaErrorInvalidValue, never another kernel.  q_off == nullptr: no query
-// offset (K1).
+// offset (K1).  bf16 and fp16 take the same paths.
 cudaError_t attend(int path, const void* q, const void* k, const void* v,
                    void* out, void* lse, const int* q_off, ptt::Masking mk,
                    ptt::Ring rg, int b, int s, int lk, int h, int hk, int d,
@@ -880,28 +908,22 @@ cudaError_t attend(int path, const void* q, const void* k, const void* v,
                                            s % rg.bq != 0)) ||
                   (rg.c_out == nullptr) != (rg.c_lse == nullptr)))
     return cudaErrorInvalidValue;
-  if (path == kPathWgmma) {
-    if (dtype != ptt::kBFloat16 || (d != 64 && d != 128) || !aligned16(q) ||
-        !aligned16(k) || !aligned16(v))
-      return cudaErrorInvalidValue;
-    if (d == 64)
-      return hop::launch<64>(q, k, v, out, lse, q_off, mk, rg, b, s, lk, h,
-                             hk, causal, scale, st);
-    return hop::launch<128>(q, k, v, out, lse, q_off, mk, rg, b, s, lk, h,
-                            hk, causal, scale, st);
-  }
-  if (path == kPathMma && (dtype != ptt::kBFloat16 || d > 128))
+  if (path == kPathWgmma || path == kPathMma) {
+    if (dtype == ptt::kBFloat16)
+      return attend_tc<__nv_bfloat16>(path, q, k, v, out, lse, q_off, mk, rg,
+                                      b, s, lk, h, hk, d, causal, scale, st);
+    if (dtype == ptt::kFloat16)
+      return attend_tc<__half>(path, q, k, v, out, lse, q_off, mk, rg, b, s,
+                               lk, h, hk, d, causal, scale, st);
     return cudaErrorInvalidValue;
-  if (path != kPathMma && path != kPathFma) return cudaErrorInvalidValue;
-  if (path == kPathMma && d <= 64)
-    return launch_mma<64>(q, k, v, out, lse, q_off, mk, rg, b, s, lk, h, hk,
-                          d, causal, scale, st);
-  if (path == kPathMma)
-    return launch_mma<128>(q, k, v, out, lse, q_off, mk, rg, b, s, lk, h, hk,
-                           d, causal, scale, st);
+  }
+  if (path != kPathFma) return cudaErrorInvalidValue;
   if (dtype == ptt::kBFloat16)
     return dispatch_d<__nv_bfloat16>(q, k, v, out, lse, q_off, mk, rg, b, s,
                                      lk, h, hk, d, causal, scale, st);
+  if (dtype == ptt::kFloat16)
+    return dispatch_d<__half>(q, k, v, out, lse, q_off, mk, rg, b, s, lk, h,
+                              hk, d, causal, scale, st);
   if (dtype == ptt::kFloat32)
     return dispatch_d<float>(q, k, v, out, lse, q_off, mk, rg, b, s, lk, h, hk,
                              d, causal, scale, st);

@@ -11,10 +11,10 @@
 // never exists.  K4 is the same kernel over an int8 arena: each stored row
 // carries a float32 scale per kv head in a parallel `[pages, ps, hk, 1]`
 // arena, and the tile loader writes `float(int8) * scale` into the same
-// float32 shared-memory tiles K2 fills from bf16.
+// float32 shared-memory tiles K2 fills from bf16 or fp16.
 //
 // Bound on an H100: decode attention does 4*R*d FLOPs per key row against
-// 2*d*2 bytes of K and V (bf16; 2*(d + 4) bytes under int8) -- about R
+// 2*d*2 bytes of K and V (bf16 or fp16; 2*(d + 4) bytes under int8) -- about R
 // FLOP per byte, far below the card's ~295 FLOP/byte balance point -- so
 // it is bound by the bytes of the pages it must read: each slot's live K/V
 // rows of every kv head, once.  The design answers that bound:
@@ -36,15 +36,15 @@
 //  - K/V tiles load 16 bytes per thread (8 bf16 or 16 int8 values).
 // Over float32 arenas and at d other than 64 or 128 the dot products are
 // plain f32 FMAs from f32 shared-memory tiles (`paged_decode_kernel`, the
-// FMA page walk); bf16 q at d 64 or 128 takes the decode walk under 16 rows
-// and the chunk window from 16.
+// FMA page walk); a bf16 or fp16 q at d 64 or 128 takes the decode walk
+// under 16 rows and the chunk window from 16.
 //
 // The decode walk (`paged_walk_kernel`): under 16 rows -- every decode
 // step (R = 1 for Llama-2-7B's MHA) and verify window (R = 3) -- the walk
 // is pure streaming at about R FLOP per byte, so latency and the bytes in
 // flight bound it.  Each block (128 threads) streams its share of the live
 // keys through a ring of kWalkStages = 3 stages of 8 KB of K and 8 KB of V
-// in the stored dtype (32 bf16 or 64 int8 key rows at d 128; no f32
+// in the stored dtype (32 16-bit or 64 int8 key rows at d 128; no f32
 // staging), 16-byte `cp.async` copies, keys in table order so a stage may
 // span pages, the split's table columns staged in shared memory first.
 // Bytes in flight: two stages ahead = 32 KB a block; four blocks of ~49 KB
@@ -60,14 +60,15 @@
 // take two blocks), so the registers follow R.
 //
 // The chunk window (`paged_chunk_mma_kernel`): a tile of 16 rows or more,
-// bf16 q and d = 64 or 128 -- every chunk prefill of a prefix-cache hit
-// and of the cp engine -- is operation-bound at its real width (a 256-row
+// bf16 or fp16 q and d = 64 or 128 -- every chunk prefill of a prefix-cache
+// hit and of the cp engine -- is operation-bound at its real width (a 256-row
 // chunk does 256 x 4d FLOP per key against 4d bytes), so it runs on the
 // tensor cores.  One block of 4 warps holds a 64-row tile, 16 rows per
 // warp, as K1's `flash_fwd_mma_kernel` does: Q fragments in registers,
 // S = Q.K^T on `mma.sync` m16n8k16 with f32 accumulation, the online
-// softmax in registers, P rounded to bf16 (K2's rounding point) as the A
-// fragments of P.V, O in registers.  K/V stay bf16 in shared memory, in
+// softmax in registers, P rounded to q's dtype T, bf16 or fp16 (K2's
+// rounding point), as the A fragments of P.V, O in registers.  K/V stay in
+// T in shared memory, in
 // padded 64-key tiles loaded 16 bytes a thread with `cp.async` into a
 // two-stage buffer, so the next tile's copy overlaps this tile's
 // products; V's B fragments come from `ldmatrix.trans`.  Keys run in table
@@ -75,12 +76,13 @@
 // is chosen by the host to fill the card, and each block divides the LIVE
 // key range (columns whose first position the tile can see) among the
 // splits itself, so no split walks dead pages.  int8 pages: an int8 value
-// is exact in bf16, so each staged int8 tile converts losslessly to bf16;
-// the K scale multiplies S's column after the product (s = scale * ks_t *
-// q.k8_t) and the V scale folds into P (p'_t = p_t * vs_t, rounded to bf16
+// is exact in bf16 and in fp16, so each staged int8 tile converts
+// losslessly to T; the K scale multiplies S's column after the product
+// (s = scale * ks_t * q.k8_t) and the V scale folds into P (p'_t = p_t *
+// vs_t, rounded to T -- bf16 under a bf16 q, fp16 under an fp16 q --
 // before P'.V8).  That rounding point is new: K4's FMA kernel and the
-// reference keep p in float32 there; the kernels phase holds it to the
-// bf16 tolerance.
+// reference keep p * vs in float32 there (flash_attention.py:1267); the
+// kernels phase holds it to the working dtype's tolerance.
 //
 // K5 is the same page walks for context-parallel decode: a cp shard walks
 // its own slice of the arena with a local table whose columns are not
@@ -102,7 +104,7 @@
 // offset w = r % sq sees key jid iff jid <= pos + w and jid < max_len, with
 // jid = page_base[j] + row-in-page.  Scratch page 0 (zero values, scale 0
 // until masked writes land there) is fenced by the same test before any
-// softmax.  K2 rounds p to bf16 before P.V as the reference
+// softmax.  K2 rounds p to the page dtype before P.V as the reference
 // does (`p.astype(v.dtype)`); K4 does not, because the reference's V is the
 // float32 dequantized tile there.
 
@@ -466,8 +468,8 @@ cudaError_t combine(const void* ws, void* out, Partials part, int nsplit,
 }
 
 // ---------------------------------------------------------------------------
-// The chunk window on the tensor cores (bf16 q, d = D in {64, 128}, 16 rows
-// or more per tile).
+// The chunk window on the tensor cores (T = bf16 or fp16 q, d = D in {64,
+// 128}, 16 rows or more per tile).
 // ---------------------------------------------------------------------------
 
 constexpr int kChunkKeys = 64;  // keys per tile, in table order
@@ -496,7 +498,7 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // The B fragments of two neighbouring 8-key steps of S = Q.K^T from a
-// row-major [keys][ST] bf16 tile: matrices (keys n0..+7, cols c0..+7),
+// row-major [keys][ST] 16-bit tile: matrices (keys n0..+7, cols c0..+7),
 // (n0.., c0+8..), (n0+8.., c0..), (n0+8.., c0+8..), so r[0], r[1] are b0,
 // b1 of keys n0.. and r[2], r[3] of keys n0+8..
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
@@ -508,7 +510,7 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
 }
 
 // The B fragments of two neighbouring 8-column steps of P.V from a
-// row-major [keys][ST] bf16 tile: matrices (keys k0..+7, cols c0..+7),
+// row-major [keys][ST] 16-bit tile: matrices (keys k0..+7, cols c0..+7),
 // (keys k0+8.., c0..), (k0.., c0+8..), (k0+8.., c0+8..), transposed on the
 // way, so r[0], r[1] are b0, b1 of columns c0.. and r[2], r[3] of c0+8..
 __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
@@ -519,12 +521,12 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
       : "r"(a));
 }
 
-// Shared memory of the chunk kernel, in bytes from the start: the bf16 K
+// Shared memory of the chunk kernel, in bytes from the start: the T K
 // and V tiles the products read ([kTiles][64][ST] each), each stage's key
 // positions [kStages][64] int32, and for int8 pages the staged int8 tiles
-// [kStages][64][D] and their scales [kStages][64] f32.  q [64][ST] bf16
+// [kStages][64][D] and their scales [kStages][64] f32.  q [64][ST] of T
 // borrows a tile the first key tile leaves free until the q fragments are
-// in registers (V's second stage, or under int8 the bf16 K tile that the
+// in registers (V's second stage, or under int8 the T K tile that the
 // first conversion fills), so three blocks fit an SM (~70 KB each at d 128).
 template <int D, bool kQuant>
 struct ChunkSmem {
@@ -544,19 +546,19 @@ struct ChunkSmem {
 
 // Grid, outputs and workspace as `paged_decode_kernel`; the split's key
 // tiles are its share of the live range (see the header).  TS: the stored
-// K/V element (bf16, or int8 with the scale arenas ks / vs).  Three blocks
+// K/V element (T, or int8 with the scale arenas ks / vs).  Three blocks
 // per SM (at most 170 registers a thread; left alone ptxas takes ~180 and
 // fits two), the grid the host sizes (`paged_splits`).
-template <int D, typename TS>
+template <typename T, int D, typename TS>
 __global__ void __launch_bounds__(kThreads, 3)
-paged_chunk_mma_kernel(const __nv_bfloat16* __restrict__ q,
+paged_chunk_mma_kernel(const T* __restrict__ q,
                        const TS* __restrict__ ak, const TS* __restrict__ av,
                        const float* __restrict__ ks,
                        const float* __restrict__ vs,
                        const int* __restrict__ tables,
                        const int* __restrict__ page_base,
                        const int* __restrict__ pos,
-                       __nv_bfloat16* __restrict__ out, Partials part,
+                       T* __restrict__ out, Partials part,
                        float* __restrict__ ws, int sq, int h, int hk, int ps,
                        int P, int max_len, float scale, int ntiles,
                        int nsplit, size_t shard_rows) {
@@ -564,9 +566,9 @@ paged_chunk_mma_kernel(const __nv_bfloat16* __restrict__ q,
   using L = ChunkSmem<D, kQuant>;
   constexpr int ST = L::ST;
   extern __shared__ __align__(16) unsigned char chunk_smem[];
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(chunk_smem + L::q);
-  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(chunk_smem + L::k);
-  __nv_bfloat16* v_s = reinterpret_cast<__nv_bfloat16*>(chunk_smem + L::v);
+  T* q_s = reinterpret_cast<T*>(chunk_smem + L::q);
+  T* k_s = reinterpret_cast<T*>(chunk_smem + L::k);
+  T* v_s = reinterpret_cast<T*>(chunk_smem + L::v);
   int* jid_s = reinterpret_cast<int*>(chunk_smem + L::jid);
   int8_t* k8_s = reinterpret_cast<int8_t*>(chunk_smem + L::k8);
   int8_t* v8_s = reinterpret_cast<int8_t*>(chunk_smem + L::v8);
@@ -677,7 +679,7 @@ paged_chunk_mma_kernel(const __nv_bfloat16* __restrict__ q,
   uint32_t qf[D / 16][4];
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    const __nv_bfloat16* p = q_s + (wr + g) * ST + kk * 16 + 2 * t;
+    const T* p = q_s + (wr + g) * ST + kk * 16 + 2 * t;
     qf[kk][0] = ptt::ld_u32(p);
     qf[kk][1] = ptt::ld_u32(p + 8 * ST);
     qf[kk][2] = ptt::ld_u32(p + 8);
@@ -702,10 +704,10 @@ paged_chunk_mma_kernel(const __nv_bfloat16* __restrict__ q,
       cp_async_wait<0>();
     }
     __syncthreads();  // this tile's copies (and zero rows) are visible
-    const __nv_bfloat16* kt = k_s;
-    const __nv_bfloat16* vt = v_s;
+    const T* kt = k_s;
+    const T* vt = v_s;
     if constexpr (kQuant) {
-      // int8 -> bf16 is exact (|x| <= 127)
+      // int8 -> T is exact (|x| <= 127 in bf16 or fp16)
       for (int e = tid; e < kChunkKeys * (D / 16); e += kThreads) {
         const int kk = e / (D / 16), c = (e % (D / 16)) * 16;
         const size_t src = ((size_t)st * kChunkKeys + kk) * D + c;
@@ -716,8 +718,8 @@ paged_chunk_mma_kernel(const __nv_bfloat16* __restrict__ q,
         uint32_t kw[8], vw[8];
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
-          kw[i] = ptt::pack_bf16((float)kb[2 * i], (float)kb[2 * i + 1]);
-          vw[i] = ptt::pack_bf16((float)vb[2 * i], (float)vb[2 * i + 1]);
+          kw[i] = ptt::pack<T>((float)kb[2 * i], (float)kb[2 * i + 1]);
+          vw[i] = ptt::pack<T>((float)vb[2 * i], (float)vb[2 * i + 1]);
         }
         uint4* kd = reinterpret_cast<uint4*>(k_s + kk * ST + c);
         uint4* vd = reinterpret_cast<uint4*>(v_s + kk * ST + c);
@@ -745,8 +747,8 @@ paged_chunk_mma_kernel(const __nv_bfloat16* __restrict__ q,
         uint32_t b[4];
         ldsm_x4(b, kt + ((2 * np + (mi >> 1)) * 8 + mr) * ST + kk * 16 +
                        (mi & 1) * 8);
-        ptt::mma_bf16(sc[2 * np], qf[kk], b[0], b[1]);
-        ptt::mma_bf16(sc[2 * np + 1], qf[kk], b[2], b[3]);
+        ptt::mma<T>(sc[2 * np], qf[kk], b[0], b[1]);
+        ptt::mma<T>(sc[2 * np + 1], qf[kk], b[2], b[3]);
       }
 
     float mx[2] = {kNegInf, kNegInf};
@@ -771,7 +773,7 @@ paged_chunk_mma_kernel(const __nv_bfloat16* __restrict__ q,
       alpha[r] = __expf(m[r] - m_new);
       m[r] = m_new;
     }
-    // P (p' = p * vs under int8) in bf16 as the A fragments of P.V: key
+    // P (p' = p * vs under int8) in T as the A fragments of P.V: key
     // columns of score tiles 2kk and 2kk+1 are the k columns of step kk
     uint32_t pf[4][4];
     float rs[2] = {0.f, 0.f};
@@ -789,8 +791,8 @@ paged_chunk_mma_kernel(const __nv_bfloat16* __restrict__ q,
         p2v *= v0;
         p3v *= v1;
       }
-      pf[nt / 2][(nt % 2) * 2] = ptt::pack_bf16(p0v, p1v);
-      pf[nt / 2][(nt % 2) * 2 + 1] = ptt::pack_bf16(p2v, p3v);
+      pf[nt / 2][(nt % 2) * 2] = ptt::pack<T>(p0v, p1v);
+      pf[nt / 2][(nt % 2) * 2 + 1] = ptt::pack<T>(p2v, p3v);
     }
 #pragma unroll
     for (int r = 0; r < 2; ++r) l[r] = alpha[r] * l[r] + rs[r];  // per-thread part
@@ -808,8 +810,8 @@ paged_chunk_mma_kernel(const __nv_bfloat16* __restrict__ q,
         uint32_t b[4];
         ldsm_x4_trans(b, vt + (kk * 16 + (mi & 1) * 8 + mr) * ST + dp * 16 +
                              (mi >> 1) * 8);
-        ptt::mma_bf16(o[2 * dp], pf[kk], b[0], b[1]);
-        ptt::mma_bf16(o[2 * dp + 1], pf[kk], b[2], b[3]);
+        ptt::mma<T>(o[2 * dp], pf[kk], b[0], b[1]);
+        ptt::mma<T>(o[2 * dp + 1], pf[kk], b[2], b[3]);
       }
     __syncthreads();  // every warp is done with this stage
   }
@@ -834,12 +836,12 @@ paged_chunk_mma_kernel(const __nv_bfloat16* __restrict__ q,
       }
     } else if (nz == 1) {
       const float inv = 1.f / fmaxf(l[r], 1e-30f);  // masked rows give 0
-      __nv_bfloat16* orow =
+      T* orow =
           out + ((size_t)(slot * sq + row % sq) * h + kvh * rep + row / sq) * D;
 #pragma unroll
       for (int dt = 0; dt < D / 8; ++dt)
         *reinterpret_cast<uint32_t*>(orow + dt * 8 + 2 * t) =
-            ptt::pack_bf16(o[dt][2 * r] * inv, o[dt][2 * r + 1] * inv);
+            ptt::pack<T>(o[dt][2 * r] * inv, o[dt][2 * r + 1] * inv);
     } else {
       // this split's partials at row `row` of the (slot, kvh, split) region
       const size_t region = ((size_t)slot * hk + kvh) * nz + z;
@@ -860,7 +862,7 @@ paged_chunk_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
 // ---------------------------------------------------------------------------
 // The decode walk: fewer than 16 rows (a decode step, a verify window),
-// bf16 q, d = D in {64, 128}, bf16 or int8 pages.
+// T = bf16 or fp16 q, d = D in {64, 128}, pages of T or int8.
 // ---------------------------------------------------------------------------
 
 constexpr int kWalkStages = 3;          // cp.async ring
@@ -882,13 +884,24 @@ struct WalkSmem {
   static constexpr size_t bytes = vsc + (kQuant ? (size_t)kWalkStages * kKeys * 4 : 0);
 };
 
-// 8 stored values at p as f32: 16 bytes of bf16, or 8 bytes of int8.
+// 8 stored values at p as f32: 16 bytes of bf16 or fp16, or 8 bytes of
+// int8.
 __device__ __forceinline__ void load8(float (&x)[8], const __nv_bfloat16* p) {
   const uint4 raw = *reinterpret_cast<const uint4*>(p);
   const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const float2 f = __bfloat1622float2(h2[i]);
+    x[2 * i] = f.x;
+    x[2 * i + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void load8(float (&x)[8], const __half* p) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const __half2* h2 = reinterpret_cast<const __half2*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __half22float2(h2[i]);
     x[2 * i] = f.x;
     x[2 * i + 1] = f.y;
   }
@@ -910,14 +923,14 @@ __device__ __forceinline__ void load8(float (&x)[8], const int8_t* p) {
 // the group; each group keeps an online softmax (m, l) and acc of its 8
 // columns per row in registers over the keys it takes (keys grp, grp + NG,
 // ... of each stage), and the groups merge once at block end.
-template <int D, typename TS, int RT>
+template <typename T, int D, typename TS, int RT>
 __global__ void __launch_bounds__(kThreads, RT >= 8 ? 2 : 3)
-paged_walk_kernel(const __nv_bfloat16* __restrict__ q,
+paged_walk_kernel(const T* __restrict__ q,
                   const TS* __restrict__ ak, const TS* __restrict__ av,
                   const float* __restrict__ ks, const float* __restrict__ vs,
                   const int* __restrict__ tables,
                   const int* __restrict__ page_base,
-                  const int* __restrict__ pos, __nv_bfloat16* __restrict__ out,
+                  const int* __restrict__ pos, T* __restrict__ out,
                   Partials part, float* __restrict__ ws, int sq, int h,
                   int hk, int ps, int P, int max_len, float scale, int ntiles,
                   int nsplit, size_t shard_rows) {
@@ -1116,8 +1129,8 @@ paged_walk_kernel(const __nv_bfloat16* __restrict__ q,
           sc[u][r] = p;
         }
       }
-      // P.V: p rounded to bf16 for bf16 pages (K2), float32 times the V
-      // row's scale for int8 pages (K4's dequantized V)
+      // P.V: p rounded to the page dtype for bf16 or fp16 pages (K2),
+      // float32 times the V row's scale for int8 pages (K4's dequantized V)
 #pragma unroll
       for (int u = 0; u < KB; ++u) {
         const int kk = grp + NG * (u0 + u);
@@ -1176,7 +1189,7 @@ paged_walk_kernel(const __nv_bfloat16* __restrict__ q,
       }
     } else if (nz == 1) {
       out[((size_t)(slot * sq + row % sq) * h + kvh * rep + row / sq) * D + c] =
-          __float2bfloat16(A / fmaxf(Ls, 1e-30f));  // masked rows give 0
+          from_f32<T>(A / fmaxf(Ls, 1e-30f));  // masked rows give 0
     } else {
       ws[(region * R + row) * D + c] = A;
       if (c == 0) {
@@ -1251,7 +1264,7 @@ cudaError_t launch(const void* q, const void* ak, const void* av,
   return combine<T>(ws, out, part, w.nz(), b, sq, h, hk, d, stream);
 }
 
-template <int D, typename TS>
+template <typename T, int D, typename TS>
 cudaError_t launch_chunk(const void* q, const void* ak, const void* av,
                          const void* ks, const void* vs, const void* tables,
                          const void* page_base, const void* pos, void* out,
@@ -1265,23 +1278,23 @@ cudaError_t launch_chunk(const void* q, const void* ak, const void* av,
     return cudaErrorInvalidValue;  // 16-byte copies only
   if (bad_outputs(out, part, ws, w)) return cudaErrorInvalidValue;
   constexpr size_t smem = ChunkSmem<D, std::is_same<TS, int8_t>::value>::bytes;
-  auto kernel = paged_chunk_mma_kernel<D, TS>;
+  auto kernel = paged_chunk_mma_kernel<T, D, TS>;
   static ptt::SmemLimit limit;
   cudaError_t err = limit.reserve(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(b, hk * ntiles, w.nz()), kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const TS*>(ak),
+      static_cast<const T*>(q), static_cast<const TS*>(ak),
       static_cast<const TS*>(av), static_cast<const float*>(ks),
       static_cast<const float*>(vs), static_cast<const int*>(tables),
       static_cast<const int*>(page_base), static_cast<const int*>(pos),
-      static_cast<__nv_bfloat16*>(out), part, static_cast<float*>(ws), sq, h,
+      static_cast<T*>(out), part, static_cast<float*>(ws), sq, h,
       hk, ps, P, max_len, scale, ntiles, w.nsplit, w.shard_rows);
   err = cudaGetLastError();
   if (err != cudaSuccess || w.nz() == 1) return err;
-  return combine<__nv_bfloat16>(ws, out, part, w.nz(), b, sq, h, hk, D, stream);
+  return combine<T>(ws, out, part, w.nz(), b, sq, h, hk, D, stream);
 }
 
-template <int D, typename TS, int RT>
+template <typename T, int D, typename TS, int RT>
 cudaError_t launch_walk_rt(const void* q, const void* ak, const void* av,
                            const void* ks, const void* vs, const void* tables,
                            const void* page_base, const void* pos, void* out,
@@ -1293,26 +1306,26 @@ cudaError_t launch_walk_rt(const void* q, const void* ak, const void* av,
   if ((long long)hk * ntiles > 65535) return cudaErrorInvalidValue;
   // the ring, then the table's page ids and first positions [2][P]
   const size_t smem = WalkSmem<D, TS>::bytes + (size_t)2 * P * sizeof(int);
-  auto kernel = paged_walk_kernel<D, TS, RT>;
+  auto kernel = paged_walk_kernel<T, D, TS, RT>;
   static ptt::SmemLimit limit;
   cudaError_t err = limit.reserve(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(b, hk * ntiles, w.nz()), kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const TS*>(ak),
+      static_cast<const T*>(q), static_cast<const TS*>(ak),
       static_cast<const TS*>(av), static_cast<const float*>(ks),
       static_cast<const float*>(vs), static_cast<const int*>(tables),
       static_cast<const int*>(page_base), static_cast<const int*>(pos),
-      static_cast<__nv_bfloat16*>(out), part, static_cast<float*>(ws), sq, h,
+      static_cast<T*>(out), part, static_cast<float*>(ws), sq, h,
       hk, ps, P, max_len, scale, ntiles, w.nsplit, w.shard_rows);
   err = cudaGetLastError();
   if (err != cudaSuccess || w.nz() == 1) return err;
-  return combine<__nv_bfloat16>(ws, out, part, w.nz(), b, sq, h, hk, D, stream);
+  return combine<T>(ws, out, part, w.nz(), b, sq, h, hk, D, stream);
 }
 
 // The walk's row tile: 1 row (a decode step of one q head per kv head), 4
 // (a verify window, small GQA groups) or 8 (the rest, up to 15 rows in two
 // tiles), so the q and acc registers follow the rows a block holds.
-template <int D, typename TS>
+template <typename T, int D, typename TS>
 cudaError_t launch_walk(const void* q, const void* ak, const void* av,
                         const void* ks, const void* vs, const void* tables,
                         const void* page_base, const void* pos, void* out,
@@ -1325,58 +1338,82 @@ cudaError_t launch_walk(const void* q, const void* ak, const void* av,
     return cudaErrorInvalidValue;  // 16-byte copies only
   if (bad_outputs(out, part, ws, w)) return cudaErrorInvalidValue;
   if (R == 1)
-    return launch_walk_rt<D, TS, 1>(q, ak, av, ks, vs, tables, page_base, pos,
+    return launch_walk_rt<T, D, TS, 1>(q, ak, av, ks, vs, tables, page_base, pos,
                                     out, part, ws, w, b, sq, h, hk, ps, P,
                                     max_len, scale, stream);
   if (R <= 4)
-    return launch_walk_rt<D, TS, 4>(q, ak, av, ks, vs, tables, page_base, pos,
+    return launch_walk_rt<T, D, TS, 4>(q, ak, av, ks, vs, tables, page_base, pos,
                                     out, part, ws, w, b, sq, h, hk, ps, P,
                                     max_len, scale, stream);
-  return launch_walk_rt<D, TS, 8>(q, ak, av, ks, vs, tables, page_base, pos,
+  return launch_walk_rt<T, D, TS, 8>(q, ak, av, ks, vs, tables, page_base, pos,
                                   out, part, ws, w, b, sq, h, hk, ps, P,
                                   max_len, scale, stream);
+}
+
+// The tensor-core chunk window or the decode walk with q in T (bf16 or
+// fp16) over pages of TS (T, or int8 with scales), d = 64 or 128.
+template <typename T, typename TS>
+cudaError_t route_tc(int path, const void* q, const void* ak, const void* av,
+                     const void* ks, const void* vs, const void* tables,
+                     const void* page_base, const void* pos, void* out,
+                     Partials part, void* ws, Walk w, int b, int sq, int h,
+                     int hk, int d, int ps, int P, int max_len, float scale,
+                     cudaStream_t st) {
+  if (path == kPathMma) {
+    if (d == 64)
+      return launch_chunk<T, 64, TS>(q, ak, av, ks, vs, tables, page_base, pos,
+                                     out, part, ws, w, b, sq, h, hk, ps, P,
+                                     max_len, scale, st);
+    return launch_chunk<T, 128, TS>(q, ak, av, ks, vs, tables, page_base, pos,
+                                    out, part, ws, w, b, sq, h, hk, ps, P,
+                                    max_len, scale, st);
+  }
+  if (d == 64)
+    return launch_walk<T, 64, TS>(q, ak, av, ks, vs, tables, page_base, pos,
+                                  out, part, ws, w, b, sq, h, hk, ps, P,
+                                  max_len, scale, st);
+  return launch_walk<T, 128, TS>(q, ak, av, ks, vs, tables, page_base, pos,
+                                 out, part, ws, w, b, sq, h, hk, ps, P,
+                                 max_len, scale, st);
 }
 
 // One paged launch on the kernel `path` names (the host's choice,
 // `paged_path` in ops/flash_attention.py); a shape the path does not take
 // is cudaErrorInvalidValue, never another kernel.  The chunk window and the
-// walk need a bf16 q and d = 64 or 128; the FMA walk takes a `dtype` q.
-// TS: the stored element.
-template <typename TS>
+// walk need a bf16 or fp16 q and d = 64 or 128; the FMA walk takes a
+// `dtype` q.  kQuant: int8 pages with scales, else pages in q's dtype.
+template <bool kQuant>
 cudaError_t route(int path, int dtype, const void* q, const void* ak,
                   const void* av, const void* ks, const void* vs,
                   const void* tables, const void* page_base, const void* pos,
                   void* out, Partials part, void* ws, Walk w, int b, int sq,
                   int h, int hk, int d, int ps, int P, int max_len,
                   float scale, cudaStream_t st) {
-  constexpr bool kQuant = std::is_same<TS, int8_t>::value;
   using TB = typename std::conditional<kQuant, int8_t, __nv_bfloat16>::type;
+  using TH = typename std::conditional<kQuant, int8_t, __half>::type;
   using TF = typename std::conditional<kQuant, int8_t, float>::type;
   if (path == kPathMma || path == kPathWalk) {
-    if (dtype != ptt::kBFloat16 || (d != 64 && d != 128))
-      return cudaErrorInvalidValue;
-    if (path == kPathMma) {
-      if (d == 64)
-        return launch_chunk<64, TB>(q, ak, av, ks, vs, tables, page_base, pos,
-                                    out, part, ws, w, b, sq, h, hk, ps, P,
-                                    max_len, scale, st);
-      return launch_chunk<128, TB>(q, ak, av, ks, vs, tables, page_base, pos,
-                                   out, part, ws, w, b, sq, h, hk, ps, P,
-                                   max_len, scale, st);
-    }
-    if (d == 64)
-      return launch_walk<64, TB>(q, ak, av, ks, vs, tables, page_base, pos,
-                                 out, part, ws, w, b, sq, h, hk, ps, P,
-                                 max_len, scale, st);
-    return launch_walk<128, TB>(q, ak, av, ks, vs, tables, page_base, pos, out,
-                                part, ws, w, b, sq, h, hk, ps, P, max_len,
-                                scale, st);
+    if (d != 64 && d != 128) return cudaErrorInvalidValue;
+    if (dtype == ptt::kBFloat16)
+      return route_tc<__nv_bfloat16, TB>(path, q, ak, av, ks, vs, tables,
+                                         page_base, pos, out, part, ws, w, b,
+                                         sq, h, hk, d, ps, P, max_len, scale,
+                                         st);
+    if (dtype == ptt::kFloat16)
+      return route_tc<__half, TH>(path, q, ak, av, ks, vs, tables, page_base,
+                                  pos, out, part, ws, w, b, sq, h, hk, d, ps,
+                                  P, max_len, scale, st);
+    return cudaErrorInvalidValue;
   }
   if (path != kPathFma) return cudaErrorInvalidValue;
   if (dtype == ptt::kBFloat16)
     return launch<__nv_bfloat16, TB>(q, ak, av, ks, vs, tables, page_base,
                                      pos, out, part, ws, w, b, sq, h, hk, d,
                                      ps, P, max_len, scale, st);
+  if (dtype == ptt::kFloat16)
+    return launch<__half, TH>(q, ak, av, ks, vs, tables, page_base, pos, out,
+                              part, ws, w, b, sq, h, hk, d, ps, P, max_len,
+                              scale, st);
   if (dtype == ptt::kFloat32)
     return launch<float, TF>(q, ak, av, ks, vs, tables, page_base, pos, out,
                              part, ws, w, b, sq, h, hk, d, ps, P, max_len,
@@ -1406,8 +1443,9 @@ bool bad_shape(int b, int sq, int h, int hk, int d, int ps, int P,
 // `splits` blocks (at most P for the FMA kernel, the table's 64-key tiles
 // for the chunk kernel); with more than one, ws is a float32 workspace of
 // b * hk * splits * rep * sq * (d + 2) elements, else it may be null.
-// `path`: 0 the FMA walk, 1 the tensor-core chunk window (bf16, d 64 or
-// 128, 16+ rows), 2 the decode walk (bf16, d 64 or 128, under 16 rows).
+// `path`: 0 the FMA walk, 1 the tensor-core chunk window (bf16 or fp16, d
+// 64 or 128, 16+ rows), 2 the decode walk (bf16 or fp16, d 64 or 128,
+// under 16 rows).
 // All contiguous.
 extern "C" int ptt_paged_decode(const void* q, const void* ak, const void* av,
                                 const void* tables, const void* pos, void* out,
@@ -1417,7 +1455,7 @@ extern "C" int ptt_paged_decode(const void* q, const void* ak, const void* av,
                                 void* stream) {
   if (bad_shape(b, sq, h, hk, d, ps, P, splits, path))
     return (int)cudaErrorInvalidValue;
-  return (int)route<__nv_bfloat16>(
+  return (int)route<false>(
       path, dtype, q, ak, av, nullptr, nullptr, tables, nullptr, pos, out,
       kNoPartials, ws, Walk{1, 0, splits}, b, sq, h, hk, d, ps, P, max_len,
       scale, static_cast<cudaStream_t>(stream));
@@ -1435,7 +1473,7 @@ extern "C" int ptt_paged_decode_q8(const void* q, const void* ak,
   if (bad_shape(b, sq, h, hk, d, ps, P, splits, path) || ks == nullptr ||
       vs == nullptr)
     return (int)cudaErrorInvalidValue;
-  return (int)route<int8_t>(path, dtype, q, ak, av, ks, vs, tables, nullptr,
+  return (int)route<true>(path, dtype, q, ak, av, ks, vs, tables, nullptr,
                             pos, out, kNoPartials, ws, Walk{1, 0, splits}, b,
                             sq, h, hk, d, ps, P, max_len, scale,
                             static_cast<cudaStream_t>(stream));
@@ -1458,7 +1496,7 @@ extern "C" int ptt_paged_decode_partials(
     return (int)cudaErrorInvalidValue;
   const Partials part{static_cast<float*>(acc), static_cast<float*>(m),
                       static_cast<float*>(l)};
-  return (int)route<__nv_bfloat16>(
+  return (int)route<false>(
       path, dtype, q, ak, av, nullptr, nullptr, tables, page_base, pos,
       nullptr, part, ws, Walk{1, 0, splits}, b, sq, h, hk, d, ps, P, max_len,
       scale, static_cast<cudaStream_t>(stream));
@@ -1477,7 +1515,7 @@ extern "C" int ptt_paged_decode_partials_q8(
     return (int)cudaErrorInvalidValue;
   const Partials part{static_cast<float*>(acc), static_cast<float*>(m),
                       static_cast<float*>(l)};
-  return (int)route<int8_t>(path, dtype, q, ak, av, ks, vs, tables, page_base,
+  return (int)route<true>(path, dtype, q, ak, av, ks, vs, tables, page_base,
                             pos, nullptr, part, ws, Walk{1, 0, splits}, b, sq,
                             h, hk, d, ps, P, max_len, scale,
                             static_cast<cudaStream_t>(stream));
@@ -1503,7 +1541,7 @@ extern "C" int ptt_paged_decode_cp(const void* q, const void* ak,
       cp < 2 || per_shard < 1 || (long long)cp * splits > 65535)
     return (int)cudaErrorInvalidValue;
   const Walk w{cp, (size_t)per_shard * ps * hk, splits};
-  return (int)route<__nv_bfloat16>(
+  return (int)route<false>(
       path, dtype, q, ak, av, nullptr, nullptr, tables, page_base, pos, out,
       kNoPartials, ws, w, b, sq, h, hk, d, ps, P, max_len, scale,
       static_cast<cudaStream_t>(stream));
@@ -1523,7 +1561,7 @@ extern "C" int ptt_paged_decode_cp_q8(const void* q, const void* ak,
       (long long)cp * splits > 65535)
     return (int)cudaErrorInvalidValue;
   const Walk w{cp, (size_t)per_shard * ps * hk, splits};
-  return (int)route<int8_t>(path, dtype, q, ak, av, ks, vs, tables, page_base,
+  return (int)route<true>(path, dtype, q, ak, av, ks, vs, tables, page_base,
                             pos, out, kNoPartials, ws, w, b, sq, h, hk, d, ps,
                             P, max_len, scale,
                             static_cast<cudaStream_t>(stream));

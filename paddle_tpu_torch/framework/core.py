@@ -206,6 +206,12 @@ define_flag(
     "scores k+1 positions; requests may lower it with submit(spec_k=)",
 )
 define_flag(
+    "FLAGS_serve_spec_ngram", 3,
+    "speculative decoding: longest n-gram the prompt-lookup drafter matches "
+    "against the slot's history (it backs off n..1 and proposes nothing on "
+    "a miss); read once at engine construction",
+)
+define_flag(
     "FLAGS_serve_kv_quant", "none",
     "paged KV storage precision: 'none' (the model dtype) or 'int8' (int8 "
     "rows with a float32 scale per row and kv head, read by the "
@@ -219,6 +225,33 @@ define_flag(
     "attention runs one paged_decode_partials launch per shard and merges "
     "their softmax partials (on one card: the shards are page ranges of "
     "one arena)",
+)
+define_flag(
+    "FLAGS_serve_session_max", 256,
+    "session KV: resident sessions per engine.  Read at engine construction "
+    "(`session_max=`); it takes effect when sessions are ported "
+    "(ROADMAP Queue 1), until then `session_id` raises",
+)
+define_flag(
+    "FLAGS_serve_role", "colocated",
+    "disaggregated serving: the replica's role, 'colocated', 'prefill' or "
+    "'decode'.  Only 'colocated' is ported; the others raise at engine "
+    "construction (ROADMAP Queue 1, disaggregated prefill/decode)",
+)
+define_flag(
+    "FLAGS_serve_reserve_ttl_s", 30.0,
+    "disaggregated serving: seconds a decode-side page reservation stays "
+    "valid.  Not read until disaggregated prefill/decode is ported",
+)
+define_flag(
+    "FLAGS_serve_lora_capacity", 8,
+    "multi-tenant LoRA serving: resident-adapter slots.  Not read until LoRA "
+    "serving is ported (`lora=` raises)",
+)
+define_flag(
+    "FLAGS_serve_lora_rank_max", 8,
+    "multi-tenant LoRA serving: the adapter arena's padded rank.  Not read "
+    "until LoRA serving is ported (`lora=` raises)",
 )
 define_flag(
     "FLAGS_serve_debug_invariants", False,

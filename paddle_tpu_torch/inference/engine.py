@@ -395,7 +395,7 @@ class ContinuousBatchingEngine:
                  queue_depth=None, seed=0, paged=None, page_size=None,
                  pool_pages=None, prefix_cache=None, spec_k=None, lora=None,
                  decode_kernel=None, tp=None, kv_quant=None, role=None, cp=None,
-                 device=None):
+                 device=None, session_max=None):
         self.device = _fcore.resolve_device(device)
         if model.device != self.device:
             raise ValueError(
@@ -408,8 +408,14 @@ class ContinuousBatchingEngine:
             flag("FLAGS_serve_kv_quant") if kv_quant is None else kv_quant,
             paged=paged,
         )
-        self._check_not_ported(paged, lora, tp, role)
+        self.role = str(flag("FLAGS_serve_role") if role is None
+                        else role).strip().lower()
+        self._check_not_ported(paged, lora, tp, self.role)
         self.paged = paged
+        # sessions are not ported (`session_id` raises): the bound is kept
+        # for when they land
+        self.session_max = int(flag("FLAGS_serve_session_max")
+                               if session_max is None else session_max)
         cfg = model.config
         # context parallelism splits the page arena: paged engines only
         self.cp = int(flag("FLAGS_serve_cp") if cp is None else cp)
@@ -427,6 +433,8 @@ class ContinuousBatchingEngine:
             raise ValueError("spec_k must be >= 0")
         self.spec_k = sk if paged else 0
         self._spec_on = self.spec_k > 0
+        # the drafters' longest n-gram, read once as the reference does
+        self._spec_ngram = int(flag("FLAGS_serve_spec_ngram"))
         self.model = model
         self.slots = int(slots if slots is not None else _fcore.flag("FLAGS_serve_slots"))
         max_len = max_len if max_len is not None else cfg.max_position_embeddings
@@ -594,11 +602,14 @@ class ContinuousBatchingEngine:
     @staticmethod
     def _check_not_ported(paged, lora, tp, role):
         flag = _fcore.flag
+        if role not in ("colocated", "prefill", "decode"):
+            raise ValueError(
+                f"role must be colocated|prefill|decode, got {role!r}")
         if not paged:
             # the reference's dense pool: the paged-only features refuse
             if lora is not None:
                 raise ValueError("LoRA serving requires the paged engine")
-            if role is not None and role != "colocated":
+            if role != "colocated":
                 raise ValueError(
                     f"role={role!r} requires the paged engine: the "
                     "prefill->decode handoff rides the page arenas"
@@ -607,7 +618,7 @@ class ContinuousBatchingEngine:
             raise _not_ported("lora", "multi-tenant LoRA serving")
         if int(flag("FLAGS_serve_tp") if tp is None else tp) > 1:
             raise _not_ported("tp > 1", "tensor-parallel serving")
-        if role is not None and role != "colocated":
+        if role != "colocated":
             raise _not_ported(f"role={role!r}", "disaggregated prefill/decode")
 
     # -- compiled steps ----------------------------------------------------------
@@ -876,7 +887,7 @@ class ContinuousBatchingEngine:
     def submit(self, input_ids, max_new_tokens=32, temperature=0.0,
                eos_token_id=None, keep_logits=False, spec_k=None, on_token=None,
                deadline_s=None, adapter=None, session_id=None, handoff=None,
-               reservation=None, trace=None):
+               reservation=None, trace=None, export_kv=False):
         """Enqueue one request (1-D token ids); returns an EngineRequest at
         once.  `on_token(tok)` streams each emitted token (the scheduler
         then fetches every decode step at once).  Raises ContextOverflow
@@ -898,8 +909,8 @@ class ContinuousBatchingEngine:
         engine like this one, or name the Queue 1 item that ports them:
         `deadline_s` <= 0 raises ValueError; an `adapter` other than None or
         0 raises the reference's ValueError (no LoRA arena); `session_id`
-        raises NotImplementedError (sessions), `handoff` and `reservation`
-        too (disaggregated prefill/decode)."""
+        raises NotImplementedError (sessions), `handoff`, `reservation` and
+        `export_kv=True` too (disaggregated prefill/decode)."""
         raw = np.asarray(input_ids).reshape(-1)
         if raw.size == 0:
             raise ValueError("empty prompt")
@@ -931,7 +942,8 @@ class ContinuousBatchingEngine:
             )
         if session_id is not None:
             raise _not_ported("session_id", "sessions")
-        for knob, value in (("handoff", handoff), ("reservation", reservation)):
+        for knob, value in (("handoff", handoff), ("reservation", reservation),
+                            ("export_kv", export_kv or None)):
             if value is not None:
                 raise _not_ported(knob, "disaggregated prefill/decode")
         if self._dead:
@@ -1633,7 +1645,7 @@ class ContinuousBatchingEngine:
             # greedy slots draft from their own history; sampled slots ride
             # the verify step undrafted (greedy equivalence is the only
             # acceptance rule)
-            self._drafters[s] = NgramDrafter().reset(
+            self._drafters[s] = NgramDrafter(self._spec_ngram).reset(
                 [int(t) for t in req.prompt] + [tok])
         if req.keep_logits:
             req.logits.append(logits[0].clone())  # the output is static

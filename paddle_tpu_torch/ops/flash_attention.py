@@ -122,7 +122,10 @@ FLASH_WGMMA_ROWS = 128
 # one
 DENSE_PAGE_ROWS = 128
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the kernels' dtype codes (csrc/common.cuh); bfloat16 and float16, the
+# 16-bit types, take the tensor-core paths
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+HALF_DTYPES = (torch.bfloat16, torch.float16)
 
 
 def reset_launch_counts():
@@ -159,26 +162,15 @@ def _dispatched(what):
     pallas_calls[name] = pallas_calls.get(name, 0) + 1
 
 
-# the ROADMAP.md Queue 1 item that brings float16 to the kernels
-FP16_ITEM = "fp16 operands of K1-K6"
-
-
 def _dtype_code(t, what):
-    """The kernels' dtype code of t.  float16 runs the plain versions on the
-    CPU (code None, never passed to a kernel) and raises on CUDA: the
-    tensor-core paths are written for bf16."""
-    if t.dtype == torch.float16:
-        if t.device.type == "cuda":
-            raise NotImplementedError(
-                f"{what}: float16 operands on the card are not ported yet "
-                f"(ROADMAP.md Queue 1, {FP16_ITEM}); use bfloat16 or float32")
-        return None
+    """The kernels' dtype code of t: 0 float32, 1 bfloat16, 2 float16;
+    any other dtype raises TypeError."""
     try:
         return _DTYPE_CODES[t.dtype]
     except KeyError:
         raise TypeError(
-            f"{what}: dtype {t.dtype} not supported (float32 or bfloat16; "
-            "float16 on the CPU)"
+            f"{what}: dtype {t.dtype} not supported (float32, bfloat16 or "
+            "float16)"
         ) from None
 
 
@@ -210,23 +202,24 @@ _PAGED_PATHS = {"fma": 0, "mma": 1, "walk": 2}
 
 def flash_path(rows, d, dtype):
     """The kernel K1, K6 and K3 launch for `rows` query rows of head_dim `d`:
-    "wgmma" (TMA + `wgmma`, a 128-row tile per block) for bfloat16 with d 64
-    or 128 and at least FLASH_WGMMA_ROWS rows; "mma" (`mma.sync`, 64-row
-    tiles) for the other bfloat16 shapes with d <= 128; "fma" for float32
-    and d > 128."""
-    if dtype == torch.bfloat16 and d in (64, 128) and rows >= FLASH_WGMMA_ROWS:
+    "wgmma" (TMA + `wgmma`, a 128-row tile per block) for bfloat16 or
+    float16 with d 64 or 128 and at least FLASH_WGMMA_ROWS rows; "mma"
+    (`mma.sync`, 64-row tiles) for the other 16-bit shapes with d <= 128;
+    "fma" for float32 and d > 128.  float16 takes the path bfloat16 takes."""
+    half = dtype in HALF_DTYPES
+    if half and d in (64, 128) and rows >= FLASH_WGMMA_ROWS:
         return "wgmma"
-    return "mma" if dtype == torch.bfloat16 and d <= 128 else "fma"
+    return "mma" if half and d <= 128 else "fma"
 
 
 def paged_path(rows, d, dtype):
     """The kernel K2, K4 and K5 launch for a GQA group x window of `rows` =
-    rep * sq rows, for a bfloat16 q with d 64 or 128: "mma" (the
+    rep * sq rows, for a bfloat16 or float16 q with d 64 or 128: "mma" (the
     tensor-core chunk window) from PAGED_MMA_MIN_ROWS rows -- every chunk
     prefill of a served Llama -- and "walk" (the decode walk: cp.async
     ring, dot products in registers) below -- every decode step and verify
     window; "fma" (the page walk on FMAs) for float32 and other d."""
-    if dtype != torch.bfloat16 or d not in (64, 128):
+    if dtype not in HALF_DTYPES or d not in (64, 128):
         return "fma"
     return "mma" if rows >= PAGED_MMA_MIN_ROWS else "walk"
 
@@ -424,7 +417,8 @@ def _check_ring(q, q_offset, carry, out_dtype, what):
 def flash_forward(q, k, v, causal=True, scale=None, segments=None, kbias=None,
                   q_offset=None, carry=None, out_dtype=None):
     """K1 wrapper.  q: [b, s, h, d]; k, v: [b, lk, hk, d] with h % hk == 0
-    (GQA indexes kv head h // rep in-kernel); float32 or bfloat16.
+    (GQA indexes kv head h // rep in-kernel); float32, bfloat16 or
+    float16.
     `segments` ([b, s] int32: a query attends only to keys of its own id)
     and `kbias` ([b, s] float32, added to every head's scores of that key)
     are optional, shared by all heads, read in-kernel, and need lk == s.
@@ -556,7 +550,8 @@ def flash_backward(q, k, v, out, lse, g, causal=True, scale=None,
     h, s] float32, rowsum(g * out)): given, the kernel's pre-pass is
     skipped and `out` may be None (the ring computes it once for all its
     hops).  The kernel is `flash_path(s, d, dtype)`'s, as for K1: the wgmma
-    + TMA kernels for bfloat16 with d 64 or 128 and at least 128 rows.
+    + TMA kernels for bfloat16 or float16 with d 64 or 128 and at least 128
+    rows.
     Returns (dq, dk, dv) shaped and typed like q, k, v."""
     _check_flash(q, k, v)
     _check_masking(q, k, segments, kbias, "flash_bwd")
@@ -1107,7 +1102,8 @@ def paged_decode_fused_q8(q, arena_k, arena_v, k_scale, v_scale, tables, pos,
                           max_len, scale=None):
     """K4 wrapper: `paged_decode_fused` over an int8 arena.  arena_k/v:
     [pages, page_size, kv_h, d] int8; k_scale/v_scale: [pages, page_size,
-    kv_h, 1] float32, addressed by the same tables; q float32 or bfloat16.
+    kv_h, 1] float32, addressed by the same tables; q float32, bfloat16 or
+    float16.
     Returns [b, sq, h, d] in q's dtype."""
     what = "paged_decode_fused_q8"
     pos = _pos_vector(pos, q.shape[0], q.device, what)

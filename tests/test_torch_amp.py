@@ -378,9 +378,11 @@ def test_tiny_llama_amp_training_matches_reference(mode):
 
 
 def test_fp16_attention_runs_plain_on_the_cpu_and_is_refused_on_the_card():
-    """K1-K6 take bf16 and float32 on the card; a float16 CUDA operand raises
-    naming the ROADMAP item, while on the CPU the plain versions take fp16
-    (the fp16 O2 Llama above runs through them)."""
+    """float16 runs the plain versions on the CPU (the fp16 O2 Llama above
+    runs through them) and, since K1-K6 have float16 instantiations, is
+    accepted on the card: a float16 CUDA operand gets dtype code 2 and the
+    path a bfloat16 one of its shape gets, where it was refused before (the
+    test keeps its name).  Other dtypes still raise TypeError."""
     import types
 
     from paddle_tpu_torch.ops import flash_attention as pfa
@@ -391,7 +393,10 @@ def test_fp16_attention_runs_plain_on_the_cpu_and_is_refused_on_the_card():
     assert out.dtype == F16
     np.testing.assert_allclose(out.float().numpy(), ref.numpy(), atol=2e-3)
     card = types.SimpleNamespace(dtype=F16, device=torch.device("cuda"))
-    with pytest.raises(NotImplementedError, match=pfa.FP16_ITEM):
-        pfa._dtype_code(card, "flash_fwd")
+    assert pfa._dtype_code(card, "flash_fwd") == 2
+    assert not hasattr(pfa, "FP16_ITEM")
+    for rows, d in ((128, 128), (16, 64), (200, 96)):
+        assert (pfa.flash_path(rows, d, F16)
+                == pfa.flash_path(rows, d, torch.bfloat16))
     with pytest.raises(TypeError, match="dtype"):
         pfa._dtype_code(torch.zeros(1, dtype=torch.int32), "flash_fwd")

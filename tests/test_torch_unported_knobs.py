@@ -1,0 +1,107 @@
+"""The reference's serving knobs that the port does not run yet: each is
+accepted where the reference accepts it and refuses with the reference's
+error or a NotImplementedError naming its ROADMAP Queue 1 item.
+
+- `ContinuousBatchingEngine(session_max=)` and `FLAGS_serve_session_max`
+  (reference engine.py:590): the bound is read at construction; a request
+  with `session_id` raises (sessions).
+- `submit(export_kv=True)` (reference engine.py:1078) raises
+  (disaggregated prefill/decode); False is the default and serves.
+- `FLAGS_serve_role`, `FLAGS_serve_reserve_ttl_s`,
+  `FLAGS_serve_lora_capacity` and `FLAGS_serve_lora_rank_max` exist with the
+  reference's defaults, so `set_flags` takes them.  With `role=None` the
+  engine reads `FLAGS_serve_role`: a value other than "colocated" raises as
+  `role=` does.  The LoRA flags do nothing on their own; `lora=` raises.
+"""
+
+import numpy as np
+import pytest
+
+from paddle_tpu.framework import core as jcore
+from paddle_tpu_torch.framework import core as tcore
+from paddle_tpu_torch.inference.engine import ContinuousBatchingEngine
+from paddle_tpu_torch.models import llama as tllama
+
+ENGINE = dict(slots=2, max_len=32, prefill_buckets=[8, 16], queue_depth=4,
+              seed=0, page_size=8)
+FLAGS = ("FLAGS_serve_session_max", "FLAGS_serve_role",
+         "FLAGS_serve_reserve_ttl_s", "FLAGS_serve_lora_capacity",
+         "FLAGS_serve_lora_rank_max")
+
+
+@pytest.fixture(scope="module")
+def model():
+    return tllama.LlamaForCausalLM(tllama.LlamaConfig.tiny(), device="cpu", seed=0)
+
+
+@pytest.fixture
+def flags():
+    """Set port flags for one test; the old values come back after."""
+    saved = {name: tcore.flag(name) for name in FLAGS}
+    yield lambda **kw: tcore.set_flags({f"FLAGS_serve_{k}": v for k, v in kw.items()})
+    tcore.set_flags(saved)
+
+
+def _engine(model, **kw):
+    return ContinuousBatchingEngine(model, device="cpu", **{**ENGINE, **kw})
+
+
+def _prompt(n=5):
+    return np.arange(1, n + 1, dtype=np.int32)
+
+
+@pytest.mark.parametrize("name", FLAGS)
+def test_flags_exist_with_the_reference_defaults(name):
+    assert tcore.flag(name) == jcore.flag(name)
+    assert type(tcore.flag(name)) is type(jcore.flag(name))
+    tcore.set_flags({name: tcore.flag(name)})  # no KeyError
+
+
+def test_session_max_reads_the_flag_and_sessions_stay_unported(model, flags):
+    assert _engine(model).session_max == 256
+    assert _engine(model, session_max=4).session_max == 4
+    flags(session_max=9)
+    eng = _engine(model)
+    assert eng.session_max == 9
+    with pytest.raises(NotImplementedError, match="sessions"):
+        eng.submit(_prompt(), max_new_tokens=2, session_id="chat-1")
+
+
+def test_export_kv_true_raises_and_false_serves(model):
+    eng = _engine(model)
+    with pytest.raises(NotImplementedError,
+                       match="export_kv.*disaggregated prefill/decode"):
+        eng.submit(_prompt(), max_new_tokens=2, export_kv=True)
+    req = eng.submit(_prompt(), max_new_tokens=2, export_kv=False)
+    eng.run_until_idle()
+    assert len(req.wait(1)) == 7
+
+
+@pytest.mark.parametrize("paged", [True, False])
+def test_role_flag_is_read_when_role_is_none(model, flags, paged):
+    flags(role="colocated")
+    assert _engine(model, paged=paged).role == "colocated"
+    for role in ("prefill", "decode"):
+        flags(role=role)
+        if paged:
+            with pytest.raises(NotImplementedError,
+                               match="disaggregated prefill/decode"):
+                _engine(model, paged=paged)
+        else:  # the reference's refusal on the dense pool
+            with pytest.raises(ValueError, match="requires the paged engine"):
+                _engine(model, paged=paged)
+    flags(role="bogus")
+    with pytest.raises(ValueError, match="colocated|prefill|decode"):
+        _engine(model, paged=paged)
+    # an explicit role wins over the flag
+    assert _engine(model, paged=paged, role="colocated").role == "colocated"
+
+
+def test_lora_flags_do_nothing_alone_and_lora_still_raises(model, flags):
+    flags(lora_capacity=2, lora_rank_max=16, reserve_ttl_s=5.0)
+    eng = _engine(model)
+    req = eng.submit(_prompt(), max_new_tokens=3)
+    eng.run_until_idle()
+    assert len(req.wait(1)) == 8
+    with pytest.raises(NotImplementedError, match="multi-tenant LoRA serving"):
+        _engine(model, lora=object())
