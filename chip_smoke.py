@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Sixteen phases, and the serving, training and amp ones again in float16
+Seventeen phases, and the serving, training and amp ones again in float16
 (below); a failure in any of them exits non-zero and prints no result.
 
 1. device  -- requires CUDA; prints the card's name and power limit.
@@ -145,10 +145,34 @@ Sixteen phases, and the serving, training and amp ones again in float16
               tokens/s, peak memory and a profiled step with AdamW's span.
               Then 2 steps of 2 layers with activation recompute (K1 twice
               per layer per step).
-13. grads  -- one step's gradients of a 2-layer model at the same widths
+13. fit    -- the training loop through the entry points a user calls
+              (`paddle_tpu_torch.Model`, `io.DataLoader`): the train
+              phase's model (8 layers, bf16 O2, AdamW) through `Model.fit`
+              over 32 seeded sequences of 2048 tokens, batch 4, shuffled
+              from a seeded torch.Generator, two worker processes,
+              `prefetch_to_device=2`, log_freq 4, FLAGS_max_inflight_steps
+              2: finite, falling losses equal bit for bit to a hand-written
+              loop's on a model from the same seed over the same batches
+              (built after the first is freed), one host fetch per window,
+              paddle_train_steps_total and _inflight_max on /metrics, K1,
+              K3 and adam_fused launches equal to the hand loop's; then
+              `evaluate` over 4 held-out batches (K1 only; its mean loss
+              equal to a no_grad loop's); step time and tokens/s beside
+              the hand loop's, host time blocked per step.  Then, at 2
+              layers, exactly-once resume (a checkpoint with the loader's
+              position after step 4 of 8; a model from another seed resumes
+              it and its steps 5-8 equal the uninterrupted run's bit for
+              bit; bytes, save and load seconds), a divergence drill (SGD
+              at 1e30, NonFiniteLossError within max_bad_steps + log_freq
+              steps), and bench_bert's BERT-base through `BucketSampler`
+              (128, 256, 384) and `padded_collate` (192 lengths 64-384):
+              three batch shapes, masked K1 and K3 every step, no
+              fallback; examples/s beside the bert phase's padded figure.
+              No worker process is left after any of them.
+14. grads  -- one step's gradients of a 2-layer model at the same widths
               with the kernels against the same step with attention through
               the plain forward under autograd.
-14. amp    -- the reference's O1 recipe on Llama-2-7B's widths at 2 layers,
+15. amp    -- the reference's O1 recipe on Llama-2-7B's widths at 2 layers,
               float32 parameters, batch 2 x 2048: auto_cast O1 bf16, a
               dynamic GradScaler, LinearWarmup into CosineAnnealingDecay,
               ClipGradByGlobalNorm(1.0) and AdamW for 6 steps, step 4's
@@ -159,7 +183,7 @@ Sixteen phases, and the serving, training and amp ones again in float16
               adam_fused and unscale_fused once per step.  Then SGD,
               Momentum, Adagrad, RMSProp, Adamax and Lamb two steps each:
               finite, every weight moved, step ms.
-15. bert   -- bench_bert's BERT-base SQuAD fine-tuning (bf16 O2, AdamW at
+16. bert   -- bench_bert's BERT-base SQuAD fine-tuning (bf16 O2, AdamW at
               3e-5, dropout 0) for 6 steps on one batch of 32 x 384 tokens
               padded from lengths 192-384: finite and falling losses, K1 and
               K3 launched once per layer per step on their wgmma paths with
@@ -169,7 +193,7 @@ Sixteen phases, and the serving, training and amp ones again in float16
               as a key-padding attn_mask (K1's key bias) against segment ids
               on the valid rows; then a 2-layer model's gradients with the
               kernels against attention through the plain forward.
-16. longcontext -- long-context training through the Llama's
+17. longcontext -- long-context training through the Llama's
               `context_parallel_degree` on a sep mesh (ring attention, every
               rank on the card): Llama-2-7B's widths at 4 layers, one
               sequence of 32768 tokens over R = 8 (K/V 512 MiB a layer: the
@@ -219,6 +243,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import os
 import pathlib
 import shutil
@@ -4482,8 +4507,8 @@ def _train_model(cfg, device, seed=0, lr=1e-4, weight_decay=0.01):
     return amp.decorate(model, opt, level="O2", dtype="bfloat16")
 
 
-def _train_step(model, opt, ids):
-    loss, _ = model(ids, labels=ids)
+def _train_step(model, opt, ids, labels=None):
+    loss, _ = model(ids, labels=ids if labels is None else labels)
     loss.backward()
     opt.step()
     opt.clear_grad()
@@ -4630,6 +4655,486 @@ def grad_check(cfg, device="cuda", batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=1):
                  f"flash_bwd launches kernel pass {k3_kernel}, plain pass "
                  f"{k3_plain} -> {'ok' if ok else 'FAIL'}")
     return ok, ratios[worst]
+
+
+# ---------------------------------------------------------------------------
+# the training loop: hapi.Model.fit over the io DataLoader, checkpoints
+# ---------------------------------------------------------------------------
+
+FIT_SEQS = 32  # training sequences: 8 steps of TRAIN_BATCH
+FIT_EVAL_SEQS = 16  # held out: 4 evaluate batches
+FIT_VOCAB = 4000  # token ids drawn from [1, FIT_VOCAB): a distribution to learn
+FIT_LOG_FREQ = 4
+FIT_RESUME_LAYERS = 2  # the 8-layer state would be a ~26 GB checkpoint
+FIT_RESUME_AT = 4  # steps before the checkpoint of the resume drill
+FIT_LOADER_SEED = 7
+FIT_BERT_SEQS = 192
+FIT_BERT_BOUNDS = (128, 256, 384)
+FIT_BERT_LENS = (64, 384)
+FIT_CKPT = ROOT / "build" / "fit_ckpt"  # inside the checkout, gitignored
+_FIGURES = {}  # figures a later phase prints beside its own
+
+
+def _fit_tokens(cfg, n, seq, seed):
+    """n rows of `seq` token ids from [1, FIT_VOCAB) and their next-token
+    labels (the last position ignored), int32 numpy."""
+    import numpy as np
+
+    ids = np.random.default_rng(seed).integers(
+        1, min(FIT_VOCAB, cfg.vocab_size), size=(n, seq)).astype(np.int32)
+    labels = np.concatenate([ids[:, 1:], np.full((n, 1), -100, np.int32)], axis=1)
+    return ids, labels
+
+
+def _fit_loader(ids, labels, device, batch, seed=FIT_LOADER_SEED, shuffle=True,
+                workers=2, prefetch=2):
+    """The user's loader: a seeded shuffle, two worker processes and the
+    device prefetch stage."""
+    import torch
+
+    from paddle_tpu_torch import io
+
+    return io.DataLoader(io.TensorDataset([ids, labels]), batch_size=batch,
+                         shuffle=shuffle, generator=torch.Generator().manual_seed(seed),
+                         num_workers=workers, prefetch_to_device=prefetch, device=device)
+
+
+def _step_log():
+    """A callback keeping each step's loss (a float at a fetch, else the
+    tensor, left on the card) and the host time at each step's end."""
+    from paddle_tpu_torch.hapi import Callback
+
+    class StepLog(Callback):
+        def __init__(self):
+            self.losses, self.t, self.after_first = [], [], None
+
+        def on_train_batch_begin(self, step, logs=None):
+            if step == 1:  # record_step has counted step 0 (first use costs)
+                from paddle_tpu_torch import profiler
+
+                self.after_first = profiler.metrics_snapshot()["step"]
+
+        def on_train_batch_end(self, step, logs=None):
+            self.t.append(time.perf_counter())
+            self.losses.append(logs["loss"])
+
+        def values(self):
+            return [x if isinstance(x, float) else x.item() for x in self.losses]
+
+        def step_s(self):
+            gaps = [b - a for a, b in zip(self.t, self.t[1:])]
+            return statistics.median(gaps) if gaps else float("nan")
+
+    return StepLog()
+
+
+def _train_metrics():
+    """The paddle_train_* values of the /metrics renderer."""
+    from paddle_tpu_torch.obs import metrics
+
+    return {line.split()[0]: float(line.split()[1])
+            for line in metrics.render().splitlines()
+            if line.startswith("paddle_train_")}
+
+
+def phase_fit(smi, cfg, device="cuda", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+              n_train=FIT_SEQS, n_eval=FIT_EVAL_SEQS, seed=0):
+    """`Model.fit` on the train phase's model (bf16 O2, AdamW) over a
+    seeded, shuffled DataLoader with two workers and device prefetch, one
+    epoch, log_freq 4, FLAGS_max_inflight_steps 2, the loss `sequence_ce`
+    over next-token labels; then `evaluate` over held-out batches; then a
+    hand-written loop (`_train_step`) on a model from the same seed over
+    the same batches, built after the first is freed.  Checks: finite,
+    falling losses equal to the hand loop's bit for bit; one host fetch
+    per window; paddle_train_steps_total and _inflight_max on /metrics;
+    K1, K3 and adam_fused launches equal the hand loop's; evaluate
+    launches K1 only and its mean loss equals a no_grad loop's; no worker
+    left.  Returns (ok, counts of the fit run, counts of evaluate)."""
+    import multiprocessing as mp
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import Model, profiler
+    from paddle_tpu_torch.framework import core
+    from paddle_tpu_torch.models._utils import sequence_ce
+
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        parity_matmuls()
+        torch.cuda.reset_peak_memory_stats()
+    layers = cfg.num_hidden_layers
+    ids, labels = _fit_tokens(cfg, n_train, seq, seed)
+    eval_ids, eval_labels = _fit_tokens(cfg, n_eval, seq, seed + 1)
+    steps, eval_steps = n_train // batch, n_eval // batch
+    core.set_flags({"FLAGS_max_inflight_steps": 2})
+
+    # -- the main path: Model.fit, then Model.evaluate ------------------------
+    t0 = time.perf_counter()
+    net, opt = _train_model(cfg, device, seed=seed)
+    model = Model(net)
+    model.prepare(opt, sequence_ce)
+    log("fit", f"Llama {cfg.hidden_size} hidden x {layers} layers, bf16 O2 + AdamW "
+               f"masters, built in {time.perf_counter() - t0:.1f} s; {n_train} "
+               f"sequences x {seq} tokens, batch {batch}, shuffled from a seeded "
+               f"torch.Generator, 2 workers, prefetch_to_device 2")
+    loader = _fit_loader(ids, labels, device, batch)
+    steplog = _step_log()
+    profiler.reset()
+    profiler.reset_kernel_launch_counts()
+    t0 = time.perf_counter()
+    hist = model.fit(loader, epochs=1, log_freq=FIT_LOG_FREQ, verbose=0,
+                     callbacks=[steplog])
+    if on_card:
+        torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_counts = profiler.kernel_launch_counts()
+    train = _train_metrics()
+    snap = profiler.metrics_snapshot()["step"]
+    fit_losses = steplog.values()
+    after_first = steplog.after_first
+    fetches = model.fetches
+    eval_loader = _fit_loader(eval_ids, eval_labels, device, batch, shuffle=False)
+    profiler.reset_kernel_launch_counts()
+    result = model.evaluate(eval_loader, verbose=0)
+    eval_counts = profiler.kernel_launch_counts()
+    with torch.no_grad():  # the same batches by hand, for the mean
+        hand_eval = []
+        for lo in range(0, n_eval, batch):
+            x = torch.from_numpy(eval_ids[lo:lo + batch]).to(device)
+            y = torch.from_numpy(eval_labels[lo:lo + batch]).to(device)
+            hand_eval.append(net(x, labels=y)[0])
+        hand_mean = float(torch.stack(hand_eval).float().cpu().numpy().mean())
+    peak_fit = torch.cuda.max_memory_allocated() / 2**30 if on_card else 0.0
+    fit_step_s = steplog.step_s()
+    del net, opt, model, loader, eval_loader, steplog
+    _free()
+
+    # -- the comparison: the same steps by hand, a model from the same seed ---
+    net, opt = _train_model(cfg, device, seed=seed)
+    hand_loader = _fit_loader(ids, labels, device, batch)
+    profiler.reset_kernel_launch_counts()
+    hand_losses, secs = [], []
+    for x, y in hand_loader:
+        t0 = time.perf_counter()
+        hand_losses.append(_train_step(net, opt, x, y).item())
+        if on_card:
+            torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    hand_counts = profiler.kernel_launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else 0.0
+    del net, opt, hand_loader
+    left = mp.active_children()
+
+    finite = all(np.isfinite(fit_losses)) and len(fit_losses) == steps
+    falls = finite and fit_losses[-1] < fit_losses[0]
+    same = fit_losses == hand_losses
+    worst = max((abs(a - b) for a, b in zip(fit_losses, hand_losses)), default=0.0)
+    want_windows = math.ceil(steps / FIT_LOG_FREQ) + (1 if (steps - 1) % FIT_LOG_FREQ else 0)
+    fetch_ok = fetches == want_windows
+    metrics_ok = (train.get("paddle_train_steps_total") == steps
+                  and 0 <= train.get("paddle_train_inflight_max", -1) <= 2)
+    keys = ("flash_fwd", "flash_bwd", "adam_fused")
+    want_fit = {"flash_fwd": layers * steps, "flash_bwd": layers * steps,
+                "adam_fused": steps} if on_card else dict.fromkeys(keys, 0)
+    counts_ok = all(fit_counts[k] == hand_counts[k] == want_fit[k] for k in keys)
+    eval_ok = (eval_counts["flash_fwd"] == (layers * eval_steps if on_card else 0)
+               and eval_counts["flash_bwd"] == 0 and eval_counts["adam_fused"] == 0
+               and result["loss"] == hand_mean)
+    mem_ok = not on_card or peak < 80.0
+    log("fit", "losses " + " ".join(f"{x:.4f}" for x in fit_losses)
+               + f" (epoch mean {hist[0]:.4f}): finite {finite}, last < first {falls}")
+    log("fit", f"hand loop over the same batches: " + " ".join(f"{x:.4f}" for x in hand_losses)
+               + f"; equal bit for bit {same} (worst |difference| {worst:.3e}) -> "
+               + ("ok" if same else "FAIL"))
+    log("fit", f"host fetches {fetches} for {steps} steps at log_freq {FIT_LOG_FREQ} "
+               f"(one per window: {want_windows}) -> {'ok' if fetch_ok else 'FAIL'}; "
+               f"/metrics paddle_train_steps_total {train.get('paddle_train_steps_total')}"
+               f", paddle_train_inflight_max {train.get('paddle_train_inflight_max')} "
+               f"(<= 2) -> {'ok' if metrics_ok else 'FAIL'}")
+    log("fit", f"launches fit {_main(fit_counts)}, hand loop {_main(hand_counts)} "
+               f"(expected {want_fit}) -> {'ok' if counts_ok else 'FAIL'}")
+    log("fit", f"evaluate over {eval_steps} batches: mean loss {result['loss']:.6f}, "
+               f"no_grad loop {hand_mean:.6f}; launches {_main(eval_counts)} "
+               f"(flash_fwd {layers * eval_steps if on_card else 0}, no flash_bwd "
+               f"or adam_fused) -> {'ok' if eval_ok else 'FAIL'}")
+    hand_step_s = statistics.median(secs[1:])
+    first = after_first or dict.fromkeys(snap, 0)
+    per = max(snap["steps"] - first["steps"], 1)
+    split = {k: (snap[k] - first[k]) / per * 1e3
+             for k in ("host_blocked_s", "dispatch_s", "wall_s")}
+    log("fit", f"fit step_ms median of steps 2-{steps} {fit_step_s * 1e3:.1f} "
+               f"(whole fit {fit_s:.2f} s), tokens_per_s {batch * seq / fit_step_s:.1f}; "
+               f"hand loop step_ms {hand_step_s * 1e3:.1f} (all: "
+               + " ".join(f"{x * 1e3:.1f}" for x in secs)
+               + f"), tokens_per_s {batch * seq / hand_step_s:.1f}; record_step per "
+               f"step over steps 2-{steps}: host blocked on the ring "
+               f"{split['host_blocked_s']:.2f} ms, dispatch {split['dispatch_s']:.2f} "
+               f"ms, wall {split['wall_s']:.2f} ms (step 1: dispatch "
+               f"{first['dispatch_s'] * 1e3:.2f} ms), inflight max "
+               f"{snap['inflight_max']}; peak_mem_gib fit {peak_fit:.2f}, both "
+               f"{peak:.2f} (< 80 -> {'ok' if mem_ok else 'FAIL'}); workers left "
+               f"{len(left)} | {smi}")
+    ok = (finite and falls and same and fetch_ok and metrics_ok and counts_ok
+          and eval_ok and mem_ok and not left)
+    return ok, fit_counts, eval_counts
+
+
+def phase_fit_resume(smi, cfg, device="cuda", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                     n_train=FIT_SEQS, seed=0, root=FIT_CKPT):
+    """Exactly-once resume: an 8-step fit that commits a checkpoint (model,
+    optimizer, loader position) after step FIT_RESUME_AT, then a model from
+    another seed and a loader from another generator seed `load_latest`
+    and fit on: their steps equal the uninterrupted run's bit for bit.
+    Prints the bytes written and the seconds to save and to load; deletes
+    the checkpoints.  Returns ok."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import Model
+    from paddle_tpu_torch.distributed import checkpoint
+    from paddle_tpu_torch.hapi import Callback
+    from paddle_tpu_torch.models._utils import sequence_ce
+
+    on_card = torch.device(device).type == "cuda"
+    ids, labels = _fit_tokens(cfg, n_train, seq, seed)
+    shutil.rmtree(root, ignore_errors=True)
+    saved = {}
+
+    class SaveAt(Callback):
+        def __init__(self, net, opt, loader):
+            self.net, self.opt, self.loader = net, opt, loader
+
+        def on_train_batch_end(self, step, logs=None):
+            if step + 1 != FIT_RESUME_AT:
+                return
+            t0 = time.perf_counter()
+            path = checkpoint.save_checkpoint(
+                {"model": self.net.state_dict(), "opt": self.opt.state_dict()},
+                str(root), step=FIT_RESUME_AT, data_loader=self.loader)
+            saved["s"] = time.perf_counter() - t0
+            saved["bytes"] = sum(f.stat().st_size for f in pathlib.Path(path).iterdir())
+            saved["consumed"] = self.loader.state_dict()["batches_consumed"]
+
+    net, opt = _train_model(cfg, device, seed=seed)
+    model = Model(net)
+    model.prepare(opt, sequence_ce)
+    loader = _fit_loader(ids, labels, device, batch)
+    steplog = _step_log()
+    model.fit(loader, epochs=1, log_freq=FIT_LOG_FREQ, verbose=0,
+              callbacks=[steplog, SaveAt(net, opt, loader)])
+    whole = steplog.values()
+    del net, opt, model, loader, steplog
+    _free()
+
+    net, opt = _train_model(cfg, device, seed=seed + 1)  # overwritten by the load
+    loader = _fit_loader(ids, labels, device, batch, seed=FIT_LOADER_SEED + 1000)
+    state = {"model": net.state_dict(), "opt": opt.state_dict()}
+    t0 = time.perf_counter()
+    step = checkpoint.load_latest(state, str(root), data_loader=loader)
+    opt.load_state_dict(state["opt"])
+    if on_card:
+        torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    model = Model(net)
+    model.prepare(opt, sequence_ce)
+    steplog = _step_log()
+    model.fit(loader, epochs=1, log_freq=FIT_LOG_FREQ, verbose=0, callbacks=[steplog])
+    resumed = steplog.values()
+    del net, opt, model, loader, steplog, state
+    shutil.rmtree(root, ignore_errors=True)
+
+    ok = (step == FIT_RESUME_AT and saved.get("consumed") == FIT_RESUME_AT
+          and resumed == whole[FIT_RESUME_AT:] and all(np.isfinite(whole)))
+    log("fit", f"resume drill, {cfg.num_hidden_layers} layers: uninterrupted "
+               + " ".join(f"{x:.4f}" for x in whole)
+               + f"; resumed from step {step} (loader at batch {saved.get('consumed')}) "
+               + " ".join(f"{x:.4f}" for x in resumed)
+               + f"; steps {FIT_RESUME_AT + 1}-{len(whole)} equal bit for bit "
+               f"{resumed == whole[FIT_RESUME_AT:]} -> {'ok' if ok else 'FAIL'}")
+    log("fit", f"checkpoint {saved.get('bytes', 0)} bytes, save "
+               f"{saved.get('s', float('nan')):.2f} s "
+               f"({saved.get('bytes', 0) / max(saved.get('s', 1e-9), 1e-9) / 1e9:.2f} GB/s), "
+               f"load {load_s:.2f} s "
+               f"({saved.get('bytes', 0) / max(load_s, 1e-9) / 1e9:.2f} GB/s); "
+               f"removed {not root.exists()} | {smi}")
+    return ok
+
+
+def phase_fit_diverge(smi, cfg, device="cuda", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                      n_train=FIT_SEQS, seed=0, max_bad=3, log_freq=2):
+    """`fit(max_bad_steps=3, log_freq=2)` on a model under SGD at 1e30 (bf16
+    O2): NonFiniteLossError within max_bad + log_freq steps of the first
+    non-finite loss, and no worker left.  Returns ok."""
+    import multiprocessing as mp
+
+    import numpy as np
+
+    from paddle_tpu_torch import Model, amp, optimizer
+    from paddle_tpu_torch.fault import NonFiniteLossError
+    from paddle_tpu_torch.models._utils import sequence_ce
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+
+    ids, labels = _fit_tokens(cfg, n_train, seq, seed)
+    net = LlamaForCausalLM(cfg, device=device, dtype="float32", seed=seed).train()
+    opt = optimizer.SGD(learning_rate=1e30, parameters=net.named_parameters())
+    net, opt = amp.decorate(net, opt, level="O2", dtype="bfloat16")
+    model = Model(net)
+    model.prepare(opt, sequence_ce)
+    from paddle_tpu_torch.hapi import Callback
+
+    seen = []
+
+    class Read(Callback):  # a check, not the path: reads every step's loss
+        def on_train_batch_end(self, step, logs=None):
+            seen.append(float(logs["loss"]))
+
+    raised = None
+    try:
+        model.fit(_fit_loader(ids, labels, device, batch), epochs=2, log_freq=log_freq,
+                  max_bad_steps=max_bad, verbose=0, callbacks=[Read()])
+    except NonFiniteLossError as e:
+        raised = e
+    ran = len(seen) + (raised is not None)
+    bad = [i for i, v in enumerate(seen) if not np.isfinite(v)]
+    first = bad[0] if bad else None
+    left = mp.active_children()
+    ok = (raised is not None and first is not None
+          and ran - first <= max_bad + log_freq and not left)
+    del net, opt, model
+    log("fit", f"divergence drill, SGD at 1e30: losses "
+               + " ".join(f"{x:.3g}" for x in seen)
+               + f"; NonFiniteLossError {'raised' if raised else 'NOT raised'} after "
+               f"{ran} steps, the first non-finite at step {first} (bound "
+               f"{max_bad} + {log_freq}); workers left {len(left)} -> "
+               f"{'ok' if ok else 'FAIL'} | {smi}")
+    return ok
+
+
+def _bert_fit_rows(cfg, n, lens, seed):
+    """n (ids, [start, end]) rows, lengths uniform in `lens`."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    lengths = rng.randint(lens[0], lens[1] + 1, size=n)
+    rows = []
+    for n_tok in lengths:
+        toks = rng.randint(1, cfg.vocab_size, size=n_tok).astype(np.int32)
+        start = rng.randint(0, n_tok)
+        end = min(n_tok - 1, start + rng.randint(0, 30))
+        rows.append((toks, np.array([start, end], np.int64)))
+    return rows, lengths
+
+
+def _bert_fit_collate(bounds):
+    """padded_collate, then [[ids, padding mask], [start, end] labels]."""
+    import torch
+
+    from paddle_tpu_torch import io
+
+    pad = io.padded_collate(bounds)
+
+    def collate(batch):
+        ids, label, lens = pad(batch)
+        mask = (torch.arange(ids.shape[1])[None, :] < lens[:, None]).to(torch.int32)
+        return [[ids, mask], label]
+
+    return collate
+
+
+def _qa_net(qa):
+    """BertForQuestionAnswering taking (ids, mask), recording each batch's
+    shape (host metadata, no fetch)."""
+    import torch
+
+    class QA(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.qa, self.shapes = qa, []
+
+        def forward(self, ids, mask):
+            self.shapes.append(tuple(ids.shape))
+            return self.qa(ids, attention_mask=mask)
+
+    return QA()
+
+
+def _qa_loss(out, label):
+    """The QA head's loss (models/bert.py: the mean of the start and end
+    cross-entropies) on [b, 2] labels."""
+    from paddle_tpu_torch.nn import functional as F
+
+    start, end = out
+    return (F.cross_entropy(start, label[:, 0]) + F.cross_entropy(end, label[:, 1])) / 2
+
+
+def phase_fit_bert(smi, cfg, device="cuda", n=FIT_BERT_SEQS, bounds=FIT_BERT_BOUNDS,
+                   lens=FIT_BERT_LENS, batch=BERT_BATCH, seed=0, workers=2, prefetch=2):
+    """bench_bert's BERT-base (bf16 O2, AdamW at 3e-5) through `Model.fit`
+    over `BucketSampler(bucket_boundaries=bounds, batch_size=batch,
+    shuffle=True)` and `padded_collate` (n seeded lengths uniform in
+    `lens`), one epoch, `workers` worker processes, `prefetch` batches of
+    device prefetch (0: none).  Checks: every batch
+    one of the bounds' shapes, all of them seen; no attention fallback;
+    masked K1 and K3 once per layer per step; finite losses.  Returns (ok,
+    counts of the fit run)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import Model, io, profiler
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        parity_matmuls()
+    qa, opt = _bert_model(cfg, device, seed)
+    net = _qa_net(qa)
+    model = Model(net)
+    model.prepare(opt, _qa_loss)
+    rows, lengths = _bert_fit_rows(cfg, n, lens, seed)
+    sampler = io.BucketSampler(lengths=lengths, bucket_boundaries=bounds,
+                               batch_size=batch, shuffle=True, seed=seed)
+    loader = io.DataLoader(rows, batch_sampler=sampler, collate_fn=_bert_fit_collate(bounds),
+                           num_workers=workers, prefetch_to_device=prefetch, device=device)
+    steps = len(sampler)
+    steplog = _step_log()
+    profiler.reset_kernel_launch_counts()
+    t0 = time.perf_counter()
+    model.fit(loader, epochs=1, log_freq=FIT_LOG_FREQ, verbose=0, callbacks=[steplog])
+    if on_card:
+        torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = profiler.kernel_launch_counts()
+    fallbacks = dict(fa.fallback_counts)
+    losses = steplog.values()
+    layers = cfg.num_hidden_layers
+    shapes = sorted(set(net.shapes))
+    want_shapes = sorted((batch, b) for b in bounds)
+    shapes_ok = shapes == want_shapes and len(net.shapes) == steps
+    want = layers * steps if on_card else 0
+    counts_ok = (all(counts[f"flash_{k}"] == want
+                     for k in ("fwd", "fwd_masked", "bwd", "bwd_masked"))
+                 and counts["adam_fused"] == (steps if on_card else 0)
+                 and not any(fallbacks.values()))
+    finite = all(np.isfinite(losses)) and len(losses) == steps
+    step_s = steplog.step_s()
+    tokens = int(sum(lengths))
+    _FIGURES["fit_bert_examples_per_s"] = batch / step_s
+    del qa, opt, net, model, loader
+    log("fit", f"BERT through BucketSampler{tuple(bounds)} + padded_collate, "
+               f"{workers} workers, prefetch_to_device {prefetch}: {n} "
+               f"lengths uniform in {lens[0]}-{lens[1]} ({tokens} tokens), {steps} "
+               f"steps of {batch}; shapes {shapes} (expected {want_shapes}) -> "
+               f"{'ok' if shapes_ok else 'FAIL'}")
+    log("fit", f"losses " + " ".join(f"{x:.4f}" for x in losses)
+               + f": finite {finite}; launches {_main(counts)}, fallbacks "
+               f"{fallbacks} (expected flash_fwd, _masked, flash_bwd, _masked {want}"
+               f" = {layers} layers x {steps} steps; adam_fused one per step; no "
+               f"fallback) -> {'ok' if counts_ok else 'FAIL'}")
+    log("fit", f"bucketed step_ms median {step_s * 1e3:.1f} (whole fit {fit_s:.2f} "
+               f"s), examples_per_s {batch / step_s:.1f}, tokens_per_s (unpadded) "
+               f"{tokens / steps / step_s:.1f} | {smi}")
+    return shapes_ok and counts_ok and finite, counts
 
 
 # ---------------------------------------------------------------------------
@@ -5037,6 +5542,7 @@ def phase_bert(smi, cfg, device="cuda", batch=BERT_BATCH, seq=BERT_SEQ,
                  and counts["unscale_fused"] == 0
                  and not any(fallbacks.values()))
     step_s = statistics.median(secs[1:])
+    _FIGURES["bert_examples_per_s"] = batch / step_s
     peak = (f"{torch.cuda.max_memory_allocated() / 2**30:.2f}" if on_card
             else "not measured")
     log("bert", "losses " + " ".join(f"{x:.4f}" for x in losses)
@@ -5522,6 +6028,23 @@ def main():
             "train", phase_train, smi,
             LlamaConfig.llama2_7b(num_hidden_layers=TRAIN_LAYERS))
         _free()
+        # the training loop: Model.fit over the DataLoader, evaluate, the
+        # resume and divergence drills, bucketed BERT
+        fit_ok, fit_counts, eval_counts = _timed(
+            "fit", phase_fit, smi, LlamaConfig.llama2_7b(num_hidden_layers=TRAIN_LAYERS))
+        _free()
+        resume_ok = _timed("fit", phase_fit_resume, smi,
+                           LlamaConfig.llama2_7b(num_hidden_layers=FIT_RESUME_LAYERS))
+        _free()
+        diverge_ok = _timed("fit", phase_fit_diverge, smi,
+                            LlamaConfig.llama2_7b(num_hidden_layers=FIT_RESUME_LAYERS))
+        _free()
+        from paddle_tpu_torch.models.bert import BertConfig
+
+        no_dropout = dict(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+        fit_bert_ok, fit_bert_counts = _timed("fit", phase_fit_bert, smi,
+                                              BertConfig.bert_base(**no_dropout))
+        _free()
         # activation recompute: K1 runs twice per layer per step
         recompute_ok, _ = _timed(
             "train", phase_train, smi,
@@ -5545,11 +6068,11 @@ def main():
                 "amp", phase_amp, smi, LlamaConfig.llama2_7b(
                     num_hidden_layers=AMP_LAYERS), dtype="float16", others=False)
         _free()
-        from paddle_tpu_torch.models.bert import BertConfig
-
-        no_dropout = dict(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
         bert_ok, bert_counts = _timed("bert", phase_bert, smi,
                                       BertConfig.bert_base(**no_dropout))
+        log("fit", f"BERT examples_per_s: bucketed through fit "
+                   f"{_FIGURES['fit_bert_examples_per_s']:.1f}, the bert phase's "
+                   f"padded {BERT_SEQ} {_FIGURES['bert_examples_per_s']:.1f}")
         _free()
         bert_grad_ok, _ = _timed("bert", bert_grad_check, BertConfig.bert_base(
             num_hidden_layers=2, **no_dropout))
@@ -5585,6 +6108,7 @@ def main():
                 f"launched: {idle16 or 'none'} -> {'FAIL' if idle16 else 'ok'}")
     if not (kernels_ok and slice_ok and prefix_ok and gen_ok and dense_ok
             and fault_ok and obs_ok and cp_ok and f32_ok and train_ok and recompute_ok and grad_ok
+            and fit_ok and resume_ok and diverge_ok and fit_bert_ok
             and amp_ok and bert_ok and bert_grad_ok and ring_ok and lc_ok
             and lc2_ok and lc_grad_ok and serve16_ok and train16_ok and amp16_ok
             and not idle16):
@@ -5594,14 +6118,15 @@ def main():
     # just after its path ran
     runs = [counts, *prefix_counts, gen_counts, dense_counts, fault_counts,
             obs_counts, *cp_counts,
-            *f32_counts, train_counts, amp_counts, bert_counts, *ring_counts,
-            lc_counts, lc2_counts]
+            *f32_counts, train_counts, fit_counts, eval_counts, fit_bert_counts,
+            amp_counts, bert_counts, *ring_counts, lc_counts, lc2_counts]
     launches = {name: sum(c.get(name, 0) for c in runs) for name in kernels}
     launches.update(launches16)
-    # adam_fused at BERT's parameters: the bert phase's launches; the other
-    # entry the Llama runs' (train, amp, longcontext)
-    launches["adam_fused_bert"] = bert_counts["adam_fused"]
-    launches["adam_fused"] -= bert_counts["adam_fused"]
+    # adam_fused at BERT's parameters: the bert phase's and the bucketed BERT
+    # fit's launches; the other entry the Llama runs' (train, fit, amp,
+    # longcontext)
+    launches["adam_fused_bert"] = bert_counts["adam_fused"] + fit_bert_counts["adam_fused"]
+    launches["adam_fused"] -= launches["adam_fused_bert"]
     # K5's two variants are one kernel of the record, on each path
     for path in ("", "_mma", "_walk"):
         launches["paged_decode_fused_cp" + path] += sum(

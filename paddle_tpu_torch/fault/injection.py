@@ -207,3 +207,11 @@ register("serve.decode.nan",
 register("serve.loop.crash",
          "crashes the engine scheduler thread (EngineSupervisor restart "
          "drill)")
+register("dataloader.next", "fires before the data loader produces each batch")
+register("dataloader.hang", "HANGS the data loader's next() (watchdog drill)")
+register("supervisor.step", "fires inside Supervisor.after_step")
+register("checkpoint.save", "fires inside each checkpoint save attempt, before "
+         "the payload is written")
+register("checkpoint.commit", "fires after the payload is written, before the "
+         "COMMIT marker: leaves a torn checkpoint")
+register("checkpoint.load", "fires before a checkpoint is restored")

@@ -1,18 +1,22 @@
 """Hang watchdog: deadline-tracked blocking regions, with a stack dump on
-expiry (counterpart of `paddle_tpu/fault/watchdog.py`, its serving use).
+expiry (counterpart of `paddle_tpu/fault/watchdog.py`).
 
 `Watchdog.arm(region, timeout, context)` (a context manager) registers a
 deadline with one monitor thread; a region that overruns dumps every
 Python thread's stack and the recent fault events to stderr, then acts:
 
-``raise``  (default) mark the region; :class:`WatchdogTimeout` is raised
-           from the arming thread when the blocked call returns.
+``raise``  mark the region; :class:`WatchdogTimeout` is raised from the
+           arming thread when the blocked call returns (the class's
+           default).
+``exit``   drop this rank's ABORT marker (`heartbeat.write_abort`) and
+           `os._exit(75)`: the blocked call may never return, so the
+           process dies with the restart-requested code.  The module's
+           `default` watchdog acts so; `arm(region)` arms it, with
+           FLAGS_collective_timeout_sec as the deadline (0 disables it).
+           The training loop arms `fit.train_batch`, the data loader
+           `dataloader.next`, checkpoints `checkpoint.save` / `.load`.
 callable   invoked as ``action(region, timeout)``: the serving engine
            records the trip and its `EngineSupervisor` restarts it.
-
-The reference's default ``exit`` action (exit 75 after an ABORT marker
-for the launch controller) comes with the heartbeat files (ROADMAP Queue
-1, item 17).
 
 The monitor thread makes no CUDA call, before, during or after a trip: it
 reads the host clock, formats Python stacks and calls the action, which
@@ -37,14 +41,22 @@ from __future__ import annotations
 import contextlib
 import itertools
 import logging
+import os
 import sys
 import threading
 import time
 import traceback
 
+from ..framework import core as _core
 from ..obs import flight as _flight
 
 logger = logging.getLogger("paddle_tpu_torch")
+
+_core.define_flag(
+    "FLAGS_collective_timeout_sec", 0.0,
+    "deadline (s) of the default watchdog's regions: checkpoint save/load, "
+    "data loader next, the fit step.  0 disables it.",
+)
 
 EVENT_DUMP_N = 32  # fault events included in a timeout dump
 
@@ -187,24 +199,39 @@ def _fire(r):
             action(r.region, r.timeout)
         except Exception:  # the monitor serves every other region too
             logger.exception("watchdog action for region %r failed", r.region)
+    elif action == "exit":  # the blocked call may never return
+        from . import heartbeat as _hb
+        from .supervisor import RESTART_EXIT_CODE
+
+        _hb.write_abort(f"watchdog: {r.region} exceeded {r.timeout:.1f}s")
+        os._exit(RESTART_EXIT_CODE)
     # "raise": arm() raises WatchdogTimeout when the region exits
 
 
 class Watchdog:
-    """Deadline tracker for blocking regions; `action` is "raise" or a
-    callable."""
+    """Deadline tracker for blocking regions; `action` is "raise", "exit"
+    or a callable; `timeout` the deadline of an `arm()` that names none
+    (None: FLAGS_collective_timeout_sec)."""
 
-    def __init__(self, action="raise"):
-        if not (callable(action) or action == "raise"):
-            raise ValueError(f"watchdog action must be 'raise' or a callable, "
-                             f"got {action!r}")
+    def __init__(self, action="raise", timeout=None):
+        if not (callable(action) or action in ("raise", "exit")):
+            raise ValueError(f"watchdog action must be 'raise', 'exit' or a "
+                             f"callable, got {action!r}")
         self.action = action
+        self.timeout = timeout
+
+    def _resolve_timeout(self, timeout):
+        if timeout is not None:
+            return float(timeout)
+        if self.timeout is not None:
+            return float(self.timeout)
+        return float(_core.flag("FLAGS_collective_timeout_sec"))
 
     @contextlib.contextmanager
-    def arm(self, region, timeout, context=None):
+    def arm(self, region, timeout=None, context=None):
         """Guard a blocking region for `timeout` seconds; with a timeout <=
         0 this is a plain passthrough, so hot paths arm unconditionally."""
-        t = float(timeout)
+        t = self._resolve_timeout(timeout)
         if t <= 0:
             yield
             return
@@ -223,3 +250,13 @@ class Watchdog:
                 _regions.pop(r.id, None)
             if r.fired and self.action == "raise":
                 raise WatchdogTimeout(region, t)
+
+
+default = Watchdog(action="exit")
+
+
+def arm(region, timeout=None, context=None):
+    """Arm the `default` watchdog (action "exit") around a blocking region;
+    a passthrough when FLAGS_collective_timeout_sec is 0 and no `timeout`
+    is given."""
+    return default.arm(region, timeout=timeout, context=context)

@@ -1,7 +1,7 @@
 """Flags, dtypes and the default device of the PyTorch/CUDA port.
 
-Counterpart of `paddle_tpu/framework/core.py`, cut to what the paged
-serving path reads.  The flag names and defaults are the reference's, so a
+Counterpart of `paddle_tpu/framework/core.py`, cut to what the serving
+and training paths read.  The flag names and defaults are the reference's, so a
 deployment's `FLAGS_serve_*` environment means the same thing to both
 packages.
 """
@@ -311,4 +311,20 @@ define_flag(
     "X-Idempotency-Key.  Within the TTL a resubmitted key replays the stored "
     "response instead of generating again; an in-flight resubmit joins the "
     "live request",
+)
+define_flag(
+    "FLAGS_max_inflight_steps", 2,
+    "bound on the training steps `hapi.Model.fit` keeps in flight on the "
+    "card before the host waits on the oldest one's CUDA event "
+    "(backpressure without a value transfer); 1 = a strict per-step fetch, "
+    "the same numerics",
+)
+define_flag(
+    "FLAGS_checkpoint_save_retries", 3,
+    "bounded retries around a failed checkpoint save before raising "
+    "(distributed.checkpoint.save_checkpoint)",
+)
+define_flag(
+    "FLAGS_checkpoint_retry_backoff", 0.5,
+    "initial checkpoint retry backoff (s), doubled per attempt",
 )

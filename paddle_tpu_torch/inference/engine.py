@@ -1162,9 +1162,11 @@ class ContinuousBatchingEngine:
         if self._thread is not None:
             return self
         self._stop = False
-        self._thread = threading.Thread(target=self._loop, name="cb-engine",
-                                        daemon=True)
-        self._thread.start()
+        t = threading.Thread(target=self._loop, name="cb-engine", daemon=True)
+        t.start()
+        # published once it runs: an EngineSupervisor poll takes a thread
+        # that is not alive, with no stop asked, for a dead scheduler
+        self._thread = t
         return self
 
     def stop(self, timeout=30.0):

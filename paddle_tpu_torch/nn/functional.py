@@ -109,6 +109,17 @@ def cross_entropy(input, label, weight=None, ignore_index=-100, reduction="mean"
     raise ValueError(f"reduction must be mean, sum or none, got {reduction!r}")
 
 
+def mse_loss(input, label, reduction="mean", name=None):
+    """Squared error with the label cast to the input's dtype (reference
+    :1118): its mean, sum, or the elementwise values for "none"."""
+    d = torch.square(input - label.to(input.dtype))
+    if reduction == "mean":
+        return d.mean()
+    if reduction == "sum":
+        return d.sum()
+    return d
+
+
 def scaled_dot_product_attention(query, key, value, attn_mask=None, dropout_p=0.0,
                                  is_causal=False, training=True, segment_ids=None,
                                  generator=None):
@@ -127,5 +138,5 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None, dropout_p=0.
     return out
 
 
-__all__ = ["gelu", "layer_norm", "dropout", "cross_entropy",
+__all__ = ["gelu", "layer_norm", "dropout", "cross_entropy", "mse_loss",
            "scaled_dot_product_attention"]

@@ -3,7 +3,8 @@
 - `paddle_tpu_torch` (and `chip_smoke.py`) import neither `jax` nor
   anything of `paddle_tpu`: the port keeps its own copy of what it needs.
 - Entry points default to the CUDA card and raise, rather than run on the
-  CPU, when CUDA is absent.
+  CPU, when CUDA is absent (the DataLoader's device prefetch too, unless
+  given device="cpu").
 - `chip_smoke.py` fails, and prints no result, without CUDA or outside a
   checkout.
 """
@@ -65,6 +66,34 @@ def test_default_device_raises_without_cuda(monkeypatch):
     model = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         ContinuousBatchingEngine(model, max_len=32, prefill_buckets=[8])
+
+
+def test_device_prefetch_raises_without_cuda_unless_cpu(monkeypatch):
+    from paddle_tpu_torch import io
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    data = io.TensorDataset([torch.arange(8)])
+    for depth in (True, 2):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            io.DataLoader(data, batch_size=4, prefetch_to_device=depth)
+    loader = io.DataLoader(data, batch_size=4, prefetch_to_device=2, device="cpu")
+    assert [b[0].tolist() for b in loader] == [[0, 1, 2, 3], [4, 5, 6, 7]]
+    io.DataLoader(data, batch_size=4)  # no prefetch stage: no device needed
+
+
+def test_training_loop_imports_neither_jax_nor_the_reference():
+    code = ("import sys, paddle_tpu_torch as p\n"
+            "from paddle_tpu_torch import io, metric, hapi, callbacks, fault\n"
+            "from paddle_tpu_torch.callbacks import EarlyStopping\n"
+            "from paddle_tpu_torch.distributed import checkpoint\n"
+            "from paddle_tpu_torch.fault import heartbeat\n"
+            "assert p.Model is hapi.Model and p.save and p.load\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'paddle_tpu'))\n"
+            "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
 
 
 def test_kernel_build_targets_hopper_and_needs_nvcc(monkeypatch):

@@ -2,9 +2,10 @@
 the CPU: tiny Llamas on shared weights (`load_reference_state`) behind
 both servers, FLAGS_trace on in both packages.
 
-- the span tree of a traced request: one `serve.handle` root under the
-  client's span, the engine's stage spans under it, the same names in the
-  same order as the reference's;
+- the span tree of a traced request, once it has settled: one
+  `serve.handle` root under the client's span, the engine's stage spans
+  under it, the same names in the same order as the reference's (also
+  when an engine span lands after `serve.handle`);
 - `X-Trace-Id` echoed, or minted when the client sent none; `trace_id` in
   a 504 body; `GET /trace/<unknown>` answers 404;
 - `GET /metrics`: the reference's name set, and equal request and token
@@ -53,6 +54,7 @@ from paddle_tpu_torch.obs import trace as ttrace
 ENGINE = dict(slots=2, max_len=64, prefill_buckets=[8, 16], queue_depth=16,
               seed=0, prefix_cache=False)
 WAIT_S = 30
+QUIET_S = 0.5  # no new span for this long: a trace has settled
 CLIENT_SPAN = "c" * 16
 
 
@@ -135,15 +137,29 @@ def _names(node):
     return (node["name"], [_names(c) for c in node["children"]])
 
 
+def _span_count(nodes):
+    return sum(1 + _span_count(n["children"]) for n in nodes)
+
+
 def _tree_of(server, tid):
-    """The span tree, once serve.handle (recorded after the reply's bytes
-    are out) is in it; bounded."""
+    """The span tree once it has settled: serve.handle is in it and no new
+    span came for QUIET_S.  serve.handle is recorded after the reply's
+    bytes are out, and both engines record some spans after they resolved
+    the request (engine.prefill after the first token is emitted, which
+    ends a one-token request; engine.decode when an epoch closes;
+    engine.fetch in a flush), so either may land after serve.handle.
+    Bounded by WAIT_S."""
     t_end = time.monotonic() + WAIT_S
+    seen, t_seen = None, None
     while True:
         status, _, doc = _call(server, f"/trace/{tid}")
         if status == 200 and any(r["name"] == "serve.handle" for r in doc["spans"]):
-            return doc
-        assert time.monotonic() < t_end, f"no serve.handle span for {tid}"
+            n = _span_count(doc["spans"])
+            if n != seen:
+                seen, t_seen = n, time.monotonic()
+            elif time.monotonic() - t_seen >= QUIET_S:
+                return doc
+        assert time.monotonic() < t_end, f"span tree of {tid} did not settle"
         time.sleep(0.01)
 
 
@@ -170,6 +186,31 @@ def test_span_tree_names_match_reference(pair, prompt_len, new):
     for child in handle["children"]:
         assert child["parent_id"] == handle["span_id"]
         assert all(isinstance(v, (str, int, float)) for v in child.get("attrs", {}).values())
+
+
+def test_span_tree_settles_after_a_late_engine_span(pair, monkeypatch):
+    """The port's engine.prefill span held back past serve.handle (as a
+    descheduled scheduler thread holds it under load): the settled trees
+    still carry the same names as the reference's."""
+    late = ContinuousBatchingEngine._obs_prefilled
+
+    def held_back(self, *args):
+        time.sleep(0.2)
+        late(self, *args)
+
+    monkeypatch.setattr(ContinuousBatchingEngine, "_obs_prefilled", held_back)
+    tids = [ttrace.new_trace_id() for _ in pair]
+    docs = []
+    for server, tid in zip(pair, tids):
+        status, _, _ = _call(server, "/generate",
+                             {"input_ids": _prompt(5, 5), "max_new_tokens": 1},
+                             {"X-Trace-Id": tid, "X-Parent-Span": CLIENT_SPAN})
+        assert status == 200
+        docs.append(_tree_of(server, tid))
+    ref, port = docs
+    assert [_names(r) for r in port["spans"]] == [_names(r) for r in ref["spans"]]
+    (handle,) = port["spans"]
+    assert [c["name"] for c in handle["children"]] == ["engine.queue", "engine.prefill"]
 
 
 def test_batched_rows_share_the_trace_context(pair):

@@ -308,6 +308,31 @@ def test_loop_crash_supervisor_restarts_thread(model, ref):
     assert eng.restart_count == 1 and eng.compile_counts() == warm
 
 
+def test_supervisor_never_takes_a_starting_scheduler_for_a_dead_one(model, monkeypatch):
+    """A supervisor poll while start() launches the scheduler thread (it is
+    not alive yet, and no stop was asked) finds nothing to restart.  The
+    engine published the thread before starting it, so such a poll
+    restarted a healthy engine and failed its requests (seen on the card
+    in chip_smoke's obs phase, whose passes stop and start the engine
+    under a polling supervisor)."""
+    eng = _engine(model, slots=2)
+    sup = EngineSupervisor(eng, poll_interval=3600, max_restarts=3, backoff=0.0)
+    polls = []
+    thread_start = threading.Thread.start
+
+    def start(self):
+        if self.name == "cb-engine":
+            polls.append(sup.check())  # the poll lands just before it runs
+        thread_start(self)
+
+    monkeypatch.setattr(threading.Thread, "start", start)
+    for _ in range(2):  # a fresh engine, then a restart after a stop
+        eng.start()
+        eng.stop(timeout=5)
+    assert polls == [None, None]
+    assert sup.check() is None and eng.restart_count == 0
+
+
 def test_restart_budget_exhausted_fails_all_typed(model):
     """Past the budget the engine is dead: every pending request resolves
     once with EngineRestarted, new submits raise EngineUnavailable."""
