@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Seventeen phases, and the serving, training and amp ones again in float16
+Nineteen phases, and the serving, training and amp ones again in float16
 (below); a failure in any of them exits non-zero and prints no result.
 
 1. device  -- requires CUDA; prints the card's name and power limit.
@@ -125,7 +125,35 @@ Seventeen phases, and the serving, training and amp ones again in float16
               supervisor writes a watchdog flight dump, then the restart's;
               a profiled decode window with trace on runs the kernels per
               step of one with trace off.
-11. cp     -- the same model behind long-document engines (slots 4, the
+11. lora   -- multi-tenant LoRA on the same model: 16 random adapters
+              (rank 8, all seven targets) through an arena of the default
+              capacity 8.  The slice's six requests over POST /generate,
+              four of them on adapters (K1 and K2 counted); all 16
+              adapters twice through the 8-slot arena (every reload's
+              tokens equal its first's bit for bit, the page and LoRA
+              audits every step); base rows equal a no-LoRA engine's and
+              two adapter rows an engine holding that adapter alone, bit
+              for bit; the mix under spec_k 4 equal to plain decode or a
+              near tie; a per-adapter prefix hit (the chunk window under
+              LoRA) and a miss under another adapter; `adapter` over HTTP,
+              an unknown one answered 404, a burst that parks on a full
+              arena; first-token logits against an eager float32 forward
+              with the adapter merged into the weights; no new trace.
+              Records the decode step with eight adapters co-batched
+              beside the base engine's (ms, tokens/s, kernels per step),
+              the arena's bytes and one upload's ms.
+12. sessions -- multi-turn KV sessions on the same model: a 20-turn
+              conversation (a 300-token system prompt, 40 user and 32
+              generated tokens a turn) through a session engine and a
+              stateless one: each turn's tokens equal or a near tie, its
+              first-token logits against the teacher-forced forward, >=
+              90% of turns 2-20's prompt tokens reused, 20 binds, no new
+              trace, every chunk prefill on K2's tensor-core path; a turn
+              over POST /generate with `session_id`; a warm restart keeps
+              the session; a small pool evicts the idle session whole
+              under sessionless traffic.  Records TTFT per turn of both
+              engines and the pages pinned.
+13. cp     -- the same model behind long-document engines (slots 4, the
               4096-token context): questions about one 3000-token document
               share its pages through the prefix cache, beside two fresh
               prompts, over HTTP; at cp=1, then cp=2 (the page audit every
@@ -137,7 +165,7 @@ Seventeen phases, and the serving, training and amp ones again in float16
               logits against the teacher-forced forward; prints the greedy
               agreement between runs, speculation counters, decode
               tokens/s and TTFT, and a profiled cp=2 decode step.
-12. train  -- trains Llama-2-7B's widths at 8 layers (bf16 AMP O2, AdamW with
+14. train  -- trains Llama-2-7B's widths at 8 layers (bf16 AMP O2, AdamW with
               float32 master weights) for 6 steps on one repeated batch of
               4 x 2048 tokens: finite and falling losses, K1 (on its wgmma
               path) and K3 launched once per layer per step, adam_fused
@@ -145,7 +173,7 @@ Seventeen phases, and the serving, training and amp ones again in float16
               tokens/s, peak memory and a profiled step with AdamW's span.
               Then 2 steps of 2 layers with activation recompute (K1 twice
               per layer per step).
-13. fit    -- the training loop through the entry points a user calls
+15. fit    -- the training loop through the entry points a user calls
               (`paddle_tpu_torch.Model`, `io.DataLoader`): the train
               phase's model (8 layers, bf16 O2, AdamW) through `Model.fit`
               over 32 seeded sequences of 2048 tokens, batch 4, shuffled
@@ -169,10 +197,10 @@ Seventeen phases, and the serving, training and amp ones again in float16
               three batch shapes, masked K1 and K3 every step, no
               fallback; examples/s beside the bert phase's padded figure.
               No worker process is left after any of them.
-14. grads  -- one step's gradients of a 2-layer model at the same widths
+16. grads  -- one step's gradients of a 2-layer model at the same widths
               with the kernels against the same step with attention through
               the plain forward under autograd.
-15. amp    -- the reference's O1 recipe on Llama-2-7B's widths at 2 layers,
+17. amp    -- the reference's O1 recipe on Llama-2-7B's widths at 2 layers,
               float32 parameters, batch 2 x 2048: auto_cast O1 bf16, a
               dynamic GradScaler, LinearWarmup into CosineAnnealingDecay,
               ClipGradByGlobalNorm(1.0) and AdamW for 6 steps, step 4's
@@ -183,7 +211,7 @@ Seventeen phases, and the serving, training and amp ones again in float16
               adam_fused and unscale_fused once per step.  Then SGD,
               Momentum, Adagrad, RMSProp, Adamax and Lamb two steps each:
               finite, every weight moved, step ms.
-16. bert   -- bench_bert's BERT-base SQuAD fine-tuning (bf16 O2, AdamW at
+18. bert   -- bench_bert's BERT-base SQuAD fine-tuning (bf16 O2, AdamW at
               3e-5, dropout 0) for 6 steps on one batch of 32 x 384 tokens
               padded from lengths 192-384: finite and falling losses, K1 and
               K3 launched once per layer per step on their wgmma paths with
@@ -193,7 +221,7 @@ Seventeen phases, and the serving, training and amp ones again in float16
               as a key-padding attn_mask (K1's key bias) against segment ids
               on the valid rows; then a 2-layer model's gradients with the
               kernels against attention through the plain forward.
-17. longcontext -- long-context training through the Llama's
+19. longcontext -- long-context training through the Llama's
               `context_parallel_degree` on a sep mesh (ring attention, every
               rank on the card): Llama-2-7B's widths at 4 layers, one
               sequence of 32768 tokens over R = 8 (K/V 512 MiB a layer: the
@@ -225,14 +253,16 @@ The float16 phases (their log lines read "[fp16 <phase>]"):
   "float16"), the other optimizers aside.
 The record's `_f16` entries count the launches of these runs.
 
-Every serving phase (slice, prefix, dense, fault, obs, cp, cp_f32) runs on the
-engine's CUDA graphs: it prints `compile_counts()` after warmup and again
+Every serving phase (slice, prefix, dense, fault, obs, lora, sessions, cp,
+cp_f32) runs on the engine's CUDA graphs: it prints `compile_counts()` after warmup and again
 after its traffic and fails if they differ (0 new traces under traffic),
 prints the host fetches per decode step and decode tokens/s over the
 decode window's wall clock, and holds one replay of each
 step that an admission ran -- fresh prefill, chunk prefill, decode or
 verify -- against an eager run of the same body on the same static
-inputs, bit for bit (cp_f32 and fault aside).  The profiled steps print the host's time until the
+inputs, bit for bit (cp_f32 and fault aside; lora holds a mixed-adapter
+fresh prefill and decode, a verify and an adapter's chunk prefill, sessions a
+session turn's chunk prefill).  The profiled steps print the host's time until the
 last step returned and the kernels per step beside wall, busy and idle.
 
 Every phase prints its wall time.  The line before the last is the
@@ -368,6 +398,47 @@ CP_RUNS = [("a cp1", 1, 0, "none", False), ("b cp2", 2, 0, "none", True),
 # logits by whole units
 CP_F32_RUNS = [("a cp1", 1, 0), ("b cp2", 2, 0), ("c cp2 spec2", 2, 2)]
 F32_TIE_REL = 1e-3
+
+# the lora phase: LORA_ADAPTERS random adapters (make_random, rank
+# LORA_RANK, seed i, all seven targets) in an arena of the default
+# capacity (8) at rank_max LORA_RANK; the main co-batch gives the slice's
+# prompts the adapters of LORA_MIX (None: the base model); the churn runs
+# every adapter once per round, each with its own LORA_CHURN_LEN-token
+# prompt and LORA_CHURN_NEW new tokens, LORA_CHURN_ROUNDS rounds; then the
+# mix under spec_k LORA_SPEC_K
+LORA_ADAPTERS = 16
+LORA_RANK = 8
+LORA_MIX = (None, "a0", "a1", None, "a2", "a3")
+LORA_CHURN_LEN = 64
+LORA_CHURN_NEW = 16
+LORA_CHURN_ROUNDS = 2
+LORA_SPEC_K = 4
+# the sessions phase: a SESSION_TURNS-turn conversation after a
+# PREFIX_SYS_LEN-token system prompt, SESSION_USER user tokens and
+# SESSION_NEW generated per turn (~1.7k tokens of context by the last
+# turn); at least SESSION_REUSE_MIN of turns 2-N's prompt tokens come from
+# the session's pages.  The drill: a SESSION_DRILL_POOL-page pool (one
+# scratch) under SESSION_DRILL_LEN-token sessionless prompts
+SESSION_TURNS = 20
+SESSION_USER = 40
+SESSION_NEW = 32
+SESSION_REUSE_MIN = 0.90
+SESSION_DRILL_POOL = 8
+SESSION_DRILL_LEN = 600
+# bf16 near ties, the form of F32_TIE_REL: a first divergence passes when
+# the top-2 logit gap there is at most this share of max|logit|.  Two runs
+# whose logits differ by at most D (max|diff| / max|logit|) can swap their
+# top two tokens only where the gap is at most 2D, so each bound is twice
+# the largest D measured on the card before it was set, rounded up (the
+# phases print D every run; NVIDIA H100 80GB HBM3, 700 W): SESSION_TIE_REL
+# from the first-token logits of a chunk-prefilled turn against the
+# fresh-prefilled one (0.0112-0.0168 over turns 2-20), SPEC_TIE_REL from
+# the verify window's logits against plain decode's on the same tokens
+# (0.0110-0.0164 over the mix's six requests).  A wrong page, mask or
+# adapter row moves logits by whole units (the adapter's own effect on
+# the first token is ~0.3)
+SESSION_TIE_REL = 0.04
+SPEC_TIE_REL = 0.04
 
 # K5's timed case: 8 slots at per-slot positions drawn from 3000-4000 of a
 # 4096-token context (numpy.random.default_rng(5).integers(3000, 4001, 8))
@@ -2635,7 +2706,9 @@ def _teacher_forced(model, device, prompts, gen, reqs, phase):
 def _serve_batches(engine, batches):
     """POST each batch of (prompt, max_new_tokens) to /generate, the
     requests of a batch concurrently and each batch after the previous one
-    finished.  Returns (responses in order, wall seconds)."""
+    finished; an item may carry a third element, a dict of further body
+    fields (`adapter`, `session_id`).  Returns (responses in order, wall
+    seconds)."""
     from paddle_tpu_torch.inference import serve
 
     server = serve(engine, port=0, block=False)
@@ -2647,8 +2720,9 @@ def _serve_batches(engine, batches):
             got = [None] * len(batch)
 
             def client(i, batch=batch, got=got):
-                p, new = batch[i]
-                got[i] = _post(url, {"input_ids": p.tolist(), "max_new_tokens": new})
+                p, new, *extra = batch[i]
+                got[i] = _post(url, {"input_ids": p.tolist(), "max_new_tokens": new,
+                                     **(extra[0] if extra else {})})
 
             threads = [threading.Thread(target=client, args=(i,))
                        for i in range(len(batch))]
@@ -2692,20 +2766,24 @@ def _decode_rates(summary):
             summary["host_fetches"] / max(1, summary["decode_steps"]))
 
 
-def check_replay(phase, engine, prompts, new_tokens=8):
+def check_replay(phase, engine, prompts, new_tokens=8, kws=None, want=()):
     """Replay against eager: submit `prompts` (a fresh prompt, then any
-    prefix-cache hits) and admit them with one engine step (their prefills,
+    prefix-cache hits), each with its `kws` entry as more submit arguments
+    (an adapter, a session id), and admit them with one engine step (their prefills,
     a hit's COW copy, one decode or verify step).  Then each executable
     that step ran -- the COW copy aside, which is not idempotent -- replays
     once beside one eager run of its body on the same static inputs, while
     the admitted requests still hold the pages both write alike.  Same
     shapes and kernels, so anything but bit-identical tokens and logits is
-    a capture fault.  Returns whether every one was."""
+    a capture fault.  Returns whether every one was and every executable
+    named in `want` was among them."""
     import torch
 
     graphs = engine.step_graphs()
     before = {n: g.trace_count + g.replay_count for n, g in graphs.items()}
-    reqs = [engine.submit(p, max_new_tokens=new_tokens) for p in prompts]
+    kws = kws or [{}] * len(prompts)
+    reqs = [engine.submit(p, max_new_tokens=new_tokens, **kw)
+            for p, kw in zip(prompts, kws)]
     engine.step()
     ok, parts = True, []
     for name, g in graphs.items():
@@ -2714,14 +2792,17 @@ def check_replay(phase, engine, prompts, new_tokens=8):
         replayed, eager = g.compare_eager(g.last_key)
         same = all(torch.equal(a, b) for a, b in zip(replayed, eager))
         ok &= same
+        want = set(want) - {name}
         key = "" if g.last_key is None else f" {g.last_key}"
         parts.append(f"{name}{key} {'bit-identical' if same else 'DIFFERS'}")
     engine.run_until_idle()
     for r in reqs:
         r.wait(1)
-    log(phase, f"replay vs eager on the same static inputs: {'; '.join(parts)} "
-               f"-> {'ok' if ok and parts else 'FAIL'}")
-    return ok and bool(parts)
+    ok &= bool(parts) and not want
+    log(phase, f"replay vs eager on the same static inputs: {'; '.join(parts)}"
+               f"{f'; {sorted(want)} did not run' if want else ''} "
+               f"-> {'ok' if ok else 'FAIL'}")
+    return ok
 
 
 def phase_prefix(smi, model, kv_quant, device="cuda", sys_len=PREFIX_SYS_LEN,
@@ -4337,6 +4418,663 @@ def phase_obs(smi, model, device="cuda", prompts_spec=SLICE_PROMPTS,
     return ok, counts
 
 
+def _first_divergence(a, b):
+    """Index of the first generated position where token arrays a and b
+    differ, or None."""
+    import numpy as np
+
+    n = min(a.size, b.size)
+    diff = np.flatnonzero(a[:n] != b[:n])
+    if diff.size:
+        return int(diff[0])
+    return None if a.size == b.size else n
+
+
+def _row_gap(row):
+    """(top-2 gap, max|logit|) of one float32 logits row."""
+    top = row.float().topk(2).values
+    return (top[0] - top[1]).item(), row.abs().max().item()
+
+
+def _rel_diff(a, b):
+    """max|a - b| / max|b| of two logits tensors."""
+    return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+
+
+def _gather_record(arena, rows):
+    """Milliseconds of one decode step's gathers of `rows` slots' factors:
+    as `lora_delta_add` makes them (A, B and scale per (layer, target), 3
+    x 7 x layers `index_select`s) and as one `index_select` of the arena's
+    `[capacity+1, row]` buffer, which gathers the same bytes.  Each is
+    captured in a CUDA graph, as the step graphs run it, and timed by
+    replay; with the bytes bound of the copy (each gathered row read once
+    and written once).  Returns (per-stack ms, one-gather ms, bound ms)."""
+    import torch
+
+    ids = (torch.arange(rows, device=arena.device) % arena.capacity + 1).to(torch.int32)
+
+    def per_stack():
+        for A, B in arena._stacks.values():
+            A.index_select(0, ids)
+            B.index_select(0, ids)
+            arena._scale.index_select(0, ids)
+
+    def one_gather():
+        arena._rows.index_select(0, ids)
+
+    times = []
+    for fn in (per_stack, one_gather):
+        fn()
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            fn()
+        times.append(time_ms(g.replay))
+        del g
+    bound_ms = bound(2 * rows * arena.row_elems * 4, 0)[0]
+    return times[0], times[1], bound_ms
+
+
+def _lora_oracle(model, adapter, ids, merged=None):
+    """First-token logits [V] float32 of an eager forward of `model` with
+    `adapter` merged into float32 weights (W + scale * (A @ B)^T per
+    target, nn.Linear's [out, in] layout) over prompt `ids`, the
+    independent oracle of the adapter's delta path.  `merged` (a float32
+    model of the same config from an earlier call, else built here) takes
+    the model's weights first.  Returns (logits, merged)."""
+    import torch
+
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+
+    dev = model.device
+    if merged is None:
+        merged = LlamaForCausalLM(model.config, device=dev, dtype="float32")
+    with torch.no_grad():
+        merged.load_state_dict(model.state_dict())
+        for (layer, target), (A, B) in adapter.weights.items():
+            blk = merged.llama.layers[layer]
+            lin = getattr(blk.self_attn if target.endswith(("q_proj", "k_proj",
+                                                            "v_proj", "o_proj"))
+                          else blk.mlp, target)
+            delta = torch.from_numpy(A).to(dev) @ torch.from_numpy(B).to(dev)
+            lin.weight.add_(delta.T, alpha=adapter.scale)
+        logits = merged(torch.from_numpy(ids)[None].to(dev))[0, -1].float()
+    return logits, merged
+
+
+def phase_lora(smi, model, device="cuda", prompts_spec=SLICE_PROMPTS,
+               n_adapters=LORA_ADAPTERS, rank=LORA_RANK, mix=LORA_MIX,
+               churn_len=LORA_CHURN_LEN, churn_new=LORA_CHURN_NEW,
+               rounds=LORA_CHURN_ROUNDS, spec_k=LORA_SPEC_K,
+               sys_len=PREFIX_SYS_LEN, suffixes=PREFIX_SUFFIXES[:3], **engine_kw):
+    """Multi-tenant LoRA serving on `model` (the serving phases', full
+    width): `n_adapters` random adapters (`make_random`, rank `rank`, seed
+    i, all seven targets) in a registry, an arena of the default capacity
+    (FLAGS_serve_lora_capacity, 8) at rank_max `rank`.  The main engine
+    (prefix cache off, so a request's tokens repeat bit for bit wherever it
+    runs) is warmed, then:
+
+    1. the main path: the slice's prompts over POST /generate, co-batched
+       with the adapters of `mix` (None: the base model); K1 and K2
+       counted;
+    2. churn: every adapter once per round (its own prompt), `rounds`
+       rounds through the 8-slot arena, submitted together, the page audit
+       and the LoRA clause every step: evictions and loads, each reload's
+       tokens equal to its first round's bit for bit;
+    3. the mix again, keeping logits (the plain-decode run speculation is
+       held against), and a profiled decode step with eight adapters
+       co-batched;
+    then no new trace.  A no-LoRA engine serves the slice's prompts (its
+    base rows equal to the main path's bit for bit) and profiles the same
+    decode step.  A LoRA engine at spec_k `spec_k` (warmed, on the same
+    arena) serves the mix: no new trace, its tokens equal to plain
+    decode's or a near tie at the first divergence (SPEC_TIE_REL of the
+    plain run's own logits).  A solo engine (an arena of capacity 1,
+    prefix cache on) holds one adapter at a time: two of the main path's
+    adapter rows again, equal bit for bit; a shared `sys_len`-token prompt
+    with each of `suffixes` under one adapter twice (a prefix hit: the
+    chunk window under LoRA) and then under another (a miss); over HTTP one request with `adapter`, one with
+    an unknown adapter (404 AdapterUnknown, not retriable) and a burst of
+    three adapters at once, which park on the full arena and all answer
+    200; /metrics' paddle_lora_loads_total and _evictions_total > 0.
+    Last, the oracle: the first-token logits of a fresh and of a
+    prefix-hit adapter request against an eager float32 forward with the
+    adapter merged into the weights, within LOGIT_REL_TOL.  Records the
+    arena's bytes, one upload's time, decode tokens/s and ms per step with
+    eight adapters against the base engine, kernels per decode step with
+    and without LoRA.  Returns (all checks passed, the main path's launch
+    counts, the solo engine's launch counts)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.framework import core as fcore
+    from paddle_tpu_torch.inference import serve
+    from paddle_tpu_torch.inference.engine import ContinuousBatchingEngine
+    from paddle_tpu_torch.lora import AdapterArena, AdapterRegistry, make_random
+
+    cfg = model.config
+    layers = cfg.num_hidden_layers
+    on_card = torch.device(device).type == "cuda"
+    ok = True
+
+    def check(what, cond, detail=""):
+        nonlocal ok
+        ok &= bool(cond)
+        log("lora", f"{what}: {detail} -> {'ok' if cond else 'FAIL'}")
+
+    t0 = time.perf_counter()
+    reg = AdapterRegistry(cfg)
+    for i in range(n_adapters):
+        make_random(reg, f"a{i}", rank=rank, seed=i)
+    arena = AdapterArena(reg, rank_max=rank, device=device)
+    log("lora", f"{n_adapters} adapters of rank {rank} on all 7 targets x {layers} "
+                f"layers registered in {time.perf_counter() - t0:.1f} s; arena "
+                f"capacity {arena.capacity} (+ the base slot) x rank_max "
+                f"{arena.rank_max}: {arena.nbytes} bytes = "
+                f"{arena.nbytes / 2**30:.3f} GiB | {smi}")
+    rng = np.random.default_rng(0)  # the slice's prompts
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32)
+               for n, _ in prompts_spec]
+    news = [new for _, new in prompts_spec]
+    churn = [rng.integers(1, cfg.vocab_size, size=churn_len).astype(np.int32)
+             for _ in range(n_adapters)]
+
+    # -- the main engine ---------------------------------------------------
+    t0 = time.perf_counter()
+    engine = ContinuousBatchingEngine(model, seed=0, device=device, lora=arena,
+                                      prefix_cache=False, **engine_kw)
+    engine.warmup()
+    warm = _warm_counts("lora", engine)
+    slots = engine.slots
+    log("lora", f"engine (lora=arena, prefix cache off) built + warmed in "
+                f"{time.perf_counter() - t0:.1f} s")
+    profiler.reset_kernel_launch_counts()
+    profiler.reset_serving()
+    profiler.reset_lora()
+    results, wall = _serve_batches(engine, [[
+        (p, new, {"adapter": a} if a else {})
+        for p, new, a in zip(prompts, news, mix)]])
+    counts = profiler.kernel_launch_counts()
+    summary = profiler.serving_summary()
+    main_gen = [np.asarray(r["tokens"][p.size:], np.int32) for r, p in zip(results, prompts)]
+    tokens_ok = all(r["tokens"][:p.size] == p.tolist() and g.size == new
+                    for r, p, g, new in zip(results, prompts, main_gen, news))
+    # launches read 0 off the card (CPU tensors run the plain versions)
+    want_k1 = len(prompts) * layers if on_card else 0
+    want_k2 = summary["decode_steps"] * layers if on_card else 0
+    want_walk = want_k2
+    check("main path: the slice's prompts over POST /generate, adapters "
+          f"{list(mix)} co-batched",
+          tokens_ok and counts["flash_fwd"] == want_k1
+          and counts["paged_decode_fused"] == want_k2
+          and counts["paged_decode_fused_walk"] == want_walk,
+          f"served in {wall:.3f} s, token counts {'ok' if tokens_ok else 'WRONG'}; "
+          f"launches {_main(counts)} (expected flash_fwd {want_k1} = "
+          f"{len(prompts)} prefills x {layers}, paged_decode_fused {want_k2} = "
+          f"{summary['decode_steps']} decode steps x {layers}, each on the walk)")
+    distinct = len({g.tobytes() for g, a in zip(main_gen, mix) if a})
+    log("lora", f"main path: {distinct} distinct generations among "
+                f"{sum(a is not None for a in mix)} adapter rows; decode_tokens_per_s "
+                f"{_decode_rates(summary)[0]:.2f}, ttft_p50_ms "
+                f"{summary['ttft_p50_ms']:.3f} | {smi}")
+
+    # -- churn: every adapter through the 8-slot arena, twice over ---------
+    fcore.set_flags({"FLAGS_serve_debug_invariants": True})
+    profiler.reset_lora()
+    firsts, reload_ok, rounds_log = {}, True, []
+    try:
+        for rnd in range(rounds):
+            t1 = time.perf_counter()
+            reqs = [engine.submit(p, max_new_tokens=churn_new, adapter=f"a{i}")
+                    for i, p in enumerate(churn)]
+            engine.run_until_idle()
+            for i, r in enumerate(reqs):
+                out = r.wait(1)[churn_len:]
+                if rnd:
+                    reload_ok &= np.array_equal(out, firsts[i])
+                else:
+                    firsts[i] = out
+            rounds_log.append(f"round {rnd + 1} {time.perf_counter() - t1:.2f} s")
+    finally:
+        fcore.set_flags({"FLAGS_serve_debug_invariants": False})
+    churned = profiler.lora_summary()
+    health = engine.healthz()["lora"]
+    check(f"churn: {n_adapters} adapters x {rounds} rounds through "
+          f"{arena.capacity} arena slots, the page and LoRA audits every step",
+          reload_ok and churned.get("evictions", 0) >= n_adapters
+          and churned.get("loads", 0) >= n_adapters + arena.capacity
+          and health["resident"] == arena.capacity,
+          f"{', '.join(rounds_log)}; {churned}; every reload's tokens equal "
+          f"its first round's: {reload_ok}; healthz lora {health}")
+    # fresh prefills and a decode step of base, a1 and a2 rows, one replay
+    # of each against eager: the adapters input and the arena's rows as the
+    # graphs read them
+    replay_rng = np.random.default_rng(1)
+    replay_prompts = [replay_rng.integers(1, cfg.vocab_size, size=n).astype(np.int32)
+                      for n in (min(100, engine.max_len // 4),) * 3]
+    replay_kws = [{"adapter": a} for a in (None, "a1", "a2")]
+    ok &= check_replay("lora", engine, replay_prompts, kws=replay_kws,
+                       want=("prefill", "decode"))
+    # the mix again with its logits: what speculation is held against
+    mix_reqs = [engine.submit(p, max_new_tokens=new, adapter=a, keep_logits=True)
+                for p, new, a in zip(prompts, news, mix)]
+    engine.run_until_idle()
+    plain = [(r.wait(1)[p.size:], torch.stack(r.logits)) for r, p in zip(mix_reqs, prompts)]
+    again = all(np.array_equal(g, m) for (g, _), m in zip(plain, main_gen))
+    check("the mix again by submit: the main path's tokens", again,
+          "bit for bit equal to the HTTP run's")
+    upload_ms = None
+    lora_prof = None
+    if on_card:
+        # one upload of a non-resident adapter into an evicted slot, the
+        # engine idle
+        ad = next(reg.resolve(n) for n in reg.names()
+                  if arena.slot_of(reg.resolve(n).adapter_id) is None)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        slot = arena.acquire(ad)
+        torch.cuda.synchronize()
+        upload_ms = (time.perf_counter() - t1) * 1e3
+        arena.release(slot)
+        lora_prof = profile_decode(engine, cfg, rng,
+                                   adapters=[f"a{i}" for i in range(slots)])
+        stack_ms, row_ms, gather_bound = _gather_record(arena, slots)
+        log("lora", f"record: one decode step's factor gathers for {slots} "
+                    f"rows, each in a CUDA graph: per (layer, target) stack "
+                    f"({3 * 7 * layers} index_selects) {stack_ms:.4f} ms; one "
+                    f"gather of the arena's rows {row_ms:.4f} ms; bytes bound "
+                    f"{gather_bound:.4f} ms | {smi}")
+    ok &= _no_retrace("lora", engine, warm)
+    del engine, mix_reqs
+    if on_card:
+        _free()
+
+    # -- the base engine: the same prompts without LoRA ---------------------
+    base = ContinuousBatchingEngine(model, seed=0, device=device,
+                                    prefix_cache=False, **engine_kw)
+    reqs = [base.submit(p, max_new_tokens=new) for p, new in zip(prompts, news)]
+    base.run_until_idle()
+    base_gen = [r.wait(1)[p.size:] for r, p in zip(reqs, prompts)]
+    rows = [i for i, a in enumerate(mix) if a is None]
+    check("base rows equal a no-LoRA engine's",
+          all(np.array_equal(base_gen[i], main_gen[i]) for i in rows),
+          f"rows {rows} bit for bit; the adapter rows differ from the base "
+          f"model's on {sum(not np.array_equal(base_gen[i], main_gen[i]) for i, a in enumerate(mix) if a)}"
+          f" of {sum(a is not None for a in mix)}")
+    base_prof = profile_decode(base, cfg, rng) if on_card else None
+    del base, reqs
+    if on_card:
+        _free()
+    if lora_prof and base_prof:
+        lt = slots / lora_prof["wall_ms"] * 1e3
+        bt = slots / base_prof["wall_ms"] * 1e3
+        log("lora", f"record: decode step with {slots} adapters co-batched "
+                    f"{lora_prof['wall_ms']:.3f} ms ({lt:.2f} tokens/s), "
+                    f"{lora_prof['kernels_per_step']:.0f} kernels/step, busy "
+                    f"{lora_prof['busy_ms']:.3f} ms; base engine "
+                    f"{base_prof['wall_ms']:.3f} ms ({bt:.2f} tokens/s), "
+                    f"{base_prof['kernels_per_step']:.0f} kernels/step, busy "
+                    f"{base_prof['busy_ms']:.3f} ms; the delta adds "
+                    f"{lora_prof['wall_ms'] - base_prof['wall_ms']:.3f} ms and "
+                    f"{lora_prof['kernels_per_step'] - base_prof['kernels_per_step']:.0f} "
+                    f"kernels per step; arena {arena.nbytes} bytes; one "
+                    f"adapter's upload {upload_ms:.3f} ms | {smi}")
+
+    # -- speculation over the mix -------------------------------------------
+    spec = ContinuousBatchingEngine(model, seed=0, device=device, lora=arena,
+                                    prefix_cache=False, spec_k=spec_k, **engine_kw)
+    spec.warmup()
+    spec_warm = spec.compile_counts()
+    profiler.reset_speculation()
+    reqs = [spec.submit(p, max_new_tokens=new, adapter=a, keep_logits=True)
+            for p, new, a in zip(prompts, news, mix)]
+    spec.run_until_idle()
+    same, ties, spec_ok, diffs = 0, [], True, []
+    for i, (r, p, (g, lg)) in enumerate(zip(reqs, prompts, plain)):
+        out = r.wait(1)[p.size:]
+        at = _first_divergence(out, g)
+        # the verify window's logits against plain decode's, on the
+        # positions both runs reached with the same tokens
+        n = g.size if at is None else at + 1
+        diffs.append(_rel_diff(torch.stack(r.logits[:n]), lg[:n]))
+        if at is None:
+            same += 1
+            continue
+        gap, top = _row_gap(lg[at])
+        tie = gap <= SPEC_TIE_REL * top
+        spec_ok &= tie
+        ties.append(f"request {i} ({mix[i]}) at {at}: gap/max|logit| "
+                    f"{gap / top:.3e} {'near tie' if tie else 'FAIL'}")
+    log("lora", f"verify-window logits against plain decode's, max|diff|/"
+                f"max|logit| per request: {[round(d, 5) for d in diffs]}, max "
+                f"{max(diffs):.5f} (SPEC_TIE_REL {SPEC_TIE_REL})")
+    check(f"spec_k={spec_k} over the mix: plain decode's tokens",
+          spec_ok and spec.compile_counts() == spec_warm,
+          f"{same}/{len(reqs)} requests equal bit for bit; {ties or 'no divergence'}; "
+          f"speculation {profiler.speculation_summary()}; compile_counts "
+          f"{spec.compile_counts()} (warm {spec_warm})")
+    ok &= check_replay("lora", spec, replay_prompts, kws=replay_kws,
+                       want=("prefill", "verify"))
+    ok &= _no_retrace("lora", spec, spec_warm)
+    del spec, reqs
+    if on_card:
+        _free()
+
+    # -- the solo engine: one adapter resident at a time ---------------------
+    solo_arena = AdapterArena(reg, capacity=1, rank_max=rank, device=device)
+    solo = ContinuousBatchingEngine(model, seed=0, device=device, lora=solo_arena,
+                                    prefix_cache=True, **engine_kw)
+    # warmed, so that no launch below is a trace's (a trace on the card
+    # counts its warm run and its replay)
+    solo.warmup()
+    solo_warm = solo.compile_counts()
+    profiler.reset_kernel_launch_counts()
+    profiler.reset_lora()
+    kept = {}
+    alone_ok, alone = True, []
+    for i, a in enumerate(mix):
+        if a is None or len(alone) == 2:
+            continue
+        r = solo.submit(prompts[i], max_new_tokens=news[i], adapter=a,
+                        keep_logits=True)
+        solo.run_until_idle()
+        out = r.wait(1)[prompts[i].size:]
+        alone_ok &= np.array_equal(out, main_gen[i]) and solo_arena.resident() == [a]
+        alone.append(a)
+        kept[("fresh", a)] = (prompts[i], r.logits[0].clone())
+    check("each adapter row alone on a capacity-1 arena: the co-batched row",
+          alone_ok, f"adapters {alone} bit for bit")
+    system = rng.integers(1, cfg.vocab_size, size=sys_len)
+    shared = [np.concatenate([system, rng.integers(1, cfg.vocab_size, size=n)])
+              .astype(np.int32) for n in suffixes]
+    profiler.reset_paging()
+    before = dict(profiler.kernel_launch_counts())
+    for k, (p, a) in enumerate(zip(shared, ("a4", "a4", "a5"))):
+        r = solo.submit(p, max_new_tokens=4, adapter=a, keep_logits=True)
+        solo.run_until_idle()
+        r.wait(1)
+        if k == 1:  # the hit
+            kept[("hit", a)] = (p, r.logits[0].clone())
+    paging = profiler.paging_summary()
+    after = profiler.kernel_launch_counts()
+    mma = after["paged_decode_fused_mma"] - before.get("paged_decode_fused_mma", 0)
+    want_mma = layers if on_card else 0
+    check("per-adapter prefix cache: a shared prompt under a4 twice, then a5",
+          paging.get("prefix_hits") == 1 and paging.get("prefix_lookups") == 3
+          and mma == want_mma,
+          f"hits {paging.get('prefix_hits')} of {paging.get('prefix_lookups')} "
+          f"lookups (only a4's second), the hit's chunk window on the "
+          f"tensor-core path: {mma} launches (expected {want_mma})")
+    solo_counts = profiler.kernel_launch_counts()
+    # a4's prefix hit again: one replay of its chunk prefill against eager
+    ok &= check_replay("lora", solo, [np.concatenate([
+        system, replay_rng.integers(1, cfg.vocab_size, size=suffixes[0])])
+        .astype(np.int32)], kws=[{"adapter": "a4"}], want=("chunk_prefill",))
+    # a burst of three adapters at once on one arena slot: two park
+    loads0 = profiler.lora_summary().get("loads", 0)
+    results, wall = _serve_batches(solo, [[
+        (prompts[k], 8, {"adapter": f"a{7 + k}"}) for k in range(3)]])
+    burst_ok = all(len(r.get("tokens", [])) == prompts[k].size + 8
+                   for k, r in enumerate(results))
+    loads = profiler.lora_summary().get("loads", 0) - loads0
+    server = serve(solo, port=0, block=False)
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        code, body = _post_status(url + "/generate", {
+            "input_ids": prompts[0].tolist(), "max_new_tokens": 8, "adapter": "a6"})
+        check("POST /generate with adapter", code == 200
+              and len(body.get("tokens", [])) == prompts[0].size + 8, f"HTTP {code}")
+        code, body = _post_status(url + "/generate", {
+            "input_ids": prompts[0].tolist(), "max_new_tokens": 8,
+            "adapter": "no-such-adapter"})
+        check("POST /generate with an unknown adapter",
+              code == 404 and body.get("type") == "AdapterUnknown"
+              and body.get("retriable") is False, f"HTTP {code} {body.get('type')}")
+        with urllib.request.urlopen(url + "/metrics", timeout=60) as resp:
+            samples, _ = _obs_samples(resp.read().decode())
+        m_loads = _obs_metric(samples, "paddle_lora_loads_total")
+        m_evict = _obs_metric(samples, "paddle_lora_evictions_total")
+        check("arena-full burst: three adapters at once on one arena slot",
+              burst_ok and loads == 3 and m_loads > 0 and m_evict > 0,
+              f"all answered 200 in {wall:.3f} s (parked, none failed): "
+              f"{burst_ok}; loads {loads}; /metrics paddle_lora_loads_total "
+              f"{m_loads:g}, paddle_lora_evictions_total {m_evict:g}; healthz "
+              f"lora {solo.healthz()['lora']}")
+    finally:
+        server.stop()
+    ok &= _no_retrace("lora", solo, solo_warm)
+    del solo, solo_arena
+    if on_card:
+        _free()
+
+    # -- the oracle: merged float32 weights --------------------------------
+    merged, worst, parts = None, 0.0, []
+    for key in (("fresh", alone[0]), ("hit", "a4")):
+        p, got = kept[key]
+        ref, merged = _lora_oracle(model, reg.resolve(key[1]), p, merged)
+        with torch.no_grad():
+            plain_row = model(torch.from_numpy(p)[None].to(device))[0, -1].float()
+        err = _rel_diff(got, ref)
+        worst = max(worst, err)
+        parts.append(f"{key[0]} {key[1]} (prompt {p.size}): rel err {err:.4f}, the "
+                     f"adapter's own effect {_rel_diff(plain_row, ref):.4f}")
+    del merged
+    if on_card:
+        _free()
+    check("first-token logits against an eager float32 forward with the "
+          "adapter merged into the weights", worst <= LOGIT_REL_TOL,
+          f"{'; '.join(parts)} (max|diff| / max|logit|, tol {LOGIT_REL_TOL})")
+    return ok, counts, solo_counts
+
+
+def _session_turn(engine, prompt, new, sid=None):
+    """One turn submitted and run to its end; returns the request."""
+    req = engine.submit(prompt, max_new_tokens=new, session_id=sid, keep_logits=True)
+    engine.run_until_idle()
+    req.wait(1)
+    return req
+
+
+def phase_sessions(smi, model, device="cuda", sys_len=PREFIX_SYS_LEN,
+                   turns=SESSION_TURNS, user=SESSION_USER, new_tokens=SESSION_NEW,
+                   drill_pool=SESSION_DRILL_POOL, drill_len=SESSION_DRILL_LEN,
+                   **engine_kw):
+    """Multi-turn KV sessions on `model` (the serving phases', full width):
+    a session engine (prefix cache on, warmed) and a stateless engine
+    (prefix_cache=False) answer the same `turns`-turn conversation: a
+    `sys_len`-token system prompt, then per turn `user` user tokens from a
+    seeded stream and `new_tokens` generated; each turn's transcript is the
+    session engine's own output plus the next user tokens.  Checks, per
+    turn: the two engines' tokens equal, or a near tie at the first
+    divergence (the teacher-forced forward's top-2 gap within
+    SESSION_TIE_REL of max|logit|); the session's first-token logits
+    against the teacher-forced forward within LOGIT_REL_TOL; and over the
+    conversation: >= SESSION_REUSE_MIN of turns 2-N's prompt tokens reused,
+    `turns` binds, no new trace, K1 once per layer per fresh prefill and
+    every chunk prefill on K2's tensor-core path.  Prints the first-token
+    logit difference of each chunk-prefilled turn against the fresh one.
+    Then a turn over POST /generate with `session_id`, a warm restart (the
+    next turn reuses all but the last emitted token) and a small-pool
+    drill: sessionless traffic evicts the idle session whole and its next
+    turn answers as the stateless engine does.  Records TTFT per turn of
+    both engines and the pages pinned.  Returns (all checks passed, the
+    conversation's launch counts)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.inference import serve
+    from paddle_tpu_torch.inference.engine import ContinuousBatchingEngine
+
+    cfg = model.config
+    layers = cfg.num_hidden_layers
+    on_card = torch.device(device).type == "cuda"
+    ok = True
+
+    def check(what, cond, detail=""):
+        nonlocal ok
+        ok &= bool(cond)
+        log("sessions", f"{what}: {detail} -> {'ok' if cond else 'FAIL'}")
+
+    def agree(got, ref, prompt):
+        """(passed, verdict) of a turn's generated tokens against the
+        stateless engine's: equal, or a near tie at the first divergence."""
+        a, b = np.asarray(got, np.int32), np.asarray(ref, np.int32)
+        at = _first_divergence(a, b)
+        if at is None:
+            return True, "equal"
+        gap, top = _top2_gap(model, device, prompt, b, at)
+        tie = gap <= SESSION_TIE_REL * top
+        return tie, (f"{'near tie' if tie else 'FAIL'} at {at} (gap/max|logit| "
+                     f"{gap / top:.3e})")
+
+    t0 = time.perf_counter()
+    sess = ContinuousBatchingEngine(model, seed=0, device=device,
+                                    prefix_cache=True, **engine_kw)
+    sess.warmup()
+    warm = _warm_counts("sessions", sess)
+    stateless = ContinuousBatchingEngine(model, seed=0, device=device,
+                                         prefix_cache=False, **engine_kw)
+    stateless.warmup()
+    log("sessions", f"session and stateless engines built + warmed in "
+                    f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(3)
+    system = rng.integers(1, cfg.vocab_size, size=sys_len).astype(np.int32)
+    users = [rng.integers(1, cfg.vocab_size, size=user).astype(np.int32)
+             for _ in range(turns + 2)]
+    profiler.reset_kernel_launch_counts()
+    replays = (sess._decode_g.replay_count, stateless._decode_g.replay_count)
+    conv = np.concatenate([system, users[0]])
+    tokens_ok = logits_ok = True
+    prompt_total = reused = 0
+    ttft_s, ttft_0, diffs, verdicts, worst = [], [], [], [], 0.0
+    served = []
+    for t in range(turns):
+        r = _session_turn(sess, conv, new_tokens, sid="chat")
+        f = _session_turn(stateless, conv, new_tokens)
+        served.append((conv, r, f))
+        conv = np.concatenate([r.wait(1), users[t + 1]])
+    # read before the teacher-forced forwards below launch K1 too
+    counts = profiler.kernel_launch_counts()
+    steps = (sess._decode_g.replay_count - replays[0]
+             + stateless._decode_g.replay_count - replays[1])
+    for t, (prompt, r, f) in enumerate(served):
+        good, verdict = agree(r.tokens, f.tokens, prompt)
+        tokens_ok &= good
+        verdicts.append(verdict)
+        with torch.no_grad():
+            ref = model(torch.from_numpy(prompt)[None].to(device))[0, -1].float()
+        err = _rel_diff(r.logits[0], ref)
+        worst = max(worst, err)
+        logits_ok &= err <= LOGIT_REL_TOL
+        if t:
+            prompt_total += prompt.size
+            reused += r.session_reused_tokens
+            diffs.append(_rel_diff(r.logits[0], f.logits[0]))
+        ttft_s.append(r.ttft_s * 1e3)
+        ttft_0.append(f.ttft_s * 1e3)
+    del served
+    st = sess.healthz()["sessions"]
+    share = reused / max(1, prompt_total)
+    check(f"{turns} turns: the stateless engine's tokens", tokens_ok,
+          "; ".join(f"{i + 1} {v}" for i, v in enumerate(verdicts)))
+    check("first-token logits against the teacher-forced forward", logits_ok,
+          f"worst max|diff|/max|logit| {worst:.4f} (tol {LOGIT_REL_TOL})")
+    log("sessions", f"first-token logits, chunk-prefilled turn against the fresh "
+                    f"one, max|diff|/max|logit| per turn 2-{turns}: "
+                    f"{[round(d, 5) for d in diffs]}, max {max(diffs):.5f} "
+                    f"(SESSION_TIE_REL {SESSION_TIE_REL})")
+    check(f"prompt tokens of turns 2-{turns} reused", share >= SESSION_REUSE_MIN
+          and st["session_binds_total"] == turns
+          and st["session_prefill_tokens_saved_total"] == reused,
+          f"{reused}/{prompt_total} = {share:.4f} (min {SESSION_REUSE_MIN}); "
+          f"healthz sessions {st}")
+    # the session's first turn and every stateless one prefill afresh; the
+    # launches read 0 off the card
+    want_k1 = (1 + turns) * layers if on_card else 0
+    want_mma = (turns - 1) * layers if on_card else 0
+    want_k2 = (turns - 1 + steps) * layers if on_card else 0
+    check("launches of the conversation",
+          counts["flash_fwd"] == want_k1 and counts["paged_decode_fused"] == want_k2
+          and counts["paged_decode_fused_mma"] == want_mma,
+          f"{_main(counts)} (expected flash_fwd {want_k1} = {1 + turns} fresh "
+          f"prefills x {layers}, paged_decode_fused {want_k2} = ({turns - 1} "
+          f"chunk prefills + {steps} decode steps) x {layers}, the chunk "
+          f"prefills on the tensor-core path: {want_mma})")
+    ok &= _no_retrace("sessions", sess, warm)
+    log("sessions", f"record: ttft_ms per turn, session "
+                    f"{[round(x, 2) for x in ttft_s]}; stateless "
+                    f"{[round(x, 2) for x in ttft_0]}; means over turns 2-{turns} "
+                    f"{statistics.mean(ttft_s[1:]):.3f} vs "
+                    f"{statistics.mean(ttft_0[1:]):.3f}; pages pinned "
+                    f"{st['session_pages_pinned']} of {sess.pool_pages} "
+                    f"({sess.page_size} rows each), {conv.size} tokens of "
+                    f"transcript | {smi}")
+
+    # -- a turn over POST /generate, then a warm restart -------------------
+    saved0 = sess._sessions.tokens_saved_total
+    prev = sess._sessions.tokens("chat").size
+    results, _ = _serve_batches(sess, [[(conv, new_tokens, {"session_id": "chat"})]])
+    f = _session_turn(stateless, conv, new_tokens)
+    good, verdict = agree(results[0]["tokens"][conv.size:], f.tokens, conv)
+    http_reused = sess._sessions.tokens_saved_total - saved0
+    check("a turn over POST /generate with session_id", good
+          and http_reused == prev and sess._sessions.get("chat")["turns"] == turns + 1,
+          f"{verdict} against the stateless engine; reused {http_reused} "
+          f"(the session's {prev} committed tokens)")
+    conv = np.concatenate([np.asarray(results[0]["tokens"], np.int32), users[turns]])
+    last = sess._sessions.tokens("chat").size
+    sess.restart(reason="sessions drill")
+    r = _session_turn(sess, conv, new_tokens, sid="chat")
+    f = _session_turn(stateless, conv, new_tokens)
+    good, verdict = agree(r.tokens, f.tokens, conv)
+    check("warm restart keeps the session",
+          good and r.session_reused_tokens == last == conv.size - user - 1,
+          f"the next turn reused {r.session_reused_tokens} (all but the last "
+          f"emitted token: {conv.size - user - 1}); {verdict}")
+    # the next turn's chunk prefill on the session's pages, one replay
+    # against eager
+    ok &= check_replay("sessions", sess, [
+        np.concatenate([r.wait(1), users[turns + 1]])],
+        kws=[{"session_id": "chat"}], want=("chunk_prefill",))
+    ok &= _no_retrace("sessions", sess, warm)
+    del sess, stateless
+    if on_card:
+        _free()
+
+    # -- the small-pool drill ----------------------------------------------
+    small = ContinuousBatchingEngine(model, seed=0, device=device,
+                                     prefix_cache=True, pool_pages=drill_pool,
+                                     **engine_kw)
+    fresh = ContinuousBatchingEngine(model, seed=0, device=device,
+                                     prefix_cache=False, pool_pages=drill_pool,
+                                     **engine_kw)
+    turn1 = np.concatenate([system, users[0]])
+    r1 = _session_turn(small, turn1, new_tokens, sid="idle")
+    pinned = small._sessions.pages_pinned()
+    for k in range(2):
+        _session_turn(small, rng.integers(1, cfg.vocab_size, size=drill_len)
+                      .astype(np.int32), new_tokens)
+    st = small.healthz()["sessions"]
+    conv = np.concatenate([r1.wait(1), users[1]])
+    r = _session_turn(small, conv, new_tokens, sid="idle")
+    f = _session_turn(fresh, conv, new_tokens)
+    good, verdict = agree(r.tokens, f.tokens, conv)
+    check(f"small pool ({drill_pool} pages): sessionless traffic evicts the "
+          "idle session whole",
+          st["sessions_resident"] == 0 and st["session_evictions_total"] == 1
+          and r.session_reused_tokens == 0 and good,
+          f"{pinned} pages pinned, then two {drill_len}-token requests: "
+          f"healthz sessions {st}; the next turn reused "
+          f"{r.session_reused_tokens} tokens and answers as a fresh engine: "
+          f"{verdict}")
+    del small, fresh
+    if on_card:
+        _free()
+    return ok, counts
+
+
 def _device_profile(run, steps):
     """Run `run()` `steps` times under torch.profiler.  Returns (wall us,
     {kernel name: device us}, {annotated range: device us}, {"host_us":
@@ -4431,7 +5169,8 @@ def _log_profile(what, wall_us, kernels, spans, steps, top=8, stats=None):
         log("profile", f"  {us / busy:6.3f} of device time, "
                        f"{us / steps / 1e3:.4f} ms/step: {name[:90]}")
     return dict(wall_ms=wall_us / steps / 1e3, busy_ms=busy / steps / 1e3,
-                idle_share=1 - busy / wall_us)
+                idle_share=1 - busy / wall_us,
+                kernels_per_step=stats["kernels"] / steps if stats else None)
 
 
 def _log_adamw_span(phase, spans, was_ms=None):
@@ -4463,12 +5202,14 @@ def profile_prefix_hit(engine, prompts):
                  wall_us, kernels, spans, len(prompts), stats=stats)
 
 
-def profile_decode(engine, cfg, rng, prompt_len=256, steps=8):
+def profile_decode(engine, cfg, rng, prompt_len=256, steps=8, adapters=None):
     """Where a decode step's time goes: every slot busy at ~prompt_len
-    tokens, `steps` steps under torch.profiler."""
+    tokens, `steps` steps under torch.profiler; `adapters` names each
+    slot's LoRA adapter (an engine with `lora=`)."""
+    adapters = adapters or [None] * engine.slots
     reqs = [engine.submit(rng.integers(1, cfg.vocab_size, size=prompt_len),
-                          max_new_tokens=steps + 4)
-            for _ in range(engine.slots)]
+                          max_new_tokens=steps + 4, adapter=a)
+            for a in adapters]
     engine.step()  # admits every slot (prefills) and decodes once
     engine.step()
     # each step ends in the host fetch of the step's tokens
@@ -4476,7 +5217,9 @@ def profile_decode(engine, cfg, rng, prompt_len=256, steps=8):
     engine.run_until_idle()
     for r in reqs:  # a request that failed would leave its slot out
         r.wait(1)
-    return _log_profile(f"decode step, {engine.slots} slots at ~{prompt_len} tokens",
+    lora = sum(a is not None for a in adapters)
+    return _log_profile(f"decode step, {engine.slots} slots at ~{prompt_len} tokens"
+                        + (f", {lora} of them on LoRA adapters" if lora else ""),
                         wall_us, kernels, spans, steps, stats=stats)
 
 
@@ -6006,6 +6749,15 @@ def main():
         _free()
         obs_ok, obs_counts = _timed("obs", phase_obs, smi, model, **serving)
         _free()
+        lora_ok, lora_counts, lora_solo_counts = _timed(
+            "lora", phase_lora, smi, model, **serving)
+        _free()
+        # buckets up to the context: the stateless engine prefills the
+        # whole ~1.7k-token transcript of the last turns in a warmed one
+        sessions_ok, sessions_counts = _timed(
+            "sessions", phase_sessions, smi, model,
+            **dict(serving, prefill_buckets=[32, 64, 128, 256, 512, 1024, 2047]))
+        _free()
         # buckets up to the context: every prompt of the traffic lands in a
         # warmed one, so none traces under traffic
         cp_kw = dict(slots=4, max_len=4096, page_size=128,
@@ -6107,7 +6859,7 @@ def main():
     log("fp16", f"float16 launches on the main paths {launches16}; kernels not "
                 f"launched: {idle16 or 'none'} -> {'FAIL' if idle16 else 'ok'}")
     if not (kernels_ok and slice_ok and prefix_ok and gen_ok and dense_ok
-            and fault_ok and obs_ok and cp_ok and f32_ok and train_ok and recompute_ok and grad_ok
+            and fault_ok and obs_ok and lora_ok and sessions_ok and cp_ok and f32_ok and train_ok and recompute_ok and grad_ok
             and fit_ok and resume_ok and diverge_ok and fit_bert_ok
             and amp_ok and bert_ok and bert_grad_ok and ring_ok and lc_ok
             and lc2_ok and lc_grad_ok and serve16_ok and train16_ok and amp16_ok
@@ -6117,7 +6869,7 @@ def main():
     # launches: the serving, generation and training runs' counts, each read
     # just after its path ran
     runs = [counts, *prefix_counts, gen_counts, dense_counts, fault_counts,
-            obs_counts, *cp_counts,
+            obs_counts, lora_counts, lora_solo_counts, sessions_counts, *cp_counts,
             *f32_counts, train_counts, fit_counts, eval_counts, fit_bert_counts,
             amp_counts, bert_counts, *ring_counts, lc_counts, lc2_counts]
     launches = {name: sum(c.get(name, 0) for c in runs) for name in kernels}

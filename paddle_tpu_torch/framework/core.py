@@ -228,9 +228,9 @@ define_flag(
 )
 define_flag(
     "FLAGS_serve_session_max", 256,
-    "session KV: resident sessions per engine.  Read at engine construction "
-    "(`session_max=`); it takes effect when sessions are ported "
-    "(ROADMAP Queue 1), until then `session_id` raises",
+    "session KV: resident sessions per paged engine with a prefix cache "
+    "(read at construction when `session_max=None`); binding one more "
+    "session evicts the least recently used one whole",
 )
 define_flag(
     "FLAGS_serve_role", "colocated",
@@ -245,13 +245,13 @@ define_flag(
 )
 define_flag(
     "FLAGS_serve_lora_capacity", 8,
-    "multi-tenant LoRA serving: resident-adapter slots.  Not read until LoRA "
-    "serving is ported (`lora=` raises)",
+    "multi-tenant LoRA serving: resident-adapter slots of an AdapterArena "
+    "built with `capacity=None` (the pinned base slot comes on top)",
 )
 define_flag(
     "FLAGS_serve_lora_rank_max", 8,
-    "multi-tenant LoRA serving: the adapter arena's padded rank.  Not read "
-    "until LoRA serving is ported (`lora=` raises)",
+    "multi-tenant LoRA serving: the padded rank of an AdapterArena built "
+    "with `rank_max=None`; an adapter of a higher rank is refused at submit",
 )
 define_flag(
     "FLAGS_serve_debug_invariants", False,

@@ -17,6 +17,7 @@ import torch
 
 from ..fault import EngineSupervisor
 from ..framework import core as _fcore
+from ..lora.registry import AdapterUnknown
 from ..obs import flight as _flight
 from ..obs import metrics as _obs_metrics
 from ..obs import trace as _obs
@@ -117,10 +118,13 @@ def serve(engine, port=8866, host="127.0.0.1", block=True, supervise=True,
       engine's capacity geometry under "capacity" (per shard under cp); a
       request whose logits went non-finite answers 500 (NonFiniteLogits); a
       bad body, or a request that fails otherwise inside the engine,
-      answers 400 with "Type: message".  `session_id`, `handoff` and
-      `reservation` answer a typed 400 NotImplementedError naming their
-      ROADMAP Queue 1 item, and `adapter` the reference's 400 ValueError
-      (no LoRA arena).  A request with `X-Idempotency-Key` generates once
+      answers 400 with "Type: message".  `adapter` names the request's LoRA
+      adapter (an engine built with `lora=`): an unknown one answers the
+      reference's terminal 404 AdapterUnknown (`retriable: false`), any
+      adapter on an engine without an arena the reference's 400
+      ValueError.  `session_id` names the request's KV session (the
+      engine's `submit`).  `handoff` and `reservation` answer a typed 400
+      NotImplementedError naming their ROADMAP Queue 1 item.  A request with `X-Idempotency-Key` generates once
       per key: a completed response (200 or a non-retriable error) is kept
       for FLAGS_router_idem_ttl seconds and replayed with
       `X-Idempotency-Replay: hit`; a retry while the first is in flight
@@ -377,6 +381,11 @@ def serve(engine, port=8866, host="127.0.0.1", block=True, supervise=True,
                                       "retriable": False, "retry_after_s": 0,
                                       "capacity": e.body(),
                                       "trace_id": self._trace_id})
+                    return
+                except AdapterUnknown as e:
+                    # terminal: retrying cannot help until someone registers
+                    # the adapter
+                    self._reply_error(404, type(e).__name__, str(e), False)
                     return
                 except DeadlineUnattainable as e:
                     # 504 but retriable: a less loaded replica may meet it

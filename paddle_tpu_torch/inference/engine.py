@@ -63,6 +63,34 @@ The dense pool has no prefix cache, int8 pages (QuantConfigError),
 context parallelism or LoRA (ValueError), and speculation is off, as in
 the reference.
 
+Multi-tenant LoRA (`lora=` a `lora.AdapterArena`, paged only; reference:
+engine.py:638-650): a request names an adapter (`submit(adapter=)`, by
+name or stable id); admission binds it to an arena slot (uploading it,
+LRU-evicting an unbound adapter if need be) after the page check, and a
+full arena parks the request as retriable backpressure.  Each engine
+slot's arena slot (`_slot_adapter`, 0 the base model) is a static input
+`adapters` of the decode and verify graphs ([slots] int32, loaded with the
+rest of the loop state at a membership change) and of the prefill graphs
+([1]), and every projection of the model adds its slot's gathered delta:
+any adapter mix runs the same graphs, and base rows stay bit-identical to
+a no-LoRA engine's.  The binding drops at every terminal resolution;
+residency survives a warm restart.  Prefix-cache lookups and commits key
+on the stable adapter id (never the arena slot), so pages are shared only
+within an adapter, and speculation's drafts are accepted against the
+adapter's own greedy tokens.  An engine without `lora=` builds no
+`adapters` input: its graphs are the base model's.
+
+Sessions (`submit(session_id=)`, reference: engine.py:2917-2990): with a
+prefix cache, a turn that finishes on eos or length commits its whole
+committed sequence (prompt and generated tokens whose K/V landed) and
+pins that chain in the `SessionStore` under the request's adapter, so the
+next turn's prompt -- the transcript so far plus the new user tokens --
+hits the pinned pages and chunk-prefills only its suffix.  The allocator
+evicts a whole LRU session only once evicting unpinned cache entries
+cannot free a page; admission counts session-pinned pages as reachable.
+Without a prefix cache `session_id` is accepted and every turn re-prefills
+statelessly.
+
 Compiled steps (the reference's `jit.to_static` executables,
 engine.py:604-660): every step kind is a `graphs.StepGraph` -- the fresh
 prefill and the chunk prefill one per bucket, the decode step, the verify
@@ -144,11 +172,10 @@ ids and trace ids, never a request.  Admission refusals
 (`rejected_deadline`, `queue_full`) go to the flight recorder's ring, and
 so do restarts and `fail_all` (through `fault.injection.record_event`).
 
-Not ported yet (ROADMAP, Queue 1): sessions, LoRA, the disaggregated page
-import, tensor parallelism and context parallelism across cards (NCCL).
-A knob that asks for one of them raises NotImplementedError, and so does
-a request field of one (`submit`'s `session_id`, `handoff`,
-`reservation`).
+Not ported yet (ROADMAP, Queue 1): the disaggregated page import, tensor
+parallelism and context parallelism across cards (NCCL).  A knob that
+asks for one of them raises NotImplementedError, and so does a request
+field of one (`submit`'s `handoff`, `reservation`, `export_kv=True`).
 """
 
 from __future__ import annotations
@@ -182,6 +209,7 @@ from .graphs import StepGraph, new_pool
 from .paging import (
     PagePool,
     PrefixCache,
+    SessionStore,
     check_scale_arenas,
     check_table_bounds,
     kv_page_bytes,
@@ -317,11 +345,14 @@ class EngineRequest:
     engine's).  `deadline_s` is relative to submission; the absolute
     deadline is `_deadline_t` on `time.perf_counter`'s clock.  `trace` is
     the request's trace context, (trace_id, parent_span_id) strings, or
-    None."""
+    None.  `adapter` is the resolved `lora.LoRAAdapter` (None: the base
+    model) and `adapter_slot` its arena slot while bound; `session_id`
+    names the request's session and `session_reused_tokens` counts the
+    prompt tokens whose K/V came from cached pages."""
 
     def __init__(self, rid, prompt, max_new_tokens, temperature, eos_token_id,
                  keep_logits=False, spec_k=None, on_token=None, deadline_s=None,
-                 trace=None):
+                 trace=None, adapter=None, session_id=None):
         self.id = int(rid)
         self.prompt = prompt  # np.int32 [L]
         self.max_new_tokens = int(max_new_tokens)
@@ -333,6 +364,10 @@ class EngineRequest:
         self.deadline_s = None if deadline_s is None else float(deadline_s)
         self.trace = (None if trace is None
                       else (str(trace[0]), str(trace[1] or "")))
+        self.adapter = adapter
+        self.adapter_slot = None
+        self.session_id = None if session_id is None else str(session_id)
+        self.session_reused_tokens = 0
         self.logits = []
         self.tokens = []  # generated ids (eos included when hit)
         self.finished = threading.Event()
@@ -412,11 +447,23 @@ class ContinuousBatchingEngine:
                         else role).strip().lower()
         self._check_not_ported(paged, lora, tp, self.role)
         self.paged = paged
-        # sessions are not ported (`session_id` raises): the bound is kept
-        # for when they land
         self.session_max = int(flag("FLAGS_serve_session_max")
                                if session_max is None else session_max)
         cfg = model.config
+        if lora is not None:
+            # lora.arena imports this package's paging: import it here
+            from ..lora.registry import target_dims
+
+            if lora.device != self.device:
+                raise ValueError(
+                    f"adapter arena lives on {lora.device}, engine on "
+                    f"{self.device}")
+            if (lora.registry.num_layers != cfg.num_hidden_layers
+                    or lora.registry.dims != target_dims(cfg)):
+                raise ValueError(
+                    "adapter arena's registry was built for another model "
+                    "configuration")
+        self._lora = lora
         # context parallelism splits the page arena: paged engines only
         self.cp = int(flag("FLAGS_serve_cp") if cp is None else cp)
         if self.cp < 1:
@@ -462,7 +509,7 @@ class ContinuousBatchingEngine:
             # the dense slot pool: no pages, no prefix cache, no paged kernel
             self.decode_kernel = "auto"
             self.page_size = self.pages_per_seq = self.pool_pages = 0
-            self._arenas = self._pool = self._prefix = None
+            self._arenas = self._pool = self._prefix = self._sessions = None
             with torch.no_grad():
                 self._caches = [
                     StaticKVCache(self.slots, self.max_len,
@@ -485,6 +532,10 @@ class ContinuousBatchingEngine:
         self._last_tok = np.zeros(self.slots, np.int32)
         self._temps = np.zeros(self.slots, np.float32)
         self._drafters = [None] * self.slots  # per-slot NgramDrafter or None
+        # the arena slot bound per engine slot (0 = the base model), the
+        # host mirror of the steps' `adapters` input: set when a slot
+        # lands, cleared at recycle
+        self._slot_adapter = np.zeros(self.slots, np.int32)
         # EWMA of emitted tokens per active slot per verify step (1.0
         # without speculation, where every step emits one per slot), the
         # reference's /healthz tokens_per_step (engine.py:666, :2749)
@@ -592,6 +643,10 @@ class ContinuousBatchingEngine:
         use_prefix = bool(flag("FLAGS_serve_prefix_cache")
                           if prefix_cache is None else prefix_cache)
         self._prefix = PrefixCache(self.page_size) if use_prefix else None
+        # sessions ride the prefix cache: without it `session_id` is
+        # accepted and every turn re-prefills statelessly
+        self._sessions = (SessionStore(capacity=self.session_max)
+                          if use_prefix else None)
         # ignore sub-threshold matches: an accidental few-token overlap
         # between unrelated prompts must not move a request onto the chunk
         # prefill path (and its different first-token rounding)
@@ -614,8 +669,6 @@ class ContinuousBatchingEngine:
                     f"role={role!r} requires the paged engine: the "
                     "prefill->decode handoff rides the page arenas"
                 )
-        if lora is not None:
-            raise _not_ported("lora", "multi-tenant LoRA serving")
         if int(flag("FLAGS_serve_tp") if tp is None else tp) > 1:
             raise _not_ported("tp > 1", "tensor-parallel serving")
         if role != "colocated":
@@ -686,32 +739,42 @@ class ContinuousBatchingEngine:
         logits = self.model.lm_head(last).float()
         return self._sample(logits, temp), logits
 
+    def _lora_view(self, adapters):
+        """The arena's view of a step's `adapters` input (arena slots, int32
+        data), or None on an engine without LoRA."""
+        return None if adapters is None else self._lora.view(adapters)
+
     @torch.no_grad()
-    def _prefill_paged_body(self, toks, table, true_len, temp):
+    def _prefill_paged_body(self, toks, table, true_len, temp, adapters=None):
         """Fresh paged prefill of one bucket (reference:
         `_prefill_paged_body`, engine.py:917): toks [1, bucket], its K/V
         scattered into the pages of table [P]; true_len [1] int32, temp [1]
-        float32."""
+        float32; under LoRA adapters [1] int32, the request's arena slot."""
         views = [PagedPrefillView(a, table, true_len, self.max_len,
                                   kernel=self.decode_kernel, cp=self.cp)
                  for a in self._arenas]
-        return self._prefill_tail(self.model.llama(toks, caches=views),
-                                  true_len, temp)
+        hidden = self.model.llama(toks, caches=views,
+                                  lora=self._lora_view(adapters))
+        return self._prefill_tail(hidden, true_len, temp)
 
     @torch.no_grad()
     def _chunk_prefill_body(self, toks, table, true_len, start, temp, loc=None,
-                            base=None):
+                            base=None, adapters=None):
         """Chunk prefill of a prefix-cache hit's suffix (reference:
         `_chunk_prefill_body`, engine.py:956): suffix row 0 sits at start
         [1] and the rows attend the shared pages; under cp through the
-        row's stacked local tables loc [cp, 1, P/cp] and base [cp, P/cp]."""
+        row's stacked local tables loc [cp, 1, P/cp] and base [cp, P/cp].
+        The shared pages were committed under the request's own adapter
+        (the cache keys chains by adapter), so `adapters` [1] applies to
+        the suffix rows alone."""
         local = None if loc is None else (loc, base)
         views = [PagedPrefillView(a, table, true_len, self.max_len, start=start,
                                   kernel=self.decode_kernel, cp=self.cp,
                                   local=local)
                  for a in self._arenas]
-        return self._prefill_tail(self.model.llama(toks, caches=views),
-                                  true_len, temp)
+        hidden = self.model.llama(toks, caches=views,
+                                  lora=self._lora_view(adapters))
+        return self._prefill_tail(hidden, true_len, temp)
 
     @torch.no_grad()
     def _prefill_dense_body(self, toks, slot, true_len, temp):
@@ -741,18 +804,19 @@ class ContinuousBatchingEngine:
             for a in self._arenas
         ]
 
-    def _decode_tail(self, views, toks, pos, active, temps, poison):
+    def _decode_tail(self, views, toks, pos, active, temps, poison, lora=None):
         """The decode step on `views` (reference: `_decode_body`,
         engine.py:730): toks [S, 1], pos [S], active [S] bool, temps [S],
         poison [S] bool (the `serve.decode.nan` drill: a poisoned slot's
         logits become NaN before the finite check; all-False, it changes
-        no bit).  Inactive slots run at pos 0.  Writes the next tokens into
+        no bit), `lora` the arena view of the slots' adapters or None.
+        Inactive slots run at pos 0.  Writes the next tokens into
         toks and the advanced positions (active slots only) into pos, so
         the next step reads them where they are.  Returns (next tokens [S]
         int32, finite [S] bool: every logit finite or the slot inactive,
         logits [S, V] float32)."""
         pos_eff = torch.where(active, pos, torch.zeros_like(pos))
-        hidden = self.model.llama(toks, caches=views, pos=pos_eff)
+        hidden = self.model.llama(toks, caches=views, pos=pos_eff, lora=lora)
         logits = self.model.lm_head(hidden[:, -1]).float()
         logits = torch.where(poison[:, None], torch.nan, logits)
         nxt = self._sample(logits, temps)
@@ -763,13 +827,16 @@ class ContinuousBatchingEngine:
 
     @torch.no_grad()
     def _decode_paged_body(self, toks, pos, active, temps, poison, tables,
-                           loc=None, base=None):
+                           loc=None, base=None, adapters=None):
         """`_decode_tail` over the paged arenas: tables [S, P] and, under cp,
-        their stacked local tables loc [cp, S, P/cp], base [cp, P/cp].
-        Inactive slots run over an all-zero table row (scratch)."""
+        their stacked local tables loc [cp, S, P/cp], base [cp, P/cp]; under
+        LoRA adapters [S] int32, each slot's arena slot (0 for the base
+        model and for inactive slots).  Inactive slots run over an all-zero
+        table row (scratch)."""
         local = None if loc is None else (loc, base)
         return self._decode_tail(self._paged_views(tables, local), toks, pos,
-                                 active, temps, poison)
+                                 active, temps, poison,
+                                 lora=self._lora_view(adapters))
 
     @torch.no_grad()
     def _decode_dense_body(self, toks, pos, active, temps, poison):
@@ -779,7 +846,7 @@ class ContinuousBatchingEngine:
 
     @torch.no_grad()
     def _verify_body(self, toks, pos, active, valid, temps, poison, tables,
-                     loc=None, base=None):
+                     loc=None, base=None, adapters=None):
         """Speculative verify (reference: `_verify_paged_body`,
         engine.py:846): one forward scores k + 1 rows per slot.  toks [S,
         k+1]: column 0 the committed last token (not yet in the pages; this
@@ -792,14 +859,17 @@ class ContinuousBatchingEngine:
         rollback: the next window rewrites [new_pos, new_pos + k] before
         anything attends them.  Column 0 of a sampled slot (temp > 0, always
         at valid 1) is drawn from the engine's generator.  poison [S] bool
-        NaNs a slot's logits, as in `_decode_tail`.  Advances pos by n_emit
+        NaNs a slot's logits, as in `_decode_tail`.  Under LoRA every row of
+        a slot's window gathers that slot's `adapters` entry, as a decode
+        row does, so the greedy tokens drafts are held against are the
+        adapter's own (reference: engine.py:864-866).  Advances pos by n_emit
         in place.  Returns (out [S, k+1] int32, n_emit [S] int32,
         finite [S] bool over the emitted rows, logits [S, k+1, V]
         float32)."""
         local = None if loc is None else (loc, base)
         pos_eff = torch.where(active, pos, torch.zeros_like(pos))
         hidden = self.model.llama(toks, caches=self._paged_views(tables, local),
-                                  pos=pos_eff)
+                                  pos=pos_eff, lora=self._lora_view(adapters))
         logits = self.model.lm_head(hidden).float()
         logits = torch.where(poison[:, None, None], torch.nan, logits)
         greedy = logits.argmax(dim=-1).to(torch.int32)  # [S, k+1]
@@ -848,17 +918,20 @@ class ContinuousBatchingEngine:
         return out
 
     def _run_prefill(self, toks, true_len, temp, table=None, slot=None,
-                     start=None):
+                     start=None, adapter_slot=0):
         """One bucket-padded prefill chunk toks [1, bucket] (np.int32)
         through its executable: into the pages of `table` (np.int32 [P],
         paged), fresh or, with `start` (the matched prefix length), the
         chunk prefill of a prefix-cache hit; or into dense pool row `slot`.
-        Returns the static (first token [1], logits [1, V]) outputs."""
+        Under LoRA `adapter_slot` is the request's arena slot.  Returns the
+        static (first token [1], logits [1, V]) outputs."""
         bucket = toks.shape[1]
         inp = {"toks": toks, "true_len": np.full(1, true_len, np.int32),
                "temp": np.full(1, temp, np.float32)}
         if not self.paged:
             return self._prefill_g(bucket, slot=np.full(1, slot, np.int32), **inp)
+        if self._lora is not None:
+            inp["adapters"] = np.full(1, adapter_slot, np.int32)
         if start is None:
             return self._prefill_g(bucket, table=table, **inp)
         inp.update(table=table, start=np.full(1, start, np.int32))
@@ -880,6 +953,8 @@ class ContinuousBatchingEngine:
         if self.paged:
             out.update(self._table_inputs(np.zeros((S, self.pages_per_seq),
                                                    np.int32)))
+        if self._lora is not None:  # the base passthrough row
+            out["adapters"] = np.zeros(S, np.int32)
         return out
 
     # -- public API ------------------------------------------------------------
@@ -905,12 +980,23 @@ class ContinuousBatchingEngine:
         CUDA context for every later step, where the reference's JAX gather
         clamps.
 
+        `adapter` names a registered LoRA adapter (name or stable id; None
+        or 0 = the base model): an unknown one raises AdapterUnknown (the
+        typed 404 of serve()) before the request queues, one whose rank
+        exceeds the arena's rank_max a ValueError, and so does any adapter
+        on an engine without `lora=` (the reference's errors,
+        engine.py:1124-1140).  `session_id` names a KV session: the request
+        chunk-prefills only the suffix past the session's pinned pages, and
+        at its finish (eos or length) the whole committed sequence is bound
+        so the next turn resumes from it; without a prefix cache every turn
+        re-prefills statelessly.
+
         The reference's other request fields refuse as it would on an
         engine like this one, or name the Queue 1 item that ports them:
-        `deadline_s` <= 0 raises ValueError; an `adapter` other than None or
-        0 raises the reference's ValueError (no LoRA arena); `session_id`
-        raises NotImplementedError (sessions), `handoff`, `reservation` and
-        `export_kv=True` too (disaggregated prefill/decode)."""
+        `deadline_s` <= 0 raises ValueError; a `handoff` with an adapter or
+        a session raises the reference's ValueError, and `handoff`,
+        `reservation` and `export_kv=True` raise NotImplementedError
+        (disaggregated prefill/decode)."""
         raw = np.asarray(input_ids).reshape(-1)
         if raw.size == 0:
             raise ValueError("empty prompt")
@@ -935,13 +1021,29 @@ class ContinuousBatchingEngine:
             raise ValueError("deadline_s must be > 0")
         if spec_k is not None and int(spec_k) < 0:
             raise ValueError("spec_k must be >= 0")
+        adapter_obj = None
         if adapter is not None and adapter != 0:
+            if self._lora is None:
+                raise ValueError(
+                    "engine has no LoRA arena (construct with lora=) but "
+                    f"request named adapter {adapter!r}"
+                )
+            # resolved now: an unknown name is terminal (AdapterUnknown, the
+            # HTTP 404), a known one is held against the arena's rank cap
+            adapter_obj = self._lora.registry.resolve(adapter)
+            if adapter_obj.rank > self._lora.rank_max:
+                raise ValueError(
+                    f"adapter {adapter_obj.name!r} rank {adapter_obj.rank} "
+                    f"exceeds the arena rank_max {self._lora.rank_max}"
+                )
+        if handoff is not None and adapter_obj is not None:
             raise ValueError(
-                "engine has no LoRA arena (construct with lora=) but "
-                f"request named adapter {adapter!r}"
-            )
-        if session_id is not None:
-            raise _not_ported("session_id", "sessions")
+                "handoff requests cannot name a LoRA adapter: the prefill "
+                "worker's exported KV embeds no adapter deltas")
+        if handoff is not None and session_id is not None:
+            raise ValueError(
+                "session_id cannot combine with a KV handoff import: sessions "
+                "live on the prefill-owning replica's pages")
         for knob, value in (("handoff", handoff), ("reservation", reservation),
                             ("export_kv", export_kv or None)):
             if value is not None:
@@ -977,7 +1079,8 @@ class ContinuousBatchingEngine:
             )
         req = EngineRequest(next(self._req_ids), ids, max_new_tokens,
                             temperature, eos_token_id, keep_logits, spec_k,
-                            on_token, deadline_s=deadline_s, trace=trace)
+                            on_token, deadline_s=deadline_s, trace=trace,
+                            adapter=adapter_obj, session_id=session_id)
         req._submit_t = time.perf_counter()
         if deadline_s is not None:
             req._deadline_t = req._submit_t + float(deadline_s)
@@ -1000,11 +1103,12 @@ class ContinuousBatchingEngine:
         return req
 
     def generate(self, input_ids, max_new_tokens=32, temperature=0.0,
-                 eos_token_id=None, timeout=None):
+                 eos_token_id=None, timeout=None, adapter=None):
         """Submit and wait; drives the scheduler inline when no thread runs.
         Returns prompt + generated ids (np.int32)."""
         req = self.submit(input_ids, max_new_tokens=max_new_tokens,
-                          temperature=temperature, eos_token_id=eos_token_id)
+                          temperature=temperature, eos_token_id=eos_token_id,
+                          adapter=adapter)
         if self._thread is None:
             self.run_until_idle()
         return req.wait(timeout)
@@ -1088,7 +1192,9 @@ class ContinuousBatchingEngine:
         status dead (restart budget spent), draining, ready (scheduler
         thread alive) or live, occupancy, queue depth, restarts, the
         queue-drain estimate, the EWMA decode step time, the deadline-miss
-        rate and the serving layout."""
+        rate and the serving layout; with a session store its `stats()`
+        under "sessions", with an adapter arena its `stats()` and resident
+        adapter names under "lora" (reference: engine.py:1515-1525)."""
         t = self._thread
         if self._dead:
             status = "dead"
@@ -1128,6 +1234,12 @@ class ContinuousBatchingEngine:
             # on its own shard, so the pool-wide sum would flatter
             out["page_free_by_shard"] = [self._pool.free_count(sh)
                                          for sh in range(self.cp)]
+        if self._sessions is not None:
+            out["sessions"] = self._sessions.stats()
+        if self._lora is not None:
+            lora = dict(self._lora.stats())
+            lora["adapters"] = self._lora.resident()
+            out["lora"] = lora
         return out
 
     def step(self, gen=None):
@@ -1257,6 +1369,7 @@ class ContinuousBatchingEngine:
         for s in range(self.slots):
             self._slot_req[s] = None
             self._release_slot_pages_locked(s)
+        self._slot_adapter[:] = 0
         self._pos[:] = 0
         self._last_tok[:] = 0
         self._temps[:] = 0.0
@@ -1273,10 +1386,12 @@ class ContinuousBatchingEngine:
         token yet, failed with EngineRestarted when its stream had started
         -- and start a fresh scheduler on the same StepGraphs, pool and
         prefix cache (0 new traces; the pool needs no scrub, garbage rows
-        are never attended).  It waits for the launch lock first, so that
-        no replay of the old life lands after the new life begins; then
-        `_mu`, bounded (a thread wedged in a fetch may hold it).  No CUDA
-        call."""
+        are never attended), and so the sessions; the adapter arena keeps
+        its residency, only the bindings of the resolved and requeued
+        requests drop (a requeued one binds again at its re-admission).
+        It waits for the launch lock first, so that no replay of the old
+        life lands after the new life begins; then `_mu`, bounded (a thread
+        wedged in a fetch may hold it).  No CUDA call."""
         launched = self._acquire_launch_lock()
         locked = self._mu.acquire(timeout=1.0)
         try:
@@ -1290,6 +1405,7 @@ class ContinuousBatchingEngine:
                 if req is None or req.finished.is_set() or req in requeue + fail:
                     continue
                 (requeue if not req.tokens else fail).append(req)
+            self._release_adapters_locked(requeue + fail)
             self._reset_slots_locked()
             self._watchdog_trip = None
             self._last_progress = time.monotonic()
@@ -1342,6 +1458,7 @@ class ContinuousBatchingEngine:
                 except queue.Empty:
                     break
             self._queued_new_tokens = 0
+            self._release_adapters_locked(pending)
             self._reset_slots_locked()
         finally:
             if locked:
@@ -1410,7 +1527,11 @@ class ContinuousBatchingEngine:
         plus every page there that only the prefix cache still holds
         (refcount 1: no slot maps it, and repeated leaf eviction reaches
         it), except the pages in `exclude` (a request's matched prefix
-        pages, about to be mapped).  Caller holds _mu."""
+        pages, about to be mapped).  Session-pinned pages count as
+        reachable, as in the reference's `_page_fresh_headroom_locked`
+        (engine.py:1928): the allocator evicts the LRU session to reach
+        them, which is the pressure behaviour sessions promise.  Caller
+        holds _mu."""
         free = [self._pool.free_count(sh) for sh in range(self.cp)]
         if self._prefix is not None:
             for e in self._prefix.entries():
@@ -1424,10 +1545,13 @@ class ContinuousBatchingEngine:
         alternates shards (page k on shard k % cp), so every entry of this
         shard may be the parent of another shard's page: then the LRU leaf
         of any shard goes, which frees a page elsewhere and makes its
-        parent a leaf, and the loop goes on.  Called only after the
-        admission headroom check covered the request, and repeated leaf
-        eviction reaches every page only the cache holds, so the loop ends
-        with a page.  Caller holds _mu."""
+        parent a leaf, and the loop goes on.  When every evictable entry is
+        session-pinned, the whole LRU session goes (reference:
+        engine.py:1975-2000): its pins drop and its chain becomes ordinary
+        LRU leaves for the next pass.  Called only after the admission
+        headroom check covered the request, and repeated eviction reaches
+        every page only the cache holds, so the loop ends with a page.
+        Caller holds _mu."""
         while self._pool.free_count(shard) == 0:
             victim = None
             if self._prefix is not None:
@@ -1435,12 +1559,18 @@ class ContinuousBatchingEngine:
                     self._pool, shard=shard if self.cp > 1 else None)
                 if victim is None and self.cp > 1:
                     victim = self._prefix.evict_one(self._pool)
-            if victim is None:
-                raise RuntimeError(
-                    "KV page pool exhausted mid-admission: the headroom check "
-                    "should have deferred this request (accounting bug)"
-                )
-            _prof.record_paging_event("cache_evictions")
+            if victim is not None:
+                _prof.record_paging_event("cache_evictions")
+                continue
+            if self._sessions is not None and self._sessions.evict_lru() is not None:
+                _prof.record_paging_event("session_evictions")
+                _prof.record_session_stats(self._sessions.stats())
+                _flight.record("session", "evicted_for_pages", shard=shard)
+                continue
+            raise RuntimeError(
+                "KV page pool exhausted mid-admission: the headroom check "
+                "should have deferred this request (accounting bug)"
+            )
         return self._pool.alloc(shard)
 
     def _release_slot_pages_locked(self, s):
@@ -1525,6 +1655,20 @@ class ContinuousBatchingEngine:
                     self._requeue.insert(0, req)
                     self._queued_new_tokens += req.max_new_tokens
                     break
+                if req.adapter is not None:
+                    from ..lora.arena import AdapterArenaFull
+
+                    # after the page check, so a parked request never holds
+                    # a binding
+                    try:
+                        req.adapter_slot = self._lora.acquire(req.adapter)
+                    except AdapterArenaFull:
+                        # every arena slot is bound to in-flight work: park
+                        # as page pressure does; a finishing request's
+                        # release unblocks it
+                        self._requeue.insert(0, req)
+                        self._queued_new_tokens += req.max_new_tokens
+                        break
                 self._admitting = req
                 req.state = "prefilling"
             try:
@@ -1544,8 +1688,10 @@ class ContinuousBatchingEngine:
                     else:
                         if gen == self._generation:
                             # mapped but never landed (a restart that raced
-                            # ahead released the pages itself)
+                            # ahead released the pages and the adapter
+                            # binding itself)
                             self._release_slot_pages_locked(s)
+                            self._release_adapters_locked((req,))
                         self._resolve(req, "error")
             finally:
                 with self._mu:
@@ -1565,7 +1711,8 @@ class ContinuousBatchingEngine:
         need = coverage
         exclude = ()
         if self._prefix is not None:
-            m, fulls, tail, _ = self._prefix.lookup(req.prompt)
+            m, fulls, tail, _ = self._prefix.lookup(
+                req.prompt, adapter=self._req_adapter_id(req))
             if m >= self.min_prefix_match:
                 need -= len(fulls)
                 exclude = set(fulls) | ({tail} if tail is not None else set())
@@ -1610,6 +1757,12 @@ class ContinuousBatchingEngine:
                         t1=t_pf, parent_id=req.trace[1], req=req.id)
         return t_pf
 
+    @staticmethod
+    def _adapter_name(req):
+        """The span attribute `adapter`: the adapter's name string, or None
+        for the base model (never the adapter object)."""
+        return None if req.adapter is None else req.adapter.name
+
     def _obs_prefilled(self, req, t_pf, s, bucket, match_len):
         """Records a traced request's engine.prefill span (engine.
         chunk_prefill after a prefix hit): dispatch to landing."""
@@ -1618,7 +1771,8 @@ class ContinuousBatchingEngine:
                 "engine.chunk_prefill" if match_len else "engine.prefill",
                 req.trace[0], t0=t_pf, t1=time.perf_counter(),
                 parent_id=req.trace[1], req=req.id, bucket=bucket, slot=s,
-                prefix_match=match_len or None)
+                prefix_match=match_len or None,
+                adapter=self._adapter_name(req))
 
     @contextlib.contextmanager
     def _prefill_armed(self, req):
@@ -1640,6 +1794,7 @@ class ContinuousBatchingEngine:
         self._pos[s] = req.prompt.size
         self._last_tok[s] = tok
         self._temps[s] = req.temperature
+        self._slot_adapter[s] = req.adapter_slot or 0
         req.state = "decoding"
         self._obs_epoch_close()
         self._dev = None  # membership changed: rebuild device state
@@ -1670,7 +1825,8 @@ class ContinuousBatchingEngine:
             coverage = self._pages_for(L, req.max_new_tokens)
             match_len, shared_full, tail_page, tail_rows = 0, [], None, 0
             if self._prefix is not None:
-                m, fp, tp, tr = self._prefix.lookup(req.prompt)
+                m, fp, tp, tr = self._prefix.lookup(
+                    req.prompt, adapter=self._req_adapter_id(req))
                 if m >= self.min_prefix_match:
                     match_len, shared_full, tail_page, tail_rows = m, fp, tp, tr
                     if tp is not None:
@@ -1710,6 +1866,14 @@ class ContinuousBatchingEngine:
             if self._prefix is not None:
                 _prof.record_prefix_lookup(match_len > 0, tokens_saved=match_len,
                                            cow_copies=1 if copy_args else 0)
+            if req.session_id is not None and self._sessions is not None:
+                # every matched prompt token is prefill work the session's
+                # pinned chain (or the shared cache) absorbed; the touch
+                # keeps an active conversation off the LRU end
+                req.session_reused_tokens = match_len
+                self._sessions.tokens_saved_total += match_len
+                self._sessions.touch(req.session_id)
+                _prof.record_session_stats(self._sessions.stats())
             row_table = self._page_table[s].copy()
         suffix = L - match_len
         bucket = self._bucket_for(suffix)
@@ -1724,7 +1888,8 @@ class ContinuousBatchingEngine:
                         self._copy_page(*copy_args)
                     nxt, logits = self._run_prefill(
                         toks, suffix, req.temperature, table=row_table,
-                        start=match_len if match_len else None)
+                        start=match_len if match_len else None,
+                        adapter_slot=req.adapter_slot or 0)
                 tok = int(nxt[0])  # the landing fetch of the first token
         finally:
             if pinned is not None:
@@ -1733,7 +1898,9 @@ class ContinuousBatchingEngine:
         with self._mu:
             self._check_gen(gen)  # a restart during the dispatch owns req
             if self._prefix is not None:
-                inserted = self._prefix.commit(req.prompt, pages, self._pool)
+                inserted = self._prefix.commit(
+                    req.prompt, pages, self._pool,
+                    adapter=self._req_adapter_id(req))
                 if inserted:
                     _prof.record_paging_event("cache_commits", inserted)
             self._land_locked(s, req, tok, logits)
@@ -1741,10 +1908,11 @@ class ContinuousBatchingEngine:
 
     def _load_state_locked(self, active_idx):
         """The decode loop state of the current slot membership, from the
-        host mirrors: positions, the active mask, temperatures and the page
-        tables (and their cp local tables), bound-checked.  Loaded into the
-        decode or verify graph's static inputs at a membership change; the
-        steps advance them on the card after that.  Caller holds _mu."""
+        host mirrors: positions, the active mask, temperatures, the page
+        tables (and their cp local tables), bound-checked, and under LoRA
+        the slots' arena slots.  Loaded into the decode or verify graph's
+        static inputs at a membership change; the steps advance them on
+        the card after that.  Caller holds _mu."""
         active = np.zeros(self.slots, bool)
         active[active_idx] = True
         # the poison input too: a restart may have cut a poisoned step off
@@ -1754,6 +1922,8 @@ class ContinuousBatchingEngine:
                  "poison": np.zeros(self.slots, bool)}
         if self.paged:
             state.update(self._table_inputs(self._page_table))
+        if self._lora is not None:
+            state["adapters"] = self._slot_adapter.copy()
         return state
 
     def _needs_tokens_locked(self, active_idx, depth):
@@ -1843,14 +2013,15 @@ class ContinuousBatchingEngine:
         """Open a decode epoch (reference: engine.py:2778) at a reload of
         the loop state: the stretch of constant slot membership that
         starts here.  Only when FLAGS_trace is on and a member is traced;
-        the epoch keeps (slot, request id, trace context) per member, no
-        request.  Caller holds _mu."""
+        the epoch keeps (slot, request id, trace context, adapter name) per
+        member, no request.  Caller holds _mu."""
         self._obs_epoch_close()
         if not _obs.enabled():
             return
-        members = [(s, self._slot_req[s].id, self._slot_req[s].trace)
+        members = [(s, self._slot_req[s].id, self._slot_req[s].trace,
+                    self._adapter_name(self._slot_req[s]))
                    for s in active_idx]
-        if any(tr for _, _, tr in members):
+        if any(m[2] for m in members):
             self._ep = {"t0": time.perf_counter(), "ticks": 0,
                         "members": members, "proposed": 0, "accepted": 0}
 
@@ -1863,11 +2034,12 @@ class ContinuousBatchingEngine:
         if not ep or not ep["ticks"]:
             return
         t1 = time.perf_counter()
-        for s, rid, tr in ep["members"]:
+        for s, rid, tr, adapter in ep["members"]:
             if not tr:
                 continue
             _obs.record("engine.decode", tr[0], t0=ep["t0"], t1=t1,
-                        parent_id=tr[1], req=rid, slot=s, ticks=ep["ticks"])
+                        parent_id=tr[1], req=rid, slot=s, ticks=ep["ticks"],
+                        adapter=adapter)
             if self._spec_on:
                 _obs.record("engine.verify", tr[0], t0=ep["t0"], t1=t1,
                             parent_id=tr[1], req=rid, slot=s,
@@ -2045,8 +2217,10 @@ class ContinuousBatchingEngine:
         engine.py:3075): a free slot is fully recycled (pos and temperature
         zeroed), an occupied slot holds exactly one live request at a
         position within the context, no request holds two slots, the queued
-        token count is not negative; then, paged, the page audit.  Raises
-        AssertionError."""
+        token count is not negative; then, paged, the page audit; under
+        LoRA, no free slot bound to an adapter and the arena's refcounts
+        equal to its residency plus the engine slots bound to each slot
+        (reference: engine.py:3116-3129).  Raises AssertionError."""
         with self._mu:
             seen = {}
             for s, req in enumerate(self._slot_req):
@@ -2077,6 +2251,19 @@ class ContinuousBatchingEngine:
                     f"({self._queued_new_tokens})")
             if self.paged:
                 self._check_page_invariants_locked()
+            if self._lora is not None:
+                bindings = {}
+                for s in range(self.slots):
+                    a = int(self._slot_adapter[s])
+                    if self._slot_req[s] is None:
+                        if a:
+                            raise AssertionError(
+                                f"lora invariant: free slot {s} still bound "
+                                f"to arena slot {a}")
+                        continue
+                    if a:
+                        bindings[a] = bindings.get(a, 0) + 1
+                self._lora.check_invariants(bindings)
 
     def _check_page_invariants_locked(self):
         """The page audit of FLAGS_serve_debug_invariants (reference:
@@ -2086,8 +2273,9 @@ class ContinuousBatchingEngine:
         an occupied slot's table agrees with its mapping and covers every
         position it has written, a verify window's overrun entries are
         scratch redirects, every cp local table stays inside its shard, and
-        sequence page j of a slot sits on shard j % cp.  Raises
-        AssertionError.  Caller holds _mu."""
+        sequence page j of a slot sits on shard j % cp, and the session
+        pins reconcile with the live cache entries and their refcounts.
+        Raises AssertionError.  Caller holds _mu."""
         pool, ps = self._pool, self.page_size
         check_table_bounds(self._page_table, pool.num_pages)
         check_scale_arenas(self._arenas, pool.num_pages, ps)
@@ -2151,6 +2339,54 @@ class ContinuousBatchingEngine:
         if self.cp > 1:
             # raises ValueError on a local id outside its shard's range
             self._host_local_tables(self._page_table)
+        if self._sessions is not None:
+            self._sessions.check(self._prefix, pool)
+
+    @staticmethod
+    def _req_adapter_id(req):
+        """The stable registry id prefix-cache and session chains key on
+        (0 = the base model); never the arena slot, which is recycled
+        across adapters."""
+        return 0 if req.adapter is None else req.adapter.adapter_id
+
+    def _release_adapters_locked(self, reqs):
+        """Drop each request's arena binding (residency survives: the
+        adapter stays warm for the next request).  Idempotent; caller holds
+        _mu."""
+        for req in reqs:
+            if req is None:
+                continue
+            slot, req.adapter_slot = req.adapter_slot, None
+            if slot:
+                self._lora.release(slot)
+
+    def _bind_session_locked(self, s, req):
+        """Commit slot s's committed rows to the prefix cache and (re)bind
+        the request's session to the chain covering them (reference:
+        engine.py:2953).  The committed sequence is (prompt + generated)
+        [:pos]: K/V rows [0, pos) hold exactly those tokens, and the last
+        emitted token's row is written only by a step after it, so a turn
+        that ends at its length bound leaves it out and the next turn's
+        chunk prefill computes it at its true position.  Caller holds _mu;
+        the slot still maps its pages."""
+        pos = int(self._pos[s])
+        seq = np.concatenate([req.prompt, np.asarray(req.tokens, np.int32)])[:pos]
+        if seq.size == 0:
+            return
+        ad = self._req_adapter_id(req)
+        inserted = self._prefix.commit(seq, self._slot_pages[s], self._pool,
+                                       adapter=ad)
+        if inserted:
+            _prof.record_paging_event("cache_commits", inserted)
+        entries, covered = self._prefix.chain(seq, adapter=ad)
+        evicted = self._sessions.bind(req.session_id, seq, entries, adapter=ad)
+        if evicted:
+            _prof.record_paging_event("session_evictions", len(evicted))
+        _prof.record_session_stats(self._sessions.stats())
+        _flight.record("session", "bind", req=req.id, sid=req.session_id,
+                       tokens=int(seq.size), pages=len(entries),
+                       covered=int(covered),
+                       turns=self._sessions.get(req.session_id)["turns"])
 
     def _emit(self, s, req, tok):
         req.tokens.append(tok)
@@ -2166,13 +2402,27 @@ class ContinuousBatchingEngine:
 
     def _finish(self, s, req, reason):
         """Recycle slot s at once (no scrub: its next prefill rewrites what
-        it attends) and resolve the request.  Caller holds _mu."""
+        it attends) and resolve the request.  A session's turn that ended
+        on eos or length binds its session first, while the slot still maps
+        its pages; the adapter binding drops (residency stays).  Caller
+        holds _mu."""
+        if (self._sessions is not None and req.session_id is not None
+                and reason in ("eos", "length")):
+            try:
+                self._bind_session_locked(s, req)
+            except Exception:
+                # a failed bind leaves the next turn stateless (a re-prefill);
+                # it must not take the finish down with it
+                logger.exception("session: bind failed for request %d "
+                                 "(session %r)", req.id, req.session_id)
         self._slot_req[s] = None
         self._pos[s] = 0
         self._last_tok[s] = 0
         self._temps[s] = 0.0
         self._drafters[s] = None
         self._release_slot_pages_locked(s)
+        self._slot_adapter[s] = 0
+        self._release_adapters_locked((req,))
         self._obs_epoch_close()
         self._dev = None
         self._resolve(req, reason)

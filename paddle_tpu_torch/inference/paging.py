@@ -1,5 +1,5 @@
 """Host-side bookkeeping for the block-paged KV cache (counterpart of
-`paddle_tpu/inference/paging.py`, no sessions).
+`paddle_tpu/inference/paging.py`).
 
 The device side is one `[num_pages, page_size, kv_heads, head_dim]` K/V
 arena per layer plus per-slot page tables.  Which page holds which tokens
@@ -16,7 +16,13 @@ is decided here, on the host:
   a tail under its parent.  A request maps every matched full page
   read-only (incref) and copy-on-writes the matched tail, the only shared
   page it would append into.  Entries are evicted LRU, leaves first, only
-  when the allocator runs dry.
+  when the allocator runs dry.  Chains hang from one root per LoRA adapter
+  (the request's stable registry id, 0 the base model): K/V prefilled
+  under an adapter embed its deltas, so equal prompts share pages within
+  an adapter and never across adapters.
+- `SessionStore`: named multi-turn sessions, each a pin on the cache chain
+  of its committed conversation, so page pressure cannot evict it until
+  the whole session goes (LRU).
 - `spec_write_pages`: which page-table entries a speculative verify
   window writes through, split at the slot's mapped pages.
 - `check_table_bounds`: every table entry must name a real page before a
@@ -41,8 +47,7 @@ kv head) in a parallel `[num_pages, page_size, kv_heads, 1]` arena per K
 and V, written by the same scatters and addressed by the same tables, so
 holding a page holds its scale rows and no bookkeeping here changes.
 
-The session store and the disaggregation wire format are not ported yet
-(ROADMAP, Queue 1).
+The disaggregation wire format is not ported yet (ROADMAP, Queue 1).
 """
 
 from __future__ import annotations
@@ -239,7 +244,7 @@ class PagePool:
 
 class _Entry:
     __slots__ = ("key", "parent_key", "page", "rows", "children", "last_used",
-                 "tokens")
+                 "tokens", "pinned")
 
     def __init__(self, key, parent_key, page, rows, tokens):
         self.key = key
@@ -249,6 +254,7 @@ class _Entry:
         self.children = 0
         self.last_used = 0
         self.tokens = tokens  # the page's committed token ids (tuple)
+        self.pinned = 0  # session holds; > 0 means never evictable
 
 
 class PrefixCache:
@@ -257,13 +263,25 @@ class PrefixCache:
     Full pages are keyed `(parent_key, page_tokens)`, so equal prefixes
     converge on one chain whichever request committed them; partial last
     pages are tails under their parent, matched by longest common prefix.
-    Eviction is LRU over childless entries only: a parent outlives its
-    children, so no chain dangles.  Chains hang from one root: the base
-    model's (the reference roots one chain per LoRA adapter; LoRA is not
-    ported yet).
+    Eviction is LRU over childless unpinned entries only: a parent outlives
+    its children, so no chain dangles, and a session's chain outlives page
+    pressure until the session itself is evicted.
+
+    Chains hang from one root per LoRA adapter: `lookup`, `commit` and
+    `chain` take the request's stable registry adapter id (0 = the base
+    model) and walk from that adapter's root, so a prompt prefilled under
+    adapter A is never reused under B or the base model, even for an
+    identical token chain.
     """
 
     _ROOT = ()
+
+    def _root(self, adapter):
+        """Chain root of one adapter id.  The marker tuple cannot collide
+        with a full-page key (whose first element is a key, never the
+        marker string); no full entry is keyed by it, so `_adopt` and
+        `_remove` find no parent there."""
+        return self._ROOT if not adapter else ("__lora__", int(adapter))
 
     def __init__(self, page_size):
         self.page_size = int(page_size)
@@ -283,8 +301,9 @@ class PrefixCache:
         self._clock += 1
         entry.last_used = self._clock
 
-    def lookup(self, prompt):
-        """Longest cached prefix of `prompt` (np.int32 [L]), capped at L - 1
+    def lookup(self, prompt, adapter=0):
+        """Longest cached prefix of `prompt` (np.int32 [L]) committed under
+        the same `adapter` id, capped at L - 1
         so at least one suffix token remains to prefill and sample from.
         Returns (match_len, full_pages, tail_page, tail_rows): full pages map
         read-only as they are, the tail page (if any) must be copied before
@@ -293,7 +312,7 @@ class PrefixCache:
         ps = self.page_size
         L = int(prompt.size)
         toks = prompt.tolist()
-        key = self._ROOT
+        key = self._root(adapter)
         full_pages, matched = [], []
         i = 0
         while i + ps <= L - 1:  # a full-page match must leave a suffix token
@@ -319,16 +338,17 @@ class PrefixCache:
             self._tick(e)
         return i + tail_rows, full_pages, tail_page, tail_rows
 
-    def commit(self, prompt, pages, pool):
+    def commit(self, prompt, pages, pool, adapter=0):
         """Insert-if-absent the prompt's pages after its prefill: one entry
-        per complete page, one tail for the remainder.  New entries incref
+        per complete page, one tail for the remainder, chained under the
+        committing request's `adapter` root.  New entries incref
         their page (the cache's own hold); chain positions already cached
         are left alone (the committer may have mapped that very page).
         Returns the number of entries inserted."""
         ps = self.page_size
         L = int(prompt.size)
         toks = prompt.tolist()
-        key = self._ROOT
+        key = self._root(adapter)
         inserted = 0
         for i in range(L // ps):
             ek = (key, tuple(toks[i * ps:(i + 1) * ps]))
@@ -376,14 +396,18 @@ class PrefixCache:
             parent.children -= 1
 
     def evict_one(self, pool, shard=None):
-        """Drop the LRU childless entry and release its page hold.  Returns
-        the evicted entry, or None when nothing is evictable.  The page only
-        reaches the free list if no live slot still maps it: eviction never
-        invalidates a reader.  `shard` restricts the victims to entries
-        whose page lies in that pool shard: under cp, evicting elsewhere
-        cannot relieve that shard."""
+        """Drop the LRU childless unpinned entry and release its page hold.
+        Returns the evicted entry, or None when nothing is evictable.  The
+        page only reaches the free list if no live slot still maps it:
+        eviction never invalidates a reader.  A session-pinned entry is
+        never a victim: its session is evicted first
+        (`SessionStore.evict_lru` drops the pins).  `shard` restricts the
+        victims to entries whose page lies in that pool shard: under cp,
+        evicting elsewhere cannot relieve that shard."""
         victim = None
         for e in self.entries():
+            if e.pinned > 0:
+                continue  # a session's hold: the session goes first
             if shard is not None and pool.shard_of(e.page) != shard:
                 continue
             if e.rows == self.page_size and (e.children > 0 or self._tails.get(e.key)):
@@ -396,9 +420,198 @@ class PrefixCache:
         pool.decref(victim.page)
         return victim
 
+    def chain(self, tokens, adapter=0):
+        """The committed entries covering the longest cached prefix of
+        `tokens` (np.int32 [L] or a list) under `adapter`: full-page links
+        and a tail that matches exactly.  Unlike `lookup` the coverage may
+        reach all L tokens (it walks what `commit` wrote, not what a new
+        reader may reuse) and the LRU clock is left alone.  Returns
+        (entries, covered tokens); a session pins exactly these entries."""
+        ps = self.page_size
+        toks = tokens.tolist() if hasattr(tokens, "tolist") else list(tokens)
+        L = len(toks)
+        key = self._root(adapter)
+        out = []
+        i = 0
+        while i + ps <= L:
+            e = self._full.get((key, tuple(toks[i:i + ps])))
+            if e is None:
+                break
+            out.append(e)
+            key = e.key
+            i += ps
+        covered = i
+        if 0 < L - i < ps:
+            tail = tuple(toks[i:L])
+            for e in self._tails.get(key, ()):
+                if e.tokens == tail:
+                    out.append(e)
+                    covered = L
+                    break
+        return out, covered
+
     def clear(self, pool):
-        """Release every cache hold; returns how many entries went."""
+        """Release every cache hold; returns how many entries went.  Session
+        pins go first: whoever tears the cache down tears its sessions down
+        with it (a `SessionStore` holds no page refcounts of its own)."""
+        for e in self.entries():
+            e.pinned = 0
         n = 0
         while self.evict_one(pool) is not None:
             n += 1
         return n
+
+
+class SessionStore:
+    """Named multi-turn sessions (reference: paging.py:670).
+
+    A session is a hold on the PrefixCache chain of its committed
+    conversation: the prompt and generated tokens of every turn so far.
+    `bind` pins every link of the chain `PrefixCache.chain` returns for
+    the committed sequence (`entry.pinned += 1`) and unpins the previous
+    turn's chain, so `evict_one` never reclaims a live session's pages;
+    the page refcounts stay the cache's own, so the page audit needs no
+    extra term.  The next turn's request then chunk-prefills only its
+    unshared suffix through the ordinary prefix-cache admission, at its
+    true positions, with no new trace.
+
+    Sessions are evicted whole, LRU (half a pinned chain serves nobody):
+    by capacity at bind time, or by the engine's allocator when evicting
+    unpinned cache entries alone cannot free a page.  A warm `restart()`
+    keeps them: they reference cache entries, and a restart keeps the pool
+    and the cache."""
+
+    def __init__(self, capacity=256):
+        self.capacity = max(1, int(capacity))
+        self._sessions = {}  # sid -> record dict
+        self._clock = 0
+        self.tokens_saved_total = 0  # prompt tokens served from pinned KV
+        self.evictions = 0
+        self.binds = 0
+
+    def __len__(self):
+        return len(self._sessions)
+
+    def __contains__(self, sid):
+        return sid in self._sessions
+
+    def sessions(self):
+        return list(self._sessions.values())
+
+    def get(self, sid):
+        return self._sessions.get(sid)
+
+    def tokens(self, sid):
+        s = self._sessions.get(sid)
+        return None if s is None else s["tokens"]
+
+    def touch(self, sid):
+        """Bump `sid`'s LRU tick; returns its record or None."""
+        s = self._sessions.get(sid)
+        if s is not None:
+            self._clock += 1
+            s["last_used"] = self._clock
+        return s
+
+    def bind(self, sid, tokens, entries, adapter=0, tenant=""):
+        """(Re)bind `sid` to the committed sequence `tokens` whose cache
+        chain is `entries`: pin the new chain, then unpin the previous one
+        (in that order, so a shared link never passes through 0).  Returns
+        the session ids evicted to stay within capacity."""
+        self._clock += 1
+        old = self._sessions.pop(sid, None)
+        for e in entries:
+            e.pinned += 1
+        if old is not None:
+            for e in old["entries"]:
+                e.pinned -= 1
+        self._sessions[sid] = {
+            "sid": sid,
+            "tokens": np.asarray(tokens, np.int32).copy(),
+            "entries": list(entries),
+            "adapter": int(adapter),
+            "tenant": str(tenant or ""),
+            "last_used": self._clock,
+            "turns": (old["turns"] + 1) if old else 1,
+        }
+        self.binds += 1
+        evicted = []
+        while len(self._sessions) > self.capacity:
+            v = self.evict_lru(exclude=sid)
+            if v is None:
+                break
+            evicted.append(v)
+        return evicted
+
+    def release(self, sid):
+        """Unpin and drop `sid`; returns whether it was resident."""
+        s = self._sessions.pop(sid, None)
+        if s is None:
+            return False
+        for e in s["entries"]:
+            e.pinned -= 1
+        return True
+
+    def evict_lru(self, exclude=None):
+        """Unpin and drop the least recently used session other than
+        `exclude`, whole.  Returns its id, or None."""
+        victim = None
+        for sid, s in self._sessions.items():
+            if sid == exclude:
+                continue
+            if victim is None or s["last_used"] < victim["last_used"]:
+                victim = s
+        if victim is None:
+            return None
+        self.release(victim["sid"])
+        self.evictions += 1
+        return victim["sid"]
+
+    def clear(self):
+        for sid in list(self._sessions):
+            self.release(sid)
+
+    def pages_pinned(self):
+        """Distinct cache entries (so pages) held by at least one session."""
+        return len({id(e) for s in self._sessions.values() for e in s["entries"]})
+
+    def stats(self):
+        """The reference's keys: residency, tenants, pinned pages and the
+        saved-token, eviction and bind counters."""
+        tenants = {s["tenant"] for s in self._sessions.values()}
+        return {
+            "sessions_resident": len(self._sessions),
+            "session_tenants": len(tenants),
+            "session_pages_pinned": self.pages_pinned(),
+            "session_prefill_tokens_saved_total": int(self.tokens_saved_total),
+            "session_evictions_total": int(self.evictions),
+            "session_binds_total": int(self.binds),
+        }
+
+    def check(self, cache, pool):
+        """The session clause of FLAGS_serve_debug_invariants: every pin on
+        a cache entry is explained by exactly the sessions that hold it,
+        every pinned entry is still in the cache with a live page, and no
+        session references an entry the cache dropped.  Raises
+        AssertionError."""
+        want = {}
+        for s in self._sessions.values():
+            for e in s["entries"]:
+                want[id(e)] = want.get(id(e), 0) + 1
+        live = {id(e) for e in cache.entries()}
+        for s in self._sessions.values():
+            for e in s["entries"]:
+                if id(e) not in live:
+                    raise AssertionError(
+                        f"session invariant: session {s['sid']!r} pins page "
+                        f"{e.page} whose cache entry was removed")
+        for e in cache.entries():
+            w = want.get(id(e), 0)
+            if e.pinned != w:
+                raise AssertionError(
+                    f"session invariant: entry page {e.page} pinned="
+                    f"{e.pinned} but {w} session hold(s) reference it")
+            if e.pinned > 0 and pool.refs[e.page] <= 0:
+                raise AssertionError(
+                    f"session invariant: pinned page {e.page} has refcount "
+                    f"{int(pool.refs[e.page])}")

@@ -390,6 +390,15 @@ def _page_decode_write_quant(arena, scales, new, tables, pos):
 # ---------------------------------------------------------------------------
 
 
+def _lora_add(lora, target, y, x):
+    """Base projection output `y` (computed from `x`) plus the
+    batched-gather LoRA delta of `target` (reference: llama.py:512).  `lora`
+    is a per-layer arena view carrying the dispatch's [b] int32 adapter
+    slots as data; None (training, non-LoRA serving) passes `y` through and
+    adds no operation."""
+    return y if lora is None else lora.add(target, y, x)
+
+
 class LlamaMLP(nn.Module):
     def __init__(self, config, device=None, dtype=None):
         super().__init__()
@@ -399,8 +408,10 @@ class LlamaMLP(nn.Module):
         self.up_proj = nn.Linear(h, i, **kw)
         self.down_proj = nn.Linear(i, h, **kw)
 
-    def forward(self, x):
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+    def forward(self, x, lora=None):
+        h = (F.silu(_lora_add(lora, "gate_proj", self.gate_proj(x), x))
+             * _lora_add(lora, "up_proj", self.up_proj(x), x))
+        return _lora_add(lora, "down_proj", self.down_proj(h), h)
 
 
 class LlamaAttention(nn.Module):
@@ -419,11 +430,17 @@ class LlamaAttention(nn.Module):
         self.o_proj = nn.Linear(h, h, **kw)
         self.rope = rope  # (cos, sin), shared by every layer
 
-    def forward(self, x, cache=None, pos=None):
+    def forward(self, x, cache=None, pos=None, lora=None):
+        """`lora`: a per-layer arena view (serving under LoRA): q, k and v
+        take their deltas before RoPE, o_proj after attention, as in the
+        reference (llama.py:564-691)."""
         b, s = x.shape[0], x.shape[1]
-        q = self.q_proj(x).view(b, s, self.num_heads, self.head_dim)
-        k = self.k_proj(x).view(b, s, self.num_kv_heads, self.head_dim)
-        v = self.v_proj(x).view(b, s, self.num_kv_heads, self.head_dim)
+        q = _lora_add(lora, "q_proj", self.q_proj(x), x).view(
+            b, s, self.num_heads, self.head_dim)
+        k = _lora_add(lora, "k_proj", self.k_proj(x), x).view(
+            b, s, self.num_kv_heads, self.head_dim)
+        v = _lora_add(lora, "v_proj", self.v_proj(x), x).view(
+            b, s, self.num_kv_heads, self.head_dim)
         cos, sin = self.rope
         if isinstance(cache, PagedPrefillView):
             a = cache.arena
@@ -482,7 +499,8 @@ class LlamaAttention(nn.Module):
             out = self._dispatch_attention(q, k, v)
         else:
             raise TypeError(f"unsupported cache view {type(cache).__name__}")
-        return self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
+        out = out.reshape(b, s, self.num_heads * self.head_dim)
+        return _lora_add(lora, "o_proj", self.o_proj(out), out)
 
     def _dispatch_attention(self, q, k, v):
         """Route by config (the reference's llama.py:711-745): ring (context
@@ -523,15 +541,15 @@ class LlamaDecoderLayer(nn.Module):
         )
         self.mlp = LlamaMLP(config, device, dtype)
 
-    def _block(self, x, cache=None, pos=None):
-        h = x + self.self_attn(self.input_layernorm(x), cache, pos)
-        return h + self.mlp(self.post_attention_layernorm(h))
+    def _block(self, x, cache=None, pos=None, lora=None):
+        h = x + self.self_attn(self.input_layernorm(x), cache, pos, lora=lora)
+        return h + self.mlp(self.post_attention_layernorm(h), lora=lora)
 
-    def forward(self, x, cache=None, pos=None):
+    def forward(self, x, cache=None, pos=None, lora=None):
         if cache is None and self.config.use_recompute and self.training:
             # reference: llama.py:769-772 (incubate/recompute.py:47)
             return checkpoint(self._block, x, use_reentrant=False)
-        return self._block(x, cache, pos)
+        return self._block(x, cache, pos, lora)
 
 
 class LlamaModel(nn.Module):
@@ -548,15 +566,18 @@ class LlamaModel(nn.Module):
         )
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps, device, dtype)
 
-    def forward(self, input_ids, caches=None, pos=None):
+    def forward(self, input_ids, caches=None, pos=None, lora=None):
         """input_ids: [b, s] int32.  `caches`: None (plain causal forward)
         or one cache view per layer (paged views, `SlotView`s or
         `StaticKVCache`s); `pos`: [b] int32 positions for decode views, the
         chunk's position for a `StaticKVCache` (a 0-d int32 tensor or int,
-        or [b] per slot).  Returns the final hidden states [b, s, hidden]."""
+        or [b] per slot).  `lora`: an adapter arena's view of the rows'
+        arena slots (`lora.AdapterArena.view`), or None.  Returns the final
+        hidden states [b, s, hidden]."""
         x = self.embed_tokens(input_ids)
         for i, layer in enumerate(self.layers):
-            x = layer(x, None if caches is None else caches[i], pos)
+            x = layer(x, None if caches is None else caches[i], pos,
+                      None if lora is None else lora.layer(i))
         return self.norm(x)
 
 

@@ -29,8 +29,15 @@ The names, label sets and zero-filled label sets are the reference's
   exported at 0.
 - ``paddle_mesh_devices``: the CUDA devices the serving engine uses.
 
-Router, autoscaler, LoRA, disaggregation and session families render at 0
-until their ROADMAP items land.
+- ``paddle_lora_*``: the adapter arena's loads, evictions, residency hits
+  and misses and its resident/capacity gauges, live on an engine built with
+  ``lora=``.  ``paddle_session_*``: the session store's gauges and
+  counters, live on a paged engine with a prefix cache;
+  ``paddle_session_pin_hits_total`` and ``paddle_session_repins_total``
+  are the router's and stay at 0 until the serving fleet is ported.
+
+Router, autoscaler and disaggregation families render at 0 until their
+ROADMAP items land.
 """
 
 from __future__ import annotations

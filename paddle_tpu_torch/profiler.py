@@ -179,6 +179,10 @@ def serving_summary():
 
 
 def _reset_paging_locked():
+    # a kind such as session_evictions appears once counted, and stays at
+    # 0 after a reset, as in the reference's family (profiler.py:350, :368)
+    for k in _paging:
+        _paging[k] = 0
     _paging.update(
         prefix_hits=0, prefix_misses=0, prefill_tokens_saved=0, cow_copies=0,
         cache_evictions=0, cache_commits=0, ticks=0, pages_used_sum=0,
@@ -208,9 +212,10 @@ def record_prefix_lookup(hit, tokens_saved=0, cow_copies=0):
 
 
 def record_paging_event(kind, n=1):
-    """Count an allocator event: 'cache_evictions' or 'cache_commits'."""
+    """Count an allocator event: 'cache_evictions', 'cache_commits' or
+    'session_evictions' (another kind is counted too)."""
     with _lock:
-        _paging[kind] += int(n)
+        _paging[kind] = _paging.get(kind, 0) + int(n)
 
 
 def record_paging_tick(pages_used, pages_total):
@@ -412,6 +417,12 @@ def record_lora_residency(resident, capacity):
     """The adapters resident in the arena and its slots (set)."""
     with _lock:
         _lora.update(resident=int(resident), capacity=int(capacity))
+
+
+def reset_lora():
+    """Zero the LoRA counters and gauges (reference: profiler.py:651)."""
+    with _lock:
+        _reset_lora_locked()
 
 
 def lora_summary():

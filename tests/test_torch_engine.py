@@ -176,8 +176,9 @@ def test_submit_rejects_what_cannot_fit(models):
         # the dense slot pool itself is ported; under tensor parallelism not
         pytest.param(dict(paged=False, tp=2), "tensor-parallel",
                      NotImplementedError, id="knob5-dense slot-pool"),
-        pytest.param(dict(lora=object()), "LoRA", NotImplementedError,
-                     id="knob6-LoRA"),
+        # LoRA serving is ported; under tensor parallelism not
+        pytest.param(dict(lora=object(), tp=2), "tensor-parallel",
+                     NotImplementedError, id="knob6-LoRA"),
         pytest.param(dict(role="decode"), "disaggregated", NotImplementedError,
                      id="knob7-disaggregated"),
     ],

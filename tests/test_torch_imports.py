@@ -1,7 +1,8 @@
 """Guards of the PyTorch/CUDA port.
 
 - `paddle_tpu_torch` (and `chip_smoke.py`) import neither `jax` nor
-  anything of `paddle_tpu`: the port keeps its own copy of what it needs.
+  anything of `paddle_tpu`: the port keeps its own copy of what it needs
+  (its LoRA package `paddle_tpu_torch.lora` included).
 - Entry points default to the CUDA card and raise, rather than run on the
   CPU, when CUDA is absent (the DataLoader's device prefetch too, unless
   given device="cpu").
@@ -66,6 +67,30 @@ def test_default_device_raises_without_cuda(monkeypatch):
     model = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         ContinuousBatchingEngine(model, max_len=32, prefill_buckets=[8])
+
+
+def test_adapter_arena_defaults_to_the_card(monkeypatch):
+    from paddle_tpu_torch.lora import AdapterArena, AdapterRegistry
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    reg = AdapterRegistry(LlamaConfig.tiny())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        AdapterArena(reg, capacity=2)
+    arena = AdapterArena(reg, capacity=2, device="cpu")
+    assert arena._rows.device.type == "cpu"
+
+
+def test_lora_serving_imports_neither_jax_nor_the_reference():
+    code = ("import sys\n"
+            "from paddle_tpu_torch.lora import AdapterArena, make_random\n"
+            "from paddle_tpu_torch.inference.paging import SessionStore\n"
+            "from paddle_tpu_torch.inference import serve\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'paddle_tpu'))\n"
+            "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
 
 
 def test_device_prefetch_raises_without_cuda_unless_cpu(monkeypatch):

@@ -11,7 +11,10 @@ as in `test_torch_serve_contract.py`:
 - a live deadline (`deadline_s`, `X-Deadline-Ms`, the body's over the
   header's) is served as the reference serves it: the same status and
   tokens, every row admitted;
-- `session_id`, `handoff` and `reservation` answer the port's typed 400
+- `session_id` is served as the reference serves it (both engines keep
+  sessions on their prefix cache): 200 and the same tokens, turn after
+  turn;
+- `handoff` and `reservation` answer the port's typed 400
   NotImplementedError naming their ROADMAP Queue 1 item;
 - `X-Idempotency-Key`: a key posted twice generates once and replays the
   same body with `X-Idempotency-Replay: hit` (admissions counted at
@@ -171,8 +174,20 @@ def test_a_live_deadline_is_served_as_the_reference_serves_it(pair, body, header
     assert {k: after[k] - before[k] for k in after} == {"ref": rows, "port": rows}
 
 
+def test_session_id_is_served_as_the_reference_serves_it(pair):
+    before = pair.admissions()
+    conv = _prompt(9, 18)
+    for turn in range(2):
+        ref, port = pair.both({"input_ids": conv, "max_new_tokens": 4,
+                               "session_id": "chat-7"})
+        assert port == ref and port[0] == 200
+        conv = port[2]["tokens"] + _prompt(2, 19 + turn)
+    after = pair.admissions()
+    assert {k: after[k] - before[k] for k in after} == {"ref": 2, "port": 2}
+    assert pair.port.engine._sessions.get("chat-7")["turns"] == 2
+
+
 @pytest.mark.parametrize("field,value,item", [
-    ("session_id", "s-1", "sessions"),
     ("handoff", {"prompt_len": 5}, "disaggregated prefill/decode"),
     ("reservation", "r-1", "disaggregated prefill/decode"),
 ])

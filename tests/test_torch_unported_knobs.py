@@ -1,17 +1,19 @@
-"""The reference's serving knobs that the port does not run yet: each is
-accepted where the reference accepts it and refuses with the reference's
+"""The reference's serving knobs: each is accepted where the reference
+accepts it, and one the port does not run yet refuses with the reference's
 error or a NotImplementedError naming its ROADMAP Queue 1 item.
 
 - `ContinuousBatchingEngine(session_max=)` and `FLAGS_serve_session_max`
-  (reference engine.py:590): the bound is read at construction; a request
-  with `session_id` raises (sessions).
+  (reference engine.py:590): the bound is read at construction and bounds
+  the resident sessions (the least recently used one goes).
 - `submit(export_kv=True)` (reference engine.py:1078) raises
   (disaggregated prefill/decode); False is the default and serves.
 - `FLAGS_serve_role`, `FLAGS_serve_reserve_ttl_s`,
   `FLAGS_serve_lora_capacity` and `FLAGS_serve_lora_rank_max` exist with the
   reference's defaults, so `set_flags` takes them.  With `role=None` the
   engine reads `FLAGS_serve_role`: a value other than "colocated" raises as
-  `role=` does.  The LoRA flags do nothing on their own; `lora=` raises.
+  `role=` does.  The LoRA flags set the capacity and `rank_max` of an
+  `AdapterArena` built without them, and do nothing to an engine without
+  `lora=`.
 """
 
 import numpy as np
@@ -57,14 +59,19 @@ def test_flags_exist_with_the_reference_defaults(name):
     tcore.set_flags({name: tcore.flag(name)})  # no KeyError
 
 
-def test_session_max_reads_the_flag_and_sessions_stay_unported(model, flags):
+def test_session_max_reads_the_flag_and_bounds_the_sessions(model, flags):
     assert _engine(model).session_max == 256
     assert _engine(model, session_max=4).session_max == 4
-    flags(session_max=9)
+    flags(session_max=2)
     eng = _engine(model)
-    assert eng.session_max == 9
-    with pytest.raises(NotImplementedError, match="sessions"):
-        eng.submit(_prompt(), max_new_tokens=2, session_id="chat-1")
+    assert eng.session_max == 2 and eng._sessions.capacity == 2
+    for i in range(3):
+        req = eng.submit(_prompt(5 + i), max_new_tokens=2, session_id=f"chat-{i}")
+        eng.run_until_idle()
+        req.wait(1)
+    stats = eng.healthz()["sessions"]
+    assert stats["sessions_resident"] == 2 and stats["session_evictions_total"] == 1
+    assert "chat-0" not in eng._sessions and "chat-2" in eng._sessions
 
 
 def test_export_kv_true_raises_and_false_serves(model):
@@ -97,11 +104,20 @@ def test_role_flag_is_read_when_role_is_none(model, flags, paged):
     assert _engine(model, paged=paged, role="colocated").role == "colocated"
 
 
-def test_lora_flags_do_nothing_alone_and_lora_still_raises(model, flags):
+def test_lora_flags_set_a_default_arena(model, flags):
+    from paddle_tpu_torch.lora import AdapterArena, AdapterRegistry, make_random
+
     flags(lora_capacity=2, lora_rank_max=16, reserve_ttl_s=5.0)
-    eng = _engine(model)
+    eng = _engine(model)  # no arena: the flags change nothing
     req = eng.submit(_prompt(), max_new_tokens=3)
     eng.run_until_idle()
     assert len(req.wait(1)) == 8
-    with pytest.raises(NotImplementedError, match="multi-tenant LoRA serving"):
-        _engine(model, lora=object())
+    reg = AdapterRegistry(model.config)
+    make_random(reg, "t1", rank=16, seed=1)
+    arena = AdapterArena(reg, device="cpu")
+    assert (arena.capacity, arena.rank_max) == (2, 16)
+    eng = _engine(model, lora=arena)
+    req = eng.submit(_prompt(), max_new_tokens=3, adapter="t1")
+    eng.run_until_idle()
+    assert len(req.wait(1)) == 8
+    assert eng.healthz()["lora"]["capacity"] == 2
