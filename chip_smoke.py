@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Nineteen phases, and the serving, training and amp ones again in float16
+Twenty phases, and the serving, training and amp ones again in float16
 (below); a failure in any of them exits non-zero and prints no result.
 
 1. device  -- requires CUDA; prints the card's name and power limit.
@@ -153,7 +153,29 @@ Nineteen phases, and the serving, training and amp ones again in float16
               the session; a small pool evicts the idle session whole
               under sessionless traffic.  Records TTFT per turn of both
               engines and the pages pinned.
-13. cp     -- the same model behind long-document engines (slots 4, the
+13. disagg -- disaggregated prefill/decode on the same model: a
+              colocated, a prefill-role and a decode-role engine, each
+              behind `serve()`.  Eight requests (prompts of 64-1024
+              tokens, two under a 300-token system prompt, so the second
+              takes a prefix hit on the prefill side; 32 tokens each) go
+              to the colocated server, then through the three hops by
+              hand: POST /reserve to the decode server, /prefill to the
+              prefill server, /generate with the handoff and the
+              reservation to the decode server.  Checks: tokens equal the
+              colocated engine's bit for bit; the import graph traced once
+              at warmup on the decode role alone and no new trace on any
+              engine; K1 on the fresh prefills, K2's chunk window on the
+              hits and its walk on the decode steps, counted exactly; one
+              replay of the import graph equal to an eager import and to
+              its tiles; each reservation held until its admission and 0
+              after it, a short one reclaimed at its TTL; /prefill with two
+              prompts answered 400; the decode server's paddle_disagg_*
+              equal to the phase's own counts.  Then the same over int8
+              pages (K4) for three of the requests, whose wire bytes are
+              (128 + 4) / 256 of the bf16 pass's.  Records wire bytes per
+              token, export, serialize, hop, stage and import times,
+              disaggregated against colocated TTFT and decode tokens/s.
+14. cp     -- the same model behind long-document engines (slots 4, the
               4096-token context): questions about one 3000-token document
               share its pages through the prefix cache, beside two fresh
               prompts, over HTTP; at cp=1, then cp=2 (the page audit every
@@ -165,7 +187,7 @@ Nineteen phases, and the serving, training and amp ones again in float16
               logits against the teacher-forced forward; prints the greedy
               agreement between runs, speculation counters, decode
               tokens/s and TTFT, and a profiled cp=2 decode step.
-14. train  -- trains Llama-2-7B's widths at 8 layers (bf16 AMP O2, AdamW with
+15. train  -- trains Llama-2-7B's widths at 8 layers (bf16 AMP O2, AdamW with
               float32 master weights) for 6 steps on one repeated batch of
               4 x 2048 tokens: finite and falling losses, K1 (on its wgmma
               path) and K3 launched once per layer per step, adam_fused
@@ -173,7 +195,7 @@ Nineteen phases, and the serving, training and amp ones again in float16
               tokens/s, peak memory and a profiled step with AdamW's span.
               Then 2 steps of 2 layers with activation recompute (K1 twice
               per layer per step).
-15. fit    -- the training loop through the entry points a user calls
+16. fit    -- the training loop through the entry points a user calls
               (`paddle_tpu_torch.Model`, `io.DataLoader`): the train
               phase's model (8 layers, bf16 O2, AdamW) through `Model.fit`
               over 32 seeded sequences of 2048 tokens, batch 4, shuffled
@@ -197,10 +219,10 @@ Nineteen phases, and the serving, training and amp ones again in float16
               three batch shapes, masked K1 and K3 every step, no
               fallback; examples/s beside the bert phase's padded figure.
               No worker process is left after any of them.
-16. grads  -- one step's gradients of a 2-layer model at the same widths
+17. grads  -- one step's gradients of a 2-layer model at the same widths
               with the kernels against the same step with attention through
               the plain forward under autograd.
-17. amp    -- the reference's O1 recipe on Llama-2-7B's widths at 2 layers,
+18. amp    -- the reference's O1 recipe on Llama-2-7B's widths at 2 layers,
               float32 parameters, batch 2 x 2048: auto_cast O1 bf16, a
               dynamic GradScaler, LinearWarmup into CosineAnnealingDecay,
               ClipGradByGlobalNorm(1.0) and AdamW for 6 steps, step 4's
@@ -211,7 +233,7 @@ Nineteen phases, and the serving, training and amp ones again in float16
               adam_fused and unscale_fused once per step.  Then SGD,
               Momentum, Adagrad, RMSProp, Adamax and Lamb two steps each:
               finite, every weight moved, step ms.
-18. bert   -- bench_bert's BERT-base SQuAD fine-tuning (bf16 O2, AdamW at
+19. bert   -- bench_bert's BERT-base SQuAD fine-tuning (bf16 O2, AdamW at
               3e-5, dropout 0) for 6 steps on one batch of 32 x 384 tokens
               padded from lengths 192-384: finite and falling losses, K1 and
               K3 launched once per layer per step on their wgmma paths with
@@ -221,7 +243,7 @@ Nineteen phases, and the serving, training and amp ones again in float16
               as a key-padding attn_mask (K1's key bias) against segment ids
               on the valid rows; then a 2-layer model's gradients with the
               kernels against attention through the plain forward.
-19. longcontext -- long-context training through the Llama's
+20. longcontext -- long-context training through the Llama's
               `context_parallel_degree` on a sep mesh (ring attention, every
               rank on the card): Llama-2-7B's widths at 4 layers, one
               sequence of 32768 tokens over R = 8 (K/V 512 MiB a layer: the
@@ -253,8 +275,8 @@ The float16 phases (their log lines read "[fp16 <phase>]"):
   "float16"), the other optimizers aside.
 The record's `_f16` entries count the launches of these runs.
 
-Every serving phase (slice, prefix, dense, fault, obs, lora, sessions, cp,
-cp_f32) runs on the engine's CUDA graphs: it prints `compile_counts()` after warmup and again
+Every serving phase (slice, prefix, dense, fault, obs, lora, sessions,
+disagg, cp, cp_f32) runs on the engine's CUDA graphs: it prints `compile_counts()` after warmup and again
 after its traffic and fails if they differ (0 new traces under traffic),
 prints the host fetches per decode step and decode tokens/s over the
 decode window's wall clock, and holds one replay of each
@@ -262,7 +284,7 @@ step that an admission ran -- fresh prefill, chunk prefill, decode or
 verify -- against an eager run of the same body on the same static
 inputs, bit for bit (cp_f32 and fault aside; lora holds a mixed-adapter
 fresh prefill and decode, a verify and an adapter's chunk prefill, sessions a
-session turn's chunk prefill).  The profiled steps print the host's time until the
+session turn's chunk prefill, disagg the decode role's import alone).  The profiled steps print the host's time until the
 last step returned and the kernels per step beside wall, busy and idle.
 
 Every phase prints its wall time.  The line before the last is the
@@ -439,6 +461,19 @@ SESSION_DRILL_LEN = 600
 # the first token is ~0.3)
 SESSION_TIE_REL = 0.04
 SPEC_TIE_REL = 0.04
+# the disagg phase: eight requests, each through the three hops by hand
+# (POST /reserve to the decode server, /prefill to the prefill server,
+# /generate with the handoff to the decode server); a DISAGG_SYS_LEN-token
+# system prompt under two of them (the second takes a prefix hit on the
+# prefill side), prompts of 64-1024 tokens, DISAGG_NEW generated each.
+# The int8 pair serves those of DISAGG_INT8 (the hit among them; a
+# 1024-token handoff costs ~16 s of JSON on the host, PERF.md).  A
+# reservation of DISAGG_TTL_S seconds is left to lapse
+DISAGG_SYS_LEN = 300
+DISAGG_SPEC = (64, ("sys", 45), 1024, ("sys", 77), 200, 256, 128, 96)
+DISAGG_NEW = 32
+DISAGG_INT8 = (0, 1, 3)
+DISAGG_TTL_S = 0.2
 
 # K5's timed case: 8 slots at per-slot positions drawn from 3000-4000 of a
 # 4096-token context (numpy.random.default_rng(5).integers(3000, 4001, 8))
@@ -5075,6 +5110,293 @@ def phase_sessions(smi, model, device="cuda", sys_len=PREFIX_SYS_LEN,
     return ok, counts
 
 
+def check_import_replay(phase, engine):
+    """One replay of the decode-role engine's import graph against an eager
+    run of its body on the same static inputs (the tiles and page the last
+    import left), bit for bit, and both against the tiles: the destination
+    page is overwritten with ones before each, so each must write it whole.
+    The page's rows past its committed rows are garbage to every reader,
+    so the check leaves the engine as it was.  Returns whether it held."""
+    import torch
+
+    g = engine._import_g
+    inp = g.inputs(None)
+    dst = int(inp["dst"][0])
+    names = [n for n in ("k", "v", "k_scale", "v_scale") if f"{n}_tiles" in inp]
+
+    def scribble():
+        for a in engine._arenas:
+            for n in names:
+                getattr(a, n)[dst].fill_(1)
+
+    def read():
+        return [getattr(a, n)[dst].clone() for a in engine._arenas for n in names]
+
+    scribble()
+    g(None)
+    replayed = read()
+    scribble()
+    with torch.no_grad():
+        g.body(**inp)
+    eager = read()
+    want = [inp[f"{n}_tiles"][i] for i in range(len(engine._arenas)) for n in names]
+    same = all(torch.equal(a, b) for a, b in zip(replayed, eager))
+    whole = all(torch.equal(a, b) for a, b in zip(replayed, want))
+    log(phase, f"import replay vs eager on page {dst} ({'/'.join(names)} of "
+               f"{len(engine._arenas)} layers): replay == eager "
+               f"{same}, == the tiles {whole} -> "
+               f"{'ok' if same and whole else 'FAIL'}")
+    return same and whole
+
+
+def _disagg_prompts(cfg, spec, sys_len, seed=11):
+    """The phase's prompts: `spec` entries are a length or ("sys", n), a
+    suffix of n tokens after the shared system prompt."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    draw = lambda n: rng.integers(1, cfg.vocab_size, size=n).astype(np.int32)  # noqa: E731
+    system = draw(sys_len)
+    return [np.concatenate([system, draw(x[1])]) if isinstance(x, tuple) else draw(x)
+            for x in spec]
+
+
+def _disagg_pass(phase, smi, model, prompts, n_hits, kv_quant, device,
+                 new_tokens, ttl_s, **engine_kw):
+    """Three engines on `model` behind serve(): colocated, prefill role and
+    decode role, warmed.  Each prompt goes to the colocated server's
+    /generate, then through the three hops by hand; `n_hits` of them take a
+    prefix hit on the colocated and prefill engines; a reservation of
+    `ttl_s` is left to lapse before the last.  Returns (checks passed,
+    launch counts of the pass, {figure: value})."""
+    import torch
+
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.inference import engine as engine_mod
+    from paddle_tpu_torch.inference import serve
+    from paddle_tpu_torch.inference.engine import ContinuousBatchingEngine
+    from paddle_tpu_torch.obs import flight
+
+    layers = model.config.num_hidden_layers
+    on_card = torch.device(device).type == "cuda"
+    ok = True
+
+    def check(what, cond, detail=""):
+        nonlocal ok
+        ok &= bool(cond)
+        log(phase, f"{what}: {detail} -> {'ok' if cond else 'FAIL'}")
+
+    t0 = time.perf_counter()
+    engines = {role: ContinuousBatchingEngine(model, seed=0, device=device,
+                                              role=role, kv_quant=kv_quant,
+                                              **engine_kw).warmup()
+               for role in ("colocated", "prefill", "decode")}
+    co, pre, dec = engines["colocated"], engines["prefill"], engines["decode"]
+    warm = {role: _warm_counts(f"{phase} {role}", e) for role, e in engines.items()}
+    check("the import graph only on the decode role",
+          warm["decode"].get("import") == 1
+          and "import" not in warm["colocated"] and "import" not in warm["prefill"],
+          f"import traces {warm['decode'].get('import')}")
+    log(phase, f"three engines built + warmed in {time.perf_counter() - t0:.1f} s")
+
+    # what the hops cost: the export's gather and copy, its serialization,
+    # the decode side's staging and import, each timed where it runs
+    times = {k: [] for k in ("export", "serialize", "stage", "import")}
+
+    def timed(what, fn):
+        def run(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                times[what].append((time.perf_counter() - t) * 1e3)
+        return run
+
+    pre._export_rows_locked = timed("export", pre._export_rows_locked)
+    serialize = engine_mod.serialize_kv_handoff
+    engine_mod.serialize_kv_handoff = timed("serialize", serialize)
+    dec._stage_handoff = timed("stage", dec._stage_handoff)
+    dec._import_into_paged = timed("import", dec._import_into_paged)
+    handles = {"colocated": [], "decode": []}
+    for role in handles:
+        real = engines[role].submit
+
+        def submit(*a, _real=real, _into=handles[role], **kw):
+            h = _real(*a, **kw)
+            _into.append(h)
+            return h
+
+        engines[role].submit = submit
+    servers = {role: serve(e, port=0, block=False) for role, e in engines.items()}
+    url = {role: f"http://127.0.0.1:{srv.server_address[1]}"
+           for role, srv in servers.items()}
+    profiler.reset_kernel_launch_counts()
+    profiler.reset_disagg()
+    replays0 = {role: e._decode_g.replay_count for role, e in engines.items()}
+    rows = []
+    try:
+        for i, p in enumerate(prompts):
+            t_co = time.perf_counter()
+            code, _, body = _post_full(url["colocated"] + "/generate", {
+                "input_ids": p.tolist(), "max_new_tokens": new_tokens})
+            assert code == 200, (code, body)
+            ref = body["tokens"]
+            if i == len(prompts) - 1:
+                # a reservation nobody consumes lapses: the next one's
+                # purge returns its headroom
+                code, _, orphan = _post_full(url["decode"] + "/reserve", {
+                    "prompt_len": int(p.size), "max_new_tokens": new_tokens,
+                    "ttl_s": ttl_s})
+                held = dec.healthz()["reserved_pages"]
+                time.sleep(2 * ttl_s)
+            t_dis = time.perf_counter()
+            code, _, rsv = _post_full(url["decode"] + "/reserve", {
+                "prompt_len": int(p.size), "max_new_tokens": new_tokens})
+            assert code == 200, (code, rsv)
+            reserved = dec.healthz()["reserved_pages"]
+            t1 = time.perf_counter()
+            code, _, pf = _post_full(url["prefill"] + "/prefill",
+                                     {"input_ids": p.tolist()})
+            assert code == 200, (code, pf)
+            t2 = time.perf_counter()
+            body = {"input_ids": p.tolist(), "max_new_tokens": new_tokens,
+                    "handoff": pf["handoff"], "reservation": rsv["reservation"]}
+            code, _, got = _post_full(url["decode"] + "/generate", body)
+            assert code == 200, (code, got)
+            t3 = time.perf_counter()
+            h_co, h_dec = handles["colocated"][-1], handles["decode"][-1]
+            rows.append(dict(
+                L=int(p.size), same=got["tokens"] == ref,
+                wire=pf["handoff"]["payload_bytes"], pages=-(-p.size // dec.page_size),
+                rsv_pages=rsv["pages"], reserved=reserved,
+                after=dec.healthz()["reserved_pages"],
+                prefill_hop_ms=(t2 - t1) * 1e3, generate_hop_ms=(t3 - t2) * 1e3,
+                ttft_co=(h_co._submit_t + h_co.ttft_s - t_co) * 1e3,
+                ttft_dis=(h_dec._submit_t + h_dec.ttft_s - t_dis) * 1e3,
+                dec_s=(h_dec._finish_t - h_dec._submit_t - h_dec.ttft_s),
+                co_s=(h_co._finish_t - h_co._submit_t - h_co.ttft_s),
+                n=len(h_dec.tokens)))
+        counts = profiler.kernel_launch_counts()
+        steps = {role: e._decode_g.replay_count - replays0[role]
+                 for role, e in engines.items()}
+        code, _, batch = _post_full(url["prefill"] + "/prefill",
+                                    {"input_ids": [prompts[0].tolist()] * 2})
+        check("POST /prefill with two prompts", code == 400
+              and batch.get("type") == "ValueError", f"answered {code} {batch.get('type')}")
+        with urllib.request.urlopen(url["decode"] + "/metrics", timeout=60) as r:
+            samples, _ = _obs_samples(r.read().decode())
+    finally:
+        for srv in servers.values():
+            srv.stop()
+        engine_mod.serialize_kv_handoff = serialize
+    expired = [e for e in flight.events() if e["kind"] == "disagg"
+               and e["detail"] == "reserve_expired"
+               and e.get("rid") == orphan.get("reservation")]
+    check("disaggregated tokens equal the colocated engine's, bit for bit",
+          all(r["same"] for r in rows),
+          "; ".join(f"{r['L']} {'equal' if r['same'] else 'DIFFER'}" for r in rows))
+    check("reservations: held until the admission, 0 after it",
+          all(r["reserved"] == r["rsv_pages"] > 0 and r["after"] == 0 for r in rows),
+          "; ".join(f"{r['L']}: {r['reserved']}/{r['rsv_pages']} -> {r['after']}"
+                    for r in rows))
+    check(f"a {ttl_s} s reservation left to lapse", orphan.get("pages") == held
+          and rows[-1]["reserved"] == rows[-1]["rsv_pages"] and len(expired) >= 1,
+          f"held {held} pages, then the next reservation alone "
+          f"({rows[-1]['reserved']}); reserve_expired records {len(expired)}")
+    n_fresh = len(prompts) - n_hits
+    dec_steps = steps["colocated"] + steps["decode"] + steps["prefill"]
+    want = {"flash_fwd": 2 * n_fresh * layers,
+            "paged_decode_fused": (2 * n_hits + dec_steps) * layers,
+            "paged_decode_fused_mma": 2 * n_hits * layers,
+            "paged_decode_fused_walk": dec_steps * layers}
+    if kv_quant == "int8":
+        want = {k.replace("paged_decode_fused", "paged_decode_fused_q8"): v
+                for k, v in want.items() if k != "flash_fwd"}
+        want["flash_fwd"] = 2 * n_fresh * layers
+    if not on_card:
+        want = dict.fromkeys(want, 0)
+    check("launches of the pass", all(counts.get(k, 0) == v for k, v in want.items()),
+          f"{_main(counts)} (expected {want}: {n_fresh} fresh prefills and "
+          f"{n_hits} prefix hit on the colocated and the prefill engines, "
+          f"{dec_steps} decode steps of the colocated ({steps['colocated']}) "
+          f"and decode ({steps['decode']}) engines, every hit on the chunk "
+          "window, every decode step on the walk)")
+    for role, e in engines.items():
+        ok &= _no_retrace(f"{phase} {role}", e, warm[role])
+    disagg = {k: _obs_metric(samples, f"paddle_disagg_{k}_total", role="decode")
+              for k in ("exports", "imports", "import_pages", "handoff_bytes")}
+    mine = {"exports": len(rows), "imports": len(rows),
+            "import_pages": sum(r["pages"] for r in rows),
+            "handoff_bytes": sum(r["wire"] for r in rows)}
+    check("paddle_disagg_* on the decode server's /metrics", disagg == mine,
+          f"{disagg} (the phase's own counts {mine})")
+    ok &= check_import_replay(phase, dec)
+    per_tok = {r["wire"] / r["L"] for r in rows}
+    imp_ms = time_ms(lambda: dec._import_g(None), iters=10) if on_card else 0.0
+    figs = {"wire": {r["L"]: r["wire"] for r in rows}}
+    med = lambda xs: statistics.median(xs) if xs else 0.0  # noqa: E731
+    log(phase, f"record: wire bytes per prompt token {sorted(per_tok)}; per "
+               "request (prompt tokens: export gather + copy ms, serialize ms, "
+               "/prefill hop ms, decode-side stage ms, import host ms, "
+               "/generate hop ms): " + "; ".join(
+                   f"{r['L']}: {times['export'][i]:.2f}, {times['serialize'][i]:.1f}, "
+                   f"{r['prefill_hop_ms']:.1f}, {times['stage'][i]:.1f}, "
+                   f"{times['import'][i]:.2f}, {r['generate_hop_ms']:.1f}"
+                   for i, r in enumerate(rows)) + f" | {smi}")
+    log(phase, f"record: one import page (replay of the import graph, "
+               f"{layers} layers' K/V tiles, CUDA events) "
+               f"{imp_ms:.4f} ms; TTFT ms, disaggregated (from /reserve to "
+               f"the decode side's first token) against colocated (from its "
+               f"POST): " + "; ".join(f"{r['L']}: {r['ttft_dis']:.1f} vs "
+                                      f"{r['ttft_co']:.1f}" for r in rows)
+               + f"; medians {med([r['ttft_dis'] for r in rows]):.1f} vs "
+                 f"{med([r['ttft_co'] for r in rows]):.1f} | {smi}")
+    dec_tps = sum(r["n"] - 1 for r in rows) / max(1e-9, sum(r["dec_s"] for r in rows))
+    co_tps = sum(r["n"] - 1 for r in rows) / max(1e-9, sum(r["co_s"] for r in rows))
+    log(phase, f"record: decode tokens/s of one request at a time after its "
+               f"first token, decode role {dec_tps:.2f}, colocated "
+               f"{co_tps:.2f} | {smi}")
+    figs.update(import_page_ms=imp_ms, dec_tps=dec_tps, co_tps=co_tps)
+    del engines, co, pre, dec
+    return ok, counts, figs
+
+
+def phase_disagg(smi, model, device="cuda", spec=DISAGG_SPEC,
+                 sys_len=DISAGG_SYS_LEN, new_tokens=DISAGG_NEW,
+                 int8=DISAGG_INT8, ttl_s=DISAGG_TTL_S, **engine_kw):
+    """Disaggregated prefill/decode on `model` (the serving phases', full
+    width and depth): `_disagg_pass` in the model's dtype over the prompts
+    of `spec`, then over int8 pages over those at the indices `int8`, whose
+    wire bytes must be (head_dim + 4) / (head_dim x the dtype's bytes) of
+    the first pass's for the same prompts (an int8 row's head ships its
+    elements and a float32 scale: 0.5156 for Llama-2-7B in bf16).  Returns
+    (all checks passed, [launch counts of each pass])."""
+    import torch
+
+    on_card = torch.device(device).type == "cuda"
+    prompts = _disagg_prompts(model.config, spec, sys_len)
+    # every system-prompt request after the first takes a hit
+    hits = lambda part: max(0, sum(isinstance(x, tuple) for x in part) - 1)  # noqa: E731
+    ok, counts, figs = _disagg_pass("disagg", smi, model, prompts, hits(spec),
+                                    "none", device, new_tokens, ttl_s, **engine_kw)
+    if on_card:
+        _free()
+    ok8, counts8, figs8 = _disagg_pass("disagg int8", smi, model,
+                                       [prompts[i] for i in int8],
+                                       hits([spec[i] for i in int8]), "int8",
+                                       device, new_tokens, ttl_s, **engine_kw)
+    if on_card:
+        _free()
+    hd = model.config.head_dim
+    expect = (hd + 4) / (hd * model.lm_head.weight.element_size())
+    ratio = {L: figs8["wire"][L] / figs["wire"][L] for L in figs8["wire"]}
+    ratio_ok = all(abs(x - expect) < 1e-9 for x in ratio.values())
+    log("disagg int8", f"wire bytes against the first pass's for the same "
+                       f"prompts {ratio} (expected {expect:.4f}) -> "
+                       f"{'ok' if ratio_ok else 'FAIL'}")
+    return ok and ok8 and ratio_ok, [counts, counts8]
+
+
 def _device_profile(run, steps):
     """Run `run()` `steps` times under torch.profiler.  Returns (wall us,
     {kernel name: device us}, {annotated range: device us}, {"host_us":
@@ -6758,6 +7080,11 @@ def main():
             "sessions", phase_sessions, smi, model,
             **dict(serving, prefill_buckets=[32, 64, 128, 256, 512, 1024, 2047]))
         _free()
+        # a 1024 bucket: the 1024-token prompt prefills in a warmed one
+        disagg_ok, disagg_counts = _timed(
+            "disagg", phase_disagg, smi, model,
+            **dict(serving, prefill_buckets=[32, 64, 128, 256, 512, 1024]))
+        _free()
         # buckets up to the context: every prompt of the traffic lands in a
         # warmed one, so none traces under traffic
         cp_kw = dict(slots=4, max_len=4096, page_size=128,
@@ -6859,7 +7186,8 @@ def main():
     log("fp16", f"float16 launches on the main paths {launches16}; kernels not "
                 f"launched: {idle16 or 'none'} -> {'FAIL' if idle16 else 'ok'}")
     if not (kernels_ok and slice_ok and prefix_ok and gen_ok and dense_ok
-            and fault_ok and obs_ok and lora_ok and sessions_ok and cp_ok and f32_ok and train_ok and recompute_ok and grad_ok
+            and fault_ok and obs_ok and lora_ok and sessions_ok and disagg_ok
+            and cp_ok and f32_ok and train_ok and recompute_ok and grad_ok
             and fit_ok and resume_ok and diverge_ok and fit_bert_ok
             and amp_ok and bert_ok and bert_grad_ok and ring_ok and lc_ok
             and lc2_ok and lc_grad_ok and serve16_ok and train16_ok and amp16_ok
@@ -6869,7 +7197,8 @@ def main():
     # launches: the serving, generation and training runs' counts, each read
     # just after its path ran
     runs = [counts, *prefix_counts, gen_counts, dense_counts, fault_counts,
-            obs_counts, lora_counts, lora_solo_counts, sessions_counts, *cp_counts,
+            obs_counts, lora_counts, lora_solo_counts, sessions_counts,
+            *disagg_counts, *cp_counts,
             *f32_counts, train_counts, fit_counts, eval_counts, fit_bert_counts,
             amp_counts, bert_counts, *ring_counts, lc_counts, lc2_counts]
     launches = {name: sum(c.get(name, 0) for c in runs) for name in kernels}

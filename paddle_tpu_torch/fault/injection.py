@@ -207,6 +207,9 @@ register("serve.decode.nan",
 register("serve.loop.crash",
          "crashes the engine scheduler thread (EngineSupervisor restart "
          "drill)")
+register("disagg.prefill.crash",
+         "drops a prefill worker's POST /prefill after its export, with no "
+         "byte of response (the router sees a zero-token retriable failure)")
 register("dataloader.next", "fires before the data loader produces each batch")
 register("dataloader.hang", "HANGS the data loader's next() (watchdog drill)")
 register("supervisor.step", "fires inside Supervisor.after_step")

@@ -234,14 +234,18 @@ define_flag(
 )
 define_flag(
     "FLAGS_serve_role", "colocated",
-    "disaggregated serving: the replica's role, 'colocated', 'prefill' or "
-    "'decode'.  Only 'colocated' is ported; the others raise at engine "
-    "construction (ROADMAP Queue 1, disaggregated prefill/decode)",
+    "disaggregated serving: the replica's role, read at engine construction "
+    "when `role=None`.  'colocated' serves whole requests; 'prefill' also "
+    "exports a request's committed prompt rows at its finish "
+    "(`export_kv=True`, POST /prefill); 'decode' also imports such a "
+    "handoff instead of prefilling (`handoff=`, one more compiled step).  "
+    "Paged engines only, and not with cp > 1",
 )
 define_flag(
     "FLAGS_serve_reserve_ttl_s", 30.0,
-    "disaggregated serving: seconds a decode-side page reservation stays "
-    "valid.  Not read until disaggregated prefill/decode is ported",
+    "disaggregated serving: seconds a decode-side page reservation "
+    "(`reserve_pages`, POST /reserve) holds its headroom when `ttl_s=None`; "
+    "an expired one is purged on the next scheduler tick or reservation",
 )
 define_flag(
     "FLAGS_serve_lora_capacity", 8,

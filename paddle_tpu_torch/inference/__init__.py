@@ -1,6 +1,7 @@
 """Serving entry points of the port (counterpart of `GenerationPredictor`
-and `serve()` in `paddle_tpu/inference/__init__.py`, cut to the engine's
-and the predictor's `/generate` paths).
+and `serve()` in `paddle_tpu/inference/__init__.py`): the engine's and the
+predictor's `/generate`, and the engine's disaggregated hops `/reserve`
+and `/prefill`.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from ..fault import EngineSupervisor
+from ..fault import injection as _inj
 from ..framework import core as _fcore
 from ..lora.registry import AdapterUnknown
 from ..obs import flight as _flight
@@ -40,8 +42,10 @@ __all__ = ["serve", "ContinuousBatchingEngine", "GenerationPredictor",
            "EngineUnavailable", "DeadlineUnattainable", "DeadlineExceeded",
            "RequestCancelled", "EngineRestarted"]
 
-# the SIGTERM handlers serve() has installed and not yet put back
-_our_sigterm = set()
+# the SIGTERM handlers serve() has installed and not yet put back, each
+# mapped to the handler it replaced
+_sigterm_prev = {}
+_sigterm_mu = threading.Lock()
 
 
 def _sigterm_default_in_child():
@@ -49,11 +53,11 @@ def _sigterm_default_in_child():
     handler: the child has no server to drain, and a caught SIGTERM would
     leave it running when its parent tries to end it."""
     try:
-        if _signal.getsignal(_signal.SIGTERM) in _our_sigterm:
+        if _signal.getsignal(_signal.SIGTERM) in _sigterm_prev:
             _signal.signal(_signal.SIGTERM, _signal.SIG_DFL)
     except (ValueError, TypeError):
         pass
-    _our_sigterm.clear()
+    _sigterm_prev.clear()
 
 
 os.register_at_fork(after_in_child=_sigterm_default_in_child)
@@ -123,8 +127,10 @@ def serve(engine, port=8866, host="127.0.0.1", block=True, supervise=True,
       reference's terminal 404 AdapterUnknown (`retriable: false`), any
       adapter on an engine without an arena the reference's 400
       ValueError.  `session_id` names the request's KV session (the
-      engine's `submit`).  `handoff` and `reservation` answer a typed 400
-      NotImplementedError naming their ROADMAP Queue 1 item.  A request with `X-Idempotency-Key` generates once
+      engine's `submit`).  `handoff` (a decode-role engine) imports a
+      /prefill answer's payload instead of prefilling, and a bad one
+      answers 400 HandoffFormatError; `reservation` names a /reserve hold
+      the admission consumes (an unknown one is a no-op).  A request with `X-Idempotency-Key` generates once
       per key: a completed response (200 or a non-retriable error) is kept
       for FLAGS_router_idem_ttl seconds and replayed with
       `X-Idempotency-Replay: hit`; a retry while the first is in flight
@@ -135,6 +141,20 @@ def serve(engine, port=8866, host="127.0.0.1", block=True, supervise=True,
       answers 503; a bad body, or a request the model refuses, answers 400.
       Error bodies carry "error", "type", "retriable", "retry_after_s" and
       "trace_id", as the reference's do.
+    - POST /reserve (engine): {"prompt_len": L, "max_new_tokens": n,
+      "ttl_s": t} holds decode-side pages before a prefill starts
+      elsewhere (`engine.reserve_pages`): {"reservation", "pages",
+      "ttl_s"}, or a retriable 503 QueueFull when the headroom is not
+      there; a bad body answers 400.
+    - POST /prefill (engine; reference: inference/__init__.py:464-570):
+      one prompt (a batch answers 400) prefilled with one sampled token
+      and its committed prompt rows exported: {"first_token",
+      "prompt_len", "handoff"}, the payload a decode-role engine imports
+      through /generate's "handoff".  With "export": false nothing is
+      exported and "handoff" is null.  Deadlines, 503s and 504s as
+      /generate's; a prefill whose export failed answers a retriable 503
+      HandoffExportFailed.  The `disagg.prefill.crash` fault point closes
+      the connection after the export with no byte of response.
     - GET /health: {"status": "ok"}.
     - GET /healthz: an engine's status (ready, live, draining, dead),
       occupancy, queue depth, restarts, drain estimate, deadline-miss rate,
@@ -142,7 +162,8 @@ def serve(engine, port=8866, host="127.0.0.1", block=True, supervise=True,
       {"status": "ready"} (or "draining").
     - GET /metrics: every profiler family as Prometheus text
       (`obs.metrics.render`), each sample labelled {replica="host:port"}
-      with the bound address.
+      with the bound address, and {role="prefill"|"decode"} behind an
+      engine of a disaggregated role.
     - GET /trace/<id>: {"trace_id", "spans": [root, ...]}, the span tree of
       one trace (`obs.trace.tree`), or 404 when none of its spans is
       buffered.
@@ -166,7 +187,8 @@ def serve(engine, port=8866, host="127.0.0.1", block=True, supervise=True,
     (`serve-drain`); while it lasts, /metrics, /trace and /healthz still
     answer.  SIGTERM drains too, when serve() runs on the main thread or
     `handle_signals=True`; the previous handler comes back when the server
-    stops, and a forked child starts with SIG_DFL.
+    stops (servers stopped in any order leave no stopped server's handler
+    installed), and a forked child starts with SIG_DFL.
 
     `port=0` binds a free port (read it from `server.server_address`).
     With `block=False` the server runs on a daemon thread and the returned
@@ -255,7 +277,10 @@ def serve(engine, port=8866, host="127.0.0.1", block=True, supervise=True,
             elif self.path == "/metrics":
                 # the bound address, not the port argument (0: ephemeral)
                 bh, bp = self.server.server_address[:2]
-                body = _obs_metrics.render(labels={"replica": f"{bh}:{bp}"}).encode()
+                labels = {"replica": f"{bh}:{bp}"}
+                if engine is not None and engine.role != "colocated":
+                    labels["role"] = engine.role
+                body = _obs_metrics.render(labels=labels).encode()
                 self.send_response(200)
                 self.send_header("Content-Type", _obs_metrics.CONTENT_TYPE)
                 self.send_header("Content-Length", str(len(body)))
@@ -294,6 +319,12 @@ def serve(engine, port=8866, host="127.0.0.1", block=True, supervise=True,
         def _do_post(self):
             if state["draining"]:
                 self._busy("server draining, retry elsewhere", err_type="Draining")
+                return
+            if engine is not None and self.path == "/reserve":
+                self._reserve_engine()
+                return
+            if engine is not None and self.path == "/prefill":
+                self._prefill_engine()
                 return
             if self.path != "/generate":
                 self._reply(404, {"error": "use POST /generate"})
@@ -408,6 +439,88 @@ def serve(engine, port=8866, host="127.0.0.1", block=True, supervise=True,
             except Exception as e:  # a bad body, or a failure inside the engine
                 self._error(400, e, msg=f"{type(e).__name__}: {e}")
 
+        def _reserve_engine(self):
+            # the decode side's page hold, taken before the prefill starts
+            # on another server (reference: inference/__init__.py:464-485)
+            try:
+                n = int(self.headers.get("Content-Length", 0))
+                req = json.loads(self.rfile.read(n))
+                ttl = req.get("ttl_s")
+                out = engine.reserve_pages(
+                    int(req["prompt_len"]), int(req.get("max_new_tokens") or 32),
+                    ttl_s=None if ttl is None else float(ttl))
+                self._reply(200, out)
+            except EngineUnavailable as e:  # QueueFull among them
+                self._busy(str(e), retry_after=e.retry_after_s,
+                           err_type=type(e).__name__)
+            except Exception as e:  # a bad body
+                self._error(400, e, msg=f"{type(e).__name__}: {e}")
+
+        def _prefill_engine(self):
+            # the prefill hop: one sampled token, then the prompt's rows
+            # (reference: inference/__init__.py:487-570)
+            try:
+                n = int(self.headers.get("Content-Length", 0))
+                req = json.loads(self.rfile.read(n))
+                ids = req["input_ids"]
+                if ids and isinstance(ids[0], list):
+                    self._reply_error(400, "ValueError",
+                                      "/prefill takes one prompt per request",
+                                      False)
+                    return
+                deadline_s = self._deadline_s(req)
+                if deadline_s is not None and deadline_s <= 0:
+                    self._reply_error(504, "DeadlineExceeded",
+                                      "deadline exhausted before admission", False)
+                    return
+                # "export": false, the router's single-token fast path: the
+                # sampled token is the whole answer
+                want_export = bool(req.get("export", True))
+                try:
+                    h = engine.submit(
+                        ids, max_new_tokens=1,
+                        temperature=float(req.get("temperature", 0.0)),
+                        eos_token_id=req.get("eos_token_id"),
+                        deadline_s=deadline_s,
+                        trace=(self._trace_id, self._handle_sid),
+                        spec_k=0, export_kv=want_export)
+                except DeadlineUnattainable as e:
+                    self._reply_error(504, type(e).__name__, str(e), True,
+                                      e.retry_after_s)
+                    return
+                except EngineUnavailable as e:
+                    self._busy(str(e), retry_after=e.retry_after_s,
+                               err_type=type(e).__name__)
+                    return
+                out = h.wait(timeout=600)
+                if _inj.should_fire("disagg.prefill.crash", "serve./prefill"):
+                    # the drill: the payload exists here, but no byte of
+                    # the answer leaves (a zero-token retriable failure)
+                    self.close_connection = True
+                    return
+                if not want_export:
+                    self._reply(200, {"first_token": int(out[len(ids)]),
+                                      "prompt_len": len(ids), "handoff": None})
+                    return
+                if h.kv_export is None:
+                    self._reply_error(
+                        503, "HandoffExportFailed",
+                        "prefill finished but the page export failed; retry",
+                        True)
+                    return
+                payload = h.kv_export
+                self._reply(200, {"first_token": payload.get("first_token"),
+                                  "prompt_len": payload["prompt_len"],
+                                  "handoff": payload})
+            except EngineRestarted as e:
+                self._busy(str(e), err_type=type(e).__name__)
+            except DeadlineExceeded as e:
+                self._reply_error(504, type(e).__name__, str(e), False)
+            except NonFiniteLogits as e:
+                self._error(500, e)
+            except Exception as e:
+                self._error(400, e, msg=f"{type(e).__name__}: {e}")
+
         def _generate_predictor(self):
             if not gate.acquire(blocking=False):
                 self._error(503, RuntimeError("admission queue full, retry later"),
@@ -437,18 +550,28 @@ def serve(engine, port=8866, host="127.0.0.1", block=True, supervise=True,
 
     def restore_handler():
         """Put the previous SIGTERM handler back, unless someone replaced
-        ours meanwhile.  Only the main thread may: elsewhere (the drain
-        worker) it stays for a later stop() on the main thread."""
-        if _signal.SIGTERM not in prev_handler:
-            return
-        ours = prev_handler["ours"]
-        try:
-            if _signal.getsignal(_signal.SIGTERM) is ours:
-                _signal.signal(_signal.SIGTERM, prev_handler[_signal.SIGTERM])
-        except ValueError:
-            return
-        del prev_handler[_signal.SIGTERM], prev_handler["ours"]
-        _our_sigterm.discard(ours)
+        ours meanwhile, and take ours out of the chain: a server started
+        after this one and stopped later falls back to what ours replaced,
+        never to ours, whose server is gone (servers stopped in the order
+        they started would otherwise leave the first one's handler
+        installed, holding its engine).  Only the main thread may install:
+        elsewhere (the drain worker) ours stays for a later stop() on the
+        main thread."""
+        ours = prev_handler.get("ours")
+        with _sigterm_mu:
+            if ours not in _sigterm_prev:
+                return
+            prev = _sigterm_prev[ours]
+            try:
+                if _signal.getsignal(_signal.SIGTERM) is ours:
+                    _signal.signal(_signal.SIGTERM, prev)
+            except ValueError:
+                return
+            del _sigterm_prev[ours]
+            for h, p in _sigterm_prev.items():
+                if p is ours:
+                    _sigterm_prev[h] = prev
+        prev_handler.clear()
 
     def stop():
         if supervisor is not None:
@@ -495,9 +618,9 @@ def serve(engine, port=8866, host="127.0.0.1", block=True, supervise=True,
     if handle_signals or handle_signals is None:
         handler = lambda signum, frame: drain()  # noqa: E731
         try:
-            prev_handler[_signal.SIGTERM] = _signal.signal(_signal.SIGTERM, handler)
+            with _sigterm_mu:
+                _sigterm_prev[handler] = _signal.signal(_signal.SIGTERM, handler)
             prev_handler["ours"] = handler
-            _our_sigterm.add(handler)
         except ValueError:  # not the main thread
             if handle_signals:
                 raise

@@ -172,10 +172,31 @@ ids and trace ids, never a request.  Admission refusals
 (`rejected_deadline`, `queue_full`) go to the flight recorder's ring, and
 so do restarts and `fail_all` (through `fault.injection.record_event`).
 
-Not ported yet (ROADMAP, Queue 1): the disaggregated page import, tensor
-parallelism and context parallelism across cards (NCCL).  A knob that
-asks for one of them raises NotImplementedError, and so does a request
-field of one (`submit`'s `handoff`, `reservation`, `export_kv=True`).
+Disaggregated prefill/decode (`role=`, FLAGS_serve_role; reference:
+engine.py:447-475, :2428-2530, :2895-3033): paged engines play one side of
+a KV handoff.  A request submitted with `export_kv=True` (any paged role;
+POST /prefill on a prefill-role server) has its committed prompt rows [0,
+L) of every layer read out at its finish on eos or length, while the slot
+still maps its pages: one `index_select` per arena tensor into one device
+buffer, one copy to pinned host memory, serialized into
+`req.kv_export` with the first token (`paging.serialize_kv_handoff`).  A
+decode-role engine takes such a payload in `submit(handoff=)`, validated
+and staged on the host before it queues; its admission maps fresh pages
+(never prefix-shared), uploads the rows once and lands them page by page
+through the "import" StepGraph (`[n_layers, page_size, kv_heads,
+head_dim]` tiles and the destination page as static inputs; a partial
+last page zero-padded, its int8 scale rows 1.0), commits the prompt's
+pages to the prefix cache and seats the slot as a prefill landing does:
+pos = L, the shipped first token emitted first.  Only decode-role engines
+build that graph, so the other roles' `compile_counts()` keep their keys.
+`reserve_pages()` holds decode-side headroom before the prefill starts
+elsewhere: a counter against fresh-allocation headroom (no pool refs),
+consumed by the handoff's admission before its page check, purged on the
+scheduler tick after its TTL.
+
+Not ported yet (ROADMAP, Queue 1): tensor parallelism and context
+parallelism across cards (NCCL).  A knob that asks for one of them raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -207,14 +228,18 @@ from ..models.llama import (
 from ..ops.flash_attention import MAX_HEAD_DIM, cp_local_tables
 from .graphs import StepGraph, new_pool
 from .paging import (
+    HandoffFormatError,
     PagePool,
     PrefixCache,
     SessionStore,
     check_scale_arenas,
     check_table_bounds,
+    deserialize_kv_handoff,
     kv_page_bytes,
+    serialize_kv_handoff,
     spec_write_pages,
     validate_kv_quant,
+    wire_dtype_name,
 )
 from .spec import NgramDrafter
 
@@ -348,7 +373,11 @@ class EngineRequest:
     None.  `adapter` is the resolved `lora.LoRAAdapter` (None: the base
     model) and `adapter_slot` its arena slot while bound; `session_id`
     names the request's session and `session_reused_tokens` counts the
-    prompt tokens whose K/V came from cached pages."""
+    prompt tokens whose K/V came from cached pages.  Disaggregated serving:
+    with `export_kv` the finish fills `kv_export` (the handoff payload, or
+    None when the export failed); `handoff` holds an import's staged rows
+    and first token until its admission; `reservation` names the
+    `reserve_pages` hold the admission consumes."""
 
     def __init__(self, rid, prompt, max_new_tokens, temperature, eos_token_id,
                  keep_logits=False, spec_k=None, on_token=None, deadline_s=None,
@@ -368,6 +397,10 @@ class EngineRequest:
         self.adapter_slot = None
         self.session_id = None if session_id is None else str(session_id)
         self.session_reused_tokens = 0
+        self.export_kv = False
+        self.kv_export = None
+        self.handoff = None
+        self.reservation = None
         self.logits = []
         self.tokens = []  # generated ids (eos included when hit)
         self.finished = threading.Event()
@@ -473,6 +506,12 @@ class ContinuousBatchingEngine:
                 f"cp={self.cp} requires the paged engine: context parallelism "
                 "shards the page arena, not dense slot buffers"
             )
+        if self.cp > 1 and self.role != "colocated":
+            raise ValueError(
+                f"cp={self.cp} with role={self.role!r}: the disaggregated "
+                "handoff assumes single-shard page ownership; run cp on "
+                "colocated replicas"
+            )
         # speculation rides the paged scatter's scratch redirect for its
         # rejected rows: the dense pool keeps it off, as the reference does
         sk = int(flag("FLAGS_serve_spec_k") if spec_k is None else spec_k)
@@ -556,6 +595,11 @@ class ContinuousBatchingEngine:
         self._requeue = []
         self._queued_new_tokens = 0  # tokens owed to queued + requeued work
         self._admitting = None  # request between queue pop and slot landing
+        # decode-side page reservations: id -> (pages, expiry on the
+        # perf_counter clock), and their sum; a counter against fresh
+        # headroom, never pool refs (the page audit holds refs to holds)
+        self._reserved = {}
+        self._reserved_pages = 0
         self._cv = threading.Condition()
         self._mu = threading.RLock()  # slot table, host mirrors, requeue
         # held across each dispatch (static input copies, replay, output
@@ -653,6 +697,11 @@ class ContinuousBatchingEngine:
         self.min_prefix_match = 8
         self._page_table = np.zeros((self.slots, self.pages_per_seq), np.int32)
         self._slot_pages = [[] for _ in range(self.slots)]
+        # the handoff geometry, kept once: submit() holds payloads to it and
+        # the export stamps it on the wire
+        self._kv_heads = int(cfg.num_key_value_heads)
+        self._head_dim = int(head_dim)
+        self._kv_dtype_name = wire_dtype_name(cache_dtype)
 
     @staticmethod
     def _check_not_ported(paged, lora, tp, role):
@@ -671,8 +720,6 @@ class ContinuousBatchingEngine:
                 )
         if int(flag("FLAGS_serve_tp") if tp is None else tp) > 1:
             raise _not_ported("tp > 1", "tensor-parallel serving")
-        if role != "colocated":
-            raise _not_ported(f"role={role!r}", "disaggregated prefill/decode")
 
     # -- compiled steps ----------------------------------------------------------
 
@@ -694,6 +741,10 @@ class ContinuousBatchingEngine:
             self._chunk_g = self._copy_g = None
             self._decode_g = graph("decode", self._decode_dense_body)
         self._verify_g = graph("verify", self._verify_body) if self._spec_on else None
+        # the handoff import: decode-role engines only, so the other roles'
+        # compile_counts() keep their keys
+        self._import_g = (graph("import", self._import_page_body)
+                          if self.paged and self.role == "decode" else None)
 
     def step_graphs(self):
         """The engine's executables by compile_counts() key."""
@@ -701,16 +752,18 @@ class ContinuousBatchingEngine:
         if self.paged:
             out["chunk_prefill"] = self._chunk_g
             out["copy"] = self._copy_g
+        if self._import_g is not None:
+            out["import"] = self._import_g
         if self._spec_on:
             out["verify"] = self._verify_g
         return out
 
     def compile_counts(self):
         """{prefill, decode} trace counts, plus chunk_prefill and copy when
-        paged and verify under speculation (the reference's keys,
-        engine.py:1366): prefill == buckets used, chunk_prefill == buckets
-        warmed, decode, copy and verify == 1, and no new trace under
-        traffic.  `aot_hits` is 0: the port keeps no executable cache."""
+        paged, import on a decode-role engine and verify under speculation
+        (the reference's keys, engine.py:1366-1392): prefill == buckets
+        used, chunk_prefill == buckets warmed, decode, copy, import and
+        verify == 1, and no new trace under traffic.  `aot_hits` is 0: the port keeps no executable cache."""
         out = {k: g.trace_count for k, g in self.step_graphs().items()}
         out["aot_hits"] = 0
         return out
@@ -795,6 +848,24 @@ class ContinuousBatchingEngine:
             for t in (a.k, a.v, a.k_scale, a.v_scale):
                 if t is not None:
                     t.index_copy_(0, dst, t.index_select(0, src))
+        return ()
+
+    @torch.no_grad()
+    def _import_page_body(self, k_tiles, v_tiles, dst, k_scale_tiles=None,
+                          v_scale_tiles=None):
+        """The handoff import (reference: `_import_page_body`,
+        engine.py:1024-1075): one page of shipped prompt rows into arena
+        page dst [1] across every layer.  k_tiles/v_tiles [n_layers,
+        page_size, kv_heads, head_dim] (int8 under int8 pages, with their
+        float32 scale tiles [n_layers, page_size, kv_heads, 1]); a partial
+        last page arrives padded, its padding rows past the slot's pos."""
+        dst = dst.long()
+        tiles = {"k": k_tiles, "v": v_tiles, "k_scale": k_scale_tiles,
+                 "v_scale": v_scale_tiles}
+        for i, a in enumerate(self._arenas):
+            for name, t in tiles.items():
+                if t is not None:
+                    getattr(a, name).index_copy_(0, dst, t[i:i + 1])
         return ()
 
     def _paged_views(self, tables, local):
@@ -991,12 +1062,17 @@ class ContinuousBatchingEngine:
         so the next turn resumes from it; without a prefix cache every turn
         re-prefills statelessly.
 
-        The reference's other request fields refuse as it would on an
-        engine like this one, or name the Queue 1 item that ports them:
-        `deadline_s` <= 0 raises ValueError; a `handoff` with an adapter or
-        a session raises the reference's ValueError, and `handoff`,
-        `reservation` and `export_kv=True` raise NotImplementedError
-        (disaggregated prefill/decode)."""
+        Disaggregated serving (reference: engine.py:1078-1232):
+        `export_kv=True` (paged engines; else ValueError) fills the
+        request's `kv_export` at its finish.  `handoff` carries such a
+        payload into a paged decode-role engine (a ValueError elsewhere,
+        and with an adapter or a session): it is deserialized, held to the
+        arena's geometry, the prompt's length and a first token in the
+        vocabulary (HandoffFormatError otherwise) and staged on the host
+        before the request queues; the admission imports it instead of
+        prefilling.  `reservation` names a `reserve_pages` hold that the
+        admission consumes (an unknown or expired one is a no-op).
+        `deadline_s` <= 0 raises ValueError."""
         raw = np.asarray(input_ids).reshape(-1)
         if raw.size == 0:
             raise ValueError("empty prompt")
@@ -1036,18 +1112,27 @@ class ContinuousBatchingEngine:
                     f"adapter {adapter_obj.name!r} rank {adapter_obj.rank} "
                     f"exceeds the arena rank_max {self._lora.rank_max}"
                 )
-        if handoff is not None and adapter_obj is not None:
+        if export_kv and not self.paged:
             raise ValueError(
-                "handoff requests cannot name a LoRA adapter: the prefill "
-                "worker's exported KV embeds no adapter deltas")
-        if handoff is not None and session_id is not None:
-            raise ValueError(
-                "session_id cannot combine with a KV handoff import: sessions "
-                "live on the prefill-owning replica's pages")
-        for knob, value in (("handoff", handoff), ("reservation", reservation),
-                            ("export_kv", export_kv or None)):
-            if value is not None:
-                raise _not_ported(knob, "disaggregated prefill/decode")
+                "export_kv requires the paged engine (the handoff payload is "
+                "the committed page rows)")
+        staged = None
+        if handoff is not None:
+            # typed refusals before the request queues: a wrong role, a
+            # foreign geometry or corrupt rows never reach a compiled step
+            if not (self.paged and self.role == "decode"):
+                raise ValueError(
+                    "handoff import requires a paged engine in the 'decode' "
+                    f"role (this engine: paged={self.paged}, role={self.role!r})")
+            if adapter_obj is not None:
+                raise ValueError(
+                    "handoff requests cannot name a LoRA adapter: the prefill "
+                    "worker's exported KV embeds no adapter deltas")
+            if session_id is not None:
+                raise ValueError(
+                    "session_id cannot combine with a KV handoff import: "
+                    "sessions live on the prefill-owning replica's pages")
+            staged = self._stage_handoff(handoff, ids.size)
         if self._dead:
             raise EngineUnavailable(
                 "engine is dead (restart budget exhausted); restart the server")
@@ -1081,6 +1166,9 @@ class ContinuousBatchingEngine:
                             temperature, eos_token_id, keep_logits, spec_k,
                             on_token, deadline_s=deadline_s, trace=trace,
                             adapter=adapter_obj, session_id=session_id)
+        req.export_kv = bool(export_kv)
+        req.handoff = staged
+        req.reservation = None if reservation is None else str(reservation)
         req._submit_t = time.perf_counter()
         if deadline_s is not None:
             req._deadline_t = req._submit_t + float(deadline_s)
@@ -1102,6 +1190,45 @@ class ContinuousBatchingEngine:
             self._cv.notify()
         return req
 
+    def _stage_handoff(self, payload, prompt_len):
+        """(rows, first token) of a handoff payload for this engine's
+        import: the payload held to the arena's geometry and the prompt,
+        its rows laid out as the import's tiles want them, `{name:
+        [n_layers, pages * page_size, ...]}` host tensors (pinned on the
+        card) padded past the prompt with zero rows, and 1.0 in the padding
+        of the int8 scale rows (masked rows still flow through the
+        attention sum and must stay finite; reference: engine.py:2484)."""
+        layers, L = deserialize_kv_handoff(
+            payload, self.kv_quant, self._kv_heads, self._head_dim,
+            len(self._arenas), self._kv_dtype_name)
+        if L != int(prompt_len):
+            raise HandoffFormatError(
+                f"handoff prompt_len {L} != submitted prompt length "
+                f"{int(prompt_len)}")
+        first = payload.get("first_token")
+        if first is None:
+            raise HandoffFormatError(
+                "handoff payload missing first_token (the prefill worker's "
+                "sampled token)")
+        first = int(first)
+        if not 0 <= first < self.model.config.vocab_size:
+            # on the card an out-of-vocabulary embedding row poisons the
+            # CUDA context (see the prompt's check above)
+            raise HandoffFormatError(
+                f"handoff first_token {first} outside the vocabulary [0, "
+                f"{self.model.config.vocab_size})")
+        rows = -(-L // self.page_size) * self.page_size
+        pin = self.device.type == "cuda"
+        staged = {}
+        for name, t in layers[0].items():
+            buf = torch.full((len(layers), rows) + tuple(t.shape[1:]),
+                             1.0 if name.endswith("_scale") else 0,
+                             dtype=t.dtype, pin_memory=pin)
+            for i, ly in enumerate(layers):
+                buf[i, :L] = ly[name]
+            staged[name] = buf
+        return staged, first
+
     def generate(self, input_ids, max_new_tokens=32, temperature=0.0,
                  eos_token_id=None, timeout=None, adapter=None):
         """Submit and wait; drives the scheduler inline when no thread runs.
@@ -1116,8 +1243,8 @@ class ContinuousBatchingEngine:
     def warmup(self):
         """Trace every executable before traffic (reference: engine.py:1266):
         each prefill bucket (and, paged, its chunk prefill), the COW copy,
-        the decode step and, under speculation, the verify step, on dummy
-        data.  On the card a trace builds the kernels, warms the matmul
+        a decode-role engine's import, the decode step and, under
+        speculation, the verify step, on dummy data.  On the card a trace builds the kernels, warms the matmul
         library and captures the step's CUDA graph.  All-zero tables aim
         every write at scratch page 0; the dense pool's warmup writes slot
         0's rows, which its next real prefill rewrites before any of them
@@ -1133,6 +1260,17 @@ class ContinuousBatchingEngine:
                 self._run_prefill(toks, b, 0.0, slot=0)
         if self.paged:
             self._copy_page(0, 0)  # scratch onto itself
+        if self._import_g is not None:
+            # zero tiles onto scratch page 0 (reference: engine.py:1296):
+            # no live sequence maps it
+            tile = (len(self._arenas), self.page_size, self._kv_heads)
+            elem = self._arenas[0].k.dtype
+            inp = {"k_tiles": torch.zeros(tile + (self._head_dim,), dtype=elem),
+                   "v_tiles": torch.zeros(tile + (self._head_dim,), dtype=elem)}
+            if self.kv_quant == "int8":
+                inp["k_scale_tiles"] = torch.ones(tile + (1,))
+                inp["v_scale_tiles"] = torch.ones(tile + (1,))
+            self._import_g(None, dst=np.zeros(1, np.int32), **inp)
         idle = self._idle_step_inputs()
         self._decode_g(None, toks=np.zeros((self.slots, 1), np.int32), **idle)
         if self._spec_on:
@@ -1192,9 +1330,12 @@ class ContinuousBatchingEngine:
         status dead (restart budget spent), draining, ready (scheduler
         thread alive) or live, occupancy, queue depth, restarts, the
         queue-drain estimate, the EWMA decode step time, the deadline-miss
-        rate and the serving layout; with a session store its `stats()`
-        under "sessions", with an adapter arena its `stats()` and resident
-        adapter names under "lora" (reference: engine.py:1515-1525)."""
+        rate and the serving layout; the role and the pages held by live
+        reservations (`page_free_frac` is net of them: the router must see
+        a pending handoff's pages as gone); with a session store its
+        `stats()` under "sessions", with an adapter arena its `stats()` and
+        resident adapter names under "lora" (reference:
+        engine.py:1442-1525)."""
         t = self._thread
         if self._dead:
             status = "dead"
@@ -1205,7 +1346,8 @@ class ContinuousBatchingEngine:
         else:
             status = "live"
         if self.paged:
-            page_free = self._pool.free_count() / max(1, self._pool.usable_pages)
+            page_free = (max(0, self._pool.free_count() - self._reserved_pages)
+                         / max(1, self._pool.usable_pages))
         else:  # the reference's dense figure: free slots
             page_free = (self.slots - self.active_slots) / self.slots
         ew = self._step_ewma_s
@@ -1223,6 +1365,8 @@ class ContinuousBatchingEngine:
             "tokens_per_step": round(self._tok_rate_ewma, 3),
             "deadline_miss_rate": round(self._miss_ewma, 4),
             "kv_quant": self.kv_quant,
+            "role": self.role,
+            "reserved_pages": int(self._reserved_pages),
             "device": str(self.device),
             "tp": 1,
             "cp": self.cp,
@@ -1241,6 +1385,66 @@ class ContinuousBatchingEngine:
             lora["adapters"] = self._lora.resident()
             out["lora"] = lora
         return out
+
+    # -- disaggregated serving: decode-side page reservations ------------------
+
+    _rsv_ids = itertools.count(1)  # reservation ids unique across engines
+
+    def reserve_pages(self, prompt_len, max_new_tokens, ttl_s=None):
+        """Hold decode-side headroom for a handoff before its prefill starts
+        elsewhere, so that a finished prefill never strands (reference:
+        engine.py:1528-1566).  Returns {"reservation": "rsv-<n>", "pages",
+        "ttl_s"}; raises QueueFull when the request's worst-case pages
+        exceed the unreserved fresh headroom, EngineUnavailable on a dense,
+        draining or dead engine.  The hold pins no page and takes no pool
+        ref; it lapses after `ttl_s` (FLAGS_serve_reserve_ttl_s when None),
+        so a router that dies mid-handoff costs headroom for that long."""
+        if not self.paged:
+            raise EngineUnavailable("page reservations require the paged engine")
+        if self._dead:
+            raise EngineUnavailable(
+                "engine is dead (restart budget exhausted); restart the server")
+        if self._draining:
+            raise EngineUnavailable("engine is draining (shutdown in progress)",
+                                    retry_after_s=self.estimate_drain_s())
+        need = self._pages_for(int(prompt_len), int(max_new_tokens))
+        ttl = float(_fcore.flag("FLAGS_serve_reserve_ttl_s")
+                    if ttl_s is None else ttl_s)
+        with self._mu:
+            self._purge_reservations_locked()
+            head = min(self._page_fresh_headroom_by_shard_locked(()))
+            if need > head:
+                raise QueueFull(
+                    f"cannot reserve {need} KV pages (prompt {prompt_len} + "
+                    f"max_new {max_new_tokens}): only {max(0, head)} unreserved "
+                    "pages of headroom",
+                    retry_after_s=self.estimate_drain_s())
+            rid = f"rsv-{next(self._rsv_ids)}"
+            self._reserved[rid] = (need, time.perf_counter() + ttl)
+            self._reserved_pages += need
+        _flight.record("disagg", "reserve", rid=rid, pages=need)
+        return {"reservation": rid, "pages": int(need), "ttl_s": ttl}
+
+    def _purge_reservations_locked(self, now=None):
+        """Drop the expired reservations, returning their headroom.  Caller
+        holds _mu."""
+        if not self._reserved:
+            return
+        now = time.perf_counter() if now is None else now
+        for rid in [r for r, (_, exp) in self._reserved.items() if exp <= now]:
+            n, _ = self._reserved.pop(rid)
+            self._reserved_pages -= n
+            _flight.record("disagg", "reserve_expired", rid=rid, pages=n)
+
+    def _consume_reservation_locked(self, req):
+        """Release the request's reservation (its admission is here, or it
+        resolved without one).  Idempotent: an unknown or expired id is a
+        no-op, and the request competes for headroom unreserved.  Caller
+        holds _mu."""
+        rid, req.reservation = req.reservation, None
+        ent = self._reserved.pop(rid, None) if rid is not None else None
+        if ent is not None:
+            self._reserved_pages -= ent[0]
 
     def step(self, gen=None):
         """One scheduling tick: evict cancelled and expired slots, admit
@@ -1459,6 +1663,8 @@ class ContinuousBatchingEngine:
                     break
             self._queued_new_tokens = 0
             self._release_adapters_locked(pending)
+            for req in pending:  # no hold outlives its request
+                self._consume_reservation_locked(req)
             self._reset_slots_locked()
         finally:
             if locked:
@@ -1527,17 +1733,21 @@ class ContinuousBatchingEngine:
         plus every page there that only the prefix cache still holds
         (refcount 1: no slot maps it, and repeated leaf eviction reaches
         it), except the pages in `exclude` (a request's matched prefix
-        pages, about to be mapped).  Session-pinned pages count as
-        reachable, as in the reference's `_page_fresh_headroom_locked`
-        (engine.py:1928): the allocator evicts the LRU session to reach
-        them, which is the pressure behaviour sessions promise.  Caller
-        holds _mu."""
+        pages, about to be mapped), less the pages live reservations hold
+        (reference: engine.py:1942-1962; a handoff's admission consumes its
+        own first, so the hold turns into the pages it promised; they are
+        not shard-annotated, so each shard covers them all).
+        Session-pinned pages count as reachable, as in the reference's
+        `_page_fresh_headroom_locked` (engine.py:1928): the allocator evicts
+        the LRU session to reach them, which is the pressure behaviour
+        sessions promise.  Caller holds _mu."""
         free = [self._pool.free_count(sh) for sh in range(self.cp)]
         if self._prefix is not None:
             for e in self._prefix.entries():
                 if self._pool.refs[e.page] == 1 and e.page not in exclude:
                     free[self._pool.shard_of(e.page)] += 1
-        return free
+        r = -(-self._reserved_pages // self.cp)
+        return [f - r for f in free]
 
     def _alloc_page_locked(self, shard=0):
         """One fresh page from pool shard `shard`, evicting LRU prefix-cache
@@ -1590,6 +1800,8 @@ class ContinuousBatchingEngine:
         with self._mu:
             self._check_gen(gen)
             now = time.perf_counter()
+            if self.paged:
+                self._purge_reservations_locked(now)
             victims = []
             for s, req in enumerate(self._slot_req):
                 if req is None:
@@ -1628,6 +1840,8 @@ class ContinuousBatchingEngine:
             self._queued_new_tokens -= req.max_new_tokens
             if req.finished.is_set():
                 continue
+            if req.cancelled or req.expired():
+                self._consume_reservation_locked(req)
             if req.cancelled:
                 req.error = RequestCancelled(req.id, 0)
                 self._resolve(req, "cancelled")
@@ -1649,6 +1863,10 @@ class ContinuousBatchingEngine:
                 req = self._pop_request()
                 if req is None:
                     break
+                if self.paged:
+                    # a handoff's reservation turns into headroom inside
+                    # this critical section, just before the check below
+                    self._consume_reservation_locked(req)
                 if self.paged and not self._pages_admit_locked(req):
                     # page pressure: park at the head of the line (FIFO kept)
                     # until finishing slots release pages
@@ -1672,7 +1890,9 @@ class ContinuousBatchingEngine:
                 self._admitting = req
                 req.state = "prefilling"
             try:
-                if self.paged:
+                if req.handoff is not None:
+                    self._import_into_paged(s, req, gen)
+                elif self.paged:
                     self._prefill_into_paged(s, req, gen)
                 else:
                     self._prefill_into_dense(s, req, gen)
@@ -1710,7 +1930,8 @@ class ContinuousBatchingEngine:
         coverage = self._pages_for(req.prompt.size, req.max_new_tokens)
         need = coverage
         exclude = ()
-        if self._prefix is not None:
+        # an import maps fresh pages only
+        if self._prefix is not None and req.handoff is None:
             m, fulls, tail, _ = self._prefix.lookup(
                 req.prompt, adapter=self._req_adapter_id(req))
             if m >= self.min_prefix_match:
@@ -1787,8 +2008,8 @@ class ContinuousBatchingEngine:
             yield
 
     def _land_locked(self, s, req, tok, logits):
-        """A prefilled request takes slot s and emits its first token.
-        Caller holds _mu."""
+        """A prefilled (or imported: `logits` None) request takes slot s and
+        emits its first token.  Caller holds _mu."""
         req.ttft_s = time.perf_counter() - req._submit_t
         self._slot_req[s] = req
         self._pos[s] = req.prompt.size
@@ -1804,7 +2025,7 @@ class ContinuousBatchingEngine:
             # acceptance rule)
             self._drafters[s] = NgramDrafter(self._spec_ngram).reset(
                 [int(t) for t in req.prompt] + [tok])
-        if req.keep_logits:
+        if req.keep_logits and logits is not None:
             req.logits.append(logits[0].clone())  # the output is static
         self._emit(s, req, tok)
 
@@ -1905,6 +2126,58 @@ class ContinuousBatchingEngine:
                     _prof.record_paging_event("cache_commits", inserted)
             self._land_locked(s, req, tok, logits)
         self._obs_prefilled(req, t_pf, s, bucket, match_len)
+
+    def _import_into_paged(self, s, req, gen):
+        """Admission of a handoff into slot s (reference:
+        `_import_into_paged`, engine.py:2428-2530): fresh pages for the
+        request's whole span (never prefix-shared), the staged rows uploaded
+        once and landed a page at a time through the import graph, the
+        prompt's pages committed to the prefix cache, then the slot seated
+        as a prefill landing seats it: pos = L, the shipped first token
+        emitted, no adapter, a drafter seeded from prompt + first token
+        under speculation.  The upload and the replays run in the
+        watchdogged `serve.import` region under the launch fence; a restart
+        meanwhile owns the request and released its pages."""
+        L = int(req.prompt.size)
+        rows, first = req.handoff
+        ps = self.page_size
+        n_prompt = -(-L // ps)
+        with self._mu:
+            self._check_gen(gen)
+            # the slot rebuild after this landing reads _last_tok
+            self._flush_pending_locked()
+            req.max_new_tokens = min(req.max_new_tokens, self.max_len - L)
+            pages = [self._alloc_page_locked(i % self.cp)
+                     for i in range(self._pages_for(L, req.max_new_tokens))]
+            self._page_table[s, :] = 0
+            self._page_table[s, :len(pages)] = pages
+            self._slot_pages[s] = pages
+        check_table_bounds(np.asarray(pages), self.pool_pages)
+        t_pf = self._obs_queued(req)
+        with self._watchdog.arm("serve.import", timeout=self._wd_timeout(),
+                                context=f"req {req.id} ({n_prompt} pages)"):
+            with self._launch(gen):
+                on_dev = {name: t.to(self.device, non_blocking=True)
+                          for name, t in rows.items()}
+                for i in range(n_prompt):
+                    self._import_g(
+                        None, dst=np.full(1, pages[i], np.int32),
+                        **{f"{name}_tiles": t[:, i * ps:(i + 1) * ps]
+                           for name, t in on_dev.items()})
+        with self._mu:
+            self._check_gen(gen)  # a restart during the import owns req
+            if self._prefix is not None:
+                inserted = self._prefix.commit(req.prompt, pages, self._pool)
+                if inserted:
+                    _prof.record_paging_event("cache_commits", inserted)
+            req.handoff = None  # the arena holds the rows now
+            _prof.record_disagg_event("imports")
+            _prof.record_disagg_event("import_pages", n_prompt)
+            self._land_locked(s, req, first, None)
+        if req.trace:
+            _obs.record("engine.import", req.trace[0], t0=t_pf,
+                        t1=time.perf_counter(), parent_id=req.trace[1],
+                        req=req.id, slot=s, pages=n_prompt)
 
     def _load_state_locked(self, active_idx):
         """The decode loop state of the current slot membership, from the
@@ -2388,6 +2661,61 @@ class ContinuousBatchingEngine:
                        covered=int(covered),
                        turns=self._sessions.get(req.session_id)["turns"])
 
+    def _export_rows_locked(self, s, L):
+        """Slot s's rows [0, L) of every layer's arena tensors, read through
+        its page mapping as stored: {name: [n_layers, rows, kv_heads, ...]}
+        host tensors, rows the prompt's pages' worth.  One `index_select`
+        per arena tensor gathers the prompt's pages into one device buffer
+        per element type (K and V, and the int8 scales), and each buffer
+        reaches the host in one copy (pinned on the card), on the engine's
+        stream after the steps already dispatched.  Caller holds _mu."""
+        ps = self.page_size
+        n = -(-L // ps)
+        idx = torch.tensor(self._slot_pages[s][:n], dtype=torch.long,
+                           device=self.device)
+        groups = [("k", "v")]
+        if self.kv_quant == "int8":
+            groups.append(("k_scale", "v_scale"))
+        pin = self.device.type == "cuda"
+        host = {}
+        with torch.no_grad():
+            for names in groups:
+                ref = getattr(self._arenas[0], names[0])
+                dev = torch.empty((len(names), len(self._arenas), n) + ref.shape[1:],
+                                  dtype=ref.dtype, device=self.device)
+                for j, name in enumerate(names):
+                    for i, a in enumerate(self._arenas):
+                        torch.index_select(getattr(a, name), 0, idx, out=dev[j, i])
+                buf = torch.empty(dev.shape, dtype=dev.dtype, pin_memory=pin)
+                buf.copy_(dev, non_blocking=pin)
+                for j, name in enumerate(names):
+                    host[name] = buf[j].view((len(self._arenas), n * ps)
+                                             + ref.shape[2:])
+            if pin:
+                torch.cuda.current_stream(self.device).synchronize()
+        return host
+
+    def _export_slot_locked(self, s, req):
+        """Slot s's committed prompt rows, serialized into `req.kv_export`
+        with the first token (reference: `_export_slot_locked`,
+        engine.py:2989-3033): exactly the rows a colocated engine holds
+        after this prompt's prefill (the first token's row is written by
+        the step after it), so an export at the finish of a one-token
+        prefill is the whole handoff.  Counts `exports` and
+        `handoff_bytes`.  Caller holds _mu."""
+        L = int(req.prompt.size)
+        host = self._export_rows_locked(s, L)
+        layers = [{name: t[i, :L] for name, t in host.items()}
+                  for i in range(len(self._arenas))]
+        payload = serialize_kv_handoff(layers, L, self.kv_quant,
+                                       self._kv_dtype_name)
+        payload["first_token"] = int(req.tokens[0]) if req.tokens else None
+        req.kv_export = payload
+        _prof.record_disagg_event("exports")
+        _prof.record_disagg_event("handoff_bytes", payload["payload_bytes"])
+        _flight.record("disagg", "export", req=req.id, pages=-(-L // self.page_size),
+                       bytes=payload["payload_bytes"])
+
     def _emit(self, s, req, tok):
         req.tokens.append(tok)
         if req.on_token is not None:
@@ -2402,10 +2730,20 @@ class ContinuousBatchingEngine:
 
     def _finish(self, s, req, reason):
         """Recycle slot s at once (no scrub: its next prefill rewrites what
-        it attends) and resolve the request.  A session's turn that ended
-        on eos or length binds its session first, while the slot still maps
-        its pages; the adapter binding drops (residency stays).  Caller
-        holds _mu."""
+        it attends) and resolve the request.  A request that ended on eos
+        or length exports its prompt rows first when it asked to, then a
+        session's turn binds its session, both while the slot still maps
+        its pages (reference: engine.py:2895-2925); the adapter binding
+        drops (residency stays).  Caller holds _mu."""
+        if (self.paged and req.export_kv and req.kv_export is None
+                and reason in ("eos", "length")):
+            try:
+                self._export_slot_locked(s, req)
+            except Exception:
+                # the handoff's consumer sees kv_export None (POST /prefill
+                # answers 503 HandoffExportFailed); the pages still go back
+                logger.exception("disagg: page export failed for request %d",
+                                 req.id)
         if (self._sessions is not None and req.session_id is not None
                 and reason in ("eos", "length")):
             try:

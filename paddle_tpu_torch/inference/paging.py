@@ -47,12 +47,23 @@ kv head) in a parallel `[num_pages, page_size, kv_heads, 1]` arena per K
 and V, written by the same scatters and addressed by the same tables, so
 holding a page holds its scale rows and no bookkeeping here changes.
 
-The disaggregation wire format is not ported yet (ROADMAP, Queue 1).
+Disaggregated prefill/decode handoff (`serialize_kv_handoff`,
+`deserialize_kv_handoff`; reference: paging.py:210-340): a prefill worker
+ships the committed prompt rows of every layer as `[L, kv_heads, head_dim]`
+row payloads, raw little-endian bytes in base64 for the JSON hop, page-size
+agnostic so the two sides may page differently.  int8 rows ship as stored,
+with their float32 `[L, kv_heads, 1]` scale rows.  The JSON is the
+reference's, byte for byte: a 16-bit row's bytes are its raw bit patterns,
+so bfloat16 needs no numpy extension type here (rows come back as torch
+tensors).
 """
 
 from __future__ import annotations
 
+import base64
+
 import numpy as np
+import torch
 
 KV_QUANT_MODES = ("none", "int8")
 
@@ -149,6 +160,153 @@ def check_table_bounds(table, num_pages):
             f"page table entries out of arena bounds [0, {int(num_pages)}): "
             f"min={lo}, max={hi}, first bad index={bad[0].tolist()}"
         )
+
+
+HANDOFF_VERSION = 1
+
+# the wire's `dtype` names (numpy's names of the cache dtypes) and their
+# torch types
+_WIRE_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
+                "float32": torch.float32}
+
+
+class HandoffFormatError(ValueError):
+    """A handoff payload the receiving decode engine cannot import: another
+    version, quant mode, KV geometry, layer count or dtype, or row bytes of
+    the wrong length.  Typed, so that serve() answers a 400 and nothing
+    reaches a compiled step."""
+
+
+def wire_dtype_name(dtype):
+    """The wire's `dtype` string of a cache dtype (torch or numpy):
+    "bfloat16", "float16" or "float32", numpy's names, as the reference
+    stamps them."""
+    name = str(dtype).replace("torch.", "")
+    if name not in _WIRE_DTYPES:
+        raise HandoffFormatError(f"no handoff encoding for cache dtype {name}")
+    return name
+
+
+def _raw(arr):
+    """The C-order bytes of one row array (numpy, or a torch tensor on the
+    host: 16-bit floats as their bit patterns) and their count."""
+    if isinstance(arr, torch.Tensor):
+        t = arr.detach().contiguous()
+        if t.dtype in (torch.bfloat16, torch.float16):
+            t = t.view(torch.int16)
+        a = t.numpy()
+    else:
+        a = np.ascontiguousarray(arr)
+    return a.tobytes(), a.nbytes
+
+
+def _b64(buf):
+    return base64.b64encode(buf).decode("ascii")
+
+
+def _unb64(s, dtype, shape, what):
+    """Rows of `shape` and torch `dtype` from base64 text, a fresh tensor."""
+    try:
+        buf = base64.b64decode(s.encode("ascii"), validate=True)
+    except (AttributeError, ValueError) as e:
+        raise HandoffFormatError(f"handoff {what}: not base64 ({e})") from None
+    want = int(np.prod(shape)) * dtype.itemsize
+    if len(buf) != want:
+        raise HandoffFormatError(
+            f"handoff {what}: {len(buf)} bytes, expected {want} for shape "
+            f"{tuple(shape)} dtype {str(dtype).replace('torch.', '')}")
+    raw = torch.from_numpy(np.frombuffer(buf, np.uint8).copy())
+    return raw.view(dtype).reshape(shape)
+
+
+def serialize_kv_handoff(layers, prompt_len, quant, dtype_name):
+    """The JSON-safe handoff payload of one request's prompt rows.
+
+    `layers` holds one dict per model layer: "k" and "v" of shape [L,
+    kv_heads, head_dim] (int8 under quant "int8", else the cache dtype),
+    and under "int8" "k_scale"/"v_scale" [L, kv_heads, 1] float32; numpy
+    arrays or host torch tensors.  The payload's `payload_bytes` counts
+    the raw row bytes before base64 (the `paddle_disagg_handoff_bytes`
+    figure)."""
+    if not layers:
+        raise HandoffFormatError("handoff payload needs >= 1 layer")
+    quant = validate_kv_quant(quant)
+    names = ("k", "v", "k_scale", "v_scale") if quant == "int8" else ("k", "v")
+    raw = 0
+    packed = []
+    for ly in layers:
+        rec = {}
+        for name in names:
+            buf, n = _raw(ly[name])
+            rec[name] = _b64(buf)
+            raw += n
+        packed.append(rec)
+    shape = layers[0]["k"].shape
+    return {
+        "version": HANDOFF_VERSION,
+        "prompt_len": int(prompt_len),
+        "quant": quant,
+        "kv_heads": int(shape[1]),
+        "head_dim": int(shape[2]),
+        "n_layers": len(layers),
+        "dtype": str(dtype_name),
+        "payload_bytes": int(raw),
+        "layers": packed,
+    }
+
+
+def deserialize_kv_handoff(payload, quant, kv_heads, head_dim, n_layers,
+                           dtype_name):
+    """Unpack and validate a handoff payload against the receiving engine's
+    arena geometry.  Returns (layers, prompt_len), `layers` in
+    `serialize_kv_handoff`'s layout as host torch tensors.  Every mismatch
+    raises HandoffFormatError."""
+    if not isinstance(payload, dict):
+        raise HandoffFormatError(
+            f"handoff payload is {type(payload).__name__}, not a dict")
+    if int(payload.get("version", -1)) != HANDOFF_VERSION:
+        raise HandoffFormatError(
+            f"handoff version {payload.get('version')!r} != {HANDOFF_VERSION}")
+    quant = validate_kv_quant(quant)
+    for field, want in (("quant", quant), ("kv_heads", int(kv_heads)),
+                        ("head_dim", int(head_dim)), ("n_layers", int(n_layers)),
+                        ("dtype", str(dtype_name))):
+        got = payload.get(field)
+        got = type(want)(got) if got is not None else got
+        if got != want:
+            raise HandoffFormatError(
+                f"handoff {field} mismatch: payload has {got!r}, this engine "
+                f"expects {want!r}")
+    L = int(payload.get("prompt_len", 0))
+    if L <= 0:
+        raise HandoffFormatError(f"handoff prompt_len {L} must be positive")
+    rows = payload.get("layers")
+    if not isinstance(rows, list) or len(rows) != int(n_layers):
+        raise HandoffFormatError(
+            f"handoff carries {len(rows) if isinstance(rows, list) else '?'} "
+            f"layer records, expected {int(n_layers)}")
+    if quant == "int8":
+        elem = torch.int8
+    elif str(dtype_name) in _WIRE_DTYPES:
+        elem = _WIRE_DTYPES[str(dtype_name)]
+    else:
+        raise HandoffFormatError(f"no handoff encoding for dtype {dtype_name!r}")
+    kvh, hd = int(kv_heads), int(head_dim)
+    out = []
+    for i, rec in enumerate(rows):
+        if not isinstance(rec, dict):
+            raise HandoffFormatError(f"handoff layer {i} is not a record")
+        try:
+            ly = {n: _unb64(rec[n], elem, (L, kvh, hd), f"layer {i} {n}")
+                  for n in ("k", "v")}
+            if quant == "int8":
+                for n in ("k_scale", "v_scale"):
+                    ly[n] = _unb64(rec[n], torch.float32, (L, kvh, 1),
+                                   f"layer {i} {n}")
+        except KeyError as e:
+            raise HandoffFormatError(f"handoff layer {i} lacks {e}") from None
+        out.append(ly)
+    return out, L
 
 
 class PagePool:

@@ -36,8 +36,15 @@ The names, label sets and zero-filled label sets are the reference's
   ``paddle_session_pin_hits_total`` and ``paddle_session_repins_total``
   are the router's and stay at 0 until the serving fleet is ported.
 
-Router, autoscaler and disaggregation families render at 0 until their
-ROADMAP items land.
+- ``paddle_disagg_*``: the engine side of disaggregated serving is live:
+  ``exports`` and ``handoff_bytes`` (raw row bytes, before base64) count a
+  prefill worker's exports, ``imports`` and ``import_pages`` a decode
+  worker's imports.  ``pair_picks``, ``handoff_retries``,
+  ``reserve_fails`` and ``no_decode_capacity`` are the router's and stay
+  at 0 until the serving fleet is ported.
+
+Router and autoscaler families render at 0 until their ROADMAP items
+land.
 """
 
 from __future__ import annotations

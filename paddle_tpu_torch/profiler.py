@@ -22,8 +22,9 @@ the optimizer's `adam_fused` and `unscale_fused`);
 The reference's other families carry its keys too, for `/metrics` and the
 flight recorder's dump header: `step` (`record_step`, the training
 loop's host-time split), `lora`, `autoscale`, `disagg` and `sessions`.
-Their `record_*` functions exist, but nothing on the port's path calls
-them until their ROADMAP items land.  `record_paging_tick` feeds the
+The training loop, the adapter arena, the engine's KV handoffs and its
+session store feed theirs; `autoscale` and the router's `disagg` keys stay
+at 0 until the serving fleet is ported.  `record_paging_tick` feeds the
 page-pool gauges (`pages_used_peak`, `pages_total`); the flash counters
 (`record_flash_fallback`, `record_flash_pallas_call`) are the kernels'
 own per-trace counts, see `ops.flash_attention.pallas_calls`.
@@ -474,11 +475,18 @@ def _reset_disagg_locked():
                    no_decode_capacity=0)
 
 
+def reset_disagg():
+    """Zero the handoff counters."""
+    with _lock:
+        _reset_disagg_locked()
+
+
 def record_disagg_event(kind, n=1):
-    """Count one disaggregated-serving event: 'exports', 'imports',
-    'import_pages', 'handoff_bytes', 'pair_picks', 'handoff_retries',
-    'reserve_fails' or 'no_decode_capacity' (another kind is counted
-    too)."""
+    """Count one disaggregated-serving event (reference: profiler.py:
+    817-835): the engine's 'exports', 'handoff_bytes' (raw row bytes of
+    each export), 'imports' and 'import_pages'; the router's 'pair_picks',
+    'handoff_retries', 'reserve_fails' and 'no_decode_capacity', 0 until
+    the serving fleet is ported (another kind is counted too)."""
     with _lock:
         _disagg[kind] = _disagg.get(kind, 0) + int(n)
 

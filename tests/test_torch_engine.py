@@ -179,8 +179,10 @@ def test_submit_rejects_what_cannot_fit(models):
         # LoRA serving is ported; under tensor parallelism not
         pytest.param(dict(lora=object(), tp=2), "tensor-parallel",
                      NotImplementedError, id="knob6-LoRA"),
-        pytest.param(dict(role="decode"), "disaggregated", NotImplementedError,
-                     id="knob7-disaggregated"),
+        # disaggregated roles are ported: the dense pool refuses them with
+        # the reference's ValueError
+        pytest.param(dict(role="decode", paged=False), "requires the paged engine",
+                     ValueError, id="knob7-disaggregated"),
     ],
 )
 def test_unported_knobs_raise_naming_the_roadmap_item(models, knob, item, error):

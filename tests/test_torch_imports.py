@@ -93,6 +93,35 @@ def test_lora_serving_imports_neither_jax_nor_the_reference():
     assert r.returncode == 0, r.stderr
 
 
+def test_disaggregated_serving_imports_neither_jax_nor_the_reference():
+    """The handoff's wire format, the roles and the /reserve and /prefill
+    hops, with no `jax`, `paddle_tpu` or `ml_dtypes` (bfloat16 rows cross
+    as their bits)."""
+    code = ("import sys\n"
+            "from paddle_tpu_torch.inference.paging import (HANDOFF_VERSION, "
+            "HandoffFormatError, serialize_kv_handoff, deserialize_kv_handoff)\n"
+            "from paddle_tpu_torch.inference.engine import ContinuousBatchingEngine\n"
+            "from paddle_tpu_torch.inference import serve\n"
+            "from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM\n"
+            "import torch\n"
+            "m = LlamaForCausalLM(LlamaConfig.tiny(), device='cpu', dtype='bfloat16')\n"
+            "kw = dict(device='cpu', slots=1, max_len=32, prefill_buckets=[8], page_size=8)\n"
+            "pre = ContinuousBatchingEngine(m, role='prefill', **kw)\n"
+            "dec = ContinuousBatchingEngine(m, role='decode', **kw)\n"
+            "h = pre.submit([1, 2, 3], max_new_tokens=1, export_kv=True)\n"
+            "pre.run_until_idle()\n"
+            "assert h.kv_export['dtype'] == 'bfloat16'\n"
+            "r = dec.submit([1, 2, 3], max_new_tokens=2, handoff=h.kv_export)\n"
+            "dec.run_until_idle()\n"
+            "assert r.wait(1).tolist()[3] == h.tokens[0]\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'paddle_tpu', 'ml_dtypes'))\n"
+            "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
 def test_device_prefetch_raises_without_cuda_unless_cpu(monkeypatch):
     from paddle_tpu_torch import io
 

@@ -14,8 +14,10 @@ as in `test_torch_serve_contract.py`:
 - `session_id` is served as the reference serves it (both engines keep
   sessions on their prefix cache): 200 and the same tokens, turn after
   turn;
-- `handoff` and `reservation` answer the port's typed 400
-  NotImplementedError naming their ROADMAP Queue 1 item;
+- `handoff` and `reservation` are served as the reference serves them on
+  a colocated engine: a handoff answers the reference's 400 ValueError
+  (the role), an unknown reservation is a no-op (200, the same tokens); a
+  decode-role engine answers a bad handoff with 400 HandoffFormatError;
 - `X-Idempotency-Key`: a key posted twice generates once and replays the
   same body with `X-Idempotency-Replay: hit` (admissions counted at
   `submit`, on both servers); two concurrent posts of one key admit once
@@ -187,20 +189,39 @@ def test_session_id_is_served_as_the_reference_serves_it(pair):
     assert pair.port.engine._sessions.get("chat-7")["turns"] == 2
 
 
-@pytest.mark.parametrize("field,value,item", [
-    ("handoff", {"prompt_len": 5}, "disaggregated prefill/decode"),
-    ("reservation", "r-1", "disaggregated prefill/decode"),
-])
-def test_unported_fields_answer_a_typed_400_naming_their_item(pair, field, value,
-                                                              item):
-    before = pair.admissions()["port"]
-    code, _, payload = pair.call(pair.port, {"input_ids": _prompt(5, 8),
-                                             field: value})
-    assert code == 400 and payload["type"] == "NotImplementedError"
+@pytest.mark.parametrize("field,value", [
+    ("handoff", {"prompt_len": 5}),
+    ("reservation", "r-1"),
+], ids=["handoff-value0-disaggregated prefill/decode",
+        "reservation-r-1-disaggregated prefill/decode"])
+def test_unported_fields_answer_a_typed_400_naming_their_item(pair, field, value):
+    """The disaggregation fields, ported: on the pair's colocated engines
+    both servers answer alike (a handoff is refused inside `submit` with
+    the reference's ValueError, an unknown reservation is a no-op); a
+    decode-role engine answers the bad handoff with a typed 400
+    HandoffFormatError."""
+    before = pair.admissions()
+    body = {"input_ids": _prompt(5, 8), "max_new_tokens": 4, field: value}
+    ref, port = pair.both(body)
+    assert port == ref
+    after = pair.admissions()
+    assert {k: after[k] - before[k] for k in after} == {"ref": 1, "port": 1}
+    code, _, payload = port
+    if field == "reservation":
+        assert code == 200 and len(payload["tokens"]) == 9
+        return
+    assert code == 400 and payload["type"] == "ValueError"
+    assert payload["retriable"] is False and "'decode' role" in payload["error"]
+    dec = tinference.serve(ContinuousBatchingEngine(
+        pair.port.engine.model, device="cpu", role="decode", **ENGINE),
+        port=0, block=False)
+    try:
+        code, _, payload = pair.call(dec, body)
+    finally:
+        dec.stop()
+    assert code == 400 and payload["type"] == "HandoffFormatError"
     assert payload["retriable"] is False and payload["retry_after_s"] == 0
-    assert payload["error"].startswith(f"NotImplementedError: {field} is not ported")
-    assert f"(ROADMAP Queue 1: {item})" in payload["error"]
-    assert pair.admissions()["port"] == before + 1  # refused inside submit
+    assert payload["error"].startswith("HandoffFormatError: handoff version")
 
 
 def test_a_key_posted_twice_generates_once(pair):

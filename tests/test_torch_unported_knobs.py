@@ -5,15 +5,16 @@ error or a NotImplementedError naming its ROADMAP Queue 1 item.
 - `ContinuousBatchingEngine(session_max=)` and `FLAGS_serve_session_max`
   (reference engine.py:590): the bound is read at construction and bounds
   the resident sessions (the least recently used one goes).
-- `submit(export_kv=True)` (reference engine.py:1078) raises
-  (disaggregated prefill/decode); False is the default and serves.
+- `submit(export_kv=True)` (reference engine.py:1078) lands the request's
+  handoff payload in `kv_export` at its finish; False, the default, leaves
+  it None.
 - `FLAGS_serve_role`, `FLAGS_serve_reserve_ttl_s`,
   `FLAGS_serve_lora_capacity` and `FLAGS_serve_lora_rank_max` exist with the
   reference's defaults, so `set_flags` takes them.  With `role=None` the
-  engine reads `FLAGS_serve_role`: a value other than "colocated" raises as
-  `role=` does.  The LoRA flags set the capacity and `rank_max` of an
-  `AdapterArena` built without them, and do nothing to an engine without
-  `lora=`.
+  engine reads `FLAGS_serve_role`: a paged engine serves in that role, the
+  dense pool refuses a disaggregated one as `role=` does.  The LoRA flags
+  set the capacity and `rank_max` of an `AdapterArena` built without them,
+  and do nothing to an engine without `lora=`.
 """
 
 import numpy as np
@@ -75,13 +76,21 @@ def test_session_max_reads_the_flag_and_bounds_the_sessions(model, flags):
 
 
 def test_export_kv_true_raises_and_false_serves(model):
+    """export_kv=True, ported: the payload lands at the finish and carries
+    the prompt's rows of every layer and the first token."""
     eng = _engine(model)
-    with pytest.raises(NotImplementedError,
-                       match="export_kv.*disaggregated prefill/decode"):
-        eng.submit(_prompt(), max_new_tokens=2, export_kv=True)
-    req = eng.submit(_prompt(), max_new_tokens=2, export_kv=False)
+    req = eng.submit(_prompt(), max_new_tokens=2, export_kv=True)
     eng.run_until_idle()
     assert len(req.wait(1)) == 7
+    pay = req.kv_export
+    assert pay["prompt_len"] == 5 and pay["first_token"] == req.tokens[0]
+    assert pay["n_layers"] == model.config.num_hidden_layers
+    assert pay["dtype"] == "float32" and pay["quant"] == "none"
+    kvh, hd = model.config.num_key_value_heads, model.config.head_dim
+    assert pay["payload_bytes"] == pay["n_layers"] * 2 * 5 * kvh * hd * 4
+    req = eng.submit(_prompt(), max_new_tokens=2, export_kv=False)
+    eng.run_until_idle()
+    assert len(req.wait(1)) == 7 and req.kv_export is None
 
 
 @pytest.mark.parametrize("paged", [True, False])
@@ -90,10 +99,13 @@ def test_role_flag_is_read_when_role_is_none(model, flags, paged):
     assert _engine(model, paged=paged).role == "colocated"
     for role in ("prefill", "decode"):
         flags(role=role)
-        if paged:
-            with pytest.raises(NotImplementedError,
-                               match="disaggregated prefill/decode"):
-                _engine(model, paged=paged)
+        if paged:  # the flag's role serves
+            eng = _engine(model, paged=paged)
+            assert eng.role == role and eng.healthz()["role"] == role
+            assert ("import" in eng.compile_counts()) == (role == "decode")
+            req = eng.submit(_prompt(), max_new_tokens=2)
+            eng.run_until_idle()
+            assert len(req.wait(1)) == 7
         else:  # the reference's refusal on the dense pool
             with pytest.raises(ValueError, match="requires the paged engine"):
                 _engine(model, paged=paged)
