@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Twenty phases, and the serving, training and amp ones again in float16
+Twenty-one phases, and the serving, training and amp ones again in float16
 (below); a failure in any of them exits non-zero and prints no result.
 
 1. device  -- requires CUDA; prints the card's name and power limit.
@@ -175,7 +175,33 @@ Twenty phases, and the serving, training and amp ones again in float16
               (128 + 4) / 256 of the bf16 pass's.  Records wire bytes per
               token, export, serialize, hop, stage and import times,
               disaggregated against colocated TTFT and decode tokens/s.
-14. cp     -- the same model behind long-document engines (slots 4, the
+14. fleet  -- the serving fleet (`paddle_tpu_torch.serving`) on the same
+              model, every replica an in-process `serve()` over its own
+              engine and arena: the slice's six requests straight to one
+              replica, then through `serve_router`'s POST /generate over
+              two (each answer equal bit for bit), then keyed through a
+              bare and a journaled router; the preferred replica stopped at
+              the stream's midpoint (every request once, the same tokens);
+              a keyed double submit and an in-flight join generate once;
+              `router.crash`, a `RouterStandby` takeover from the stale
+              heartbeat, the completed key replayed from the journal with
+              no new admission; a colocated replica and a prefill/decode
+              pair behind one router (three prompts of 64-128 tokens, bit
+              for bit the colocated answers), in bf16 and over int8 pages
+              (K4); a four-turn chat pinned to one replica and repinned
+              when it drains, an adapter request landing on the replica
+              that holds it; the autoscaler taking one replica to two and
+              back under a stepped `Workload` through `run_soak`; two tiny
+              `ReplicaProcess` workers on the card, one SIGKILLed under
+              load (every request once, each 200 an in-process engine's
+              tokens, both reaped).  K1, K2 and K4 counted; every
+              in-process engine free of new traces under its traffic.
+              Records the hop on 120 rounds of one-token requests (routed
+              minus direct and journaled minus bare, paired medians with
+              their quartiles), the takeover seconds over five crash ->
+              takeover cycles, spawn-to-ready over four spawns, TTFT
+              through the router disaggregated against colocated.
+15. cp     -- the same model behind long-document engines (slots 4, the
               4096-token context): questions about one 3000-token document
               share its pages through the prefix cache, beside two fresh
               prompts, over HTTP; at cp=1, then cp=2 (the page audit every
@@ -187,7 +213,7 @@ Twenty phases, and the serving, training and amp ones again in float16
               logits against the teacher-forced forward; prints the greedy
               agreement between runs, speculation counters, decode
               tokens/s and TTFT, and a profiled cp=2 decode step.
-15. train  -- trains Llama-2-7B's widths at 8 layers (bf16 AMP O2, AdamW with
+16. train  -- trains Llama-2-7B's widths at 8 layers (bf16 AMP O2, AdamW with
               float32 master weights) for 6 steps on one repeated batch of
               4 x 2048 tokens: finite and falling losses, K1 (on its wgmma
               path) and K3 launched once per layer per step, adam_fused
@@ -195,7 +221,7 @@ Twenty phases, and the serving, training and amp ones again in float16
               tokens/s, peak memory and a profiled step with AdamW's span.
               Then 2 steps of 2 layers with activation recompute (K1 twice
               per layer per step).
-16. fit    -- the training loop through the entry points a user calls
+17. fit    -- the training loop through the entry points a user calls
               (`paddle_tpu_torch.Model`, `io.DataLoader`): the train
               phase's model (8 layers, bf16 O2, AdamW) through `Model.fit`
               over 32 seeded sequences of 2048 tokens, batch 4, shuffled
@@ -219,10 +245,10 @@ Twenty phases, and the serving, training and amp ones again in float16
               three batch shapes, masked K1 and K3 every step, no
               fallback; examples/s beside the bert phase's padded figure.
               No worker process is left after any of them.
-17. grads  -- one step's gradients of a 2-layer model at the same widths
+18. grads  -- one step's gradients of a 2-layer model at the same widths
               with the kernels against the same step with attention through
               the plain forward under autograd.
-18. amp    -- the reference's O1 recipe on Llama-2-7B's widths at 2 layers,
+19. amp    -- the reference's O1 recipe on Llama-2-7B's widths at 2 layers,
               float32 parameters, batch 2 x 2048: auto_cast O1 bf16, a
               dynamic GradScaler, LinearWarmup into CosineAnnealingDecay,
               ClipGradByGlobalNorm(1.0) and AdamW for 6 steps, step 4's
@@ -233,7 +259,7 @@ Twenty phases, and the serving, training and amp ones again in float16
               adam_fused and unscale_fused once per step.  Then SGD,
               Momentum, Adagrad, RMSProp, Adamax and Lamb two steps each:
               finite, every weight moved, step ms.
-19. bert   -- bench_bert's BERT-base SQuAD fine-tuning (bf16 O2, AdamW at
+20. bert   -- bench_bert's BERT-base SQuAD fine-tuning (bf16 O2, AdamW at
               3e-5, dropout 0) for 6 steps on one batch of 32 x 384 tokens
               padded from lengths 192-384: finite and falling losses, K1 and
               K3 launched once per layer per step on their wgmma paths with
@@ -243,7 +269,7 @@ Twenty phases, and the serving, training and amp ones again in float16
               as a key-padding attn_mask (K1's key bias) against segment ids
               on the valid rows; then a 2-layer model's gradients with the
               kernels against attention through the plain forward.
-20. longcontext -- long-context training through the Llama's
+21. longcontext -- long-context training through the Llama's
               `context_parallel_degree` on a sep mesh (ring attention, every
               rank on the card): Llama-2-7B's widths at 4 layers, one
               sequence of 32768 tokens over R = 8 (K/V 512 MiB a layer: the
@@ -276,8 +302,11 @@ The float16 phases (their log lines read "[fp16 <phase>]"):
 The record's `_f16` entries count the launches of these runs.
 
 Every serving phase (slice, prefix, dense, fault, obs, lora, sessions,
-disagg, cp, cp_f32) runs on the engine's CUDA graphs: it prints `compile_counts()` after warmup and again
-after its traffic and fails if they differ (0 new traces under traffic),
+disagg, fleet, cp, cp_f32) runs on the
+engine's CUDA graphs: it prints `compile_counts()` after warmup and again
+after its traffic and fails if they differ (0 new traces under traffic;
+the fleet checks each in-process replica's engine so).  Each but the fleet,
+whose replicas run the configurations of the phases before it, also
 prints the host fetches per decode step and decode tokens/s over the
 decode window's wall clock, and holds one replay of each
 step that an admission ran -- fresh prefill, chunk prefill, decode or
@@ -299,6 +328,7 @@ import math
 import os
 import pathlib
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -5397,6 +5427,678 @@ def phase_disagg(smi, model, device="cuda", spec=DISAGG_SPEC,
     return ok and ok8 and ratio_ok, [counts, counts8]
 
 
+# the fleet phase: the slice's six requests through the router's HTTP front
+# door over two in-process replicas; the disaggregated pairs' requests of
+# 64-128 prompt tokens (a handoff crosses router memory as JSON, ~15 ms of
+# host time per prompt token over two hops, PERF.md); a four-turn chat of
+# FLEET_CHAT_USER user tokens and FLEET_CHAT_NEW new ones a turn; the
+# autoscaler's stepped soak (FLEET_SOAK: a burst the first replica's slots
+# cannot absorb, then a trickle that lets the spawn drain away)
+FLEET_PAIR_SPEC = (64, 96, 128)
+FLEET_PAIR_NEW = 32
+FLEET_CHAT_USER = 24
+FLEET_CHAT_NEW = 16
+FLEET_SOAK = dict(rate_hz=4.0, duration_s=8.0, steps=((0.0, 1.0), (0.5, 8.0), (3.5, 0.25)),
+                  prompt_len=(16, 64), max_new_tokens=24, seed=5)
+FLEET_WORKER_PROMPTS = 12  # per load thread, two threads
+# the hop's timing: one-token requests on a prompt of this many tokens (a
+# warmed bucket), this many rounds of each leg pair
+FLEET_HOP = (24, 120)
+# takeovers after the first, and spawns after the autoscaler's
+FLEET_REPEATS = (4, 3)
+
+
+def _fleet_serve(engine):
+    from paddle_tpu_torch.inference import serve
+
+    srv = serve(engine, port=0, block=False, supervise=False, handle_signals=False)
+    return srv, f"http://127.0.0.1:{srv.server_address[1]}"
+
+
+def _admissions(engine, into, tag):
+    """Count the engine's admissions under `tag` in `into` (a list)."""
+    real = engine.submit
+
+    def submit(*a, **kw):
+        into.append(tag)
+        return real(*a, **kw)
+
+    engine.submit = submit
+
+
+def _p50(xs):
+    return statistics.median(xs) if xs else 0.0
+
+
+def phase_fleet(smi, model, device="cuda", prompts_spec=SLICE_PROMPTS,
+                pair_spec=FLEET_PAIR_SPEC, pair_new=FLEET_PAIR_NEW,
+                chat_user=FLEET_CHAT_USER, chat_new=FLEET_CHAT_NEW, soak=FLEET_SOAK,
+                small=None, worker_prompts=FLEET_WORKER_PROMPTS,
+                obs_dir=ROOT / "build" / "fleet", **engine_kw):
+    """The serving fleet (`paddle_tpu_torch.serving`) in front of `model`
+    (the serving phases', full width and depth), every replica an
+    in-process `serve()` over its own engine and arena on that one model,
+    the prefix cache off where tokens are compared (so a request's tokens
+    repeat bit for bit on any replica):
+
+    (a) the slice's prompts posted one at a time straight to replica B, then
+        through `serve_router`'s POST /generate over [A, B] (A wins ties),
+        then keyed through a bare router and a journaled one: every answer
+        equal to B's direct one, bit for bit; then the hop timed on
+        one-token requests (`FLEET_HOP`: prompt length, rounds), each round a
+        direct/routed pair and a bare/journaled keyed pair, each pair in
+        turns;
+    (b) the same stream with A's server stopped at its midpoint: every
+        request answered once, 200, the same tokens, the tail failed over;
+    (c) on the journaled router: a keyed double submit and an in-flight
+        join generate once (admissions counted); `router.crash` kills it,
+        a keyed caller sees RouterCrashed, a `RouterStandby` takes over
+        from the stale heartbeat and replays the key from the journal with
+        no new admission, then serves a new one; then `FLEET_REPEATS[0]` more
+        crash -> takeover cycles, each successor replaying the key;
+    (d) one router over a colocated replica and a prefill/decode pair in the
+        model's dtype: `pair_spec` prompts through the three hops, equal
+        bit for bit to the colocated replica's answers; the same over an
+        int8 colocated replica and int8 pair (K4);
+    (e) over two replicas with the prefix cache and an adapter arena: a
+        four-turn chat pinned to one replica (pin hits, one repin once that
+        replica is admin-drained), and an adapter request landing on the
+        replica that holds it resident;
+    (f) an `Autoscaler` over one replica whose spawn builds an in-process
+        replica, under a stepped `Workload` through `run_soak`: the fleet
+        goes 1 -> 2 -> 1 and every request resolves once; then
+        `FLEET_REPEATS[1]` more spawns timed to a ready probe;
+    (g) two tiny `ReplicaProcess` workers on `device`, one SIGKILLed under
+        load: every request resolved once, each 200 equal to an in-process
+        tiny engine's, both processes reaped.
+
+    `small` sizes the engines of (d)-(f) (the serving dict with a shorter
+    context).  Every in-process engine's compile counts after its traffic
+    equal those after its warmup (checked before its server stops).
+    Records the hop's routed-minus-direct and journaled-minus-bare paired
+    medians with their quartiles, the takeover and spawn-to-ready seconds
+    over their repeats and TTFT through the router (disaggregated against
+    colocated).  Returns (all checks passed, [the launch counts of
+    (a)-(f)])."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.fault import injection as inj
+    from paddle_tpu_torch.inference.engine import ContinuousBatchingEngine
+    from paddle_tpu_torch.lora import AdapterArena, AdapterRegistry, make_random
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.serving import (Autoscaler, Replica, ReplicaProcess, Router,
+                                          RouterCrashed, RouterStandby, Workload,
+                                          run_soak, serve_router)
+
+    cfg = model.config
+    on_card = torch.device(device).type == "cuda"
+    small = dict(engine_kw, max_len=512, prefill_buckets=[32, 64, 128, 256]) \
+        if small is None else small
+    ok = True
+    figs = {}
+    warm = {}  # id(engine) -> its compile counts after warmup
+    obs_env = os.environ.get("PADDLE_OBS_DIR")
+    os.environ["PADDLE_OBS_DIR"] = str(obs_dir)  # the crash drill's flight dump
+    if obs_dir.exists():
+        shutil.rmtree(obs_dir)
+    obs_dir.mkdir(parents=True)
+
+    def check(what, cond, detail=""):
+        nonlocal ok
+        ok &= bool(cond)
+        log("fleet", f"{what}: {detail} -> {'ok' if cond else 'FAIL'}")
+
+    def engine(**kw):
+        e = ContinuousBatchingEngine(model, seed=0, device=device,
+                                     **{**engine_kw, **kw}).warmup()
+        warm[id(e)] = _warm_counts("fleet", e)
+        return e
+
+    def no_retrace(*es):
+        nonlocal ok
+        for e in es:
+            ok &= _no_retrace("fleet", e, warm.pop(id(e)))
+
+    def post(url, body, key=None):
+        return _post_full(url + "/generate", body,
+                          {"X-Idempotency-Key": key} if key else None)
+
+    def timed_post(url, body, key=None):
+        t = time.perf_counter()
+        code, hdrs, out = post(url, body, key)
+        return code, hdrs, out, (time.perf_counter() - t) * 1e3
+
+    def median_quartiles(xs):
+        q1, q2, q3 = statistics.quantiles(xs, n=4)
+        return q2, q1, q3
+
+    rng = np.random.default_rng(0)  # the slice's prompts
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32)
+               for n, _ in prompts_spec]
+    bodies = [{"input_ids": p.tolist(), "max_new_tokens": n}
+              for p, (_, n) in zip(prompts, prompts_spec)]
+    profiler.reset_kernel_launch_counts()
+    profiler.reset_router()
+    profiler.reset_disagg()
+    profiler.reset_autoscale()
+
+    # -- (a)-(c): two replicas behind the front door -------------------------
+    t0 = time.perf_counter()
+    admitted = []
+    engines = {rid: engine(prefix_cache=False) for rid in ("A", "B")}
+    for rid, e in engines.items():
+        _admissions(e, admitted, rid)
+    servers = {rid: _fleet_serve(e) for rid, e in engines.items()}
+    url = {rid: u for rid, (_, u) in servers.items()}
+    log("fleet", f"two replicas built + warmed in {time.perf_counter() - t0:.1f} s")
+    jroot, hbroot = obs_dir / "journal", obs_dir / "hb"
+    fronts, routers, standbys = [], [], []
+    try:
+        bare = Router([Replica("A", url["A"]), Replica("B", url["B"])],
+                      probe_interval=3600)
+        journaled = Router([Replica("A", url["A"]), Replica("B", url["B"])],
+                           probe_interval=0.1, journal=str(jroot), heartbeat=str(hbroot))
+        routers += [bare, journaled]
+        front = serve_router(bare, port=0, block=False, probe=False)
+        jfront = serve_router(journaled, port=0, block=False, probe=False)
+        fronts += [front, jfront]
+        bare.probe_once()
+        journaled.probe_once()
+        furl = f"http://127.0.0.1:{front.server_address[1]}"
+        jurl = f"http://127.0.0.1:{jfront.server_address[1]}"
+        direct, routed, keyed, jkeyed = [], [], [], []
+        del admitted[:]
+        for i, b in enumerate(bodies):
+            direct.append(post(url["B"], b))
+            routed.append(post(furl, b))
+            keyed.append(post(furl, b, f"bare-{i}"))
+            jkeyed.append(post(jurl, b, f"ha-{i}"))
+        check("direct answers", all(c == 200 for c, *_ in direct),
+              f"statuses {[c for c, *_ in direct]}")
+        want = [out["tokens"] for _, _, out in direct]
+        check("(a) the slice's requests through serve_router, bit for bit the "
+              "direct answers", [o["tokens"] for _, _, o in routed] == want
+              and all(c == 200 for c, *_ in routed)
+              and len(admitted) == 4 * len(bodies),
+              f"statuses {[c for c, *_ in routed]}, admissions {len(admitted)}")
+        check("(a) keyed through the bare and the journaled router",
+              [o["tokens"] for _, _, o in keyed] == want
+              and [o["tokens"] for _, _, o in jkeyed] == want,
+              f"journal seq {journaled.journal.seq}")
+        # the hop: one-token requests, each round a direct/routed pair and a
+        # bare/journaled keyed pair (fresh keys), each pair in turns (ABBA)
+        # so that drift between requests cancels in the paired differences
+        hop_len, hop_rounds = FLEET_HOP
+        hop_body = {"input_ids": np.random.default_rng(1).integers(
+            1, cfg.vocab_size, size=hop_len).tolist(), "max_new_tokens": 1}
+        legs = {k: [] for k in ("direct", "routed", "bare", "journaled")}
+        hop_answers = set()
+        for i in range(hop_rounds):
+            for pair in ((("direct", url["B"], None), ("routed", furl, None)),
+                         (("bare", furl, f"hop-bare-{i}"),
+                          ("journaled", jurl, f"hop-ha-{i}"))):
+                for leg, u, key in (pair if i % 2 == 0 else pair[::-1]):
+                    code, _, out, dt = timed_post(u, hop_body, key)
+                    legs[leg].append(dt)
+                    hop_answers.add((code, tuple(out.get("tokens", ()))))
+        check("(a) the hop's one-token requests: one answer on every leg, 200",
+              len(hop_answers) == 1 and next(iter(hop_answers))[0] == 200,
+              f"{len(hop_answers)} distinct answers over {4 * hop_rounds} requests")
+        p50 = {k: _p50(v) for k, v in legs.items()}
+        hop_q = median_quartiles([r - d for r, d in zip(legs["routed"], legs["direct"])])
+        jrn_q = median_quartiles([j - b for j, b in zip(legs["journaled"], legs["bare"])])
+        figs.update(direct_p50_ms=p50["direct"], routed_p50_ms=p50["routed"],
+                    bare_keyed_p50_ms=p50["bare"], journaled_p50_ms=p50["journaled"],
+                    router_overhead_p50_ms=p50["routed"] - p50["direct"],
+                    routed_minus_direct_paired_ms=hop_q,
+                    journaled_minus_bare_paired_ms=jrn_q)
+        log("fleet", f"record: the hop over {hop_rounds} rounds of one-token requests "
+                     f"({hop_len}-token prompt, each pair in turns) p50 ms: direct "
+                     f"{p50['direct']:.3f}, through serve_router {p50['routed']:.3f} "
+                     f"(router_overhead_p50_ms {figs['router_overhead_p50_ms']:.3f}); "
+                     f"paired routed - direct median {hop_q[0]:+.3f} ms, quartiles "
+                     f"[{hop_q[1]:+.3f}, {hop_q[2]:+.3f}]; keyed through a bare router "
+                     f"{p50['bare']:.3f}, through a journaled one {p50['journaled']:.3f}; "
+                     f"paired journaled - bare median {jrn_q[0]:+.3f} ms, quartiles "
+                     f"[{jrn_q[1]:+.3f}, {jrn_q[2]:+.3f}] | {smi}")
+        journaled.start()  # the probe loop beats the heartbeat the standby reads
+
+        # (c) exactly once through the journaled front door, then its crash
+        del admitted[:]
+        again = post(jurl, bodies[0], "ha-0")
+        first_join = []
+
+        def join():
+            first_join.append(post(jurl, bodies[1], "join"))
+
+        threads = [threading.Thread(target=join) for _ in range(2)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(600)
+        replays = sorted(h.get("X-Idempotency-Replay") or "" for _, h, _ in first_join)
+        check("(c) a keyed double submit and an in-flight join generate once",
+              again[1].get("X-Idempotency-Replay") == "hit" and again[2]["tokens"] == want[0]
+              and len(admitted) == 1 and replays in (["", "join"], ["", "hit"])
+              and all(o["tokens"] == want[1] for _, _, o in first_join),
+              f"replay headers {again[1].get('X-Idempotency-Replay')}, {replays}; "
+              f"admissions {admitted}")
+
+        def crash_and_take_over(dying):
+            """router.crash on `dying` (the one router whose probe loop
+            runs, so the one that draws the fault), a standby
+            declaring it dead from the stale heartbeat, its successor (which
+            beats the same slot).  Returns (seconds from the arming to a
+            successor, RouterCrashed seen by a caller, declared dead,
+            successor)."""
+            standby = RouterStandby(str(jroot), str(hbroot), timeout=0.5,
+                                    poll_interval=0.02,
+                                    router_kwargs={"probe_interval": 0.1})
+            standbys.append(standby)
+            assert standby.primary_alive()
+            crashes = profiler.router_summary()["crashes"]
+            inj.arm("router.crash:1")
+            t_crash = time.perf_counter()
+            while profiler.router_summary()["crashes"] == crashes and \
+                    time.perf_counter() - t_crash < 10:
+                time.sleep(0.01)
+            try:
+                dying.handle_generate(dict(bodies[2]), idem_key="ha-2")
+                crashed = False
+            except RouterCrashed:
+                crashed = True
+            dead = standby.wait_for_death(timeout=10.0)
+            successor = standby.takeover()
+            routers.append(successor)
+            took = time.perf_counter() - t_crash
+            inj.disarm()
+            return took, crashed, dead, successor
+
+        took, crashed, dead, successor = crash_and_take_over(journaled)
+        takeovers = [took]
+        del admitted[:]
+        code, body, hdrs = successor.handle_generate(dict(bodies[2]), idem_key="ha-2")
+        fresh = successor.handle_generate(dict(bodies[3]), idem_key="ha-new")
+        check("(c) router.crash -> RouterStandby takeover replays from the journal",
+              crashed and dead and code == 200 and body["tokens"] == want[2]
+              and hdrs.get("X-Idempotency-Replay") == "hit" and fresh[0] == 200
+              and fresh[1]["tokens"] == want[3] and admitted == ["A"]
+              and successor.healthz()["takeovers"] == 1,
+              f"crashed {crashed}, declared dead {dead}, replay {code} "
+              f"{hdrs.get('X-Idempotency-Replay')}, admissions after {admitted}")
+        chain = []
+        del admitted[:]
+        for _ in range(FLEET_REPEATS[0]):
+            took, crashed, dead, successor = crash_and_take_over(successor)
+            takeovers.append(took)
+            code, body, hdrs = successor.handle_generate(dict(bodies[2]), idem_key="ha-2")
+            chain.append(crashed and dead and code == 200 and body["tokens"] == want[2]
+                         and hdrs.get("X-Idempotency-Replay") == "hit")
+        check(f"(c) {FLEET_REPEATS[0]} more crash -> takeover cycles, each successor "
+              "replaying the key", all(chain) and admitted == [],
+              f"cycles {chain}, admissions {admitted}")
+        figs["takeover_s"] = statistics.median(takeovers)
+        figs["takeover_samples_s"] = takeovers
+        log("fleet", f"record: takeover from router.crash to a serving successor over "
+                     f"{len(takeovers)} cycles: median {figs['takeover_s']:.3f} s, "
+                     f"samples {[round(t, 3) for t in takeovers]} (standby timeout 0.5 s, "
+                     f"probe interval 0.1 s, journal seq {successor.journal.seq}) | {smi}")
+
+        # (b) A stopped at the stream's midpoint: the second half goes
+        # through a router whose last probe read both ready (A wins the
+        # tie), so it tries A until A's breaker opens
+        first = Router([Replica("A", url["A"]), Replica("B", url["B"])],
+                       probe_interval=3600, retry_backoff=0.01)
+        second = Router([Replica("A", url["A"]), Replica("B", url["B"])],
+                        probe_interval=3600, retry_backoff=0.01)
+        routers += [first, second]
+        first.probe_once()
+        second.probe_once()
+        before = dict(profiler.router_summary())
+        half = len(bodies) // 2
+        answers = [first.handle_generate(dict(b)) for b in bodies[:half]]
+        no_retrace(engines["A"])
+        servers["A"][0].stop()
+        answers += [second.handle_generate(dict(b)) for b in bodies[half:]]
+        g = profiler.router_summary()
+        moved = {k: g[k] - before[k] for k in ("requests", "retries", "failovers",
+                                               "breaker_trips")}
+        check("(b) the preferred replica stopped mid-stream: every request once, "
+              "the same tokens", [s for s, _, _ in answers] == [200] * len(bodies)
+              and [o["tokens"] for _, o, _ in answers] == want
+              and moved["failovers"] >= 1, f"counters {moved}")
+        no_retrace(engines["B"])
+    finally:
+        inj.disarm()
+        for standby in standbys:
+            standby.stop()
+        for r in routers:
+            r.stop()
+        for f in fronts:
+            f.shutdown()
+            f.server_close()
+        for srv, _ in servers.values():
+            srv.stop()
+    del engines, servers
+    if on_card:
+        _free()
+
+    # -- (d): a colocated replica and prefill/decode pairs behind a router ----
+    pair_prompts = [np.random.default_rng(40 + i).integers(
+        1, cfg.vocab_size, size=n).astype(np.int32) for i, n in enumerate(pair_spec)]
+    pair_bodies = [{"input_ids": p.tolist(), "max_new_tokens": pair_new}
+                   for p in pair_prompts]
+    ttft = {}
+    for quant in ("none", "int8"):
+        handles = {"colocated": [], "decode": []}
+        engines = {role: engine(role=role, kv_quant=quant, prefix_cache=False,
+                                **{k: v for k, v in small.items() if k != "kv_quant"})
+                   for role in ("colocated", "prefill", "decode")}
+        for role in handles:
+            real = engines[role].submit
+
+            def submit(*a, _real=real, _into=handles[role], **kw):
+                h = _real(*a, **kw)
+                _into.append(h)
+                return h
+
+            engines[role].submit = submit
+        servers = {role: _fleet_serve(e) for role, e in engines.items()}
+        url = {role: u for role, (_, u) in servers.items()}
+        try:
+            co = Router([Replica("c", url["colocated"])], probe_interval=3600)
+            co.probe_once()
+            pair = Router([Replica(role[0], url[role]) for role in
+                           ("colocated", "prefill", "decode")], probe_interval=3600,
+                          retry_backoff=0.05)
+            pair.probe_once()
+            rows = []
+            before = profiler.disagg_summary().get("pair_picks", 0)
+            for b in pair_bodies:
+                t_co = time.perf_counter()
+                c1, o1, _ = co.handle_generate(dict(b))
+                h_co = handles["colocated"][-1]
+                t_dis = time.perf_counter()
+                c2, o2, _ = pair.handle_generate(dict(b))
+                h_dec = handles["decode"][-1]
+                rows.append(dict(L=len(b["input_ids"]), same=c1 == c2 == 200
+                                 and o1["tokens"] == o2["tokens"],
+                                 ttft_co=(h_co._submit_t + h_co.ttft_s - t_co) * 1e3,
+                                 ttft_dis=(h_dec._submit_t + h_dec.ttft_s - t_dis) * 1e3,
+                                 wall_dis=(time.perf_counter() - t_dis) * 1e3))
+            picks = profiler.disagg_summary().get("pair_picks", 0) - before
+            label = ("int8" if quant == "int8"
+                     else str(model.lm_head.weight.dtype).removeprefix("torch."))
+            check(f"(d) {label}: the prefill/decode pair behind the router, bit for "
+                  "bit the colocated replica", all(r["same"] for r in rows)
+                  and picks == len(rows) and len(handles["decode"]) == len(rows),
+                  "; ".join(f"{r['L']} {'equal' if r['same'] else 'DIFFER'}"
+                            for r in rows) + f"; pair picks {picks}")
+            ttft[label] = rows
+            log("fleet", f"record: {label} TTFT ms through the router, "
+                         "disaggregated (three hops to the decode side's first "
+                         "token) against colocated: " + "; ".join(
+                             f"{r['L']}: {r['ttft_dis']:.1f} vs {r['ttft_co']:.1f} "
+                             f"(pipeline wall {r['wall_dis']:.1f})" for r in rows)
+                  + f"; medians {_p50([r['ttft_dis'] for r in rows]):.1f} vs "
+                    f"{_p50([r['ttft_co'] for r in rows]):.1f} | {smi}")
+            no_retrace(*engines.values())
+            pair.stop()
+            co.stop()
+        finally:
+            for srv, _ in servers.values():
+                srv.stop()
+        del engines, servers, handles
+        if on_card:
+            _free()
+    figs["ttft"] = ttft
+
+    # -- (e): session pins and an adapter-resident pick -----------------------
+    reg = AdapterRegistry(cfg)
+    make_random(reg, "a1", rank=8, seed=1)
+    admitted = []
+    engines = {rid: engine(lora=AdapterArena(reg, rank_max=8, device=device), **small)
+               for rid in ("r0", "r1")}
+    for rid, e in engines.items():
+        _admissions(e, admitted, rid)
+    servers = {rid: _fleet_serve(e) for rid, e in engines.items()}
+    try:
+        router = Router([Replica(rid, u) for rid, (_, u) in servers.items()],
+                        probe_interval=3600, retry_backoff=0.01)
+        router.probe_once()
+        before = dict(profiler.router_summary())
+        chat_rng = np.random.default_rng(7)
+        convo, statuses = [], []
+        for turn in range(5):
+            if turn == 4:
+                router.replicas[0].set_admin_draining(True)  # the pin breaks
+            convo = convo + chat_rng.integers(1, cfg.vocab_size, size=chat_user).tolist()
+            code, out, _ = router.handle_generate({"input_ids": convo,
+                                                   "max_new_tokens": chat_new,
+                                                   "session_id": "chat"})
+            statuses.append(code)
+            convo = out["tokens"] if code == 200 else convo
+        g = profiler.router_summary()
+        hits = g["session_pin_hits"] - before.get("session_pin_hits", 0)
+        repins = g["session_repins"] - before.get("session_repins", 0)
+        check("(e) a four-turn chat pinned to one replica, repinned once it drains",
+              statuses == [200] * 5 and admitted == ["r0"] * 4 + ["r1"]
+              and (hits, repins) == (3, 1) and router.healthz()["session_pins_by_replica"]
+              == {"r1": 1}, f"statuses {statuses}, turns on {admitted}, pin hits "
+              f"{hits}, repins {repins}")
+        router.replicas[0].set_admin_draining(False)
+        p = np.random.default_rng(9).integers(1, cfg.vocab_size, size=48).tolist()
+        code, _, _ = _post_full(servers["r1"][1] + "/generate",
+                                   {"input_ids": p, "max_new_tokens": 8, "adapter": "a1"})
+        router.probe_once()
+        del admitted[:]
+        q = np.random.default_rng(10).integers(1, cfg.vocab_size, size=40).tolist()
+        code2, out, _ = router.handle_generate({"input_ids": q, "max_new_tokens": 8,
+                                                "adapter": "a1"})
+        resident = router.replicas[1].snapshot()["lora_adapters"]
+        check("(e) an adapter request lands on the replica holding it resident",
+              code == code2 == 200 and admitted == ["r1"] and "a1" in resident
+              and "a1" not in router.replicas[0].snapshot()["lora_adapters"],
+              f"resident on r1 {resident}, admitted on {admitted}")
+        no_retrace(*engines.values())
+        router.stop()
+    finally:
+        for srv, _ in servers.values():
+            srv.stop()
+    del engines, servers
+    if on_card:
+        _free()
+
+    # -- (f): the autoscaler 1 -> 2 -> 1 under a stepped workload -------------
+    admitted = []
+    spawned = {}
+    ready_at = {}
+    live = {"r0": engine(prefix_cache=False, **small)}  # rid -> engine
+    _admissions(live["r0"], admitted, "r0")
+    servers = {"r0": _fleet_serve(live["r0"])}
+    router = Router([Replica("r0", servers["r0"][1])], probe_interval=0.05,
+                    retry_backoff=0.02)
+
+    def spawn(idx, tp):
+        t = time.perf_counter()
+        rid = f"as{idx}"
+        live[rid] = engine(prefix_cache=False, **small)
+        _admissions(live[rid], admitted, rid)
+        servers[rid] = _fleet_serve(live[rid])
+        spawned[rid] = t
+        return Replica(rid, servers[rid][1])
+
+    def stop(rep):
+        no_retrace(live.pop(rep.rid))
+        servers.pop(rep.rid)[0].stop()
+
+    done = threading.Event()
+
+    def watch():
+        while not done.wait(0.01):
+            for rep in router.replicas:
+                if rep.rid in spawned and rep.rid not in ready_at and rep.state == "ready":
+                    ready_at[rep.rid] = time.perf_counter()
+
+    asc = Autoscaler(router, spawn_fn=spawn, stop_fn=stop, min_replicas=1,
+                     max_replicas=2, interval=0.1, up_ticks=1, down_ticks=3,
+                     up_cooldown=0.0, down_cooldown=1.0, up_drain_s=1e9,
+                     up_queue_depth=0.5, up_miss_rate=1.0, min_page_free=0.0,
+                     down_drain_s=1e9, tp_max=1, devices_total=1, drain_grace=30.0)
+    watcher = threading.Thread(target=watch, daemon=True)
+    try:
+        router.start()
+        watcher.start()
+        asc.start()
+        wl = Workload(vocab=cfg.vocab_size, **soak)
+        report = run_soak(router, wl, threads=16)
+        # the spawn runs inside a tick and may outlast the soak: wait for
+        # the cycle's end (a scale-down back to one replica), not a sleep
+        deadline = time.perf_counter() + 60
+        while time.perf_counter() < deadline and not (
+                profiler.autoscale_summary().get("scale_downs", 0) >= 1
+                and len(router.replicas) == 1):
+            time.sleep(0.05)
+        s = report.summary()
+        g = profiler.autoscale_summary()
+        served = sorted(set(admitted))
+        check("(f) the autoscaler scales 1 -> 2 -> 1 under the stepped workload, "
+              "every request once", report.exactly_once and s["status_counts"]
+              == {200: s["offered"]} and g.get("scale_ups") == 1
+              and g.get("scale_downs") == 1 and g.get("replicas_peak") == 2
+              and len(router.replicas) == 1,
+              f"offered {s['offered']}, statuses {s['status_counts']}, "
+              f"autoscaler {g}, replicas that served {served}")
+        log("fleet", f"record: soak p50 {s['latency_p50_ms']} ms, p95 "
+                     f"{s['latency_p95_ms']} ms over {s['offered']} requests in "
+                     f"{s['wall_s']} s | {smi}")
+        asc.stop()  # no scale-down races the check
+        no_retrace(*live.values())
+    finally:
+        done.set()
+        asc.stop()
+        router.stop()
+        for srv, _ in list(servers.values()):
+            srv.stop()
+    spawn_ready = [ready_at[r] - spawned[r] for r in spawned if r in ready_at]
+    servers.clear()
+    live.clear()
+    if on_card:
+        _free()
+    # spawn-to-ready again outside the autoscaler: each spawn probed until
+    # it reads ready, then stopped and freed before the next
+    for k in range(FLEET_REPEATS[1]):
+        t = time.perf_counter()
+        rep = spawn(100 + k, 1)
+        try:
+            while rep.probe(timeout=5.0) is None or rep.state != "ready":
+                if time.perf_counter() - t > 300:
+                    break
+                time.sleep(0.01)
+            spawn_ready.append(time.perf_counter() - t if rep.state == "ready"
+                               else float("nan"))
+        finally:
+            stop(rep)
+        del rep
+        if on_card:
+            _free()
+    figs["spawn_to_ready_s"] = statistics.median(spawn_ready) if spawn_ready \
+        else float("nan")
+    figs["spawn_to_ready_samples_s"] = spawn_ready
+    check(f"(f) {1 + FLEET_REPEATS[1]} spawns read ready",
+          len(spawn_ready) == 1 + FLEET_REPEATS[1] and all(x == x for x in spawn_ready),
+          f"{len(spawn_ready)} samples")
+    log("fleet", f"record: spawn-to-ready (engine build + warmup + serve() until a "
+                 f"probe reads ready) over {len(spawn_ready)} spawns (the autoscaler's, "
+                 f"then {FLEET_REPEATS[1]} alone): median {figs['spawn_to_ready_s']:.3f} s, "
+                 f"samples {[round(x, 3) for x in spawn_ready]} | {smi}")
+    counts = profiler.kernel_launch_counts()
+    want = ("flash_fwd", "paged_decode_fused", "paged_decode_fused_q8")
+    check("K1, K2 and K4 launched on the fleet's path (a)-(f)",
+          all(counts.get(k, 0) > 0 for k in want) or not on_card,
+          f"{ {k: counts.get(k, 0) for k in want} }")
+
+    # -- (g): two tiny ReplicaProcess workers, one SIGKILLed ------------------
+    tiny = LlamaForCausalLM(LlamaConfig.tiny(), device=device, seed=1234)
+    local = ContinuousBatchingEngine(tiny, device=device, slots=2, max_len=64,
+                                     prefill_buckets=[8, 16], queue_depth=32, seed=0)
+    extra = () if on_card else ("--device", "cpu")
+    procs = []
+    for i in range(2):
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            port = sk.getsockname()[1]
+        procs.append(ReplicaProcess(i, port, log_dir=str(obs_dir / "workers"),
+                                    extra_args=extra))
+    reps = [Replica(f"w{i}", p.url, process=p) for i, p in enumerate(procs)]
+    router = Router(reps, probe_interval=0.1, retry_backoff=0.02)
+    t0 = time.perf_counter()
+    results, mu = [], threading.Lock()
+    try:
+        for p in procs:
+            p.start()
+        while time.perf_counter() - t0 < 300:
+            router.probe_once()
+            if all(r.state == "ready" for r in reps) or not all(p.alive() for p in procs):
+                break
+            time.sleep(0.2)
+        boot_s = time.perf_counter() - t0
+        booted = all(r.state == "ready" for r in reps)
+        check("(g) two tiny workers ready", booted, f"{boot_s:.1f} s from spawn")
+        if booted:
+            router.start()
+            load_rng = np.random.RandomState(7)
+
+            def load(k):
+                for i in range(worker_prompts):
+                    time.sleep(float(load_rng.exponential(0.05)))
+                    p = np.random.RandomState(1000 * k + i).randint(1, 250, size=6)
+                    code, out, _ = router.handle_generate({"input_ids": p.tolist(),
+                                                           "max_new_tokens": 4})
+                    with mu:
+                        results.append((p, code, out))
+
+            threads = [threading.Thread(target=load, args=(k,)) for k in range(2)]
+            for th in threads:
+                th.start()
+            time.sleep(0.3)
+            inj.arm("router.replica.kill:1")
+            for th in threads:
+                th.join(600)
+            inj.disarm()
+            good = [(p, out) for p, code, out in results if code == 200]
+            typed = all(out.get("type") for _, code, out in results if code != 200)
+            same = all(out["tokens"] == local.generate(p.astype(np.int32),
+                                                       max_new_tokens=4).tolist()
+                       for p, out in good)
+            killed = sum(not p.alive() for p in procs)
+            check("(g) one worker SIGKILLed under load: every request once",
+                  len(results) == 2 * worker_prompts and killed == 1 and typed and same
+                  and len(good) >= len(results) - 4,
+                  f"{len(results)} answers, {len(good)} 200 (each the in-process "
+                  f"tiny engine's tokens: {same}), {killed} worker killed")
+    finally:
+        inj.disarm()
+        router.stop()
+        for p in procs:
+            p.terminate()
+    check("(g) every worker process reaped", not any(p.alive() for p in procs)
+          and all(p.container.proc is None or p.container.proc.returncode is not None
+                  for p in procs),
+          f"exit codes {[p.container.proc and p.container.proc.returncode for p in procs]}")
+    del tiny, local
+    if obs_env is None:
+        os.environ.pop("PADDLE_OBS_DIR", None)
+    else:
+        os.environ["PADDLE_OBS_DIR"] = obs_env
+    g = profiler.router_summary()
+    log("fleet", f"router counters {({k: v for k, v in g.items() if v})}; disagg "
+                 f"{profiler.disagg_summary()}")
+    return ok, [counts]
+
+
 def _device_profile(run, steps):
     """Run `run()` `steps` times under torch.profiler.  Returns (wall us,
     {kernel name: device us}, {annotated range: device us}, {"host_us":
@@ -7085,6 +7787,10 @@ def main():
             "disagg", phase_disagg, smi, model,
             **dict(serving, prefill_buckets=[32, 64, 128, 256, 512, 1024]))
         _free()
+        # the serving fleet: the router, its journal and standby, the
+        # disaggregated pairs, session pins, the autoscaler, worker processes
+        fleet_ok, fleet_counts = _timed("fleet", phase_fleet, smi, model, **serving)
+        _free()
         # buckets up to the context: every prompt of the traffic lands in a
         # warmed one, so none traces under traffic
         cp_kw = dict(slots=4, max_len=4096, page_size=128,
@@ -7187,6 +7893,7 @@ def main():
                 f"launched: {idle16 or 'none'} -> {'FAIL' if idle16 else 'ok'}")
     if not (kernels_ok and slice_ok and prefix_ok and gen_ok and dense_ok
             and fault_ok and obs_ok and lora_ok and sessions_ok and disagg_ok
+            and fleet_ok
             and cp_ok and f32_ok and train_ok and recompute_ok and grad_ok
             and fit_ok and resume_ok and diverge_ok and fit_bert_ok
             and amp_ok and bert_ok and bert_grad_ok and ring_ok and lc_ok
@@ -7198,7 +7905,7 @@ def main():
     # just after its path ran
     runs = [counts, *prefix_counts, gen_counts, dense_counts, fault_counts,
             obs_counts, lora_counts, lora_solo_counts, sessions_counts,
-            *disagg_counts, *cp_counts,
+            *disagg_counts, *fleet_counts, *cp_counts,
             *f32_counts, train_counts, fit_counts, eval_counts, fit_bert_counts,
             amp_counts, bert_counts, *ring_counts, lc_counts, lc2_counts]
     launches = {name: sum(c.get(name, 0) for c in runs) for name in kernels}

@@ -210,6 +210,13 @@ register("serve.loop.crash",
 register("disagg.prefill.crash",
          "drops a prefill worker's POST /prefill after its export, with no "
          "byte of response (the router sees a zero-token retriable failure)")
+register("launch.spawn", "fires when the launch controller spawns a trainer")
+register("router.replica.hang", "HANGS the router's dispatch to one replica (wedged connection drill; bounded by the HTTP timeout)")
+register("router.replica.flap", "fails the router's /healthz probe of a replica (flapping-replica / breaker drill)")
+register("router.replica.kill", "SIGKILLs a router-managed replica process at probe time (kill -9 chaos drill)")
+register("autoscale.spawn", "fires when the autoscaler spawns a replica (failed-scale-up drill: the loop must absorb the failure and retry after the cooldown)")
+register("router.crash", "kills the serving ROUTER at probe time (front-door kill -9 drill: heartbeat goes stale, the warm standby replays the journal, re-probes the fleet, and resumes serving exactly-once)")
+register("disagg.handoff.drop", "drops the serialized handoff payload between the prefill and decode hops (router-side; the request retries the whole pipeline exactly-once, the decode-side reservation expires by TTL)")
 register("dataloader.next", "fires before the data loader produces each batch")
 register("dataloader.hang", "HANGS the data loader's next() (watchdog drill)")
 register("supervisor.step", "fires inside Supervisor.after_step")

@@ -311,10 +311,128 @@ define_flag(
 )
 define_flag(
     "FLAGS_router_idem_ttl", 300.0,
-    "serve(): seconds a completed response stays cached against its "
-    "X-Idempotency-Key.  Within the TTL a resubmitted key replays the stored "
-    "response instead of generating again; an in-flight resubmit joins the "
-    "live request",
+    "serve() and the router: seconds a completed response stays cached "
+    "against its X-Idempotency-Key.  Within the TTL a resubmitted key "
+    "replays the stored response instead of generating again; an in-flight "
+    "resubmit joins the live request",
+)
+# the serving fleet (serving/router.py, serving/autoscaler.py): the
+# reference's names and defaults (paddle_tpu/framework/core.py:598-747)
+define_flag(
+    "FLAGS_router_probe_interval", 0.25,
+    "serving router: seconds between /healthz probes of each replica",
+)
+define_flag(
+    "FLAGS_router_probe_timeout", 2.0,
+    "serving router: per-probe HTTP timeout (s); a timed-out probe counts "
+    "as a replica failure toward its circuit breaker",
+)
+define_flag(
+    "FLAGS_router_max_retries", 3,
+    "serving router: extra attempts of a zero-token request after a "
+    "connect failure, a 503 or a retriable 504 (0 disables failover)",
+)
+define_flag(
+    "FLAGS_router_retry_backoff", 0.05,
+    "serving router: initial retry delay (s), doubled per attempt with "
+    "+/-50% jitter and clamped by the remaining deadline",
+)
+define_flag(
+    "FLAGS_router_breaker_threshold", 3,
+    "serving router: consecutive replica failures that open its breaker",
+)
+define_flag(
+    "FLAGS_router_breaker_cooldown", 1.0,
+    "serving router: seconds an open breaker waits before one half-open "
+    "trial request",
+)
+define_flag(
+    "FLAGS_router_max_inflight", 64,
+    "serving router: requests in flight through the router beyond this are "
+    "shed with 503 RouterOverloaded and Retry-After (brownout)",
+)
+define_flag(
+    "FLAGS_router_hedge_s", 0.0,
+    "serving router: a zero-token request unanswered after this many "
+    "seconds is duplicated onto a second replica, the first complete "
+    "response wins.  0 disables hedging",
+)
+define_flag(
+    "FLAGS_router_journal_segment_records", 1024,
+    "control-plane journal: records per segment file before a new one",
+)
+define_flag(
+    "FLAGS_router_takeover_timeout", 2.0,
+    "router standby: seconds the primary's heartbeat seq may stand still, "
+    "on the standby's own clock, before the standby takes over",
+)
+define_flag(
+    "FLAGS_router_retry_after_jitter", 0.25,
+    "serving router: +/- fractional jitter on the Retry-After of its sheds, "
+    "so clients shed together do not retry together.  0 disables it",
+)
+define_flag(
+    "FLAGS_autoscale_min_replicas", 1,
+    "serving autoscaler: a scale-down never leaves fewer ready replicas",
+)
+define_flag(
+    "FLAGS_autoscale_max_replicas", 4,
+    "serving autoscaler: a scale-up never grows the fleet past this",
+)
+define_flag(
+    "FLAGS_autoscale_interval", 0.5,
+    "serving autoscaler: seconds between control ticks",
+)
+define_flag(
+    "FLAGS_autoscale_up_ticks", 2,
+    "serving autoscaler: consecutive pressured ticks before a scale-up",
+)
+define_flag(
+    "FLAGS_autoscale_down_ticks", 6,
+    "serving autoscaler: consecutive idle ticks before a scale-down",
+)
+define_flag(
+    "FLAGS_autoscale_up_cooldown", 2.0,
+    "serving autoscaler: seconds after any action before a scale-up",
+)
+define_flag(
+    "FLAGS_autoscale_down_cooldown", 10.0,
+    "serving autoscaler: seconds after any action before a scale-down",
+)
+define_flag(
+    "FLAGS_autoscale_up_drain_s", 0.5,
+    "serving autoscaler: the fleet's best drain estimate above this many "
+    "seconds is pressure",
+)
+define_flag(
+    "FLAGS_autoscale_up_queue_depth", 4.0,
+    "serving autoscaler: mean queued requests per ready replica above this "
+    "is pressure",
+)
+define_flag(
+    "FLAGS_autoscale_up_miss_rate", 0.05,
+    "serving autoscaler: any replica's deadline-miss rate above this is "
+    "pressure",
+)
+define_flag(
+    "FLAGS_autoscale_min_page_free", 0.05,
+    "serving autoscaler: any replica's free page fraction below this is "
+    "pressure",
+)
+define_flag(
+    "FLAGS_autoscale_down_drain_s", 0.05,
+    "serving autoscaler: a tick is idle only when every ready replica's "
+    "drain estimate is at most this and no replica holds work",
+)
+define_flag(
+    "FLAGS_autoscale_tp_max", 1,
+    "serving autoscaler: cap on the tensor-parallel degree of a spawned "
+    "replica.  The port serves tp 1; a spawn that would pick more raises",
+)
+define_flag(
+    "FLAGS_autoscale_down_idle_tokens_s", 0.0,
+    "serving autoscaler: a scale-down also needs this much idle decode "
+    "capacity (tokens/s over idle ready replicas).  0: emptiness alone",
 )
 define_flag(
     "FLAGS_max_inflight_steps", 2,

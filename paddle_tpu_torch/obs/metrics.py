@@ -34,17 +34,18 @@ The names, label sets and zero-filled label sets are the reference's
   ``lora=``.  ``paddle_session_*``: the session store's gauges and
   counters, live on a paged engine with a prefix cache;
   ``paddle_session_pin_hits_total`` and ``paddle_session_repins_total``
-  are the router's and stay at 0 until the serving fleet is ported.
+  count the router's session pins that held and that broke.
 
-- ``paddle_disagg_*``: the engine side of disaggregated serving is live:
-  ``exports`` and ``handoff_bytes`` (raw row bytes, before base64) count a
-  prefill worker's exports, ``imports`` and ``import_pages`` a decode
-  worker's imports.  ``pair_picks``, ``handoff_retries``,
-  ``reserve_fails`` and ``no_decode_capacity`` are the router's and stay
-  at 0 until the serving fleet is ported.
+- ``paddle_disagg_*``: ``exports`` and ``handoff_bytes`` (raw row bytes,
+  before base64) count a prefill worker's exports, ``imports`` and
+  ``import_pages`` a decode worker's imports; ``pair_picks``,
+  ``handoff_retries``, ``reserve_fails`` and ``no_decode_capacity`` are the
+  router's (``serving.router``).
 
-Router and autoscaler families render at 0 until their ROADMAP items
-land.
+- ``paddle_router_*``: the serving router's counters and
+  ``paddle_router_replica_state`` per replica; ``paddle_autoscaler_*``: the
+  autoscaler's control loop (``serving.autoscaler``).  ``serve_router()``
+  mounts the render with ``{replica="host:port", role="router"}``.
 """
 
 from __future__ import annotations

@@ -11,8 +11,8 @@ saved, copy-on-write copies, commits and evictions;
 `kv_quant_summary()` the arena's storage precision and bytes;
 `speculation_summary()` the verify steps' drafts proposed, accepted and
 tokens emitted; `mesh_summary()` the serving engine's parallel layout;
-`router_summary()` the front door's idempotent replays (`idem_hits`) and
-joins of a live keyed request (`idem_joins`).
+`router_summary()` the serving router's counters (`ROUTER_KEYS`, the
+session pins) and the last observed state of each replica.
 `kernel_launch_counts()` reads every hand-written kernel's launches
 (`flash_fwd`, `paged_decode_fused`, `paged_decode_fused_q8`, `flash_bwd`,
 `dense_decode`, `paged_decode_fused_cp`, `paged_decode_fused_cp_q8`, and
@@ -23,8 +23,8 @@ The reference's other families carry its keys too, for `/metrics` and the
 flight recorder's dump header: `step` (`record_step`, the training
 loop's host-time split), `lora`, `autoscale`, `disagg` and `sessions`.
 The training loop, the adapter arena, the engine's KV handoffs and its
-session store feed theirs; `autoscale` and the router's `disagg` keys stay
-at 0 until the serving fleet is ported.  `record_paging_tick` feeds the
+session store feed theirs, the serving router its `disagg` keys and the
+autoscaler `autoscale`.  `record_paging_tick` feeds the
 page-pool gauges (`pages_used_peak`, `pages_total`); the flash counters
 (`record_flash_fallback`, `record_flash_pallas_call`) are the kernels'
 own per-trace counts, see `ops.flash_attention.pallas_calls`.
@@ -353,9 +353,21 @@ def mesh_summary():
     return g if g["devices"] else {}
 
 
+# the reference's router counters (profiler.py:682-702), in its order
+ROUTER_KEYS = ("requests", "retries", "failovers", "breaker_trips",
+               "breaker_half_open", "breaker_closes", "hedges", "hedge_wins",
+               "brownout_sheds", "deadline_sheds", "no_replica", "idem_hits",
+               "idem_joins", "journal_appends", "journal_compactions",
+               "journal_torn_records", "takeovers", "crashes")
+
+
 def _reset_router_locked():
-    _router.clear()
-    _router.update(idem_hits=0, idem_joins=0)
+    # zero every key, the ones counted beside ROUTER_KEYS too (the
+    # reference's reset keeps them at 0)
+    for k in list(_router):
+        _router[k] = {} if k == "replica_states" else 0
+    if not _router:
+        _router.update(dict.fromkeys(ROUTER_KEYS, 0), replica_states={})
 
 
 _reset_router_locked()
@@ -367,16 +379,27 @@ def reset_router():
 
 
 def record_router_event(kind, n=1):
-    """Count one front-door event: 'idem_hits' (a keyed request replayed
-    from the idempotency cache) or 'idem_joins' (one that joined the live
-    request of its key); another kind is counted too."""
+    """Count one front-door event: one of `ROUTER_KEYS` (the router's
+    requests, retries, failovers, breaker transitions, hedges, sheds,
+    idempotent replays and joins, journal appends, compactions and torn
+    records, takeovers and crashes), or the router's session pins
+    ('session_pin_hits', 'session_repins'); another kind is counted too."""
     with _lock:
         _router[kind] = _router.get(kind, 0) + int(n)
 
 
-def router_summary():
+def record_router_replica_state(replica_id, state):
+    """The last observed state of one replica (ready, draining, ...)."""
     with _lock:
-        return dict(_router)
+        _router["replica_states"][str(replica_id)] = str(state)
+
+
+def router_summary():
+    """The router counters and the replica states by id."""
+    with _lock:
+        g = dict(_router)
+        g["replica_states"] = dict(g["replica_states"])
+        return g
 
 
 # -- the reference's other families: their keys, for /metrics and the
@@ -447,6 +470,12 @@ def _reset_autoscale_locked():
                       spawn_failures=0, reaps=0, replicas=0, replicas_peak=0)
 
 
+def reset_autoscale():
+    """Zero the autoscaler's counters and gauges."""
+    with _lock:
+        _reset_autoscale_locked()
+
+
 def record_autoscale_event(kind, n=1):
     """Count one autoscaler event: 'ticks', 'scale_ups', 'scale_downs',
     'holds', 'spawn_failures' or 'reaps' (another kind is counted too)."""
@@ -485,8 +514,8 @@ def record_disagg_event(kind, n=1):
     """Count one disaggregated-serving event (reference: profiler.py:
     817-835): the engine's 'exports', 'handoff_bytes' (raw row bytes of
     each export), 'imports' and 'import_pages'; the router's 'pair_picks',
-    'handoff_retries', 'reserve_fails' and 'no_decode_capacity', 0 until
-    the serving fleet is ported (another kind is counted too)."""
+    'handoff_retries', 'reserve_fails' and 'no_decode_capacity' (another
+    kind is counted too)."""
     with _lock:
         _disagg[kind] = _disagg.get(kind, 0) + int(n)
 
@@ -603,7 +632,7 @@ def metrics_snapshot():
         serving["ttfts_s"] = list(serving["ttfts_s"])
         serving["faults"] = dict(serving["faults"])
         router = dict(_router)
-        router["replica_states"] = {}  # the router is not ported yet
+        router["replica_states"] = dict(router["replica_states"])
         return {
             "step": dict(_step), "serving": serving, "paging": dict(_paging),
             "speculation": dict(_spec), "lora": dict(_lora), "router": router,

@@ -247,3 +247,32 @@ def test_chip_smoke_fails_outside_a_checkout(tmp_path):
     proc = _run_chip_smoke(tmp_path / "chip_smoke.py", tmp_path)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_the_serving_fleet_and_the_launcher_load_no_jax_and_no_reference():
+    """Importing every module of the serving fleet and of
+    `distributed.launch` in a fresh interpreter loads neither `jax` nor any
+    module of `paddle_tpu`."""
+    code = ("import sys\n"
+            "import paddle_tpu_torch.serving as s\n"
+            "from paddle_tpu_torch.serving import autoscaler, journal, replica, router, "
+            "workload\n"
+            "from paddle_tpu_torch.distributed.launch import main\n"
+            "[getattr(s, n) for n in s.__all__]\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'paddle_tpu'))\n"
+            "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_a_replica_worker_without_a_card_raises(monkeypatch):
+    """The worker serves on the card unless `--device cpu` asks for the
+    CPU: with no CUDA it raises before building a model."""
+    from paddle_tpu_torch.serving import replica
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        replica.main(["--port", "1"])

@@ -317,9 +317,9 @@ FAMILIES = ("step", "serving", "paging", "speculation", "lora", "router",
 
 def _comparable(family, ref, port):
     """The serving family keeps the port's own extra keys (the decode
-    window, host fetches); the router family holds only the front door's
-    counters the port has (the idempotency cache's) and the replica states,
-    the reference's other router counters render as 0 (`g.get(key, 0)`)."""
+    window, host fetches); of the router family, the keys the port holds
+    (a kind another test counted in the reference's profiler, such as its
+    session pins, stays there at 0 after a reset)."""
     if family == "serving":
         port = {k: v for k, v in port.items()
                 if k not in ("window_t0", "window_t1", "host_fetches")}
@@ -377,7 +377,10 @@ def test_existing_summaries_keep_their_output():
     before = tprof.paging_summary()
     tprof.record_paging_tick(5, 40)
     assert tprof.paging_summary() == before
-    assert sorted(tprof.router_summary()) == ["idem_hits", "idem_joins"]
+    # the router family: the reference's counters, then the replica states
+    ref_keys = list(jprof._router_gauges)[:len(tprof.ROUTER_KEYS) + 1]
+    assert list(tprof.router_summary()) == ref_keys
+    assert ref_keys == [*tprof.ROUTER_KEYS, "replica_states"]
 
 
 # ---------------------------------------------------------------------------

@@ -272,7 +272,11 @@ def test_concurrent_posts_of_one_key_admit_once_and_join(pair):
     assert pair.admissions()["port"] == before + 1
     assert sorted(a[1] or "" for a in answers) == ["", "join"]
     assert answers[0][0] == answers[1][0] == 200 and answers[0][2] == answers[1][2]
-    assert tprofiler.router_summary() == {"idem_hits": 0, "idem_joins": 1}
+    # a kind counted beside ROUTER_KEYS earlier in this process (a session
+    # pin) stays in the family at 0 after the reset, as in the reference
+    counts = {k: v for k, v in tprofiler.router_summary().items() if k != "replica_states"}
+    assert counts == {**dict.fromkeys(counts, 0), **dict.fromkeys(tprofiler.ROUTER_KEYS, 0),
+                      "idem_joins": 1}
 
 
 def test_a_retriable_503_is_not_cached(pair):

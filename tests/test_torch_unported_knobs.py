@@ -133,3 +133,38 @@ def test_lora_flags_set_a_default_arena(model, flags):
     eng.run_until_idle()
     assert len(req.wait(1)) == 8
     assert eng.healthz()["lora"]["capacity"] == 2
+
+
+def test_a_replica_worker_with_tp_above_one_refuses():
+    """`serving.replica --tp 2` (reference replica.py:482) raises before it
+    builds anything: the port serves one card per replica."""
+    from paddle_tpu_torch.serving import replica
+
+    with pytest.raises(NotImplementedError, match="tensor-parallel serving"):
+        replica.main(["--port", "1", "--device", "cpu", "--tp", "2"])
+
+
+def test_an_autoscaler_spawn_at_tp_above_one_refuses():
+    """With devices free and `tp_max` 2 the reference's `choose_tp` picks 2
+    (autoscaler.py:433); the port refuses such an autoscaler when it is
+    built, so no background tick can swallow the refusal, and no spawn
+    function runs."""
+    from paddle_tpu_torch.serving import Replica, Router
+    from paddle_tpu_torch.serving.autoscaler import Autoscaler
+
+    rep = Replica("r0", "http://127.0.0.1:9")
+    rep._note_healthz({"status": "ready", "queue_depth": 9})
+    spawned = []
+
+    def build(tp_max):
+        return Autoscaler(Router([rep], probe_interval=3600),
+                          spawn_fn=lambda idx, tp: spawned.append(tp)
+                          or Replica(f"as{idx}", "http://127.0.0.1:9"),
+                          min_replicas=1, max_replicas=3, up_ticks=1, tp_max=tp_max,
+                          devices_total=4, interval=3600)
+
+    with pytest.raises(NotImplementedError, match="tensor-parallel serving"):
+        build(2)
+    assert spawned == []
+    asc = build(1)  # a tp-1 spawn goes ahead
+    assert asc.tick(now=10.0)["action"] == "up" and spawned == [1]
