@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Twenty-one phases, and the serving, training and amp ones again in float16
+Twenty-two phases, and the serving, training and amp ones again in float16
 (below); a failure in any of them exits non-zero and prints no result.
 
 1. device  -- requires CUDA; prints the card's name and power limit.
@@ -283,6 +283,33 @@ Twenty-one phases, and the serving, training and amp ones again in float16
               form, one K1 and one K3 with q_offset per rank), 2 steps; then
               one step's gradients of 2 layers at 32768 tokens over R = 8
               against context_parallel_degree 1 (full-sequence K1/K3).
+22. vision -- the conv nets on the port's conv, pool and batch-norm
+              layers (torch ops on cuDNN; no Pallas kernel of the
+              reference is on this path): (a) bench_resnet50's recipe,
+              ResNet-50 at batch 128 x 224 x 224, 1000 classes,
+              Momentum(0.1, 0.9), bf16 O2 with float32 masters, fed float32
+              images, eager, NHWC then NCHW: finite, falling losses;
+              images/s (median of 3 windows of 20 steps after warm-up),
+              step ms, time to the first step, peak memory, and one step
+              profiled in its parts -- device time of conv forward, conv
+              backward, batch norm, elementwise and optimizer kernels, and
+              the layout-conversion kernels per step; (e) VGG-16 with batch
+              norm, batch 32, bf16 O2: two steps with finite losses, peak
+              memory; (b) a seeded float32 ResNet-50 at batch 4 with TF32
+              off: the card's logits (eval and train-mode batch norm), loss
+              and conv1.weight gradient against the same model on the CPU,
+              and NHWC against NCHW on the card, each within 2e-3 by
+              relative norm (train-mode gradients 1e-1: the batch norms'
+              backward over four images leaves float32 itself ~2e-2 from
+              exact); (c) bench_lenet_eager: LeNet, batch 16, Adam
+              1e-3, steps/s over 30 steps after 2 warm-ups, time to the
+              first step, adam_fused once per step; (d) bench_hapi_async's
+              LeNet half: `Model.fit` over 512 rows, batch 32, Adam and
+              Accuracy, at FLAGS_max_inflight_steps 1 and 2 (median of 3
+              epochs each, record_step's dispatch and host-blocked ms and
+              in-flight depth), then fit's losses equal bit for bit to a
+              hand loop's under cudnn.deterministic, adam_fused once per
+              step.  cudnn.benchmark is on for (a) and (e).
 
 The float16 phases (their log lines read "[fp16 <phase>]"):
 - serve (after cp_f32) -- Llama-2-7B in float16 at full width and depth:
@@ -425,6 +452,12 @@ OBS_CLIENT_SPAN = "c1c1c1c1c1c1c1c1"
 # after the first trace-off and trace-on passes: the FLAGS_trace of each
 # further timed pass
 OBS_PASSES = (True, False, False, True, True, False)
+# profiled decode windows of each FLAGS_trace setting, at most: torch.profiler
+# can lose kernel records of a window (one full run counted 2081.9 kernels a
+# step with trace off against 2087.5 with it on, the two equal in every other
+# run), and a lost record only lowers a count, so while the two largest
+# counts differ both settings are profiled again
+OBS_PROFILE_WINDOWS = 3
 
 # the cp phase: questions about one 3000-token document (23 full 128-row
 # pages and a 56-row tail) share its pages through the prefix cache; the
@@ -562,7 +595,10 @@ _LABEL = [""]
 
 
 def log(phase, msg):
-    print(f"[{_LABEL[0]}{phase}] {msg}", flush=True)
+    line = f"[{_LABEL[0]}{phase}] {msg}"
+    print(line, flush=True)
+    if "FAIL" in msg:  # a failed check: on stderr too, whose tail is kept
+        print(f"chip_smoke FAIL {line}", file=sys.stderr, flush=True)
 
 
 class labelled:
@@ -4181,7 +4217,8 @@ def phase_obs(smi, model, device="cuda", prompts_spec=SLICE_PROMPTS,
        watchdog's trip, then an `engine-restart-1` dump, and the six
        requests give step 1's tokens;
     5. profiled decode windows with trace off, then on: the same kernels
-       per step; their wall and idle share.
+       per step (the largest count of each setting over up to
+       OBS_PROFILE_WINDOWS windows); their wall and idle share.
 
     Returns (all checks passed, the launch counts of step 2)."""
     import tempfile
@@ -4457,14 +4494,21 @@ def phase_obs(smi, model, device="cuda", prompts_spec=SLICE_PROMPTS,
                          "FLAGS_fault_hang_sec": 3600.0})
         if on_card:
             engine.stop()  # the profiles drive the steps themselves
-            fcore.set_flags({"FLAGS_trace": False})
-            k_off, wall_off, idle_off = _profile_decode_kernels(engine, cfg, rng)
-            fcore.set_flags({"FLAGS_trace": True})
-            k_on, wall_on, idle_on = _profile_decode_kernels(
-                engine, cfg, rng, trace=(trace.new_trace_id(), OBS_CLIENT_SPAN))
+            offs, ons = [], []
+            while len(offs) < OBS_PROFILE_WINDOWS and (
+                    not offs or max(k for k, *_ in ons) != max(k for k, *_ in offs)):
+                fcore.set_flags({"FLAGS_trace": False})
+                offs.append(_profile_decode_kernels(engine, cfg, rng))
+                fcore.set_flags({"FLAGS_trace": True})
+                ons.append(_profile_decode_kernels(
+                    engine, cfg, rng, trace=(trace.new_trace_id(), OBS_CLIENT_SPAN)))
+            k_off, wall_off, idle_off = max(offs, key=lambda w: w[0])
+            k_on, wall_on, idle_on = max(ons, key=lambda w: w[0])
             check("profiled decode step: kernels per step trace on = off",
                   k_on == k_off,
-                  f"{k_on:.1f} (off {k_off:.1f}); wall {wall_on:.3f} ms/step "
+                  f"{k_on:.1f} (off {k_off:.1f}; the largest of {len(ons)} "
+                  f"window(s) each: on {[round(w[0], 3) for w in ons]}, off "
+                  f"{[round(w[0], 3) for w in offs]}); wall {wall_on:.3f} ms/step "
                   f"(off {wall_off:.3f}), idle share {idle_on:.3f} (off "
                   f"{idle_off:.3f}) | {smi}")
         ok &= _no_retrace("obs", engine, warm)
@@ -7707,6 +7751,453 @@ def longcontext_grad_check(cfg, R, seq, device="cuda", seed=1):
     return ok, ratios[worst]
 
 
+# ---------------------------------------------------------------------------
+# vision: the conv nets (LeNet, ResNet-50, VGG-16) on cuDNN
+# ---------------------------------------------------------------------------
+
+RESNET_BATCH, RESNET_SIZE, RESNET_CLASSES = 128, 224, 1000  # bench_resnet50 :230
+RESNET_WINDOWS, RESNET_WINDOW_STEPS, RESNET_WARMUP = 3, 20, 3
+PARITY_BATCH = 4
+# card against CPU in float32 (TF32 off), ||card - cpu|| / ||cpu||: two conv
+# algorithms over fifty layers sum in other orders (float32 rounds at 6e-8);
+# a wrong layer gives ~1.  Train-mode gradients are looser: the batch
+# norms' backward over four images cancels, and a CPU rehearsal put every
+# conv gradient of either layout 1.5e-2 to 3.0e-2 from a float64 run
+VISION_PARITY_TOL = 2e-3
+VISION_TRAIN_GRAD_TOL = 1e-1
+LENET_BATCH, LENET_STEPS, LENET_WARMUP = 16, 30, 2  # bench_lenet_eager :296
+FIT_LENET_ROWS, FIT_LENET_BATCH, FIT_LENET_EPOCHS = 512, 32, 3  # bench_hapi_async :391
+VGG_BATCH, VGG_STEPS = 32, 2
+# a conv layout conversion (cuDNN's own transposes)
+LAYOUT_KERNELS = ("nchwToNhwc", "nhwcToNchw", "NCHWToNHWC", "NHWCToNCHW")
+CONV_KERNELS = ("conv", "xmma", "implicit", "fprop", "dgrad", "wgrad", "winograd",
+                "cutlass", "gemm", "nvjet", "cudnn")
+BN_KERNELS = ("batch_norm", "bn_fw", "bn_bw", "BatchNorm")
+
+
+def _kernels_of(fn):
+    """(fn(), {kernel name: (device us, launches)}) of one call under
+    torch.profiler, the call synchronised."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    kernels = {}
+    for ev in prof.key_averages():
+        if (ev.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(ev, "is_user_annotation", False)):
+            us = getattr(ev, "self_device_time_total", 0.0)
+            if us > 0:
+                t, n = kernels.get(ev.key, (0.0, 0))
+                kernels[ev.key] = (t + us, n + ev.count)
+    return out, kernels
+
+
+def _kind(name):
+    if any(k in name for k in LAYOUT_KERNELS):
+        return "layout"
+    if any(k in name for k in BN_KERNELS):
+        return "bn"
+    if any(k in name for k in CONV_KERNELS):
+        return "conv"
+    return "elementwise"
+
+
+def _profile_conv_step(phase, model, opt, x, y, smi):
+    """One training step profiled in its three parts (forward and loss,
+    backward, optimizer step), device time by kind: conv forward, conv
+    backward (cuDNN and the fc GEMM), batch norm, elementwise (ReLU, adds,
+    pools, the loss, casts, copies), optimizer, and the layout-conversion
+    kernels per step.  Returns the figures, or None when the profiler saw
+    no device time."""
+    from paddle_tpu_torch import nn as pnn
+
+    ce = pnn.CrossEntropyLoss()
+    loss, fwd = _kernels_of(lambda: ce(model(x), y))
+    _, bwd = _kernels_of(loss.backward)
+    _, step = _kernels_of(lambda: (opt.step(), opt.clear_grad()))
+    if not (fwd or bwd or step):
+        log(phase, "device time by kind not measured (the profiler saw no kernels)")
+        return None
+    kinds = {}
+    for part, kernels in (("forward", fwd), ("backward", bwd)):
+        for name, (us, n) in kernels.items():
+            kind = _kind(name)
+            key = f"conv {part}" if kind == "conv" else kind
+            t, c = kinds.get(key, (0.0, 0))
+            kinds[key] = (t + us, c + n)
+    kinds["optimizer"] = (sum(us for us, _ in step.values()),
+                          sum(n for _, n in step.values()))
+    busy = sum(t for t, _ in kinds.values())
+    order = ("conv forward", "conv backward", "bn", "elementwise", "layout", "optimizer")
+    log(phase, "  device ms per step by kind (launches): " + ", ".join(
+        f"{k} {kinds.get(k, (0.0, 0))[0] / 1e3:.3f} ({kinds.get(k, (0.0, 0))[1]})"
+        for k in order) + f"; busy {busy / 1e3:.3f} ms | {smi}")
+    layout = kinds.get("layout", (0.0, 0))[1]
+    copies = sum(n for kernels in (fwd, bwd) for name, (_, n) in kernels.items()
+                 if "copy" in name)
+    log(phase, f"  layout-conversion kernels per step (cuDNN nchwToNhwc / "
+               f"nhwcToNchw): {layout}; torch copy kernels in forward and "
+               f"backward: {copies}")
+    every = {}
+    for kernels in (fwd, bwd, step):
+        for name, (us, n) in kernels.items():
+            t, c = every.get(name, (0.0, 0))
+            every[name] = (t + us, c + n)
+    for name, (us, n) in sorted(every.items(), key=lambda kv: -kv[1][0])[:6]:
+        log(phase, f"  {us / busy:6.3f} of device time, {us / 1e3:.4f} ms, {n} "
+                   f"launches: {name[:90]}")
+    return {k: v[0] / 1e3 for k, v in kinds.items()} | {"layout_kernels": layout}
+
+
+def _resnet_case(smi, layout, device="cuda", batch=RESNET_BATCH, size=RESNET_SIZE,
+                 classes=RESNET_CLASSES, windows=RESNET_WINDOWS,
+                 window_steps=RESNET_WINDOW_STEPS, warmup=RESNET_WARMUP):
+    """bench_resnet50's recipe in `layout`: resnet50, Momentum(0.1, 0.9),
+    bf16 O2 with masters, one repeated seeded batch, trained eagerly (the
+    bench wraps the step in to_static, ROADMAP.md Queue 1 13b).  Prints
+    images/s (median of `windows` windows of `window_steps` steps after
+    `warmup`), step ms, time to the first step, peak memory, and a
+    profiled step.  Returns ok: every loss finite, the last window's below
+    the first step's."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import amp, optimizer
+    from paddle_tpu_torch import nn as pnn
+    from paddle_tpu_torch.vision.models import resnet50
+
+    phase = f"vision resnet50 {layout}"
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = resnet50(num_classes=classes, data_format=layout, device=device)
+    opt = optimizer.Momentum(learning_rate=0.1, momentum=0.9,
+                             parameters=model.named_parameters())
+    model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    ce = pnn.CrossEntropyLoss()
+    rng = np.random.RandomState(0)
+    shape = (batch, 3, size, size) if layout == "NCHW" else (batch, size, size, 3)
+    x = torch.from_numpy(rng.rand(*shape).astype(np.float32)).to(device)
+    y = torch.from_numpy(rng.randint(0, classes, (batch,)).astype(np.int64)).to(device)
+    built = time.perf_counter() - t0
+
+    def step():
+        loss = ce(model(x), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    t0 = time.perf_counter()
+    losses = [step().item()]
+    t_first = time.perf_counter() - t0
+    for _ in range(warmup):
+        losses.append(step().item())
+    rates, step_ms = [], []
+    for _ in range(windows):
+        window = []
+        t0 = time.perf_counter()
+        for _ in range(window_steps):
+            window.append(step())
+        losses.extend(torch.stack(window).detach().float().cpu().tolist())
+        dt = time.perf_counter() - t0
+        rates.append(batch * window_steps / dt)
+        step_ms.append(dt / window_steps * 1e3)
+    finite = bool(np.all(np.isfinite(losses)))
+    last = float(np.mean(losses[-window_steps:]))
+    falls = finite and last < losses[0]
+    peak = (f"{torch.cuda.max_memory_allocated() / 2**30:.2f}" if on_card
+            else "not measured")
+    log(phase, f"batch {batch} x {shape[1:]} float32 images, {classes} classes, bf16 "
+               f"O2 + Momentum masters, eager; built in {built:.2f} s; time to the "
+               f"first step {t_first:.3f} s; losses first {losses[0]:.4f}, last "
+               f"window mean {last:.4f}: finite {finite}, falling {falls} -> "
+               f"{'ok' if falls else 'FAIL'} | {smi}")
+    log(phase, f"images_per_s median of {windows} windows of {window_steps} steps "
+               f"{statistics.median(rates):.1f} (windows: "
+               + " ".join(f"{r:.1f}" for r in rates)
+               + f"), step_ms {statistics.median(step_ms):.2f}, peak_mem_gib {peak}"
+               f" | {smi}")
+    if on_card:
+        _profile_conv_step(phase, model, opt, x, y, smi)
+    return falls
+
+
+def _vision_parity(smi, device="cuda", batch=PARITY_BATCH, size=RESNET_SIZE):
+    """A seeded float32 resnet50 on the card (TF32 off) against the same
+    model on the CPU, in eval and in train mode (batch statistics): the
+    logits, the loss and conv1.weight's gradient; and the card's NHWC
+    model (the same weights) against its NCHW one.  Each within
+    VISION_PARITY_TOL by ||a - b|| / ||b||, train-mode gradients within
+    VISION_TRAIN_GRAD_TOL."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import nn as pnn
+    from paddle_tpu_torch.vision.models import resnet50
+
+    parity_matmuls()
+    ce = pnn.CrossEntropyLoss()
+    cpu = resnet50(device="cpu")
+    card = copy.deepcopy(cpu).to(device)
+    nhwc = resnet50(device=device, data_format="NHWC")
+    nhwc.load_state_dict(card.state_dict())
+    rng = np.random.RandomState(1)
+    x = rng.rand(batch, 3, size, size).astype(np.float32)
+    y = torch.from_numpy(rng.randint(0, 1000, (batch,)).astype(np.int64))
+    inputs = {"cpu": (cpu, torch.from_numpy(x)),
+              "card": (card, torch.from_numpy(x).to(device)),
+              "card NHWC": (nhwc, torch.from_numpy(x.transpose(0, 2, 3, 1).copy()).to(device))}
+
+    def run(name, train):
+        model, xin = inputs[name]
+        model.train(train)
+        model.zero_grad(set_to_none=True)
+        out = model(xin)
+        loss = ce(out, y.to(out.device))
+        loss.backward()
+        return out.detach().cpu(), loss.detach().cpu(), model.conv1.weight.grad.cpu()
+
+    rel = lambda a, b: float((a - b).norm() / b.norm())
+    ok = True
+    for train in (False, True):
+        got = {name: run(name, train) for name in inputs}
+        grad_tol = VISION_TRAIN_GRAD_TOL if train else VISION_PARITY_TOL
+        for a, b in (("card", "cpu"), ("card NHWC", "card")):
+            errs = {"logits": rel(got[a][0], got[b][0]), "loss": rel(got[a][1], got[b][1]),
+                    "conv1.weight grad": rel(got[a][2], got[b][2])}
+            good = (errs["logits"] <= VISION_PARITY_TOL and errs["loss"] <= VISION_PARITY_TOL
+                    and errs["conv1.weight grad"] <= grad_tol)
+            ok &= good
+            log("vision parity", f"{'train' if train else 'eval'}, batch {batch}, "
+                                 f"float32, TF32 off: {a} against {b}: " + ", ".join(
+                                     f"{k} {v:.3e}" for k, v in errs.items())
+                + f" (tol {VISION_PARITY_TOL}, the gradient {grad_tol}) -> "
+                + ("ok" if good else "FAIL"))
+    return ok
+
+
+def _lenet_eager(smi, device="cuda", batch=LENET_BATCH, steps=LENET_STEPS,
+                 warmup=LENET_WARMUP):
+    """bench_lenet_eager: LeNet, Adam 1e-3, one seeded batch, eager steps.
+    Prints steps/s over `steps` after `warmup`, time to the first step,
+    and adam_fused's launches over the timed steps (one per step on the
+    card).  Returns (ok, launch counts of the timed steps)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import nn as pnn
+    from paddle_tpu_torch import optimizer, profiler
+    from paddle_tpu_torch.vision.models import LeNet
+
+    on_card = torch.device(device).type == "cuda"
+    model = LeNet(device=device)
+    opt = optimizer.Adam(learning_rate=1e-3, parameters=model.named_parameters())
+    ce = pnn.CrossEntropyLoss()
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.rand(batch, 1, 28, 28).astype(np.float32)).to(device)
+    y = torch.from_numpy(rng.randint(0, 10, (batch,)).astype(np.int64)).to(device)
+
+    def step():
+        loss = ce(model(x), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    t0 = time.perf_counter()
+    first = step().item()
+    t_first = time.perf_counter() - t0
+    for _ in range(warmup):
+        step()
+    profiler.reset_kernel_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        last = step()
+    last = last.item()
+    dt = time.perf_counter() - t0
+    counts = profiler.kernel_launch_counts()
+    want = steps if on_card else 0
+    ok = math.isfinite(last) and last < first and counts["adam_fused"] == want
+    log("vision lenet", f"batch {batch} x 1x28x28, Adam 1e-3, eager: steps_per_s "
+                        f"{steps / dt:.1f} over {steps} steps after {warmup} warm-ups, "
+                        f"time to the first step {t_first:.3f} s; loss {first:.4f} -> "
+                        f"{last:.4f}; adam_fused launches {counts['adam_fused']} "
+                        f"(one per step: {want}) -> {'ok' if ok else 'FAIL'} | {smi}")
+    return ok, counts
+
+
+def _lenet_rows(n, seed=0):
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    return [(rng.rand(1, 28, 28).astype(np.float32), np.int64(rng.randint(0, 10)))
+            for _ in range(n)]
+
+
+def _lenet_fit_model(device):
+    from paddle_tpu_torch import Model, metric, optimizer
+    from paddle_tpu_torch import nn as pnn
+    from paddle_tpu_torch.vision.models import LeNet
+
+    net = LeNet(device=device)
+    model = Model(net)
+    model.prepare(optimizer.Adam(learning_rate=1e-3, parameters=net.named_parameters()),
+                  pnn.CrossEntropyLoss(), metric.Accuracy())
+    return model
+
+
+def _lenet_fit(smi, device="cuda", n=FIT_LENET_ROWS, batch=FIT_LENET_BATCH,
+               epochs=FIT_LENET_EPOCHS):
+    """bench_hapi_async's LeNet half: `Model.fit` over `n` rows, batch
+    `batch`, Adam and Accuracy, at FLAGS_max_inflight_steps 1 and 2 (a
+    warm-up epoch, then the median steps/s of `epochs` one-epoch fits, the
+    record_step figures over them); then, under cudnn.deterministic, fit's
+    per-step losses against a hand loop's over the same batches from the
+    same seed, bit for bit, and adam_fused once per step.  Returns (ok,
+    launch counts of the checked fit)."""
+    import torch
+
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.framework import core
+    from paddle_tpu_torch.io import DataLoader
+
+    on_card = torch.device(device).type == "cuda"
+    rows = _lenet_rows(n)
+    steps = n // batch
+    rates = {}
+    try:
+        for inflight in (1, 2):
+            core.set_flags({"FLAGS_max_inflight_steps": inflight})
+            model = _lenet_fit_model(device)
+            model.fit(rows, batch_size=batch, epochs=1, verbose=0, shuffle=False)
+            profiler.reset()
+            secs = []
+            for _ in range(epochs):
+                t0 = time.perf_counter()
+                model.fit(rows, batch_size=batch, epochs=1, verbose=0, shuffle=False)
+                secs.append(time.perf_counter() - t0)
+            snap = profiler.metrics_snapshot()["step"]
+            per = max(snap["steps"], 1)
+            rates[inflight] = steps / statistics.median(secs)
+            log("vision fit", f"FLAGS_max_inflight_steps {inflight}: steps_per_s "
+                              f"{rates[inflight]:.1f} (median of {epochs} epochs of "
+                              f"{steps} steps, batch {batch}); record_step per step: "
+                              f"dispatch {snap['dispatch_s'] / per * 1e3:.3f} ms, host "
+                              f"blocked {snap['host_blocked_s'] / per * 1e3:.3f} ms, "
+                              f"inflight max {snap['inflight_max']} | {smi}")
+    finally:
+        core.set_flags({"FLAGS_max_inflight_steps": 2})
+    log("vision fit", f"async (2) against sync (1): {rates[2] / rates[1]:.3f}x | {smi}")
+
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        model = _lenet_fit_model(device)
+        steplog = _step_log()
+        profiler.reset_kernel_launch_counts()
+        model.fit(rows, batch_size=batch, epochs=1, verbose=0, shuffle=False,
+                  callbacks=[steplog])
+        counts = profiler.kernel_launch_counts()
+        fit_losses = steplog.values()
+        hand = _lenet_fit_model(device)
+        net, opt, ce = hand.network, hand._optimizer, hand._loss
+        hand_losses = []
+        for x, y in DataLoader(rows, batch_size=batch, shuffle=False):
+            loss = ce(net(x.to(device)), y.to(device))
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            hand_losses.append(loss.item())
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    want = steps if on_card else 0
+    same = fit_losses == hand_losses and len(fit_losses) == steps
+    ok = same and counts["adam_fused"] == want
+    log("vision fit", f"cudnn.deterministic: fit's {len(fit_losses)} losses equal "
+                      f"to a hand loop's bit for bit {same} (first "
+                      f"{fit_losses[0]:.6f}, last {fit_losses[-1]:.6f}); adam_fused "
+                      f"launches {counts['adam_fused']} (one per step: {want}) -> "
+                      f"{'ok' if ok else 'FAIL'}")
+    return ok, counts
+
+
+def _vgg_case(smi, device="cuda", batch=VGG_BATCH, size=RESNET_SIZE, steps=VGG_STEPS):
+    """vgg16 with batch norm, 1000 classes, bf16 O2 + Momentum masters:
+    `steps` training steps on a seeded batch; finite losses, peak memory."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import amp, optimizer
+    from paddle_tpu_torch import nn as pnn
+    from paddle_tpu_torch.vision.models import vgg16
+
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    model = vgg16(batch_norm=True, device=device)
+    opt = optimizer.Momentum(learning_rate=0.01, momentum=0.9,
+                             parameters=model.named_parameters())
+    model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    ce = pnn.CrossEntropyLoss()
+    rng = np.random.RandomState(2)
+    x = torch.from_numpy(rng.rand(batch, 3, size, size).astype(np.float32)).to(device)
+    y = torch.from_numpy(rng.randint(0, 1000, (batch,)).astype(np.int64)).to(device)
+    losses, secs = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss = ce(model(x), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(loss.item())
+        secs.append(time.perf_counter() - t0)
+    ok = bool(np.all(np.isfinite(losses)))
+    peak = (f"{torch.cuda.max_memory_allocated() / 2**30:.2f}" if on_card
+            else "not measured")
+    log("vision vgg16", f"vgg16 with batch norm, batch {batch} x 3x{size}x{size}, bf16 "
+                        f"O2 + Momentum: losses " + " ".join(f"{v:.4f}" for v in losses)
+        + f" finite -> {'ok' if ok else 'FAIL'}; step seconds "
+        + " ".join(f"{s:.3f}" for s in secs) + f"; peak_mem_gib {peak} | {smi}")
+    return ok
+
+
+def phase_vision(smi, device="cuda", resnet=None, parity=None, lenet=None, fit=None,
+                 vgg=None):
+    """The vision slice on the card: (a) ResNet-50 training at
+    bench_resnet50's geometry in NHWC, then NCHW; (b) card parity of a
+    float32 ResNet-50 against the CPU and NHWC against NCHW; (c) LeNet
+    eager; (d) LeNet through Model.fit, sync against async; (e) VGG-16
+    with batch norm.  The keyword dicts resize a case (a rehearsal on the
+    CPU).  cudnn.benchmark is on for (a) and (e).  Returns (ok, launch
+    counts of the LeNet runs)."""
+    import torch
+
+    ok = True
+    saved = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        for layout in ("NHWC", "NCHW"):
+            ok &= _resnet_case(smi, layout, device, **(resnet or {}))
+            _free()
+        ok &= _vgg_case(smi, device, **(vgg or {}))
+        _free()
+    finally:
+        torch.backends.cudnn.benchmark = saved
+    ok &= _vision_parity(smi, device, **(parity or {}))
+    _free()
+    lenet_ok, lenet_counts = _lenet_eager(smi, device, **(lenet or {}))
+    fit_ok, fit_counts = _lenet_fit(smi, device, **(fit or {}))
+    return ok and lenet_ok and fit_ok, [lenet_counts, fit_counts]
+
+
 def _free():
     """Release the previous phase's model before the next one builds."""
     import torch
@@ -7878,6 +8369,10 @@ def main():
         _free()
         lc_grad_ok, _ = _timed("longcontext", longcontext_grad_check,
                                lc(LC_SEQ, 2, LC_R), LC_R, LC_SEQ)
+        _free()
+        # the conv nets: ResNet-50 and VGG-16 training, card parity, LeNet
+        # eager and through Model.fit (adam_fused)
+        vision_ok, vision_counts = _timed("vision", phase_vision, smi)
     except Exception:
         traceback.print_exc()
         return 1
@@ -7891,15 +8386,23 @@ def main():
     idle16 = [name for name, n in launches16.items() if n == 0]
     log("fp16", f"float16 launches on the main paths {launches16}; kernels not "
                 f"launched: {idle16 or 'none'} -> {'FAIL' if idle16 else 'ok'}")
-    if not (kernels_ok and slice_ok and prefix_ok and gen_ok and dense_ok
-            and fault_ok and obs_ok and lora_ok and sessions_ok and disagg_ok
-            and fleet_ok
-            and cp_ok and f32_ok and train_ok and recompute_ok and grad_ok
-            and fit_ok and resume_ok and diverge_ok and fit_bert_ok
-            and amp_ok and bert_ok and bert_grad_ok and ring_ok and lc_ok
-            and lc2_ok and lc_grad_ok and serve16_ok and train16_ok and amp16_ok
-            and not idle16):
-        print("chip_smoke: a phase failed (see the lines above)", file=sys.stderr)
+    results = {
+        "kernels": kernels_ok, "slice": slice_ok, "prefix": prefix_ok,
+        "generate": gen_ok, "dense": dense_ok, "fault": fault_ok, "obs": obs_ok,
+        "lora": lora_ok, "sessions": sessions_ok, "disagg": disagg_ok,
+        "fleet": fleet_ok, "cp": cp_ok, "cp_f32": f32_ok, "train": train_ok,
+        "train recompute": recompute_ok, "grads": grad_ok, "fit": fit_ok,
+        "fit resume": resume_ok, "fit diverge": diverge_ok, "fit bert": fit_bert_ok,
+        "amp": amp_ok, "bert": bert_ok, "bert grads": bert_grad_ok, "ring": ring_ok,
+        "longcontext": lc_ok, "longcontext gathered": lc2_ok,
+        "longcontext grads": lc_grad_ok, "fp16 serve": serve16_ok,
+        "fp16 train": train16_ok, "fp16 amp": amp16_ok, "vision": vision_ok,
+        "fp16 launches": not idle16,
+    }
+    failed = [name for name, good in results.items() if not good]
+    if failed:
+        print(f"chip_smoke: a phase failed (see the lines above): {', '.join(failed)}",
+              file=sys.stderr)
         return 1
     # launches: the serving, generation and training runs' counts, each read
     # just after its path ran
@@ -7907,12 +8410,13 @@ def main():
             obs_counts, lora_counts, lora_solo_counts, sessions_counts,
             *disagg_counts, *fleet_counts, *cp_counts,
             *f32_counts, train_counts, fit_counts, eval_counts, fit_bert_counts,
-            amp_counts, bert_counts, *ring_counts, lc_counts, lc2_counts]
+            amp_counts, bert_counts, *ring_counts, lc_counts, lc2_counts,
+            *vision_counts]
     launches = {name: sum(c.get(name, 0) for c in runs) for name in kernels}
     launches.update(launches16)
     # adam_fused at BERT's parameters: the bert phase's and the bucketed BERT
     # fit's launches; the other entry the Llama runs' (train, fit, amp,
-    # longcontext)
+    # longcontext) and LeNet's (vision: eager and through Model.fit)
     launches["adam_fused_bert"] = bert_counts["adam_fused"] + fit_bert_counts["adam_fused"]
     launches["adam_fused"] -= launches["adam_fused_bert"]
     # K5's two variants are one kernel of the record, on each path

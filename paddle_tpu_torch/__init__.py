@@ -9,13 +9,15 @@ loop: `io` (datasets, samplers, `BucketSampler`, the `DataLoader` with
 workers, device prefetch and exactly-once resume), `metric`, `Model.fit`
 / `evaluate` / `predict` with `callbacks` under the training
 `fault.Supervisor`, `save` / `load` in the reference's file format, and
-hardened checkpoints (`distributed.checkpoint`).  Entry points run on the
-CUDA card unless the caller passes device="cpu".
+hardened checkpoints (`distributed.checkpoint`), and trains the vision
+models (`vision`: LeNet, ResNet, VGG on the conv, pool and batch-norm
+layers of `nn`, with their transforms and datasets).  Entry points run on
+the CUDA card unless the caller passes device="cpu".
 """
 
 import sys as _sys
 
-from . import amp, fault, io, metric, nn, optimizer, regularizer
+from . import amp, fault, io, metric, nn, optimizer, regularizer, vision
 from . import hapi
 from . import hapi as callbacks
 from .framework.io import load, save
@@ -27,4 +29,4 @@ _sys.modules[__name__ + ".callbacks"] = callbacks
 __version__ = "0.1.0"
 
 __all__ = ["Model", "amp", "callbacks", "fault", "hapi", "io", "load", "metric", "nn",
-           "optimizer", "regularizer", "save"]
+           "optimizer", "regularizer", "save", "vision"]

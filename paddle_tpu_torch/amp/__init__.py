@@ -7,8 +7,17 @@
   normalise in float32 and return the stream's dtype (nn/norm.py),
   attention runs in the stream's dtype with float32 softmax in-kernel, and
   logits go to float32 in `models._utils.sequence_ce` and
-  `nn.functional.cross_entropy`.  `decorate(level="O1")` returns its
-  arguments unchanged, as the reference does.
+  `nn.functional.cross_entropy`.  Like the reference's `amp_forward`
+  (paddle_tpu/amp/__init__.py:84-105), it also makes an O2 state active
+  for the length of each decorated model's forward (a forward pre-hook
+  and an always-called forward hook): the port's convolutions read it and
+  cast their inputs to the AMP dtype, so a float32 image batch meets its
+  first conv in bf16, and `batch_norm` keeps its weight and bias in
+  float32.  No torch function is intercepted there (Llama's and BERT's
+  host-bound steps pay for no `TorchFunctionMode`), and `layer_norm`
+  keeps its own rule in that scope, so their O2 numerics stay as they
+  were.  `decorate(level="O1")` returns its arguments unchanged, as the
+  reference does.
 - `auto_cast` (O1, O2) casts where the reference's dispatcher casts
   (`ops/dispatch.py:431-452`): the inputs of the white ops (`matmul`,
   `linear`, the convolutions, `conv2d_transpose`, `conv3d_transpose`)
@@ -29,14 +38,15 @@
   it on the host, as the reference's eager `step` does); `update` moves
   the scale with device ops and no host sync.
 
-Float16 CUDA tensors reach kernels K1-K6 (`ops/flash_attention.py`) only
-once "fp16 operands of K1-K6" (ROADMAP.md Queue 1) lands; until then they
-raise there.  On the CPU fp16 runs through the plain versions.
+Float16 CUDA tensors reach kernels K1-K6 (`ops/flash_attention.py`) as
+bf16 ones do, each kernel with a float16 instantiation; on the CPU fp16
+runs through the plain versions.
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 import weakref
 
 import numpy as np
@@ -47,12 +57,13 @@ from torch.overrides import TorchFunctionMode
 
 from ..framework import core as _core
 from ..framework.core import to_torch_dtype
-from ..nn.norm import LayerNorm, RMSNorm
+from ..nn.norm import (GroupNorm, LayerNorm, RMSNorm, SpectralNorm,
+                       _BatchNormBase)
 from ..ops import optim as _optim
 
-# layers whose parameters stay float32 under O2 (reference: amp :62)
-KEEP_FP32 = (LayerNorm, RMSNorm, nn.LayerNorm, nn.GroupNorm,
-             nn.modules.batchnorm._NormBase)
+# layers whose parameters stay float32 under O2 (reference: amp :60-62)
+KEEP_FP32 = (_BatchNormBase, GroupNorm, LayerNorm, RMSNorm, SpectralNorm,
+             nn.LayerNorm, nn.GroupNorm, nn.modules.batchnorm._NormBase)
 
 WHITE_LIST = frozenset({"matmul", "linear", "conv1d", "conv2d", "conv3d",
                         "conv2d_transpose", "conv3d_transpose"})
@@ -132,14 +143,40 @@ def auto_cast(enable=True, custom_white_list=None, custom_black_list=None,
 
 amp_guard = auto_cast
 
+_scopes = threading.local()  # per thread: the states the O2 scopes replaced
+
+
+def _scope_forward(model, dtype):
+    """Make an O2 state active for each call of `model`'s forward (the
+    reference's `amp_forward`), by a pre-hook and an always-called hook; a
+    model decorated twice keeps its first scope.  `layer_norm` is left to
+    its own rule in this scope (float32 statistics, the stream's dtype
+    out), as the port's O2 has it."""
+    if getattr(model, "_amp_scoped", False):
+        return
+    state = _core.AmpState(dtype, WHITE_LIST, BLACK_LIST - {"layer_norm"})
+
+    def enter(module, args):
+        if not hasattr(_scopes, "stack"):
+            _scopes.stack = []
+        _scopes.stack.append(_core.set_active_amp(state))
+
+    def leave(module, args, output):
+        _core.set_active_amp(_scopes.stack.pop())
+
+    model.register_forward_pre_hook(enter)
+    model.register_forward_hook(leave, always_call=True)
+    model._amp_scoped = True
+
 
 def decorate(models, optimizers=None, level="O2", dtype="bfloat16",
              master_weight=None, save_dtype=None):
     """O2: cast `models` (one nn.Module or a list) to `dtype` in place,
-    norm layers kept float32, and give `optimizers` (one port Optimizer or
-    a list) float32 master weights unless `master_weight` is False.  O1:
-    nothing changes.  Returns (models, optimizers), or models alone when no
-    optimizer is given, like the reference."""
+    norm layers kept float32, scope the O2 state to each model's forward
+    (see the module docstring), and give `optimizers` (one port Optimizer
+    or a list) float32 master weights unless `master_weight` is False.
+    O1: nothing changes.  Returns (models, optimizers), or models alone
+    when no optimizer is given, like the reference."""
     if level not in ("O1", "O2"):
         raise ValueError(f"amp level must be O1 or O2, got {level!r}")
     if level == "O1":
@@ -155,6 +192,7 @@ def decorate(models, optimizers=None, level="O2", dtype="bfloat16",
             for p in mod.parameters(recurse=False):
                 if p.dtype == torch.float32:
                     p.data = p.data.to(target)
+        _scope_forward(model, target)
     if optimizers is None:
         return models
     if master_weight is None or master_weight:

@@ -1,5 +1,5 @@
-"""Load the JAX package's model weights (Llama, BERT) and optimizer state
-into the port's models and optimizers."""
+"""Load the JAX package's model weights (Llama, BERT, LeNet, ResNet, VGG)
+and optimizer state into the port's models and optimizers."""
 
 from __future__ import annotations
 
@@ -10,21 +10,26 @@ from torch import nn
 
 def load_reference_state(model, state):
     """Copy a reference `state_dict()` -- a dict of numpy arrays named like
-    `llama.layers.0.self_attn.q_proj.weight` or
-    `bert.encoder.0.attn.q_proj.weight` -- into `model` (a port Llama or
-    BERT model with the same names) in place, casting to each parameter's
-    dtype and device.
+    `llama.layers.0.self_attn.q_proj.weight`, `bert.encoder.0.attn.q_proj.weight`
+    or `layer1.0.downsample.1._mean` -- into `model` (a port model with the
+    same names) in place, casting to each tensor's dtype and device: its
+    parameters and its persistable buffers (the batch norms' running
+    `_mean` and `_variance`).
 
     Every Linear weight is transposed: the reference stores `[in, out]`
     (paddle_tpu/nn/common.py:16), `torch.nn.Linear` stores `[out, in]`.
-    Embedding tables, norm weights and biases are copied as they are.
-    Raises on a missing or unexpected name or a shape mismatch.  Returns
-    the model."""
+    Conv weights, embedding tables, norm weights, biases and buffers are
+    copied as they are.  Raises on a missing or unexpected name, buffers
+    included, or a shape mismatch.  Returns the model."""
     linear = {
         f"{name}.weight" for name, mod in model.named_modules()
         if isinstance(mod, nn.Linear)
     }
     own = dict(model.named_parameters())
+    for prefix, mod in model.named_modules():
+        for name, buf in mod.named_buffers(recurse=False):
+            if name not in mod._non_persistent_buffers_set:
+                own[f"{prefix}.{name}" if prefix else name] = buf
     missing = sorted(set(own) - set(state))
     unexpected = sorted(set(state) - set(own))
     if missing or unexpected:
