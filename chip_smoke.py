@@ -269,7 +269,23 @@ Twenty-two phases, and the serving, training and amp ones again in float16
               as a key-padding attn_mask (K1's key bias) against segment ids
               on the valid rows; then a 2-layer model's gradients with the
               kernels against attention through the plain forward.
-21. longcontext -- long-context training through the Llama's
+21. jit    -- the bench legs' training steps as bench.py writes them, under
+              `jit.to_static` (each captured once as a CUDA graph): (a)
+              bench_llama's, Llama-2-7B's widths at 8 layers, 4 x 2048,
+              bf16 O2, AdamW; (b) bench_bert's, BERT-base 32 x 384 padded,
+              bf16 O2, AdamW; (c) bench_resnet50's, ResNet-50 NHWC 128 x
+              224, bf16 O2, Momentum, under cudnn.deterministic; (d) the
+              Llama at 2 layers, 2 x 1024, fp16 O2 under a dynamic
+              GradScaler, step 2's gradient given an inf; (e) BERT-base
+              at 2 layers with its dropout on and a StepDecay rate stepped
+              between calls.  Each: 4 captured steps from the seed against
+              4 eager ones of a fresh build, losses and every parameter,
+              master, moment, power, buffer and scaler counter bit for
+              bit; one trace, no retrace; K1, K3, adam_fused and
+              unscale_fused launches per replay equal to eager's per step;
+              eager and captured step ms in turns, the first call's
+              seconds, the graph pool's bytes and the peak memory.
+22. longcontext -- long-context training through the Llama's
               `context_parallel_degree` on a sep mesh (ring attention, every
               rank on the card): Llama-2-7B's widths at 4 layers, one
               sequence of 32768 tokens over R = 8 (K/V 512 MiB a layer: the
@@ -283,7 +299,7 @@ Twenty-two phases, and the serving, training and amp ones again in float16
               form, one K1 and one K3 with q_offset per rank), 2 steps; then
               one step's gradients of 2 layers at 32768 tokens over R = 8
               against context_parallel_degree 1 (full-sequence K1/K3).
-22. vision -- the conv nets on the port's conv, pool and batch-norm
+23. vision -- the conv nets on the port's conv, pool and batch-norm
               layers (torch ops on cuDNN; no Pallas kernel of the
               reference is on this path): (a) bench_resnet50's recipe,
               ResNet-50 at batch 128 x 224 x 224, 1000 classes,
@@ -7858,7 +7874,7 @@ def _resnet_case(smi, layout, device="cuda", batch=RESNET_BATCH, size=RESNET_SIZ
                  window_steps=RESNET_WINDOW_STEPS, warmup=RESNET_WARMUP):
     """bench_resnet50's recipe in `layout`: resnet50, Momentum(0.1, 0.9),
     bf16 O2 with masters, one repeated seeded batch, trained eagerly (the
-    bench wraps the step in to_static, ROADMAP.md Queue 1 13b).  Prints
+    bench wraps the step in to_static: the jit phase runs it so).  Prints
     images/s (median of `windows` windows of `window_steps` steps after
     `warmup`), step ms, time to the first step, peak memory, and a
     profiled step.  Returns ok: every loss finite, the last window's below
@@ -8198,6 +8214,331 @@ def phase_vision(smi, device="cuda", resnet=None, parity=None, lenet=None, fit=N
     return ok and lenet_ok and fit_ok, [lenet_counts, fit_counts]
 
 
+# ---------------------------------------------------------------------------
+# jit: whole training steps captured by to_static
+# ---------------------------------------------------------------------------
+
+JIT_STEPS = 4  # captured steps held against as many eager steps
+JIT_ROUNDS, JIT_WINDOW = 3, 3  # timing: rounds of an eager and a captured window
+JIT_SMALL_LAYERS, JIT_SMALL_BATCH, JIT_SMALL_SEQ = 2, 2, 1024  # paths (d) and (e)
+JIT_INF_STEP = 2  # 1-based: (d)'s step whose gradient gets an inf
+JIT_KERNELS = ("flash_fwd", "flash_bwd", "adam_fused", "unscale_fused")
+
+
+class _JitRun:
+    """One path of the jit phase: `step(*batch)` the bench's step as
+    written, `state()` the (name, tensor) pairs the equality holds, and
+    `between(i)` what runs on the host after call i (a scheduler step)."""
+
+    def __init__(self, step, state, between=None):
+        self.step, self.state = step, state
+        self.between = between or (lambda i: None)
+
+
+def _opt_state(model, opt):
+    """Every parameter and its optimizer state (master, moments, powers,
+    velocity), and every buffer (batch-norm statistics), by name."""
+    out = []
+    for name, p in model.named_parameters():
+        out.append((name, p))
+        out += [(f"{name}.{k}", v) for k, v in sorted(opt.state[p].items())
+                if hasattr(v, "shape")]
+    out += list(model.named_buffers())
+    return out
+
+
+def _scaler_state(scaler):
+    return [("scaler.scale", scaler._scale), ("scaler.good", scaler._good_steps),
+            ("scaler.bad", scaler._bad_steps), ("scaler.last_found", scaler._last_found)]
+
+
+def _jit_llama(cfg, device, dtype="bfloat16", scaler_kw=None, sched=None):
+    """`bench_llama`'s step (bench.py:196-202) on `cfg`: AdamW, O2 in
+    `dtype`; with `scaler_kw` a dynamic GradScaler around it and an added
+    `poison` ([1] float32, 0 or inf) on the first gradient entry; with
+    `sched` a scheduler for the rate, stepped after every call."""
+    from paddle_tpu_torch import amp, optimizer
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+
+    model = LlamaForCausalLM(cfg, device=device, dtype="float32", seed=0).train()
+    rate = sched() if sched is not None else 1e-4
+    opt = optimizer.AdamW(learning_rate=rate, parameters=model.named_parameters())
+    model, opt = amp.decorate(model, opt, level="O2", dtype=dtype)
+    if scaler_kw is None:
+        def step(ids):
+            loss, _ = model(ids, labels=ids)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss
+
+        between = (lambda i: rate.step()) if sched is not None else None
+        return _JitRun(step, lambda: _opt_state(model, opt), between)
+    scaler = amp.GradScaler(**scaler_kw)
+    first = next(model.parameters())
+
+    def step(ids, poison):
+        loss, _ = model(ids, labels=ids)
+        scaler.scale(loss).backward()
+        first.grad.view(-1)[:1].add_(poison.to(first.grad.dtype))
+        scaler.step(opt)
+        scaler.update()
+        opt.clear_grad()
+        return loss
+
+    return _JitRun(step, lambda: _opt_state(model, opt) + _scaler_state(scaler))
+
+
+def _jit_bert(cfg, device, sched=None):
+    """`bench_bert`'s step (bench.py:2307-2313): BERT-base QA, bf16 O2,
+    AdamW at 3e-5 (or `sched`, stepped after every call)."""
+    from paddle_tpu_torch import amp, optimizer
+    from paddle_tpu_torch.models.bert import BertForQuestionAnswering
+
+    model = BertForQuestionAnswering(cfg, device=device, dtype="float32",
+                                     seed=0).train()
+    opt = optimizer.AdamW(learning_rate=sched if sched is not None else BERT_LR,
+                          parameters=model.named_parameters())
+    model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16")
+
+    def step(ids, mask, starts, ends):
+        loss, _, _ = model(ids, attention_mask=mask, start_positions=starts,
+                           end_positions=ends)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    between = (lambda i: sched.step()) if sched is not None else None
+    return _JitRun(step, lambda: _opt_state(model, opt), between)
+
+
+def _jit_resnet(device, batch, size):
+    """`bench_resnet50`'s step (bench.py:253-259): ResNet-50 NHWC,
+    Momentum(0.1, 0.9), bf16 O2."""
+    import torch
+
+    from paddle_tpu_torch import amp, optimizer
+    from paddle_tpu_torch import nn as pnn
+    from paddle_tpu_torch.vision.models import resnet50
+
+    torch.manual_seed(0)
+    model = resnet50(num_classes=RESNET_CLASSES, data_format="NHWC", device=device)
+    opt = optimizer.Momentum(learning_rate=0.1, momentum=0.9,
+                             parameters=model.named_parameters())
+    model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    ce = pnn.CrossEntropyLoss()
+
+    def step(x, y):
+        loss = ce(model(x), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    return _JitRun(step, lambda: _opt_state(model, opt))
+
+
+def _jit_counts(counts, calls):
+    return {k: counts.get(k, 0) / calls for k in JIT_KERNELS}
+
+
+def _jit_path(smi, what, build, batches, on_card, want=(), rounds=JIT_ROUNDS,
+              window=JIT_WINDOW):
+    """One path: `len(batches)` eager steps of a fresh build, their losses
+    and state kept on the host; then the same from a fresh build under
+    `jit.to_static`, held to them bit for bit, with one trace, no retrace
+    and the eager launches per step (on the card at least one of each
+    kernel in `want`); then eager and captured windows in turns on the
+    captured build.  Returns (ok, launch counts of the captured calls
+    after the trace)."""
+    import torch
+
+    from paddle_tpu_torch import jit, profiler
+
+    phase = f"jit {what}"
+    n = len(batches)
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+
+    def run(fn, hooks):
+        losses = []
+        for i, b in enumerate(batches):
+            if i == 1:
+                profiler.reset_kernel_launch_counts()
+            losses.append(fn(*b).detach().float().reshape(1))
+            hooks.between(i)
+        sync()
+        return torch.cat(losses).cpu(), profiler.kernel_launch_counts()
+
+    # the eager twin
+    path = build()
+    eager_losses, eager_counts = run(path.step, path)
+    eager_state = [(name, t.detach().to("cpu", copy=True)) for name, t in path.state()]
+    del path
+    _free()
+    # the same from the seed, captured
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    path = build()
+    static = jit.to_static(path.step)
+    t0 = time.perf_counter()
+    first = static(*batches[0]).detach().float().reshape(1)
+    sync()
+    first_s = time.perf_counter() - t0
+    path.between(0)
+    losses = [first]
+    profiler.reset_kernel_launch_counts()
+    for i, b in enumerate(batches[1:], 1):
+        losses.append(static(*b).detach().float().reshape(1))
+        path.between(i)
+    sync()
+    counts = profiler.kernel_launch_counts()
+    losses = torch.cat(losses).cpu()
+    same_losses = torch.equal(losses, eager_losses)
+    state = path.state()
+    diff = [name for (name, t), (ename, e) in zip(state, eager_state)
+            if name != ename or not torch.equal(t.detach().cpu(), e)]
+    same_state = not diff and len(state) == len(eager_state)
+    per_eager = _jit_counts(eager_counts, n - 1)
+    per_replay = _jit_counts(counts, n - 1)
+    counts_ok = per_replay == per_eager and all(
+        per_replay[k] > 0 for k in want if on_card)
+    traces_ok = static.trace_count == 1
+    peak = (f"{torch.cuda.max_memory_allocated() / 2**30:.2f}" if on_card
+            else "not measured")
+    log(phase, f"{n} steps, losses " + " ".join(f"{x:.6f}" for x in losses.tolist())
+               + f": equal to eager bit for bit {same_losses}; state tensors equal "
+               f"{len(state) - len(diff)}/{len(eager_state)} (every parameter, "
+               f"master, moment, power, buffer, scaler counter)"
+               + (f", first differing {diff[:3]}" if diff else "")
+               + f"; trace_count {static.trace_count}; launches per replay "
+               f"{per_replay} against eager per step {per_eager} -> "
+               f"{'ok' if same_losses and same_state and counts_ok and traces_ok else 'FAIL'}")
+    del eager_state
+    # eager and captured windows in turns, on the captured build
+    times = {"eager": [], "to_static": []}
+    fns = {"eager": path.step, "to_static": static}
+    for r in range(rounds):
+        for mode in (("eager", "to_static") if r % 2 == 0 else ("to_static", "eager")):
+            t0 = time.perf_counter()
+            for i in range(window):
+                fns[mode](*batches[i % n])
+            sync()
+            times[mode].append((time.perf_counter() - t0) / window * 1e3)
+    retraced = static.trace_count != 1
+    eager_ms = statistics.median(times["eager"])
+    static_ms = statistics.median(times["to_static"])
+    log(phase, f"step_ms eager {eager_ms:.3f} to_static {static_ms:.3f} (ratio "
+               f"{eager_ms / static_ms:.3f}; medians of {rounds} windows of {window} "
+               f"steps in turns: eager " + " ".join(f"{x:.3f}" for x in times["eager"])
+               + ", to_static " + " ".join(f"{x:.3f}" for x in times["to_static"])
+               + f"); first call {first_s:.3f} s (warm run and capture); graph pool "
+               f"{static.pool_bytes} bytes; peak_mem_gib {peak}; retrace after the "
+               f"windows {retraced} -> {'FAIL' if retraced else 'ok'} | {smi}")
+    del static, path
+    return same_losses and same_state and counts_ok and traces_ok and not retraced, counts
+
+
+def phase_jit(smi, device="cuda", llama=None, bert=None, resnet=None, small=None,
+              rounds=JIT_ROUNDS, window=JIT_WINDOW, steps=JIT_STEPS):
+    """The reference's training steps written as bench.py writes them, under
+    `jit.to_static` (each captured once as a CUDA graph on the card):
+    (a) Llama-2-7B's widths at the train phase's 8 layers, 4 x 2048, bf16 O2,
+    AdamW; (b) BERT-base SQuAD, 32 x 384, padded lengths, bf16 O2, AdamW;
+    (c) ResNet-50 NHWC bf16 O2 at 128 x 224, Momentum, cuDNN autotuned in
+    the warm run; (d) fp16 O2 with a dynamic GradScaler, step JIT_INF_STEP's
+    gradient an inf; (e) BERT with its dropout on and a StepDecay rate
+    stepped between calls.  Each path holds `steps` captured steps to as
+    many eager ones bit for bit (`_jit_path`).  Returns (ok, {path: launch
+    counts of its captured calls after the trace})."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.models.bert import BertConfig
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    from paddle_tpu_torch.optimizer import lr
+
+    on_card = torch.device(device).type == "cuda"
+    llama = llama or dict(cfg=LlamaConfig.llama2_7b(num_hidden_layers=TRAIN_LAYERS),
+                          batch=TRAIN_BATCH, seq=TRAIN_SEQ)
+    small = small or dict(cfg=LlamaConfig.llama2_7b(num_hidden_layers=JIT_SMALL_LAYERS),
+                          batch=JIT_SMALL_BATCH, seq=JIT_SMALL_SEQ,
+                          bert=BertConfig.bert_base(num_hidden_layers=JIT_SMALL_LAYERS))
+    bert = bert or dict(cfg=BertConfig.bert_base(hidden_dropout_prob=0.0,
+                                                 attention_probs_dropout_prob=0.0),
+                        batch=BERT_BATCH, seq=BERT_SEQ)
+    resnet = resnet or dict(batch=RESNET_BATCH, size=RESNET_SIZE)
+    if on_card:
+        parity_matmuls()
+    rng = np.random.default_rng(0)
+
+    def ids(cfg, batch, seq):
+        return torch.from_numpy(
+            rng.integers(1, cfg.vocab_size, size=(batch, seq)).astype(np.int32)).to(device)
+
+    oks, counts = {}, {}
+    kw = dict(on_card=on_card, rounds=rounds, window=window)
+    # (a) bench_llama
+    tok = ids(llama["cfg"], llama["batch"], llama["seq"])
+    ok, c = _jit_path(smi, "a llama", lambda: _jit_llama(llama["cfg"], device),
+                      [(tok,)] * steps, want=("flash_fwd", "flash_bwd", "adam_fused"),
+                      **kw)
+    oks["a"] = ok
+    counts["a"] = c
+    del tok
+    _free()
+    # (b) bench_bert
+    inputs = _bert_inputs(bert["cfg"], device, bert["batch"], bert["seq"], seed=0)
+    ok, c = _jit_path(smi, "b bert", lambda: _jit_bert(bert["cfg"], device),
+                      [inputs] * steps, want=("flash_fwd", "flash_bwd", "adam_fused"),
+                      **kw)
+    oks["b"] = ok
+    counts["b"] = c
+    _free()
+    # (c) bench_resnet50, cuDNN deterministic so that the twins can agree
+    saved = torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic
+    torch.backends.cudnn.benchmark = torch.backends.cudnn.deterministic = True
+    try:
+        r = np.random.RandomState(0)
+        x = torch.from_numpy(r.rand(resnet["batch"], resnet["size"], resnet["size"],
+                                    3).astype(np.float32)).to(device)
+        y = torch.from_numpy(r.randint(0, RESNET_CLASSES, (resnet["batch"],))
+                             .astype(np.int64)).to(device)
+        ok, c = _jit_path(smi, "c resnet50", lambda: _jit_resnet(
+            device, resnet["batch"], resnet["size"]), [(x, y)] * steps, **kw)
+    finally:
+        torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = saved
+    oks["c"] = ok
+    counts["c"] = c
+    del x, y
+    _free()
+    # (d) fp16 O2, a dynamic GradScaler, one inf
+    tok = ids(small["cfg"], small["batch"], small["seq"])
+    poison = [torch.full((1,), float("inf") if i + 1 == JIT_INF_STEP else 0.0,
+                         device=device) for i in range(steps)]
+    ok, c = _jit_path(smi, "d fp16 scaler", lambda: _jit_llama(
+        small["cfg"], device, "float16", dict(init_loss_scaling=2.0 ** 15)),
+        [(tok, p) for p in poison], on_card=on_card, want=JIT_KERNELS, rounds=1,
+        window=2)
+    oks["d"] = ok
+    counts["d"] = c
+    _free()
+    # (e) a StepDecay rate stepped between calls, BERT's dropout on
+    bcfg = small["bert"]
+    inputs = _bert_inputs(bcfg, device, bert["batch"], bert["seq"], seed=1)
+    ok, c = _jit_path(smi, "e stepdecay dropout", lambda: _jit_bert(
+        bcfg, device, lr.StepDecay(1e-4, step_size=1, gamma=0.5)),
+        [inputs] * steps, on_card=on_card,
+        want=("flash_fwd", "flash_bwd", "adam_fused"), rounds=1, window=2)
+    oks["e"] = ok
+    counts["e"] = c
+    _free()
+    total = {k: sum(c.get(k, 0) for c in counts.values()) for k in counts["a"]}
+    log("jit", f"paths {oks}; launches of the captured calls {_main(total)} -> "
+               f"{'ok' if all(oks.values()) else 'FAIL'}")
+    return all(oks.values()), counts
+
+
 def _free():
     """Release the previous phase's model before the next one builds."""
     import torch
@@ -8353,6 +8694,10 @@ def main():
         bert_grad_ok, _ = _timed("bert", bert_grad_check, BertConfig.bert_base(
             num_hidden_layers=2, **no_dropout))
         _free()
+        # the training steps of bench_llama, bench_bert and bench_resnet50
+        # (and fp16 with a GradScaler, a stepped schedule) under to_static
+        jit_ok, jit_counts = _timed("jit", phase_jit, smi)
+        _free()
         # long-context training: the rotating zig-zag form at 32768 tokens
         # over R = 8, then the gathered form at 16384 over R = 4, then one
         # step's gradients against full-sequence attention
@@ -8377,7 +8722,7 @@ def main():
         traceback.print_exc()
         return 1
     # the float16 main paths' launches, read just after each of their runs
-    runs16 = [*serve16_counts, train16_counts, amp16_counts]
+    runs16 = [*serve16_counts, train16_counts, amp16_counts, jit_counts["d"]]
     launches16 = {f"{base}_f16": sum(c.get(base, 0) for c in runs16)
                   for base in ("flash_fwd", "flash_bwd", "dense_decode",
                                "paged_decode_fused", "paged_decode_fused_q8",
@@ -8397,6 +8742,7 @@ def main():
         "longcontext": lc_ok, "longcontext gathered": lc2_ok,
         "longcontext grads": lc_grad_ok, "fp16 serve": serve16_ok,
         "fp16 train": train16_ok, "fp16 amp": amp16_ok, "vision": vision_ok,
+        "jit": jit_ok,
         "fp16 launches": not idle16,
     }
     failed = [name for name, good in results.items() if not good]
@@ -8411,13 +8757,16 @@ def main():
             *disagg_counts, *fleet_counts, *cp_counts,
             *f32_counts, train_counts, fit_counts, eval_counts, fit_bert_counts,
             amp_counts, bert_counts, *ring_counts, lc_counts, lc2_counts,
-            *vision_counts]
+            *vision_counts, *(jit_counts[p] for p in "abce")]
     launches = {name: sum(c.get(name, 0) for c in runs) for name in kernels}
     launches.update(launches16)
-    # adam_fused at BERT's parameters: the bert phase's and the bucketed BERT
-    # fit's launches; the other entry the Llama runs' (train, fit, amp,
-    # longcontext) and LeNet's (vision: eager and through Model.fit)
-    launches["adam_fused_bert"] = bert_counts["adam_fused"] + fit_bert_counts["adam_fused"]
+    # adam_fused at BERT's parameters: the bert phase's, the bucketed BERT
+    # fit's and the jit phase's BERT steps' launches; the other entry the
+    # Llama runs' (train, fit, amp, longcontext, jit) and LeNet's (vision:
+    # eager and through Model.fit)
+    launches["adam_fused_bert"] = (bert_counts["adam_fused"] + fit_bert_counts["adam_fused"]
+                                   + jit_counts["b"]["adam_fused"]
+                                   + jit_counts["e"]["adam_fused"])
     launches["adam_fused"] -= launches["adam_fused_bert"]
     # K5's two variants are one kernel of the record, on each path
     for path in ("", "_mma", "_walk"):

@@ -11,22 +11,25 @@ workers, device prefetch and exactly-once resume), `metric`, `Model.fit`
 `fault.Supervisor`, `save` / `load` in the reference's file format, and
 hardened checkpoints (`distributed.checkpoint`), and trains the vision
 models (`vision`: LeNet, ResNet, VGG on the conv, pool and batch-norm
-layers of `nn`, with their transforms and datasets).  Entry points run on
-the CUDA card unless the caller passes device="cpu".
+layers of `nn`, with their transforms and datasets).  `jit.to_static`
+captures a whole training step (forward, backward, optimizer) once per
+input signature as a CUDA graph.  Entry points run on the CUDA card unless
+the caller passes device="cpu".
 """
 
 import sys as _sys
 
-from . import amp, fault, io, metric, nn, optimizer, regularizer, vision
+from . import amp, fault, io, jit, metric, nn, optimizer, regularizer, vision
 from . import hapi
 from . import hapi as callbacks
 from .framework.io import load, save
 from .hapi import Model
+from .jit import to_static
 
 # `from paddle_tpu_torch.callbacks import X` works, as in the reference
 _sys.modules[__name__ + ".callbacks"] = callbacks
 
 __version__ = "0.1.0"
 
-__all__ = ["Model", "amp", "callbacks", "fault", "hapi", "io", "load", "metric", "nn",
-           "optimizer", "regularizer", "save", "vision"]
+__all__ = ["Model", "amp", "callbacks", "fault", "hapi", "io", "jit", "load", "metric",
+           "nn", "optimizer", "regularizer", "save", "to_static", "vision"]

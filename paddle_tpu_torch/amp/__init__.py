@@ -36,7 +36,11 @@
   (`ops.optim.unscale_multi`); `step` hands the flag to the optimizer,
   whose Adam/AdamW kernel skips on the device (the other optimizers read
   it on the host, as the reference's eager `step` does); `update` moves
-  the scale with device ops and no host sync.
+  the scale with device ops and no host sync.  The flag is one device
+  buffer, zeroed at each cycle's first unscale, so a `jit.to_static` step
+  captured over it finds it again at every replay; `update()` outside a
+  step whose `scaler.step()` ran inside it raises, as the reference's
+  does (amp/__init__.py:337).
 
 Float16 CUDA tensors reach kernels K1-K6 (`ops/flash_attention.py`) as
 bf16 ones do, each kernel with a float16 instantiation; on the CPU fp16
@@ -55,6 +59,7 @@ from torch import nn
 from torch.nn import functional as F
 from torch.overrides import TorchFunctionMode
 
+from .. import jit as _jit
 from ..framework import core as _core
 from ..framework.core import to_torch_dtype
 from ..nn.norm import (GroupNorm, LayerNorm, RMSNorm, SpectralNorm,
@@ -228,7 +233,9 @@ class GradScaler:
         self._decr_every = decr_every_n_nan_or_inf
         self._dynamic = use_dynamic_loss_scaling
         self._found_inf = None  # int32 device flag of the current cycle
-        self._last_found = None  # the last finished cycle's flag
+        self._found_buf = None  # the flag's buffer, kept across cycles
+        self._last_found = None  # the last finished cycle's flag (a copy)
+        self._pending_traced_update = False
         self._optimizer_states = weakref.WeakKeyDictionary()
         self._table = _optim.MultiTensorTable()
 
@@ -273,12 +280,20 @@ class GradScaler:
         if st == "STEPPED":
             raise RuntimeError("unscale_() must be called before step().")
         self._optimizer_states[optimizer] = "UNSCALED"
+        _jit.note_scaler(self)
         grads = [g for _, g in optimizer._params_grads()]
         if not grads:
             return
         scale = self._on(grads[0].device)
         if self._found_inf is None:
-            self._found_inf = torch.zeros((), dtype=torch.int32, device=scale.device)
+            buf = self._found_buf
+            if buf is None or buf.device != scale.device:
+                buf = self._found_buf = torch.zeros((), dtype=torch.int32,
+                                                    device=scale.device)
+                _jit.note_created(buf, 0)
+            else:
+                buf.zero_()
+            self._found_inf = buf
         # one flag per cycle: a later optimizer's unscale ORs into it
         _optim.unscale_multi(grads, scale, self._found_inf, table=self._table)
 
@@ -288,6 +303,7 @@ class GradScaler:
         if not self._enable:
             optimizer.step()
             return
+        _jit.note_scaler(self)
         st = self._optimizer_states.get(optimizer, "INIT")
         if st == "STEPPED":
             raise RuntimeError("step() has already been called since the last update().")
@@ -310,8 +326,18 @@ class GradScaler:
         if not self._enable:
             return
         found = self._found_inf
+        if found is None and not self._optimizer_states and self._pending_traced_update:
+            self._pending_traced_update = False  # one-shot: eager cycles resume
+            raise RuntimeError(
+                "scaler.step() ran inside a @to_static function but "
+                "scaler.update() was called outside it; with compiled steps, "
+                "call update() inside the same compiled function so the "
+                "scale/counters update on-device.")
         if found is not None:
-            self._last_found = found
+            if self._last_found is None or self._last_found.device != found.device:
+                self._last_found = torch.zeros_like(found)
+                _jit.note_created(self._last_found, 0)
+            self._last_found.copy_(found)
             if self._dynamic:
                 scale = self._on(found.device)
                 good, bad = self._good_steps, self._bad_steps
@@ -327,6 +353,21 @@ class GradScaler:
                 good.copy_(torch.where(inc, 0, good_n))
         self._found_inf = None
         self._optimizer_states.clear()
+
+    def _reset_cycle(self):
+        """Drop the current cycle's host state (the flag stays on the
+        device): a to_static trace starts its capture, and `warmup` ends,
+        from the state a call starts from."""
+        self._found_inf = None
+        self._optimizer_states.clear()
+
+    def _close_traced_cycle(self):
+        """After a to_static call: a cycle the step left open (no
+        `update()` inside it) is closed, and the next `update()` outside
+        raises."""
+        if self._found_inf is not None or self._optimizer_states:
+            self._reset_cycle()
+            self._pending_traced_update = True
 
     def state_dict(self):
         return {

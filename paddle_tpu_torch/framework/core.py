@@ -119,6 +119,27 @@ def set_active_amp(state):
     return old
 
 
+_static_local = threading.local()
+
+
+def active_static_call():
+    """The `jit.StaticFunction` call running on this thread (its trace's
+    warm run and capture, or on the CPU its eager run), or None: the
+    counterpart of the reference's `active_trace()`.  Code that would
+    bake a host value into a captured step (the learning-rate copy) or read
+    a device value on the host (the eager skip of a non-finite step) reads
+    it to take its device-side form."""
+    return getattr(_static_local, "call", None)
+
+
+def set_active_static_call(call):
+    """Make `call` (a jit call record or None) active; returns the previous
+    one."""
+    old = active_static_call()
+    _static_local.call = call
+    return old
+
+
 def amp_cast(op, t):
     """`t` cast for op `op` under the active auto_cast (unchanged without
     one): the call-site cast of the port's own ops (`nn.functional`)."""

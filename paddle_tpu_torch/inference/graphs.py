@@ -36,8 +36,11 @@ The per-compiled-shape dispatch counts (`ops.flash_attention.
 pallas_calls`, the reference's meaning) move only in a trace's warm run
 (on the CPU, its one eager run): the capture, every replay and
 `compare_eager` leave them as they were.  `trace_total` counts every
-StepGraph trace in the process (`/metrics`' `paddle_sanitizer_traces_
-total`).
+trace in the process, of a StepGraph or of a `jit.StaticFunction`
+(`/metrics`' `paddle_sanitizer_traces_total`).
+
+The capture core (`warm_run`, `capture`) is shared with
+`jit.StaticFunction`, which captures whole training steps the same way.
 
 A failed capture raises; there is no eager fallback on CUDA.
 """
@@ -49,7 +52,13 @@ import torch
 
 from ..ops import flash_attention as _fa
 
-trace_total = 0  # StepGraph traces in this process, of every engine
+trace_total = 0  # StepGraph and StaticFunction traces in this process
+
+
+def note_trace():
+    """Count one trace in `trace_total`."""
+    global trace_total
+    trace_total += 1
 
 
 def new_pool(device):
@@ -58,6 +67,69 @@ def new_pool(device):
     if torch.device(device).type != "cuda":
         return None
     return torch.cuda.graph_pool_handle()
+
+
+def set_counts(counters, snap):
+    """Put the launch-count dict `counters` back to the snapshot `snap`."""
+    for k in counters:
+        counters[k] = snap.get(k, 0)
+
+
+def add_delta(counters, delta):
+    for k, n in delta.items():
+        counters[k] = counters.get(k, 0) + n
+
+
+def count_delta(counters, before):
+    """What `counters` gained since the snapshot `before`."""
+    return {k: v - before.get(k, 0) for k, v in counters.items()
+            if v != before.get(k, 0)}
+
+
+def warm_run(fn, device):
+    """fn() on a side stream, ordered after and before the current one
+    (kernel builds, shared-memory limits, cuBLAS and cuDNN workspaces and
+    their autotuning happen here, outside any capture).  Returns fn()'s
+    result."""
+    cur = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        out = fn()
+    cur.wait_stream(side)
+    return out
+
+
+def capture(body, device, pool=None, generators=(), counters=()):
+    """Capture body() into a `torch.cuda.CUDAGraph` in the memory pool
+    `pool` (`capture_error_mode="thread_local"`, so another thread's work
+    never lands in it), with `generators` registered so that each replay
+    draws on from their state at that time.  The device is synchronized
+    and the cache emptied first, so the warm run's cached blocks do not sit
+    beside the graph's pool.  A capture launches nothing: the launch
+    counts it bumped in each dict of `counters` are taken back and
+    returned as the delta each replay adds, and the per-compiled-shape
+    dispatch counts (`pallas_calls`, which the warm run counted) are put
+    back.  Returns (graph, body's outputs, [delta per dict], the bytes the
+    pool grew by).  A failed capture raises."""
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved(device)
+    graph = torch.cuda.CUDAGraph()
+    for gen in generators:
+        graph.register_generator_state(gen)
+    before = [dict(c) for c in counters]
+    dispatches = dict(_fa.pallas_calls)
+    try:
+        with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
+            outs = body()
+    finally:
+        delta = [count_delta(c, b) for c, b in zip(counters, before)]
+        for c, b in zip(counters, before):
+            set_counts(c, b)
+        _fa.pallas_calls.update(dispatches)
+    grew = max(0, torch.cuda.memory_reserved(device) - reserved)
+    return graph, outs, delta, grew
 
 
 class _Entry:
@@ -117,7 +189,6 @@ class StepGraph:
         self.last_key = key
         ent = self._entries.get(key)
         if ent is None:
-            global trace_total
             self.tracing = True
             try:
                 ent = self._trace(key, inputs)
@@ -125,7 +196,7 @@ class StepGraph:
                 self.tracing = False
             self._entries[key] = ent
             self.trace_count += 1
-            trace_total += 1
+            note_trace()
             return ent.outputs
         for name, value in inputs.items():
             if name not in ent.inputs:
@@ -160,7 +231,7 @@ class StepGraph:
             eager = tuple(o.clone() for o in self.body(**ent.inputs))
             restore()
         finally:
-            self._set_counts(snap)
+            set_counts(self.counters, snap)
             _fa.pallas_calls.update(dispatches)
         if self.on_card:
             torch.cuda.synchronize(self.device)
@@ -193,51 +264,25 @@ class StepGraph:
         for n, b in bufs.items():
             b.copy_(saved[n])
 
-    def _set_counts(self, snap):
-        for k in self.counters:
-            self.counters[k] = snap.get(k, 0)
-
-    def _add_delta(self, delta):
-        for k, n in delta.items():
-            self.counters[k] = self.counters.get(k, 0) + n
-
-    def _delta(self, before):
-        return {k: v - before.get(k, 0) for k, v in self.counters.items()
-                if v != before.get(k, 0)}
-
     def _trace(self, key, inputs):
         ent = _Entry({n: self._static(v) for n, v in inputs.items()})
         if not self.on_card:
             before = dict(self.counters)
             ent.outputs = self._as_tuple(self.body(**ent.inputs))
-            ent.delta = self._delta(before)
+            ent.delta = count_delta(self.counters, before)
             return ent
         dev = self.device
         saved = {n: b.clone() for n, b in ent.inputs.items()}
         gen_states = [g.get_state() for g in self.generators]
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            self.body(**ent.inputs)  # the warm run: real launches, counted
-        torch.cuda.current_stream(dev).wait_stream(side)
+        warm_run(lambda: self.body(**ent.inputs), dev)  # real launches, counted
         self._put_back(ent.inputs, saved)
-        torch.cuda.synchronize(dev)
         for gen, state in zip(self.generators, gen_states):
             gen.set_state(state)
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(dev)
-        graph = torch.cuda.CUDAGraph()
-        for gen in self.generators:
-            graph.register_generator_state(gen)
-        before = dict(self.counters)
-        dispatches = dict(_fa.pallas_calls)
-        with torch.cuda.graph(graph, pool=self.pool,
-                              capture_error_mode="thread_local"):
-            outs = self._as_tuple(self.body(**ent.inputs))
-        ent.delta = self._delta(before)
-        self._set_counts(before)  # a capture launches nothing
-        _fa.pallas_calls.update(dispatches)  # the warm run counted them
-        self.pool_bytes += max(0, torch.cuda.memory_reserved(dev) - reserved)
+        graph, outs, (delta,), grew = capture(
+            lambda: self._as_tuple(self.body(**ent.inputs)), dev, self.pool,
+            self.generators, (self.counters,))
+        ent.delta = delta
+        self.pool_bytes += grew
         ent.graph, ent.outputs = graph, outs
         self._replay(ent)
         return ent
@@ -259,6 +304,6 @@ class StepGraph:
         snap = dict(self.counters)
         dispatches = dict(_fa.pallas_calls)
         self._run(ent)
-        self._set_counts(snap)  # the eager CPU body bumps them itself
+        set_counts(self.counters, snap)  # the eager CPU body bumps them itself
         _fa.pallas_calls.update(dispatches)
-        self._add_delta(ent.delta)
+        add_delta(self.counters, ent.delta)

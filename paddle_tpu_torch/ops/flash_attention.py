@@ -769,8 +769,18 @@ def flash_attn_varlen(query, key, value, cu_seqlens_q, cu_seqlens_k=None,
                       causal=True, scale=None):
     """The varlen entry (the reference's `flash_attn_varlen`,
     flash_attention.py:2143): self-attention layouts only, so a
-    `cu_seqlens_k` other than `cu_seqlens_q` raises NotImplementedError."""
+    `cu_seqlens_k` other than `cu_seqlens_q` raises NotImplementedError,
+    and so does a distinct one inside a `jit.to_static` step, where its
+    values cannot be read (the reference's refusal, :2160)."""
     if cu_seqlens_k is not None and cu_seqlens_k is not cu_seqlens_q:
+        from ..framework.core import active_static_call
+
+        if active_static_call() is not None:
+            raise NotImplementedError(
+                "flash_attn_varlen: cu_seqlens_k equality cannot be verified "
+                "under @to_static tracing; pass cu_seqlens_k as the same tensor "
+                "object as cu_seqlens_q (or omit it) — only self-attention "
+                "layouts are supported")
         cq, ck = torch.as_tensor(cu_seqlens_q), torch.as_tensor(cu_seqlens_k)
         if cq.shape != ck.shape or not bool((cq.cpu() == ck.cpu()).all()):
             raise NotImplementedError(

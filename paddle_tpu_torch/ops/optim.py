@@ -25,7 +25,10 @@ decay) and a chunk table (block i takes chunk `index` of tensor `tensor`,
 (`MultiTensorTable`).  Every entry is packed again on every call from the
 tensors' current `data_ptr`s: `clear_grad` drops the gradients each step,
 `amp.decorate` swaps `p.data`, and a swapped master or moment must not
-leave the kernel writing through a stale pointer.
+leave the kernel writing through a stale pointer.  A launch captured into
+a CUDA graph (`jit.to_static`) takes a device table of its own, copied
+from a pinned buffer that the capture takes over and nothing refills, so
+every replay reads the tables of the capture's tensors.
 
 The kernel rounds once per operation in the reference's order (no FMA
 contraction), so on the card it equals the plain version bit for bit:
@@ -34,6 +37,8 @@ contraction), so on the card it equals the plain version bit for bit:
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -126,10 +131,14 @@ def adam_multi_plain(params, grads, masters, moments1, moments2, beta1_pows,
     parameter), `m_hat / (sqrt(v_hat) + eps)`, the decay `coeff * w` (or
     `coeff * sign(w)`) added to the gradient or, decoupled, to the update;
     the new value to the master and, rounded, to the parameter; each beta
-    power times its beta.  With `found_inf` set (read on the host), nothing
-    changes."""
-    if found_inf is not None and bool(found_inf):
-        return
+    power times its beta.  With `found_inf` set, nothing changes: every
+    written tensor keeps its old value by a select on the device, with no
+    host read (so the plain version runs inside a `to_static` step)."""
+    old = None
+    if found_inf is not None:
+        old = [(t, t.clone()) for t in (*params, *moments1, *moments2, *beta1_pows,
+                                        *beta2_pows)]
+        old += [(t, t.clone()) for t in masters if t is not None]
     b1, b2, eps = beta1, beta2, epsilon
     for p, g, master, m, v, p1, p2, (wd, mode) in zip(
             params, grads, masters, moments1, moments2, beta1_pows, beta2_pows,
@@ -151,24 +160,42 @@ def adam_multi_plain(params, grads, masters, moments1, moments2, beta1_pows,
         if master is not None:
             master.copy_(new)
         p.copy_(new)
+    if old is not None:
+        skip = found_inf != 0
+        for t, was in old:
+            t.copy_(torch.where(skip, was, t))
 
 
 def unscale_multi_plain(grads, scale, found_inf):
     """Every gradient times 1 / scale (the inverse rounded to the gradient's
     dtype, as the reference multiplies), in place; sets `found_inf` when
-    one of the results is not finite."""
+    one of the results is not finite (on the device, no host read)."""
     inv = 1.0 / scale
     for g in grads:
         g.mul_(inv.to(g.dtype))
-        if not bool(torch.isfinite(g).all()):
-            found_inf.fill_(1)
+        found_inf.bitwise_or_((~torch.isfinite(g)).any().to(found_inf.dtype))
+
+
+def _bytes_of(buf):
+    """A numpy view of the pinned uint8 buffer `buf`, made from its address:
+    writing the host tables is no read of a step's value, and `Tensor.numpy()`
+    would count as one inside a `to_static` step."""
+    return np.ctypeslib.as_array((ctypes.c_uint8 * buf.numel()).from_address(
+        buf.data_ptr()))
 
 
 class MultiTensorTable:
     """The device tables of one optimizer's launches: `upload` copies
     entries (`adam_entries`, `grad_entries`) and their chunk table to the
     device in one pinned, non-blocking copy.  The chunk table is rebuilt
-    when the tensors' sizes change."""
+    when the tensors' sizes change.
+
+    Under a CUDA graph capture the copy cannot wait for an earlier one (a
+    host wait is illegal while capturing) and must not read a buffer that
+    later eager calls refill: the captured launch gets a device table of
+    its own in the graph's pool, copied by the graph from a spare pinned
+    buffer that an eager upload set aside and that the capture keeps for as
+    long as the table lives."""
 
     def __init__(self):
         self._numels = None
@@ -177,6 +204,8 @@ class MultiTensorTable:
         self._copied = [None, None]  # the event of each one's last copy
         self._turn = 0
         self._dev = None
+        self._spare = None  # a pinned buffer for the next captured launch
+        self._captured = []  # (pinned source, device table) of each capture
 
     @staticmethod
     def grad_entries(grads):
@@ -208,6 +237,10 @@ class MultiTensorTable:
         chunks pointer, n tensors, n chunks)."""
         chunks = self._chunk_table(entries["numel"])
         ne, nc = entries.nbytes, chunks.nbytes
+        if torch.cuda.is_current_stream_capturing():
+            return self._upload_captured(entries, chunks, device)
+        if self._spare is None or self._spare.numel() < ne + nc:
+            self._spare = torch.empty(ne + nc, dtype=torch.uint8, pin_memory=True)
         if not self._host or self._host[0].numel() < ne + nc \
                 or self._dev.device != device:
             size = max(ne + nc, 2 * (self._host[0].numel() if self._host else 0))
@@ -219,7 +252,7 @@ class MultiTensorTable:
         if self._copied[turn] is not None:
             self._copied[turn].synchronize()  # that copy has read this buffer
         buf = self._host[turn]
-        host = buf.numpy()
+        host = _bytes_of(buf)
         host[:ne] = entries.view(np.uint8)
         host[ne:ne + nc] = chunks.view(np.uint8)
         # stream-ordered after the last launch that read the device table
@@ -227,6 +260,23 @@ class MultiTensorTable:
         self._copied[turn] = torch.cuda.Event()
         self._copied[turn].record()
         base = self._dev.data_ptr()
+        return base, base + ne, len(entries), len(chunks)
+
+    def _upload_captured(self, entries, chunks, device):
+        ne, nc = entries.nbytes, chunks.nbytes
+        src = self._spare
+        if src is None or src.numel() < ne + nc:
+            raise RuntimeError(
+                "a captured optimizer launch needs an eager launch of the same "
+                "tensors before the capture (a to_static trace's warm run)")
+        self._spare = None  # this capture's from now on: nothing refills it
+        host = _bytes_of(src)
+        host[:ne] = entries.view(np.uint8)
+        host[ne:ne + nc] = chunks.view(np.uint8)
+        table = torch.empty(ne + nc, dtype=torch.uint8, device=device)
+        table.copy_(src[:ne + nc], non_blocking=True)  # a copy node of the graph
+        self._captured.append((src, table))
+        base = table.data_ptr()
         return base, base + ne, len(entries), len(chunks)
 
 

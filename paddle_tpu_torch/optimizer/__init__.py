@@ -4,7 +4,10 @@
 
 - `learning_rate` a float or an `lr.LRScheduler`; the rate the update
   reads is a float32 device scalar, refreshed only when its value changes
-  (the reference's `_sync_lr`), so a constant rate costs no copy a step;
+  (the reference's `_sync_lr`), so a constant rate costs no copy a step.
+  The refresh is registered with `jit` (reference :72-74): it runs before
+  every `to_static` call and never inside one, so a captured step reads
+  the rate of each replay's time;
   `get_lr()`, `set_lr()` (RuntimeError under a scheduler), and the
   scheduler's state under "LR_Scheduler" in `state_dict()`;
 - `parameters` tensors, `(name, tensor)` pairs (`model.named_parameters()`:
@@ -26,7 +29,9 @@ its plain version.  Given `found_inf` (`amp.GradScaler`), the kernel skips
 the step on the device.  `SGD`, `Momentum`, `Adagrad`, `RMSProp`, `Adamax`
 and `Lamb` are the reference's formulas (:312-562) as per-parameter torch
 ops; under a `found_inf` they read the flag on the host and skip, as the
-reference's eager `GradScaler.step` does.
+reference's eager `GradScaler.step` does; inside a `jit.to_static` step
+the skip is a select on the device instead, as the reference's traced
+`_guarded_step` (amp/__init__.py:300-325) is.
 """
 
 from __future__ import annotations
@@ -35,6 +40,8 @@ import numbers
 
 import torch
 
+from .. import jit as _jit
+from ..framework import core as _core
 from ..ops import optim as _optim
 from ..regularizer import L1Decay, L2Decay
 from . import lr
@@ -84,6 +91,8 @@ class Optimizer(torch.optim.Optimizer):
         first = next(self._all_params())
         self._lr_t = torch.full((), value, dtype=torch.float32, device=first.device)
         self._lr_synced = value
+        self._acc_fill = {}  # accumulator name -> its initial fill
+        _jit.register_state_refresh(self, Optimizer._sync_lr)
         if multi_precision:
             self._create_master_weights()
 
@@ -113,7 +122,12 @@ class Optimizer(torch.optim.Optimizer):
         self._learning_rate = float(value)
 
     def _sync_lr(self):
-        """Refresh the device scalar the update reads, only on a change."""
+        """Refresh the device scalar the update reads, only on a change.
+        Inside a `to_static` step it does nothing: the refresher ran before
+        the call, and a fill captured there would replay the rate of the
+        capture's time."""
+        if _core.active_static_call() is not None:
+            return
         value = self._lr_value()
         if value != self._lr_synced:
             self._lr_t.fill_(value)
@@ -160,10 +174,32 @@ class Optimizer(torch.optim.Optimizer):
         self._apply(pgs, found_inf)
 
     def _apply(self, pgs, found_inf):
-        if found_inf is not None and bool(found_inf):
-            return  # the reference's eager skip: a host read of the flag
+        if found_inf is not None and _core.active_static_call() is None:
+            if bool(found_inf):
+                return  # the reference's eager skip: a host read of the flag
+            found_inf = None
+        if found_inf is None:
+            for p, g in pgs:
+                self._update_param(p, g, self._lr_t)
+            return
+        # inside a to_static step: update, then keep every written tensor's
+        # old value where the flag is set (the reference's `_guarded_step`);
+        # an accumulator this update made keeps its initial fill
+        old = {}
+        for p, _ in pgs:
+            for t in (p, *self.state[p].values()):
+                if torch.is_tensor(t):
+                    old[id(t)] = (t, t.clone())
+        had = [(p, set(self.state[p])) for p, _ in pgs]
         for p, g in pgs:
             self._update_param(p, g, self._lr_t)
+        skip = found_inf != 0
+        for t, was in old.values():
+            t.copy_(torch.where(skip, was, t))
+        for p, keys in had:
+            for name, t in self.state[p].items():
+                if name not in keys:
+                    t.copy_(torch.where(skip, self._acc_fill[name], t))
 
     def minimize(self, loss, startup_program=None, parameters=None, no_grad_set=None):
         loss.backward()
@@ -181,6 +217,8 @@ class Optimizer(torch.optim.Optimizer):
         if name not in st:
             st[name] = torch.full(p.shape if shape is None else shape, float(init),
                                   dtype=torch.float32, device=p.device)
+            self._acc_fill[name] = float(init)
+            _jit.note_created(st[name], float(init))
         return st[name]
 
     def _source(self, p):
@@ -207,15 +245,25 @@ class Optimizer(torch.optim.Optimizer):
         """torch's load, then every saved state tensor back in its own dtype
         (torch casts floating state to the parameter's, which would round a
         bf16 parameter's float32 master and moments), and the scheduler's
-        state."""
+        state.  A state tensor that exists with the saved one's shape and
+        dtype takes the values in place, so a `to_static` step captured over
+        it reads them without a retrace."""
         sd = dict(state_dict)
         sched = sd.pop("LR_Scheduler", None)
-        super().load_state_dict(sd)
         params = list(self._all_params())
+        kept = {p: dict(self.state[p]) for p in params if p in self.state}
+        super().load_state_dict(sd)
         for i, st in sd["state"].items():
             p = params[i]
             for k, v in st.items():
-                if torch.is_tensor(v):
+                if not torch.is_tensor(v):
+                    continue
+                cur = kept.get(p, {}).get(k)
+                if cur is not None and cur.shape == v.shape and cur.dtype == v.dtype:
+                    with torch.no_grad():
+                        cur.copy_(v)
+                    self.state[p][k] = cur
+                else:
                     self.state[p][k] = v.detach().to(p.device, copy=True)
         if sched is not None and isinstance(self._learning_rate, LRScheduler):
             self._learning_rate.set_state_dict(sched)
