@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Twenty-two phases, and the serving, training and amp ones again in float16
+Twenty-four phases, and the serving, training and amp ones again in float16
 (below); a failure in any of them exits non-zero and prints no result.
 
 1. device  -- requires CUDA; prints the card's name and power limit.
@@ -285,7 +285,37 @@ Twenty-two phases, and the serving, training and amp ones again in float16
               unscale_fused launches per replay equal to eager's per step;
               eager and captured step ms in turns, the first call's
               seconds, the graph pool's bytes and the peak memory.
-22. longcontext -- long-context training through the Llama's
+22. gpt    -- GPT-3 13B (`models/gpt.py`, BASELINE's fifth configuration)
+              at full width and depth (40 layers of 40 heads of 128,
+              hidden 5120, FFN 20480, vocab 50304), bf16, seeded weights
+              built on the card: the generate phase's checks on it (greedy
+              4 x 500 + 64, beam search with 2 beams, seeded sampling, a
+              20-token prompt, each twice; K6 and K2 launches exactly; a
+              replay against eager bit for bit; a warmed
+              `GenerationPredictor` behind POST /generate), then the
+              greedy tokens against the argmax of one full forward (K1)
+              over the generated sequence, a differing token a near tie;
+              prefill ms (one replay), decode ms a step (replays),
+              generated tokens/s, peak memory.
+23. moe    -- the GShard mixture of experts (`incubate/moe.py`): (b)
+              GPT-3 13B's widths at 2 layers, layer 1 an MoE of 8 experts
+              (top-2, capacity factor 2.0), bf16 O2, AdamW, 2 x 2048 tokens:
+              4 captured steps against 4 eager ones of a fresh build, bit
+              for bit (loss, aux loss, dropped fraction, every parameter and
+              optimizer state), one trace, K1, K3 and adam_fused in each
+              replay, falling losses, aux > 0; two eager steps with
+              `use_recompute` equal to the plain ones; a greedy `generate`
+              of the model checked as in the generate phase.  (c)
+              bench_moe's step (bench.py:2229-2253: d 1024, hidden 4096, 8
+              experts, top-2, 8 x 1024 tokens, float32 with TF32 off, AdamW)
+              under `to_static`: against an eager twin bit for bit, one
+              trace, step ms and tokens/s (median of 3 windows of 12 steps),
+              aux and dropped fraction, the dispatch and combine einsums'
+              share of an eager step's device time (CUDA-event time when
+              the profiler sees none); the routing functions on the
+              card against the CPU (tied bf16 logits among them) and the
+              layer against float64 on the CPU.
+24. longcontext -- long-context training through the Llama's
               `context_parallel_degree` on a sep mesh (ring attention, every
               rank on the card): Llama-2-7B's widths at 4 layers, one
               sequence of 32768 tokens over R = 8 (K/V 512 MiB a layer: the
@@ -299,7 +329,7 @@ Twenty-two phases, and the serving, training and amp ones again in float16
               form, one K1 and one K3 with q_offset per rank), 2 steps; then
               one step's gradients of 2 layers at 32768 tokens over R = 8
               against context_parallel_degree 1 (full-sequence K1/K3).
-23. vision -- the conv nets on the port's conv, pool and batch-norm
+25. vision -- the conv nets on the port's conv, pool and batch-norm
               layers (torch ops on cuDNN; no Pallas kernel of the
               reference is on this path): (a) bench_resnet50's recipe,
               ResNet-50 at batch 128 x 224 x 224, 1000 classes,
@@ -2432,6 +2462,19 @@ def phase_kernels():
         case(_k2_dense_case, errs2d, seed=19, timed=False, **kw)
     for dtype, sq in (("bfloat16", 300), ("bfloat16", 100), ("float32", 300)):
         ok_all &= _k6_is_k1(dtype, sq)
+    # GPT-3 13B's shapes (the gpt and moe phases), timed: K1 and K3 at the
+    # MoE GPT's training step (MOE_GPT_BATCH x MOE_GPT_SEQ, 40 heads of 128,
+    # multi-head), K6 at 13B generate's prefill (GEN_BATCH x GEN_LEN rows of
+    # a 640-row cache) and K2 over the page view at its last decode step
+    k1_gpt = case(_k1_case, errs1, b=MOE_GPT_BATCH, s=MOE_GPT_SEQ, h=40, hk=40,
+                  seed=60)
+    k3_gpt = case(_k3_case, errs3, b=MOE_GPT_BATCH, s=MOE_GPT_SEQ, h=40, hk=40,
+                  seed=61)
+    k6_gpt = case(_k6_case, errs6, b=GEN_BATCH, sq=GEN_LEN, h=40, hk=40, L=640,
+                  seed=62)
+    k2d_gpt = case(_k2_dense_case, errs2d, b=GEN_BATCH, sq=1, h=40, hk=40,
+                   pos=GEN_LEN + GEN_NEW - 1, L=640, seed=63)
+    torch.cuda.empty_cache()
     # K5 (every shard in one launch): cp=2 decode at the cp phase's context
     # (per-slot pos 3000-4000 of 4096) on the decode walk, timed beside K2
     # over the same arena; the same in float32 (the FMA page walk, the
@@ -2480,6 +2523,10 @@ def phase_kernels():
             "dense_decode": worst(k6, errs6),
             "paged_decode_fused_dense_pool": worst(k2d, errs2d),
             "paged_decode_fused_dense_generate": worst(k2d_gen, errs2d),
+            "flash_fwd_gpt": worst(k1_gpt, errs1),
+            "flash_bwd_gpt": worst(k3_gpt, errs3),
+            "dense_decode_gpt": worst(k6_gpt, errs6),
+            "paged_decode_fused_dense_gpt": worst(k2d_gpt, errs2d),
             "paged_decode_fused_cp": worst(k5, errs5),
             "paged_decode_fused_cp_walk": worst(k5w, errs5w),
             "paged_decode_fused_cp_mma": worst(k5c, errs5c)}, ok_all
@@ -3441,6 +3488,24 @@ def phase_fp16_serve(smi, cfg, bf16, serving, cp_kw, device="cuda", sizes=None):
     return ok, runs
 
 
+def _kv_heads(cfg):
+    """Llama's kv heads, or GPT's: multi-head, one per query head."""
+    return getattr(cfg, "num_key_value_heads", cfg.num_attention_heads)
+
+
+def _decoder(model):
+    """The decoder stack of a causal LM of the port (Llama's or GPT's):
+    called with (ids, caches=, pos=), it returns the final hidden states."""
+    return model.llama if hasattr(model, "llama") else model.gpt
+
+
+def _moe_dropped(model):
+    """Assignments the MoE layers of `model` dropped in their last forward
+    (0 for a model without MoE layers)."""
+    layers = model.moe_layers() if hasattr(model, "moe_layers") else []
+    return sum(int(m.drop_stats["dropped_tokens"].item()) for m in layers)
+
+
 def _gen_expect(cfg, dtype, s0, cache_len, steps, traced):
     """The launches of one lock-step call on the card: per layer, K6 for a
     prefill of s0 rows where `takes_dense_decode` takes it, else K2 over
@@ -3453,7 +3518,7 @@ def _gen_expect(cfg, dtype, s0, cache_len, steps, traced):
 
     want = dict.fromkeys(profiler.kernel_launch_counts(), 0)
     layers, d = cfg.num_hidden_layers, cfg.head_dim
-    rep = cfg.num_attention_heads // cfg.num_key_value_heads
+    rep = cfg.num_attention_heads // _kv_heads(cfg)
 
     def add(sq, n):
         if fa.takes_dense_decode(sq, d, cache_len, False):
@@ -3520,7 +3585,7 @@ def _replay_vs_eager(model, key, shape, state=()):
 def phase_generate(smi, model, device="cuda", batch=GEN_BATCH, prompt_len=GEN_LEN,
                    new_tokens=GEN_NEW, beam_len=BEAM_LEN, beam_new=BEAM_NEW,
                    beams=BEAMS, short_len=SHORT_LEN,
-                   predictor_lens=PREDICTOR_LENS, greedy_only=False):
+                   predictor_lens=PREDICTOR_LENS, greedy_only=False, kept=None):
     """Lock-step generation on `model`, every strategy on its captured
     steps (`model._gen_fns`): greedy over `batch` prompts of `prompt_len`
     tokens, beam search, seeded sampling, a short prompt, each called
@@ -3531,8 +3596,13 @@ def phase_generate(smi, model, device="cuda", batch=GEN_BATCH, prompt_len=GEN_LE
     and one beam decode step replay equal to eager bit for bit; prefill and
     one decode step's logits against the teacher-forced forward; then a
     warmed GenerationPredictor behind POST /generate; `greedy_only` stops
-    after the greedy calls and their checks.  Returns (all checks passed,
-    the summed launch counts of the calls)."""
+    after the greedy calls and their checks.  `model` is a Llama or a GPT;
+    for an MoE GPT whose teacher-forced forward dropped assignments (the
+    capacity of a longer sequence is shared by more tokens), the decode
+    step's logits are printed but not held to the bound.  `kept`, a dict,
+    receives the greedy call's output ("greedy") and wall seconds
+    ("greedy_s").  Returns (all checks passed, the summed launch counts of
+    the calls)."""
     import numpy as np
     import torch
 
@@ -3575,35 +3645,43 @@ def phase_generate(smi, model, device="cuda", batch=GEN_BATCH, prompt_len=GEN_LE
     log("generate", f"greedy: shape {tuple(out.shape)}, prompt kept, ids in the "
                     f"vocabulary -> {'ok' if shape_ok else 'FAIL'}; warm call "
                     f"{batch * new_tokens / wall:.2f} generated tokens/s over the "
-                    f"call (prefill included; eager steps: "
-                    f"{GEN_TOKENS_PER_S_WAS}); graph pool {pool / 2**20:.1f} MiB "
-                    f"| {smi}")
+                    f"call (prefill included"
+                    + (f"; eager steps: {GEN_TOKENS_PER_S_WAS}" if hasattr(model, "llama")
+                       else "") + f"); graph pool {pool / 2**20:.1f} MiB | {smi}")
     ok &= _replay_vs_eager(model, "greedy", (batch, 1))
     greedy = out
+    if kept is not None:
+        kept.update(greedy=greedy, greedy_s=wall)
 
     # -- correctness: prefill and one decode step vs the teacher-forced
     # forward over prompt + the greedy token
     cache_len = -(-(prompt_len + 1) // 128) * 128
-    caches = [StaticKVCache(1, cache_len, cfg.num_key_value_heads, cfg.head_dim,
+    caches = [StaticKVCache(1, cache_len, _kv_heads(cfg), cfg.head_dim,
                             model.lm_head.weight.dtype, model.device)
               for _ in range(layers)]
     seq = greedy[:1, :prompt_len + 1]
+    decoder = _decoder(model)
     with torch.no_grad():
         pos0 = torch.zeros((), dtype=torch.int32, device=model.device)
-        pf = model.lm_head(model.llama(seq[:, :prompt_len], caches=caches,
-                                       pos=pos0)[:, -1]).float()
-        dec = model.lm_head(model.llama(seq[:, prompt_len:], caches=caches,
-                                        pos=pos0 + prompt_len)[:, -1]).float()
+        pf = model.lm_head(decoder(seq[:, :prompt_len], caches=caches,
+                                   pos=pos0)[:, -1]).float()
+        dec = model.lm_head(decoder(seq[:, prompt_len:], caches=caches,
+                                    pos=pos0 + prompt_len)[:, -1]).float()
         ref = model(seq)[0, prompt_len - 1:].float()
+        dropped = _moe_dropped(model)
     del caches
     rels = [((x[0] - r).abs().max() / r.abs().max()).item()
             for x, r in ((pf, ref[0]), (dec, ref[1]))]
     finite = bool(torch.isfinite(pf).all() and torch.isfinite(dec).all())
-    logits_ok = finite and max(rels) <= LOGIT_REL_TOL
+    held = rels if not dropped else rels[:1]
+    logits_ok = finite and max(held) <= LOGIT_REL_TOL
     ok &= logits_ok
     log("generate", f"logits vs the teacher-forced forward, max|diff|/max|logit|: "
                     f"prefill {rels[0]:.3e}, decode step {rels[1]:.3e} (tol "
-                    f"{LOGIT_REL_TOL}); greedy token {int(seq[0, -1])} == argmax of "
+                    f"{LOGIT_REL_TOL}"
+                    + (f"; the forward's MoE layers dropped {dropped} assignments, "
+                       "so the decode step is not held" if dropped else "")
+                    + f"); greedy token {int(seq[0, -1])} == argmax of "
                     f"the forward {int(ref[0].argmax())} -> {'ok' if logits_ok else 'FAIL'}")
     if greedy_only:
         return ok, {name: sum(c[name] for c in runs) for name in runs[0]}
@@ -8343,36 +8421,49 @@ def _jit_counts(counts, calls):
     return {k: counts.get(k, 0) / calls for k in JIT_KERNELS}
 
 
+def _step_outputs(out):
+    """A step's outputs as one float32 row: the loss, then whatever else
+    it returns (an MoE step's aux loss and dropped fraction)."""
+    import torch
+
+    outs = out if isinstance(out, tuple) else (out,)
+    return torch.stack([x.detach().float().reshape(()) for x in outs])[None]
+
+
 def _jit_path(smi, what, build, batches, on_card, want=(), rounds=JIT_ROUNDS,
-              window=JIT_WINDOW):
+              window=JIT_WINDOW, kept=None, label="jit"):
     """One path: `len(batches)` eager steps of a fresh build, their losses
-    and state kept on the host; then the same from a fresh build under
-    `jit.to_static`, held to them bit for bit, with one trace, no retrace
-    and the eager launches per step (on the card at least one of each
-    kernel in `want`); then eager and captured windows in turns on the
-    captured build.  Returns (ok, launch counts of the captured calls
-    after the trace)."""
+    (and any other outputs of the step) and state kept on the host; then
+    the same from a fresh build under `jit.to_static`, held to them bit
+    for bit, with one trace, no retrace and the eager launches per step
+    (on the card at least one of each kernel in `want`); then eager and
+    captured windows in turns on the captured build.  `kept`, a dict,
+    receives the eager twin's outputs per step ("eager": [steps, outputs]).
+    Log lines read "[<label> <what>]".  Returns (ok, launch counts of the
+    captured calls after the trace)."""
     import torch
 
     from paddle_tpu_torch import jit, profiler
 
-    phase = f"jit {what}"
+    phase = f"{label} {what}"
     n = len(batches)
     sync = torch.cuda.synchronize if on_card else (lambda: None)
 
     def run(fn, hooks):
-        losses = []
+        outs = []
         for i, b in enumerate(batches):
             if i == 1:
                 profiler.reset_kernel_launch_counts()
-            losses.append(fn(*b).detach().float().reshape(1))
+            outs.append(_step_outputs(fn(*b)))
             hooks.between(i)
         sync()
-        return torch.cat(losses).cpu(), profiler.kernel_launch_counts()
+        return torch.cat(outs).cpu(), profiler.kernel_launch_counts()
 
     # the eager twin
     path = build()
     eager_losses, eager_counts = run(path.step, path)
+    if kept is not None:
+        kept["eager"] = eager_losses
     eager_state = [(name, t.detach().to("cpu", copy=True)) for name, t in path.state()]
     del path
     _free()
@@ -8382,14 +8473,14 @@ def _jit_path(smi, what, build, batches, on_card, want=(), rounds=JIT_ROUNDS,
     path = build()
     static = jit.to_static(path.step)
     t0 = time.perf_counter()
-    first = static(*batches[0]).detach().float().reshape(1)
+    first = _step_outputs(static(*batches[0]))
     sync()
     first_s = time.perf_counter() - t0
     path.between(0)
     losses = [first]
     profiler.reset_kernel_launch_counts()
     for i, b in enumerate(batches[1:], 1):
-        losses.append(static(*b).detach().float().reshape(1))
+        losses.append(_step_outputs(static(*b)))
         path.between(i)
     sync()
     counts = profiler.kernel_launch_counts()
@@ -8406,8 +8497,10 @@ def _jit_path(smi, what, build, batches, on_card, want=(), rounds=JIT_ROUNDS,
     traces_ok = static.trace_count == 1
     peak = (f"{torch.cuda.max_memory_allocated() / 2**30:.2f}" if on_card
             else "not measured")
-    log(phase, f"{n} steps, losses " + " ".join(f"{x:.6f}" for x in losses.tolist())
-               + f": equal to eager bit for bit {same_losses}; state tensors equal "
+    extra = (f" (other outputs of the last step {losses[-1, 1:].tolist()})"
+             if losses.shape[1] > 1 else "")
+    log(phase, f"{n} steps, losses " + " ".join(f"{x:.6f}" for x in losses[:, 0].tolist())
+               + f"{extra}: equal to eager bit for bit {same_losses}; state tensors equal "
                f"{len(state) - len(diff)}/{len(eager_state)} (every parameter, "
                f"master, moment, power, buffer, scaler counter)"
                + (f", first differing {diff[:3]}" if diff else "")
@@ -8536,6 +8629,420 @@ def phase_jit(smi, device="cuda", llama=None, bert=None, resnet=None, small=None
     total = {k: sum(c.get(k, 0) for c in counts.values()) for k in counts["a"]}
     log("jit", f"paths {oks}; launches of the captured calls {_main(total)} -> "
                f"{'ok' if all(oks.values()) else 'FAIL'}")
+    return all(oks.values()), counts
+
+
+# ---------------------------------------------------------------------------
+# GPT-3 13B and the mixture of experts
+# ---------------------------------------------------------------------------
+
+# the gpt phase: GPT-3 13B at full width and depth (models/gpt.py
+# `gpt3_13b`: vocab 50304, hidden 5120, 40 layers of 40 heads, FFN 20480,
+# 2048 positions), bf16, seeded weights, through the generate phase's
+# geometry with GPT_BEAMS beams; then the greedy tokens against the argmax
+# of one full forward (K1) over the generated sequence: a token that
+# differs must be a near tie, the forward's top logit within GPT_TIE_REL
+# of max|logit| above the generated token's (the form of SESSION_TIE_REL:
+# twice the largest teacher-forced logit difference the generate checks
+# print, rounded up); GPT_DECODE_TIMED decode replays timed
+GPT_BEAMS = 2
+GPT_TIE_REL = 0.04
+GPT_DECODE_TIMED = 32
+# the moe phase: (b) GPT-3 13B's widths at MOE_GPT_LAYERS layers, layer 1 an
+# MoE of MOE_GPT_EXPERTS experts (top-2, capacity factor 2.0), bf16 O2,
+# AdamW, MOE_GPT_BATCH x MOE_GPT_SEQ tokens, MOE_GPT_STEPS steps captured
+# against as many eager ones; (c) bench_moe's step (bench.py:2229-2253):
+# d 1024, hidden 4096, 8 experts, top-2, capacity factor 1.25, batch 8 x
+# 1024, float32, AdamW at 1e-4, BENCH_MOE["steps"] steps a window, median of
+# BENCH_MOE["windows"] windows; its MoELayer on BENCH_MOE_F64_TOKENS tokens
+# against a float64 CPU run, max|diff| / max|out| <= BENCH_MOE_F64_TOL
+# (float32 products over d and the hidden width, TF32 off)
+MOE_GPT_LAYERS = 2
+MOE_GPT_EXPERTS = 8
+MOE_GPT_BATCH = 2
+MOE_GPT_SEQ = 2048
+MOE_GPT_STEPS = 4
+MOE_GPT_RECOMPUTE_STEPS = 2
+BENCH_MOE = dict(d_model=1024, d_hidden=4096, experts=8, batch=8, seq=1024,
+                 steps=12, windows=3)
+BENCH_MOE_F64_TOKENS = 512
+BENCH_MOE_F64_TOL = 1e-4
+
+
+def _gpt_argmax_check(model, greedy, s0):
+    """The greedy tokens after the prompt against the argmax of one full
+    forward over the generated sequence (the reference's check,
+    tests/test_models.py:393-396), row by row: equal, or a near tie (the
+    forward's top logit at most GPT_TIE_REL of max|logit| above the
+    generated token's).  Returns (ok, the forward's launch counts, a line's
+    text)."""
+    import torch
+
+    from paddle_tpu_torch import profiler
+
+    profiler.reset_kernel_launch_counts()
+    with torch.no_grad():
+        rows = model(greedy[:, :-1])[:, s0 - 1:].float()  # [b, n, V]
+    torch.cuda.synchronize()
+    counts = profiler.kernel_launch_counts()
+    gen = greedy[:, s0:].long()
+    top = rows.max(-1).values
+    picked = rows.gather(-1, gen[..., None])[..., 0]
+    gap = (top - picked) / rows.abs().amax(-1)
+    differ = rows.argmax(-1) != gen
+    worst = gap[differ].max().item() if bool(differ.any()) else 0.0
+    finite = bool(torch.isfinite(rows).all())
+    ok = finite and worst <= GPT_TIE_REL
+    return ok, counts, (f"greedy tokens equal to the full forward's argmax "
+                        f"{int((~differ).sum())}/{differ.numel()}, the others near "
+                        f"ties (largest gap {worst:.3e} of max|logit|, bound "
+                        f"{GPT_TIE_REL}); logits finite {finite}")
+
+
+def _gpt_step_ms(model, greedy, s0, batch):
+    """Milliseconds of one replay of greedy's prefill step at `s0` rows
+    (median of 5) and of one decode step (the median over 3 windows of
+    GPT_DECODE_TIMED replays from position s0), on CUDA events.  The
+    greedy call is made again first, at its geometry (the predictor's
+    calls replaced it): its tokens must equal `greedy`'s.  Returns
+    (prefill ms, decode ms, tokens equal)."""
+    import torch
+
+    again = model.generate(greedy[:, :s0].contiguous(),
+                           max_new_tokens=greedy.shape[1] - s0)
+    step = model._gen_fns["greedy"]
+    ids = greedy[:, :s0].contiguous()
+    zero = torch.zeros((), dtype=torch.int32, device=model.device)
+    prefill = time_ms(lambda: step((batch, s0), toks=ids, pos=zero), iters=5,
+                      warmup=1)
+    at = torch.tensor(s0, dtype=torch.int32, device=model.device)
+    tok = greedy[:, s0:s0 + 1].contiguous()
+
+    def window():
+        step((batch, 1), toks=tok, pos=at)
+        for _ in range(GPT_DECODE_TIMED - 1):
+            step((batch, 1))
+
+    decode = time_ms(window, iters=3, warmup=1) / GPT_DECODE_TIMED
+    return prefill, decode, torch.equal(again, greedy)
+
+
+def phase_gpt(smi, cfg=None, device="cuda", batch=GEN_BATCH, prompt_len=GEN_LEN,
+              new_tokens=GEN_NEW, beams=GPT_BEAMS):
+    """GPT-3 13B serving at full width and depth (bf16, seeded weights,
+    built on the card): `phase_generate`'s greedy, beam search, seeded
+    sampling, short prompt and POST /generate checks on the GPT (K6 once
+    per layer for every prefill of 64+ rows, K2 over the caches' page view
+    for the rest), then the greedy tokens against one full forward (K1);
+    prints prefill ms, decode ms a step, generated tokens/s, peak memory
+    and the launches.  Returns (ok, the launch counts of the generate calls
+    and the forward)."""
+    import torch
+
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+
+    cfg = cfg or GPTConfig.gpt3_13b()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = GPTForCausalLM(cfg, device=device, dtype="bfloat16", seed=0)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    log("gpt", f"GPT-3 13B: {n} parameters ({2 * n / 1e9:.2f} GB in bf16), "
+               f"{cfg.num_hidden_layers} layers of {cfg.num_attention_heads} heads "
+               f"of {cfg.head_dim}, hidden {cfg.hidden_size}, FFN "
+               f"{cfg.intermediate_size}, vocab {cfg.vocab_size}; seeded weights "
+               f"built on the card in {time.perf_counter() - t0:.1f} s")
+    kept = {}
+    with labelled("gpt "):
+        ok, counts = phase_generate(smi, model, device, batch=batch,
+                                    prompt_len=prompt_len, new_tokens=new_tokens,
+                                    beams=beams, kept=kept)
+    greedy = kept["greedy"]
+    good, fwd, text = _gpt_argmax_check(model, greedy, prompt_len)
+    want = {"flash_fwd": cfg.num_hidden_layers, "flash_fwd_wgmma": cfg.num_hidden_layers}
+    fwd_ok = _main(fwd) == want
+    ok &= good and fwd_ok
+    log("gpt", f"{text}; the forward over {tuple(greedy[:, :-1].shape)} launched "
+               f"{_main(fwd)} (expected {want}) -> "
+               f"{'ok' if good and fwd_ok else 'FAIL'}")
+    prefill_ms, decode_ms, same = _gpt_step_ms(model, greedy, prompt_len, batch)
+    ok &= same
+    total = {k: counts.get(k, 0) + fwd.get(k, 0) for k in counts}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log("gpt", f"greedy again at its geometry (new caches, new captures): the "
+               f"same tokens {same} -> {'ok' if same else 'FAIL'}")
+    log("gpt", f"GPT-3 13B generate, batch {batch} x {prompt_len} tokens + "
+               f"{new_tokens}: prefill_ms {prefill_ms:.3f} (one replay), "
+               f"decode_ms_per_step {decode_ms:.3f} (replays of the captured "
+               f"step), generated_tokens_per_s "
+               f"{batch * new_tokens / kept['greedy_s']:.2f} (the warm greedy call, "
+               f"prefill included), peak_mem_gib {peak:.2f}; launches K1 "
+               f"{total['flash_fwd']}, K6 {total['dense_decode']}, K2 "
+               f"{total['paged_decode_fused']} | {smi}")
+    del model, greedy, kept
+    return ok, total
+
+
+def _moe_gpt(cfg, device, seed=0, steps_kept=None):
+    """The MoE GPT's training step as bench_llama writes its own
+    (bench.py:196-202): a float32 model on the card, AdamW at 1e-4, bf16
+    O2; the step returns the loss, the MoE layer's aux loss and its
+    dropped fraction."""
+    from paddle_tpu_torch import amp, optimizer
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+
+    model = GPTForCausalLM(cfg, device=device, dtype="float32", seed=seed).train()
+    opt = optimizer.AdamW(learning_rate=1e-4, parameters=model.named_parameters())
+    model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    (moe,) = model.moe_layers()
+
+    def step(ids):
+        loss, _ = model(ids, labels=ids)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss, moe.aux_loss, moe.drop_stats["dropped_fraction"]
+
+    return _JitRun(step, lambda: _opt_state(model, opt))
+
+
+def _bench_moe(device, bench, seed=0):
+    """bench_moe's model, optimizer and step (bench.py:2242-2253) at the
+    geometry of `bench` (BENCH_MOE's keys)."""
+    import torch
+
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.incubate.moe import MoELayer
+
+    torch.manual_seed(seed)
+    moe = MoELayer(d_model=bench["d_model"], d_hidden=bench["d_hidden"],
+                   num_experts=bench["experts"], top_k=2, device=device)
+    opt = optimizer.AdamW(learning_rate=1e-4, parameters=moe.named_parameters())
+
+    def step(x):
+        out = moe(x)
+        loss = (out.float() ** 2).mean() + 0.01 * moe.aux_loss
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss, moe.aux_loss, moe.drop_stats["dropped_fraction"]
+
+    return moe, opt, step
+
+
+def _routing_card_vs_cpu(device, tokens, experts):
+    """The routing functions on the card against the CPU on the same
+    logits: random float32 logits (top-1 and top-2, tight and ample
+    capacity, expert choice) and bf16 logits on a coarse grid, where most
+    rows tie.  The dispatch tensors, slots used and drop counts must be
+    equal; the combine weights and aux loss (a float32 softmax each side)
+    within 1e-6, and their bitwise equality is printed.  Returns (ok, a
+    line's text)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.incubate.moe import route_tokens
+
+    rng = np.random.default_rng(3)
+    base = torch.from_numpy(rng.standard_normal((tokens, experts)).astype(np.float32))
+    coarse = (torch.round(base * 2) / 2).bfloat16()
+    cases = [(base, 1, tokens // experts // 2, False), (base, 2, tokens // 2, False),
+             (base, 2, 2 * tokens // experts, False), (coarse, 2, tokens // experts, False),
+             (coarse, 1, tokens // experts, False), (base, 2, tokens // experts, True),
+             (coarse, 2, tokens // experts, True)]
+    ok, bitwise, worst = True, 0, 0.0
+    for lg, k, cap, ec in cases:
+        cpu = route_tokens(lg, k, cap, ec)
+        card = [x.cpu() if isinstance(x, torch.Tensor) else tuple(y.cpu() for y in x)
+                for x in route_tokens(lg.to(device), k, cap, ec)]
+        (cd, cc, ca, (cdr, cu)), (gd, gc, ga, (gdr, gu)) = cpu, card
+        ok &= (torch.equal(cd, gd) and torch.equal(cu, gu) and torch.equal(cdr, gdr))
+        err = max((cc - gc).abs().max().item(), (ca - ga).abs().item())
+        worst = max(worst, err)
+        ok &= err <= 1e-6
+        bitwise += int(torch.equal(cc, gc) and torch.equal(ca, ga))
+    return ok, (f"routing on the card vs the CPU over {len(cases)} cases ({tokens} "
+                f"tokens, {experts} experts; top-1, top-2, expert choice; float32 "
+                f"and tied bf16 logits): dispatch, slots and drops equal; combine "
+                f"and aux within {worst:.3e} (bound 1e-6), bit for bit in "
+                f"{bitwise}/{len(cases)}")
+
+
+def _bench_moe_f64(moe, x, device):
+    """bench_moe's MoELayer on the card (float32, TF32 off) against a copy
+    in float64 on the CPU, on the first BENCH_MOE_F64_TOKENS tokens.
+    Returns (max|diff| / max|out|, dropped assignments on the card)."""
+    import copy
+
+    import torch
+
+    xs = x.reshape(1, -1, x.shape[-1])[:, :BENCH_MOE_F64_TOKENS].contiguous()
+    with torch.no_grad():
+        out = moe(xs).double().cpu()
+        dropped = int(moe.drop_stats["dropped_tokens"].item())
+        ref = copy.deepcopy(moe).to("cpu", torch.float64)(xs.cpu().double())
+    return ((out - ref).abs().max() / ref.abs().max()).item(), dropped
+
+
+def _einsum_share(moe, x, step):
+    """Ms of bench_moe's dispatch and combine einsums at the step's shapes
+    (dispatch forward; combine forward and its backward to the expert
+    outputs and the combine weights), alone on the step's own routing
+    tensors, against an eager step's (`step(x)`): device ms from
+    torch.profiler, or, when it saw no device time for either (it can
+    lose a window's records), CUDA-event ms of both, the einsums' GEMMs
+    being long enough for the host to stay ahead.  Returns (einsum ms,
+    step ms, share, "device" or "events")."""
+    import torch
+
+    flat = x.reshape(-1, x.shape[-1])
+    with torch.no_grad():
+        disp, comb, _, _, _ = moe.gate(flat)
+        eo = moe.experts(torch.einsum("td,tec->ecd", flat, disp))
+    eo = eo.requires_grad_()
+    comb = comb.requires_grad_()
+    g = torch.randn_like(flat)
+
+    def einsums():
+        torch.einsum("td,tec->ecd", flat, disp)
+        out = torch.einsum("ecd,tec->td", eo, comb)
+        torch.autograd.grad(out, (eo, comb), g)
+
+    ein, _ = device_ms(einsums, iters=3, warmup=1)
+    whole, _ = device_ms(lambda: step(x), iters=3, warmup=1)
+    how = "device"
+    if ein is None or whole is None:
+        ein = time_ms(einsums, iters=5, warmup=1)
+        whole = time_ms(lambda: step(x), iters=5, warmup=1)
+        how = "events"
+    return ein, whole, ein / whole, how
+
+
+def phase_moe(smi, device="cuda", cfg=None, batch=MOE_GPT_BATCH, seq=MOE_GPT_SEQ,
+              steps=MOE_GPT_STEPS, bench=None):
+    """(b) A 13B-width MoE GPT (`cfg`, default gpt3_13b with MOE_GPT_LAYERS
+    layers and MOE_GPT_EXPERTS experts: layer 0 dense, layer 1 MoE) trained
+    in bf16 O2 with AdamW under `jit.to_static`: `_jit_path`'s captured
+    steps against an eager twin bit for bit (losses, aux, dropped fraction,
+    every parameter and optimizer state), one trace, K1, K3 and adam_fused
+    in each replay, eager and captured windows in turns; falling losses
+    and aux > 0; MOE_GPT_RECOMPUTE_STEPS eager steps with use_recompute
+    equal to the plain twin's bit for bit; then a greedy `generate` of the
+    model (bf16) checked as the generate phase checks it.  (c) bench_moe's
+    step under `to_static`: captured against eager bit for bit, one trace,
+    step ms, tokens/s, aux and dropped fraction; the einsums' share of the
+    step's device time; the routing on the card against the CPU; the layer
+    against float64.  Returns (ok, {"train": launches of the captured
+    calls, "generate": of the generate calls, "bench": of bench_moe's
+    captured calls})."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import jit, profiler
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+
+    on_card = torch.device(device).type == "cuda"
+    cfg = cfg or GPTConfig.gpt3_13b(num_hidden_layers=MOE_GPT_LAYERS,
+                                    moe_num_experts=MOE_GPT_EXPERTS)
+    bench = bench or BENCH_MOE
+    parity_matmuls()  # TF32 off: float32 products in float32
+    log("moe", f"TF32 for matmuls: {torch.backends.cuda.matmul.allow_tf32}, for "
+               f"cuDNN: {torch.backends.cudnn.allow_tf32}")
+    rng = np.random.default_rng(0)
+    ids = torch.from_numpy(rng.integers(1, cfg.vocab_size, size=(batch, seq))
+                           .astype(np.int32)).to(device)
+    counts, oks, kept = {}, {}, {}
+    # (b) the MoE GPT's captured step against its eager twin
+    ok, counts["train"] = _jit_path(
+        smi, f"b moe gpt {batch} x {seq}", lambda: _moe_gpt(cfg, device),
+        [(ids,)] * steps, on_card, want=("flash_fwd", "flash_bwd", "adam_fused"),
+        kept=kept, label="moe")
+    eager = kept["eager"]  # [steps, (loss, aux, dropped fraction)]
+    falling = bool(eager[-1, 0] < eager[0, 0]) and bool((eager[:, 1] > 0).all())
+    oks["train"] = ok and falling
+    log("moe", f"b: eager losses {eager[:, 0].tolist()}, falling and aux > 0 "
+               f"{falling}; aux per step {eager[:, 1].tolist()}, dropped fraction "
+               f"per step {eager[:, 2].tolist()} -> {'ok' if falling else 'FAIL'}")
+    _free()
+    # recompute against the plain twin, eager
+    run = _moe_gpt(dataclasses.replace(cfg, use_recompute=True), device)
+    rc = torch.cat([_step_outputs(run.step(ids))
+                    for _ in range(MOE_GPT_RECOMPUTE_STEPS)]).cpu()
+    same = torch.equal(rc, eager[:MOE_GPT_RECOMPUTE_STEPS])
+    oks["recompute"] = same
+    log("moe", f"b: {MOE_GPT_RECOMPUTE_STEPS} eager steps with use_recompute: "
+               f"outputs {rc.tolist()} equal to the plain twin's bit for bit {same} "
+               f"-> {'ok' if same else 'FAIL'}")
+    del run
+    _free()
+    # a greedy generate of the same model, checked as the generate phase's
+    model = GPTForCausalLM(cfg, device=device, dtype="bfloat16", seed=0)
+    with labelled("moe "):
+        oks["generate"], counts["generate"] = phase_generate(
+            smi, model, device, greedy_only=True)
+    del model
+    _free()
+    # (c) bench_moe's step
+    d, b, s = bench["d_model"], bench["batch"], bench["seq"]
+    x = torch.from_numpy(np.random.RandomState(0).randn(b, s, d).astype(np.float32)
+                         ).to(device)
+    moe_e, _, eager_step = _bench_moe(device, bench)
+    moe, _, step = _bench_moe(device, bench)
+    static = jit.to_static(step)
+    t0 = time.perf_counter()
+    first = _step_outputs(static(x))
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    twins = [(first, _step_outputs(eager_step(x)))]
+    counts["bench"] = {}
+    for _ in range(2):  # the captured calls' launches alone
+        profiler.reset_kernel_launch_counts()
+        got = _step_outputs(static(x))
+        for k, v in profiler.kernel_launch_counts().items():
+            counts["bench"][k] = counts["bench"].get(k, 0) + v
+        twins.append((got, _step_outputs(eager_step(x))))
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, e) for a, e in twins) and all(
+        torch.equal(p, q) for p, q in zip(moe.parameters(), moe_e.parameters()))
+    del moe_e, eager_step
+    rates, step_ms = [], []
+    for _ in range(bench["windows"]):
+        t0 = time.perf_counter()
+        for _ in range(bench["steps"]):
+            out = static(x)
+        aux, dropf = out[1].item(), out[2].item()  # syncs the window
+        wall = time.perf_counter() - t0
+        rates.append(b * s * bench["steps"] / wall)
+        step_ms.append(wall / bench["steps"] * 1e3)
+    ein_ms, whole_ms, share, how = _einsum_share(moe, x, step)
+    traced = static.trace_count
+    per_replay = _jit_counts(counts["bench"], 2)
+    oks["bench"] = same and traced == 1 and (per_replay["adam_fused"] == 1
+                                             or not on_card)
+    log("moe", f"c bench_moe (d {d}, hidden {bench['d_hidden']}, "
+               f"{bench['experts']} experts, top-2, capacity "
+               f"{moe.gate.capacity(b * s)}, {b} x {s} tokens, float32, AdamW): 3 "
+               f"captured steps equal to an eager twin's bit for bit {same}; "
+               f"trace_count {traced}; launches per replay {_main(per_replay)}; "
+               f"first call {first_s:.3f} s; step_ms {statistics.median(step_ms):.3f} "
+               f"(windows " + " ".join(f"{t:.3f}" for t in step_ms) + "), "
+               f"moe_gshard_tokens_per_sec {statistics.median(rates):.1f}, aux_loss "
+               f"{aux:.6f}, dropped_fraction {dropf:.6f}; {how} ms of an eager "
+               f"step {whole_ms:.4f}, of the dispatch and combine einsums alone "
+               f"{ein_ms:.4f} (share {share:.3f}) -> "
+               f"{'ok' if oks['bench'] else 'FAIL'} | {smi}")
+    good, text = _routing_card_vs_cpu(device, b * s, bench["experts"])
+    rel, dropped = _bench_moe_f64(moe, x, device)
+    f64_ok = rel <= BENCH_MOE_F64_TOL
+    oks["parity"] = good and f64_ok
+    log("moe", f"c: {text} -> {'ok' if good else 'FAIL'}; MoELayer on "
+               f"{BENCH_MOE_F64_TOKENS} tokens against float64 on the CPU: "
+               f"max|diff|/max|out| {rel:.3e} (bound {BENCH_MOE_F64_TOL}; {dropped} "
+               f"assignments dropped) -> {'ok' if f64_ok else 'FAIL'}")
+    del static, step, moe, x
+    log("moe", f"paths {oks} -> {'ok' if all(oks.values()) else 'FAIL'}")
     return all(oks.values()), counts
 
 
@@ -8698,6 +9205,13 @@ def main():
         # (and fp16 with a GradScaler, a stepped schedule) under to_static
         jit_ok, jit_counts = _timed("jit", phase_jit, smi)
         _free()
+        # GPT-3 13B at full width and depth: lock-step generate and POST
+        # /generate; then the 13B-width MoE GPT's captured training step and
+        # bench_moe's
+        gpt_ok, gpt_counts = _timed("gpt", phase_gpt, smi)
+        _free()
+        moe_ok, moe_counts = _timed("moe", phase_moe, smi)
+        _free()
         # long-context training: the rotating zig-zag form at 32768 tokens
         # over R = 8, then the gathered form at 16384 over R = 4, then one
         # step's gradients against full-sequence attention
@@ -8742,7 +9256,7 @@ def main():
         "longcontext": lc_ok, "longcontext gathered": lc2_ok,
         "longcontext grads": lc_grad_ok, "fp16 serve": serve16_ok,
         "fp16 train": train16_ok, "fp16 amp": amp16_ok, "vision": vision_ok,
-        "jit": jit_ok,
+        "jit": jit_ok, "gpt": gpt_ok, "moe": moe_ok,
         "fp16 launches": not idle16,
     }
     failed = [name for name, good in results.items() if not good]
@@ -8757,13 +9271,15 @@ def main():
             *disagg_counts, *fleet_counts, *cp_counts,
             *f32_counts, train_counts, fit_counts, eval_counts, fit_bert_counts,
             amp_counts, bert_counts, *ring_counts, lc_counts, lc2_counts,
-            *vision_counts, *(jit_counts[p] for p in "abce")]
+            *vision_counts, *(jit_counts[p] for p in "abce"), gpt_counts,
+            *moe_counts.values()]
     launches = {name: sum(c.get(name, 0) for c in runs) for name in kernels}
     launches.update(launches16)
     # adam_fused at BERT's parameters: the bert phase's, the bucketed BERT
     # fit's and the jit phase's BERT steps' launches; the other entry the
-    # Llama runs' (train, fit, amp, longcontext, jit) and LeNet's (vision:
-    # eager and through Model.fit)
+    # Llama runs' (train, fit, amp, longcontext, jit), LeNet's (vision:
+    # eager and through Model.fit) and the moe phase's (the MoE GPT,
+    # bench_moe)
     launches["adam_fused_bert"] = (bert_counts["adam_fused"] + fit_bert_counts["adam_fused"]
                                    + jit_counts["b"]["adam_fused"]
                                    + jit_counts["e"]["adam_fused"])
@@ -8776,6 +9292,13 @@ def main():
     # dense phases (neither runs a paged cache)
     launches["paged_decode_fused_dense_generate"] = gen_counts["paged_decode_fused"]
     launches["paged_decode_fused_dense_pool"] = dense_counts["paged_decode_fused"]
+    # GPT-3 13B's shapes: K1 of the gpt phase's forward and the MoE GPT's
+    # captured steps, K3 of those steps, K6 and K2 of both GPTs' generate
+    gpt_runs = (gpt_counts, moe_counts["train"], moe_counts["generate"])
+    for name, base in (("flash_fwd_gpt", "flash_fwd"), ("flash_bwd_gpt", "flash_bwd"),
+                       ("dense_decode_gpt", "dense_decode"),
+                       ("paged_decode_fused_dense_gpt", "paged_decode_fused")):
+        launches[name] = sum(c.get(base, 0) for c in gpt_runs)
     # (record name, source, the Pallas kernel it replaces); a `_wgmma`,
     # `_mma` or `_walk` entry is one path of its kernel, timed at its
     # main-path shape (K1 and K3 at the training shape, the chunk windows at
@@ -8787,8 +9310,10 @@ def main():
     # form's launch for q_offset, a rotating hop for the carry and delta);
     # a `_dense_*` entry is K2 over a dense cache's page view, timed at the
     # generate phase's decode step or the dense pool's, with that phase's
-    # K2 launches; the plain entry is timed at its headline shape and counts
-    # all its kernel's launches
+    # K2 launches; a `_gpt` entry is timed at GPT-3 13B's shape on the gpt
+    # and moe phases' paths (40 heads of 128), with their launches; the
+    # plain entry is timed at its headline shape and counts all its
+    # kernel's launches
     entries = (
         ("flash_fwd", "flash_fwd.cu", 186),
         ("flash_fwd_wgmma", "flash_fwd.cu", 186),
@@ -8809,6 +9334,10 @@ def main():
         ("dense_decode", "flash_fwd.cu", 649),
         ("paged_decode_fused_dense_generate", "paged_decode.cu", 813),
         ("paged_decode_fused_dense_pool", "paged_decode.cu", 813),
+        ("flash_fwd_gpt", "flash_fwd.cu", 186),
+        ("flash_bwd_gpt", "flash_bwd.cu", 415),
+        ("dense_decode_gpt", "flash_fwd.cu", 649),
+        ("paged_decode_fused_dense_gpt", "paged_decode.cu", 813),
         ("paged_decode_fused_cp", "paged_decode.cu", 1172),
         ("paged_decode_fused_cp_walk", "paged_decode.cu", 1172),
         ("paged_decode_fused_cp_mma", "paged_decode.cu", 1172),

@@ -2,7 +2,9 @@
 
 The JAX package `paddle_tpu` stays the reference; this package serves a
 Llama (paged or dense slot-pool engine, or lock-step `generate` behind a
-`GenerationPredictor`), trains it and fine-tunes BERT (AMP O1 and O2,
+`GenerationPredictor`) and GPT (lock-step `generate`, with the GShard
+mixture of experts of `incubate.moe` on every other layer when asked),
+trains them and fine-tunes BERT (AMP O1 and O2,
 `GradScaler`, the reference's optimizers and LR schedulers) with
 hand-written Hopper kernels (`csrc/`), and runs the reference's training
 loop: `io` (datasets, samplers, `BucketSampler`, the `DataLoader` with
@@ -19,7 +21,7 @@ the caller passes device="cpu".
 
 import sys as _sys
 
-from . import amp, fault, io, jit, metric, nn, optimizer, regularizer, vision
+from . import amp, fault, incubate, io, jit, metric, nn, optimizer, regularizer, vision
 from . import hapi
 from . import hapi as callbacks
 from .framework.io import load, save
@@ -31,5 +33,5 @@ _sys.modules[__name__ + ".callbacks"] = callbacks
 
 __version__ = "0.1.0"
 
-__all__ = ["Model", "amp", "callbacks", "fault", "hapi", "io", "jit", "load", "metric",
-           "nn", "optimizer", "regularizer", "save", "to_static", "vision"]
+__all__ = ["Model", "amp", "callbacks", "fault", "hapi", "incubate", "io", "jit", "load",
+           "metric", "nn", "optimizer", "regularizer", "save", "to_static", "vision"]

@@ -2,8 +2,13 @@
 
 from .bert import (BertConfig, BertForMaskedLM, BertForQuestionAnswering,
                    BertForSequenceClassification, BertModel)
+from .gpt import (GPTConfig, GPTForCausalLM, GPTForCausalLMPipe,
+                  GPTForCausalLMSpmdPipe, GPTForPretraining, GPTModel,
+                  GPTStackedDecoder)
 from .llama import LlamaConfig, LlamaForCausalLM
 
 __all__ = ["BertConfig", "BertForMaskedLM", "BertForQuestionAnswering",
-           "BertForSequenceClassification", "BertModel", "LlamaConfig",
+           "BertForSequenceClassification", "BertModel", "GPTConfig",
+           "GPTForCausalLM", "GPTForCausalLMPipe", "GPTForCausalLMSpmdPipe",
+           "GPTForPretraining", "GPTModel", "GPTStackedDecoder", "LlamaConfig",
            "LlamaForCausalLM"]

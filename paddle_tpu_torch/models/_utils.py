@@ -1,5 +1,5 @@
 """Loss plumbing and the lock-step generation loop shared by the port's
-models (counterpart of `paddle_tpu/models/_utils.py`)."""
+causal LMs, Llama and GPT (counterpart of `paddle_tpu/models/_utils.py`)."""
 
 from __future__ import annotations
 
@@ -122,12 +122,13 @@ def _ensure_gen_state(model, b, cache_len, kv_heads):
     from .llama import StaticKVCache
 
     cfg = model.config
+    head_dim = cfg.hidden_size // cfg.num_attention_heads  # Llama's and GPT's
     key = (b, cache_len, model.lm_head.weight.dtype, model.device)
     if getattr(model, "_gen_cache_key", None) != key:
         # free the old graphs, then the buffers they read, before allocating
         model._gen_fns = model._gen_caches = model._gen_pool = None
         model._gen_caches = [
-            StaticKVCache(b, cache_len, kv_heads, cfg.head_dim,
+            StaticKVCache(b, cache_len, kv_heads, head_dim,
                           model.lm_head.weight.dtype, model.device)
             for _ in range(cfg.num_hidden_layers)
         ]

@@ -1,5 +1,6 @@
-"""Load the JAX package's model weights (Llama, BERT, LeNet, ResNet, VGG)
-and optimizer state into the port's models and optimizers."""
+"""Load the JAX package's model weights (Llama, GPT with its MoE layers,
+BERT, LeNet, ResNet, VGG) and optimizer state into the port's models and
+optimizers."""
 
 from __future__ import annotations
 
@@ -10,16 +11,18 @@ from torch import nn
 
 def load_reference_state(model, state):
     """Copy a reference `state_dict()` -- a dict of numpy arrays named like
-    `llama.layers.0.self_attn.q_proj.weight`, `bert.encoder.0.attn.q_proj.weight`
-    or `layer1.0.downsample.1._mean` -- into `model` (a port model with the
-    same names) in place, casting to each tensor's dtype and device: its
-    parameters and its persistable buffers (the batch norms' running
-    `_mean` and `_variance`).
+    `llama.layers.0.self_attn.q_proj.weight`, `gpt.h.1.mlp.experts.w1`,
+    `bert.encoder.0.attn.q_proj.weight` or `layer1.0.downsample.1._mean` --
+    into `model` (a port model with the same names) in place, casting to
+    each tensor's dtype and device: its parameters and its persistable
+    buffers (the batch norms' running `_mean` and `_variance`).
 
-    Every Linear weight is transposed: the reference stores `[in, out]`
-    (paddle_tpu/nn/common.py:16), `torch.nn.Linear` stores `[out, in]`.
-    Conv weights, embedding tables, norm weights, biases and buffers are
-    copied as they are.  Raises on a missing or unexpected name, buffers
+    Every Linear weight is transposed (GPT's fused `qkv_proj`, `out_proj`,
+    `fc1` / `fc2`, an MoE gate's `wg`, `lm_head`): the reference stores
+    `[in, out]` (paddle_tpu/nn/common.py:16), `torch.nn.Linear` stores
+    `[out, in]`.  Conv weights, embedding tables, norm weights, biases,
+    the MoE expert stacks (`experts.w1` [E, d, h], `b1`, `w2`, `b2`, the
+    same layout in both packages) and buffers are copied as they are.  Raises on a missing or unexpected name, buffers
     included, or a shape mismatch.  Returns the model."""
     linear = {
         f"{name}.weight" for name, mod in model.named_modules()

@@ -32,7 +32,6 @@ import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
-from torch.utils.checkpoint import checkpoint
 
 from ..distributed import mesh as _mesh
 from ..distributed.fleet.meta_parallel.ring_attention import (
@@ -40,6 +39,7 @@ from ..distributed.fleet.meta_parallel.ring_attention import (
     ulysses_attention,
 )
 from ..framework.core import INDEX_DTYPE, resolve_device, to_torch_dtype
+from ..incubate.recompute import recompute
 from ..nn.norm import RMSNorm
 from ..ops.flash_attention import (
     decode_attention,
@@ -548,7 +548,7 @@ class LlamaDecoderLayer(nn.Module):
     def forward(self, x, cache=None, pos=None, lora=None):
         if cache is None and self.config.use_recompute and self.training:
             # reference: llama.py:769-772 (incubate/recompute.py:47)
-            return checkpoint(self._block, x, use_reentrant=False)
+            return recompute(self._block, x)
         return self._block(x, cache, pos, lora)
 
 
