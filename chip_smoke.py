@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Twenty-four phases, and the serving, training and amp ones again in float16
+Twenty-six phases, and the serving, training and amp ones again in float16
 (below); a failure in any of them exits non-zero and prints no result.
 
 1. device  -- requires CUDA; prints the card's name and power limit.
@@ -142,12 +142,12 @@ Twenty-four phases, and the serving, training and amp ones again in float16
               Records the decode step with eight adapters co-batched
               beside the base engine's (ms, tokens/s, kernels per step),
               the arena's bytes and one upload's ms.
-12. sessions -- multi-turn KV sessions on the same model: a 20-turn
+12. sessions -- multi-turn KV sessions on the same model: a 14-turn
               conversation (a 300-token system prompt, 40 user and 32
               generated tokens a turn) through a session engine and a
               stateless one: each turn's tokens equal or a near tie, its
               first-token logits against the teacher-forced forward, >=
-              90% of turns 2-20's prompt tokens reused, 20 binds, no new
+              90% of turns 2-14's prompt tokens reused, 14 binds, no new
               trace, every chunk prefill on K2's tensor-core path; a turn
               over POST /generate with `session_id`; a warm restart keeps
               the session; a small pool evicts the idle session whole
@@ -155,7 +155,7 @@ Twenty-four phases, and the serving, training and amp ones again in float16
               engines and the pages pinned.
 13. disagg -- disaggregated prefill/decode on the same model: a
               colocated, a prefill-role and a decode-role engine, each
-              behind `serve()`.  Eight requests (prompts of 64-1024
+              behind `serve()`.  Five requests (prompts of 64-377
               tokens, two under a 300-token system prompt, so the second
               takes a prefix hit on the prefill side; 32 tokens each) go
               to the colocated server, then through the three hops by
@@ -186,7 +186,7 @@ Twenty-four phases, and the serving, training and amp ones again in float16
               `router.crash`, a `RouterStandby` takeover from the stale
               heartbeat, the completed key replayed from the journal with
               no new admission; a colocated replica and a prefill/decode
-              pair behind one router (three prompts of 64-128 tokens, bit
+              pair behind one router (two prompts of 64 and 128 tokens, bit
               for bit the colocated answers), in bf16 and over int8 pages
               (K4); a four-turn chat pinned to one replica and repinned
               when it drains, an adapter request landing on the replica
@@ -196,10 +196,10 @@ Twenty-four phases, and the serving, training and amp ones again in float16
               load (every request once, each 200 an in-process engine's
               tokens, both reaped).  K1, K2 and K4 counted; every
               in-process engine free of new traces under its traffic.
-              Records the hop on 120 rounds of one-token requests (routed
+              Records the hop on 60 rounds of one-token requests (routed
               minus direct and journaled minus bare, paired medians with
-              their quartiles), the takeover seconds over five crash ->
-              takeover cycles, spawn-to-ready over four spawns, TTFT
+              their quartiles), the takeover seconds over three crash ->
+              takeover cycles, spawn-to-ready over three spawns, TTFT
               through the router disaggregated against colocated.
 15. cp     -- the same model behind long-document engines (slots 4, the
               4096-token context): questions about one 3000-token document
@@ -284,8 +284,47 @@ Twenty-four phases, and the serving, training and amp ones again in float16
               bit; one trace, no retrace; K1, K3, adam_fused and
               unscale_fused launches per replay equal to eager's per step;
               eager and captured step ms in turns, the first call's
-              seconds, the graph pool's bytes and the peak memory.
-22. gpt    -- GPT-3 13B (`models/gpt.py`, BASELINE's fifth configuration)
+              seconds, the graph pool's bytes and the peak memory.  Then
+              (f) `static.nn.cond` and `while_loop` inside captured steps,
+              one capture each, their branches and loop bodies in the
+              graph's IF and WHILE nodes (csrc/graph_cond.cu): cond's
+              value and gradient both ways with a counter in each branch
+              (only the taken one moves), a sqrt of a negative in the
+              untaken branch (the gradient stays finite), a branch that
+              returns a captured tensor (its gradient passes), a loop
+              whose trip count is an input (5, 3, 0, 7 passes from one
+              capture), a bounded loop's gradients through a captured
+              weight; each exact.  (g) FLAGS_check_nan_inf on the Llama of
+              (d) in bf16 O2 with AdamW (K1, K3): three builds, the flag
+              off, on, off again, 3 captured steps each; losses equal bit
+              for bit, a NaN input raising FloatingPointError naming the
+              compiled step and the loss's add, the kernels per captured
+              step with the flag off again equal to before it was on; the
+              flag-on warm run's backward, an eager step and a K3 launch
+              over an allocator whose free blocks were all filled with NaN
+              raise nothing, and K3 under a NaN gradient raises naming
+              flash_bwd.
+22. export -- the inference export: (a) BERT-base sequence
+              classification (12 layers, 768 wide, 12 heads) in bf16 at 32
+              x 128 with key padding, `jit.save` with InputSpecs, then
+              `jit.load` in a fresh process that imports only the port:
+              12 `paddle_tpu_torch::flash_fwd` nodes and no inlined
+              attention in the graph, outputs equal to the live forward
+              bit for bit, exactly 12 K1 launches a run, one trace for
+              three runs, a replay equal to the program's eager run;
+              jit.load's seconds and Predictor.run's ms beside the eager
+              program; (b) `serve(prefix)`: four POST /predict equal to
+              Predictor.run bit for bit, GET /health; (c) a tiny float32
+              BERT exported on the CPU, run on the card: K1 launched,
+              outputs within K1's float32 tolerances of the CPU's; (d)
+              Llama-2-7B's widths at 2 layers, bf16, logits at 1 x 512,
+              exported on the card: equal to the live forward bit for bit,
+              2 K1 launches a run.  K1 is first held against its plain
+              version at (a)'s shape and timed there beside SDPA with the
+              equivalent mask (the `flash_fwd_export` record), and the
+              registered op's host cost per call against its body called
+              directly.
+23. gpt    -- GPT-3 13B (`models/gpt.py`, BASELINE's fifth configuration)
               at full width and depth (40 layers of 40 heads of 128,
               hidden 5120, FFN 20480, vocab 50304), bf16, seeded weights
               built on the card: the generate phase's checks on it (greedy
@@ -297,7 +336,7 @@ Twenty-four phases, and the serving, training and amp ones again in float16
               over the generated sequence, a differing token a near tie;
               prefill ms (one replay), decode ms a step (replays),
               generated tokens/s, peak memory.
-23. moe    -- the GShard mixture of experts (`incubate/moe.py`): (b)
+24. moe    -- the GShard mixture of experts (`incubate/moe.py`): (b)
               GPT-3 13B's widths at 2 layers, layer 1 an MoE of 8 experts
               (top-2, capacity factor 2.0), bf16 O2, AdamW, 2 x 2048 tokens:
               4 captured steps against 4 eager ones of a fresh build, bit
@@ -315,7 +354,7 @@ Twenty-four phases, and the serving, training and amp ones again in float16
               the profiler sees none); the routing functions on the
               card against the CPU (tied bf16 logits among them) and the
               layer against float64 on the CPU.
-24. longcontext -- long-context training through the Llama's
+25. longcontext -- long-context training through the Llama's
               `context_parallel_degree` on a sep mesh (ring attention, every
               rank on the card): Llama-2-7B's widths at 4 layers, one
               sequence of 32768 tokens over R = 8 (K/V 512 MiB a layer: the
@@ -329,7 +368,7 @@ Twenty-four phases, and the serving, training and amp ones again in float16
               form, one K1 and one K3 with q_offset per rank), 2 steps; then
               one step's gradients of 2 layers at 32768 tokens over R = 8
               against context_parallel_degree 1 (full-sequence K1/K3).
-25. vision -- the conv nets on the port's conv, pool and batch-norm
+26. vision -- the conv nets on the port's conv, pool and batch-norm
               layers (torch ops on cuDNN; no Pallas kernel of the
               reference is on this path): (a) bench_resnet50's recipe,
               ResNet-50 at batch 128 x 224 x 224, 1000 classes,
@@ -546,11 +585,11 @@ LORA_CHURN_ROUNDS = 2
 LORA_SPEC_K = 4
 # the sessions phase: a SESSION_TURNS-turn conversation after a
 # PREFIX_SYS_LEN-token system prompt, SESSION_USER user tokens and
-# SESSION_NEW generated per turn (~1.7k tokens of context by the last
+# SESSION_NEW generated per turn (~1.3k tokens of context by the last
 # turn); at least SESSION_REUSE_MIN of turns 2-N's prompt tokens come from
 # the session's pages.  The drill: a SESSION_DRILL_POOL-page pool (one
 # scratch) under SESSION_DRILL_LEN-token sessionless prompts
-SESSION_TURNS = 20
+SESSION_TURNS = 14
 SESSION_USER = 40
 SESSION_NEW = 32
 SESSION_REUSE_MIN = 0.90
@@ -570,18 +609,19 @@ SESSION_DRILL_LEN = 600
 # the first token is ~0.3)
 SESSION_TIE_REL = 0.04
 SPEC_TIE_REL = 0.04
-# the disagg phase: eight requests, each through the three hops by hand
+# the disagg phase: five requests, each through the three hops by hand
 # (POST /reserve to the decode server, /prefill to the prefill server,
 # /generate with the handoff to the decode server); a DISAGG_SYS_LEN-token
 # system prompt under two of them (the second takes a prefix hit on the
-# prefill side), prompts of 64-1024 tokens, DISAGG_NEW generated each.
-# The int8 pair serves those of DISAGG_INT8 (the hit among them; a
-# 1024-token handoff costs ~16 s of JSON on the host, PERF.md).  A
+# prefill side), prompts of 64-377 tokens (256: two whole pages),
+# DISAGG_NEW generated each.  A handoff costs ~15 ms of JSON on the host
+# per prompt token (PERF.md), so the prompts stay short.  The int8 pair
+# serves those of DISAGG_INT8 (the hit among them).  A
 # reservation of DISAGG_TTL_S seconds is left to lapse
 DISAGG_SYS_LEN = 300
-DISAGG_SPEC = (64, ("sys", 45), 1024, ("sys", 77), 200, 256, 128, 96)
+DISAGG_SPEC = (64, ("sys", 45), ("sys", 77), 256, 96)
 DISAGG_NEW = 32
-DISAGG_INT8 = (0, 1, 3)
+DISAGG_INT8 = (0, 1, 2)
 DISAGG_TTL_S = 0.2
 
 # K5's timed case: 8 slots at per-slot positions drawn from 3000-4000 of a
@@ -5572,7 +5612,7 @@ def phase_disagg(smi, model, device="cuda", spec=DISAGG_SPEC,
 # FLEET_CHAT_USER user tokens and FLEET_CHAT_NEW new ones a turn; the
 # autoscaler's stepped soak (FLEET_SOAK: a burst the first replica's slots
 # cannot absorb, then a trickle that lets the spawn drain away)
-FLEET_PAIR_SPEC = (64, 96, 128)
+FLEET_PAIR_SPEC = (64, 128)
 FLEET_PAIR_NEW = 32
 FLEET_CHAT_USER = 24
 FLEET_CHAT_NEW = 16
@@ -5581,9 +5621,9 @@ FLEET_SOAK = dict(rate_hz=4.0, duration_s=8.0, steps=((0.0, 1.0), (0.5, 8.0), (3
 FLEET_WORKER_PROMPTS = 12  # per load thread, two threads
 # the hop's timing: one-token requests on a prompt of this many tokens (a
 # warmed bucket), this many rounds of each leg pair
-FLEET_HOP = (24, 120)
+FLEET_HOP = (24, 60)
 # takeovers after the first, and spawns after the autoscaler's
-FLEET_REPEATS = (4, 3)
+FLEET_REPEATS = (2, 2)
 
 
 def _fleet_serve(engine):
@@ -8542,8 +8582,11 @@ def phase_jit(smi, device="cuda", llama=None, bert=None, resnet=None, small=None
     the warm run; (d) fp16 O2 with a dynamic GradScaler, step JIT_INF_STEP's
     gradient an inf; (e) BERT with its dropout on and a StepDecay rate
     stepped between calls.  Each path holds `steps` captured steps to as
-    many eager ones bit for bit (`_jit_path`).  Returns (ok, {path: launch
-    counts of its captured calls after the trace})."""
+    many eager ones bit for bit (`_jit_path`).  Then (f) `static.nn.cond`
+    and `while_loop` inside captured steps (`_control_flow`) and (g)
+    FLAGS_check_nan_inf on a captured step of `small`'s Llama
+    (`_nan_check`).  Returns (ok, {path: launch counts of its captured
+    calls after the trace})."""
     import numpy as np
     import torch
 
@@ -8626,10 +8669,688 @@ def phase_jit(smi, device="cuda", llama=None, bert=None, resnet=None, small=None
     oks["e"] = ok
     counts["e"] = c
     _free()
+    # (f) static control flow in captured steps: the conditional nodes
+    oks["f"], _ = _control_flow(device)
+    _free()
+    # (g) FLAGS_check_nan_inf on a captured bf16 O2 Llama step
+    oks["g"], counts["g"] = _nan_check(smi, small["cfg"], device, small["batch"],
+                                       small["seq"])
+    _free()
     total = {k: sum(c.get(k, 0) for c in counts.values()) for k in counts["a"]}
     log("jit", f"paths {oks}; launches of the captured calls {_main(total)} -> "
                f"{'ok' if all(oks.values()) else 'FAIL'}")
     return all(oks.values()), counts
+
+
+# ---------------------------------------------------------------------------
+# static control flow and the NaN check inside captured steps (jit f and g)
+# ---------------------------------------------------------------------------
+
+JIT_LOOP_TRIPS = (5, 3, 0, 7)  # the unbounded loop's trip counts, one capture
+JIT_BOUNDED_TRIPS = (3, 2, 4, 5)  # asked of while_loop(max_iters=JIT_MAX_ITERS)
+JIT_MAX_ITERS = 4
+JIT_NAN_STEPS = 3  # captured steps of each of (g)'s three builds
+
+
+def _control_flow(device="cuda"):
+    """(f) `static.nn.cond` and `while_loop` inside `jit.to_static` steps,
+    the counterparts of the reference's tests/test_jit.py:175-360.  On the
+    card each step is captured once, its branches and loop bodies in the
+    graph's conditional nodes (csrc/graph_cond.cu), and replayed for every
+    predicate value and trip count; a counter tensor in each branch and
+    loop body counts what executed.  Holds, every call against its exact
+    value: cond's output and the weight's gradient both ways, with only the
+    taken branch's counter moving; a NaN-prone untaken branch (sqrt of a
+    negative) leaving the gradient finite and the taken branch's; a branch
+    returning a captured tensor passing its gradient; an unbounded loop
+    whose trip count is an input giving x * 2^n for each n, its body run n
+    times; a bounded loop (max_iters) giving the values and gradients of a
+    captured weight and of the loop's initial value, its body run only on
+    live passes; trace_count 1 for each step.  Returns (ok, lines)."""
+    import torch
+
+    from paddle_tpu_torch import jit, static
+
+    sync = torch.cuda.synchronize if torch.device(device).type == "cuda" else (lambda: None)
+    f32 = lambda v, rg=False: torch.tensor(v, dtype=torch.float32, device=device,
+                                          requires_grad=rg)
+    counter = lambda: torch.zeros((), dtype=torch.int32, device=device)
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=device)
+    checks = []
+
+    def check(what, got, want, fn):
+        sync()
+        good = got == want and fn.trace_count == 1
+        checks.append(good)
+        log("jit f control", f"{what}: {got} against {want}, trace_count "
+                             f"{fn.trace_count} -> {'ok' if good else 'FAIL'}")
+
+    # cond both ways, a counter in each branch
+    w = f32([2.0], True)
+    hits = [counter(), counter()]
+
+    def branch(k, scale, y):
+        def run():
+            hits[k].add_(1)
+            return y * scale
+        return run
+
+    @jit.to_static
+    def both(x):
+        y = (x * w).sum()
+        out = static.nn.cond(y > 0, branch(0, 3.0, y), branch(1, 5.0, y))
+        out.backward()
+        return out
+
+    got, want, n = [], [], [0, 0]
+    for xv in (1.0, -1.0, 1.0, -1.0, -1.0):
+        out = both(f32([xv]))
+        n[xv < 0] += 1
+        got.append((out.item(), w.grad.item(), hits[0].item(), hits[1].item()))
+        want.append((6.0 if xv > 0 else -10.0, 3.0 if xv > 0 else -5.0, n[0], n[1]))
+        w.grad = None
+    check("cond (out, dw, true runs, false runs) per call", got, want, both)
+
+    # the untaken branch's gradient would be NaN
+    xn = f32([-4.0], True)
+
+    @jit.to_static
+    def sqrt_or_double(sign):
+        s = (xn * sign).sum()
+        out = static.nn.cond(s > 0, lambda: torch.sqrt(s), lambda: s * 2.0)
+        out.backward()
+        return out
+
+    got, want = [], []
+    for sign in (-1.0, 1.0, -1.0, 1.0):
+        out = sqrt_or_double(f32([sign]))
+        got.append((out.item(), xn.grad.item()))
+        want.append((2.0, -0.25) if sign < 0 else (-8.0, 2.0))
+        xn.grad = None
+    check("cond with sqrt of a negative untaken (out, dx)", got, want, sqrt_or_double)
+
+    # a branch returning a captured tensor unchanged
+    xa, ya = f32([3.0], True), f32([5.0], True)
+
+    @jit.to_static
+    def pick(sign):
+        s = (xa * sign).sum()
+        out = static.nn.cond(s > 0, lambda: xa, lambda: ya)
+        (out * 2.0).sum().backward()
+        return out
+
+    got, want = [], []
+    for sign in (1.0, -1.0, 1.0):
+        out = pick(f32([sign]))
+        taken = xa if sign > 0 else ya
+        got.append((out.item(), taken.grad.item()))
+        want.append((3.0 if sign > 0 else 5.0, 2.0))
+        xa.grad = ya.grad = None
+    check("cond returning a captured tensor (out, its grad)", got, want, pick)
+
+    # an unbounded loop, its trip count an input
+    passes = counter()
+
+    @jit.to_static
+    def doubling(x, n):
+        def body(i, a):
+            passes.add_(1)
+            return [i + 1, a * 2.0]
+
+        _, acc = static.nn.while_loop(lambda i, a: i < n, body, [counter(), x])
+        return acc
+
+    got, want, total = [], [], 0
+    for n in JIT_LOOP_TRIPS:
+        out = doubling(f32(1.0), i32(n))
+        total += n
+        got.append((out.item(), passes.item()))
+        want.append((2.0 ** n, total))
+    check("while_loop (x * 2^n, body passes so far) per trip count", got, want, doubling)
+
+    # a bounded, differentiable loop through a captured weight
+    wl, xl = f32(2.0, True), f32(3.0, True)
+    live = counter()
+
+    @jit.to_static
+    def powers(n):
+        def body(i, a):
+            live.add_(1)
+            return [i + 1, a * wl]
+
+        _, acc = static.nn.while_loop(lambda i, a: i < n, body, [counter(), xl],
+                                      max_iters=JIT_MAX_ITERS)
+        acc.backward()
+        return acc
+
+    got, want, total = [], [], 0
+    for n in JIT_BOUNDED_TRIPS:
+        out = powers(i32(n))
+        k = min(n, JIT_MAX_ITERS)
+        total += k
+        got.append((out.item(), wl.grad.item(), xl.grad.item(), live.item()))
+        want.append((3.0 * 2.0 ** k, 3.0 * k * 2.0 ** (k - 1), 2.0 ** k, total))
+        wl.grad = xl.grad = None
+    check(f"while_loop(max_iters={JIT_MAX_ITERS}) (acc, dw, dx0, live passes so far)",
+          got, want, powers)
+    return all(checks), checks
+
+
+def _jit_llama_poisoned(cfg, device, nan_fill=False):
+    """`bench_llama`'s step (bf16 O2, AdamW) with a float input added to
+    the loss: 0 for a clean step, NaN to poison one.  With `nan_fill`, a
+    hook on the loss runs `_poison_allocator` at the start of each eager
+    backward, so K3 and the backward's other kernels allocate their
+    outputs from blocks full of NaN."""
+    from paddle_tpu_torch import amp, optimizer
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+
+    model = LlamaForCausalLM(cfg, device=device, dtype="float32", seed=0).train()
+    opt = optimizer.AdamW(learning_rate=1e-4, parameters=model.named_parameters())
+    model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16")
+
+    def step(ids, poison):
+        loss, _ = model(ids, labels=ids)
+        loss = loss + poison
+        if nan_fill:
+            loss.register_hook(lambda g: _poison_allocator(device))
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    return step
+
+
+def _poison_allocator(device, large=64, small=256):
+    """Make the caching allocator's free blocks all float32 NaN (read as
+    bfloat16, NaN in every other element): the cache emptied, then `large`
+    blocks of 64 MiB and `small` of 512 KiB (the small-block pool) filled
+    and freed, past every dispatch mode (FLAGS_check_nan_inf's too: the
+    fill itself is NaN).  Nothing inside a capture, whose pool is the
+    graph's own."""
+    import torch
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    if torch.cuda.is_current_stream_capturing():
+        return
+    with _disable_current_modes():
+        torch.cuda.empty_cache()
+        blocks = [torch.full((16 << 20,), float("nan"), device=device)
+                  for _ in range(large)]
+        blocks += [torch.full((128 << 10,), float("nan"), device=device)
+                   for _ in range(small)]
+        del blocks
+
+
+def _nan_eager(built, ids, clean, cfg, device, batch, seq):
+    """(g)'s eager legs, the flag on, over an allocator full of NaN: an
+    eager training step (`built` poisons at its backward's start) and a K3
+    launch on clean inputs (their kernels' outputs allocated with
+    `empty_like` from those blocks, written by pointer) raise nothing; K3
+    under a gradient with one NaN raises naming flash_bwd.  Returns (the
+    clean legs' error or None, what the NaN gradient raised or None)."""
+    import torch
+
+    from paddle_tpu_torch.framework import core
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    core.set_flags({"FLAGS_check_nan_inf": False})
+    gen = torch.Generator(device=device).manual_seed(4)
+    q, k, v, g = (torch.randn(batch, seq, cfg.num_attention_heads, cfg.head_dim,
+                              generator=gen, device=device, dtype=torch.bfloat16)
+                  for _ in range(4))
+    out, lse = fa.flash_forward(q, k, v, causal=True)
+    bad = g.clone()
+    bad[0, 0, 0, 0] = float("nan")
+    core.set_flags({"FLAGS_check_nan_inf": True})
+    clean_err = raised = None
+    try:
+        float(built(ids, clean).detach())
+        _poison_allocator(device)
+        fa.flash_backward(q, k, v, out, lse, g, causal=True)
+    except FloatingPointError as e:
+        clean_err = str(e)
+    try:
+        fa.flash_backward(q, k, v, out, lse, bad, causal=True)
+    except FloatingPointError as e:
+        raised = str(e)
+    return clean_err, raised
+
+
+def _nan_check(smi, cfg, device="cuda", batch=JIT_SMALL_BATCH, seq=JIT_SMALL_SEQ,
+               steps=JIT_NAN_STEPS):
+    """(g) FLAGS_check_nan_inf on a captured training step (the reference's
+    tests/test_nan_check_compiled.py): Llama-2-7B's widths at 2 layers, bf16
+    O2, AdamW, so K1 and K3 run.  Three builds from one seed, each traced
+    once and run `steps` clean steps: the flag off, on, off again; on the
+    card the flag-on build's warm run does its backward over an allocator
+    full of NaN (`_poison_allocator` from a hook on the loss), so what the
+    check reads must be what operators and kernels wrote.  Holds the flag-on losses equal to the flag-off ones
+    bit for bit (the checks read, never write); a poisoned input then
+    raising FloatingPointError naming the compiled step and the operator
+    (the loss's add); on the card `_nan_eager`'s legs; the flag off after
+    use launching per captured step as many kernels as before it was ever
+    on (no mode, no extra kernel), the flag on more.  Returns (ok, launch
+    counts of the clean flag-on replays)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import jit, profiler
+    from paddle_tpu_torch.framework import core
+
+    on_card = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    rng = np.random.default_rng(3)
+    ids = torch.from_numpy(rng.integers(1, cfg.vocab_size, size=(batch, seq))
+                           .astype(np.int32)).to(device)
+    clean = torch.zeros(1, device=device)
+    poison = torch.full((1,), float("nan"), device=device)  # made before the flag is on
+    runs, eager = {}, (None, "not run")
+    for label, flag in (("off", False), ("on", True), ("off again", False)):
+        built = _jit_llama_poisoned(cfg, device, nan_fill=flag and on_card)
+        step = jit.to_static(built)
+        core.set_flags({"FLAGS_check_nan_inf": flag})
+        losses = [step(ids, clean).float() for _ in range(steps)]
+        sync()
+        profiler.reset_kernel_launch_counts()
+        if on_card:
+            _, _, _, stats = _device_profile(lambda: step(ids, clean), 2)
+            per_step = stats["kernels"] / 2
+        else:
+            step(ids, clean)
+            per_step = "not measured"
+        counts = profiler.kernel_launch_counts()
+        raised = None
+        if flag:
+            try:
+                step(ids, poison)
+                sync()
+            except FloatingPointError as e:
+                raised = str(e)
+        runs[label] = dict(losses=torch.stack(losses).reshape(-1).cpu(), kernels=per_step,
+                           traces=step.trace_count, counts=counts, raised=raised)
+        if flag and on_card:
+            eager = _nan_eager(built, ids, clean, cfg, device, batch, seq)
+        del step, built
+        _free()
+    core.set_flags({"FLAGS_check_nan_inf": False})
+    off, on, again = runs["off"], runs["on"], runs["off again"]
+    same = torch.equal(off["losses"], on["losses"]) and torch.equal(off["losses"],
+                                                                    again["losses"])
+    raised = on["raised"] or ""
+    named = "compiled step" in raised and "add" in raised
+    kernels_ok = not on_card or (again["kernels"] == off["kernels"]
+                                 and on["kernels"] > off["kernels"])
+    launches_ok = (not on_card or all(on["counts"].get(k, 0) > 0
+                                      for k in ("flash_fwd", "flash_bwd")))
+    traces_ok = all(r["traces"] == 1 for r in runs.values())
+    eager_ok = not on_card or (eager[0] is None and "'flash_bwd'" in (eager[1] or ""))
+    ok = same and named and kernels_ok and launches_ok and traces_ok and eager_ok
+    log("jit g nan", f"{steps} clean steps each, losses off "
+                     + " ".join(f"{x:.6f}" for x in off["losses"].tolist())
+                     + f": flag on equal bit for bit, flag off again too {same}; "
+                     f"poisoned input raised {raised!r}; eager over NaN-filled allocator "
+                     f"blocks: a step and K3 raised {eager[0]!r} (want None), K3 under "
+                     f"a NaN gradient raised {eager[1]!r}; kernels per captured step "
+                     f"off {off['kernels']}, on {on['kernels']}, off again "
+                     f"{again['kernels']}; launches per flag-on step "
+                     f"{_main(on['counts'])}; trace_count "
+                     f"{[r['traces'] for r in runs.values()]} -> "
+                     f"{'ok' if ok else 'FAIL'} | {smi}")
+    return ok, on["counts"]
+
+
+# ---------------------------------------------------------------------------
+# the inference export
+# ---------------------------------------------------------------------------
+
+# the export phase: BERT-base (12 layers, 768 wide, 12 heads) sequence
+# classification in bf16 at EXPORT_BATCH x EXPORT_SEQ with key padding,
+# exported with jit.save and loaded in a fresh process; EXPORT_REQUESTS
+# POST /predict; a tiny BERT exported on the CPU served on the card; and
+# Llama-2-7B's widths at EXPORT_LLAMA_LAYERS layers, logits at 1 x
+# EXPORT_LLAMA_SEQ
+EXPORT_BATCH, EXPORT_SEQ = 32, 128
+EXPORT_REQUESTS = 4
+EXPORT_TIMED = 10  # Predictor runs timed, and as many eager forwards
+EXPORT_LLAMA_LAYERS, EXPORT_LLAMA_SEQ = 2, 512
+EXPORT_DIR = ROOT / "build" / "export"  # inside the checkout, gitignored
+# aten operators that would mean attention was traced into plain math
+INLINED_ATTENTION = ("aten.einsum", "aten.bmm", "aten.baddbmm", "aten._softmax",
+                     "aten.softmax", "aten.logsumexp", "aten._scaled_dot_product")
+
+# the fresh process of (a): loads the artifact with jit.load alone, checks
+# its graph, runs it, and reports as one JSON line
+_EXPORT_CHILD = r"""
+import json, sys, time
+t0 = time.perf_counter()
+root, prefix, inputs, out_path = sys.argv[1:5]
+sys.path.insert(0, root)
+import numpy as np
+import torch
+from paddle_tpu_torch import jit
+from paddle_tpu_torch.ops import flash_attention as fa
+torch.cuda.init()
+import_s = time.perf_counter() - t0
+t0 = time.perf_counter()
+p = jit.load(prefix)
+torch.cuda.synchronize()
+load_s = time.perf_counter() - t0
+nodes = [n for n in p.program.graph.nodes if n.op == "call_function"]
+flash = sum(n.target is torch.ops.paddle_tpu_torch.flash_fwd.default for n in nodes)
+inlined = sorted({str(n.target) for n in nodes
+                  if str(n.target).startswith(tuple(json.loads(sys.argv[5])))})
+arrays = [np.load(f"{inputs}_{i}.npy") for i in range(len(p.get_input_names()))]
+first = p.run(arrays)
+fa.reset_launch_counts()
+out = p.run(arrays)
+launches = dict(fa.launch_counts)
+again = p.run(arrays)
+replayed, eager = p.compare_eager()
+times = {"predictor": [], "eager": []}
+dev = [torch.from_numpy(a).to("cuda") for a in arrays]
+for _ in range(3):
+    p.run(arrays)
+for mode in ("predictor", "eager") * 2:
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(int(sys.argv[6]) // 2):
+        if mode == "predictor":
+            p.run(arrays)
+        else:
+            with torch.no_grad():
+                p._module(*dev)
+    torch.cuda.synchronize()
+    times[mode].append((time.perf_counter() - t) / (int(sys.argv[6]) // 2) * 1e3)
+np.save(out_path, out[0])
+print(json.dumps({
+    "import_s": import_s, "load_s": load_s, "flash_nodes": flash, "inlined": inlined,
+    "launches": launches.get("flash_fwd", 0),
+    "masked": launches.get("flash_fwd_masked", 0),
+    "traces": p.trace_count,
+    "runs_equal": all(np.array_equal(a, b) for a, b in zip(first, out))
+                  and all(np.array_equal(a, b) for a, b in zip(out, again)),
+    "replay_equals_eager": all(torch.equal(a, b) for a, b in zip(replayed, eager)),
+    "predictor_ms": times["predictor"], "eager_ms": times["eager"],
+    "modules": sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "paddle_tpu")),
+}))
+"""
+
+
+def _classifier(model):
+    """A BERT sequence classifier taking (ids, mask) positionally, the
+    inputs of the exported program."""
+    import torch
+
+    class Classify(torch.nn.Module):
+        def __init__(self, model):
+            super().__init__()
+            self.model = model
+
+        def forward(self, ids, mask):
+            return self.model(ids, attention_mask=mask)
+
+    return Classify(model)
+
+
+def _padded_batch(vocab, batch, seq, seed):
+    """Token ids and a key-padding mask (row 0 full, the rest from a
+    quarter to all of `seq` tokens), as int32 arrays."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(1, vocab, size=(batch, seq)).astype(np.int32)
+    lens = rng.integers(seq // 4, seq + 1, size=batch)
+    lens[0] = seq
+    mask = (np.arange(seq)[None] < lens[:, None]).astype(np.int32)
+    return ids, mask
+
+
+def _op_dispatch_cost(smi, b, s, h, d, rounds=3):
+    """The registered op's host cost per call: K1 (bf16, unmasked) through
+    `paddle_tpu_torch::flash_fwd` (the dispatcher, as an exported program
+    calls it) against `flash_forward`, which computes through the op's body
+    directly, `rounds` rounds in turns, each the median of `time_ms`'s
+    calls (CUDA events around each call, so the host's launch is
+    included)."""
+    import torch
+
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v = (torch.randn(b, s, h, d, generator=gen, device="cuda", dtype=torch.bfloat16)
+               for _ in range(3))
+    via, direct = [], []
+    for _ in range(rounds):
+        via.append(time_ms(lambda: fa.flash_fwd_op(q, k, v, False, d ** -0.5, None, None)))
+        direct.append(time_ms(lambda: fa.flash_forward(q, k, v, causal=False)))
+    log("export", f"K1 b={b} s={s} h={h} d={d} unmasked: through the registered op "
+                  f"{statistics.median(via):.4f} ms a call, through flash_forward (the "
+                  f"op's body, directly) {statistics.median(direct):.4f} (rounds in turns: "
+                  f"{[round(x, 4) for x in via]} and {[round(x, 4) for x in direct]}) | {smi}")
+
+
+def phase_export(smi, device="cuda", bert=None, tiny=None, llama=None,
+                 requests=EXPORT_REQUESTS, timed=EXPORT_TIMED):
+    """The inference export (`jit.save`, `inference.export`, `Predictor`,
+    `jit.load`, `serve`'s /predict), each leg failing the phase:
+    (a) BERT-base sequence classification, 12 layers, bf16, batch 32 x 128
+        with key padding (so K1 runs with segment ids): the live model's
+        eager forward, then `jit.save` with InputSpecs and `jit.load` in a
+        fresh process that imports `paddle_tpu_torch` alone (no jax, no
+        paddle_tpu): its graph holds 12 `paddle_tpu_torch::flash_fwd` nodes
+        and no inlined attention, its outputs equal the live forward's bit
+        for bit, a run launches K1 exactly 12 times, a second run of the
+        signature traces nothing and a replay equals an eager run of the
+        program bit for bit; prints jit.load's seconds in the child and the
+        Predictor's ms per run (host arrays in and out) beside an eager
+        run of the program's module;
+    (b) `serve(prefix)`: EXPORT_REQUESTS POST /predict, each output equal
+        to `Predictor.run` on the same inputs bit for bit, GET /health 200;
+    (c) a tiny BERT (float32) exported on the CPU, served on the card by
+        `Predictor`: K1 launched, outputs within K1's float32 tolerances
+        of the CPU's;
+    (d) Llama-2-7B's widths at 2 layers, bf16, logits at 1 x 512: exported
+        on the card, equal to the live eager forward bit for bit, K1
+        launched twice (causal) a run.
+    On the card K1 is first held against its plain version at (a)'s shape
+    and timed there (the `flash_fwd_export` record), and the registered
+    op's host cost per call is timed (`_op_dispatch_cost`).  Returns (ok, launch
+    counts of every run of the exported programs, that record)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import inference, jit
+    from paddle_tpu_torch.models.bert import BertConfig, BertForSequenceClassification
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    no_dropout = dict(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    bert = bert or dict(cfg=BertConfig.bert_base(**no_dropout), batch=EXPORT_BATCH,
+                        seq=EXPORT_SEQ, dtype="bfloat16")
+    tiny = tiny or dict(cfg=BertConfig.tiny(**no_dropout), batch=4, seq=64)
+    llama = llama or dict(cfg=LlamaConfig.llama2_7b(num_hidden_layers=EXPORT_LLAMA_LAYERS),
+                          seq=EXPORT_LLAMA_SEQ, dtype="bfloat16")
+    on_card = torch.device(device).type == "cuda"
+    parity_matmuls()
+    shutil.rmtree(EXPORT_DIR, ignore_errors=True)
+    EXPORT_DIR.mkdir(parents=True)
+    oks, runs, record = {}, [], {}
+    if on_card:
+        # K1 at (a)'s shape, BERT's padding ids, against its plain version,
+        # timed beside SDPA with the equivalent boolean mask
+        oks["kernel"], record, _ = _masked_case(bert["batch"], bert["seq"],
+                                                bert["cfg"].num_attention_heads,
+                                                bert["cfg"].num_attention_heads,
+                                                "pad", timed=True)
+        _op_dispatch_cost(smi, bert["batch"], bert["seq"], bert["cfg"].num_attention_heads,
+                          bert["cfg"].hidden_size // bert["cfg"].num_attention_heads)
+
+    def read(run):
+        fa.reset_launch_counts()
+        out = run()
+        runs.append(dict(fa.launch_counts))
+        return out
+
+    # (a) jit.save, jit.load in a fresh process
+    cfg, layers = bert["cfg"], bert["cfg"].num_hidden_layers
+    model = _classifier(BertForSequenceClassification(cfg, device=device,
+                                                      dtype=bert["dtype"], seed=0))
+    ids, mask = _padded_batch(cfg.vocab_size, bert["batch"], bert["seq"], seed=0)
+    with torch.no_grad():
+        live = model(torch.from_numpy(ids).to(device), torch.from_numpy(mask).to(device))
+    live = live.float().cpu().numpy()
+    prefix = str(EXPORT_DIR / "bert")
+    t0 = time.perf_counter()
+    spec = [jit.InputSpec([bert["batch"], bert["seq"]], "int32")] * 2
+    jit.save(model, prefix, input_spec=spec)
+    save_s = time.perf_counter() - t0
+    for i, a in enumerate((ids, mask)):
+        np.save(f"{prefix}_in_{i}.npy", a)
+    if on_card:
+        proc = subprocess.run(
+            [sys.executable, "-c", _EXPORT_CHILD, str(ROOT), prefix, f"{prefix}_in",
+             f"{prefix}_out.npy", json.dumps(INLINED_ATTENTION), str(timed)],
+            capture_output=True, text=True, timeout=600, env=dict(os.environ))
+        if proc.returncode != 0:
+            log("export a", f"the fresh process failed (exit {proc.returncode}): "
+                            f"{proc.stderr[-3000:]} -> FAIL")
+            child = None
+        else:
+            child = json.loads(proc.stdout.strip().splitlines()[-1])
+    else:  # the CPU rehearsal: the same checks in this process
+        p = jit.load(prefix, device=device)
+        nodes = [n for n in p.program.graph.nodes if n.op == "call_function"]
+        out = p.run([ids, mask])
+        np.save(f"{prefix}_out.npy", out[0])
+        child = dict(import_s="not measured", load_s="not measured", traces=p.trace_count,
+                     launches=0, masked=0,
+                     flash_nodes=sum(n.target is torch.ops.paddle_tpu_torch.flash_fwd.default
+                                     for n in nodes),
+                     inlined=sorted({str(n.target) for n in nodes
+                                     if str(n.target).startswith(INLINED_ATTENTION)}),
+                     runs_equal=True, replay_equals_eager=True, modules=[],
+                     predictor_ms=["not measured"], eager_ms=["not measured"])
+    if child is None:
+        oks["a"] = False
+    else:
+        got = np.load(f"{prefix}_out.npy")
+        same = got.shape == live.shape and np.array_equal(got, live)
+        want = layers if on_card else 0
+        oks["a"] = (same and child["flash_nodes"] == layers and not child["inlined"]
+                    and child["launches"] == want and child["masked"] == want
+                    and child["traces"] == 1 and child["runs_equal"]
+                    and child["replay_equals_eager"] and not child["modules"])
+        med = lambda xs: statistics.median(xs) if isinstance(xs[0], float) else xs[0]
+        secs = lambda x: x if isinstance(x, str) else f"{x:.2f} s"
+        load = (f"{secs(child['load_s'])} (after {secs(child['import_s'])} to import "
+                f"torch and the port and start CUDA)")
+        log("export a", f"BERT-base {cfg.num_hidden_layers} layers {bert['dtype']} "
+                        f"{bert['batch']} x {bert['seq']} with key padding: jit.save "
+                        f"{save_s:.2f} s; in a fresh process jit.load {load}, "
+                        f"graph flash_fwd nodes {child['flash_nodes']} (want {layers}), "
+                        f"inlined attention {child['inlined'] or 'none'}, modules of jax "
+                        f"or paddle_tpu {child['modules'] or 'none'}; outputs equal to "
+                        f"the live forward bit for bit {same}; K1 launches a run "
+                        f"{child['launches']} (masked {child['masked']}, want {want}); "
+                        f"traces after three runs {child['traces']}, runs equal "
+                        f"{child['runs_equal']}, replay equal to eager "
+                        f"{child['replay_equals_eager']}; Predictor.run ms "
+                        f"{med(child['predictor_ms'])} against the program's eager "
+                        f"forward {med(child['eager_ms'])} (medians of "
+                        f"{child['predictor_ms']} and {child['eager_ms']}) -> "
+                        f"{'ok' if oks['a'] else 'FAIL'} | {smi}")
+        if on_card:
+            runs.append({"flash_fwd": child["launches"],
+                         "flash_fwd_masked": child["masked"]})
+    del model
+    _free()
+
+    # (b) serve(prefix): POST /predict against Predictor.run of the
+    # server's own Predictor (the artifact is loaded once)
+    if on_card:
+        server = inference.serve(prefix, port=0, block=False, handle_signals=False)
+        pred = server.predictor
+    else:  # serve(prefix) would load on the card
+        pred = jit.load(prefix, device=device)
+        server = inference.serve(pred, port=0, block=False, handle_signals=False)
+    try:
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+        same = []
+        for r in range(requests):
+            rid, rmask = _padded_batch(cfg.vocab_size, bert["batch"], bert["seq"],
+                                       seed=100 + r)
+            body = _post(f"{url}/predict", {"inputs": [rid.tolist(), rmask.tolist()]})
+            served = np.asarray(body["outputs"][0], np.float32)
+            direct = read(lambda: pred.run([rid, rmask]))[0]
+            same.append(served.shape == direct.shape and np.array_equal(served, direct))
+        health = _get_full(f"{url}/health")[0]
+    finally:
+        server.stop()
+    oks["b"] = all(same) and health == 200
+    log("export b", f"serve(prefix): {requests} POST /predict equal to Predictor.run "
+                    f"bit for bit {same}; GET /health {health} -> "
+                    f"{'ok' if oks['b'] else 'FAIL'}")
+    del pred, server
+    _free()
+
+    # (c) exported on the CPU, served on the card
+    tcfg = tiny["cfg"]
+    cpu_model = _classifier(BertForSequenceClassification(tcfg, device="cpu", seed=1))
+    tids, tmask = _padded_batch(tcfg.vocab_size, tiny["batch"], tiny["seq"], seed=2)
+    with torch.no_grad():
+        cpu_out = cpu_model(torch.from_numpy(tids), torch.from_numpy(tmask))
+    tprefix = str(EXPORT_DIR / "tiny_cpu")
+    inference.export(cpu_model, tprefix, [tids, tmask])
+    tpred = inference.Predictor(tprefix, device=device)
+    out = read(lambda: tpred.run([tids, tmask]))[0]
+    launched = runs[-1].get("flash_fwd", 0)
+    near = close(torch.from_numpy(out)[:, None, None], cpu_out[:, None, None])
+    err = float(np.abs(out - cpu_out.numpy()).max())
+    oks["c"] = near and (launched > 0 or not on_card)
+    log("export c", f"tiny BERT (float32, {tcfg.num_hidden_layers} layers) exported on "
+                    f"the CPU, run on {device}: K1 launches {launched}, max |card - cpu| "
+                    f"{err:.3e} (within K1's float32 tolerances {near}) -> "
+                    f"{'ok' if oks['c'] else 'FAIL'}")
+    del tpred, cpu_model
+    _free()
+
+    # (d) Llama-2-7B's widths, 2 layers, exported on the card
+    lcfg = llama["cfg"]
+    lm = LlamaForCausalLM(lcfg, device=device, dtype=llama["dtype"], seed=0).eval()
+    lids = np.random.default_rng(4).integers(1, lcfg.vocab_size, size=(1, llama["seq"])
+                                             ).astype(np.int32)
+    with torch.no_grad():
+        lt = torch.from_numpy(lids).to(device)
+        fa.reset_launch_counts()
+        llive = lm(lt).float().cpu().numpy()
+        want_launches = fa.launch_counts["flash_fwd"]
+    lprefix = str(EXPORT_DIR / "llama")
+    t0 = time.perf_counter()
+    inference.export(lm, lprefix, [lt], with_weights=False)
+    export_s = time.perf_counter() - t0
+    del lm, lt
+    _free()
+    lpred = inference.Predictor(lprefix, device=device)
+    lpred.run([lids])
+    lout = read(lambda: lpred.run([lids]))[0]
+    lsame = lout.shape == llive.shape and np.array_equal(lout, llive)
+    launched = runs[-1].get("flash_fwd", 0)
+    oks["d"] = lsame and launched == want_launches and (launched == EXPORT_LLAMA_LAYERS
+                                                        or not on_card)
+    log("export d", f"Llama-2-7B widths, {lcfg.num_hidden_layers} layers, {llama['dtype']}, "
+                    f"logits at 1 x {llama['seq']}: inference.export {export_s:.2f} s, "
+                    f"logits equal to the live forward bit for bit {lsame}, K1 launches a "
+                    f"run {launched} (eager {want_launches}) -> "
+                    f"{'ok' if oks['d'] else 'FAIL'}")
+    del lpred
+    shutil.rmtree(EXPORT_DIR, ignore_errors=True)
+    _free()
+    total = {k: sum(c.get(k, 0) for c in runs) for k in fa.launch_counts}
+    log("export", f"legs {oks}; launches of the exported programs {_main(total)} -> "
+                  f"{'ok' if all(oks.values()) else 'FAIL'}")
+    return all(oks.values()), total, record
 
 
 # ---------------------------------------------------------------------------
@@ -9116,15 +9837,13 @@ def main():
             "lora", phase_lora, smi, model, **serving)
         _free()
         # buckets up to the context: the stateless engine prefills the
-        # whole ~1.7k-token transcript of the last turns in a warmed one
+        # whole ~1.3k-token transcript of the last turns in a warmed one
         sessions_ok, sessions_counts = _timed(
             "sessions", phase_sessions, smi, model,
             **dict(serving, prefill_buckets=[32, 64, 128, 256, 512, 1024, 2047]))
         _free()
-        # a 1024 bucket: the 1024-token prompt prefills in a warmed one
-        disagg_ok, disagg_counts = _timed(
-            "disagg", phase_disagg, smi, model,
-            **dict(serving, prefill_buckets=[32, 64, 128, 256, 512, 1024]))
+        disagg_ok, disagg_counts = _timed("disagg", phase_disagg, smi, model,
+                                          **serving)
         _free()
         # the serving fleet: the router, its journal and standby, the
         # disaggregated pairs, session pins, the autoscaler, worker processes
@@ -9205,6 +9924,11 @@ def main():
         # (and fp16 with a GradScaler, a stepped schedule) under to_static
         jit_ok, jit_counts = _timed("jit", phase_jit, smi)
         _free()
+        # the inference export: BERT-base through jit.save and jit.load in a
+        # fresh process, /predict, a CPU export on the card, Llama's widths
+        export_ok, export_counts, kernels["flash_fwd_export"] = _timed(
+            "export", phase_export, smi)
+        _free()
         # GPT-3 13B at full width and depth: lock-step generate and POST
         # /generate; then the 13B-width MoE GPT's captured training step and
         # bench_moe's
@@ -9256,7 +9980,7 @@ def main():
         "longcontext": lc_ok, "longcontext gathered": lc2_ok,
         "longcontext grads": lc_grad_ok, "fp16 serve": serve16_ok,
         "fp16 train": train16_ok, "fp16 amp": amp16_ok, "vision": vision_ok,
-        "jit": jit_ok, "gpt": gpt_ok, "moe": moe_ok,
+        "jit": jit_ok, "export": export_ok, "gpt": gpt_ok, "moe": moe_ok,
         "fp16 launches": not idle16,
     }
     failed = [name for name, good in results.items() if not good]
@@ -9271,8 +9995,8 @@ def main():
             *disagg_counts, *fleet_counts, *cp_counts,
             *f32_counts, train_counts, fit_counts, eval_counts, fit_bert_counts,
             amp_counts, bert_counts, *ring_counts, lc_counts, lc2_counts,
-            *vision_counts, *(jit_counts[p] for p in "abce"), gpt_counts,
-            *moe_counts.values()]
+            *vision_counts, *(jit_counts[p] for p in "abceg"), gpt_counts,
+            *moe_counts.values(), export_counts]
     launches = {name: sum(c.get(name, 0) for c in runs) for name in kernels}
     launches.update(launches16)
     # adam_fused at BERT's parameters: the bert phase's, the bucketed BERT
@@ -9299,6 +10023,9 @@ def main():
                        ("dense_decode_gpt", "dense_decode"),
                        ("paged_decode_fused_dense_gpt", "paged_decode_fused")):
         launches[name] = sum(c.get(base, 0) for c in gpt_runs)
+    # K1 in the exported programs: the export phase's launches, timed at
+    # (a)'s shape
+    launches["flash_fwd_export"] = export_counts.get("flash_fwd", 0)
     # (record name, source, the Pallas kernel it replaces); a `_wgmma`,
     # `_mma` or `_walk` entry is one path of its kernel, timed at its
     # main-path shape (K1 and K3 at the training shape, the chunk windows at
@@ -9311,9 +10038,11 @@ def main():
     # a `_dense_*` entry is K2 over a dense cache's page view, timed at the
     # generate phase's decode step or the dense pool's, with that phase's
     # K2 launches; a `_gpt` entry is timed at GPT-3 13B's shape on the gpt
-    # and moe phases' paths (40 heads of 128), with their launches; the
-    # plain entry is timed at its headline shape and counts all its
-    # kernel's launches
+    # and moe phases' paths (40 heads of 128), with their launches;
+    # `flash_fwd_export` is K1 inside the exported programs, timed at the
+    # export phase's BERT-base shape (32 x 128, 12 heads of 64, padding
+    # ids), with that phase's launches; the plain entry is timed at its
+    # headline shape and counts all its kernel's launches
     entries = (
         ("flash_fwd", "flash_fwd.cu", 186),
         ("flash_fwd_wgmma", "flash_fwd.cu", 186),
@@ -9338,6 +10067,7 @@ def main():
         ("flash_bwd_gpt", "flash_bwd.cu", 415),
         ("dense_decode_gpt", "flash_fwd.cu", 649),
         ("paged_decode_fused_dense_gpt", "paged_decode.cu", 813),
+        ("flash_fwd_export", "flash_fwd.cu", 186),
         ("paged_decode_fused_cp", "paged_decode.cu", 1172),
         ("paged_decode_fused_cp_walk", "paged_decode.cu", 1172),
         ("paged_decode_fused_cp_mma", "paged_decode.cu", 1172),

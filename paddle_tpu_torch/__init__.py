@@ -15,13 +15,16 @@ hardened checkpoints (`distributed.checkpoint`), and trains the vision
 models (`vision`: LeNet, ResNet, VGG on the conv, pool and batch-norm
 layers of `nn`, with their transforms and datasets).  `jit.to_static`
 captures a whole training step (forward, backward, optimizer) once per
-input signature as a CUDA graph.  Entry points run on the CUDA card unless
-the caller passes device="cpu".
+input signature as a CUDA graph, with `static.nn.cond` and `while_loop`
+as conditional nodes of the graph; `jit.save` and `inference.export` export
+a Layer's program with K1 as a registered op, which `jit.load` and
+`inference.Predictor` run (and `inference.serve` serves at /predict).
+Entry points run on the CUDA card unless the caller passes device="cpu".
 """
 
 import sys as _sys
 
-from . import amp, fault, incubate, io, jit, metric, nn, optimizer, regularizer, vision
+from . import amp, fault, incubate, io, jit, metric, nn, optimizer, regularizer, static, vision
 from . import hapi
 from . import hapi as callbacks
 from .framework.io import load, save
@@ -34,4 +37,5 @@ _sys.modules[__name__ + ".callbacks"] = callbacks
 __version__ = "0.1.0"
 
 __all__ = ["Model", "amp", "callbacks", "fault", "hapi", "incubate", "io", "jit", "load",
-           "metric", "nn", "optimizer", "regularizer", "save", "to_static", "vision"]
+           "metric", "nn", "optimizer", "regularizer", "save", "static", "to_static",
+           "vision"]

@@ -152,6 +152,7 @@ def amp_cast(op, t):
 # ---------------------------------------------------------------------------
 
 _flags = {}  # set from the environment at import (FLAGS_name=value)
+_on_change = {}  # name -> what a change of the flag's value sets off
 
 
 def _parse_flag(typ, text):
@@ -160,11 +161,17 @@ def _parse_flag(typ, text):
     return typ(text)
 
 
-def define_flag(name, default, help=""):
+def define_flag(name, default, help="", on_change=None):
     """Register a flag; `help` documents it.  The environment variable of
-    the same name overrides the default."""
+    the same name overrides the default.  `on_change(value)` is called
+    whenever `set_flags` sets the flag, and here when the environment
+    set it."""
     env = os.environ.get(name)
     _flags[name] = default if env is None else _parse_flag(type(default), env)
+    if on_change is not None:
+        _on_change[name] = on_change
+        if env is not None:
+            on_change(_flags[name])
 
 
 def flag(name):
@@ -178,8 +185,24 @@ def set_flags(flags):
         if name not in _flags:
             raise KeyError(f"unknown flag {name!r}")
     _flags.update(flags)
+    for name in flags:
+        if name in _on_change:
+            _on_change[name](_flags[name])
 
 
+def _install_nan_check(on):
+    from . import nan_inf
+
+    nan_inf.install(on)
+
+
+define_flag(
+    "FLAGS_check_nan_inf", False,
+    "scan every floating operator output for NaN and Inf (framework/nan_inf.py): "
+    "eager, the operator raises FloatingPointError; inside a jit.to_static "
+    "step, the step raises after its run with the first offending operators",
+    on_change=_install_nan_check,
+)
 define_flag(
     "FLAGS_serve_slots", 4,
     "continuous-batching engine: number of slots (max concurrently decoding "

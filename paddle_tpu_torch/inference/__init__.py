@@ -1,7 +1,9 @@
-"""Serving entry points of the port (counterpart of `GenerationPredictor`
-and `serve()` in `paddle_tpu/inference/__init__.py`): the engine's and the
-predictor's `/generate`, and the engine's disaggregated hops `/reserve`
-and `/prefill`.
+"""Serving entry points of the port (counterpart of `paddle_tpu/inference/
+__init__.py`): the inference export (`export`, `Config`, `Predictor`,
+`create_predictor`, in `predictor.py`) and an exported program's
+`/predict`; `GenerationPredictor`; and `serve()`: the engine's and the
+generation predictor's `/generate`, and the engine's disaggregated hops
+`/reserve` and `/prefill`.
 """
 
 from __future__ import annotations
@@ -36,8 +38,10 @@ from .engine import (
     QueueFull,
     RequestCancelled,
 )
+from .predictor import Config, Predictor, create_predictor, export
 
-__all__ = ["serve", "ContinuousBatchingEngine", "GenerationPredictor",
+__all__ = ["serve", "export", "Config", "Predictor", "create_predictor",
+           "ContinuousBatchingEngine", "GenerationPredictor",
            "EngineRequest", "QueueFull", "ContextOverflow", "NonFiniteLogits",
            "EngineUnavailable", "DeadlineUnattainable", "DeadlineExceeded",
            "RequestCancelled", "EngineRestarted"]
@@ -101,8 +105,18 @@ class GenerationPredictor:
 
 def serve(engine, port=8866, host="127.0.0.1", block=True, supervise=True,
           handle_signals=None):
-    """Serve a ContinuousBatchingEngine or a GenerationPredictor over HTTP
-    (stdlib ThreadingHTTPServer); an engine's scheduler thread starts here.
+    """Serve a ContinuousBatchingEngine, a GenerationPredictor, or an
+    exported program (a `Predictor`, or the path prefix `export` wrote,
+    loaded on the card) over HTTP (stdlib ThreadingHTTPServer); an
+    engine's scheduler thread starts here.
+
+    - POST /predict (exported program; reference: inference/__init__.py:
+      660-682): body {"inputs": [array, ...]} -> {"outputs": [array, ...]},
+      each input cast to its traced dtype, run by `Predictor.run` one call
+      at a time; beyond FLAGS_serve_queue_depth running or waiting requests
+      the server answers 503, and a bad body or a failing run 400 with
+      "error": "Type: message".  Without an exported program, /predict
+      answers the reference's 404.
 
     - POST /generate: body {"input_ids": [...] or [[...], ...],
       "max_new_tokens": n, "temperature": t, "eos_token_id": id, "spec_k":
@@ -195,8 +209,11 @@ def serve(engine, port=8866, host="127.0.0.1", block=True, supervise=True,
     server's `stop()` shuts down the HTTP loop, the supervisor and an
     engine's scheduler, and puts the SIGTERM handler back.
     """
+    if isinstance(engine, (str, os.PathLike)):
+        engine = Predictor(os.fspath(engine))
+    exported = engine if isinstance(engine, Predictor) else None
     predictor = engine if isinstance(engine, GenerationPredictor) else None
-    if predictor is not None:
+    if predictor is not None or exported is not None:
         engine = None
     supervisor = None
     if engine is not None:
@@ -326,8 +343,11 @@ def serve(engine, port=8866, host="127.0.0.1", block=True, supervise=True,
             if engine is not None and self.path == "/prefill":
                 self._prefill_engine()
                 return
-            if self.path != "/generate":
-                self._reply(404, {"error": "use POST /generate"})
+            if self.path == "/predict" and exported is not None:
+                self._predict()
+                return
+            if self.path != "/generate" or exported is not None:
+                self._reply(404, {"error": "use POST /predict or /generate"})
                 return
             if predictor is not None:
                 self._generate_predictor()
@@ -521,6 +541,22 @@ def serve(engine, port=8866, host="127.0.0.1", block=True, supervise=True,
             except Exception as e:
                 self._error(400, e, msg=f"{type(e).__name__}: {e}")
 
+        def _predict(self):
+            if not gate.acquire(blocking=False):
+                self._error(503, RuntimeError("admission queue full, retry later"),
+                            retry_after=1.0)
+                return
+            try:
+                n = int(self.headers.get("Content-Length", 0))
+                req = json.loads(self.rfile.read(n))
+                with lock:  # one program: its callers run one at a time
+                    outs = exported.run(req["inputs"], cast=True)
+                self._reply(200, {"outputs": [o.tolist() for o in outs]})
+            except Exception as e:  # a bad body or a failing run
+                self._error(400, e, msg=f"{type(e).__name__}: {e}")
+            finally:
+                gate.release()
+
         def _generate_predictor(self):
             if not gate.acquire(blocking=False):
                 self._error(503, RuntimeError("admission queue full, retry later"),
@@ -544,7 +580,7 @@ def serve(engine, port=8866, host="127.0.0.1", block=True, supervise=True,
 
     server = ThreadingHTTPServer((host, port), Handler)
     server.engine = engine
-    server.predictor = predictor
+    server.predictor = predictor if exported is None else exported
     server.supervisor = supervisor
     prev_handler = {}
 

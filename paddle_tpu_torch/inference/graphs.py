@@ -41,11 +41,17 @@ trace in the process, of a StepGraph or of a `jit.StaticFunction`
 
 The capture core (`warm_run`, `capture`) is shared with
 `jit.StaticFunction`, which captures whole training steps the same way.
+Inside a capture, `conditional_body` puts what runs under it into the body
+of an IF or WHILE node of the graph (`static.nn.cond`, `while_loop`).
 
 A failed capture raises; there is no eager fallback on CUDA.
 """
 
 from __future__ import annotations
+
+import contextlib
+import ctypes
+import weakref
 
 import numpy as np
 import torch
@@ -53,6 +59,13 @@ import torch
 from ..ops import flash_attention as _fa
 
 trace_total = 0  # StepGraph and StaticFunction traces in this process
+
+# the captures in progress, by the handle of each stream that captures
+# into them (the capture's own stream, and a conditional body's while it is
+# captured) -> _Capture: what `conditional_body` finds from the current
+# stream, on the capturing thread and on autograd's device thread, which
+# runs a captured step's backward on the stream of its forward
+_captures = {}
 
 
 def note_trace():
@@ -120,16 +133,117 @@ def capture(body, device, pool=None, generators=(), counters=()):
         graph.register_generator_state(gen)
     before = [dict(c) for c in counters]
     dispatches = dict(_fa.pallas_calls)
+    index = torch.device(device).index
+    rec = _Capture(torch.cuda.current_device() if index is None else index)
+    key = None
     try:
         with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
+            key = torch.cuda.current_stream().cuda_stream
+            _captures[key] = rec
             outs = body()
     finally:
+        _captures.pop(key, None)
+        rec.close(graph)
         delta = [count_delta(c, b) for c, b in zip(counters, before)]
         for c, b in zip(counters, before):
             set_counts(c, b)
         _fa.pallas_calls.update(dispatches)
     grew = max(0, torch.cuda.memory_reserved(device) - reserved)
     return graph, outs, delta, grew
+
+
+class _Capture:
+    """What the conditional bodies of one capture share: the side streams
+    their bodies are captured on (one per nesting depth, the same for a
+    forward branch and its backward, so autograd never joins two streams
+    inside a body) and the memory pool their allocations come from.  The
+    graph's own pool takes only the capturing stream's allocations, so a
+    body's go to a pool of its own, routed by thread while the body runs
+    and kept alive as long as the graph (`close`)."""
+
+    def __init__(self, index):
+        self.index = index
+        self.depth = 0
+        self.streams = []
+        self.pool = None
+
+    def stream(self):
+        while len(self.streams) <= self.depth:
+            self.streams.append(torch.cuda.Stream(self.index))
+        return self.streams[self.depth]
+
+    def route(self):
+        """Route this thread's allocations to the bodies' pool (created with
+        a use held for the graph at the first body); returns the undo."""
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+            torch._C._cuda_beginAllocateCurrentThreadToPool(self.index, self.pool)
+            torch._C._cuda_endAllocateToPool(self.index, self.pool)
+        torch._C._cuda_beginAllocateCurrentThreadToPool(self.index, self.pool)
+
+        def undo():
+            torch._C._cuda_endAllocateToPool(self.index, self.pool)
+            torch._C._cuda_releasePool(self.index, self.pool)
+
+        return undo
+
+    def close(self, graph):
+        if self.pool is not None:
+            weakref.finalize(graph, torch._C._cuda_releasePool, self.index, self.pool)
+
+
+def _flag(pred, device):
+    """pred as a one-byte device flag (nonzero: true)."""
+    if not isinstance(pred, torch.Tensor) or pred.device != device or pred.numel() != 1:
+        raise ValueError(
+            f"a conditional node's predicate must be a one-element tensor on "
+            f"{device}, got {pred if not isinstance(pred, torch.Tensor) else pred.shape}")
+    if pred.dtype not in (torch.bool, torch.uint8):
+        pred = pred != 0
+    return pred.reshape(1).contiguous()
+
+
+@contextlib.contextmanager
+def conditional_body(pred, negate=False, loop=False):
+    """Inside a capture (`capture`), capture the block into the body of a
+    conditional node at the current stream's position: an IF node
+    (`loop=False`), whose body runs at a replay when the device flag `pred`
+    (a one-element tensor; `negate` flips it) is true, or a WHILE node
+    (`loop=True`), whose body runs while it is true.  The block runs with a
+    side stream current, whose captured work is the body; for a WHILE node
+    it yields a callable `next(flag)` that the body calls last, with the
+    device flag of the next pass.  No work of the block executes here: a
+    capture launches nothing.  Raises outside a capture."""
+    from ..ops._build import check, lib
+
+    cur = torch.cuda.current_stream()
+    rec = _captures.get(cur.cuda_stream)
+    if rec is None or not torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("a conditional node is made only inside a CUDA graph "
+                           "capture (`inference.graphs.capture`)")
+    flag = _flag(pred, cur.device)
+    child = rec.stream()
+    handle = ctypes.c_ulonglong()
+    check(lib().ptt_cond_begin(cur.cuda_stream, child.cuda_stream, flag.data_ptr(),
+                               int(bool(negate)), int(bool(loop)), ctypes.byref(handle)),
+          "conditional node")
+    rec.depth += 1
+    _captures[child.cuda_stream] = rec
+    undo = rec.route()
+
+    def next_pass(new):
+        new = _flag(new, cur.device)
+        check(lib().ptt_cond_set(handle.value, new.data_ptr(), 0, child.cuda_stream),
+              "conditional node flag")
+
+    try:
+        with torch.cuda.stream(child):
+            yield next_pass if loop else None
+    finally:
+        undo()
+        rec.depth -= 1
+        del _captures[child.cuda_stream]
+        check(lib().ptt_cond_end(child.cuda_stream), "conditional node body")
 
 
 class _Entry:

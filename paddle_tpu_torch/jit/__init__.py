@@ -49,19 +49,31 @@ same keys, discovery, refreshers, stale checks, `trace_count` and errors.
 Inside a trace a host read raises as in the reference: `Tensor.numpy()`,
 `item()` and `tolist()` RuntimeError (`paddle_tpu/tensor.py:186-192`), a
 tensor used as a Python bool, int or float the TypeError that names
-`paddle.static.nn.cond` (`tensor.py:337-349`).  `trace_count` and
+`paddle.static.nn.cond` (`tensor.py:337-349`), which branches on the
+device inside a captured step.  `trace_count` and
 `inference.graphs.trace_total` (`/metrics`' `paddle_sanitizer_traces_
 total`) count every trace.
 
-`jit.save` / `jit.load` (the StableHLO export, reference :602-675),
-`warmup(<dir>)`, `clear_cache(persistent=True)` and `lowered_text` raise
-NotImplementedError naming the ROADMAP.md item that ports them.
+With `FLAGS_check_nan_inf` on (a part of the signature), a call records
+every floating operator output's all-finite flag on the device (a capture
+into one buffer its graph writes at every replay) and raises
+FloatingPointError after the run, with the first operators that failed
+(`framework/nan_inf.py`; reference :491-510).
+
+`jit.save` exports a Layer, or the function of a bound StaticFunction,
+through `inference.export` when given an `input_spec` (else it saves the
+weights), and `jit.load` returns an `inference.Predictor` for an exported
+program (reference :602-675).  `warmup(<dir>)` and
+`clear_cache(persistent=True)` raise NotImplementedError naming the
+ROADMAP.md item that ports them; `lowered_text` has no counterpart.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import inspect
+import logging
 import os
 import weakref
 
@@ -71,11 +83,10 @@ from torch.overrides import TorchFunctionMode
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from ..framework import core as _core
+from ..framework import nan_inf as _nan
 from ..ops import flash_attention as _fa
 from ..ops import optim as _optim
 
-_EXPORT = ("is not ported yet (ROADMAP.md Queue 1, item 8: the StableHLO "
-           "export goes with the Predictor export)")
 _SNAPSHOTS = ("is not ported yet (ROADMAP.md Queue 1, item 13f: the AOT snapshot tier, "
               "paddle_tpu/jit/cache.py)")
 
@@ -290,9 +301,9 @@ class _Entry:
     one replay; the state and gradient bindings its stale check holds."""
 
     __slots__ = ("inputs", "template", "template_out", "graph", "outputs", "delta",
-                 "state", "grads", "scalers")
+                 "state", "grads", "scalers", "nan_check", "nan")
 
-    def __init__(self, inputs, template):
+    def __init__(self, inputs, template, nan_check=False):
         self.inputs = inputs
         self.template = template
         self.template_out = None
@@ -302,6 +313,8 @@ class _Entry:
         self.state = []
         self.grads = []
         self.scalers = []
+        self.nan_check = nan_check  # FLAGS_check_nan_inf at the trace
+        self.nan = ([], None)  # a capture's op names and their flags' buffer
 
     def stale(self):
         """Whether a tensor the step reads or writes was rebound since the
@@ -334,10 +347,14 @@ class StaticFunction:
     def __call__(self, *args, **kwargs):
         if _core.active_static_call() is not None:
             return self._fn(*args, **kwargs)  # nested to_static: inline (:480)
-        entry, flat, traced = self._prepare(args, kwargs, snapshot=False)
-        if traced is not _NOT_TRACED:
-            return traced  # the trace's warm run was this call
-        return self._replay(entry, flat)
+        with _nan.paused():
+            entry, flat, traced = self._prepare(args, kwargs, snapshot=False)
+            if traced is not _NOT_TRACED:
+                result, flags = traced  # the trace's warm run was this call
+            else:
+                result, flags = self._replay(entry, flat)
+        _nan.raise_if_bad(*flags)
+        return result
 
     def warmup(self, *args, **kwargs):
         """Trace this signature without moving any state (reference :439):
@@ -347,7 +364,8 @@ class StaticFunction:
         signature already traced is left as it is."""
         if _core.active_static_call() is not None:
             raise RuntimeError("jit warmup inside a to_static step")
-        self._prepare(args, kwargs, snapshot=True)
+        with _nan.paused():
+            self._prepare(args, kwargs, snapshot=True)
         return self
 
     def _prepare(self, args, kwargs, snapshot):
@@ -357,7 +375,8 @@ class StaticFunction:
         _run_refreshers()
         flat = []
         template = _flatten((args, kwargs), flat)
-        key = _signature((args, tuple(sorted(kwargs.items(), key=lambda kv: kv[0]))))
+        key = (_signature((args, tuple(sorted(kwargs.items(), key=lambda kv: kv[0])))),
+               bool(_core.flag("FLAGS_check_nan_inf")))
         entry = self._cache.get(key)
         if entry is not None and not entry.stale():
             return entry, flat, _NOT_TRACED
@@ -377,7 +396,7 @@ class StaticFunction:
         from ..inference import graphs as _graphs
 
         inputs = [t.detach().clone() for t in flat]
-        entry = _Entry(inputs, template)
+        entry = _Entry(inputs, template, nan_check=key[1])
 
         def body():
             a, k = _rebuild(template, inputs)
@@ -393,10 +412,11 @@ class StaticFunction:
         before = [dict(c) for c in _counters()]
         old = _core.set_active_static_call(call)
         try:
-            with view:
+            with self._checking(entry) as sink, view:
                 out = _graphs.warm_run(body, side) if side is not None else body()
         finally:
             _core.set_active_static_call(old)
+        flags = _nan.stack_flags(sink)
         result = self._copy_out(out)
         del out  # the warm run's autograd graph goes before the capture
         device = device or self._card((), view.state.values())
@@ -417,7 +437,14 @@ class StaticFunction:
             self._close_cycles(entry)
         if device is not None:
             torch.cuda.synchronize(device)
-        return entry, result
+        return entry, (result, flags)
+
+    @staticmethod
+    def _checking(entry):
+        """The run's NaN/Inf record when the entry checks, else None."""
+        if entry.nan_check:
+            return _nan.recording()
+        return contextlib.nullcontext()
 
     def _capture(self, entry, body, view, call, device):
         """The capture of a traced step on the card, after its warm run."""
@@ -437,11 +464,17 @@ class StaticFunction:
             self._pool = _graphs.new_pool(device)
         seen = _View(entry.inputs)
         cap = _Call()
+
+        def checked():
+            with self._checking(entry) as sink:
+                out = body()
+            return out, _nan.stack_flags(sink)
+
         old = _core.set_active_static_call(cap)
         try:
             with seen:
-                graph, outs, delta, grew = _graphs.capture(
-                    body, device, self._pool, gens, _counters())
+                graph, (outs, entry.nan), delta, grew = _graphs.capture(
+                    checked, device, self._pool, gens, _counters())
         finally:
             _core.set_active_static_call(old)
         flat_out = []
@@ -458,6 +491,10 @@ class StaticFunction:
             w = warm.get(key)
             if w is not None and post is not None and post is not w:
                 post.copy_(w)  # the warm run's gradients, in the graph's
+            elif key not in view.grads and pre is None:
+                # only the capture reached it (a cond's other branch): the
+                # call leaves it unbound, as its warm run did
+                p.grad = None
             entry.grads.append((p, pre, post))
 
     def _replay(self, entry, flat):
@@ -474,14 +511,16 @@ class StaticFunction:
                 if p.grad is not post:
                     p.grad = post
             result = self._copy_out(_rebuild(entry.template_out, entry.outputs))
+            flags = entry.nan
         else:
             snap = [dict(c) for c in counters]
             dispatches = dict(_fa.pallas_calls)
             old = _core.set_active_static_call(_Call())
             try:
-                with _View((), record=False):
+                with self._checking(entry) as sink, _View((), record=False):
                     a, k = _rebuild(entry.template, entry.inputs)
                     out = self._fn(*a, **k)
+                flags = _nan.stack_flags(sink)
             finally:
                 _core.set_active_static_call(old)
                 for c, s, d in zip(counters, snap, entry.delta):
@@ -490,7 +529,7 @@ class StaticFunction:
                 _fa.pallas_calls.update(dispatches)
             result = self._copy_out(out)
         self._close_cycles(entry)
-        return result
+        return result, flags
 
     @staticmethod
     def _copy_out(out):
@@ -547,8 +586,9 @@ class StaticFunction:
 
     def lowered_text(self, *args, **kwargs):
         raise NotImplementedError(
-            "lowered_text (the optimized HLO of the step) has no CUDA-graph "
-            f"counterpart and {_EXPORT}")
+            "lowered_text (the optimized HLO of the step) has no counterpart: a "
+            "captured step is a CUDA graph of kernel launches, with no compiler "
+            "IR to print; `jit.save` exports the program of a Layer instead")
 
     @property
     def code(self):
@@ -596,8 +636,9 @@ def not_to_static(fn):
 
 
 class InputSpec:
-    """Shape/dtype spec (reference: paddle.static.InputSpec), accepted for
-    API compatibility; tracing specializes on concrete shapes."""
+    """Shape/dtype spec (reference: paddle.static.InputSpec): the example
+    inputs of `jit.save`'s export; `to_static` ignores it and specializes
+    on the arguments of each call."""
 
     def __init__(self, shape, dtype="float32", name=None, stop_gradient=False):
         self.shape = shape
@@ -606,12 +647,71 @@ class InputSpec:
         self.stop_gradient = stop_gradient
 
 
+def _owner(layer):
+    """The Layer whose weights `save` writes: the layer itself, or the
+    module a StaticFunction's function is bound to (None if neither)."""
+    if isinstance(layer, torch.nn.Module):
+        return layer
+    if isinstance(layer, StaticFunction):
+        target = getattr(layer._fn, "__self__", None)
+        if isinstance(target, torch.nn.Module):
+            return target
+    return None
+
+
 def save(layer, path, input_spec=None, **configs):
-    raise NotImplementedError(f"jit.save {_EXPORT}")
+    """paddle.jit.save (reference :602).  With `input_spec` ([InputSpec]),
+    the program of a Layer's forward -- or of a bound StaticFunction's own
+    function, with the owning Layer's weights -- is exported at those
+    shapes and dtypes through `inference.export` (<path>.pt2 with
+    <path>.pdiparams), loadable by `jit.load` and `inference.Predictor`.
+    A dynamic dim (None or -1) is pinned to 1, with a warning: the program
+    is shape-specialized.  The example inputs are zeros on the weights'
+    device.  Without a spec only the weights are saved, to <path>.pdparams,
+    with a warning.  Anything else raises TypeError."""
+    from ..framework import io as _io
+
+    target = _owner(layer)
+    if input_spec:
+        from ..inference import export
+
+        if any(d is None or d == -1 for spec in input_spec for d in spec.shape):
+            logging.getLogger("paddle_tpu_torch").warning(
+                "jit.save: dynamic dims (None/-1) in input_spec are pinned to 1 — "
+                "the exported program is shape-specialized; export one spec per "
+                "shape bucket you serve")
+        if target is None:
+            raise TypeError("jit.save expects a Layer (or a bound StaticFunction)")
+        param = next(iter(target.parameters()), None)
+        device = param.device if param is not None else _core.resolve_device(None)
+        example = [torch.zeros([1 if d is None or d == -1 else int(d) for d in spec.shape],
+                               dtype=_core.to_torch_dtype(spec.dtype), device=device)
+                   for spec in input_spec]
+        if isinstance(layer, StaticFunction):
+            export(layer._fn, path, example, params_from=target)
+        else:
+            export(layer, path, example)
+        return
+    if target is None:
+        raise TypeError("jit.save expects a Layer")
+    logging.getLogger("paddle_tpu_torch").warning(
+        "jit.save: no input_spec given — saving weights only; pass "
+        "input_spec=[InputSpec(shape, dtype)] to also export the program, or "
+        "use paddle_tpu_torch.inference.export")
+    _io.save(target.state_dict(), path + ".pdparams")
 
 
 def load(path, **configs):
-    raise NotImplementedError(f"jit.load {_EXPORT}")
+    """paddle.jit.load (reference :664): an exported program (<path>.pt2)
+    loads as an `inference.Predictor` (on `device=`, the card unless
+    given); a weights-only save loads as its state dict."""
+    if os.path.exists(path + ".pt2"):
+        from ..inference import Predictor
+
+        return Predictor(path, device=configs.get("device"))
+    from ..framework import io as _io
+
+    return _io.load(path + ".pdparams")
 
 
 def enable_to_static(flag=True):

@@ -78,6 +78,12 @@ SIGNATURES = {
     "ptt_adam_multi": ([_P, _P, _I, _I, _I, _P] + [_F] * 5 + [_P, _P], _I),
     # tensors, chunks, n_chunks, chunk_size, scale, found_inf, stream
     "ptt_unscale_multi": ([_P, _P, _I, _I, _P, _P, _P], _I),
+    # stream, child, pred, negate, loop, handle_out
+    "ptt_cond_begin": ([_P, _P, _P, _I, _I, _P], _I),
+    # handle, pred, negate, stream
+    "ptt_cond_set": ([_P, _P, _I, _P], _I),
+    # child
+    "ptt_cond_end": ([_P], _I),
     "ptt_error_string": ([_I], ctypes.c_char_p),
 }
 

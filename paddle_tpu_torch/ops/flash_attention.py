@@ -36,6 +36,11 @@ training paths:
   split combine; per shard, the partials feed `cp_softmax_combine`, the
   form the merge takes across cards.
 
+K1's non-ring form is a registered op of torch's dispatcher,
+`paddle_tpu_torch::flash_fwd` (`flash_fwd_op`): `torch.export` keeps it as
+one node, so a program exported by `inference.export` or `jit.save` runs
+the kernel where it is loaded on the card.
+
 Each kernel has a plain PyTorch version here.  A wrapper takes the plain
 version only for a tensor on the CPU (the tests); for a CUDA tensor it
 launches the kernel or raises.  `launch_counts` counts kernel launches, so a
@@ -72,9 +77,11 @@ launches count under `*_offset`, `flash_fwd_carry` and `flash_bwd_delta`.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
+from ..framework import nan_inf as _nan
 from ..framework.core import INDEX_DTYPE
 
 NEG_INF = -1e30  # the reference's mask value (flash_attention.py:36)
@@ -427,8 +434,11 @@ def flash_forward(q, k, v, causal=True, scale=None, segments=None, kbias=None,
     of q at its own absolute position, key j at j (without it row i is at
     i; a causal call with lk != s passes it); `carry=(out_prev, lse_prev)`
     merges this call's keys onto a partial result; `out_dtype=
-    torch.float32` keeps the output in float32.  Returns (out [b, s, h, d],
-    lse [b, h, s] float32)."""
+    torch.float32` keeps the output in float32.  The form without ring
+    operands and with keys as long as the queries is traced (`torch.export`)
+    as the registered op `flash_fwd_op`, so an exported program keeps it;
+    computed, it runs the op's body directly, without the dispatcher's host
+    cost per call.  Returns (out [b, s, h, d], lse [b, h, s] float32)."""
     _check_flash(q, k, v)
     _check_masking(q, k, segments, kbias, "flash_fwd")
     _check_ring(q, q_offset, carry, out_dtype, "flash_fwd")
@@ -437,6 +447,9 @@ def flash_forward(q, k, v, causal=True, scale=None, segments=None, kbias=None,
              "flash_fwd: segments and kbias do not combine with the ring operands")
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
+    if q_offset is None and carry is None and out_dtype is None and k.shape[1] == q.shape[1]:
+        fn = flash_fwd_op if _traced(q) else _flash_fwd
+        return fn(q, k, v, bool(causal), float(scale), segments, kbias)
     if not _on_cuda((q, k, v), "flash_fwd"):
         return flash_forward_plain(q, k, v, causal, scale, segments, kbias,
                                    q_offset, carry, out_dtype)
@@ -448,18 +461,6 @@ def flash_forward(q, k, v, causal=True, scale=None, segments=None, kbias=None,
     lk = k.shape[1]
     path = flash_path(s, d, q.dtype)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    if q_offset is None and carry is None and out_dtype is None and lk == s:
-        segments, kbias = _contiguous_or_none(segments), _contiguous_or_none(kbias)
-        out = torch.empty_like(q)
-        code = lib().ptt_flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), b, s, h, k.shape[2], d, int(bool(causal)),
-            float(scale), _dtype_code(q, "flash_fwd"), _FLASH_PATHS[path],
-            _ptr(segments), _ptr(kbias), _stream(q),
-        )
-        check(code, f"flash_fwd ({path})")
-        _count_flash("flash_fwd", path, segments, kbias)
-        return out, lse
     out = torch.empty_like(q, dtype=out_dtype or q.dtype)
     bq = 0 if q_offset is None else _offset_block(q_offset, s)
     if carry is not None:
@@ -473,7 +474,64 @@ def flash_forward(q, k, v, causal=True, scale=None, segments=None, kbias=None,
     )
     check(code, f"flash_fwd ring ({path})")
     _count_flash("flash_fwd", path, None, None, q_offset, carry)
+    _nan.check_written("flash_fwd", (out, lse))
     return out, lse
+
+
+def _traced(t):
+    """Whether `t` is a value being traced (`torch.export`, a compiler)
+    rather than computed."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    return isinstance(t, FakeTensor) or torch.compiler.is_compiling()
+
+
+@torch.library.custom_op("paddle_tpu_torch::flash_fwd", mutates_args=())
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                 scale: float, segments: Optional[torch.Tensor],
+                 kbias: Optional[torch.Tensor]) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1's non-ring form as a registered op, `paddle_tpu_torch::flash_fwd`:
+    (out [b, s, h, d] in q's dtype, lse [b, h, s] float32) of q against k, v
+    of q's length, with the optional segment ids and key bias, inputs
+    checked by `flash_forward`.  Being an op of torch's dispatcher, it stays
+    one node of a `torch.export` program (`inference.export`, `jit.save`),
+    where plain tensor code would be traced into the einsums of its plain
+    version; a program loaded on the card then launches the kernel.  Its
+    body is `_flash_fwd`."""
+    return _flash_fwd(q, k, v, causal, scale, segments, kbias)
+
+
+def _flash_fwd(q, k, v, causal, scale, segments, kbias):
+    """`flash_fwd_op`'s body: a CPU tensor runs `flash_forward_plain`; a
+    CUDA tensor launches the kernel (counted in `launch_counts`, its
+    outputs handed to FLAGS_check_nan_inf's check) or raises."""
+    if not _on_cuda((q, k, v), "flash_fwd"):
+        return flash_forward_plain(q, k, v, causal, scale, segments, kbias)
+    _require(q.is_contiguous() and k.is_contiguous() and v.is_contiguous(),
+             "flash_fwd: q, k, v must be contiguous")
+    from ._build import check, lib
+
+    b, s, h, d = q.shape
+    path = flash_path(s, d, q.dtype)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    segments, kbias = _contiguous_or_none(segments), _contiguous_or_none(kbias)
+    out = torch.empty_like(q)
+    code = lib().ptt_flash_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), b, s, h, k.shape[2], d, int(causal), scale,
+        _dtype_code(q, "flash_fwd"), _FLASH_PATHS[path], _ptr(segments),
+        _ptr(kbias), _stream(q),
+    )
+    check(code, f"flash_fwd ({path})")
+    _count_flash("flash_fwd", path, segments, kbias)
+    _nan.check_written("flash_fwd", (out, lse))
+    return out, lse
+
+
+@flash_fwd_op.register_fake
+def _flash_fwd_fake(q, k, v, causal, scale, segments, kbias):
+    b, s, h, _ = q.shape
+    return q.new_empty(q.shape), q.new_empty((b, h, s), dtype=torch.float32)
 
 
 def _contiguous_or_none(t):
@@ -598,6 +656,7 @@ def flash_backward(q, k, v, out, lse, g, causal=True, scale=None,
         )
         check(code, f"flash_bwd ring ({path})")
         _count_flash("flash_bwd", path, None, None, q_offset, delta)
+        _nan.check_written("flash_bwd", (dq, dk, dv))
         return dq, dk, dv
     segments, kbias = _contiguous_or_none(segments), _contiguous_or_none(kbias)
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
@@ -610,6 +669,7 @@ def flash_backward(q, k, v, out, lse, g, causal=True, scale=None,
     )
     check(code, f"flash_bwd ({path})")
     _count_flash("flash_bwd", path, segments, kbias)
+    _nan.check_written("flash_bwd", (dq, dk, dv))
     return dq, dk, dv
 
 
@@ -921,6 +981,7 @@ def dense_decode(q, k, v, pos, scale=None):
     _dispatched(what)
     if path == "wgmma":
         launch_counts[what + "_wgmma"] += 1
+    _nan.check_written(what, (out,))
     return out
 
 
@@ -1052,14 +1113,16 @@ def paged_decode_q8_plain(q, arena_k, arena_v, k_scale, v_scale, tables, pos,
     return _paged_attention(q, k, v, pos, max_len, scale)
 
 
-def _count(code, what, path):
-    """Raise on a failed paged launch, else count it (and its path)."""
+def _count(code, what, path, *outs):
+    """Raise on a failed paged launch, else count it (and its path) and hand
+    what it wrote, `outs`, to FLAGS_check_nan_inf's check."""
     from ._build import check
 
     check(code, f"{what} ({path})")
     _dispatched(what)
     if path != "fma":
         launch_counts[f"{what}_{path}"] += 1
+    _nan.check_written(what, outs)
 
 
 def _paged_workspace(q, hk, splits, cp=1):
@@ -1104,7 +1167,7 @@ def paged_decode_fused(q, arena_k, arena_v, tables, pos, max_len, scale=None):
         sq, h, hk, d, ps, P, int(max_len), float(scale), _dtype_code(q, what),
         _stream(q),
     )
-    _count(code, what, path)
+    _count(code, what, path, out)
     return out
 
 
@@ -1143,7 +1206,7 @@ def paged_decode_fused_q8(q, arena_k, arena_v, k_scale, v_scale, tables, pos,
         splits, _PAGED_PATHS[path], b, sq, h, hk, d, ps, P, int(max_len),
         float(scale), _dtype_code(q, what), _stream(q),
     )
-    _count(code, what, path)
+    _count(code, what, path, out)
     return out
 
 
@@ -1279,7 +1342,7 @@ def paged_decode_partials(q, arena_k, arena_v, tables, page_base, pos,
           else lib().ptt_paged_decode_partials)
     code = fn(*ptrs, splits, _PAGED_PATHS[path], b, sq, h, hk, d, ps, P,
               int(max_len), float(scale), _dtype_code(q, what), _stream(q))
-    _count(code, what, path)
+    _count(code, what, path, acc, m, l)
     return acc, m, l
 
 
@@ -1362,7 +1425,7 @@ def paged_decode_cp(q, arena_k, arena_v, tables, pos, max_len, cp, scale=None,
     fn = lib().ptt_paged_decode_cp_q8 if quant else lib().ptt_paged_decode_cp
     code = fn(*ptrs, cp, per_shard, splits, _PAGED_PATHS[path], b, sq, h, hk, d,
               ps, P, int(max_len), float(scale), _dtype_code(q, what), _stream(q))
-    _count(code, what, path)
+    _count(code, what, path, out)
     return out
 
 

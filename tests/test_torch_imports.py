@@ -152,7 +152,7 @@ def test_training_loop_imports_neither_jax_nor_the_reference():
 
 def test_kernel_build_targets_hopper_and_needs_nvcc(monkeypatch):
     assert [p.name for p in _build.sources()] == [
-        "flash_bwd.cu", "flash_fwd.cu", "optim.cu", "paged_decode.cu"]
+        "flash_bwd.cu", "flash_fwd.cu", "graph_cond.cu", "optim.cu", "paged_decode.cu"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert _build.BUILD_DIR.relative_to(ROOT) == pathlib.Path("build/paddle_tpu_torch")
     import torch.utils.cpp_extension as cpp
