@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Twenty-six phases, and the serving, training and amp ones again in float16
+Twenty-seven phases, and the serving, training and amp ones again in float16
 (below); a failure in any of them exits non-zero and prints no result.
 
 1. device  -- requires CUDA; prints the card's name and power limit.
@@ -201,7 +201,22 @@ Twenty-six phases, and the serving, training and amp ones again in float16
               their quartiles), the takeover seconds over three crash ->
               takeover cycles, spawn-to-ready over three spawns, TTFT
               through the router disaggregated against colocated.
-15. cp     -- the same model behind long-document engines (slots 4, the
+15. tp     -- tensor-parallel serving of the same model with every rank on
+              the card, named explicitly (`devices=["cuda"] * tp`), the tp
+              models' weights views of the loaded ones (`tp_twin`), prefix
+              cache off: the slice's six requests at tp 1, 2 and 4 (tp 4
+              over POST /generate): tokens equal to tp 1's or parting at a
+              near tie, K1 once per rank per layer per prefill and K2 once
+              per rank per layer per decode step (tp x 32 a step), no other
+              kernel, no retrace, prefill and decode replays equal to eager;
+              a warm restart at tp 4 (same tokens, same arenas, no trace);
+              int8 pages at tp 4 against int8 at tp 1 (K4 per rank); the
+              dense pool at tp 4 on two requests; a float32 Llama of 2
+              layers at full width, tp 4 against tp 1, tokens identical.
+              Prints decode ms and kernels per step at tp 1, 2 and 4, the
+              rank reduces' share of a tp-4 step and K2/K4 launches per
+              step.  On one card tp 4 is a parity gate, not a speed figure.
+16. cp     -- the same model behind long-document engines (slots 4, the
               4096-token context): questions about one 3000-token document
               share its pages through the prefix cache, beside two fresh
               prompts, over HTTP; at cp=1, then cp=2 (the page audit every
@@ -213,7 +228,7 @@ Twenty-six phases, and the serving, training and amp ones again in float16
               logits against the teacher-forced forward; prints the greedy
               agreement between runs, speculation counters, decode
               tokens/s and TTFT, and a profiled cp=2 decode step.
-16. train  -- trains Llama-2-7B's widths at 8 layers (bf16 AMP O2, AdamW with
+17. train  -- trains Llama-2-7B's widths at 8 layers (bf16 AMP O2, AdamW with
               float32 master weights) for 6 steps on one repeated batch of
               4 x 2048 tokens: finite and falling losses, K1 (on its wgmma
               path) and K3 launched once per layer per step, adam_fused
@@ -221,7 +236,7 @@ Twenty-six phases, and the serving, training and amp ones again in float16
               tokens/s, peak memory and a profiled step with AdamW's span.
               Then 2 steps of 2 layers with activation recompute (K1 twice
               per layer per step).
-17. fit    -- the training loop through the entry points a user calls
+18. fit    -- the training loop through the entry points a user calls
               (`paddle_tpu_torch.Model`, `io.DataLoader`): the train
               phase's model (8 layers, bf16 O2, AdamW) through `Model.fit`
               over 32 seeded sequences of 2048 tokens, batch 4, shuffled
@@ -245,10 +260,10 @@ Twenty-six phases, and the serving, training and amp ones again in float16
               three batch shapes, masked K1 and K3 every step, no
               fallback; examples/s beside the bert phase's padded figure.
               No worker process is left after any of them.
-18. grads  -- one step's gradients of a 2-layer model at the same widths
+19. grads  -- one step's gradients of a 2-layer model at the same widths
               with the kernels against the same step with attention through
               the plain forward under autograd.
-19. amp    -- the reference's O1 recipe on Llama-2-7B's widths at 2 layers,
+20. amp    -- the reference's O1 recipe on Llama-2-7B's widths at 2 layers,
               float32 parameters, batch 2 x 2048: auto_cast O1 bf16, a
               dynamic GradScaler, LinearWarmup into CosineAnnealingDecay,
               ClipGradByGlobalNorm(1.0) and AdamW for 6 steps, step 4's
@@ -259,7 +274,7 @@ Twenty-six phases, and the serving, training and amp ones again in float16
               adam_fused and unscale_fused once per step.  Then SGD,
               Momentum, Adagrad, RMSProp, Adamax and Lamb two steps each:
               finite, every weight moved, step ms.
-20. bert   -- bench_bert's BERT-base SQuAD fine-tuning (bf16 O2, AdamW at
+21. bert   -- bench_bert's BERT-base SQuAD fine-tuning (bf16 O2, AdamW at
               3e-5, dropout 0) for 6 steps on one batch of 32 x 384 tokens
               padded from lengths 192-384: finite and falling losses, K1 and
               K3 launched once per layer per step on their wgmma paths with
@@ -269,7 +284,7 @@ Twenty-six phases, and the serving, training and amp ones again in float16
               as a key-padding attn_mask (K1's key bias) against segment ids
               on the valid rows; then a 2-layer model's gradients with the
               kernels against attention through the plain forward.
-21. jit    -- the bench legs' training steps as bench.py writes them, under
+22. jit    -- the bench legs' training steps as bench.py writes them, under
               `jit.to_static` (each captured once as a CUDA graph): (a)
               bench_llama's, Llama-2-7B's widths at 8 layers, 4 x 2048,
               bf16 O2, AdamW; (b) bench_bert's, BERT-base 32 x 384 padded,
@@ -304,7 +319,7 @@ Twenty-six phases, and the serving, training and amp ones again in float16
               over an allocator whose free blocks were all filled with NaN
               raise nothing, and K3 under a NaN gradient raises naming
               flash_bwd.
-22. export -- the inference export: (a) BERT-base sequence
+23. export -- the inference export: (a) BERT-base sequence
               classification (12 layers, 768 wide, 12 heads) in bf16 at 32
               x 128 with key padding, `jit.save` with InputSpecs, then
               `jit.load` in a fresh process that imports only the port:
@@ -324,7 +339,7 @@ Twenty-six phases, and the serving, training and amp ones again in float16
               equivalent mask (the `flash_fwd_export` record), and the
               registered op's host cost per call against its body called
               directly.
-23. gpt    -- GPT-3 13B (`models/gpt.py`, BASELINE's fifth configuration)
+24. gpt    -- GPT-3 13B (`models/gpt.py`, BASELINE's fifth configuration)
               at full width and depth (40 layers of 40 heads of 128,
               hidden 5120, FFN 20480, vocab 50304), bf16, seeded weights
               built on the card: the generate phase's checks on it (greedy
@@ -336,7 +351,7 @@ Twenty-six phases, and the serving, training and amp ones again in float16
               over the generated sequence, a differing token a near tie;
               prefill ms (one replay), decode ms a step (replays),
               generated tokens/s, peak memory.
-24. moe    -- the GShard mixture of experts (`incubate/moe.py`): (b)
+25. moe    -- the GShard mixture of experts (`incubate/moe.py`): (b)
               GPT-3 13B's widths at 2 layers, layer 1 an MoE of 8 experts
               (top-2, capacity factor 2.0), bf16 O2, AdamW, 2 x 2048 tokens:
               4 captured steps against 4 eager ones of a fresh build, bit
@@ -354,7 +369,7 @@ Twenty-six phases, and the serving, training and amp ones again in float16
               the profiler sees none); the routing functions on the
               card against the CPU (tied bf16 logits among them) and the
               layer against float64 on the CPU.
-25. longcontext -- long-context training through the Llama's
+26. longcontext -- long-context training through the Llama's
               `context_parallel_degree` on a sep mesh (ring attention, every
               rank on the card): Llama-2-7B's widths at 4 layers, one
               sequence of 32768 tokens over R = 8 (K/V 512 MiB a layer: the
@@ -368,7 +383,7 @@ Twenty-six phases, and the serving, training and amp ones again in float16
               form, one K1 and one K3 with q_offset per rank), 2 steps; then
               one step's gradients of 2 layers at 32768 tokens over R = 8
               against context_parallel_degree 1 (full-sequence K1/K3).
-26. vision -- the conv nets on the port's conv, pool and batch-norm
+27. vision -- the conv nets on the port's conv, pool and batch-norm
               layers (torch ops on cuDNN; no Pallas kernel of the
               reference is on this path): (a) bench_resnet50's recipe,
               ResNet-50 at batch 128 x 224 x 224, 1000 classes,
@@ -414,7 +429,7 @@ The float16 phases (their log lines read "[fp16 <phase>]"):
 The record's `_f16` entries count the launches of these runs.
 
 Every serving phase (slice, prefix, dense, fault, obs, lora, sessions,
-disagg, fleet, cp, cp_f32) runs on the
+disagg, fleet, tp, cp, cp_f32) runs on the
 engine's CUDA graphs: it prints `compile_counts()` after warmup and again
 after its traffic and fails if they differ (0 new traces under traffic;
 the fleet checks each in-process replica's engine so).  Each but the fleet,
@@ -609,6 +624,19 @@ SESSION_DRILL_LEN = 600
 # the first token is ~0.3)
 SESSION_TIE_REL = 0.04
 SPEC_TIE_REL = 0.04
+# the tp phase: tp 2 and 4 (every rank on the one card) against tp 1 on the
+# slice's traffic; the dense pool on its first TP_DENSE_PROMPTS requests; a
+# float32 Llama of TP_F32_LAYERS layers at full width, tokens identical.
+# TP_TIE_REL has SESSION_TIE_REL's form and rule: twice the largest D
+# measured on the card before it was set, rounded up (the phase prints D
+# every run: 0.0151-0.0187 over the six requests at tp 2, tp 4 and tp 4
+# over int8 pages; NVIDIA H100 80GB HBM3, 700 W).  The row-parallel reduce
+# sums the ranks' bf16 partials in float32 where tp 1's GEMM rounds one
+# product, which moves logits as a reordered bf16 sum does
+TP_DEGREES = (2, 4)
+TP_DENSE_PROMPTS = 2
+TP_F32_LAYERS = 2
+TP_TIE_REL = 0.04
 # the disagg phase: five requests, each through the three hops by hand
 # (POST /reserve to the decode server, /prefill to the prefill server,
 # /generate with the handoff to the decode server); a DISAGG_SYS_LEN-token
@@ -1035,6 +1063,70 @@ def _k2_case(b, sq, h, hk, pos, d=128, ps=128, max_len=2048, seed=1,
                    f"{lib_txt}, bound_ms {bms:.5f} ({by}) -> {'ok' if ok else 'FAIL'}")
     return ok, dict(max_abs_err=err, ms=ms, device_ms=dev, plain_ms=plain_ms,
                     bound_ms=bms, bound_by=by, library_ms=lib_ms)
+
+
+def _k2_tp_case(b, sq, h, hk, pos, tp=4, d=128, ps=128, max_len=2048, seed=70,
+                dtype="bfloat16", quant=False):
+    """K2 per head shard (`paged_decode_tp`; with `quant`, K4's
+    `paged_decode_q8_tp` over int8 pages): a decode step's q heads and arena
+    split over `tp` ranks on the card, each rank's output against the plain
+    version on its shard (`paged_decode_plain`, `paged_decode_q8_plain`).
+    Times one shard's launch (kernel, device and plain ms; bound per shard
+    in bytes) and the call over every rank; no PyTorch call reads pages."""
+    import torch
+
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    q, ak, av, scales, tables, pos_t = _paged_inputs(
+        b, sq, h, hk, pos, d, ps, max_len, seed, dtype, quant, False)
+    split = lambda t: [c.contiguous() for c in t.chunk(tp, dim=2)]  # noqa: E731
+    qs, ks, vs = split(q), split(ak), split(av)
+    sc = [split(s) for s in scales]
+    name = "paged_decode_tp_q8" if quant else "paged_decode_tp"
+    if quant:
+        call = lambda: fa.paged_decode_q8_tp(qs, ks, vs, *sc, tables, pos_t, max_len)  # noqa: E731
+        one = lambda: fa.paged_decode_fused_q8(qs[0], ks[0], vs[0], sc[0][0], sc[1][0],  # noqa: E731
+                                               tables, pos_t, max_len)
+        plain = lambda r: fa.paged_decode_q8_plain(  # noqa: E731
+            qs[r], ks[r], vs[r], sc[0][r], sc[1][r], tables, pos_t, max_len, d ** -0.5)
+    else:
+        call = lambda: fa.paged_decode_tp(qs, ks, vs, tables, pos_t, max_len)  # noqa: E731
+        one = lambda: fa.paged_decode_fused(qs[0], ks[0], vs[0], tables, pos_t,  # noqa: E731
+                                            max_len)
+        plain = lambda r: fa.paged_decode_plain(  # noqa: E731
+            qs[r], ks[r], vs[r], tables, pos_t, max_len, d ** -0.5)
+    before = fa.launch_counts[name]
+    outs = call()
+    torch.cuda.synchronize()
+    launched = fa.launch_counts[name] - before
+    ok, err = launched == tp, 0.0
+    for r, out in enumerate(outs):
+        ref = plain(r)
+        err = max(err, (out.float() - ref.float()).abs().max().item())
+        ok &= close(out, ref)
+    hr, kr = h // tp, hk // tp
+    shape = (f"{name} {dtype} b={b} sq={sq} h={h} hk={hk} over tp={tp} ranks "
+             f"({hr} q heads, {kr} kv heads each) d={d} ps={ps} pos={pos}: "
+             f"{launched} launches, max_abs_err {err:.3e}")
+    ms = time_ms(one)
+    dev, parts = device_ms(one)
+    plain_ms = time_ms(lambda: plain(0))
+    all_ms = time_ms(call)
+    # one shard's bytes: its live K/V rows of its kv heads (and their
+    # float32 scales under int8), its q and out blocks, tables and pos
+    live = [min(p + sq, max_len) for p in pos]
+    row_bytes = d + 4 if quant else d * ak.element_size()
+    nbytes = (sum(live) * kr * row_bytes * 2 + 2 * qs[0].numel() * q.element_size()
+              + tables.numel() * 4 + b * 4)
+    visible = sum(min(p + w + 1, max_len) for p in pos for w in range(sq))
+    bms, by = bound(nbytes, 4 * d * hr * visible)
+    log("kernels", f"{shape}; one shard: kernel_ms {ms:.4f}, device_ms "
+                   f"{_dev_txt(dev)} ({_parts_txt(parts)}), plain_ms {plain_ms:.4f}, "
+                   f"library_ms null (no PyTorch call reads pages), bound_ms "
+                   f"{bms:.5f} ({by}); all {tp} shards {all_ms:.4f} ms -> "
+                   f"{'ok' if ok else 'FAIL'}")
+    return ok, dict(max_abs_err=err, ms=ms, device_ms=dev, plain_ms=plain_ms,
+                    bound_ms=bms, bound_by=by, library_ms=None, all_shards_ms=all_ms)
 
 
 def _k3_case(b, s, h, hk, d=128, seed=6, dtype="bfloat16", causal=True,
@@ -2451,6 +2543,11 @@ def phase_kernels():
                library=True)
     k4c = case(_k2_case, errs4c, b=1, sq=256, h=32, hk=32, pos=[300], seed=12,
                quant=True)
+    # K2 and K4 per head shard: the tp phase's decode step (tp 4, 8 of the
+    # 32 heads and 8 kv heads per rank), each rank against its plain version
+    k2tp = case(_k2_tp_case, None, b=8, sq=1, h=32, hk=32, pos=decode_pos, tp=4)
+    k4tp = case(_k2_tp_case, None, b=8, sq=1, h=32, hk=32, pos=decode_pos, tp=4,
+                quant=True, seed=71)
     for quant, (ew, ec, ef) in ((False, (errs2w, errs2c, errs2)),
                                 (True, (errs4w, errs4c, errs4))):
         for kw in WALK_CASES:
@@ -2556,6 +2653,8 @@ def phase_kernels():
             "paged_decode_fused_q8": worst(k4, errs4),
             "paged_decode_fused_q8_walk": worst(k4w, errs4w),
             "paged_decode_fused_q8_mma": worst(k4c, errs4c),
+            "paged_decode_tp": k2tp,
+            "paged_decode_tp_q8": k4tp,
             "flash_bwd": worst(k3, errs3),
             "flash_bwd_wgmma": worst(k3w, errs3),
             "flash_fwd_masked": worst(k1m, errs1m),
@@ -6277,6 +6376,347 @@ def phase_fleet(smi, model, device="cuda", prompts_spec=SLICE_PROMPTS,
     return ok, [counts]
 
 
+# ---------------------------------------------------------------------------
+# tensor-parallel serving
+# ---------------------------------------------------------------------------
+
+
+def tp_twin(model, tp):
+    """A tensor-parallel Llama (`tensor_parallel_degree` tp) over `model`'s
+    own weights: built at the same config and dtype, then its parameters
+    replaced by `model`'s tensors (`load_state_dict(assign=True)`), so the
+    two share every weight and the ranks' blocks are views of them."""
+    import dataclasses
+
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+
+    cfg = dataclasses.replace(model.config, tensor_parallel_degree=tp)
+    twin = LlamaForCausalLM(cfg, device=model.device,
+                            dtype=model.lm_head.weight.dtype, seed=0)
+    twin.load_state_dict(model.state_dict(), assign=True)
+    return twin
+
+
+def _tp_engine(model, tp, device, **kw):
+    """A warmed paged (or dense) engine at degree tp over `model` (a twin
+    at tp > 1), every rank on `device`, named explicitly; prefix cache
+    off, so tokens compare across engines (the parity rule)."""
+    from paddle_tpu_torch.inference.engine import ContinuousBatchingEngine
+
+    extra = dict(tp=tp, devices=[device] * tp) if tp > 1 else {}
+    engine = ContinuousBatchingEngine(model, seed=0, device=device,
+                                      prefix_cache=False, **extra, **kw)
+    engine.warmup()
+    return engine
+
+
+def _tp_run(engine, prompts, news, logits=False):
+    """The requests submitted together, served to the end; (generated
+    tokens per request, kept logits per request or None)."""
+    import numpy as np
+
+    reqs = [engine.submit(p, max_new_tokens=n, keep_logits=logits)
+            for p, n in zip(prompts, news)]
+    engine.run_until_idle()
+    outs = [np.asarray(r.wait(1)[p.size:], np.int32) for r, p in zip(reqs, prompts)]
+    return outs, [r.logits if logits else None for r in reqs]
+
+
+def _tp_parity(phase, base, base_logits, got, got_logits=None, tie_rel=None):
+    """Tokens of a tp run against the tp-1 run's: equal, or, with
+    `tie_rel`, parting first where tp 1's top-2 logit gap is at most
+    tie_rel x max|logit| (a near tie; None: no tie allowed).  With
+    `got_logits`, prints D: max|diff| / max|logit| of the two runs' logits
+    over the positions both reached with the same tokens.  Returns (ok,
+    requests equal bit for bit, the printed divergences)."""
+    import torch
+
+    ok, same, notes, diffs = True, 0, [], []
+    for i, (b, g) in enumerate(zip(base, got)):
+        at = _first_divergence(g, b)
+        if got_logits is not None:
+            n = b.size if at is None else at + 1
+            diffs.append(_rel_diff(torch.stack(got_logits[i][:n]),
+                                   torch.stack(base_logits[i][:n])))
+        if at is None:
+            same += 1
+            continue
+        gap, top = _row_gap(base_logits[i][at])
+        tie = tie_rel is not None and gap <= tie_rel * top
+        ok &= tie
+        notes.append(f"request {i} at {at}: top-2 gap {gap:.4f}, gap/max|logit| "
+                     f"{gap / top:.3e} {'near tie' if tie else 'FAIL'}")
+    if diffs:
+        log(phase, f"logits against tp 1's, max|diff|/max|logit| per request: "
+                   f"{', '.join(f'{d:.3e}' for d in diffs)}; max {max(diffs):.3e}")
+    return ok, same, notes
+
+
+def _tp_counts_ok(phase, counts, want, on_card):
+    """The run's launch counts against `want` (every other kernel 0); on
+    the CPU every count is 0."""
+    expect = dict.fromkeys(counts, 0)
+    if on_card:
+        expect.update(want)
+    ok = counts == expect
+    log(phase, f"launches {_main(counts)} (expected {_main(expect)}) -> "
+               f"{'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def _reduce_ms(engine, cfg):
+    """Milliseconds of one decode step's rank reduces and lm_head gather
+    alone, at the step's shapes (slots x hidden partials of every rank,
+    two reduces per layer, then the vocabulary gather), replayed as one
+    CUDA graph: CUDA-event median of 20 replays."""
+    import torch
+
+    mesh, S = engine._mesh, engine.slots
+    dt = engine.model.lm_head.weight.dtype
+    dev = engine.device
+    parts = [torch.randn(S, 1, cfg.hidden_size, device=dev, dtype=dt)
+             for _ in range(mesh.mp)]
+    blocks = [torch.randn(S, cfg.vocab_size // mesh.mp, device=dev, dtype=dt)
+              for _ in range(mesh.mp)]
+
+    def body():
+        for _ in range(2 * cfg.num_hidden_layers):
+            mesh.reduce(parts)
+        mesh.all_gather(blocks)
+
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        body()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        body()
+    return time_ms(g.replay)
+
+
+def phase_tp(smi, model, device="cuda", prompts_spec=SLICE_PROMPTS,
+             degrees=TP_DEGREES, dense_prompts=TP_DENSE_PROMPTS,
+             f32_layers=TP_F32_LAYERS, **engine_kw):
+    """Tensor-parallel serving of `model` (the slice's Llama-2-7B, bf16, full
+    width and depth) with every rank on the one card, named explicitly
+    (`devices=[device] * tp`); the tp models are `tp_twin`s over the loaded
+    weights.  Prefix cache off (tokens compare across engines).  Checks:
+    at tp 1, then each degree of `degrees`, the slice's requests (at the
+    last degree through POST /generate, the others submitted directly):
+    tokens equal to tp 1's or parting at a near tie (TP_TIE_REL), K1 once
+    per rank per layer per prefill, K2 once per rank per layer per decode
+    step (the `paged_decode_tp` count too: tp x layers a step), no other
+    kernel, no retrace, a prefill and a decode replay equal to eager bit
+    for bit; a warm restart at the last degree gives the same tokens and
+    traces nothing.  Then int8 pages at the last degree against int8 at
+    tp 1 (K4 per rank); the dense pool at the last degree against tp 1's
+    on `dense_prompts` requests (K2 per rank over its caches' page views);
+    and a float32 Llama of `f32_layers` layers at full width, tp 1 against
+    the last degree, tokens identical.  Prints decode ms a step and kernels
+    per step at each degree (a profiled step), the reduce's share of the
+    step, and K2/K4 launches per step.  Returns (all passed, the launch
+    counts of every run)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.distributed import mesh as tmesh
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+
+    cfg = model.config
+    layers = cfg.num_hidden_layers
+    on_card = torch.device(device).type == "cuda"
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32)
+               for n, _ in prompts_spec]
+    news = [new for _, new in prompts_spec]
+    ok_all, all_counts, steps_ms = True, [], {}
+    saved_mesh = tmesh.get_mesh()
+
+    def check(phase, good, what):
+        nonlocal ok_all
+        ok_all &= bool(good)
+        log(phase, f"{what} -> {'ok' if good else 'FAIL'}")
+
+    try:
+        # -- tp 1: the tokens every degree is held to ------------------------
+        t0 = time.perf_counter()
+        base_eng = _tp_engine(model, 1, device, **engine_kw)
+        base, base_lg = _tp_run(base_eng, prompts, news, logits=True)
+        prof = profile_decode(base_eng, cfg, rng) if on_card else None
+        steps_ms[1] = prof
+        del base_eng
+        _free()
+        log("tp 1", f"engine built, warmed and served in {time.perf_counter() - t0:.1f} s")
+        last = degrees[-1]
+        for tp in degrees:
+            phase = f"tp {tp}"
+            t0 = time.perf_counter()
+            twin = tp_twin(model, tp)
+            engine = _tp_engine(twin, tp, device, **engine_kw)
+            warm = _warm_counts(phase, engine)
+            health = engine.healthz()
+            check(phase, health["tp"] == tp and health["mesh_shape"] == {"mp": tp},
+                  f"/healthz tp {health['tp']}, mesh_shape {health['mesh_shape']}, "
+                  f"devices {[str(d) for d in engine._mesh.devices]}")
+            # -- the main path: the slice's requests -------------------------
+            profiler.reset_kernel_launch_counts()
+            profiler.reset_serving()
+            if tp == last:
+                results, wall = _serve_batches(
+                    engine, [[(p, n) for p, n in zip(prompts, news)]])
+                got = [np.asarray(r["tokens"][p.size:], np.int32)
+                       for r, p in zip(results, prompts)]
+            else:
+                t1 = time.perf_counter()
+                got, _ = _tp_run(engine, prompts, news)
+                wall = time.perf_counter() - t1
+            counts = profiler.kernel_launch_counts()
+            summary = profiler.serving_summary()
+            all_counts.append(counts)
+            steps = summary["decode_steps"]
+            ok_all &= _no_retrace(phase, engine, warm)
+            ok_all &= _tp_counts_ok(phase, counts, {
+                "flash_fwd": tp * len(prompts) * layers,
+                "flash_fwd_wgmma": counts["flash_fwd_wgmma"] if on_card else 0,
+                "paged_decode_fused": tp * layers * steps,
+                "paged_decode_fused_walk": tp * layers * steps,
+                "paged_decode_tp": tp * layers * steps}, on_card)
+            log(phase, f"K2 launches per decode step {counts['paged_decode_tp'] / max(1, steps):.1f} "
+                       f"(tp x layers = {tp * layers}) over {steps} steps; served "
+                       f"{len(prompts)} requests in {wall:.3f} s"
+                       f"{' over POST /generate' if tp == last else ''}")
+            # the same traffic again with logits kept: D and the tie rule
+            again, lg = _tp_run(engine, prompts, news, logits=True)
+            good, same, notes = _tp_parity(phase, base, base_lg, got, lg, TP_TIE_REL)
+            check(phase, good and all(np.array_equal(a, b) for a, b in zip(got, again)),
+                  f"tokens against tp 1's: {same}/{len(prompts)} requests equal bit "
+                  f"for bit; {notes or 'no divergence'} (TP_TIE_REL {TP_TIE_REL}); "
+                  f"the run with kept logits repeats the first")
+            ok_all &= check_replay(phase, engine, [prompts[0]], want=("prefill", "decode"))
+            if on_card:
+                steps_ms[tp] = profile_decode(engine, cfg, rng)
+            if tp == last:
+                # -- a warm restart keeps the rank arenas and the graphs -------
+                ptrs = [[a.k.data_ptr() for a in ranks] for ranks in engine._arenas]
+                engine.restart(reason="tp-drill")
+                after, _ = _tp_run(engine, prompts[:1], news[:1])
+                check(phase, np.array_equal(after[0], got[0])
+                      and engine.compile_counts() == warm
+                      and [[a.k.data_ptr() for a in r] for r in engine._arenas] == ptrs,
+                      f"warm restart: request 0's tokens equal before and after, "
+                      f"compile_counts {engine.compile_counts()}, the same arenas")
+                if on_card:
+                    red = _reduce_ms(engine, cfg)
+                    wall_ms = steps_ms[tp]["wall_ms"] if steps_ms[tp] else float("nan")
+                    log(phase, f"the reduce alone at the step's shapes ({2 * layers} "
+                               f"rank reduces of {engine.slots} x {cfg.hidden_size} "
+                               f"and the lm_head gather, one CUDA graph): "
+                               f"{red:.4f} ms, {red / wall_ms:.3f} of the profiled "
+                               f"decode step's {wall_ms:.3f} ms | {smi}")
+            del engine, twin
+            _free()
+            log(phase, f"degree done in {time.perf_counter() - t0:.1f} s")
+        parts = [f"tp {tp}: {p['wall_ms']:.3f} ms/step, {p['kernels_per_step']:.0f} "
+                 f"kernels/step" for tp, p in steps_ms.items() if p]
+        log("tp", f"decode step (8 slots at ~256 tokens) {'; '.join(parts) or 'not measured'} "
+                  f"| {smi}")
+
+        # -- int8 pages: K4 per rank ----------------------------------------
+        phase = f"tp {last} int8"
+        q1 = _tp_engine(model, 1, device, kv_quant="int8", **engine_kw)
+        base8, base8_lg = _tp_run(q1, prompts, news, logits=True)
+        del q1
+        _free()
+        twin = tp_twin(model, last)
+        engine = _tp_engine(twin, last, device, kv_quant="int8", **engine_kw)
+        warm = _warm_counts(phase, engine)
+        profiler.reset_kernel_launch_counts()
+        profiler.reset_serving()
+        got8, lg8 = _tp_run(engine, prompts, news, logits=True)
+        counts = profiler.kernel_launch_counts()
+        steps = profiler.serving_summary()["decode_steps"]
+        all_counts.append(counts)
+        ok_all &= _no_retrace(phase, engine, warm)
+        ok_all &= _tp_counts_ok(phase, counts, {
+            "flash_fwd": last * len(prompts) * layers,
+            "flash_fwd_wgmma": counts["flash_fwd_wgmma"] if on_card else 0,
+            "paged_decode_fused_q8": last * layers * steps,
+            "paged_decode_fused_q8_walk": last * layers * steps,
+            "paged_decode_tp_q8": last * layers * steps}, on_card)
+        good, same, notes = _tp_parity(phase, base8, base8_lg, got8, lg8, TP_TIE_REL)
+        check(phase, good, f"tokens against int8 tp 1's: {same}/{len(prompts)} equal "
+                           f"bit for bit; {notes or 'no divergence'}; K4 launches per "
+                           f"step {counts['paged_decode_tp_q8'] / max(1, steps):.1f}")
+        ok_all &= check_replay(phase, engine, [prompts[0]], want=("prefill", "decode"))
+        del engine, twin
+        _free()
+
+        # -- the dense slot pool --------------------------------------------
+        phase = f"tp {last} dense"
+        dp, dn = prompts[:dense_prompts], news[:dense_prompts]
+        d1 = _tp_engine(model, 1, device, paged=False, **engine_kw)
+        based, based_lg = _tp_run(d1, dp, dn, logits=True)
+        del d1
+        _free()
+        twin = tp_twin(model, last)
+        engine = _tp_engine(twin, last, device, paged=False, **engine_kw)
+        warm = _warm_counts(phase, engine)
+        profiler.reset_kernel_launch_counts()
+        profiler.reset_serving()
+        gotd, _ = _tp_run(engine, dp, dn)
+        counts = profiler.kernel_launch_counts()
+        steps = profiler.serving_summary()["decode_steps"]
+        all_counts.append(counts)
+        ok_all &= _no_retrace(phase, engine, warm)
+        ok_all &= _tp_counts_ok(phase, counts, {
+            "flash_fwd": last * len(dp) * layers,
+            "flash_fwd_wgmma": counts["flash_fwd_wgmma"] if on_card else 0,
+            "paged_decode_fused": last * layers * steps,
+            "paged_decode_fused_walk": last * layers * steps}, on_card)
+        good, same, notes = _tp_parity(phase, based, based_lg, gotd, None, TP_TIE_REL)
+        check(phase, good, f"tokens against the tp 1 dense pool's: {same}/{len(dp)} "
+                           f"equal bit for bit; {notes or 'no divergence'}")
+        ok_all &= check_replay(phase, engine, [prompts[0]], want=("prefill", "decode"))
+        del engine, twin
+        _free()
+
+        # -- float32 at full width, f32_layers layers: identical tokens -------
+        phase = f"tp {last} float32"
+        tmesh.set_mesh(saved_mesh)  # a plain Llama: no 'mp' mesh installed
+        f32 = LlamaForCausalLM(LlamaConfig.llama2_7b(num_hidden_layers=f32_layers),
+                               device=device, dtype="float32", seed=0)
+        f1 = _tp_engine(f32, 1, device, **engine_kw)
+        basef, basef_lg = _tp_run(f1, prompts, news, logits=True)
+        del f1
+        _free()
+        twin = tp_twin(f32, last)
+        engine = _tp_engine(twin, last, device, **engine_kw)
+        warm = _warm_counts(phase, engine)
+        profiler.reset_kernel_launch_counts()
+        profiler.reset_serving()
+        gotf, lgf = _tp_run(engine, prompts, news, logits=True)
+        counts = profiler.kernel_launch_counts()
+        steps = profiler.serving_summary()["decode_steps"]
+        all_counts.append(counts)
+        ok_all &= _no_retrace(phase, engine, warm)
+        ok_all &= _tp_counts_ok(phase, counts, {
+            "flash_fwd": last * len(prompts) * f32_layers,
+            "paged_decode_fused": last * f32_layers * steps,
+            "paged_decode_tp": last * f32_layers * steps}, on_card)
+        good, same, notes = _tp_parity(phase, basef, basef_lg, gotf, lgf)
+        check(phase, good and same == len(prompts),
+              f"float32, {f32_layers} layers, TF32 and reduced-precision reductions "
+              f"off: {same}/{len(prompts)} requests' tokens identical to tp 1's; "
+              f"{notes or 'no divergence'}")
+        del engine, twin, f32
+        _free()
+    finally:
+        tmesh.set_mesh(saved_mesh)
+    return ok_all, all_counts
+
+
 def _device_profile(run, steps):
     """Run `run()` `steps` times under torch.profiler.  Returns (wall us,
     {kernel name: device us}, {annotated range: device us}, {"host_us":
@@ -9849,6 +10289,10 @@ def main():
         # disaggregated pairs, session pins, the autoscaler, worker processes
         fleet_ok, fleet_counts = _timed("fleet", phase_fleet, smi, model, **serving)
         _free()
+        # tensor-parallel serving: tp 2 and 4 with every rank on the card,
+        # over the loaded weights
+        tp_ok, tp_counts = _timed("tp", phase_tp, smi, model, **serving)
+        _free()
         # buckets up to the context: every prompt of the traffic lands in a
         # warmed one, so none traces under traffic
         cp_kw = dict(slots=4, max_len=4096, page_size=128,
@@ -9973,7 +10417,7 @@ def main():
         "kernels": kernels_ok, "slice": slice_ok, "prefix": prefix_ok,
         "generate": gen_ok, "dense": dense_ok, "fault": fault_ok, "obs": obs_ok,
         "lora": lora_ok, "sessions": sessions_ok, "disagg": disagg_ok,
-        "fleet": fleet_ok, "cp": cp_ok, "cp_f32": f32_ok, "train": train_ok,
+        "fleet": fleet_ok, "tp": tp_ok, "cp": cp_ok, "cp_f32": f32_ok, "train": train_ok,
         "train recompute": recompute_ok, "grads": grad_ok, "fit": fit_ok,
         "fit resume": resume_ok, "fit diverge": diverge_ok, "fit bert": fit_bert_ok,
         "amp": amp_ok, "bert": bert_ok, "bert grads": bert_grad_ok, "ring": ring_ok,
@@ -9989,10 +10433,12 @@ def main():
               file=sys.stderr)
         return 1
     # launches: the serving, generation and training runs' counts, each read
-    # just after its path ran
+    # just after its path ran; `paged_decode_tp` and `_q8` are K2's and K4's
+    # launches through the per-shard wrappers (the tp phase), timed per
+    # shard at the tp phase's decode step
     runs = [counts, *prefix_counts, gen_counts, dense_counts, fault_counts,
             obs_counts, lora_counts, lora_solo_counts, sessions_counts,
-            *disagg_counts, *fleet_counts, *cp_counts,
+            *disagg_counts, *fleet_counts, *tp_counts, *cp_counts,
             *f32_counts, train_counts, fit_counts, eval_counts, fit_bert_counts,
             amp_counts, bert_counts, *ring_counts, lc_counts, lc2_counts,
             *vision_counts, *(jit_counts[p] for p in "abceg"), gpt_counts,
@@ -10052,6 +10498,8 @@ def main():
         ("paged_decode_fused_q8", "paged_decode.cu", 961),
         ("paged_decode_fused_q8_walk", "paged_decode.cu", 961),
         ("paged_decode_fused_q8_mma", "paged_decode.cu", 961),
+        ("paged_decode_tp", "paged_decode.cu", 1116),
+        ("paged_decode_tp_q8", "paged_decode.cu", 1148),
         ("flash_bwd", "flash_bwd.cu", 415),
         ("flash_bwd_wgmma", "flash_bwd.cu", 415),
         ("flash_fwd_masked", "flash_fwd.cu", 186),

@@ -1,1 +1,2 @@
-"""Counterpart of `paddle_tpu/distributed/fleet/`: ring attention only."""
+"""Counterpart of `paddle_tpu/distributed/fleet/`: ring attention and the
+tensor-parallel layers."""

@@ -194,9 +194,30 @@ elsewhere: a counter against fresh-allocation headroom (no pool refs),
 consumed by the handoff's admission before its page check, purged on the
 scheduler tick after its TTL.
 
-Not ported yet (ROADMAP, Queue 1): tensor parallelism and context
-parallelism across cards (NCCL).  A knob that asks for one of them raises
-NotImplementedError.
+Tensor parallelism (`tp=` or FLAGS_serve_tp, with `devices=`, one torch
+device per rank; reference: engine.py:380-428): the model must be built
+with `tensor_parallel_degree` tp (else ShardingError, as are heads or kv
+heads that do not divide and too few devices: `validate_tp`).  The 'mp'
+mesh's ranks run in this process, several on one device where the list
+names it several times; without a list they take the visible CUDA
+devices, each once.  Rank r owns its column and row blocks of every
+projection and its vocabulary block of the embedding and the lm_head
+(views of the model's weights), its own KV arena of every layer holding
+kv heads [r*hk/tp, (r+1)*hk/tp) (int8 scale arenas likewise; the dense
+pool's caches too), and its kernel launches: K1 over its heads in a fresh
+prefill, K2 (K4 over int8 pages) over its arena in every decode step,
+verify window and chunk prefill.  The row-parallel partial products meet
+in the mesh's reduce, the lm_head's blocks in the sampler's gather; every
+step is still one StepGraph.  Page ids, tables, the prefix cache, COW and
+sessions are rank-agnostic: a page copy copies the page on every rank.  A
+LoRA arena is cut per rank (`AdapterArena.shard_for_tp`).  `/healthz`
+carries tp and the mesh's shape, the mesh gauges `2 x layers + 1`
+reduces per step.
+
+Not ported yet (ROADMAP, Queue 1): tp with cp (item 15b: K5 per head
+shard), tp with a disaggregated role or `export_kv` (item 15c), and tp
+ranks or cp shards across cards (NCCL, item 17).  A knob that asks for one
+of them raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -237,6 +258,7 @@ from .paging import (
     deserialize_kv_handoff,
     kv_page_bytes,
     serialize_kv_handoff,
+    shard_kv_for_tp,
     spec_write_pages,
     validate_kv_quant,
     wire_dtype_name,
@@ -454,7 +476,8 @@ class ContinuousBatchingEngine:
     slots and advances every active slot one token per decode step.
     restart(), fail_all() and drain() are the fault domain's (a
     `fault.EngineSupervisor` calls the first two).  `device=None` means the
-    CUDA card; the model must live on the engine's device.
+    CUDA card; the model must live on the engine's device, and with `tp` >
+    1 so must every rank of `devices`.
     """
 
     _req_ids = itertools.count(1)  # request ids unique across engines
@@ -463,7 +486,7 @@ class ContinuousBatchingEngine:
                  queue_depth=None, seed=0, paged=None, page_size=None,
                  pool_pages=None, prefix_cache=None, spec_k=None, lora=None,
                  decode_kernel=None, tp=None, kv_quant=None, role=None, cp=None,
-                 device=None, session_max=None):
+                 device=None, session_max=None, devices=None):
         self.device = _fcore.resolve_device(device)
         if model.device != self.device:
             raise ValueError(
@@ -478,11 +501,14 @@ class ContinuousBatchingEngine:
         )
         self.role = str(flag("FLAGS_serve_role") if role is None
                         else role).strip().lower()
-        self._check_not_ported(paged, lora, tp, self.role)
+        self.tp = int(flag("FLAGS_serve_tp") if tp is None else tp)
+        self.cp = int(flag("FLAGS_serve_cp") if cp is None else cp)
+        self._check_not_ported(paged, lora, self.tp, self.cp, self.role)
         self.paged = paged
         self.session_max = int(flag("FLAGS_serve_session_max")
                                if session_max is None else session_max)
         cfg = model.config
+        self._mesh = self._init_tp(model, devices)
         if lora is not None:
             # lora.arena imports this package's paging: import it here
             from ..lora.registry import target_dims
@@ -496,9 +522,12 @@ class ContinuousBatchingEngine:
                 raise ValueError(
                     "adapter arena's registry was built for another model "
                     "configuration")
+            if self._mesh is not None:
+                # column targets' B and row targets' A per rank, views of
+                # the arena's rows: an upload writes every rank's shard
+                lora.shard_for_tp(self._mesh)
         self._lora = lora
         # context parallelism splits the page arena: paged engines only
-        self.cp = int(flag("FLAGS_serve_cp") if cp is None else cp)
         if self.cp < 1:
             raise ValueError(f"cp must be >= 1, got {self.cp}")
         if self.cp > 1 and not paged:
@@ -550,19 +579,27 @@ class ContinuousBatchingEngine:
             self.page_size = self.pages_per_seq = self.pool_pages = 0
             self._arenas = self._pool = self._prefix = self._sessions = None
             with torch.no_grad():
+                # under tp each layer's entry is the ranks' list of caches
+                # over their kv heads, K2 per rank over its page view
                 self._caches = [
-                    StaticKVCache(self.slots, self.max_len,
-                                  cfg.num_key_value_heads, cfg.head_dim,
-                                  cache_dtype, self.device)
+                    self._shard_kv(StaticKVCache(
+                        self.slots, self.max_len, cfg.num_key_value_heads,
+                        cfg.head_dim, cache_dtype, self.device))
                     for _ in range(cfg.num_hidden_layers)
                 ]
         self._gen = torch.Generator(device=self.device).manual_seed(int(seed))
         self._init_graphs()
-        # one partials merge per layer per paged attention under cp (the
-        # reference's all-reduces; torch ops on one card)
+        # per step at tp > 1: one reduce per row-parallel output (o_proj and
+        # down_proj of every layer) and the lm_head's vocabulary gather; under
+        # cp one partials merge per layer per paged attention (the
+        # reference's all-reduces; torch ops on one card).  `devices` counts
+        # the distinct devices in use, not the ranks
         _prof.record_mesh_topology(
-            devices=1, tp=1, cp=self.cp,
-            allreduce_per_step=cfg.num_hidden_layers if self.cp > 1 else 0,
+            devices=len(set(self._mesh.devices)) if self._mesh is not None else 1,
+            tp=self.tp, cp=self.cp,
+            allreduce_per_step=(
+                (2 * cfg.num_hidden_layers + 1 if self.tp > 1 else 0)
+                + (cfg.num_hidden_layers if self.cp > 1 else 0)),
         )
 
         # host-side slot table, mutated under _mu by the scheduler
@@ -670,10 +707,12 @@ class ContinuousBatchingEngine:
             pp = -(-max(pp, 2 * self.cp) // self.cp) * self.cp
         self.pool_pages = pp
         with torch.no_grad():
+            # under tp each layer's entry is the ranks' list of arenas, rank
+            # r's over its kv heads; page ids are the same on every rank
             self._arenas = [
-                PagedKVCache(pp, self.page_size, cfg.num_key_value_heads,
-                             head_dim, cache_dtype, self.device,
-                             quant=self.kv_quant)
+                self._shard_kv(PagedKVCache(
+                    pp, self.page_size, cfg.num_key_value_heads, head_dim,
+                    cache_dtype, self.device, quant=self.kv_quant))
                 for _ in range(cfg.num_hidden_layers)
             ]
         scale_bytes = (2 * self.page_size * cfg.num_key_value_heads * 4
@@ -703,9 +742,54 @@ class ContinuousBatchingEngine:
         self._head_dim = int(head_dim)
         self._kv_dtype_name = wire_dtype_name(cache_dtype)
 
+    def _init_tp(self, model, devices):
+        """Tensor-parallel serving (reference: engine.py:380-428): typed
+        ShardingErrors at construction, divisibility and the device count
+        first (`validate_tp`), then the model's own degree; the 'mp' mesh on
+        `devices` (one per rank; None: the visible CUDA devices, each once)
+        and the model's parallel layers bound to it.  Returns the mesh, or
+        None at tp = 1."""
+        from ..distributed import mesh as _mesh_mod
+        from ..distributed.sharding import ShardingError, validate_tp
+        from ..models.llama import shard_llama_for_tp
+
+        cfg = model.config
+        validate_tp(cfg, self.tp, devices)
+        if self.tp == 1:
+            # parallel layers (a model built with a degree, or under an
+            # installed 'mp' mesh) serve as one rank, as the reference's
+            # replicated layout does
+            shard_llama_for_tp(model, _mesh_mod.Mesh(
+                dict.fromkeys(_mesh_mod.AXIS_ORDER, 1), self.device))
+            return None
+        if int(getattr(cfg, "tensor_parallel_degree", 1)) != self.tp:
+            raise ShardingError(
+                f"engine tp={self.tp} but the model was built with "
+                f"tensor_parallel_degree={getattr(cfg, 'tensor_parallel_degree', 1)}: "
+                "construct the model with LlamaConfig(tensor_parallel_degree="
+                f"{self.tp}) so its projections are the column/row-parallel "
+                "layers the mesh shards"
+            )
+        mesh = _mesh_mod.serving_mesh(self.tp, devices=devices)
+        shard_llama_for_tp(model, mesh)
+        return mesh
+
+    def _shard_kv(self, cache):
+        """One layer's KV cache as the engine keeps it: the cache itself, or
+        under tp the ranks' list of shards (`paging.shard_kv_for_tp`)."""
+        return cache if self._mesh is None else shard_kv_for_tp(cache, self._mesh)
+
+    def _flat_arenas(self):
+        """Every rank's arena of every layer (the whole-page operations)."""
+        return [a for x in self._arenas for a in (x if isinstance(x, list) else [x])]
+
     @staticmethod
-    def _check_not_ported(paged, lora, tp, role):
-        flag = _fcore.flag
+    def _per_rank(entry, fn):
+        """fn over a layer's cache entry: of each rank's under tp."""
+        return [fn(x) for x in entry] if isinstance(entry, list) else fn(entry)
+
+    @staticmethod
+    def _check_not_ported(paged, lora, tp, cp, role):
         if role not in ("colocated", "prefill", "decode"):
             raise ValueError(
                 f"role must be colocated|prefill|decode, got {role!r}")
@@ -718,8 +802,14 @@ class ContinuousBatchingEngine:
                     f"role={role!r} requires the paged engine: the "
                     "prefill->decode handoff rides the page arenas"
                 )
-        if int(flag("FLAGS_serve_tp") if tp is None else tp) > 1:
-            raise _not_ported("tp > 1", "tensor-parallel serving")
+        if tp > 1 and cp > 1:
+            raise _not_ported(
+                f"tp={tp} with cp={cp}",
+                "item 15b, tensor x context parallelism: K5 per head shard")
+        if tp > 1 and role != "colocated":
+            raise _not_ported(
+                f"tp={tp} with role={role!r}",
+                "item 15c, tensor parallelism with disaggregated roles")
 
     # -- compiled steps ----------------------------------------------------------
 
@@ -789,7 +879,7 @@ class ContinuousBatchingEngine:
         """(first token [1], logits [1, V] float32) of the row true_len - 1
         (a [1] device tensor), not the bucket end."""
         last = hidden.index_select(1, (true_len - 1).long())[:, 0]
-        logits = self.model.lm_head(last).float()
+        logits = self.model.logits(last).float()
         return self._sample(logits, temp), logits
 
     def _lora_view(self, adapters):
@@ -803,8 +893,9 @@ class ContinuousBatchingEngine:
         `_prefill_paged_body`, engine.py:917): toks [1, bucket], its K/V
         scattered into the pages of table [P]; true_len [1] int32, temp [1]
         float32; under LoRA adapters [1] int32, the request's arena slot."""
-        views = [PagedPrefillView(a, table, true_len, self.max_len,
-                                  kernel=self.decode_kernel, cp=self.cp)
+        views = [self._per_rank(a, lambda x: PagedPrefillView(
+                     x, table, true_len, self.max_len, kernel=self.decode_kernel,
+                     cp=self.cp))
                  for a in self._arenas]
         hidden = self.model.llama(toks, caches=views,
                                   lora=self._lora_view(adapters))
@@ -821,9 +912,9 @@ class ContinuousBatchingEngine:
         (the cache keys chains by adapter), so `adapters` [1] applies to
         the suffix rows alone."""
         local = None if loc is None else (loc, base)
-        views = [PagedPrefillView(a, table, true_len, self.max_len, start=start,
-                                  kernel=self.decode_kernel, cp=self.cp,
-                                  local=local)
+        views = [self._per_rank(a, lambda x: PagedPrefillView(
+                     x, table, true_len, self.max_len, start=start,
+                     kernel=self.decode_kernel, cp=self.cp, local=local))
                  for a in self._arenas]
         hidden = self.model.llama(toks, caches=views,
                                   lora=self._lora_view(adapters))
@@ -833,7 +924,8 @@ class ContinuousBatchingEngine:
     def _prefill_dense_body(self, toks, slot, true_len, temp):
         """The dense pool's prefill (reference: `_prefill_body`,
         engine.py:770): the bucket's K/V rows land in pool row slot [1]."""
-        views = [SlotView(c, slot) for c in self._caches]
+        views = [self._per_rank(c, lambda x: SlotView(x, slot))
+                 for c in self._caches]
         return self._prefill_tail(self.model.llama(toks, caches=views),
                                   true_len, temp)
 
@@ -844,7 +936,7 @@ class ContinuousBatchingEngine:
         their scale rows under int8 (a copy without them would dequantize
         the reader's tail wrongly, silently)."""
         src, dst = src.long(), dst.long()
-        for a in self._arenas:
+        for a in self._flat_arenas():
             for t in (a.k, a.v, a.k_scale, a.v_scale):
                 if t is not None:
                     t.index_copy_(0, dst, t.index_select(0, src))
@@ -870,8 +962,9 @@ class ContinuousBatchingEngine:
 
     def _paged_views(self, tables, local):
         return [
-            PagedDecodeView(a, tables, self.max_len, kernel=self.decode_kernel,
-                            cp=self.cp, local=local)
+            self._per_rank(a, lambda x: PagedDecodeView(
+                x, tables, self.max_len, kernel=self.decode_kernel, cp=self.cp,
+                local=local))
             for a in self._arenas
         ]
 
@@ -888,7 +981,7 @@ class ContinuousBatchingEngine:
         logits [S, V] float32)."""
         pos_eff = torch.where(active, pos, torch.zeros_like(pos))
         hidden = self.model.llama(toks, caches=views, pos=pos_eff, lora=lora)
-        logits = self.model.lm_head(hidden[:, -1]).float()
+        logits = self.model.logits(hidden[:, -1]).float()
         logits = torch.where(poison[:, None], torch.nan, logits)
         nxt = self._sample(logits, temps)
         finite = torch.isfinite(logits).all(dim=-1) | ~active
@@ -941,7 +1034,7 @@ class ContinuousBatchingEngine:
         pos_eff = torch.where(active, pos, torch.zeros_like(pos))
         hidden = self.model.llama(toks, caches=self._paged_views(tables, local),
                                   pos=pos_eff, lora=self._lora_view(adapters))
-        logits = self.model.lm_head(hidden).float()
+        logits = self.model.logits(hidden).float()
         logits = torch.where(poison[:, None, None], torch.nan, logits)
         greedy = logits.argmax(dim=-1).to(torch.int32)  # [S, k+1]
         k1 = greedy.shape[1]
@@ -1116,6 +1209,10 @@ class ContinuousBatchingEngine:
             raise ValueError(
                 "export_kv requires the paged engine (the handoff payload is "
                 "the committed page rows)")
+        if export_kv and self.tp > 1:
+            raise _not_ported(
+                f"export_kv at tp={self.tp}",
+                "item 15c, tensor parallelism with disaggregated roles")
         staged = None
         if handoff is not None:
             # typed refusals before the request queues: a wrong role, a
@@ -1368,10 +1465,13 @@ class ContinuousBatchingEngine:
             "role": self.role,
             "reserved_pages": int(self._reserved_pages),
             "device": str(self.device),
-            "tp": 1,
+            "tp": self.tp,
             "cp": self.cp,
             # the reference keeps only the mesh axes larger than 1
-            "mesh_shape": {"cp": self.cp} if self.cp > 1 else {},
+            "mesh_shape": (
+                {a: n for a, n in self._mesh.shape.items() if n > 1}
+                if self._mesh is not None
+                else {"cp": self.cp} if self.cp > 1 else {}),
         }
         if self.cp > 1:
             # the fullest shard bounds admission: a sequence page lands only
@@ -2551,7 +2651,7 @@ class ContinuousBatchingEngine:
         Raises AssertionError.  Caller holds _mu."""
         pool, ps = self._pool, self.page_size
         check_table_bounds(self._page_table, pool.num_pages)
-        check_scale_arenas(self._arenas, pool.num_pages, ps)
+        check_scale_arenas(self._flat_arenas(), pool.num_pages, ps)
         expected = np.zeros(pool.num_pages, np.int64)
         expected[list(pool.scratch_pages)] = 1
         for s in range(self.slots):

@@ -61,6 +61,7 @@ tensors).
 from __future__ import annotations
 
 import base64
+import copy
 
 import numpy as np
 import torch
@@ -145,6 +146,41 @@ def check_scale_arenas(arenas, num_pages, page_size):
                     f"scale invariant: layer {i} {name} dtype {t.dtype} "
                     "is not float32"
                 )
+
+
+# The tensor-parallel layout of every KV buffer (reference: paging.py:
+# 155-192): paged arenas [num_pages, page_size, kv_heads, head_dim], their
+# int8 scale arenas [num_pages, page_size, kv_heads, 1] and dense caches
+# [slots, max_len, kv_heads, head_dim] all split the kv heads axis over the
+# 'mp' ranks.  Page ids, tables and all the host bookkeeping of this module
+# stay rank-agnostic: a page is the same page id on every rank, narrower.
+KV_TP_AXIS = 2
+
+
+def shard_kv_for_tp(cache, mesh):
+    """The ranks' shards of one layer's KV cache (a `PagedKVCache` or a
+    `StaticKVCache`): rank r's cache holds kv heads [r*hk/N, (r+1)*hk/N) of
+    every buffer as tensors of its own on its device (not views of one
+    arena), and shares everything else (page size, quant mode, a dense
+    cache's page table).  Returns the list of the N ranks' caches; the
+    given cache itself, in a list, without an 'mp' axis above 1."""
+    if mesh is None or mesh.mp <= 1:
+        return [cache]
+    hk = cache.k.shape[KV_TP_AXIS]
+    if hk % mesh.mp:
+        raise ValueError(
+            f"{hk} kv heads do not split over {mesh.mp} 'mp' ranks")
+    n = hk // mesh.mp
+    out = []
+    for r, dev in enumerate(mesh.devices):
+        shard = copy.copy(cache)
+        for name in ("k", "v", "k_scale", "v_scale"):
+            t = getattr(cache, name, None)
+            if t is not None:
+                setattr(shard, name, t.narrow(KV_TP_AXIS, r * n, n).to(
+                    dev, copy=True, memory_format=torch.contiguous_format))
+        out.append(shard)
+    return out
 
 
 def check_table_bounds(table, num_pages):

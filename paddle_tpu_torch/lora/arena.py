@@ -44,6 +44,10 @@ from ..framework import core as _core
 from ..inference.paging import PagePool
 from .registry import TARGETS, target_dims
 
+# the row-parallel projections: their A splits on d_in under tensor
+# parallelism (the reference's _ROW_TARGETS, arena.py:40)
+_ROW_TARGETS = ("o_proj", "down_proj")
+
 
 class AdapterArenaFull(RuntimeError):
     """Every arena slot is bound to an in-flight request: the load must wait
@@ -76,10 +80,15 @@ class _LayerView:
         self._layer = layer
         self._ids = ids
 
-    def add(self, target, y, x):
+    def add(self, target, y, x, rank=None):
         """Base projection output `y` (from input `x`) plus this layer's
-        gathered delta for `target`."""
-        A, B = self._arena._stacks[(self._layer, target)]
+        gathered delta for `target`; under tensor parallelism `rank`'s
+        shards (`AdapterArena.shard_for_tp`): y and x are that rank's."""
+        key = (self._layer, target)
+        if rank is None:
+            A, B = self._arena._stacks[key]
+        else:
+            A, B = self._arena.rank_stacks(key, rank)
         return lora_delta_add(y, x, self._ids, A, B, self._arena._scale)
 
 
@@ -148,6 +157,7 @@ class AdapterArena:
             B = self._rows[:, b_off:b_off + r * d_out].view(n, r, d_out)
             self._stacks[(layer, t)] = (A, B)
         self._scale = self._rows[:, off]
+        self._rank_stacks = None  # per-rank views, once shard_for_tp cuts them
 
     @property
     def nbytes(self):
@@ -157,12 +167,47 @@ class AdapterArena:
     def view(self, ids):
         return ArenaView(self, ids)
 
-    def shard_for_tp(self):
-        """The reference re-places the stacks on the 'mp' mesh; the port
-        has no tensor-parallel serving yet."""
-        raise NotImplementedError(
-            "shard_for_tp is not ported to paddle_tpu_torch yet (ROADMAP "
-            "Queue 1: tensor-parallel serving)")
+    def shard_for_tp(self, mesh=None):
+        """Cut the stacks into the ranks' shards of `mesh`'s 'mp' axis
+        (default: the installed mesh; reference: arena.py:148-171), so the
+        delta composes with the tensor-parallel projections: column targets
+        (q/k/v/gate/up) split B on d_out -- rank r's delta is its block of
+        the output, like its base projection's -- and row targets
+        (o_proj/down_proj) split A on d_in, matching their split input, so
+        each rank's delta is a partial sum that joins the row-parallel
+        reduce.  A of column targets, B of row targets and the scale vector
+        stay whole on every rank.  Every shard is a view of the arena's
+        rows: an upload writes every rank's shard in place, and adapter
+        churn retraces nothing.  A no-op without an 'mp' axis above 1; the
+        ranks must be on the arena's device."""
+        from ..distributed import mesh as _mesh
+        from ..distributed.fleet.meta_parallel.mp_layers import rank_bounds
+
+        mesh = _mesh.get_mesh() if mesh is None else mesh
+        if mesh is None or mesh.mp <= 1:
+            return
+        if mesh.device != self.device:
+            raise ValueError(
+                f"the 'mp' ranks run on {mesh.device}, the arena lives on "
+                f"{self.device}")
+        with self._mu:
+            self._rank_stacks = {}
+            for key, (A, B) in self._stacks.items():
+                if key[1] in _ROW_TARGETS:
+                    self._rank_stacks[key] = [
+                        (A[:, a:b], B) for a, b in rank_bounds(A.shape[1], mesh.mp)]
+                else:
+                    self._rank_stacks[key] = [
+                        (A, B[:, :, a:b]) for a, b in rank_bounds(B.shape[2], mesh.mp)]
+
+    def rank_stacks(self, key, rank):
+        """Rank `rank`'s (A, B) stacks of (layer, target) `key`, once
+        `shard_for_tp` has cut them."""
+        if self._rank_stacks is None:
+            raise RuntimeError(
+                "the adapter arena serves a tensor-parallel model: call "
+                "shard_for_tp(mesh) first (the engine does at construction)")
+        return self._rank_stacks[key][rank]
 
     # -- residency ----------------------------------------------------------
 

@@ -117,19 +117,27 @@ def _ensure_gen_state(model, b, cache_len, kv_heads):
     when batch, cache length, dtype or device changes (reference:
     models/_utils.py:141-157): a step captured over the old caches would
     replay into freed memory.  The caches live on the model's device in the
-    lm_head dtype (bf16 serving stays bf16).  Returns (caches, fns)."""
+    lm_head dtype (bf16 serving stays bf16); under tensor parallelism a
+    layer's entry is the list of the ranks' caches, each over its kv heads.
+    Returns (caches, fns)."""
     from ..inference.graphs import new_pool
     from .llama import StaticKVCache
 
     cfg = model.config
     head_dim = cfg.hidden_size // cfg.num_attention_heads  # Llama's and GPT's
-    key = (b, cache_len, model.lm_head.weight.dtype, model.device)
+    ranks = getattr(model, "tp_ranks", 1)
+    key = (b, cache_len, model.lm_head.weight.dtype, model.device, ranks)
     if getattr(model, "_gen_cache_key", None) != key:
         # free the old graphs, then the buffers they read, before allocating
         model._gen_fns = model._gen_caches = model._gen_pool = None
+
+        def cache(heads):
+            return StaticKVCache(b, cache_len, heads, head_dim,
+                                 model.lm_head.weight.dtype, model.device)
+
         model._gen_caches = [
-            StaticKVCache(b, cache_len, kv_heads, head_dim,
-                          model.lm_head.weight.dtype, model.device)
+            cache(kv_heads) if ranks == 1
+            else [cache(kv_heads // ranks) for _ in range(ranks)]
             for _ in range(cfg.num_hidden_layers)
         ]
         model._gen_fns = {}
@@ -335,7 +343,8 @@ def _beam_body(forward_step, caches, b, nb, V, eos):
         new_done = done.gather(1, parent)
         if eos is not None:
             new_done = new_done | (token == eos)
-        for c in caches:
+        for c in (x for layer in caches
+                  for x in (layer if isinstance(layer, list) else [layer])):
             _gather_rows(c.k, rows)
             _gather_rows(c.v, rows)
         seqs.copy_(new_seqs)

@@ -11,7 +11,8 @@ kernel (under context parallelism, `context_parallel_degree` on a `sep`
 mesh, ring attention's K1 and K3 launches; with `sep_degree`, Ulysses);
 the paged decode step and the chunk prefill of a prefix-cache hit
 the `paged_decode_fused` kernel, or `paged_decode_fused_q8` over an int8
-arena, and under context parallelism one `paged_decode_partials` launch
+arena (under tensor parallelism one launch per rank over its head shard,
+`paged_decode_tp`), and under context parallelism one `paged_decode_partials` launch
 per cp shard (the speculative verify window is a decode step of k + 1
 rows); a training backward the `flash_bwd` kernel.  Against a static
 cache, a lock-step prefill of 64+ rows runs the `dense_decode` kernel and
@@ -34,6 +35,12 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..distributed import mesh as _mesh
+from ..distributed.fleet.meta_parallel.mp_layers import (
+    ColumnParallelLinear,
+    ParallelCrossEntropy,
+    RowParallelLinear,
+    VocabParallelEmbedding,
+)
 from ..distributed.fleet.meta_parallel.ring_attention import (
     ring_flash_attention,
     ulysses_attention,
@@ -45,6 +52,8 @@ from ..ops.flash_attention import (
     decode_attention,
     dense_page_table,
     paged_decode_attention,
+    paged_decode_q8_tp,
+    paged_decode_tp,
     sdpa,
 )
 from ._utils import lockstep_generate, sequence_ce
@@ -69,6 +78,9 @@ class LlamaConfig:
     # training: re-run each decoder layer's forward in the backward instead
     # of keeping its activations (the reference's use_recompute, llama.py:49)
     use_recompute: bool = False
+    # tensor-parallel serving (the reference's llama.py:42): the column- and
+    # row-parallel projections, the vocabulary-split embedding and lm_head
+    tensor_parallel_degree: int = 1
 
     @staticmethod
     def llama2_7b(**overrides):
@@ -390,28 +402,82 @@ def _page_decode_write_quant(arena, scales, new, tables, pos):
 # ---------------------------------------------------------------------------
 
 
-def _lora_add(lora, target, y, x):
+def _use_tp(config):
+    """Whether a Llama built from `config` takes the tensor-parallel layers
+    (reference: llama.py:71-72): a degree above 1, or an installed mesh
+    whose 'mp' axis is."""
+    return config.tensor_parallel_degree > 1 or _mesh.axis_size("mp") > 1
+
+
+def _lora_add(lora, target, y, x, rank=None):
     """Base projection output `y` (computed from `x`) plus the
     batched-gather LoRA delta of `target` (reference: llama.py:512).  `lora`
     is a per-layer arena view carrying the dispatch's [b] int32 adapter
     slots as data; None (training, non-LoRA serving) passes `y` through and
-    adds no operation."""
-    return y if lora is None else lora.add(target, y, x)
+    adds no operation.  Under tensor parallelism `rank` names the rank whose
+    shards `y` and `x` are (`lora.AdapterArena.shard_for_tp`)."""
+    return y if lora is None else lora.add(target, y, x, rank=rank)
+
+
+def _linears(tp, device, dtype):
+    """(column, row) Linear factories: the parallel layers under tensor
+    parallelism, `torch.nn.Linear` otherwise; no bias either way."""
+    kw = dict(device=device, dtype=dtype)
+    if tp:
+        return (lambda i, o: ColumnParallelLinear(i, o, has_bias=False,
+                                                  gather_output=False, **kw),
+                lambda i, o: RowParallelLinear(i, o, has_bias=False,
+                                               input_is_parallel=True, **kw))
+    plain = lambda i, o: nn.Linear(i, o, bias=False, **kw)  # noqa: E731
+    return plain, plain
 
 
 class LlamaMLP(nn.Module):
     def __init__(self, config, device=None, dtype=None):
         super().__init__()
         h, i = config.hidden_size, config.intermediate_size
-        kw = dict(bias=False, device=device, dtype=dtype)
-        self.gate_proj = nn.Linear(h, i, **kw)
-        self.up_proj = nn.Linear(h, i, **kw)
-        self.down_proj = nn.Linear(i, h, **kw)
+        self.tp = _use_tp(config)
+        col, row = _linears(self.tp, device, dtype)
+        self.gate_proj = col(h, i)
+        self.up_proj = col(h, i)
+        self.down_proj = row(i, h)
 
     def forward(self, x, lora=None):
+        if self.tp:
+            # rank r: its gate/up column blocks, then its down_proj partial
+            # (LoRA deltas on its shards); the partials meet in the reduce
+            parts = []
+            for r in range(self.gate_proj.ranks):
+                g = _lora_add(lora, "gate_proj", self.gate_proj.rank_output(x, r), x, r)
+                u = _lora_add(lora, "up_proj", self.up_proj.rank_output(x, r), x, r)
+                h = F.silu(g) * u
+                parts.append(_lora_add(lora, "down_proj",
+                                       self.down_proj.partial(h, r), h, r))
+            return self.down_proj.reduce(parts)
         h = (F.silu(_lora_add(lora, "gate_proj", self.gate_proj(x), x))
              * _lora_add(lora, "up_proj", self.up_proj(x), x))
         return _lora_add(lora, "down_proj", self.down_proj(h), h)
+
+
+def _paged_read_tp(qs, views, pos, max_len, table=None):
+    """Rank r's paged attention of qs[r] over views[r]'s arena shard, every
+    rank's in one call: `paged_decode_tp` (K2 per head shard) or, over int8
+    pages, `paged_decode_q8_tp` (K4); the "gather" oracle per rank.  The
+    ranks share the page table and positions."""
+    v0 = views[0]
+    tables = v0.tables if table is None else table
+    if v0.kernel == "gather":
+        return [paged_decode_attention(q, v.arena.k, v.arena.v, tables, pos, max_len,
+                                       kernel="gather", k_scale=v.arena.k_scale,
+                                       v_scale=v.arena.v_scale)
+                for q, v in zip(qs, views)]
+    ks = [v.arena.k for v in views]
+    vs = [v.arena.v for v in views]
+    if v0.arena.quant == "int8":
+        return paged_decode_q8_tp(qs, ks, vs, [v.arena.k_scale for v in views],
+                                  [v.arena.v_scale for v in views], tables, pos,
+                                  max_len)
+    return paged_decode_tp(qs, ks, vs, tables, pos, max_len)
 
 
 class LlamaAttention(nn.Module):
@@ -423,17 +489,20 @@ class LlamaAttention(nn.Module):
         self.num_kv_heads = config.num_key_value_heads
         self.head_dim = config.head_dim
         kv_out = self.num_kv_heads * self.head_dim
-        kw = dict(bias=False, device=device, dtype=dtype)
-        self.q_proj = nn.Linear(h, h, **kw)
-        self.k_proj = nn.Linear(h, kv_out, **kw)
-        self.v_proj = nn.Linear(h, kv_out, **kw)
-        self.o_proj = nn.Linear(h, h, **kw)
+        self.tp = _use_tp(config)
+        col, row = _linears(self.tp, device, dtype)
+        self.q_proj = col(h, h)
+        self.k_proj = col(h, kv_out)
+        self.v_proj = col(h, kv_out)
+        self.o_proj = row(h, h)
         self.rope = rope  # (cos, sin), shared by every layer
 
     def forward(self, x, cache=None, pos=None, lora=None):
         """`lora`: a per-layer arena view (serving under LoRA): q, k and v
         take their deltas before RoPE, o_proj after attention, as in the
         reference (llama.py:564-691)."""
+        if self.tp:
+            return self._forward_tp(x, cache, pos, lora)
         b, s = x.shape[0], x.shape[1]
         q = _lora_add(lora, "q_proj", self.q_proj(x), x).view(
             b, s, self.num_heads, self.head_dim)
@@ -441,32 +510,70 @@ class LlamaAttention(nn.Module):
             b, s, self.num_kv_heads, self.head_dim)
         v = _lora_add(lora, "v_proj", self.v_proj(x), x).view(
             b, s, self.num_kv_heads, self.head_dim)
+        q, k = self._write(q, k, v, cache, pos)
+        out = self._read(q, k, v, cache, pos)
+        out = out.reshape(b, s, self.num_heads * self.head_dim)
+        return _lora_add(lora, "o_proj", self.o_proj(out), out)
+
+    def _forward_tp(self, x, cache, pos, lora):
+        """Tensor parallelism: rank r runs q heads [r*h/N, (r+1)*h/N) and kv
+        heads [r*hk/N, (r+1)*hk/N) -- the rep-block of its kv heads, so each
+        q head stays with its kv head under GQA -- with RoPE, the writes into
+        its own arena shard (`cache[r]`, one view per rank) and attention
+        over its heads: a fresh prefill through K1, a decode step, verify
+        window or chunk prefill through K2 (K4 over int8 pages), one launch
+        per rank.  The ranks' o_proj partials meet in the reduce."""
+        b, s = x.shape[0], x.shape[1]
+        R = self.q_proj.ranks
+        hq, hk, d = self.num_heads // R, self.num_kv_heads // R, self.head_dim
+        if cache is None or isinstance(cache, list):
+            views = [None] * R if cache is None else cache
+        elif R == 1:  # one rank over a whole cache (an engine at tp 1)
+            views = [cache]
+        else:
+            raise TypeError(
+                f"a model on {R} 'mp' ranks takes one cache view per rank")
+        qs, ks, vs = [], [], []
+        for r in range(R):
+            q = _lora_add(lora, "q_proj", self.q_proj.rank_output(x, r), x, r)
+            k = _lora_add(lora, "k_proj", self.k_proj.rank_output(x, r), x, r)
+            v = _lora_add(lora, "v_proj", self.v_proj.rank_output(x, r), x, r)
+            q, k, v = q.view(b, s, hq, d), k.view(b, s, hk, d), v.view(b, s, hk, d)
+            q, k = self._write(q, k, v, views[r], pos)
+            qs.append(q)
+            ks.append(k)
+            vs.append(v)
+        v0 = views[0]
+        if isinstance(v0, PagedDecodeView):
+            outs = _paged_read_tp(qs, views, pos, v0.max_len)
+        elif isinstance(v0, PagedPrefillView) and v0.start is not None:
+            outs = _paged_read_tp(qs, views, v0.start, v0.max_len,
+                                  table=v0.table.reshape(1, -1))
+        else:
+            outs = [self._read(q, k, v, c, pos)
+                    for q, k, v, c in zip(qs, ks, vs, views)]
+        parts = []
+        for r, out in enumerate(outs):
+            out = out.reshape(b, s, hq * d)
+            parts.append(_lora_add(lora, "o_proj", self.o_proj.partial(out, r), out, r))
+        return self.o_proj.reduce(parts)
+
+    def _write(self, q, k, v, cache, pos):
+        """RoPE on q and k at the cache view's positions and the K/V writes
+        into the view's arena or cache.  Returns the rotated (q, k)."""
         cos, sin = self.rope
         if isinstance(cache, PagedPrefillView):
             a = cache.arena
             if a.quant == "int8":
                 # the scatter quantizes on write; a fresh prefill's own
                 # attention still runs on the full-precision k/v
-                q, k = _rope_page_scatter_quant(
+                return _rope_page_scatter_quant(
                     a.k, a.v, a.k_scale, a.v_scale, q, k, v, cos, sin,
                     cache.table, cache.true_len, cache.start,
                 )
-            else:
-                q, k = _rope_page_scatter(
-                    a.k, a.v, q, k, v, cos, sin, cache.table, cache.true_len,
-                    cache.start,
-                )
-            if cache.start is None:
-                out = sdpa(q, k, v, causal=True)
-            else:
-                # chunk prefill: the suffix attends the whole sequence
-                # through the pages, its own rows written just above
-                out = paged_decode_attention(
-                    q, a.k, a.v, cache.table.reshape(1, -1), cache.start,
-                    cache.max_len, kernel=cache.kernel, k_scale=a.k_scale,
-                    v_scale=a.v_scale, cp=cache.cp, local=cache.local,
-                )
-        elif isinstance(cache, PagedDecodeView):
+            return _rope_page_scatter(a.k, a.v, q, k, v, cos, sin, cache.table,
+                                      cache.true_len, cache.start)
+        if isinstance(cache, PagedDecodeView):
             a = cache.arena
             q, k = apply_rotary_pos_emb(q, k, cos, sin, pos)
             if a.quant == "int8":
@@ -475,32 +582,51 @@ class LlamaAttention(nn.Module):
             else:
                 _page_decode_write(a.k, k, cache.tables, pos)
                 _page_decode_write(a.v, v, cache.tables, pos)
-            out = paged_decode_attention(
+            return q, k
+        if isinstance(cache, SlotView):
+            q, k = apply_rotary_pos_emb(q, k, cos, sin, 0)
+            _slot_write(cache.pool.k, k, cache.slot)
+            _slot_write(cache.pool.v, v, cache.slot)
+            return q, k
+        if isinstance(cache, StaticKVCache):
+            q, k = apply_rotary_pos_emb(q, k, cos, sin, pos)
+            _cache_write(cache.k, k, pos)
+            _cache_write(cache.v, v, pos)
+            return q, k
+        if cache is None:
+            return apply_rotary_pos_emb(q, k, cos, sin, 0)
+        raise TypeError(f"unsupported cache view {type(cache).__name__}")
+
+    def _read(self, q, k, v, cache, pos):
+        """Attention of the rotated q over what `_write` left: [b, s, heads,
+        d]."""
+        if isinstance(cache, PagedPrefillView):
+            a = cache.arena
+            if cache.start is None:
+                return sdpa(q, k, v, causal=True)
+            # chunk prefill: the suffix attends the whole sequence through
+            # the pages, its own rows written just above
+            return paged_decode_attention(
+                q, a.k, a.v, cache.table.reshape(1, -1), cache.start,
+                cache.max_len, kernel=cache.kernel, k_scale=a.k_scale,
+                v_scale=a.v_scale, cp=cache.cp, local=cache.local,
+            )
+        if isinstance(cache, PagedDecodeView):
+            a = cache.arena
+            return paged_decode_attention(
                 q, a.k, a.v, cache.tables, pos, cache.max_len,
                 kernel=cache.kernel, k_scale=a.k_scale, v_scale=a.v_scale,
                 cp=cache.cp, local=cache.local,
             )
-        elif isinstance(cache, SlotView):
+        if isinstance(cache, SlotView):
             # the slot pool's prefill: the prompt attends to itself through
             # flash_fwd while its K/V land in the slot's pool row
-            q, k = apply_rotary_pos_emb(q, k, cos, sin, 0)
-            _slot_write(cache.pool.k, k, cache.slot)
-            _slot_write(cache.pool.v, v, cache.slot)
-            out = sdpa(q, k, v, causal=True)
-        elif isinstance(cache, StaticKVCache):
-            # write at pos, then attend the cache: validity comes from pos
-            # (row i sees j <= pos + i), never from a mask array
-            q, k = apply_rotary_pos_emb(q, k, cos, sin, pos)
-            _cache_write(cache.k, k, pos)
-            _cache_write(cache.v, v, pos)
-            out = decode_attention(q, cache.k, cache.v, pos, table=cache.table)
-        elif cache is None:
-            q, k = apply_rotary_pos_emb(q, k, cos, sin, 0)
-            out = self._dispatch_attention(q, k, v)
-        else:
-            raise TypeError(f"unsupported cache view {type(cache).__name__}")
-        out = out.reshape(b, s, self.num_heads * self.head_dim)
-        return _lora_add(lora, "o_proj", self.o_proj(out), out)
+            return sdpa(q, k, v, causal=True)
+        if isinstance(cache, StaticKVCache):
+            # validity comes from pos (row i sees j <= pos + i), never from
+            # a mask array
+            return decode_attention(q, cache.k, cache.v, pos, table=cache.table)
+        return self._dispatch_attention(q, k, v)
 
     def _dispatch_attention(self, q, k, v):
         """Route by config (the reference's llama.py:711-745): ring (context
@@ -557,7 +683,8 @@ class LlamaModel(nn.Module):
         super().__init__()
         self.config = config
         rope = rope_cache(config, device)
-        self.embed_tokens = nn.Embedding(
+        emb = VocabParallelEmbedding if _use_tp(config) else nn.Embedding
+        self.embed_tokens = emb(
             config.vocab_size, config.hidden_size, device=device, dtype=dtype
         )
         self.layers = nn.ModuleList(
@@ -569,7 +696,8 @@ class LlamaModel(nn.Module):
     def forward(self, input_ids, caches=None, pos=None, lora=None):
         """input_ids: [b, s] int32.  `caches`: None (plain causal forward)
         or one cache view per layer (paged views, `SlotView`s or
-        `StaticKVCache`s); `pos`: [b] int32 positions for decode views, the
+        `StaticKVCache`s; under tensor parallelism a list of the ranks'
+        views per layer, rank r's over its arena shard); `pos`: [b] int32 positions for decode views, the
         chunk's position for a `StaticKVCache` (a 0-d int32 tensor or int,
         or [b] per slot).  `lora`: an adapter arena's view of the rows'
         arena slots (`lora.AdapterArena.view`), or None.  Returns the final
@@ -586,7 +714,15 @@ class LlamaForCausalLM(nn.Module):
     is absent; pass device="cpu" for the plain PyTorch path).  Weights are
     random, drawn from a torch.Generator seeded with `seed` on the model's
     device (reference-style Xavier-normal Linears, normal embeddings); load
-    real or reference weights with `models.convert`."""
+    real or reference weights with `models.convert`.
+
+    Built with `tensor_parallel_degree` > 1 (or under an installed mesh
+    whose 'mp' axis is), the projections are `ColumnParallelLinear` (q, k,
+    v, gate, up) and `RowParallelLinear` (o, down), the embedding and the
+    lm_head split over the vocabulary (reference: llama.py:521-830): the same
+    parameter names, shapes and seeded values as the one-rank model, and
+    until `shard_llama_for_tp` binds it to an 'mp' mesh it runs as one rank.
+    `logits` gathers the lm_head's vocabulary blocks."""
 
     def __init__(self, config, device=None, dtype=torch.float32, seed=0):
         super().__init__()
@@ -594,16 +730,36 @@ class LlamaForCausalLM(nn.Module):
         dtype = to_torch_dtype(dtype)
         self.config = config
         self.llama = LlamaModel(config, device, dtype)
-        self.lm_head = nn.Linear(
-            config.hidden_size, config.vocab_size, bias=False, device=device,
-            dtype=dtype,
-        )
+        if _use_tp(config):
+            # the vocabulary-split head; the sharded log-sum-exp loss
+            self.lm_head = ColumnParallelLinear(
+                config.hidden_size, config.vocab_size, has_bias=False,
+                gather_output=False, device=device, dtype=dtype)
+            self.parallel_ce = ParallelCrossEntropy(ignore_index=-100)
+        else:
+            self.lm_head = nn.Linear(
+                config.hidden_size, config.vocab_size, bias=False, device=device,
+                dtype=dtype,
+            )
+            self.parallel_ce = None
         self.init_weights(seed)
         self.eval()
 
     @property
     def device(self):
         return self.lm_head.weight.device
+
+    @property
+    def tp_ranks(self):
+        """The ranks the model runs on: the 'mp' degree it is bound to, 1
+        for a model without tensor parallelism."""
+        return self.lm_head.ranks if self.parallel_ce is not None else 1
+
+    def logits(self, hidden):
+        """The lm_head's logits of hidden [..., hidden_size]: [..., vocab],
+        the ranks' vocabulary blocks gathered under tensor parallelism."""
+        out = self.lm_head(hidden)
+        return self.lm_head.gather(out) if isinstance(out, list) else out
 
     @torch.no_grad()
     def init_weights(self, seed):
@@ -623,10 +779,19 @@ class LlamaForCausalLM(nn.Module):
         `labels` ([b, s] ids, -100 ignored) returns (loss, logits), the loss
         the mean cross-entropy of `sequence_ce` on float32 logits at the
         same positions (no shift; reference llama.py:833-839)."""
-        logits = self.lm_head(self.llama(input_ids))
+        hidden = self.llama(input_ids)
+        if self.parallel_ce is None:
+            logits = self.lm_head(hidden)
+            return logits if labels is None else (sequence_ce(logits, labels), logits)
+        parts = self.lm_head(hidden)
+        logits = self.lm_head.gather(parts)
         if labels is None:
             return logits
-        return sequence_ce(logits, labels), logits
+        # the reference's sequence_ce through ParallelCrossEntropy: the mean
+        # over the tokens whose label is not -100
+        per_tok = self.parallel_ce(parts, labels)[..., 0]
+        valid = (labels != -100).sum().clamp(min=1).float()
+        return per_tok.sum() / valid, logits
 
     @torch.no_grad()
     def generate(self, input_ids, max_new_tokens=16, temperature=0.0, top_k=0,
@@ -640,7 +805,7 @@ class LlamaForCausalLM(nn.Module):
 
         def forward_step(toks, caches, pos):
             hidden = self.llama(toks, caches=caches, pos=pos)
-            return self.lm_head(hidden[:, -1])
+            return self.logits(hidden[:, -1])
 
         return lockstep_generate(
             self, input_ids, max_new_tokens, temperature, forward_step,
@@ -648,6 +813,27 @@ class LlamaForCausalLM(nn.Module):
             decode_strategy=decode_strategy, num_beams=num_beams, seed=seed,
             eos_token_id=eos_token_id, length_penalty=length_penalty,
         )
+
+
+def shard_llama_for_tp(model, mesh=None):
+    """Bind a tensor-parallel Llama's parallel layers to the 'mp' axis of
+    `mesh` (default: the installed mesh; reference: llama.py:862-906): rank
+    r then computes with its column and row blocks of every projection, its
+    vocabulary block of the embedding and the lm_head.  The blocks are views
+    of the model's weights, so binding copies nothing.  Without a mesh
+    whose 'mp' axis is above 1 the layers run as one rank; a model without
+    parallel layers is left as it is.  The mesh's ranks must be on the
+    model's device.  Returns the model."""
+    mesh = _mesh.get_mesh() if mesh is None else mesh
+    if mesh is not None and mesh.mp > 1 and mesh.device != model.device:
+        raise ValueError(
+            f"the 'mp' ranks run on {mesh.device} but the model lives on "
+            f"{model.device}")
+    sharded = (ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding)
+    for mod in model.modules():
+        if isinstance(mod, sharded):
+            mod.shard(mesh)
+    return model
 
 
 def to_index_tensor(x, device):

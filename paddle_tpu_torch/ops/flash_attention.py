@@ -28,6 +28,11 @@ training paths:
   against a dense static KV cache, taken by `decode_attention` where the
   reference takes its Pallas kernel -- the prefill of lock-step
   generation from 64 rows.
+- `paged_decode_tp`, `paged_decode_q8_tp` (replace the reference's
+  `shard_map`s of K2 and K4 over heads): tensor-parallel paged attention,
+  one `paged_decode_fused` (or `_q8`) launch per rank over its head shard;
+  their `paged_decode_tp` / `paged_decode_tp_q8` counts are a subset of
+  K2's and K4's.
 - `paged_decode_partials` (csrc/paged_decode.cu, K2's page walk with a
   token position per table column and un-normalised output; replaces
   `_fused_paged_decode_partials_forward`): context-parallel paged
@@ -101,7 +106,8 @@ launch_counts = {"flash_fwd": 0, "paged_decode_fused": 0,
                  "paged_decode_fused_mma": 0, "paged_decode_fused_q8_mma": 0,
                  "paged_decode_fused_cp_mma": 0, "paged_decode_fused_cp_q8_mma": 0,
                  "paged_decode_fused_walk": 0, "paged_decode_fused_q8_walk": 0,
-                 "paged_decode_fused_cp_walk": 0, "paged_decode_fused_cp_q8_walk": 0}
+                 "paged_decode_fused_cp_walk": 0, "paged_decode_fused_cp_q8_walk": 0,
+                 "paged_decode_tp": 0, "paged_decode_tp_q8": 0}
 
 MAX_HEAD_DIM = 256
 # (row, key) pairs one block of the FMA paged kernel takes on, about: a
@@ -1208,6 +1214,55 @@ def paged_decode_fused_q8(q, arena_k, arena_v, k_scale, v_scale, tables, pos,
     )
     _count(code, what, path, out)
     return out
+
+
+# ---------------------------------------------------------------------------
+# K2 and K4 per head shard, for tensor-parallel decode
+# ---------------------------------------------------------------------------
+
+
+def _per_shard(what, launch, qs, *shards):
+    """One `launch` per rank over rank r's operands; counts the launches of
+    ranks on the card under `what` (a subset of K2's or K4's count)."""
+    if len({len(qs), *(len(x) for x in shards)}) != 1:
+        raise ValueError(f"{what}: one q, arena (and scale) shard per rank")
+    outs = []
+    for q, *ops in zip(qs, *shards):
+        outs.append(launch(q, *ops))
+        if q.device.type == "cuda":
+            launch_counts[what] += 1
+    return outs
+
+
+def paged_decode_tp(qs, arenas_k, arenas_v, tables, pos, max_len, scale=None):
+    """Tensor-parallel paged attention (the reference's
+    `_fused_paged_decode_tp`, flash_attention.py:1116): one K2 launch
+    (`paged_decode_fused`) per rank, over the rank's q heads qs[r] [b, sq,
+    h/N, d] and its arena shard arenas_k[r] / arenas_v[r] [pages, page_size,
+    kv_h/N, d]; the ranks share tables [b, P] and pos [b].  Rank r's q heads
+    are the rep-block of its kv heads (q head hk*rep + j belongs to kv head
+    hk, so contiguous head ranges keep each pair on one rank), and each
+    launch is K2 over a model of h/N heads.  On CPU tensors each rank runs
+    the plain version, `paged_decode_plain`.  Returns the ranks' outputs
+    [b, sq, h/N, d]."""
+    return _per_shard(
+        "paged_decode_tp",
+        lambda q, k, v: paged_decode_fused(q, k, v, tables, pos, max_len, scale),
+        qs, arenas_k, arenas_v)
+
+
+def paged_decode_q8_tp(qs, arenas_k, arenas_v, k_scales, v_scales, tables, pos,
+                       max_len, scale=None):
+    """`paged_decode_tp` over int8 pages (the reference's
+    `_fused_paged_decode_quant_tp`, flash_attention.py:1148): one K4 launch
+    (`paged_decode_fused_q8`) per rank; the scale arenas shard with their kv
+    heads (k_scales[r] [pages, page_size, kv_h/N, 1]).  On CPU tensors each
+    rank runs `paged_decode_q8_plain`."""
+    return _per_shard(
+        "paged_decode_tp_q8",
+        lambda q, k, v, ks, vs: paged_decode_fused_q8(q, k, v, ks, vs, tables, pos,
+                                                      max_len, scale),
+        qs, arenas_k, arenas_v, k_scales, v_scales)
 
 
 # ---------------------------------------------------------------------------

@@ -26,9 +26,10 @@ A scale-up spawns a replica (`spawn_fn`, by default a `ReplicaProcess`
 worker) and registers it with `Router.add_replica`; it takes no traffic
 until its probe reads ready.  The `autoscale.spawn` fault point fires in
 the spawn path: a failed spawn is absorbed, counted and retried after the
-cooldown.  The port serves tensor-parallel degree 1: an autoscaler built
-with `tp_max` > 1 raises NotImplementedError (`choose_tp` keeps the
-reference's rule).  A scale-down rides the admin drain of `rolling_restart`: the
+cooldown.  A spawn's tensor-parallel degree is `choose_tp`'s (the
+reference's rule): the largest power of two up to `tp_max` that fits the
+devices no replica claims and divides `kv_heads`; on one card that is 1.
+A scale-down rides the admin drain of `rolling_restart`: the
 router stops picking the victim, the loop polls its probe until in-flight
 work is done (bounded by `FLAGS_serve_drain_grace`), and only then
 deregisters and stops it, so no request is aborted.  Managed workers
@@ -234,10 +235,6 @@ class Autoscaler:
                 "FLAGS_autoscale_down_idle_tokens_s", float),
         }
         self.tp_max = _pick(tp_max, "FLAGS_autoscale_tp_max", int)
-        if self.tp_max > 1:
-            from ..inference.engine import _not_ported
-
-            raise _not_ported(f"tp_max {self.tp_max}", "tensor-parallel serving")
         if devices_total is None:
             import torch
 
@@ -425,7 +422,6 @@ class Autoscaler:
         t0 = time.perf_counter()
         idx = next(self._seq)
         tp = choose_tp(self._free_devices(), self.tp_max, self.kv_heads)
-        assert tp == 1, tp  # tp_max > 1 is refused in __init__
         try:
             _inj.inject("autoscale.spawn", context=f"as{idx}")
             rep = (

@@ -18,7 +18,9 @@ replica.py --port N` starts one worker: a tiny Llama built from a fixed
 seed behind a warmed engine and `serve()`.  Every worker with the same
 seed holds the same weights, so greedy outputs are the same whichever
 replica answers (what failover relies on).  The worker runs on the CUDA
-card; `--device cpu` asks for the CPU.
+card; `--device cpu` asks for the CPU.  `--tp N` serves the model's
+tensor-parallel build over N ranks on the devices `--devices` names (one
+per rank; default the visible CUDA devices, each once).
 """
 
 # PEP 366 bootstrap: the launch Container execs this file as a plain script
@@ -452,8 +454,14 @@ def main(argv=None):
              "same --lora string means the same adapters on every worker)")
     p.add_argument(
         "--tp", type=int, default=1,
-        help="tensor-parallel degree; the port serves 1 (more raises "
-             "NotImplementedError)")
+        help="tensor-parallel degree: the model's heads, its KV arena and the "
+             "paged decode kernel split over N ranks (heads and kv_heads must "
+             "divide by N; greedy outputs stay those of --tp 1)")
+    p.add_argument(
+        "--devices", default=None,
+        help="comma list of the tp ranks' devices, one per rank (a device "
+             "named several times holds several ranks; default: the visible "
+             "CUDA devices, each once)")
     p.add_argument(
         "--role", default="colocated", choices=("colocated", "prefill", "decode"),
         help="disaggregated serving role: 'prefill' workers answer /prefill "
@@ -468,10 +476,6 @@ def main(argv=None):
         help="the device the worker serves on (default: the CUDA card; "
              "'cpu' runs the plain PyTorch versions of the kernels)")
     args = p.parse_args(argv)
-    if args.tp > 1:
-        from ..inference.engine import _not_ported
-
-        raise _not_ported("--tp > 1", "tensor-parallel serving")
 
     from ..framework.core import resolve_device
     from ..inference import serve
@@ -481,8 +485,13 @@ def main(argv=None):
     device = resolve_device(args.device)  # raises with no card unless "cpu"
     # the same seed on every worker: the same weights, so greedy outputs
     # are the same whichever replica serves (the failover contract)
-    model = LlamaForCausalLM(LlamaConfig.tiny(), device=device, seed=args.seed)
+    model = LlamaForCausalLM(LlamaConfig.tiny(tensor_parallel_degree=args.tp),
+                             device=device, seed=args.seed)
     extra = {}
+    if args.tp > 1:
+        extra["tp"] = args.tp
+        if args.devices:
+            extra["devices"] = args.devices.split(",")
     if args.lora:
         # the same --lora string on every worker: the same registration
         # order and seeds, so the same adapter weights fleet-wide

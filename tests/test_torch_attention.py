@@ -138,7 +138,8 @@ def test_cpu_tensors_never_count_a_kernel_launch():
                                  "paged_decode_fused_walk": 0,
                                  "paged_decode_fused_q8_walk": 0,
                                  "paged_decode_fused_cp_walk": 0,
-                                 "paged_decode_fused_cp_q8_walk": 0}
+                                 "paged_decode_fused_cp_q8_walk": 0,
+                                 "paged_decode_tp": 0, "paged_decode_tp_q8": 0}
 
 
 # ---------------------------------------------------------------------------

@@ -21,6 +21,7 @@ import paddle_tpu as paddle
 from paddle_tpu.inference.engine import ContinuousBatchingEngine as JaxEngine
 from paddle_tpu.models import llama as jllama
 from paddle_tpu_torch import profiler
+from paddle_tpu_torch.distributed.sharding import ShardingError
 from paddle_tpu_torch.inference import serve
 from paddle_tpu_torch.inference.engine import (
     ContextOverflow,
@@ -169,20 +170,33 @@ def test_submit_rejects_what_cannot_fit(models):
         # refusals left of them (the reference's ValueErrors)
         pytest.param(dict(spec_k=-1), "spec_k must be >= 0", ValueError,
                      id="knob1-speculative"),
-        pytest.param(dict(tp=2), "tensor-parallel", NotImplementedError,
+        # tensor parallelism is ported (the tp engines of
+        # test_torch_tp_serving.py): its cases hold the typed ShardingErrors
+        # left of it.  Without a device list the 'mp' ranks take the visible
+        # CUDA devices, each once: none here
+        pytest.param(dict(tp=2), "needs 2 devices", ShardingError,
                      id="knob3-tensor-parallel"),
         pytest.param(dict(cp=2, paged=False), "requires the paged engine",
                      ValueError, id="knob4-context-parallel"),
-        # the dense slot pool itself is ported; under tensor parallelism not
-        pytest.param(dict(paged=False, tp=2), "tensor-parallel",
-                     NotImplementedError, id="knob5-dense slot-pool"),
-        # LoRA serving is ported; under tensor parallelism not
-        pytest.param(dict(lora=object(), tp=2), "tensor-parallel",
-                     NotImplementedError, id="knob6-LoRA"),
+        # the dense slot pool at tp 2 over a model built without
+        # tensor_parallel_degree: nothing for the mesh to shard
+        pytest.param(dict(paged=False, tp=2, devices=["cpu"] * 2),
+                     "tensor_parallel_degree", ShardingError,
+                     id="knob5-dense slot-pool"),
+        # LoRA at tp 4: 2 kv heads do not split over 4 ranks (checked
+        # before the arena)
+        pytest.param(dict(lora=object(), tp=4, devices=["cpu"] * 4),
+                     r"num_key_value_heads \(2\)", ShardingError,
+                     id="knob6-LoRA"),
         # disaggregated roles are ported: the dense pool refuses them with
         # the reference's ValueError
         pytest.param(dict(role="decode", paged=False), "requires the paged engine",
                      ValueError, id="knob7-disaggregated"),
+        # the combinations the reference serves that the tp slice leaves out
+        pytest.param(dict(tp=2, cp=2, devices=["cpu"] * 2), "item 15b",
+                     NotImplementedError, id="knob8-tp-x-cp"),
+        pytest.param(dict(tp=2, role="prefill", devices=["cpu"] * 2), "item 15c",
+                     NotImplementedError, id="knob9-tp-with-a-role"),
     ],
 )
 def test_unported_knobs_raise_naming_the_roadmap_item(models, knob, item, error):

@@ -215,5 +215,6 @@ def test_cpu_backward_never_counts_a_kernel_launch():
                                  "paged_decode_fused_walk": 0,
                                  "paged_decode_fused_q8_walk": 0,
                                  "paged_decode_fused_cp_walk": 0,
-                                 "paged_decode_fused_cp_q8_walk": 0}
+                                 "paged_decode_fused_cp_q8_walk": 0,
+                                 "paged_decode_tp": 0, "paged_decode_tp_q8": 0}
     assert profiler.summary()["kernel_launches"]["flash_bwd"] == 0

@@ -257,8 +257,24 @@ def test_arena_upload_rewrites_one_row_in_place_zero_padded(models):
     assert arena._rows.data_ptr() == ptr
     assert {k: (A.data_ptr(), B.data_ptr())
             for k, (A, B) in arena._stacks.items()} == views
-    with pytest.raises(NotImplementedError, match="tensor-parallel serving"):
-        arena.shard_for_tp()
+    # tensor parallelism over two ranks (reference arena.py:148-171): column
+    # targets split B on d_out, row targets A on d_in, the other factor
+    # whole; every shard is a view of the same rows, so the upload above is
+    # in every rank's shard already
+    from paddle_tpu_torch.distributed import mesh as tmesh
+
+    cpu = torch.device("cpu")
+    arena.shard_for_tp(tmesh.Mesh(dict(dict.fromkeys(tmesh.AXIS_ORDER, 1), mp=2),
+                                  cpu, [cpu, cpu]))
+    for key, (A, B) in arena._stacks.items():
+        row = key[1] in ("o_proj", "down_proj")
+        shards = [arena.rank_stacks(key, r) for r in range(2)]
+        for Ar, Br in shards:
+            assert (Br if row else Ar) is (B if row else A)
+            assert Ar.untyped_storage().data_ptr() == ptr
+            assert Br.untyped_storage().data_ptr() == ptr
+        joined = torch.cat([Ar if row else Br for Ar, Br in shards], dim=1 if row else 2)
+        assert torch.equal(joined, A if row else B)
 
 
 def test_arena_reads_its_flags(models):

@@ -135,23 +135,53 @@ def test_lora_flags_set_a_default_arena(model, flags):
     assert eng.healthz()["lora"]["capacity"] == 2
 
 
-def test_a_replica_worker_with_tp_above_one_refuses():
-    """`serving.replica --tp 2` (reference replica.py:482) raises before it
-    builds anything: the port serves one card per replica."""
+def test_a_replica_worker_with_tp_above_one_refuses(monkeypatch):
+    """`serving.replica --tp 2` (reference replica.py:482-488) builds the
+    tensor-parallel model and engine on the devices `--devices` names; with
+    no list it takes the visible CUDA devices, each once, and refuses when
+    there are too few (ShardingError, the reference's error on too few
+    devices): ranks stack on one device only when the caller names it for
+    each.  The worker's engine serves what a --tp 1 worker's serves."""
+    from paddle_tpu_torch.distributed import mesh as tmesh
+    from paddle_tpu_torch.distributed.sharding import ShardingError
+    from paddle_tpu_torch import inference
     from paddle_tpu_torch.serving import replica
 
-    with pytest.raises(NotImplementedError, match="tensor-parallel serving"):
+    with pytest.raises(ShardingError, match="needs 2 devices"):
         replica.main(["--port", "1", "--device", "cpu", "--tp", "2"])
+    served = []
+    monkeypatch.setattr(inference, "serve", lambda eng, **kw: served.append(eng))
+    saved = tmesh.get_mesh()
+    try:
+        for argv in (["--tp", "1"], ["--tp", "2", "--devices", "cpu,cpu"]):
+            assert replica.main(["--port", "1", "--device", "cpu", *argv]) == 0
+    finally:
+        tmesh.set_mesh(saved)
+    one, two = served
+    assert (one.tp, two.tp) == (1, 2)
+    assert two.model.config.tensor_parallel_degree == 2
+    assert two.healthz()["mesh_shape"] == {"mp": 2}
+    outs = []
+    for eng in served:
+        req = eng.submit(_prompt(7), max_new_tokens=6)
+        eng.run_until_idle()
+        outs.append(req.wait(1).tolist())
+    assert outs[0] == outs[1]
 
 
 def test_an_autoscaler_spawn_at_tp_above_one_refuses():
     """With devices free and `tp_max` 2 the reference's `choose_tp` picks 2
-    (autoscaler.py:433); the port refuses such an autoscaler when it is
-    built, so no background tick can swallow the refusal, and no spawn
-    function runs."""
+    (autoscaler.py:433) and the spawn function gets that degree; the port's
+    autoscaler takes `tp_max` and spawns as the reference's does, held here
+    against the reference's `choose_tp` over the same free devices."""
+    from paddle_tpu.serving.autoscaler import choose_tp as ref_choose_tp
     from paddle_tpu_torch.serving import Replica, Router
-    from paddle_tpu_torch.serving.autoscaler import Autoscaler
+    from paddle_tpu_torch.serving.autoscaler import Autoscaler, choose_tp
 
+    for free in range(0, 9):
+        for tp_max in (1, 2, 4, 8):
+            for kv in (None, 2, 4, 6):
+                assert choose_tp(free, tp_max, kv) == ref_choose_tp(free, tp_max, kv)
     rep = Replica("r0", "http://127.0.0.1:9")
     rep._note_healthz({"status": "ready", "queue_depth": 9})
     spawned = []
@@ -163,8 +193,8 @@ def test_an_autoscaler_spawn_at_tp_above_one_refuses():
                           min_replicas=1, max_replicas=3, up_ticks=1, tp_max=tp_max,
                           devices_total=4, interval=3600)
 
-    with pytest.raises(NotImplementedError, match="tensor-parallel serving"):
-        build(2)
-    assert spawned == []
+    asc = build(2)  # 3 of 4 devices free: a tp-2 spawn
+    assert asc.tick(now=10.0)["action"] == "up"
+    assert spawned == [ref_choose_tp(3, 2)] == [2]
     asc = build(1)  # a tp-1 spawn goes ahead
-    assert asc.tick(now=10.0)["action"] == "up" and spawned == [1]
+    assert asc.tick(now=10.0)["action"] == "up" and spawned == [2, 1]
