@@ -637,6 +637,22 @@ TP_DEGREES = (2, 4)
 TP_DENSE_PROMPTS = 2
 TP_F32_LAYERS = 2
 TP_TIE_REL = 0.04
+# the tp phase's tp x cp part: the cp phase's document traffic (CP_DOC_LEN
+# tokens, CP_QUESTIONS, TP_CP_FRESH fresh prompts) at tp TP_CP[0] x cp
+# TP_CP[1] against tp 1 x cp TP_CP[1], prefix cache on in both; then int8
+# pages with spec_k TP_CP_SPEC_K; then float32 at TP_F32_LAYERS layers
+# against tp 1 x cp 1
+TP_CP = (2, 2)
+TP_CP_FRESH = CP_FRESH
+TP_CP_SPEC_K = 2
+# the tp phase's roles part: prompts of TP_ROLE_LENS tokens (64: half a
+# page; 200: a page and a partial one) through in-process handoffs between
+# tp 1 and tp 2 prefill and decode engines of TP_ROLE_ENGINE's geometry,
+# TP_ROLE_NEW tokens each, prefix cache off
+TP_ROLE_LENS = (64, 200)
+TP_ROLE_NEW = 16
+TP_ROLE_ENGINE = dict(slots=2, max_len=512, page_size=128,
+                      prefill_buckets=[32, 64, 128, 256])
 # the disagg phase: five requests, each through the three hops by hand
 # (POST /reserve to the decode server, /prefill to the prefill server,
 # /generate with the handoff to the decode server); a DISAGG_SYS_LEN-token
@@ -750,27 +766,32 @@ def time_ms(fn, iters=20, warmup=3):
 def device_ms(fn, iters=10, warmup=2):
     """The device time of `fn()` per call: the summed durations of the
     kernels it launches, from torch.profiler over `iters` calls after
-    `warmup`, without the wrapper's host time.  Returns (ms, {kernel name:
-    ms per call}); (None, {}) when the profiler saw no device time."""
+    `warmup`, without the wrapper's host time.  torch.profiler can lose a
+    window's kernel records, so a window with no device time is profiled
+    once more.  Returns (ms, {kernel name: ms per call}); (None, {}) when
+    neither window saw device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    kernels = {}
-    for ev in prof.key_averages():
-        if (ev.device_type == torch.autograd.DeviceType.CUDA
-                and not getattr(ev, "is_user_annotation", False)):
-            us = getattr(ev, "self_device_time_total", 0.0)
-            if us > 0:
-                kernels[ev.key] = kernels.get(ev.key, 0.0) + us / iters / 1e3
-    total = sum(kernels.values())
-    return (total if total > 0 else None), kernels
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kernels = {}
+        for ev in prof.key_averages():
+            if (ev.device_type == torch.autograd.DeviceType.CUDA
+                    and not getattr(ev, "is_user_annotation", False)):
+                us = getattr(ev, "self_device_time_total", 0.0)
+                if us > 0:
+                    kernels[ev.key] = kernels.get(ev.key, 0.0) + us / iters / 1e3
+        total = sum(kernels.values())
+        if total > 0:
+            return total, kernels
+    return None, kernels
 
 
 def _dev_txt(ms):
@@ -1668,6 +1689,83 @@ def _k5_case(b, sq, h, hk, pos, d=128, ps=128, max_len=4096, cp=2, seed=20,
     return ok, dict(max_abs_err=err, ms=ms, device_ms=dev, plain_ms=plain_ms,
                     bound_ms=bms, bound_by=by, library_ms=None,
                     k2_same_arena_ms=k2_ms, k2_same_arena_device_ms=k2_dev)
+
+
+def _k5_tp_case(b, sq, h, hk, pos, tp=2, d=128, ps=128, max_len=4096, cp=2,
+                seed=72, dtype="bfloat16", quant=False):
+    """K5 per head shard (`paged_decode_cp_tp`, over int8 pages with
+    `quant`): a tp x cp decode step's q heads and cp arena split over `tp`
+    ranks on the card, every rank's arena in the cp page layout, the ranks
+    sharing one set of stacked local tables; each rank's output against
+    the plain version over its shard (`paged_decode_plain` or its int8
+    version over the rank's global arena).  Times one shard's launch
+    (kernel, device and plain ms, the plain being the per-shard
+    partials and combine the wrapper runs on the CPU; bound per shard)
+    and the call over every rank; no PyTorch call reads pages."""
+    import torch
+
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    q, ak, av, scales, tables, pos_t = _cp_inputs(
+        b, sq, h, hk, pos, d, ps, max_len, cp, seed, dtype, quant)
+    split = lambda t: [c.contiguous() for c in t.chunk(tp, dim=2)]  # noqa: E731
+    qs, ks, vs = split(q), split(ak), split(av)
+    sc = [split(x) for x in scales] if quant else [[None] * tp, [None] * tp]
+    per = ak.shape[0] // cp
+    stacked = fa.cp_stacked_tables(tables, cp, per, ps)
+    local = fa.cp_local_tables(tables, cp, per, ps)
+    scale = d ** -0.5
+    name = "paged_decode_cp_tp_q8" if quant else "paged_decode_cp_tp"
+    call = lambda: fa.paged_decode_cp_tp(  # noqa: E731
+        qs, ks, vs, tables, pos_t, max_len, cp, None,
+        *(sc if quant else (None, None)), local=stacked)
+    one = lambda: fa.paged_decode_cp(qs[0], ks[0], vs[0], tables, pos_t, max_len,  # noqa: E731
+                                     cp, None, sc[0][0], sc[1][0], stacked)
+
+    def plain(r):
+        if quant:
+            return fa.paged_decode_q8_plain(qs[r], ks[r], vs[r], sc[0][r], sc[1][r],
+                                            tables, pos_t, max_len, scale)
+        return fa.paged_decode_plain(qs[r], ks[r], vs[r], tables, pos_t, max_len, scale)
+
+    before = fa.launch_counts[name]
+    outs = call()
+    torch.cuda.synchronize()
+    launched = fa.launch_counts[name] - before
+    ok, err = launched == tp, 0.0
+    for r, out in enumerate(outs):
+        ref = plain(r)
+        err = max(err, (out.float() - ref.float()).abs().max().item())
+        ok &= close(out, ref)
+    hr, kr = h // tp, hk // tp
+    shape = (f"{name} {dtype} b={b} sq={sq} h={h} hk={hk} cp={cp} over tp={tp} "
+             f"ranks ({hr} q heads, {kr} kv heads each, its arena in {cp} page "
+             f"shards) d={d} ps={ps} max_len={max_len} pos={pos}: {launched} "
+             f"launches, max_abs_err {err:.3e}")
+    ms = time_ms(one)
+    dev, parts = device_ms(one)
+    sc0 = (sc[0][0], sc[1][0]) if quant else ()
+    plain_ms = time_ms(lambda: _cp_run(qs[0], ks[0], vs[0], sc0, local, pos_t,
+                                       max_len, cp, scale,
+                                       fa.paged_decode_partials_plain))
+    all_ms = time_ms(call)
+    # one shard's bytes: its live K/V rows of its kv heads (float32 scales
+    # under int8), its q and out blocks, the local tables, page_base, pos
+    live = [min(p + sq, max_len) for p in pos]
+    row_bytes = d + 4 if quant else d * ak.element_size()
+    nbytes = (sum(live) * kr * row_bytes * 2 + 2 * qs[0].numel() * q.element_size()
+              + tables.numel() * 4 + tables.shape[1] * 4 + b * 4)
+    visible = sum(min(p + w + 1, max_len) for p in pos for w in range(sq))
+    path = fa.paged_path((hr // kr) * sq, d, q.dtype)
+    bms, by = bound(nbytes, 4 * d * hr * visible,
+                    PEAK_F32_FLOP_S if path == "fma" else PEAK_BF16_FLOP_S)
+    log("kernels", f"{shape}; one shard: kernel_ms {ms:.4f}, device_ms "
+                   f"{_dev_txt(dev)} ({_parts_txt(parts)}), plain_ms {plain_ms:.4f}, "
+                   f"library_ms null (no PyTorch call reads pages), bound_ms "
+                   f"{bms:.5f} ({by}); all {tp} shards {all_ms:.4f} ms -> "
+                   f"{'ok' if ok else 'FAIL'}")
+    return ok, dict(max_abs_err=err, ms=ms, device_ms=dev, plain_ms=plain_ms,
+                    bound_ms=bms, bound_by=by, library_ms=None, all_shards_ms=all_ms)
 
 
 # The chunk window's tensor-core path (rows = rep * sq >= 16, bf16, d 64 or
@@ -2631,6 +2729,13 @@ def phase_kernels():
         case(_k5_case, errs5, seed=21, timed=False, **kw)
     for kw in K5_CHUNK_CASES:
         case(_k5_case, errs5c, seed=22, timed=False, **kw)
+    # K5 per head shard: the tp x cp decode step (tp 2 x cp 2: 16 of the 32
+    # heads and 16 kv heads per rank, each rank's arena in two page
+    # shards), each rank against its plain version
+    k5tp = case(_k5_tp_case, None, b=8, sq=1, h=32, hk=32, pos=K5_DECODE_POS,
+                tp=TP_CP[0], cp=TP_CP[1])
+    k5tp8 = case(_k5_tp_case, None, b=8, sq=1, h=32, hk=32, pos=K5_DECODE_POS,
+                 tp=TP_CP[0], cp=TP_CP[1], quant=True, seed=73)
     # the ring operands of K1 and K3: timed at the ring's shapes, then on
     # every path
     ring_ok, ring_recs = ring_kernel_cases(timed=True)
@@ -2668,7 +2773,9 @@ def phase_kernels():
             "paged_decode_fused_dense_gpt": worst(k2d_gpt, errs2d),
             "paged_decode_fused_cp": worst(k5, errs5),
             "paged_decode_fused_cp_walk": worst(k5w, errs5w),
-            "paged_decode_fused_cp_mma": worst(k5c, errs5c)}, ok_all
+            "paged_decode_fused_cp_mma": worst(k5c, errs5c),
+            "paged_decode_cp_tp": k5tp,
+            "paged_decode_cp_tp_q8": k5tp8}, ok_all
 
 
 def _k6_is_k1(dtype, sq):
@@ -3241,6 +3348,20 @@ def _post_status(url, body):
     return status, payload
 
 
+def _cp_traffic(cfg, doc_len, questions, fresh):
+    """The cp phase's traffic: (its generator, drawn on after it; the
+    document; the document with each question appended; the fresh
+    prompts), np.int32."""
+    import numpy as np
+
+    rng = np.random.default_rng(2)
+    doc = rng.integers(1, cfg.vocab_size, size=doc_len)
+    shared = [np.concatenate([doc, rng.integers(1, cfg.vocab_size, size=n)])
+              .astype(np.int32) for n in questions]
+    others = [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32) for n in fresh]
+    return rng, doc, shared, others
+
+
 def phase_cp(smi, model, device="cuda", doc_len=CP_DOC_LEN,
              questions=CP_QUESTIONS, fresh=CP_FRESH, new_tokens=CP_NEW,
              overflow_len=CP_OVERFLOW, runs=CP_RUNS, profile_len=CP_DOC_LEN,
@@ -3271,11 +3392,7 @@ def phase_cp(smi, model, device="cuda", doc_len=CP_DOC_LEN,
     cfg = model.config
     layers = cfg.num_hidden_layers
     on_card = torch.device(device).type == "cuda"
-    rng = np.random.default_rng(2)
-    doc = rng.integers(1, cfg.vocab_size, size=doc_len)
-    shared = [np.concatenate([doc, rng.integers(1, cfg.vocab_size, size=n)])
-              .astype(np.int32) for n in questions]
-    others = [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32) for n in fresh]
+    rng, doc, shared, others = _cp_traffic(cfg, doc_len, questions, fresh)
     spec = [(p, new_tokens) for p in shared + others]
     batches = [spec[:1], spec[1:]]
     overflow = rng.integers(1, cfg.vocab_size, size=overflow_len).astype(np.int32)
@@ -3455,11 +3572,7 @@ def phase_cp_f32(smi, model, device="cuda", doc_len=CP_DOC_LEN,
     cfg = model.config
     layers = cfg.num_hidden_layers
     on_card = torch.device(device).type == "cuda"
-    rng = np.random.default_rng(2)  # phase_cp's traffic
-    doc = rng.integers(1, cfg.vocab_size, size=doc_len)
-    shared = [np.concatenate([doc, rng.integers(1, cfg.vocab_size, size=n)])
-              .astype(np.int32) for n in questions]
-    others = [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32) for n in fresh]
+    _, _, shared, others = _cp_traffic(cfg, doc_len, questions, fresh)
     spec = [(p, new_tokens) for p in shared + others]
     batches = [spec[:1], spec[1:]]
     log("cp_f32", f"Llama {cfg.hidden_size} hidden x {layers} layers in "
@@ -5426,18 +5539,25 @@ def check_import_replay(phase, engine):
     so the check leaves the engine as it was.  Returns whether it held."""
     import torch
 
+    from paddle_tpu_torch.inference.paging import split_kv_heads
+
     g = engine._import_g
     inp = g.inputs(None)
     dst = int(inp["dst"][0])
     names = [n for n in ("k", "v", "k_scale", "v_scale") if f"{n}_tiles" in inp]
+    # under tp each layer's entry is the ranks' arenas, rank r holding its
+    # head block of the whole-head tiles
+    layers = [x if isinstance(x, list) else [x] for x in engine._arenas]
 
     def scribble():
-        for a in engine._arenas:
-            for n in names:
-                getattr(a, n)[dst].fill_(1)
+        for ranks in layers:
+            for a in ranks:
+                for n in names:
+                    getattr(a, n)[dst].fill_(1)
 
     def read():
-        return [getattr(a, n)[dst].clone() for a in engine._arenas for n in names]
+        return [getattr(a, n)[dst].clone() for ranks in layers for a in ranks
+                for n in names]
 
     scribble()
     g(None)
@@ -5446,11 +5566,13 @@ def check_import_replay(phase, engine):
     with torch.no_grad():
         g.body(**inp)
     eager = read()
-    want = [inp[f"{n}_tiles"][i] for i in range(len(engine._arenas)) for n in names]
+    want = [split_kv_heads(inp[f"{n}_tiles"][i:i + 1], len(ranks))[r][0]
+            for i, ranks in enumerate(layers) for r in range(len(ranks))
+            for n in names]
     same = all(torch.equal(a, b) for a, b in zip(replayed, eager))
     whole = all(torch.equal(a, b) for a, b in zip(replayed, want))
     log(phase, f"import replay vs eager on page {dst} ({'/'.join(names)} of "
-               f"{len(engine._arenas)} layers): replay == eager "
+               f"{len(engine._arenas)} layers x {len(layers[0])} ranks): replay == eager "
                f"{same}, == the tiles {whole} -> "
                f"{'ok' if same and whole else 'FAIL'}")
     return same and whole
@@ -6397,15 +6519,16 @@ def tp_twin(model, tp):
     return twin
 
 
-def _tp_engine(model, tp, device, **kw):
+def _tp_engine(model, tp, device, prefix_cache=False, **kw):
     """A warmed paged (or dense) engine at degree tp over `model` (a twin
     at tp > 1), every rank on `device`, named explicitly; prefix cache
-    off, so tokens compare across engines (the parity rule)."""
+    off unless asked for, so tokens compare across engines (the parity
+    rule)."""
     from paddle_tpu_torch.inference.engine import ContinuousBatchingEngine
 
     extra = dict(tp=tp, devices=[device] * tp) if tp > 1 else {}
     engine = ContinuousBatchingEngine(model, seed=0, device=device,
-                                      prefix_cache=False, **extra, **kw)
+                                      prefix_cache=prefix_cache, **extra, **kw)
     engine.warmup()
     return engine
 
@@ -6715,6 +6838,381 @@ def phase_tp(smi, model, device="cuda", prompts_spec=SLICE_PROMPTS,
     finally:
         tmesh.set_mesh(saved_mesh)
     return ok_all, all_counts
+
+
+def _tp_cp_run(engine, batches):
+    """Each batch of (prompt, max_new_tokens) submitted together with
+    logits kept and served to its end before the next (the first commits
+    the document); (generated tokens, kept logits, requests), per request
+    in order."""
+    import numpy as np
+
+    outs, logits, reqs = [], [], []
+    for batch in batches:
+        rs = [engine.submit(p, max_new_tokens=n, keep_logits=True) for p, n in batch]
+        engine.run_until_idle()
+        for r, (p, _) in zip(rs, batch):
+            outs.append(np.asarray(r.wait(1)[p.size:], np.int32))
+            logits.append(r.logits)
+        reqs += rs
+    return outs, logits, reqs
+
+
+def _tp_cp_counts(tp, layers, misses, hits, steps, quant=False, wgmma=True):
+    """The launches of a tp x cp run: K1 once per rank per layer per fresh
+    prefill, K5 per head shard once per rank per layer per paged attention
+    (each decode or verify step on the decode walk, each chunk prefill of
+    a hit on the tensor-core window; both on the FMA walk in float32)."""
+    k5 = "paged_decode_fused_cp" + ("_q8" if quant else "")
+    want = {"flash_fwd": tp * misses * layers,
+            k5: tp * layers * (steps + hits),
+            "paged_decode_cp_tp" + ("_q8" if quant else ""): tp * layers * (steps + hits)}
+    if wgmma:  # bf16: fresh prompts past 128 rows, chunks past 16
+        want.update({"flash_fwd_wgmma": tp * misses * layers,
+                     k5 + "_mma": tp * layers * hits, k5 + "_walk": tp * layers * steps})
+    return want
+
+
+def phase_tp_cp(smi, model, device="cuda", degrees=TP_CP, doc_len=CP_DOC_LEN,
+                questions=CP_QUESTIONS, fresh=TP_CP_FRESH, new_tokens=CP_NEW,
+                spec_k=TP_CP_SPEC_K, f32_layers=TP_F32_LAYERS, **engine_kw):
+    """The tp phase's tp x cp part (K5 per head shard): the cp phase's
+    document traffic (the first question alone so that it commits, then
+    the others, prefix hits through their chunk windows, beside the fresh
+    prompts), logits kept, through tp 1 x cp and tp x cp engines over
+    `model` (a `tp_twin` at tp), prefix cache on in both, every rank on
+    `device`.  Checks: both took the same hits; tokens equal to tp 1 x
+    cp's up to the first parting and a near tie there (TP_TIE_REL); K5
+    per head shard once per rank per layer per paged attention and no K2
+    or K4; no retrace; /healthz's mesh; a prefill, a hit's chunk prefill
+    and a decode replay equal to eager bit for bit.  Then int8 pages with
+    spec_k at tp x cp (K4's pages through K5: launches, no retrace, a
+    verify replay, logits against the teacher-forced forward within
+    LOGIT_REL_TOL), and a float32 Llama of `f32_layers` layers at full
+    width, tp x cp against tp 1 x cp 1, tokens identical.  Prints decode
+    ms a step and kernels per step at tp x cp (a profiled step).  Returns
+    (all passed, the launch counts of each tp x cp run)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.distributed import mesh as tmesh
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+
+    tp, cp = degrees
+    cfg = model.config
+    layers = cfg.num_hidden_layers
+    on_card = torch.device(device).type == "cuda"
+    rng, doc, shared, others = _cp_traffic(cfg, doc_len, questions, fresh)
+    spec = [(p, new_tokens) for p in shared + others]
+    batches = [spec[:1], spec[1:]]
+    ok_all, all_counts = True, []
+    saved_mesh = tmesh.get_mesh()
+    tag = f"tp {tp} x cp {cp}"
+
+    def check(phase, good, what):
+        nonlocal ok_all
+        ok_all &= bool(good)
+        log(phase, f"{what} -> {'ok' if good else 'FAIL'}")
+
+    def reset():
+        profiler.reset_kernel_launch_counts()
+        profiler.reset_serving()
+        profiler.reset_paging()
+        profiler.reset_speculation()
+
+    def served(phase, engine, warm, want_counts):
+        """The run's counts, steps and hits after `_tp_cp_run`; checks the
+        launches and that nothing traced."""
+        nonlocal ok_all
+        counts = profiler.kernel_launch_counts()
+        steps = profiler.serving_summary()["decode_steps"]
+        hits = profiler.paging_summary().get("prefix_hits", 0)
+        all_counts.append(counts)
+        ok_all &= _no_retrace(phase, engine, warm)
+        ok_all &= _tp_counts_ok(phase, counts, want_counts(hits, steps), on_card)
+        return counts, steps, hits
+
+    try:
+        # -- tp 1 x cp: the tokens tp x cp is held to -------------------------
+        t0 = time.perf_counter()
+        base_eng = _tp_engine(model, 1, device, prefix_cache=True, cp=cp, **engine_kw)
+        reset()
+        base, base_lg, _ = _tp_cp_run(base_eng, batches)
+        base_hits = profiler.paging_summary().get("prefix_hits", 0)
+        del base_eng
+        _free()
+        log(tag, f"tp 1 x cp {cp}: built, warmed and served {len(spec)} requests "
+                 f"({base_hits} prefix hits) in {time.perf_counter() - t0:.1f} s")
+
+        # -- tp x cp: the main path -------------------------------------------
+        phase = tag
+        t0 = time.perf_counter()
+        twin = tp_twin(model, tp)
+        engine = _tp_engine(twin, tp, device, prefix_cache=True, cp=cp, **engine_kw)
+        warm = _warm_counts(phase, engine)
+        health = engine.healthz()
+        check(phase, health["tp"] == tp and health["cp"] == cp
+              and health["mesh_shape"] == {"cp": cp, "mp": tp}
+              and len(health["page_free_by_shard"]) == cp,
+              f"/healthz tp {health['tp']} cp {health['cp']} mesh_shape "
+              f"{health['mesh_shape']} page_free_by_shard "
+              f"{health['page_free_by_shard']}, {engine.pool_pages} pages per rank "
+              f"arena, devices {[str(d) for d in engine._mesh.devices]}")
+        reset()
+        got, lg, _ = _tp_cp_run(engine, batches)
+        misses = len(spec) - base_hits
+        counts, steps, hits = served(phase, engine, warm, lambda h, st: _tp_cp_counts(
+            tp, layers, len(spec) - h, h, st))
+        check(phase, hits == base_hits == len(shared) - 1,
+              f"prefix hits {hits} at tp {tp} x cp {cp}, {base_hits} at tp 1 x cp "
+              f"{cp} (expected {len(shared) - 1}): both ran K5's chunk window on "
+              f"the same requests, {misses} fresh prefills")
+        log(phase, f"K5 per head shard: {counts['paged_decode_cp_tp']} launches over "
+                   f"{steps} decode steps and {hits} chunk prefills (tp x layers = "
+                   f"{tp * layers} each: {tp * layers * (steps + hits)})")
+        good, same, notes = _tp_parity(phase, base, base_lg, got, lg, TP_TIE_REL)
+        check(phase, good, f"tokens against tp 1 x cp {cp}'s: {same}/{len(spec)} "
+                           f"requests equal bit for bit; {notes or 'no divergence'} "
+                           f"(TP_TIE_REL {TP_TIE_REL})")
+        n = min(100, engine.max_len // 4)
+        ok_all &= check_replay(phase, engine, [
+            rng.integers(1, cfg.vocab_size, size=n).astype(np.int32),
+            np.concatenate([doc, rng.integers(1, cfg.vocab_size, size=n)])
+            .astype(np.int32)], want=("prefill", "chunk_prefill", "decode"))
+        prof = profile_decode(engine, cfg, rng, prompt_len=doc_len) if on_card else None
+        log(phase, f"decode step ({engine.slots} slots at ~{doc_len} tokens): "
+                   + (f"{prof['wall_ms']:.3f} ms/step, {prof['kernels_per_step']:.0f} "
+                      f"kernels/step" if prof else "not measured") + f" | {smi}")
+        del engine
+        _free()
+        log(phase, f"done in {time.perf_counter() - t0:.1f} s")
+
+        # -- int8 pages with speculation --------------------------------------
+        phase = f"{tag} int8 spec{spec_k}"
+        t0 = time.perf_counter()
+        engine = _tp_engine(twin, tp, device, prefix_cache=True, cp=cp,
+                            kv_quant="int8", spec_k=spec_k, **engine_kw)
+        warm = _warm_counts(phase, engine)
+        reset()
+        got8, _, reqs = _tp_cp_run(engine, batches)
+        counts, steps, hits = served(phase, engine, warm, lambda h, st: _tp_cp_counts(
+            tp, layers, len(spec) - h, h, st, quant=True))
+        spec_sum = profiler.speculation_summary()
+        agree, total, worst, finite = _teacher_forced(
+            model, device, [p for p, _ in spec], got8, reqs, phase)
+        same = sum(int((a == b).sum()) for a, b in zip(got8, got))
+        check(phase, worst <= LOGIT_REL_TOL and finite and hits == base_hits,
+              f"teacher-forced greedy agreement {agree}/{total}; worst logits rel "
+              f"err {worst:.4f} (tol {LOGIT_REL_TOL}); {hits} prefix hits; "
+              f"tokens equal to bf16 tp {tp} x cp {cp}'s per position "
+              f"{same}/{sum(g.size for g in got)}; speculation {spec_sum}")
+        ok_all &= check_replay(phase, engine, [spec[-1][0][:200]], want=("verify",))
+        del engine, reqs, twin
+        _free()
+        log(phase, f"done in {time.perf_counter() - t0:.1f} s")
+
+        # -- float32 at full width, f32_layers layers: identical tokens -------
+        phase = f"{tag} float32"
+        t0 = time.perf_counter()
+        tmesh.set_mesh(saved_mesh)  # a plain Llama: no 'mp' mesh installed
+        f32 = LlamaForCausalLM(LlamaConfig.llama2_7b(num_hidden_layers=f32_layers),
+                               device=device, dtype="float32", seed=0)
+        f1 = _tp_engine(f32, 1, device, prefix_cache=True, **engine_kw)
+        basef, basef_lg, _ = _tp_cp_run(f1, batches)
+        del f1
+        _free()
+        twin = tp_twin(f32, tp)
+        engine = _tp_engine(twin, tp, device, prefix_cache=True, cp=cp, **engine_kw)
+        warm = _warm_counts(phase, engine)
+        reset()
+        gotf, lgf, _ = _tp_cp_run(engine, batches)
+        served(phase, engine, warm, lambda h, st: _tp_cp_counts(
+            tp, f32_layers, len(spec) - h, h, st, wgmma=False))
+        good, same, notes = _tp_parity(phase, basef, basef_lg, gotf, lgf)
+        check(phase, good and same == len(spec),
+              f"float32, {f32_layers} layers: tp {tp} x cp {cp} against tp 1 x cp 1, "
+              f"{same}/{len(spec)} requests' tokens identical; "
+              f"{notes or 'no divergence'}")
+        del engine, twin, f32
+        _free()
+        log(phase, f"done in {time.perf_counter() - t0:.1f} s")
+    finally:
+        tmesh.set_mesh(saved_mesh)
+    return ok_all, all_counts
+
+
+def _handoff(pre, dec, prompt, new_tokens, logits=False):
+    """One in-process handoff: `prompt` prefilled with one token and its
+    rows exported by the prefill engine, then imported and decoded by the
+    decode engine.  Returns (generated tokens, the payload, the decode
+    request)."""
+    import numpy as np
+
+    h = pre.submit(prompt, max_new_tokens=1, export_kv=True)
+    pre.run_until_idle()
+    h.wait(60)
+    payload = h.kv_export
+    req = dec.submit(prompt, max_new_tokens=new_tokens, handoff=payload,
+                     keep_logits=logits)
+    dec.run_until_idle()
+    return np.asarray(req.wait(60)[prompt.size:], np.int32), payload, req
+
+
+def phase_tp_roles(smi, model, device="cuda", tp=TP_CP[0], lens=TP_ROLE_LENS,
+                   new_tokens=TP_ROLE_NEW, f32_layers=TP_F32_LAYERS,
+                   engine_kw=TP_ROLE_ENGINE):
+    """The tp phase's roles part: tensor-parallel engines in the
+    disaggregated roles, prefix cache off, every rank on `device`, handoffs
+    in process (export at the prefill engine's finish, `submit(handoff=)`
+    on the decode engine).  In `model`'s dtype: a tp prefill role handing
+    off to a tp decode role gives a colocated tp engine's tokens bit for
+    bit; tp -> 1 and 1 -> tp give a colocated engine of the decode side's
+    degree's tokens up to the first parting and a near tie there
+    (TP_TIE_REL); the decode side launches K2 per head shard (tp x layers
+    a step) or K2 (layers a step); one import replay equals eager bit for
+    bit.  Over int8 pages one tp -> 1 pair, tied the same way.  Then a
+    float32 Llama of `f32_layers` layers at full width: every pair's tokens
+    identical to a colocated tp 1 engine's.  Wire bytes per prompt token
+    equal tp 1's: 2 x layers x kv_heads x head_dim x the element's bytes
+    (524,288 for Llama-2-7B in bf16).  Prints the per-stage handoff ms of
+    every pair in `model`'s dtype, a tp 1 -> tp 1 pair among them.  Returns
+    (all passed, [the launch counts of the part])."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.distributed import mesh as tmesh
+    from paddle_tpu_torch.inference import engine as engine_mod
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+
+    cfg = model.config
+    on_card = torch.device(device).type == "cuda"
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32) for n in lens]
+    ok_all = True
+    saved_mesh = tmesh.get_mesh()
+
+    def check(phase, good, what):
+        nonlocal ok_all
+        ok_all &= bool(good)
+        log(phase, f"{what} -> {'ok' if good else 'FAIL'}")
+
+    def wire(mdl, quant):
+        c = mdl.config
+        row = c.head_dim + 4 if quant == "int8" else \
+            c.head_dim * mdl.lm_head.weight.element_size()
+        return 2 * c.num_hidden_layers * _kv_heads(c) * row
+
+    def run_pass(label, models, quant, pairs, identical, timed=False):
+        """Engines at each degree of `models` (colocated, prefill, decode as
+        the pairs need), each pair's handoffs against the colocated engine
+        of the decode side's degree (of tp 1 with `identical`); with
+        `timed`, each pair's per-stage handoff ms."""
+        nonlocal ok_all
+        phase = f"tp roles {label}"
+        t0 = time.perf_counter()
+        need = {(a, "prefill") for a, _ in pairs} | {(b, "decode") for _, b in pairs}
+        need |= {(1 if identical else b, "colocated") for _, b in pairs}
+        eng = {(d, role): _tp_engine(models[d], d, device, role=role, kv_quant=quant,
+                                     **engine_kw)
+               for d, role in sorted(need)}
+        warm = {k: e.compile_counts() for k, e in eng.items()}
+        base = {}
+        for (d, role), e in eng.items():
+            if role == "colocated":
+                base[d] = _tp_run(e, prompts, [new_tokens] * len(prompts), logits=True)
+        times = {pair: {k: [] for k in ("export", "serialize", "stage", "import")}
+                 for pair in pairs}
+        cur = [None]
+        serialize = engine_mod.serialize_kv_handoff
+        if timed:
+            # what the hops cost at each pair's degrees: the export's gather,
+            # join and copy, its serialization, the decode side's staging and
+            # import (the tp 1 -> tp 1 pair is the baseline of the join)
+            def timed_fn(what, fn):
+                def run(*a, **kw):
+                    t = time.perf_counter()
+                    try:
+                        return fn(*a, **kw)
+                    finally:
+                        times[cur[0]][what].append((time.perf_counter() - t) * 1e3)
+                return run
+
+            for (d, role), e in eng.items():
+                if role == "prefill":
+                    e._export_rows_locked = timed_fn("export", e._export_rows_locked)
+                elif role == "decode":
+                    e._stage_handoff = timed_fn("stage", e._stage_handoff)
+                    e._import_into_paged = timed_fn("import", e._import_into_paged)
+            engine_mod.serialize_kv_handoff = timed_fn("serialize", serialize)
+        try:
+            for a, b in pairs:
+                pre, dec = eng[(a, "prefill")], eng[(b, "decode")]
+                cur[0] = (a, b)
+                ref, ref_lg = base[1 if identical else b]
+                c0, r0 = profiler.kernel_launch_counts(), dec._decode_g.replay_count
+                got, per_tok = [], set()
+                for p in prompts:
+                    toks, payload, _ = _handoff(pre, dec, p, new_tokens)
+                    got.append(toks)
+                    per_tok.add(payload["payload_bytes"] / p.size)
+                c1, steps = profiler.kernel_launch_counts(), dec._decode_g.replay_count - r0
+                layers = models[b].config.num_hidden_layers
+                key = ("paged_decode_tp" if b > 1 else "paged_decode_fused") + (
+                    "_q8" if quant == "int8" else "")
+                want = (b if b > 1 else 1) * layers * steps if on_card else 0
+                counted = c1[key] - c0[key]
+                good, same, notes = _tp_parity(phase, ref, ref_lg, got, None,
+                                               None if (identical or a == b) else TP_TIE_REL)
+                check(phase, good and (same == len(prompts) if identical or a == b else True)
+                      and counted == want and per_tok == {wire(models[b], quant)},
+                      f"tp {a} prefill -> tp {b} decode: {same}/{len(prompts)} "
+                      f"requests' tokens equal a colocated tp "
+                      f"{1 if identical else b} engine's bit for bit; "
+                      f"{notes or 'no divergence'}; wire bytes per prompt token "
+                      f"{sorted(per_tok)} (tp 1's: {wire(models[b], quant)}); decode "
+                      f"side {key} launches {counted} over {steps} steps "
+                      f"(expected {want})")
+        finally:
+            engine_mod.serialize_kv_handoff = serialize
+        for (d, role), e in eng.items():
+            ok_all &= _no_retrace(f"{phase} tp {d} {role}", e, warm[(d, role)])
+            if role == "decode" and d > 1:
+                ok_all &= check_import_replay(f"{phase} tp {d}", e)
+        if timed:
+            for a, b in pairs:
+                t = times[(a, b)]
+                log(phase, f"handoff ms at tp {a} -> tp {b}, per request (prompt "
+                           f"tokens: export gather + join + copy, serialize, "
+                           f"decode-side stage, import): " + "; ".join(
+                               f"{L}: {t['export'][i]:.2f}, {t['serialize'][i]:.2f}, "
+                               f"{t['stage'][i]:.2f}, {t['import'][i]:.2f}"
+                               for i, L in enumerate(lens)) + f" | {smi}")
+        del eng, base
+        _free()
+        log(phase, f"done in {time.perf_counter() - t0:.1f} s")
+
+    profiler.reset_kernel_launch_counts()
+    try:
+        twin = tp_twin(model, tp)
+        models = {1: model, tp: twin}
+        run_pass(str(model.lm_head.weight.dtype).removeprefix("torch."), models,
+                 "none", [(tp, tp), (tp, 1), (1, tp), (1, 1)], False, timed=True)
+        run_pass("int8", models, "int8", [(tp, 1)], False)
+        del twin, models
+        _free()
+        tmesh.set_mesh(saved_mesh)  # a plain Llama: no 'mp' mesh installed
+        f32 = LlamaForCausalLM(LlamaConfig.llama2_7b(num_hidden_layers=f32_layers),
+                               device=device, dtype="float32", seed=0)
+        run_pass("float32", {1: f32, tp: tp_twin(f32, tp)}, "none",
+                 [(tp, tp), (tp, 1), (1, tp)], True)
+        del f32
+        _free()
+        counts = profiler.kernel_launch_counts()
+    finally:
+        tmesh.set_mesh(saved_mesh)
+    return ok_all, [counts]
 
 
 def _device_profile(run, steps):
@@ -10293,11 +10791,17 @@ def main():
         # over the loaded weights
         tp_ok, tp_counts = _timed("tp", phase_tp, smi, model, **serving)
         _free()
+        # tp engines in the disaggregated roles: tp 2 and tp 1 pairs
+        roles_ok, roles_counts = _timed("tp", phase_tp_roles, smi, model)
+        _free()
         # buckets up to the context: every prompt of the traffic lands in a
         # warmed one, so none traces under traffic
         cp_kw = dict(slots=4, max_len=4096, page_size=128,
                      prefill_buckets=[32, 64, 128, 256, 512, 2048, 4095])
         cp_ok, cp_counts = _timed("cp", phase_cp, smi, model, **cp_kw)
+        _free()
+        # tensor x context parallelism: K5 per head shard, the cp traffic
+        tpcp_ok, tpcp_counts = _timed("tp", phase_tp_cp, smi, model, **cp_kw)
         _free()
         # F4: the same traffic in float32, the model and its arenas too
         model.float()
@@ -10417,7 +10921,8 @@ def main():
         "kernels": kernels_ok, "slice": slice_ok, "prefix": prefix_ok,
         "generate": gen_ok, "dense": dense_ok, "fault": fault_ok, "obs": obs_ok,
         "lora": lora_ok, "sessions": sessions_ok, "disagg": disagg_ok,
-        "fleet": fleet_ok, "tp": tp_ok, "cp": cp_ok, "cp_f32": f32_ok, "train": train_ok,
+        "fleet": fleet_ok, "tp": tp_ok, "tp roles": roles_ok, "tp x cp": tpcp_ok,
+        "cp": cp_ok, "cp_f32": f32_ok, "train": train_ok,
         "train recompute": recompute_ok, "grads": grad_ok, "fit": fit_ok,
         "fit resume": resume_ok, "fit diverge": diverge_ok, "fit bert": fit_bert_ok,
         "amp": amp_ok, "bert": bert_ok, "bert grads": bert_grad_ok, "ring": ring_ok,
@@ -10435,10 +10940,13 @@ def main():
     # launches: the serving, generation and training runs' counts, each read
     # just after its path ran; `paged_decode_tp` and `_q8` are K2's and K4's
     # launches through the per-shard wrappers (the tp phase), timed per
-    # shard at the tp phase's decode step
+    # shard at the tp phase's decode step; `paged_decode_cp_tp` and `_q8`
+    # K5's per head shard (its tp x cp part), timed per shard at the cp
+    # decode step
     runs = [counts, *prefix_counts, gen_counts, dense_counts, fault_counts,
             obs_counts, lora_counts, lora_solo_counts, sessions_counts,
-            *disagg_counts, *fleet_counts, *tp_counts, *cp_counts,
+            *disagg_counts, *fleet_counts, *tp_counts, *roles_counts,
+            *tpcp_counts, *cp_counts,
             *f32_counts, train_counts, fit_counts, eval_counts, fit_bert_counts,
             amp_counts, bert_counts, *ring_counts, lc_counts, lc2_counts,
             *vision_counts, *(jit_counts[p] for p in "abceg"), gpt_counts,
@@ -10500,6 +11008,8 @@ def main():
         ("paged_decode_fused_q8_mma", "paged_decode.cu", 961),
         ("paged_decode_tp", "paged_decode.cu", 1116),
         ("paged_decode_tp_q8", "paged_decode.cu", 1148),
+        ("paged_decode_cp_tp", "paged_decode.cu", 1411),
+        ("paged_decode_cp_tp_q8", "paged_decode.cu", 1411),
         ("flash_bwd", "flash_bwd.cu", 415),
         ("flash_bwd_wgmma", "flash_bwd.cu", 415),
         ("flash_fwd_masked", "flash_fwd.cu", 186),

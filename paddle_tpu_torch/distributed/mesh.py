@@ -3,7 +3,7 @@
 process.
 
 The reference's mesh is a named `jax.sharding.Mesh` over devices, with one
-axis per kind of parallelism.  Here two axes run, each with its ranks in
+axis per kind of parallelism.  Here three axes run, each with its ranks in
 one process, taking turns on their device:
 
 - `sep` (ring attention, Ulysses): R ranks on one explicit device; the
@@ -17,12 +17,17 @@ one process, taking turns on their device:
   that card for several ranks.  The row-parallel all-reduce (`reduce`) and
   the all-gather (`all_gather`) are explicit operations over the ranks'
   tensors: ranks on one device are summed and concatenated there.
+- `cp` beside `mp` (tensor x context parallel serving, the reference's
+  ('cp', 'mp') serving mesh): the mesh records the degree; every mp
+  rank's page arena splits into cp page shards on the rank's own device,
+  walked by one K5 launch per rank (`paged_decode_cp_tp`), so the cp
+  shards need no devices of their own.  cp alone needs no mesh: the
+  context-parallel engine keeps its page shards without one.
 
-Ranks on distinct devices, and any other axis of degree > 1, raise
-NotImplementedError: the cross-card transport (NCCL) is ROADMAP Queue 1
-item 17.
+Ranks on distinct devices, cp without mp, and any other axis of degree >
+1, raise NotImplementedError: the cross-card transport (NCCL) is ROADMAP
+Queue 1 item 17.
 """
-
 from __future__ import annotations
 
 import torch
@@ -35,8 +40,10 @@ AXIS_ORDER = ("pp", "dp", "sharding", "sep", "ep", "cp", "mp")
 
 class Mesh:
     """A mesh of the port: `shape` maps every axis of AXIS_ORDER to its
-    degree, `device` is where the ranks run and `devices` lists the 'mp'
-    ranks' devices (rank r on devices[r]; one entry when mp is 1)."""
+    degree (`{a: n for a, n in shape.items() if n > 1}` is the reference's
+    /healthz `mesh_shape`), `device` is where the ranks run and `devices`
+    lists the 'mp' ranks' devices (rank r on devices[r]; one entry when mp
+    is 1).  A 'cp' degree beside 'mp' is each rank's page shard count."""
 
     def __init__(self, shape, device, devices=None):
         self.axis_names = AXIS_ORDER
@@ -100,8 +107,9 @@ def build_mesh(dp=1, mp=1, pp=1, sharding=1, sep=1, ep=1, cp=1, device=None,
                devices=None):
     """Create and install the global mesh: the `sep` axis of `sep` ranks on
     `device` (None: the CUDA card; pass device="cpu" for the plain
-    versions), or the `mp` axis of `mp` ranks on `devices` (see the module
-    docstring).  Every other degree must be 1, and `sep` and `mp` do not
+    versions), or the `mp` axis of `mp` ranks on `devices`, with `cp` page
+    shards on each rank's device (see the module docstring).  Every other
+    degree must be 1, `cp` needs `mp` > 1, and `sep` and `mp` do not
     combine."""
     global _global_mesh
     degrees = {"pp": pp, "dp": dp, "sharding": sharding, "sep": sep, "ep": ep,
@@ -110,12 +118,9 @@ def build_mesh(dp=1, mp=1, pp=1, sharding=1, sep=1, ep=1, cp=1, device=None,
         if int(n) < 1:
             raise ValueError(f"build_mesh: {name} must be >= 1, got {n}")
         degrees[name] = int(n)
-    if degrees["mp"] > 1 and degrees["cp"] > 1:
-        raise NotImplementedError(
-            "build_mesh: mp with cp (K5 per head shard) is not ported to "
-            "paddle_tpu_torch yet (ROADMAP Queue 1: item 15b, tensor x "
-            "context parallelism)")
     for name, n in degrees.items():
+        if name == "cp" and degrees["mp"] > 1:
+            continue  # the page shards of every mp rank, on its device
         if name not in ("sep", "mp") and n != 1:
             raise NotImplementedError(
                 f"build_mesh: {name}={n} is not ported; only the sep and mp "
@@ -138,9 +143,12 @@ def serving_mesh(tp, cp=1, devices=None):
     """Build and install a serving mesh (reference: mesh.py:51-75): the
     'mp' axis of `tp` ranks on `devices` (one torch device per rank; a
     device named several times holds several ranks) or on the visible CUDA
-    devices, each once.  Raises ShardingError when there are fewer than tp
-    devices, NotImplementedError for cp > 1 (with tp > 1 ROADMAP item 15b;
-    the context-parallel engine's page shards need no mesh)."""
+    devices, each once, and with tp > 1 a 'cp' degree of `cp` page shards
+    on every rank's device (the reference's ('cp', 'mp') mesh, whose cp
+    shards are devices of their own).  Raises ShardingError when there are
+    fewer than tp devices, NotImplementedError for cp > 1 at tp 1 (the
+    context-parallel engine's page shards need no mesh; cp shards on
+    devices of their own are ROADMAP item 17)."""
     cp = int(cp) if cp else 1
     return build_mesh(mp=int(tp), cp=cp, devices=devices)
 

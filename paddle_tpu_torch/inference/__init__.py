@@ -155,13 +155,14 @@ def serve(engine, port=8866, host="127.0.0.1", block=True, supervise=True,
       answers 503; a bad body, or a request the model refuses, answers 400.
       Error bodies carry "error", "type", "retriable", "retry_after_s" and
       "trace_id", as the reference's do.
-    - POST /reserve (engine): {"prompt_len": L, "max_new_tokens": n,
+    - POST /reserve (engine, a decode role of any tp degree):
+      {"prompt_len": L, "max_new_tokens": n,
       "ttl_s": t} holds decode-side pages before a prefill starts
       elsewhere (`engine.reserve_pages`): {"reservation", "pages",
       "ttl_s"}, or a retriable 503 QueueFull when the headroom is not
       there; a bad body answers 400.
-    - POST /prefill (engine; reference: inference/__init__.py:464-570):
-      one prompt (a batch answers 400) prefilled with one sampled token
+    - POST /prefill (engine of any tp degree; reference: inference/
+      __init__.py:464-570): one prompt (a batch answers 400) prefilled with one sampled token
       and its committed prompt rows exported: {"first_token",
       "prompt_len", "handoff"}, the payload a decode-role engine imports
       through /generate's "handoff".  With "export": false nothing is
@@ -172,7 +173,7 @@ def serve(engine, port=8866, host="127.0.0.1", block=True, supervise=True,
     - GET /health: {"status": "ok"}.
     - GET /healthz: an engine's status (ready, live, draining, dead),
       occupancy, queue depth, restarts, drain estimate, deadline-miss rate,
-      mesh and tokens per step (503 unless ready or live); a predictor's
+      role, tp, cp, mesh and tokens per step (503 unless ready or live); a predictor's
       {"status": "ready"} (or "draining").
     - GET /metrics: every profiler family as Prometheus text
       (`obs.metrics.render`), each sample labelled {replica="host:port"}

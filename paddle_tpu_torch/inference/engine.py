@@ -214,10 +214,25 @@ LoRA arena is cut per rank (`AdapterArena.shard_for_tp`).  `/healthz`
 carries tp and the mesh's shape, the mesh gauges `2 x layers + 1`
 reduces per step.
 
-Not ported yet (ROADMAP, Queue 1): tp with cp (item 15b: K5 per head
-shard), tp with a disaggregated role or `export_kv` (item 15c), and tp
-ranks or cp shards across cards (NCCL, item 17).  A knob that asks for one
-of them raises NotImplementedError.
+Tensor x context parallelism (`tp=` with `cp=`; reference: engine.py:
+396-414, the ('cp', 'mp') serving mesh): every rank's arena holds the
+pool's pages of its kv heads, the one `PagePool`'s cp shard ranges the
+same on every rank, and the paged attention of a decode step, verify
+window or chunk prefill is one K5 launch per rank over its arena's cp
+shards (`paged_decode_cp_tp`), every rank reading the one set of stacked
+local tables.  The mesh gauges add the cp merge's layers.
+
+A role (`role="prefill"` / `"decode"`) and `export_kv` take any tp
+degree (reference: engine.py:2989-3033, :1024-1075).  The export gathers
+each rank's prompt pages on its device and joins the ranks' rows into
+whole kv heads (`paging.join_kv_heads`) before the one copy to the host,
+so the wire carries whole heads whatever the degree; the import lands each
+rank's head block of the tiles (`paging.split_kv_heads`) in that rank's
+arena inside the one import graph.  A tp-2 prefill worker may hand off
+to a tp-1 decode worker and the reverse.
+
+Not ported yet (ROADMAP, Queue 1): tp ranks or cp shards across cards
+(NCCL, item 17), which raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -256,10 +271,12 @@ from .paging import (
     check_scale_arenas,
     check_table_bounds,
     deserialize_kv_handoff,
+    join_kv_heads,
     kv_page_bytes,
     serialize_kv_handoff,
     shard_kv_for_tp,
     spec_write_pages,
+    split_kv_heads,
     validate_kv_quant,
     wire_dtype_name,
 )
@@ -372,13 +389,6 @@ class NonFiniteLogits(FloatingPointError):
 class _StaleEngine(Exception):
     """Internal: a restart superseded the scheduler generation this thread
     was started for; abort without touching engine state or the card."""
-
-
-def _not_ported(knob, item):
-    return NotImplementedError(
-        f"{knob} is not ported to paddle_tpu_torch yet (ROADMAP Queue 1: "
-        f"{item})"
-    )
 
 
 class EngineRequest:
@@ -503,7 +513,7 @@ class ContinuousBatchingEngine:
                         else role).strip().lower()
         self.tp = int(flag("FLAGS_serve_tp") if tp is None else tp)
         self.cp = int(flag("FLAGS_serve_cp") if cp is None else cp)
-        self._check_not_ported(paged, lora, self.tp, self.cp, self.role)
+        self._check_roles(paged, lora, self.role)
         self.paged = paged
         self.session_max = int(flag("FLAGS_serve_session_max")
                                if session_max is None else session_max)
@@ -746,9 +756,10 @@ class ContinuousBatchingEngine:
         """Tensor-parallel serving (reference: engine.py:380-428): typed
         ShardingErrors at construction, divisibility and the device count
         first (`validate_tp`), then the model's own degree; the 'mp' mesh on
-        `devices` (one per rank; None: the visible CUDA devices, each once)
-        and the model's parallel layers bound to it.  Returns the mesh, or
-        None at tp = 1."""
+        `devices` (one per rank; None: the visible CUDA devices, each once),
+        with the engine's cp degree, and the model's parallel layers bound
+        to it.  Returns the mesh, or None at tp = 1 (cp alone needs no
+        mesh)."""
         from ..distributed import mesh as _mesh_mod
         from ..distributed.sharding import ShardingError, validate_tp
         from ..models.llama import shard_llama_for_tp
@@ -770,7 +781,9 @@ class ContinuousBatchingEngine:
                 f"{self.tp}) so its projections are the column/row-parallel "
                 "layers the mesh shards"
             )
-        mesh = _mesh_mod.serving_mesh(self.tp, devices=devices)
+        # the 'cp' degree rides along: every rank's arena carries the cp
+        # page shards on the rank's own device
+        mesh = _mesh_mod.serving_mesh(self.tp, cp=self.cp, devices=devices)
         shard_llama_for_tp(model, mesh)
         return mesh
 
@@ -789,7 +802,7 @@ class ContinuousBatchingEngine:
         return [fn(x) for x in entry] if isinstance(entry, list) else fn(entry)
 
     @staticmethod
-    def _check_not_ported(paged, lora, tp, cp, role):
+    def _check_roles(paged, lora, role):
         if role not in ("colocated", "prefill", "decode"):
             raise ValueError(
                 f"role must be colocated|prefill|decode, got {role!r}")
@@ -802,14 +815,6 @@ class ContinuousBatchingEngine:
                     f"role={role!r} requires the paged engine: the "
                     "prefill->decode handoff rides the page arenas"
                 )
-        if tp > 1 and cp > 1:
-            raise _not_ported(
-                f"tp={tp} with cp={cp}",
-                "item 15b, tensor x context parallelism: K5 per head shard")
-        if tp > 1 and role != "colocated":
-            raise _not_ported(
-                f"tp={tp} with role={role!r}",
-                "item 15c, tensor parallelism with disaggregated roles")
 
     # -- compiled steps ----------------------------------------------------------
 
@@ -949,15 +954,21 @@ class ContinuousBatchingEngine:
         engine.py:1024-1075): one page of shipped prompt rows into arena
         page dst [1] across every layer.  k_tiles/v_tiles [n_layers,
         page_size, kv_heads, head_dim] (int8 under int8 pages, with their
-        float32 scale tiles [n_layers, page_size, kv_heads, 1]); a partial
-        last page arrives padded, its padding rows past the slot's pos."""
+        float32 scale tiles [n_layers, page_size, kv_heads, 1]), whole kv
+        heads: under tp rank r takes its head block into its own arena; a
+        partial last page arrives padded, its padding rows past the slot's
+        pos."""
         dst = dst.long()
         tiles = {"k": k_tiles, "v": v_tiles, "k_scale": k_scale_tiles,
                  "v_scale": v_scale_tiles}
-        for i, a in enumerate(self._arenas):
+        for i, entry in enumerate(self._arenas):
+            ranks = entry if isinstance(entry, list) else [entry]
             for name, t in tiles.items():
-                if t is not None:
-                    getattr(a, name).index_copy_(0, dst, t[i:i + 1])
+                if t is None:
+                    continue
+                # whole kv heads on the wire; rank r lands its head block
+                for a, part in zip(ranks, split_kv_heads(t[i:i + 1], len(ranks))):
+                    getattr(a, name).index_copy_(0, dst, part)
         return ()
 
     def _paged_views(self, tables, local):
@@ -1209,10 +1220,6 @@ class ContinuousBatchingEngine:
             raise ValueError(
                 "export_kv requires the paged engine (the handoff payload is "
                 "the committed page rows)")
-        if export_kv and self.tp > 1:
-            raise _not_ported(
-                f"export_kv at tp={self.tp}",
-                "item 15c, tensor parallelism with disaggregated roles")
         staged = None
         if handoff is not None:
             # typed refusals before the request queues: a wrong role, a
@@ -1361,7 +1368,7 @@ class ContinuousBatchingEngine:
             # zero tiles onto scratch page 0 (reference: engine.py:1296):
             # no live sequence maps it
             tile = (len(self._arenas), self.page_size, self._kv_heads)
-            elem = self._arenas[0].k.dtype
+            elem = self._flat_arenas()[0].k.dtype
             inp = {"k_tiles": torch.zeros(tile + (self._head_dim,), dtype=elem),
                    "v_tiles": torch.zeros(tile + (self._head_dim,), dtype=elem)}
             if self.kv_quant == "int8":
@@ -2652,6 +2659,13 @@ class ContinuousBatchingEngine:
         pool, ps = self._pool, self.page_size
         check_table_bounds(self._page_table, pool.num_pages)
         check_scale_arenas(self._flat_arenas(), pool.num_pages, ps)
+        for a in self._flat_arenas():
+            # every rank's arena holds the pool's pages: a page id, and
+            # each cp shard's page range, name the same rows on every rank
+            if a.k.shape[0] != pool.num_pages or a.v.shape[0] != pool.num_pages:
+                raise AssertionError(
+                    f"page invariant: a rank arena holds {a.k.shape[0]} pages, "
+                    f"the pool {pool.num_pages}")
         expected = np.zeros(pool.num_pages, np.int64)
         expected[list(pool.scratch_pages)] = 1
         for s in range(self.slots):
@@ -2764,11 +2778,14 @@ class ContinuousBatchingEngine:
     def _export_rows_locked(self, s, L):
         """Slot s's rows [0, L) of every layer's arena tensors, read through
         its page mapping as stored: {name: [n_layers, rows, kv_heads, ...]}
-        host tensors, rows the prompt's pages' worth.  One `index_select`
-        per arena tensor gathers the prompt's pages into one device buffer
-        per element type (K and V, and the int8 scales), and each buffer
-        reaches the host in one copy (pinned on the card), on the engine's
-        stream after the steps already dispatched.  Caller holds _mu."""
+        host tensors, rows the prompt's pages' worth, whole kv heads.  One
+        `index_select` per arena tensor gathers the prompt's pages into one
+        device buffer per element type (K and V, and the int8 scales); under
+        tp each rank gathers its own arena's pages into its buffer, and the
+        ranks' buffers join into whole kv heads in rank order
+        (`join_kv_heads`).  Each buffer reaches the host in one copy (pinned
+        on the card), on the engine's stream after the steps already
+        dispatched.  Caller holds _mu."""
         ps = self.page_size
         n = -(-L // ps)
         idx = torch.tensor(self._slot_pages[s][:n], dtype=torch.long,
@@ -2776,21 +2793,30 @@ class ContinuousBatchingEngine:
         groups = [("k", "v")]
         if self.kv_quant == "int8":
             groups.append(("k_scale", "v_scale"))
+        layers = [x if isinstance(x, list) else [x] for x in self._arenas]
+        n_layers = len(layers)
         pin = self.device.type == "cuda"
         host = {}
         with torch.no_grad():
             for names in groups:
-                ref = getattr(self._arenas[0], names[0])
-                dev = torch.empty((len(names), len(self._arenas), n) + ref.shape[1:],
-                                  dtype=ref.dtype, device=self.device)
+                parts = []
+                for r in range(len(layers[0])):
+                    ref = getattr(layers[0][r], names[0])
+                    dev = torch.empty((len(names), n_layers, n) + ref.shape[1:],
+                                      dtype=ref.dtype, device=self.device)
+                    for j, name in enumerate(names):
+                        for i, ranks in enumerate(layers):
+                            torch.index_select(getattr(ranks[r], name), 0, idx,
+                                               out=dev[j, i])
+                    # [names x layers, rows, rank's kv heads, ...]
+                    parts.append(dev.view((len(names) * n_layers, n * ps)
+                                          + ref.shape[2:]))
+                whole = join_kv_heads(parts)
+                buf = torch.empty(whole.shape, dtype=whole.dtype, pin_memory=pin)
+                buf.copy_(whole, non_blocking=pin)
+                buf = buf.view((len(names), n_layers) + whole.shape[1:])
                 for j, name in enumerate(names):
-                    for i, a in enumerate(self._arenas):
-                        torch.index_select(getattr(a, name), 0, idx, out=dev[j, i])
-                buf = torch.empty(dev.shape, dtype=dev.dtype, pin_memory=pin)
-                buf.copy_(dev, non_blocking=pin)
-                for j, name in enumerate(names):
-                    host[name] = buf[j].view((len(self._arenas), n * ps)
-                                             + ref.shape[2:])
+                    host[name] = buf[j]
             if pin:
                 torch.cuda.current_stream(self.device).synchronize()
         return host

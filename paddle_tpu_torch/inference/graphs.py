@@ -169,7 +169,14 @@ class _Capture:
 
     def stream(self):
         while len(self.streams) <= self.depth:
-            self.streams.append(torch.cuda.Stream(self.index))
+            # torch hands out new streams round-robin from a fixed pool that
+            # also holds the capturing stream (`torch.cuda.graph`'s default):
+            # skip a stream that a capture or a body already uses
+            busy = set(_captures) | {s.cuda_stream for s in self.streams}
+            side = torch.cuda.Stream(self.index)
+            while side.cuda_stream in busy:
+                side = torch.cuda.Stream(self.index)
+            self.streams.append(side)
         return self.streams[self.depth]
 
     def route(self):

@@ -183,6 +183,26 @@ def shard_kv_for_tp(cache, mesh):
     return out
 
 
+def join_kv_heads(parts):
+    """The ranks' rows of one KV buffer joined into whole kv heads, in rank
+    order: `parts[r]` is rank r's [..., rows, kv_heads/N, d] block (K or V,
+    or under int8 a float32 scale block [..., rows, kv_heads/N, 1]), the
+    kv heads on `KV_TP_AXIS`.  Inverse of `split_kv_heads`; one rank's
+    block comes back as it is."""
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=KV_TP_AXIS)
+
+
+def split_kv_heads(tiles, ranks):
+    """Whole-head tiles ([..., rows, kv_heads, d], K or V or an int8 scale
+    tile [..., rows, kv_heads, 1]) as `ranks` views, rank r's the kv heads
+    [r*hk/N, (r+1)*hk/N) that `shard_kv_for_tp` gives rank r's arena."""
+    hk = tiles.shape[KV_TP_AXIS]
+    if hk % ranks:
+        raise ValueError(f"{hk} kv heads do not split over {ranks} ranks")
+    n = hk // ranks
+    return [tiles.narrow(KV_TP_AXIS, r * n, n) for r in range(ranks)]
+
+
 def check_table_bounds(table, num_pages):
     """Raise ValueError unless every entry of the host page table `table`
     ([..., P] int array) lies in [0, num_pages)."""

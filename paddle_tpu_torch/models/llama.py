@@ -12,9 +12,10 @@ mesh, ring attention's K1 and K3 launches; with `sep_degree`, Ulysses);
 the paged decode step and the chunk prefill of a prefix-cache hit
 the `paged_decode_fused` kernel, or `paged_decode_fused_q8` over an int8
 arena (under tensor parallelism one launch per rank over its head shard,
-`paged_decode_tp`), and under context parallelism one `paged_decode_partials` launch
-per cp shard (the speculative verify window is a decode step of k + 1
-rows); a training backward the `flash_bwd` kernel.  Against a static
+`paged_decode_tp`), and under context parallelism one `paged_decode_cp`
+launch over every cp shard (per rank under tensor x context parallelism,
+`paged_decode_cp_tp`; the speculative verify window is a decode step of
+k + 1 rows); a training backward the `flash_bwd` kernel.  Against a static
 cache, a lock-step prefill of 64+ rows runs the `dense_decode` kernel and
 shorter chunks and decode steps (the slot pool's too) `paged_decode_fused`
 over the cache's page view (`decode_attention`); the slot pool's prefill
@@ -52,6 +53,7 @@ from ..ops.flash_attention import (
     decode_attention,
     dense_page_table,
     paged_decode_attention,
+    paged_decode_cp_tp,
     paged_decode_q8_tp,
     paged_decode_tp,
     sdpa,
@@ -462,8 +464,10 @@ class LlamaMLP(nn.Module):
 def _paged_read_tp(qs, views, pos, max_len, table=None):
     """Rank r's paged attention of qs[r] over views[r]'s arena shard, every
     rank's in one call: `paged_decode_tp` (K2 per head shard) or, over int8
-    pages, `paged_decode_q8_tp` (K4); the "gather" oracle per rank.  The
-    ranks share the page table and positions."""
+    pages, `paged_decode_q8_tp` (K4); under cp > 1 `paged_decode_cp_tp`
+    (K5 per head shard, every rank over the views' shared `local` tables);
+    the "gather" oracle per rank.  The ranks share the page table and
+    positions."""
     v0 = views[0]
     tables = v0.tables if table is None else table
     if v0.kernel == "gather":
@@ -473,10 +477,14 @@ def _paged_read_tp(qs, views, pos, max_len, table=None):
                 for q, v in zip(qs, views)]
     ks = [v.arena.k for v in views]
     vs = [v.arena.v for v in views]
-    if v0.arena.quant == "int8":
-        return paged_decode_q8_tp(qs, ks, vs, [v.arena.k_scale for v in views],
-                                  [v.arena.v_scale for v in views], tables, pos,
-                                  max_len)
+    quant = v0.arena.quant == "int8"
+    scales = ([v.arena.k_scale for v in views], [v.arena.v_scale for v in views]
+              ) if quant else (None, None)
+    if v0.cp > 1:
+        return paged_decode_cp_tp(qs, ks, vs, tables, pos, max_len, v0.cp,
+                                  None, *scales, local=v0.local)
+    if quant:
+        return paged_decode_q8_tp(qs, ks, vs, *scales, tables, pos, max_len)
     return paged_decode_tp(qs, ks, vs, tables, pos, max_len)
 
 
@@ -521,8 +529,9 @@ class LlamaAttention(nn.Module):
         q head stays with its kv head under GQA -- with RoPE, the writes into
         its own arena shard (`cache[r]`, one view per rank) and attention
         over its heads: a fresh prefill through K1, a decode step, verify
-        window or chunk prefill through K2 (K4 over int8 pages), one launch
-        per rank.  The ranks' o_proj partials meet in the reduce."""
+        window or chunk prefill through K2 (K4 over int8 pages; K5 over
+        the rank's cp page shards under cp > 1), one launch per rank.  The
+        ranks' o_proj partials meet in the reduce."""
         b, s = x.shape[0], x.shape[1]
         R = self.q_proj.ranks
         hq, hk, d = self.num_heads // R, self.num_kv_heads // R, self.head_dim

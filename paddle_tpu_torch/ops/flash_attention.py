@@ -32,7 +32,11 @@ training paths:
   `shard_map`s of K2 and K4 over heads): tensor-parallel paged attention,
   one `paged_decode_fused` (or `_q8`) launch per rank over its head shard;
   their `paged_decode_tp` / `paged_decode_tp_q8` counts are a subset of
-  K2's and K4's.
+  K2's and K4's.  `paged_decode_cp_tp` (replaces the reference's K5
+  `shard_map` over the ('cp', 'mp') mesh) is the same per rank for
+  tensor x context parallelism: one `paged_decode_cp` launch per rank over
+  its head shard's cp page shards, counted under `paged_decode_cp_tp` /
+  `paged_decode_cp_tp_q8` (a subset of K5's count).
 - `paged_decode_partials` (csrc/paged_decode.cu, K2's page walk with a
   token position per table column and un-normalised output; replaces
   `_fused_paged_decode_partials_forward`): context-parallel paged
@@ -107,7 +111,8 @@ launch_counts = {"flash_fwd": 0, "paged_decode_fused": 0,
                  "paged_decode_fused_cp_mma": 0, "paged_decode_fused_cp_q8_mma": 0,
                  "paged_decode_fused_walk": 0, "paged_decode_fused_q8_walk": 0,
                  "paged_decode_fused_cp_walk": 0, "paged_decode_fused_cp_q8_walk": 0,
-                 "paged_decode_tp": 0, "paged_decode_tp_q8": 0}
+                 "paged_decode_tp": 0, "paged_decode_tp_q8": 0,
+                 "paged_decode_cp_tp": 0, "paged_decode_cp_tp_q8": 0}
 
 MAX_HEAD_DIM = 256
 # (row, key) pairs one block of the FMA paged kernel takes on, about: a
@@ -1223,7 +1228,8 @@ def paged_decode_fused_q8(q, arena_k, arena_v, k_scale, v_scale, tables, pos,
 
 def _per_shard(what, launch, qs, *shards):
     """One `launch` per rank over rank r's operands; counts the launches of
-    ranks on the card under `what` (a subset of K2's or K4's count)."""
+    ranks on the card under `what` (a subset of K2's, K4's or K5's
+    count)."""
     if len({len(qs), *(len(x) for x in shards)}) != 1:
         raise ValueError(f"{what}: one q, arena (and scale) shard per rank")
     outs = []
@@ -1482,6 +1488,47 @@ def paged_decode_cp(q, arena_k, arena_v, tables, pos, max_len, cp, scale=None,
               ps, P, int(max_len), float(scale), _dtype_code(q, what), _stream(q))
     _count(code, what, path, out)
     return out
+
+
+def paged_decode_cp_tp(qs, arenas_k, arenas_v, tables, pos, max_len, cp,
+                       scale=None, k_scales=None, v_scales=None, local=None):
+    """Tensor x context parallel paged attention (the reference's
+    `_fused_paged_decode_cp_impl` under a ('cp', 'mp') mesh,
+    flash_attention.py:1411-1496): one `paged_decode_cp` launch (K5, every
+    cp shard of the rank's arena in one launch, then the split combine)
+    per rank, over the rank's q heads qs[r] [b, sq, h/N, d] and its arena
+    shard arenas_k[r] / arenas_v[r] [pages, page_size, kv_h/N, d], whose
+    page axis splits into the cp shards exactly as a whole arena's does
+    (int8 arenas with their scale shards k_scales[r] / v_scales[r]).  The
+    ranks share the global tables [b, P], pos [b] and one `local`
+    (`cp_stacked_tables` of tables, derived here when None): page ids and
+    shard ranges are the same on every rank.
+
+    The reference computes (acc, m, l) per (cp shard, mp rank) and merges
+    them over cp with a pmax and two psums; a kv head's rows never meet
+    another head's, so merging rank r's cp partials inside rank r's launch
+    is the same function, head for head: the output of rank r is the
+    reference's output for q heads [r*h/N, (r+1)*h/N).  On CPU tensors
+    each rank runs `paged_decode_cp`'s plain path (`paged_decode_partials`
+    per shard, `cp_softmax_combine`).  Returns the ranks' outputs [b, sq,
+    h/N, d]."""
+    quant = k_scales is not None
+    if quant != (v_scales is not None):
+        raise ValueError("k_scales and v_scales must be given together")
+    if local is None:
+        per_shard = arenas_k[0].shape[0] // cp
+        local = cp_stacked_tables(tables, cp, per_shard, arenas_k[0].shape[1])
+    if quant:
+        return _per_shard(
+            "paged_decode_cp_tp_q8",
+            lambda q, k, v, ks, vs: paged_decode_cp(q, k, v, tables, pos, max_len, cp,
+                                                    scale, ks, vs, local),
+            qs, arenas_k, arenas_v, k_scales, v_scales)
+    return _per_shard(
+        "paged_decode_cp_tp",
+        lambda q, k, v: paged_decode_cp(q, k, v, tables, pos, max_len, cp, scale,
+                                        local=local),
+        qs, arenas_k, arenas_v)
 
 
 def paged_decode_attention(q, arena_k, arena_v, tables, pos, max_len,

@@ -29,6 +29,9 @@ the spawn path: a failed spawn is absorbed, counted and retried after the
 cooldown.  A spawn's tensor-parallel degree is `choose_tp`'s (the
 reference's rule): the largest power of two up to `tp_max` that fits the
 devices no replica claims and divides `kv_heads`; on one card that is 1.
+A role pool (`role="prefill"` or `"decode"`) spawns tp role replicas
+(`--tp N --role R`), whose handoffs carry whole kv heads whatever either
+side's degree.
 A scale-down rides the admin drain of `rolling_restart`: the
 router stops picking the victim, the loop polls its probe until in-flight
 work is done (bounded by `FLAGS_serve_drain_grace`), and only then

@@ -20,7 +20,9 @@ seed holds the same weights, so greedy outputs are the same whichever
 replica answers (what failover relies on).  The worker runs on the CUDA
 card; `--device cpu` asks for the CPU.  `--tp N` serves the model's
 tensor-parallel build over N ranks on the devices `--devices` names (one
-per rank; default the visible CUDA devices, each once).
+per rank; default the visible CUDA devices, each once), in any `--role`:
+a tp prefill worker exports whole kv heads, a tp decode worker imports
+them, so a pair's degrees need not match.
 """
 
 # PEP 366 bootstrap: the launch Container execs this file as a plain script

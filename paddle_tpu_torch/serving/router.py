@@ -38,6 +38,9 @@ The routing contract:
   worker.  `pick_pair()` scores prefill workers on compute backlog and
   decode workers on page headroom; page-starved decode workers are
   skipped, and with none left the request gets 503 NoDecodeCapacity.
+  A pair's tensor-parallel degrees need not match: the handoff carries
+  whole kv heads, so a tp-2 prefill worker hands off to a tp-1 decode
+  worker and the reverse, and the pick never reads the degree.
   Every hop failure before decode bytes cross is a zero-token failover
   of the whole pipeline (the prefill is deterministic, so the retry's
   tokens are the same); an abandoned reservation lapses at its TTL.
@@ -425,7 +428,8 @@ class Router:
         with no free page is skipped; when every decode worker is starved
         this raises NoDecodeCapacity.  A side with no ready replica comes
         back None (the caller falls back to the colocated path).  Breaker
-        gates are taken in score order."""
+        gates are taken in score order.  The two sides' tp degrees may
+        differ: the wire is whole kv heads."""
         pre_c, dec_c = [], []
         dec_starved = False
         for i, rep in enumerate(self.replicas):

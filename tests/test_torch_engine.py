@@ -192,11 +192,6 @@ def test_submit_rejects_what_cannot_fit(models):
         # the reference's ValueError
         pytest.param(dict(role="decode", paged=False), "requires the paged engine",
                      ValueError, id="knob7-disaggregated"),
-        # the combinations the reference serves that the tp slice leaves out
-        pytest.param(dict(tp=2, cp=2, devices=["cpu"] * 2), "item 15b",
-                     NotImplementedError, id="knob8-tp-x-cp"),
-        pytest.param(dict(tp=2, role="prefill", devices=["cpu"] * 2), "item 15c",
-                     NotImplementedError, id="knob9-tp-with-a-role"),
     ],
 )
 def test_unported_knobs_raise_naming_the_roadmap_item(models, knob, item, error):

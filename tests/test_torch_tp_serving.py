@@ -15,11 +15,14 @@ on, in float32:
 - a warm restart keeps the rank arenas and every graph, and the tokens;
 - `/healthz`, `/metrics` and the flight header carry the mesh;
 - one decode step runs K2 once per rank and layer (a spy on the wrapper);
-- `validate_tp`'s errors and the unsharded-model error are the reference's,
-  and tp x cp, tp with a disaggregated role and export_kv at tp refuse.
+- `validate_tp`'s errors and the unsharded-model error are the reference's;
+  ranks on distinct devices and a serving mesh of cp alone raise naming
+  item 17.
 
 Grouped-query attention, int8 pages and the dense pool are
-`test_torch_tp_pools.py`'s; LoRA co-batches `test_torch_tp_lora.py`'s.
+`test_torch_tp_pools.py`'s; LoRA co-batches `test_torch_tp_lora.py`'s; tp x
+cp (K5 per head shard) `test_torch_tp_cp.py`'s; tp in the disaggregated
+roles and `export_kv` at tp `test_torch_tp_disagg.py`'s.
 """
 
 import json
@@ -285,22 +288,6 @@ def test_engine_rejects_unsharded_model_at_tp(state):
         _port(plain, 4)
 
 
-@pytest.mark.parametrize("kw,match", [
-    pytest.param(dict(cp=2), "item 15b", id="tp-x-cp"),
-    pytest.param(dict(role="decode"), "item 15c", id="tp-decode-role"),
-    pytest.param(dict(role="prefill"), "item 15c", id="tp-prefill-role"),
-])
-def test_refused_combinations_name_their_queue_item(state, kw, match):
-    with pytest.raises(NotImplementedError, match=match):
-        _port(_port_model(state, 2), 2, **kw)
-
-
-def test_export_kv_at_tp_refuses(engines):
-    eng, _ = engines[2]
-    with pytest.raises(NotImplementedError, match="item 15c"):
-        eng.submit(_prompt(5), max_new_tokens=2, export_kv=True)
-
-
 def test_ranks_on_distinct_devices_name_item_17():
     meta = torch.device("meta")
     with pytest.raises(NotImplementedError, match="item 17"):
@@ -315,13 +302,13 @@ def test_ranks_on_distinct_devices_name_item_17():
 
 
 @pytest.mark.parametrize("kw,match", [
-    pytest.param(dict(tp=2, cp=2), "item 15b", id="mp-x-cp"),
     pytest.param(dict(tp=1, cp=2), "item 17", id="cp-alone"),
 ])
 def test_serving_mesh_keeps_the_cp_refusal(kw, match):
-    """Only the 'mp' axis joins `sep`: a serving mesh with cp > 1 raises
-    (the context-parallel engine's page shards need no mesh), naming item
-    15b beside tp > 1, and installs nothing."""
+    """cp joins a serving mesh only beside tp > 1 (each rank's page shards,
+    `test_torch_tp_cp.py`): cp alone raises naming item 17 (the
+    context-parallel engine's page shards need no mesh) and installs
+    nothing."""
     saved = tmesh.get_mesh()
     try:
         with pytest.raises(NotImplementedError, match=match):
